@@ -1,0 +1,233 @@
+"""cvgpuspeedup_tpu_torch: the fused vision-preprocessing engine on PyTorch
+and CUDA.
+
+The port of ``cvgpuspeedup_tpu`` to one NVIDIA H100, module for module. The
+public factory surface mirrors the reference package: factories build ops and
+execute nothing; :func:`execute_operations` runs the whole chain, through the
+hand-written CUDA kernel for a supported pipeline on a CUDA device and
+through the eager PyTorch version otherwise. The package imports torch and
+never jax.
+
+Example (the flagship 50-crop pipeline)::
+
+    import numpy as np, torch
+    import cvgpuspeedup_tpu_torch as cvgs
+
+    frame = torch.from_numpy(frame_u8_hwc).cuda()
+    out = cvgs.execute_operations(
+        cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(64, 128)),
+        cvgs.convert_to(np.float32, alpha=0.3),
+        cvgs.subtract((3.2, 0.6, 11.8)),
+        cvgs.divide((128.0, 128.0, 128.0)),
+        cvgs.split_tensor(),            # planar (N, C, H, W)
+    )
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from .exec.executor import (Pipeline, build_pipeline, clear_cache, describe_backend,
+                            execute_operations, last_backend)
+from .graph import ComputeOp, FusedCompute, IOp, ReadOp, WriteOp, fuse
+from .ops.arithmetic import Add, Div, Mul, Sub
+from .ops.cast import Cast, SaturateCast
+from .ops.memory import (ImageRead, SplitWrite, TensorSplit, TensorSplitPacked, TensorTSplit,
+                         TensorWrite, Write2D)
+from .ops.resize import BatchResizeRead
+from .types import AspectRatio, InterpolationType, ParBackend, Rect, Size
+from .utils import dtypes as _dt
+
+__version__ = "0.1.0"
+
+ArrayLike = Union[np.ndarray, torch.Tensor]
+
+
+def _np_or_tensor(value, dtype):
+    """Factory constants stay numpy (packed into one host-to-device copy per
+    call); tensors pass through on their own device."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return np.asarray(value, _dt.to_numpy_dtype(dtype))
+
+
+def _host_or_tensor(x):
+    return x if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# pointwise factories
+# ---------------------------------------------------------------------------
+
+
+def convert_to(dst_dtype, alpha: Optional[float] = None, beta: Optional[float] = None) -> ComputeOp:
+    """``cvGS::convertTo<I, O>([alpha[, beta]])``: OpenCV ``convertTo``
+    semantics, ``saturate_cast<O>(src * alpha + beta)``, with the multiply
+    and add computed in float when the output is integral."""
+    dst = _dt.to_torch_dtype(dst_dtype)
+    if alpha is None and beta is None:
+        return SaturateCast(dst=dst)
+    if alpha is None:
+        alpha = 1.0
+    stages: list = []
+    if _dt.is_float(dst):
+        stages.append(SaturateCast(dst=dst))
+        stages.append(Mul(value=_np_or_tensor(alpha, dst)))
+        if beta is not None:
+            stages.append(Add(value=_np_or_tensor(beta, dst)))
+    else:
+        stages.append(Cast(dst=torch.float32))
+        stages.append(Mul(value=_np_or_tensor(alpha, np.float32)))
+        if beta is not None:
+            stages.append(Add(value=_np_or_tensor(beta, np.float32)))
+        stages.append(SaturateCast(dst=dst))
+    return FusedCompute(ops=tuple(stages))
+
+
+def multiply(value) -> ComputeOp:
+    return Mul(value=_np_or_tensor(value, np.float32))
+
+
+def add(value) -> ComputeOp:
+    return Add(value=_np_or_tensor(value, np.float32))
+
+
+def subtract(value) -> ComputeOp:
+    return Sub(value=_np_or_tensor(value, np.float32))
+
+
+def divide(value) -> ComputeOp:
+    return Div(value=_np_or_tensor(value, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# read factories
+# ---------------------------------------------------------------------------
+
+
+def image(source: ArrayLike, channels: Optional[int] = None) -> ReadOp:
+    """Wrap a channel-last (H, W, C) or (N, H, W, C) image as a read op.
+
+    ``channels=C`` declares channel-interleaved rows, (H, W*C) or
+    (N, H, W*C), as a raw row-major frame buffer holds them.
+    """
+    arr = _host_or_tensor(source)
+    if channels is not None:
+        if arr.ndim not in (2, 3):
+            raise ValueError("image(channels=) expects packed (H, W*C) or (N, H, W*C) rows")
+        if arr.shape[-1] % channels:
+            raise ValueError(
+                f"packed row length {arr.shape[-1]} is not a multiple of channels={channels}"
+            )
+        return ImageRead(data=arr, is_batch=(arr.ndim == 3), packed_channels=int(channels))
+    return ImageRead(data=arr, is_batch=(arr.ndim == 4))
+
+
+def resize_batch(
+    source: Union[ArrayLike, Sequence[ArrayLike]],
+    dsize: Size,
+    rects: Optional[ArrayLike] = None,
+    used_planes: Optional[ArrayLike] = None,
+    background=0.0,
+    aspect_ratio: AspectRatio = AspectRatio.IGNORE_AR,
+    interpolation: InterpolationType = InterpolationType.INTER_LINEAR,
+    channels: Optional[int] = None,
+) -> BatchResizeRead:
+    """The flagship batched variable-geometry resize
+    (``cvGS::resize<T, INTER_LINEAR, NPtr, AR>``).
+
+    - ``source`` = one frame + ``rects`` (N, 4) ``[x, y, w, h]`` (crops of a
+      frame), or a list of independent images, zero-padded to the largest
+      and stacked.
+    - ``used_planes``: runtime active-plane count (ragged batch); inactive
+      planes emit ``background``.
+    - ``background``: scalar or per-channel; fills inactive planes and the
+      letterbox borders of the PRESERVE_AR modes.
+    """
+    used = None if used_planes is None else _np_or_tensor(used_planes, np.int32)
+    if rects is not None:
+        frame = _host_or_tensor(source)
+        if frame.ndim == 2:
+            frame = frame[..., None]
+        rect_arr = _host_or_tensor(rects)
+        if not isinstance(rect_arr, torch.Tensor):
+            rect_arr = rect_arr.astype(np.int32)
+        if rect_arr.ndim != 2 or rect_arr.shape[1] != 4:
+            raise ValueError("rects must be (N, 4) [x, y, w, h]")
+        nch = channels or int(frame.shape[-1])
+        return BatchResizeRead(
+            frame=frame, stack=None, rects=rect_arr, used_planes=used,
+            background=_dt.as_channel_vector(background, nch, np.float32),
+            dsize=dsize, aspect_ratio=aspect_ratio, interp=interpolation,
+        )
+    imgs = [_host_or_tensor(s) for s in source]
+    imgs = [im[..., None] if im.ndim == 2 else im for im in imgs]
+    nch = channels or int(imgs[0].shape[-1])
+    max_h = max(int(im.shape[0]) for im in imgs)
+    max_w = max(int(im.shape[1]) for im in imgs)
+    shape = (len(imgs), max_h, max_w, nch)
+    if isinstance(imgs[0], torch.Tensor):
+        stack = torch.zeros(shape, dtype=imgs[0].dtype, device=imgs[0].device)
+    else:
+        stack = np.zeros(shape, dtype=imgs[0].dtype)
+    for z, im in enumerate(imgs):
+        stack[z, : im.shape[0], : im.shape[1], :] = im
+    rect_arr = np.asarray([(0, 0, im.shape[1], im.shape[0]) for im in imgs], np.int32)
+    return BatchResizeRead(
+        frame=None, stack=stack, rects=rect_arr, used_planes=used,
+        background=_dt.as_channel_vector(background, nch, np.float32),
+        dsize=dsize, aspect_ratio=aspect_ratio, interp=interpolation,
+    )
+
+
+# ---------------------------------------------------------------------------
+# write factories
+# ---------------------------------------------------------------------------
+
+
+def write() -> WriteOp:
+    """Packed channel-last output (``cvGS::write<O>(GpuMat)``)."""
+    return Write2D()
+
+
+def write_tensor() -> WriteOp:
+    """Packed batch tensor (N, H, W, C) (``fk::TensorWrite``)."""
+    return TensorWrite()
+
+
+def split() -> WriteOp:
+    """Per-channel separate buffers (``cvGS::split<O>(vector<GpuMat>)``)."""
+    return SplitWrite()
+
+
+def split_tensor() -> WriteOp:
+    """Planar (N, C, H, W) tensor (``cvGS::split<O>(GpuMat, planeDims)``)."""
+    return TensorSplit()
+
+
+def split_tensor_transposed() -> WriteOp:
+    """Channel-major (C, N, H, W) tensor (``cvGS::splitT``)."""
+    return TensorTSplit()
+
+
+def split_tensor_packed() -> WriteOp:
+    """Planar tensor as (N, C, H/f, f*W), row-major identical to
+    :func:`split_tensor` (``reshape(N, C, H, W)`` recovers it)."""
+    return TensorSplitPacked()
+
+
+__all__ = [
+    # graph
+    "IOp", "ReadOp", "ComputeOp", "WriteOp", "FusedCompute", "fuse",
+    "Pipeline", "build_pipeline", "execute_operations", "describe_backend",
+    "last_backend", "clear_cache",
+    # types
+    "Size", "Rect", "InterpolationType", "AspectRatio", "ParBackend",
+    # factories
+    "convert_to", "multiply", "add", "subtract", "divide", "image", "resize_batch",
+    "write", "write_tensor", "split", "split_tensor", "split_tensor_transposed",
+    "split_tensor_packed",
+]

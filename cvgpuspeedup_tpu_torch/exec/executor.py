@@ -1,0 +1,191 @@
+"""The executor: ``build_pipeline``, ``execute_operations`` and the plan cache.
+
+Counterpart of ``cvgpuspeedup_tpu/exec/executor.py:70-276``. A pipeline's
+structure (op classes, static fields, leaf shapes and dtypes) is its
+``flatten`` key; its runtime values (frames, rects, scalars) are leaves. The
+first call with a given structure, device type and backend request builds a
+plan: the backend choice and, for the kernel, its op-code table and
+parameter layout. Every later call with new values reuses it. ``PLAN_BUILDS``
+counts the builds.
+
+Devices: tensor leaves stay on their own device and must all share one.
+Numpy and Python leaves move to ``device``, which defaults to the device of
+the tensor leaves, else the CPU. Backends: ``AUTO`` takes the CUDA kernel
+for a CUDA pipeline the kernel supports, and the eager PyTorch version
+otherwise; an explicit ``ParBackend.CUDA`` raises where the kernel cannot
+run. Nothing falls back from a failed build or launch.
+
+The divergent launcher (``build_operation_sequence``,
+``launch_divergent_batch``) comes with the divergent slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..graph import (ComputeOp, FusedCompute, FusedRead, IOp, PendingReadOp, ReadOp, WriteOp,
+                     flatten, map_leaves, op)
+from ..ops.memory import ImageRead, Write2D
+from ..types import ParBackend
+from ..utils.dtypes import as_device_tensor
+from . import cuda_batch_resize
+
+__all__ = [
+    "Pipeline",
+    "build_pipeline",
+    "execute_operations",
+    "clear_cache",
+    "describe_backend",
+    "last_backend",
+]
+
+
+@op
+class Pipeline:
+    """A normalized pipeline: read head, pointwise chain, write tail."""
+
+    read: ReadOp
+    compute: Tuple[ComputeOp, ...]
+    write: WriteOp
+
+    def lower(self):
+        """The eager PyTorch version of the whole pipeline."""
+        x = self.read.lower()
+        for o in self.compute:
+            x = o.apply(x)
+        return self.write.write(x)
+
+
+def build_pipeline(*iops: IOp, input=None) -> Pipeline:
+    """Normalize a user op list into a :class:`Pipeline`.
+
+    ``input=`` supplies the source when the first op is not a read; rank-4
+    sources are batched (N, H, W, C). A missing terminal write defaults to
+    the packed layout.
+    """
+    ops_list = list(iops)
+    if input is not None:
+        if ops_list and isinstance(ops_list[0], ReadOp):
+            raise ValueError("pass either an input array or a leading read op, not both")
+        ops_list.insert(0, ImageRead(data=input, is_batch=(input.ndim == 4)))
+    if not ops_list or not isinstance(ops_list[0], ReadOp):
+        raise ValueError("pipeline needs a read op or an input array at its head")
+    read = ops_list[0]
+
+    if isinstance(ops_list[-1], WriteOp):
+        write = ops_list[-1]
+        middle = ops_list[1:-1]
+    else:
+        write = Write2D()
+        middle = ops_list[1:]
+
+    compute: list = []
+    for o in middle:
+        if isinstance(o, PendingReadOp):
+            if compute:
+                read = FusedRead(read=read, chain=tuple(compute))
+                compute = []
+            read = o.bind(read)
+        elif isinstance(o, FusedCompute):
+            compute.extend(o.ops)
+        elif isinstance(o, ComputeOp):
+            compute.append(o)
+        else:
+            raise TypeError(f"mid-pipeline ops must be compute ops, got {type(o).__name__}")
+    return Pipeline(read=read, compute=tuple(compute), write=write)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    backend: str  # "torch" or "cuda:batch_resize"
+    kernel: Optional[cuda_batch_resize.KernelPlan]
+
+
+_PLANS: Dict[Tuple, _Plan] = {}
+#: plans built in this process; a call with new values only must not add one
+PLAN_BUILDS = 0
+_LAST_BACKEND: Optional[str] = None
+
+
+def clear_cache() -> None:
+    _PLANS.clear()
+
+
+def _resolve_device(leaves, device) -> torch.device:
+    devices = {v.device for v in leaves if isinstance(v, torch.Tensor)}
+    if device is None:
+        if len(devices) > 1:
+            raise ValueError(f"pipeline leaves lie on several devices: {sorted(map(str, devices))}")
+        return devices.pop() if devices else torch.device("cpu")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but no CUDA device is available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    stray = [str(d) for d in devices if d != dev]
+    if stray:
+        raise ValueError(f"pipeline leaves on {sorted(stray)} cannot run on {dev}")
+    return dev
+
+
+def _select(pipeline: Pipeline, backend: ParBackend, dev: torch.device) -> _Plan:
+    """The backend decision, made before anything launches."""
+    if backend == ParBackend.TORCH:
+        return _Plan("torch", None)
+    if backend == ParBackend.CUDA and dev.type != "cuda":
+        raise ValueError(f"ParBackend.CUDA needs CUDA tensors, the pipeline is on {dev}")
+    if dev.type != "cuda":
+        return _Plan("torch", None)
+    try:
+        kernel = cuda_batch_resize.build_plan(pipeline)
+    except cuda_batch_resize.Unsupported as e:
+        if backend == ParBackend.CUDA:
+            raise ValueError(f"ParBackend.CUDA cannot run this pipeline: {e}") from e
+        return _Plan("torch", None)
+    return _Plan("cuda:batch_resize", kernel)
+
+
+def _plan(pipeline: Pipeline, key, backend: ParBackend, dev: torch.device) -> _Plan:
+    global PLAN_BUILDS
+    cache_key = (key, dev.type, backend)
+    plan = _PLANS.get(cache_key)
+    if plan is None:
+        plan = _select(pipeline, backend, dev)
+        PLAN_BUILDS += 1
+        _PLANS[cache_key] = plan
+    return plan
+
+
+def describe_backend(*iops: IOp, input=None, backend: ParBackend = ParBackend.AUTO,
+                     device=None) -> str:
+    """Which backend :func:`execute_operations` would run for this op list:
+    ``"cuda:batch_resize"`` or ``"torch"``."""
+    pipeline = build_pipeline(*iops, input=input)
+    _, leaves = flatten(pipeline)
+    return _select(pipeline, backend, _resolve_device(leaves, device)).backend
+
+
+def last_backend() -> Optional[str]:
+    """The backend of the most recent :func:`execute_operations` call in this
+    process (None before any)."""
+    return _LAST_BACKEND
+
+
+def execute_operations(*iops: IOp, input=None, backend: ParBackend = ParBackend.AUTO,
+                       device=None):
+    """Run the op chain. Returns the output tensor (or a tuple of tensors for
+    ``SplitWrite``). On the kernel path the work is queued on the current
+    CUDA stream and the call returns without waiting for it."""
+    global _LAST_BACKEND
+    pipeline = build_pipeline(*iops, input=input)
+    key, leaves = flatten(pipeline)
+    dev = _resolve_device(leaves, device)
+    plan = _plan(pipeline, key, backend, dev)
+    _LAST_BACKEND = plan.backend
+    if plan.kernel is None:
+        return map_leaves(pipeline, lambda v: as_device_tensor(v, dev)).lower()
+    return cuda_batch_resize.run(pipeline, plan.kernel, dev)

@@ -1,0 +1,126 @@
+"""Memory read and write ops: the image source and the output layouts.
+
+Counterpart of ``cvgpuspeedup_tpu/ops/memory.py``:
+
+  ========================  =============================  =======================
+  reference op              layout written                 here
+  ========================  =============================  =======================
+  PerThreadWrite<_2D,T>     packed HWC image               (H, W, C) / (N, H, W, C)
+  TensorWrite<T>            packed, one image per plane    (N, H, W, C)
+  TensorSplit<T>            planar per image               (N, C, H, W)
+  TensorTSplit<T>           channel-major over the batch   (C, N, H, W)
+  SplitWrite<_2D,T>         C separate buffers             tuple of (N, H, W)
+  ========================  =============================  =======================
+
+Every write returns contiguous tensors in its layout. ``SplitWrite`` returns
+the C planes of one (C, N, H, W) buffer, which is what the CUDA kernel
+writes too.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..graph import ReadOp, WriteOp, op, static_field
+
+
+@op
+class ImageRead(ReadOp):
+    """Read a packed channel-last image (H, W, C) or stack (N, H, W, C).
+
+    Grayscale arrays without a channel axis are read as C=1. With
+    ``packed_channels=C`` the rows are channel-interleaved: ``data`` is
+    (H, W*C), or (N, H, W*C) batched, and ``lower`` views it as (.., W, C).
+    """
+
+    data: torch.Tensor
+    is_batch: bool = static_field(default=False)
+    packed_channels: int = static_field(default=0)
+
+    def lower(self) -> torch.Tensor:
+        x = self.data
+        if self.packed_channels:
+            c = self.packed_channels
+            return x.reshape(x.shape[:-1] + (x.shape[-1] // c, c))
+        min_rank = 4 if self.is_batch else 3
+        if x.ndim == min_rank - 1:
+            x = x[..., None]
+        return x
+
+
+@op
+class Write2D(WriteOp):
+    """Packed channel-last output (``fk::PerThreadWrite``)."""
+
+    def write(self, x: torch.Tensor):
+        return x.contiguous()
+
+
+@op
+class TensorWrite(WriteOp):
+    """Packed tensor, one image per plane (``fk::TensorWrite``): (N, H, W, C)."""
+
+    def write(self, x: torch.Tensor):
+        if x.ndim != 4:
+            raise ValueError(f"TensorWrite expects a batched (N,H,W,C) value, got {tuple(x.shape)}")
+        return x.contiguous()
+
+
+@op
+class TensorSplit(WriteOp):
+    """Planar split per image (``fk::TensorSplit``): (N, C, H, W) or (C, H, W)."""
+
+    def write(self, x: torch.Tensor):
+        if x.ndim == 4:
+            return x.permute(0, 3, 1, 2).contiguous()
+        if x.ndim == 3:
+            return x.permute(2, 0, 1).contiguous()
+        raise ValueError(f"TensorSplit expects (N,H,W,C) or (H,W,C), got {tuple(x.shape)}")
+
+
+def pack_factor(height: int, width: int) -> int:
+    """Row-packing factor for :class:`TensorSplitPacked`: how many consecutive
+    output rows share one 128-lane vector row. 1 when the width already fills
+    the lanes (or the height does not divide)."""
+    f = max(1, 128 // max(1, width))
+    while f > 1 and height % f:
+        f //= 2
+    return f
+
+
+@op
+class TensorSplitPacked(WriteOp):
+    """Planar split as (N, C, H/f, f*W), ``f = pack_factor(H, W)``.
+
+    Row-major identical to :class:`TensorSplit`: ``out.reshape(N, C, H, W)``
+    is the TensorSplit output. The reference package fills 128-lane TPU rows
+    with it; here it is a reshape view of the TensorSplit buffer.
+    """
+
+    def write(self, x: torch.Tensor):
+        if x.ndim != 4:
+            raise ValueError(
+                f"TensorSplitPacked expects a batched (N,H,W,C) value, got {tuple(x.shape)}"
+            )
+        n, h, w, c = x.shape
+        f = pack_factor(h, w)
+        return x.permute(0, 3, 1, 2).contiguous().reshape(n, c, h // f, f * w)
+
+
+@op
+class TensorTSplit(WriteOp):
+    """Transposed planar split (``fk::TensorTSplit``): (C, N, H, W)."""
+
+    def write(self, x: torch.Tensor):
+        if x.ndim != 4:
+            raise ValueError(f"TensorTSplit expects a batched (N,H,W,C) value, got {tuple(x.shape)}")
+        return x.permute(3, 0, 1, 2).contiguous()
+
+
+@op
+class SplitWrite(WriteOp):
+    """One buffer per channel (``fk::SplitWrite``): a tuple of C tensors of
+    shape (H, W), or (N, H, W) for batched pipelines."""
+
+    def write(self, x: torch.Tensor):
+        return tuple(torch.movedim(x, -1, 0).contiguous().unbind(0))

@@ -1,0 +1,214 @@
+"""Bilinear batched crop-resize: the flagship read op.
+
+Counterpart of ``cvgpuspeedup_tpu/ops/resize.py:37-150`` and ``:484-606``.
+The coordinate helpers here are the port's single source of truth for the
+bilinear numerics. ``csrc/batch_resize.cu`` repeats the same arithmetic per
+pixel, operation for operation:
+
+- rational source coordinates ``num = (2q+1)*src - dst``, ``den = 2*dst``,
+  with a *floor* division for the left tap and one correctly rounded f32
+  division for the weight (:func:`axis_lerp`);
+- the f32 division and truncating int conversion of the letterbox fit
+  (:func:`letterbox_geometry`);
+- the lerp association of :func:`bilinear_sample`: horizontal first, then
+  vertical, each as ``a*(1-w) + b*w``, nothing contracted into an FMA.
+
+``ResizeRead`` (one frame, static geometry) comes with the frame slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..graph import ReadOp, op, static_field
+from ..types import AspectRatio, InterpolationType, Size
+
+
+def axis_lerp(q, src_len, dst_len):
+    """Per-output-index source taps and weight for one axis, OpenCV
+    INTER_LINEAR semantics on exact rational coordinates::
+
+        s = ((2q + 1) * src - dst) / (2 * dst)
+
+    ``i0 = floor(num / den)`` is exact; the weight ``(num - i0*den) / den``
+    is one correctly rounded f32 division of exact integers. The weight is
+    forced to 0 when the left tap clamps at either edge, as ``cv::resize``
+    does.
+
+    ``q``: int output indices (may be offset for letterboxing);
+    ``src_len``/``dst_len``: ints or int tensors broadcastable with ``q``.
+    Returns ``(i0, i1, w)``: int32 taps and f32 weights shaped like ``q``.
+    """
+    q = torch.as_tensor(q, dtype=torch.int32)
+    src_len = torch.as_tensor(src_len, dtype=torch.int32, device=q.device)
+    dst_len = torch.as_tensor(dst_len, dtype=torch.int32, device=q.device)
+    num = (2 * q + 1) * src_len - dst_len
+    den = 2 * dst_len
+    i0 = torch.div(num, den, rounding_mode="floor")
+    w = (num - i0 * den).to(torch.float32) / den.to(torch.float32)
+    w = torch.where(i0 < 0, 0.0, w)
+    i0 = torch.clamp_min(i0, 0)
+    w = torch.where(i0 >= src_len - 1, 0.0, w)
+    i0 = torch.minimum(i0, src_len - 1)
+    i1 = torch.minimum(i0 + 1, src_len - 1)
+    return i0, i1, w
+
+
+def letterbox_geometry(crop_w, crop_h, dsize: Size, mode: AspectRatio):
+    """Target sub-rectangle ``(new_w, new_h, ox, oy)`` for one crop size, or
+    for a tensor of them.
+
+    Scale to the target height and truncate the scaled width; if it
+    overflows, scale to the target width instead. Offsets centre the
+    sub-rect, except PRESERVE_AR_LEFT, which anchors it at (0, 0).
+    PRESERVE_AR_RN_EVEN rounds the fitted dims up to even. Returns int32
+    tensors shaped like ``crop_w``.
+    """
+    dst_w, dst_h = dsize.width, dsize.height
+    cw = torch.as_tensor(crop_w).to(torch.float32)
+    ch = torch.as_tensor(crop_h).to(device=cw.device, dtype=torch.float32)
+    if mode == AspectRatio.IGNORE_AR:
+        zero = torch.zeros(cw.shape, dtype=torch.int32, device=cw.device)
+        return zero + dst_w, zero + dst_h, zero, zero
+    scale = torch.tensor(dst_h, dtype=torch.float32, device=cw.device) / ch
+    new_w = (scale * cw).to(torch.int32)  # trunc, as static_cast<int>
+    overflow = new_w > dst_w
+    scale2 = torch.tensor(dst_w, dtype=torch.float32, device=cw.device) / cw
+    new_h2 = (scale2 * ch).to(torch.int32)
+    new_w = torch.where(overflow, dst_w, new_w)
+    new_h = torch.where(overflow, new_h2, dst_h)
+    if mode == AspectRatio.PRESERVE_AR_RN_EVEN:
+        new_w = torch.clamp_max(torch.div(new_w + 1, 2, rounding_mode="floor") * 2, dst_w)
+        new_h = torch.clamp_max(torch.div(new_h + 1, 2, rounding_mode="floor") * 2, dst_h)
+    if mode == AspectRatio.PRESERVE_AR_LEFT:
+        ox = torch.zeros_like(new_w)
+        oy = torch.zeros_like(new_h)
+    else:
+        ox = torch.div(dst_w - new_w, 2, rounding_mode="floor")
+        oy = torch.div(dst_h - new_h, 2, rounding_mode="floor")
+    return new_w, new_h, ox, oy
+
+
+def bilinear_sample(v00, v01, v10, v11, wx, wy):
+    """Bilinear lerp of four f32 corner values: horizontal first, then
+    vertical, each as ``a*(1-w) + b*w``. The association is fixed so that the
+    eager version and the CUDA kernel agree bit for bit."""
+    h0 = v00 * (1.0 - wx) + v01 * wx
+    h1 = v10 * (1.0 - wx) + v11 * wx
+    return h0 * (1.0 - wy) + h1 * wy
+
+
+def sample_batch(src, rects, dsize: Size, mode: AspectRatio, background,
+                 used_planes=None, stack_mode: bool = False) -> torch.Tensor:
+    """The N resized crops, channel-last (N, dstH, dstW, C) float32.
+
+    ``src`` is one frame (H, W, C), or with ``stack_mode`` a stack
+    (N, H, W, C); ``rects`` (N, 4) ``[x, y, w, h]``. Taps are clamped into
+    the source, so a rect that hangs off the right or bottom edge repeats the
+    edge pixel. Pixels outside the letterbox sub-rect, and every pixel of a
+    plane ``z >= used_planes``, take ``background``.
+    """
+    dev = src.device
+    dst_w, dst_h = dsize.width, dsize.height
+    rects = rects.to(device=dev, dtype=torch.int32)
+    x0, y0, w, h = rects.unbind(1)
+    n = rects.shape[0]
+    new_w, new_h, ox, oy = letterbox_geometry(w, h, dsize, mode)
+    col = torch.arange(dst_w, dtype=torch.int32, device=dev)
+    row = torch.arange(dst_h, dtype=torch.int32, device=dev)
+    qx = col[None, :] - ox[:, None]
+    qy = row[None, :] - oy[:, None]
+    # a letterbox side of length 0 masks its whole axis; clamping its
+    # divisor to 1 only keeps the integer division defined
+    i0x, i1x, wx = axis_lerp(qx, w[:, None], new_w.clamp_min(1)[:, None])
+    i0y, i1y, wy = axis_lerp(qy, h[:, None], new_h.clamp_min(1)[:, None])
+    src_h, src_w = src.shape[-3], src.shape[-2]
+    cx0 = (x0[:, None] + i0x).clamp(0, src_w - 1)[:, None, :]
+    cx1 = (x0[:, None] + i1x).clamp(0, src_w - 1)[:, None, :]
+    ry0 = (y0[:, None] + i0y).clamp(0, src_h - 1)[:, :, None]
+    ry1 = (y0[:, None] + i1y).clamp(0, src_h - 1)[:, :, None]
+    if stack_mode:
+        z = torch.arange(n, device=dev)[:, None, None]
+
+        def gather(r, c):
+            return src[z, r, c].to(torch.float32)
+    else:
+
+        def gather(r, c):
+            return src[r, c].to(torch.float32)
+
+    val = bilinear_sample(
+        gather(ry0, cx0), gather(ry0, cx1), gather(ry1, cx0), gather(ry1, cx1),
+        wx[:, None, :, None], wy[:, :, None, None],
+    )
+    inside = (
+        ((col[None, :] >= ox[:, None]) & (col[None, :] < (ox + new_w)[:, None]))[:, None, :, None]
+        & ((row[None, :] >= oy[:, None]) & (row[None, :] < (oy + new_h)[:, None]))[:, :, None, None]
+    )
+    bg = torch.as_tensor(background, device=dev).to(torch.float32)
+    val = torch.where(inside, val, bg)
+    if used_planes is not None:
+        used = torch.as_tensor(used_planes, device=dev).reshape(())
+        z = torch.arange(n, device=dev).reshape(n, 1, 1, 1)
+        val = torch.where(z < used, val, bg)
+    return val
+
+
+@op
+class BatchResizeRead(ReadOp):
+    """The flagship: N variable-geometry crops -> dsize in one pass.
+
+    Exactly one of ``frame``/``stack`` is set:
+
+    - *rect mode*: ``frame`` (H, W, C) + ``rects`` (N, 4) int32
+      ``[x, y, w, h]``: N crops of one frame;
+    - *stack mode*: ``stack`` (N, maxH, maxW, C) zero-padded stack + ``rects``
+      with x=y=0 and each plane's true dims: N independent images.
+
+    ``used_planes`` (runtime scalar) masks ragged batches: planes from it on
+    emit ``background``, a per-channel float32 vector that also fills the
+    letterbox borders of the PRESERVE_AR modes. Output: (N, dstH, dstW, C)
+    float32. With ``packed_channels=C`` the source rows are channel
+    interleaved, frame (H, W*C) or stack (N, H, W*C), as the reference
+    package ingests host frames.
+    """
+
+    frame: Optional[torch.Tensor]
+    stack: Optional[torch.Tensor]
+    rects: torch.Tensor
+    used_planes: Optional[torch.Tensor]
+    background: torch.Tensor
+    dsize: Size = static_field()
+    aspect_ratio: AspectRatio = static_field(default=AspectRatio.IGNORE_AR)
+    interp: InterpolationType = static_field(default=InterpolationType.INTER_LINEAR)
+    packed_channels: int = static_field(default=0)
+
+
+    @property
+    def num_planes(self) -> int:
+        return self.rects.shape[0]
+
+    def source(self):
+        """The logical source: frame (H, W, C) or stack (N, H, W, C)."""
+        s = self.frame if self.frame is not None else self.stack
+        if self.packed_channels:
+            c = self.packed_channels
+            s = s.reshape(s.shape[:-1] + (s.shape[-1] // c, c))
+        return s
+
+    def source_dims(self):
+        """(src_h, src_w, nch) of the logical source plane."""
+        s = self.frame if self.frame is not None else self.stack
+        off = 0 if self.frame is not None else 1
+        if self.packed_channels:
+            c = self.packed_channels
+            return int(s.shape[off]), int(s.shape[off + 1]) // c, c
+        return int(s.shape[off]), int(s.shape[off + 1]), int(s.shape[-1])
+
+    def lower(self) -> torch.Tensor:
+        return sample_batch(
+            self.source(), torch.as_tensor(self.rects), self.dsize, self.aspect_ratio,
+            self.background, self.used_planes, stack_mode=self.stack is not None,
+        )

@@ -1,0 +1,116 @@
+"""Dtype helpers and OpenCV-semantics saturating casts on torch tensors.
+
+Counterpart of ``cvgpuspeedup_tpu/utils/dtypes.py:70-137``. Images are
+channel-last ``(..., C)`` tensors. Static dtype fields of ops hold a
+``torch.dtype``; factories also accept numpy dtypes and convert them with
+:func:`to_torch_dtype`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence, Union
+
+import numpy as np
+import torch
+
+DTypeLike = Any
+
+_NP_TO_TORCH = {
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.int16): torch.int16,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.float16): torch.float16,
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+}
+_TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
+
+
+def to_torch_dtype(dtype: DTypeLike) -> torch.dtype:
+    """A ``torch.dtype`` for a torch dtype, a numpy dtype or a numpy type."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _NP_TO_TORCH[np.dtype(dtype)]
+
+
+def to_numpy_dtype(dtype: DTypeLike) -> np.dtype:
+    """A numpy dtype for a torch dtype, a numpy dtype or a numpy type."""
+    if isinstance(dtype, torch.dtype):
+        return _TORCH_TO_NP[dtype]
+    return np.dtype(dtype)
+
+
+def as_device_tensor(x, device: torch.device) -> torch.Tensor:
+    """``x`` as a tensor on ``device``. A tensor is returned as it is. Host
+    values bound for a CUDA device go through pinned memory and a
+    non-blocking copy, so the host never waits for the device's stream."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    t = torch.from_numpy(a if a.flags.c_contiguous else np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def is_float(dtype: DTypeLike) -> bool:
+    return to_torch_dtype(dtype).is_floating_point
+
+
+def is_integer(dtype: DTypeLike) -> bool:
+    d = to_torch_dtype(dtype)
+    return not d.is_floating_point and not d.is_complex and d != torch.bool
+
+
+def saturate_cast(x: torch.Tensor, dtype: DTypeLike) -> torch.Tensor:
+    """OpenCV ``saturate_cast`` semantics, elementwise.
+
+    float -> integer: round half-to-even (``torch.round``, like ``cvRound``),
+    then clamp to the destination range. integer -> integer: widen first,
+    because the destination bounds may not fit the source type (int8 ->
+    uint8), then clamp. anything -> float: plain convert.
+    """
+    dtype = to_torch_dtype(dtype)
+    if x.dtype == dtype:
+        return x
+    if is_integer(dtype):
+        if x.dtype.is_floating_point:
+            x = torch.round(x)
+        else:
+            x = x.to(torch.int64)
+        info = torch.iinfo(dtype)
+        return torch.clamp(x, info.min, info.max).to(dtype)
+    return x.to(dtype)
+
+
+def cast(x: torch.Tensor, dtype: DTypeLike) -> torch.Tensor:
+    """``fk::Cast``: plain C-style convert (truncation for float -> int)."""
+    return x.to(to_torch_dtype(dtype))
+
+
+ScalarLike = Union[int, float, Sequence[float], np.ndarray, torch.Tensor]
+
+
+def as_channel_vector(value: ScalarLike, num_channels: int, dtype: DTypeLike = np.float32):
+    """cv::Scalar -> per-channel constant vector of shape ``(num_channels,)``.
+
+    A scalar broadcasts to every channel; a sequence must have
+    ``num_channels`` entries. Host values stay numpy, so that the executor
+    can pack them with the other host parameters in one copy; a tensor stays
+    a tensor on its own device.
+    """
+    if isinstance(value, torch.Tensor):
+        arr = value.to(to_torch_dtype(dtype)).reshape(-1)
+        if arr.shape[0] == 1:
+            return arr.expand(num_channels).contiguous()
+    else:
+        arr = np.asarray(value, dtype=to_numpy_dtype(dtype)).reshape(-1)
+        if arr.shape[0] == 1:
+            return np.full((num_channels,), arr[0], dtype=arr.dtype)
+    if arr.shape[0] != num_channels:
+        raise ValueError(
+            f"scalar has {arr.shape[0]} components, image has {num_channels} channels"
+        )
+    return arr

@@ -1,0 +1,74 @@
+"""Rules of the port that no numerics test shows: it never imports jax, its
+kernel is built for Hopper without FMA contraction or fast math, and its
+CUDA source ships with the package."""
+
+import fnmatch
+import re
+import subprocess
+import sys
+import tomllib
+from pathlib import Path
+
+from cvgpuspeedup_tpu_torch.exec import _build
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, cvgpuspeedup_tpu_torch, cvgpuspeedup_tpu_torch.interop.from_jax, "
+        "cvgpuspeedup_tpu_torch.utils.profiling; "
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cvgpuspeedup_tpu')))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+_FORBIDDEN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|cv2|cvgpuspeedup_tpu)\b", re.M)
+
+
+def test_port_sources_import_neither_jax_nor_cv2():
+    paths = [ROOT / "chip_smoke.py", *(ROOT / "cvgpuspeedup_tpu_torch").rglob("*.py")]
+    for path in paths:
+        assert not _FORBIDDEN_IMPORT.search(path.read_text()), path
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True,
+                             text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+
+
+def test_nvcc_command_targets_hopper_without_fast_math():
+    cmd = _build.nvcc_command("nvcc", _build.SOURCES, Path("out.so"))
+    joined = " ".join(cmd)
+    assert "arch=compute_90a,code=sm_90a" in joined
+    assert "-fmad=false" in cmd
+    assert "--use_fast_math" not in joined and "-use_fast_math" not in joined
+    assert "-shared" in cmd
+
+
+def test_cuda_source_exists_and_ships_as_package_data():
+    src = ROOT / "cvgpuspeedup_tpu_torch" / "csrc" / "batch_resize.cu"
+    assert src.is_file() and src in _build.SOURCES
+    text = src.read_text()
+    assert "pallas_backend.py::_emit_batch_resize" in text
+    assert "__fmul_rn" in text and "__fdiv_rn" in text
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    setuptools = conf["tool"]["setuptools"]
+    include = setuptools["packages"]["find"]["include"]
+    assert any(fnmatch.fnmatchcase("cvgpuspeedup_tpu_torch.exec", p) for p in include)
+    assert "csrc/*.cu" in setuptools["package-data"]["cvgpuspeedup_tpu_torch"]
+
+
+def test_library_is_keyed_on_the_sources():
+    path = _build.library_path()
+    assert path.parent == _build.BUILD_DIR == ROOT / "build" / "kernels"
+    assert path == _build.library_path()
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
