@@ -3,30 +3,39 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the port's CUDA kernel from
-``cvgpuspeedup_tpu_torch/csrc`` and drives the flagship pipeline through the
-public entry points, in phases; any failure ends the run with a non-zero
-exit code and no result line:
+Run from the root of a checkout. It builds the port's CUDA kernels from
+``cvgpuspeedup_tpu_torch/csrc`` and drives the port's main paths through the
+public entry points: the flagship batched crop-resize (kernel
+``batch_resize``) and the two full-frame paths (kernel ``frame_resize``),
+(a) a 1080p RGB u8 frame -> 640x360 with ImageNet normalization and (b) a 6K
+NV12 buffer -> 1920x1080 RGB f32 (bt709, x1/255), both written planar. In
+phases; any failure ends the run with a non-zero exit code and no result
+line:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
-2. build: compile the kernel library (timed);
-3. kernel against its plain PyTorch version on the card, at the flagship
-   shapes (3840x2160 u8 frame, 50 crops -> 64x128): every aspect-ratio mode,
-   ragged ``used_planes``, stack mode, a uint8 chain, every write layout, a
-   float32 source with rects off the frame edge. uint8 must match bit for
-   bit, float32 within 1e-6;
-4. the main path: ``execute_operations`` twice, the second time with the
-   rects shifted; it must take the kernel, launch it once per call and build
-   no new plan; the output is held against an independent float64 resize;
-5. times: device time per 50-crop batch (CUDA events, median) of the kernel
-   and of the plain PyTorch version, alternating plain, kernel, kernel,
-   plain; the host-inclusive time of one ``execute_operations`` call, and
-   the same call split into its host layers; the device's busy time and
-   idle share in a ``torch.profiler`` trace of the main path; the event
-   floor of a one-element launch and a device copy of the output's bytes.
+2. build: compile every kernel source, in parallel, into one library (timed);
+3. each kernel against its plain PyTorch version on the card. batch_resize at
+   the flagship shapes (3840x2160 u8 frame, 50 crops -> 64x128): every
+   aspect-ratio mode, ragged ``used_planes``, stack mode, a uint8 chain,
+   every write layout, a float32 source with rects off the frame edge, rects
+   left of and above the frame with a gray conversion. frame_resize at the
+   frame paths' sizes: (a), (b), a >32-phase ratio, an upscale, a uint8
+   chain with ``split()``, NV21 limited range with alpha, BGR -> RGBA.
+   uint8 must match bit for bit, float32 within 1e-6;
+4. the main paths: ``execute_operations`` twice each (new rects, new frame
+   contents); each must take its kernel, launch it once per call and build
+   no new plan; the outputs are held against independent float64 versions;
+5. times: device time of each kernel and of its plain PyTorch version
+   (CUDA events, median), alternating plain, kernel, kernel, plain; the
+   host-inclusive time of one ``execute_operations`` call of each path, the
+   flagship call split into its host layers; the device's busy time and idle
+   share in a ``torch.profiler`` trace of the flagship path; the event floor
+   of a one-element launch, a device copy of the flagship output's bytes, and
+   the copy bandwidth of a 256 MiB device copy with each frame path's bytes
+   floor at that bandwidth.
 
 The last three lines are the card's name and power limit, one JSON object
-describing the kernel, and ``{"ok": true, "device": {...}}``. The script
+describing the kernels, and ``{"ok": true, "device": {...}}``. The script
 imports neither jax nor cv2 and needs one card.
 """
 
@@ -42,6 +51,10 @@ import numpy as np
 
 SRC_H, SRC_W, BATCH = 2160, 3840, 50
 ALPHA, SUB, DIV = 0.3, (3.2, 0.6, 11.8), (128.0, 128.0, 128.0)
+FRAME_H, FRAME_W, FRAME_DST = 1080, 1920, (640, 360)     # path (a)
+NV12_H, NV12_W, NV12_DST = 3240, 5760, (1920, 1080)      # path (b)
+MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+BT709 = (0.2126, 0.0722)
 F32_TOL = 1e-6      # kernel vs plain version on the card (0 expected)
 ORACLE_TOL = 1e-4   # the repo's float contract against an independent resize
 
@@ -58,24 +71,25 @@ def gpu_name_and_limit() -> str:
     return out.stdout.strip()
 
 
+def axis_f64(dst: int, src: int):
+    """OpenCV INTER_LINEAR taps in float64, ``s = (q + 0.5) * src/dst - 0.5``,
+    the weight zeroed where the left tap clamps."""
+    s = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    i0 = np.floor(s).astype(np.int64)
+    f = s - i0
+    f = np.where(i0 < 0, 0.0, f)
+    i0 = np.maximum(i0, 0)
+    f = np.where(i0 >= src - 1, 0.0, f)
+    i0 = np.minimum(i0, src - 1)
+    return i0, np.minimum(i0 + 1, src - 1), f
+
+
 def oracle_plane(frame: np.ndarray, rect, dst_w: int, dst_h: int) -> np.ndarray:
-    """One crop of the flagship chain in float64, OpenCV INTER_LINEAR
-    coordinates ``s = (q + 0.5) * src/dst - 0.5``; planar (C, H, W)."""
+    """One crop of the flagship chain in float64; planar (C, H, W)."""
     x, y, w, h = (int(v) for v in rect)
     crop = frame[y:y + h, x:x + w].astype(np.float64)
-
-    def axis(dst, src):
-        s = (np.arange(dst) + 0.5) * (src / dst) - 0.5
-        i0 = np.floor(s).astype(np.int64)
-        f = s - i0
-        f = np.where(i0 < 0, 0.0, f)
-        i0 = np.maximum(i0, 0)
-        f = np.where(i0 >= src - 1, 0.0, f)
-        i0 = np.minimum(i0, src - 1)
-        return i0, np.minimum(i0 + 1, src - 1), f
-
-    x0, x1, fx = axis(dst_w, w)
-    y0, y1, fy = axis(dst_h, h)
+    x0, x1, fx = axis_f64(dst_w, w)
+    y0, y1, fy = axis_f64(dst_h, h)
     fx = fx[None, :, None]
     fy = fy[:, None, None]
     top = crop[y0][:, x0] * (1 - fx) + crop[y0][:, x1] * fx
@@ -83,6 +97,63 @@ def oracle_plane(frame: np.ndarray, rect, dst_w: int, dst_h: int) -> np.ndarray:
     val = top * (1 - fy) + bot * fy
     val = (val * ALPHA - np.asarray(SUB)) / np.asarray(DIV)
     return val.transpose(2, 0, 1)
+
+
+def oracle_frame(frame: np.ndarray, dst_w: int, dst_h: int) -> np.ndarray:
+    """Path (a) in float64: resize, x/255, ImageNet normalization; (C, H, W)."""
+    src = frame.astype(np.float64)
+    x0, x1, fx = axis_f64(dst_w, src.shape[1])
+    y0, y1, fy = axis_f64(dst_h, src.shape[0])
+    rows = src[y0] * (1 - fy[:, None, None]) + src[y1] * fy[:, None, None]
+    val = rows[:, x0] * (1 - fx[None, :, None]) + rows[:, x1] * fx[None, :, None]
+    val = (val / 255.0 - np.asarray(MEAN)) / np.asarray(STD)
+    return val.transpose(2, 0, 1)
+
+
+def oracle_nv12_rows(buf: np.ndarray, out_rows, dst_w: int, dst_h: int) -> np.ndarray:
+    """Path (b) in float64 at some output rows: bt709 full-range YUV->RGB of
+    the frame with nearest-upsampled chroma, resized, x/255; (C, rows, W)."""
+    src_h, src_w = buf.shape[0] * 2 // 3, buf.shape[1]
+    kr, kb = BT709
+    kg = 1.0 - kr - kb
+    x0, x1, fx = axis_f64(dst_w, src_w)
+    y0, y1, fy = axis_f64(dst_h, src_h)
+
+    def rgb_row(r):
+        y = buf[r].astype(np.float64)
+        uv = buf[src_h + r // 2].astype(np.float64)
+        u = np.repeat(uv[0::2], 2) - 128.0
+        v = np.repeat(uv[1::2], 2) - 128.0
+        rgb = np.stack([y + 2 * (1 - kr) * v,
+                        y - 2 * kb * (1 - kb) / kg * u - 2 * kr * (1 - kr) / kg * v,
+                        y + 2 * (1 - kb) * u])
+        return rgb[:, x0] * (1 - fx) + rgb[:, x1] * fx
+
+    out = [rgb_row(y0[q]) * (1 - fy[q]) + rgb_row(y1[q]) * fy[q] for q in out_rows]
+    return np.stack(out, axis=1) / 255.0
+
+
+def touched_bytes(plan) -> int:
+    """Bytes of the frame kernel's source that its taps touch, in the 32-byte
+    sectors device memory delivers."""
+
+    def part(x_taps, y_taps, row_bytes, elem_bytes):
+        rows = np.unique(np.concatenate(y_taps))
+        first = np.unique(np.concatenate(x_taps)) * elem_bytes
+        sectors = np.unique(np.concatenate([first // 32, (first + elem_bytes - 1) // 32]))
+        if row_bytes % 32:  # rows then start off the sector grid: count them whole
+            return len(rows) * row_bytes
+        return len(rows) * len(sectors) * 32
+
+    w, h = plan.dsize
+    t = plan.taps
+    x, y = (t[:w], t[w:2 * w]), (t[2 * w:2 * w + h], t[2 * w + h:2 * w + 2 * h])
+    item = plan.src_dtype.itemsize
+    total = part(x, y, plan.src_w * plan.nch * item, plan.nch * item)
+    if plan.yuv:
+        c = t[2 * (w + h):]
+        total += part((c[:w], c[w:2 * w]), (c[2 * w:2 * w + h], c[2 * w + h:]), plan.src_w, 2)
+    return total
 
 
 def main() -> int:
@@ -95,6 +166,7 @@ def main() -> int:
     import cvgpuspeedup_tpu_torch as cvgs
     from cvgpuspeedup_tpu_torch.exec import _build, executor
     from cvgpuspeedup_tpu_torch.exec import cuda_batch_resize as kbr
+    from cvgpuspeedup_tpu_torch.exec import cuda_frame_resize as kfr
     from cvgpuspeedup_tpu_torch.graph import flatten, map_leaves
     from cvgpuspeedup_tpu_torch.ops.arithmetic import Mul, StaticLoop
     from cvgpuspeedup_tpu_torch.ops.color import VectorReorder
@@ -113,7 +185,8 @@ def main() -> int:
     # ---- phase 2: build
     t0 = time.perf_counter()
     _build.load()
-    log(f"phase2 built {_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    log(f"phase2 built {_build.library_path().name} from "
+        f"{', '.join(src.name for src in _build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line:
             log(f"phase2 ptxas: {line.strip()}")
@@ -126,14 +199,18 @@ def main() -> int:
     rects_a = np.array([[i, i, 60, 120] for i in range(BATCH)], np.int32)
     rects_b = np.array([[i, i, 30, 120] for i in range(BATCH)], np.int32)
     chain = (cvgs.convert_to(np.float32, alpha=ALPHA), cvgs.subtract(SUB), cvgs.divide(DIV))
-    max_err = 0.0
+    kernels = {
+        "batch_resize": (kbr, kbr.batch_resize, kbr.batch_resize_reference),
+        "frame_resize": (kfr, kfr.frame_resize, kfr.frame_resize_reference),
+    }
+    max_err = {name: 0.0 for name in kernels}
 
-    def check(name, read, *ops):
-        nonlocal max_err
+    def check(name, read, *ops, kernel="batch_resize"):
+        module, launch, plain = kernels[kernel]
         pipeline = cvgs.build_pipeline(read, *ops)
-        a = kbr.prepare(pipeline, kbr.build_plan(pipeline), dev)
-        got = kbr.batch_resize(a)
-        want = kbr.batch_resize_reference(a)
+        a = module.prepare(pipeline, module.build_plan(pipeline), dev)
+        got = launch(a)
+        want = plain(a)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -153,8 +230,9 @@ def main() -> int:
             err = max(err, d)
         if err > F32_TOL:
             raise AssertionError(f"{name}: max |diff| {err} > {F32_TOL}")
-        max_err = max(max_err, err)
-        log(f"phase3 {name}: shape {tuple(got[0].shape)} {got[0].dtype} max|diff| {err!r}")
+        max_err[kernel] = max(max_err[kernel], err)
+        log(f"phase3 {kernel} {name}: shape {tuple(got[0].shape)} {got[0].dtype} max|diff| {err!r}")
+        return a.plan
 
     check("a_ignore_ar", cvgs.resize_batch(frame, rects=rects_a, dsize=dsize),
           *chain, cvgs.split_tensor())
@@ -185,6 +263,52 @@ def main() -> int:
           cvgs.resize_batch(frame.float(), rects=edge, dsize=dsize),
           VectorReorder(indices=(2, 1, 0)), StaticLoop(body=Mul(value=np.float32(1.01)), n=3),
           *chain, cvgs.split_tensor())
+    # (h) origins left of and above the frame (one past -width), a gray chain
+    negative = np.array([[-5 - 7 * i, -3 - 5 * i, 60, 120] for i in range(BATCH - 2)]
+                        + [[-SRC_W - 70, 2, 60, 120], [SRC_W - 30, SRC_H - 50, 60, 120]], np.int32)
+    check("h_negative_origins_bgr2gray",
+          cvgs.resize_batch(frame, rects=negative, dsize=dsize),
+          cvgs.cvt_color(cvgs.ColorConversionCode.COLOR_BGR2GRAY),
+          cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.split_tensor())
+
+    # frame_resize at the frame paths' sizes
+    normalize = (cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract(MEAN),
+                 cvgs.divide(STD))
+    hd_np = rng.integers(0, 256, (FRAME_H, FRAME_W, 3), dtype=np.uint8)
+    nv12_np = rng.integers(0, 256, (NV12_H * 3 // 2, NV12_W), dtype=np.uint8)
+    hd = torch.from_numpy(hd_np).to(dev)
+    nv12 = torch.from_numpy(nv12_np).to(dev)
+
+    def nv12_read(buf, dst, fmt=cvgs.PixelFormat.NV12, **conv):
+        conv.setdefault("standard", cvgs.ColorStandard.BT709)
+        return cvgs.resize(cvgs.fuse(cvgs.read_yuv(buf, pixel_format=fmt),
+                                     cvgs.convert_yuv_to_rgb(out_dtype=np.float32, **conv)),
+                           cvgs.Size(*dst))
+
+    def frame_a(img):
+        return (cvgs.resize(cvgs.image(img), cvgs.Size(*FRAME_DST)), *normalize, cvgs.split_tensor())
+
+    def frame_b(buf):
+        return (nv12_read(buf, NV12_DST), cvgs.multiply(1 / 255.0), cvgs.split_tensor())
+
+    check("a_1080p_rgb_normalize", *frame_a(hd), kernel="frame_resize")
+    check("b_nv12_6k_bt709", *frame_b(nv12), kernel="frame_resize")
+    plan_c = check("c_416x416_over_32_phases", cvgs.resize(cvgs.image(hd), cvgs.Size(416, 416)),
+                   *normalize, cvgs.split_tensor(), kernel="frame_resize")
+    assert not plan_c.keep_edge, "1080 -> 416 has 52 phases: the zeroed-edge rule"
+    check("d_upscale_640x360_to_1280x720",
+          cvgs.resize(cvgs.image(hd[:360, :640].contiguous()), cvgs.Size(1280, 720)),
+          *normalize, cvgs.split_tensor(), kernel="frame_resize")
+    check("e_u8_chain_split", cvgs.resize(cvgs.image(hd), cvgs.Size(*FRAME_DST)),
+          cvgs.convert_to(np.uint8, alpha=0.5, beta=3.0), cvgs.split(), kernel="frame_resize")
+    check("f_nv21_limited_alpha",
+          nv12_read(nv12, NV12_DST, cvgs.PixelFormat.NV21, standard=cvgs.ColorStandard.BT601,
+                    color_range=cvgs.ColorRange.LIMITED, alpha=True),
+          cvgs.split_tensor(), kernel="frame_resize")
+    check("g_bgr2rgba_normalize", cvgs.resize(cvgs.image(hd), cvgs.Size(*FRAME_DST)),
+          cvgs.cvt_color(cvgs.ColorConversionCode.COLOR_BGR2RGBA),
+          cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract((*MEAN, 0.0)),
+          cvgs.divide((*STD, 1.0)), cvgs.split_tensor(), kernel="frame_resize")
 
     # ---- phase 4: the main path through the public entry points
     def main_path(rects):
@@ -226,6 +350,49 @@ def main() -> int:
         f"vs float64 oracle {oracle_err!r}")
     assert eager_err <= F32_TOL, eager_err
     assert oracle_err <= ORACLE_TOL, oracle_err
+
+    # the frame paths, each driven twice with new frame contents
+    def frame_path(ops):
+        return cvgs.execute_operations(*ops, device="cuda")
+
+    hd2_np = rng.integers(0, 256, hd_np.shape, dtype=np.uint8)
+    nv12_2_np = rng.integers(0, 256, nv12_np.shape, dtype=np.uint8)
+    frame_inputs = {
+        "a": (frame_a, hd, torch.from_numpy(hd2_np).to(dev), (3, FRAME_DST[1], FRAME_DST[0])),
+        "b": (frame_b, nv12, torch.from_numpy(nv12_2_np).to(dev), (3, NV12_DST[1], NV12_DST[0])),
+    }
+    frame_launches = 0
+    frame_out = {}
+    for path, (ops, src1, src2, shape) in frame_inputs.items():
+        kfr.LAUNCHES = 0
+        builds0 = executor.PLAN_BUILDS
+        f1 = frame_path(ops(src1))
+        backend1, launches1, builds1 = cvgs.last_backend(), kfr.LAUNCHES, executor.PLAN_BUILDS
+        f2 = frame_path(ops(src2))
+        backend2, launches2, builds2 = cvgs.last_backend(), kfr.LAUNCHES, executor.PLAN_BUILDS
+        torch.cuda.synchronize()
+        frame_launches += kfr.LAUNCHES
+        log(f"phase4 frame path ({path}): backends {backend1} {backend2}; launches {launches1} "
+            f"{launches2}; plan builds {builds0} -> {builds1} -> {builds2}")
+        assert backend1 == backend2 == "cuda:frame_resize", (backend1, backend2)
+        assert (launches1, launches2) == (1, 2), (launches1, launches2)
+        assert builds1 <= builds0 + 1 and builds2 == builds1, (builds0, builds1, builds2)
+        for out in (f1, f2):
+            assert tuple(out.shape) == shape and out.dtype == torch.float32, out.shape
+            assert bool(torch.isfinite(out).all()), "non-finite output"
+        assert not torch.equal(f1, f2), "new frame contents gave the same output"
+        eager = cvgs.execute_operations(*ops(src2), backend=cvgs.ParBackend.TORCH)
+        frame_out[path] = (f2.cpu().numpy(), float((eager - f2).abs().max()))
+    host_a, eager_a = frame_out["a"]
+    oracle_a = float(np.abs(host_a - oracle_frame(hd2_np, *FRAME_DST)).max())
+    rows_b = [0, 1, 2, 539, 540, NV12_DST[1] - 1]
+    host_b, eager_b = frame_out["b"]
+    oracle_b = float(np.abs(host_b[:, rows_b] - oracle_nv12_rows(nv12_2_np, rows_b, *NV12_DST)).max())
+    log(f"phase4 frame path (a): max|diff| vs eager torch {eager_a!r}, vs float64 oracle "
+        f"{oracle_a!r}; (b): vs eager torch {eager_b!r}, vs float64 oracle at rows {rows_b} "
+        f"{oracle_b!r}")
+    assert max(eager_a, eager_b) <= F32_TOL, (eager_a, eager_b)
+    assert max(oracle_a, oracle_b) <= ORACLE_TOL, (oracle_a, oracle_b)
 
     # ---- phase 5: times at the flagship shape
     rects_dev = torch.from_numpy(rects_a).to(dev)
@@ -305,6 +472,44 @@ def main() -> int:
     log(f"phase5 floors: one-element fill_ {fill_ms * 1e3:.2f} us; D2D copy of "
         f"{out1.numel() * 4 / 1e6:.2f} MB {copy_ms * 1e3:.2f} us (events, median of 100)")
 
+    # the copy bandwidth: a 256 MiB device copy reads and writes its bytes
+    big = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    big_dst = torch.empty_like(big)
+    big_ms = float(np.median(time_cuda(lambda: big_dst.copy_(big), iters=20)))
+    bandwidth = 2 * big.numel() * 4 / (big_ms * 1e-3)
+    log(f"phase5 copy bandwidth: {big.numel() * 4 / 2**20:.0f} MiB D2D copy {big_ms * 1e3:.2f} us "
+        f"(events, median of 20) = {bandwidth / 1e9:.1f} GB/s read + write; card {card}")
+    del big, big_dst
+
+    # the frame paths: kernel vs plain version, the whole call, the bytes floor
+    frame_times = {}
+    for path, (ops, src1, _, _) in frame_inputs.items():
+        pipe = map_leaves(cvgs.build_pipeline(*ops(src1)), lambda v: as_device_tensor(v, dev))
+        fplan = kfr.build_plan(pipe)
+        fargs = kfr.prepare(pipe, fplan, dev)
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = (lambda: kfr.frame_resize(fargs)) if which == "kernel" else (
+                lambda: kfr.frame_resize_reference(fargs))
+            runs[which] += time_cuda(fn, iters=50)
+        whole = []
+        for _ in range(60):
+            t0 = time.perf_counter()
+            frame_path(ops(src1))
+            torch.cuda.synchronize()
+            whole.append(time.perf_counter() - t0)
+        out_bytes = int(np.prod(frame_inputs[path][3])) * 4
+        src_bytes = touched_bytes(fplan)
+        t = {"ms": float(np.median(runs["kernel"])), "plain_ms": float(np.median(runs["plain"])),
+             "call_ms": float(np.median(whole[10:])) * 1e3,
+             "floor_ms": (out_bytes + src_bytes) / bandwidth * 1e3}
+        frame_times[path] = t
+        log(f"phase5 frame path ({path}): kernel {t['ms'] * 1e3:.2f} us, plain torch "
+            f"{t['plain_ms'] * 1e3:.2f} us (device time, events, median of "
+            f"{len(runs['kernel'])}); execute_operations host-inclusive {t['call_ms'] * 1e3:.2f} "
+            f"us/call (median of 50); bytes floor {t['floor_ms'] * 1e3:.2f} us = ({out_bytes} out "
+            f"+ {src_bytes} source bytes touched) at the copy bandwidth; card {card}")
+
     for mod in ("jax", "cv2"):
         assert mod not in sys.modules, f"{mod} was imported"
     print(card)
@@ -314,9 +519,21 @@ def main() -> int:
         "source": "cvgpuspeedup_tpu_torch/csrc/batch_resize.cu",
         "replaces": "cvgpuspeedup_tpu/exec/pallas_backend.py:500",
         "launches": main_launches,
-        "max_abs_err": max_err,
+        "max_abs_err": max_err["batch_resize"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "frame_resize",
+        "route": "cuda",
+        "source": "cvgpuspeedup_tpu_torch/csrc/frame_resize.cu",
+        "replaces": "cvgpuspeedup_tpu/exec/pallas_frame.py:663",
+        "launches": frame_launches,
+        "max_abs_err": max_err["frame_resize"],
+        # path (a); both paths below
+        "ms": frame_times["a"]["ms"],
+        "plain_ms": frame_times["a"]["plain_ms"],
+        "paths": {"a_1080p_rgb_to_640x360": frame_times["a"],
+                  "b_nv12_6k_to_1080p": frame_times["b"]},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,7 @@ hand-written CUDA kernel for a supported pipeline on a CUDA device and
 through the eager PyTorch version otherwise. The package imports torch and
 never jax.
 
-Example (the flagship 50-crop pipeline)::
+Example (the flagship 50-crop pipeline, then the fused NV12 frame read)::
 
     import numpy as np, torch
     import cvgpuspeedup_tpu_torch as cvgs
@@ -21,6 +21,14 @@ Example (the flagship 50-crop pipeline)::
         cvgs.divide((128.0, 128.0, 128.0)),
         cvgs.split_tensor(),            # planar (N, C, H, W)
     )
+    rgb = cvgs.execute_operations(      # (3, 1080, 1920) float32
+        cvgs.resize(cvgs.fuse(cvgs.read_yuv(nv12_buffer),
+                              cvgs.convert_yuv_to_rgb(standard=cvgs.ColorStandard.BT709,
+                                                      out_dtype=np.float32)),
+                    cvgs.Size(1920, 1080)),
+        cvgs.multiply(1 / 255.0),
+        cvgs.split_tensor(),
+    )
 """
 
 from __future__ import annotations
@@ -32,13 +40,16 @@ import torch
 
 from .exec.executor import (Pipeline, build_pipeline, clear_cache, describe_backend,
                             execute_operations, last_backend)
-from .graph import ComputeOp, FusedCompute, IOp, ReadOp, WriteOp, fuse
+from .graph import ComputeOp, FusedCompute, IOp, PendingReadOp, ReadOp, WriteOp, fuse
 from .ops.arithmetic import Add, Div, Mul, Sub
 from .ops.cast import Cast, SaturateCast
+from .ops.color import ColorConversion
 from .ops.memory import (ImageRead, SplitWrite, TensorSplit, TensorSplitPacked, TensorTSplit,
                          TensorWrite, Write2D)
-from .ops.resize import BatchResizeRead
-from .types import AspectRatio, InterpolationType, ParBackend, Rect, Size
+from .ops.nv12 import ConvertYUVToRGB, ReadYUV
+from .ops.resize import BatchResizeRead, ResizeRead
+from .types import (AspectRatio, ColorConversionCode, ColorRange, ColorStandard,
+                    InterpolationType, ParBackend, PixelFormat, Rect, Size)
 from .utils import dtypes as _dt
 
 __version__ = "0.1.0"
@@ -103,6 +114,22 @@ def divide(value) -> ComputeOp:
     return Div(value=_np_or_tensor(value, np.float32))
 
 
+def cvt_color(code: ColorConversionCode) -> ComputeOp:
+    """``cvGS::cvtColor<code>``."""
+    return ColorConversion(code=code)
+
+
+def convert_yuv_to_rgb(
+    color_range: ColorRange = ColorRange.FULL,
+    standard: ColorStandard = ColorStandard.BT601,
+    alpha: bool = False,
+    out_dtype=np.uint8,
+) -> ComputeOp:
+    """``fk::ConvertYUVToRGB<NV12, range, standard, alpha, out>``."""
+    return ConvertYUVToRGB(color_range=color_range, standard=standard, alpha=alpha,
+                           out_dtype=_dt.to_torch_dtype(out_dtype))
+
+
 # ---------------------------------------------------------------------------
 # read factories
 # ---------------------------------------------------------------------------
@@ -124,6 +151,48 @@ def image(source: ArrayLike, channels: Optional[int] = None) -> ReadOp:
             )
         return ImageRead(data=arr, is_batch=(arr.ndim == 3), packed_channels=int(channels))
     return ImageRead(data=arr, is_batch=(arr.ndim == 4))
+
+
+def read_yuv(buffer: ArrayLike, pixel_format: PixelFormat = PixelFormat.NV12) -> ReadOp:
+    """An NV12/NV21 buffer, (H*3/2, W) uint8, read as (H, W, 3) YUV."""
+    return ReadYUV(buffer=_host_or_tensor(buffer), pixel_format=pixel_format)
+
+
+def _as_read(source) -> ReadOp:
+    if isinstance(source, ReadOp):
+        return source
+    arr = _host_or_tensor(source)
+    return ImageRead(data=arr, is_batch=(arr.ndim == 4))
+
+
+def resize(
+    source=None,
+    dsize: Optional[Size] = None,
+    fx: float = 0.0,
+    fy: float = 0.0,
+    interpolation: InterpolationType = InterpolationType.INTER_LINEAR,
+):
+    """``cvGS::resize<T, INTER_LINEAR>(src, dsize, fx, fy)``. Output is
+    float32; append :func:`convert_to` to cast.
+
+    Called with only a size (``resize(Size(w, h))`` or ``resize(dsize=...)``)
+    it returns a geometry op that binds to the preceding, possibly fused,
+    read (the ``cvGS::resize<INTER_F>(dsize)`` overload that follows a fused
+    NV12 read). With ``dsize`` omitted or ``Size(0, 0)`` the size is
+    ``round(W * fx) x round(H * fy)`` of an array source, read from its
+    shape without running anything."""
+    if dsize is None and isinstance(source, Size):
+        source, dsize = None, source
+    if source is None:
+        if dsize is None:
+            raise ValueError("resize needs a dsize")
+        return PendingReadOp(lambda src: ResizeRead(source=src, dsize=dsize, interp=interpolation))
+    src = _as_read(source)
+    if dsize is None or dsize == Size(0, 0):
+        if isinstance(source, ReadOp) or not (fx > 0 and fy > 0):
+            raise ValueError("resize with dsize=(0,0) needs fx, fy > 0 and an array source")
+        dsize = Size(int(round(src.data.shape[1] * fx)), int(round(src.data.shape[0] * fy)))
+    return ResizeRead(source=src, dsize=dsize, interp=interpolation)
 
 
 def resize_batch(
@@ -225,9 +294,11 @@ __all__ = [
     "Pipeline", "build_pipeline", "execute_operations", "describe_backend",
     "last_backend", "clear_cache",
     # types
-    "Size", "Rect", "InterpolationType", "AspectRatio", "ParBackend",
+    "Size", "Rect", "InterpolationType", "AspectRatio", "ParBackend", "ColorConversionCode",
+    "ColorRange", "ColorStandard", "PixelFormat",
     # factories
-    "convert_to", "multiply", "add", "subtract", "divide", "image", "resize_batch",
+    "convert_to", "multiply", "add", "subtract", "divide", "cvt_color", "convert_yuv_to_rgb",
+    "image", "read_yuv", "resize", "resize_batch",
     "write", "write_tensor", "split", "split_tensor", "split_tensor_transposed",
     "split_tensor_packed",
 ]

@@ -6,7 +6,7 @@
 // (INTER_LINEAR on exact rational coordinates) to one dsize, letterboxed
 // under the PRESERVE_AR modes, masked to `background` for planes from
 // `used_planes` on, run through the pointwise chain and written in any of
-// the port's output layouts.
+// the port's output layouts. The chain interpreter is csrc/chain.cuh.
 //
 // What bounds it: memory traffic and launch overhead, not arithmetic. Per
 // flagship batch (50 crops of 60x120 from a 3840x2160 u8 frame -> 64x128,
@@ -19,39 +19,20 @@
 // memory with cp.async or TMA is left to later work.
 //
 // Numerics: every step matches cvgpuspeedup_tpu_torch/ops/resize.py bit for
-// bit. The left tap is a floor division (C++ '/' truncates, which gives
-// wrong taps whenever num < 0, e.g. the first column of an upscale). All
+// bit. A tap left of or above the frame reads from the far edge, one past
+// the right or bottom edge reads the edge pixel (source_index). The left
+// tap is a floor division (C++ '/' truncates, which gives wrong taps
+// whenever num < 0, e.g. the first column of an upscale). All
 // float arithmetic is written with __fadd_rn/__fsub_rn/__fmul_rn/__fdiv_rn,
 // so nothing is contracted into an FMA; the library is also built with
 // -fmad=false and never with --use_fast_math.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "chain.cuh"
 
 namespace {
 
-constexpr int kMaxCh = 4;
-
-// chain op codes; keep in step with exec/cuda_batch_resize.py
-enum : int {
-  OP_MUL = 1,
-  OP_ADD = 2,
-  OP_SUB = 3,
-  OP_DIV = 4,
-  OP_SAT_U8 = 5,   // round half to even, clamp to [0, 255]
-  OP_CAST_U8 = 6,  // truncate, keep the low 8 bits
-  OP_REORDER = 7,  // channel c takes channel (aux >> 4c) & 15
-};
-
 // AspectRatio codes; keep in step with exec/cuda_batch_resize.py
 enum : int { AR_IGNORE = 0, AR_PRESERVE = 1, AR_RN_EVEN = 2, AR_LEFT = 3 };
-
-__device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
-  const int q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
-}
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 
 // ops/resize.py::letterbox_geometry
 __device__ __forceinline__ void letterbox(int cw, int ch, int dst_w, int dst_h, int mode,
@@ -101,13 +82,10 @@ __device__ __forceinline__ void axis_lerp(int q, int src, int dst, int& i0, int&
   w = wt;
 }
 
-template <typename OutT>
-__device__ __forceinline__ OutT to_out(float v);
-template <>
-__device__ __forceinline__ float to_out<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ uint8_t to_out<uint8_t>(float v) {
-  return (uint8_t)__float2int_rz(v);  // the chain left an exact value in [0, 255]
+// ops/resize.py::source_index: a negative index counts from the far end,
+// then the index is clamped into the source, as the reference's gather reads
+__device__ __forceinline__ int source_index(int t, int len) {
+  return clampi(t < 0 ? t + len : t, 0, len - 1);
 }
 
 template <typename SrcT, typename OutT>
@@ -115,7 +93,7 @@ __global__ void __launch_bounds__(256) batch_resize_kernel(
     const SrcT* __restrict__ src, long long plane_stride, int src_h, int src_w, int nch,
     const int* __restrict__ rects, const int* __restrict__ used, const float* __restrict__ fp,
     const int* __restrict__ ops, int n_ops, int dst_w, int dst_h, int mode,
-    OutT* __restrict__ out, long long sn, long long sc, long long sy, long long sx) {
+    OutT* __restrict__ out, int out_ch, long long sn, long long sc, long long sy, long long sx) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int z = blockIdx.z;
@@ -135,25 +113,18 @@ __global__ void __launch_bounds__(256) batch_resize_kernel(
       float wx, wy;
       axis_lerp(x - ox, rw, nw, ix0, ix1, wx);
       axis_lerp(y - oy, rh, nh, iy0, iy1, wy);
-      // clamp into the source, as a gather clamps out-of-bounds reads
       const long long row = (long long)src_w * nch;
       const SrcT* plane = src + (long long)z * plane_stride;
-      const SrcT* r0 = plane + clampi(ry + iy0, 0, src_h - 1) * row;
-      const SrcT* r1 = plane + clampi(ry + iy1, 0, src_h - 1) * row;
-      const int c0 = clampi(rx + ix0, 0, src_w - 1) * nch;
-      const int c1 = clampi(rx + ix1, 0, src_w - 1) * nch;
-      const float wx1 = __fsub_rn(1.f, wx);
-      const float wy1 = __fsub_rn(1.f, wy);
+      const SrcT* r0 = plane + source_index(ry + iy0, src_h) * row;
+      const SrcT* r1 = plane + source_index(ry + iy1, src_h) * row;
+      const int c0 = source_index(rx + ix0, src_w) * nch;
+      const int c1 = source_index(rx + ix1, src_w) * nch;
 #pragma unroll
       for (int c = 0; c < kMaxCh; ++c) {
         if (c < nch) {
-          const float a = (float)__ldg(r0 + c0 + c);
-          const float b = (float)__ldg(r0 + c1 + c);
-          const float d = (float)__ldg(r1 + c0 + c);
-          const float e = (float)__ldg(r1 + c1 + c);
-          const float h0 = __fadd_rn(__fmul_rn(a, wx1), __fmul_rn(b, wx));
-          const float h1 = __fadd_rn(__fmul_rn(d, wx1), __fmul_rn(e, wx));
-          v[c] = __fadd_rn(__fmul_rn(h0, wy1), __fmul_rn(h1, wy));
+          const float h0 = lerp_rn((float)__ldg(r0 + c0 + c), (float)__ldg(r0 + c1 + c), wx);
+          const float h1 = lerp_rn((float)__ldg(r1 + c0 + c), (float)__ldg(r1 + c1 + c), wx);
+          v[c] = lerp_rn(h0, h1, wy);
         }
       }
       sampled = true;
@@ -164,93 +135,56 @@ __global__ void __launch_bounds__(256) batch_resize_kernel(
     for (int c = 0; c < kMaxCh; ++c) v[c] = c < nch ? __ldg(fp + c) : 0.f;
   }
 
-  for (int k = 0; k < n_ops; ++k) {
-    const int code = __ldg(ops + 4 * k);
-    const int off = __ldg(ops + 4 * k + 1);
-    const int stride = __ldg(ops + 4 * k + 2);
-    const int aux = __ldg(ops + 4 * k + 3);
-    if (code == OP_REORDER) {
-      float t[kMaxCh];
-#pragma unroll
-      for (int c = 0; c < kMaxCh; ++c) t[c] = v[c];
-#pragma unroll
-      for (int c = 0; c < kMaxCh; ++c) {
-        const int s = (aux >> (4 * c)) & 15;
-        float r = t[0];
-        if (s == 1) r = t[1];
-        if (s == 2) r = t[2];
-        if (s == 3) r = t[3];
-        v[c] = r;
-      }
-      continue;
-    }
-#pragma unroll
-    for (int c = 0; c < kMaxCh; ++c) {
-      if (c >= nch) continue;
-      float r = v[c];
-      switch (code) {
-        case OP_MUL: r = __fmul_rn(r, __ldg(fp + off + c * stride)); break;
-        case OP_ADD: r = __fadd_rn(r, __ldg(fp + off + c * stride)); break;
-        case OP_SUB: r = __fsub_rn(r, __ldg(fp + off + c * stride)); break;
-        case OP_DIV: r = __fdiv_rn(r, __ldg(fp + off + c * stride)); break;
-        case OP_SAT_U8:
-          r = rintf(r);
-          r = r < 0.f ? 0.f : (r > 255.f ? 255.f : r);
-          break;
-        case OP_CAST_U8: r = (float)(__float2int_rz(r) & 255); break;
-        default: break;
-      }
-      v[c] = r;
-    }
-  }
+  run_chain(v, nch, ops, n_ops, fp);
 
   OutT* o = out + (long long)z * sn + (long long)y * sy + (long long)x * sx;
 #pragma unroll
   for (int c = 0; c < kMaxCh; ++c) {
-    if (c < nch) o[c * sc] = to_out<OutT>(v[c]);
+    if (c < out_ch) o[c * sc] = to_out<OutT>(v[c]);
   }
 }
 
 template <typename SrcT, typename OutT>
 void launch(const void* src, long long plane_stride, int src_h, int src_w, int nch,
             const int* rects, const int* used, const float* fp, const int* ops, int n_ops,
-            int n_planes, int dst_w, int dst_h, int mode, void* out, long long sn,
+            int n_planes, int dst_w, int dst_h, int mode, void* out, int out_ch, long long sn,
             long long sc, long long sy, long long sx, cudaStream_t stream) {
   const dim3 block(64, 4);
   const dim3 grid((dst_w + 63) / 64, (dst_h + 3) / 4, n_planes);
   batch_resize_kernel<SrcT, OutT><<<grid, block, 0, stream>>>(
       static_cast<const SrcT*>(src), plane_stride, src_h, src_w, nch, rects, used, fp, ops,
-      n_ops, dst_w, dst_h, mode, static_cast<OutT*>(out), sn, sc, sy, sx);
+      n_ops, dst_w, dst_h, mode, static_cast<OutT*>(out), out_ch, sn, sc, sy, sx);
 }
 
 }  // namespace
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
 // `src` is uint8 (src_u8 = 1) or float32; `out` is uint8 (out_u8 = 1) or
-// float32, element strides (sn, sc, sy, sx) per (plane, channel, row, col).
+// float32 with out_ch channels, element strides (sn, sc, sy, sx) per
+// (plane, channel, row, col).
 extern "C" int cvgs_batch_resize(const void* src, int src_u8, long long plane_stride,
                                  int src_h, int src_w, int nch, const int* rects,
                                  const int* used, const float* fparams, const int* ops,
                                  int n_ops, int n_planes, int dst_w, int dst_h, int mode,
-                                 void* out, int out_u8, long long sn, long long sc,
+                                 void* out, int out_u8, int out_ch, long long sn, long long sc,
                                  long long sy, long long sx, void* stream) {
-  if (nch < 1 || nch > kMaxCh || n_planes < 1 || n_planes > 65535 || dst_w < 1 ||
-      dst_h < 1 || src_h < 1 || src_w < 1 || n_ops < 0) {
+  if (nch < 1 || nch > kMaxCh || out_ch < 1 || out_ch > kMaxCh || n_planes < 1 ||
+      n_planes > 65535 || dst_w < 1 || dst_h < 1 || src_h < 1 || src_w < 1 || n_ops < 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (src_u8 && out_u8) {
     launch<uint8_t, uint8_t>(src, plane_stride, src_h, src_w, nch, rects, used, fparams, ops,
-                             n_ops, n_planes, dst_w, dst_h, mode, out, sn, sc, sy, sx, s);
+                             n_ops, n_planes, dst_w, dst_h, mode, out, out_ch, sn, sc, sy, sx, s);
   } else if (src_u8) {
     launch<uint8_t, float>(src, plane_stride, src_h, src_w, nch, rects, used, fparams, ops,
-                           n_ops, n_planes, dst_w, dst_h, mode, out, sn, sc, sy, sx, s);
+                           n_ops, n_planes, dst_w, dst_h, mode, out, out_ch, sn, sc, sy, sx, s);
   } else if (out_u8) {
     launch<float, uint8_t>(src, plane_stride, src_h, src_w, nch, rects, used, fparams, ops,
-                           n_ops, n_planes, dst_w, dst_h, mode, out, sn, sc, sy, sx, s);
+                           n_ops, n_planes, dst_w, dst_h, mode, out, out_ch, sn, sc, sy, sx, s);
   } else {
     launch<float, float>(src, plane_stride, src_h, src_w, nch, rects, used, fparams, ops,
-                         n_ops, n_planes, dst_w, dst_h, mode, out, sn, sc, sy, sx, s);
+                         n_ops, n_planes, dst_w, dst_h, mode, out, out_ch, sn, sc, sy, sx, s);
   }
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,166 @@
+// Full-frame static resize with a fused pointwise chain and a strided write,
+// from a packed image or from an NV12/NV21 buffer converted to RGB.
+//
+// Replaces cvgpuspeedup_tpu/exec/pallas_frame.py::_emit_frame_resize, the
+// TPU kernel of the reference's other hot read pattern: one frame resized
+// per call (cvGS::resize(src, dsize) feeding a pointwise chain and a planar
+// write), including the fused NV12 "ComputeWhatYouSee" read, where Y is
+// sampled at full resolution, the UV pairs at half resolution with
+// full-resolution tap math, and YUV->RGB runs on destination pixels only
+// (the conversion is affine, so it commutes with the resize).
+//
+// What bounds it: memory traffic. A 1080p RGB u8 frame -> 640x360 f32
+// planar writes 2.8 MB and reads the source rows its taps touch; a 6K NV12
+// buffer -> 1920x1080 f32 planar writes 24.9 MB and reads up to 28 MB. The
+// TPU kernel's row bands, DMA rings, banded and block-Toeplitz MXU
+// matmuls and bf16/Dekker weight splits all exist because Mosaic has no
+// gather; Hopper has one, so this kernel is deliberately simple: one thread
+// per output pixel (all channels), blocks of 64x4 threads so neighbouring
+// threads store neighbouring addresses, taps and weights read from tables
+// the host builds once per geometry (exec/cuda_frame_resize.py), source
+// values read straight from global memory. Staging source rows through
+// shared memory (TMA) and vector stores are left to later work.
+//
+// Numerics: every step matches cvgpuspeedup_tpu_torch/ops/resize.py::
+// sample_frame and ops/nv12.py bit for bit: horizontal lerp, then vertical,
+// each a*(1-w) + b*w; with keep_edge a weight of 0 keeps the first tap's
+// value; the conversion in the reference's f32 op order. Every float op is
+// an _rn intrinsic and the library is built with -fmad=false.
+
+#include "chain.cuh"
+
+namespace {
+
+// One bilinear sample from rows r0, r1 at element offsets c0, c1.
+template <typename SrcT>
+__device__ __forceinline__ float bilerp(const SrcT* __restrict__ r0, const SrcT* __restrict__ r1,
+                                        int c0, int c1, float wx, float wy, bool keep_edge) {
+  const float a = (float)__ldg(r0 + c0);
+  const float d = (float)__ldg(r1 + c0);
+  float h0 = a, h1 = d;
+  if (!(keep_edge && wx == 0.f)) {
+    h0 = lerp_rn(a, (float)__ldg(r0 + c1), wx);
+    h1 = lerp_rn(d, (float)__ldg(r1 + c1), wx);
+  }
+  return (keep_edge && wy == 0.f) ? h0 : lerp_rn(h0, h1, wy);
+}
+
+struct Conv {
+  int limited, alpha;
+  float ys, cs, rv, gu, gv, bu;
+};
+
+// Tap tables, int32, each one entry per output column or row:
+//   [x0 | x1 | y0 | y1] and, for an NV12 source, [cx0 | cx1 | cy0 | cy1];
+// weights, float32: [wx | wy].
+template <typename SrcT, typename OutT, bool kYuv>
+__global__ void __launch_bounds__(256) frame_resize_kernel(
+    const SrcT* __restrict__ src, int src_h, int src_w, int nch, int nv21,
+    const int* __restrict__ taps, const float* __restrict__ wts, int keep_edge, Conv conv,
+    const float* __restrict__ fp, const int* __restrict__ ops, int n_ops, int dst_w, int dst_h,
+    OutT* __restrict__ out, int out_ch, long long sc, long long sy, long long sx) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= dst_w || y >= dst_h) return;
+  const bool keep = keep_edge != 0;
+  const int x0 = __ldg(taps + x), x1 = __ldg(taps + dst_w + x);
+  const int y0 = __ldg(taps + 2 * dst_w + y), y1 = __ldg(taps + 2 * dst_w + dst_h + y);
+  const float wx = __ldg(wts + x), wy = __ldg(wts + dst_w + y);
+
+  float v[kMaxCh] = {0.f, 0.f, 0.f, 0.f};
+  int ch;
+  if (!kYuv) {
+    const long long row = (long long)src_w * nch;
+    const SrcT* r0 = src + y0 * row;
+    const SrcT* r1 = src + y1 * row;
+#pragma unroll
+    for (int c = 0; c < kMaxCh; ++c) {
+      if (c < nch) v[c] = bilerp(r0, r1, x0 * nch + c, x1 * nch + c, wx, wy, keep);
+    }
+    ch = nch;
+  } else {
+    // luma: src_h rows of src_w bytes; then src_h/2 rows of src_w/2 pairs
+    const int* ct = taps + 2 * (dst_w + dst_h);
+    const int cx0 = __ldg(ct + x), cx1 = __ldg(ct + dst_w + x);
+    const int cy0 = __ldg(ct + 2 * dst_w + y), cy1 = __ldg(ct + 2 * dst_w + dst_h + y);
+    const float lum = bilerp(src + (long long)y0 * src_w, src + (long long)y1 * src_w, x0, x1,
+                             wx, wy, keep);
+    const SrcT* uv = src + (long long)src_h * src_w;
+    const SrcT* u0 = uv + (long long)cy0 * src_w;
+    const SrcT* u1 = uv + (long long)cy1 * src_w;
+    const int iu = nv21 ? 1 : 0;
+    float u = bilerp(u0, u1, 2 * cx0 + iu, 2 * cx1 + iu, wx, wy, keep);
+    float w = bilerp(u0, u1, 2 * cx0 + 1 - iu, 2 * cx1 + 1 - iu, wx, wy, keep);
+    // ops/nv12.py::ConvertYUVToRGB.apply, op for op
+    float yv = lum;
+    u = __fsub_rn(u, 128.f);
+    w = __fsub_rn(w, 128.f);
+    if (conv.limited) {
+      yv = __fmul_rn(__fsub_rn(yv, 16.f), conv.ys);
+      u = __fmul_rn(u, conv.cs);
+      w = __fmul_rn(w, conv.cs);
+    }
+    v[0] = __fadd_rn(yv, __fmul_rn(conv.rv, w));
+    v[1] = __fsub_rn(__fsub_rn(yv, __fmul_rn(conv.gu, u)), __fmul_rn(conv.gv, w));
+    v[2] = __fadd_rn(yv, __fmul_rn(conv.bu, u));
+    v[3] = 1.f;
+    ch = conv.alpha ? 4 : 3;
+  }
+
+  run_chain(v, ch, ops, n_ops, fp);
+
+  OutT* o = out + (long long)y * sy + (long long)x * sx;
+#pragma unroll
+  for (int c = 0; c < kMaxCh; ++c) {
+    if (c < out_ch) o[c * sc] = to_out<OutT>(v[c]);
+  }
+}
+
+template <typename SrcT, typename OutT, bool kYuv>
+void launch(const void* src, int src_h, int src_w, int nch, int nv21, const int* taps,
+            const float* wts, int keep_edge, const Conv& conv, const float* fp, const int* ops,
+            int n_ops, int dst_w, int dst_h, void* out, int out_ch, long long sc, long long sy,
+            long long sx, cudaStream_t stream) {
+  const dim3 block(64, 4);
+  const dim3 grid((dst_w + 63) / 64, (dst_h + 3) / 4);
+  frame_resize_kernel<SrcT, OutT, kYuv><<<grid, block, 0, stream>>>(
+      static_cast<const SrcT*>(src), src_h, src_w, nch, nv21, taps, wts, keep_edge, conv, fp,
+      ops, n_ops, dst_w, dst_h, static_cast<OutT*>(out), out_ch, sc, sy, sx);
+}
+
+}  // namespace
+
+// Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
+// `src` is an (src_h, src_w * nch) image, uint8 (src_u8 = 1) or float32, or
+// with yuv = 1 an NV12 (nv21 = 0) or NV21 uint8 buffer of (src_h * 3/2,
+// src_w). `out` is uint8 (out_u8 = 1) or float32 with out_ch channels,
+// element strides (sc, sy, sx) per (channel, row, col).
+extern "C" int cvgs_frame_resize(const void* src, int src_u8, int src_h, int src_w, int nch,
+                                 int yuv, int nv21, const int* taps, const float* wts,
+                                 int keep_edge, int limited, int alpha, float ys, float cs,
+                                 float rv, float gu, float gv, float bu, const float* fparams,
+                                 const int* ops, int n_ops, int dst_w, int dst_h, void* out,
+                                 int out_u8, int out_ch, long long sc, long long sy,
+                                 long long sx, void* stream) {
+  if (nch < 1 || nch > kMaxCh || out_ch < 1 || out_ch > kMaxCh || dst_w < 1 || dst_h < 1 ||
+      src_h < 1 || src_w < 1 || n_ops < 0 || (yuv && (!src_u8 || nch != 1))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Conv conv{limited, alpha, ys, cs, rv, gu, gv, bu};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CVGS_LAUNCH(SrcT, OutT, YUV)                                                        \
+  launch<SrcT, OutT, YUV>(src, src_h, src_w, nch, nv21, taps, wts, keep_edge, conv, fparams, \
+                          ops, n_ops, dst_w, dst_h, out, out_ch, sc, sy, sx, s)
+  if (yuv) {
+    if (out_u8) CVGS_LAUNCH(uint8_t, uint8_t, true);
+    else CVGS_LAUNCH(uint8_t, float, true);
+  } else if (src_u8) {
+    if (out_u8) CVGS_LAUNCH(uint8_t, uint8_t, false);
+    else CVGS_LAUNCH(uint8_t, float, false);
+  } else {
+    if (out_u8) CVGS_LAUNCH(float, uint8_t, false);
+    else CVGS_LAUNCH(float, float, false);
+  }
+#undef CVGS_LAUNCH
+  return (int)cudaGetLastError();
+}

@@ -1,11 +1,13 @@
 """Build the package's CUDA sources into one shared library and load it.
 
-``nvcc`` compiles ``csrc/*.cu`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, loaded with ``ctypes``. Nothing here
-includes PyTorch's headers, so a build takes seconds. The library lands in
-``build/kernels/`` beside the package, named by a hash of the sources and
-the command line, so an edited source is rebuilt at its next use. The build
-runs at first use, never at import.
+``nvcc`` compiles each ``csrc/*.cu`` for Hopper (``sm_90a``) into an object,
+all of them at once in parallel processes, and links the objects into one
+shared library with a plain C interface, loaded with ``ctypes``. Nothing
+here includes PyTorch's headers, so a build takes seconds. The library lands
+in ``build/kernels/`` beside the package, named by a hash of the sources,
+the headers they include (``csrc/*.cuh``) and the command lines, so an
+edited source or header is rebuilt at its next use. The build runs at first
+use, never at import.
 
 ``nvcc`` is taken from ``$CUDA_HOME/bin``, else from ``PATH``, else from the
 toolkit PyTorch itself locates; a build without one raises.
@@ -24,6 +26,7 @@ from typing import List, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCES = sorted((PACKAGE_DIR / "csrc").glob("*.cu"))
+HEADERS = sorted((PACKAGE_DIR / "csrc").glob("*.cuh"))
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 _LOCK = threading.Lock()
@@ -51,8 +54,9 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def nvcc_command(nvcc: str, sources: List[Path], output: Path) -> List[str]:
-    """The compile command: Hopper target, no FMA contraction, no fast math."""
+def compile_command(nvcc: str, source: Path, output: Path) -> List[str]:
+    """One source to one object: Hopper target, no FMA contraction, no fast
+    math, position-independent for the shared library."""
     return [
         nvcc,
         "-gencode", "arch=compute_90a,code=sm_90a",
@@ -60,21 +64,36 @@ def nvcc_command(nvcc: str, sources: List[Path], output: Path) -> List[str]:
         "-O3",
         "-fmad=false",
         "-Xptxas", "-v",
-        "-shared",
         "-Xcompiler", "-fPIC",
+        "-c", str(source),
         "-o", str(output),
-        *[str(s) for s in sources],
     ]
 
 
+def link_command(nvcc: str, objects: List[Path], output: Path) -> List[str]:
+    """The objects to one shared library."""
+    return [nvcc, "-shared", "-o", str(output), *[str(o) for o in objects]]
+
+
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256()
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    h.update(" ".join(nvcc_command("nvcc", [], Path("lib.so"))).encode())
+    h.update(" ".join(compile_command("nvcc", Path("src.cu"), Path("src.o"))).encode())
+    h.update(" ".join(link_command("nvcc", [Path("src.o")], Path("lib.so"))).encode())
     return BUILD_DIR / f"libcvgs_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(procs, what: str) -> str:
+    """Wait for every process, then raise if any failed; returns their output."""
+    outs = [(p, *p.communicate()) for p in procs]
+    log = "".join(o + e for _, o, e in outs)
+    failed = [p.returncode for p, _, _ in outs if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed to {what} (exit {failed[0]}):\n{log}")
+    return log
 
 
 def build() -> Path:
@@ -84,13 +103,18 @@ def build() -> Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        nvcc_command(find_nvcc(), SOURCES, tmp), capture_output=True, text=True, check=False
-    )
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{BUILD_LOG}")
+    nvcc = find_nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in SOURCES]
+    procs = [subprocess.Popen(compile_command(nvcc, s, o), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for s, o in zip(SOURCES, objects)]
+    BUILD_LOG = _run(procs, "compile")
+    tmp = path.with_name(f"{tag}.tmp.so")
+    BUILD_LOG += _run([subprocess.Popen(link_command(nvcc, objects, tmp), stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)], "link")
+    for o in objects:
+        o.unlink()
     os.replace(tmp, path)
     return path
 
@@ -101,15 +125,25 @@ def load() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
             lib.cvgs_batch_resize.argtypes = [
-                p, i, ll, i, i, i,      # src, src_u8, plane_stride, src_h, src_w, nch
-                p, p, p, p, i,          # rects, used, fparams, ops, n_ops
-                i, i, i, i,             # n_planes, dst_w, dst_h, mode
-                p, i, ll, ll, ll, ll,   # out, out_u8, sn, sc, sy, sx
-                p,                      # stream
+                p, i, ll, i, i, i,         # src, src_u8, plane_stride, src_h, src_w, nch
+                p, p, p, p, i,             # rects, used, fparams, ops, n_ops
+                i, i, i, i,                # n_planes, dst_w, dst_h, mode
+                p, i, i, ll, ll, ll, ll,   # out, out_u8, out_ch, sn, sc, sy, sx
+                p,                         # stream
             ]
             lib.cvgs_batch_resize.restype = ctypes.c_int
+            lib.cvgs_frame_resize.argtypes = [
+                p, i, i, i, i,             # src, src_u8, src_h, src_w, nch
+                i, i, p, p, i,             # yuv, nv21, taps, weights, keep_edge
+                i, i, f, f, f, f, f, f,    # limited, alpha, ys, cs, rv, gu, gv, bu
+                p, p, i,                   # fparams, ops, n_ops
+                i, i, p, i, i,             # dst_w, dst_h, out, out_u8, out_ch
+                ll, ll, ll,                # sc, sy, sx
+                p,                         # stream
+            ]
+            lib.cvgs_frame_resize.restype = ctypes.c_int
             lib.cvgs_error_string.argtypes = [ctypes.c_int]
             lib.cvgs_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -17,9 +17,12 @@ PyTorch version. The plain version runs the eager resize, each chain op's
 own ``apply`` and the write op, and reads neither the op table nor the
 parameter block, so holding the kernel against it also checks the encoder.
 
-The running dtype of the chain is tracked statically: values stay in f32
-registers, and every op on a uint8 value is followed by a saturation back
-to uint8, as ``ops/arithmetic.py`` does.
+The chain's running dtype and channel count are tracked statically: values
+stay in f32 registers, every op on a uint8 value is followed by a
+saturation back to uint8, as ``ops/arithmetic.py`` does, and a colour
+conversion may change the channel count. :func:`encode_chain` is shared
+with the full-frame kernel (``cuda_frame_resize``); both kernels interpret
+the table with ``csrc/chain.cuh``.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 from ..graph import FusedCompute, flatten
 from ..ops.arithmetic import Add, Div, Mul, StaticLoop, Sub
 from ..ops.cast import Cast, SaturateCast
-from ..ops.color import VectorReorder
+from ..ops.color import _CODE_INFO, ColorConversion, VectorReorder, alpha_fill
 from ..ops.memory import (SplitWrite, TensorSplit, TensorSplitPacked, TensorTSplit,
                           TensorWrite, Write2D, pack_factor)
 from ..ops.resize import BatchResizeRead, sample_batch
@@ -44,8 +47,9 @@ from . import _build
 #: launches of the CUDA kernel in this process
 LAUNCHES = 0
 
-# op codes; keep in step with csrc/batch_resize.cu
-OP_MUL, OP_ADD, OP_SUB, OP_DIV, OP_SAT_U8, OP_CAST_U8, OP_REORDER = range(1, 8)
+# op codes; keep in step with csrc/chain.cuh
+(OP_MUL, OP_ADD, OP_SUB, OP_DIV, OP_SAT_U8, OP_CAST_U8, OP_REORDER, OP_ALPHA, OP_GRAY_U8,
+ OP_GRAY_F32) = range(1, 11)
 _ARITH = {Mul: OP_MUL, Add: OP_ADD, Sub: OP_SUB, Div: OP_DIV}
 _MODES = {
     AspectRatio.IGNORE_AR: 0,
@@ -63,6 +67,8 @@ _LAYOUTS = {
 }
 _MAX_CHANNELS = 4
 _MAX_PLANES = 65535  # grid.z
+#: the source dtypes the kernels read
+SRC_DTYPES = {"uint8": torch.uint8, "float32": torch.float32}
 
 
 class Unsupported(ValueError):
@@ -75,6 +81,7 @@ class KernelPlan:
 
     n_planes: int
     nch: int
+    out_ch: int
     dsize: Size
     aspect_ratio: AspectRatio
     stack_mode: bool
@@ -107,55 +114,76 @@ def _n_leaves(o) -> int:
     return len(flatten(o)[1])
 
 
-def encode_chain(chain, nch: int):
-    """``(ops, out_dtype, n_params)`` for a chain applied to f32 values with
-    ``nch`` channels. Parameter offsets count from ``nch`` (the background
-    comes first) in the order :func:`~..graph.flatten` visits the leaves."""
+def _reorder_row(indices) -> List[int]:
+    """Output channel ``k`` takes channel ``indices[k]``; the channel count
+    becomes ``len(indices)``."""
+    packed = sum(i << (4 * k) for k, i in enumerate(indices))
+    return [OP_REORDER, 0, 0, packed | (len(indices) << 16)]
+
+
+def encode_chain(chain, nch: int, first_param: int = 0):
+    """``(ops, out_dtype, out_ch, n_params)`` for a chain applied to f32
+    values with ``nch`` channels. Parameter offsets count from
+    ``first_param`` in the order :func:`~..graph.flatten` visits the leaves;
+    ``n_params`` is the offset past the last one."""
     rows: List[List[int]] = []
 
-    def enc(o, dtype, pos):
+    def enc(o, dtype, ch, pos):
         if isinstance(o, FusedCompute):
             for sub in o.ops:
-                dtype, pos = enc(sub, dtype, pos)
-            return dtype, pos
+                dtype, ch, pos = enc(sub, dtype, ch, pos)
+            return dtype, ch, pos
         if isinstance(o, StaticLoop):
             end = pos + _n_leaves(o.body)
             for _ in range(o.n):
-                dtype, _ = enc(o.body, dtype, pos)
-            return dtype, end
+                dtype, ch, _ = enc(o.body, dtype, ch, pos)
+            return dtype, ch, end
         if type(o) in _ARITH:
             v = o.value
             shape = tuple(v.shape) if hasattr(v, "shape") else ()
             size = int(np.prod(shape)) if shape else 1
-            if len(shape) > 1 or size not in (1, nch):
-                raise Unsupported(f"{type(o).__name__} scalar of shape {shape} on {nch} channels")
+            if len(shape) > 1 or size not in (1, ch):
+                raise Unsupported(f"{type(o).__name__} scalar of shape {shape} on {ch} channels")
             if _leaf_dtype_name(v) != "float32":
                 raise Unsupported(f"{type(o).__name__} scalar is {_leaf_dtype_name(v)}, not float32")
             rows.append([_ARITH[type(o)], pos, 0 if size == 1 else 1, 0])
             if dtype == torch.uint8:
                 rows.append([OP_SAT_U8, 0, 0, 0])
-            return dtype, pos + size
+            return dtype, ch, pos + size
         if isinstance(o, (SaturateCast, Cast)):
             if o.dst == torch.float32:
-                return torch.float32, pos
+                return torch.float32, ch, pos
             if o.dst == torch.uint8:
                 if dtype == torch.float32:
                     rows.append([OP_SAT_U8 if isinstance(o, SaturateCast) else OP_CAST_U8, 0, 0, 0])
-                return torch.uint8, pos
+                return torch.uint8, ch, pos
             raise Unsupported(f"cast to {o.dst}")
         if isinstance(o, VectorReorder):
             idx = tuple(o.indices)
-            if len(idx) != nch or any(not 0 <= i < nch for i in idx):
-                raise Unsupported(f"VectorReorder{idx} on {nch} channels")
-            rows.append([OP_REORDER, 0, 0, sum(i << (4 * k) for k, i in enumerate(idx))])
-            return dtype, pos
+            if len(idx) != ch or any(not 0 <= i < ch for i in idx):
+                raise Unsupported(f"VectorReorder{idx} on {ch} channels")
+            rows.append(_reorder_row(idx))
+            return dtype, ch, pos
+        if isinstance(o, ColorConversion):
+            info = _CODE_INFO[o.code]
+            if ch != info[0]:
+                raise Unsupported(f"{o.code.name} on {ch} channels")
+            if info[2] == "gray":
+                r, g, b = info[3]
+                code = OP_GRAY_U8 if dtype == torch.uint8 else OP_GRAY_F32
+                rows.append([code, 0, 0, r | (g << 4) | (b << 8)])
+                return dtype, 1, pos
+            rows.append(_reorder_row(info[2]))
+            if info[1] > len(info[2]):
+                rows.append([OP_ALPHA, 0, 0, int(alpha_fill(dtype))])
+            return dtype, info[1], pos
         raise Unsupported(f"{type(o).__name__} has no op code")
 
-    dtype, pos = torch.float32, nch
+    dtype, ch, pos = torch.float32, nch, first_param
     for o in chain:
-        dtype, pos = enc(o, dtype, pos)
+        dtype, ch, pos = enc(o, dtype, ch, pos)
     ops = np.asarray(rows, np.int32).reshape(-1, 4)
-    return ops, dtype, pos
+    return ops, dtype, ch, pos
 
 
 def build_plan(pipeline) -> KernelPlan:
@@ -172,7 +200,7 @@ def build_plan(pipeline) -> KernelPlan:
     expect_rank = (2 if read.packed_channels else 3) + stack_mode
     if src.ndim != expect_rank:
         raise Unsupported(f"source of rank {src.ndim}, expected {expect_rank}")
-    src_dtype = {"uint8": torch.uint8, "float32": torch.float32}.get(_leaf_dtype_name(src))
+    src_dtype = SRC_DTYPES.get(_leaf_dtype_name(src))
     if src_dtype is None:
         raise Unsupported(f"source dtype {_leaf_dtype_name(src)}")
     nch = read.source_dims()[2]
@@ -183,9 +211,10 @@ def build_plan(pipeline) -> KernelPlan:
         raise Unsupported(f"rects of shape {tuple(read.rects.shape)}")
     if stack_mode and src.shape[0] != n:
         raise Unsupported("stack and rects disagree on the plane count")
-    ops, out_dtype, n_fparams = encode_chain(pipeline.compute, nch)
+    # the background comes first in the parameter block
+    ops, out_dtype, out_ch, n_fparams = encode_chain(pipeline.compute, nch, first_param=nch)
     return KernelPlan(
-        n_planes=n, nch=nch, dsize=read.dsize, aspect_ratio=read.aspect_ratio,
+        n_planes=n, nch=nch, out_ch=out_ch, dsize=read.dsize, aspect_ratio=read.aspect_ratio,
         stack_mode=stack_mode, src_dtype=src_dtype, out_dtype=out_dtype,
         layout=_LAYOUTS[type(pipeline.write)], ops=ops, n_fparams=n_fparams,
     )
@@ -268,7 +297,7 @@ def prepare(pipeline, plan: KernelPlan, device: torch.device) -> Launch:
 
 def _alloc_out(plan: KernelPlan, device):
     """``(buffer, (sn, sc, sy, sx), result)`` of the plan's write layout."""
-    n, c = plan.n_planes, plan.nch
+    n, c = plan.n_planes, plan.out_ch
     w, h = plan.dsize
     if plan.layout in ("split", "split_packed"):
         buf = torch.empty((n, c, h, w), dtype=plan.out_dtype, device=device)
@@ -343,7 +372,7 @@ def batch_resize(a: Launch):
             src_h, src_w, plan.nch,
             a.rects.data_ptr(), a.used.data_ptr(), a.fparams.data_ptr(), a.ops.data_ptr(),
             plan.ops.shape[0], plan.n_planes, w, h, _MODES[plan.aspect_ratio],
-            buf.data_ptr(), int(plan.out_dtype == torch.uint8), sn, sc, sy, sx,
+            buf.data_ptr(), int(plan.out_dtype == torch.uint8), plan.out_ch, sn, sc, sy, sx,
             stream,
         )
     if err != 0:

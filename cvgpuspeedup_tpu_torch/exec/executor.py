@@ -4,16 +4,18 @@ Counterpart of ``cvgpuspeedup_tpu/exec/executor.py:70-276``. A pipeline's
 structure (op classes, static fields, leaf shapes and dtypes) is its
 ``flatten`` key; its runtime values (frames, rects, scalars) are leaves. The
 first call with a given structure, device type and backend request builds a
-plan: the backend choice and, for the kernel, its op-code table and
-parameter layout. Every later call with new values reuses it. ``PLAN_BUILDS``
-counts the builds.
+plan: the backend choice and, for a kernel, its op-code table, parameter
+layout and tables. Every later call with new values reuses it.
+``PLAN_BUILDS`` counts the builds.
 
 Devices: tensor leaves stay on their own device and must all share one.
 Numpy and Python leaves move to ``device``, which defaults to the device of
-the tensor leaves, else the CPU. Backends: ``AUTO`` takes the CUDA kernel
-for a CUDA pipeline the kernel supports, and the eager PyTorch version
-otherwise; an explicit ``ParBackend.CUDA`` raises where the kernel cannot
-run. Nothing falls back from a failed build or launch.
+the tensor leaves, else the CPU. Backends: ``AUTO`` tries, for a CUDA
+pipeline, the batched crop-resize kernel (``cuda:batch_resize``), then the
+full-frame resize kernel (``cuda:frame_resize``), and takes the eager
+PyTorch version when neither supports the pipeline; an explicit
+``ParBackend.CUDA`` raises where neither can run. Nothing falls back from a
+failed build or launch.
 
 The divergent launcher (``build_operation_sequence``,
 ``launch_divergent_batch``) comes with the divergent slice.
@@ -31,7 +33,7 @@ from ..graph import (ComputeOp, FusedCompute, FusedRead, IOp, PendingReadOp, Rea
 from ..ops.memory import ImageRead, Write2D
 from ..types import ParBackend
 from ..utils.dtypes import as_device_tensor
-from . import cuda_batch_resize
+from . import cuda_batch_resize, cuda_frame_resize
 
 __all__ = [
     "Pipeline",
@@ -100,8 +102,14 @@ def build_pipeline(*iops: IOp, input=None) -> Pipeline:
 
 @dataclasses.dataclass(frozen=True)
 class _Plan:
-    backend: str  # "torch" or "cuda:batch_resize"
-    kernel: Optional[cuda_batch_resize.KernelPlan]
+    backend: str     # "torch", "cuda:batch_resize" or "cuda:frame_resize"
+    kernel: object   # the kernel module's plan, None for "torch"
+    module: object   # the kernel module (its ``run`` takes the plan), None for "torch"
+
+
+#: the kernels, in the order the executor tries them
+_KERNELS = (("cuda:batch_resize", cuda_batch_resize), ("cuda:frame_resize", cuda_frame_resize))
+_TORCH = _Plan("torch", None, None)
 
 
 _PLANS: Dict[Tuple, _Plan] = {}
@@ -135,18 +143,20 @@ def _resolve_device(leaves, device) -> torch.device:
 def _select(pipeline: Pipeline, backend: ParBackend, dev: torch.device) -> _Plan:
     """The backend decision, made before anything launches."""
     if backend == ParBackend.TORCH:
-        return _Plan("torch", None)
+        return _TORCH
     if backend == ParBackend.CUDA and dev.type != "cuda":
         raise ValueError(f"ParBackend.CUDA needs CUDA tensors, the pipeline is on {dev}")
     if dev.type != "cuda":
-        return _Plan("torch", None)
-    try:
-        kernel = cuda_batch_resize.build_plan(pipeline)
-    except cuda_batch_resize.Unsupported as e:
-        if backend == ParBackend.CUDA:
-            raise ValueError(f"ParBackend.CUDA cannot run this pipeline: {e}") from e
-        return _Plan("torch", None)
-    return _Plan("cuda:batch_resize", kernel)
+        return _TORCH
+    refusals = []
+    for name, module in _KERNELS:
+        try:
+            return _Plan(name, module.build_plan(pipeline), module)
+        except module.Unsupported as e:
+            refusals.append(f"{name}: {e}")
+    if backend == ParBackend.CUDA:
+        raise ValueError(f"ParBackend.CUDA cannot run this pipeline: {'; '.join(refusals)}")
+    return _TORCH
 
 
 def _plan(pipeline: Pipeline, key, backend: ParBackend, dev: torch.device) -> _Plan:
@@ -163,7 +173,7 @@ def _plan(pipeline: Pipeline, key, backend: ParBackend, dev: torch.device) -> _P
 def describe_backend(*iops: IOp, input=None, backend: ParBackend = ParBackend.AUTO,
                      device=None) -> str:
     """Which backend :func:`execute_operations` would run for this op list:
-    ``"cuda:batch_resize"`` or ``"torch"``."""
+    ``"cuda:batch_resize"``, ``"cuda:frame_resize"`` or ``"torch"``."""
     pipeline = build_pipeline(*iops, input=input)
     _, leaves = flatten(pipeline)
     return _select(pipeline, backend, _resolve_device(leaves, device)).backend
@@ -188,4 +198,4 @@ def execute_operations(*iops: IOp, input=None, backend: ParBackend = ParBackend.
     _LAST_BACKEND = plan.backend
     if plan.kernel is None:
         return map_leaves(pipeline, lambda v: as_device_tensor(v, dev)).lower()
-    return cuda_batch_resize.run(pipeline, plan.kernel, dev)
+    return plan.module.run(pipeline, plan.kernel, dev)

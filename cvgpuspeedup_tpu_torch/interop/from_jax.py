@@ -20,17 +20,19 @@ from ..exec.executor import Pipeline
 from ..graph import FusedCompute, FusedRead
 from ..ops.arithmetic import Add, Div, Mul, StaticLoop, Sub
 from ..ops.cast import Cast, SaturateCast
-from ..ops.color import VectorReorder
+from ..ops.color import ColorConversion, VectorReorder
 from ..ops.memory import (ImageRead, SplitWrite, TensorSplit, TensorSplitPacked, TensorTSplit,
                           TensorWrite, Write2D)
-from ..ops.resize import BatchResizeRead
+from ..ops.nv12 import ConvertYUVToRGB, ReadYUV
+from ..ops.resize import BatchResizeRead, ResizeRead
 from ..utils.dtypes import to_torch_dtype
 
 _CLASSES = {
     c.__name__: c
     for c in (Pipeline, FusedCompute, FusedRead, ImageRead, Write2D, TensorWrite, TensorSplit,
               TensorSplitPacked, TensorTSplit, SplitWrite, SaturateCast, Cast, Mul, Add, Sub,
-              Div, StaticLoop, VectorReorder, BatchResizeRead)
+              Div, StaticLoop, VectorReorder, ColorConversion, BatchResizeRead, ResizeRead,
+              ReadYUV, ConvertYUVToRGB)
 }
 
 #: static fields that only size TPU kernels; the port has no use for them

@@ -3,7 +3,7 @@
 Counterpart of ``cvgpuspeedup_tpu/types.py``. The enums keep the reference
 package's member names, so a pipeline carried across by
 ``interop.from_jax`` maps member for member. ``ParBackend`` names the port's
-two lowerings: the eager PyTorch version and the hand-written CUDA kernel.
+two lowerings: the eager PyTorch version and the hand-written CUDA kernels.
 """
 
 from __future__ import annotations
@@ -39,13 +39,52 @@ class AspectRatio(enum.Enum):
     PRESERVE_AR_LEFT = "preserve_left"
 
 
+class ColorRange(enum.Enum):
+    FULL = "full"
+    LIMITED = "limited"
+
+
+class ColorStandard(enum.Enum):
+    BT601 = "bt601"
+    BT709 = "bt709"
+
+
+class PixelFormat(enum.Enum):
+    NV12 = "nv12"
+    NV21 = "nv21"
+
+
+class ColorConversionCode(enum.Enum):
+    """``cv::ColorConversionCodes`` that ``ColorConversion`` supports: the 12
+    RGB/BGR/RGBA/BGRA permutations and the 4 reductions to gray. (The
+    reference package defines it in ``ops/color.py``; it lives here so that
+    ``interop.from_jax`` finds every enum in one module.)"""
+
+    COLOR_BGR2BGRA = "BGR2BGRA"
+    COLOR_RGB2RGBA = "RGB2RGBA"
+    COLOR_BGRA2BGR = "BGRA2BGR"
+    COLOR_RGBA2RGB = "RGBA2RGB"
+    COLOR_BGR2RGBA = "BGR2RGBA"
+    COLOR_RGB2BGRA = "RGB2BGRA"
+    COLOR_BGRA2RGB = "BGRA2RGB"
+    COLOR_RGBA2BGR = "RGBA2BGR"
+    COLOR_BGR2RGB = "BGR2RGB"
+    COLOR_RGB2BGR = "RGB2BGR"
+    COLOR_BGRA2RGBA = "BGRA2RGBA"
+    COLOR_RGBA2BGRA = "RGBA2BGRA"
+    COLOR_RGB2GRAY = "RGB2GRAY"
+    COLOR_RGBA2GRAY = "RGBA2GRAY"
+    COLOR_BGR2GRAY = "BGR2GRAY"
+    COLOR_BGRA2GRAY = "BGRA2GRAY"
+
+
 class ParBackend(enum.Enum):
     """Backend selector.
 
-    ``AUTO`` takes the CUDA kernel for a CUDA source whenever the kernel
-    supports the pipeline, else the eager PyTorch version. ``TORCH`` forces
-    the eager version. ``CUDA`` forces the kernel and raises where it cannot
-    run (a CPU tensor, or a pipeline the kernel does not encode).
+    ``AUTO`` takes a CUDA kernel for a CUDA source whenever one supports the
+    pipeline, else the eager PyTorch version. ``TORCH`` forces the eager
+    version. ``CUDA`` forces a kernel and raises where none can run (a CPU
+    tensor, or a pipeline no kernel encodes).
     """
 
     AUTO = "auto"

@@ -64,6 +64,14 @@ def is_integer(dtype: DTypeLike) -> bool:
     return not d.is_floating_point and not d.is_complex and d != torch.bool
 
 
+def max_value(dtype: DTypeLike):
+    """``fk::maxValue<T>``: the largest value of an integer or float dtype."""
+    d = to_torch_dtype(dtype)
+    if is_integer(d):
+        return torch.iinfo(d).max
+    return float(torch.finfo(d).max)
+
+
 def saturate_cast(x: torch.Tensor, dtype: DTypeLike) -> torch.Tensor:
     """OpenCV ``saturate_cast`` semantics, elementwise.
 

@@ -165,6 +165,30 @@ def test_rects_touching_and_past_the_frame_edge(dtype):
     check_parity(read, *_flagship_chain(J), J.split_tensor())
 
 
+NEGATIVE_ORIGINS = {
+    "left_and_above": (-5, -3, 20, 10),
+    "left_of_minus_width": (-70, 2, 20, 10),
+    "past_right_and_bottom": (50, 35, 20, 10),
+    "far_above_and_left": (-100, -50, 20, 10),
+}
+
+
+@pytest.mark.parametrize("out", ["u8", "f32"])
+@pytest.mark.parametrize("name", sorted(NEGATIVE_ORIGINS))
+def test_rects_with_negative_origins_read_like_the_reference(name, out):
+    """The reference gathers taps with array indexing: an index left of or
+    above the frame counts from the far edge (``t + len``), and then every
+    index clamps into the frame. uint8 bit-exact, float32 bit-exact too."""
+    frame = _frame(12, h=40, w=64)
+    rects = np.array([NEGATIVE_ORIGINS[name]], np.int32)
+    read = J.resize_batch(frame, rects=rects, dsize=J.Size(16, 8))
+    tail = (J.convert_to(np.uint8),) if out == "u8" else ()
+    expected = np.asarray(J.execute_operations(read, *tail, J.write_tensor(),
+                                               backend=J.ParBackend.XLA))
+    got = check_parity(read, *tail, J.write_tensor()).numpy()
+    assert np.array_equal(got, expected)
+
+
 def test_gray_source():
     frame = _frame(8, c=1)[..., 0]
     read = J.resize_batch(frame, rects=_rects(4), dsize=UP, background=9.0,

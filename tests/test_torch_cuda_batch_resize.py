@@ -71,6 +71,14 @@ def _cases(frame):
                                   StaticLoop(body=Mul(value=np.float32(1.01)), n=3), *CHAIN,
                                   T.split_tensor()),
     }
+    # origins left of and above the frame, one past -width, with a colour chain
+    negative = np.array([[-5, -3, 60, 120], [-370, 2, 60, 120], [250, 150, 60, 120],
+                         [-30, -140, 60, 120]], np.int32)
+    cases["negative_origin_gray"] = (
+        T.resize_batch(frame, rects=negative, dsize=UP),
+        T.cvt_color(T.ColorConversionCode.COLOR_BGR2GRAY), T.multiply(1 / 255.0), T.split_tensor())
+    cases["bgr2rgba_u8"] = (T.resize_batch(frame, rects=_rects(), dsize=UP), T.convert_to(np.uint8),
+                            T.cvt_color(T.ColorConversionCode.COLOR_BGR2RGBA), T.write_tensor())
     for mode in (T.AspectRatio.PRESERVE_AR, T.AspectRatio.PRESERVE_AR_RN_EVEN,
                  T.AspectRatio.PRESERVE_AR_LEFT):
         cases[mode.name] = (T.resize_batch(frame, rects=_rects(cw=30), dsize=UP, background=128.0,
@@ -79,8 +87,8 @@ def _cases(frame):
 
 
 CASE_NAMES = ["ignore_ar", "tensor_background", "used_planes", "stack", "u8_chain", "u8_hwc", "tsplit", "split_write",
-              "split_packed", "f32_edge_reorder_loop", "PRESERVE_AR", "PRESERVE_AR_RN_EVEN",
-              "PRESERVE_AR_LEFT"]
+              "split_packed", "f32_edge_reorder_loop", "negative_origin_gray", "bgr2rgba_u8",
+              "PRESERVE_AR", "PRESERVE_AR_RN_EVEN", "PRESERVE_AR_LEFT"]
 
 
 @pytest.mark.parametrize("case", CASE_NAMES)

@@ -162,4 +162,4 @@ def test_from_jax_round_trip(frame, rects):
 
 def test_from_jax_refuses_unported_ops(frame):
     with pytest.raises(TypeError, match="no counterpart"):
-        from_jax(J.cvt_color(J.ColorConversionCode.COLOR_RGB2BGR))
+        from_jax(J.crop(J.image(frame), J.Rect(0, 0, 8, 8)))

@@ -1,6 +1,6 @@
 """Rules of the port that no numerics test shows: it never imports jax, its
-kernel is built for Hopper without FMA contraction or fast math, and its
-CUDA source ships with the package."""
+kernels are built for Hopper without FMA contraction or fast math, and their
+CUDA sources and headers ship with the package."""
 
 import fnmatch
 import re
@@ -8,6 +8,8 @@ import subprocess
 import sys
 import tomllib
 from pathlib import Path
+
+import pytest
 
 from cvgpuspeedup_tpu_torch.exec import _build
 
@@ -17,7 +19,8 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_import_leaves_jax_out():
     code = (
         "import sys, cvgpuspeedup_tpu_torch, cvgpuspeedup_tpu_torch.interop.from_jax, "
-        "cvgpuspeedup_tpu_torch.utils.profiling; "
+        "cvgpuspeedup_tpu_torch.utils.profiling, cvgpuspeedup_tpu_torch.exec.cuda_frame_resize, "
+        "cvgpuspeedup_tpu_torch.ops.nv12, cvgpuspeedup_tpu_torch.ops.color; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cvgpuspeedup_tpu')))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -46,29 +49,45 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_nvcc_command_targets_hopper_without_fast_math():
-    cmd = _build.nvcc_command("nvcc", _build.SOURCES, Path("out.so"))
-    joined = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in joined
-    assert "-fmad=false" in cmd
-    assert "--use_fast_math" not in joined and "-use_fast_math" not in joined
-    assert "-shared" in cmd
+    for src in _build.SOURCES:
+        cmd = _build.compile_command("nvcc", src, Path("out.o"))
+        joined = " ".join(cmd)
+        assert "arch=compute_90a,code=sm_90a" in joined
+        assert "-fmad=false" in cmd
+        assert "--use_fast_math" not in joined and "-use_fast_math" not in joined
+        assert "-c" in cmd and str(src) in cmd
+    link = _build.link_command("nvcc", [Path("a.o"), Path("b.o")], Path("out.so"))
+    assert "-shared" in link and "a.o" in link and "b.o" in link
 
 
-def test_cuda_source_exists_and_ships_as_package_data():
-    src = ROOT / "cvgpuspeedup_tpu_torch" / "csrc" / "batch_resize.cu"
+@pytest.mark.parametrize("name,replaces", [
+    ("batch_resize.cu", "pallas_backend.py::_emit_batch_resize"),
+    ("frame_resize.cu", "pallas_frame.py::_emit_frame_resize"),
+])
+def test_cuda_source_exists_and_ships_as_package_data(name, replaces):
+    src = ROOT / "cvgpuspeedup_tpu_torch" / "csrc" / name
     assert src.is_file() and src in _build.SOURCES
     text = src.read_text()
-    assert "pallas_backend.py::_emit_batch_resize" in text
-    assert "__fmul_rn" in text and "__fdiv_rn" in text
+    assert replaces in text
+    assert '#include "chain.cuh"' in text
+    assert "__fmul_rn" in text or "lerp_rn" in text
+    header = ROOT / "cvgpuspeedup_tpu_torch" / "csrc" / "chain.cuh"
+    assert header in _build.HEADERS and "__fdiv_rn" in header.read_text()
     conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
     setuptools = conf["tool"]["setuptools"]
     include = setuptools["packages"]["find"]["include"]
     assert any(fnmatch.fnmatchcase("cvgpuspeedup_tpu_torch.exec", p) for p in include)
-    assert "csrc/*.cu" in setuptools["package-data"]["cvgpuspeedup_tpu_torch"]
+    data = setuptools["package-data"]["cvgpuspeedup_tpu_torch"]
+    assert "csrc/*.cu" in data and "csrc/*.cuh" in data
 
 
-def test_library_is_keyed_on_the_sources():
+def test_library_is_keyed_on_the_sources(tmp_path, monkeypatch):
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR == ROOT / "build" / "kernels"
     assert path == _build.library_path()
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+    # an edited header names another library, so it is rebuilt
+    header = tmp_path / "chain.cuh"
+    header.write_text(_build.HEADERS[0].read_text() + "\n// edited\n")
+    monkeypatch.setattr(_build, "HEADERS", [header])
+    assert _build.library_path() != path

@@ -55,3 +55,45 @@ def test_flagship_slice_matches_reference(kw):
     native = T.execute_operations(*_ops(T, torch.from_numpy(frame), rects, **tkw))
     assert np.abs(native.numpy() - ref).max() <= 1e-5
     assert T.last_backend() == "torch"
+
+
+MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+
+
+def _frame_ops(m, frame):
+    """Path (a) of the frame slice, at a fifth of 1080p: RGB u8 -> 3:1 resize,
+    ImageNet normalization, planar write."""
+    return (m.resize(m.image(frame), m.Size(128, 72)), m.convert_to(np.float32, alpha=1 / 255.0),
+            m.subtract(MEAN), m.divide(STD), m.split_tensor())
+
+
+def _nv12_ops(m, buf):
+    """Path (b), at a fifteenth of 6K: NV12 fused with a bt709 float
+    conversion under a 3:1 resize, x1/255, planar write."""
+    return (m.resize(m.fuse(m.read_yuv(buf), m.convert_yuv_to_rgb(standard=m.ColorStandard.BT709,
+                                                                  out_dtype=np.float32)),
+                     m.Size(128, 72)),
+            m.multiply(1 / 255.0), m.split_tensor())
+
+
+@pytest.mark.parametrize("path", ["a_rgb_normalize", "b_nv12_bt709"])
+def test_frame_slice_matches_reference(path):
+    """Both frame paths through the JAX package (``ParBackend.XLA``) and,
+    carried across with ``from_jax``, through the port. float32 within
+    1e-5."""
+    rng = np.random.default_rng(20261016)
+    if path == "a_rgb_normalize":
+        ops = _frame_ops
+        src = rng.integers(0, 256, (216, 384, 3)).astype(np.uint8)
+    else:
+        ops = _nv12_ops
+        src = rng.integers(0, 256, (216 * 3 // 2, 384)).astype(np.uint8)
+    ref = np.asarray(J.execute_operations(*ops(J, src), backend=J.ParBackend.XLA))
+    assert ref.shape == (3, 72, 128)
+    carried = from_jax(J.build_pipeline(*ops(J, src)))
+    out = T.execute_operations(carried.read, *carried.compute, carried.write)
+    assert tuple(out.shape) == ref.shape and out.dtype == torch.float32
+    assert np.abs(out.numpy() - ref).max() <= 1e-5
+    native = T.execute_operations(*ops(T, torch.from_numpy(src)))
+    assert np.abs(native.numpy() - ref).max() <= 1e-5
+    assert T.last_backend() == "torch"
