@@ -6,11 +6,13 @@
 Run from the root of a checkout. It builds the port's CUDA kernels from
 ``cvgpuspeedup_tpu_torch/csrc`` and drives the port's main paths through the
 public entry points: the flagship batched crop-resize (kernel
-``batch_resize``) and the two full-frame paths (kernel ``frame_resize``),
+``batch_resize``), the two full-frame paths (kernel ``frame_resize``),
 (a) a 1080p RGB u8 frame -> 640x360 with ImageNet normalization and (b) a 6K
-NV12 buffer -> 1920x1080 RGB f32 (bt709, x1/255), both written planar. In
-phases; any failure ends the run with a non-zero exit code and no result
-line:
+NV12 buffer -> 1920x1080 RGB f32 (bt709, x1/255), both written planar, and
+the warp path (kernel ``warp``): eight rotations of one shared 1080p frame
+in one launch, ragged at 7 planes, -> 640x360 x1/255 planar, and one
+rotation of it. In phases; any failure ends the run with a non-zero exit
+code and no result line:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
 2. build: compile every kernel source, in parallel, into one library (timed);
@@ -21,10 +23,15 @@ line:
    left of and above the frame with a gray conversion. frame_resize at the
    frame paths' sizes: (a), (b), a >32-phase ratio, an upscale, a uint8
    chain with ``split()``, NV21 limited range with alpha, BGR -> RGBA.
-   uint8 must match bit for bit, float32 within 1e-6;
+   warp on a 1080p frame, a case per class of the reference's warp kernels
+   (W1 separable, W2 rotation, W3 flip, W4 upscaled rotation, W5
+   perspective, W6 the batch of eight) and a uint8 chain on 4 channels with
+   a per-channel border (W7) and a float32 source (W8). uint8 must match bit
+   for bit, float32 within 1e-6, warp float32 bit for bit too;
 4. the main paths: ``execute_operations`` twice each (new rects, new frame
-   contents); each must take its kernel, launch it once per call and build
-   no new plan; the outputs are held against independent float64 versions;
+   contents, new warp matrices and ``used_planes``); each must take its
+   kernel, launch it once per call and build no new plan; the outputs are
+   held against independent float64 versions;
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain; the
    host-inclusive time of one ``execute_operations`` call of each path, the
@@ -32,7 +39,9 @@ line:
    share in a ``torch.profiler`` trace of the flagship path; the event floor
    of a one-element launch, a device copy of the flagship output's bytes, and
    the copy bandwidth of a 256 MiB device copy with each frame path's bytes
-   floor at that bandwidth.
+   floor at that bandwidth; the same for warp cases W1, W2, W5 and W6, whose
+   floors count the 32-byte source sectors the taps touch, and the
+   host-inclusive call of the warp batch.
 
 The last three lines are the card's name and power limit, one JSON object
 describing the kernels, and ``{"ok": true, "device": {...}}``. The script
@@ -57,6 +66,15 @@ MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 BT709 = (0.2126, 0.0722)
 F32_TOL = 1e-6      # kernel vs plain version on the card (0 expected)
 ORACLE_TOL = 1e-4   # the repo's float contract against an independent resize
+WARP_DST = (640, 360)
+# cv2.getPerspectiveTransform of the 1080p frame's corners to
+# (20, 10), (620, 25), (8, 370), (630, 380), as the reference's perspective
+# row builds it (benchmarks/aux_pipelines.py:702-705)
+PERSPECTIVE_W5 = np.array([
+    [3.1753744470832196e-01, -1.1385448318718986e-02, 2.0e+01],
+    [8.0131275612985130e-03, 3.2143042953172146e-01, 1.0e+01],
+    [7.8622572200489309e-06, -3.3004950868603552e-05, 1.0],
+])
 
 
 def log(msg: str) -> None:
@@ -133,6 +151,67 @@ def oracle_nv12_rows(buf: np.ndarray, out_rows, dst_w: int, dst_h: int) -> np.nd
     return np.stack(out, axis=1) / 255.0
 
 
+def rotation(center, angle: float, scale: float, to=None) -> np.ndarray:
+    """``cv2.getRotationMatrix2D``: the forward 2x3 matrix; with ``to``, the
+    map is shifted so that ``center`` lands on ``to`` in the output."""
+    a = np.deg2rad(angle)
+    al, be = scale * np.cos(a), scale * np.sin(a)
+    cx, cy = center
+    m = np.array([[al, be, (1 - al) * cx - be * cy], [-be, al, be * cx + (1 - al) * cy]])
+    if to is not None:
+        m[:, 2] += (to[0] - cx, to[1] - cy)
+    return m
+
+
+def oracle_warp(frame: np.ndarray, m: np.ndarray, dst_w: int, dst_h: int) -> np.ndarray:
+    """An affine warp with a zero border: the inverse map in float64, its
+    coordinate terms in float32 (coefficients rounded first, each product
+    and sum once), the taps and lerps in float64; (H, W, C)."""
+    a = np.linalg.inv(m[:, :2])
+    inv = np.concatenate([a, (-a @ m[:, 2])[:, None]], axis=1).astype(np.float32)
+    xs = np.arange(dst_w, dtype=np.float32)[None, :]
+    ys = np.arange(dst_h, dtype=np.float32)[:, None]
+    sx = (inv[0, 0] * xs + (inv[0, 1] * ys + inv[0, 2])).astype(np.float64)
+    sy = (inv[1, 0] * xs + (inv[1, 1] * ys + inv[1, 2])).astype(np.float64)
+    x0, y0 = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
+    fx, fy = (sx - x0)[..., None], (sy - y0)[..., None]
+    h, w = frame.shape[:2]
+    src = frame.astype(np.float64)
+
+    def tap(ix, iy):
+        ok = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+        return np.where(ok[..., None], src[np.clip(iy, 0, h - 1), np.clip(ix, 0, w - 1)], 0.0)
+
+    top = tap(x0, y0) * (1 - fx) + tap(x0 + 1, y0) * fx
+    bot = tap(x0, y0 + 1) * (1 - fx) + tap(x0 + 1, y0 + 1) * fx
+    return top * (1 - fy) + bot * fy
+
+
+def warp_touched_bytes(args) -> int:
+    """Bytes of the warp kernel's sources that its taps touch, in 32-byte
+    sectors, from the plain version's tap indices (``WarpRead.coordinates``
+    and ``tap_axis``); planes past ``used_planes`` read nothing."""
+    import torch
+    from cvgpuspeedup_tpu_torch.ops.warp import tap_axis
+
+    plan = args.plan
+    warps = args.pipeline.read.ops if plan.batch else (args.pipeline.read,)
+    used = int(args.used.item())
+    elem = plan.nch * plan.src_dtype.itemsize
+    sectors = []
+    for z, (w, k) in enumerate(zip(warps, args.plane_src)):
+        if z >= used:
+            continue
+        sx, sy = w.coordinates(args.srcs[k].device)
+        xs = tap_axis(torch.floor(sx), plan.src_w)
+        ys = tap_axis(torch.floor(sy), plan.src_h)
+        for vx, ix in xs:
+            for vy, iy in ys:
+                first = (iy * plan.src_w + ix)[vx & vy] * elem
+                sectors += [k * 2**40 + first // 32, k * 2**40 + (first + elem - 1) // 32]
+    return int(torch.unique(torch.cat(sectors)).numel()) * 32
+
+
 def touched_bytes(plan) -> int:
     """Bytes of the frame kernel's source that its taps touch, in the 32-byte
     sectors device memory delivers."""
@@ -167,6 +246,7 @@ def main() -> int:
     from cvgpuspeedup_tpu_torch.exec import _build, executor
     from cvgpuspeedup_tpu_torch.exec import cuda_batch_resize as kbr
     from cvgpuspeedup_tpu_torch.exec import cuda_frame_resize as kfr
+    from cvgpuspeedup_tpu_torch.exec import cuda_warp as kw
     from cvgpuspeedup_tpu_torch.graph import flatten, map_leaves
     from cvgpuspeedup_tpu_torch.ops.arithmetic import Mul, StaticLoop
     from cvgpuspeedup_tpu_torch.ops.color import VectorReorder
@@ -202,10 +282,12 @@ def main() -> int:
     kernels = {
         "batch_resize": (kbr, kbr.batch_resize, kbr.batch_resize_reference),
         "frame_resize": (kfr, kfr.frame_resize, kfr.frame_resize_reference),
+        "warp": (kw, kw.warp, kw.warp_reference),
     }
     max_err = {name: 0.0 for name in kernels}
+    case_err = {}
 
-    def check(name, read, *ops, kernel="batch_resize"):
+    def check(name, read, *ops, kernel="batch_resize", tol=F32_TOL):
         module, launch, plain = kernels[kernel]
         pipeline = cvgs.build_pipeline(read, *ops)
         a = module.prepare(pipeline, module.build_plan(pipeline), dev)
@@ -228,9 +310,10 @@ def main() -> int:
                     raise AssertionError(f"{name}: non-finite kernel output")
                 d = float((g - w).abs().max())
             err = max(err, d)
-        if err > F32_TOL:
-            raise AssertionError(f"{name}: max |diff| {err} > {F32_TOL}")
+        if err > tol:
+            raise AssertionError(f"{name}: max |diff| {err} > {tol}")
         max_err[kernel] = max(max_err[kernel], err)
+        case_err[name] = err
         log(f"phase3 {kernel} {name}: shape {tuple(got[0].shape)} {got[0].dtype} max|diff| {err!r}")
         return a.plan
 
@@ -309,6 +392,52 @@ def main() -> int:
           cvgs.cvt_color(cvgs.ColorConversionCode.COLOR_BGR2RGBA),
           cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract((*MEAN, 0.0)),
           cvgs.divide((*STD, 1.0)), cvgs.split_tensor(), kernel="frame_resize")
+
+    # warp at the warp rows' sizes: one case per class of the reference's
+    # warp kernels, all of a 1080p frame; the kernel must equal its plain
+    # version bit for bit
+    to_f32 = cvgs.convert_to(np.float32, alpha=1 / 255.0)
+    hd4 = torch.from_numpy(rng.integers(0, 256, (FRAME_H, FRAME_W, 4), dtype=np.uint8)).to(dev)
+    shared = cvgs.image(hd)
+
+    def warp_batch_ops(read, angle0, used):
+        mats = [rotation((960, 540), angle0 + 3.0 * i, 1.0 + 0.04 * i) for i in range(8)]
+        return (cvgs.warp_batch([read] * 8, mats, cvgs.Size(*WARP_DST), used_planes=used,
+                                default=3.0), to_f32, cvgs.split_tensor())
+
+    # the reference's rotation row (rotation((960, 540), 10, 1/3) -> 640x360)
+    # maps the frame's center to (960, 540), outside its output, so every
+    # output pixel reads the border; here the frame's center lands on the
+    # output's center, and the map keeps its class (|a| >= 2, e > 0)
+    mid = (WARP_DST[0] / 2, WARP_DST[1] / 2)
+
+    def warp_one_ops(read, angle):
+        return (cvgs.warp(read, rotation((960, 540), angle, 1 / 3.0, to=mid),
+                          cvgs.Size(*WARP_DST)), to_f32, cvgs.split_tensor())
+
+    warp_cases = {
+        "w1_k3_separable": (cvgs.warp(shared, np.array([[0.55, 0.0, 23.0], [0.0, 0.62, 11.0]]),
+                                      cvgs.Size(*WARP_DST)), to_f32, cvgs.split_tensor()),
+        "w2_k4_rotation": warp_one_ops(shared, 10.0),
+        "w3_k5a_flip_960x540": (cvgs.warp(shared, np.array([[-0.5, 0.0, 960.0], [0.0, 0.5, 2.0]]),
+                                          cvgs.Size(960, 540)), to_f32, cvgs.split_tensor()),
+        "w4_k5a_upscale_rotation_1280x768": (
+            cvgs.warp(shared, rotation((960, 540), 10.0, 1.2), cvgs.Size(1280, 768)), to_f32,
+            cvgs.split_tensor()),
+        "w5_k5a_perspective_640x384": (
+            cvgs.warp(shared, PERSPECTIVE_W5, cvgs.Size(640, 384),
+                      warp_type=cvgs.WarpType.PERSPECTIVE), to_f32, cvgs.split_tensor()),
+        "w6_k5b_batch8_ragged7": warp_batch_ops(shared, -10.0, 7),
+        "w7_u8_chain_4ch_border": (
+            cvgs.warp(cvgs.image(hd4), rotation((960, 540), -20.0, 0.5, to=mid),
+                      cvgs.Size(*WARP_DST), default=(10.0, 20.0, 30.0, 250.0)),
+            cvgs.convert_to(np.uint8), cvgs.split_tensor()),
+        "w8_f32_source": (
+            cvgs.warp(cvgs.image(hd.float()), rotation((960, 540), 25.0, 0.4, to=mid),
+                      cvgs.Size(*WARP_DST)), cvgs.multiply(1 / 255.0), cvgs.split_tensor()),
+    }
+    for name, ops in warp_cases.items():
+        check(name, *ops, kernel="warp", tol=0.0)
 
     # ---- phase 4: the main path through the public entry points
     def main_path(rects):
@@ -393,6 +522,56 @@ def main() -> int:
         f"{oracle_b!r}")
     assert max(eager_a, eager_b) <= F32_TOL, (eager_a, eager_b)
     assert max(oracle_a, oracle_b) <= ORACLE_TOL, (oracle_a, oracle_b)
+
+    # the warp path: the batch of eight, then one rotation, each twice with
+    # new matrices (and a new used_planes for the batch)
+    def warp_path(ops):
+        return cvgs.execute_operations(*ops, device="cuda")
+
+    warp_runs = {
+        "batch": (lambda k: warp_batch_ops(cvgs.image(hd), (-10.0, -8.5)[k], (7, 5)[k]),
+                  (8, 3, WARP_DST[1], WARP_DST[0])),
+        "single": (lambda k: warp_one_ops(cvgs.image(hd), (10.0, 12.5)[k]),
+                   (3, WARP_DST[1], WARP_DST[0])),
+    }
+    warp_launches = 0
+    for path, (ops, shape) in warp_runs.items():
+        kw.LAUNCHES = 0
+        builds0 = executor.PLAN_BUILDS
+        w1 = warp_path(ops(0))
+        backend1, launches1, builds1 = cvgs.last_backend(), kw.LAUNCHES, executor.PLAN_BUILDS
+        w2 = warp_path(ops(1))
+        backend2, launches2, builds2 = cvgs.last_backend(), kw.LAUNCHES, executor.PLAN_BUILDS
+        torch.cuda.synchronize()
+        warp_launches += kw.LAUNCHES
+        log(f"phase4 warp path ({path}): backends {backend1} {backend2}; launches {launches1} "
+            f"{launches2}; plan builds {builds0} -> {builds1} -> {builds2}")
+        assert backend1 == backend2 == "cuda:warp", (backend1, backend2)
+        assert (launches1, launches2) == (1, 2), (launches1, launches2)
+        assert builds1 <= builds0 + 1 and builds2 == builds1, (builds0, builds1, builds2)
+        for out in (w1, w2):
+            assert tuple(out.shape) == shape and out.dtype == torch.float32, out.shape
+            assert bool(torch.isfinite(out).all()), "non-finite output"
+        assert not torch.equal(w1, w2), "new matrices gave the same output"
+        eager = cvgs.execute_operations(*ops(1), backend=cvgs.ParBackend.TORCH)
+        eager_err = float((eager - w2).abs().max())
+        host = w2.cpu().numpy()
+        if path == "batch":
+            checked = {z: rotation((960, 540), -8.5 + 3.0 * z, 1.0 + 0.04 * z) for z in (0, 2, 4)}
+            fill = np.float32(3.0) * np.float32(1 / 255.0)
+            assert bool((w2[5:] == float(fill)).all()), "planes past used_planes hold no default"
+            planes = {z: host[z] for z in checked}
+        else:
+            checked = {0: rotation((960, 540), 12.5, 1 / 3.0, to=mid)}
+            planes = {0: host}
+        oracle_err = max(
+            float(np.abs(planes[z].transpose(1, 2, 0) - oracle_warp(hd_np, m, *WARP_DST) / 255.0)
+                  .max())
+            for z, m in checked.items())
+        log(f"phase4 warp path ({path}): max|diff| vs eager torch {eager_err!r}, vs float64 "
+            f"oracle at planes {sorted(checked)} {oracle_err!r}")
+        assert eager_err <= F32_TOL, eager_err
+        assert oracle_err <= ORACLE_TOL, oracle_err
 
     # ---- phase 5: times at the flagship shape
     rects_dev = torch.from_numpy(rects_a).to(dev)
@@ -510,6 +689,42 @@ def main() -> int:
             f"us/call (median of 50); bytes floor {t['floor_ms'] * 1e3:.2f} us = ({out_bytes} out "
             f"+ {src_bytes} source bytes touched) at the copy bandwidth; card {card}")
 
+    # the warp cases: kernel vs plain version, the bytes floor; the whole
+    # call of the batch
+    warp_times = {}
+    for name in ("w1_k3_separable", "w2_k4_rotation", "w5_k5a_perspective_640x384",
+                 "w6_k5b_batch8_ragged7"):
+        pipe = map_leaves(cvgs.build_pipeline(*warp_cases[name]),
+                          lambda v: as_device_tensor(v, dev))
+        wargs = kw.prepare(pipe, kw.build_plan(pipe), dev)
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = (lambda: kw.warp(wargs)) if which == "kernel" else (
+                lambda: kw.warp_reference(wargs))
+            runs[which] += time_cuda(fn, iters=25)
+        outs = kw.warp(wargs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        out_bytes = sum(o.numel() * o.element_size() for o in outs)
+        src_bytes = warp_touched_bytes(wargs)
+        t = {"ms": float(np.median(runs["kernel"])), "plain_ms": float(np.median(runs["plain"])),
+             "floor_ms": (out_bytes + src_bytes) / bandwidth * 1e3, "max_abs_err": case_err[name]}
+        warp_times[name] = t
+        log(f"phase5 warp {name}: kernel {t['ms'] * 1e3:.2f} us, plain torch "
+            f"{t['plain_ms'] * 1e3:.2f} us (device time, events, median of {len(runs['kernel'])}); "
+            f"bytes floor {t['floor_ms'] * 1e3:.2f} us = ({out_bytes} out + {src_bytes} source "
+            f"bytes touched) at the copy bandwidth; card {card}")
+    whole = []
+    for _ in range(60):
+        t0 = time.perf_counter()
+        warp_path(warp_batch_ops(cvgs.image(hd), -10.0, 7))
+        torch.cuda.synchronize()
+        whole.append(time.perf_counter() - t0)
+    w6 = warp_times["w6_k5b_batch8_ragged7"]
+    w6["call_ms"] = float(np.median(whole[10:])) * 1e3
+    log(f"phase5 warp w6_k5b_batch8_ragged7: execute_operations host-inclusive "
+        f"{w6['call_ms'] * 1e3:.2f} us/call (median of 50), kernel {w6['ms'] * 1e3:.2f} us; "
+        f"card {card}")
+
     for mod in ("jax", "cv2"):
         assert mod not in sys.modules, f"{mod} was imported"
     print(card)
@@ -534,6 +749,21 @@ def main() -> int:
         "plain_ms": frame_times["a"]["plain_ms"],
         "paths": {"a_1080p_rgb_to_640x360": frame_times["a"],
                   "b_nv12_6k_to_1080p": frame_times["b"]},
+    }, {
+        "name": "warp",
+        "route": "cuda",
+        "source": "cvgpuspeedup_tpu_torch/csrc/warp.cu",
+        # the batched kernel of the main path; the single-image classes too
+        "replaces": "cvgpuspeedup_tpu/exec/pallas_warp_universal.py:741",
+        "also_replaces": ["cvgpuspeedup_tpu/exec/pallas_warp.py:202",
+                          "cvgpuspeedup_tpu/exec/pallas_warp_general.py:272",
+                          "cvgpuspeedup_tpu/exec/pallas_warp_universal.py:359"],
+        "launches": warp_launches,
+        "max_abs_err": max_err["warp"],
+        # W6, the batch of the main path; the timed cases below
+        "ms": w6["ms"],
+        "plain_ms": w6["plain_ms"],
+        "cases": warp_times,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,7 @@ hand-written CUDA kernel for a supported pipeline on a CUDA device and
 through the eager PyTorch version otherwise. The package imports torch and
 never jax.
 
-Example (the flagship 50-crop pipeline, then the fused NV12 frame read)::
+Example (the flagship 50-crop pipeline, the fused NV12 frame read, a batched warp)::
 
     import numpy as np, torch
     import cvgpuspeedup_tpu_torch as cvgs
@@ -29,6 +29,12 @@ Example (the flagship 50-crop pipeline, then the fused NV12 frame read)::
         cvgs.multiply(1 / 255.0),
         cvgs.split_tensor(),
     )
+    warped = cvgs.execute_operations(   # (8, 3, 360, 640): 8 matrices, 1 launch
+        cvgs.warp_batch([cvgs.image(frame)] * 8, matrices, cvgs.Size(640, 360),
+                        used_planes=7, default=3.0),
+        cvgs.convert_to(np.float32, alpha=1 / 255.0),
+        cvgs.split_tensor(),
+    )
 """
 
 from __future__ import annotations
@@ -40,17 +46,20 @@ import torch
 
 from .exec.executor import (Pipeline, build_pipeline, clear_cache, describe_backend,
                             execute_operations, last_backend)
-from .graph import ComputeOp, FusedCompute, IOp, PendingReadOp, ReadOp, WriteOp, fuse
+from .graph import (ComputeOp, FusedCompute, IOp, PendingReadOp, ReadOp, WriteOp, fuse,
+                    map_leaves)
 from .ops.arithmetic import Add, Div, Mul, Sub
 from .ops.cast import Cast, SaturateCast
 from .ops.color import ColorConversion
-from .ops.memory import (ImageRead, SplitWrite, TensorSplit, TensorSplitPacked, TensorTSplit,
-                         TensorWrite, Write2D)
+from .ops.memory import (BatchRead, ImageRead, SplitWrite, TensorSplit, TensorSplitPacked,
+                         TensorTSplit, TensorWrite, Write2D)
 from .ops.nv12 import ConvertYUVToRGB, ReadYUV
 from .ops.resize import BatchResizeRead, ResizeRead
+from .ops.warp import WarpRead, decompose_inverse_map, invert_affine, invert_perspective
 from .types import (AspectRatio, ColorConversionCode, ColorRange, ColorStandard,
-                    InterpolationType, ParBackend, PixelFormat, Rect, Size)
+                    InterpolationType, ParBackend, PixelFormat, Rect, Size, WarpType)
 from .utils import dtypes as _dt
+from .utils.dtypes import as_device_tensor
 
 __version__ = "0.1.0"
 
@@ -252,6 +261,88 @@ def resize_batch(
     )
 
 
+def _channels(read: ReadOp) -> int:
+    """The channel count of a read's value, from shapes alone: an image's
+    lowering is a view; any other read is lowered on the meta device, which
+    computes nothing."""
+    if isinstance(read, ImageRead):
+        return int(read.lower().shape[-1])
+    meta = map_leaves(read, lambda v: as_device_tensor(v, torch.device("meta")))
+    return int(meta.lower().shape[-1])
+
+
+def warp(
+    source,
+    matrix: ArrayLike,
+    dsize: Size,
+    warp_type: WarpType = WarpType.AFFINE,
+    default=0.0,
+    channels: Optional[int] = None,
+) -> WarpRead:
+    """``cvGS::warp<WarpType, I>(src, 2x3/3x3, dstSize)``. The forward matrix
+    is inverted on the host, as the reference wrapper does; pass
+    ``warp_type=PERSPECTIVE`` with a 3x3 homography. ``default`` is the
+    border value, a scalar or one per channel. Output is float32."""
+    m = np.asarray(matrix, np.float64)
+    if warp_type == WarpType.AFFINE:
+        if m.shape != (2, 3):
+            raise ValueError("affine warp needs a 2x3 matrix")
+        inv = invert_affine(m)
+    else:
+        if m.shape != (3, 3):
+            raise ValueError("perspective warp needs a 3x3 matrix")
+        inv = invert_perspective(m)
+    src = _as_read(source)
+    nch = channels
+    if nch is None:
+        if isinstance(source, ReadOp):
+            nch = _channels(source)
+        else:
+            nch = 1 if src.data.ndim == 2 else int(src.data.shape[-1])
+    return WarpRead(
+        source=src,
+        coeffs=inv.astype(np.float32).ravel(),
+        default=_dt.as_channel_vector(default, nch, np.float32),
+        dsize=dsize,
+        warp_type=warp_type,
+        **decompose_inverse_map(inv, dsize),
+    )
+
+
+def warp_batch(
+    sources: Sequence,
+    matrices: Sequence[ArrayLike],
+    dsize: Size,
+    warp_type: WarpType = WarpType.AFFINE,
+    used_planes: Optional[ArrayLike] = None,
+    default=0.0,
+    border_value=0.0,
+) -> BatchRead:
+    """Batched warp with one matrix per source (``cvGS::warp<WT, I, BATCH>``),
+    ragged with ``used_planes``. ``border_value`` fills taps outside a
+    source; ``default`` fills the planes from ``used_planes`` on. One
+    source passed N times is read from one buffer."""
+    if len(sources) != len(matrices):
+        raise ValueError("need one matrix per source image")
+    warps = [warp(s, m, dsize, warp_type=warp_type, default=border_value)
+             for s, m in zip(sources, matrices)]
+    return batch_read(warps, used_planes=used_planes,
+                      default=default if used_planes is not None else None)
+
+
+def batch_read(ops: Sequence[ReadOp], used_planes: Optional[ArrayLike] = None,
+               default=None) -> BatchRead:
+    """``fk::BatchRead<N, CONDITIONAL_WITH_DEFAULT>`` over per-plane read ops."""
+    if used_planes is not None and default is None:
+        raise ValueError("batch_read with used_planes needs a default value "
+                         "for the masked planes (CONDITIONAL_WITH_DEFAULT)")
+    return BatchRead(
+        ops=tuple(ops),
+        used_planes=None if used_planes is None else _np_or_tensor(used_planes, np.int32),
+        default=None if default is None else _np_or_tensor(default, np.float32),
+    )
+
+
 # ---------------------------------------------------------------------------
 # write factories
 # ---------------------------------------------------------------------------
@@ -295,10 +386,10 @@ __all__ = [
     "last_backend", "clear_cache",
     # types
     "Size", "Rect", "InterpolationType", "AspectRatio", "ParBackend", "ColorConversionCode",
-    "ColorRange", "ColorStandard", "PixelFormat",
+    "ColorRange", "ColorStandard", "PixelFormat", "WarpType",
     # factories
     "convert_to", "multiply", "add", "subtract", "divide", "cvt_color", "convert_yuv_to_rgb",
-    "image", "read_yuv", "resize", "resize_batch",
+    "image", "read_yuv", "resize", "resize_batch", "warp", "warp_batch", "batch_read",
     "write", "write_tensor", "split", "split_tensor", "split_tensor_transposed",
     "split_tensor_packed",
 ]

@@ -144,6 +144,14 @@ def load() -> ctypes.CDLL:
                 p,                         # stream
             ]
             lib.cvgs_frame_resize.restype = ctypes.c_int
+            lib.cvgs_warp.argtypes = [
+                p, i, i, i, i, i,          # srcs, src_u8, src_h, src_w, nch, perspective
+                p, p, p, p, p, p, i,       # coeffs, border, default, used, fparams, ops, n_ops
+                i, i, i,                   # n_planes, dst_w, dst_h
+                p, i, i, ll, ll, ll, ll,   # out, out_u8, out_ch, sn, sc, sy, sx
+                p,                         # stream
+            ]
+            lib.cvgs_warp.restype = ctypes.c_int
             lib.cvgs_error_string.argtypes = [ctypes.c_int]
             lib.cvgs_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -11,11 +11,12 @@ layout and tables. Every later call with new values reuses it.
 Devices: tensor leaves stay on their own device and must all share one.
 Numpy and Python leaves move to ``device``, which defaults to the device of
 the tensor leaves, else the CPU. Backends: ``AUTO`` tries, for a CUDA
-pipeline, the batched crop-resize kernel (``cuda:batch_resize``), then the
-full-frame resize kernel (``cuda:frame_resize``), and takes the eager
-PyTorch version when neither supports the pipeline; an explicit
-``ParBackend.CUDA`` raises where neither can run. Nothing falls back from a
-failed build or launch.
+pipeline, the batched crop-resize kernel (``cuda:batch_resize``), the
+full-frame resize kernel (``cuda:frame_resize``), then the warp kernel
+(``cuda:warp``, single and batched warps), and takes the eager PyTorch
+version when none supports the pipeline; an explicit ``ParBackend.CUDA``
+raises where none can run. Nothing falls back from a failed build or
+launch.
 
 The divergent launcher (``build_operation_sequence``,
 ``launch_divergent_batch``) comes with the divergent slice.
@@ -33,7 +34,7 @@ from ..graph import (ComputeOp, FusedCompute, FusedRead, IOp, PendingReadOp, Rea
 from ..ops.memory import ImageRead, Write2D
 from ..types import ParBackend
 from ..utils.dtypes import as_device_tensor
-from . import cuda_batch_resize, cuda_frame_resize
+from . import cuda_batch_resize, cuda_frame_resize, cuda_warp
 
 __all__ = [
     "Pipeline",
@@ -102,13 +103,14 @@ def build_pipeline(*iops: IOp, input=None) -> Pipeline:
 
 @dataclasses.dataclass(frozen=True)
 class _Plan:
-    backend: str     # "torch", "cuda:batch_resize" or "cuda:frame_resize"
+    backend: str     # "torch" or the name of a kernel in _KERNELS
     kernel: object   # the kernel module's plan, None for "torch"
     module: object   # the kernel module (its ``run`` takes the plan), None for "torch"
 
 
 #: the kernels, in the order the executor tries them
-_KERNELS = (("cuda:batch_resize", cuda_batch_resize), ("cuda:frame_resize", cuda_frame_resize))
+_KERNELS = (("cuda:batch_resize", cuda_batch_resize), ("cuda:frame_resize", cuda_frame_resize),
+            ("cuda:warp", cuda_warp))
 _TORCH = _Plan("torch", None, None)
 
 
@@ -173,7 +175,8 @@ def _plan(pipeline: Pipeline, key, backend: ParBackend, dev: torch.device) -> _P
 def describe_backend(*iops: IOp, input=None, backend: ParBackend = ParBackend.AUTO,
                      device=None) -> str:
     """Which backend :func:`execute_operations` would run for this op list:
-    ``"cuda:batch_resize"``, ``"cuda:frame_resize"`` or ``"torch"``."""
+    ``"cuda:batch_resize"``, ``"cuda:frame_resize"``, ``"cuda:warp"`` or
+    ``"torch"``."""
     pipeline = build_pipeline(*iops, input=input)
     _, leaves = flatten(pipeline)
     return _select(pipeline, backend, _resolve_device(leaves, device)).backend

@@ -21,10 +21,11 @@ from ..graph import FusedCompute, FusedRead
 from ..ops.arithmetic import Add, Div, Mul, StaticLoop, Sub
 from ..ops.cast import Cast, SaturateCast
 from ..ops.color import ColorConversion, VectorReorder
-from ..ops.memory import (ImageRead, SplitWrite, TensorSplit, TensorSplitPacked, TensorTSplit,
-                          TensorWrite, Write2D)
+from ..ops.memory import (BatchRead, ImageRead, SplitWrite, TensorSplit, TensorSplitPacked,
+                          TensorTSplit, TensorWrite, Write2D)
 from ..ops.nv12 import ConvertYUVToRGB, ReadYUV
 from ..ops.resize import BatchResizeRead, ResizeRead
+from ..ops.warp import WarpRead
 from ..utils.dtypes import to_torch_dtype
 
 _CLASSES = {
@@ -32,12 +33,13 @@ _CLASSES = {
     for c in (Pipeline, FusedCompute, FusedRead, ImageRead, Write2D, TensorWrite, TensorSplit,
               TensorSplitPacked, TensorTSplit, SplitWrite, SaturateCast, Cast, Mul, Add, Sub,
               Div, StaticLoop, VectorReorder, ColorConversion, BatchResizeRead, ResizeRead,
-              ReadYUV, ConvertYUVToRGB)
+              ReadYUV, ConvertYUVToRGB, WarpRead, BatchRead)
 }
 
 #: static fields that only size TPU kernels; the port has no use for them
 _TPU_ONLY_FIELDS = {
     "BatchResizeRead": {"max_crop_w", "max_crop_h", "uniform_wh"},
+    "WarpRead": {"sep_buckets", "gen_buckets", "uni_buckets"},
 }
 
 

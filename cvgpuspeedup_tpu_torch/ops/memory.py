@@ -1,6 +1,8 @@
-"""Memory read and write ops: the image source and the output layouts.
+"""Memory read and write ops: the image source, the batch read and the
+output layouts.
 
-Counterpart of ``cvgpuspeedup_tpu/ops/memory.py``:
+Counterpart of ``cvgpuspeedup_tpu/ops/memory.py``. ``BatchRead`` stacks
+sub-reads on a plane axis, with a ragged ``used_planes`` count. The writes:
 
   ========================  =============================  =======================
   reference op              layout written                 here
@@ -18,6 +20,8 @@ writes too.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,6 +50,38 @@ class ImageRead(ReadOp):
         if x.ndim == min_rank - 1:
             x = x[..., None]
         return x
+
+
+@op
+class BatchRead(ReadOp):
+    """N same-shaped sub-reads stacked on a new leading plane axis
+    (``fk::BatchRead<N, CONDITIONAL_WITH_DEFAULT>``).
+
+    With ``used_planes``, planes ``z >= used_planes`` hold ``default``, cast
+    to the value's dtype, instead of their read. ``used_planes`` is a
+    runtime leaf: changing the count builds no new plan.
+    """
+
+    ops: Tuple[ReadOp, ...]
+    used_planes: Optional[torch.Tensor]
+    default: Optional[torch.Tensor]  # scalar or (C,)
+
+    def _mask(self, x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+        if self.used_planes is None:
+            return x
+        z = planes.reshape((-1,) + (1,) * (x.ndim - 1))
+        used = torch.as_tensor(self.used_planes, device=x.device)
+        default = torch.as_tensor(self.default, dtype=x.dtype, device=x.device)
+        return torch.where(z < used, x, default)
+
+    def lower(self) -> torch.Tensor:
+        x = torch.stack([o.lower() for o in self.ops], dim=0)
+        return self._mask(x, torch.arange(x.shape[0], device=x.device))
+
+    def lower_planes(self, planes) -> torch.Tensor:
+        """Only the planes of a static list, in its order."""
+        x = torch.stack([self.ops[int(z)].lower() for z in planes], dim=0)
+        return self._mask(x, torch.as_tensor([int(z) for z in planes], device=x.device))
 
 
 @op

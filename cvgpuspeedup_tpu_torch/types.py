@@ -39,6 +39,14 @@ class AspectRatio(enum.Enum):
     PRESERVE_AR_LEFT = "preserve_left"
 
 
+class WarpType(enum.Enum):
+    """The inverse map of a warp: a 2x3 affine or a 3x3 perspective matrix.
+    (The reference package defines it in ``ops/warp.py``.)"""
+
+    AFFINE = "affine"
+    PERSPECTIVE = "perspective"
+
+
 class ColorRange(enum.Enum):
     FULL = "full"
     LIMITED = "limited"

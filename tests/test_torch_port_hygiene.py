@@ -20,7 +20,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, cvgpuspeedup_tpu_torch, cvgpuspeedup_tpu_torch.interop.from_jax, "
         "cvgpuspeedup_tpu_torch.utils.profiling, cvgpuspeedup_tpu_torch.exec.cuda_frame_resize, "
-        "cvgpuspeedup_tpu_torch.ops.nv12, cvgpuspeedup_tpu_torch.ops.color; "
+        "cvgpuspeedup_tpu_torch.ops.nv12, cvgpuspeedup_tpu_torch.ops.color, "
+        "cvgpuspeedup_tpu_torch.exec.cuda_warp, cvgpuspeedup_tpu_torch.ops.warp; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cvgpuspeedup_tpu')))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -63,6 +64,10 @@ def test_nvcc_command_targets_hopper_without_fast_math():
 @pytest.mark.parametrize("name,replaces", [
     ("batch_resize.cu", "pallas_backend.py::_emit_batch_resize"),
     ("frame_resize.cu", "pallas_frame.py::_emit_frame_resize"),
+    ("warp.cu", "pallas_warp.py::_emit_warp"),
+    ("warp.cu", "pallas_warp_general.py::_emit"),
+    ("warp.cu", "pallas_warp_universal.py::_emit"),
+    ("warp.cu", "pallas_warp_universal.py::_emit_batch"),
 ])
 def test_cuda_source_exists_and_ships_as_package_data(name, replaces):
     src = ROOT / "cvgpuspeedup_tpu_torch" / "csrc" / name

@@ -97,3 +97,43 @@ def test_frame_slice_matches_reference(path):
     native = T.execute_operations(*ops(T, torch.from_numpy(src)))
     assert np.abs(native.numpy() - ref).max() <= 1e-5
     assert T.last_backend() == "torch"
+
+
+def _warp_ops(m, frame, batch):
+    """The warp path at a fifth of 1080p: eight rotations of one frame in
+    one batch, ragged at 7, or one rotation; x1/255, planar write."""
+    center = (frame.shape[1] / 2, frame.shape[0] / 2)
+    rotations = [_rotation(center, 3.0 * i - 10, 1.0 + 0.04 * i) for i in range(8)]
+    if batch:
+        read = m.warp_batch([m.image(frame)] * 8, rotations, m.Size(128, 72), used_planes=7,
+                            default=3.0)
+    else:
+        # the frame's center lands on the output's center
+        shifted = _rotation(center, 10.0, 1 / 3.0) + np.array([[0, 0, 64 - center[0]],
+                                                                [0, 0, 36 - center[1]]])
+        read = m.warp(m.image(frame), shifted, m.Size(128, 72))
+    return read, m.convert_to(np.float32, alpha=1 / 255.0), m.split_tensor()
+
+
+def _rotation(center, angle, scale):
+    a = np.deg2rad(angle)
+    al, be = scale * np.cos(a), scale * np.sin(a)
+    cx, cy = center
+    return np.array([[al, be, (1 - al) * cx - be * cy], [-be, al, be * cx + (1 - al) * cy]])
+
+
+@pytest.mark.parametrize("batch", [True, False], ids=["batch8_ragged", "single_rotation"])
+def test_warp_slice_matches_reference(batch):
+    """The warp path through the JAX package (``ParBackend.XLA``) and,
+    carried across with ``from_jax``, through the port. float32 within
+    1e-5."""
+    frame = np.random.default_rng(20261017).integers(0, 256, (216, 384, 3)).astype(np.uint8)
+    ref = np.asarray(J.execute_operations(*_warp_ops(J, frame, batch), backend=J.ParBackend.XLA))
+    assert ref.shape == ((8, 3, 72, 128) if batch else (3, 72, 128))
+    carried = from_jax(J.build_pipeline(*_warp_ops(J, frame, batch)))
+    out = T.execute_operations(carried.read, *carried.compute, carried.write)
+    assert tuple(out.shape) == ref.shape and out.dtype == torch.float32
+    assert np.abs(out.numpy() - ref).max() <= 1e-5
+    native = T.execute_operations(*_warp_ops(T, torch.from_numpy(frame), batch))
+    assert np.abs(native.numpy() - ref).max() <= 1e-5
+    assert T.last_backend() == "torch"
