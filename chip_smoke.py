@@ -11,7 +11,10 @@ public entry points: the flagship batched crop-resize (kernel
 NV12 buffer -> 1920x1080 RGB f32 (bt709, x1/255), both written planar, and
 the warp path (kernel ``warp``): eight rotations of one shared 1080p frame
 in one launch, ragged at 7 planes, -> 640x360 x1/255 planar, and one
-rotation of it. In phases; any failure ends the run with a non-zero exit
+rotation of it; the divergent path (kernel ``divergent``,
+``launch_divergent_batch``) at the reference's divergent rows; and a
+32-deep ``CircularTensor`` of 1080p frames resized into 128x64 planes. In
+phases; any failure ends the run with a non-zero exit
 code and no result line:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
@@ -26,12 +29,20 @@ code and no result line:
    warp on a 1080p frame, a case per class of the reference's warp kernels
    (W1 separable, W2 rotation, W3 flip, W4 upscaled rotation, W5
    perspective, W6 the batch of eight) and a uint8 chain on 4 channels with
-   a per-channel border (W7) and a float32 source (W8). uint8 must match bit
-   for bit, float32 within 1e-6, warp float32 bit for bit too;
+   a per-channel border (W7) and a float32 source (W8). divergent in D1-D7:
+   a 16-plane ring read by two sequences from first = 3 and -5, eight NV12
+   cameras with pass-through planes (and NV21 limited range), crops of the
+   flagship frame with pass-through, warp | crop | pass, a whole-plane stack
+   resize with an image group, a uint8 chain, D4 written planar. uint8 must
+   match bit for bit, float32 within 1e-6, warp float32 bit for bit too;
 4. the main paths: ``execute_operations`` twice each (new rects, new frame
-   contents, new warp matrices and ``used_planes``); each must take its
-   kernel, launch it once per call and build no new plan; the outputs are
-   held against independent float64 versions;
+   contents, new warp matrices and ``used_planes``) and
+   ``launch_divergent_batch`` twice each for D1, D3, D4 (a new ``first``,
+   shifted rects, new matrices); each must take its kernel, launch it once
+   per call and build no new plan; the outputs are held against
+   independent float64 versions. 40 ``CircularTensor`` updates must each
+   launch the frame kernel, build no plan after the first, and leave every
+   logical plane equal to an eager ring;
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain; the
    host-inclusive time of one ``execute_operations`` call of each path, the
@@ -41,7 +52,9 @@ code and no result line:
    the copy bandwidth of a 256 MiB device copy with each frame path's bytes
    floor at that bandwidth; the same for warp cases W1, W2, W5 and W6, whose
    floors count the 32-byte source sectors the taps touch, and the
-   host-inclusive call of the warp batch.
+   host-inclusive call of the warp batch; the divergent kernel against its
+   plain version in D1-D4, the host-inclusive ``launch_divergent_batch``
+   call of D4 and one ``CircularTensor.update``.
 
 The last three lines are the card's name and power limit, one JSON object
 describing the kernels, and ``{"ok": true, "device": {...}}``. The script
@@ -102,8 +115,8 @@ def axis_f64(dst: int, src: int):
     return i0, np.minimum(i0 + 1, src - 1), f
 
 
-def oracle_plane(frame: np.ndarray, rect, dst_w: int, dst_h: int) -> np.ndarray:
-    """One crop of the flagship chain in float64; planar (C, H, W)."""
+def crop_f64(frame: np.ndarray, rect, dst_w: int, dst_h: int) -> np.ndarray:
+    """One crop inside the frame resized by INTER_LINEAR in float64; (H, W, C)."""
     x, y, w, h = (int(v) for v in rect)
     crop = frame[y:y + h, x:x + w].astype(np.float64)
     x0, x1, fx = axis_f64(dst_w, w)
@@ -112,8 +125,12 @@ def oracle_plane(frame: np.ndarray, rect, dst_w: int, dst_h: int) -> np.ndarray:
     fy = fy[:, None, None]
     top = crop[y0][:, x0] * (1 - fx) + crop[y0][:, x1] * fx
     bot = crop[y1][:, x0] * (1 - fx) + crop[y1][:, x1] * fx
-    val = top * (1 - fy) + bot * fy
-    val = (val * ALPHA - np.asarray(SUB)) / np.asarray(DIV)
+    return top * (1 - fy) + bot * fy
+
+
+def oracle_plane(frame: np.ndarray, rect, dst_w: int, dst_h: int) -> np.ndarray:
+    """One crop of the flagship chain in float64; planar (C, H, W)."""
+    val = (crop_f64(frame, rect, dst_w, dst_h) * ALPHA - np.asarray(SUB)) / np.asarray(DIV)
     return val.transpose(2, 0, 1)
 
 
@@ -245,6 +262,7 @@ def main() -> int:
     import cvgpuspeedup_tpu_torch as cvgs
     from cvgpuspeedup_tpu_torch.exec import _build, executor
     from cvgpuspeedup_tpu_torch.exec import cuda_batch_resize as kbr
+    from cvgpuspeedup_tpu_torch.exec import cuda_divergent as kd
     from cvgpuspeedup_tpu_torch.exec import cuda_frame_resize as kfr
     from cvgpuspeedup_tpu_torch.exec import cuda_warp as kw
     from cvgpuspeedup_tpu_torch.graph import flatten, map_leaves
@@ -265,10 +283,12 @@ def main() -> int:
     # ---- phase 2: build
     t0 = time.perf_counter()
     _build.load()
+    if not _build.BUILD_LOG:
+        log("phase2 the library was built before this run: no compiler output")
     log(f"phase2 built {_build.library_path().name} from "
         f"{', '.join(src.name for src in _build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
     for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"phase2 ptxas: {line.strip()}")
 
     # ---- phase 3: kernel vs plain version on the card
@@ -283,16 +303,12 @@ def main() -> int:
         "batch_resize": (kbr, kbr.batch_resize, kbr.batch_resize_reference),
         "frame_resize": (kfr, kfr.frame_resize, kfr.frame_resize_reference),
         "warp": (kw, kw.warp, kw.warp_reference),
+        "divergent": (kd, kd.divergent, kd.divergent_reference),
     }
     max_err = {name: 0.0 for name in kernels}
     case_err = {}
 
-    def check(name, read, *ops, kernel="batch_resize", tol=F32_TOL):
-        module, launch, plain = kernels[kernel]
-        pipeline = cvgs.build_pipeline(read, *ops)
-        a = module.prepare(pipeline, module.build_plan(pipeline), dev)
-        got = launch(a)
-        want = plain(a)
+    def compare(name, kernel, got, want, tol=F32_TOL):
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -315,6 +331,12 @@ def main() -> int:
         max_err[kernel] = max(max_err[kernel], err)
         case_err[name] = err
         log(f"phase3 {kernel} {name}: shape {tuple(got[0].shape)} {got[0].dtype} max|diff| {err!r}")
+
+    def check(name, read, *ops, kernel="batch_resize", tol=F32_TOL):
+        module, launch, plain = kernels[kernel]
+        pipeline = cvgs.build_pipeline(read, *ops)
+        a = module.prepare(pipeline, module.build_plan(pipeline), dev)
+        compare(name, kernel, launch(a), plain(a), tol)
         return a.plan
 
     check("a_ignore_ar", cvgs.resize_batch(frame, rects=rects_a, dsize=dsize),
@@ -438,6 +460,83 @@ def main() -> int:
     }
     for name, ops in warp_cases.items():
         check(name, *ops, kernel="warp", tol=0.0)
+
+    # divergent at the reference's divergent rows (benchmarks/aux_pipelines.py):
+    # D1 a ring of 16 planes read by two sequences, D2 eight NV12 cameras and
+    # pass-through planes, D3 crops of the flagship frame and pass-through,
+    # D4 warp | crop | pass; then D5 a whole-plane stack resize with an image
+    # group, D6 a uint8 chain in every group, D7 D4 written planar
+    drng = np.random.default_rng(9)
+    to_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    seq = cvgs.build_operation_sequence
+    ring_np = drng.integers(0, 256, (16, 128, 256, 3), dtype=np.uint8)
+    ring = to_dev(ring_np)
+    cams = [to_dev(drng.integers(0, 256, (192, 512), dtype=np.uint8)) for _ in range(8)]
+    pass_d2 = to_dev(drng.integers(0, 200, (8, 64, 256, 3)).astype(np.float32))
+    flat_np = drng.integers(0, 200, (8, 128, 64, 3)).astype(np.float32)
+    flat = to_dev(flat_np)
+    imgs_np = [drng.integers(0, 256, (512, 768, 3), dtype=np.uint8) for _ in range(8)]
+    imgs = [to_dev(im) for im in imgs_np]
+    batch_u8 = to_dev(drng.integers(0, 256, (8, 128, 64, 3), dtype=np.uint8))
+
+    def d1(first):
+        read = cvgs.circular_batch_read(ring, first=first)
+        return [1 if z % 2 == 0 else 2 for z in range(16)], (
+            seq(read, cvgs.convert_to(np.float32, alpha=0.3), cvgs.subtract((1.0, 2.0, 3.0)),
+                cvgs.write_tensor()),
+            seq(read, cvgs.convert_to(np.float32, alpha=0.5), cvgs.multiply((2.0, 1.0, 0.5)),
+                cvgs.write_tensor()))
+
+    def d2(fmt=cvgs.PixelFormat.NV12, **conv):
+        reads = [nv12_read(b, (256, 64), fmt, **conv) for b in cams]
+        return [1 if z % 2 == 0 else 2 for z in range(8)], (
+            seq(cvgs.batch_read(reads), cvgs.multiply(0.5), cvgs.write_tensor()),
+            seq(cvgs.image(pass_d2), cvgs.write_tensor()))
+
+    def d3_rects(shift=0):
+        return np.array([[13 * z + shift, 9 * z + shift, 60, 120] for z in range(8)], np.int32)
+
+    def d3(rects):
+        return [1 if z % 3 else 2 for z in range(8)], (
+            seq(cvgs.resize_batch(frame, rects=rects, dsize=dsize),
+                cvgs.convert_to(np.float32, alpha=0.5), cvgs.subtract((1.0, 2.0, 3.0)),
+                cvgs.write_tensor()),
+            seq(cvgs.image(flat), cvgs.multiply(2.0), cvgs.write_tensor()))
+
+    def d4_mats(angle0):
+        return [rotation((384, 256), 4.0 * z + angle0, 1.0) for z in range(8)]
+
+    def d4(angle0=-14.0, write=cvgs.write_tensor):
+        return [1, 2, 3, 1, 2, 3, 1, 2], (
+            seq(cvgs.warp_batch([cvgs.image(im) for im in imgs], d4_mats(angle0), dsize),
+                cvgs.multiply(0.5), write()),
+            seq(cvgs.resize_batch(frame, rects=d3_rects(), dsize=dsize),
+                cvgs.convert_to(np.float32, alpha=0.5), write()),
+            seq(cvgs.image(flat), cvgs.multiply(2.0), write()))
+
+    divergent_cases = {
+        "d1_circular_first3": d1(3),
+        "d1_circular_first_minus5": d1(-5),
+        "d2_nv12_bt709": d2(),
+        "d2_nv21_limited": d2(cvgs.PixelFormat.NV21, color_range=cvgs.ColorRange.LIMITED),
+        "d3_crop_resize": d3(d3_rects()),
+        "d4_warp_crop_pass": d4(),
+        "d5_stack_resize_and_image": ([1, 2] * 4, (
+            seq(cvgs.resize_batch(images, dsize=dsize), cvgs.convert_to(np.float32, alpha=1 / 255.0),
+                cvgs.write_tensor()),
+            seq(cvgs.image(batch_u8), cvgs.convert_to(np.float32, alpha=1 / 255.0),
+                cvgs.write_tensor()))),
+        "d6_uint8_chain": ([2, 1] * 8, (
+            seq(cvgs.image(ring), cvgs.multiply(1.7), cvgs.add(-20.5), cvgs.write_tensor()),
+            seq(cvgs.circular_batch_read(ring, first=-1, ascendent=False),
+                cvgs.convert_to(np.uint8, alpha=0.5, beta=3.0), cvgs.write_tensor()))),
+        "d7_warp_crop_pass_planar": d4(write=cvgs.split_tensor),
+    }
+    for name, (ids, seqs) in divergent_cases.items():
+        dplan = kd.build_plan(seqs, ids)
+        a = kd.prepare(seqs, dplan, dev)
+        compare(name, "divergent", kd.divergent(a), kd.divergent_reference(a))
+        log(f"phase3 divergent {name}: groups {[g.kind for g in dplan.groups]}")
 
     # ---- phase 4: the main path through the public entry points
     def main_path(rects):
@@ -572,6 +671,98 @@ def main() -> int:
             f"oracle at planes {sorted(checked)} {oracle_err!r}")
         assert eager_err <= F32_TOL, eager_err
         assert oracle_err <= ORACLE_TOL, oracle_err
+
+    # the divergent path: D1 with a new `first`, D3 with shifted rects, D4
+    # with new matrices, each twice through launch_divergent_batch
+    flat_f64 = flat_np.astype(np.float64)
+
+    def d1_oracle(first, z):
+        v = ring_np[(first + z) % 16].astype(np.float64)
+        return v * 0.3 - np.array([1.0, 2.0, 3.0]) if z % 2 == 0 else v * 0.5 * np.array(
+            [2.0, 1.0, 0.5])
+
+    def d3_oracle(z, shift=7):
+        if z % 3 == 0:
+            return flat_f64[z] * 2.0
+        return crop_f64(frame_np, d3_rects(shift)[z], *dsize) * 0.5 - np.array([1.0, 2.0, 3.0])
+
+    def d4_oracle(z, angle0=-12.0):
+        sid = (1, 2, 3, 1, 2, 3, 1, 2)[z]
+        if sid == 1:
+            return oracle_warp(imgs_np[z], d4_mats(angle0)[z], *dsize) * 0.5
+        if sid == 2:
+            return crop_f64(frame_np, d3_rects()[z], *dsize) * 0.5
+        return flat_f64[z] * 2.0
+
+    divergent_runs = {
+        "d1_circular": (lambda k: d1((3, -5)[k]), (16, 128, 256, 3),
+                        {z: d1_oracle(-5, z) for z in (0, 1, 15)}),
+        "d3_crop_resize": (lambda k: d3(d3_rects((0, 7)[k])), (8, 128, 64, 3),
+                           {z: d3_oracle(z) for z in (0, 1, 7)}),
+        "d4_warp_crop_pass": (lambda k: d4((-14.0, -12.0)[k]), (8, 128, 64, 3),
+                              {z: d4_oracle(z) for z in (0, 1, 2, 6)}),
+    }
+    divergent_launches = 0
+    for path, (make, shape, oracles) in divergent_runs.items():
+        kd.LAUNCHES = 0
+        builds0 = executor.PLAN_BUILDS
+        ids1, seqs1 = make(0)
+        d_1 = cvgs.launch_divergent_batch(ids1, *seqs1)
+        backend1, launches1, builds1 = cvgs.last_backend(), kd.LAUNCHES, executor.PLAN_BUILDS
+        ids2, seqs2 = make(1)
+        d_2 = cvgs.launch_divergent_batch(ids2, *seqs2)
+        backend2, launches2, builds2 = cvgs.last_backend(), kd.LAUNCHES, executor.PLAN_BUILDS
+        torch.cuda.synchronize()
+        divergent_launches += kd.LAUNCHES
+        log(f"phase4 divergent path ({path}): backends {backend1} {backend2}; launches "
+            f"{launches1} {launches2}; plan builds {builds0} -> {builds1} -> {builds2}")
+        assert backend1 == backend2 == "cuda:divergent", (backend1, backend2)
+        assert (launches1, launches2) == (1, 2), (launches1, launches2)
+        assert builds1 <= builds0 + 1 and builds2 == builds1, (builds0, builds1, builds2)
+        for out in (d_1, d_2):
+            assert tuple(out.shape) == shape and out.dtype == torch.float32, out.shape
+            assert bool(torch.isfinite(out).all()), "non-finite output"
+        assert not torch.equal(d_1, d_2), "new runtime values gave the same output"
+        eager = cvgs.launch_divergent_batch(ids2, *seqs2, backend=cvgs.ParBackend.TORCH)
+        eager_err = float((eager - d_2).abs().max())
+        host = d_2.cpu().numpy()
+        # the repo's float contract, 1e-4 on values of 0..255
+        oracle_err = max(float(np.abs(host[z] - want).max() / max(1.0, np.abs(want).max() / 255))
+                         for z, want in oracles.items())
+        log(f"phase4 divergent path ({path}): max|diff| vs eager torch {eager_err!r}, vs float64 "
+            f"oracle at planes {sorted(oracles)} {oracle_err!r} (on a 0..255 scale)")
+        assert eager_err <= F32_TOL, eager_err
+        assert oracle_err <= ORACLE_TOL, oracle_err
+
+    # CircularTensor at the reference's row: a 32-deep STANDARD ring of
+    # 128x64 planes, 40 updates of a 1080p frame resized and scaled; each
+    # update runs the frame kernel and writes one slot
+    ct = cvgs.CircularTensor(64, 128, 3, 32, device=dev)
+    eager_ring = torch.zeros(ct.shape, device=dev)
+
+    def ct_ops(k):
+        return (cvgs.resize(cvgs.image(torch.roll(hd, 7 * k, dims=1)), cvgs.Size(64, 128)),
+                cvgs.convert_to(np.float32, alpha=1 / 255.0))
+
+    kfr.LAUNCHES = 0
+    ct_backends, ct_new_plans = set(), 0
+    for k in range(40):
+        b0 = executor.PLAN_BUILDS
+        ct.update(*ct_ops(k))
+        ct_backends.add(cvgs.last_backend())
+        ct_new_plans += (executor.PLAN_BUILDS - b0) if k else 0
+        x = cvgs.execute_operations(*ct_ops(k), backend=cvgs.ParBackend.TORCH)
+        eager_ring[k % 32].copy_(x.permute(2, 0, 1))
+    torch.cuda.synchronize()
+    ct_launches = kfr.LAUNCHES
+    perm = torch.tensor([(39 - z) % 32 for z in range(32)], device=dev)
+    ct_err = float((ct.tensor - eager_ring.index_select(0, perm)).abs().max())
+    log(f"phase4 CircularTensor {ct.shape}: backends {sorted(ct_backends)}; frame_resize launches "
+        f"{ct_launches} in 40 updates; plans built after the first update {ct_new_plans}; "
+        f"every logical plane vs the eager ring max|diff| {ct_err!r}")
+    assert ct_backends == {"cuda:frame_resize"}, ct_backends
+    assert ct_launches == 40 and ct_new_plans == 0, (ct_launches, ct_new_plans)
+    assert ct_err <= F32_TOL, ct_err
 
     # ---- phase 5: times at the flagship shape
     rects_dev = torch.from_numpy(rects_a).to(dev)
@@ -725,6 +916,45 @@ def main() -> int:
         f"{w6['call_ms'] * 1e3:.2f} us/call (median of 50), kernel {w6['ms'] * 1e3:.2f} us; "
         f"card {card}")
 
+    # the divergent kernel at the reference's rows D1-D4, the host-inclusive
+    # call of D4, one CircularTensor update
+    div_times = {}
+    for name in ("d1_circular_first3", "d2_nv12_bt709", "d3_crop_resize", "d4_warp_crop_pass"):
+        ids, seqs = divergent_cases[name]
+        seqs = map_leaves(seqs, lambda v: as_device_tensor(v, dev))
+        dargs = kd.prepare(seqs, kd.build_plan(seqs, ids), dev)
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = (lambda: kd.divergent(dargs)) if which == "kernel" else (
+                lambda: kd.divergent_reference(dargs))
+            runs[which] += time_cuda(fn, iters=25)
+        t = {"ms": float(np.median(runs["kernel"])), "plain_ms": float(np.median(runs["plain"])),
+             "max_abs_err": case_err[name]}
+        div_times[name] = t
+        log(f"phase5 divergent {name}: kernel {t['ms'] * 1e3:.2f} us, plain torch "
+            f"{t['plain_ms'] * 1e3:.2f} us (device time, events, median of {len(runs['kernel'])}); "
+            f"card {card}")
+    whole = []
+    for _ in range(60):
+        t0 = time.perf_counter()
+        ids, seqs = d4()
+        cvgs.launch_divergent_batch(ids, *seqs)
+        torch.cuda.synchronize()
+        whole.append(time.perf_counter() - t0)
+    d4t = div_times["d4_warp_crop_pass"]
+    d4t["call_ms"] = float(np.median(whole[10:])) * 1e3
+    whole = []
+    for k in range(60):
+        t0 = time.perf_counter()
+        ct.update(*ct_ops(k))
+        torch.cuda.synchronize()
+        whole.append(time.perf_counter() - t0)
+    ct_update_ms = float(np.median(whole[10:])) * 1e3
+    log(f"phase5 divergent d4_warp_crop_pass: launch_divergent_batch host-inclusive "
+        f"{d4t['call_ms'] * 1e3:.2f} us/call (median of 50), kernel {d4t['ms'] * 1e3:.2f} us; "
+        f"CircularTensor.update host-inclusive {ct_update_ms * 1e3:.2f} us/call (median of 50); "
+        f"card {card}")
+
     for mod in ("jax", "cv2"):
         assert mod not in sys.modules, f"{mod} was imported"
     print(card)
@@ -764,6 +994,18 @@ def main() -> int:
         "ms": w6["ms"],
         "plain_ms": w6["plain_ms"],
         "cases": warp_times,
+    }, {
+        "name": "divergent",
+        "route": "cuda",
+        "source": "cvgpuspeedup_tpu_torch/csrc/divergent.cu",
+        "replaces": "cvgpuspeedup_tpu/exec/pallas_divergent.py:686",
+        "launches": divergent_launches,
+        "max_abs_err": max_err["divergent"],
+        # D4, the reference's warp | crop | pass row; D1-D4 below
+        "ms": d4t["ms"],
+        "plain_ms": d4t["plain_ms"],
+        "cases": div_times,
+        "circular_tensor_update_ms": ct_update_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

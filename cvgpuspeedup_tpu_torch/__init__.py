@@ -8,7 +8,8 @@ hand-written CUDA kernel for a supported pipeline on a CUDA device and
 through the eager PyTorch version otherwise. The package imports torch and
 never jax.
 
-Example (the flagship 50-crop pipeline, the fused NV12 frame read, a batched warp)::
+Example (the flagship 50-crop pipeline, the fused NV12 frame read, a batched
+warp, a divergent batch and a ring of processed frames)::
 
     import numpy as np, torch
     import cvgpuspeedup_tpu_torch as cvgs
@@ -35,6 +36,15 @@ Example (the flagship 50-crop pipeline, the fused NV12 frame read, a batched war
         cvgs.convert_to(np.float32, alpha=1 / 255.0),
         cvgs.split_tensor(),
     )
+    mixed = cvgs.launch_divergent_batch(  # (8, 128, 64, 3) f32: 1 launch
+        [1, 2, 1, 2, 1, 2, 1, 2],
+        cvgs.build_operation_sequence(cvgs.resize_batch(frame, rects=rects8, dsize=cvgs.Size(64, 128)),
+                                      cvgs.convert_to(np.float32, alpha=0.5), cvgs.write_tensor()),
+        cvgs.build_operation_sequence(cvgs.image(planes_f32), cvgs.multiply(2.0), cvgs.write_tensor()),
+    )
+    ring = cvgs.CircularTensor(64, 128, 3, 32, device="cuda")   # (32, 3, 128, 64) f32
+    ring.update(cvgs.resize(cvgs.image(frame), cvgs.Size(64, 128)),
+                cvgs.convert_to(np.float32, alpha=1 / 255.0))
 """
 
 from __future__ import annotations
@@ -44,22 +54,25 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .exec.executor import (Pipeline, build_pipeline, clear_cache, describe_backend,
-                            execute_operations, last_backend)
-from .graph import (ComputeOp, FusedCompute, IOp, PendingReadOp, ReadOp, WriteOp, fuse,
-                    map_leaves)
+from .data.circular_tensor import CircularTensor
+from .exec.executor import (Pipeline, build_operation_sequence, build_pipeline, clear_cache,
+                            describe_backend, execute_operations, last_backend,
+                            launch_divergent_batch, meta_lower)
+from .graph import ComputeOp, FusedCompute, IOp, PendingReadOp, ReadOp, WriteOp, fuse
 from .ops.arithmetic import Add, Div, Mul, Sub
+from .ops.border import BorderRead
 from .ops.cast import Cast, SaturateCast
 from .ops.color import ColorConversion
-from .ops.memory import (BatchRead, ImageRead, SplitWrite, TensorSplit, TensorSplitPacked,
-                         TensorTSplit, TensorWrite, Write2D)
+from .ops.crop import CropRead
+from .ops.memory import (BatchRead, CircularBatchRead, ImageRead, SplitWrite, TensorSplit,
+                         TensorSplitPacked, TensorTSplit, TensorWrite, Write2D)
 from .ops.nv12 import ConvertYUVToRGB, ReadYUV
 from .ops.resize import BatchResizeRead, ResizeRead
 from .ops.warp import WarpRead, decompose_inverse_map, invert_affine, invert_perspective
-from .types import (AspectRatio, ColorConversionCode, ColorRange, ColorStandard,
-                    InterpolationType, ParBackend, PixelFormat, Rect, Size, WarpType)
+from .types import (AspectRatio, BorderMode, CircularTensorOrder, ColorConversionCode,
+                    ColorPlanes, ColorRange, ColorStandard, InterpolationType, ParBackend,
+                    PixelFormat, Rect, Size, WarpType)
 from .utils import dtypes as _dt
-from .utils.dtypes import as_device_tensor
 
 __version__ = "0.1.0"
 
@@ -261,14 +274,67 @@ def resize_batch(
     )
 
 
+def crop(source=None, rect: Optional[Rect] = None):
+    """``cvGS::crop(backIOp, rect)``: a re-indexing read of ``rect`` (a
+    :class:`Rect`; its origin is a runtime value, its size static). Called
+    with only a rect it returns a geometry op that binds to the preceding
+    read (``cvGS::crop(rect)``)."""
+    if rect is None and isinstance(source, Rect):
+        source, rect = None, source
+    if rect is None:
+        raise ValueError("crop needs a rect")
+
+    def build(src: ReadOp) -> ReadOp:
+        return CropRead(source=src, x=_np_or_tensor(rect.x, np.int32),
+                        y=_np_or_tensor(rect.y, np.int32), width=int(rect.width),
+                        height=int(rect.height))
+
+    if source is None:
+        return PendingReadOp(build)
+    return build(_as_read(source))
+
+
+def crop_batch(source, rects: Sequence[Rect]) -> BatchRead:
+    """``cvGS::crop<BATCH>(rects)``: N crops of one size as one batched read."""
+    if len({(r.width, r.height) for r in rects}) != 1:
+        raise ValueError("crop_batch requires equal crop sizes (shape is static); "
+                         "use resize_batch for variable geometry")
+    src = _as_read(source)
+    return BatchRead(ops=tuple(crop(src, r) for r in rects), used_planes=None, default=None)
+
+
+def make_border(source, top: int, bottom: int, left: int, right: int,
+                mode: Optional[BorderMode] = None, value=0.0) -> BorderRead:
+    """A border-extension read (``cv2.copyMakeBorder``); ``mode`` defaults to
+    REFLECT_101, ``value`` fills the CONSTANT border."""
+    return BorderRead(source=_as_read(source), value=_np_or_tensor(value, np.float32),
+                      top=int(top), bottom=int(bottom), left=int(left), right=int(right),
+                      mode=mode or BorderMode.REFLECT_101)
+
+
+def circular_batch_read(data: ArrayLike, first, ascendent: bool = True,
+                        channels: Optional[int] = None) -> CircularBatchRead:
+    """A ring of planes read from the runtime plane ``first`` (``fk::
+    CircularBatchRead``). A host (numpy) ring of shape (N, H, W, C) is taken
+    as packed (N, H, W*C) rows, as the reference's factory takes it;
+    ``channels=C`` declares an already packed ring."""
+    packed = 0
+    arr = _host_or_tensor(data)
+    if channels is not None:
+        if arr.ndim != 3 or arr.shape[-1] % channels:
+            raise ValueError("circular_batch_read(channels=) expects a packed (N, H, W*C) ring")
+        packed = int(channels)
+    elif isinstance(arr, np.ndarray) and arr.ndim == 4 and arr.shape[-1] > 1:
+        packed = int(arr.shape[-1])
+        arr = np.ascontiguousarray(arr).reshape(arr.shape[0], arr.shape[1], arr.shape[2] * packed)
+    return CircularBatchRead(data=arr, first=_np_or_tensor(first, np.int32), ascendent=ascendent,
+                             packed_channels=packed)
+
+
 def _channels(read: ReadOp) -> int:
-    """The channel count of a read's value, from shapes alone: an image's
-    lowering is a view; any other read is lowered on the meta device, which
-    computes nothing."""
-    if isinstance(read, ImageRead):
-        return int(read.lower().shape[-1])
-    meta = map_leaves(read, lambda v: as_device_tensor(v, torch.device("meta")))
-    return int(meta.lower().shape[-1])
+    """The channel count of a read's value, from shapes alone (no device
+    work)."""
+    return int(meta_lower(read).shape[-1])
 
 
 def warp(
@@ -384,12 +450,17 @@ __all__ = [
     "IOp", "ReadOp", "ComputeOp", "WriteOp", "FusedCompute", "fuse",
     "Pipeline", "build_pipeline", "execute_operations", "describe_backend",
     "last_backend", "clear_cache",
+    "build_operation_sequence", "launch_divergent_batch",
     # types
     "Size", "Rect", "InterpolationType", "AspectRatio", "ParBackend", "ColorConversionCode",
-    "ColorRange", "ColorStandard", "PixelFormat", "WarpType",
+    "ColorRange", "ColorStandard", "PixelFormat", "WarpType", "BorderMode",
+    "CircularTensorOrder", "ColorPlanes",
     # factories
     "convert_to", "multiply", "add", "subtract", "divide", "cvt_color", "convert_yuv_to_rgb",
-    "image", "read_yuv", "resize", "resize_batch", "warp", "warp_batch", "batch_read",
+    "image", "read_yuv", "crop", "crop_batch", "resize", "resize_batch", "warp", "warp_batch",
+    "batch_read", "circular_batch_read", "make_border",
     "write", "write_tensor", "split", "split_tensor", "split_tensor_transposed",
     "split_tensor_packed",
+    # data
+    "CircularTensor",
 ]

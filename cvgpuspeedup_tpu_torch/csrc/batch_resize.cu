@@ -6,7 +6,9 @@
 // (INTER_LINEAR on exact rational coordinates) to one dsize, letterboxed
 // under the PRESERVE_AR modes, masked to `background` for planes from
 // `used_planes` on, run through the pointwise chain and written in any of
-// the port's output layouts. The chain interpreter is csrc/chain.cuh.
+// the port's output layouts. The coordinate rules and the per-pixel sampler
+// are csrc/batch_resize.cuh (shared with the divergent kernel), the chain
+// interpreter csrc/chain.cuh.
 //
 // What bounds it: memory traffic and launch overhead, not arithmetic. Per
 // flagship batch (50 crops of 60x120 from a 3840x2160 u8 frame -> 64x128,
@@ -27,66 +29,9 @@
 // so nothing is contracted into an FMA; the library is also built with
 // -fmad=false and never with --use_fast_math.
 
-#include "chain.cuh"
+#include "batch_resize.cuh"
 
 namespace {
-
-// AspectRatio codes; keep in step with exec/cuda_batch_resize.py
-enum : int { AR_IGNORE = 0, AR_PRESERVE = 1, AR_RN_EVEN = 2, AR_LEFT = 3 };
-
-// ops/resize.py::letterbox_geometry
-__device__ __forceinline__ void letterbox(int cw, int ch, int dst_w, int dst_h, int mode,
-                                          int& nw, int& nh, int& ox, int& oy) {
-  if (mode == AR_IGNORE) {
-    nw = dst_w;
-    nh = dst_h;
-    ox = 0;
-    oy = 0;
-    return;
-  }
-  const float scale = __fdiv_rn((float)dst_h, (float)ch);
-  int w = (int)__fmul_rn(scale, (float)cw);  // trunc, as static_cast<int>
-  int h = dst_h;
-  if (w > dst_w) {
-    const float scale2 = __fdiv_rn((float)dst_w, (float)cw);
-    h = (int)__fmul_rn(scale2, (float)ch);
-    w = dst_w;
-  }
-  if (mode == AR_RN_EVEN) {
-    w = min(floor_div(w + 1, 2) * 2, dst_w);
-    h = min(floor_div(h + 1, 2) * 2, dst_h);
-  }
-  if (mode == AR_LEFT) {
-    ox = 0;
-    oy = 0;
-  } else {
-    ox = floor_div(dst_w - w, 2);
-    oy = floor_div(dst_h - h, 2);
-  }
-  nw = w;
-  nh = h;
-}
-
-// ops/resize.py::axis_lerp for one output index (dst >= 1)
-__device__ __forceinline__ void axis_lerp(int q, int src, int dst, int& i0, int& i1, float& w) {
-  const int num = (2 * q + 1) * src - dst;
-  const int den = 2 * dst;
-  int i = floor_div(num, den);
-  float wt = __fdiv_rn((float)(num - i * den), (float)den);
-  if (i < 0) wt = 0.f;
-  i = max(i, 0);
-  if (i >= src - 1) wt = 0.f;
-  i = min(i, src - 1);
-  i0 = i;
-  i1 = min(i + 1, src - 1);
-  w = wt;
-}
-
-// ops/resize.py::source_index: a negative index counts from the far end,
-// then the index is clamped into the source, as the reference's gather reads
-__device__ __forceinline__ int source_index(int t, int len) {
-  return clampi(t < 0 ? t + len : t, 0, len - 1);
-}
 
 template <typename SrcT, typename OutT>
 __global__ void __launch_bounds__(256) batch_resize_kernel(
@@ -102,33 +47,9 @@ __global__ void __launch_bounds__(256) batch_resize_kernel(
   float v[kMaxCh];
   bool sampled = false;
   if (z < __ldg(used)) {
-    const int rx = __ldg(rects + 4 * z);
-    const int ry = __ldg(rects + 4 * z + 1);
-    const int rw = __ldg(rects + 4 * z + 2);
-    const int rh = __ldg(rects + 4 * z + 3);
-    int nw, nh, ox, oy;
-    letterbox(rw, rh, dst_w, dst_h, mode, nw, nh, ox, oy);
-    if (x >= ox && x < ox + nw && y >= oy && y < oy + nh) {
-      int ix0, ix1, iy0, iy1;
-      float wx, wy;
-      axis_lerp(x - ox, rw, nw, ix0, ix1, wx);
-      axis_lerp(y - oy, rh, nh, iy0, iy1, wy);
-      const long long row = (long long)src_w * nch;
-      const SrcT* plane = src + (long long)z * plane_stride;
-      const SrcT* r0 = plane + source_index(ry + iy0, src_h) * row;
-      const SrcT* r1 = plane + source_index(ry + iy1, src_h) * row;
-      const int c0 = source_index(rx + ix0, src_w) * nch;
-      const int c1 = source_index(rx + ix1, src_w) * nch;
-#pragma unroll
-      for (int c = 0; c < kMaxCh; ++c) {
-        if (c < nch) {
-          const float h0 = lerp_rn((float)__ldg(r0 + c0 + c), (float)__ldg(r0 + c1 + c), wx);
-          const float h1 = lerp_rn((float)__ldg(r1 + c0 + c), (float)__ldg(r1 + c1 + c), wx);
-          v[c] = lerp_rn(h0, h1, wy);
-        }
-      }
-      sampled = true;
-    }
+    const int* r = rects + 4 * z;
+    sampled = sample_crop(src + (long long)z * plane_stride, src_h, src_w, nch, __ldg(r),
+                          __ldg(r + 1), __ldg(r + 2), __ldg(r + 3), dst_w, dst_h, mode, x, y, v);
   }
   if (!sampled) {
 #pragma unroll

@@ -22,37 +22,15 @@
 // shared memory (TMA) and vector stores are left to later work.
 //
 // Numerics: every step matches cvgpuspeedup_tpu_torch/ops/resize.py::
-// sample_frame and ops/nv12.py bit for bit: horizontal lerp, then vertical,
-// each a*(1-w) + b*w; with keep_edge a weight of 0 keeps the first tap's
-// value; the conversion in the reference's f32 op order. Every float op is
-// an _rn intrinsic and the library is built with -fmad=false.
+// sample_frame and ops/nv12.py bit for bit (the samplers are
+// csrc/frame_resize.cuh, shared with the divergent kernel). Every float op
+// is an _rn intrinsic and the library is built with -fmad=false.
 
-#include "chain.cuh"
+#include "frame_resize.cuh"
 
 namespace {
 
-// One bilinear sample from rows r0, r1 at element offsets c0, c1.
-template <typename SrcT>
-__device__ __forceinline__ float bilerp(const SrcT* __restrict__ r0, const SrcT* __restrict__ r1,
-                                        int c0, int c1, float wx, float wy, bool keep_edge) {
-  const float a = (float)__ldg(r0 + c0);
-  const float d = (float)__ldg(r1 + c0);
-  float h0 = a, h1 = d;
-  if (!(keep_edge && wx == 0.f)) {
-    h0 = lerp_rn(a, (float)__ldg(r0 + c1), wx);
-    h1 = lerp_rn(d, (float)__ldg(r1 + c1), wx);
-  }
-  return (keep_edge && wy == 0.f) ? h0 : lerp_rn(h0, h1, wy);
-}
-
-struct Conv {
-  int limited, alpha;
-  float ys, cs, rv, gu, gv, bu;
-};
-
-// Tap tables, int32, each one entry per output column or row:
-//   [x0 | x1 | y0 | y1] and, for an NV12 source, [cx0 | cx1 | cy0 | cy1];
-// weights, float32: [wx | wy].
+// The tap tables and weights are laid out as csrc/frame_resize.cuh says.
 template <typename SrcT, typename OutT, bool kYuv>
 __global__ void __launch_bounds__(256) frame_resize_kernel(
     const SrcT* __restrict__ src, int src_h, int src_w, int nch, int nv21,
@@ -63,47 +41,14 @@ __global__ void __launch_bounds__(256) frame_resize_kernel(
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= dst_w || y >= dst_h) return;
   const bool keep = keep_edge != 0;
-  const int x0 = __ldg(taps + x), x1 = __ldg(taps + dst_w + x);
-  const int y0 = __ldg(taps + 2 * dst_w + y), y1 = __ldg(taps + 2 * dst_w + dst_h + y);
-  const float wx = __ldg(wts + x), wy = __ldg(wts + dst_w + y);
-
   float v[kMaxCh] = {0.f, 0.f, 0.f, 0.f};
   int ch;
   if (!kYuv) {
-    const long long row = (long long)src_w * nch;
-    const SrcT* r0 = src + y0 * row;
-    const SrcT* r1 = src + y1 * row;
-#pragma unroll
-    for (int c = 0; c < kMaxCh; ++c) {
-      if (c < nch) v[c] = bilerp(r0, r1, x0 * nch + c, x1 * nch + c, wx, wy, keep);
-    }
+    sample_image(src, src_w, nch, taps, wts, dst_w, dst_h, x, y, keep, v);
     ch = nch;
   } else {
-    // luma: src_h rows of src_w bytes; then src_h/2 rows of src_w/2 pairs
-    const int* ct = taps + 2 * (dst_w + dst_h);
-    const int cx0 = __ldg(ct + x), cx1 = __ldg(ct + dst_w + x);
-    const int cy0 = __ldg(ct + 2 * dst_w + y), cy1 = __ldg(ct + 2 * dst_w + dst_h + y);
-    const float lum = bilerp(src + (long long)y0 * src_w, src + (long long)y1 * src_w, x0, x1,
-                             wx, wy, keep);
-    const SrcT* uv = src + (long long)src_h * src_w;
-    const SrcT* u0 = uv + (long long)cy0 * src_w;
-    const SrcT* u1 = uv + (long long)cy1 * src_w;
-    const int iu = nv21 ? 1 : 0;
-    float u = bilerp(u0, u1, 2 * cx0 + iu, 2 * cx1 + iu, wx, wy, keep);
-    float w = bilerp(u0, u1, 2 * cx0 + 1 - iu, 2 * cx1 + 1 - iu, wx, wy, keep);
-    // ops/nv12.py::ConvertYUVToRGB.apply, op for op
-    float yv = lum;
-    u = __fsub_rn(u, 128.f);
-    w = __fsub_rn(w, 128.f);
-    if (conv.limited) {
-      yv = __fmul_rn(__fsub_rn(yv, 16.f), conv.ys);
-      u = __fmul_rn(u, conv.cs);
-      w = __fmul_rn(w, conv.cs);
-    }
-    v[0] = __fadd_rn(yv, __fmul_rn(conv.rv, w));
-    v[1] = __fsub_rn(__fsub_rn(yv, __fmul_rn(conv.gu, u)), __fmul_rn(conv.gv, w));
-    v[2] = __fadd_rn(yv, __fmul_rn(conv.bu, u));
-    v[3] = 1.f;
+    sample_nv12(reinterpret_cast<const uint8_t*>(src), src_h, src_w, nv21, taps, wts, dst_w,
+                dst_h, x, y, keep, conv, v);
     ch = conv.alpha ? 4 : 3;
   }
 

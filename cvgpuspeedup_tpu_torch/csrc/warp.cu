@@ -28,28 +28,14 @@
 // windows in shared memory is left to later work.
 //
 // Numerics: every step matches cvgpuspeedup_tpu_torch/ops/warp.py bit for
-// bit. The coordinates are recomputed from the plane's float32 inverse map
-// in the op order of ops/warp.py::decompose_inverse_map,
-//   sx = c00*X + (c01*Y + c02),  sy = c10*X + (c11*Y + c12),
-// each product and sum rounded once; a perspective map divides both by
-// den = c20*X + (c21*Y + c22), with den == 0 taken as 1. A tap is valid
-// when it lies inside the source, decided on the floored coordinate in
-// float before any integer conversion, so a coordinate far outside int32
-// reads the border and nothing overflows; an invalid tap reads the
-// plane's per-channel border value. The lerps go horizontal, then
-// vertical. Every float op is an _rn intrinsic and the library is built
-// with -fmad=false, never with --use_fast_math.
+// bit; the coordinate recomputation and the four-tap constant-border sample
+// are csrc/warp.cuh, shared with the divergent kernel. Every float op is an
+// _rn intrinsic and the library is built with -fmad=false, never with
+// --use_fast_math.
 
-#include "chain.cuh"
+#include "warp.cuh"
 
 namespace {
-
-constexpr int kCoeffs = 9;  // per plane in the parameter block
-
-// a*X + (b*Y + c), each op rounded once
-__device__ __forceinline__ float affine_term(const float* __restrict__ c, float x, float y) {
-  return __fadd_rn(__fmul_rn(__ldg(c), x), __fadd_rn(__fmul_rn(__ldg(c + 1), y), __ldg(c + 2)));
-}
 
 template <typename SrcT, typename OutT, bool kPersp>
 __global__ void __launch_bounds__(256) warp_kernel(
@@ -65,38 +51,9 @@ __global__ void __launch_bounds__(256) warp_kernel(
 
   float v[kMaxCh] = {0.f, 0.f, 0.f, 0.f};
   if (z < __ldg(used)) {
-    const float* c = coeffs + kCoeffs * z;
-    const float fx = (float)x, fy = (float)y;
-    float px = affine_term(c, fx, fy);
-    float py = affine_term(c + 3, fx, fy);
-    if (kPersp) {
-      float den = affine_term(c + 6, fx, fy);
-      if (den == 0.f) den = 1.f;
-      px = __fdiv_rn(px, den);
-      py = __fdiv_rn(py, den);
-    }
-    const float x0f = floorf(px), y0f = floorf(py);
-    const float wx = __fsub_rn(px, x0f), wy = __fsub_rn(py, y0f);
-    const float fw = (float)src_w, fh = (float)src_h;  // exact: sides < 2^24
-    const bool vx0 = x0f >= 0.f && x0f < fw, vx1 = x0f >= -1.f && x0f < fw - 1.f;
-    const bool vy0 = y0f >= 0.f && y0f < fh, vy1 = y0f >= -1.f && y0f < fh - 1.f;
-    const int ix0 = vx0 ? (int)x0f * nch : 0, ix1 = vx1 ? ((int)x0f + 1) * nch : 0;
-    const long long row = (long long)src_w * nch;
     const SrcT* src = reinterpret_cast<const SrcT*>(__ldg(srcs + z));
-    const SrcT* r0 = src + (vy0 ? (long long)y0f * row : 0);
-    const SrcT* r1 = src + (vy1 ? ((long long)y0f + 1) * row : 0);
-    const float* b = border + kMaxCh * z;
-#pragma unroll
-    for (int ch = 0; ch < kMaxCh; ++ch) {
-      if (ch < nch) {
-        const float bv = __ldg(b + ch);
-        const float v00 = (vy0 && vx0) ? (float)__ldg(r0 + ix0 + ch) : bv;
-        const float v01 = (vy0 && vx1) ? (float)__ldg(r0 + ix1 + ch) : bv;
-        const float v10 = (vy1 && vx0) ? (float)__ldg(r1 + ix0 + ch) : bv;
-        const float v11 = (vy1 && vx1) ? (float)__ldg(r1 + ix1 + ch) : bv;
-        v[ch] = lerp_rn(lerp_rn(v00, v01, wx), lerp_rn(v10, v11, wx), wy);
-      }
-    }
+    sample_warp<SrcT, kPersp>(src, src_h, src_w, nch, coeffs + kCoeffs * z,
+                              border + kMaxCh * z, x, y, v);
   } else {
 #pragma unroll
     for (int ch = 0; ch < kMaxCh; ++ch) {

@@ -152,6 +152,13 @@ def load() -> ctypes.CDLL:
                 p,                         # stream
             ]
             lib.cvgs_warp.restype = ctypes.c_int
+            lib.cvgs_divergent.argtypes = [
+                p, p, i, i, i,             # blk, consts, ptr_off, desc_off, n_groups
+                i, i, i,                   # n_planes, dst_w, dst_h
+                p, i, i, ll, ll, ll, ll,   # out, out_u8, out_ch, sn, sc, sy, sx
+                p,                         # stream
+            ]
+            lib.cvgs_divergent.restype = ctypes.c_int
             lib.cvgs_error_string.argtypes = [ctypes.c_int]
             lib.cvgs_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -121,11 +121,13 @@ def _reorder_row(indices) -> List[int]:
     return [OP_REORDER, 0, 0, packed | (len(indices) << 16)]
 
 
-def encode_chain(chain, nch: int, first_param: int = 0):
-    """``(ops, out_dtype, out_ch, n_params)`` for a chain applied to f32
-    values with ``nch`` channels. Parameter offsets count from
-    ``first_param`` in the order :func:`~..graph.flatten` visits the leaves;
-    ``n_params`` is the offset past the last one."""
+def encode_chain(chain, nch: int, first_param: int = 0, dtype: torch.dtype = torch.float32):
+    """``(ops, out_dtype, out_ch, n_params)`` for a chain applied to values
+    of ``dtype`` (float32, or uint8 read from a uint8 source) with ``nch``
+    channels; the kernel holds them in f32 registers either way. Parameter
+    offsets count from ``first_param`` in the order
+    :func:`~..graph.flatten` visits the leaves; ``n_params`` is the offset
+    past the last one."""
     rows: List[List[int]] = []
 
     def enc(o, dtype, ch, pos):
@@ -179,7 +181,7 @@ def encode_chain(chain, nch: int, first_param: int = 0):
             return dtype, info[1], pos
         raise Unsupported(f"{type(o).__name__} has no op code")
 
-    dtype, ch, pos = torch.float32, nch, first_param
+    ch, pos = nch, first_param
     for o in chain:
         dtype, ch, pos = enc(o, dtype, ch, pos)
     ops = np.asarray(rows, np.int32).reshape(-1, 4)

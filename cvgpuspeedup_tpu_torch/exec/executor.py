@@ -19,13 +19,17 @@ raises where none can run. Nothing falls back from a failed build or
 launch.
 
 The divergent launcher (``build_operation_sequence``,
-``launch_divergent_batch``) comes with the divergent slice.
+``launch_divergent_batch``, ``executor.py:282-396`` of the reference) runs
+different sequences on different planes of one batch: on CUDA tensors in one
+launch of the divergent kernel (``cuda:divergent``), else through the eager
+merge (``torch:divergent``). Its plans are keyed on the sequences'
+structure, the plane ids, the device type and the backend request.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -34,15 +38,18 @@ from ..graph import (ComputeOp, FusedCompute, FusedRead, IOp, PendingReadOp, Rea
 from ..ops.memory import ImageRead, Write2D
 from ..types import ParBackend
 from ..utils.dtypes import as_device_tensor
-from . import cuda_batch_resize, cuda_frame_resize, cuda_warp
+from . import cuda_batch_resize, cuda_divergent, cuda_frame_resize, cuda_warp
 
 __all__ = [
     "Pipeline",
     "build_pipeline",
+    "build_operation_sequence",
     "execute_operations",
+    "launch_divergent_batch",
     "clear_cache",
     "describe_backend",
     "last_backend",
+    "meta_lower",
 ]
 
 
@@ -115,6 +122,8 @@ _TORCH = _Plan("torch", None, None)
 
 
 _PLANS: Dict[Tuple, _Plan] = {}
+#: plane counts of divergent batches, by the sequences' structure
+_PLANE_COUNTS: Dict[Tuple, int] = {}
 #: plans built in this process; a call with new values only must not add one
 PLAN_BUILDS = 0
 _LAST_BACKEND: Optional[str] = None
@@ -122,6 +131,18 @@ _LAST_BACKEND: Optional[str] = None
 
 def clear_cache() -> None:
     _PLANS.clear()
+    _PLANE_COUNTS.clear()
+
+
+def meta_lower(read: ReadOp):
+    """A read's value with shapes only: an image's lowering is a view; any
+    other read is lowered with every leaf on the meta device, which computes
+    nothing and reads nothing back from a card."""
+    if isinstance(read, ImageRead):
+        return read.lower()
+    meta = torch.device("meta")
+    return map_leaves(read, lambda v: v.to(meta) if isinstance(v, torch.Tensor)
+                      else as_device_tensor(v, meta)).lower()
 
 
 def _resolve_device(leaves, device) -> torch.device:
@@ -202,3 +223,73 @@ def execute_operations(*iops: IOp, input=None, backend: ParBackend = ParBackend.
     if plan.kernel is None:
         return map_leaves(pipeline, lambda v: as_device_tensor(v, dev)).lower()
     return plan.module.run(pipeline, plan.kernel, dev)
+
+
+def build_operation_sequence(*iops: IOp) -> Pipeline:
+    """One per-plane operation sequence (``fk::buildOperationSequence``)."""
+    return build_pipeline(*iops)
+
+
+def _plane_ids(selector, n_planes: int, n_seqs: int) -> Tuple[int, ...]:
+    if callable(selector):
+        ids = tuple(int(selector(z)) for z in range(n_planes))
+    else:
+        ids = tuple(int(i) for i in selector)
+        if len(ids) != n_planes:
+            raise ValueError(f"selector list has {len(ids)} entries for {n_planes} planes")
+    for z, sid in enumerate(ids):
+        if not 1 <= sid <= n_seqs:
+            raise ValueError(f"selector({z}) = {sid} out of range")
+    return ids
+
+
+def _select_divergent(seqs, plane_ids, backend: ParBackend, dev: torch.device) -> _Plan:
+    """The divergent backend decision, made before anything launches."""
+    if backend == ParBackend.TORCH:
+        return _Plan("torch:divergent", None, None)
+    if backend == ParBackend.CUDA and dev.type != "cuda":
+        raise ValueError(f"ParBackend.CUDA needs CUDA tensors, the batch is on {dev}")
+    if dev.type != "cuda":
+        return _Plan("torch:divergent", None, None)
+    try:
+        return _Plan("cuda:divergent", cuda_divergent.build_plan(seqs, plane_ids), cuda_divergent)
+    except cuda_divergent.Unsupported as e:
+        if backend == ParBackend.CUDA:
+            raise ValueError(f"ParBackend.CUDA cannot run this divergent batch: {e}") from e
+    return _Plan("torch:divergent", None, None)
+
+
+def launch_divergent_batch(selector: Union[Callable[[int], int], Sequence[int]],
+                           *sequences: Pipeline, backend: ParBackend = ParBackend.AUTO,
+                           device=None):
+    """Run different op sequences on different planes of one batch.
+
+    ``selector(z)`` gives the 1-based sequence id of plane ``z``
+    (``SequenceSelector::at``); a list of ids may be passed instead. The
+    plane count is the first sequence's, from shapes alone. Each sequence
+    computes only its own planes; the merged batch takes the dtype of plane
+    0's sequence (other values are cast to it by clamping, then
+    truncating) and the first sequence's write layout. On CUDA tensors it is
+    one launch of the divergent kernel; returns without waiting for it.
+    """
+    global PLAN_BUILDS, _LAST_BACKEND
+    if not sequences:
+        raise ValueError("need at least one operation sequence")
+    seqs = tuple(sequences)
+    key, leaves = flatten(seqs)
+    n_planes = _PLANE_COUNTS.get(key)
+    if n_planes is None:
+        n_planes = _PLANE_COUNTS[key] = int(meta_lower(seqs[0].read).shape[0])
+    plane_ids = _plane_ids(selector, n_planes, len(seqs))
+    dev = _resolve_device(leaves, device)
+    cache_key = (key, "divergent", plane_ids, dev.type, backend)
+    plan = _PLANS.get(cache_key)
+    if plan is None:
+        plan = _select_divergent(seqs, plane_ids, backend, dev)
+        PLAN_BUILDS += 1
+        _PLANS[cache_key] = plan
+    _LAST_BACKEND = plan.backend
+    if plan.kernel is None:
+        return cuda_divergent.merge(map_leaves(seqs, lambda v: as_device_tensor(v, dev)),
+                                    plane_ids)
+    return plan.module.run(seqs, plan.kernel, dev)

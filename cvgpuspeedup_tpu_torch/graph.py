@@ -130,8 +130,21 @@ class ReadOp(IOp):
     """Source stage. ``lower()`` returns the full channel-last value tensor:
     ``(H, W, C)`` for single-plane reads, ``(N, H, W, C)`` for batched ones."""
 
+    #: True when ``lower()`` has a leading plane axis. A class attribute, not
+    #: a dataclass field, so that it is neither a leaf nor in the key.
+    batched = False
+
     def lower(self) -> torch.Tensor:
         raise NotImplementedError
+
+    def lower_planes(self, planes) -> torch.Tensor:
+        """Only the planes of a static list of a batched read, in its order
+        (the divergent launcher lowers each sequence's own planes). The
+        default lowers the whole read and takes the planes."""
+        if not self.batched:
+            raise ValueError("lower_planes needs a batched read")
+        x = self.lower()
+        return x[torch.as_tensor([int(z) for z in planes], device=x.device)]
 
     def then(self, other: IOp) -> IOp:
         if isinstance(other, ComputeOp):
@@ -182,6 +195,10 @@ class FusedRead(ReadOp):
 
     read: ReadOp
     chain: Tuple[ComputeOp, ...]
+
+    @property
+    def batched(self) -> bool:
+        return self.read.batched
 
     def lower(self) -> torch.Tensor:
         x = self.read.lower()

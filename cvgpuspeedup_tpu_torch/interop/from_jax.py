@@ -4,7 +4,8 @@ The system has no learned weights: its state is the op graph and the arrays
 at its leaves. :func:`from_jax` rebuilds a ``cvgpuspeedup_tpu`` op (or
 ``Pipeline``) as the port's op of the same class name, field by field. Leaves
 become numpy arrays (``np.asarray``), static fields keep their values, with
-enums, sizes and dtypes mapped to the port's types. It never imports jax: it
+enums (``BorderMode`` among them), sizes and dtypes mapped to the port's
+types. It never imports jax: it
 reads the reference ops through ``dataclasses.fields`` only.
 """
 
@@ -19,10 +20,12 @@ from .. import types as port_types
 from ..exec.executor import Pipeline
 from ..graph import FusedCompute, FusedRead
 from ..ops.arithmetic import Add, Div, Mul, StaticLoop, Sub
+from ..ops.border import BorderRead
 from ..ops.cast import Cast, SaturateCast
 from ..ops.color import ColorConversion, VectorReorder
-from ..ops.memory import (BatchRead, ImageRead, SplitWrite, TensorSplit, TensorSplitPacked,
-                          TensorTSplit, TensorWrite, Write2D)
+from ..ops.crop import CropRead
+from ..ops.memory import (BatchRead, CircularBatchRead, ImageRead, SplitWrite, TensorSplit,
+                          TensorSplitPacked, TensorTSplit, TensorWrite, Write2D)
 from ..ops.nv12 import ConvertYUVToRGB, ReadYUV
 from ..ops.resize import BatchResizeRead, ResizeRead
 from ..ops.warp import WarpRead
@@ -33,7 +36,8 @@ _CLASSES = {
     for c in (Pipeline, FusedCompute, FusedRead, ImageRead, Write2D, TensorWrite, TensorSplit,
               TensorSplitPacked, TensorTSplit, SplitWrite, SaturateCast, Cast, Mul, Add, Sub,
               Div, StaticLoop, VectorReorder, ColorConversion, BatchResizeRead, ResizeRead,
-              ReadYUV, ConvertYUVToRGB, WarpRead, BatchRead)
+              ReadYUV, ConvertYUVToRGB, WarpRead, BatchRead, CircularBatchRead, CropRead,
+              BorderRead)
 }
 
 #: static fields that only size TPU kernels; the port has no use for them

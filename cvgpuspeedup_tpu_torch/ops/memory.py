@@ -2,7 +2,9 @@
 output layouts.
 
 Counterpart of ``cvgpuspeedup_tpu/ops/memory.py``. ``BatchRead`` stacks
-sub-reads on a plane axis, with a ragged ``used_planes`` count. The writes:
+sub-reads on a plane axis, with a ragged ``used_planes`` count;
+``CircularBatchRead`` presents a ring of planes from a runtime ``first``.
+The writes:
 
   ========================  =============================  =======================
   reference op              layout written                 here
@@ -51,6 +53,14 @@ class ImageRead(ReadOp):
             x = x[..., None]
         return x
 
+    @property
+    def batched(self) -> bool:
+        return self.is_batch
+
+    def lower_planes(self, planes) -> torch.Tensor:
+        x = self.lower()
+        return x[torch.as_tensor([int(z) for z in planes], device=x.device)]
+
 
 @op
 class BatchRead(ReadOp):
@@ -65,6 +75,8 @@ class BatchRead(ReadOp):
     ops: Tuple[ReadOp, ...]
     used_planes: Optional[torch.Tensor]
     default: Optional[torch.Tensor]  # scalar or (C,)
+
+    batched = True
 
     def _mask(self, x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
         if self.used_planes is None:
@@ -82,6 +94,40 @@ class BatchRead(ReadOp):
         """Only the planes of a static list, in its order."""
         x = torch.stack([self.ops[int(z)].lower() for z in planes], dim=0)
         return self._mask(x, torch.as_tensor([int(z) for z in planes], device=x.device))
+
+
+@op
+class CircularBatchRead(ReadOp):
+    """A ring of N planes read from a runtime start
+    (``fk::CircularBatchRead``): output plane ``z`` reads ring plane
+    ``(first + z) mod N`` (``ascendent``) or ``(first - z) mod N``, with the
+    floor modulo, so ``first = -1`` starts at plane N - 1. ``first`` is a
+    leaf: a new value builds no plan. With ``packed_channels=C`` the ring is
+    (N, H, W*C), as the reference's factory packs host rings.
+    """
+
+    data: torch.Tensor  # (N, H, W, C), or (N, H, W*C) when packed
+    first: torch.Tensor  # scalar int
+    ascendent: bool = static_field(default=True)
+    packed_channels: int = static_field(default=0)
+
+    batched = True
+
+    def _take(self, z: torch.Tensor) -> torch.Tensor:
+        x = self.data
+        first = torch.as_tensor(self.first, device=x.device).to(torch.int64).reshape(())
+        src = torch.remainder(first + z if self.ascendent else first - z, x.shape[0])
+        x = x.index_select(0, src)
+        if self.packed_channels:
+            c = self.packed_channels
+            x = x.reshape(x.shape[:-1] + (x.shape[-1] // c, c))
+        return x
+
+    def lower(self) -> torch.Tensor:
+        return self._take(torch.arange(self.data.shape[0], device=self.data.device))
+
+    def lower_planes(self, planes) -> torch.Tensor:
+        return self._take(torch.as_tensor([int(z) for z in planes], device=self.data.device))
 
 
 @op

@@ -335,6 +335,7 @@ class BatchResizeRead(ReadOp):
     interp: InterpolationType = static_field(default=InterpolationType.INTER_LINEAR)
     packed_channels: int = static_field(default=0)
 
+    batched = True
 
     @property
     def num_planes(self) -> int:

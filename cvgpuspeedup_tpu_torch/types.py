@@ -47,6 +47,28 @@ class WarpType(enum.Enum):
     PERSPECTIVE = "perspective"
 
 
+class BorderMode(enum.Enum):
+    """``cv::BorderTypes`` of a border-extension read. (The reference package
+    defines it in ``ops/border.py``.)"""
+
+    CONSTANT = "constant"
+    REPLICATE = "replicate"
+    REFLECT = "reflect"
+    REFLECT_101 = "reflect_101"
+    WRAP = "wrap"
+
+
+class CircularTensorOrder(enum.Enum):
+    NEWEST_FIRST = "newest_first"
+    OLDEST_FIRST = "oldest_first"
+
+
+class ColorPlanes(enum.Enum):
+    STANDARD = "standard"      # (N, C, H, W): the TensorSplit layout
+    TRANSPOSED = "transposed"  # (C, N, H, W): the TensorTSplit layout
+    PACKED = "packed"          # (N, H, W, C): the TensorWrite layout
+
+
 class ColorRange(enum.Enum):
     FULL = "full"
     LIMITED = "limited"

@@ -98,6 +98,20 @@ def cast(x: torch.Tensor, dtype: DTypeLike) -> torch.Tensor:
     return x.to(to_torch_dtype(dtype))
 
 
+def astype(x: torch.Tensor, dtype: DTypeLike) -> torch.Tensor:
+    """The reference's ``astype`` of a value stored into a buffer of another
+    dtype (the divergent merge, a ring slot): float -> integer clamps to the
+    destination range, then truncates (3.7 -> 3, 297.5 -> 255, -0.5 -> 0);
+    this is not ``saturate_cast``, which rounds half to even."""
+    dtype = to_torch_dtype(dtype)
+    if x.dtype == dtype:
+        return x
+    if is_integer(dtype) and x.dtype.is_floating_point:
+        info = torch.iinfo(dtype)
+        x = torch.clamp(x, info.min, info.max)
+    return x.to(dtype)
+
+
 ScalarLike = Union[int, float, Sequence[float], np.ndarray, torch.Tensor]
 
 

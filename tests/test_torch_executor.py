@@ -1,6 +1,8 @@
 """The port's executor: pipeline normalization, error paths, backend choice,
 the plan cache and ``from_jax``."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -160,6 +162,15 @@ def test_from_jax_round_trip(frame, rects):
     assert np.abs(out.numpy() - ref).max() <= 1e-5
 
 
+@dataclasses.dataclass(frozen=True)
+class _Unported:
+    """An op class with no counterpart in the port."""
+
+    source: object
+
+
 def test_from_jax_refuses_unported_ops(frame):
     with pytest.raises(TypeError, match="no counterpart"):
-        from_jax(J.crop(J.image(frame), J.Rect(0, 0, 8, 8)))
+        from_jax(_Unported(source=J.image(frame)))
+    with pytest.raises(TypeError, match="no counterpart"):
+        from_jax((J.image(frame), _Unported(source=0)))

@@ -21,7 +21,9 @@ def test_import_leaves_jax_out():
         "import sys, cvgpuspeedup_tpu_torch, cvgpuspeedup_tpu_torch.interop.from_jax, "
         "cvgpuspeedup_tpu_torch.utils.profiling, cvgpuspeedup_tpu_torch.exec.cuda_frame_resize, "
         "cvgpuspeedup_tpu_torch.ops.nv12, cvgpuspeedup_tpu_torch.ops.color, "
-        "cvgpuspeedup_tpu_torch.exec.cuda_warp, cvgpuspeedup_tpu_torch.ops.warp; "
+        "cvgpuspeedup_tpu_torch.exec.cuda_warp, cvgpuspeedup_tpu_torch.ops.warp, "
+        "cvgpuspeedup_tpu_torch.exec.cuda_divergent, cvgpuspeedup_tpu_torch.ops.crop, "
+        "cvgpuspeedup_tpu_torch.ops.border, cvgpuspeedup_tpu_torch.data.circular_tensor; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cvgpuspeedup_tpu')))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -68,14 +70,18 @@ def test_nvcc_command_targets_hopper_without_fast_math():
     ("warp.cu", "pallas_warp_general.py::_emit"),
     ("warp.cu", "pallas_warp_universal.py::_emit"),
     ("warp.cu", "pallas_warp_universal.py::_emit_batch"),
+    ("divergent.cu", "pallas_divergent.py::_emit"),
 ])
 def test_cuda_source_exists_and_ships_as_package_data(name, replaces):
     src = ROOT / "cvgpuspeedup_tpu_torch" / "csrc" / name
     assert src.is_file() and src in _build.SOURCES
     text = src.read_text()
     assert replaces in text
-    assert '#include "chain.cuh"' in text
-    assert "__fmul_rn" in text or "lerp_rn" in text
+    # the source with the headers it includes: the samplers live in headers
+    included = [h for h in _build.HEADERS if f'#include "{h.name}"' in text]
+    assert any(h.name == "chain.cuh" or '#include "chain.cuh"' in h.read_text() for h in included)
+    code = text + "".join(h.read_text() for h in included)
+    assert "__fmul_rn" in code or "lerp_rn" in code
     header = ROOT / "cvgpuspeedup_tpu_torch" / "csrc" / "chain.cuh"
     assert header in _build.HEADERS and "__fdiv_rn" in header.read_text()
     conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
@@ -96,3 +102,19 @@ def test_library_is_keyed_on_the_sources(tmp_path, monkeypatch):
     header.write_text(_build.HEADERS[0].read_text() + "\n// edited\n")
     monkeypatch.setattr(_build, "HEADERS", [header])
     assert _build.library_path() != path
+
+
+@pytest.mark.parametrize("header,users", [
+    ("batch_resize.cuh", ("batch_resize.cu", "divergent.cu")),
+    ("frame_resize.cuh", ("frame_resize.cu", "divergent.cu")),
+    ("warp.cuh", ("warp.cu", "divergent.cu")),
+])
+def test_shared_samplers_live_in_headers(header, users):
+    """Each coordinate rule exists once: the kernels that share a sampler
+    include its header, and the library's hash covers it."""
+    path = ROOT / "cvgpuspeedup_tpu_torch" / "csrc" / header
+    assert path in _build.HEADERS
+    text = path.read_text()
+    assert "#pragma once" in text and '#include "chain.cuh"' in text
+    for user in users:
+        assert f'#include "{header}"' in (path.parent / user).read_text()
