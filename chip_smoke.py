@@ -23,13 +23,19 @@ code and no result line:
    the flagship shapes (3840x2160 u8 frame, 50 crops -> 64x128): every
    aspect-ratio mode, ragged ``used_planes``, stack mode, a uint8 chain,
    every write layout, a float32 source with rects off the frame edge, rects
-   left of and above the frame with a gray conversion. frame_resize at the
+   left of and above the frame with a gray conversion, and the tiled
+   kernel's own paths: a letterbox border through a thread's pixels, an
+   output width off the pixel group, a source view at an odd address, row
+   pitches off 16 and off 4 bytes, a uint8 output off the group. frame_resize at the
    frame paths' sizes: (a), (b), a >32-phase ratio, an upscale, a uint8
    chain with ``split()``, NV21 limited range with alpha, BGR -> RGBA.
    warp on a 1080p frame, a case per class of the reference's warp kernels
    (W1 separable, W2 rotation, W3 flip, W4 upscaled rotation, W5
    perspective, W6 the batch of eight) and a uint8 chain on 4 channels with
-   a per-channel border (W7) and a float32 source (W8). divergent in D1-D7:
+   a per-channel border (W7), a float32 source (W8) and the packed tap
+   fetch's exits (W9-W13: a source view at an odd address, taps with one
+   valid side, a perspective denominator that crosses 0, coordinates past
+   int32, one channel). divergent in D1-D7:
    a 16-plane ring read by two sequences from first = 3 and -5, eight NV12
    cameras with pass-through planes (and NV21 limited range), crops of the
    flagship frame with pass-through, warp | crop | pass, a whole-plane stack
@@ -44,17 +50,23 @@ code and no result line:
    launch the frame kernel, build no plan after the first, and leave every
    logical plane equal to an eager ring;
 5. times: device time of each kernel and of its plain PyTorch version
-   (CUDA events, median), alternating plain, kernel, kernel, plain; the
+   (CUDA events, median), alternating plain, kernel, kernel, plain, and the
+   kernel's duration in a ``torch.profiler`` trace of 20 launches (events
+   carry the floor of any launch, the trace does not); beside each its
+   bound, the larger of its bytes (output, plus the 32-byte source sectors
+   its taps touch) over the card's published memory rate and its float32
+   operations over the published rate, and the same bytes over the copy
+   bandwidth this run measured; for frame path (a) and the affine warps
+   one library call that does the resample alone (``F.interpolate``,
+   ``F.grid_sample``), timed here and used nowhere in the port; the
    host-inclusive time of one ``execute_operations`` call of each path, the
    flagship call split into its host layers; the device's busy time and idle
    share in a ``torch.profiler`` trace of the flagship path; the event floor
    of a one-element launch, a device copy of the flagship output's bytes, and
-   the copy bandwidth of a 256 MiB device copy with each frame path's bytes
-   floor at that bandwidth; the same for warp cases W1, W2, W5 and W6, whose
-   floors count the 32-byte source sectors the taps touch, and the
-   host-inclusive call of the warp batch; the divergent kernel against its
-   plain version in D1-D4, the host-inclusive ``launch_divergent_batch``
-   call of D4 and one ``CircularTensor.update``.
+   the copy bandwidth of a 256 MiB device copy; warp cases W1, W2, W5 and
+   W6 and the host-inclusive call of the warp batch; the divergent kernel
+   in D1-D4, the host-inclusive ``launch_divergent_batch`` call of D4 and
+   one ``CircularTensor.update``.
 
 The last three lines are the card's name and power limit, one JSON object
 describing the kernels, and ``{"ok": true, "device": {...}}``. The script
@@ -80,6 +92,9 @@ BT709 = (0.2126, 0.0722)
 F32_TOL = 1e-6      # kernel vs plain version on the card (0 expected)
 ORACLE_TOL = 1e-4   # the repo's float contract against an independent resize
 WARP_DST = (640, 360)
+# the card's published peaks (NVIDIA's H100 SXM data sheet): device memory
+# rate and float32 rate outside the tensor cores
+PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S = 3.35e12, 67e12
 # cv2.getPerspectiveTransform of the 1080p frame's corners to
 # (20, 10), (620, 25), (8, 370), (630, 380), as the reference's perspective
 # row builds it (benchmarks/aux_pipelines.py:702-705)
@@ -204,6 +219,49 @@ def oracle_warp(frame: np.ndarray, m: np.ndarray, dst_w: int, dst_h: int) -> np.
     return top * (1 - fy) + bot * fy
 
 
+def flagship_ops(cvgs, frame, rects):
+    """The flagship pipeline: crops of ``frame`` at ``rects`` -> 64x128,
+    scaled, shifted and divided per channel, written planar."""
+    return (cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(64, 128)),
+            cvgs.convert_to(np.float32, alpha=ALPHA), cvgs.subtract(SUB), cvgs.divide(DIV),
+            cvgs.split_tensor())
+
+
+def warp_batch_ops(cvgs, read, angle0, used, planes=8):
+    """``planes`` rotations of one shared frame in one launch, the first
+    ``used`` sampled -> 640x360, x1/255, planar."""
+    mats = [rotation((960, 540), angle0 + 3.0 * i, 1.0 + 0.04 * i) for i in range(planes)]
+    return (cvgs.warp_batch([read] * planes, mats, cvgs.Size(*WARP_DST), used_planes=used,
+                            default=3.0),
+            cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.split_tensor())
+
+
+def warp_one_ops(cvgs, read, angle):
+    """One rotation at 1/3 scale -> 640x360, x1/255, planar. The reference's
+    rotation row (rotation((960, 540), 10, 1/3) -> 640x360) maps the frame's
+    center to (960, 540), outside its output, so every output pixel reads
+    the border; here the frame's center lands on the output's center, and
+    the map keeps its class (|a| >= 2, e > 0)."""
+    mid = (WARP_DST[0] / 2, WARP_DST[1] / 2)
+    return (cvgs.warp(read, rotation((960, 540), angle, 1 / 3.0, to=mid), cvgs.Size(*WARP_DST)),
+            cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.split_tensor())
+
+
+def timed_warp_cases(cvgs, read) -> dict:
+    """The warp cases that phase 5 times, of one 1080p frame ``read``: a
+    case per class of the reference's warp kernels."""
+    to_f32 = cvgs.convert_to(np.float32, alpha=1 / 255.0)
+    return {
+        "w1_k3_separable": (cvgs.warp(read, np.array([[0.55, 0.0, 23.0], [0.0, 0.62, 11.0]]),
+                                      cvgs.Size(*WARP_DST)), to_f32, cvgs.split_tensor()),
+        "w2_k4_rotation": warp_one_ops(cvgs, read, 10.0),
+        "w5_k5a_perspective_640x384": (
+            cvgs.warp(read, PERSPECTIVE_W5, cvgs.Size(640, 384),
+                      warp_type=cvgs.WarpType.PERSPECTIVE), to_f32, cvgs.split_tensor()),
+        "w6_k5b_batch8_ragged7": warp_batch_ops(cvgs, read, -10.0, 7),
+    }
+
+
 def warp_touched_bytes(args) -> int:
     """Bytes of the warp kernel's sources that its taps touch, in 32-byte
     sectors, from the plain version's tap indices (``WarpRead.coordinates``
@@ -250,6 +308,59 @@ def touched_bytes(plan) -> int:
         c = t[2 * (w + h):]
         total += part((c[:w], c[w:2 * w]), (c[2 * w:2 * w + h], c[2 * w + h:]), plan.src_w, 2)
     return total
+
+
+def sectors(first_byte, elem_bytes: int):
+    """The distinct 32-byte sectors under elements of ``elem_bytes`` that
+    start at the byte offsets ``first_byte`` (a tensor)."""
+    import torch
+
+    return torch.unique(torch.cat([first_byte // 32, (first_byte + elem_bytes - 1) // 32]))
+
+
+def crop_touched_bytes(read, planes=None) -> int:
+    """Bytes of the batched crop-resize's source that its taps touch, in
+    32-byte sectors, from the plain version's own coordinate functions;
+    overlapping crops share their sectors, planes past ``used_planes`` (and
+    outside ``planes``) read nothing."""
+    import torch
+    from cvgpuspeedup_tpu_torch.ops.resize import axis_lerp, letterbox_geometry, source_index
+
+    src = read.source()
+    src_h, src_w, nch = read.source_dims()
+    elem = nch * src.element_size()
+    rects = torch.as_tensor(read.rects).cpu().to(torch.int32)
+    used = rects.shape[0] if read.used_planes is None else int(torch.as_tensor(read.used_planes))
+    dst_w, dst_h = read.dsize
+    found = []
+    for z in range(min(used, rects.shape[0])):
+        if planes is not None and z not in planes:
+            continue
+        x, y, w, h = (int(v) for v in rects[z])
+        nw, nh, ox, oy = (int(v) for v in letterbox_geometry(w, h, read.dsize, read.aspect_ratio))
+        qx = torch.arange(dst_w, dtype=torch.int32) - ox
+        qy = torch.arange(dst_h, dtype=torch.int32) - oy
+        qx, qy = qx[(qx >= 0) & (qx < nw)], qy[(qy >= 0) & (qy < nh)]
+        if not len(qx) or not len(qy):
+            continue
+        cols = torch.unique(torch.cat([source_index(x + t, src_w) for t in axis_lerp(qx, w, nw)[:2]]))
+        rows = torch.unique(torch.cat([source_index(y + t, src_h) for t in axis_lerp(qy, h, nh)[:2]]))
+        plane = z * src_h * src_w if read.stack is not None else 0
+        first = ((plane + rows[:, None].long() * src_w + cols[None, :].long()) * elem).reshape(-1)
+        found.append(sectors(first, elem))
+    return int(torch.unique(torch.cat(found)).numel()) * 32 if found else 0
+
+
+def bound(out_bytes: int, src_bytes: int, flops: int, bandwidth: float) -> dict:
+    """The least time the card could take: ``bound_ms`` is the larger of
+    the bytes over the published memory rate and the float32 operations
+    over the published rate; ``floor_ms`` is the bytes over the copy
+    bandwidth this run measured."""
+    by_bytes = (out_bytes + src_bytes) / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else
+            "operations", "floor_ms": (out_bytes + src_bytes) / bandwidth * 1e3,
+            "out_bytes": out_bytes, "src_bytes_touched": src_bytes, "flops": flops}
 
 
 def main() -> int:
@@ -339,8 +450,7 @@ def main() -> int:
         compare(name, kernel, launch(a), plain(a), tol)
         return a.plan
 
-    check("a_ignore_ar", cvgs.resize_batch(frame, rects=rects_a, dsize=dsize),
-          *chain, cvgs.split_tensor())
+    check("a_ignore_ar", *flagship_ops(cvgs, frame, rects_a))
     for mode in (cvgs.AspectRatio.PRESERVE_AR, cvgs.AspectRatio.PRESERVE_AR_RN_EVEN,
                  cvgs.AspectRatio.PRESERVE_AR_LEFT):
         check(f"b_{mode.name.lower()}",
@@ -375,6 +485,35 @@ def main() -> int:
           cvgs.resize_batch(frame, rects=negative, dsize=dsize),
           cvgs.cvt_color(cvgs.ColorConversionCode.COLOR_BGR2GRAY),
           cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.split_tensor())
+
+    # (i)-(m) the tiled kernel's paths: a letterbox border through a thread's
+    # pixels, an output width off the pixel group with rows off the vector
+    # alignment, a source view at an odd address (crops at the buffer's
+    # first and last bytes), row pitches of 4 and of no alignment, a uint8
+    # output off the group
+    cut = np.array([[i, i, 27, 120] for i in range(BATCH)], np.int32)
+    check("i_letterbox_cuts_a_pixel_group",
+          cvgs.resize_batch(frame, rects=cut, dsize=dsize, background=128.0,
+                            aspect_ratio=cvgs.AspectRatio.PRESERVE_AR),
+          *chain, cvgs.split_tensor())
+    check("j_dst_62x126_rows_off_the_vector",
+          cvgs.resize_batch(frame, rects=rects_a, dsize=cvgs.Size(62, 126)), *chain,
+          cvgs.split_tensor())
+    flat_frame = torch.from_numpy(
+        rng.integers(0, 256, SRC_H * SRC_W * 3 + 1, dtype=np.uint8)).to(dev)
+    odd_view = flat_frame[1:].view(SRC_H, SRC_W, 3)
+    assert odd_view.data_ptr() % 2 == 1
+    ends = np.array([[0, 0, 60, 120], [SRC_W - 60, SRC_H - 120, 60, 120]]
+                    + [[i, i, 60, 120] for i in range(BATCH - 2)], np.int32)
+    check("k_source_view_at_byte_offset_1",
+          cvgs.resize_batch(odd_view, rects=ends, dsize=dsize), *chain, cvgs.split_tensor())
+    for name, width in (("l_row_pitch_multiple_of_4_only", 1284), ("l_row_pitch_odd", 1283)):
+        narrow = torch.from_numpy(rng.integers(0, 256, (720, width, 3), dtype=np.uint8)).to(dev)
+        assert (width * 3) % 16 != 0
+        check(name, cvgs.resize_batch(narrow, rects=rects_a, dsize=dsize), *chain,
+              cvgs.split_tensor())
+    check("m_u8_out_dst_61", cvgs.resize_batch(frame, rects=rects_a, dsize=cvgs.Size(61, 128)),
+          cvgs.convert_to(np.uint8, alpha=0.5, beta=3), cvgs.split_tensor())
 
     # frame_resize at the frame paths' sizes
     normalize = (cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract(MEAN),
@@ -422,34 +561,14 @@ def main() -> int:
     hd4 = torch.from_numpy(rng.integers(0, 256, (FRAME_H, FRAME_W, 4), dtype=np.uint8)).to(dev)
     shared = cvgs.image(hd)
 
-    def warp_batch_ops(read, angle0, used):
-        mats = [rotation((960, 540), angle0 + 3.0 * i, 1.0 + 0.04 * i) for i in range(8)]
-        return (cvgs.warp_batch([read] * 8, mats, cvgs.Size(*WARP_DST), used_planes=used,
-                                default=3.0), to_f32, cvgs.split_tensor())
-
-    # the reference's rotation row (rotation((960, 540), 10, 1/3) -> 640x360)
-    # maps the frame's center to (960, 540), outside its output, so every
-    # output pixel reads the border; here the frame's center lands on the
-    # output's center, and the map keeps its class (|a| >= 2, e > 0)
     mid = (WARP_DST[0] / 2, WARP_DST[1] / 2)
-
-    def warp_one_ops(read, angle):
-        return (cvgs.warp(read, rotation((960, 540), angle, 1 / 3.0, to=mid),
-                          cvgs.Size(*WARP_DST)), to_f32, cvgs.split_tensor())
-
     warp_cases = {
-        "w1_k3_separable": (cvgs.warp(shared, np.array([[0.55, 0.0, 23.0], [0.0, 0.62, 11.0]]),
-                                      cvgs.Size(*WARP_DST)), to_f32, cvgs.split_tensor()),
-        "w2_k4_rotation": warp_one_ops(shared, 10.0),
+        **timed_warp_cases(cvgs, shared),
         "w3_k5a_flip_960x540": (cvgs.warp(shared, np.array([[-0.5, 0.0, 960.0], [0.0, 0.5, 2.0]]),
                                           cvgs.Size(960, 540)), to_f32, cvgs.split_tensor()),
         "w4_k5a_upscale_rotation_1280x768": (
             cvgs.warp(shared, rotation((960, 540), 10.0, 1.2), cvgs.Size(1280, 768)), to_f32,
             cvgs.split_tensor()),
-        "w5_k5a_perspective_640x384": (
-            cvgs.warp(shared, PERSPECTIVE_W5, cvgs.Size(640, 384),
-                      warp_type=cvgs.WarpType.PERSPECTIVE), to_f32, cvgs.split_tensor()),
-        "w6_k5b_batch8_ragged7": warp_batch_ops(shared, -10.0, 7),
         "w7_u8_chain_4ch_border": (
             cvgs.warp(cvgs.image(hd4), rotation((960, 540), -20.0, 0.5, to=mid),
                       cvgs.Size(*WARP_DST), default=(10.0, 20.0, 30.0, 250.0)),
@@ -458,6 +577,34 @@ def main() -> int:
             cvgs.warp(cvgs.image(hd.float()), rotation((960, 540), 25.0, 0.4, to=mid),
                       cvgs.Size(*WARP_DST)), cvgs.multiply(1 / 255.0), cvgs.split_tensor()),
     }
+    # W9-W13 the packed tap fetch and its exits: a source view at an odd
+    # address (the runs in the buffer's first and last words), taps with one
+    # valid side (half-pixel shifts), a perspective map whose denominator
+    # crosses 0 and one whose coordinates leave int32, one channel
+    flat_hd = torch.from_numpy(rng.integers(0, 256, FRAME_H * FRAME_W * 3 + 1, dtype=np.uint8)).to(dev)
+    hd_odd = flat_hd[1:].view(FRAME_H, FRAME_W, 3)
+    assert hd_odd.data_ptr() % 2 == 1
+    hd1 = hd[..., :1].contiguous()
+    warp_cases.update({
+        "w9_source_view_at_byte_offset_1_identity": (
+            cvgs.warp(cvgs.image(hd_odd), np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]),
+                      cvgs.Size(FRAME_W, FRAME_H)), to_f32, cvgs.split_tensor()),
+        "w10_half_pixel_shift_one_valid_tap": (
+            cvgs.warp(shared, np.array([[1.0, 0.0, 1.5], [0.0, 1.0, 1.5]]),
+                      cvgs.Size(FRAME_W + 4, FRAME_H + 4), default=(9.0, 8.0, 7.0)), to_f32,
+            cvgs.split_tensor()),
+        "w11_perspective_den_crosses_0": (
+            cvgs.warp(shared, np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [1 / 256.0, 0.0, 1.0]]),
+                      cvgs.Size(*WARP_DST), warp_type=cvgs.WarpType.PERSPECTIVE,
+                      default=(1.0, 2.0, 3.0)), to_f32, cvgs.split_tensor()),
+        "w12_perspective_beyond_int32": (
+            cvgs.warp(shared, np.array([[1e-9, 0.0, 0.0], [0.0, 1e-9, 0.0], [0.0, 0.0, 1.0]]),
+                      cvgs.Size(*WARP_DST), warp_type=cvgs.WarpType.PERSPECTIVE,
+                      default=(1.0, 2.0, 3.0)), to_f32, cvgs.split_tensor()),
+        "w13_one_channel_rotation": (
+            cvgs.warp(cvgs.image(hd1), rotation((960, 540), 7.0, 0.5, to=mid),
+                      cvgs.Size(*WARP_DST)), to_f32, cvgs.split_tensor()),
+    })
     for name, ops in warp_cases.items():
         check(name, *ops, kernel="warp", tol=0.0)
 
@@ -539,19 +686,24 @@ def main() -> int:
         log(f"phase3 divergent {name}: groups {[g.kind for g in dplan.groups]}")
 
     # ---- phase 4: the main path through the public entry points
+    path_calls = {name: 0 for name in kernels}
+
+    def drive(kernel, call):
+        """One call of an entry point on a main path, counted beside the
+        kernel it must take: launches over these calls is launches per call."""
+        path_calls[kernel] += 1
+        return call()
+
     def main_path(rects):
-        return cvgs.execute_operations(
-            cvgs.resize_batch(frame, rects=rects, dsize=dsize), *chain, cvgs.split_tensor(),
-            device="cuda",
-        )
+        return cvgs.execute_operations(*flagship_ops(cvgs, frame, rects), device="cuda")
 
     shifted = rects_a.copy()
     shifted[:, :2] += 7
     kbr.LAUNCHES = 0
     builds0 = executor.PLAN_BUILDS
-    out1 = main_path(rects_a)
+    out1 = drive("batch_resize", lambda: main_path(rects_a))
     backend1, launches1, builds1 = cvgs.last_backend(), kbr.LAUNCHES, executor.PLAN_BUILDS
-    out2 = main_path(shifted)
+    out2 = drive("batch_resize", lambda: main_path(shifted))
     backend2, launches2, builds2 = cvgs.last_backend(), kbr.LAUNCHES, executor.PLAN_BUILDS
     torch.cuda.synchronize()
     main_launches = kbr.LAUNCHES
@@ -564,10 +716,8 @@ def main() -> int:
         assert tuple(out.shape) == (BATCH, 3, 128, 64) and out.dtype == torch.float32, out.shape
         assert bool(torch.isfinite(out).all()), "non-finite output"
     assert not torch.equal(out1, out2), "shifted rects gave the same output"
-    plain2 = cvgs.execute_operations(
-        cvgs.resize_batch(frame, rects=shifted, dsize=dsize), *chain, cvgs.split_tensor(),
-        backend=cvgs.ParBackend.TORCH,
-    )
+    plain2 = cvgs.execute_operations(*flagship_ops(cvgs, frame, shifted),
+                                     backend=cvgs.ParBackend.TORCH)
     eager_err = float((plain2 - out2).abs().max())
     host2 = out2.cpu().numpy()
     oracle_err = max(
@@ -594,9 +744,9 @@ def main() -> int:
     for path, (ops, src1, src2, shape) in frame_inputs.items():
         kfr.LAUNCHES = 0
         builds0 = executor.PLAN_BUILDS
-        f1 = frame_path(ops(src1))
+        f1 = drive("frame_resize", lambda: frame_path(ops(src1)))
         backend1, launches1, builds1 = cvgs.last_backend(), kfr.LAUNCHES, executor.PLAN_BUILDS
-        f2 = frame_path(ops(src2))
+        f2 = drive("frame_resize", lambda: frame_path(ops(src2)))
         backend2, launches2, builds2 = cvgs.last_backend(), kfr.LAUNCHES, executor.PLAN_BUILDS
         torch.cuda.synchronize()
         frame_launches += kfr.LAUNCHES
@@ -628,18 +778,18 @@ def main() -> int:
         return cvgs.execute_operations(*ops, device="cuda")
 
     warp_runs = {
-        "batch": (lambda k: warp_batch_ops(cvgs.image(hd), (-10.0, -8.5)[k], (7, 5)[k]),
+        "batch": (lambda k: warp_batch_ops(cvgs, cvgs.image(hd), (-10.0, -8.5)[k], (7, 5)[k]),
                   (8, 3, WARP_DST[1], WARP_DST[0])),
-        "single": (lambda k: warp_one_ops(cvgs.image(hd), (10.0, 12.5)[k]),
+        "single": (lambda k: warp_one_ops(cvgs, cvgs.image(hd), (10.0, 12.5)[k]),
                    (3, WARP_DST[1], WARP_DST[0])),
     }
     warp_launches = 0
     for path, (ops, shape) in warp_runs.items():
         kw.LAUNCHES = 0
         builds0 = executor.PLAN_BUILDS
-        w1 = warp_path(ops(0))
+        w1 = drive("warp", lambda: warp_path(ops(0)))
         backend1, launches1, builds1 = cvgs.last_backend(), kw.LAUNCHES, executor.PLAN_BUILDS
-        w2 = warp_path(ops(1))
+        w2 = drive("warp", lambda: warp_path(ops(1)))
         backend2, launches2, builds2 = cvgs.last_backend(), kw.LAUNCHES, executor.PLAN_BUILDS
         torch.cuda.synchronize()
         warp_launches += kw.LAUNCHES
@@ -707,10 +857,10 @@ def main() -> int:
         kd.LAUNCHES = 0
         builds0 = executor.PLAN_BUILDS
         ids1, seqs1 = make(0)
-        d_1 = cvgs.launch_divergent_batch(ids1, *seqs1)
+        d_1 = drive("divergent", lambda: cvgs.launch_divergent_batch(ids1, *seqs1))
         backend1, launches1, builds1 = cvgs.last_backend(), kd.LAUNCHES, executor.PLAN_BUILDS
         ids2, seqs2 = make(1)
-        d_2 = cvgs.launch_divergent_batch(ids2, *seqs2)
+        d_2 = drive("divergent", lambda: cvgs.launch_divergent_batch(ids2, *seqs2))
         backend2, launches2, builds2 = cvgs.last_backend(), kd.LAUNCHES, executor.PLAN_BUILDS
         torch.cuda.synchronize()
         divergent_launches += kd.LAUNCHES
@@ -765,22 +915,75 @@ def main() -> int:
     assert ct_err <= F32_TOL, ct_err
 
     # ---- phase 5: times at the flagship shape
+    def profiler_ms(fn, calls=20):
+        """Device time of one ``fn()`` by ``torch.profiler``: the median
+        kernel duration where a call is one kernel, else the calls' share of
+        all device time in the trace. No event floor is inside. A trace now
+        and then comes back without device activity: it is taken again, and
+        after three empty ones the time is None (not measured)."""
+        for _ in range(3):
+            fn()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+            if us:
+                return float(np.median(us) if len(us) == calls else sum(us) / calls) * 1e-3
+        log("phase5 torch.profiler recorded no device activity in three traces")
+        return None
+
+    def measure(kernel_fn, plain_fn, iters):
+        """Event medians of the kernel and its plain version, alternating
+        plain, kernel, kernel, plain, and the kernel's profiler duration."""
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            runs[which] += time_cuda(kernel_fn if which == "kernel" else plain_fn, iters=iters)
+        return {"ms": float(np.median(runs["kernel"])), "plain_ms": float(np.median(runs["plain"])),
+                "profiler_ms": profiler_ms(kernel_fn)}
+
+    def out_bytes_of(outs):
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return sum(o.numel() * o.element_size() for o in outs)
+
+    def describe(t):
+        by_profiler = ("not measured" if t["profiler_ms"] is None
+                       else f"{t['profiler_ms'] * 1e3:.2f} us")
+        text = (f"kernel {t['ms'] * 1e3:.2f} us by events, {by_profiler} by torch.profiler, "
+                f"plain torch {t['plain_ms'] * 1e3:.2f} us (medians); bound "
+                f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} at the published peaks, "
+                f"{t['floor_ms'] * 1e3:.2f} us at the copy bandwidth = ({t['out_bytes']} out + "
+                f"{t['src_bytes_touched']} source bytes touched, {t['flops']} flop)")
+        if t["library_ms"] is not None:
+            text += f"; library call (resample only) {t['library_ms'] * 1e3:.2f} us by events"
+        return text + f"; card {card}"
+
+    # the copy bandwidth: a 256 MiB device copy reads and writes its bytes
+    big = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    big_dst = torch.empty_like(big)
+    big_ms = float(np.median(time_cuda(lambda: big_dst.copy_(big), iters=20)))
+    bandwidth = 2 * big.numel() * 4 / (big_ms * 1e-3)
+    log(f"phase5 copy bandwidth: {big.numel() * 4 / 2**20:.0f} MiB D2D copy {big_ms * 1e3:.2f} us "
+        f"(events, median of 20) = {bandwidth / 1e9:.1f} GB/s read + write; card {card}")
+    del big, big_dst
+
     rects_dev = torch.from_numpy(rects_a).to(dev)
-    pipeline = cvgs.build_pipeline(cvgs.resize_batch(frame, rects=rects_dev, dsize=dsize),
-                                   *chain, cvgs.split_tensor())
+    pipeline = cvgs.build_pipeline(*flagship_ops(cvgs, frame, rects_dev))
     # every leaf on the card, so that neither version copies from the host
     # inside the timed region
     pipeline = map_leaves(pipeline, lambda v: as_device_tensor(v, dev))
     args = kbr.prepare(pipeline, kbr.build_plan(pipeline), dev)
-    runs = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = (lambda: kbr.batch_resize(args)) if which == "kernel" else (
-            lambda: kbr.batch_resize_reference(args))
-        samples = time_cuda(fn, iters=100)
-        runs[which] += samples
-        log(f"phase5 {which}: median {np.median(samples) * 1e3:.2f} us/batch over {len(samples)} runs")
-    kernel_ms = float(np.median(runs["kernel"]))
-    plain_ms = float(np.median(runs["plain"]))
+    k1 = measure(lambda: kbr.batch_resize(args), lambda: kbr.batch_resize_reference(args), 100)
+    # 12 float operations per output value for the three lerps, one per chain op
+    k1_out = kbr.batch_resize(args)
+    k1.update(bound(out_bytes_of(k1_out), crop_touched_bytes(pipeline.read),
+                    k1_out.numel() * (12 + args.plan.ops.shape[0]), bandwidth))
+    k1["library_ms"] = None  # no single PyTorch call crops at runtime rects and resizes
+    kernel_ms, plain_ms = k1["ms"], k1["plain_ms"]
+    log(f"phase5 batch_resize flagship: {describe(k1)}")
 
     # one execute_operations call, whole and taken apart into its host
     # layers in its own order, alternating in one loop
@@ -792,8 +995,7 @@ def main() -> int:
         torch.cuda.synchronize()
         parts["whole"].append(time.perf_counter() - t0)
         t = [time.perf_counter()]
-        p = cvgs.build_pipeline(cvgs.resize_batch(frame, rects=rects_a, dsize=dsize), *chain,
-                                cvgs.split_tensor())
+        p = cvgs.build_pipeline(*flagship_ops(cvgs, frame, rects_a))
         t.append(time.perf_counter())
         key, leaves = flatten(p)
         d = executor._resolve_device(leaves, "cuda")
@@ -809,7 +1011,7 @@ def main() -> int:
             parts[k].append(t1 - t0)
     host_ms = float(np.median(parts["whole"][10:])) * 1e3
     log(f"phase5 kernel {kernel_ms * 1e3:.2f} us/batch, plain torch {plain_ms * 1e3:.2f} us/batch "
-        f"(device time, median of {len(runs['kernel'])}); execute_operations host-inclusive "
+        f"(device time, events, median of 200); execute_operations host-inclusive "
         f"{host_ms * 1e3:.2f} us/call; card {card}")
     log("phase5 host layers, us/call, median of 100: "
         + ", ".join(f"{k} {np.median(v[10:]) * 1e6:.2f}" for k, v in parts.items()))
@@ -842,72 +1044,88 @@ def main() -> int:
     log(f"phase5 floors: one-element fill_ {fill_ms * 1e3:.2f} us; D2D copy of "
         f"{out1.numel() * 4 / 1e6:.2f} MB {copy_ms * 1e3:.2f} us (events, median of 100)")
 
-    # the copy bandwidth: a 256 MiB device copy reads and writes its bytes
-    big = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    big_dst = torch.empty_like(big)
-    big_ms = float(np.median(time_cuda(lambda: big_dst.copy_(big), iters=20)))
-    bandwidth = 2 * big.numel() * 4 / (big_ms * 1e-3)
-    log(f"phase5 copy bandwidth: {big.numel() * 4 / 2**20:.0f} MiB D2D copy {big_ms * 1e3:.2f} us "
-        f"(events, median of 20) = {bandwidth / 1e9:.1f} GB/s read + write; card {card}")
-    del big, big_dst
+    # the frame paths: kernel vs plain version, the whole call, the bound; for
+    # (a) one library call that does the resample alone
+    import torch.nn.functional as F
 
-    # the frame paths: kernel vs plain version, the whole call, the bytes floor
     frame_times = {}
-    for path, (ops, src1, _, _) in frame_inputs.items():
+    for path, (ops, src1, _, shape) in frame_inputs.items():
         pipe = map_leaves(cvgs.build_pipeline(*ops(src1)), lambda v: as_device_tensor(v, dev))
         fplan = kfr.build_plan(pipe)
         fargs = kfr.prepare(pipe, fplan, dev)
-        runs = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = (lambda: kfr.frame_resize(fargs)) if which == "kernel" else (
-                lambda: kfr.frame_resize_reference(fargs))
-            runs[which] += time_cuda(fn, iters=50)
+        t = measure(lambda: kfr.frame_resize(fargs), lambda: kfr.frame_resize_reference(fargs), 50)
         whole = []
         for _ in range(60):
             t0 = time.perf_counter()
             frame_path(ops(src1))
             torch.cuda.synchronize()
             whole.append(time.perf_counter() - t0)
-        out_bytes = int(np.prod(frame_inputs[path][3])) * 4
-        src_bytes = touched_bytes(fplan)
-        t = {"ms": float(np.median(runs["kernel"])), "plain_ms": float(np.median(runs["plain"])),
-             "call_ms": float(np.median(whole[10:])) * 1e3,
-             "floor_ms": (out_bytes + src_bytes) / bandwidth * 1e3}
+        t["call_ms"] = float(np.median(whole[10:])) * 1e3
+        n_out = int(np.prod(shape))
+        # the lerps, and for NV12 the YUV -> RGB sums (about 3 per value)
+        t.update(bound(n_out * 4, touched_bytes(fplan),
+                       n_out * (12 + (3 if fplan.yuv else 0) + fplan.ops.shape[0]), bandwidth))
+        t["library_ms"] = None
+        if path == "a":
+            # F.interpolate of a float32 NCHW copy: the resample alone, with
+            # no uint8 read, no chain and no planar write of its own
+            nchw = src1.permute(2, 0, 1)[None].float().contiguous()
+            t["library_ms"] = float(np.median(time_cuda(
+                lambda: F.interpolate(nchw, size=(FRAME_DST[1], FRAME_DST[0]), mode="bilinear",
+                                      align_corners=False), iters=50)))
         frame_times[path] = t
-        log(f"phase5 frame path ({path}): kernel {t['ms'] * 1e3:.2f} us, plain torch "
-            f"{t['plain_ms'] * 1e3:.2f} us (device time, events, median of "
-            f"{len(runs['kernel'])}); execute_operations host-inclusive {t['call_ms'] * 1e3:.2f} "
-            f"us/call (median of 50); bytes floor {t['floor_ms'] * 1e3:.2f} us = ({out_bytes} out "
-            f"+ {src_bytes} source bytes touched) at the copy bandwidth; card {card}")
+        log(f"phase5 frame path ({path}): {describe(t)}; execute_operations host-inclusive "
+            f"{t['call_ms'] * 1e3:.2f} us/call (median of 50)")
 
     # the warp cases: kernel vs plain version, the bytes floor; the whole
     # call of the batch
+    def grid_sample_theta(read, w_in, h_in):
+        """``affine_grid``'s normalized 2x3 matrix of a warp's inverse map
+        (pixel centres, ``align_corners=False``)."""
+        c = np.asarray(torch.as_tensor(read.coeffs).cpu(), np.float64).reshape(-1)[:6].reshape(2, 3)
+        w_out, h_out = read.dsize
+
+        def to_norm(xn, yn):
+            px, py = ((xn + 1) * w_out - 1) / 2, ((yn + 1) * h_out - 1) / 2
+            sx, sy = c @ (px, py, 1.0)
+            return np.array([(2 * sx + 1) / w_in - 1, (2 * sy + 1) / h_in - 1])
+
+        o = to_norm(0.0, 0.0)
+        return np.stack([to_norm(1.0, 0.0) - o, to_norm(0.0, 1.0) - o, o], axis=1)
+
     warp_times = {}
     for name in ("w1_k3_separable", "w2_k4_rotation", "w5_k5a_perspective_640x384",
                  "w6_k5b_batch8_ragged7"):
         pipe = map_leaves(cvgs.build_pipeline(*warp_cases[name]),
                           lambda v: as_device_tensor(v, dev))
         wargs = kw.prepare(pipe, kw.build_plan(pipe), dev)
-        runs = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = (lambda: kw.warp(wargs)) if which == "kernel" else (
-                lambda: kw.warp_reference(wargs))
-            runs[which] += time_cuda(fn, iters=25)
+        t = measure(lambda: kw.warp(wargs), lambda: kw.warp_reference(wargs), 25)
         outs = kw.warp(wargs)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        out_bytes = sum(o.numel() * o.element_size() for o in outs)
-        src_bytes = warp_touched_bytes(wargs)
-        t = {"ms": float(np.median(runs["kernel"])), "plain_ms": float(np.median(runs["plain"])),
-             "floor_ms": (out_bytes + src_bytes) / bandwidth * 1e3, "max_abs_err": case_err[name]}
+        n_out = out_bytes_of(outs) // 4
+        # two coordinates and the lerps per value; a perspective map divides
+        t.update(bound(n_out * 4, warp_touched_bytes(wargs),
+                       n_out * (14 + wargs.plan.ops.shape[0]), bandwidth))
+        t["max_abs_err"] = case_err[name]
+        t["library_ms"] = None
+        if not wargs.plan.perspective:
+            # F.grid_sample over F.affine_grid on a float32 NCHW copy (one
+            # frame, expanded over the batch): the resample alone, with no
+            # uint8 read, no per-channel border, no chain, no ragged planes
+            reads = pipe.read.ops if wargs.plan.batch else (pipe.read,)
+            theta = torch.from_numpy(np.stack([grid_sample_theta(r, FRAME_W, FRAME_H)
+                                               for r in reads])).float().to(dev)
+            nchw = hd.permute(2, 0, 1)[None].float().contiguous().expand(len(reads), -1, -1, -1)
+            size = (len(reads), 3, WARP_DST[1], WARP_DST[0])
+            t["library_ms"] = float(np.median(time_cuda(
+                lambda: F.grid_sample(nchw, F.affine_grid(theta, size, align_corners=False),
+                                      mode="bilinear", padding_mode="zeros", align_corners=False),
+                iters=25)))
         warp_times[name] = t
-        log(f"phase5 warp {name}: kernel {t['ms'] * 1e3:.2f} us, plain torch "
-            f"{t['plain_ms'] * 1e3:.2f} us (device time, events, median of {len(runs['kernel'])}); "
-            f"bytes floor {t['floor_ms'] * 1e3:.2f} us = ({out_bytes} out + {src_bytes} source "
-            f"bytes touched) at the copy bandwidth; card {card}")
+        log(f"phase5 warp {name}: {describe(t)}")
     whole = []
     for _ in range(60):
         t0 = time.perf_counter()
-        warp_path(warp_batch_ops(cvgs.image(hd), -10.0, 7))
+        warp_path(warp_batch_ops(cvgs, cvgs.image(hd), -10.0, 7))
         torch.cuda.synchronize()
         whole.append(time.perf_counter() - t0)
     w6 = warp_times["w6_k5b_batch8_ragged7"]
@@ -918,22 +1136,39 @@ def main() -> int:
 
     # the divergent kernel at the reference's rows D1-D4, the host-inclusive
     # call of D4, one CircularTensor update
+    def divergent_touched_bytes(ids, seqs) -> int:
+        """Source bytes a divergent batch touches: each sequence's read on
+        its own planes, by the rule of the kernel it shares a sampler with."""
+        total = 0
+        for sid, seq in enumerate(seqs, 1):
+            planes = [z for z, i in enumerate(ids) if i == sid]
+            read = seq.read
+            kind = type(read).__name__
+            if kind in ("ImageRead", "CircularBatchRead"):  # a plane is read whole
+                total += len(planes) * read.data[0].numel() * read.data.element_size()
+            elif kind == "BatchResizeRead":
+                total += crop_touched_bytes(read, planes)
+            else:  # a BatchRead of warps or of NV12 resizes, one source per plane
+                for z in planes:
+                    one = cvgs.build_pipeline(read.ops[z], cvgs.write())
+                    if type(read.ops[z]).__name__ == "WarpRead":
+                        total += warp_touched_bytes(kw.prepare(one, kw.build_plan(one), dev))
+                    else:
+                        total += touched_bytes(kfr.build_plan(one))
+        return total
+
     div_times = {}
     for name in ("d1_circular_first3", "d2_nv12_bt709", "d3_crop_resize", "d4_warp_crop_pass"):
         ids, seqs = divergent_cases[name]
         seqs = map_leaves(seqs, lambda v: as_device_tensor(v, dev))
         dargs = kd.prepare(seqs, kd.build_plan(seqs, ids), dev)
-        runs = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = (lambda: kd.divergent(dargs)) if which == "kernel" else (
-                lambda: kd.divergent_reference(dargs))
-            runs[which] += time_cuda(fn, iters=25)
-        t = {"ms": float(np.median(runs["kernel"])), "plain_ms": float(np.median(runs["plain"])),
-             "max_abs_err": case_err[name]}
+        t = measure(lambda: kd.divergent(dargs), lambda: kd.divergent_reference(dargs), 25)
+        n_out = out_bytes_of(kd.divergent(dargs)) // 4
+        t.update(bound(n_out * 4, divergent_touched_bytes(ids, seqs), n_out * 14, bandwidth))
+        t["max_abs_err"] = case_err[name]
+        t["library_ms"] = None  # no PyTorch call runs a different sequence per plane
         div_times[name] = t
-        log(f"phase5 divergent {name}: kernel {t['ms'] * 1e3:.2f} us, plain torch "
-            f"{t['plain_ms'] * 1e3:.2f} us (device time, events, median of {len(runs['kernel'])}); "
-            f"card {card}")
+        log(f"phase5 divergent {name}: {describe(t)}")
     whole = []
     for _ in range(60):
         t0 = time.perf_counter()
@@ -957,56 +1192,38 @@ def main() -> int:
 
     for mod in ("jax", "cv2"):
         assert mod not in sys.modules, f"{mod} was imported"
+    def entry(name, source, replaces, launches, times, **more):
+        """One kernel of the line: the contract's keys from the case of its
+        main path, its launches over the calls phase 4 drove, then whatever
+        else was measured."""
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "profiler_ms", "floor_ms")
+        return {"name": name, "route": "cuda",
+                "source": f"cvgpuspeedup_tpu_torch/csrc/{source}", "replaces": replaces,
+                "launches": launches, "launches_per_call": launches / path_calls[name],
+                "max_abs_err": max_err[name], **{k: times[k] for k in keys}, **more}
+
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "batch_resize",
-        "route": "cuda",
-        "source": "cvgpuspeedup_tpu_torch/csrc/batch_resize.cu",
-        "replaces": "cvgpuspeedup_tpu/exec/pallas_backend.py:500",
-        "launches": main_launches,
-        "max_abs_err": max_err["batch_resize"],
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "frame_resize",
-        "route": "cuda",
-        "source": "cvgpuspeedup_tpu_torch/csrc/frame_resize.cu",
-        "replaces": "cvgpuspeedup_tpu/exec/pallas_frame.py:663",
-        "launches": frame_launches,
-        "max_abs_err": max_err["frame_resize"],
+    print(json.dumps({"kernels": [
+        entry("batch_resize", "batch_resize.cu", "cvgpuspeedup_tpu/exec/pallas_backend.py:500",
+              main_launches, k1, cases={"flagship": k1}),
         # path (a); both paths below
-        "ms": frame_times["a"]["ms"],
-        "plain_ms": frame_times["a"]["plain_ms"],
-        "paths": {"a_1080p_rgb_to_640x360": frame_times["a"],
-                  "b_nv12_6k_to_1080p": frame_times["b"]},
-    }, {
-        "name": "warp",
-        "route": "cuda",
-        "source": "cvgpuspeedup_tpu_torch/csrc/warp.cu",
-        # the batched kernel of the main path; the single-image classes too
-        "replaces": "cvgpuspeedup_tpu/exec/pallas_warp_universal.py:741",
-        "also_replaces": ["cvgpuspeedup_tpu/exec/pallas_warp.py:202",
-                          "cvgpuspeedup_tpu/exec/pallas_warp_general.py:272",
-                          "cvgpuspeedup_tpu/exec/pallas_warp_universal.py:359"],
-        "launches": warp_launches,
-        "max_abs_err": max_err["warp"],
-        # W6, the batch of the main path; the timed cases below
-        "ms": w6["ms"],
-        "plain_ms": w6["plain_ms"],
-        "cases": warp_times,
-    }, {
-        "name": "divergent",
-        "route": "cuda",
-        "source": "cvgpuspeedup_tpu_torch/csrc/divergent.cu",
-        "replaces": "cvgpuspeedup_tpu/exec/pallas_divergent.py:686",
-        "launches": divergent_launches,
-        "max_abs_err": max_err["divergent"],
+        entry("frame_resize", "frame_resize.cu", "cvgpuspeedup_tpu/exec/pallas_frame.py:663",
+              frame_launches, frame_times["a"],
+              paths={"a_1080p_rgb_to_640x360": frame_times["a"],
+                     "b_nv12_6k_to_1080p": frame_times["b"]}),
+        # W6, the batch of the main path (the batched TPU kernel); the
+        # single-image classes and the timed cases below
+        entry("warp", "warp.cu", "cvgpuspeedup_tpu/exec/pallas_warp_universal.py:741",
+              warp_launches, w6,
+              also_replaces=["cvgpuspeedup_tpu/exec/pallas_warp.py:202",
+                             "cvgpuspeedup_tpu/exec/pallas_warp_general.py:272",
+                             "cvgpuspeedup_tpu/exec/pallas_warp_universal.py:359"],
+              cases=warp_times),
         # D4, the reference's warp | crop | pass row; D1-D4 below
-        "ms": d4t["ms"],
-        "plain_ms": d4t["plain_ms"],
-        "cases": div_times,
-        "circular_tensor_update_ms": ct_update_ms,
-    }]}))
+        entry("divergent", "divergent.cu", "cvgpuspeedup_tpu/exec/pallas_divergent.py:686",
+              divergent_launches, d4t, cases=div_times,
+              circular_tensor_update_ms=ct_update_ms),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,5 +1,6 @@
-// K1's coordinate rules and its per-pixel crop sampler, shared by
-// batch_resize.cu and divergent.cu.
+// K1's coordinate rules (letterbox, axis_lerp, source_index), which
+// batch_resize.cu evaluates once per column and row of a tile, and the
+// per-pixel crop sampler built from them, which divergent.cu runs.
 //
 // Every step matches cvgpuspeedup_tpu_torch/ops/resize.py bit for bit: the
 // letterbox fit in f32 with a truncating conversion, the rational source

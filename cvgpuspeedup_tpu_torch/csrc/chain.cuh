@@ -7,6 +7,9 @@
 // statically, so a uint8 value is saturated after each op and a colour
 // conversion may change the channel count.
 //
+// A kernel holds one pixel per thread (float v[1][kMaxCh]) or P adjacent
+// ones (v[P][kMaxCh], P of 1 or 4); run_chain and store_pixels take either.
+//
 // Numerics: every float op is an _rn intrinsic, so nothing is contracted
 // into an FMA (the library is also built with -fmad=false).
 
@@ -69,66 +72,132 @@ __device__ __forceinline__ uint8_t to_out<uint8_t>(float v) {
   return (uint8_t)__float2int_rz(v);  // the chain left an exact value in [0, 255]
 }
 
-// Runs the chain on v, which holds ch channels; returns the channel count
-// after the chain.
-__device__ __forceinline__ int run_chain(float (&v)[kMaxCh], int ch, const int* __restrict__ ops,
-                                         int n_ops, const float* __restrict__ fp) {
+// Runs the chain on the P pixels of v, each holding ch channels; returns the
+// channel count after the chain. An op row is decoded once for all P pixels
+// and a per-channel scalar is loaded once per channel, so a kernel that
+// gives a thread several pixels pays the table once.
+template <int P>
+__device__ __forceinline__ int run_chain(float (&v)[P][kMaxCh], int ch,
+                                         const int* __restrict__ ops, int n_ops,
+                                         const float* __restrict__ fp) {
   for (int k = 0; k < n_ops; ++k) {
     const int code = __ldg(ops + 4 * k);
     const int off = __ldg(ops + 4 * k + 1);
     const int stride = __ldg(ops + 4 * k + 2);
     const int aux = __ldg(ops + 4 * k + 3);
-    if (code == OP_REORDER) {
-      float t[kMaxCh];
+    switch (code) {
+      case OP_REORDER:
 #pragma unroll
-      for (int c = 0; c < kMaxCh; ++c) t[c] = v[c];
+        for (int p = 0; p < P; ++p) {
+          float t[kMaxCh];
 #pragma unroll
-      for (int c = 0; c < kMaxCh; ++c) v[c] = pick(t, (aux >> (4 * c)) & 15);
-      ch = aux >> 16;
-      continue;
-    }
-    if (code == OP_ALPHA) {
+          for (int c = 0; c < kMaxCh; ++c) t[c] = v[p][c];
 #pragma unroll
-      for (int c = 0; c < kMaxCh; ++c) {
-        if (c == ch) v[c] = (float)aux;
-      }
-      ++ch;
-      continue;
-    }
-    if (code == OP_GRAY_U8 || code == OP_GRAY_F32) {
-      const float r = pick(v, aux & 15);
-      const float g = pick(v, (aux >> 4) & 15);
-      const float b = pick(v, (aux >> 8) & 15);
-      if (code == OP_GRAY_U8) {
-        const int acc = (int)r * 9798 + (int)g * 19235 + (int)b * 3735 + (1 << 14);
-        v[0] = (float)(acc >> 15);
-      } else {
-        v[0] = __fadd_rn(__fadd_rn(__fmul_rn(r, kGrayR), __fmul_rn(g, kGrayG)),
-                         __fmul_rn(b, kGrayB));
-      }
-      ch = 1;
-      continue;
-    }
+          for (int c = 0; c < kMaxCh; ++c) v[p][c] = pick(t, (aux >> (4 * c)) & 15);
+        }
+        ch = aux >> 16;
+        break;
+      case OP_ALPHA:
 #pragma unroll
-    for (int c = 0; c < kMaxCh; ++c) {
-      if (c >= ch) continue;
-      float r = v[c];
-      switch (code) {
-        case OP_MUL: r = __fmul_rn(r, __ldg(fp + off + c * stride)); break;
-        case OP_ADD: r = __fadd_rn(r, __ldg(fp + off + c * stride)); break;
-        case OP_SUB: r = __fsub_rn(r, __ldg(fp + off + c * stride)); break;
-        case OP_DIV: r = __fdiv_rn(r, __ldg(fp + off + c * stride)); break;
-        case OP_SAT_U8:
-          r = rintf(r);
-          r = r < 0.f ? 0.f : (r > 255.f ? 255.f : r);
-          break;
-        case OP_CAST_U8: r = (float)(__float2int_rz(r) & 255); break;
-        default: break;
-      }
-      v[c] = r;
+        for (int p = 0; p < P; ++p) {
+#pragma unroll
+          for (int c = 0; c < kMaxCh; ++c) {
+            if (c == ch) v[p][c] = (float)aux;
+          }
+        }
+        ++ch;
+        break;
+      case OP_GRAY_U8:
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const int acc = (int)pick(v[p], aux & 15) * 9798 +
+                          (int)pick(v[p], (aux >> 4) & 15) * 19235 +
+                          (int)pick(v[p], (aux >> 8) & 15) * 3735 + (1 << 14);
+          v[p][0] = (float)(acc >> 15);
+        }
+        ch = 1;
+        break;
+      case OP_GRAY_F32:
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const float r = pick(v[p], aux & 15);
+          const float g = pick(v[p], (aux >> 4) & 15);
+          const float b = pick(v[p], (aux >> 8) & 15);
+          v[p][0] = __fadd_rn(__fadd_rn(__fmul_rn(r, kGrayR), __fmul_rn(g, kGrayG)),
+                              __fmul_rn(b, kGrayB));
+        }
+        ch = 1;
+        break;
+#define CVGS_ARITH(FN)                                   \
+  _Pragma("unroll") for (int c = 0; c < kMaxCh; ++c) {   \
+    if (c >= ch) continue;                               \
+    const float q = __ldg(fp + off + c * stride);        \
+    _Pragma("unroll") for (int p = 0; p < P; ++p) v[p][c] = FN(v[p][c], q); \
+  }                                                      \
+  break;
+      case OP_MUL: CVGS_ARITH(__fmul_rn)
+      case OP_ADD: CVGS_ARITH(__fadd_rn)
+      case OP_SUB: CVGS_ARITH(__fsub_rn)
+      case OP_DIV: CVGS_ARITH(__fdiv_rn)
+#undef CVGS_ARITH
+      case OP_SAT_U8:
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+#pragma unroll
+          for (int c = 0; c < kMaxCh; ++c) {
+            if (c >= ch) continue;
+            const float r = rintf(v[p][c]);
+            v[p][c] = r < 0.f ? 0.f : (r > 255.f ? 255.f : r);
+          }
+        }
+        break;
+      case OP_CAST_U8:
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+#pragma unroll
+          for (int c = 0; c < kMaxCh; ++c) {
+            if (c < ch) v[p][c] = (float)(__float2int_rz(v[p][c]) & 255);
+          }
+        }
+        break;
+      default:
+        break;
     }
   }
   return ch;
+}
+
+// Stores the thread's adjacent output pixels (x .. x + n - 1 of one row,
+// n <= P) from v: `o` points at channel 0 of pixel x, channels lie sc
+// elements apart and pixels sx. Where the pixels of a channel are contiguous
+// (sx == 1), P is 4, all 4 are present and the address is aligned to the vector, a
+// channel goes out as one store of 4 elements (16 bytes of float32, 4 of
+// uint8); anything else (packed layouts, a row's tail, a misaligned view)
+// takes scalar stores.
+template <typename OutT, int P>
+__device__ __forceinline__ void store_pixels(OutT* __restrict__ o, const float (&v)[P][kMaxCh],
+                                             int n, int out_ch, long long sc, long long sx) {
+  constexpr unsigned kVecBytes = P * sizeof(OutT);
+#pragma unroll
+  for (int c = 0; c < kMaxCh; ++c) {
+    if (c >= out_ch) continue;
+    OutT* p = o + c * sc;
+    if (P == 4 && sx == 1 && n == P &&
+        (reinterpret_cast<unsigned long long>(p) & (kVecBytes - 1)) == 0) {
+      if constexpr (P == 4 && sizeof(OutT) == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(v[0][c], v[1][c], v[2][c], v[3][c]);
+      } else if constexpr (P == 4) {
+        *reinterpret_cast<uchar4*>(p) =
+            make_uchar4(to_out<uint8_t>(v[0][c]), to_out<uint8_t>(v[1][c]),
+                        to_out<uint8_t>(v[2][c]), to_out<uint8_t>(v[3][c]));
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        if (q < n) p[q * sx] = to_out<OutT>(v[q][c]);
+      }
+    }
+  }
 }
 
 }  // namespace

@@ -95,7 +95,8 @@ __global__ void __launch_bounds__(256) divergent_kernel(
   const void* base = reinterpret_cast<const void*>(
       __ldg(reinterpret_cast<const unsigned long long*>(blk + ptr_off) + z));
 
-  float v[kMaxCh] = {0.f, 0.f, 0.f, 0.f};
+  float vv[1][kMaxCh] = {{0.f, 0.f, 0.f, 0.f}};
+  float(&v)[kMaxCh] = vv[0];
   int ch = nch;
   switch (kind) {
     case K_IMAGE:
@@ -174,7 +175,7 @@ __global__ void __launch_bounds__(256) divergent_kernel(
       break;
   }
 
-  run_chain(v, ch, consts + 4 * __ldg(d + D_OP_OFF), __ldg(d + D_N_OPS),
+  run_chain(vv, ch, consts + 4 * __ldg(d + D_OP_OFF), __ldg(d + D_N_OPS),
             fblk + __ldg(d + D_FP_OFF));
 
   OutT* o = out + (long long)z * sn + (long long)y * sy + (long long)x * sx;

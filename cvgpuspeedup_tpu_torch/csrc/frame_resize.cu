@@ -41,14 +41,14 @@ __global__ void __launch_bounds__(256) frame_resize_kernel(
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= dst_w || y >= dst_h) return;
   const bool keep = keep_edge != 0;
-  float v[kMaxCh] = {0.f, 0.f, 0.f, 0.f};
+  float v[1][kMaxCh] = {{0.f, 0.f, 0.f, 0.f}};
   int ch;
   if (!kYuv) {
-    sample_image(src, src_w, nch, taps, wts, dst_w, dst_h, x, y, keep, v);
+    sample_image(src, src_w, nch, taps, wts, dst_w, dst_h, x, y, keep, v[0]);
     ch = nch;
   } else {
     sample_nv12(reinterpret_cast<const uint8_t*>(src), src_h, src_w, nv21, taps, wts, dst_w,
-                dst_h, x, y, keep, conv, v);
+                dst_h, x, y, keep, conv, v[0]);
     ch = conv.alpha ? 4 : 3;
   }
 
@@ -57,7 +57,7 @@ __global__ void __launch_bounds__(256) frame_resize_kernel(
   OutT* o = out + (long long)y * sy + (long long)x * sx;
 #pragma unroll
   for (int c = 0; c < kMaxCh; ++c) {
-    if (c < out_ch) o[c * sc] = to_out<OutT>(v[c]);
+    if (c < out_ch) o[c * sc] = to_out<OutT>(v[0][c]);
   }
 }
 

@@ -1,4 +1,6 @@
-// The warp kernel's per-pixel sampler, shared by warp.cu and divergent.cu.
+// The warp kernel's samplers, shared by warp.cu and divergent.cu: the sample
+// at one source coordinate (sample_point) and the per-pixel sampler that
+// computes the coordinate first (sample_warp, the divergent kernel's).
 //
 // Every step matches cvgpuspeedup_tpu_torch/ops/warp.py bit for bit. The
 // coordinates are recomputed from the plane's float32 inverse map in the op
@@ -24,9 +26,37 @@ __device__ __forceinline__ float affine_term(const float* __restrict__ c, float 
   return __fadd_rn(__fmul_rn(__ldg(c), x), __fadd_rn(__fmul_rn(__ldg(c + 1), y), __ldg(c + 2)));
 }
 
-// Output pixel (x, y) of `src`, an (src_h, src_w * nch) image (sides below
-// 2^24), warped through the inverse map `c` (6 or 9 floats) with the border
-// `b` (nch floats), into v[0..nch).
+// The sample of `src`, an (src_h, src_w * nch) image (sides below 2^24), at
+// the float coordinates (px, py) with the border values b, into v[0..nch):
+// four taps, each outside the source replaced by the border, the lerps
+// horizontal, then vertical.
+template <typename SrcT>
+__device__ __forceinline__ void sample_point(const SrcT* __restrict__ src, int src_h, int src_w,
+                                             int nch, const float (&b)[kMaxCh], float px,
+                                             float py, float (&v)[kMaxCh]) {
+  const float x0f = floorf(px), y0f = floorf(py);
+  const float wx = __fsub_rn(px, x0f), wy = __fsub_rn(py, y0f);
+  const float fw = (float)src_w, fh = (float)src_h;  // exact: sides < 2^24
+  const bool vx0 = x0f >= 0.f && x0f < fw, vx1 = x0f >= -1.f && x0f < fw - 1.f;
+  const bool vy0 = y0f >= 0.f && y0f < fh, vy1 = y0f >= -1.f && y0f < fh - 1.f;
+  const int ix0 = vx0 ? (int)x0f * nch : 0, ix1 = vx1 ? ((int)x0f + 1) * nch : 0;
+  const long long row = (long long)src_w * nch;
+  const SrcT* r0 = src + (vy0 ? (long long)y0f * row : 0);
+  const SrcT* r1 = src + (vy1 ? ((long long)y0f + 1) * row : 0);
+#pragma unroll
+  for (int ch = 0; ch < kMaxCh; ++ch) {
+    if (ch < nch) {
+      const float v00 = (vy0 && vx0) ? (float)__ldg(r0 + ix0 + ch) : b[ch];
+      const float v01 = (vy0 && vx1) ? (float)__ldg(r0 + ix1 + ch) : b[ch];
+      const float v10 = (vy1 && vx0) ? (float)__ldg(r1 + ix0 + ch) : b[ch];
+      const float v11 = (vy1 && vx1) ? (float)__ldg(r1 + ix1 + ch) : b[ch];
+      v[ch] = lerp_rn(lerp_rn(v00, v01, wx), lerp_rn(v10, v11, wx), wy);
+    }
+  }
+}
+
+// Output pixel (x, y) of `src` warped through the inverse map `c` (6 or 9
+// floats) with the border `b` (nch floats), into v[0..nch).
 template <typename SrcT, bool kPersp>
 __device__ __forceinline__ void sample_warp(const SrcT* __restrict__ src, int src_h, int src_w,
                                             int nch, const float* __restrict__ c,
@@ -41,26 +71,10 @@ __device__ __forceinline__ void sample_warp(const SrcT* __restrict__ src, int sr
     px = __fdiv_rn(px, den);
     py = __fdiv_rn(py, den);
   }
-  const float x0f = floorf(px), y0f = floorf(py);
-  const float wx = __fsub_rn(px, x0f), wy = __fsub_rn(py, y0f);
-  const float fw = (float)src_w, fh = (float)src_h;  // exact: sides < 2^24
-  const bool vx0 = x0f >= 0.f && x0f < fw, vx1 = x0f >= -1.f && x0f < fw - 1.f;
-  const bool vy0 = y0f >= 0.f && y0f < fh, vy1 = y0f >= -1.f && y0f < fh - 1.f;
-  const int ix0 = vx0 ? (int)x0f * nch : 0, ix1 = vx1 ? ((int)x0f + 1) * nch : 0;
-  const long long row = (long long)src_w * nch;
-  const SrcT* r0 = src + (vy0 ? (long long)y0f * row : 0);
-  const SrcT* r1 = src + (vy1 ? ((long long)y0f + 1) * row : 0);
+  float border[kMaxCh];
 #pragma unroll
-  for (int ch = 0; ch < kMaxCh; ++ch) {
-    if (ch < nch) {
-      const float bv = __ldg(b + ch);
-      const float v00 = (vy0 && vx0) ? (float)__ldg(r0 + ix0 + ch) : bv;
-      const float v01 = (vy0 && vx1) ? (float)__ldg(r0 + ix1 + ch) : bv;
-      const float v10 = (vy1 && vx0) ? (float)__ldg(r1 + ix0 + ch) : bv;
-      const float v11 = (vy1 && vx1) ? (float)__ldg(r1 + ix1 + ch) : bv;
-      v[ch] = lerp_rn(lerp_rn(v00, v01, wx), lerp_rn(v10, v11, wx), wy);
-    }
-  }
+  for (int ch = 0; ch < kMaxCh; ++ch) border[ch] = ch < nch ? __ldg(b + ch) : 0.f;
+  sample_point(src, src_h, src_w, nch, border, px, py, v);
 }
 
 }  // namespace

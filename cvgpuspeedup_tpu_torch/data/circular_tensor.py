@@ -25,7 +25,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..exec.executor import execute_operations
+from ..exec.executor import default_device, execute_operations
 from ..graph import ComputeOp, FusedCompute, IOp, ReadOp, WriteOp
 from ..ops.memory import CircularBatchRead, ImageRead, TensorSplit, TensorTSplit, TensorWrite
 from ..types import CircularTensorOrder, ColorPlanes
@@ -39,7 +39,8 @@ _LAYOUT_FOR_WRITE = {
 
 
 class CircularTensor:
-    """A BATCH-deep ring of processed frames on ``device``."""
+    """A BATCH-deep ring of processed frames on ``device``: the current CUDA
+    device unless the caller names one (``device="cpu"`` for the CPU)."""
 
     def __init__(
         self,
@@ -65,8 +66,7 @@ class CircularTensor:
             shape = (channels, batch, height, width)
         else:
             shape = (batch, height, width, channels)
-        self._ring = torch.zeros(shape, dtype=self.dtype,
-                                 device=torch.device("cpu") if device is None else device)
+        self._ring = torch.zeros(shape, dtype=self.dtype, device=default_device(device))
         self._count = 0  # frames ever inserted
 
     def _plane_axis(self) -> int:

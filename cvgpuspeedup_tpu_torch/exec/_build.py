@@ -7,7 +7,9 @@ here includes PyTorch's headers, so a build takes seconds. The library lands
 in ``build/kernels/`` beside the package, named by a hash of the sources,
 the headers they include (``csrc/*.cuh``) and the command lines, so an
 edited source or header is rebuilt at its next use. The build runs at first
-use, never at import.
+use, never at import. ``load(csrc_dir, build_dir)`` builds another directory
+of sources instead and makes it the library every wrapper launches from, for
+timing two versions of a kernel in one process.
 
 ``nvcc`` is taken from ``$CUDA_HOME/bin``, else from ``PATH``, else from the
 toolkit PyTorch itself locates; a build without one raises.
@@ -75,15 +77,23 @@ def link_command(nvcc: str, objects: List[Path], output: Path) -> List[str]:
     return [nvcc, "-shared", "-o", str(output), *[str(o) for o in objects]]
 
 
-def library_path() -> Path:
-    """Where the library for the current sources, headers and flags lives."""
+def _inputs(csrc_dir: Optional[Path]):
+    """The sources and headers of ``csrc_dir``, by default the package's own."""
+    if csrc_dir is None:
+        return SOURCES, HEADERS
+    return sorted(Path(csrc_dir).glob("*.cu")), sorted(Path(csrc_dir).glob("*.cuh"))
+
+
+def library_path(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> Path:
+    """Where the library for the sources, headers and flags lives."""
+    sources, headers = _inputs(csrc_dir)
     h = hashlib.sha256()
-    for s in SOURCES + HEADERS:
+    for s in sources + headers:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     h.update(" ".join(compile_command("nvcc", Path("src.cu"), Path("src.o"))).encode())
     h.update(" ".join(link_command("nvcc", [Path("src.o")], Path("lib.so"))).encode())
-    return BUILD_DIR / f"libcvgs_kernels_{h.hexdigest()[:16]}.so"
+    return (build_dir or BUILD_DIR) / f"libcvgs_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _run(procs, what: str) -> str:
@@ -96,19 +106,20 @@ def _run(procs, what: str) -> str:
     return log
 
 
-def build() -> Path:
+def build(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> Path:
     """Compile the sources unless the library for them already exists."""
     global BUILD_LOG
-    path = library_path()
+    path = library_path(csrc_dir, build_dir)
     if path.exists():
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources, _ = _inputs(csrc_dir)
+    path.parent.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     tag = f"{path.stem}.{os.getpid()}"
-    objects = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in SOURCES]
+    objects = [path.parent / f"{tag}.{s.stem}.o" for s in sources]
     procs = [subprocess.Popen(compile_command(nvcc, s, o), stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
-             for s, o in zip(SOURCES, objects)]
+             for s, o in zip(sources, objects)]
     BUILD_LOG = _run(procs, "compile")
     tmp = path.with_name(f"{tag}.tmp.so")
     BUILD_LOG += _run([subprocess.Popen(link_command(nvcc, objects, tmp), stdout=subprocess.PIPE,
@@ -119,12 +130,16 @@ def build() -> Path:
     return path
 
 
-def load() -> ctypes.CDLL:
-    """The built library with every function's argument types declared."""
+def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> ctypes.CDLL:
+    """The built library with every function's argument types declared.
+
+    With no arguments, the library in use: the package's own sources, built
+    at the first call. With ``csrc_dir``, the library of those sources, built
+    into ``build_dir``, which later calls without arguments return too."""
     global _LIB
     with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
+        if _LIB is None or csrc_dir is not None:
+            lib = ctypes.CDLL(str(build(csrc_dir, build_dir)))
             p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
             lib.cvgs_batch_resize.argtypes = [
                 p, i, ll, i, i, i,         # src, src_u8, plane_stride, src_h, src_w, nch

@@ -10,7 +10,9 @@ layout and tables. Every later call with new values reuses it.
 
 Devices: tensor leaves stay on their own device and must all share one.
 Numpy and Python leaves move to ``device``, which defaults to the device of
-the tensor leaves, else the CPU. Backends: ``AUTO`` tries, for a CUDA
+the tensor leaves and, where there is none, to the current CUDA device: a
+pipeline of host arrays runs on the card, raises where there is no card, and
+runs on the CPU only with ``device="cpu"``. Backends: ``AUTO`` tries, for a CUDA
 pipeline, the batched crop-resize kernel (``cuda:batch_resize``), the
 full-frame resize kernel (``cuda:frame_resize``), then the warp kernel
 (``cuda:warp``, single and batched warps), and takes the eager PyTorch
@@ -145,18 +147,27 @@ def meta_lower(read: ReadOp):
                       else as_device_tensor(v, meta)).lower()
 
 
-def _resolve_device(leaves, device) -> torch.device:
-    devices = {v.device for v in leaves if isinstance(v, torch.Tensor)}
-    if device is None:
-        if len(devices) > 1:
-            raise ValueError(f"pipeline leaves lie on several devices: {sorted(map(str, devices))}")
-        return devices.pop() if devices else torch.device("cpu")
-    dev = torch.device(device)
+def default_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None is the current CUDA device. A
+    CUDA device where there is none raises: nothing runs on the CPU unless
+    the caller asks for it."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError(f"device {dev} requested but no CUDA device is available")
+            raise RuntimeError(f"device {dev} requested but no CUDA device is available; "
+                               'pass device="cpu" to run on the CPU')
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _resolve_device(leaves, device) -> torch.device:
+    devices = {v.device for v in leaves if isinstance(v, torch.Tensor)}
+    if device is None and devices:
+        if len(devices) > 1:
+            raise ValueError(f"pipeline leaves lie on several devices: {sorted(map(str, devices))}")
+        return devices.pop()
+    dev = default_device(device)
     stray = [str(d) for d in devices if d != dev]
     if stray:
         raise ValueError(f"pipeline leaves on {sorted(stray)} cannot run on {dev}")
@@ -213,7 +224,9 @@ def execute_operations(*iops: IOp, input=None, backend: ParBackend = ParBackend.
                        device=None):
     """Run the op chain. Returns the output tensor (or a tuple of tensors for
     ``SplitWrite``). On the kernel path the work is queued on the current
-    CUDA stream and the call returns without waiting for it."""
+    CUDA stream and the call returns without waiting for it. ``device``
+    defaults to the tensor leaves' device and, with host arrays only, to
+    the current CUDA device (:func:`default_device`)."""
     global _LAST_BACKEND
     pipeline = build_pipeline(*iops, input=input)
     key, leaves = flatten(pipeline)
@@ -271,6 +284,7 @@ def launch_divergent_batch(selector: Union[Callable[[int], int], Sequence[int]],
     0's sequence (other values are cast to it by clamping, then
     truncating) and the first sequence's write layout. On CUDA tensors it is
     one launch of the divergent kernel; returns without waiting for it.
+    ``device`` defaults as in :func:`execute_operations`.
     """
     global PLAN_BUILDS, _LAST_BACKEND
     if not sequences:

@@ -60,7 +60,7 @@ def check_parity(*jax_ops):
     expected = J.execute_operations(*jax_ops, backend=J.ParBackend.XLA)
     expected = tuple(map(np.asarray, expected)) if isinstance(expected, tuple) else np.asarray(expected)
     pipeline = from_jax(J.build_pipeline(*jax_ops))
-    eager = T.execute_operations(pipeline.read, *pipeline.compute, pipeline.write)
+    eager = T.execute_operations(pipeline.read, *pipeline.compute, pipeline.write, device="cpu")
     assert T.last_backend() == "torch"
     _assert_close(eager, expected, "eager")
     kernel_plain = kbr.run(pipeline, kbr.build_plan(pipeline), torch.device("cpu"))
@@ -95,7 +95,8 @@ def test_stack_mode_port_factory_pads_to_largest():
     assert read.rects.tolist() == [[0, 0, 50, 100], [0, 0, 61, 37]]
     jread = J.resize_batch(imgs, dsize=UP)
     expected = np.asarray(J.execute_operations(jread, J.split_tensor(), backend=J.ParBackend.XLA))
-    _assert_close(T.execute_operations(read, T.split_tensor()), expected, "port factory")
+    _assert_close(T.execute_operations(read, T.split_tensor(),
+                                       device="cpu"), expected, "port factory")
 
 
 @pytest.mark.parametrize("used", [0, 5, 8])
@@ -132,9 +133,9 @@ def test_u8_tail_rounds_each_op_once():
     the sum separately, as the CUDA kernel does: it must equal that
     computation in numpy bit for bit."""
     read = T.resize_batch(_frame(5), rects=_rects(4, step=11), dsize=T.Size(64, 128))
-    f32 = T.execute_operations(read, T.write_tensor()).numpy()
+    f32 = T.execute_operations(read, T.write_tensor(), device="cpu").numpy()
     out = T.execute_operations(read, T.convert_to(np.uint8, alpha=1.7, beta=-20.0),
-                               T.write_tensor()).numpy()
+                               T.write_tensor(), device="cpu").numpy()
     y = (f32 * np.float32(1.7)).astype(np.float32) + np.float32(-20.0)
     assert np.array_equal(out, np.clip(np.rint(y), 0, 255).astype(np.uint8))
     pipeline = T.build_pipeline(read, T.convert_to(np.uint8, alpha=1.7, beta=-20.0),
@@ -204,7 +205,7 @@ def test_flagship_reduced_vs_cv2(batch):
     rects = _rects(batch)
     out = T.execute_operations(
         T.resize_batch(torch.from_numpy(frame), rects=rects, dsize=T.Size(64, 128)),
-        *_flagship_chain(T), T.split_tensor(),
+        *_flagship_chain(T), T.split_tensor(), device="cpu",
     ).numpy()
     assert out.shape == (batch, 3, 128, 64)
     for z, (x, y, w, h) in enumerate(rects):

@@ -25,6 +25,12 @@ from cvgpuspeedup_tpu_torch.ops.memory import CircularBatchRead
 W, H, C, BATCH = 8, 6, 3, 4
 
 
+def _on_cpu(m):
+    """The port's entry points default to the card; the reference has no
+    ``device`` argument."""
+    return {"device": "cpu"} if m is T else {}
+
+
 def _frame(k):
     """Frame k's value encodes (frame, channel, y, x)."""
     base = np.arange(H * W, dtype=np.float32).reshape(H, W)
@@ -50,7 +56,8 @@ def _same(port, ref):
 @pytest.mark.parametrize("first", [-5, -1, 0, 2, BATCH + 2])
 def test_circular_batch_read_both_directions(first, ascendent):
     data = _ring()
-    out = T.execute_operations(T.circular_batch_read(data, first=first, ascendent=ascendent))
+    out = T.execute_operations(T.circular_batch_read(data, first=first, ascendent=ascendent),
+                               device="cpu")
     for z in range(BATCH):
         src = (first + z) % BATCH if ascendent else (first - z) % BATCH
         np.testing.assert_array_equal(out.numpy()[z], data[src], err_msg=f"z={z}")
@@ -60,7 +67,8 @@ def test_circular_batch_read_both_directions(first, ascendent):
 
 def test_circular_batch_read_fused_chain():
     data = _ring()
-    out = T.execute_operations(T.circular_batch_read(data, first=1), T.add(3.0), T.split_tensor())
+    out = T.execute_operations(T.circular_batch_read(data, first=1), T.add(3.0), T.split_tensor(),
+                               device="cpu")
     assert tuple(out.shape) == (BATCH, C, H, W)
     for z in range(BATCH):
         np.testing.assert_array_equal(out.numpy()[z],
@@ -77,13 +85,14 @@ def test_host_rings_are_packed_and_carried_across_packed():
     carried = from_jax(jread)
     assert isinstance(carried, CircularBatchRead) and carried.packed_channels == C
     assert tuple(carried.data.shape) == (BATCH, H, W * C)
-    _same(T.execute_operations(carried), J.execute_operations(jread, backend=J.ParBackend.XLA))
+    _same(T.execute_operations(carried,
+                               device="cpu"), J.execute_operations(jread, backend=J.ParBackend.XLA))
     # a ring on the device stays as it is; channels= declares a packed one
     tensor_read = T.circular_batch_read(torch.from_numpy(data), first=3)
     assert tensor_read.packed_channels == 0
-    _same(T.execute_operations(tensor_read), T.execute_operations(read))
+    _same(T.execute_operations(tensor_read, device="cpu"), T.execute_operations(read, device="cpu"))
     packed = T.circular_batch_read(data.reshape(BATCH, H, W * C), first=3, channels=C)
-    _same(T.execute_operations(packed), T.execute_operations(read))
+    _same(T.execute_operations(packed, device="cpu"), T.execute_operations(read, device="cpu"))
     with pytest.raises(ValueError, match="packed"):
         T.circular_batch_read(data, first=0, channels=C)
     with pytest.raises(ValueError, match="packed"):
@@ -106,7 +115,8 @@ def test_a_new_first_builds_no_plan():
     data = _ring()
     outs, builds = [], []
     for first in (0, 1, 2):
-        outs.append(T.execute_operations(T.circular_batch_read(data, first=first), T.add(1.0)))
+        outs.append(T.execute_operations(T.circular_batch_read(data, first=first), T.add(1.0),
+                                         device="cpu"))
         builds.append(executor.PLAN_BUILDS)
     assert builds[1] == builds[0] == builds[2]
     np.testing.assert_array_equal(outs[2].numpy()[0], data[2] + 1.0)
@@ -124,7 +134,7 @@ def test_circular_tensor_orders_and_layouts(order, expected, planes):
     rings = []
     for m in (T, J):
         kw = dict(width=W, height=H, channels=C, batch=BATCH, order=m.CircularTensorOrder[order],
-                  planes=m.ColorPlanes[planes])
+                  planes=m.ColorPlanes[planes], **_on_cpu(m))
         ct = m.CircularTensor(**kw)
         for k in range(1, 8):
             ct.update(m.image(_frame(k)), m.multiply(2.0))
@@ -146,7 +156,7 @@ def test_circular_tensor_orders_and_layouts(order, expected, planes):
 def test_update_with_input_arrays():
     rings = []
     for m in (T, J):
-        ct = m.CircularTensor(width=W, height=H, channels=C, batch=2)
+        ct = m.CircularTensor(width=W, height=H, channels=C, batch=2, **_on_cpu(m))
         ct.update(input=_frame(1).astype(np.uint8))
         ct.update(input=_frame(2).astype(np.uint8))
         rings.append(ct)
@@ -157,11 +167,11 @@ def test_update_with_input_arrays():
 
 
 def test_matching_write_op_accepted_other_layouts_refused():
-    ct = T.CircularTensor(width=W, height=H, channels=C, batch=2)
+    ct = T.CircularTensor(width=W, height=H, channels=C, batch=2, device="cpu")
     ct.update(T.image(_frame(1)), T.convert_to(np.float32), T.split_tensor())
     with pytest.raises(ValueError, match="does not match"):
         ct.update(T.image(_frame(1)), T.split_tensor_transposed())
-    packed = T.CircularTensor(W, H, C, 2, planes=T.ColorPlanes.PACKED)
+    packed = T.CircularTensor(W, H, C, 2, planes=T.ColorPlanes.PACKED, device="cpu")
     packed.update(T.image(_frame(1)), T.write_tensor())
     with pytest.raises(ValueError, match="does not match"):
         packed.update(T.image(_frame(1)), T.split_tensor())
@@ -176,7 +186,8 @@ def test_matching_write_op_accepted_other_layouts_refused():
 def test_uint8_ring():
     rings = []
     for m in (T, J):
-        ct = m.CircularTensor(width=W, height=H, channels=C, batch=3, dtype=np.uint8)
+        ct = m.CircularTensor(width=W, height=H, channels=C, batch=3, dtype=np.uint8,
+                              **_on_cpu(m))
         for k in range(1, 4):
             ct.update(m.image(_frame(k)), m.convert_to(np.uint8))
         rings.append(ct)
@@ -194,7 +205,8 @@ def test_float_values_into_a_uint8_ring_clamp_then_truncate():
     frame = np.broadcast_to(vals[None, :, None], (2, 6, 1)).copy()
     rings = []
     for m in (T, J):
-        ct = m.CircularTensor(width=6, height=2, channels=1, batch=2, dtype=np.uint8)
+        ct = m.CircularTensor(width=6, height=2, channels=1, batch=2, dtype=np.uint8,
+                              **_on_cpu(m))
         ct.update(m.image(frame))
         rings.append(ct)
     np.testing.assert_array_equal(rings[0].tensor.numpy()[0, 0, 0], [3, 255, 0, 254, 0, 128])
@@ -208,7 +220,7 @@ def test_resize_update_equals_the_reference():
               for k in range(5)]
     rings = []
     for m in (T, J):
-        ct = m.CircularTensor(16, 12, 3, 4)
+        ct = m.CircularTensor(16, 12, 3, 4, **_on_cpu(m))
         for f in frames:
             ct.update(m.resize(m.image(f), m.Size(16, 12)), m.convert_to(np.float32, alpha=1 / 255.0))
         rings.append(ct)
@@ -223,7 +235,8 @@ def test_resize_update_equals_the_reference():
 
 def test_save_load(tmp_path):
     ct = T.CircularTensor(width=W, height=H, channels=C, batch=3,
-                          order=T.CircularTensorOrder.OLDEST_FIRST, planes=T.ColorPlanes.TRANSPOSED)
+                          order=T.CircularTensorOrder.OLDEST_FIRST, planes=T.ColorPlanes.TRANSPOSED,
+                          device="cpu")
     for k in range(1, 5):
         ct.update(T.image(_frame(k)))
     path = str(tmp_path / "ring")
@@ -242,18 +255,18 @@ def test_save_load(tmp_path):
     for k in range(1, 3):
         jct.update(J.image(_frame(k)))
     jct.save(ref_path)
-    _same(T.CircularTensor.load(ref_path).tensor, jct.tensor)
+    _same(T.CircularTensor.load(ref_path, device="cpu").tensor, jct.tensor)
     sd = again.state_dict()
     assert sd["order"] == "oldest_first" and sd["planes"] == "transposed" and sd["batch"] == 3
 
 
 @pytest.mark.parametrize("order", ["NEWEST_FIRST", "OLDEST_FIRST"])
 def test_read_batch_presents_the_logical_order(order):
-    ct = T.CircularTensor(W, H, C, BATCH, order=T.CircularTensorOrder[order])
+    ct = T.CircularTensor(W, H, C, BATCH, order=T.CircularTensorOrder[order], device="cpu")
     builds = None
     for k in range(1, 11):  # 2.5 wraparounds of a 4-ring
         ct.update(T.image(_frame(k)), T.multiply(2.0))
-        via_read = T.execute_operations(ct.read_batch())
+        via_read = T.execute_operations(ct.read_batch(), device="cpu")
         _same(via_read, ct.tensor)
         if builds is None:
             builds = executor.PLAN_BUILDS
@@ -263,24 +276,25 @@ def test_read_batch_presents_the_logical_order(order):
 
 
 def test_read_batch_fused_chain():
-    ct = T.CircularTensor(W, H, C, BATCH, planes=T.ColorPlanes.PACKED)
+    ct = T.CircularTensor(W, H, C, BATCH, planes=T.ColorPlanes.PACKED, device="cpu")
     for k in range(1, 6):
         ct.update(T.image(_frame(k)))
-    out = T.execute_operations(ct.read_batch(), T.subtract((1.0, 2.0, 3.0)), T.split_tensor())
+    out = T.execute_operations(ct.read_batch(), T.subtract((1.0, 2.0, 3.0)), T.split_tensor(),
+                               device="cpu")
     assert tuple(out.shape) == (BATCH, C, H, W)
     want = (ct.tensor.numpy() - np.array([1.0, 2.0, 3.0], np.float32)).transpose(0, 3, 1, 2)
     np.testing.assert_array_equal(out.numpy(), want)
 
 
 def test_read_batch_transposed_raises():
-    ct = T.CircularTensor(W, H, C, BATCH, planes=T.ColorPlanes.TRANSPOSED)
+    ct = T.CircularTensor(W, H, C, BATCH, planes=T.ColorPlanes.TRANSPOSED, device="cpu")
     with pytest.raises(ValueError, match="TRANSPOSED"):
         ct.read_batch()
 
 
 @pytest.mark.parametrize("planes", ["STANDARD", "TRANSPOSED", "PACKED"])
 def test_update_writes_one_slot_in_place(planes):
-    ct = T.CircularTensor(W, H, C, BATCH, planes=T.ColorPlanes[planes])
+    ct = T.CircularTensor(W, H, C, BATCH, planes=T.ColorPlanes[planes], device="cpu")
     ring = ct._ring
     axis = 1 if planes == "TRANSPOSED" else 0
     for k in range(1, 6):
@@ -294,12 +308,13 @@ def test_update_writes_one_slot_in_place(planes):
 
 def test_ring_in_a_divergent_batch():
     """A ring's read_batch as one sequence of a divergent batch."""
-    ct = T.CircularTensor(W, H, C, BATCH, planes=T.ColorPlanes.PACKED)
+    ct = T.CircularTensor(W, H, C, BATCH, planes=T.ColorPlanes.PACKED, device="cpu")
     for k in range(1, 7):
         ct.update(T.image(_frame(k)))
     flat = np.stack([_frame(-k) for k in range(BATCH)])
     out = T.launch_divergent_batch([1, 2, 1, 2], T.build_operation_sequence(ct.read_batch()),
-                                   T.build_operation_sequence(T.image(flat), T.add(1.0)))
+                                   T.build_operation_sequence(T.image(flat), T.add(1.0)),
+                                   device="cpu")
     assert T.last_backend() == "torch:divergent"
     logical = ct.tensor.numpy()
     np.testing.assert_array_equal(out.numpy()[0], logical[0])

@@ -21,6 +21,12 @@ F32_TOL = 1e-5
 CODES = [c.name for c in J.ColorConversionCode]
 
 
+def _on_cpu(m):
+    """The port's entry points default to the card; the reference has no
+    ``device`` argument."""
+    return {"device": "cpu"} if m is T else {}
+
+
 def _img(seed, c, dtype=np.uint8, h=24, w=40):
     rng = np.random.default_rng(seed)
     if dtype == np.uint8:
@@ -50,10 +56,11 @@ def test_codes_match_reference(code, dtype):
     want = np.asarray(J.execute_operations(J.image(img), J.cvt_color(jcode),
                                            backend=J.ParBackend.XLA))
     got = T.execute_operations(T.image(torch.from_numpy(img)),
-                               T.cvt_color(T.ColorConversionCode[code])).numpy()
+                               T.cvt_color(T.ColorConversionCode[code]), device="cpu").numpy()
     _close(got, want)
     carried = from_jax(J.build_pipeline(J.image(img), J.cvt_color(jcode)))
-    _close(T.execute_operations(carried.read, *carried.compute, carried.write).numpy(), want)
+    _close(T.execute_operations(carried.read, *carried.compute, carried.write,
+                                device="cpu").numpy(), want)
 
 
 @pytest.mark.parametrize("code", ["COLOR_RGB2GRAY", "COLOR_RGBA2GRAY", "COLOR_BGR2GRAY",
@@ -62,7 +69,7 @@ def test_u8_gray_matches_cv2(code):
     in_c = _CODE_INFO[T.ColorConversionCode[code]][0]
     img = _img(2, in_c, h=64, w=96)
     got = T.execute_operations(T.image(torch.from_numpy(img)),
-                               T.cvt_color(T.ColorConversionCode[code])).numpy()
+                               T.cvt_color(T.ColorConversionCode[code]), device="cpu").numpy()
     want = cv2.cvtColor(img, getattr(cv2, code))
     assert np.array_equal(got[..., 0], want)
 
@@ -72,7 +79,7 @@ def test_alpha_fill_matches_cv2(code):
     in_c = _CODE_INFO[T.ColorConversionCode[code]][0]
     img = _img(3, in_c)
     got = T.execute_operations(T.image(torch.from_numpy(img)),
-                               T.cvt_color(T.ColorConversionCode[code])).numpy()
+                               T.cvt_color(T.ColorConversionCode[code]), device="cpu").numpy()
     assert np.array_equal(got, cv2.cvtColor(img, getattr(cv2, code)))
 
 
@@ -80,7 +87,8 @@ def test_wrong_channel_count_raises_like_reference():
     img = _img(4, 4)
     for m in (J, T):
         with pytest.raises(ValueError):
-            m.execute_operations(m.image(img), m.cvt_color(m.ColorConversionCode.COLOR_BGR2RGB))
+            m.execute_operations(m.image(img), m.cvt_color(m.ColorConversionCode.COLOR_BGR2RGB),
+                                 **_on_cpu(m))
 
 
 def test_batch_kernel_encodes_colour_codes():
@@ -134,7 +142,7 @@ def test_batch_kernel_plain_version_with_colour_chain(name):
     jops = (J.resize_batch(frame, rects=rects, dsize=J.Size(32, 24)), *BATCH_CHAINS[name](J))
     jp = J.build_pipeline(*jops)
     pipeline = from_jax(jp)
-    eager = T.execute_operations(pipeline.read, *pipeline.compute, pipeline.write)
+    eager = T.execute_operations(pipeline.read, *pipeline.compute, pipeline.write, device="cpu")
     plan = kbr.build_plan(pipeline)
     plain = kbr.run(pipeline, plan, torch.device("cpu"))
     assert torch.equal(plain, eager)

@@ -45,7 +45,7 @@ def _img(shape, seed=0, dtype=np.uint8):
 
 
 def _port(*ops):
-    return T.execute_operations(*ops).numpy()
+    return T.execute_operations(*ops, device="cpu").numpy()
 
 
 def _ref(*ops):

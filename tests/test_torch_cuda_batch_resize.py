@@ -108,6 +108,94 @@ def test_kernel_matches_plain_version(case, frame, cuda):
             assert float((g - w).abs().max()) <= 1e-6
 
 
+def _odd_view(device, h, w, c, seed):
+    """A contiguous (h, w, c) uint8 view that starts at an odd address."""
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(rng.integers(0, 256, h * w * c + 1, dtype=np.uint8)).to(device)
+    view = flat[1:].view(h, w, c)
+    assert view.data_ptr() % 2 == 1 and view.is_contiguous()
+    return view
+
+
+def _tiled_cases(device):
+    """The tiled kernel's own paths: sources at any address and row pitch,
+    tiles of every shape, and what may cut through a thread's 4 pixels."""
+    rng = np.random.default_rng(11)
+
+    def img(h, w, c=3, dtype=torch.uint8):
+        return torch.from_numpy(rng.integers(0, 256, (h, w, c), dtype=np.uint8)).to(device, dtype)
+
+    wide = img(200, 304)       # 912-byte rows, a multiple of 16
+    ends = np.array([[0, 0, 60, 120], [244, 80, 60, 120], [3, 5, 60, 120]], np.int32)
+    big = [img(1080, 1920), img(40, 30), img(700, 900)]
+    return {
+        # (a) crops that hold the buffer's first and last bytes; a view at an odd address
+        "first_and_last_bytes": (T.resize_batch(wide, rects=ends, dsize=UP), *CHAIN,
+                                 T.split_tensor()),
+        "view_at_byte_offset_1": (T.resize_batch(_odd_view(device, 200, 304, 3, 12), rects=ends,
+                                                 dsize=UP), *CHAIN, T.split_tensor()),
+        "view_at_byte_offset_1_four_channels": (
+            T.resize_batch(_odd_view(device, 200, 304, 4, 13), rects=ends, dsize=UP),
+            T.convert_to(np.float32, alpha=0.5), T.split_tensor()),
+        "row_pitch_multiple_of_4_only": (T.resize_batch(img(200, 300), rects=_rects(), dsize=UP),
+                                         *CHAIN, T.split_tensor()),
+        "row_pitch_odd": (T.resize_batch(img(200, 301), rects=_rects(), dsize=UP), *CHAIN,
+                          T.split_tensor()),
+        "f32_source": (T.resize_batch(img(200, 304, dtype=torch.float32), rects=_rects(),
+                                             dsize=UP), *CHAIN, T.split_tensor()),
+        "one_channel": (T.resize_batch(img(200, 304, 1), rects=_rects(), dsize=UP),
+                        T.convert_to(np.float32, alpha=0.5), T.split_tensor()),
+        # (b) rows off the vector's alignment, widths off the pixel group
+        "dst_62x126": (T.resize_batch(wide, rects=_rects(), dsize=T.Size(62, 126)), *CHAIN,
+                       T.split_tensor()),
+        "dst_61_u8_out": (T.resize_batch(wide, rects=_rects(), dsize=T.Size(61, 128)),
+                          T.convert_to(np.uint8, alpha=0.5, beta=3), T.split_tensor()),
+        "dst_3x5": (T.resize_batch(wide, rects=_rects(), dsize=T.Size(3, 5)), *CHAIN,
+                    T.split_tensor()),
+        "dst_300x20_several_tiles_across": (
+            T.resize_batch(wide, rects=_rects(), dsize=T.Size(300, 20)), *CHAIN, T.split_tensor()),
+        # (c) letterbox borders through a group of 4 pixels
+        "letterbox_cuts_a_group": (T.resize_batch(wide, rects=_rects(cw=27), dsize=UP,
+                                                  background=128.0,
+                                                  aspect_ratio=T.AspectRatio.PRESERVE_AR),
+                                   *CHAIN, T.split_tensor()),
+        "letterbox_rows": (T.resize_batch(wide, rects=_rects(cw=120, ch=50), dsize=UP,
+                                          background=(1.0, 2.0, 3.0),
+                                          aspect_ratio=T.AspectRatio.PRESERVE_AR_RN_EVEN),
+                           *CHAIN, T.split_tensor()),
+        # (d) a ragged count read from device memory
+        "used_planes_on_the_device": (
+            T.resize_batch(wide, rects=_rects(), dsize=UP, background=9.0,
+                           used_planes=torch.tensor(5, dtype=torch.int32, device=device)),
+            *CHAIN, T.split_tensor()),
+        # large sources: stack mode with a 1080p plane, a crop of most of a frame
+        "stack_with_a_1080p_plane": (T.resize_batch(big, dsize=UP, background=3.0), *CHAIN,
+                                         T.split_tensor()),
+        "crop_of_most_of_a_frame": (
+            T.resize_batch(big[0], rects=np.array([[5, 7, 1800, 1000], [9, 9, 64, 128]], np.int32),
+                           dsize=UP), *CHAIN, T.split_tensor()),
+    }
+
+
+TILED_CASES = ["first_and_last_bytes", "view_at_byte_offset_1",
+               "view_at_byte_offset_1_four_channels", "row_pitch_multiple_of_4_only",
+               "row_pitch_odd", "f32_source", "one_channel", "dst_62x126", "dst_61_u8_out",
+               "dst_3x5", "dst_300x20_several_tiles_across", "letterbox_cuts_a_group",
+               "letterbox_rows", "used_planes_on_the_device", "stack_with_a_1080p_plane",
+               "crop_of_most_of_a_frame"]
+
+
+@pytest.mark.parametrize("case", TILED_CASES)
+def test_tiled_paths_match_plain_version_bit_for_bit(case, cuda):
+    pipeline = T.build_pipeline(*_tiled_cases(cuda)[case])
+    a = kbr.prepare(pipeline, kbr.build_plan(pipeline), cuda)
+    got = kbr.batch_resize(a)
+    want = kbr.batch_resize_reference(a)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, want), f"max |diff| {float((got.double() - want.double()).abs().max())}"
+
+
 def test_main_path_launches_the_kernel_once_per_call(frame):
     def call(rects):
         return T.execute_operations(T.resize_batch(frame, rects=rects, dsize=UP), *CHAIN,

@@ -116,6 +116,81 @@ def test_kernel_matches_plain_version(case, size, cuda):
         assert torch.equal(g, w), f"max |diff| {float((g.double() - w.double()).abs().max())}"
 
 
+def _packed_cases(device):
+    """The packed tap fetch and its exits, on a 96 x 384 source."""
+    h, w = 96, 384
+    img = _image(device, h, w)
+    flat = torch.from_numpy(np.random.default_rng(5).integers(0, 256, h * w * 3 + 1)
+                            .astype(np.uint8)).to(device)
+    odd = flat[1:].view(h, w, 3)
+    assert odd.data_ptr() % 2 == 1
+    ident = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
+    half = np.array([[1.0, 0.0, 1.5], [0.0, 1.0, 1.5]])
+    to_f32 = T.convert_to(np.float32, alpha=1 / 255.0)
+    full = T.Size(w, h)
+    return {
+        # (a) runs in the first and last words of a buffer at an odd address
+        "identity_of_a_view_at_byte_offset_1": (T.warp(odd, ident, full), T.split_tensor()),
+        "rotation_of_a_view_at_byte_offset_1": (
+            T.warp(odd, rotation((w / 2, h / 2), 7.0, 1.0), full, default=(1.0, 2.0, 3.0)), to_f32,
+            T.split_tensor()),
+        # (e) one valid tap of two on the first and last columns and rows
+        "half_pixel_shift": (T.warp(img, half, T.Size(w + 4, h + 4), default=(9.0, 8.0, 7.0)),
+                             T.split_tensor()),
+        # (b) output rows off the vector's alignment, widths off the pixel group
+        "dst_width_61": (T.warp(img, rotation((w / 2, h / 2), -5.0, 0.5, to=(30, 20)),
+                                T.Size(61, 40)), to_f32, T.split_tensor()),
+        "dst_width_61_u8_out": (T.warp(img, rotation((w / 2, h / 2), -5.0, 0.5, to=(30, 20)),
+                                       T.Size(61, 40)), T.convert_to(np.uint8), T.split_tensor()),
+        "one_channel_rotation": (T.warp(img[..., :1].contiguous(),
+                                        rotation((w / 2, h / 2), 12.0, 0.9), full), to_f32,
+                                 T.split_tensor()),
+        "two_rows_source": (T.warp(img[:2].contiguous(), ident, T.Size(w, 2)), T.split_tensor()),
+        # a perspective denominator that is 0 on the output's column 64; coordinates past int32
+        "perspective_den_zero": (
+            T.warp(img, np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [1 / 64.0, 0.0, 1.0]]), full,
+                   warp_type=T.WarpType.PERSPECTIVE, default=(1.0, 2.0, 3.0)), to_f32,
+            T.split_tensor()),
+        "perspective_beyond_int32": (
+            T.warp(img, np.array([[1e-9, 0.0, 3.0], [0.0, 1e-9, 5.0], [0.0, 0.0, 1.0]]), full,
+                   warp_type=T.WarpType.PERSPECTIVE, default=(1.0, 2.0, 3.0)), to_f32,
+            T.split_tensor()),
+        # (d) a ragged count read from device memory (a small launch: 1 pixel a thread); two
+        # launches large enough for 4 pixels a thread, widths off the group
+        "batch_used_planes_on_the_device": (
+            T.warp_batch([img] * 4, [rotation((w / 2, h / 2), 4.0 * i, 1.0) for i in range(4)],
+                         full, used_planes=torch.tensor(3, dtype=torch.int32, device=device),
+                         default=3.0), to_f32, T.split_tensor()),
+        "launch_just_past_the_four_pixel_threshold": (
+            T.warp_batch([img] * 3, [rotation((w / 2, h / 2), 5.0 * i, 0.3, to=(320, 180))
+                                     for i in range(3)], T.Size(642, 360), default=2.0), to_f32,
+            T.split_tensor()),
+        "large_launch_four_pixels_a_thread": (
+            T.warp_batch([odd] * 6, [rotation((w / 2, h / 2), 5.0 * i - 9.0, 0.2 + 0.01 * i,
+                                              to=(480, 270)) for i in range(6)],
+                         T.Size(961, 540), used_planes=5, default=(4.0, 5.0, 6.0)), to_f32,
+            T.split_tensor()),
+    }
+
+
+PACKED_CASES = ["identity_of_a_view_at_byte_offset_1", "rotation_of_a_view_at_byte_offset_1",
+                "half_pixel_shift", "dst_width_61", "dst_width_61_u8_out", "one_channel_rotation",
+                "two_rows_source", "perspective_den_zero", "perspective_beyond_int32",
+                "batch_used_planes_on_the_device", "launch_just_past_the_four_pixel_threshold",
+                "large_launch_four_pixels_a_thread"]
+
+
+@pytest.mark.parametrize("case", PACKED_CASES)
+def test_packed_fetch_and_its_exits_match_plain_version(case, cuda):
+    pipeline = T.build_pipeline(*_packed_cases(cuda)[case])
+    a = kw.prepare(pipeline, kw.build_plan(pipeline), cuda)
+    got = kw.warp(a)
+    want = kw.warp_reference(a)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, want), f"max |diff| {float((got.double() - want.double()).abs().max())}"
+
+
 def test_main_path_launches_the_kernel_once_per_call(cuda):
     frame = _image(cuda, 96, 384)
 

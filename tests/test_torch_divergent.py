@@ -104,7 +104,7 @@ def check_divergent(ids, *jseqs, pallas=False, kinds=None):
     merge and, with ``pallas``, its Pallas kernel in interpret mode) and in
     both port versions; returns the port's eager output and its plan."""
     tseqs = tuple(from_jax(s) for s in jseqs)
-    eager = T.launch_divergent_batch(ids, *tseqs)
+    eager = T.launch_divergent_batch(ids, *tseqs, device="cpu")
     assert T.last_backend() == "torch:divergent"
     _assert_equal(eager, reference_merge(ids, *jseqs), "eager vs the reference op by op")
     _assert_close(eager, J.launch_divergent_batch(ids, *jseqs, backend=J.ParBackend.XLA),
@@ -132,7 +132,7 @@ def test_two_sequences_by_selector():
     assert tuple(out.shape) == (6, 3, 10, 12)
     # a callable selector routes the same way
     tseqs = (from_jax(seq1), from_jax(seq2))
-    again = T.launch_divergent_batch(lambda z: 1 if z % 2 == 0 else 2, *tseqs)
+    again = T.launch_divergent_batch(lambda z: 1 if z % 2 == 0 else 2, *tseqs, device="cpu")
     _assert_equal(again, out, "callable selector vs id list")
 
 
@@ -160,7 +160,7 @@ def test_circ_and_image_per_channel_chains(first):
     check_divergent(ids, seq1, seq2, kinds=["circ", "image"])
     p = J.launch_divergent_batch(ids, seq1, seq2, backend=J.ParBackend.PALLAS_INTERPRET)
     assert_backend("pallas:divergent:interpret")
-    eager = T.launch_divergent_batch(ids, from_jax(seq1), from_jax(seq2))
+    eager = T.launch_divergent_batch(ids, from_jax(seq1), from_jax(seq2), device="cpu")
     _assert_close(eager, p, "eager vs the reference's Pallas K6")
 
 
@@ -256,7 +256,7 @@ def test_rect_jitter_builds_no_plan():
                                           T.write_tensor())
         seq2 = T.build_operation_sequence(
             T.image(rng.integers(0, 200, (4, 64, 32, 3)).astype(np.float32)), T.write_tensor())
-        outs.append(T.launch_divergent_batch([1, 2, 1, 2], seq1, seq2))
+        outs.append(T.launch_divergent_batch([1, 2, 1, 2], seq1, seq2, device="cpu"))
         if builds is None:
             builds = executor.PLAN_BUILDS
     assert executor.PLAN_BUILDS == builds
@@ -331,7 +331,7 @@ def test_merge_casts_other_groups_to_plane_zeros_dtype():
     seq1 = J.build_operation_sequence(J.image(u8))
     seq2 = J.build_operation_sequence(J.image(f))
     tseqs = (from_jax(seq1), from_jax(seq2))
-    out = T.launch_divergent_batch([1, 2], *tseqs)
+    out = T.launch_divergent_batch([1, 2], *tseqs, device="cpu")
     assert out.dtype == torch.uint8
     np.testing.assert_array_equal(out.numpy()[1, :, :, 0], [[3, 200, 0, 255], [255, 0, 254, 0]])
     _assert_equal(out, J.launch_divergent_batch([1, 2], seq1, seq2, backend=J.ParBackend.XLA),
@@ -476,7 +476,7 @@ def test_divergent_reference_equals_eager_bit_for_bit():
     ids = [3, 3, 6, 1, 5, 2]
     plan = kd.build_plan(seqs, ids)
     a = kd.prepare(seqs, plan, CPU)
-    _assert_equal(kd.divergent_reference(a), T.launch_divergent_batch(ids, *seqs),
+    _assert_equal(kd.divergent_reference(a), T.launch_divergent_batch(ids, *seqs, device="cpu"),
                   "plain version vs eager")
     _assert_equal(kd.divergent(a), kd.divergent_reference(a), "wrapper on CPU tensors")
 
@@ -500,20 +500,20 @@ def test_routing_decision_before_any_launch():
     with pytest.raises(ValueError, match="ragged"):
         executor._select_divergent(mixed, [1, 2, 1, 2, 1, 2], T.ParBackend.CUDA, cuda)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        T.launch_divergent_batch(ids, *seqs, backend=T.ParBackend.CUDA)
+        T.launch_divergent_batch(ids, *seqs, backend=T.ParBackend.CUDA, device="cpu")
 
 
 def test_selector_errors():
     data = _rng(14).random((2, 4, 4, 1), dtype=np.float32)
     seq = T.build_operation_sequence(T.image(data))
     with pytest.raises(ValueError, match="out of range"):
-        T.launch_divergent_batch(lambda z: 5, seq)
+        T.launch_divergent_batch(lambda z: 5, seq, device="cpu")
     with pytest.raises(ValueError, match="out of range"):
-        T.launch_divergent_batch([0, 1], seq)
+        T.launch_divergent_batch([0, 1], seq, device="cpu")
     with pytest.raises(ValueError, match="entries"):
-        T.launch_divergent_batch([1, 1, 1], seq)
+        T.launch_divergent_batch([1, 1, 1], seq, device="cpu")
     with pytest.raises(ValueError, match="at least one"):
-        T.launch_divergent_batch([1, 1])
+        T.launch_divergent_batch([1, 1], device="cpu")
     with pytest.raises(ValueError):
         J.launch_divergent_batch(lambda z: 5, J.build_operation_sequence(J.image(data)))
 
@@ -522,11 +522,11 @@ def test_id_list_and_fresh_lambdas_reuse_one_plan():
     data = _rng(15).random((4, 4, 4, 1), dtype=np.float32)
     seq1 = T.build_operation_sequence(T.image(data), T.multiply(2.0))
     seq2 = T.build_operation_sequence(T.image(data))
-    out = T.launch_divergent_batch([1, 2, 1, 2], seq1, seq2)
+    out = T.launch_divergent_batch([1, 2, 1, 2], seq1, seq2, device="cpu")
     np.testing.assert_array_equal(out.numpy()[0], data[0] * np.float32(2.0))
     np.testing.assert_array_equal(out.numpy()[1], data[1])
     builds = executor.PLAN_BUILDS
     for _ in range(3):
         seq = T.build_operation_sequence(T.image(data), T.add(1.0))
-        T.launch_divergent_batch(lambda z: 1, seq)
+        T.launch_divergent_batch(lambda z: 1, seq, device="cpu")
     assert executor.PLAN_BUILDS == builds + 1

@@ -20,6 +20,12 @@ from cvgpuspeedup_tpu_torch.ops.memory import ImageRead, TensorSplit, Write2D
 UP = (64, 128)
 
 
+def _on_cpu(m):
+    """The port's entry points default to the card; the reference has no
+    ``device`` argument."""
+    return {"device": "cpu"} if m is T else {}
+
+
 @pytest.fixture
 def frame():
     return np.random.default_rng(11).integers(0, 256, (96, 160, 3)).astype(np.uint8)
@@ -47,26 +53,28 @@ def test_build_pipeline_normalizes(frame):
     assert [type(o) for o in p.compute] == [SaturateCast, Mul, Sub]
     p2 = T.build_pipeline(T.multiply(2.0), T.split_tensor(), input=torch.from_numpy(frame))
     assert isinstance(p2.read, ImageRead) and isinstance(p2.write, TensorSplit)
-    out = T.execute_operations(T.multiply(2.0), input=torch.from_numpy(frame))
+    out = T.execute_operations(T.multiply(2.0), input=torch.from_numpy(frame), device="cpu")
     assert out.dtype == torch.uint8 and int(out.max()) == 255
 
 
 def _error_cases(m, frame, rects):
     return {
         "wrong_length_scalar": (ValueError, lambda: m.execute_operations(
-            m.resize_batch(frame, rects=rects, dsize=m.Size(*UP)), m.subtract((1.0, 2.0)))),
-        "compute_without_read": (ValueError, lambda: m.execute_operations(m.multiply(2.0))),
+            m.resize_batch(frame, rects=rects, dsize=m.Size(*UP)), m.subtract((1.0, 2.0)),
+            **_on_cpu(m))),
+        "compute_without_read": (ValueError, lambda: m.execute_operations(
+            m.multiply(2.0), **_on_cpu(m))),
         "rects_wrong_shape": (ValueError, lambda: m.resize_batch(
             frame, rects=np.zeros((3, 3), np.int32), dsize=m.Size(*UP))),
         "rects_one_dim": (ValueError, lambda: m.resize_batch(
             frame, rects=np.zeros((4,), np.int32), dsize=m.Size(*UP))),
         "write_mid_pipeline": (TypeError, lambda: m.execute_operations(
-            m.image(frame), m.split_tensor(), m.multiply(2.0))),
+            m.image(frame), m.split_tensor(), m.multiply(2.0), **_on_cpu(m))),
         "input_and_read": (ValueError, lambda: m.build_pipeline(m.image(frame), input=frame)),
         "background_wrong_length": (ValueError, lambda: m.resize_batch(
             frame, rects=rects, dsize=m.Size(*UP), background=(1.0, 2.0))),
         "scalar_of_rank_two": (ValueError, lambda: m.execute_operations(
-            m.image(frame), m.multiply(np.ones((2, 3), np.float32)))),
+            m.image(frame), m.multiply(np.ones((2, 3), np.float32)), **_on_cpu(m))),
     }
 
 
@@ -83,24 +91,65 @@ def test_error_paths_raise_like_reference(case, frame, rects):
 
 def test_backend_on_cpu_is_torch(frame, rects):
     ops = _flagship(T, frame, rects)
-    assert T.describe_backend(*ops) == "torch"
-    T.execute_operations(*ops)
+    assert T.describe_backend(*ops, device="cpu") == "torch"
+    T.execute_operations(*ops, device="cpu")
     assert T.last_backend() == "torch"
-    assert T.describe_backend(*ops, backend=T.ParBackend.TORCH) == "torch"
+    assert T.describe_backend(*ops, backend=T.ParBackend.TORCH, device="cpu") == "torch"
 
 
 def test_explicit_cuda_on_cpu_tensor_raises(frame, rects):
     ops = _flagship(T, torch.from_numpy(frame), rects)
     with pytest.raises(ValueError, match="CUDA"):
-        T.execute_operations(*ops, backend=T.ParBackend.CUDA)
+        T.execute_operations(*ops, backend=T.ParBackend.CUDA, device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        T.describe_backend(*ops, backend=T.ParBackend.CUDA)
+        T.describe_backend(*ops, backend=T.ParBackend.CUDA, device="cpu")
 
 
 def test_cuda_device_without_gpu_raises(frame, rects, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.execute_operations(*_flagship(T, frame, rects), device="cuda")
+
+
+def _entry_points(frame, rects, tmp_path):
+    """Every entry point that resolves a device, on host arrays only."""
+    seq = T.build_operation_sequence(T.image(np.stack([frame, frame])), T.multiply(2.0))
+    saved = T.CircularTensor(8, 4, 3, 2, device="cpu")
+    saved.save(str(tmp_path / "ring"))
+    return {
+        "execute_operations": lambda **kw: T.execute_operations(*_flagship(T, frame, rects), **kw),
+        "describe_backend": lambda **kw: T.describe_backend(*_flagship(T, frame, rects), **kw),
+        "launch_divergent_batch": lambda **kw: T.launch_divergent_batch([1, 1], seq, **kw),
+        "CircularTensor": lambda **kw: T.CircularTensor(8, 4, 3, 2, **kw),
+        "CircularTensor.load": lambda **kw: T.CircularTensor.load(str(tmp_path / "ring"), **kw),
+    }
+
+
+@pytest.mark.parametrize("entry", ["execute_operations", "describe_backend",
+                                   "launch_divergent_batch", "CircularTensor",
+                                   "CircularTensor.load"])
+def test_default_device_is_the_card_and_cpu_must_be_asked_for(entry, frame, rects, tmp_path,
+                                                              monkeypatch):
+    """With host arrays only and no ``device``, an entry point takes the
+    current CUDA device and raises where there is none; ``device="cpu"``
+    runs on the CPU."""
+    call = _entry_points(frame, rects, tmp_path)[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    out = call(device="cpu")
+    if isinstance(out, T.CircularTensor):
+        assert out.tensor.device.type == "cpu"
+    elif isinstance(out, torch.Tensor):
+        assert out.device.type == "cpu"
+    else:
+        assert out == "torch"
+
+
+def test_a_cpu_tensor_leaf_asks_for_the_cpu(frame, rects, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = T.execute_operations(*_flagship(T, torch.from_numpy(frame), rects))
+    assert out.device.type == "cpu" and T.last_backend() == "torch"
 
 
 def test_supports_refuses_what_the_kernel_cannot_encode(frame, rects):
@@ -127,15 +176,17 @@ def test_mixed_devices_raise(frame, rects):
 def test_shifted_rects_build_no_new_plan(frame, rects):
     executor.clear_cache()
     before = executor.PLAN_BUILDS
-    a = T.execute_operations(*_flagship(T, frame, rects))
+    a = T.execute_operations(*_flagship(T, frame, rects), device="cpu")
     assert executor.PLAN_BUILDS == before + 1
     shifted = rects.copy()
     shifted[:, :2] += 7
-    b = T.execute_operations(*_flagship(T, frame, shifted, background=(1.0, 2.0, 3.0)))
+    b = T.execute_operations(*_flagship(T, frame, shifted, background=(1.0, 2.0, 3.0)),
+                             device="cpu")
     assert executor.PLAN_BUILDS == before + 1
     assert not torch.equal(a, b)
     # a new structure (another write layout) does build a plan
-    T.execute_operations(*_flagship(T, frame, shifted)[:-1], T.split_tensor_transposed())
+    T.execute_operations(*_flagship(T, frame, shifted)[:-1], T.split_tensor_transposed(),
+                         device="cpu")
     assert executor.PLAN_BUILDS == before + 2
 
 
@@ -156,7 +207,7 @@ def test_from_jax_round_trip(frame, rects):
     assert [type(o).__name__ for o in tp.compute] == [type(o).__name__ for o in jp.compute]
     assert tp.compute[0].dst == torch.float32
     np.testing.assert_array_equal(tp.read.rects, rects)
-    out = T.execute_operations(tp.read, *tp.compute, tp.write)
+    out = T.execute_operations(tp.read, *tp.compute, tp.write, device="cpu")
     ref = np.asarray(J.execute_operations(*_flagship(J, frame, rects, used_planes=3, background=5.0),
                                           backend=J.ParBackend.XLA))
     assert np.abs(out.numpy() - ref).max() <= 1e-5

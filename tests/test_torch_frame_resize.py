@@ -74,7 +74,7 @@ def check_parity(*jax_ops, pallas=None):
     jp = J.build_pipeline(*jax_ops)
     xla = J.execute_operations(*jax_ops, backend=J.ParBackend.XLA)
     pipeline = from_jax(jp)
-    eager = T.execute_operations(pipeline.read, *pipeline.compute, pipeline.write)
+    eager = T.execute_operations(pipeline.read, *pipeline.compute, pipeline.write, device="cpu")
     assert T.last_backend() == "torch"
     _assert_equal(eager, jp.lower(), "eager vs the reference op by op")
     _assert_close(eager, xla, "eager vs the reference's XLA path")
@@ -216,8 +216,10 @@ def test_u8_out_at_fractional_ratio_equals_reference_op_by_op():
 
 def test_pending_resize_binds_to_the_preceding_read():
     img = _img(10)
-    a = T.execute_operations(T.image(img), T.resize(T.Size(128, 32)), T.split_tensor())
-    b = T.execute_operations(T.resize(T.image(img), T.Size(128, 32)), T.split_tensor())
+    a = T.execute_operations(T.image(img), T.resize(T.Size(128, 32)), T.split_tensor(),
+                             device="cpu")
+    b = T.execute_operations(T.resize(T.image(img), T.Size(128, 32)), T.split_tensor(),
+                             device="cpu")
     assert torch.equal(a, b)
     with pytest.raises(ValueError):
         T.resize(dsize=None)
@@ -246,6 +248,6 @@ def test_kernel_supports_and_refusals():
 
 def test_backend_choice_on_the_cpu():
     ops = (T.resize(T.image(torch.from_numpy(_img(12))), T.Size(128, 32)), T.split_tensor())
-    assert T.describe_backend(*ops) == "torch"
+    assert T.describe_backend(*ops, device="cpu") == "torch"
     with pytest.raises(ValueError, match="CUDA"):
-        T.execute_operations(*ops, backend=T.ParBackend.CUDA)
+        T.execute_operations(*ops, backend=T.ParBackend.CUDA, device="cpu")

@@ -28,6 +28,12 @@ from cvgpuspeedup_tpu_torch.interop.from_jax import from_jax
 F32_TOL = 1e-5
 
 
+def _on_cpu(m):
+    """The port's entry points default to the card; the reference has no
+    ``device`` argument."""
+    return {"device": "cpu"} if m is T else {}
+
+
 def _buf(seed, h=144, w=384):
     rng = np.random.default_rng(seed)
     return rng.integers(0, 256, (h * 3 // 2, w)).astype(np.uint8)
@@ -36,7 +42,8 @@ def _buf(seed, h=144, w=384):
 def _run_both(jax_ops):
     jp = J.build_pipeline(*jax_ops)
     pipeline = from_jax(jp)
-    eager = T.execute_operations(pipeline.read, *pipeline.compute, pipeline.write).numpy()
+    eager = T.execute_operations(pipeline.read, *pipeline.compute, pipeline.write,
+                                 device="cpu").numpy()
     assert T.last_backend() == "torch"
     op_by_op = np.asarray(jp.lower())
     assert eager.dtype == op_by_op.dtype and np.array_equal(eager, op_by_op)
@@ -171,4 +178,4 @@ def test_port_factories_and_errors():
     assert conv.out_dtype == torch.float32
     for m in (J, T):  # luma of 11 columns: odd
         with pytest.raises(ValueError):
-            m.execute_operations(m.read_yuv(np.zeros((15, 11), np.uint8)))
+            m.execute_operations(m.read_yuv(np.zeros((15, 11), np.uint8)), **_on_cpu(m))

@@ -47,7 +47,7 @@ def test_flagship_slice_matches_reference(kw):
     assert ref.shape == (10, 3, 128, 64)
 
     carried = from_jax(J.build_pipeline(*_ops(J, frame, rects, **jkw)))
-    out = T.execute_operations(carried.read, *carried.compute, carried.write)
+    out = T.execute_operations(carried.read, *carried.compute, carried.write, device="cpu")
     assert tuple(out.shape) == ref.shape and out.dtype == torch.float32
     assert np.abs(out.numpy() - ref).max() <= 1e-5
 
@@ -91,10 +91,10 @@ def test_frame_slice_matches_reference(path):
     ref = np.asarray(J.execute_operations(*ops(J, src), backend=J.ParBackend.XLA))
     assert ref.shape == (3, 72, 128)
     carried = from_jax(J.build_pipeline(*ops(J, src)))
-    out = T.execute_operations(carried.read, *carried.compute, carried.write)
+    out = T.execute_operations(carried.read, *carried.compute, carried.write, device="cpu")
     assert tuple(out.shape) == ref.shape and out.dtype == torch.float32
     assert np.abs(out.numpy() - ref).max() <= 1e-5
-    native = T.execute_operations(*ops(T, torch.from_numpy(src)))
+    native = T.execute_operations(*ops(T, torch.from_numpy(src)), device="cpu")
     assert np.abs(native.numpy() - ref).max() <= 1e-5
     assert T.last_backend() == "torch"
 
@@ -131,9 +131,9 @@ def test_warp_slice_matches_reference(batch):
     ref = np.asarray(J.execute_operations(*_warp_ops(J, frame, batch), backend=J.ParBackend.XLA))
     assert ref.shape == ((8, 3, 72, 128) if batch else (3, 72, 128))
     carried = from_jax(J.build_pipeline(*_warp_ops(J, frame, batch)))
-    out = T.execute_operations(carried.read, *carried.compute, carried.write)
+    out = T.execute_operations(carried.read, *carried.compute, carried.write, device="cpu")
     assert tuple(out.shape) == ref.shape and out.dtype == torch.float32
     assert np.abs(out.numpy() - ref).max() <= 1e-5
-    native = T.execute_operations(*_warp_ops(T, torch.from_numpy(frame), batch))
+    native = T.execute_operations(*_warp_ops(T, torch.from_numpy(frame), batch), device="cpu")
     assert np.abs(native.numpy() - ref).max() <= 1e-5
     assert T.last_backend() == "torch"

@@ -1,0 +1,432 @@
+"""The addressing of the two tiled CUDA kernels, emulated in numpy.
+
+``csrc/batch_resize.cu`` computes a tile's tap tables once per block and
+gathers every thread's taps through them; ``csrc/warp.cu`` fetches the two
+adjacent taps of a uint8 row as three aligned 4-byte words, funnel-shifted
+to the run's first byte. Neither can run without a card, so
+:func:`emulate_batch_resize` and :func:`emulate_warp` repeat their index
+arithmetic step by step on a flat byte buffer whose index plays the absolute
+address: the tile grid, the tables' marks outside the letterbox, the taps'
+addresses (none may leave the source buffer), the packed-or-per-byte
+decision.
+Each must equal the kernels' plain versions (``batch_resize_reference``,
+``warp_reference``) bit for bit. Keep the constants and the steps in step
+with the two sources.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import cvgpuspeedup_tpu_torch as T
+from cvgpuspeedup_tpu_torch.exec import cuda_batch_resize as kbr
+from cvgpuspeedup_tpu_torch.exec import cuda_warp as kw
+
+CPU = torch.device("cpu")
+F32 = np.float32
+
+# csrc/chain.cuh, csrc/batch_resize.cu
+K_PIX, THREADS, MAX_TILE_W, MAX_TILE_H = 4, 128, 256, 64
+POISON = 0xA5  # fills the memory around a source: no value may come from it
+
+
+def tile_shape(dst_w):
+    tile_w = min(MAX_TILE_W, (dst_w + K_PIX - 1) // K_PIX * K_PIX)
+    return tile_w, min(MAX_TILE_H, max(1, THREADS * K_PIX // tile_w))
+
+
+def place(src: np.ndarray, offset: int, slack: int = 64):
+    """``(mem, lo, hi)``: a poisoned byte buffer holding ``src``'s bytes at
+    absolute address ``lo = 64 + offset`` (the buffer itself is 64-byte
+    aligned at address 0)."""
+    raw = np.ascontiguousarray(src).view(np.uint8).reshape(-1)
+    lo = 64 + offset
+    size = (lo + raw.size + slack + 63) // 64 * 64
+    store = np.full(size + 64, POISON, np.uint8)
+    shift = (-store.ctypes.data) % 64
+    mem = store[shift:shift + size]
+    mem[lo:lo + raw.size] = raw
+    return mem, lo, lo + raw.size
+
+
+def letterbox(cw, ch, dst_w, dst_h, mode):
+    """``csrc/batch_resize.cuh::letterbox`` for one rect."""
+    if mode == T.AspectRatio.IGNORE_AR:
+        return dst_w, dst_h, 0, 0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w = int(F32(F32(dst_h) / F32(ch)) * F32(cw))
+        h = dst_h
+        if w > dst_w:
+            h = int(F32(F32(dst_w) / F32(cw)) * F32(ch))
+            w = dst_w
+    if mode == T.AspectRatio.PRESERVE_AR_RN_EVEN:
+        w, h = min((w + 1) // 2 * 2, dst_w), min((h + 1) // 2 * 2, dst_h)
+    if mode == T.AspectRatio.PRESERVE_AR_LEFT:
+        return w, h, 0, 0
+    return w, h, (dst_w - w) // 2, (dst_h - h) // 2
+
+
+def axis_lerp(q, src, dst):
+    """``csrc/batch_resize.cuh::axis_lerp`` for an int array ``q``."""
+    num = (2 * q + 1) * src - dst
+    den = 2 * dst
+    i = num // den
+    w = (num - i * den).astype(F32) / F32(den)
+    w = np.where(i < 0, F32(0), w)
+    i = np.maximum(i, 0)
+    w = np.where(i >= src - 1, F32(0), w)
+    i = np.minimum(i, src - 1)
+    return i, np.minimum(i + 1, src - 1), w.astype(F32)
+
+
+def source_index(t, n):
+    return np.clip(np.where(t < 0, t + n, t), 0, n - 1)
+
+
+def lerp(a, b, w):
+    return (a * (F32(1) - w) + b * w).astype(F32)
+
+
+def emulate_batch_resize(a: kbr.Launch, offset: int = 0):
+    """``batch_resize_kernel`` before its chain: ``(values (N, H, W, C)
+    float32, stats)``; ``stats`` counts the tiles and the sampled pixels."""
+    plan = a.plan
+    dst_w, dst_h = plan.dsize
+    src = a.src.numpy()
+    dtype, item, nch = src.dtype, src.dtype.itemsize, plan.nch
+    src_h, src_w = src.shape[-3], src.shape[-2]
+    mem, lo, hi = place(src, offset * item)  # a view keeps its element alignment
+    plane_stride = src_h * src_w * nch if plan.stack_mode else 0
+    rects, used = a.rects.numpy(), int(a.used.item())
+    bg = a.fparams.numpy()[:nch]
+    tile_w, tile_h = tile_shape(dst_w)
+    out = np.empty((plan.n_planes, dst_h, dst_w, nch), F32)
+    out[:] = bg
+    stats = {"tiles": 0, "sampled": 0, "background": 0}
+    mode = plan.aspect_ratio
+    for z in range(min(used, plan.n_planes)):
+        plane = lo + z * plane_stride * item  # address of the plane's first byte
+        rx, ry, rw, rh = (int(v) for v in rects[z])
+        nw, nh, ox, oy = letterbox(rw, rh, dst_w, dst_h, mode)
+
+        def tap(r, c):
+            first = plane + ((r * src_w + c) * nch) * item
+            assert lo <= first and first + nch * item <= hi
+            return mem[first:first + nch * item].view(dtype).astype(F32)
+
+        for ty0 in range(0, dst_h, tile_h):
+            for tx0 in range(0, dst_w, tile_w):
+                # the prologue's tables; -1 marks a column or row outside the letterbox
+                qx = tx0 + np.arange(tile_w) - ox
+                qy = ty0 + np.arange(tile_h) - oy
+                inx, iny = (qx >= 0) & (qx < nw), (qy >= 0) & (qy < nh)
+                i0, i1, wx = axis_lerp(np.where(inx, qx, 0), rw, max(nw, 1))
+                c0 = np.where(inx, source_index(rx + i0, src_w), -1)
+                c1 = source_index(rx + i1, src_w)
+                j0, j1, wy = axis_lerp(np.where(iny, qy, 0), rh, max(nh, 1))
+                r0 = np.where(iny, source_index(ry + j0, src_h), -1)
+                r1 = source_index(ry + j1, src_h)
+                stats["tiles"] += 1
+                valid = np.outer(r0[:min(tile_h, dst_h - ty0)] >= 0,
+                                 c0[:min(tile_w, dst_w - tx0)] >= 0)
+                stats["sampled"] += int(valid.sum())
+                stats["background"] += int((~valid).sum())
+                # the threads' gathers and lerps, horizontal first
+                for ly in range(min(tile_h, dst_h - ty0)):
+                    if r0[ly] < 0:
+                        continue
+                    for lx in range(min(tile_w, dst_w - tx0)):
+                        if c0[lx] < 0:
+                            continue
+                        top = lerp(tap(r0[ly], c0[lx]), tap(r0[ly], c1[lx]), wx[lx])
+                        bot = lerp(tap(r1[ly], c0[lx]), tap(r1[ly], c1[lx]), wx[lx])
+                        out[z, ty0 + ly, tx0 + lx] = lerp(top, bot, wy[ly])
+    return out, stats
+
+
+def _k1_launch(src, rects, dsize, **kw_):
+    read = T.resize_batch(torch.from_numpy(src) if isinstance(src, np.ndarray) else src,
+                          rects=rects, dsize=T.Size(*dsize), **kw_)
+    pipeline = T.build_pipeline(read, T.write_tensor())
+    return kbr.prepare(pipeline, kbr.build_plan(pipeline), CPU)
+
+
+def _check_k1(a, offset=0):
+    out, stats = emulate_batch_resize(a, offset)
+    ref = kbr.batch_resize_reference(a).numpy()
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert np.array_equal(out.view(np.uint32), ref.view(np.uint32)), \
+        f"{(out != ref).sum()} values differ; {stats}"
+    return stats
+
+
+def _src(seed, h, w, c, dtype=np.uint8):
+    v = np.random.default_rng(seed).integers(0, 256, (h, w, c))
+    return v.astype(dtype) if dtype == np.uint8 else (v / F32(3)).astype(F32)
+
+
+INSIDE = np.array([[3 + 5 * i, 2 + 3 * i, 30, 44] for i in range(4)], np.int32)
+
+
+@pytest.mark.parametrize("nch", [1, 3, 4])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32], ids=["u8", "f32"])
+def test_rects_inside_the_frame(nch, dtype):
+    stats = _check_k1(_k1_launch(_src(1, 64, 96, nch, dtype), INSIDE, (32, 48)))
+    assert stats["tiles"] == 4 * 3 and stats["background"] == 0  # 32x16 tiles of 32x48 planes
+
+
+@pytest.mark.parametrize("width", [96, 36, 35])
+def test_row_pitches_of_any_alignment(width):
+    """288-byte rows (a multiple of 16), 108-byte rows (of 4), 105-byte rows."""
+    rects = np.array([[1, 2, 20, 30], [10, 20, 24, 36]], np.int32)
+    _check_k1(_k1_launch(_src(2, 64, width, 3), rects, (32, 48)))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 5, 15])
+def test_a_source_view_at_an_odd_address(offset):
+    """A source that starts ``offset`` bytes past an aligned address: the
+    taps of its first and last pixel stay inside the buffer."""
+    rects = np.array([[0, 0, 96, 64], [60, 30, 36, 34]], np.int32)  # the first and last bytes
+    _check_k1(_k1_launch(_src(3, 64, 96, 3), rects, (32, 48)), offset)
+
+
+NEGATIVE = {
+    "left_of_the_frame": [[-7, 4, 30, 40]],
+    "above_the_frame": [[5, -9, 30, 40]],
+    "past_minus_width": [[-100, 3, 30, 40]],
+    "past_the_right_edge": [[80, 5, 30, 40]],
+    "past_the_bottom_edge": [[10, 50, 30, 40]],
+    "past_both_edges": [[90, 60, 30, 40]],
+}
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32], ids=["u8", "f32"])
+@pytest.mark.parametrize("name", sorted(NEGATIVE))
+def test_rects_that_leave_the_frame_wrap_and_clamp(name, dtype):
+    rects = np.array(NEGATIVE[name] + [[4, 4, 30, 40]], np.int32)
+    _check_k1(_k1_launch(_src(4, 64, 96, 3, dtype), rects, (32, 48)))
+
+
+def test_a_crop_of_most_of_a_large_frame():
+    rects = np.array([[2, 3, 380, 250], [5, 5, 40, 30]], np.int32)
+    _check_k1(_k1_launch(_src(5, 260, 400, 3), rects, (64, 32)))
+
+
+@pytest.mark.parametrize("mode", [m for m in T.AspectRatio if m != T.AspectRatio.IGNORE_AR],
+                         ids=lambda m: m.name)
+@pytest.mark.parametrize("cw,chh", [(26, 44), (50, 20), (7, 45)])
+def test_letterbox_borders_cut_through_a_threads_pixels(mode, cw, chh):
+    rects = np.array([[3 + 4 * i, 2 + i, cw, chh] for i in range(3)], np.int32)
+    a = _k1_launch(_src(6, 64, 96, 3), rects, (30, 44), aspect_ratio=mode,
+                   background=(7.0, 8.0, 9.0))
+    stats = _check_k1(a)
+    assert stats["background"] > 0
+    nw, nh, ox, oy = letterbox(cw, chh, 30, 44, mode)
+    assert (nw, nh) != (30, 44)
+    if mode != T.AspectRatio.PRESERVE_AR_LEFT:
+        assert ox % K_PIX or (ox + nw) % K_PIX or nw == 30, "no group is cut: pick another size"
+
+
+@pytest.mark.parametrize("dsize", [(30, 20), (33, 7), (5, 70), (270, 6), (64, 128)])
+def test_output_widths_off_the_pixel_group_and_tile_grid(dsize):
+    rects = np.array([[3, 2, 40, 44], [20, 10, 64, 50]], np.int32)
+    _check_k1(_k1_launch(_src(7, 64, 96, 3), rects, dsize))
+
+
+def test_tile_shapes():
+    assert tile_shape(64) == (64, 8)        # the flagship: 800 blocks of 128 threads
+    assert tile_shape(30) == (32, 16)
+    assert tile_shape(3) == (4, 64)
+    assert tile_shape(1920) == (256, 2)
+    for w in range(1, 600):
+        tw, th = tile_shape(w)
+        assert tw % K_PIX == 0 and tw // K_PIX * th <= THREADS and tw <= MAX_TILE_W
+
+
+def test_stack_mode_and_ragged_used_planes():
+    imgs = [torch.from_numpy(_src(8 + i, h, w, 3)) for i, (h, w) in
+            enumerate([(40, 60), (64, 96), (17, 9), (50, 50)])]
+    read = T.resize_batch(imgs, dsize=T.Size(32, 48), used_planes=3, background=5.0)
+    pipeline = T.build_pipeline(read, T.write_tensor())
+    a = kbr.prepare(pipeline, kbr.build_plan(pipeline), CPU)
+    stats = _check_k1(a, offset=1)
+    assert stats["sampled"] == 3 * 32 * 48  # the fourth plane holds the background
+
+
+# ---------------------------------------------------------------------------
+# the warp kernel's packed tap fetch
+# ---------------------------------------------------------------------------
+
+def load_run(mem, p, nch):
+    """``csrc/warp.cu::load_run``: ``(left, right)`` words of the 2 * nch
+    bytes at address ``p``, from the three aligned 4-byte words at
+    ``p & ~3``."""
+    words = mem.view(np.uint32)
+    k = p & 3
+    a = (p - k) // 4
+    w0, w1, w2 = (int(words[a + i]) for i in range(3))
+    lo = (((w1 << 32) | w0) >> (8 * k)) & 0xFFFFFFFF
+    hi = (((w2 << 32) | w1) >> (8 * k)) & 0xFFFFFFFF
+    return lo, (((hi << 32) | lo) >> (8 * nch)) & 0xFFFFFFFF
+
+
+def emulate_warp(a: kw.Launch, offset: int = 0):
+    """``warp_kernel`` before its chain: ``(values (N, H, W, C) float32,
+    stats)``; planes from ``used`` on hold the batch default."""
+    plan = a.plan
+    dst_w, dst_h = plan.dsize
+    nch, src_h, src_w = plan.nch, plan.src_h, plan.src_w
+    coeffs = a.coeffs.numpy().reshape(-1, 9)
+    border = a.border.numpy().reshape(-1, 4)
+    out = np.empty((plan.n_planes, dst_h, dst_w, nch), F32)
+    out[:] = a.default.numpy()[:nch]
+    stats = {"packed": 0, "plain": 0, "border": 0}  # pixels by the path their thread took
+    xs = np.arange(dst_w, dtype=F32)
+    with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+        for z in range(min(int(a.used.item()), plan.n_planes)):
+            src = a.srcs[a.plane_src[z]].numpy()
+            item = src.dtype.itemsize
+            mem, lo, hi = place(src, offset * item)
+            flat = mem[lo:hi].view(src.dtype)
+            c, b = coeffs[z], border[z]
+            for y in range(dst_h):
+                fy = F32(y)
+                px = c[0] * xs + (c[1] * fy + c[2])      # the row sum is its own rounded step
+                py = c[3] * xs + (c[4] * fy + c[5])
+                if plan.perspective:
+                    den = c[6] * xs + (c[7] * fy + c[8])
+                    den = np.where(den == 0, F32(1), den)
+                    px, py = px / den, py / den
+                x0f, y0f = np.floor(px), np.floor(py)
+                wx, wy = px - x0f, py - y0f
+                inside = ((x0f >= 0) & (x0f < F32(src_w) - 1) & (y0f >= 0)
+                          & (y0f < F32(src_h) - 1))
+                for x in range(dst_w):
+                    fx0, fy0 = x0f[x], y0f[x]
+                    # a thread owns K_PIX pixels and takes one path for all of them
+                    g0 = x // K_PIX * K_PIX
+                    group = range(g0, g0 + K_PIX)
+                    interior = g0 + K_PIX <= dst_w and bool(inside[g0:g0 + K_PIX].all())
+                    if interior and item == 1:
+                        for gx in group:
+                            e = (int(y0f[gx]) * src_w + int(x0f[gx])) * nch
+                            a0, a1 = (lo + e) & ~3, (lo + e + src_w * nch) & ~3
+                            interior = interior and a0 >= lo and a1 + 12 <= hi
+                    if interior:
+                        e0 = (int(fy0) * src_w + int(fx0)) * nch   # element of the first tap
+                        e1 = e0 + src_w * nch
+                        if item == 1:
+                            stats["packed"] += 1
+                            l0, t0 = load_run(mem, lo + e0, nch)
+                            l1, t1 = load_run(mem, lo + e1, nch)
+                            byte = lambda w, i: F32((w >> (8 * i)) & 0xFF)  # noqa: E731
+                            taps = [[byte(w, i) for i in range(nch)] for w in (l0, t0, l1, t1)]
+                            v00, v01, v10, v11 = (np.array(t, F32) for t in taps)
+                        else:
+                            stats["plain"] += 1
+                            ch = np.arange(nch)
+                            v00, v01 = flat[e0 + ch].astype(F32), flat[e0 + nch + ch].astype(F32)
+                            v10, v11 = flat[e1 + ch].astype(F32), flat[e1 + nch + ch].astype(F32)
+                    else:  # sample_point: a tap outside the source reads the border
+                        stats["border"] += 1
+                        vx = (fx0 >= 0 and fx0 < src_w, fx0 >= -1 and fx0 < src_w - 1)
+                        vy = (fy0 >= 0 and fy0 < src_h, fy0 >= -1 and fy0 < src_h - 1)
+
+                        def tap(i, j):
+                            if not (vx[i] and vy[j]):
+                                return b[:nch].astype(F32)
+                            e = ((int(fy0) + j) * src_w + int(fx0) + i) * nch
+                            return flat[e + np.arange(nch)].astype(F32)
+
+                        v00, v01, v10, v11 = tap(0, 0), tap(1, 0), tap(0, 1), tap(1, 1)
+                    out[z, y, x] = lerp(lerp(v00, v01, wx[x]), lerp(v10, v11, wx[x]), wy[x])
+    return out, stats
+
+
+def rotation(center, angle, scale, to=None):
+    a = np.deg2rad(angle)
+    al, be = scale * np.cos(a), scale * np.sin(a)
+    cx, cy = center
+    m = np.array([[al, be, (1 - al) * cx - be * cy], [-be, al, be * cx + (1 - al) * cy]])
+    if to is not None:
+        m[:, 2] += (to[0] - cx, to[1] - cy)
+    return m
+
+
+def _check_warp(read, offset=0, batch=False):
+    pipeline = T.build_pipeline(read, T.write_tensor() if batch else T.write())
+    a = kw.prepare(pipeline, kw.build_plan(pipeline), CPU)
+    out, stats = emulate_warp(a, offset)
+    ref = kw.warp_reference(a).numpy()
+    ref = ref if batch else ref[None]
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert np.array_equal(out.view(np.uint32), ref.view(np.uint32)), \
+        f"{(out != ref).sum()} values differ; {stats}"
+    return stats
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("nch", [1, 3, 4])
+def test_packed_fetch_at_every_alignment(nch, offset):
+    """A rotation whose footprint covers the source's corners: interior
+    pixels fetch packed runs at every byte alignment, the first and last
+    words of the buffer and every border pixel take the per-byte paths."""
+    img = torch.from_numpy(_src(20 + nch, 24, 37, nch))
+    m = rotation((18, 12), 9.0, 1.1, to=(24, 16))
+    stats = _check_warp(T.warp(T.image(img), m, T.Size(48, 32),
+                               default=tuple(float(10 * i + 1) for i in range(nch))), offset)
+    assert stats["packed"] > 0 and stats["border"] > 0
+
+
+def test_the_buffers_first_and_last_words_are_not_fetched_packed():
+    """An identity map reads every pixel; at an odd address the threads
+    whose runs start in the buffer's first word or end in its last take the
+    per-byte path, those in between the packed one."""
+    img = torch.from_numpy(_src(30, 6, 9, 3))
+    ident = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
+    a = _check_warp(T.warp(T.image(img), ident, T.Size(9, 6)), offset=1)
+    b = _check_warp(T.warp(T.image(img), ident, T.Size(9, 6)), offset=0)
+    assert a["packed"] > 0 and a["border"] > b["border"]
+
+
+def test_float32_sources_take_the_plain_interior_path():
+    img = torch.from_numpy(_src(31, 24, 37, 3, np.float32))
+    stats = _check_warp(T.warp(T.image(img), rotation((18, 12), -12.0, 0.9), T.Size(40, 28)))
+    assert stats["packed"] == 0 and stats["plain"] > 0 and stats["border"] > 0
+
+
+def test_taps_with_one_valid_side():
+    """Half-pixel shifts put x0 = -1 and x0 = w - 1 (one valid tap of two)
+    on the first and last columns, the same for rows."""
+    img = torch.from_numpy(_src(32, 12, 16, 3))
+    m = np.array([[1.0, 0.0, 1.5], [0.0, 1.0, 1.5]])
+    stats = _check_warp(T.warp(T.image(img), m, T.Size(20, 16), default=(9.0, 8.0, 7.0)))
+    assert stats["border"] > 0 and stats["packed"] > 0
+
+
+@pytest.mark.parametrize("case", ["den_zero", "beyond_int32", "ordinary"])
+def test_perspective_denominators_and_far_coordinates(case):
+    img = torch.from_numpy(_src(33, 20, 28, 3))
+    m = {
+        # the inverse map's denominator 1 - x/8 is 0 on the output's column 8: taken as 1
+        "den_zero": np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.125, 0.0, 1.0]]),
+        # the inverse map scales by 1e9: coordinates far past 2^31
+        "beyond_int32": np.array([[1e-9, 0.0, 3.0], [0.0, 1e-9, 5.0], [0.0, 0.0, 1.0]]),
+        "ordinary": np.array([[0.9, 0.05, 1.0], [0.02, 1.1, -2.0], [1e-3, -2e-3, 1.0]]),
+    }[case]
+    read = T.warp(T.image(img), m, T.Size(24, 20), warp_type=T.WarpType.PERSPECTIVE,
+                  default=(1.0, 2.0, 3.0))
+    _check_warp(read)
+    c = np.asarray(read.coeffs, np.float32).reshape(3, 3)
+    if case == "den_zero":
+        assert c[2, 0] * np.float32(8) + c[2, 2] == 0
+    if case == "beyond_int32":
+        assert abs(c[0, 0]) * 20 > 2.0 ** 31
+
+
+def test_a_ragged_batch_of_one_shared_frame():
+    img = T.image(torch.from_numpy(_src(34, 24, 37, 3)))
+    mats = [rotation((18, 12), 5.0 * i - 8.0, 1.0 + 0.05 * i) for i in range(4)]
+    stats = _check_warp(T.warp_batch([img] * 4, mats, T.Size(32, 20), used_planes=3, default=3.0),
+                        offset=3, batch=True)
+    assert stats["packed"] > 0

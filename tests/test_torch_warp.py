@@ -113,7 +113,7 @@ def check_parity(*jax_ops, pallas=None):
     versions; returns the port's eager output."""
     jp = J.build_pipeline(*jax_ops)
     pipeline = from_jax(jp)
-    eager = T.execute_operations(pipeline.read, *pipeline.compute, pipeline.write)
+    eager = T.execute_operations(pipeline.read, *pipeline.compute, pipeline.write, device="cpu")
     assert T.last_backend() == "torch"
     _assert_equal(eager, jp.lower(), "eager vs the reference op by op")
     _assert_close(eager, J.execute_operations(*jax_ops, backend=J.ParBackend.XLA),
@@ -369,11 +369,11 @@ def test_batch_read_of_images_on_the_eager_path():
     jp = J.build_pipeline(*ops)
     pipeline = from_jax(jp)
     assert not kw.supports(pipeline)
-    out = T.execute_operations(pipeline.read, *pipeline.compute, pipeline.write)
+    out = T.execute_operations(pipeline.read, *pipeline.compute, pipeline.write, device="cpu")
     _assert_equal(out, jp.lower(), "batch_read of images vs the reference op by op")
     assert out.dtype == torch.uint8 and bool((out[3:] == 18).all())
     native = T.execute_operations(T.batch_read([T.image(i) for i in imgs], used_planes=3,
-                                               default=9.0), T.multiply(2.0))
+                                               default=9.0), T.multiply(2.0), device="cpu")
     assert torch.equal(native, out)
 
 
@@ -442,7 +442,7 @@ def test_matrix_values_and_used_planes_build_no_new_plan():
             T.warp_batch([frame] * 4,
                          [rotation((192, 48), angle + i, 0.5, to=(32, 16)) for i in range(4)],
                          T.Size(64, 32), used_planes=used, default=1.0),
-            T.split_tensor())
+            T.split_tensor(), device="cpu")
 
     first = call(3.0, 4)
     builds = executor.PLAN_BUILDS
@@ -457,11 +457,11 @@ def test_matrix_values_and_used_planes_build_no_new_plan():
 def test_backend_choice_on_the_cpu():
     ops = (T.warp(torch.from_numpy(_img(130)), rotation((192, 48), 10.0, 0.5), T.Size(64, 32)),
            T.split_tensor())
-    assert T.describe_backend(*ops) == "torch"
-    T.execute_operations(*ops)
+    assert T.describe_backend(*ops, device="cpu") == "torch"
+    T.execute_operations(*ops, device="cpu")
     assert T.last_backend() == "torch"
     with pytest.raises(ValueError, match="CUDA"):
-        T.execute_operations(*ops, backend=T.ParBackend.CUDA)
+        T.execute_operations(*ops, backend=T.ParBackend.CUDA, device="cpu")
 
 
 def test_error_paths_raise_like_reference():
@@ -494,7 +494,7 @@ def test_warp_of_a_read_op_counts_its_channels():
     src = T.resize(T.image(_img(160, c=4)), T.Size(100, 50))
     read = T.warp(src, rotation((50, 25), 10.0, 0.8), T.Size(64, 32), default=(1, 2, 3, 4))
     assert read.default.shape == (4,)
-    out = T.execute_operations(read, T.split_tensor())
+    out = T.execute_operations(read, T.split_tensor(), device="cpu")
     assert tuple(out.shape) == (4, 32, 64)
 
 
@@ -525,4 +525,4 @@ def test_kernel_refusals():
         assert not kw.supports(pipe), name
         if name == "warp_of_a_resize":
             # the eager version still runs it
-            assert tuple(T.execute_operations(*ops).shape) == (16, 32, 3)
+            assert tuple(T.execute_operations(*ops, device="cpu").shape) == (16, 32, 3)

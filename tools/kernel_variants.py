@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Time variants of the port's CUDA kernels against each other on one card.
+
+    python3 tools/kernel_variants.py variants.json [rounds]
+
+``variants.json`` maps a variant's name to a list of ``[old, new]`` text
+substitutions applied to the files of ``cvgpuspeedup_tpu_torch/csrc``; an
+empty list is the tree as it stands. A string instead of a list names
+another directory of sources, relative to the repo's root (an older commit's
+``csrc`` unpacked with ``git archive``), whose C interface must equal the
+present one. For example::
+
+    {"base": [],
+     "parent": "build/parent/cvgpuspeedup_tpu_torch/csrc",
+     "k1_256_threads": [["constexpr int kThreads = 128;\\nconstexpr int kPix",
+                         "constexpr int kThreads = 256;\\nconstexpr int kPix"]],
+     "warp_per_byte": [["if constexpr (sizeof(SrcT) == 1) {", "if constexpr (false) {"]]}
+
+Each variant's sources are written to a directory of their own and built
+into a library of their own (``_build.load(csrc_dir, build_dir)``). Then, in
+``rounds`` rounds (6 unless given) over all variants in turn, these launches
+are timed by CUDA events (median of 50) and by ``torch.profiler`` (median
+kernel duration of 20 launches), in microseconds: the flagship crop-resize
+of ``chip_smoke.py`` (``k1``), its timed warp cases W1, W2, W5 and W6, and
+its warp batch cut to 2, 3, 4 and 6 planes of 640x360 (``wb2`` .. ``wb6``),
+which lie between one warp and the batch of eight in output count. The
+cases are ``chip_smoke.py``'s own functions, so the two cannot drift. Each
+line gives every round's pair, then the median and the spread (min .. max)
+of the profiler's readings. ``ptxas`` lines that report a spill are printed
+per variant. Needs one CUDA card and ``nvcc``; comparing variants only makes
+sense within one run.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    import torch
+
+    if len(sys.argv) not in (2, 3):
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_variants: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    import cvgpuspeedup_tpu_torch as cvgs
+    from cvgpuspeedup_tpu_torch.exec import _build
+    from cvgpuspeedup_tpu_torch.exec import cuda_batch_resize as kbr
+    from cvgpuspeedup_tpu_torch.exec import cuda_warp as kw
+    from cvgpuspeedup_tpu_torch.graph import map_leaves
+    from cvgpuspeedup_tpu_torch.utils.dtypes import as_device_tensor
+    from cvgpuspeedup_tpu_torch.utils.profiling import time_cuda
+
+    variants = json.loads(Path(sys.argv[1]).read_text())
+    rounds = int(sys.argv[2]) if len(sys.argv) == 3 else 6
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(42)
+    frame = torch.from_numpy(rng.integers(0, 256, (cs.SRC_H, cs.SRC_W, 3), dtype=np.uint8)).to(dev)
+    hd = torch.from_numpy(rng.integers(0, 256, (cs.FRAME_H, cs.FRAME_W, 3), dtype=np.uint8)).to(dev)
+    rects = np.array([[i, i, 60, 120] for i in range(cs.BATCH)], np.int32)
+    shared = cvgs.image(hd)
+    timed = cs.timed_warp_cases(cvgs, shared)
+    cases = {"k1": (kbr, kbr.batch_resize, cs.flagship_ops(cvgs, frame, rects))}
+    for short, name in (("w1", "w1_k3_separable"), ("w2", "w2_k4_rotation"),
+                        ("w5", "w5_k5a_perspective_640x384"), ("w6", "w6_k5b_batch8_ragged7")):
+        cases[short] = (kw, kw.warp, timed[name])
+    for planes in (2, 3, 4, 6):
+        cases[f"wb{planes}"] = (kw, kw.warp,
+                                cs.warp_batch_ops(cvgs, shared, -10.0, planes, planes=planes))
+    launches = {}
+    for name, (module, wrapper, ops) in cases.items():
+        pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: as_device_tensor(v, dev))
+        args = module.prepare(pipe, module.build_plan(pipe), dev)
+        launches[name] = (lambda wrapper=wrapper, args=args: wrapper(args))
+
+    def profiler_us(fn, calls=20):
+        for _ in range(3):
+            fn()
+        for _ in range(3):  # a trace now and then comes back empty: take it again
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+            if us:
+                return float(np.median(us))
+        return float("nan")
+
+    csrc = ROOT / "cvgpuspeedup_tpu_torch" / "csrc"
+    with tempfile.TemporaryDirectory(prefix="kernel_variants_") as tmp:
+        dirs = {}
+        for vname, subs in variants.items():
+            d = Path(tmp) / vname
+            d.mkdir()
+            from_dir = csrc
+            if isinstance(subs, str):
+                from_dir, subs = ROOT / subs, []
+            unused = {old for old, _ in subs}
+            for f in sorted(from_dir.iterdir()):
+                text = f.read_text()
+                for old, new in subs:
+                    if old in text:
+                        unused.discard(old)
+                        text = text.replace(old, new)
+                (d / f.name).write_text(text)
+            if unused:
+                print(f"{vname}: no source holds {sorted(unused)}", file=sys.stderr)
+                return 1
+            dirs[vname] = d
+            _build.load(d, d / "out")
+            entry = ""
+            for line in _build.BUILD_LOG.splitlines():
+                if "Compiling entry" in line:
+                    entry = line.split("'")[1]
+                if "spill" in line and "0 bytes spill stores" not in line:
+                    print(f"{vname}: {entry}: {line.strip()}")
+
+        results: dict = {}
+        for _ in range(rounds):
+            for vname, d in dirs.items():
+                _build.load(d, d / "out")  # built above: this makes it the library in use
+                for cname, fn in launches.items():
+                    events = float(np.median(time_cuda(fn, iters=50))) * 1e3
+                    results.setdefault((cname, vname), []).append((events, profiler_us(fn)))
+    card = cs.gpu_name_and_limit()
+    for (cname, vname), got in sorted(results.items()):
+        prof = [p for _, p in got]
+        print(f"{cname:3s} {vname:20s} "
+              + " ".join(f"{e:.2f}/{p:.2f}" for e, p in got)
+              + f"  events/profiler us; profiler median {np.median(prof):.2f} "
+              f"({min(prof):.2f} .. {max(prof):.2f}); {card}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
