@@ -28,7 +28,11 @@ code and no result line:
    output width off the pixel group, a source view at an odd address, row
    pitches off 16 and off 4 bytes, a uint8 output off the group. frame_resize at the
    frame paths' sizes: (a), (b), a >32-phase ratio, an upscale, a uint8
-   chain with ``split()``, NV21 limited range with alpha, BGR -> RGBA.
+   chain with ``split()``, NV21 limited range with alpha, BGR -> RGBA, and
+   the pixel groups' paths (h-o): a width off the group of 4 with a packed
+   write, source views at an odd address, a row pitch of no alignment,
+   uint8 vector stores, a float32 RGBA source, NV12 and NV21 under 4 pixels
+   and 1 pixel per thread.
    warp on a 1080p frame, a case per class of the reference's warp kernels
    (W1 separable, W2 rotation, W3 flip, W4 upscaled rotation, W5
    perspective, W6 the batch of eight) and a uint8 chain on 4 channels with
@@ -39,13 +43,17 @@ code and no result line:
    a 16-plane ring read by two sequences from first = 3 and -5, eight NV12
    cameras with pass-through planes (and NV21 limited range), crops of the
    flagship frame with pass-through, warp | crop | pass, a whole-plane stack
-   resize with an image group, a uint8 chain, D4 written planar. uint8 must
+   resize with an image group, a uint8 chain, D4 written planar, and D8-D13:
+   groups of both output dtypes in one batch (each way round), a ring view
+   at an odd address with rows of 253 pixels, a float32 RGBA ring into
+   planar uint8, and the sampled kinds under 4 pixels per thread. uint8 must
    match bit for bit, float32 within 1e-6, warp float32 bit for bit too;
 4. the main paths: ``execute_operations`` twice each (new rects, new frame
    contents, new warp matrices and ``used_planes``) and
    ``launch_divergent_batch`` twice each for D1, D3, D4 (a new ``first``,
-   shifted rects, new matrices); each must take its kernel, launch it once
-   per call and build no new plan; the outputs are held against
+   shifted rects, new matrices) and once for a batch whose groups differ in
+   output dtype; each must take its kernel, launch it once per call and
+   build no new plan; the outputs are held against
    independent float64 versions. 40 ``CircularTensor`` updates must each
    launch the frame kernel, build no plan after the first, and leave every
    logical plane equal to an eager ring;
@@ -260,6 +268,105 @@ def timed_warp_cases(cvgs, read) -> dict:
                       warp_type=cvgs.WarpType.PERSPECTIVE), to_f32, cvgs.split_tensor()),
         "w6_k5b_batch8_ragged7": warp_batch_ops(cvgs, read, -10.0, 7),
     }
+
+
+def nv12_read(cvgs, buf, dst, fmt=None, **conv):
+    """An NV12 (or ``fmt``) buffer converted to float32 RGB (bt709 unless
+    given) and resized to ``dst``."""
+    conv.setdefault("standard", cvgs.ColorStandard.BT709)
+    return cvgs.resize(cvgs.fuse(cvgs.read_yuv(buf, pixel_format=fmt or cvgs.PixelFormat.NV12),
+                                 cvgs.convert_yuv_to_rgb(out_dtype=np.float32, **conv)),
+                       cvgs.Size(*dst))
+
+
+def frame_a_ops(cvgs, img, dst=FRAME_DST):
+    """Frame path (a): an RGB u8 frame -> ``dst``, x1/255, ImageNet
+    normalization, planar."""
+    return (cvgs.resize(cvgs.image(img), cvgs.Size(*dst)),
+            cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract(MEAN), cvgs.divide(STD),
+            cvgs.split_tensor())
+
+
+def frame_b_ops(cvgs, buf, dst=NV12_DST):
+    """Frame path (b): an NV12 buffer -> ``dst`` RGB f32 (bt709), x1/255, planar."""
+    return (nv12_read(cvgs, buf, dst), cvgs.multiply(1 / 255.0), cvgs.split_tensor())
+
+
+class DivergentRows:
+    """The reference's divergent rows (benchmarks/aux_pipelines.py) over
+    data made from one seed on ``dev``: D1 a ring of 16 planes read by two
+    sequences, D2 eight NV12 cameras and pass-through planes, D3 crops of
+    the flagship ``frame`` and pass-through, D4 warp | crop | pass. Each
+    method returns ``(plane ids, sequences)``."""
+
+    def __init__(self, cvgs, dev, frame):
+        import torch
+
+        rng = np.random.default_rng(9)
+        self.cvgs, self.frame, self.dsize = cvgs, frame, cvgs.Size(64, 128)
+
+        def to_dev(a):
+            return torch.from_numpy(a).to(dev)
+
+        self.ring_np = rng.integers(0, 256, (16, 128, 256, 3), dtype=np.uint8)
+        self.ring = to_dev(self.ring_np)
+        self.cams = [to_dev(rng.integers(0, 256, (192, 512), dtype=np.uint8))
+                     for _ in range(8)]
+        self.pass_d2 = to_dev(rng.integers(0, 200, (8, 64, 256, 3)).astype(np.float32))
+        self.flat_np = rng.integers(0, 200, (8, 128, 64, 3)).astype(np.float32)
+        self.flat = to_dev(self.flat_np)
+        self.imgs_np = [rng.integers(0, 256, (512, 768, 3), dtype=np.uint8) for _ in range(8)]
+        self.imgs = [to_dev(im) for im in self.imgs_np]
+        self.batch_u8 = to_dev(rng.integers(0, 256, (8, 128, 64, 3), dtype=np.uint8))
+
+    def d1(self, first, ring=None):
+        cvgs, seq = self.cvgs, self.cvgs.build_operation_sequence
+        ring = self.ring if ring is None else ring
+        read = cvgs.circular_batch_read(ring, first=first)
+        return [1 if z % 2 == 0 else 2 for z in range(ring.shape[0])], (
+            seq(read, cvgs.convert_to(np.float32, alpha=0.3), cvgs.subtract((1.0, 2.0, 3.0)),
+                cvgs.write_tensor()),
+            seq(read, cvgs.convert_to(np.float32, alpha=0.5), cvgs.multiply((2.0, 1.0, 0.5)),
+                cvgs.write_tensor()))
+
+    def d2(self, fmt=None, repeat=1, **conv):
+        cvgs, seq = self.cvgs, self.cvgs.build_operation_sequence
+        reads = [nv12_read(cvgs, b, (256, 64), fmt, **conv) for b in self.cams * repeat]
+        return [1 if z % 2 == 0 else 2 for z in range(8 * repeat)], (
+            seq(cvgs.batch_read(reads), cvgs.multiply(0.5), cvgs.write_tensor()),
+            seq(cvgs.image(self.pass_d2.repeat(repeat, 1, 1, 1)), cvgs.write_tensor()))
+
+    @staticmethod
+    def d3_rects(shift=0, n=8):
+        return np.array([[13 * z + shift, 9 * z + shift, 60, 120] for z in range(n)], np.int32)
+
+    def d3(self, rects):
+        cvgs, seq = self.cvgs, self.cvgs.build_operation_sequence
+        return [1 if z % 3 else 2 for z in range(8)], (
+            seq(cvgs.resize_batch(self.frame, rects=rects, dsize=self.dsize),
+                cvgs.convert_to(np.float32, alpha=0.5), cvgs.subtract((1.0, 2.0, 3.0)),
+                cvgs.write_tensor()),
+            seq(cvgs.image(self.flat), cvgs.multiply(2.0), cvgs.write_tensor()))
+
+    @staticmethod
+    def d4_mats(angle0, n=8):
+        return [rotation((384, 256), 4.0 * z + angle0, 1.0) for z in range(n)]
+
+    def d4(self, angle0=-14.0, write=None, repeat=1):
+        cvgs, seq = self.cvgs, self.cvgs.build_operation_sequence
+        write = write or cvgs.write_tensor
+        n = 8 * repeat
+        return [1, 2, 3, 1, 2, 3, 1, 2] * repeat, (
+            seq(cvgs.warp_batch([cvgs.image(im) for im in self.imgs * repeat],
+                                self.d4_mats(angle0, n), self.dsize), cvgs.multiply(0.5), write()),
+            seq(cvgs.resize_batch(self.frame, rects=self.d3_rects(n=n), dsize=self.dsize),
+                cvgs.convert_to(np.float32, alpha=0.5), write()),
+            seq(cvgs.image(self.flat.repeat(repeat, 1, 1, 1)), cvgs.multiply(2.0), write()))
+
+    def timed(self) -> dict:
+        """The rows that phase 5 times."""
+        return {"d1_circular_first3": self.d1(3), "d2_nv12_bt709": self.d2(),
+                "d3_crop_resize": self.d3(self.d3_rects()), "d4_warp_crop_pass": self.d4()}
 
 
 def warp_touched_bytes(args) -> int:
@@ -523,17 +630,11 @@ def main() -> int:
     hd = torch.from_numpy(hd_np).to(dev)
     nv12 = torch.from_numpy(nv12_np).to(dev)
 
-    def nv12_read(buf, dst, fmt=cvgs.PixelFormat.NV12, **conv):
-        conv.setdefault("standard", cvgs.ColorStandard.BT709)
-        return cvgs.resize(cvgs.fuse(cvgs.read_yuv(buf, pixel_format=fmt),
-                                     cvgs.convert_yuv_to_rgb(out_dtype=np.float32, **conv)),
-                           cvgs.Size(*dst))
-
     def frame_a(img):
-        return (cvgs.resize(cvgs.image(img), cvgs.Size(*FRAME_DST)), *normalize, cvgs.split_tensor())
+        return frame_a_ops(cvgs, img)
 
     def frame_b(buf):
-        return (nv12_read(buf, NV12_DST), cvgs.multiply(1 / 255.0), cvgs.split_tensor())
+        return frame_b_ops(cvgs, buf)
 
     check("a_1080p_rgb_normalize", *frame_a(hd), kernel="frame_resize")
     check("b_nv12_6k_bt709", *frame_b(nv12), kernel="frame_resize")
@@ -546,13 +647,49 @@ def main() -> int:
     check("e_u8_chain_split", cvgs.resize(cvgs.image(hd), cvgs.Size(*FRAME_DST)),
           cvgs.convert_to(np.uint8, alpha=0.5, beta=3.0), cvgs.split(), kernel="frame_resize")
     check("f_nv21_limited_alpha",
-          nv12_read(nv12, NV12_DST, cvgs.PixelFormat.NV21, standard=cvgs.ColorStandard.BT601,
+          nv12_read(cvgs, nv12, NV12_DST, cvgs.PixelFormat.NV21, standard=cvgs.ColorStandard.BT601,
                     color_range=cvgs.ColorRange.LIMITED, alpha=True),
           cvgs.split_tensor(), kernel="frame_resize")
     check("g_bgr2rgba_normalize", cvgs.resize(cvgs.image(hd), cvgs.Size(*FRAME_DST)),
           cvgs.cvt_color(cvgs.ColorConversionCode.COLOR_BGR2RGBA),
           cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract((*MEAN, 0.0)),
           cvgs.divide((*STD, 1.0)), cvgs.split_tensor(), kernel="frame_resize")
+    # (h)-(o) the pixel groups' paths. Launches of 1280x720 and more take 4
+    # pixels per thread, 640x360 takes 1: a width off the group of 4 with a
+    # packed write, a source view at an odd address (packed runs at the
+    # buffer's first and last words) under both, a row pitch of no
+    # alignment, uint8 vector stores, a float32 RGBA source, an NV12 buffer
+    # at an odd address (its UV pairs byte by byte), NV21 into a width off
+    # the group. The wrappers allocate their outputs, so a strided `out`
+    # view cannot be reached.
+    flat_hd = torch.from_numpy(rng.integers(0, 256, FRAME_H * FRAME_W * 3 + 1, dtype=np.uint8)).to(dev)
+    hd_odd = flat_hd[1:].view(FRAME_H, FRAME_W, 3)
+    assert hd_odd.data_ptr() % 2 == 1
+    flat_nv12 = torch.from_numpy(
+        rng.integers(0, 256, NV12_H * 3 // 2 * NV12_W + 1, dtype=np.uint8)).to(dev)
+    nv12_odd = flat_nv12[1:].view(NV12_H * 3 // 2, NV12_W)
+    assert nv12_odd.data_ptr() % 2 == 1
+    narrow_hd = torch.from_numpy(rng.integers(0, 256, (720, 1283, 3), dtype=np.uint8)).to(dev)
+    hd4f = torch.from_numpy(rng.integers(0, 256, (FRAME_H, FRAME_W, 4)).astype(np.float32)).to(dev)
+    check("h_1279x719_off_the_group_packed_write",
+          cvgs.resize(cvgs.image(hd), cvgs.Size(1279, 719)), *normalize, cvgs.write(),
+          kernel="frame_resize")
+    check("i_source_view_at_byte_offset_1_to_1280x720", *frame_a_ops(cvgs, hd_odd, (1280, 720)),
+          kernel="frame_resize")
+    check("i_source_view_at_byte_offset_1_to_640x360", *frame_a(hd_odd), kernel="frame_resize")
+    check("j_row_pitch_odd_to_960x600", *frame_a_ops(cvgs, narrow_hd, (960, 600)),
+          kernel="frame_resize")
+    check("k_u8_out_1280x720_planar", cvgs.resize(cvgs.image(hd), cvgs.Size(1280, 720)),
+          cvgs.convert_to(np.uint8, alpha=0.5, beta=3.0), cvgs.split_tensor(),
+          kernel="frame_resize")
+    check("l_f32_rgba_source_to_1280x720", cvgs.resize(cvgs.image(hd4f), cvgs.Size(1280, 720)),
+          cvgs.multiply(1 / 255.0), cvgs.split_tensor(), kernel="frame_resize")
+    check("m_nv12_buffer_at_byte_offset_1", *frame_b(nv12_odd), kernel="frame_resize")
+    check("n_nv21_to_1918x1078_packed_write",
+          nv12_read(cvgs, nv12, (1918, 1078), cvgs.PixelFormat.NV21), cvgs.multiply(1 / 255.0),
+          cvgs.write(), kernel="frame_resize")
+    check("o_nv12_to_640x360_one_pixel_per_thread", *frame_b_ops(cvgs, nv12, FRAME_DST),
+          kernel="frame_resize")
 
     # warp at the warp rows' sizes: one case per class of the reference's
     # warp kernels, all of a 1080p frame; the kernel must equal its plain
@@ -581,9 +718,6 @@ def main() -> int:
     # address (the runs in the buffer's first and last words), taps with one
     # valid side (half-pixel shifts), a perspective map whose denominator
     # crosses 0 and one whose coordinates leave int32, one channel
-    flat_hd = torch.from_numpy(rng.integers(0, 256, FRAME_H * FRAME_W * 3 + 1, dtype=np.uint8)).to(dev)
-    hd_odd = flat_hd[1:].view(FRAME_H, FRAME_W, 3)
-    assert hd_odd.data_ptr() % 2 == 1
     hd1 = hd[..., :1].contiguous()
     warp_cases.update({
         "w9_source_view_at_byte_offset_1_identity": (
@@ -613,61 +747,44 @@ def main() -> int:
     # pass-through planes, D3 crops of the flagship frame and pass-through,
     # D4 warp | crop | pass; then D5 a whole-plane stack resize with an image
     # group, D6 a uint8 chain in every group, D7 D4 written planar
-    drng = np.random.default_rng(9)
-    to_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    rows = DivergentRows(cvgs, dev, frame)
     seq = cvgs.build_operation_sequence
-    ring_np = drng.integers(0, 256, (16, 128, 256, 3), dtype=np.uint8)
-    ring = to_dev(ring_np)
-    cams = [to_dev(drng.integers(0, 256, (192, 512), dtype=np.uint8)) for _ in range(8)]
-    pass_d2 = to_dev(drng.integers(0, 200, (8, 64, 256, 3)).astype(np.float32))
-    flat_np = drng.integers(0, 200, (8, 128, 64, 3)).astype(np.float32)
-    flat = to_dev(flat_np)
-    imgs_np = [drng.integers(0, 256, (512, 768, 3), dtype=np.uint8) for _ in range(8)]
-    imgs = [to_dev(im) for im in imgs_np]
-    batch_u8 = to_dev(drng.integers(0, 256, (8, 128, 64, 3), dtype=np.uint8))
+    ring, ring_np, flat_np, imgs_np = rows.ring, rows.ring_np, rows.flat_np, rows.imgs_np
+    d1, d2, d3, d3_rects, d4, d4_mats = (rows.d1, rows.d2, rows.d3, rows.d3_rects, rows.d4,
+                                         rows.d4_mats)
+    batch_u8 = rows.batch_u8
 
-    def d1(first):
-        read = cvgs.circular_batch_read(ring, first=first)
-        return [1 if z % 2 == 0 else 2 for z in range(16)], (
-            seq(read, cvgs.convert_to(np.float32, alpha=0.3), cvgs.subtract((1.0, 2.0, 3.0)),
-                cvgs.write_tensor()),
-            seq(read, cvgs.convert_to(np.float32, alpha=0.5), cvgs.multiply((2.0, 1.0, 0.5)),
-                cvgs.write_tensor()))
-
-    def d2(fmt=cvgs.PixelFormat.NV12, **conv):
-        reads = [nv12_read(b, (256, 64), fmt, **conv) for b in cams]
-        return [1 if z % 2 == 0 else 2 for z in range(8)], (
-            seq(cvgs.batch_read(reads), cvgs.multiply(0.5), cvgs.write_tensor()),
-            seq(cvgs.image(pass_d2), cvgs.write_tensor()))
-
-    def d3_rects(shift=0):
-        return np.array([[13 * z + shift, 9 * z + shift, 60, 120] for z in range(8)], np.int32)
-
-    def d3(rects):
-        return [1 if z % 3 else 2 for z in range(8)], (
-            seq(cvgs.resize_batch(frame, rects=rects, dsize=dsize),
-                cvgs.convert_to(np.float32, alpha=0.5), cvgs.subtract((1.0, 2.0, 3.0)),
-                cvgs.write_tensor()),
-            seq(cvgs.image(flat), cvgs.multiply(2.0), cvgs.write_tensor()))
-
-    def d4_mats(angle0):
-        return [rotation((384, 256), 4.0 * z + angle0, 1.0) for z in range(8)]
-
-    def d4(angle0=-14.0, write=cvgs.write_tensor):
-        return [1, 2, 3, 1, 2, 3, 1, 2], (
-            seq(cvgs.warp_batch([cvgs.image(im) for im in imgs], d4_mats(angle0), dsize),
-                cvgs.multiply(0.5), write()),
-            seq(cvgs.resize_batch(frame, rects=d3_rects(), dsize=dsize),
-                cvgs.convert_to(np.float32, alpha=0.5), write()),
-            seq(cvgs.image(flat), cvgs.multiply(2.0), write()))
-
+    # D8-D13 the pixel groups' paths and the store of a group into a batch
+    # of another dtype. D1 and the batches of 16 x 128 x 253 outputs and more
+    # take 4 pixels per thread, D2-D7 take 1: groups of both output dtypes
+    # in one batch, uint8 first (the float32 groups store clamped, then
+    # truncated) and float32 first; a ring view at an odd address with rows
+    # of 253 pixels (misaligned groups and a tail in every row); a float32
+    # ring of 4 channels into planar uint8 (16-byte loads, 4-byte stores);
+    # the sampled kinds under 4 pixels per thread (48 planes of D4, 24 of D2)
+    flat_ring = torch.from_numpy(
+        np.random.default_rng(10).integers(0, 256, 16 * 128 * 253 * 3 + 1, dtype=np.uint8)).to(dev)
+    ring_odd = flat_ring[1:].view(16, 128, 253, 3)
+    assert ring_odd.data_ptr() % 2 == 1
+    ring_f32 = torch.from_numpy(np.random.default_rng(11).integers(
+        -40, 300, (16, 128, 256, 4)).astype(np.float32) / np.float32(3)).to(dev)
+    mixed_u8 = seq(cvgs.circular_batch_read(ring, first=5),
+                   cvgs.convert_to(np.uint8, alpha=0.5, beta=3.0), cvgs.write_tensor())
+    mixed_f32 = seq(cvgs.image(ring), cvgs.convert_to(np.float32, alpha=1.7), cvgs.add(-70.25),
+                    cvgs.write_tensor())
     divergent_cases = {
-        "d1_circular_first3": d1(3),
+        **rows.timed(),
         "d1_circular_first_minus5": d1(-5),
-        "d2_nv12_bt709": d2(),
         "d2_nv21_limited": d2(cvgs.PixelFormat.NV21, color_range=cvgs.ColorRange.LIMITED),
-        "d3_crop_resize": d3(d3_rects()),
-        "d4_warp_crop_pass": d4(),
+        "d8_mixed_dtypes_uint8_first": ([1, 2] * 8, (mixed_u8, mixed_f32)),
+        "d9_mixed_dtypes_float32_first": ([1, 2] * 8, (mixed_f32, mixed_u8)),
+        "d10_ring_view_at_byte_offset_1_rows_of_253": d1(-7, ring_odd),
+        "d11_f32_rgba_ring_to_planar_uint8": ([1, 2] * 8, (
+            seq(cvgs.circular_batch_read(ring_f32, first=2, ascendent=False),
+                cvgs.convert_to(np.uint8, alpha=0.9), cvgs.split_tensor()),
+            seq(cvgs.image(ring_f32), cvgs.convert_to(np.uint8), cvgs.split_tensor()))),
+        "d12_warp_crop_pass_48_planes": d4(repeat=6),
+        "d13_nv12_24_planes": d2(repeat=3),
         "d5_stack_resize_and_image": ([1, 2] * 4, (
             seq(cvgs.resize_batch(images, dsize=dsize), cvgs.convert_to(np.float32, alpha=1 / 255.0),
                 cvgs.write_tensor()),
@@ -883,6 +1000,21 @@ def main() -> int:
             f"oracle at planes {sorted(oracles)} {oracle_err!r} (on a 0..255 scale)")
         assert eager_err <= F32_TOL, eager_err
         assert oracle_err <= ORACLE_TOL, oracle_err
+
+    # groups of both output dtypes in one batch: one launch of the kernel, and
+    # what the eager merge gives (uint8, the float32 group clamped, then cut)
+    ids8, seqs8 = divergent_cases["d8_mixed_dtypes_uint8_first"]
+    kd.LAUNCHES = 0
+    mixed = drive("divergent", lambda: cvgs.launch_divergent_batch(ids8, *seqs8))
+    mixed_backend, mixed_launches = cvgs.last_backend(), kd.LAUNCHES
+    divergent_launches += kd.LAUNCHES
+    eager = cvgs.launch_divergent_batch(ids8, *seqs8, backend=cvgs.ParBackend.TORCH)
+    torch.cuda.synchronize()
+    log(f"phase4 divergent path (mixed dtypes): backend {mixed_backend}; launches "
+        f"{mixed_launches}; {tuple(mixed.shape)} {mixed.dtype}; equal to the eager merge "
+        f"{torch.equal(mixed, eager)}")
+    assert mixed_backend == "cuda:divergent" and mixed_launches == 1, (mixed_backend, mixed_launches)
+    assert mixed.dtype == torch.uint8 and torch.equal(mixed, eager)
 
     # CircularTensor at the reference's row: a 32-deep STANDARD ring of
     # 128x64 planes, 40 updates of a 1080p frame resized and scaled; each

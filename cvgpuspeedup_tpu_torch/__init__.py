@@ -56,13 +56,13 @@ import torch
 
 from .data.circular_tensor import CircularTensor
 from .exec.executor import (Pipeline, build_operation_sequence, build_pipeline, clear_cache,
-                            describe_backend, execute_operations, last_backend,
+                            default_device, describe_backend, execute_operations, last_backend,
                             launch_divergent_batch, meta_lower)
 from .graph import ComputeOp, FusedCompute, IOp, PendingReadOp, ReadOp, WriteOp, fuse
-from .ops.arithmetic import Add, Div, Mul, Sub
+from .ops.arithmetic import Add, Div, Mul, StaticLoop, Sub
 from .ops.border import BorderRead
 from .ops.cast import Cast, SaturateCast
-from .ops.color import ColorConversion
+from .ops.color import ColorConversion, VectorReorder
 from .ops.crop import CropRead
 from .ops.memory import (BatchRead, CircularBatchRead, ImageRead, SplitWrite, TensorSplit,
                          TensorSplitPacked, TensorTSplit, TensorWrite, Write2D)
@@ -71,8 +71,9 @@ from .ops.resize import BatchResizeRead, ResizeRead
 from .ops.warp import WarpRead, decompose_inverse_map, invert_affine, invert_perspective
 from .types import (AspectRatio, BorderMode, CircularTensorOrder, ColorConversionCode,
                     ColorPlanes, ColorRange, ColorStandard, InterpolationType, ParBackend,
-                    PixelFormat, Rect, Size, WarpType)
+                    PixelFormat, Point, Rect, Size, WarpType)
 from .utils import dtypes as _dt
+from .utils.dtypes import saturate_cast as saturate_cast_fn
 
 __version__ = "0.1.0"
 
@@ -139,6 +140,17 @@ def divide(value) -> ComputeOp:
 def cvt_color(code: ColorConversionCode) -> ComputeOp:
     """``cvGS::cvtColor<code>``."""
     return ColorConversion(code=code)
+
+
+def vector_reorder(*indices: int) -> ComputeOp:
+    """``fk::VectorReorder<idx...>``: output channel ``k`` takes channel
+    ``indices[k]``."""
+    return VectorReorder(indices=tuple(indices))
+
+
+def static_loop(body: ComputeOp, n: int) -> ComputeOp:
+    """``fk::StaticLoop<Op, N>``: ``body`` applied ``n`` times."""
+    return StaticLoop(body=body, n=n)
 
 
 def convert_yuv_to_rgb(
@@ -303,6 +315,14 @@ def crop_batch(source, rects: Sequence[Rect]) -> BatchRead:
     return BatchRead(ops=tuple(crop(src, r) for r in rects), used_planes=None, default=None)
 
 
+def set_to(value, shape, dtype=np.float32, device=None) -> torch.Tensor:
+    """``fk::setTo(value, ptr)``: a filled tensor (returned, not written
+    into a buffer). ``device`` defaults as in :func:`execute_operations`:
+    the current CUDA device, and the CPU only when asked for."""
+    return torch.full(tuple(shape), value, dtype=_dt.to_torch_dtype(dtype),
+                      device=default_device(device))
+
+
 def make_border(source, top: int, bottom: int, left: int, right: int,
                 mode: Optional[BorderMode] = None, value=0.0) -> BorderRead:
     """A border-extension read (``cv2.copyMakeBorder``); ``mode`` defaults to
@@ -452,15 +472,20 @@ __all__ = [
     "last_backend", "clear_cache",
     "build_operation_sequence", "launch_divergent_batch",
     # types
-    "Size", "Rect", "InterpolationType", "AspectRatio", "ParBackend", "ColorConversionCode",
+    "Size", "Point", "Rect", "InterpolationType", "AspectRatio", "ParBackend", "ColorConversionCode",
     "ColorRange", "ColorStandard", "PixelFormat", "WarpType", "BorderMode",
     "CircularTensorOrder", "ColorPlanes",
     # factories
-    "convert_to", "multiply", "add", "subtract", "divide", "cvt_color", "convert_yuv_to_rgb",
+    "convert_to", "multiply", "add", "subtract", "divide", "cvt_color", "vector_reorder",
+    "static_loop", "convert_yuv_to_rgb",
     "image", "read_yuv", "crop", "crop_batch", "resize", "resize_batch", "warp", "warp_batch",
-    "batch_read", "circular_batch_read", "make_border",
+    "batch_read", "circular_batch_read", "set_to", "make_border",
     "write", "write_tensor", "split", "split_tensor", "split_tensor_transposed",
     "split_tensor_packed",
+    # ops the factories above return and callers name
+    "StaticLoop", "VectorReorder",
     # data
     "CircularTensor",
+    # utils
+    "saturate_cast_fn",
 ]

@@ -15,22 +15,51 @@
 //   warp         a source per plane, 9 coefficients per plane (warp.cuh)
 // then the group's chain (chain.cuh) and one strided store.
 //
-// What bounds it: memory traffic and launch overhead. One thread per output
-// pixel (all channels), blocks of 64x4 threads so neighbouring threads store
-// neighbouring addresses in every planar layout, grid.z = plane; every block
-// of a plane takes the same branch, so the switch costs no divergence
-// within a warp. Taps are read straight from global memory. The TPU
-// kernel's scalar-prefetch ring, 2-slot DMA, interleaved lane coefficients,
-// baked one-hot NV12 and warp matrices and VMEM/lane gates are not carried
-// over: Hopper gathers, and runtime matrices, rects and `first`s come from
-// the parameter block, so nothing is baked and nothing keys a cache.
+// What bounds it: bytes in a large batch, the launch itself in a small one.
+// A (16, 128, 256, 3) u8 ring read into f32 moves 7.9 MB; a batch of eight
+// 64x128 planes moves about 1 MB and takes the time of an almost empty
+// kernel whatever it does. In practice a large batch was bound by its
+// instruction count: one thread per pixel read its descriptor with a dozen
+// scalar loads, its pixel byte by byte, decoded the chain per pixel and
+// stored scalars.
+//
+// What the design does about it:
+//  - grid.z = plane; a block's planes are one, so every thread of a block
+//    takes the same branch and the switch costs no divergence. A thread
+//    reads its plane's group, source address and the group's 16-word
+//    descriptor once, the descriptor as four 16-byte loads, all started
+//    before anything depends on them.
+//  - Blocks of 256 threads, a thread owning P adjacent output pixels of one
+//    row (pixels_per_thread: 4 in a large launch, 1 in a small one; the
+//    block is 64 x 4 threads, narrowed for a narrow plane by group_block).
+//  - The image and circ kinds copy: a thread's P pixels are P * nch
+//    contiguous elements, read element by element. Fetching an aligned
+//    group as nch 4-byte words of uint8 or 16-byte vectors of float32 was
+//    built and measured slower on an H100 (a (16, 128, 256, 3) ring: uint8
+//    6.75 against 6.59 us, float32 7.18 against 6.61): a word fetch trades
+//    9 one-byte loads, which hit L1, for 12 byte extractions, and the
+//    float32 vectors' 16 temporaries cost registers.
+//  - The sampled kinds run the samplers their kernels share (batch_resize.cuh,
+//    frame_resize.cuh, warp.cuh) for each of the thread's pixels; the NV12
+//    kind reads its row's taps once per thread. Their unrolled code sets the
+//    register count: at 64 registers four blocks fit an SM, and a variant
+//    at 72 ran the ring read a fifth slower.
+//  - The chain is decoded once per op for the thread's pixels, and each
+//    channel of a planar output goes out as one 16-byte store (uint8: 4
+//    bytes) where the address allows (chain.cuh).
+// The TPU kernel's scalar-prefetch ring, 2-slot DMA, interleaved lane
+// coefficients, baked one-hot NV12 and warp matrices and VMEM/lane gates
+// are not carried over: Hopper gathers, and runtime matrices, rects and
+// `first`s come from the parameter block, so nothing is baked and nothing
+// keys a cache.
 //
 // The parameter block (int32 words, exec/cuda_divergent.py::prepare):
 //   [0, N)           the plane -> group table
 //   ptr_off          N source addresses (8-byte words), one per plane
 //   per group        first, used_planes, rects, background, warp
 //                    coefficients and borders, chain scalars
-//   desc_off         one descriptor of kDescInts words per group, fields D_*
+//   desc_off         one descriptor (struct Desc, 16 words) per group, at a
+//                    multiple of 4 words
 // The consts (the plan's): every group's op rows, then each NV12 group's
 // tap table, weights and 6 conversion floats.
 //
@@ -46,127 +75,159 @@ namespace {
 // group kinds; keep in step with exec/cuda_divergent.py::KINDS
 enum : int { K_IMAGE = 0, K_CIRC = 1, K_CROP = 2, K_STACK = 3, K_NV12 = 4, K_WARP = 5 };
 
-// descriptor fields; keep in step with exec/cuda_divergent.py::prepare
-enum : int {
-  D_KIND = 0,
-  D_SRC_H = 1,
-  D_SRC_W = 2,
-  D_NCH = 3,
-  D_SRC_U8 = 4,
-  D_N_SRC = 5,    // planes of the ring or stack
-  D_FIRST = 6,    // circ: block offset of `first`
-  D_ASC = 7,      // circ: ascending
-  D_MODE = 8,     // crop, stack: aspect-ratio mode
-  D_USED = 9,     // crop, stack: block offset of used_planes
-  D_OP_OFF = 10,  // first op row in the consts
-  D_N_OPS = 11,
-  D_FP_OFF = 12,  // block offset of the chain scalars
-  D_DATA = 13,    // crop, stack: rects; warp: coefficients (block); nv12: taps (consts)
-  D_FLAGS = 14,   // nv12: keep_edge | nv21 << 1 | limited << 2 | alpha << 3; warp: perspective
-  D_AUX = 15,     // crop, stack: background; warp: borders (block); nv12: weights (consts)
-  kDescInts = 16,
+// A group's descriptor, 16 int32 words in this order; keep in step with
+// exec/cuda_divergent.py::prepare
+struct Desc {
+  int kind, src_h, src_w, nch;
+  int src_u8;
+  int n_src;   // planes of the ring or stack
+  int first;   // circ: block offset of `first`
+  int asc;     // circ: ascending
+  int mode;    // crop, stack: aspect-ratio mode
+  int used;    // crop, stack: block offset of used_planes
+  int op_off;  // first op row in the consts
+  int n_ops;
+  int fp_off;  // block offset of the chain scalars
+  int data;    // crop, stack: rects; warp: coefficients (block); nv12: taps (consts)
+  int flags;   // nv12: keep_edge | nv21 << 1 | limited << 2 | alpha << 3; warp: perspective;
+               // every kind: kClampStore
+  int aux;     // crop, stack: background; warp: borders (block); nv12: weights (consts)
 };
+static_assert(sizeof(Desc) == 64, "four 16-byte words");
 
-template <typename SrcT>
-__device__ __forceinline__ void load_pixel(const SrcT* __restrict__ p, int nch,
-                                           float (&v)[kMaxCh]) {
-#pragma unroll
-  for (int c = 0; c < kMaxCh; ++c) {
-    if (c < nch) v[c] = (float)__ldg(p + c);
-  }
+// The group's float32 values go into a uint8 batch (plane 0's group gave
+// the batch its dtype): clamp to [0, 255], then truncate, as the eager
+// merge's astype does, not the chain's round-half-even saturate.
+constexpr int kClampStore = 1 << 8;
+
+__device__ __forceinline__ Desc load_desc(const int* __restrict__ p) {
+  const int4* q = reinterpret_cast<const int4*>(p);
+  const int4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2), d = __ldg(q + 3);
+  return {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w, d.x, d.y, d.z, d.w};
 }
 
-template <typename OutT>
+// The adjacent output pixels a thread takes, from the launch's output
+// count: 4 where a thread per 4 pixels still fills a third of the card's
+// resident threads, else 1. On an H100 (360,448 outputs; profiler medians,
+// 1 pixel against 4): a ring copy of 12 planes of 128x256 (393,216) 6.82
+// against 5.90 us, of 8 planes 5.25 against 5.06; 40 planes of warp | crop |
+// pass at 64x128 (327,680) 7.16 against 7.86, 48 planes 8.03 against 8.14;
+// eight planes (65,536) 3.1 to 3.8 against 4.2 to 6.3. 2 pixels per thread
+// lost everywhere (the 16-plane ring 14.8 against 6.7 us).
+inline int pixels_per_thread(long long outputs) {
+  return 3 * outputs >= 4 * resident_threads() ? 4 : 1;
+}
+
+template <typename OutT, int P>
 __global__ void __launch_bounds__(256) divergent_kernel(
     const int* __restrict__ blk, const int* __restrict__ consts, int ptr_off, int desc_off,
     int dst_w, int dst_h, OutT* __restrict__ out, int out_ch, long long sn, long long sc,
     long long sy, long long sx) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int x = (blockIdx.x * blockDim.x + threadIdx.x) * P;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int z = blockIdx.z;
   if (x >= dst_w || y >= dst_h) return;
+  const int n = min(P, dst_w - x);
 
   const float* fblk = reinterpret_cast<const float*>(blk);
   const float* fconsts = reinterpret_cast<const float*>(consts);
-  const int* d = blk + desc_off + kDescInts * __ldg(blk + z);
-  const int kind = __ldg(d + D_KIND);
-  const int src_h = __ldg(d + D_SRC_H), src_w = __ldg(d + D_SRC_W), nch = __ldg(d + D_NCH);
-  const bool u8 = __ldg(d + D_SRC_U8) != 0;
+  // the plane's uniform loads: its source address beside its group, then
+  // the group's descriptor in four loads
+  const int group = __ldg(blk + z);
   const void* base = reinterpret_cast<const void*>(
       __ldg(reinterpret_cast<const unsigned long long*>(blk + ptr_off) + z));
+  const Desc d = load_desc(blk + desc_off + (int)(sizeof(Desc) / 4) * group);
+  const bool u8 = d.src_u8 != 0;
+  const int src_h = d.src_h, src_w = d.src_w, nch = d.nch;
 
-  float vv[1][kMaxCh] = {{0.f, 0.f, 0.f, 0.f}};
-  float(&v)[kMaxCh] = vv[0];
+  float v[P][kMaxCh];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+#pragma unroll
+    for (int c = 0; c < kMaxCh; ++c) v[q][c] = 0.f;
+  }
   int ch = nch;
-  switch (kind) {
+  switch (d.kind) {
     case K_IMAGE:
     case K_CIRC: {
       int pz = z;
-      if (kind == K_CIRC) {
-        const int n_src = __ldg(d + D_N_SRC);
-        const int first = __ldg(blk + __ldg(d + D_FIRST));
-        const int t = __ldg(d + D_ASC) ? first + z : first - z;
-        pz = t - floor_div(t, n_src) * n_src;  // floor modulo, as Python's %
+      if (d.kind == K_CIRC) {
+        const int first = __ldg(blk + d.first);
+        const int t = d.asc ? first + z : first - z;
+        pz = t - floor_div(t, d.n_src) * d.n_src;  // floor modulo, as Python's %
       }
       const long long off = (((long long)pz * src_h + y) * src_w + x) * nch;
-      if (u8) {
-        load_pixel(static_cast<const uint8_t*>(base) + off, nch, v);
-      } else {
-        load_pixel(static_cast<const float*>(base) + off, nch, v);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        if (q >= n) continue;
+        if (u8) {
+          load_pixel(static_cast<const uint8_t*>(base) + off + q * nch, nch, v[q]);
+        } else {
+          load_pixel(static_cast<const float*>(base) + off + q * nch, nch, v[q]);
+        }
       }
       break;
     }
     case K_CROP:
     case K_STACK: {
-      bool sampled = false;
-      if (z < __ldg(blk + __ldg(d + D_USED))) {
-        const int* r = blk + __ldg(d + D_DATA) + 4 * z;
-        const int rx = __ldg(r), ry = __ldg(r + 1), rw = __ldg(r + 2), rh = __ldg(r + 3);
-        const int mode = __ldg(d + D_MODE);
-        const long long plane = kind == K_STACK ? (long long)z * src_h * src_w * nch : 0;
-        if (u8) {
-          sampled = sample_crop(static_cast<const uint8_t*>(base) + plane, src_h, src_w, nch, rx,
-                                ry, rw, rh, dst_w, dst_h, mode, x, y, v);
-        } else {
-          sampled = sample_crop(static_cast<const float*>(base) + plane, src_h, src_w, nch, rx,
-                                ry, rw, rh, dst_w, dst_h, mode, x, y, v);
-        }
-      }
-      if (!sampled) {
-        const float* bg = fblk + __ldg(d + D_AUX);
+      const float* bg = fblk + d.aux;
+      const bool used = z < __ldg(blk + d.used);
+      const int* r = blk + d.data + 4 * z;
+      const int rx = __ldg(r), ry = __ldg(r + 1), rw = __ldg(r + 2), rh = __ldg(r + 3);
+      const long long plane = d.kind == K_STACK ? (long long)z * src_h * src_w * nch : 0;
 #pragma unroll
-        for (int c = 0; c < kMaxCh; ++c) v[c] = c < nch ? __ldg(bg + c) : 0.f;
+      for (int q = 0; q < P; ++q) {
+        if (q >= n) continue;
+        bool sampled = false;
+        if (used) {
+          if (u8) {
+            sampled = sample_crop(static_cast<const uint8_t*>(base) + plane, src_h, src_w, nch,
+                                  rx, ry, rw, rh, dst_w, dst_h, d.mode, x + q, y, v[q]);
+          } else {
+            sampled = sample_crop(static_cast<const float*>(base) + plane, src_h, src_w, nch, rx,
+                                  ry, rw, rh, dst_w, dst_h, d.mode, x + q, y, v[q]);
+          }
+        }
+        if (!sampled) {
+#pragma unroll
+          for (int c = 0; c < kMaxCh; ++c) v[q][c] = c < nch ? __ldg(bg + c) : 0.f;
+        }
       }
       break;
     }
     case K_NV12: {
-      const int flags = __ldg(d + D_FLAGS);
-      const float* wts = fconsts + __ldg(d + D_AUX);
+      const float* wts = fconsts + d.aux;
       const float* cf = wts + dst_w + dst_h;
-      const Conv conv{(flags >> 2) & 1, (flags >> 3) & 1, __ldg(cf),     __ldg(cf + 1),
-                      __ldg(cf + 2),    __ldg(cf + 3),    __ldg(cf + 4), __ldg(cf + 5)};
-      sample_nv12(static_cast<const uint8_t*>(base), src_h, src_w, (flags >> 1) & 1,
-                  consts + __ldg(d + D_DATA), wts, dst_w, dst_h, x, y, (flags & 1) != 0, conv, v);
+      const Conv conv{(d.flags >> 2) & 1, (d.flags >> 3) & 1, __ldg(cf),     __ldg(cf + 1),
+                      __ldg(cf + 2),      __ldg(cf + 3),      __ldg(cf + 4), __ldg(cf + 5)};
+      const int* taps = consts + d.data;
+      nv12_pixels<P>(nv12_rows(static_cast<const uint8_t*>(base), src_h, src_w, taps, wts, dst_w,
+                               dst_h, y),
+                     (d.flags >> 1) & 1, taps, wts, dst_w, dst_h, x, n, (d.flags & 1) != 0, conv, v);
       ch = conv.alpha ? 4 : 3;
       break;
     }
     case K_WARP: {
-      const float* c = fblk + __ldg(d + D_DATA) + kCoeffs * z;
-      const float* b = fblk + __ldg(d + D_AUX) + kMaxCh * z;
-      const bool persp = (__ldg(d + D_FLAGS) & 1) != 0;
-      if (u8) {
-        const uint8_t* src = static_cast<const uint8_t*>(base);
-        if (persp) {
-          sample_warp<uint8_t, true>(src, src_h, src_w, nch, c, b, x, y, v);
+      const float* c = fblk + d.data + kCoeffs * z;
+      const float* b = fblk + d.aux + kMaxCh * z;
+      const bool persp = (d.flags & 1) != 0;
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        if (q >= n) continue;
+        if (u8) {
+          const uint8_t* src = static_cast<const uint8_t*>(base);
+          if (persp) {
+            sample_warp<uint8_t, true>(src, src_h, src_w, nch, c, b, x + q, y, v[q]);
+          } else {
+            sample_warp<uint8_t, false>(src, src_h, src_w, nch, c, b, x + q, y, v[q]);
+          }
         } else {
-          sample_warp<uint8_t, false>(src, src_h, src_w, nch, c, b, x, y, v);
-        }
-      } else {
-        const float* src = static_cast<const float*>(base);
-        if (persp) {
-          sample_warp<float, true>(src, src_h, src_w, nch, c, b, x, y, v);
-        } else {
-          sample_warp<float, false>(src, src_h, src_w, nch, c, b, x, y, v);
+          const float* src = static_cast<const float*>(base);
+          if (persp) {
+            sample_warp<float, true>(src, src_h, src_w, nch, c, b, x + q, y, v[q]);
+          } else {
+            sample_warp<float, false>(src, src_h, src_w, nch, c, b, x + q, y, v[q]);
+          }
         }
       }
       break;
@@ -175,14 +236,17 @@ __global__ void __launch_bounds__(256) divergent_kernel(
       break;
   }
 
-  run_chain(vv, ch, consts + 4 * __ldg(d + D_OP_OFF), __ldg(d + D_N_OPS),
-            fblk + __ldg(d + D_FP_OFF));
+  run_chain(v, ch, consts + 4 * d.op_off, d.n_ops, fblk + d.fp_off);
 
-  OutT* o = out + (long long)z * sn + (long long)y * sy + (long long)x * sx;
+  if (d.flags & kClampStore) {
 #pragma unroll
-  for (int c = 0; c < kMaxCh; ++c) {
-    if (c < out_ch) o[c * sc] = to_out<OutT>(v[c]);
+    for (int q = 0; q < P; ++q) {
+#pragma unroll
+      for (int c = 0; c < kMaxCh; ++c) v[q][c] = fminf(fmaxf(v[q][c], 0.f), 255.f);
+    }
   }
+
+  store_any(out + (long long)z * sn + (long long)y * sy + (long long)x * sx, v, n, out_ch, sc, sx);
 }
 
 }  // namespace
@@ -190,26 +254,35 @@ __global__ void __launch_bounds__(256) divergent_kernel(
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
 // `blk` is the parameter block and `consts` the plan's tables, laid out as
 // above; `out` is uint8 (out_u8 = 1) or float32 with out_ch channels,
-// element strides (sn, sc, sy, sx) per (plane, channel, row, col).
+// element strides (sn, sc, sy, sx) per (plane, channel, row, col). `blk`
+// lies at a multiple of 16 bytes and `desc_off` is a multiple of 4.
 extern "C" int cvgs_divergent(const int* blk, const int* consts, int ptr_off, int desc_off,
                               int n_groups, int n_planes, int dst_w, int dst_h, void* out,
                               int out_u8, int out_ch, long long sn, long long sc, long long sy,
                               long long sx, void* stream) {
   if (out_ch < 1 || out_ch > kMaxCh || n_planes < 1 || n_planes > 65535 || n_groups < 1 ||
-      dst_w < 1 || dst_h < 1 || ptr_off < n_planes || (ptr_off & 1) || desc_off <= ptr_off) {
+      dst_w < 1 || dst_h < 1 || ptr_off < n_planes || (ptr_off & 1) || desc_off <= ptr_off ||
+      (desc_off & 3) || (reinterpret_cast<unsigned long long>(blk) & 15ull)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(64, 4);
-  const dim3 grid((dst_w + 63) / 64, (dst_h + 3) / 4, n_planes);
-  if (out_u8) {
-    divergent_kernel<uint8_t><<<grid, block, 0, s>>>(blk, consts, ptr_off, desc_off, dst_w,
-                                                     dst_h, static_cast<uint8_t*>(out), out_ch,
-                                                     sn, sc, sy, sx);
+  const int pix = pixels_per_thread((long long)n_planes * dst_w * dst_h);
+  const dim3 block = group_block(dst_w, pix);
+  const int tile_w = block.x * pix;
+  const dim3 grid((dst_w + tile_w - 1) / tile_w, (dst_h + block.y - 1) / block.y, n_planes);
+#define CVGS_KERNEL(OutT, P)                                                                \
+  divergent_kernel<OutT, P><<<grid, block, 0, s>>>(blk, consts, ptr_off, desc_off, dst_w,   \
+                                                   dst_h, static_cast<OutT*>(out), out_ch,  \
+                                                   sn, sc, sy, sx)
+  if (out_u8 && pix == 4) {
+    CVGS_KERNEL(uint8_t, 4);
+  } else if (out_u8) {
+    CVGS_KERNEL(uint8_t, 1);
+  } else if (pix == 4) {
+    CVGS_KERNEL(float, 4);
   } else {
-    divergent_kernel<float><<<grid, block, 0, s>>>(blk, consts, ptr_off, desc_off, dst_w, dst_h,
-                                                   static_cast<float*>(out), out_ch, sn, sc, sy,
-                                                   sx);
+    CVGS_KERNEL(float, 1);
   }
+#undef CVGS_KERNEL
   return (int)cudaGetLastError();
 }

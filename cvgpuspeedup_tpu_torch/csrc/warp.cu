@@ -82,14 +82,7 @@ constexpr int kThreads = 128;  // a block covers kThreads * P / kTileW output ro
 // (691,200) 9.5 against 8.8, eight 21.6 against 15.0. 2 pixels per thread
 // won at no size.
 inline int pixels_per_thread(long long outputs) {
-  static const long long resident = [] {
-    int dev = 0, sms = 132, threads = 2048;  // an H100, should a query fail
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaDeviceGetAttribute(&threads, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
-    return (long long)sms * threads;
-  }();
-  return outputs >= 2 * resident ? 4 : 1;
+  return outputs >= 2 * resident_threads() ? 4 : 1;
 }
 
 // The 2 * nch bytes at p (two adjacent taps of a uint8 row): `left` holds
@@ -107,10 +100,6 @@ __device__ __forceinline__ void load_run(const uint8_t* __restrict__ p, int nch,
   const unsigned hi = __funnelshift_r(w1, w2, 8u * k);
   left = lo;
   right = __funnelshift_rc(lo, hi, 8u * (unsigned)nch);
-}
-
-__device__ __forceinline__ float byte_of(unsigned w, int i) {
-  return (float)((w >> (8 * i)) & 0xffu);
 }
 
 // Whether the four taps around (px, py) all lie inside the source and, for

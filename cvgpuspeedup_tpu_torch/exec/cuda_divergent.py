@@ -36,8 +36,12 @@ then the first sequence's write. :func:`divergent_reference`, the plain
 PyTorch version, runs it on the launch's device; it reads neither the block
 nor the tables, so holding the kernel against it checks them.
 
+Groups may differ in output dtype: the batch takes plane 0's group's, and
+a float32 group of a uint8 batch stores through the merge's own cast
+(clamp, then truncate; ``CLAMP_STORE`` in the group's flags).
+
 Refused (:class:`Unsupported`, before anything launches): a group of no
-kind above, groups that differ in output (H, W, C) or dtype, a ragged
+kind above, groups that differ in output (H, W, C), a ragged
 ``BatchRead`` group, more than 4 channels. None of the TPU kernel's schedule
 comes over (scalar-prefetch ring, 2-slot DMA, interleaved lane coefficients,
 baked one-hot NV12 and warp matrices, VMEM and lane gates).
@@ -74,6 +78,7 @@ LAUNCHES = 0
 # group kinds; keep in step with csrc/divergent.cu
 KINDS = ("image", "circ", "crop_resize", "resize", "nv12", "warp")
 DESC_INTS = 16      # ints per group descriptor; csrc/divergent.cu reads the same fields
+CLAMP_STORE = 1 << 8  # in a group's flags: float32 values stored into a uint8 batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +95,8 @@ class Group:
     n_src: int             # planes of an image, ring or stack source
     ascendent: bool        # circ
     mode: int              # crop_resize, resize: the aspect-ratio code
-    flags: int             # nv12: keep_edge | nv21 << 1 | limited << 2 | alpha << 3; warp: perspective
+    flags: int             # nv12: keep_edge | nv21 << 1 | limited << 2 | alpha << 3; warp: perspective;
+                           # any kind: CLAMP_STORE
     op_off: int            # first op row in the plan's consts
     n_ops: int
     tab_off: int           # nv12: taps, then weights, then 6 conversion floats, in the consts
@@ -281,9 +287,11 @@ def build_plan(seqs, plane_ids) -> DivergentPlan:
             raise Unsupported(f"output planes of {w_out}x{h_out}")
         if shape is None:
             shape, out_dtype = (h_out, w_out, och), odt
-        elif (h_out, w_out, och) != shape or odt != out_dtype:
-            raise Unsupported(f"group {g} gives ({h_out}, {w_out}, {och}) {odt}, "
-                              f"group 0 {shape} {out_dtype}")
+        elif (h_out, w_out, och) != shape:
+            raise Unsupported(f"group {g} gives ({h_out}, {w_out}, {och}), group 0 {shape}")
+        # the merge casts a group into the batch's dtype (utils.dtypes.astype):
+        # float32 into uint8 clamps, then truncates; uint8 into float32 is exact
+        clamp = CLAMP_STORE if (odt, out_dtype) == (torch.float32, torch.uint8) else 0
         tab_off = -1
         if "tables" in extra:
             tab_off = extra_off
@@ -293,7 +301,7 @@ def build_plan(seqs, plane_ids) -> DivergentPlan:
             sid=sid, kind=kind, planes=tuple(planes), src_h=geo["src_h"], src_w=geo["src_w"],
             nch=geo["nch"], src_dtype=geo["src_dtype"], n_src=geo.get("n_src", 1),
             ascendent=geo.get("ascendent", True), mode=geo.get("mode", 0),
-            flags=geo.get("flags", 0), op_off=n_rows, n_ops=ops.shape[0], tab_off=tab_off))
+            flags=geo.get("flags", 0) | clamp, op_off=n_rows, n_ops=ops.shape[0], tab_off=tab_off))
         rows.append(ops)
         n_rows += ops.shape[0]
     # the NV12 tables follow the op rows: their offsets move past them
@@ -428,6 +436,7 @@ def prepare(seqs, plan: DivergentPlan, device: torch.device) -> Launch:
         d[12] = blk.size
         for v in flatten(tuple(seq.compute))[1]:
             blk.put(v, np.float32)
+    blk.put(np.zeros(-blk.size % 4, np.int32), np.int32)  # the kernel reads 16-byte words
     desc_off = blk.put(desc, np.int32)
     return Launch(plan=plan, seqs=tuple(seqs), srcs=tuple(srcs), block=blk.to(device),
                   ptr_off=ptr_off, desc_off=desc_off, consts=plan.device_tables(device))

@@ -19,6 +19,14 @@ class Size(NamedTuple):
     height: int
 
 
+class Point(NamedTuple):
+    """A position ``(x, y, z)``; ``z`` is the plane of a batch."""
+
+    x: int = 0
+    y: int = 0
+    z: int = 0
+
+
 class Rect(NamedTuple):
     """Crop rectangle ``[x, y, width, height]``."""
 

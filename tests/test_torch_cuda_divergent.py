@@ -1,7 +1,8 @@
 """The divergent kernel on the card: what ``chip_smoke.py`` phases 3 and 4
 check at the reference's row sizes, here at reduced sizes for each group
 kind, the seven D cases, the floor modulo of ``first``, negative rect
-origins and every write layout. Needs a CUDA device and skips without one.
+origins, every write layout, batches large enough for 4 pixels per thread
+and groups of different output dtypes. Needs a CUDA device and skips without one.
 On a machine with a card and without jax, run it alone:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda_divergent.py
@@ -98,7 +99,7 @@ def d4_warp_crop_pass(angle0=-14.0, write=T.write_tensor, n=8):
     s2 = _seq(T.resize_batch(frame, rects=rects, dsize=T.Size(64, 128)),
               T.convert_to(np.float32, alpha=0.5), write())
     s3 = _seq(T.image(flat), T.multiply(2.0), write())
-    return [1, 2, 3, 1, 2, 3, 1, 2][:n], (s1, s2, s3)
+    return ([1, 2, 3, 1, 2, 3, 1, 2] * (n // 8 + 1))[:n], (s1, s2, s3)
 
 
 def d5_stack_resize_and_image(n=6):
@@ -146,22 +147,58 @@ def six_kinds(n=6, h=16, w=32):
     ]
 
 
+def mixed_dtypes(first="uint8", n=16, h=96, w=256):
+    """A uint8 chain and a float32 chain in one batch, large enough for 4
+    pixels per thread; the batch takes the dtype of plane 0's group."""
+    ring = _u8(np.random.default_rng(15), (n, h, w, 3))
+    s_u8 = _seq(T.circular_batch_read(ring, first=5), T.convert_to(np.uint8, alpha=0.5, beta=3.0),
+                T.write_tensor())
+    s_f32 = _seq(T.image(ring), T.convert_to(np.float32, alpha=1.7), T.add(-70.25),
+                 T.write_tensor())
+    seqs = (s_u8, s_f32) if first == "uint8" else (s_f32, s_u8)
+    return [1 + z % 2 for z in range(n)], seqs
+
+
+def ring_off_the_vector(dtype, nch, write, dev, n=16, h=96, w=253):
+    """A ring view on the card one element past an aligned address, rows of
+    253 pixels: a tail in every row, under 4 pixels per thread."""
+    flat = np.random.default_rng(16).integers(0, 256, n * h * w * nch + 1).astype(dtype)
+    ring = torch.from_numpy(flat).to(dev)[1:].view(n, h, w, nch)
+    to_out = T.convert_to(np.float32, alpha=0.5) if dtype == np.uint8 else T.convert_to(np.uint8)
+    return [1 + z % 2 for z in range(n)], (
+        _seq(T.circular_batch_read(ring, first=-3), to_out, write()),
+        _seq(T.image(ring), to_out, T.add(1.0), write()))
+
+
 CASES = {
-    "d1_circular_first3": lambda: d1_circular(3),
-    "d1_circular_first_minus5": lambda: d1_circular(-5),
-    "d2_nv12_bt709": lambda: d2_nv12(),
-    "d2_nv21_limited": lambda: d2_nv12(T.PixelFormat.NV21, T.ColorRange.LIMITED),
-    "d3_crop_resize": lambda: d3_crop_resize(),
-    "d4_warp_crop_pass": lambda: d4_warp_crop_pass(),
-    "d5_stack_resize_and_image": lambda: d5_stack_resize_and_image(),
-    "d6_uint8_chain": lambda: d6_uint8_chain(),
-    "d7_warp_crop_pass_planar": lambda: d4_warp_crop_pass(write=T.split_tensor),
-    "six_kinds": lambda: ([1, 2, 3, 4, 5, 6], tuple(six_kinds())),
-    "six_kinds_shuffled": lambda: ([3, 3, 6, 1, 5, 2], tuple(six_kinds())),
-    "crop_negative_origins": lambda: d3_crop_resize(
+    "d1_circular_first3": lambda dev: d1_circular(3),
+    "d1_circular_first_minus5": lambda dev: d1_circular(-5),
+    "d2_nv12_bt709": lambda dev: d2_nv12(),
+    "d2_nv21_limited": lambda dev: d2_nv12(T.PixelFormat.NV21, T.ColorRange.LIMITED),
+    "d3_crop_resize": lambda dev: d3_crop_resize(),
+    "d4_warp_crop_pass": lambda dev: d4_warp_crop_pass(),
+    "d5_stack_resize_and_image": lambda dev: d5_stack_resize_and_image(),
+    "d6_uint8_chain": lambda dev: d6_uint8_chain(),
+    "d7_warp_crop_pass_planar": lambda dev: d4_warp_crop_pass(write=T.split_tensor),
+    "six_kinds": lambda dev: ([1, 2, 3, 4, 5, 6], tuple(six_kinds())),
+    "six_kinds_shuffled": lambda dev: ([3, 3, 6, 1, 5, 2], tuple(six_kinds())),
+    "crop_negative_origins": lambda dev: d3_crop_resize(
         rects=np.array([[-5 - 7 * z, -3 - 5 * z, 60, 120] for z in range(8)], np.int32)),
-    "crop_bottom_of_frame": lambda: d3_crop_resize(
+    "crop_bottom_of_frame": lambda dev: d3_crop_resize(
         rects=np.array([[8 * z, 150 + z, 60, 120] for z in range(8)], np.int32)),
+    # 4 pixels per thread: launches of 360,448 outputs and more on an H100
+    "d1_circular_16x128x256": lambda dev: d1_circular(3, h=128, w=256),
+    "d4_warp_crop_pass_48_planes": lambda dev: d4_warp_crop_pass(n=48),
+    "d2_nv21_limited_24_planes": lambda dev: d2_nv12(T.PixelFormat.NV21, T.ColorRange.LIMITED,
+                                                 n=24, sh=128, sw=512),
+    "mixed_dtypes_uint8_first": lambda dev: mixed_dtypes("uint8"),
+    "mixed_dtypes_float32_first": lambda dev: mixed_dtypes("float32"),
+    "mixed_dtypes_small": lambda dev: mixed_dtypes("uint8", n=4, h=8, w=16),
+    "u8_ring_off_the_vector_packed": lambda dev: ring_off_the_vector(np.uint8, 3, T.write_tensor, dev),
+    "u8_ring_off_the_vector_planar": lambda dev: ring_off_the_vector(np.uint8, 4, T.split_tensor, dev),
+    "f32_ring_off_the_vector_to_u8": lambda dev: ring_off_the_vector(np.float32, 3, T.split_tensor, dev),
+    "f32_ring_off_the_vector_to_u8_packed": lambda dev: ring_off_the_vector(
+        np.float32, 4, T.write_tensor, dev),
 }
 
 
@@ -182,7 +219,7 @@ def _check(ids, seqs, device):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernel_matches_plain_version(case, cuda):
-    ids, seqs = CASES[case]()
+    ids, seqs = CASES[case](cuda)
     _check(ids, seqs, cuda)
 
 
@@ -228,12 +265,25 @@ def test_main_path_launches_the_kernel_once_per_call(cuda):
 
 
 def test_explicit_cuda_raises_on_a_refused_batch(cuda):
-    u8 = _seq(T.image(np.zeros((2, 4, 4, 1), np.uint8)))
+    """A ragged ``BatchRead`` group is refused, as the reference's kernel
+    refuses it: AUTO merges it eagerly, an explicit CUDA raises."""
+    imgs = [_u8(np.random.default_rng(17), (12, 16, 1)) for _ in range(2)]
+    ragged = _seq(T.warp_batch(imgs, [rotation((8, 6), 5.0, 1.0)] * 2, T.Size(4, 4),
+                               used_planes=1))
     f32 = _seq(T.image(np.zeros((2, 4, 4, 1), np.float32)))
-    out = T.launch_divergent_batch([1, 2], u8, f32, device=cuda)
-    assert T.last_backend() == "torch:divergent" and out.dtype == torch.uint8
+    out = T.launch_divergent_batch([1, 2], ragged, f32, device=cuda)
+    assert T.last_backend() == "torch:divergent" and out.dtype == torch.float32
     with pytest.raises(ValueError, match="cannot run"):
-        T.launch_divergent_batch([1, 2], u8, f32, backend=T.ParBackend.CUDA, device=cuda)
+        T.launch_divergent_batch([1, 2], ragged, f32, backend=T.ParBackend.CUDA, device=cuda)
+
+
+def test_groups_of_different_output_dtypes_take_the_kernel(cuda):
+    u8 = _seq(T.image(np.full((2, 4, 4, 1), 7, np.uint8)))
+    f = np.zeros((2, 4, 4, 1), np.float32)
+    f[1, 0, :, 0] = (3.7, 297.5, -0.5, 255.6)
+    out = T.launch_divergent_batch([1, 2], u8, _seq(T.image(f)), device=cuda)
+    assert T.last_backend() == "cuda:divergent" and out.dtype == torch.uint8
+    assert out[1, 0, :, 0].tolist() == [3, 255, 0, 255] and out[0, 0, 0, 0] == 7
 
 
 def test_a_cpu_tensor_never_reaches_the_library(cuda, monkeypatch):

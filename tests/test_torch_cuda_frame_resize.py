@@ -46,10 +46,38 @@ def _yuv(buf, size, fmt=T.PixelFormat.NV12, **conv):
                            T.convert_yuv_to_rgb(out_dtype=np.float32, **conv)), T.Size(*size))
 
 
+def _odd(t):
+    """``t``'s values in a view one byte past an aligned address."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    view = flat[1:].view(t.shape)
+    assert view.data_ptr() % 2 == 1
+    return view
+
+
 def _cases(cuda):
     img, buf = _image(cuda), _nv12(cuda)
     C = T.ColorConversionCode
+    # launches of 473,088 outputs and more (an NV12 source: 540,672) take 4 pixels per
+    # thread on an H100
+    big, big_buf = _image(cuda, h=720, w=1283, seed=5), _nv12(cuda, h=1080, w=1920, seed=6)
     return {
+        "p4_odd_pitch_packed_out": (T.resize(T.image(big), T.Size(1023, 540)), *NORMALIZE,
+                                    T.write()),
+        "p4_odd_address_planar": (T.resize(T.image(_odd(big)), T.Size(1024, 540)), *NORMALIZE,
+                                  T.split_tensor()),
+        "p4_u8_planar": (T.resize(T.image(big), T.Size(1024, 540)),
+                         T.convert_to(np.uint8, alpha=0.5, beta=3.0), T.split_tensor()),
+        "p4_f32_rgba_source": (T.resize(T.image(_image(cuda, h=720, w=1283, c=4, seed=7,
+                                                       dtype=torch.float32)), T.Size(1024, 540)),
+                               T.multiply(1 / 255.0), T.split_tensor()),
+        "p4_nv12": (_yuv(big_buf, (1278, 718)), T.multiply(1 / 255.0), T.split_tensor()),
+        "p4_nv21_odd_address": (_yuv(_odd(big_buf), (1280, 720), T.PixelFormat.NV21, alpha=True),
+                                T.write()),
+        "odd_address_small": (T.resize(T.image(_odd(img)), T.Size(128, 32)), *NORMALIZE,
+                              T.split_tensor()),
+        "nv12_odd_address_small": (_yuv(_odd(buf), (128, 48)), T.multiply(1 / 255.0),
+                                   T.split_tensor()),
         "3to1_normalize": (T.resize(T.image(img), T.Size(128, 32)), *NORMALIZE, T.split_tensor()),
         "1.5to1_packed_out": (T.resize(T.image(img), T.Size(256, 64)), *NORMALIZE, T.write()),
         "over_32_phases": (T.resize(T.image(img), T.Size(97, 41)), *NORMALIZE, T.split_tensor()),
@@ -72,7 +100,9 @@ def _cases(cuda):
     }
 
 
-CASE_NAMES = ["3to1_normalize", "1.5to1_packed_out", "over_32_phases", "upscale",
+CASE_NAMES = ["p4_odd_pitch_packed_out", "p4_odd_address_planar", "p4_u8_planar",
+              "p4_f32_rgba_source", "p4_nv12", "p4_nv21_odd_address", "odd_address_small",
+              "nv12_odd_address_small", "3to1_normalize", "1.5to1_packed_out", "over_32_phases", "upscale",
               "odd_sizes_gray", "f32_source", "u8_split", "bgr2rgba", "nv12_bt709",
               "nv21_limited_alpha", "nv12_over_32_phases"]
 

@@ -337,8 +337,42 @@ def test_merge_casts_other_groups_to_plane_zeros_dtype():
     _assert_equal(out, J.launch_divergent_batch([1, 2], seq1, seq2, backend=J.ParBackend.XLA),
                   "merge cast vs the reference's XLA merge")
     _assert_equal(out, reference_merge([1, 2], seq1, seq2), "merge cast vs op by op")
-    with pytest.raises(kd.Unsupported, match="group 1"):
-        kd.build_plan(tseqs, [1, 2])  # the kernel takes one output dtype only
+    # the kernel takes such a batch: the float group stores through the same cast
+    plan = kd.build_plan(tseqs, [1, 2])
+    assert plan.out_dtype == torch.uint8
+    assert [g.flags & kd.CLAMP_STORE for g in plan.groups] == [0, kd.CLAMP_STORE]
+    _assert_equal(kd.run(tseqs, plan, CPU), out, "kernel plain version vs eager")
+
+
+@pytest.mark.parametrize("first_group", ["uint8", "float32"])
+def test_groups_of_different_output_dtypes_run_as_one_batch(first_group):
+    """A uint8 crop-resize chain, a float32 ring read and a float32 warp in
+    one batch: the batch takes plane 0's group's dtype, the kernel's plan
+    takes it (AUTO no longer runs it group by group) and marks exactly the
+    float32 groups of a uint8 batch for the clamp-then-truncate store."""
+    rng = _rng(21)
+    n = 6
+    frame = rng.integers(0, 256, (40, 56, 3)).astype(np.uint8)
+    rects = np.array([[2 + 3 * z, 1 + 2 * z, 20, 24] for z in range(n)], np.int32)
+    ring = (rng.random((n, 12, 16, 3), dtype=np.float32) * 400 - 70).astype(np.float32)
+    imgs = [rng.integers(0, 256, (24, 32, 3)).astype(np.uint8) for _ in range(n)]
+    mats = [rotation((16, 12), 5.0 * z - 7.0, 1.4) for z in range(n)]
+    seq_u8 = J.build_operation_sequence(
+        J.resize_batch(frame, rects=rects, dsize=J.Size(16, 12)),
+        J.convert_to(np.uint8, alpha=0.9, beta=2.0), J.write_tensor())
+    seq_ring = J.build_operation_sequence(J.circular_batch_read(ring, first=-2),
+                                          J.multiply(1.1), J.write_tensor())
+    seq_warp = J.build_operation_sequence(J.warp_batch(imgs, mats, J.Size(16, 12), default=300.0),
+                                          J.add(-3.25), J.write_tensor())
+    if first_group == "uint8":
+        ids, seqs = [1, 2, 3, 1, 2, 3], (seq_u8, seq_ring, seq_warp)
+        marked = [0, kd.CLAMP_STORE, kd.CLAMP_STORE]
+    else:
+        ids, seqs = [1, 2, 3, 3, 2, 1], (seq_ring, seq_u8, seq_warp)
+        marked = [0, 0, 0]
+    out, plan = check_divergent(ids, *seqs)
+    assert str(out.dtype) == f"torch.{first_group}" and plan.out_dtype == out.dtype
+    assert [g.flags & kd.CLAMP_STORE for g in plan.groups] == marked
 
 
 @pytest.mark.parametrize("ascendent", [True, False])

@@ -1,17 +1,22 @@
-"""The addressing of the two tiled CUDA kernels, emulated in numpy.
+"""The addressing of the CUDA kernels, emulated in numpy.
 
 ``csrc/batch_resize.cu`` computes a tile's tap tables once per block and
 gathers every thread's taps through them; ``csrc/warp.cu`` fetches the two
 adjacent taps of a uint8 row as three aligned 4-byte words, funnel-shifted
-to the run's first byte. Neither can run without a card, so
-:func:`emulate_batch_resize` and :func:`emulate_warp` repeat their index
-arithmetic step by step on a flat byte buffer whose index plays the absolute
-address: the tile grid, the tables' marks outside the letterbox, the taps'
-addresses (none may leave the source buffer), the packed-or-per-byte
-decision.
+to the run's first byte; ``csrc/divergent.cu`` reads its descriptors as
+16-byte words and gives a thread a group of adjacent pixels of a plane;
+``csrc/frame_resize.cu`` gives a thread a group of adjacent output pixels
+and reads the row's taps once; both store a whole aligned group as vectors,
+in planar and in packed layouts (``csrc/chain.cuh``). None can run without a
+card, so :func:`emulate_batch_resize`, :func:`emulate_warp`,
+:func:`emulate_divergent_copy` and :func:`emulate_frame_resize` repeat
+their index arithmetic step by step on a flat byte buffer whose index plays
+the absolute address: the tile grid, the tables' marks outside the
+letterbox, the taps' addresses (none may leave the source buffer), each
+vector store's alignment, the packed-or-per-byte decision.
 Each must equal the kernels' plain versions (``batch_resize_reference``,
-``warp_reference``) bit for bit. Keep the constants and the steps in step
-with the two sources.
+``warp_reference``, ``divergent_reference``, ``frame_resize_reference``) bit
+for bit. Keep the constants and the steps in step with the sources.
 """
 
 import numpy as np
@@ -20,6 +25,8 @@ import torch
 
 import cvgpuspeedup_tpu_torch as T
 from cvgpuspeedup_tpu_torch.exec import cuda_batch_resize as kbr
+from cvgpuspeedup_tpu_torch.exec import cuda_divergent as kd
+from cvgpuspeedup_tpu_torch.exec import cuda_frame_resize as kfr
 from cvgpuspeedup_tpu_torch.exec import cuda_warp as kw
 
 CPU = torch.device("cpu")
@@ -430,3 +437,379 @@ def test_a_ragged_batch_of_one_shared_frame():
     stats = _check_warp(T.warp_batch([img] * 4, mats, T.Size(32, 20), used_planes=3, default=3.0),
                         offset=3, batch=True)
     assert stats["packed"] > 0
+
+
+# ---------------------------------------------------------------------------
+# pixel groups: the divergent kernel's copy kinds and the frame kernel
+# ---------------------------------------------------------------------------
+
+def group_block(dst_w, pix):
+    """``csrc/chain.cuh::group_block``: the (x, y) threads of a block."""
+    tx = 64
+    while pix > 1 and tx > 16 and (tx // 2) * pix >= dst_w:
+        tx //= 2
+    return tx, 256 // tx
+
+
+def load_pixels(mem, lo, hi, p, dtype, nch, n):
+    """The ``n`` pixels of ``nch`` elements at address ``p``, element by
+    element as ``csrc/chain.cuh::load_pixel`` reads them: ``(n, nch)``
+    float32. Nothing outside the source buffer is read."""
+    item = np.dtype(dtype).itemsize
+    assert lo <= p and p + n * nch * item <= hi, (p, n, lo, hi)
+    return mem[p:p + n * nch * item].view(dtype).astype(F32).reshape(n, nch)
+
+
+def emulate_divergent_copy(a: kd.Launch, pix: int, offset: int = 0):
+    """``divergent_kernel`` on a batch of ``image`` and ``circ`` groups,
+    before the chains: ``(values (N, H, W, C) float32, stats)``. Everything
+    is read as the kernel reads it, from the parameter block: the group
+    table, the address table, the 16-word descriptors at a multiple of 4
+    words, ``first``."""
+    plan = a.plan
+    dst_w, dst_h = plan.dsize
+    blk = a.block.numpy()
+    assert a.desc_off % 4 == 0 and a.ptr_off % 2 == 0
+    ptrs = blk[a.ptr_off:a.ptr_off + 2 * plan.n_planes].view(np.uint64)
+    by_ptr = {s.data_ptr(): s for s in a.srcs}
+    placed = {}
+    out = np.zeros((plan.n_planes, dst_h, dst_w, plan.out_ch), F32)
+    stats = {"pixels": 0, "threads": 0, "tails": 0}
+    tx, ty = group_block(dst_w, pix)
+    grid = (-(-dst_w // (tx * pix)), -(-dst_h // ty))
+    for z in range(plan.n_planes):
+        d = blk[a.desc_off + kd.DESC_INTS * int(blk[z]):][:kd.DESC_INTS]
+        kind, src_h, src_w, nch, u8, n_src, first_off, asc = (int(v) for v in d[:8])
+        assert kd.KINDS[kind] in ("image", "circ")
+        src = by_ptr[int(ptrs[z])].numpy()
+        assert (src.dtype == np.uint8) == bool(u8)
+        item = src.dtype.itemsize
+        if id(src) not in placed:
+            placed[id(src)] = place(src, offset * item)
+        mem, lo, hi = placed[id(src)]
+        pz = z
+        if kd.KINDS[kind] == "circ":
+            first = int(blk[first_off])
+            pz = (first + z if asc else first - z) % n_src  # Python's % is the floor modulo
+        for by in range(grid[1]):
+            for bx in range(grid[0]):
+                for t_y in range(ty):
+                    for t_x in range(tx):
+                        x, y = (bx * tx + t_x) * pix, by * ty + t_y
+                        if x >= dst_w or y >= dst_h:
+                            continue
+                        stats["threads"] += 1
+                        n = min(pix, dst_w - x)
+                        stats["pixels"] += n
+                        stats["tails"] += n < pix
+                        p = lo + (((pz * src_h + y) * src_w + x) * nch) * item
+                        out[z, y, x:x + n, :nch] = load_pixels(mem, lo, hi, p, src.dtype, nch, n)
+    return out, stats
+
+
+def _copy_launch(src_a, src_b, first, ascendent=True):
+    """Even planes read the stack ``src_a`` as an image, odd ones the ring
+    ``src_b`` from ``first``; no chain, so the batch holds the raw values."""
+    seqs = (T.build_operation_sequence(T.image(torch.from_numpy(src_a)), T.write_tensor()),
+            T.build_operation_sequence(
+                T.circular_batch_read(torch.from_numpy(src_b), first=first, ascendent=ascendent),
+                T.write_tensor()))
+    ids = [1 + z % 2 for z in range(src_a.shape[0])]
+    return kd.prepare(seqs, kd.build_plan(seqs, ids), CPU)
+
+
+def _check_copy(a, pix, offset=0):
+    out, stats = emulate_divergent_copy(a, pix, offset)
+    ref = kd.divergent_reference(a).numpy()
+    assert out.shape == ref.shape
+    assert np.array_equal(out.astype(ref.dtype), ref), f"{(out != ref).sum()} values differ; {stats}"
+    return stats
+
+
+def _stack(seed, n, h, w, c, dtype):
+    v = np.random.default_rng(seed).integers(0, 256, (n, h, w, c))
+    return v.astype(np.uint8) if dtype == np.uint8 else (v / F32(3)).astype(F32)
+
+
+@pytest.mark.parametrize("pix", [1, 4])
+@pytest.mark.parametrize("nch", [1, 3, 4])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32], ids=["u8", "f32"])
+def test_copy_kinds_read_each_pixel_once(dtype, nch, pix):
+    a = _copy_launch(_stack(40, 4, 6, 16, nch, dtype), _stack(41, 4, 6, 16, nch, dtype), first=1)
+    stats = _check_copy(a, pix)
+    assert stats["pixels"] == 4 * 6 * 16 and stats["threads"] == 4 * 6 * 16 // pix
+    assert stats["tails"] == 0
+
+
+@pytest.mark.parametrize("width", [16, 12, 7, 5, 3])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32], ids=["u8", "f32"])
+def test_copy_kinds_take_row_pitches_and_widths_of_any_alignment(dtype, width):
+    """3-channel rows of 48, 36, 21, 15 and 9 elements; a width off the
+    group of 4 leaves a tail of 1 to 3 pixels in every row."""
+    a = _copy_launch(_stack(42, 4, 5, width, 3, dtype), _stack(43, 4, 5, width, 3, dtype), first=-3)
+    stats = _check_copy(a, 4)
+    assert stats["pixels"] == 4 * 5 * width
+    assert stats["tails"] == (4 * 5 if width % 4 else 0)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 5])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32], ids=["u8", "f32"])
+def test_copy_kinds_at_a_source_view_off_the_vector(dtype, offset):
+    """A source ``offset`` elements past an aligned address: nothing before
+    the buffer's first or past its last element is read."""
+    a = _copy_launch(_stack(44, 2, 4, 8, 3, dtype), _stack(45, 2, 4, 8, 3, dtype), first=0)
+    _check_copy(a, 4, offset)
+    four = _copy_launch(_stack(46, 2, 4, 8, 4, dtype), _stack(47, 2, 4, 8, 4, dtype), first=0)
+    _check_copy(four, 4, offset)
+
+
+@pytest.mark.parametrize("ascendent", [True, False])
+@pytest.mark.parametrize("first", [-9, -1, 0, 3, 4, 11])
+def test_copy_kinds_wrap_first_both_ways(first, ascendent):
+    ring = _stack(48, 4, 3, 8, 3, np.uint8)
+    ring[..., 0] = np.arange(4, dtype=np.uint8)[:, None, None]  # a plane names itself
+    a = _copy_launch(_stack(49, 4, 3, 8, 3, np.uint8), ring, first, ascendent)
+    out, _ = emulate_divergent_copy(a, 4)
+    for z in (1, 3):
+        assert out[z, 0, 0, 0] == ((first + z) if ascendent else (first - z)) % 4
+    _check_copy(a, 4)
+
+
+def test_group_blocks():
+    assert group_block(1920, 1) == (64, 4) and group_block(64, 1) == (64, 4)
+    assert group_block(1920, 4) == (64, 4) and group_block(256, 4) == (64, 4)
+    assert group_block(255, 4) == (64, 4) and group_block(128, 4) == (32, 8)
+    assert group_block(64, 4) == (16, 16) and group_block(3, 4) == (16, 16)
+    for w in range(1, 400):
+        for pix in (1, 2, 4):
+            tx, ty = group_block(w, pix)
+            assert tx * ty == 256 and tx in (16, 32, 64)
+
+
+def bilerp_values(a, b, d, e, wx, wy, keep):
+    """``csrc/frame_resize.cuh::bilerp_values``."""
+    h0, h1 = a, d
+    if not (keep and wx == 0):
+        h0, h1 = lerp(a, b, wx), lerp(d, e, wx)
+    return h0 if keep and wy == 0 else lerp(h0, h1, wy)
+
+
+def emulate_frame_resize(a: kfr.Launch, pix: int, offset: int = 0):
+    """``frame_resize_kernel`` before its chain: ``(values (H, W, C)
+    float32, stats)``; ``stats`` counts the threads and the row tails. A
+    thread reads its row's taps once, then each of its pixels' taps element
+    by element; no address leaves the source buffer."""
+    plan = a.plan
+    dst_w, dst_h = plan.dsize
+    taps, wts = a.taps.numpy(), a.weights.numpy()
+    x0s, x1s, y0s, y1s = (taps[o:o + m] for o, m in ((0, dst_w), (dst_w, dst_w),
+                                                     (2 * dst_w, dst_h), (2 * dst_w + dst_h, dst_h)))
+    wxs, wys = wts[:dst_w], wts[dst_w:]
+    keep = plan.keep_edge
+    src = a.src.numpy()
+    item, nch, src_w, src_h = src.dtype.itemsize, plan.nch, plan.src_w, plan.src_h
+    mem, lo, hi = place(src, offset * item)
+    stats = {"threads": 0, "tails": 0}
+
+    def elem(p):
+        assert lo <= p and p + item <= hi
+        return F32(mem[p:p + item].view(src.dtype)[0])
+
+    if plan.yuv:
+        ct = taps[2 * (dst_w + dst_h):]
+        cx0s, cx1s, cy0s, cy1s = (ct[o:o + m] for o, m in ((0, dst_w), (dst_w, dst_w), (
+            2 * dst_w, dst_h), (2 * dst_w + dst_h, dst_h)))
+        limited, alpha, ys, cs, rv, gu, gv, bu = plan.conv
+        ys, cs, rv, gu, gv, bu = (F32(v) for v in (ys, cs, rv, gu, gv, bu))
+        out = np.zeros((dst_h, dst_w, 4 if alpha else 3), F32)
+        uv = lo + src_h * src_w
+        iu = 1 if plan.nv21 else 0
+
+        def pair(row, c):
+            assert uv <= row + c and row + c + 2 <= hi
+            return F32(mem[row + c + iu]), F32(mem[row + c + 1 - iu])
+    else:
+        out = np.zeros((dst_h, dst_w, nch), F32)
+
+    tx, ty = group_block(dst_w, pix)
+    for y in range(dst_h):  # every thread row of every block: the grid covers the frame
+        wy = wys[y]
+        r0, r1 = lo + int(y0s[y]) * src_w * nch * item, lo + int(y1s[y]) * src_w * nch * item
+        for x in range(0, -(-dst_w // (tx * pix)) * tx * pix, pix):
+            if x >= dst_w:
+                continue
+            n = min(pix, dst_w - x)
+            stats["threads"] += 1
+            stats["tails"] += n < pix
+            if plan.yuv:
+                u0, u1 = uv + int(cy0s[y]) * src_w, uv + int(cy1s[y]) * src_w
+                for q in range(n):
+                    c = x + q
+                    lum = bilerp_values(elem(r0 + int(x0s[c])), elem(r0 + int(x1s[c])),
+                                        elem(r1 + int(x0s[c])), elem(r1 + int(x1s[c])), wxs[c], wy,
+                                        keep)
+                    p00, p01 = pair(u0, 2 * int(cx0s[c])), pair(u0, 2 * int(cx1s[c]))
+                    p10, p11 = pair(u1, 2 * int(cx0s[c])), pair(u1, 2 * int(cx1s[c]))
+                    u = bilerp_values(p00[0], p01[0], p10[0], p11[0], wxs[c], wy, keep) - F32(128)
+                    w = bilerp_values(p00[1], p01[1], p10[1], p11[1], wxs[c], wy, keep) - F32(128)
+                    if limited:
+                        lum, u, w = (lum - F32(16)) * ys, u * cs, w * cs
+                    rgb = [lum + rv * w, lum - gu * u - gv * w, lum + bu * u]
+                    out[y, x + q] = rgb + ([F32(1)] if alpha else [])
+                continue
+            for q in range(n):
+                c0, c1, wx = int(x0s[x + q]) * nch, int(x1s[x + q]) * nch, wxs[x + q]
+                out[y, x + q] = [bilerp_values(
+                    elem(r0 + (c0 + c) * item), elem(r0 + (c1 + c) * item),
+                    elem(r1 + (c0 + c) * item), elem(r1 + (c1 + c) * item), wx, wy, keep)
+                    for c in range(nch)]
+    return out, stats
+
+
+def _frame_launch(read):
+    pipeline = T.build_pipeline(read, T.write())
+    return kfr.prepare(pipeline, kfr.build_plan(pipeline), CPU)
+
+
+def _check_frame(a, pix, offset=0):
+    out, stats = emulate_frame_resize(a, pix, offset)
+    ref = kfr.frame_resize_reference(a).numpy()
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert np.array_equal(out.view(np.uint32), ref.view(np.uint32)), \
+        f"{(out != ref).sum()} values differ; {stats}"
+    return stats
+
+
+@pytest.mark.parametrize("pix", [1, 4])
+@pytest.mark.parametrize("nch", [1, 3, 4])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32], ids=["u8", "f32"])
+def test_frame_pixel_groups(dtype, nch, pix):
+    a = _frame_launch(T.resize(T.image(torch.from_numpy(_src(50 + nch, 24, 36, nch, dtype))),
+                               T.Size(12, 8)))
+    assert a.plan.keep_edge
+    stats = _check_frame(a, pix)
+    assert stats["threads"] == 8 * 12 // pix and stats["tails"] == 0
+
+
+@pytest.mark.parametrize("src_hw,dsize,keep", [
+    ((11, 37), (35, 7), False), ((11, 41), (33, 5), False), ((40, 12), (5, 37), False),
+    ((4, 7), (14, 8), True), ((6, 35), (70, 3), True), ((11, 37), (13, 7), True)])
+def test_frame_output_widths_off_the_group_and_both_edge_rules(src_hw, dsize, keep):
+    """More than 32 phases on an axis zero the weight at a clamped edge;
+    at most 32 keep it, and an upscale then clamps an edge's two taps onto
+    one column."""
+    a = _frame_launch(T.resize(T.image(torch.from_numpy(_src(54, *src_hw, 3))), T.Size(*dsize)))
+    assert a.plan.keep_edge == keep
+    _check_frame(a, 4)
+    _check_frame(a, 1)
+
+
+@pytest.mark.parametrize("width", [36, 35, 33])
+def test_frame_row_pitches_of_any_alignment(width):
+    a = _frame_launch(T.resize(T.image(torch.from_numpy(_src(55, 16, width, 3))), T.Size(11, 5)))
+    assert _check_frame(a, 4)["tails"] == 5
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_frame_reads_stay_inside_the_buffer(offset):
+    """A nearly identity-sized resize reads the buffer's first and last
+    pixels, at every byte alignment of the source (every address is
+    asserted inside the buffer; the poison around it is never read)."""
+    img = torch.from_numpy(_src(56, 6, 9, 3))
+    a = _frame_launch(T.resize(T.image(img), T.Size(8, 5)))
+    _check_frame(a, 1, offset)
+    _check_frame(a, 4, offset)
+
+
+def _nv12_read(buf, dsize, fmt=T.PixelFormat.NV12, **conv):
+    return T.resize(T.fuse(T.read_yuv(torch.from_numpy(buf), pixel_format=fmt),
+                           T.convert_yuv_to_rgb(out_dtype=np.float32, **conv)), T.Size(*dsize))
+
+
+@pytest.mark.parametrize("pix", [1, 4])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("fmt", [T.PixelFormat.NV12, T.PixelFormat.NV21], ids=lambda f: f.name)
+def test_nv12_and_nv21_at_even_and_odd_addresses(fmt, offset, pix):
+    buf = np.random.default_rng(57).integers(0, 256, (24 * 3 // 2, 36), dtype=np.uint8)
+    a = _frame_launch(_nv12_read(buf, (14, 8), fmt, standard=T.ColorStandard.BT709))
+    stats = _check_frame(a, pix, offset)
+    assert stats["tails"] == (8 if pix == 4 else 0)
+
+
+@pytest.mark.parametrize("dsize,keep", [((35, 7), False), ((18, 12), True), ((72, 48), True)])
+def test_nv12_edge_rules_limited_range_and_alpha(dsize, keep):
+    buf = np.random.default_rng(58).integers(0, 256, (24 * 3 // 2, 36), dtype=np.uint8)
+    a = _frame_launch(_nv12_read(buf, dsize, T.PixelFormat.NV21, alpha=True,
+                                 color_range=T.ColorRange.LIMITED))
+    assert a.plan.keep_edge == keep
+    _check_frame(a, 4)
+
+
+def emulate_store_pixels(values, strides, dtype, pix, base):
+    """``csrc/chain.cuh::store_pixels`` for every thread of an (N, H, W, C)
+    batch of float32 ``values`` written as ``dtype`` at byte address ``base``
+    of a poisoned buffer with element strides ``(sn, sc, sy, sx)``:
+    ``(mem, stats)``. A vector store must be aligned and whole."""
+    n_planes, h, w, ch = values.shape
+    sn, sc, sy, sx = strides
+    item = np.dtype(dtype).itemsize
+    vec = 4 * item
+    elems = 1 + (n_planes - 1) * sn + (ch - 1) * sc + (h - 1) * sy + (w - 1) * sx
+    mem = np.full(base + elems * item + 64, POISON, np.uint8)
+    stats = {"vector": 0, "scalar": 0}
+
+    def put(addr, vals):
+        assert base <= addr and addr + len(vals) * item <= base + elems * item
+        if len(vals) == 4:
+            assert addr % vec == 0
+        mem[addr:addr + len(vals) * item] = np.asarray(vals, F32).astype(dtype).view(np.uint8)
+        stats["vector" if len(vals) == 4 else "scalar"] += 1
+
+    for z in range(n_planes):
+        for y in range(h):
+            for x in range(0, w, pix):
+                n = min(pix, w - x)
+                o = base + (z * sn + y * sy + x * sx) * item
+                v = values[z, y, x:x + n]
+                if pix == 4 and n == 4 and sc == 1 and sx == ch and o % vec == 0:
+                    run = v.reshape(-1)  # element j is channel j % ch of pixel j // ch
+                    for k in range(ch):
+                        put(o + 4 * k * item, run[4 * k:4 * k + 4])
+                    continue
+                for c in range(ch):
+                    p = o + c * sc * item
+                    if pix == 4 and n == 4 and sx == 1 and p % vec == 0:
+                        put(p, v[:, c])
+                    else:
+                        for q in range(n):
+                            put(p + q * sx * item, v[q:q + 1, c])
+    return mem, stats
+
+
+@pytest.mark.parametrize("pix", [1, 4])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("width", [8, 5])
+@pytest.mark.parametrize("ch", [1, 3, 4])
+@pytest.mark.parametrize("layout", ["packed", "split", "tsplit"])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32], ids=["u8", "f32"])
+def test_stores_of_every_layout_fill_the_buffer_and_nothing_else(dtype, layout, ch, width, offset,
+                                                                 pix):
+    """Packed and planar writes, widths off the group of 4 and an output at
+    an address off the vector: the stores, vector or scalar, leave exactly
+    the layout's tensor in memory and the poison around it."""
+    n, h, w = 2, 3, width
+    values = np.random.default_rng(60).integers(0, 256, (n, h, w, ch)).astype(F32)
+    strides = {"packed": (h * w * ch, 1, w * ch, ch), "split": (ch * h * w, h * w, w, 1),
+               "tsplit": (h * w, n * h * w, w, 1)}[layout]
+    item = np.dtype(dtype).itemsize
+    base = 64 + offset * item
+    mem, stats = emulate_store_pixels(values, strides, dtype, pix, base)
+    want = {"packed": values, "split": values.transpose(0, 3, 1, 2),
+            "tsplit": values.transpose(3, 0, 1, 2)}[layout].astype(dtype)
+    size = want.size * item
+    assert np.array_equal(mem[base:base + size].view(dtype), want.reshape(-1))
+    assert (mem[:base] == POISON).all() and (mem[base + size:] == POISON).all()
+    if pix == 1:
+        assert stats["vector"] == 0
+    elif offset % 4 == 0 and width % 4 == 0:
+        assert stats["scalar"] == 0 and stats["vector"] == n * h * w * ch // 4
