@@ -12,9 +12,15 @@ NV12 buffer -> 1920x1080 RGB f32 (bt709, x1/255), both written planar, and
 the warp path (kernel ``warp``): eight rotations of one shared 1080p frame
 in one launch, ragged at 7 planes, -> 640x360 x1/255 planar, and one
 rotation of it; the divergent path (kernel ``divergent``,
-``launch_divergent_batch``) at the reference's divergent rows; and a
-32-deep ``CircularTensor`` of 1080p frames resized into 128x64 planes. In
-phases; any failure ends the run with a non-zero exit
+``launch_divergent_batch``) at the reference's divergent rows; a
+32-deep ``CircularTensor`` of 1080p frames resized into 128x64 planes; the
+pointwise path (kernel ``pointwise``): every pipeline with no resampling
+head, P1 the reference's 200-op multiply-add chain on 2048x2048 f32, P2 a
+ring read from ``first`` = 3, P3 a 1080p frame with an 8-pixel border in each
+mode, P4 crops at a negative and an overhanging origin, P5 a bare 1080p
+NV12/NV21 -> RGBA conversion, P6 int16 and uint16 chains; and the four
+presets, the cv2-typed shim and the frame loader through their public calls.
+In phases; any failure ends the run with a non-zero exit
 code and no result line:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
@@ -55,8 +61,15 @@ code and no result line:
    output dtype; each must take its kernel, launch it once per call and
    build no new plan; the outputs are held against
    independent float64 versions. 40 ``CircularTensor`` updates must each
-   launch the frame kernel, build no plan after the first, and leave every
-   logical plane equal to an eager ring;
+   launch the frame kernel once and nothing else, build no plan after the
+   first, and leave every logical plane equal to an eager ring. P1-P5 twice
+   each through ``execute_operations`` with new values (``cuda:pointwise``,
+   also under ``ParBackend.CUDA``); the presets at full width, each call one
+   launch: ``detection_preprocessor`` at the flagship's shapes,
+   ``temporal_window`` of 32 frames, ``video_stream`` over raw RGB and NV12
+   files of 16 1080p frames written to a temporary directory (the native
+   loader asserted), ``camera_pipeline`` with and without ``out_size``; one
+   flagship call through ``cv2_compat``;
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain, and the
    kernel's duration in a ``torch.profiler`` trace of 20 launches (events
@@ -74,7 +87,11 @@ code and no result line:
    the copy bandwidth of a 256 MiB device copy; warp cases W1, W2, W5 and
    W6 and the host-inclusive call of the warp batch; the divergent kernel
    in D1-D4, the host-inclusive ``launch_divergent_batch`` call of D4 and
-   one ``CircularTensor.update``.
+   one ``CircularTensor.update``, before (a temporary, a cast and a
+   ``copy_``, as updates ran until the wrappers took ``out=``) and after;
+   the pointwise kernel in P1-P5 (P1's bound is its operations at the
+   unfused rate, half the published one: the build forbids FMAs); one eager
+   int32 pipeline, which no kernel takes.
 
 The last three lines are the card's name and power limit, one JSON object
 describing the kernels, and ``{"ok": true, "device": {...}}``. The script
@@ -103,6 +120,11 @@ WARP_DST = (640, 360)
 # the card's published peaks (NVIDIA's H100 SXM data sheet): device memory
 # rate and float32 rate outside the tensor cores
 PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S = 3.35e12, 67e12
+# the published float32 rate counts an FMA as two operations; a kernel built
+# with -fmad=false issues one multiply or one add per lane and cycle
+UNFUSED_F32_OP_PER_S = PEAK_F32_FLOP_PER_S / 2
+MAD_SIDE, MAD_OPS = 2048, 200
+BORDER = 8
 # cv2.getPerspectiveTransform of the 1080p frame's corners to
 # (20, 10), (620, 25), (8, 370), (630, 380), as the reference's perspective
 # row builds it (benchmarks/aux_pipelines.py:702-705)
@@ -458,16 +480,46 @@ def crop_touched_bytes(read, planes=None) -> int:
     return int(torch.unique(torch.cat(found)).numel()) * 32 if found else 0
 
 
-def bound(out_bytes: int, src_bytes: int, flops: int, bandwidth: float) -> dict:
+def bound(out_bytes: int, src_bytes: int, flops: int, bandwidth: float,
+          op_rate: float = PEAK_F32_FLOP_PER_S) -> dict:
     """The least time the card could take: ``bound_ms`` is the larger of
     the bytes over the published memory rate and the float32 operations
-    over the published rate; ``floor_ms`` is the bytes over the copy
-    bandwidth this run measured."""
+    over ``op_rate`` (the published rate, which counts an FMA twice; a chain
+    of separate multiplies and adds passes ``UNFUSED_F32_OP_PER_S``);
+    ``floor_ms`` is the bytes over the copy bandwidth this run measured."""
     by_bytes = (out_bytes + src_bytes) / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    by_ops = flops / op_rate * 1e3
     return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else
             "operations", "floor_ms": (out_bytes + src_bytes) / bandwidth * 1e3,
-            "out_bytes": out_bytes, "src_bytes_touched": src_bytes, "flops": flops}
+            "out_bytes": out_bytes, "src_bytes_touched": src_bytes, "flops": flops,
+            "op_rate": op_rate}
+
+
+def mad_chain(cvgs):
+    """The reference's stress chain (benchmarks/vertical_fusion.py): nested
+    static loops of a multiply and an add, ``MAD_OPS`` ops in all."""
+    mad = cvgs.fuse(cvgs.multiply(1.0009), cvgs.add(0.0001))
+    return cvgs.static_loop(cvgs.static_loop(mad, 10), MAD_OPS // 2 // 10)
+
+
+def pointwise_rows(cvgs, mad_src, ring, first, hd, origin, nv12_hd, scale=0.3) -> dict:
+    """The pointwise rows P1-P5 that phases 4 and 5 drive: the MAD chain, the
+    ring from ``first`` with a two-op float chain written planar, a 1080p
+    frame with a replicated border scaled into planar float32, a 256x256
+    crop at ``origin``, a bare NV12 -> RGBA conversion."""
+    to_unit = cvgs.convert_to(np.float32, alpha=1 / 255.0)
+    return {
+        "p1_mad_200_ops_2048x2048": (cvgs.image(mad_src), mad_chain(cvgs), cvgs.write()),
+        "p2_ring_first3_two_op_chain": (
+            cvgs.circular_batch_read(ring, first=first), cvgs.convert_to(np.float32, alpha=scale),
+            cvgs.subtract((1.0, 2.0, 3.0)), cvgs.split_tensor()),
+        "p3_border8_replicate_1080p": (
+            cvgs.make_border(cvgs.image(hd), BORDER, BORDER, BORDER, BORDER,
+                             cvgs.BorderMode.REPLICATE), to_unit, cvgs.split_tensor()),
+        "p4_crop_256x256": (cvgs.crop(cvgs.image(hd), cvgs.Rect(*origin, 256, 256)), to_unit,
+                            cvgs.write()),
+        "p5_nv12_1080p_rgba": (cvgs.read_yuv(nv12_hd), cvgs.convert_yuv_to_rgb(alpha=True)),
+    }
 
 
 def main() -> int:
@@ -482,10 +534,15 @@ def main() -> int:
     from cvgpuspeedup_tpu_torch.exec import cuda_batch_resize as kbr
     from cvgpuspeedup_tpu_torch.exec import cuda_divergent as kd
     from cvgpuspeedup_tpu_torch.exec import cuda_frame_resize as kfr
+    from cvgpuspeedup_tpu_torch.exec import cuda_pointwise as kp
     from cvgpuspeedup_tpu_torch.exec import cuda_warp as kw
     from cvgpuspeedup_tpu_torch.graph import flatten, map_leaves
     from cvgpuspeedup_tpu_torch.ops.arithmetic import Mul, StaticLoop
+    from cvgpuspeedup_tpu_torch.interop import cv2_compat
     from cvgpuspeedup_tpu_torch.ops.color import VectorReorder
+    from cvgpuspeedup_tpu_torch.pipelines import presets
+    from cvgpuspeedup_tpu_torch.utils import dtypes as dt
+    from cvgpuspeedup_tpu_torch.utils import frameloader
     from cvgpuspeedup_tpu_torch.utils.dtypes import as_device_tensor
     from cvgpuspeedup_tpu_torch.utils.profiling import time_cuda
 
@@ -522,6 +579,7 @@ def main() -> int:
         "frame_resize": (kfr, kfr.frame_resize, kfr.frame_resize_reference),
         "warp": (kw, kw.warp, kw.warp_reference),
         "divergent": (kd, kd.divergent, kd.divergent_reference),
+        "pointwise": (kp, kp.pointwise, kp.pointwise_reference),
     }
     max_err = {name: 0.0 for name in kernels}
     case_err = {}
@@ -534,10 +592,10 @@ def main() -> int:
         for g, w in zip(got, want, strict=True):
             if g.shape != w.shape or g.dtype != w.dtype:
                 raise AssertionError(f"{name}: kernel {g.shape} {g.dtype}, plain {w.shape} {w.dtype}")
-            if g.dtype == torch.uint8:
-                bad = int((g != w).sum())
-                if bad:
-                    raise AssertionError(f"{name}: {bad} uint8 values differ")
+            if not g.dtype.is_floating_point:
+                if not torch.equal(g, w):
+                    bad = int((g.to(torch.int32) != w.to(torch.int32)).sum())
+                    raise AssertionError(f"{name}: {bad} {g.dtype} values differ")
                 d = 0.0
             else:
                 if not bool(torch.isfinite(g).all()):
@@ -802,6 +860,75 @@ def main() -> int:
         compare(name, "divergent", kd.divergent(a), kd.divergent_reference(a))
         log(f"phase3 divergent {name}: groups {[g.kind for g in dplan.groups]}")
 
+
+    # pointwise: every pipeline with no resampling head, bit for bit in every
+    # dtype. P1 the 200-op MAD chain, P2 D1's ring from first = 3 with a
+    # two-op float chain written planar, P3 a 1080p frame with an 8-pixel
+    # border in each mode, P4 crops at a negative and an overhanging origin,
+    # P5 1080p NV12 and NV21 -> RGBA u8 in both ranges, P6 int16 and uint16
+    # chains; then every write layout once
+    mad_np = rng.random((MAD_SIDE, MAD_SIDE, 1), dtype=np.float32) * 255
+    mad_src = torch.from_numpy(mad_np).to(dev)
+    nv12_hd_np = rng.integers(0, 256, (FRAME_H * 3 // 2, FRAME_W), dtype=np.uint8)
+    nv12_hd = torch.from_numpy(nv12_hd_np).to(dev)
+    hd_i16 = (hd.to(torch.int16) - 128) * 200
+    hd_u16 = hd.to(torch.int32).mul(257).to(torch.uint16)
+    to_unit = cvgs.convert_to(np.float32, alpha=1 / 255.0)
+    pointwise_cases = dict(pointwise_rows(cvgs, mad_src, ring, 3, hd, (-300, -200), nv12_hd))
+    for mode in cvgs.BorderMode:
+        if mode != cvgs.BorderMode.REPLICATE:
+            pointwise_cases[f"p3_border8_{mode.name.lower()}_1080p"] = (
+                cvgs.make_border(cvgs.image(hd), BORDER, BORDER, BORDER, BORDER, mode,
+                                 value=(10.0, 20.0, 30.0)), to_unit, cvgs.split_tensor())
+    pointwise_cases["p4_crop_overhanging_origin"] = (
+        cvgs.crop(cvgs.image(hd), cvgs.Rect(FRAME_W - 100, FRAME_H - 50, 256, 256)), to_unit,
+        cvgs.write())
+    for fmt in (cvgs.PixelFormat.NV12, cvgs.PixelFormat.NV21):
+        for crange in cvgs.ColorRange:
+            if (fmt, crange) != (cvgs.PixelFormat.NV12, cvgs.ColorRange.FULL):
+                pointwise_cases[f"p5_{fmt.name.lower()}_{crange.name.lower()}_1080p_rgba"] = (
+                    cvgs.read_yuv(nv12_hd, fmt),
+                    cvgs.convert_yuv_to_rgb(color_range=crange, alpha=True))
+    pointwise_cases.update({
+        "p6_int16_saturating_chain": (cvgs.image(hd_i16), cvgs.multiply(1.7), cvgs.add(-2000.5),
+                                      cvgs.split_tensor()),
+        "p6_uint16_to_gray_to_int8": (
+            cvgs.image(hd_u16), cvgs.multiply(1.5),
+            cvgs.cvt_color(cvgs.ColorConversionCode.COLOR_RGB2GRAY),
+            cvgs.convert_to(np.int8, alpha=1 / 300.0, beta=-90.0), cvgs.write()),
+        "p6_float32_to_int16_negative_saturate": (
+            cvgs.image((hd.float() - 128) * 400), cvgs.convert_to(np.int16), cvgs.write()),
+        "layout_split_single": (cvgs.image(hd), to_unit, cvgs.split()),
+        "layout_write_tensor": (cvgs.image(ring), to_unit, cvgs.write_tensor()),
+        "layout_tsplit": (cvgs.image(ring), to_unit, cvgs.split_tensor_transposed()),
+        "layout_split_packed": (cvgs.circular_batch_read(ring, first=-5, ascendent=False),
+                                to_unit, cvgs.split_tensor_packed()),
+        "layout_split_write_batch": (cvgs.image(ring), cvgs.multiply(1.7), cvgs.split()),
+        "border_over_crop_over_ring": (
+            cvgs.make_border(cvgs.crop(cvgs.circular_batch_read(ring, first=2),
+                                       cvgs.Rect(30, -40, 200, 100)),
+                             2, 1, 3, 2, cvgs.BorderMode.REFLECT_101), to_unit,
+            cvgs.split_tensor()),
+    })
+    for name, ops in pointwise_cases.items():
+        check(name, *ops, kernel="pointwise", tol=0.0)
+
+    # out= into a strided slot: the frame kernel and the pointwise kernel
+    # store into plane 2 of a (C, N, H, W) ring, whose rows lie N planes apart
+    for kernel, module, launch, ops, size in (
+            ("frame_resize", kfr, kfr.frame_resize,
+             (cvgs.resize(cvgs.image(hd), cvgs.Size(64, 128)), to_unit), (128, 64)),
+            ("pointwise", kp, kp.pointwise,
+             (cvgs.crop(cvgs.image(hd), cvgs.Rect(7, 9, 64, 128)), to_unit), (128, 64))):
+        slots = torch.full((3, 4, *size), -1.0, device=dev)
+        pipeline = cvgs.build_pipeline(*ops, cvgs.split_tensor())
+        a = module.prepare(pipeline, module.build_plan(pipeline), dev)
+        view = slots[:, 2]
+        assert not view.is_contiguous() and launch(a, out=view) is view
+        compare(f"out_into_a_strided_slot_{kernel}", kernel, view, module.run(pipeline, a.plan, dev),
+                0.0)
+        assert bool((slots[:, [0, 1, 3]] == -1.0).all()), "the store left its slot"
+
     # ---- phase 4: the main path through the public entry points
     path_calls = {name: 0 for name in kernels}
 
@@ -1046,16 +1173,236 @@ def main() -> int:
     assert ct_launches == 40 and ct_new_plans == 0, (ct_launches, ct_new_plans)
     assert ct_err <= F32_TOL, ct_err
 
+
+    # the pointwise path: P1-P5 twice each through execute_operations with
+    # new values (another frame, first, origin, buffer, scale); one launch
+    # per call, no plan on the second, equal to the eager version; AUTO and
+    # an explicit ParBackend.CUDA both take the pointwise kernel
+    mad_src2 = torch.from_numpy(rng.random((MAD_SIDE, MAD_SIDE, 1), dtype=np.float32) * 255).to(dev)
+    hd2 = torch.from_numpy(hd2_np).to(dev)
+    nv12_hd2 = torch.roll(nv12_hd, 5, dims=1)
+    pw_values = ((mad_src, ring, 3, hd, (-300, -200), nv12_hd, 0.3),
+                 (mad_src2, torch.roll(ring, 1, dims=2), -5, hd2, (1700, 900), nv12_hd2, 0.5))
+    pointwise_launches = 0
+    for name in pointwise_rows(cvgs, *pw_values[0]):
+        kp.LAUNCHES = 0
+        builds0 = executor.PLAN_BUILDS
+        outs, backends, seen = [], [], []
+        for values in pw_values:
+            ops = pointwise_rows(cvgs, *values)[name]
+            outs.append(drive("pointwise", lambda: cvgs.execute_operations(*ops)))
+            backends.append(cvgs.last_backend())
+            seen.append((kp.LAUNCHES, executor.PLAN_BUILDS))
+        torch.cuda.synchronize()
+        pointwise_launches += kp.LAUNCHES
+        ops2 = pointwise_rows(cvgs, *pw_values[1])[name]
+        forced = cvgs.describe_backend(*ops2, backend=cvgs.ParBackend.CUDA)
+        eager = cvgs.execute_operations(*ops2, backend=cvgs.ParBackend.TORCH)
+        same = torch.equal(outs[1], eager)
+        log(f"phase4 pointwise path ({name}): backends {backends}, under ParBackend.CUDA {forced}; "
+            f"launches {seen[0][0]} {seen[1][0]}; plan builds {builds0} -> {seen[0][1]} -> "
+            f"{seen[1][1]}; {tuple(outs[1].shape)} {outs[1].dtype}; equal to eager torch {same}")
+        assert backends == ["cuda:pointwise"] * 2 and forced == "cuda:pointwise", (backends, forced)
+        assert (seen[0][0], seen[1][0]) == (1, 2), seen
+        assert seen[0][1] <= builds0 + 1 and seen[1][1] == seen[0][1], (builds0, seen)
+        assert same and not torch.equal(outs[0], outs[1])
+        if outs[1].dtype.is_floating_point:
+            assert bool(torch.isfinite(outs[1]).all()), "non-finite output"
+    # P1 against an independent float64 version: 200 ops amplify float32's
+    # rounding, so the contract's 1e-4 holds relative to the values
+    mad64 = mad_src2.double()
+    for _ in range(MAD_OPS // 2):
+        mad64 = mad64 * 1.0009 + 0.0001
+    mad_out = cvgs.execute_operations(*pointwise_rows(cvgs, *pw_values[1])["p1_mad_200_ops_2048x2048"])
+    mad_err = float(((mad_out.double() - mad64).abs() / mad64.abs().clamp(min=1.0)).max())
+    log(f"phase4 pointwise path (p1): max relative |diff| vs float64 {mad_err!r}")
+    assert mad_err <= ORACLE_TOL, mad_err
+
+    # what an f32 register cannot hold stays eager, one launch per op
+    for what, ops in (("int32 source", (cvgs.image(hd.to(torch.int32)), cvgs.multiply(2.0))),
+                      ("float64 source", (cvgs.image(hd.double()), cvgs.multiply(2.0))),
+                      ("int32 cast", (cvgs.image(hd), cvgs.convert_to(np.int32, alpha=1000.0)))):
+        cvgs.execute_operations(*ops)
+        assert cvgs.last_backend() == "torch", (what, cvgs.last_backend())
+    log("phase4 int32 and float64 sources and an int32 cast run on the eager path (torch)")
+
+    # the presets at full width, each call one launch
+    def preset_calls(label, kernel, module, backend, calls):
+        """Drive ``calls`` (thunks of a preset whose plan exists), each one
+        launch of ``module``'s kernel with ``backend`` reported and no plan
+        built; returns the outputs and the launches."""
+        module.LAUNCHES = 0
+        builds0 = executor.PLAN_BUILDS
+        outs = []
+        for call in calls:
+            before = module.LAUNCHES
+            outs.append(drive(kernel, call))
+            assert cvgs.last_backend() == backend, (label, cvgs.last_backend())
+            assert module.LAUNCHES == before + 1, (label, module.LAUNCHES - before)
+        torch.cuda.synchronize()
+        log(f"phase4 preset {label}: {len(calls)} calls with new values, backend {backend}, "
+            f"1 launch each, plans built {executor.PLAN_BUILDS - builds0}")
+        assert executor.PLAN_BUILDS == builds0, (label, builds0, executor.PLAN_BUILDS)
+        return outs, module.LAUNCHES
+
+    prep = presets.detection_preprocessor(dsize=cvgs.Size(64, 128), mean=SUB, scale=DIV, alpha=ALPHA)
+    prep(frame, rects_a)  # the plan of this structure
+    (det1, det2), n = preset_calls("detection_preprocessor", "batch_resize", kbr,
+                                   "cuda:batch_resize",
+                                   [lambda: prep(frame, rects_a), lambda: prep(frame, shifted)])
+    main_launches += n
+    assert torch.equal(det2, out2) and not torch.equal(det1, det2)
+
+    window = presets.temporal_window(window=32, dsize=cvgs.Size(64, 128))
+    window.ring.update(*ct_ops(0))
+    pushes = [torch.roll(hd, 11 * k, dims=0) for k in range(1, 4)]
+    _, n = preset_calls("temporal_window", "frame_resize", kfr, "cuda:frame_resize",
+                        [lambda f=f: window.push(f) for f in pushes])
+    frame_launches += n
+    newest = cvgs.execute_operations(cvgs.resize(cvgs.image(pushes[-1]), cvgs.Size(64, 128)), to_unit,
+                                     cvgs.split_tensor(), backend=cvgs.ParBackend.TORCH)
+    assert tuple(window.tensor.shape) == (32, 3, 128, 64)
+    assert float((window.tensor[0] - newest).abs().max()) <= F32_TOL
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        n_frames = 16
+        rgb_frames = rng.integers(0, 256, (n_frames, FRAME_H, FRAME_W * 3), dtype=np.uint8)
+        nv12_frames = rng.integers(0, 256, (n_frames, FRAME_H * 3 // 2, FRAME_W), dtype=np.uint8)
+        for fmt, frames in (("rgb", rgb_frames), ("nv12", nv12_frames)):
+            path = os.path.join(tmp, f"stream.{fmt}")
+            frames.tofile(path)
+            stream = presets.video_stream(path, FRAME_W, FRAME_H, dsize=cvgs.Size(*FRAME_DST),
+                                          mean=MEAN, scale=STD, fmt=fmt,
+                                          standard=cvgs.ColorStandard.BT709)
+            assert stream.loader.native, "the native frame loader did not build"
+            assert stream.loader.num_frames == n_frames
+            kfr.LAUNCHES = 0
+            outs, builds = [], []
+            for out in stream:
+                path_calls["frame_resize"] += 1
+                assert cvgs.last_backend() == "cuda:frame_resize", cvgs.last_backend()
+                outs.append(out)
+                builds.append(executor.PLAN_BUILDS)
+            torch.cuda.synchronize()
+            stream.loader.close()
+            frame_launches += kfr.LAUNCHES
+            assert len(outs) == n_frames == kfr.LAUNCHES and builds[-1] == builds[0], (
+                len(outs), kfr.LAUNCHES, builds)
+            last = torch.from_numpy(frames[-1]).to(dev)
+            head = (cvgs.resize(cvgs.image(last, channels=3), cvgs.Size(*FRAME_DST)) if fmt == "rgb"
+                    else nv12_read(cvgs, last, FRAME_DST))
+            eager = cvgs.execute_operations(head, to_unit, cvgs.subtract(MEAN), cvgs.divide(STD),
+                                            cvgs.split_tensor(), backend=cvgs.ParBackend.TORCH)
+            err = float((outs[-1] - eager).abs().max())
+            first_differs = not torch.equal(outs[0], outs[-1])
+            log(f"phase4 preset video_stream ({fmt}): {n_frames} frames of {FRAME_W}x{FRAME_H} "
+                f"through the native loader ({frameloader.library_path().name}, built from "
+                f"native/{frameloader.SOURCE.name}), 1 launch each, plans built after the first frame "
+                f"{builds[-1] - builds[0]}; last frame vs eager torch max|diff| {err!r}")
+            assert err <= F32_TOL and first_differs, (err, first_differs)
+
+    cam_resize = presets.camera_pipeline(standard=cvgs.ColorStandard.BT709, alpha=True,
+                                         out_size=cvgs.Size(*FRAME_DST))
+    cam_resize(nv12_hd)
+    (cam1, cam2), n = preset_calls("camera_pipeline(out_size)", "frame_resize", kfr,
+                                   "cuda:frame_resize",
+                                   [lambda: cam_resize(nv12_hd), lambda: cam_resize(nv12_hd2)])
+    frame_launches += n
+    assert tuple(cam2.shape) == (FRAME_DST[1], FRAME_DST[0], 4) and cam2.dtype == torch.uint8
+    assert bool((cam2[..., 3] == 255).all()) and not torch.equal(cam1, cam2)
+    cam_plain = presets.camera_pipeline(alpha=True)
+    cam_plain(nv12_hd)
+    (cam3, cam4), n = preset_calls("camera_pipeline()", "pointwise", kp, "cuda:pointwise",
+                                   [lambda: cam_plain(nv12_hd), lambda: cam_plain(nv12_hd2)])
+    pointwise_launches += n
+    assert tuple(cam4.shape) == (FRAME_H, FRAME_W, 4) and cam4.dtype == torch.uint8
+    assert torch.equal(cam4, cvgs.execute_operations(
+        cvgs.read_yuv(nv12_hd2), cvgs.convert_yuv_to_rgb(alpha=True),
+        backend=cvgs.ParBackend.TORCH))
+
+    # the flagship through the cv2-typed shim, OpenCV's codes as literals
+    kbr.LAUNCHES = 0
+    shim = drive("batch_resize", lambda: cv2_compat.executeOperations(
+        cv2_compat.resize_batch(frame, shifted, (64, 128), interpolation=cv2_compat.INTER_LINEAR),
+        cv2_compat.convertTo(cv2_compat.CV_32F, alpha=ALPHA), cv2_compat.subtract(SUB),
+        cv2_compat.divide(DIV), cv2_compat.split_tensor()))
+    main_launches += kbr.LAUNCHES
+    log(f"phase4 cv2_compat flagship: backend {cvgs.last_backend()}, launches {kbr.LAUNCHES}, "
+        f"equal to the factories' call {torch.equal(shim, out2)}")
+    assert cvgs.last_backend() == "cuda:batch_resize" and kbr.LAUNCHES == 1
+    assert torch.equal(shim, out2)
+
+    # ring updates in one launch: a resize head in all three layouts and both
+    # orders, a plain and a cropped frame through the pointwise kernel, a
+    # float32 chain into a uint8 ring (clamped, then truncated in the store)
+    ring_alloc = 0
+    for planes in cvgs.ColorPlanes:
+        for order in cvgs.CircularTensorOrder:
+            for head, module in (("resize", kfr), ("plain", kp), ("crop", kp)):
+                for ring_dtype in ((np.float32,) if head == "resize" else (np.float32, np.uint8)):
+                    rt = cvgs.CircularTensor(64, 128, 3, 4, order=order, planes=planes,
+                                             dtype=ring_dtype, device=dev)
+                    twin = cvgs.CircularTensor(64, 128, 3, 4, order=order, planes=planes,
+                                               dtype=ring_dtype, device="cpu")
+                    small = hd[:128, :64].contiguous()
+
+                    def ring_ops(k, src=None):
+                        if head == "resize":
+                            return ct_ops(k) if src is None else (
+                                cvgs.resize(cvgs.image(torch.roll(hd, 7 * k, dims=1).cpu()),
+                                            cvgs.Size(64, 128)), to_unit)
+                        base = (torch.roll(small, 3 * k, dims=1) if head == "plain"
+                                else torch.roll(hd, 7 * k, dims=1))
+                        base = base if src is None else base.cpu()
+                        read = (cvgs.image(base) if head == "plain"
+                                else cvgs.crop(cvgs.image(base), cvgs.Rect(50 * k, 30 * k, 64, 128)))
+                        return (read, cvgs.convert_to(np.float32, alpha=1.7), cvgs.add(-70.25))
+
+                    rt.update(*ring_ops(0))
+                    twin.update(*ring_ops(0, "cpu"))
+                    inputs = [ring_ops(k) for k in range(1, 6)]
+                    module.LAUNCHES = 0
+                    builds0 = executor.PLAN_BUILDS
+                    torch.cuda.synchronize()
+                    allocated0 = torch.cuda.memory_stats(dev)["allocated_bytes.all.allocated"]
+                    for ops in inputs:
+                        drive("frame_resize" if head == "resize" else "pointwise",
+                              lambda: rt.update(*ops))
+                    torch.cuda.synchronize()
+                    grown = (torch.cuda.memory_stats(dev)["allocated_bytes.all.allocated"]
+                             - allocated0)
+                    for k in range(1, 6):
+                        twin.update(*ring_ops(k, "cpu"))
+                    if head == "resize":
+                        frame_launches += module.LAUNCHES
+                    else:
+                        pointwise_launches += module.LAUNCHES
+                    err = float((rt.tensor.cpu().double() - twin.tensor.double()).abs().max())
+                    assert module.LAUNCHES == 5 and executor.PLAN_BUILDS == builds0, (
+                        head, planes, order, module.LAUNCHES)
+                    assert err <= (F32_TOL if head == "resize" else 0.0), (head, planes, order, err)
+                    # five updates allocate their blocks of runtime values and
+                    # nothing of a plane's size: no temporary of the frame
+                    assert grown < 64 * 128 * 3, (head, planes, order, grown)
+                    ring_alloc = max(ring_alloc, grown)
+    log("phase4 CircularTensor.update: 1 launch per update and no plan, resize head (frame_resize) "
+        "and plain and cropped frames (pointwise, float32 and uint8 rings), 3 layouts x 2 orders; "
+        f"every ring equal to a ring updated on the CPU; device bytes allocated by 5 updates at "
+        f"most {ring_alloc} (one 128x64x3 uint8 plane is {64 * 128 * 3})")
+
     # ---- phase 5: times at the flagship shape
-    def profiler_ms(fn, calls=20):
+    def profiler_ms(fn, calls=20, what="a kernel"):
         """Device time of one ``fn()`` by ``torch.profiler``: the median
         kernel duration where a call is one kernel, else the calls' share of
         all device time in the trace. No event floor is inside. A trace now
         and then comes back without device activity: it is taken again, and
-        after three empty ones the time is None (not measured)."""
+        after three empty ones the run fails, naming the case."""
         for _ in range(3):
             fn()
-        for _ in range(3):
+        tries = 3
+        for _ in range(tries):
             torch.cuda.synchronize()
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
                 for _ in range(calls):
@@ -1065,32 +1412,33 @@ def main() -> int:
                   if e.device_type == torch.autograd.DeviceType.CUDA]
             if us:
                 return float(np.median(us) if len(us) == calls else sum(us) / calls) * 1e-3
-        log("phase5 torch.profiler recorded no device activity in three traces")
-        return None
+        raise RuntimeError(f"torch.profiler recorded no device activity for {what}: all {tries} "
+                           f"traces of {calls} calls came back empty")
 
-    def measure(kernel_fn, plain_fn, iters):
+    def measure(kernel_fn, plain_fn, iters, what="a kernel", plain_iters=None):
         """Event medians of the kernel and its plain version, alternating
         plain, kernel, kernel, plain, and the kernel's profiler duration."""
         runs = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
-            runs[which] += time_cuda(kernel_fn if which == "kernel" else plain_fn, iters=iters)
+            runs[which] += time_cuda(kernel_fn if which == "kernel" else plain_fn,
+                                     iters=iters if which == "kernel" else (plain_iters or iters))
         return {"ms": float(np.median(runs["kernel"])), "plain_ms": float(np.median(runs["plain"])),
-                "profiler_ms": profiler_ms(kernel_fn)}
+                "profiler_ms": profiler_ms(kernel_fn, what=what)}
 
     def out_bytes_of(outs):
         outs = outs if isinstance(outs, tuple) else (outs,)
         return sum(o.numel() * o.element_size() for o in outs)
 
     def describe(t):
-        by_profiler = ("not measured" if t["profiler_ms"] is None
-                       else f"{t['profiler_ms'] * 1e3:.2f} us")
+        by_profiler = f"{t['profiler_ms'] * 1e3:.2f} us"
         text = (f"kernel {t['ms'] * 1e3:.2f} us by events, {by_profiler} by torch.profiler, "
                 f"plain torch {t['plain_ms'] * 1e3:.2f} us (medians); bound "
                 f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} at the published peaks, "
                 f"{t['floor_ms'] * 1e3:.2f} us at the copy bandwidth = ({t['out_bytes']} out + "
-                f"{t['src_bytes_touched']} source bytes touched, {t['flops']} flop)")
+                f"{t['src_bytes_touched']} source bytes touched, {t['flops']} flop at "
+                f"{t['op_rate'] / 1e12:.1f} T/s)")
         if t["library_ms"] is not None:
-            text += f"; library call (resample only) {t['library_ms'] * 1e3:.2f} us by events"
+            text += f"; library call (the read alone) {t['library_ms'] * 1e3:.2f} us by events"
         return text + f"; card {card}"
 
     # the copy bandwidth: a 256 MiB device copy reads and writes its bytes
@@ -1322,6 +1670,106 @@ def main() -> int:
         f"CircularTensor.update host-inclusive {ct_update_ms * 1e3:.2f} us/call (median of 50); "
         f"card {card}")
 
+
+    # one CircularTensor update, before and after: the three steps that ran
+    # until the wrappers took out= (the pipeline into a temporary, the cast,
+    # a copy_ of the permuted value into the slot), then update() itself
+    def update_in_three_steps(k):
+        x = cvgs.execute_operations(*ct_ops(k))
+        ct._ring[k % 32].copy_(dt.astype(x, ct.dtype).permute(2, 0, 1))
+
+    ring_update = {}
+    for label, fn in (("three_steps", update_in_three_steps), ("one_launch", lambda k: ct.update(*ct_ops(k))),
+                      ("one_launch", lambda k: ct.update(*ct_ops(k))), ("three_steps", update_in_three_steps)):
+        whole = []
+        for k in range(60):
+            t0 = time.perf_counter()
+            fn(k)
+            torch.cuda.synchronize()
+            whole.append(time.perf_counter() - t0)
+        ring_update.setdefault(label, []).append(float(np.median(whole[10:])) * 1e3)
+    frame7 = torch.roll(hd, 7, dims=1)
+    step_ops = (cvgs.resize(cvgs.image(frame7), cvgs.Size(64, 128)), to_unit)
+    step_pipe = map_leaves(cvgs.build_pipeline(*step_ops), lambda v: as_device_tensor(v, dev))
+    step_args = kfr.prepare(step_pipe, kfr.build_plan(step_pipe), dev)
+    slot_pipe = map_leaves(cvgs.build_pipeline(*step_ops, cvgs.split_tensor()),
+                           lambda v: as_device_tensor(v, dev))
+    slot_args = kfr.prepare(slot_pipe, kfr.build_plan(slot_pipe), dev)
+
+    def device_three_steps():
+        ct._ring[5].copy_(kfr.frame_resize(step_args).permute(2, 0, 1))
+
+    ring_update["device_three_steps_ms"] = profiler_ms(device_three_steps, what="the three-step update")
+    ring_update["device_one_launch_ms"] = profiler_ms(
+        lambda: kfr.frame_resize(slot_args, out=ct._ring[5]), what="the one-launch update")
+    log(f"phase5 CircularTensor.update (32 x 3 x 128 x 64 f32 ring, a 1080p frame resized): the "
+        f"three steps {ring_update['three_steps'][0] * 1e3:.2f}, {ring_update['three_steps'][1] * 1e3:.2f} "
+        f"us/call on the host clock and {ring_update['device_three_steps_ms'] * 1e3:.2f} us of device "
+        f"time by torch.profiler; update() in one launch {ring_update['one_launch'][0] * 1e3:.2f}, "
+        f"{ring_update['one_launch'][1] * 1e3:.2f} us/call and "
+        f"{ring_update['device_one_launch_ms'] * 1e3:.2f} us (medians of 50, of 20); card {card}")
+
+    # the pointwise kernel in P1-P5: kernel vs plain version, bound, floor; a
+    # library call where one PyTorch call does the read alone
+    def head_src_bytes(name, a):
+        """Source bytes the head must read: every row but P4's (its crop)
+        reads its whole source once."""
+        if name.startswith("p4"):
+            return 256 * 256 * 3
+        return a.src.numel() * a.src.element_size()
+
+    pw_times = {}
+    for name, ops in pointwise_rows(cvgs, *pw_values[0]).items():
+        pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: as_device_tensor(v, dev))
+        pargs = kp.prepare(pipe, kp.build_plan(pipe), dev)
+        mad = name.startswith("p1")
+        t = measure(lambda: kp.pointwise(pargs), lambda: kp.pointwise_reference(pargs),
+                    20 if mad else 50, what=name, plain_iters=5 if mad else None)
+        outs = kp.pointwise(pargs)
+        n_values = sum(o.numel() for o in (outs if isinstance(outs, tuple) else (outs,)))
+        # one operation per value and chain row (P5: the conversion's 7 too);
+        # P1's are separate multiplies and adds, counted at the unfused rate
+        flops = n_values * (pargs.plan.ops.shape[0] + (7 if name.startswith("p5") else 0))
+        t.update(bound(out_bytes_of(outs), head_src_bytes(name, pargs), flops, bandwidth,
+                       UNFUSED_F32_OP_PER_S if mad else PEAK_F32_FLOP_PER_S))
+        t["max_abs_err"] = case_err[name]
+        t["library_ms"] = None  # no single PyTorch call runs a chain, a ring read or NV12 -> RGBA
+        if name.startswith("p3"):
+            # F.pad of a float32 NCHW copy: the border alone, with no uint8
+            # read, no scale and no planar write of its own
+            nchw = hd.permute(2, 0, 1)[None].float().contiguous()
+            t["library_ms"] = float(np.median(time_cuda(
+                lambda: F.pad(nchw, (BORDER,) * 4, mode="replicate"), iters=50)))
+        if name.startswith("p4"):
+            # a slice made contiguous: the crop alone, at a fixed origin
+            t["library_ms"] = float(np.median(time_cuda(
+                lambda: hd[824:1080, 1620:1876].contiguous(), iters=50)))
+        whole = []
+        for _ in range(60):
+            t0 = time.perf_counter()
+            cvgs.execute_operations(*ops)
+            torch.cuda.synchronize()
+            whole.append(time.perf_counter() - t0)
+        t["call_ms"] = float(np.median(whole[10:])) * 1e3
+        pw_times[name] = t
+        log(f"phase5 pointwise {name}: {describe(t)}; execute_operations host-inclusive "
+            f"{t['call_ms'] * 1e3:.2f} us/call (median of 50)")
+
+    # what no kernel takes: an int32 frame through a 3-op chain, one launch
+    # per op on the eager path
+    hd_i32 = hd.to(torch.int32)
+    eager_ops = (cvgs.image(hd_i32), cvgs.convert_to(np.float32, alpha=1 / 255.0),
+                 cvgs.subtract(MEAN), cvgs.divide(STD), cvgs.split_tensor())
+    eager_ms = float(np.median(time_cuda(lambda: cvgs.execute_operations(*eager_ops), iters=20)))
+    assert cvgs.last_backend() == "torch"
+    same_u8 = (cvgs.image(hd), *eager_ops[1:])
+    kernel_ms_u8 = float(np.median(time_cuda(lambda: cvgs.execute_operations(*same_u8), iters=20)))
+    assert cvgs.last_backend() == "cuda:pointwise"
+    log(f"phase5 eager int32 pipeline (1080p int32 -> x1/255, normalize, planar f32): "
+        f"{eager_ms * 1e3:.2f} us by events on the eager path (torch), against {kernel_ms_u8 * 1e3:.2f} "
+        f"us for the same chain on a uint8 frame through cuda:pointwise (host-bound: events around "
+        f"whole execute_operations calls); card {card}")
+
     for mod in ("jax", "cv2"):
         assert mod not in sys.modules, f"{mod} was imported"
     def entry(name, source, replaces, launches, times, **more):
@@ -1355,6 +1803,11 @@ def main() -> int:
         entry("divergent", "divergent.cu", "cvgpuspeedup_tpu/exec/pallas_divergent.py:686",
               divergent_launches, d4t, cases=div_times,
               circular_tensor_update_ms=ct_update_ms),
+        # P1, the MAD stress (bound by its unfused operations); P1-P5 below. No
+        # Pallas counterpart: it replaces the reference's jitted XLA program
+        entry("pointwise", "pointwise.cu", "cvgpuspeedup_tpu/exec/executor.py:243",
+              pointwise_launches, pw_times["p1_mad_200_ops_2048x2048"], cases=pw_times,
+              circular_tensor_update=ring_update, eager_int32_pipeline_ms=eager_ms),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

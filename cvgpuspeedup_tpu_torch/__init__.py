@@ -3,10 +3,13 @@ and CUDA.
 
 The port of ``cvgpuspeedup_tpu`` to one NVIDIA H100, module for module. The
 public factory surface mirrors the reference package: factories build ops and
-execute nothing; :func:`execute_operations` runs the whole chain, through the
-hand-written CUDA kernel for a supported pipeline on a CUDA device and
-through the eager PyTorch version otherwise. The package imports torch and
-never jax.
+execute nothing; :func:`execute_operations` runs the whole chain: on a CUDA
+device as one launch of a hand-written CUDA kernel (the batched crop-resize,
+the full-frame resize, the warp or, for every read of one source pixel per
+output pixel, the pointwise kernel), through the eager PyTorch version on the
+CPU and for what no kernel takes. ``pipelines.presets`` holds the deployment
+calls, ``interop.cv2_compat`` the OpenCV-typed shim, ``utils.frameloader`` the
+native frame source. The package imports torch and never jax or cv2.
 
 Example (the flagship 50-crop pipeline, the fused NV12 frame read, a batched
 warp, a divergent batch and a ring of processed frames)::

@@ -38,6 +38,14 @@ enum : int {
   OP_ALPHA = 8,      // append a channel holding aux (1 for float, 255 for uint8)
   OP_GRAY_U8 = 9,    // OpenCV's 15-bit fixed point; r, g, b at aux bits 0, 4, 8
   OP_GRAY_F32 = 10,  // r*0.299 + g*0.587 + b*0.114 in float32
+  // the wide table, decoded only by run_chain<P, true> (the pointwise kernel):
+  // int8, uint16 and int16 are exact in a float32 register, as uint8 is
+  OP_SAT_I8 = 11,    // round half to even, clamp to [-128, 127]
+  OP_SAT_U16 = 12,   // ... to [0, 65535]
+  OP_SAT_I16 = 13,   // ... to [-32768, 32767]
+  OP_CAST_I8 = 14,   // truncate, keep the low 8 bits, sign-extended
+  OP_CAST_U16 = 15,  // truncate, keep the low 16 bits
+  OP_CAST_I16 = 16,  // truncate, keep the low 16 bits, sign-extended
 };
 
 // float32(0.299), float32(0.587), float32(0.114), as ops/color.py rounds them
@@ -110,12 +118,57 @@ template <>
 __device__ __forceinline__ uint8_t to_out<uint8_t>(float v) {
   return (uint8_t)__float2int_rz(v);  // the chain left an exact value in [0, 255]
 }
+template <>
+__device__ __forceinline__ int8_t to_out<int8_t>(float v) { return (int8_t)__float2int_rz(v); }
+template <>
+__device__ __forceinline__ uint16_t to_out<uint16_t>(float v) {
+  return (uint16_t)__float2int_rz(v);
+}
+template <>
+__device__ __forceinline__ int16_t to_out<int16_t>(float v) { return (int16_t)__float2int_rz(v); }
+
+// ops/cast.py::Cast of a float32 register to an integer type: truncate, keep
+// the low bits (OP_CAST_U8's rule for every width)
+__device__ __forceinline__ float cast_u8(float v) { return (float)(__float2int_rz(v) & 255); }
+__device__ __forceinline__ float cast_i8(float v) { return (float)(int8_t)__float2int_rz(v); }
+__device__ __forceinline__ float cast_u16(float v) { return (float)(__float2int_rz(v) & 65535); }
+__device__ __forceinline__ float cast_i16(float v) { return (float)(int16_t)__float2int_rz(v); }
+
+// ops/cast.py::SaturateCast: round half to even, clamp to [lo, hi]
+__device__ __forceinline__ float saturate(float v, float lo, float hi) {
+  const float r = rintf(v);
+  return r < lo ? lo : (r > hi ? hi : r);
+}
+
+// One op of the wide table on the P pixels of v.
+template <int P>
+__device__ __forceinline__ void run_wide_op(int code, float (&v)[P][kMaxCh], int ch) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+#pragma unroll
+    for (int c = 0; c < kMaxCh; ++c) {
+      if (c >= ch) continue;
+      const float x = v[p][c];
+      switch (code) {
+        case OP_SAT_I8: v[p][c] = saturate(x, -128.f, 127.f); break;
+        case OP_SAT_U16: v[p][c] = saturate(x, 0.f, 65535.f); break;
+        case OP_SAT_I16: v[p][c] = saturate(x, -32768.f, 32767.f); break;
+        case OP_CAST_I8: v[p][c] = cast_i8(x); break;
+        case OP_CAST_U16: v[p][c] = cast_u16(x); break;
+        case OP_CAST_I16: v[p][c] = cast_i16(x); break;
+        default: break;
+      }
+    }
+  }
+}
 
 // Runs the chain on the P pixels of v, each holding ch channels; returns the
 // channel count after the chain. An op row is decoded once for all P pixels
 // and a per-channel scalar is loaded once per channel, so a kernel that
-// gives a thread several pixels pays the table once.
-template <int P>
+// gives a thread several pixels pays the table once. kWide also decodes the
+// wide table (OP_SAT_I8 and up); the kernels that never see those rows leave
+// it out, so their code does not change with it.
+template <int P, bool kWide = false>
 __device__ __forceinline__ int run_chain(float (&v)[P][kMaxCh], int ch,
                                          const int* __restrict__ ops, int n_ops,
                                          const float* __restrict__ fp) {
@@ -195,24 +248,43 @@ __device__ __forceinline__ int run_chain(float (&v)[P][kMaxCh], int ch,
         for (int p = 0; p < P; ++p) {
 #pragma unroll
           for (int c = 0; c < kMaxCh; ++c) {
-            if (c < ch) v[p][c] = (float)(__float2int_rz(v[p][c]) & 255);
+            if (c < ch) v[p][c] = cast_u8(v[p][c]);
           }
         }
         break;
       default:
+        if constexpr (kWide) run_wide_op(code, v, ch);
         break;
     }
   }
   return ch;
 }
 
+// Four adjacent elements at an aligned p as one store: 16 bytes of float32, 8
+// of a 16-bit type, 4 of an 8-bit one.
+template <typename OutT>
+__device__ __forceinline__ void store_vec4(OutT* __restrict__ p, float a, float b, float c,
+                                           float d) {
+  if constexpr (sizeof(OutT) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+  } else if constexpr (sizeof(OutT) == 2) {
+    *reinterpret_cast<ushort4*>(p) =
+        make_ushort4((unsigned short)to_out<OutT>(a), (unsigned short)to_out<OutT>(b),
+                     (unsigned short)to_out<OutT>(c), (unsigned short)to_out<OutT>(d));
+  } else {
+    *reinterpret_cast<uchar4*>(p) =
+        make_uchar4((unsigned char)to_out<OutT>(a), (unsigned char)to_out<OutT>(b),
+                    (unsigned char)to_out<OutT>(c), (unsigned char)to_out<OutT>(d));
+  }
+}
+
 // Stores the thread's adjacent output pixels (x .. x + n - 1 of one row,
 // n <= P) from v: `o` points at channel 0 of pixel x, channels lie sc
 // elements apart and pixels sx. Where the pixels of a channel are contiguous
-// (sx == 1), P is 4, all 4 are present and the address is aligned to the vector, a
-// channel goes out as one store of 4 elements (16 bytes of float32, 4 of
-// uint8); anything else (packed layouts, a row's tail, a misaligned view)
-// takes scalar stores.
+// (sx == 1), P is 4, all 4 are present and the address is aligned to the
+// vector, a channel goes out as one store of 4 elements (store_vec4);
+// anything else (packed layouts, a row's tail, a misaligned view) takes
+// scalar stores.
 template <typename OutT, int P>
 __device__ __forceinline__ void store_pixels(OutT* __restrict__ o, const float (&v)[P][kMaxCh],
                                              int n, int out_ch, long long sc, long long sx) {
@@ -223,13 +295,7 @@ __device__ __forceinline__ void store_pixels(OutT* __restrict__ o, const float (
     OutT* p = o + c * sc;
     if (P == 4 && sx == 1 && n == P &&
         (reinterpret_cast<unsigned long long>(p) & (kVecBytes - 1)) == 0) {
-      if constexpr (P == 4 && sizeof(OutT) == 4) {
-        *reinterpret_cast<float4*>(p) = make_float4(v[0][c], v[1][c], v[2][c], v[3][c]);
-      } else if constexpr (P == 4) {
-        *reinterpret_cast<uchar4*>(p) =
-            make_uchar4(to_out<uint8_t>(v[0][c]), to_out<uint8_t>(v[1][c]),
-                        to_out<uint8_t>(v[2][c]), to_out<uint8_t>(v[3][c]));
-      }
+      if constexpr (P == 4) store_vec4(p, v[0][c], v[1][c], v[2][c], v[3][c]);
     } else {
 #pragma unroll
       for (int q = 0; q < P; ++q) {
@@ -240,8 +306,8 @@ __device__ __forceinline__ void store_pixels(OutT* __restrict__ o, const float (
 }
 
 // The 4 * kCh contiguous elements of 4 adjacent pixels of a packed layout at
-// an aligned o, as kCh vector stores (16 bytes of float32, 4 of uint8):
-// element j is channel j % kCh of pixel j / kCh.
+// an aligned o, as kCh vector stores (store_vec4): element j is channel
+// j % kCh of pixel j / kCh.
 template <typename OutT, int kCh>
 __device__ __forceinline__ void store_group(OutT* __restrict__ o, const float (&v)[4][kMaxCh]) {
 #pragma unroll
@@ -249,12 +315,7 @@ __device__ __forceinline__ void store_group(OutT* __restrict__ o, const float (&
     const float a = v[(4 * k) / kCh][(4 * k) % kCh], b = v[(4 * k + 1) / kCh][(4 * k + 1) % kCh];
     const float c = v[(4 * k + 2) / kCh][(4 * k + 2) % kCh];
     const float d = v[(4 * k + 3) / kCh][(4 * k + 3) % kCh];
-    if constexpr (sizeof(OutT) == 4) {
-      *reinterpret_cast<float4*>(o + 4 * k) = make_float4(a, b, c, d);
-    } else {
-      *reinterpret_cast<uchar4*>(o + 4 * k) = make_uchar4(
-          to_out<uint8_t>(a), to_out<uint8_t>(b), to_out<uint8_t>(c), to_out<uint8_t>(d));
-    }
+    store_vec4(o + 4 * k, a, b, c, d);
   }
 }
 

@@ -7,10 +7,15 @@ logical order is applied by the readers. After ``k`` updates, NEWEST_FIRST
 plane ``z`` holds frame ``k - z`` and OLDEST_FIRST plane ``z`` holds frame
 ``k - (BATCH - 1 - z)``.
 
-``update`` runs the new frame's pipeline through ``execute_operations`` (a
-resize update runs the full-frame kernel on the card) and writes the one
-slot in place with ``copy_``, after the reference's ``astype`` to the
-ring's dtype (float -> integer clamps, then truncates). ``read_batch``
+``update`` runs the new frame's pipeline with the slot's view of the ring as
+its output (``exec.executor.run_pipeline(out=)``): on the card one launch
+stores the frame into its slot, in the ring's layout and with the
+reference's ``astype`` to the ring's dtype (float -> integer clamps, then
+truncates), with no temporary of the frame: the full-frame kernel for a resize head,
+the pointwise kernel for a plain or cropped frame. Only where a kernel's
+store cannot reach the ring's dtype (a float32 resize into an integer ring,
+an integer chain into a ring of another integer dtype) does it go through a
+temporary and a ``copy_``, as every update on the CPU does. ``read_batch``
 returns a :class:`~..ops.memory.CircularBatchRead` over the raw ring whose
 runtime ``first`` applies the logical order, and ``.tensor`` gathers the
 ordered window into a new buffer.
@@ -25,9 +30,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..exec.executor import default_device, execute_operations
+from ..exec.cuda_batch_resize import OutShapeError
+from ..exec.executor import build_pipeline, default_device, run_pipeline
 from ..graph import ComputeOp, FusedCompute, IOp, ReadOp, WriteOp
-from ..ops.memory import CircularBatchRead, ImageRead, TensorSplit, TensorTSplit, TensorWrite
+from ..ops.memory import (CircularBatchRead, ImageRead, TensorSplit, TensorTSplit, TensorWrite,
+                          Write2D)
 from ..types import CircularTensorOrder, ColorPlanes
 from ..utils import dtypes as dt
 
@@ -138,18 +145,21 @@ class CircularTensor:
                 compute.append(o)
             else:
                 raise TypeError(f"unexpected op {type(o).__name__} in update chain")
-        x = execute_operations(read, *compute, device=self._ring.device)
-        expect = (self.height, self.width, self.channels)
-        if tuple(x.shape) != expect:
-            raise ValueError(f"update produced {tuple(x.shape)}, the ring holds {expect} planes")
-        x = dt.astype(x, self.dtype)
         slot = self._count % self.batch
-        if self.planes == ColorPlanes.STANDARD:
-            self._ring[slot].copy_(x.permute(2, 0, 1))
-        elif self.planes == ColorPlanes.TRANSPOSED:
-            self._ring[:, slot].copy_(x.permute(2, 0, 1))
+        if self.planes == ColorPlanes.PACKED:
+            view, write = self._ring[slot], Write2D()           # (H, W, C)
+        elif self.planes == ColorPlanes.STANDARD:
+            view, write = self._ring[slot], TensorSplit()       # (C, H, W)
         else:
-            self._ring[slot].copy_(x)
+            view, write = self._ring[:, slot], TensorSplit()    # (C, H, W), strided
+        pipeline = build_pipeline(read, *compute, write)
+        if pipeline.read.batched:
+            raise ValueError("update takes one frame, the read gives a batch of planes")
+        try:
+            run_pipeline(pipeline, device=self._ring.device, out=view)
+        except OutShapeError as e:  # raised before anything launches
+            raise ValueError(f"{e}: the ring holds "
+                             f"{(self.height, self.width, self.channels)} planes") from None
         self._count += 1
 
     def state_dict(self) -> dict:
@@ -168,17 +178,21 @@ class CircularTensor:
         np.savez(path, **self.state_dict())
 
     @classmethod
-    def load(cls, path: str, device=None) -> "CircularTensor":
-        d = np.load(path if str(path).endswith(".npz") else str(path) + ".npz")
-        logical = d["tensor"]
+    def from_state_dict(cls, d, device=None) -> "CircularTensor":
+        """A ring holding the logical window of a :meth:`state_dict` (this
+        class's or the reference's), as after ``batch`` updates."""
+        logical = np.asarray(d["tensor"])
         ct = cls(width=int(d["width"]), height=int(d["height"]), channels=int(d["channels"]),
                  batch=int(d["batch"]), order=CircularTensorOrder(str(d["order"])),
                  planes=ColorPlanes(str(d["planes"])), dtype=logical.dtype, device=device)
         # the logical window goes back into slot order at count = batch
         ct._count = ct.batch
-        axis = ct._plane_axis()
-        perm = torch.from_numpy(ct._slot_perm(ct.batch))
-        phys = torch.empty_like(torch.from_numpy(logical))
-        phys.index_copy_(axis, perm, torch.from_numpy(logical))
-        ct._ring.copy_(phys)
+        phys = np.empty_like(logical)
+        phys[(slice(None),) * ct._plane_axis() + (ct._slot_perm(ct.batch),)] = logical
+        ct._ring.copy_(torch.from_numpy(phys))
         return ct
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "CircularTensor":
+        d = np.load(path if str(path).endswith(".npz") else str(path) + ".npz")
+        return cls.from_state_dict(d, device=device)

@@ -174,6 +174,17 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
                 p,                         # stream
             ]
             lib.cvgs_divergent.restype = ctypes.c_int
+            # another directory of sources (an earlier tree's) may lack it
+            if csrc_dir is None or hasattr(lib, "cvgs_pointwise"):
+                lib.cvgs_pointwise.argtypes = [
+                    p, p, f, f, f, f, f, f,    # src, head (host words), ys, cs, rv, gu, gv, bu
+                    p, p, i, i,                # blk, ops, n_ops, fp_off
+                    i, i, i,                   # n_planes, dst_w, dst_h
+                    p, i, i, i,                # out, out_type, out_ch, clamp_store
+                    ll, ll, ll, ll,            # sn, sc, sy, sx
+                    p,                         # stream
+                ]
+                lib.cvgs_pointwise.restype = ctypes.c_int
             lib.cvgs_error_string.argtypes = [ctypes.c_int]
             lib.cvgs_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -28,7 +28,7 @@ the table with ``csrc/chain.cuh``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,7 @@ from ..ops.memory import (SplitWrite, TensorSplit, TensorSplitPacked, TensorTSpl
                           TensorWrite, Write2D, pack_factor)
 from ..ops.resize import BatchResizeRead, sample_batch
 from ..types import AspectRatio, InterpolationType, Size
+from ..utils import dtypes as dt
 from ..utils.dtypes import as_device_tensor
 from . import _build
 
@@ -49,8 +50,18 @@ LAUNCHES = 0
 
 # op codes; keep in step with csrc/chain.cuh
 (OP_MUL, OP_ADD, OP_SUB, OP_DIV, OP_SAT_U8, OP_CAST_U8, OP_REORDER, OP_ALPHA, OP_GRAY_U8,
- OP_GRAY_F32) = range(1, 11)
+ OP_GRAY_F32, OP_SAT_I8, OP_SAT_U16, OP_SAT_I16, OP_CAST_I8, OP_CAST_U16,
+ OP_CAST_I16) = range(1, 17)
 _ARITH = {Mul: OP_MUL, Add: OP_ADD, Sub: OP_SUB, Div: OP_DIV}
+# the saturate and the truncate row of each integer dtype a chain may hold
+_SAT = {torch.uint8: OP_SAT_U8, torch.int8: OP_SAT_I8, torch.uint16: OP_SAT_U16,
+        torch.int16: OP_SAT_I16}
+_CAST = {torch.uint8: OP_CAST_U8, torch.int8: OP_CAST_I8, torch.uint16: OP_CAST_U16,
+         torch.int16: OP_CAST_I16}
+#: the integer dtypes of the resampling kernels' chains, and of the pointwise
+#: kernel's (the wide table of ``csrc/chain.cuh``): all exact in an f32 register
+NARROW_INTS = (torch.uint8,)
+WIDE_INTS = tuple(_SAT)
 _MODES = {
     AspectRatio.IGNORE_AR: 0,
     AspectRatio.PRESERVE_AR: 1,
@@ -121,11 +132,13 @@ def _reorder_row(indices) -> List[int]:
     return [OP_REORDER, 0, 0, packed | (len(indices) << 16)]
 
 
-def encode_chain(chain, nch: int, first_param: int = 0, dtype: torch.dtype = torch.float32):
+def encode_chain(chain, nch: int, first_param: int = 0, dtype: torch.dtype = torch.float32,
+                 int_dtypes=NARROW_INTS):
     """``(ops, out_dtype, out_ch, n_params)`` for a chain applied to values
-    of ``dtype`` (float32, or uint8 read from a uint8 source) with ``nch``
-    channels; the kernel holds them in f32 registers either way. Parameter
-    offsets count from ``first_param`` in the order
+    of ``dtype`` (float32, or an integer dtype of ``int_dtypes`` read from
+    such a source) with ``nch`` channels; the kernel holds them in f32
+    registers either way. A cast to an integer dtype outside ``int_dtypes``
+    is refused. Parameter offsets count from ``first_param`` in the order
     :func:`~..graph.flatten` visits the leaves; ``n_params`` is the offset
     past the last one."""
     rows: List[List[int]] = []
@@ -149,16 +162,17 @@ def encode_chain(chain, nch: int, first_param: int = 0, dtype: torch.dtype = tor
             if _leaf_dtype_name(v) != "float32":
                 raise Unsupported(f"{type(o).__name__} scalar is {_leaf_dtype_name(v)}, not float32")
             rows.append([_ARITH[type(o)], pos, 0 if size == 1 else 1, 0])
-            if dtype == torch.uint8:
-                rows.append([OP_SAT_U8, 0, 0, 0])
+            if dtype != torch.float32:
+                rows.append([_SAT[dtype], 0, 0, 0])
             return dtype, ch, pos + size
         if isinstance(o, (SaturateCast, Cast)):
             if o.dst == torch.float32:
                 return torch.float32, ch, pos
-            if o.dst == torch.uint8:
-                if dtype == torch.float32:
-                    rows.append([OP_SAT_U8 if isinstance(o, SaturateCast) else OP_CAST_U8, 0, 0, 0])
-                return torch.uint8, ch, pos
+            if o.dst in int_dtypes:
+                if dtype != o.dst:
+                    table = _SAT if isinstance(o, SaturateCast) else _CAST
+                    rows.append([table[o.dst], 0, 0, 0])
+                return o.dst, ch, pos
             raise Unsupported(f"cast to {o.dst}")
         if isinstance(o, VectorReorder):
             idx = tuple(o.indices)
@@ -172,7 +186,7 @@ def encode_chain(chain, nch: int, first_param: int = 0, dtype: torch.dtype = tor
                 raise Unsupported(f"{o.code.name} on {ch} channels")
             if info[2] == "gray":
                 r, g, b = info[3]
-                code = OP_GRAY_U8 if dtype == torch.uint8 else OP_GRAY_F32
+                code = OP_GRAY_F32 if dtype == torch.float32 else OP_GRAY_U8
                 rows.append([code, 0, 0, r | (g << 4) | (b << 8)])
                 return dtype, 1, pos
             rows.append(_reorder_row(info[2]))
@@ -297,22 +311,71 @@ def prepare(pipeline, plan: KernelPlan, device: torch.device) -> Launch:
                   fparams=fparams, ops=ops)
 
 
-def _alloc_out(plan: KernelPlan, device):
-    """``(buffer, (sn, sc, sy, sx), result)`` of the plan's write layout."""
+def store_cast(plan_dtype: torch.dtype, out_dtype: torch.dtype) -> Optional[int]:
+    """How a kernel whose chain ends in ``plan_dtype`` stores into a buffer
+    of ``out_dtype`` as ``utils.dtypes.astype`` casts it: 0 as it is (the
+    same dtype, or an integer into float32, which is exact), 1 clamped to
+    the buffer's range and then truncated (float32 into an integer; the
+    pointwise kernel alone does it), None where no store does it (an integer
+    into another integer wraps)."""
+    if plan_dtype == out_dtype or out_dtype == torch.float32:
+        return 0
+    if plan_dtype == torch.float32 and not out_dtype.is_floating_point:
+        return 1
+    return None
+
+
+def can_store(plan, dtype: torch.dtype) -> bool:
+    """Whether ``out=`` of this kernel's wrapper may hold ``dtype``: uint8
+    or float32, reached without a cast of the value."""
+    return (plan.layout != "split_write" and dtype in SRC_DTYPES.values()
+            and store_cast(plan.out_dtype, dtype) == 0)
+
+
+class OutShapeError(ValueError):
+    """``out=`` does not have the shape the pipeline produces."""
+
+
+def check_out(out, shape, device) -> None:
+    """``out=`` of a kernel wrapper: a tensor view of the write's shape on
+    the launch's device, of any strides."""
+    if not isinstance(out, torch.Tensor):
+        raise TypeError(f"out must be a tensor, got {type(out).__name__}")
+    if out.device != device:
+        raise ValueError(f"out is on {out.device}, the source on {device}")
+    if tuple(out.shape) != tuple(shape):
+        raise OutShapeError(f"the pipeline produces {tuple(shape)}, out holds {tuple(out.shape)}")
+
+
+def _alloc_out(plan, device, out=None):
+    """``(buffer, (sn, sc, sy, sx), result)`` of the plan's write layout:
+    a new contiguous buffer, or the caller's view ``out`` with its own
+    element strides."""
     n, c = plan.n_planes, plan.out_ch
     w, h = plan.dsize
+    f = pack_factor(h, w)
+    # the buffer's shape and which of its axes are (plane, channel, row, col)
     if plan.layout in ("split", "split_packed"):
-        buf = torch.empty((n, c, h, w), dtype=plan.out_dtype, device=device)
-        strides = (c * h * w, h * w, w, 1)
-        f = pack_factor(h, w)
-        result = buf if plan.layout == "split" else buf.view(n, c, h // f, f * w)
+        shape, axes = (n, c, h, w), (0, 1, 2, 3)
     elif plan.layout in ("tsplit", "split_write"):
-        buf = torch.empty((c, n, h, w), dtype=plan.out_dtype, device=device)
-        strides = (h * w, n * h * w, w, 1)
-        result = buf if plan.layout == "tsplit" else tuple(buf.unbind(0))
+        shape, axes = (c, n, h, w), (1, 0, 2, 3)
     else:  # packed (N, H, W, C)
-        buf = torch.empty((n, h, w, c), dtype=plan.out_dtype, device=device)
-        strides = (h * w * c, 1, w * c, c)
+        shape, axes = (n, h, w, c), (0, 3, 1, 2)
+    if out is None:
+        buf = torch.empty(shape, dtype=plan.out_dtype, device=device)
+    elif plan.layout == "split_write":
+        raise ValueError("SplitWrite returns a tuple; out= takes one tensor")
+    else:
+        check_out(out, (n, c, h // f, f * w) if plan.layout == "split_packed" else shape, device)
+        buf = out.view(shape)
+    strides = tuple(buf.stride(a) for a in axes)
+    if out is not None:
+        result = out
+    elif plan.layout == "split_packed":
+        result = buf.view(n, c, h // f, f * w)
+    elif plan.layout == "split_write":
+        result = tuple(buf.unbind(0))
+    else:
         result = buf
     return buf, strides, result
 
@@ -351,19 +414,39 @@ def _check(a: Launch) -> None:
         raise ValueError(f"source of shape {tuple(a.src.shape)} does not match the plan")
 
 
-def batch_resize(a: Launch):
+def reference_into(result, out, device):
+    """A plain version's ``result`` stored into the view ``out``, cast as
+    ``utils.dtypes.astype`` casts (the CPU side of a wrapper's ``out=``)."""
+    if isinstance(result, tuple):
+        raise ValueError("SplitWrite returns a tuple; out= takes one tensor")
+    check_out(out, result.shape, device)
+    out.copy_(dt.astype(result, out.dtype))
+    return out
+
+
+def check_out_dtype(name: str, plan, out) -> None:
+    if out is not None and not can_store(plan, out.dtype):
+        raise TypeError(f"out is {out.dtype}; {name} cannot store {plan.out_dtype} values of a "
+                        f"{plan.layout} write into it")
+
+
+def batch_resize(a: Launch, out: Optional[torch.Tensor] = None):
     """The kernel wrapper: launches on a CUDA tensor, runs the plain version
-    on a CPU tensor, raises on anything else. It never falls back."""
+    on a CPU tensor, raises on anything else. It never falls back. With
+    ``out`` (a view of the write's shape, any strides, the plan's dtype or
+    float32) the result is stored there and ``out`` is returned."""
     global LAUNCHES
     dev = a.src.device
     if dev.type == "cpu":
-        return batch_resize_reference(a)
+        result = batch_resize_reference(a)
+        return result if out is None else reference_into(result, out, dev)
     if dev.type != "cuda":
         raise ValueError(f"batch_resize runs on CUDA or CPU tensors, not {dev}")
     _check(a)
     lib = _build.load()
     plan = a.plan
-    buf, (sn, sc, sy, sx), result = _alloc_out(plan, dev)
+    check_out_dtype("batch_resize", plan, out)
+    buf, (sn, sc, sy, sx), result = _alloc_out(plan, dev, out)
     w, h = plan.dsize
     src_h, src_w = a.src.shape[-3], a.src.shape[-2]
     plane_stride = src_h * src_w * plan.nch if plan.stack_mode else 0
@@ -374,7 +457,7 @@ def batch_resize(a: Launch):
             src_h, src_w, plan.nch,
             a.rects.data_ptr(), a.used.data_ptr(), a.fparams.data_ptr(), a.ops.data_ptr(),
             plan.ops.shape[0], plan.n_planes, w, h, _MODES[plan.aspect_ratio],
-            buf.data_ptr(), int(plan.out_dtype == torch.uint8), plan.out_ch, sn, sc, sy, sx,
+            buf.data_ptr(), int(buf.dtype == torch.uint8), plan.out_ch, sn, sc, sy, sx,
             stream,
         )
     if err != 0:
@@ -385,6 +468,6 @@ def batch_resize(a: Launch):
     return result
 
 
-def run(pipeline, plan: KernelPlan, device: torch.device):
+def run(pipeline, plan: KernelPlan, device: torch.device, out=None):
     """One call of the kernel path: gather the arguments, launch."""
-    return batch_resize(prepare(pipeline, plan, device))
+    return batch_resize(prepare(pipeline, plan, device), out)

@@ -145,8 +145,8 @@ def _dtype_of(leaf) -> torch.dtype:
 
 def _stack_geometry(data, packed: int) -> Tuple[int, int, int, int]:
     """``(n, h, w, c)`` of a (N, H, W, C), (N, H, W) or packed (N, H, W*C)
-    source."""
-    shape = tuple(data.shape)
+    source, given as an array or as its shape."""
+    shape = tuple(getattr(data, "shape", data))
     if packed and len(shape) == 3:
         return shape[0], shape[1], shape[2] // packed, packed
     if not packed and len(shape) in (3, 4):
@@ -348,6 +348,8 @@ class _Block:
 
     def to(self, device: torch.device) -> torch.Tensor:
         host = [p for p in self.parts if isinstance(p, np.ndarray)]
+        if not host:  # every value is on the device already
+            return torch.cat(self.parts)
         buf = as_device_tensor(np.concatenate(host), device)
         if len(host) == len(self.parts):
             return buf

@@ -25,7 +25,7 @@ frame size the eager path takes, the kernel takes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,8 +37,9 @@ from ..ops.resize import ResizeRead, axis_taps, half_taps, keeps_edge_weight
 from ..types import ColorRange, InterpolationType, PixelFormat, Size
 from ..utils.dtypes import as_device_tensor
 from . import _build
+from .cuda_batch_resize import can_store  # noqa: F401  (the executor asks each kernel module)
 from .cuda_batch_resize import (_MAX_CHANNELS, SRC_DTYPES, Unsupported, _leaf_dtype_name,
-                                encode_chain)
+                                check_out, check_out_dtype, encode_chain, reference_into)
 
 #: launches of the CUDA kernel in this process
 LAUNCHES = 0
@@ -210,15 +211,23 @@ def frame_resize_reference(a: Launch):
     return p.write.write(val)
 
 
-def _alloc_out(plan: FramePlan, device):
-    """``(buffer, (sc, sy, sx), result)`` of the plan's write layout."""
+def _alloc_out(plan, device, out=None):
+    """``(buffer, (sc, sy, sx), result)`` of the plan's write layout: a new
+    contiguous buffer, or the caller's view ``out`` with its own element
+    strides."""
     c = plan.out_ch
     w, h = plan.dsize
-    if plan.layout == "packed":
-        buf = torch.empty((h, w, c), dtype=plan.out_dtype, device=device)
-        return buf, (1, w * c, c), buf
-    buf = torch.empty((c, h, w), dtype=plan.out_dtype, device=device)
-    return buf, (h * w, w, 1), (buf if plan.layout == "split" else tuple(buf.unbind(0)))
+    # the buffer's shape and which of its axes are (channel, row, col)
+    shape, axes = ((h, w, c), (2, 0, 1)) if plan.layout == "packed" else ((c, h, w), (0, 1, 2))
+    if out is None:
+        buf = torch.empty(shape, dtype=plan.out_dtype, device=device)
+    elif plan.layout == "split_write":
+        raise ValueError("SplitWrite returns a tuple; out= takes one tensor")
+    else:
+        check_out(out, shape, device)
+        buf = out
+    strides = tuple(buf.stride(a) for a in axes)
+    return buf, strides, (tuple(buf.unbind(0)) if plan.layout == "split_write" else buf)
 
 
 def _check(a: Launch) -> None:
@@ -241,19 +250,24 @@ def _check(a: Launch) -> None:
         raise ValueError(f"source of shape {tuple(a.src.shape)} does not match the plan")
 
 
-def frame_resize(a: Launch):
+def frame_resize(a: Launch, out: Optional[torch.Tensor] = None):
     """The kernel wrapper: launches on a CUDA tensor, runs the plain version
-    on a CPU tensor, raises on anything else. It never falls back."""
+    on a CPU tensor, raises on anything else. It never falls back. With
+    ``out`` (a view of the write's shape, any strides, the plan's dtype or
+    float32; a ring slot) the result is stored there and ``out`` is
+    returned."""
     global LAUNCHES
     dev = a.src.device
     if dev.type == "cpu":
-        return frame_resize_reference(a)
+        result = frame_resize_reference(a)
+        return result if out is None else reference_into(result, out, dev)
     if dev.type != "cuda":
         raise ValueError(f"frame_resize runs on CUDA or CPU tensors, not {dev}")
     _check(a)
     lib = _build.load()
     plan = a.plan
-    buf, (sc, sy, sx), result = _alloc_out(plan, dev)
+    check_out_dtype("frame_resize", plan, out)
+    buf, (sc, sy, sx), result = _alloc_out(plan, dev, out)
     w, h = plan.dsize
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -262,7 +276,7 @@ def frame_resize(a: Launch):
             plan.nch, int(plan.yuv), int(plan.nv21), a.taps.data_ptr(), a.weights.data_ptr(),
             int(plan.keep_edge), *plan.conv,
             a.fparams.data_ptr(), a.ops.data_ptr(), plan.ops.shape[0], w, h,
-            buf.data_ptr(), int(plan.out_dtype == torch.uint8), plan.out_ch, sc, sy, sx,
+            buf.data_ptr(), int(buf.dtype == torch.uint8), plan.out_ch, sc, sy, sx,
             stream,
         )
     if err != 0:
@@ -273,6 +287,6 @@ def frame_resize(a: Launch):
     return result
 
 
-def run(pipeline, plan: FramePlan, device: torch.device):
+def run(pipeline, plan: FramePlan, device: torch.device, out=None):
     """One call of the kernel path: gather the arguments, launch."""
-    return frame_resize(prepare(pipeline, plan, device))
+    return frame_resize(prepare(pipeline, plan, device), out)

@@ -32,7 +32,7 @@ more than 4 channels.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +49,8 @@ from .cuda_batch_resize import _MAX_CHANNELS, _MAX_PLANES, SRC_DTYPES, Unsupport
 
 #: launches of the CUDA kernel in this process
 LAUNCHES = 0
+
+can_store = kbr.can_store
 
 _SINGLE_LAYOUTS = {Write2D: "packed", TensorSplit: "split", SplitWrite: "split_write"}
 _N_COEFFS = 9       # per plane in the parameter block; an affine map uses 6
@@ -287,11 +289,12 @@ def warp_reference(a: Launch):
     return p.write.write(val)
 
 
-def _alloc_out(plan: WarpPlan, device):
-    """``(buffer, (sn, sc, sy, sx), result)`` of the plan's write layout."""
+def _alloc_out(plan, device, out=None):
+    """``(buffer, (sn, sc, sy, sx), result)`` of the plan's write layout,
+    allocated, or over the caller's view ``out``."""
     if plan.batch:
-        return kbr._alloc_out(plan, device)
-    buf, strides, result = kfr._alloc_out(plan, device)
+        return kbr._alloc_out(plan, device, out)
+    buf, strides, result = kfr._alloc_out(plan, device, out)
     return buf, (0, *strides), result
 
 
@@ -321,19 +324,23 @@ def _check(a: Launch) -> None:
             raise ValueError(f"source of shape {tuple(s.shape)} does not match the plan")
 
 
-def warp(a: Launch):
+def warp(a: Launch, out: Optional[torch.Tensor] = None):
     """The kernel wrapper: launches on a CUDA tensor, runs the plain version
-    on a CPU tensor, raises on anything else. It never falls back."""
+    on a CPU tensor, raises on anything else. It never falls back. With
+    ``out`` (a view of the write's shape, any strides, the plan's dtype or
+    float32) the result is stored there and ``out`` is returned."""
     global LAUNCHES
     dev = a.srcs[0].device
     if dev.type == "cpu":
-        return warp_reference(a)
+        result = warp_reference(a)
+        return result if out is None else kbr.reference_into(result, out, dev)
     if dev.type != "cuda":
         raise ValueError(f"warp runs on CUDA or CPU tensors, not {dev}")
     _check(a)
     lib = _build.load()
     plan = a.plan
-    buf, (sn, sc, sy, sx), result = _alloc_out(plan, dev)
+    kbr.check_out_dtype("warp", plan, out)
+    buf, (sn, sc, sy, sx), result = _alloc_out(plan, dev, out)
     w, h = plan.dsize
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -342,7 +349,7 @@ def warp(a: Launch):
             plan.nch, int(plan.perspective), a.coeffs.data_ptr(), a.border.data_ptr(),
             a.default.data_ptr(), a.used.data_ptr(), a.fparams.data_ptr(), a.ops.data_ptr(),
             plan.ops.shape[0], plan.n_planes, w, h,
-            buf.data_ptr(), int(plan.out_dtype == torch.uint8), plan.out_ch, sn, sc, sy, sx,
+            buf.data_ptr(), int(buf.dtype == torch.uint8), plan.out_ch, sn, sc, sy, sx,
             stream,
         )
     if err != 0:
@@ -353,6 +360,6 @@ def warp(a: Launch):
     return result
 
 
-def run(pipeline, plan: WarpPlan, device: torch.device):
+def run(pipeline, plan: WarpPlan, device: torch.device, out=None):
     """One call of the kernel path: gather the arguments, launch."""
-    return warp(prepare(pipeline, plan, device))
+    return warp(prepare(pipeline, plan, device), out)

@@ -14,11 +14,14 @@ the tensor leaves and, where there is none, to the current CUDA device: a
 pipeline of host arrays runs on the card, raises where there is no card, and
 runs on the CPU only with ``device="cpu"``. Backends: ``AUTO`` tries, for a CUDA
 pipeline, the batched crop-resize kernel (``cuda:batch_resize``), the
-full-frame resize kernel (``cuda:frame_resize``), then the warp kernel
-(``cuda:warp``, single and batched warps), and takes the eager PyTorch
-version when none supports the pipeline; an explicit ``ParBackend.CUDA``
-raises where none can run. Nothing falls back from a failed build or
-launch.
+full-frame resize kernel (``cuda:frame_resize``), the warp kernel
+(``cuda:warp``, single and batched warps), then the pointwise kernel
+(``cuda:pointwise``: every head that reads one source pixel per output
+pixel), so that a pipeline is one launch; it takes the eager PyTorch version
+(one launch per op) only for what an f32 register cannot hold: int32, int64,
+float16 and float64 values and chain scalars that are not float32. An
+explicit ``ParBackend.CUDA`` raises where no kernel can run. Nothing falls
+back from a failed build or launch.
 
 The divergent launcher (``build_operation_sequence``,
 ``launch_divergent_batch``, ``executor.py:282-396`` of the reference) runs
@@ -40,7 +43,8 @@ from ..graph import (ComputeOp, FusedCompute, FusedRead, IOp, PendingReadOp, Rea
 from ..ops.memory import ImageRead, Write2D
 from ..types import ParBackend
 from ..utils.dtypes import as_device_tensor
-from . import cuda_batch_resize, cuda_divergent, cuda_frame_resize, cuda_warp
+from . import (cuda_batch_resize, cuda_divergent, cuda_frame_resize, cuda_pointwise,
+               cuda_warp)
 
 __all__ = [
     "Pipeline",
@@ -51,6 +55,7 @@ __all__ = [
     "clear_cache",
     "describe_backend",
     "last_backend",
+    "run_pipeline",
     "meta_lower",
 ]
 
@@ -119,7 +124,7 @@ class _Plan:
 
 #: the kernels, in the order the executor tries them
 _KERNELS = (("cuda:batch_resize", cuda_batch_resize), ("cuda:frame_resize", cuda_frame_resize),
-            ("cuda:warp", cuda_warp))
+            ("cuda:warp", cuda_warp), ("cuda:pointwise", cuda_pointwise))
 _TORCH = _Plan("torch", None, None)
 
 
@@ -207,8 +212,8 @@ def _plan(pipeline: Pipeline, key, backend: ParBackend, dev: torch.device) -> _P
 def describe_backend(*iops: IOp, input=None, backend: ParBackend = ParBackend.AUTO,
                      device=None) -> str:
     """Which backend :func:`execute_operations` would run for this op list:
-    ``"cuda:batch_resize"``, ``"cuda:frame_resize"``, ``"cuda:warp"`` or
-    ``"torch"``."""
+    ``"cuda:batch_resize"``, ``"cuda:frame_resize"``, ``"cuda:warp"``,
+    ``"cuda:pointwise"`` or ``"torch"``."""
     pipeline = build_pipeline(*iops, input=input)
     _, leaves = flatten(pipeline)
     return _select(pipeline, backend, _resolve_device(leaves, device)).backend
@@ -227,15 +232,31 @@ def execute_operations(*iops: IOp, input=None, backend: ParBackend = ParBackend.
     CUDA stream and the call returns without waiting for it. ``device``
     defaults to the tensor leaves' device and, with host arrays only, to
     the current CUDA device (:func:`default_device`)."""
+    return run_pipeline(build_pipeline(*iops, input=input), backend, device)
+
+
+def run_pipeline(pipeline: Pipeline, backend: ParBackend = ParBackend.AUTO, device=None,
+                 out: Optional[torch.Tensor] = None):
+    """Run a built pipeline; what :func:`execute_operations` does after
+    ``build_pipeline``. With ``out``, a tensor view of the write's shape (of
+    any strides: a ring slot), the result is stored there, cast as
+    ``utils.dtypes.astype`` casts: by the kernel's own store, in the same
+    launch, wherever its store reaches ``out``'s dtype, else through a
+    temporary and a ``copy_``."""
     global _LAST_BACKEND
-    pipeline = build_pipeline(*iops, input=input)
     key, leaves = flatten(pipeline)
     dev = _resolve_device(leaves, device)
     plan = _plan(pipeline, key, backend, dev)
     _LAST_BACKEND = plan.backend
     if plan.kernel is None:
-        return map_leaves(pipeline, lambda v: as_device_tensor(v, dev)).lower()
-    return plan.module.run(pipeline, plan.kernel, dev)
+        result = map_leaves(pipeline, lambda v: as_device_tensor(v, dev)).lower()
+    elif out is None or plan.module.can_store(plan.kernel, out.dtype):
+        return plan.module.run(pipeline, plan.kernel, dev, out)
+    else:
+        result = plan.module.run(pipeline, plan.kernel, dev)
+    if out is None:
+        return result
+    return cuda_batch_resize.reference_into(result, out, dev)
 
 
 def build_operation_sequence(*iops: IOp) -> Pipeline:

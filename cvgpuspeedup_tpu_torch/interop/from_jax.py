@@ -7,6 +7,8 @@ become numpy arrays (``np.asarray``), static fields keep their values, with
 enums (``BorderMode`` among them), sizes and dtypes mapped to the port's
 types. It never imports jax: it
 reads the reference ops through ``dataclasses.fields`` only.
+:func:`ring_from_jax` carries a reference ``CircularTensor``'s window across
+through its ``state_dict``, so both rings hold the same frames.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import enum
 import numpy as np
 
 from .. import types as port_types
+from ..data.circular_tensor import CircularTensor
 from ..exec.executor import Pipeline
 from ..graph import FusedCompute, FusedRead
 from ..ops.arithmetic import Add, Div, Mul, StaticLoop, Sub
@@ -79,3 +82,10 @@ def from_jax(obj):
         v = getattr(obj, f.name)
         kwargs[f.name] = _static(v) if port_fields[f.name].metadata.get("static") else from_jax(v)
     return cls(**kwargs)
+
+
+def ring_from_jax(ring, device=None) -> CircularTensor:
+    """The port's ``CircularTensor`` holding the logical window of a
+    reference ring (its ``state_dict()``), on ``device``: the same planes in
+    the same order and layout, as after ``batch`` updates."""
+    return CircularTensor.from_state_dict(ring.state_dict(), device=device)

@@ -17,7 +17,9 @@ The reference pads with ``jnp.pad``, which follows ``numpy.pad``: a border
 wider than the source repeats the pattern (``torch.nn.functional.pad``
 refuses that for ``reflect``). So each axis gets an index map built on the
 host with ``numpy.pad`` of the source's indices, and the read is a gather.
-No kernel reads a border: the CUDA kernels refuse a ``BorderRead`` source.
+On the card the pointwise kernel (``csrc/pointwise.cuh::fold_index``) does
+the same folds as index arithmetic; the resampling kernels refuse a
+``BorderRead`` source.
 """
 
 from __future__ import annotations
@@ -79,4 +81,6 @@ class BorderRead(ReadOp):
         c = torch.arange(out.shape[-2], device=dev)
         inside = (((r >= self.top) & (r < self.top + h))[:, None, None]
                   & ((c >= self.left) & (c < self.left + w))[None, :, None])
+        if x.dtype == torch.uint16:  # torch.where has no uint16 kernel on CUDA: same bits as int16
+            return torch.where(inside, out.view(torch.int16), val.view(torch.int16)).view(x.dtype)
         return torch.where(inside, out, val)

@@ -18,6 +18,7 @@ DTypeLike = Any
 _NP_TO_TORCH = {
     np.dtype(np.uint8): torch.uint8,
     np.dtype(np.int8): torch.int8,
+    np.dtype(np.uint16): torch.uint16,
     np.dtype(np.int16): torch.int16,
     np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int64,

@@ -320,3 +320,89 @@ def test_ring_in_a_divergent_batch():
     np.testing.assert_array_equal(out.numpy()[0], logical[0])
     np.testing.assert_array_equal(out.numpy()[2], logical[2])
     np.testing.assert_array_equal(out.numpy()[1], flat[1] + 1.0)
+
+
+# --- update through out=: the slot's view is the pipeline's output ----------------
+
+
+RING_DTYPES = {"f32": np.float32, "u8": np.uint8, "i16": np.int16, "u16": np.uint16}
+
+
+@pytest.mark.parametrize("head", ["plain", "crop", "resize", "u8_chain"])
+@pytest.mark.parametrize("ring_dtype", RING_DTYPES)
+@pytest.mark.parametrize("order", ["NEWEST_FIRST", "OLDEST_FIRST"])
+@pytest.mark.parametrize("planes", ["STANDARD", "TRANSPOSED", "PACKED"])
+def test_update_into_the_slots_view_equals_the_three_steps(planes, order, ring_dtype, head):
+    """``update`` hands the slot's view to the pipeline as its output. The
+    ring must equal, bit for bit, what the three steps gave: run the
+    pipeline into a temporary, ``astype`` it (float -> integer clamps, then
+    truncates), ``copy_`` the permuted value into the slot; and the
+    reference's ring within 1e-4 (integers within 1: XLA contracts the
+    chain's multiply-add and the lerps)."""
+    from cvgpuspeedup_tpu_torch.interop.from_jax import ring_from_jax
+    from cvgpuspeedup_tpu_torch.utils import dtypes as dt
+
+    dtype = RING_DTYPES[ring_dtype]
+    w, h, batch = 10, 6, 3
+    rng = np.random.default_rng(31)
+
+    def ops(m, k, frame):
+        if head == "resize":
+            return (m.resize(m.image(frame), m.Size(w, h)), m.convert_to(np.float32, alpha=1.7),
+                    m.add(-70.25))
+        if head == "u8_chain":
+            return (m.image(frame), m.multiply(1.7), m.add(-20.5))
+        read = m.image(frame) if head == "plain" else m.crop(m.image(frame), m.Rect(k, 2 * k, w, h))
+        return (read, m.convert_to(np.float32, alpha=1.7), m.add(-70.25))
+
+    shape = (h, w, 3) if head in ("plain", "u8_chain") else (4 * h, 4 * w, 3)
+    ring = T.CircularTensor(w, h, 3, batch, order=T.CircularTensorOrder[order],
+                            planes=T.ColorPlanes[planes], dtype=dtype, device="cpu")
+    steps = torch.zeros(ring.shape, dtype=ring.dtype)
+    jring = J.CircularTensor(w, h, 3, batch, order=J.CircularTensorOrder[order],
+                             planes=J.ColorPlanes[planes], dtype=dtype)
+    for k in range(5):
+        frame = rng.integers(0, 256, shape).astype(np.uint8)
+        ring.update(*ops(T, k, frame))
+        x = dt.astype(T.execute_operations(*ops(T, k, frame), device="cpu"), ring.dtype)
+        slot = k % batch
+        if planes == "PACKED":
+            steps[slot].copy_(x)
+        elif planes == "STANDARD":
+            steps[slot].copy_(x.permute(2, 0, 1))
+        else:
+            steps[:, slot].copy_(x.permute(2, 0, 1))
+        jring.update(*ops(J, k, frame))
+    assert torch.equal(ring._ring, steps)
+    want = np.asarray(jring.tensor)
+    got = ring.tensor.numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    # the reference's jitted update contracts x * 1.7 - 70.25 into an FMA:
+    # 1e-4 on the 0..255 scale for floats, one step for integers
+    tol = 1e-4 * max(1.0, float(np.abs(want).max()) / 255) if dtype == np.float32 else 1
+    assert np.abs(got.astype(np.float64) - want.astype(np.float64)).max() <= tol
+    carried = ring_from_jax(jring, device="cpu")
+    assert carried.order.name == order and carried.planes.name == planes
+    np.testing.assert_array_equal(carried.tensor.numpy(), want)
+
+
+def test_ring_from_jax_carries_the_window_and_goes_on_updating():
+    from cvgpuspeedup_tpu_torch.interop.from_jax import ring_from_jax
+
+    jring = J.CircularTensor(W, H, C, 3, order=J.CircularTensorOrder.OLDEST_FIRST)
+    for k in range(4):
+        jring.update(input=_frame(k + 1))
+    ring = ring_from_jax(jring, device="cpu")
+    np.testing.assert_array_equal(ring.tensor.numpy(), np.asarray(jring.tensor))
+    jring.update(input=_frame(9))
+    ring.update(input=_frame(9))
+    np.testing.assert_array_equal(ring.tensor.numpy(), np.asarray(jring.tensor))
+
+
+def test_update_refuses_a_batch_of_planes_and_a_wrong_size():
+    ring = T.CircularTensor(8, 4, 3, 2, device="cpu")
+    with pytest.raises(ValueError, match="one frame"):
+        ring.update(T.image(np.zeros((2, 4, 8, 3), np.uint8)))
+    with pytest.raises(ValueError, match="ring holds"):
+        ring.update(T.image(np.zeros((4, 9, 3), np.uint8)))
+    assert ring._count == 0

@@ -214,10 +214,13 @@ def test_main_path_launches_the_kernel_once_per_call(frame):
 
 
 def test_explicit_cuda_on_unsupported_pipeline_raises(frame):
+    wide = frame.to(torch.int32)  # an f32 register cannot hold int32: no kernel takes it
     with pytest.raises(ValueError, match="cannot run"):
-        T.execute_operations(T.image(frame), T.multiply(2.0), backend=T.ParBackend.CUDA)
-    out = T.execute_operations(T.image(frame), T.multiply(2.0))
+        T.execute_operations(T.image(wide), T.multiply(2.0), backend=T.ParBackend.CUDA)
+    out = T.execute_operations(T.image(wide), T.multiply(2.0))
     assert T.last_backend() == "torch" and out.device == frame.device
+    out = T.execute_operations(T.image(frame), T.multiply(2.0))
+    assert T.last_backend() == "cuda:pointwise" and out.device == frame.device
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(frame, cuda):

@@ -23,8 +23,11 @@ def test_import_leaves_jax_out():
         "cvgpuspeedup_tpu_torch.ops.nv12, cvgpuspeedup_tpu_torch.ops.color, "
         "cvgpuspeedup_tpu_torch.exec.cuda_warp, cvgpuspeedup_tpu_torch.ops.warp, "
         "cvgpuspeedup_tpu_torch.exec.cuda_divergent, cvgpuspeedup_tpu_torch.ops.crop, "
-        "cvgpuspeedup_tpu_torch.ops.border, cvgpuspeedup_tpu_torch.data.circular_tensor; "
-        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cvgpuspeedup_tpu')))"
+        "cvgpuspeedup_tpu_torch.ops.border, cvgpuspeedup_tpu_torch.data.circular_tensor, "
+        "cvgpuspeedup_tpu_torch.exec.cuda_pointwise, cvgpuspeedup_tpu_torch.pipelines.presets, "
+        "cvgpuspeedup_tpu_torch.interop.cv2_compat, cvgpuspeedup_tpu_torch.utils.frameloader; "
+        "print(sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'cvgpuspeedup_tpu')))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120, check=True)
@@ -71,6 +74,7 @@ def test_nvcc_command_targets_hopper_without_fast_math():
     ("warp.cu", "pallas_warp_universal.py::_emit"),
     ("warp.cu", "pallas_warp_universal.py::_emit_batch"),
     ("divergent.cu", "pallas_divergent.py::_emit"),
+    ("pointwise.cu", "cvgpuspeedup_tpu/exec/executor.py"),  # the jitted XLA program: no Pallas kernel
 ])
 def test_cuda_source_exists_and_ships_as_package_data(name, replaces):
     src = ROOT / "cvgpuspeedup_tpu_torch" / "csrc" / name
@@ -108,6 +112,7 @@ def test_library_is_keyed_on_the_sources(tmp_path, monkeypatch):
     ("batch_resize.cuh", ("batch_resize.cu", "divergent.cu")),
     ("frame_resize.cuh", ("frame_resize.cu", "divergent.cu")),
     ("warp.cuh", ("warp.cu", "divergent.cu")),
+    ("pointwise.cuh", ("pointwise.cu",)),
 ])
 def test_shared_samplers_live_in_headers(header, users):
     """Each coordinate rule exists once: the kernels that share a sampler
@@ -118,3 +123,24 @@ def test_shared_samplers_live_in_headers(header, users):
     assert "#pragma once" in text and '#include "chain.cuh"' in text
     for user in users:
         assert f'#include "{header}"' in (path.parent / user).read_text()
+
+
+def test_the_pointwise_heads_share_the_frame_kernels_conversion():
+    """One YUV -> RGB and one chain interpreter for all five kernels."""
+    csrc = ROOT / "cvgpuspeedup_tpu_torch" / "csrc"
+    assert '#include "frame_resize.cuh"' in (csrc / "pointwise.cuh").read_text()
+    assert "yuv_to_rgb(" in (csrc / "pointwise.cu").read_text()
+    assert "run_chain<P, true>" in (csrc / "pointwise.cu").read_text()
+    for other in ("batch_resize.cu", "frame_resize.cu", "warp.cu", "divergent.cu"):
+        text = (csrc / other).read_text()
+        assert "run_chain(" in text and "run_chain<P, true>" not in text
+
+
+def test_the_native_loader_builds_beside_the_kernels():
+    from cvgpuspeedup_tpu_torch.utils import frameloader
+
+    assert frameloader.BUILD_DIR == ROOT / "build" / "native"
+    assert frameloader.SOURCE == ROOT / "native" / "frameloader.cpp"
+    cmd = frameloader.compile_command("c++", Path("out.so"))
+    assert "-shared" in cmd and "-fPIC" in cmd and str(frameloader.SOURCE) in cmd
+    assert "libframeloader.so" not in " ".join(cmd)

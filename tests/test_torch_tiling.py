@@ -813,3 +813,360 @@ def test_stores_of_every_layout_fill_the_buffer_and_nothing_else(dtype, layout, 
         assert stats["vector"] == 0
     elif offset % 4 == 0 and width % 4 == 0:
         assert stats["scalar"] == 0 and stats["vector"] == n * h * w * ch // 4
+
+
+# ---------------------------------------------------------------------------
+# the pointwise kernel: heads, the op table with the wide dtypes, the store
+# ---------------------------------------------------------------------------
+
+from cvgpuspeedup_tpu_torch.exec import cuda_pointwise as kp  # noqa: E402
+
+_SAT_RANGE = {kbr.OP_SAT_U8: (0, 255), kbr.OP_SAT_I8: (-128, 127), kbr.OP_SAT_U16: (0, 65535),
+              kbr.OP_SAT_I16: (-32768, 32767)}
+_CAST_TYPE = {kbr.OP_CAST_U8: np.uint8, kbr.OP_CAST_I8: np.int8, kbr.OP_CAST_U16: np.uint16,
+              kbr.OP_CAST_I16: np.int16}
+_NP_TYPES = (np.uint8, np.int8, np.uint16, np.int16, np.float32)  # csrc/pointwise.cuh PW_U8..
+
+
+def crop_start(start, length, size):
+    """``csrc/pointwise.cuh::crop_start``."""
+    s = int(start)
+    if s < 0:
+        s += length
+    return min(max(s, 0), length - size)
+
+
+def fold_index(i, n, mode):
+    """``csrc/pointwise.cuh::fold_index`` on an array of positions (0 at the
+    source's first element); Python's % is the floor modulo."""
+    if mode == 4:  # WRAP
+        return i % n
+    if mode == 2:  # REFLECT
+        t = i % (2 * n)
+        return np.where(t < n, t, 2 * n - 1 - t)
+    if mode == 3:  # REFLECT_101
+        if n == 1:
+            return np.zeros_like(i)
+        t = i % (2 * n - 2)
+        return np.where(t < n, t, 2 * n - 2 - t)
+    return np.clip(i, 0, n - 1)
+
+
+def truncate_to(v, np_type):
+    """``cast_u8`` .. ``cast_i16``: truncate, keep the low bits."""
+    return np.trunc(v).astype(np.int64).astype(np_type).astype(F32)
+
+
+def emulate_chain(v, ch, ops, fp):
+    """``csrc/chain.cuh::run_chain<P, true>`` on float32 values ``v`` of
+    shape (..., 4): every row decoded as the kernel decodes it, every float
+    op rounded once. Returns the channel count."""
+    for code, off, stride, aux in (tuple(int(t) for t in row) for row in ops):
+        if code in (kbr.OP_MUL, kbr.OP_ADD, kbr.OP_SUB, kbr.OP_DIV):
+            fn = {kbr.OP_MUL: np.multiply, kbr.OP_ADD: np.add, kbr.OP_SUB: np.subtract,
+                  kbr.OP_DIV: np.divide}[code]
+            for c in range(ch):
+                v[..., c] = fn(v[..., c], fp[off + c * stride], dtype=F32)
+        elif code in _SAT_RANGE:
+            v[..., :ch] = np.clip(np.rint(v[..., :ch]), *_SAT_RANGE[code])
+        elif code in _CAST_TYPE:
+            v[..., :ch] = truncate_to(v[..., :ch], _CAST_TYPE[code])
+        elif code == kbr.OP_REORDER:
+            t = v.copy()
+            for c in range(4):
+                v[..., c] = t[..., min((aux >> (4 * c)) & 15, 3)]
+            ch = aux >> 16
+        elif code == kbr.OP_ALPHA:
+            v[..., ch] = aux
+            ch += 1
+        elif code == kbr.OP_GRAY_U8:
+            r, g, b = (v[..., (aux >> s) & 15].astype(np.int64) for s in (0, 4, 8))
+            v[..., 0] = (r * 9798 + g * 19235 + b * 3735 + (1 << 14)) >> 15
+            ch = 1
+        elif code == kbr.OP_GRAY_F32:
+            r, g, b = (v[..., (aux >> s) & 15] for s in (0, 4, 8))
+            k = [F32(0.299), F32(0.587), F32(0.114)]
+            v[..., 0] = (r * k[0] + g * k[1]) + b * k[2]
+            ch = 1
+        else:
+            raise AssertionError(f"op code {code}")
+    return ch
+
+
+def emulate_pointwise(a: kp.Launch, pix: int, out=None):
+    """``pointwise_kernel`` from the launch's own arguments: the head's
+    words, the block of runtime values, the op table; the store through the
+    layout's element strides. ``(result, stats)``."""
+    plan = a.plan
+    hw = plan.head
+    assert len(hw) == kp.HEAD_INTS
+    (base, src_h, src_w, nch, src_type, n_src, first_off, asc, nv21, n_stages, conv_first,
+     limited) = hw[:12]
+    blk = a.block.numpy()
+    fblk = blk.view(F32)
+    dst_w, dst_h = plan.dsize
+    src = a.src.numpy().reshape(-1)
+    assert src.dtype == _NP_TYPES[src_type]
+    y, x = (g.astype(np.int64) for g in np.meshgrid(np.arange(dst_h), np.arange(dst_w),
+                                                    indexing="ij"))
+    fill = np.full((dst_h, dst_w), -1, np.int64)
+    for s in range(n_stages):
+        kind, sh, sw, mode, p0, p1, p2, p3 = hw[12 + 8 * s:20 + 8 * s]
+        if kind == kp.STAGE_CROP:
+            x = x + crop_start(blk[p0], sw, p2)
+            y = y + crop_start(blk[p1], sh, p3)
+        else:
+            i, j = x - p1, y - p0
+            if mode == 0:
+                outside = (fill < 0) & ((i < 0) | (i >= sw) | (j < 0) | (j >= sh))
+                fill[outside] = p2
+            x, y = fold_index(i, sw, mode), fold_index(j, sh, mode)
+    live = fill < 0
+    assert ((x[live] >= 0) & (x[live] < src_w) & (y[live] >= 0) & (y[live] < src_h)).all()
+    x, y = np.clip(x, 0, src_w - 1), np.clip(y, 0, src_h - 1)  # filled pixels read nothing
+    vals = np.zeros((plan.n_planes, dst_h, dst_w, 4), F32)
+    for z in range(plan.n_planes):
+        pz = z
+        if base == 1:
+            first = int(blk[first_off])
+            pz = (first + z if asc else first - z) % n_src
+        if base == 2:
+            uv = src_h * src_w + (y // 2) * src_w + 2 * (x // 2)
+            vals[z, ..., 0] = src[y * src_w + x]
+            vals[z, ..., 1] = src[uv + (1 if nv21 else 0)]
+            vals[z, ..., 2] = src[uv + (0 if nv21 else 1)]
+        else:
+            off = ((pz * src_h + y) * src_w + x) * nch
+            for c in range(nch):
+                vals[z, ..., c] = src[off + c]
+        for c in range(nch if not live.all() else 0):
+            border = fblk[np.maximum(fill, 0) + c]
+            if src_type != 4:
+                border = truncate_to(border, _NP_TYPES[src_type])
+            vals[z, ..., c] = np.where(live, vals[z, ..., c], border)
+    if conv_first:
+        ys, cs, rv, gu, gv, bu = (F32(c) for c in plan.conv)
+        yv, u, w = vals[..., 0], vals[..., 1] - F32(128), vals[..., 2] - F32(128)
+        if limited:
+            yv, u, w = (yv - F32(16)) * ys, u * cs, w * cs
+        vals[..., 0], vals[..., 1], vals[..., 2] = (yv + rv * w, (yv - gu * u) - gv * w,
+                                                    yv + bu * u)
+        vals[..., 3] = 1
+    with np.errstate(all="ignore"):
+        ch = emulate_chain(vals, nch, plan.ops, fblk[plan.fp_off:])
+    assert ch == plan.out_ch
+    buf, (sn, sc, sy, sx), result = kp._alloc_out(plan, CPU, out)
+    np_out = _NP_TYPES[kp.TYPE_CODES[buf.dtype]]
+    if kbr.store_cast(plan.out_dtype, buf.dtype):
+        info = np.iinfo(np_out)
+        vals = np.clip(vals, info.min, info.max)
+    flat = torch.as_strided(buf, (buf.untyped_storage().nbytes() // buf.element_size(),),
+                            (1,), 0).numpy()
+    zi, yi, xi, ci = np.meshgrid(np.arange(plan.n_planes), np.arange(dst_h), np.arange(dst_w),
+                                 np.arange(ch), indexing="ij")
+    flat[buf.storage_offset() + zi * sn + ci * sc + yi * sy + xi * sx] = (
+        np.trunc(vals[..., :ch]).astype(np.int64).astype(np_out) if np_out != F32
+        else vals[..., :ch])
+    groups = -(-dst_w // pix)
+    stats = {"threads": plan.n_planes * dst_h * groups,
+             "tails": plan.n_planes * dst_h * (dst_w % pix != 0)}
+    return result, stats
+
+
+def _check_pointwise(*ops, pix=4):
+    p = T.build_pipeline(*ops)
+    a = kp.prepare(p, kp.build_plan(p), CPU)
+    got, stats = emulate_pointwise(a, pix)
+    want = kp.pointwise_reference(a)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want, strict=True):
+        assert g.shape == w.shape and g.dtype == w.dtype, (g.shape, g.dtype, w.shape, w.dtype)
+        assert torch.equal(g, w), f"{int((g != w).sum())} values differ"
+    return a.plan, stats
+
+
+def _pw_source(seed, shape, dtype):
+    rng = np.random.default_rng(seed)
+    if dtype == np.float32:
+        return (rng.integers(-300, 600, shape) / F32(3)).astype(F32)
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max + 1, shape).astype(dtype)
+
+
+PW_DTYPES = [np.uint8, np.int8, np.uint16, np.int16, np.float32]
+PW_IDS = ["u8", "i8", "u16", "i16", "f32"]
+
+
+@pytest.mark.parametrize("pix", [1, 4])
+@pytest.mark.parametrize("nch", [1, 3, 4])
+@pytest.mark.parametrize("dtype", PW_DTYPES, ids=PW_IDS)
+def test_pointwise_image_heads_of_every_dtype(dtype, nch, pix):
+    """A single image and a stack, a width off the group of 4: an arithmetic
+    chain saturates to the source's own integer range after every op."""
+    img = _pw_source(70, (5, 7, nch), dtype)
+    _, stats = _check_pointwise(T.image(img), T.multiply(1.7), T.add(-20.5), T.write(), pix=pix)
+    assert stats["threads"] == 5 * -(-7 // pix) and stats["tails"] == (5 if pix == 4 else 0)
+    stack = _pw_source(71, (3, 4, 8, nch), dtype)
+    _check_pointwise(T.image(stack), T.subtract(3.25), T.divide(0.5), T.split_tensor(), pix=pix)
+
+
+@pytest.mark.parametrize("dst", PW_DTYPES, ids=PW_IDS)
+@pytest.mark.parametrize("src", PW_DTYPES, ids=PW_IDS)
+@pytest.mark.parametrize("kind", ["saturate", "truncate"])
+def test_pointwise_casts_between_every_pair_of_dtypes(kind, src, dst):
+    """``SaturateCast`` rounds half to even and clamps; ``Cast`` truncates and
+    keeps the low bits; both through the wide table's rows. Values in range
+    of the target for the truncating cast (out of range it is undefined in
+    PyTorch too)."""
+    img = _pw_source(72, (4, 6, 3), src)
+    if kind == "truncate":
+        if dst != np.float32:
+            info = np.iinfo(dst)
+            img = np.clip(img.astype(np.float64), info.min, info.max).astype(src)
+        cast = T.Cast(dst=T._dt.to_torch_dtype(dst))
+    else:
+        cast = T.convert_to(dst)
+    plan, _ = _check_pointwise(T.image(img), cast, T.multiply(0.75), T.write())
+    assert plan.out_dtype == T._dt.to_torch_dtype(dst)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("ascendent", [True, False])
+@pytest.mark.parametrize("first", [-9, -1, 0, 3, 11])
+def test_pointwise_ring_reads_by_the_floor_modulo(first, ascendent, packed):
+    ring = _pw_source(73, (4, 3, 8, 3), np.uint8)
+    ring[..., 0] = np.arange(4, dtype=np.uint8)[:, None, None]  # a plane names itself
+    data = ring if packed else torch.from_numpy(ring)  # a host ring is packed by the factory
+    p = T.build_pipeline(T.circular_batch_read(data, first=first, ascendent=ascendent),
+                         T.write_tensor())
+    a = kp.prepare(p, kp.build_plan(p), CPU)
+    out, _ = emulate_pointwise(a, 4)
+    for z in range(4):
+        assert int(out[z, 0, 0, 0]) == ((first + z) if ascendent else (first - z)) % 4
+    _check_pointwise(T.circular_batch_read(data, first=first, ascendent=ascendent),
+                     T.convert_to(np.float32, alpha=0.5), T.split_tensor_transposed())
+
+
+@pytest.mark.parametrize("origin", [(0, 0), (3, 2), (-3, -2), (-100, 1), (100, 100), (15, 7),
+                                    (-20, -12), (-21, -13)])
+def test_pointwise_crop_starts_follow_crop_start(origin):
+    """Negative origins count from the far edge, then every start clamps so
+    that the crop lies inside the source (``ops/crop.py::crop_start``)."""
+    from cvgpuspeedup_tpu_torch.ops.crop import crop_start as torch_crop_start
+
+    img = _pw_source(74, (12, 20, 3), np.uint8)
+    x0, y0 = origin
+    assert crop_start(x0, 20, 5) == int(torch_crop_start(x0, 20, 5, CPU))
+    assert crop_start(y0, 12, 4) == int(torch_crop_start(y0, 12, 4, CPU))
+    _check_pointwise(T.crop(T.image(img), T.Rect(x0, y0, 5, 4)), T.write())
+    _check_pointwise(T.crop(T.image(_pw_source(75, (2, 12, 20, 3), np.int16)), T.Rect(x0, y0, 5, 4)),
+                     T.convert_to(np.float32), T.split_tensor())
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("mode", [T.BorderMode.REPLICATE, T.BorderMode.REFLECT,
+                                  T.BorderMode.REFLECT_101, T.BorderMode.WRAP], ids=lambda m: m.name)
+def test_pointwise_border_folds_as_numpy_pad(mode, n):
+    """Borders narrower and (several times) wider than the source fold as
+    ``numpy.pad`` does, on the index map and through a whole launch."""
+    from cvgpuspeedup_tpu_torch.ops.border import border_index
+
+    for before, after in ((0, 0), (1, 2), (n, n), (2 * n + 1, 3 * n + 2), (7 * n, 0)):
+        want = border_index(n, before, after, mode)
+        got = fold_index(np.arange(n + before + after) - before, n, kp.BORDER_MODES[mode])
+        assert np.array_equal(got, want), (before, after)
+    img = _pw_source(76, (n, n + 1, 3), np.uint8)
+    _check_pointwise(T.make_border(T.image(img), 2 * n + 1, 1, 3, 3 * n + 2, mode), T.write())
+
+
+@pytest.mark.parametrize("dtype", PW_DTYPES, ids=PW_IDS)
+@pytest.mark.parametrize("value", [7.0, (1.0, 2.9, 250.0)], ids=["scalar", "per_channel"])
+def test_pointwise_constant_border_holds_the_value_in_the_sources_dtype(value, dtype):
+    if dtype == np.int8 and not np.isscalar(value):
+        value = (1.0, -2.9, 120.0)
+    img = _pw_source(77, (6, 9, 3), dtype)
+    _check_pointwise(T.make_border(T.image(img), 2, 3, 1, 4, T.BorderMode.CONSTANT, value=value),
+                     T.convert_to(np.float32, alpha=0.5), T.split_tensor())
+
+
+def test_pointwise_border_over_crop_over_ring_and_crop_over_border():
+    """The stages nest in the order ``lower()`` applies them, outermost last:
+    a border of a crop of a ring, a crop of a constant border of a reflected
+    border."""
+    ring = torch.from_numpy(_pw_source(78, (4, 10, 12, 3), np.uint8))
+    head = T.make_border(T.crop(T.circular_batch_read(ring, first=2), T.Rect(3, -4, 6, 5)),
+                         2, 1, 3, 2, T.BorderMode.REFLECT_101)
+    plan, _ = _check_pointwise(head, T.convert_to(np.float32, alpha=1 / 255.0), T.split_tensor())
+    assert plan.head[9] == 2 and plan.dsize == T.Size(11, 8)
+    img = _pw_source(79, (7, 9, 3), np.uint8)
+    inner = T.make_border(T.image(img), 2, 2, 2, 2, T.BorderMode.REFLECT)
+    outer = T.make_border(inner, 3, 3, 3, 3, T.BorderMode.CONSTANT, value=(9.0, 8.0, 7.0))
+    plan, _ = _check_pointwise(T.crop(outer, T.Rect(1, 2, 15, 12)), T.write())
+    assert plan.head[9] == 3
+
+
+@pytest.mark.parametrize("fmt", [T.PixelFormat.NV12, T.PixelFormat.NV21], ids=lambda f: f.name)
+@pytest.mark.parametrize("color_range", list(T.ColorRange), ids=lambda r: r.name)
+@pytest.mark.parametrize("out_dtype,alpha", [(np.uint8, True), (np.uint8, False),
+                                             (np.float32, True), (np.int16, False)])
+def test_pointwise_nv12_reads_its_chroma_at_half_resolution(out_dtype, alpha, color_range, fmt):
+    """Y at (y, x), the pair at (y / 2, x / 2); YUV -> RGB in the reference's
+    op order, then the saturate and the alpha as rows of the table."""
+    buf = _pw_source(80, (12, 10), np.uint8)
+    for standard in T.ColorStandard:
+        _check_pointwise(T.read_yuv(buf, fmt),
+                         T.convert_yuv_to_rgb(color_range, standard, alpha, out_dtype), T.write())
+    _check_pointwise(T.crop(T.read_yuv(buf, fmt), T.Rect(3, 1, 5, 6)),
+                     T.convert_yuv_to_rgb(color_range, alpha=alpha, out_dtype=out_dtype),
+                     T.split_tensor())
+
+
+@pytest.mark.parametrize("write", [T.write_tensor, T.split_tensor, T.split_tensor_transposed,
+                                   T.split_tensor_packed, T.split], ids=lambda w: w.__name__)
+def test_pointwise_writes_every_batched_layout(write):
+    stack = _pw_source(81, (3, 4, 8, 3), np.uint8)
+    _check_pointwise(T.image(stack), T.cvt_color(T.ColorConversionCode.COLOR_RGB2BGRA),
+                     T.convert_to(np.float32, alpha=1 / 255.0), write())
+
+
+@pytest.mark.parametrize("write", [T.write, T.split_tensor, T.split], ids=lambda w: w.__name__)
+def test_pointwise_writes_every_single_layout(write):
+    img = _pw_source(82, (5, 6, 4), np.float32)
+    _check_pointwise(T.image(img), T.cvt_color(T.ColorConversionCode.COLOR_BGRA2GRAY),
+                     T.vector_reorder(0), T.multiply(2.0), write())
+
+
+def test_pointwise_mad_chain_unrolls_into_one_table():
+    """The reference's stress chain: 200 multiplies and adds on one channel,
+    each rounded once, unrolled by the encoder into 200 rows over 2 scalars."""
+    img = _pw_source(83, (8, 8, 1), np.float32)
+    body = T.fuse(T.multiply(1.0009765625), T.add(0.001))
+    plan, _ = _check_pointwise(T.image(img), T.static_loop(body, 100), T.write())
+    assert plan.ops.shape == (200, 4) and plan.n_block == 2
+
+
+@pytest.mark.parametrize("ring_dtype", PW_DTYPES, ids=PW_IDS)
+@pytest.mark.parametrize("layout", ["packed", "standard", "transposed"])
+def test_pointwise_stores_into_a_strided_slot(layout, ring_dtype):
+    """``out=`` a ring slot of any strides: an integer chain into a float32
+    ring is exact, a float32 chain into an integer ring clamps, then
+    truncates (``utils.dtypes.astype``)."""
+    img = _pw_source(84, (5, 6, 3), np.uint8)
+    td = T._dt.to_torch_dtype(ring_dtype)
+    ring = torch.zeros({"packed": (4, 5, 6, 3), "standard": (4, 3, 5, 6),
+                        "transposed": (3, 4, 5, 6)}[layout], dtype=td)
+    view = ring[:, 2] if layout == "transposed" else ring[2]
+    write = T.write() if layout == "packed" else T.split_tensor()
+    for chain in ((), (T.convert_to(np.float32, alpha=1.7), T.add(-70.25))):
+        p = T.build_pipeline(T.image(img), *chain, write)
+        plan = kp.build_plan(p)
+        a = kp.prepare(p, plan, CPU)
+        if not kp.can_store(plan, td):
+            assert plan.out_dtype == torch.uint8 and td not in (torch.uint8, torch.float32)
+            continue
+        want = T._dt.astype(kp.pointwise_reference(a), td)
+        got, _ = emulate_pointwise(a, 4, out=view)
+        assert got is view and torch.equal(view, want)
+        assert float(ring.to(torch.float64).abs().sum()) == float(view.to(torch.float64).abs().sum())
+        assert torch.equal(kp.pointwise(a, out=torch.zeros_like(view)), want)

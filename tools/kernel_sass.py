@@ -1,0 +1,81 @@
+#!/usr/bin/env python3
+"""Count what a kernel of the port's library is made of, from its SASS.
+
+    python3 tools/kernel_sass.py [pattern [out.txt]]
+
+Builds ``cvgpuspeedup_tpu_torch/csrc`` (``exec/_build.py``: nothing is built
+twice), dumps with ``cuobjdump -sass`` every kernel whose mangled name holds
+``pattern`` (``pointwise_kernelIfLi4E``, the float32 instance with 4 pixels
+per thread, unless given) and prints for each: its instruction count, its
+local-memory loads and stores (``LDL``, ``STL``: spills), every loop (a
+backward branch) with its length in instructions, and the opcodes of the
+longest loop, most frequent first. With ``out.txt`` the SASS itself is
+written there. Needs ``nvcc``'s toolkit (``cuobjdump`` beside it); no card.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+_INSTRUCTION = re.compile(r"\s+/\*([0-9a-f]{4,6})\*/\s+(.*?);")
+
+
+def kernel_stats(sass: str) -> dict:
+    """Counts of one kernel's SASS text (see the module's docstring)."""
+    ins = [(int(m.group(1), 16), m.group(2).strip())
+           for m in map(_INSTRUCTION.match, sass.splitlines()) if m]
+
+    def opcode(text: str) -> str:
+        words = text.split()
+        return words[1] if words[0].startswith("@") else words[0]
+
+    loops = []
+    for addr, text in ins:
+        m = re.search(r"\bBRA\S*\s+.*?(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    stats = {"instructions": len(ins),
+             "local_ops": sum(opcode(t).startswith(("LDL", "STL")) for _, t in ins),
+             "loops": [(hi - lo) // 16 + 1 for lo, hi in loops], "longest_loop_opcodes": []}
+    if loops:
+        lo, hi = max(loops, key=lambda r: r[1] - r[0])
+        body = [t for a, t in ins if lo <= a <= hi]
+        stats["longest_loop_opcodes"] = collections.Counter(map(opcode, body)).most_common(16)
+        stats["longest_loop_local_ops"] = sum(opcode(t).startswith(("LDL", "STL")) for t in body)
+    return stats
+
+
+def main() -> int:
+    pattern = sys.argv[1] if len(sys.argv) > 1 else "pointwise_kernelIfLi4E"
+    sys.path.insert(0, str(ROOT))
+    from cvgpuspeedup_tpu_torch.exec import _build
+
+    lib = _build.build()
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    elf = subprocess.run([cuobjdump, "-elf", str(lib)], capture_output=True, text=True, check=True)
+    names = sorted(set(re.findall(r"_Z\w*" + re.escape(pattern) + r"\w*", elf.stdout)))
+    if not names:
+        print(f"no kernel of {lib.name} is named *{pattern}*", file=sys.stderr)
+        return 1
+    for name in names:
+        sass = subprocess.run([cuobjdump, "-sass", "-fun", name, str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+        if len(sys.argv) > 2:
+            Path(sys.argv[2]).write_text(sass)
+        s = kernel_stats(sass)
+        print(f"{name}: {s['instructions']} instructions, {s['local_ops']} local loads and "
+              f"stores, loops of {s['loops']} instructions")
+        if s["longest_loop_opcodes"]:
+            print(f"  longest loop: {s['longest_loop_local_ops']} local loads and stores; "
+                  + ", ".join(f"{op} {n}" for op, n in s["longest_loop_opcodes"]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -33,7 +33,10 @@ kernel duration of 20 launches), in microseconds:
   between the two paths);
 - its divergent rows D1-D4 (``d1`` .. ``d4``), D1 over 8 and 12 planes of its
   ring (``d1_8``, ``d1_12``) and over a float32 copy of it (``d1_f32``), and
-  D4 over 40 and 48 planes (``d4_40``, ``d4_48``).
+  D4 over 40 and 48 planes (``d4_40``, ``d4_48``);
+- its pointwise rows P1-P5 (``p1`` .. ``p5``: the 200-op chain, the ring, the
+  border, the crop, NV12 -> RGBA), left out for a variant whose sources have
+  no pointwise kernel (an older tree's).
 
 ``cases``, a comma-separated list, times only those. The cases are
 ``chip_smoke.py``'s own functions, so the two cannot drift. Each line gives
@@ -76,6 +79,7 @@ def main() -> int:
     from cvgpuspeedup_tpu_torch.exec import cuda_batch_resize as kbr
     from cvgpuspeedup_tpu_torch.exec import cuda_divergent as kd
     from cvgpuspeedup_tpu_torch.exec import cuda_frame_resize as kfr
+    from cvgpuspeedup_tpu_torch.exec import cuda_pointwise as kp
     from cvgpuspeedup_tpu_torch.exec import cuda_warp as kw
     from cvgpuspeedup_tpu_torch.graph import map_leaves
     from cvgpuspeedup_tpu_torch.utils.dtypes import as_device_tensor
@@ -113,6 +117,14 @@ def main() -> int:
     batches["d1_f32"] = rows.d1(3, rows.ring.float())
     batches["d4_40"] = rows.d4(repeat=5)
     batches["d4_48"] = rows.d4(repeat=6)
+    mad_src = torch.from_numpy(
+        rng.random((cs.MAD_SIDE, cs.MAD_SIDE, 1), dtype=np.float32) * 255).to(dev)
+    nv12_hd = torch.from_numpy(
+        rng.integers(0, 256, (cs.FRAME_H * 3 // 2, cs.FRAME_W), dtype=np.uint8)).to(dev)
+    pointwise = cs.pointwise_rows(cvgs, mad_src, rows.ring, 3, hd, (-300, -200), nv12_hd)
+    for k, ops in enumerate(pointwise.values(), 1):
+        cases[f"p{k}"] = (kp, kp.pointwise, ops)
+    pointwise_cases = {f"p{k}" for k in range(1, len(pointwise) + 1)}
     launches = {}
     for name, (module, wrapper, ops) in cases.items():
         pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: as_device_tensor(v, dev))
@@ -127,6 +139,10 @@ def main() -> int:
             print(f"no case named {sorted(only - set(launches))}", file=sys.stderr)
             return 1
         launches = {name: fn for name, fn in launches.items() if name in only}
+
+    def runs(cname) -> bool:
+        """Whether the library in use has the case's kernel."""
+        return cname not in pointwise_cases or hasattr(_build.load(), "cvgs_pointwise")
 
     def profiler_us(fn, calls=20):
         for _ in range(3):
@@ -187,6 +203,8 @@ def main() -> int:
         for vname, d in dirs.items():
             _build.load(d, d / "out")
             for cname, fn in launches.items():
+                if not runs(cname):
+                    continue
                 got = fn()
                 got = got if isinstance(got, tuple) else (got,)
                 torch.cuda.synchronize()
@@ -202,6 +220,8 @@ def main() -> int:
             for vname, d in dirs.items():
                 _build.load(d, d / "out")  # built above: this makes it the library in use
                 for cname, fn in launches.items():
+                    if not runs(cname):
+                        continue
                     events = float(np.median(time_cuda(fn, iters=50))) * 1e3
                     results.setdefault((cname, vname), []).append((events, profiler_us(fn)))
     card = cs.gpu_name_and_limit()
