@@ -52,8 +52,13 @@ code and no result line:
    resize with an image group, a uint8 chain, D4 written planar, and D8-D13:
    groups of both output dtypes in one batch (each way round), a ring view
    at an odd address with rows of 253 pixels, a float32 RGBA ring into
-   planar uint8, and the sampled kinds under 4 pixels per thread. uint8 must
-   match bit for bit, float32 within 1e-6, warp float32 bit for bit too;
+   planar uint8, and the sampled kinds under 4 pixels per thread. pointwise
+   in P1-P10 bit for bit: P7-P10 run the staged chain's own paths (300-row
+   chains on four lanes and one, chains whose width changes, one-channel
+   groups of 16 with a row's tail, NV12 into RGB and a crop of NV12 off the
+   group of 4) and P5 goes into out= views on and off 16-byte alignment.
+   uint8 must match bit for bit, float32 within 1e-6, warp float32 bit for
+   bit too;
 4. the main paths: ``execute_operations`` twice each (new rects, new frame
    contents, new warp matrices and ``used_planes``) and
    ``launch_divergent_batch`` twice each for D1, D3, D4 (a new ``first``,
@@ -77,9 +82,10 @@ code and no result line:
    bound, the larger of its bytes (output, plus the 32-byte source sectors
    its taps touch) over the card's published memory rate and its float32
    operations over the published rate, and the same bytes over the copy
-   bandwidth this run measured; for frame path (a) and the affine warps
-   one library call that does the resample alone (``F.interpolate``,
-   ``F.grid_sample``), timed here and used nowhere in the port; the
+   bandwidth this run measured; for frame path (a), the affine warps, P3
+   and P4 one library call that does the read alone (``F.interpolate``,
+   ``F.grid_sample``, ``F.pad``, a contiguous slice), by events and by
+   ``torch.profiler``, timed here and used nowhere in the port; the
    host-inclusive time of one ``execute_operations`` call of each path, the
    flagship call split into its host layers; the device's busy time and idle
    share in a ``torch.profiler`` trace of the flagship path; the event floor
@@ -874,6 +880,7 @@ def main() -> int:
     hd_i16 = (hd.to(torch.int16) - 128) * 200
     hd_u16 = hd.to(torch.int32).mul(257).to(torch.uint16)
     to_unit = cvgs.convert_to(np.float32, alpha=1 / 255.0)
+    hd_rgba_f32 = torch.cat([hd, hd[..., :1]], dim=2).float() * 0.75
     pointwise_cases = dict(pointwise_rows(cvgs, mad_src, ring, 3, hd, (-300, -200), nv12_hd))
     for mode in cvgs.BorderMode:
         if mode != cvgs.BorderMode.REPLICATE:
@@ -910,8 +917,49 @@ def main() -> int:
                              2, 1, 3, 2, cvgs.BorderMode.REFLECT_101), to_unit,
             cvgs.split_tensor()),
     })
+    # the staged chain and its groups: a chain longer than one staging chunk
+    # (four lanes and one), the chain's width changing part way, one-channel
+    # chains of 16-pixel groups with a row's tail, NV12 groups into RGB and
+    # a crop of NV12 off the group of 4
+    mad_long = cvgs.static_loop(cvgs.fuse(cvgs.multiply(1.0009765625), cvgs.add(0.001)), 150)
+    C = cvgs.ColorConversionCode
+    pointwise_cases.update({
+        "p7_long_chain_300_rows_rgb_1080p": (cvgs.image(hd), cvgs.convert_to(np.float32),
+                                             mad_long, cvgs.split_tensor()),
+        "p7_long_chain_300_rows_1ch_f32": (cvgs.image(mad_src[:1531, :1999]), mad_long,
+                                           cvgs.write()),
+        "p8_rgb_rgba_multiply_rgb": (
+            cvgs.image(hd), cvgs.cvt_color(C.COLOR_RGB2RGBA),
+            cvgs.convert_to(np.float32, alpha=0.5), cvgs.multiply((1.0, 2.0, 0.5, 3.0)), cvgs.cvt_color(C.COLOR_RGBA2RGB),
+            cvgs.split_tensor()),
+        "p8_rgba_gray_long_tail": (
+            cvgs.image(hd_rgba_f32), cvgs.cvt_color(C.COLOR_RGBA2GRAY), mad_long, cvgs.write()),
+        "p9_1ch_u8_odd_width_groups_of_16": (cvgs.image(hd[:, :1917, :1].contiguous()),
+                                             cvgs.multiply(1.5), cvgs.add(-20.25), cvgs.write()),
+        "p9_1ch_f32_odd_width_groups_of_16": (cvgs.image(mad_src[:, :2045]), cvgs.multiply(0.5),
+                                              cvgs.subtract(3.0), cvgs.split_tensor()),
+        "p10_nv12_1080p_rgb_u8": (cvgs.read_yuv(nv12_hd), cvgs.convert_yuv_to_rgb()),
+        "p10_nv12_crop_width_off_the_group": (
+            cvgs.crop(cvgs.read_yuv(nv12_hd), cvgs.Rect(6, 4, 1001, 700)),
+            cvgs.convert_yuv_to_rgb(alpha=True)),
+    })
     for name, ops in pointwise_cases.items():
         check(name, *ops, kernel="pointwise", tol=0.0)
+
+    # P5 into out= views at 16-byte alignment and 4 bytes off it: both equal
+    # the plain version and leave the bytes around them as they were
+    p5_pipe = cvgs.build_pipeline(*pointwise_rows(cvgs, mad_src, ring, 3, hd, (0, 0),
+                                                  nv12_hd)["p5_nv12_1080p_rgba"])
+    p5_args = kp.prepare(p5_pipe, kp.build_plan(p5_pipe), dev)
+    p5_want = kp.pointwise_reference(p5_args)
+    for shift in (0, 4):
+        storage = torch.full((p5_want.numel() + 64,), 7, dtype=torch.uint8, device=dev)
+        start = (-storage.data_ptr()) % 16 + shift
+        view = storage[start:start + p5_want.numel()].view(p5_want.shape)
+        assert view.data_ptr() % 16 == shift and kp.pointwise(p5_args, out=view) is view
+        compare(f"p5_out_view_{'aligned' if shift == 0 else 'off_by_4_bytes'}", "pointwise", view,
+                p5_want, 0.0)
+        assert bool((storage[:start] == 7).all() and (storage[start + p5_want.numel():] == 7).all())
 
     # out= into a strided slot: the frame kernel and the pointwise kernel
     # store into plane 2 of a (C, N, H, W) ring, whose rows lie N planes apart
@@ -1425,6 +1473,13 @@ def main() -> int:
         return {"ms": float(np.median(runs["kernel"])), "plain_ms": float(np.median(runs["plain"])),
                 "profiler_ms": profiler_ms(kernel_fn, what=what)}
 
+    def library(t, fn, iters, what):
+        """One library call's time by events (``library_ms``, as the kernel's
+        ``ms``) and by the profiler (``library_profiler_ms``, as its
+        ``profiler_ms``: the sum of its kernels), so either clock compares."""
+        t["library_ms"] = float(np.median(time_cuda(fn, iters=iters)))
+        t["library_profiler_ms"] = profiler_ms(fn, what=what)
+
     def out_bytes_of(outs):
         outs = outs if isinstance(outs, tuple) else (outs,)
         return sum(o.numel() * o.element_size() for o in outs)
@@ -1438,7 +1493,8 @@ def main() -> int:
                 f"{t['src_bytes_touched']} source bytes touched, {t['flops']} flop at "
                 f"{t['op_rate'] / 1e12:.1f} T/s)")
         if t["library_ms"] is not None:
-            text += f"; library call (the read alone) {t['library_ms'] * 1e3:.2f} us by events"
+            text += (f"; library call (the read alone) {t['library_ms'] * 1e3:.2f} us by events, "
+                     f"{t['library_profiler_ms'] * 1e3:.2f} us by torch.profiler")
         return text + f"; card {card}"
 
     # the copy bandwidth: a 256 MiB device copy reads and writes its bytes
@@ -1461,7 +1517,8 @@ def main() -> int:
     k1_out = kbr.batch_resize(args)
     k1.update(bound(out_bytes_of(k1_out), crop_touched_bytes(pipeline.read),
                     k1_out.numel() * (12 + args.plan.ops.shape[0]), bandwidth))
-    k1["library_ms"] = None  # no single PyTorch call crops at runtime rects and resizes
+    # no single PyTorch call crops at runtime rects and resizes
+    k1["library_ms"] = k1["library_profiler_ms"] = None
     kernel_ms, plain_ms = k1["ms"], k1["plain_ms"]
     log(f"phase5 batch_resize flagship: {describe(k1)}")
 
@@ -1545,14 +1602,14 @@ def main() -> int:
         # the lerps, and for NV12 the YUV -> RGB sums (about 3 per value)
         t.update(bound(n_out * 4, touched_bytes(fplan),
                        n_out * (12 + (3 if fplan.yuv else 0) + fplan.ops.shape[0]), bandwidth))
-        t["library_ms"] = None
+        t["library_ms"] = t["library_profiler_ms"] = None
         if path == "a":
             # F.interpolate of a float32 NCHW copy: the resample alone, with
             # no uint8 read, no chain and no planar write of its own
             nchw = src1.permute(2, 0, 1)[None].float().contiguous()
-            t["library_ms"] = float(np.median(time_cuda(
-                lambda: F.interpolate(nchw, size=(FRAME_DST[1], FRAME_DST[0]), mode="bilinear",
-                                      align_corners=False), iters=50)))
+            library(t, lambda: F.interpolate(nchw, size=(FRAME_DST[1], FRAME_DST[0]),
+                                             mode="bilinear", align_corners=False), 50,
+                    "F.interpolate")
         frame_times[path] = t
         log(f"phase5 frame path ({path}): {describe(t)}; execute_operations host-inclusive "
             f"{t['call_ms'] * 1e3:.2f} us/call (median of 50)")
@@ -1586,7 +1643,7 @@ def main() -> int:
         t.update(bound(n_out * 4, warp_touched_bytes(wargs),
                        n_out * (14 + wargs.plan.ops.shape[0]), bandwidth))
         t["max_abs_err"] = case_err[name]
-        t["library_ms"] = None
+        t["library_ms"] = t["library_profiler_ms"] = None
         if not wargs.plan.perspective:
             # F.grid_sample over F.affine_grid on a float32 NCHW copy (one
             # frame, expanded over the batch): the resample alone, with no
@@ -1596,10 +1653,9 @@ def main() -> int:
                                                for r in reads])).float().to(dev)
             nchw = hd.permute(2, 0, 1)[None].float().contiguous().expand(len(reads), -1, -1, -1)
             size = (len(reads), 3, WARP_DST[1], WARP_DST[0])
-            t["library_ms"] = float(np.median(time_cuda(
-                lambda: F.grid_sample(nchw, F.affine_grid(theta, size, align_corners=False),
-                                      mode="bilinear", padding_mode="zeros", align_corners=False),
-                iters=25)))
+            library(t, lambda: F.grid_sample(nchw, F.affine_grid(theta, size, align_corners=False),
+                                             mode="bilinear", padding_mode="zeros",
+                                             align_corners=False), 25, "F.grid_sample")
         warp_times[name] = t
         log(f"phase5 warp {name}: {describe(t)}")
     whole = []
@@ -1646,7 +1702,8 @@ def main() -> int:
         n_out = out_bytes_of(kd.divergent(dargs)) // 4
         t.update(bound(n_out * 4, divergent_touched_bytes(ids, seqs), n_out * 14, bandwidth))
         t["max_abs_err"] = case_err[name]
-        t["library_ms"] = None  # no PyTorch call runs a different sequence per plane
+        # no PyTorch call runs a different sequence per plane
+        t["library_ms"] = t["library_profiler_ms"] = None
         div_times[name] = t
         log(f"phase5 divergent {name}: {describe(t)}")
     whole = []
@@ -1733,17 +1790,17 @@ def main() -> int:
         t.update(bound(out_bytes_of(outs), head_src_bytes(name, pargs), flops, bandwidth,
                        UNFUSED_F32_OP_PER_S if mad else PEAK_F32_FLOP_PER_S))
         t["max_abs_err"] = case_err[name]
-        t["library_ms"] = None  # no single PyTorch call runs a chain, a ring read or NV12 -> RGBA
+        # no single PyTorch call runs a chain, a ring read or NV12 -> RGBA
+        t["library_ms"] = t["library_profiler_ms"] = None
         if name.startswith("p3"):
             # F.pad of a float32 NCHW copy: the border alone, with no uint8
             # read, no scale and no planar write of its own
             nchw = hd.permute(2, 0, 1)[None].float().contiguous()
-            t["library_ms"] = float(np.median(time_cuda(
-                lambda: F.pad(nchw, (BORDER,) * 4, mode="replicate"), iters=50)))
+            library(t, lambda: F.pad(nchw, (BORDER,) * 4, mode="replicate"), 50, "F.pad")
         if name.startswith("p4"):
-            # a slice made contiguous: the crop alone, at a fixed origin
-            t["library_ms"] = float(np.median(time_cuda(
-                lambda: hd[824:1080, 1620:1876].contiguous(), iters=50)))
+            # a slice made contiguous: the crop alone, at a fixed origin, with
+            # no x1/255 and no float cast (the kernel does both)
+            library(t, lambda: hd[824:1080, 1620:1876].contiguous(), 50, "a contiguous slice")
         whole = []
         for _ in range(60):
             t0 = time.perf_counter()
@@ -1776,7 +1833,8 @@ def main() -> int:
         """One kernel of the line: the contract's keys from the case of its
         main path, its launches over the calls phase 4 drove, then whatever
         else was measured."""
-        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "profiler_ms", "floor_ms")
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "profiler_ms", "floor_ms",
+                "library_profiler_ms")
         return {"name": name, "route": "cuda",
                 "source": f"cvgpuspeedup_tpu_torch/csrc/{source}", "replaces": replaces,
                 "launches": launches, "launches_per_call": launches / path_calls[name],

@@ -38,7 +38,7 @@ enum : int {
   OP_ALPHA = 8,      // append a channel holding aux (1 for float, 255 for uint8)
   OP_GRAY_U8 = 9,    // OpenCV's 15-bit fixed point; r, g, b at aux bits 0, 4, 8
   OP_GRAY_F32 = 10,  // r*0.299 + g*0.587 + b*0.114 in float32
-  // the wide table, decoded only by run_chain<P, true> (the pointwise kernel):
+  // the wide table, run only by the pointwise kernel (pointwise_chain.cuh):
   // int8, uint16 and int16 are exact in a float32 register, as uint8 is
   OP_SAT_I8 = 11,    // round half to even, clamp to [-128, 127]
   OP_SAT_U16 = 12,   // ... to [0, 65535]
@@ -140,35 +140,12 @@ __device__ __forceinline__ float saturate(float v, float lo, float hi) {
   return r < lo ? lo : (r > hi ? hi : r);
 }
 
-// One op of the wide table on the P pixels of v.
-template <int P>
-__device__ __forceinline__ void run_wide_op(int code, float (&v)[P][kMaxCh], int ch) {
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-#pragma unroll
-    for (int c = 0; c < kMaxCh; ++c) {
-      if (c >= ch) continue;
-      const float x = v[p][c];
-      switch (code) {
-        case OP_SAT_I8: v[p][c] = saturate(x, -128.f, 127.f); break;
-        case OP_SAT_U16: v[p][c] = saturate(x, 0.f, 65535.f); break;
-        case OP_SAT_I16: v[p][c] = saturate(x, -32768.f, 32767.f); break;
-        case OP_CAST_I8: v[p][c] = cast_i8(x); break;
-        case OP_CAST_U16: v[p][c] = cast_u16(x); break;
-        case OP_CAST_I16: v[p][c] = cast_i16(x); break;
-        default: break;
-      }
-    }
-  }
-}
-
 // Runs the chain on the P pixels of v, each holding ch channels; returns the
 // channel count after the chain. An op row is decoded once for all P pixels
 // and a per-channel scalar is loaded once per channel, so a kernel that
-// gives a thread several pixels pays the table once. kWide also decodes the
-// wide table (OP_SAT_I8 and up); the kernels that never see those rows leave
-// it out, so their code does not change with it.
-template <int P, bool kWide = false>
+// gives a thread several pixels pays the table once. The wide table
+// (OP_SAT_I8 and up) is the pointwise kernel's alone (pointwise_chain.cuh).
+template <int P>
 __device__ __forceinline__ int run_chain(float (&v)[P][kMaxCh], int ch,
                                          const int* __restrict__ ops, int n_ops,
                                          const float* __restrict__ fp) {
@@ -253,7 +230,6 @@ __device__ __forceinline__ int run_chain(float (&v)[P][kMaxCh], int ch,
         }
         break;
       default:
-        if constexpr (kWide) run_wide_op(code, v, ch);
         break;
     }
   }

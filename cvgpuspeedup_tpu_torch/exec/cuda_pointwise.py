@@ -27,7 +27,12 @@ the chain, which is what it lowers to; below a stage it is refused.
 
 :func:`build_plan` turns the structure into a :class:`PointwisePlan` once:
 the head's words, the op table and the layout of the block of runtime values
-(``first``, crop origins, border values, chain scalars). New frames,
+(``first``, crop origins, border values, chain scalars). It also fixes what
+the kernel stages the table with (``csrc/pointwise_chain.cuh``): the channel
+count each row takes and the chain's width, its widest point; a chain one
+channel wide runs in the kernel's one-lane instances. Both ride after the
+words the kernel read before them (the op table's rows and sentinel, the
+head's 44 words), so an older library reads the same table. New frames,
 ``first`` s, origins, border values and scalars build nothing. Refused
 (:class:`Unsupported`): int32, int64, float16 and float64 sources or casts
 and chain scalars that are not float32 (an f32 register cannot hold them),
@@ -60,8 +65,9 @@ from ..utils.dtypes import as_device_tensor
 from . import _build
 from . import cuda_batch_resize as kbr
 from . import cuda_frame_resize as kfr
-from .cuda_batch_resize import (_MAX_CHANNELS, _MAX_PLANES, OP_ALPHA, WIDE_INTS, Unsupported,
-                                _leaf_dtype_name, encode_chain, store_cast)
+from .cuda_batch_resize import (_MAX_CHANNELS, _MAX_PLANES, OP_ALPHA, OP_GRAY_F32, OP_GRAY_U8,
+                                OP_REORDER, WIDE_INTS, Unsupported, _leaf_dtype_name,
+                                encode_chain, store_cast)
 from .cuda_divergent import _Block, _stack_geometry
 from .cuda_warp import _size
 
@@ -78,7 +84,8 @@ BORDER_MODES = {BorderMode.CONSTANT: 0, BorderMode.REPLICATE: 1, BorderMode.REFL
                 BorderMode.REFLECT_101: 3, BorderMode.WRAP: 4}
 TYPE_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3, torch.float32: 4}
 MAX_STAGES = 4
-HEAD_INTS = 12 + 8 * MAX_STAGES
+#: the head's words: 12, the stages', then the chain's width
+HEAD_INTS = 12 + 8 * MAX_STAGES + 1
 #: the source dtypes the kernel reads
 SRC_DTYPES = {str(t).removeprefix("torch."): t for t in TYPE_CODES}
 _SINGLE_LAYOUTS = {Write2D: "packed", TensorSplit: "split", SplitWrite: "split_write"}
@@ -102,16 +109,24 @@ class PointwisePlan:
     head: Tuple[int, ...]  # HEAD_INTS words, csrc/pointwise.cuh::PwHead
     conv: Tuple[float, ...]  # (ys, cs, rv, gu, gv, bu) of a leading YUV -> RGB
     ops: np.ndarray        # (n_ops, 4) int32
+    row_ch: np.ndarray     # (n_ops,) int32: the channels of the value each row takes
     fp_off: int            # word offset of the chain scalars in the block
     n_block: int           # words of the block
     #: per-device copies of the op table; the head as a ctypes array
     device_consts: Dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
+    @property
+    def width(self) -> int:
+        """Channels at the chain's widest point, the head's included."""
+        return self.head[-1]
+
     def consts(self, device: torch.device) -> torch.Tensor:
+        """The op table as the kernel reads it: the rows, a sentinel (so it is
+        never empty), then each row's channel count."""
         c = self.device_consts.get(device)
         if c is None:
-            rows = np.concatenate([self.ops.reshape(-1), np.zeros(1, np.int32)])  # never empty
-            c = self.device_consts[device] = torch.from_numpy(rows.astype(np.int32)).to(device)
+            words = np.concatenate([self.ops.reshape(-1), np.zeros(1, np.int32), self.row_ch])
+            c = self.device_consts[device] = torch.from_numpy(words.astype(np.int32)).to(device)
         return c
 
     def head_words(self):
@@ -138,6 +153,24 @@ def _stages(read):
         stages.append(read)
         read = read.source
     return stages, read
+
+
+def row_channels(ops: np.ndarray, ch: int) -> Tuple[np.ndarray, int]:
+    """``(row_ch, width)`` of an op table run on ``ch`` channels: the
+    channel count of the value each row takes, as the rows change it (a
+    reorder to its count, an alpha one more, a gray conversion 1), and the
+    largest count the chain reaches, ``ch`` included."""
+    row_ch, width = [], ch
+    for code, _, _, aux in ops.tolist():
+        row_ch.append(ch)
+        if code == OP_REORDER:
+            ch = aux >> 16
+        elif code == OP_ALPHA:
+            ch += 1
+        elif code in (OP_GRAY_U8, OP_GRAY_F32):
+            ch = 1
+        width = max(width, ch)
+    return np.asarray(row_ch, np.int32), width
 
 
 def build_plan(pipeline) -> PointwisePlan:
@@ -238,6 +271,7 @@ def build_plan(pipeline) -> PointwisePlan:
     fp_off = pos  # the rows' offsets count from here: the kernel adds it
     ops, out_dtype, out_ch, n_fparams = encode_chain(chain, ch, dtype=dtype, int_dtypes=WIDE_INTS)
     ops = np.concatenate([rows0, ops]).astype(np.int32)
+    row_ch, width = row_channels(ops, c)
 
     layouts = kbr._LAYOUTS if batch else _SINGLE_LAYOUTS
     layout = layouts.get(type(pipeline.write))
@@ -245,12 +279,12 @@ def build_plan(pipeline) -> PointwisePlan:
         raise Unsupported(f"write {type(pipeline.write).__name__} of a "
                           f"{'batched' if batch else 'single'} value")
     head = (BASES.index(kind), h, w, c, TYPE_CODES[src_dtype], n_src, first_off, int(ascendent),
-            int(nv21), len(stages), conv_first, limited, *words)
+            int(nv21), len(stages), conv_first, limited, *words, width)
     return PointwisePlan(
         base=kind, batch=batch, n_planes=n_src if batch else 1, src_dtype=src_dtype,
         src_numel=int(np.prod(tuple(data.shape))), dsize=Size(out_w, out_h), out_ch=out_ch,
         out_dtype=out_dtype, layout=layout, head=tuple(int(v) for v in head), conv=conv, ops=ops,
-        fp_off=fp_off, n_block=max(fp_off + n_fparams, 1),
+        row_ch=row_ch, fp_off=fp_off, n_block=max(fp_off + n_fparams, 1),
     )
 
 
@@ -345,7 +379,7 @@ def _check(a: Launch) -> None:
             raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    if a.block.numel() < plan.n_block or a.ops.numel() != plan.ops.size + 1:
+    if a.block.numel() < plan.n_block or a.ops.numel() != plan.ops.size + 1 + plan.ops.shape[0]:
         raise ValueError("parameter block or op table does not match the plan")
     if a.src.numel() != plan.src_numel:
         raise ValueError(f"source of shape {tuple(a.src.shape)} does not match the plan")

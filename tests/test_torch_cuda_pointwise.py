@@ -125,6 +125,7 @@ def _cases(cuda):
     normalize = (T.convert_to(np.float32, alpha=1 / 255.0), T.subtract((0.485, 0.456, 0.406)),
                  T.divide((0.229, 0.224, 0.225)))
     mad = T.static_loop(T.fuse(T.multiply(1.0009765625), T.add(0.001)), 100)
+    long_mad = T.static_loop(T.fuse(T.multiply(1.0009765625), T.add(0.001)), 150)
     return {
         "p4_mad_200_ops": (T.image(_source(cuda, (640, 641, 1), np.float32, 8)), mad, T.write()),
         "p1_mad_200_ops": (T.image(_source(cuda, (64, 64, 1), np.float32, 9)), mad, T.write()),
@@ -178,6 +179,25 @@ def _cases(cuda):
         "packed_rows_image": (T.image(_source(cuda, (37, 61 * 3), seed=16), channels=3),
                               T.vector_reorder(2, 0, 1), T.split()),
         "gray_2d_image": (T.image(_source(cuda, (12, 20), seed=17)), T.multiply(2.0), T.write()),
+        # the staged chain: 300 rows in two chunks, four lanes and one; the
+        # chain's width changing part way; one-lane groups of 16 with a
+        # row's tail (1,444,803 outputs) in uint8, int16 and at an odd address
+        "long_chain_300_rows_rgb": (T.image(big), T.convert_to(np.float32), long_mad,
+                                    T.split_tensor()),
+        "long_chain_300_rows_1ch": (T.image(_source(cuda, (300, 301, 1), np.float32, 18)),
+                                    long_mad, T.write()),
+        "rgb_rgba_multiply_rgb": (T.image(big), T.cvt_color(C.COLOR_RGB2RGBA),
+                                  T.convert_to(np.float32, alpha=0.5),
+                                  T.multiply((1.0, 2.0, 0.5, 3.0)), T.cvt_color(C.COLOR_RGBA2RGB),
+                                  T.split_tensor()),
+        "rgba_gray_long_tail": (T.image(f4), T.cvt_color(C.COLOR_RGBA2GRAY), long_mad, T.write()),
+        "groups_of_16_u8_tail": (T.image(_source(cuda, (1201, 1203, 1), seed=19)),
+                                 T.multiply(1.5), T.add(-20.25), T.write()),
+        "groups_of_16_i16_tail_planar": (T.image(_source(cuda, (1201, 1203, 1), np.int16, 20)),
+                                         T.convert_to(np.float32, alpha=0.5), T.split_tensor()),
+        "groups_of_16_odd_address": (T.image(_odd(_source(cuda, (1201, 1203, 1), np.float32, 21))),
+                                     T.multiply(0.25), T.write()),
+        "nv12_rgb_u8_words": (T.read_yuv(nv12), T.convert_yuv_to_rgb()),
     }
 
 
@@ -189,7 +209,9 @@ CASE_NAMES = [
     "nv12_fused_read_small", "nv12_crop_then_convert_i16", "border_over_crop_over_ring",
     "crop_over_constant_over_reflect", "int16_negative_saturate",
     "u16_to_i8_saturate_then_scale", "i16_gray_alpha", "truncating_cast_u16",
-    "packed_rows_image", "gray_2d_image"]
+    "packed_rows_image", "gray_2d_image", "long_chain_300_rows_rgb", "long_chain_300_rows_1ch",
+    "rgb_rgba_multiply_rgb", "rgba_gray_long_tail", "groups_of_16_u8_tail",
+    "groups_of_16_i16_tail_planar", "groups_of_16_odd_address", "nv12_rgb_u8_words"]
 
 
 @pytest.mark.parametrize("case", CASE_NAMES)

@@ -113,6 +113,7 @@ def test_library_is_keyed_on_the_sources(tmp_path, monkeypatch):
     ("frame_resize.cuh", ("frame_resize.cu", "divergent.cu")),
     ("warp.cuh", ("warp.cu", "divergent.cu")),
     ("pointwise.cuh", ("pointwise.cu",)),
+    ("pointwise_chain.cuh", ("pointwise.cuh",)),
 ])
 def test_shared_samplers_live_in_headers(header, users):
     """Each coordinate rule exists once: the kernels that share a sampler
@@ -126,14 +127,18 @@ def test_shared_samplers_live_in_headers(header, users):
 
 
 def test_the_pointwise_heads_share_the_frame_kernels_conversion():
-    """One YUV -> RGB and one chain interpreter for all five kernels."""
+    """One YUV -> RGB for the frame and pointwise kernels; the pointwise
+    kernel stages its chain through its own interpreter, the other four
+    share chain.cuh's run_chain, which no longer holds the wide table."""
     csrc = ROOT / "cvgpuspeedup_tpu_torch" / "csrc"
     assert '#include "frame_resize.cuh"' in (csrc / "pointwise.cuh").read_text()
-    assert "yuv_to_rgb(" in (csrc / "pointwise.cu").read_text()
-    assert "run_chain<P, true>" in (csrc / "pointwise.cu").read_text()
+    pointwise = (csrc / "pointwise.cu").read_text()
+    assert "yuv_to_rgb(" in pointwise
+    assert "stage_rows(" in pointwise and "run_rows(" in pointwise and "run_chain" not in pointwise
+    assert "kWide" not in (csrc / "chain.cuh").read_text()
     for other in ("batch_resize.cu", "frame_resize.cu", "warp.cu", "divergent.cu"):
         text = (csrc / other).read_text()
-        assert "run_chain(" in text and "run_chain<P, true>" not in text
+        assert "run_chain(" in text and "run_rows(" not in text
 
 
 def test_the_native_loader_builds_beside_the_kernels():

@@ -852,59 +852,103 @@ def fold_index(i, n, mode):
     return np.clip(i, 0, n - 1)
 
 
+# csrc/pointwise_chain.cuh, csrc/pointwise.cu; an H100's resident threads
+STAGE_ROWS, WIDE_P, RESIDENT = 256, 16, 132 * 2048
+ARITH = {kbr.OP_MUL: np.multiply, kbr.OP_ADD: np.add, kbr.OP_SUB: np.subtract,
+         kbr.OP_DIV: np.divide}
+
+
+def pixels_per_thread(outputs, width, stages=0, resident=RESIDENT):
+    """``csrc/pointwise.cu::pixels_per_thread``."""
+    if width == 1 and stages == 0 and 3 * outputs >= 8 * resident:
+        return WIDE_P
+    return 4 if 3 * outputs >= 4 * resident else 1
+
+
+def stage_rows(words, n_ops, fp):
+    """``csrc/pointwise_chain.cuh::stage_rows`` over the whole table: the
+    kernel's op words (the rows, the sentinel, each row's channel count) into
+    chunks of at most ``STAGE_ROWS`` records ``(code, aux, ch, q)``, ``q``
+    the row's four scalars, 0 at and above its channel count."""
+    words = np.asarray(words)
+    assert words.size == 4 * n_ops + 1 + n_ops and words[4 * n_ops] == 0
+    rows, chs = words[:4 * n_ops].reshape(-1, 4), words[4 * n_ops + 1:]
+    chunks = []
+    for k0 in range(0, n_ops, STAGE_ROWS):
+        chunk = []
+        for (code, off, stride, aux), ch in zip(rows[k0:k0 + STAGE_ROWS].tolist(),
+                                                chs[k0:k0 + STAGE_ROWS].tolist()):
+            q = np.zeros(4, F32)
+            if code in ARITH:
+                for c in range(ch):
+                    q[c] = fp[off + c * stride]
+            chunk.append((code, aux, ch, q))
+        chunks.append(chunk)
+    return chunks
+
+
 def truncate_to(v, np_type):
     """``cast_u8`` .. ``cast_i16``: truncate, keep the low bits."""
     return np.trunc(v).astype(np.int64).astype(np_type).astype(F32)
 
 
-def emulate_chain(v, ch, ops, fp):
-    """``csrc/chain.cuh::run_chain<P, true>`` on float32 values ``v`` of
-    shape (..., 4): every row decoded as the kernel decodes it, every float
-    op rounded once. Returns the channel count."""
-    for code, off, stride, aux in (tuple(int(t) for t in row) for row in ops):
-        if code in (kbr.OP_MUL, kbr.OP_ADD, kbr.OP_SUB, kbr.OP_DIV):
-            fn = {kbr.OP_MUL: np.multiply, kbr.OP_ADD: np.add, kbr.OP_SUB: np.subtract,
-                  kbr.OP_DIV: np.divide}[code]
-            for c in range(ch):
-                v[..., c] = fn(v[..., c], fp[off + c * stride], dtype=F32)
+def emulate_rows(v, chunk):
+    """``csrc/pointwise_chain.cuh::run_rows`` on float32 values ``v`` of
+    shape (..., L): every staged row on all L lanes, every float op rounded
+    once; an alpha into lane ``ch``, a reorder and a gray row read lanes
+    below it only."""
+    lanes = v.shape[-1]
+    for code, aux, ch, q in chunk:
+        if code in ARITH:
+            v[...] = ARITH[code](v, q[:lanes], dtype=F32)
         elif code in _SAT_RANGE:
-            v[..., :ch] = np.clip(np.rint(v[..., :ch]), *_SAT_RANGE[code])
+            v[...] = np.clip(np.rint(v), *_SAT_RANGE[code])
         elif code in _CAST_TYPE:
-            v[..., :ch] = truncate_to(v[..., :ch], _CAST_TYPE[code])
+            v[...] = truncate_to(v, _CAST_TYPE[code])
         elif code == kbr.OP_REORDER:
-            t = v.copy()
-            for c in range(4):
-                v[..., c] = t[..., min((aux >> (4 * c)) & 15, 3)]
-            ch = aux >> 16
+            if lanes == 1:
+                assert aux == 1 << 16, "a one-lane chain holds no reorder but the identity"
+                continue
+            idx = [(aux >> (4 * c)) & 15 for c in range(4)]
+            assert all(i < ch for i in idx[:aux >> 16]), "a reorder reads live lanes only"
+            v[...] = v[..., [i if i <= 3 else 0 for i in idx]]  # chain.cuh::pick
         elif code == kbr.OP_ALPHA:
+            assert lanes == 4 and ch < 4
             v[..., ch] = aux
-            ch += 1
-        elif code == kbr.OP_GRAY_U8:
-            r, g, b = (v[..., (aux >> s) & 15].astype(np.int64) for s in (0, 4, 8))
-            v[..., 0] = (r * 9798 + g * 19235 + b * 3735 + (1 << 14)) >> 15
-            ch = 1
-        elif code == kbr.OP_GRAY_F32:
-            r, g, b = (v[..., (aux >> s) & 15] for s in (0, 4, 8))
-            k = [F32(0.299), F32(0.587), F32(0.114)]
-            v[..., 0] = (r * k[0] + g * k[1]) + b * k[2]
-            ch = 1
+        elif code in (kbr.OP_GRAY_U8, kbr.OP_GRAY_F32):
+            assert lanes == 4 and all(((aux >> s) & 15) < ch for s in (0, 4, 8))
+            if code == kbr.OP_GRAY_U8:
+                r, g, b = (v[..., (aux >> s) & 15].astype(np.int64) for s in (0, 4, 8))
+                v[..., 0] = (r * 9798 + g * 19235 + b * 3735 + (1 << 14)) >> 15
+            else:
+                r, g, b = (v[..., (aux >> s) & 15] for s in (0, 4, 8))
+                k = [F32(0.299), F32(0.587), F32(0.114)]
+                v[..., 0] = (r * k[0] + g * k[1]) + b * k[2]
         else:
             raise AssertionError(f"op code {code}")
-    return ch
 
 
-def emulate_pointwise(a: kp.Launch, pix: int, out=None):
+def emulate_pointwise(a: kp.Launch, pix=None, out=None):
     """``pointwise_kernel`` from the launch's own arguments: the head's
-    words, the block of runtime values, the op table; the store through the
-    layout's element strides. ``(result, stats)``."""
+    words with the chain's width, the block of runtime values, the op table
+    with each row's channel count, staged in chunks; the lanes and the
+    pixels per thread the width and the output count choose (``pix`` given:
+    that many, one lane if the chain is one channel wide); the store through
+    the layout's element strides. ``(result, stats)``."""
     plan = a.plan
     hw = plan.head
     assert len(hw) == kp.HEAD_INTS
     (base, src_h, src_w, nch, src_type, n_src, first_off, asc, nv21, n_stages, conv_first,
      limited) = hw[:12]
+    width = hw[kp.HEAD_INTS - 1]
+    assert nch <= width and plan.out_ch <= width <= 4 and width == plan.width
     blk = a.block.numpy()
     fblk = blk.view(F32)
     dst_w, dst_h = plan.dsize
+    if pix is None:
+        pix = pixels_per_thread(plan.n_planes * dst_w * dst_h, width, n_stages)
+    assert pix <= 4 or (width == 1 and n_stages == 0), "16 pixels: one lane, no stage"
+    lanes = 1 if width == 1 and pix > 1 else 4
     src = a.src.numpy().reshape(-1)
     assert src.dtype == _NP_TYPES[src_type]
     y, x = (g.astype(np.int64) for g in np.meshgrid(np.arange(dst_h), np.arange(dst_w),
@@ -924,13 +968,14 @@ def emulate_pointwise(a: kp.Launch, pix: int, out=None):
     live = fill < 0
     assert ((x[live] >= 0) & (x[live] < src_w) & (y[live] >= 0) & (y[live] < src_h)).all()
     x, y = np.clip(x, 0, src_w - 1), np.clip(y, 0, src_h - 1)  # filled pixels read nothing
-    vals = np.zeros((plan.n_planes, dst_h, dst_w, 4), F32)
+    vals = np.zeros((plan.n_planes, dst_h, dst_w, lanes), F32)
     for z in range(plan.n_planes):
         pz = z
         if base == 1:
             first = int(blk[first_off])
             pz = (first + z if asc else first - z) % n_src
         if base == 2:
+            assert lanes == 4
             uv = src_h * src_w + (y // 2) * src_w + 2 * (x // 2)
             vals[z, ..., 0] = src[y * src_w + x]
             vals[z, ..., 1] = src[uv + (1 if nv21 else 0)]
@@ -945,6 +990,7 @@ def emulate_pointwise(a: kp.Launch, pix: int, out=None):
                 border = truncate_to(border, _NP_TYPES[src_type])
             vals[z, ..., c] = np.where(live, vals[z, ..., c], border)
     if conv_first:
+        assert lanes == 4
         ys, cs, rv, gu, gv, bu = (F32(c) for c in plan.conv)
         yv, u, w = vals[..., 0], vals[..., 1] - F32(128), vals[..., 2] - F32(128)
         if limited:
@@ -952,11 +998,16 @@ def emulate_pointwise(a: kp.Launch, pix: int, out=None):
         vals[..., 0], vals[..., 1], vals[..., 2] = (yv + rv * w, (yv - gu * u) - gv * w,
                                                     yv + bu * u)
         vals[..., 3] = 1
+    n_ops = plan.ops.shape[0]
+    chunks = stage_rows(a.ops.numpy(), n_ops, fblk[plan.fp_off:])
+    assert [r[2] for chunk in chunks for r in chunk] == plan.row_ch.tolist()
     with np.errstate(all="ignore"):
-        ch = emulate_chain(vals, nch, plan.ops, fblk[plan.fp_off:])
-    assert ch == plan.out_ch
+        for chunk in chunks:
+            emulate_rows(vals, chunk)
+    ch = plan.out_ch
     buf, (sn, sc, sy, sx), result = kp._alloc_out(plan, CPU, out)
     np_out = _NP_TYPES[kp.TYPE_CODES[buf.dtype]]
+    item = buf.element_size()
     if kbr.store_cast(plan.out_dtype, buf.dtype):
         info = np.iinfo(np_out)
         vals = np.clip(vals, info.min, info.max)
@@ -967,9 +1018,36 @@ def emulate_pointwise(a: kp.Launch, pix: int, out=None):
     flat[buf.storage_offset() + zi * sn + ci * sc + yi * sy + xi * sx] = (
         np.trunc(vals[..., :ch]).astype(np.int64).astype(np_out) if np_out != F32
         else vals[..., :ch])
-    groups = -(-dst_w // pix)
-    stats = {"threads": plan.n_planes * dst_h * groups,
-             "tails": plan.n_planes * dst_h * (dst_w % pix != 0)}
+    # the thread groups: x0 of each, how many of its pixels are present, and
+    # which whole-word paths its read and its store take
+    x0 = np.arange(0, dst_w, pix)
+    n = np.minimum(pix, dst_w - x0)
+    whole = int((n == pix).sum())
+    groups = plan.n_planes * dst_h * len(x0)
+    stats = {"threads": groups, "tails": plan.n_planes * dst_h * (dst_w % pix != 0),
+             "lanes": lanes, "pix": pix, "chunks": len(chunks), "run_reads": 0,
+             "nv12_words": 0, "pixel_words": 0, "word_stores": 0}
+    if n_stages == 0 and pix > 1 and (lanes == 1 or base == 2):
+        # whole runs; a one-lane row's tail is read element by element
+        stats["run_reads" if lanes == 1 else "nv12_words"] = plan.n_planes * dst_h * whole
+    src_item = a.src.element_size()
+    if lanes == 4 and pix == 4 and base != 2 and nch in (3, 4) and src_item != 2:
+        # four whole adjacent live pixels as words (load_pixels4), where aligned
+        word = 16 if (4 * nch * src_item) % 16 == 0 else 4
+        for z in range(plan.n_planes):
+            pz = z if base != 1 else ((int(blk[first_off]) + z if asc else int(blk[first_off]) - z)
+                                      % n_src)
+            for g0 in range(0, dst_w - 3, 4):
+                xg, yg, lg = x[:, g0:g0 + 4], y[:, g0], live[:, g0:g0 + 4]
+                run = lg.all(axis=1) & (np.diff(xg, axis=1) == 1).all(axis=1)
+                addr = a.src.data_ptr() + ((pz * src_h + yg) * src_w + xg[:, 0]) * nch * src_item
+                stats["pixel_words"] += int((run & (addr % word == 0)).sum())
+    zg, yg, xg = np.meshgrid(np.arange(plan.n_planes), np.arange(dst_h), x0[n == pix],
+                             indexing="ij")
+    addr = buf.data_ptr() + (zg * sn + yg * sy + xg * sx) * item
+    if lanes == 1 and pix > 1 and sx == 1 and pix * item >= 4:
+        vec = min(pix * item, 16)
+        stats["word_stores"] = int((addr % vec == 0).sum())
     return result, stats
 
 
@@ -1170,3 +1248,149 @@ def test_pointwise_stores_into_a_strided_slot(layout, ring_dtype):
         assert got is view and torch.equal(view, want)
         assert float(ring.to(torch.float64).abs().sum()) == float(view.to(torch.float64).abs().sum())
         assert torch.equal(kp.pointwise(a, out=torch.zeros_like(view)), want)
+
+
+# ---------------------------------------------------------------------------
+# the pointwise kernel's staged chain: chunks, the chain's width and lanes,
+# one-lane groups of 8 and 16
+# ---------------------------------------------------------------------------
+
+
+def _mad(n):
+    return T.static_loop(T.fuse(T.multiply(1.0009765625), T.add(0.001)), n)
+
+
+@pytest.mark.parametrize("pix", [None, 1, 4])
+@pytest.mark.parametrize("nch,dtype", [(1, np.float32), (3, np.uint8), (4, np.int16)],
+                         ids=["1ch_f32", "3ch_u8", "4ch_i16"])
+def test_pointwise_chain_longer_than_one_staging_chunk(nch, dtype, pix):
+    """300 rows are staged in two chunks, the block synchronizing between
+    them; a one-channel chain takes the one-lane instance under groups."""
+    img = _pw_source(85, (6, 9, nch), dtype)
+    plan, stats = _check_pointwise(T.image(img), T.convert_to(np.float32), _mad(150), T.write(),
+                                   pix=pix)
+    assert plan.ops.shape[0] == 300 and stats["chunks"] == 2 and plan.width == nch
+    assert stats["lanes"] == (1 if nch == 1 and stats["pix"] > 1 else 4)
+
+
+@pytest.mark.parametrize("pix", [1, 4])
+def test_pointwise_chains_whose_width_changes(pix):
+    """RGB -> RGBA -> multiply -> RGB is four channels wide at its widest;
+    RGBA -> GRAY with a long one-channel tail too: a chain that narrows to
+    one channel still holds four lanes, and each row sees its own count."""
+    C = T.ColorConversionCode
+    rgb = _pw_source(86, (5, 11, 3), np.uint8)
+    plan, stats = _check_pointwise(
+        T.image(rgb), T.cvt_color(C.COLOR_RGB2RGBA), T.convert_to(np.float32, alpha=0.5),
+        T.multiply((1.0, 2.0, 0.5, 3.0)), T.cvt_color(C.COLOR_RGBA2RGB), T.split_tensor(), pix=pix)
+    assert plan.width == 4 and plan.out_ch == 3 and stats["lanes"] == 4
+    assert plan.row_ch[0] == 3 and max(plan.row_ch) == 4 and plan.row_ch[-1] == 4
+    rgba = _pw_source(87, (4, 13, 4), np.float32)
+    plan, stats = _check_pointwise(T.image(rgba), T.cvt_color(C.COLOR_RGBA2GRAY), _mad(40),
+                                   T.write(), pix=pix)
+    assert plan.width == 4 and plan.out_ch == 1 and stats["lanes"] == 4
+    assert plan.row_ch.tolist() == [4] + [1] * 80
+
+
+_SCALARS = (1.5, -0.75, 3.0, 0.5)
+_ROW_OPS = {
+    "multiply": lambda n: (T.multiply(_SCALARS[:n]),),
+    "add": lambda n: (T.add(_SCALARS[:n]),),
+    "subtract": lambda n: (T.subtract(2.25),),
+    "divide": lambda n: (T.divide(_SCALARS[:n]),),
+    "sat_u8": lambda n: (T.convert_to(np.uint8),),
+    "sat_i8": lambda n: (T.convert_to(np.int8),),
+    "sat_u16": lambda n: (T.convert_to(np.uint16, alpha=300.0),),
+    "sat_i16": lambda n: (T.convert_to(np.int16, alpha=-400.0),),
+    "cast_u8": lambda n: (T.multiply(0.5), T.add(50.0), T.Cast(dst=torch.uint8)),
+    "cast_i8": lambda n: (T.multiply(0.5), T.Cast(dst=torch.int8)),
+    "cast_u16": lambda n: (T.add(100.5), T.Cast(dst=torch.uint16)),
+    "cast_i16": lambda n: (T.multiply(-7.5), T.Cast(dst=torch.int16)),
+}
+
+
+@pytest.mark.parametrize("nch", [1, 2, 3, 4])
+@pytest.mark.parametrize("op", list(_ROW_OPS))
+def test_pointwise_every_row_on_every_channel_count(op, nch):
+    """Each arithmetic row and each row of the wide table, on 1 to 4
+    channels, under one and four lanes: the lanes above a row's count take
+    0 scalars and are never stored."""
+    img = _pw_source(88, (3, 10, nch), np.float32)
+    ops = _ROW_OPS[op](nch)
+    for pix in (1, 4):
+        plan, stats = _check_pointwise(T.image(img), *ops, T.write(), pix=pix)
+        assert stats["lanes"] == (1 if nch == 1 and pix == 4 else 4)
+        assert plan.row_ch.tolist() == [nch] * plan.ops.shape[0]
+
+
+@pytest.mark.parametrize("pix", [8, 16])
+@pytest.mark.parametrize("width", [16, 37, 5])
+@pytest.mark.parametrize("dtype", PW_DTYPES, ids=PW_IDS)
+def test_pointwise_one_lane_groups_with_row_tails(dtype, width, pix):
+    """Groups of 8 and 16 pixels of a one-channel source: the whole groups
+    of a row are read as runs, a row's tail pixel by pixel; planar and
+    packed stores of one channel are the same run."""
+    img = _pw_source(89, (3, width, 1), dtype)
+    plan, stats = _check_pointwise(T.image(img), T.multiply(1.5), T.add(-2.25), T.write(),
+                                   pix=pix)
+    full = width // pix
+    assert plan.width == 1 and stats["lanes"] == 1 and stats["threads"] == 3 * -(-width // pix)
+    assert stats["run_reads"] == 3 * full and stats["tails"] == (3 if width % pix else 0)
+    assert stats["word_stores"] <= 3 * full
+    stack = _pw_source(90, (2, 3, width, 1), dtype)
+    _, stats = _check_pointwise(T.image(stack), T.convert_to(np.float32, alpha=0.25),
+                                T.split_tensor(), pix=pix)
+    assert stats["run_reads"] == 6 * full
+    # a stage above the base: 4 pixels at most, walked and gathered
+    crop = T.crop(T.image(_pw_source(91, (5, width + 3, 1), dtype)), T.Rect(1, 2, width, 3))
+    _, stats = _check_pointwise(crop, T.add(1.0), T.write(), pix=4)
+    assert stats["lanes"] == 1 and stats["run_reads"] == 0
+
+
+@pytest.mark.parametrize("outputs,width,stages,want", [
+    (2048 * 2048, 1, 0, 16), (1920 * 1080, 1, 0, 16), (1920 * 1080, 1, 1, 4),
+    (1024 * 1024, 1, 0, 16), (768 * 768, 1, 0, 4), (256 * 256, 1, 0, 1), (2048 * 2048, 3, 0, 4),
+    (1920 * 1080, 4, 0, 4), (256 * 256, 3, 2, 1)])
+def test_pointwise_pixels_per_thread_follow_the_width(outputs, width, stages, want):
+    """On an H100 (132 SMs x 2048 threads): 16 pixels per thread for a
+    one-channel chain on a base with no stage from 720,896 outputs, else 4
+    from 360,448."""
+    assert pixels_per_thread(outputs, width, stages) == want
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_pointwise_nv12_groups_and_rgba_word_stores(offset):
+    """A bare NV12 -> RGBA u8 conversion: whole groups of 4 read one luma
+    and one chroma word; the RGBA groups go out through store_any into a
+    view on a 16-byte address and off it alike."""
+    buf = _pw_source(92, (12, 16), np.uint8)
+    p = T.build_pipeline(T.read_yuv(buf), T.convert_yuv_to_rgb(alpha=True), T.write())
+    plan = kp.build_plan(p)
+    a = kp.prepare(p, plan, CPU)
+    assert plan.width == 4 and plan.out_ch == 4
+    storage = torch.zeros(8 * 16 * 4 + 64, dtype=torch.uint8)
+    shift = (-storage.data_ptr()) % 16 + offset
+    view = storage[shift:shift + 8 * 16 * 4].view(8, 16, 4)
+    got, stats = emulate_pointwise(a, 4, out=view)
+    assert got is view and torch.equal(view, kp.pointwise_reference(a))
+    assert stats["nv12_words"] == 8 * 4 and stats["word_stores"] == 0
+
+
+@pytest.mark.parametrize("nch,dtype", [(3, np.uint8), (4, np.uint8), (3, np.float32),
+                                       (4, np.float32), (3, np.int16)],
+                         ids=["3ch_u8", "4ch_u8", "3ch_f32", "4ch_f32", "3ch_i16"])
+def test_pointwise_whole_pixel_groups_read_as_words(nch, dtype):
+    """Four adjacent pixels of 3 or 4 channels of 1 or 4 bytes whose source
+    columns follow each other are read as words where aligned: every group
+    of an image with no stage, the groups a border leaves in order, none of
+    a 16-bit source."""
+    img = _pw_source(93, (3, 16, nch), dtype)
+    _, stats = _check_pointwise(T.image(img), T.convert_to(np.float32, alpha=0.5),
+                                T.split_tensor(), pix=4)
+    if dtype == np.int16:
+        assert stats["pixel_words"] == 0
+    else:
+        assert 0 < stats["pixel_words"] <= 3 * 4
+    border = T.make_border(T.image(img), 1, 1, 4, 4, T.BorderMode.REFLECT)
+    _, stats = _check_pointwise(border, T.convert_to(np.float32), T.split_tensor(), pix=4)
+    assert stats["pixel_words"] <= 5 * 6

@@ -35,7 +35,9 @@ kernel duration of 20 launches), in microseconds:
   ring (``d1_8``, ``d1_12``) and over a float32 copy of it (``d1_f32``), and
   D4 over 40 and 48 planes (``d4_40``, ``d4_48``);
 - its pointwise rows P1-P5 (``p1`` .. ``p5``: the 200-op chain, the ring, the
-  border, the crop, NV12 -> RGBA), left out for a variant whose sources have
+  border, the crop, NV12 -> RGBA) and P1's chain on 768x768, 1024x1024 and
+  1448x1448 (``p1_768``, ``p1_1024``, ``p1_1448``: output counts around the
+  one-lane instances' thresholds), left out for a variant whose sources have
   no pointwise kernel (an older tree's).
 
 ``cases``, a comma-separated list, times only those. The cases are
@@ -124,7 +126,10 @@ def main() -> int:
     pointwise = cs.pointwise_rows(cvgs, mad_src, rows.ring, 3, hd, (-300, -200), nv12_hd)
     for k, ops in enumerate(pointwise.values(), 1):
         cases[f"p{k}"] = (kp, kp.pointwise, ops)
-    pointwise_cases = {f"p{k}" for k in range(1, len(pointwise) + 1)}
+    for side in (768, 1024, 1448):  # output counts around the one-lane thresholds
+        cases[f"p1_{side}"] = (kp, kp.pointwise, (cvgs.image(mad_src[:side, :side].contiguous()),
+                                                   cs.mad_chain(cvgs), cvgs.write()))
+    pointwise_cases = {name for name in cases if name.startswith("p")}
     launches = {}
     for name, (module, wrapper, ops) in cases.items():
         pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: as_device_tensor(v, dev))
