@@ -18,8 +18,10 @@ pointwise path (kernel ``pointwise``): every pipeline with no resampling
 head, P1 the reference's 200-op multiply-add chain on 2048x2048 f32, P2 a
 ring read from ``first`` = 3, P3 a 1080p frame with an 8-pixel border in each
 mode, P4 crops at a negative and an overhanging origin, P5 a bare 1080p
-NV12/NV21 -> RGBA conversion, P6 int16 and uint16 chains; and the four
-presets, the cv2-typed shim and the frame loader through their public calls.
+NV12/NV21 -> RGBA conversion, P6 int16 and uint16 chains; the four
+presets, the cv2-typed shim and the frame loader through their public calls;
+and the batch axis of the flagship, W6, P2, D1 and D3 sharded over a device
+mesh (``parallel/mesh.py``).
 In phases; any failure ends the run with a non-zero exit
 code and no result line:
 
@@ -97,7 +99,25 @@ code and no result line:
    ``copy_``, as updates ran until the wrappers took ``out=``) and after;
    the pointwise kernel in P1-P5 (P1's bound is its operations at the
    unfused rate, half the published one: the build forbids FMAs); one eager
-   int32 pipeline, which no kernel takes.
+   int32 pipeline, which no kernel takes;
+6. sharding: (a) every rank of meshes of 2 and 5 (the flagship, 50 crops
+   ragged at ``used_planes`` = 37) and of 2, 4 and 8 (W6; P2's ring from
+   ``first`` = 3 and -5; D1 and D3) run on this card through the rank-local
+   function both sharded entry points use, in two rounds of new rects,
+   ``first`` and ``used_planes``: each rank is one launch of the path's
+   kernel and equals its plain version, no plan is built after a mesh's
+   first rank (a divergent batch: one per distinct local routing), and the
+   ranks joined equal the unsharded call bit for bit; (b) ``execute_sharded``
+   and ``execute_divergent_sharded`` through a one-rank NCCL process group:
+   DTensors on the write layout's plane axis (``Shard(1)`` for the
+   transposed split), ``full_tensor()`` equal to the unsharded call, one
+   launch per call and no NCCL kernel in a trace of 20 calls; the device
+   time of one rank of two (25 planes) beside the 50-plane batch, and the
+   host-inclusive calls: ``execute_operations``, ``execute_sharded`` on the
+   one-rank mesh, rank 0 of 2 and the wrapper's own layers. Two processes
+   on the one card over gloo are not run: gloo's gather of CUDA tensors
+   ends a process with SIGSEGV in the card machine's torch build
+   (``tools/gloo_cuda_gather.py`` shows it).
 
 The last three lines are the card's name and power limit, one JSON object
 describing the kernels, and ``{"ok": true, "device": {...}}``. The script
@@ -255,12 +275,13 @@ def oracle_warp(frame: np.ndarray, m: np.ndarray, dst_w: int, dst_h: int) -> np.
     return top * (1 - fy) + bot * fy
 
 
-def flagship_ops(cvgs, frame, rects):
+def flagship_ops(cvgs, frame, rects, used=None, write=None):
     """The flagship pipeline: crops of ``frame`` at ``rects`` -> 64x128,
-    scaled, shifted and divided per channel, written planar."""
-    return (cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(64, 128)),
+    scaled, shifted and divided per channel, written planar (or by
+    ``write``); ragged at ``used`` planes where given."""
+    return (cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(64, 128), used_planes=used),
             cvgs.convert_to(np.float32, alpha=ALPHA), cvgs.subtract(SUB), cvgs.divide(DIV),
-            cvgs.split_tensor())
+            (write or cvgs.split_tensor)())
 
 
 def warp_batch_ops(cvgs, read, angle0, used, planes=8):
@@ -508,6 +529,12 @@ def mad_chain(cvgs):
     return cvgs.static_loop(cvgs.static_loop(mad, 10), MAD_OPS // 2 // 10)
 
 
+def p2_ops(cvgs, ring, first, scale=0.3):
+    """P2: the ring from ``first``, a two-op float chain, written planar."""
+    return (cvgs.circular_batch_read(ring, first=first), cvgs.convert_to(np.float32, alpha=scale),
+            cvgs.subtract((1.0, 2.0, 3.0)), cvgs.split_tensor())
+
+
 def pointwise_rows(cvgs, mad_src, ring, first, hd, origin, nv12_hd, scale=0.3) -> dict:
     """The pointwise rows P1-P5 that phases 4 and 5 drive: the MAD chain, the
     ring from ``first`` with a two-op float chain written planar, a 1080p
@@ -516,9 +543,7 @@ def pointwise_rows(cvgs, mad_src, ring, first, hd, origin, nv12_hd, scale=0.3) -
     to_unit = cvgs.convert_to(np.float32, alpha=1 / 255.0)
     return {
         "p1_mad_200_ops_2048x2048": (cvgs.image(mad_src), mad_chain(cvgs), cvgs.write()),
-        "p2_ring_first3_two_op_chain": (
-            cvgs.circular_batch_read(ring, first=first), cvgs.convert_to(np.float32, alpha=scale),
-            cvgs.subtract((1.0, 2.0, 3.0)), cvgs.split_tensor()),
+        "p2_ring_first3_two_op_chain": p2_ops(cvgs, ring, first, scale),
         "p3_border8_replicate_1080p": (
             cvgs.make_border(cvgs.image(hd), BORDER, BORDER, BORDER, BORDER,
                              cvgs.BorderMode.REPLICATE), to_unit, cvgs.split_tensor()),
@@ -1445,21 +1470,29 @@ def main() -> int:
         """Device time of one ``fn()`` by ``torch.profiler``: the median
         kernel duration where a call is one kernel, else the calls' share of
         all device time in the trace. No event floor is inside. A trace now
-        and then comes back without device activity: it is taken again, and
-        after three empty ones the run fails, naming the case."""
+        and then comes back without device activity, sometimes several in a
+        row: it is taken again after a pause, every other time with host
+        activity traced too, and after eight empty ones the run fails,
+        naming the case."""
         for _ in range(3):
             fn()
-        tries = 3
-        for _ in range(tries):
+        tries = 8
+        for k in range(tries):
             torch.cuda.synchronize()
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            activities = [torch.profiler.ProfilerActivity.CUDA]
+            if k % 2:
+                activities.append(torch.profiler.ProfilerActivity.CPU)
+            with torch.profiler.profile(activities=activities) as prof:
                 for _ in range(calls):
                     fn()
                 torch.cuda.synchronize()
             us = [e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
             if us:
+                if k:
+                    log(f"phase5 torch.profiler: {k} empty trace(s) of {what} before this one")
                 return float(np.median(us) if len(us) == calls else sum(us) / calls) * 1e-3
+            time.sleep(0.5)
         raise RuntimeError(f"torch.profiler recorded no device activity for {what}: all {tries} "
                            f"traces of {calls} calls came back empty")
 
@@ -1827,6 +1860,207 @@ def main() -> int:
         f"us for the same chain on a uint8 frame through cuda:pointwise (host-bound: events around "
         f"whole execute_operations calls); card {card}")
 
+    # ---- phase 6: the batch axis sharded over a device mesh (parallel/mesh.py)
+    # (a) every rank of meshes of 2 to 8 on this card, through the rank-local
+    # function both sharded entry points run: one launch of the path's kernel
+    # per rank, no plan after the first (a divergent batch: one per distinct
+    # local routing), a second round with new rects, first and used_planes
+    # building none either; each rank against its kernel's plain version, the
+    # ranks joined against the unsharded call bit for bit
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from cvgpuspeedup_tpu_torch.parallel import mesh as pmesh
+
+    modules = {"batch_resize": kbr, "warp": kw, "pointwise": kp, "divergent": kd}
+    hd_read = cvgs.image(hd)
+    shard_rows = {  # name: (kernel, mesh sizes, one case per round)
+        "flagship_50_ragged37": ("batch_resize", (2, 5), [
+            cvgs.build_pipeline(*flagship_ops(cvgs, frame, rects_a, used=37)),
+            cvgs.build_pipeline(*flagship_ops(cvgs, frame, shifted, used=23))]),
+        "w6_batch8_ragged7": ("warp", (2, 4, 8), [
+            cvgs.build_pipeline(*warp_batch_ops(cvgs, hd_read, -10.0, 7)),
+            cvgs.build_pipeline(*warp_batch_ops(cvgs, hd_read, -8.0, 5))]),
+        "p2_ring": ("pointwise", (2, 4, 8), [cvgs.build_pipeline(*p2_ops(cvgs, ring, 3)),
+                                            cvgs.build_pipeline(*p2_ops(cvgs, ring, -5))]),
+        "d1_circular": ("divergent", (2, 4, 8), [d1(3), d1(-5)]),
+        "d3_crop_resize": ("divergent", (2, 4, 8), [d3(d3_rects(0)), d3(d3_rects(7))]),
+    }
+
+    def unsharded(kernel, case):
+        if kernel == "divergent":
+            return cvgs.launch_divergent_batch(case[0], *case[1])
+        return executor.run_pipeline(case, device=dev)
+
+    def rank_of(kernel, case, index, nsh):
+        """Rank ``index``'s local pipeline (a divergent batch: its local
+        sequences and its slice of the plane ids)."""
+        if kernel != "divergent":
+            return pmesh._local_pipeline(case, index, nsh), None
+        ids, seqs = case
+        ln = len(ids) // nsh
+        return (tuple(pmesh._local_pipeline(s, index, nsh, len(ids)) for s in seqs),
+                ids[index * ln:(index + 1) * ln])
+
+    def plain_of(kernel, local, ids):
+        module, _, plain = kernels[kernel]
+        plan = module.build_plan(local, ids) if ids is not None else module.build_plan(local)
+        return plain(module.prepare(local, plan, dev))
+
+    def diff(got, want, what):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{what}: {got.shape} {got.dtype}, plain {want.shape} {want.dtype}")
+        if not got.dtype.is_floating_point:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what}: {got.dtype} values differ from the plain version")
+            return 0.0
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: non-finite kernel output")
+        return float((got - want).abs().max())
+
+    wholes = {name: [unsharded(kernel, case) for case in cases]
+              for name, (kernel, _, cases) in shard_rows.items()}
+    torch.cuda.synchronize()
+    shard_ranks = {name: 0 for name in modules}
+    for module in (kbr, kfr, kw, kd, kp):
+        module.LAUNCHES = 0
+    for name, (kernel, meshes, cases) in shard_rows.items():
+        module = modules[kernel]
+        for nsh in meshes:
+            builds0, plans, err = executor.PLAN_BUILDS, set(), 0.0
+            for k, case in enumerate(cases):
+                outs = []
+                for i in range(nsh):
+                    local, ids = rank_of(kernel, case, i, nsh)
+                    launches, builds = module.LAUNCHES, executor.PLAN_BUILDS
+                    out = (cvgs.launch_divergent_batch(ids, *local) if ids is not None
+                           else executor.run_pipeline(local, device=dev))
+                    outs.append(out)
+                    shard_ranks[kernel] += 1
+                    what = f"{name} rank {i} of {nsh}, round {k}"
+                    assert cvgs.last_backend() == f"cuda:{kernel}", (what, cvgs.last_backend())
+                    assert module.LAUNCHES == launches + 1, (what, module.LAUNCHES - launches)
+                    routing = tuple(ids) if ids is not None else "one plan"
+                    if routing in plans:
+                        assert executor.PLAN_BUILDS == builds, f"{what} built a plan"
+                    else:
+                        assert executor.PLAN_BUILDS <= builds + 1, what
+                        plans.add(routing)
+                    err = max(err, diff(out, plain_of(kernel, local, ids), what))
+                torch.cuda.synchronize()
+                assert torch.equal(torch.cat(outs), wholes[name][k]), \
+                    f"{name} over {nsh} ranks, round {k}: the ranks joined differ from unsharded"
+            assert err <= F32_TOL, (name, nsh, err)
+            max_err[kernel] = max(max_err[kernel], err)
+            log(f"phase6 sharded {name} over {nsh} ranks: {2 * nsh} rank calls in 2 rounds, each 1 "
+                f"launch of cuda:{kernel}; plans built {executor.PLAN_BUILDS - builds0} for "
+                f"{len(plans)} distinct local routings; max|diff| vs plain {err!r}; the ranks "
+                f"joined equal the unsharded call bit for bit")
+    sharded_launches = {name: module.LAUNCHES for name, module in modules.items()}
+    log(f"phase6 launches over the rank calls: {sharded_launches}, frame_resize {kfr.LAUNCHES}")
+    assert sharded_launches == shard_ranks and kfr.LAUNCHES == 0, (sharded_launches, shard_ranks)
+
+    # (b) the entry points through a one-rank NCCL process group on this card:
+    # DTensors sharded on the write layout's plane axis, full_tensor() equal
+    # to the unsharded call, one launch per call and no collective in a trace
+    # of 20 calls; then the host cost the wrapper adds to the flagship call,
+    # and one rank of two (25 planes) beside the unsharded 50-plane batch
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = pmesh.initialize_distributed(f"file://{tmp}/store", 1, 0)
+        assert mesh.device_type == "cuda" and mesh.size() == 1, mesh
+        flagship50 = wholes["flagship_50_ragged37"][0]
+        d3_ids, d3_seqs = d3(d3_rects(0))
+        entry_cases = {
+            "flagship": (lambda: pmesh.execute_sharded(*flagship_ops(cvgs, frame, rects_a, used=37),
+                                                       mesh=mesh), flagship50, 0),
+            "flagship_transposed": (
+                lambda: pmesh.execute_sharded(*flagship_ops(cvgs, frame, rects_a, used=37,
+                                                            write=cvgs.split_tensor_transposed),
+                                              mesh=mesh),
+                flagship50.transpose(0, 1).contiguous(), 1),
+            "w6_batch8_ragged7": (lambda: pmesh.execute_sharded(
+                *warp_batch_ops(cvgs, hd_read, -10.0, 7), mesh=mesh),
+                wholes["w6_batch8_ragged7"][0], 0),
+            "p2_ring": (lambda: pmesh.execute_sharded(*p2_ops(cvgs, ring, 3), mesh=mesh),
+                        wholes["p2_ring"][0], 0),
+            "d3_crop_resize": (lambda: pmesh.execute_divergent_sharded(
+                d3_ids, *d3_seqs, mesh=mesh), wholes["d3_crop_resize"][0], 0),
+        }
+        for module in (kbr, kfr, kw, kd, kp):
+            module.LAUNCHES = 0
+        for name, (call, want, dim) in entry_cases.items():
+            before = {k: m.LAUNCHES for k, m in modules.items()}
+            out = call()
+            moved = {k: m.LAUNCHES - before[k] for k, m in modules.items() if m.LAUNCHES != before[k]}
+            assert isinstance(out, DTensor), type(out)
+            assert tuple(out.placements) == (Shard(dim),), (name, out.placements)
+            assert tuple(out.shape) == tuple(want.shape), (name, out.shape, want.shape)
+            assert list(moved.values()) == [1], (name, moved)
+            full = out.full_tensor()
+            assert torch.equal(full, want), f"execute_sharded {name}: full_tensor() differs"
+            log(f"phase6 execute_sharded {name} on the one-rank NCCL mesh: {out.placements}, "
+                f"global {tuple(out.shape)}, local {tuple(out.to_local().shape)}, launches {moved}; "
+                f"full_tensor() equal to the unsharded call")
+        for _ in range(8):  # an empty trace is taken again, as profiler_ms does
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    entry_cases["flagship"][0]()
+                torch.cuda.synchronize()
+            names = {e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA}
+            if names:
+                break
+            time.sleep(0.5)
+        log(f"phase6 trace of 20 execute_sharded calls: device kernels {sorted(n[:60] for n in names)}")
+        assert any("batch_resize" in n for n in names), names
+        assert not any("nccl" in n.lower() for n in names), names
+
+        rects_dev = torch.from_numpy(rects_a).to(dev)
+        p50 = map_leaves(cvgs.build_pipeline(*flagship_ops(cvgs, frame, rects_dev, used=37)),
+                         lambda v: as_device_tensor(v, dev))
+        loc25 = pmesh._local_pipeline(p50, 0, 2)
+        a25 = kbr.prepare(loc25, kbr.build_plan(loc25), dev)
+        a50 = kbr.prepare(p50, kbr.build_plan(p50), dev)
+        shard_times = {
+            "rank0_of_2_25_planes": measure(lambda: kbr.batch_resize(a25),
+                                            lambda: kbr.batch_resize_reference(a25), 100),
+            "unsharded_50_planes": measure(lambda: kbr.batch_resize(a50),
+                                           lambda: kbr.batch_resize_reference(a50), 100),
+        }
+        host = {"execute_operations_50": [], "execute_sharded_1rank_50": [],
+                "rank0_of_2_25": [], "local_pipeline": [], "from_local": []}
+        for _ in range(110):
+            t0 = time.perf_counter()
+            cvgs.execute_operations(*flagship_ops(cvgs, frame, rects_a, used=37))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pmesh.execute_sharded(*flagship_ops(cvgs, frame, rects_a, used=37), mesh=mesh)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            p = cvgs.build_pipeline(*flagship_ops(cvgs, frame, rects_a, used=37))
+            t3 = time.perf_counter()
+            loc = pmesh._local_pipeline(p, 0, 2)
+            t4 = time.perf_counter()
+            out = executor.run_pipeline(loc, device=dev)
+            t5 = time.perf_counter()
+            pmesh._sharded(out, mesh, p.write)
+            t6 = time.perf_counter()
+            torch.cuda.synchronize()
+            t7 = time.perf_counter()
+            for k, v in zip(host, (t1 - t0, t2 - t1, (t5 - t2) + (t7 - t6), t4 - t3, t6 - t5)):
+                host[k].append(v)
+        host_us = {k: float(np.median(v[10:])) * 1e6 for k, v in host.items()}
+        dist.destroy_process_group()
+    for name, t in shard_times.items():
+        log(f"phase6 batch_resize {name}: kernel {t['ms'] * 1e3:.2f} us by events, "
+            f"{t['profiler_ms'] * 1e3:.2f} us by torch.profiler, plain torch "
+            f"{t['plain_ms'] * 1e3:.2f} us (medians); card {card}")
+    log("phase6 host-inclusive flagship calls, us/call, median of 100: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host_us.items())
+        + " (rank0_of_2_25: build, the rank's local pipeline, run_pipeline, sync; the last two "
+        f"are the wrapper's own layers); card {card}")
+    shard_times["host_us"] = host_us
+
     for mod in ("jax", "cv2"):
         assert mod not in sys.modules, f"{mod} was imported"
     def entry(name, source, replaces, launches, times, **more):
@@ -1843,7 +2077,8 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": [
         entry("batch_resize", "batch_resize.cu", "cvgpuspeedup_tpu/exec/pallas_backend.py:500",
-              main_launches, k1, cases={"flagship": k1}),
+              main_launches, k1, cases={"flagship": k1},
+              sharded_launches=sharded_launches["batch_resize"], sharding=shard_times),
         # path (a); both paths below
         entry("frame_resize", "frame_resize.cu", "cvgpuspeedup_tpu/exec/pallas_frame.py:663",
               frame_launches, frame_times["a"],
@@ -1856,16 +2091,18 @@ def main() -> int:
               also_replaces=["cvgpuspeedup_tpu/exec/pallas_warp.py:202",
                              "cvgpuspeedup_tpu/exec/pallas_warp_general.py:272",
                              "cvgpuspeedup_tpu/exec/pallas_warp_universal.py:359"],
-              cases=warp_times),
+              cases=warp_times, sharded_launches=sharded_launches["warp"]),
         # D4, the reference's warp | crop | pass row; D1-D4 below
         entry("divergent", "divergent.cu", "cvgpuspeedup_tpu/exec/pallas_divergent.py:686",
               divergent_launches, d4t, cases=div_times,
-              circular_tensor_update_ms=ct_update_ms),
+              circular_tensor_update_ms=ct_update_ms,
+              sharded_launches=sharded_launches["divergent"]),
         # P1, the MAD stress (bound by its unfused operations); P1-P5 below. No
         # Pallas counterpart: it replaces the reference's jitted XLA program
         entry("pointwise", "pointwise.cu", "cvgpuspeedup_tpu/exec/executor.py:243",
               pointwise_launches, pw_times["p1_mad_200_ops_2048x2048"], cases=pw_times,
-              circular_tensor_update=ring_update, eager_int32_pipeline_ms=eager_ms),
+              circular_tensor_update=ring_update, eager_int32_pipeline_ms=eager_ms,
+              sharded_launches=sharded_launches["pointwise"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ a group, in order of first appearance; each group is one of six kinds:
   kind         read                                        coordinates from
   ===========  ==========================================  =====================
   image        batched ``ImageRead`` (N, H, W, C)          plane z
-  circ         ``CircularBatchRead``                       runtime ``first``
+  circ         ``CircularBatchRead``, or a rank's view of   runtime ``first``, modulo
+               one (``parallel/mesh.py``)                  the ring's planes
   crop_resize  ``BatchResizeRead`` of one frame            K1's rules, runtime rects
   resize       ``BatchResizeRead`` of a stack              K1's rules on (0, 0, w, h)
   nv12         ``BatchRead`` of fused NV12 -> float RGB    K2's tap tables

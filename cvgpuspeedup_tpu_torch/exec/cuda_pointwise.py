@@ -12,7 +12,9 @@ whose head reads one source pixel per output pixel: a *base*
   ===========  ==========================================================
   image        ``ImageRead``, single (H, W, C) or batched (N, H, W, C),
                also with ``packed_channels``
-  circ         ``CircularBatchRead`` from its runtime ``first``
+  circ         ``CircularBatchRead`` from its runtime ``first``; a rank's
+               view of a ring (``parallel/mesh.py``) has fewer output
+               planes than the ring holds (``num_planes``)
   yuv          ``ReadYUV``: an NV12 or NV21 buffer read as (H, W, 3) YUV
   ===========  ==========================================================
 
@@ -189,9 +191,11 @@ def build_plan(pipeline) -> PointwisePlan:
         # one frame is a stack of one plane
         n_src, h, w, c = _stack_geometry(tuple(data.shape) if batch else (1, *data.shape),
                                          base.packed_channels)
+        # a rank's view of a ring reads fewer planes than the ring holds
+        n_out = base.num_planes if kind == "circ" else n_src
         ascendent = kind == "image" or base.ascendent
     elif isinstance(base, ReadYUV):
-        data, kind, batch, n_src, c = base.buffer, "yuv", False, 1, 3
+        data, kind, batch, n_src, n_out, c = base.buffer, "yuv", False, 1, 1, 3
         shape = tuple(data.shape)
         if len(shape) == 3 and shape[2] == 1:
             shape = shape[:2]
@@ -211,8 +215,8 @@ def build_plan(pipeline) -> PointwisePlan:
         raise Unsupported(f"source dtype {_leaf_dtype_name(data)}")
     if not 1 <= c <= _MAX_CHANNELS:
         raise Unsupported(f"{c} channels")
-    if not 1 <= n_src <= _MAX_PLANES or h < 1 or w < 1:
-        raise Unsupported(f"source of {n_src} planes of {w}x{h}")
+    if not 1 <= n_src <= _MAX_PLANES or not 1 <= n_out <= _MAX_PLANES or h < 1 or w < 1:
+        raise Unsupported(f"{n_out} planes from a source of {n_src} planes of {w}x{h}")
 
     # the block of runtime values: `first`, then each stage's, outermost
     # first, then the chain scalars; the stages' source sizes from the base up
@@ -281,7 +285,7 @@ def build_plan(pipeline) -> PointwisePlan:
     head = (BASES.index(kind), h, w, c, TYPE_CODES[src_dtype], n_src, first_off, int(ascendent),
             int(nv21), len(stages), conv_first, limited, *words, width)
     return PointwisePlan(
-        base=kind, batch=batch, n_planes=n_src if batch else 1, src_dtype=src_dtype,
+        base=kind, batch=batch, n_planes=n_out if batch else 1, src_dtype=src_dtype,
         src_numel=int(np.prod(tuple(data.shape))), dsize=Size(out_w, out_h), out_ch=out_ch,
         out_dtype=out_dtype, layout=layout, head=tuple(int(v) for v in head), conv=conv, ops=ops,
         row_ch=row_ch, fp_off=fp_off, n_block=max(fp_off + n_fparams, 1),

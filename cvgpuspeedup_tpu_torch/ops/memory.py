@@ -113,6 +113,11 @@ class CircularBatchRead(ReadOp):
 
     batched = True
 
+    @property
+    def num_planes(self) -> int:
+        """Output planes: the ring's (a rank's view of it has fewer)."""
+        return int(self.data.shape[0])
+
     def _take(self, z: torch.Tensor) -> torch.Tensor:
         x = self.data
         first = torch.as_tensor(self.first, device=x.device).to(torch.int64).reshape(())
@@ -124,7 +129,7 @@ class CircularBatchRead(ReadOp):
         return x
 
     def lower(self) -> torch.Tensor:
-        return self._take(torch.arange(self.data.shape[0], device=self.data.device))
+        return self._take(torch.arange(self.num_planes, device=self.data.device))
 
     def lower_planes(self, planes) -> torch.Tensor:
         return self._take(torch.as_tensor([int(z) for z in planes], device=self.data.device))

@@ -25,7 +25,8 @@ def test_import_leaves_jax_out():
         "cvgpuspeedup_tpu_torch.exec.cuda_divergent, cvgpuspeedup_tpu_torch.ops.crop, "
         "cvgpuspeedup_tpu_torch.ops.border, cvgpuspeedup_tpu_torch.data.circular_tensor, "
         "cvgpuspeedup_tpu_torch.exec.cuda_pointwise, cvgpuspeedup_tpu_torch.pipelines.presets, "
-        "cvgpuspeedup_tpu_torch.interop.cv2_compat, cvgpuspeedup_tpu_torch.utils.frameloader; "
+        "cvgpuspeedup_tpu_torch.interop.cv2_compat, cvgpuspeedup_tpu_torch.utils.frameloader, "
+        "cvgpuspeedup_tpu_torch.parallel.mesh; "
         "print(sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'cvgpuspeedup_tpu')))"
     )
