@@ -51,10 +51,11 @@ code and no result line:
    a 16-plane ring read by two sequences from first = 3 and -5, eight NV12
    cameras with pass-through planes (and NV21 limited range), crops of the
    flagship frame with pass-through, warp | crop | pass, a whole-plane stack
-   resize with an image group, a uint8 chain, D4 written planar, and D8-D13:
+   resize with an image group, a uint8 chain, D4 written planar, and D8-D14:
    groups of both output dtypes in one batch (each way round), a ring view
    at an odd address with rows of 253 pixels, a float32 RGBA ring into
-   planar uint8, and the sampled kinds under 4 pixels per thread. pointwise
+   planar uint8, the sampled kinds under 4 pixels per thread, and ragged
+   BatchRead groups of warps and of images (D14). pointwise
    in P1-P10 bit for bit: P7-P10 run the staged chain's own paths (300-row
    chains on four lanes and one, chains whose width changes, one-channel
    groups of 16 with a row's tail, NV12 into RGB and a crop of NV12 off the
@@ -76,7 +77,9 @@ code and no result line:
    ``temporal_window`` of 32 frames, ``video_stream`` over raw RGB and NV12
    files of 16 1080p frames written to a temporary directory (the native
    loader asserted), ``camera_pipeline`` with and without ``out_size``; one
-   flagship call through ``cv2_compat``;
+   flagship call through ``cv2_compat``; D14 twice; ring updates in every
+   layout and order, a float32 chain behind a resize head into uint8 and
+   int16 rings and behind a warp head into a uint8 ring in one launch each;
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain, and the
    kernel's duration in a ``torch.profiler`` trace of 20 launches (events
@@ -117,7 +120,14 @@ code and no result line:
    one-rank mesh, rank 0 of 2 and the wrapper's own layers. Two processes
    on the one card over gloo are not run: gloo's gather of CUDA tensors
    ends a process with SIGSEGV in the card machine's torch build
-   (``tools/gloo_cuda_gather.py`` shows it).
+   (``tools/gloo_cuda_gather.py`` shows it);
+7. the system's own benchmarks (``cvgpuspeedup_tpu_torch/benchmarks``) with
+   ``--quick``, fewer repetitions at the reference's shapes: the 5 rows of
+   ``vertical_fusion``, the 13 of ``aux_pipelines``, ``host_overhead`` and
+   ``scaling`` in phase 6's one-rank group; every fused call must be one
+   launch of its kernel and equal its per-op step (uint8 bit for bit,
+   float32 within 1e-4), host overhead and scaling must equal K1's plain
+   version, every row must be physical; then the three examples once.
 
 The last three lines are the card's name and power limit, one JSON object
 describing the kernels, and ``{"ok": true, "device": {...}}``. The script
@@ -143,12 +153,6 @@ BT709 = (0.2126, 0.0722)
 F32_TOL = 1e-6      # kernel vs plain version on the card (0 expected)
 ORACLE_TOL = 1e-4   # the repo's float contract against an independent resize
 WARP_DST = (640, 360)
-# the card's published peaks (NVIDIA's H100 SXM data sheet): device memory
-# rate and float32 rate outside the tensor cores
-PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S = 3.35e12, 67e12
-# the published float32 rate counts an FMA as two operations; a kernel built
-# with -fmad=false issues one multiply or one add per lane and cycle
-UNFUSED_F32_OP_PER_S = PEAK_F32_FLOP_PER_S / 2
 MAD_SIDE, MAD_OPS = 2048, 200
 BORDER = 8
 # cv2.getPerspectiveTransform of the 1080p frame's corners to
@@ -412,114 +416,22 @@ class DivergentRows:
                 cvgs.convert_to(np.float32, alpha=0.5), write()),
             seq(cvgs.image(self.flat.repeat(repeat, 1, 1, 1)), cvgs.multiply(2.0), write()))
 
+    def d14(self, used=5):
+        """Ragged BatchRead groups: D4's warps from ``used`` planes on, and an
+        image per plane from ``used`` - 2 on, hold their defaults."""
+        cvgs, seq = self.cvgs, self.cvgs.build_operation_sequence
+        return [1, 2] * 4, (
+            seq(cvgs.warp_batch([cvgs.image(im) for im in self.imgs], self.d4_mats(-14.0),
+                                self.dsize, used_planes=used, default=(7.5, 8.5, 9.5)),
+                cvgs.multiply(0.5), cvgs.write_tensor()),
+            seq(cvgs.batch_read([cvgs.image(self.batch_u8[z]) for z in range(8)],
+                                used_planes=used - 2, default=200.0),
+                cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.write_tensor()))
+
     def timed(self) -> dict:
         """The rows that phase 5 times."""
         return {"d1_circular_first3": self.d1(3), "d2_nv12_bt709": self.d2(),
                 "d3_crop_resize": self.d3(self.d3_rects()), "d4_warp_crop_pass": self.d4()}
-
-
-def warp_touched_bytes(args) -> int:
-    """Bytes of the warp kernel's sources that its taps touch, in 32-byte
-    sectors, from the plain version's tap indices (``WarpRead.coordinates``
-    and ``tap_axis``); planes past ``used_planes`` read nothing."""
-    import torch
-    from cvgpuspeedup_tpu_torch.ops.warp import tap_axis
-
-    plan = args.plan
-    warps = args.pipeline.read.ops if plan.batch else (args.pipeline.read,)
-    used = int(args.used.item())
-    elem = plan.nch * plan.src_dtype.itemsize
-    sectors = []
-    for z, (w, k) in enumerate(zip(warps, args.plane_src)):
-        if z >= used:
-            continue
-        sx, sy = w.coordinates(args.srcs[k].device)
-        xs = tap_axis(torch.floor(sx), plan.src_w)
-        ys = tap_axis(torch.floor(sy), plan.src_h)
-        for vx, ix in xs:
-            for vy, iy in ys:
-                first = (iy * plan.src_w + ix)[vx & vy] * elem
-                sectors += [k * 2**40 + first // 32, k * 2**40 + (first + elem - 1) // 32]
-    return int(torch.unique(torch.cat(sectors)).numel()) * 32
-
-
-def touched_bytes(plan) -> int:
-    """Bytes of the frame kernel's source that its taps touch, in the 32-byte
-    sectors device memory delivers."""
-
-    def part(x_taps, y_taps, row_bytes, elem_bytes):
-        rows = np.unique(np.concatenate(y_taps))
-        first = np.unique(np.concatenate(x_taps)) * elem_bytes
-        sectors = np.unique(np.concatenate([first // 32, (first + elem_bytes - 1) // 32]))
-        if row_bytes % 32:  # rows then start off the sector grid: count them whole
-            return len(rows) * row_bytes
-        return len(rows) * len(sectors) * 32
-
-    w, h = plan.dsize
-    t = plan.taps
-    x, y = (t[:w], t[w:2 * w]), (t[2 * w:2 * w + h], t[2 * w + h:2 * w + 2 * h])
-    item = plan.src_dtype.itemsize
-    total = part(x, y, plan.src_w * plan.nch * item, plan.nch * item)
-    if plan.yuv:
-        c = t[2 * (w + h):]
-        total += part((c[:w], c[w:2 * w]), (c[2 * w:2 * w + h], c[2 * w + h:]), plan.src_w, 2)
-    return total
-
-
-def sectors(first_byte, elem_bytes: int):
-    """The distinct 32-byte sectors under elements of ``elem_bytes`` that
-    start at the byte offsets ``first_byte`` (a tensor)."""
-    import torch
-
-    return torch.unique(torch.cat([first_byte // 32, (first_byte + elem_bytes - 1) // 32]))
-
-
-def crop_touched_bytes(read, planes=None) -> int:
-    """Bytes of the batched crop-resize's source that its taps touch, in
-    32-byte sectors, from the plain version's own coordinate functions;
-    overlapping crops share their sectors, planes past ``used_planes`` (and
-    outside ``planes``) read nothing."""
-    import torch
-    from cvgpuspeedup_tpu_torch.ops.resize import axis_lerp, letterbox_geometry, source_index
-
-    src = read.source()
-    src_h, src_w, nch = read.source_dims()
-    elem = nch * src.element_size()
-    rects = torch.as_tensor(read.rects).cpu().to(torch.int32)
-    used = rects.shape[0] if read.used_planes is None else int(torch.as_tensor(read.used_planes))
-    dst_w, dst_h = read.dsize
-    found = []
-    for z in range(min(used, rects.shape[0])):
-        if planes is not None and z not in planes:
-            continue
-        x, y, w, h = (int(v) for v in rects[z])
-        nw, nh, ox, oy = (int(v) for v in letterbox_geometry(w, h, read.dsize, read.aspect_ratio))
-        qx = torch.arange(dst_w, dtype=torch.int32) - ox
-        qy = torch.arange(dst_h, dtype=torch.int32) - oy
-        qx, qy = qx[(qx >= 0) & (qx < nw)], qy[(qy >= 0) & (qy < nh)]
-        if not len(qx) or not len(qy):
-            continue
-        cols = torch.unique(torch.cat([source_index(x + t, src_w) for t in axis_lerp(qx, w, nw)[:2]]))
-        rows = torch.unique(torch.cat([source_index(y + t, src_h) for t in axis_lerp(qy, h, nh)[:2]]))
-        plane = z * src_h * src_w if read.stack is not None else 0
-        first = ((plane + rows[:, None].long() * src_w + cols[None, :].long()) * elem).reshape(-1)
-        found.append(sectors(first, elem))
-    return int(torch.unique(torch.cat(found)).numel()) * 32 if found else 0
-
-
-def bound(out_bytes: int, src_bytes: int, flops: int, bandwidth: float,
-          op_rate: float = PEAK_F32_FLOP_PER_S) -> dict:
-    """The least time the card could take: ``bound_ms`` is the larger of
-    the bytes over the published memory rate and the float32 operations
-    over ``op_rate`` (the published rate, which counts an FMA twice; a chain
-    of separate multiplies and adds passes ``UNFUSED_F32_OP_PER_S``);
-    ``floor_ms`` is the bytes over the copy bandwidth this run measured."""
-    by_bytes = (out_bytes + src_bytes) / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / op_rate * 1e3
-    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else
-            "operations", "floor_ms": (out_bytes + src_bytes) / bandwidth * 1e3,
-            "out_bytes": out_bytes, "src_bytes_touched": src_bytes, "flops": flops,
-            "op_rate": op_rate}
 
 
 def mad_chain(cvgs):
@@ -553,6 +465,58 @@ def pointwise_rows(cvgs, mad_src, ring, first, hd, origin, nv12_hd, scale=0.3) -
     }
 
 
+def phase7(mesh, modules: dict) -> dict:
+    """The system's own benchmarks and examples on the card: the four
+    benchmark scripts at their full shapes with ``--quick`` (fewer
+    repetitions), scaling in this process's one-rank group ``mesh``, and the
+    three examples once. Each case asserts its own output check, its kernel
+    and its one launch, and every row is physical; any failure raises.
+    Returns, per kernel of ``modules`` (name -> kernel module), its launches
+    in this phase (the counts set to 0 just before) and the rows that took
+    it."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    from cvgpuspeedup_tpu_torch.benchmarks import (aux_pipelines, host_overhead, scaling,
+                                                   vertical_fusion)
+    from cvgpuspeedup_tpu_torch.examples import (detection_preprocessing, nv12_camera_stream,
+                                                 temporal_window_slam)
+
+    examples = {"detection_preprocessing": ("batch_resize", detection_preprocessing),
+                "nv12_camera_stream": ("frame_resize", nv12_camera_stream),
+                "temporal_window_slam": ("frame_resize", temporal_window_slam)}
+    for m in modules.values():
+        m.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rows = {}
+    with tempfile.TemporaryDirectory() as out, \
+            contextlib.redirect_stdout(io.StringIO()) as printed:
+        rows["vertical_fusion"] = vertical_fusion.main(["--quick", "--out", out])
+        rows["aux_pipelines"] = aux_pipelines.main(["--quick", "--out", out])
+        rows["host_overhead"] = [host_overhead.main(["--quick"])]
+        rows["scaling"] = scaling.run(iters=5, mesh=mesh)
+        for name, (_, example) in examples.items():
+            example.main([])
+        torch.cuda.synchronize()
+    launches = {name: m.LAUNCHES for name, m in modules.items()}
+    for line in printed.getvalue().splitlines():
+        log(f"phase7 {line}")
+    by_kernel = {name: [] for name in modules}
+    for script, found in rows.items():
+        for r in found:
+            by_kernel[r["kernel"].split(":")[1]].append(f"{script}/{r['case']}")
+    for name, (kernel, _) in examples.items():
+        by_kernel[kernel].append(f"examples/{name}")
+    log(f"phase7 {sum(map(len, rows.values()))} benchmark rows and {len(examples)} examples in "
+        f"{time.perf_counter() - t0:.1f} s: every fused call one launch of its kernel, equal to "
+        f"its per-op step, every row physical; launches {launches}")
+    for name, n in launches.items():
+        assert n > 0, f"phase 7 launched {name} no time"
+    return {"launches": launches, "rows": by_kernel}
+
+
 def main() -> int:
     import torch
 
@@ -567,7 +531,7 @@ def main() -> int:
     from cvgpuspeedup_tpu_torch.exec import cuda_frame_resize as kfr
     from cvgpuspeedup_tpu_torch.exec import cuda_pointwise as kp
     from cvgpuspeedup_tpu_torch.exec import cuda_warp as kw
-    from cvgpuspeedup_tpu_torch.graph import flatten, map_leaves
+    from cvgpuspeedup_tpu_torch.graph import map_leaves
     from cvgpuspeedup_tpu_torch.ops.arithmetic import Mul, StaticLoop
     from cvgpuspeedup_tpu_torch.interop import cv2_compat
     from cvgpuspeedup_tpu_torch.ops.color import VectorReorder
@@ -575,6 +539,9 @@ def main() -> int:
     from cvgpuspeedup_tpu_torch.utils import dtypes as dt
     from cvgpuspeedup_tpu_torch.utils import frameloader
     from cvgpuspeedup_tpu_torch.utils.dtypes import as_device_tensor
+    from cvgpuspeedup_tpu_torch.benchmarks import host_overhead
+    from cvgpuspeedup_tpu_torch.utils import bounds
+    from cvgpuspeedup_tpu_torch.utils import profiling
     from cvgpuspeedup_tpu_torch.utils.profiling import time_cuda
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -884,6 +851,7 @@ def main() -> int:
             seq(cvgs.circular_batch_read(ring, first=-1, ascendent=False),
                 cvgs.convert_to(np.uint8, alpha=0.5, beta=3.0), cvgs.write_tensor()))),
         "d7_warp_crop_pass_planar": d4(write=cvgs.split_tensor),
+        "d14_ragged_warp_and_image_batch_reads": rows.d14(),
     }
     for name, (ids, seqs) in divergent_cases.items():
         dplan = kd.build_plan(seqs, ids)
@@ -1216,6 +1184,24 @@ def main() -> int:
     assert mixed_backend == "cuda:divergent" and mixed_launches == 1, (mixed_backend, mixed_launches)
     assert mixed.dtype == torch.uint8 and torch.equal(mixed, eager)
 
+    # ragged BatchRead groups (D14), which the reference's TPU kernel refuses:
+    # one launch, a new used_planes building no plan, equal to the eager merge
+    kd.LAUNCHES = 0
+    new_plans = []
+    for used in (5, 3):
+        ids14, seqs14 = rows.d14(used)
+        builds0 = executor.PLAN_BUILDS
+        ragged = drive("divergent", lambda: cvgs.launch_divergent_batch(ids14, *seqs14))
+        new_plans.append(executor.PLAN_BUILDS - builds0)
+        assert cvgs.last_backend() == "cuda:divergent", cvgs.last_backend()
+        eager = cvgs.launch_divergent_batch(ids14, *seqs14, backend=cvgs.ParBackend.TORCH)
+        assert torch.equal(ragged, eager), f"D14 at used_planes {used} differs from the eager merge"
+    torch.cuda.synchronize()
+    divergent_launches += kd.LAUNCHES
+    log(f"phase4 divergent path (ragged BatchRead groups, D14): backend cuda:divergent; launches "
+        f"{kd.LAUNCHES} in 2 calls; plans built by each call {new_plans}; equal to the eager merge")
+    assert kd.LAUNCHES == 2 and new_plans[0] <= 1 and new_plans[1] == 0, (kd.LAUNCHES, new_plans)
+
     # CircularTensor at the reference's row: a 32-deep STANDARD ring of
     # 128x64 planes, 40 updates of a 1080p frame resized and scaled; each
     # update runs the frame kernel and writes one slot
@@ -1408,13 +1394,16 @@ def main() -> int:
     assert torch.equal(shim, out2)
 
     # ring updates in one launch: a resize head in all three layouts and both
-    # orders, a plain and a cropped frame through the pointwise kernel, a
-    # float32 chain into a uint8 ring (clamped, then truncated in the store)
+    # orders, a warp head, a plain and a cropped frame through the pointwise
+    # kernel, a float32 chain into uint8 and int16 rings (clamped, then
+    # truncated in the store of each kernel)
     ring_alloc = 0
+    ring_dtypes = {"resize": (np.float32, np.uint8, np.int16), "warp": (np.uint8,)}
+    ring_kernels = {"resize": "frame_resize", "warp": "warp"}
     for planes in cvgs.ColorPlanes:
         for order in cvgs.CircularTensorOrder:
-            for head, module in (("resize", kfr), ("plain", kp), ("crop", kp)):
-                for ring_dtype in ((np.float32,) if head == "resize" else (np.float32, np.uint8)):
+            for head, module in (("resize", kfr), ("warp", kw), ("plain", kp), ("crop", kp)):
+                for ring_dtype in ring_dtypes.get(head, (np.float32, np.uint8)):
                     rt = cvgs.CircularTensor(64, 128, 3, 4, order=order, planes=planes,
                                              dtype=ring_dtype, device=dev)
                     twin = cvgs.CircularTensor(64, 128, 3, 4, order=order, planes=planes,
@@ -1422,15 +1411,20 @@ def main() -> int:
                     small = hd[:128, :64].contiguous()
 
                     def ring_ops(k, src=None):
-                        if head == "resize":
+                        if head == "resize" and ring_dtype == np.float32:
                             return ct_ops(k) if src is None else (
                                 cvgs.resize(cvgs.image(torch.roll(hd, 7 * k, dims=1).cpu()),
                                             cvgs.Size(64, 128)), to_unit)
                         base = (torch.roll(small, 3 * k, dims=1) if head == "plain"
                                 else torch.roll(hd, 7 * k, dims=1))
                         base = base if src is None else base.cpu()
-                        read = (cvgs.image(base) if head == "plain"
-                                else cvgs.crop(cvgs.image(base), cvgs.Rect(50 * k, 30 * k, 64, 128)))
+                        read = {"plain": lambda: cvgs.image(base),
+                                "crop": lambda: cvgs.crop(cvgs.image(base),
+                                                          cvgs.Rect(50 * k, 30 * k, 64, 128)),
+                                "resize": lambda: cvgs.resize(cvgs.image(base), cvgs.Size(64, 128)),
+                                "warp": lambda: cvgs.warp(
+                                    cvgs.image(base), rotation((960, 540), 5.0 + k, 0.1, to=(32, 64)),
+                                    cvgs.Size(64, 128))}[head]()
                         return (read, cvgs.convert_to(np.float32, alpha=1.7), cvgs.add(-70.25))
 
                     rt.update(*ring_ops(0))
@@ -1441,8 +1435,7 @@ def main() -> int:
                     torch.cuda.synchronize()
                     allocated0 = torch.cuda.memory_stats(dev)["allocated_bytes.all.allocated"]
                     for ops in inputs:
-                        drive("frame_resize" if head == "resize" else "pointwise",
-                              lambda: rt.update(*ops))
+                        drive(ring_kernels.get(head, "pointwise"), lambda: rt.update(*ops))
                     torch.cuda.synchronize()
                     grown = (torch.cuda.memory_stats(dev)["allocated_bytes.all.allocated"]
                              - allocated0)
@@ -1450,51 +1443,29 @@ def main() -> int:
                         twin.update(*ring_ops(k, "cpu"))
                     if head == "resize":
                         frame_launches += module.LAUNCHES
+                    elif head == "warp":
+                        warp_launches += module.LAUNCHES
                     else:
                         pointwise_launches += module.LAUNCHES
                     err = float((rt.tensor.cpu().double() - twin.tensor.double()).abs().max())
                     assert module.LAUNCHES == 5 and executor.PLAN_BUILDS == builds0, (
-                        head, planes, order, module.LAUNCHES)
-                    assert err <= (F32_TOL if head == "resize" else 0.0), (head, planes, order, err)
+                        head, planes, order, ring_dtype, module.LAUNCHES)
+                    tol = F32_TOL if (head, ring_dtype) == ("resize", np.float32) else 0.0
+                    assert err <= tol, (head, planes, order, ring_dtype, err)
                     # five updates allocate their blocks of runtime values and
                     # nothing of a plane's size: no temporary of the frame
                     assert grown < 64 * 128 * 3, (head, planes, order, grown)
                     ring_alloc = max(ring_alloc, grown)
-    log("phase4 CircularTensor.update: 1 launch per update and no plan, resize head (frame_resize) "
-        "and plain and cropped frames (pointwise, float32 and uint8 rings), 3 layouts x 2 orders; "
-        f"every ring equal to a ring updated on the CPU; device bytes allocated by 5 updates at "
-        f"most {ring_alloc} (one 128x64x3 uint8 plane is {64 * 128 * 3})")
+    log("phase4 CircularTensor.update: 1 launch per update and no plan, resize head (frame_resize: "
+        "float32, uint8 and int16 rings), warp head (warp: a uint8 ring), plain and cropped frames "
+        "(pointwise, float32 and uint8 rings), 3 layouts x 2 orders; every ring equal to a ring "
+        f"updated on the CPU; device bytes allocated by 5 updates at most {ring_alloc} (one "
+        f"128x64x3 uint8 plane is {64 * 128 * 3})")
 
     # ---- phase 5: times at the flagship shape
     def profiler_ms(fn, calls=20, what="a kernel"):
-        """Device time of one ``fn()`` by ``torch.profiler``: the median
-        kernel duration where a call is one kernel, else the calls' share of
-        all device time in the trace. No event floor is inside. A trace now
-        and then comes back without device activity, sometimes several in a
-        row: it is taken again after a pause, every other time with host
-        activity traced too, and after eight empty ones the run fails,
-        naming the case."""
-        for _ in range(3):
-            fn()
-        tries = 8
-        for k in range(tries):
-            torch.cuda.synchronize()
-            activities = [torch.profiler.ProfilerActivity.CUDA]
-            if k % 2:
-                activities.append(torch.profiler.ProfilerActivity.CPU)
-            with torch.profiler.profile(activities=activities) as prof:
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-            us = [e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-            if us:
-                if k:
-                    log(f"phase5 torch.profiler: {k} empty trace(s) of {what} before this one")
-                return float(np.median(us) if len(us) == calls else sum(us) / calls) * 1e-3
-            time.sleep(0.5)
-        raise RuntimeError(f"torch.profiler recorded no device activity for {what}: all {tries} "
-                           f"traces of {calls} calls came back empty")
+        """``utils.profiling.profiler_ms``, its empty traces logged here."""
+        return profiling.profiler_ms(fn, calls, what, log=lambda msg: log(f"phase5 {msg}"))
 
     def measure(kernel_fn, plain_fn, iters, what="a kernel", plain_iters=None):
         """Event medians of the kernel and its plain version, alternating
@@ -1513,10 +1484,6 @@ def main() -> int:
         t["library_ms"] = float(np.median(time_cuda(fn, iters=iters)))
         t["library_profiler_ms"] = profiler_ms(fn, what=what)
 
-    def out_bytes_of(outs):
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        return sum(o.numel() * o.element_size() for o in outs)
-
     def describe(t):
         by_profiler = f"{t['profiler_ms'] * 1e3:.2f} us"
         text = (f"kernel {t['ms'] * 1e3:.2f} us by events, {by_profiler} by torch.profiler, "
@@ -1524,7 +1491,7 @@ def main() -> int:
                 f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} at the published peaks, "
                 f"{t['floor_ms'] * 1e3:.2f} us at the copy bandwidth = ({t['out_bytes']} out + "
                 f"{t['src_bytes_touched']} source bytes touched, {t['flops']} flop at "
-                f"{t['op_rate'] / 1e12:.1f} T/s)")
+                f"{bounds.OP_PER_S / 1e12:.1f} T/s)")
         if t["library_ms"] is not None:
             text += (f"; library call (the read alone) {t['library_ms'] * 1e3:.2f} us by events, "
                      f"{t['library_profiler_ms'] * 1e3:.2f} us by torch.profiler")
@@ -1547,44 +1514,22 @@ def main() -> int:
     args = kbr.prepare(pipeline, kbr.build_plan(pipeline), dev)
     k1 = measure(lambda: kbr.batch_resize(args), lambda: kbr.batch_resize_reference(args), 100)
     # 12 float operations per output value for the three lerps, one per chain op
-    k1_out = kbr.batch_resize(args)
-    k1.update(bound(out_bytes_of(k1_out), crop_touched_bytes(pipeline.read),
-                    k1_out.numel() * (12 + args.plan.ops.shape[0]), bandwidth))
+    k1.update(bounds.bound(*kbr.work(args), bandwidth))
     # no single PyTorch call crops at runtime rects and resizes
     k1["library_ms"] = k1["library_profiler_ms"] = None
     kernel_ms, plain_ms = k1["ms"], k1["plain_ms"]
     log(f"phase5 batch_resize flagship: {describe(k1)}")
 
     # one execute_operations call, whole and taken apart into its host
-    # layers in its own order, alternating in one loop
-    parts = {"whole": [], "build_pipeline": [], "flatten+plan": [], "prepare": [], "launch": [],
-             "sync": []}
-    for _ in range(110):
-        t0 = time.perf_counter()
-        main_path(rects_a)
-        torch.cuda.synchronize()
-        parts["whole"].append(time.perf_counter() - t0)
-        t = [time.perf_counter()]
-        p = cvgs.build_pipeline(*flagship_ops(cvgs, frame, rects_a))
-        t.append(time.perf_counter())
-        key, leaves = flatten(p)
-        d = executor._resolve_device(leaves, "cuda")
-        plan = executor._plan(p, key, cvgs.ParBackend.AUTO, d)
-        t.append(time.perf_counter())
-        a = kbr.prepare(p, plan.kernel, d)
-        t.append(time.perf_counter())
-        kbr.batch_resize(a)
-        t.append(time.perf_counter())
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        for k, t0, t1 in zip(list(parts)[1:], t, t[1:]):
-            parts[k].append(t1 - t0)
-    host_ms = float(np.median(parts["whole"][10:])) * 1e3
+    # layers in its own order, alternating in one loop (the host-overhead
+    # benchmark's own split)
+    parts = host_overhead.host_layers(lambda: flagship_ops(cvgs, frame, rects_a), dev)
+    host_ms = float(np.median(parts["whole"])) * 1e3
     log(f"phase5 kernel {kernel_ms * 1e3:.2f} us/batch, plain torch {plain_ms * 1e3:.2f} us/batch "
         f"(device time, events, median of 200); execute_operations host-inclusive "
         f"{host_ms * 1e3:.2f} us/call; card {card}")
     log("phase5 host layers, us/call, median of 100: "
-        + ", ".join(f"{k} {np.median(v[10:]) * 1e6:.2f}" for k, v in parts.items()))
+        + ", ".join(f"{k} {np.median(v) * 1e6:.2f}" for k, v in parts.items()))
 
     # device busy time and idle share of the main path, from a profiler trace
     calls = 20
@@ -1631,10 +1576,8 @@ def main() -> int:
             torch.cuda.synchronize()
             whole.append(time.perf_counter() - t0)
         t["call_ms"] = float(np.median(whole[10:])) * 1e3
-        n_out = int(np.prod(shape))
         # the lerps, and for NV12 the YUV -> RGB sums (about 3 per value)
-        t.update(bound(n_out * 4, touched_bytes(fplan),
-                       n_out * (12 + (3 if fplan.yuv else 0) + fplan.ops.shape[0]), bandwidth))
+        t.update(bounds.bound(*kfr.work(fargs), bandwidth))
         t["library_ms"] = t["library_profiler_ms"] = None
         if path == "a":
             # F.interpolate of a float32 NCHW copy: the resample alone, with
@@ -1670,11 +1613,8 @@ def main() -> int:
                           lambda v: as_device_tensor(v, dev))
         wargs = kw.prepare(pipe, kw.build_plan(pipe), dev)
         t = measure(lambda: kw.warp(wargs), lambda: kw.warp_reference(wargs), 25)
-        outs = kw.warp(wargs)
-        n_out = out_bytes_of(outs) // 4
         # two coordinates and the lerps per value; a perspective map divides
-        t.update(bound(n_out * 4, warp_touched_bytes(wargs),
-                       n_out * (14 + wargs.plan.ops.shape[0]), bandwidth))
+        t.update(bounds.bound(*kw.work(wargs), bandwidth))
         t["max_abs_err"] = case_err[name]
         t["library_ms"] = t["library_profiler_ms"] = None
         if not wargs.plan.perspective:
@@ -1705,35 +1645,13 @@ def main() -> int:
 
     # the divergent kernel at the reference's rows D1-D4, the host-inclusive
     # call of D4, one CircularTensor update
-    def divergent_touched_bytes(ids, seqs) -> int:
-        """Source bytes a divergent batch touches: each sequence's read on
-        its own planes, by the rule of the kernel it shares a sampler with."""
-        total = 0
-        for sid, seq in enumerate(seqs, 1):
-            planes = [z for z, i in enumerate(ids) if i == sid]
-            read = seq.read
-            kind = type(read).__name__
-            if kind in ("ImageRead", "CircularBatchRead"):  # a plane is read whole
-                total += len(planes) * read.data[0].numel() * read.data.element_size()
-            elif kind == "BatchResizeRead":
-                total += crop_touched_bytes(read, planes)
-            else:  # a BatchRead of warps or of NV12 resizes, one source per plane
-                for z in planes:
-                    one = cvgs.build_pipeline(read.ops[z], cvgs.write())
-                    if type(read.ops[z]).__name__ == "WarpRead":
-                        total += warp_touched_bytes(kw.prepare(one, kw.build_plan(one), dev))
-                    else:
-                        total += touched_bytes(kfr.build_plan(one))
-        return total
-
     div_times = {}
     for name in ("d1_circular_first3", "d2_nv12_bt709", "d3_crop_resize", "d4_warp_crop_pass"):
         ids, seqs = divergent_cases[name]
         seqs = map_leaves(seqs, lambda v: as_device_tensor(v, dev))
         dargs = kd.prepare(seqs, kd.build_plan(seqs, ids), dev)
         t = measure(lambda: kd.divergent(dargs), lambda: kd.divergent_reference(dargs), 25)
-        n_out = out_bytes_of(kd.divergent(dargs)) // 4
-        t.update(bound(n_out * 4, divergent_touched_bytes(ids, seqs), n_out * 14, bandwidth))
+        t.update(bounds.bound(*kd.work(dargs), bandwidth))
         t["max_abs_err"] = case_err[name]
         # no PyTorch call runs a different sequence per plane
         t["library_ms"] = t["library_profiler_ms"] = None
@@ -1801,13 +1719,6 @@ def main() -> int:
 
     # the pointwise kernel in P1-P5: kernel vs plain version, bound, floor; a
     # library call where one PyTorch call does the read alone
-    def head_src_bytes(name, a):
-        """Source bytes the head must read: every row but P4's (its crop)
-        reads its whole source once."""
-        if name.startswith("p4"):
-            return 256 * 256 * 3
-        return a.src.numel() * a.src.element_size()
-
     pw_times = {}
     for name, ops in pointwise_rows(cvgs, *pw_values[0]).items():
         pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: as_device_tensor(v, dev))
@@ -1815,13 +1726,9 @@ def main() -> int:
         mad = name.startswith("p1")
         t = measure(lambda: kp.pointwise(pargs), lambda: kp.pointwise_reference(pargs),
                     20 if mad else 50, what=name, plain_iters=5 if mad else None)
-        outs = kp.pointwise(pargs)
-        n_values = sum(o.numel() for o in (outs if isinstance(outs, tuple) else (outs,)))
-        # one operation per value and chain row (P5: the conversion's 7 too);
-        # P1's are separate multiplies and adds, counted at the unfused rate
-        flops = n_values * (pargs.plan.ops.shape[0] + (7 if name.startswith("p5") else 0))
-        t.update(bound(out_bytes_of(outs), head_src_bytes(name, pargs), flops, bandwidth,
-                       UNFUSED_F32_OP_PER_S if mad else PEAK_F32_FLOP_PER_S))
+        # one operation per value and chain row (P5: the conversion's 7 too),
+        # every row's whole source but P4's crop
+        t.update(bounds.bound(*kp.work(pargs), bandwidth))
         t["max_abs_err"] = case_err[name]
         # no single PyTorch call runs a chain, a ring read or NV12 -> RGBA
         t["library_ms"] = t["library_profiler_ms"] = None
@@ -2050,6 +1957,10 @@ def main() -> int:
             for k, v in zip(host, (t1 - t0, t2 - t1, (t5 - t2) + (t7 - t6), t4 - t3, t6 - t5)):
                 host[k].append(v)
         host_us = {k: float(np.median(v[10:])) * 1e6 for k, v in host.items()}
+
+        # ---- phase 7: the benchmarks and the examples, scaling on this group
+        bench = phase7(mesh, {"batch_resize": kbr, "frame_resize": kfr, "warp": kw,
+                              "divergent": kd, "pointwise": kp})
         dist.destroy_process_group()
     for name, t in shard_times.items():
         log(f"phase6 batch_resize {name}: kernel {t['ms'] * 1e3:.2f} us by events, "
@@ -2072,7 +1983,9 @@ def main() -> int:
         return {"name": name, "route": "cuda",
                 "source": f"cvgpuspeedup_tpu_torch/csrc/{source}", "replaces": replaces,
                 "launches": launches, "launches_per_call": launches / path_calls[name],
-                "max_abs_err": max_err[name], **{k: times[k] for k in keys}, **more}
+                "max_abs_err": max_err[name], **{k: times[k] for k in keys},
+                "phase7_launches": bench["launches"][name], "phase7_rows": bench["rows"][name],
+                **more}
 
     print(card)
     print(json.dumps({"kernels": [

@@ -133,8 +133,8 @@ __global__ void __launch_bounds__(kThreads) batch_resize_kernel(
     const SrcT* __restrict__ src, long long plane_stride, int src_h, int src_w, int nch,
     const int* __restrict__ rects, const int* __restrict__ used, const float* __restrict__ fp,
     const int* __restrict__ ops, int n_ops, int dst_w, int dst_h, int mode, int tile_w,
-    int tile_h, OutT* __restrict__ out, int out_ch, long long sn, long long sc, long long sy,
-    long long sx) {
+    int tile_h, OutT* __restrict__ out, int out_ch, int clamp_store, long long sn, long long sc,
+    long long sy, long long sx) {
   __shared__ Taps t;
 
   const int z = blockIdx.z;
@@ -200,6 +200,7 @@ __global__ void __launch_bounds__(kThreads) batch_resize_kernel(
   }
 
   run_chain(v, nch, ops, n_ops, fp);
+  if (clamp_store) clamp_to_range<OutT>(v);
 
   store_pixels(out + (long long)z * sn + (long long)y * sy + (long long)x * sx, v, n, out_ch, sc,
                sx);
@@ -208,46 +209,57 @@ __global__ void __launch_bounds__(kThreads) batch_resize_kernel(
 template <typename SrcT, typename OutT>
 void launch(const void* src, long long plane_stride, int src_h, int src_w, int nch,
             const int* rects, const int* used, const float* fp, const int* ops, int n_ops,
-            int n_planes, int dst_w, int dst_h, int mode, void* out, int out_ch, long long sn,
-            long long sc, long long sy, long long sx, cudaStream_t stream) {
+            int n_planes, int dst_w, int dst_h, int mode, void* out, int out_ch, int clamp_store,
+            long long sn, long long sc, long long sy, long long sx, cudaStream_t stream) {
   // a tile of about kThreads * kPix outputs, as wide as the output allows
   const int tile_w = std::min(kMaxTileW, (dst_w + kPix - 1) / kPix * kPix);
   const int tile_h = std::min(kMaxTileH, std::max(1, kThreads * kPix / tile_w));
   const dim3 grid((dst_w + tile_w - 1) / tile_w, (dst_h + tile_h - 1) / tile_h, n_planes);
   batch_resize_kernel<SrcT, OutT><<<grid, kThreads, 0, stream>>>(
       static_cast<const SrcT*>(src), plane_stride, src_h, src_w, nch, rects, used, fp, ops, n_ops,
-      dst_w, dst_h, mode, tile_w, tile_h, static_cast<OutT*>(out), out_ch, sn, sc, sy, sx);
+      dst_w, dst_h, mode, tile_w, tile_h, static_cast<OutT*>(out), out_ch, clamp_store, sn, sc, sy,
+      sx);
 }
 
 }  // namespace
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
-// `src` is uint8 (src_u8 = 1) or float32; `out` is uint8 (out_u8 = 1) or
-// float32 with out_ch channels, element strides (sn, sc, sy, sx) per (plane, channel, row, col).
+// `src` is uint8 (src_u8 = 1) or float32; `out` holds elements of type
+// `out_type` (PW_U8 .. PW_F32) with out_ch channels, element strides
+// (sn, sc, sy, sx) per (plane, channel, row, col). With clamp_store, a
+// float32 chain's values are clamped to an integer buffer's range, then
+// truncated.
 extern "C" int cvgs_batch_resize(const void* src, int src_u8, long long plane_stride,
                                  int src_h, int src_w, int nch, const int* rects,
                                  const int* used, const float* fparams, const int* ops,
                                  int n_ops, int n_planes, int dst_w, int dst_h, int mode,
-                                 void* out, int out_u8, int out_ch, long long sn, long long sc,
-                                 long long sy, long long sx, void* stream) {
+                                 void* out, int out_type, int out_ch, int clamp_store,
+                                 long long sn, long long sc, long long sy, long long sx,
+                                 void* stream) {
   if (nch < 1 || nch > kMaxCh || out_ch < 1 || out_ch > kMaxCh || n_planes < 1 ||
       n_planes > 65535 || dst_w < 1 || dst_h < 1 || dst_h > 65535 || src_h < 1 || src_w < 1 ||
-      src_h >= (1 << 24) || src_w >= (1 << 24) || n_ops < 0) {
+      src_h >= (1 << 24) || src_w >= (1 << 24) || n_ops < 0 || out_type < PW_U8 ||
+      out_type > PW_F32) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CVGS_LAUNCH(SrcT, OutT)                                                              \
   launch<SrcT, OutT>(src, plane_stride, src_h, src_w, nch, rects, used, fparams, ops, n_ops, \
-                     n_planes, dst_w, dst_h, mode, out, out_ch, sn, sc, sy, sx, s)
-  if (src_u8 && out_u8) {
-    CVGS_LAUNCH(uint8_t, uint8_t);
-  } else if (src_u8) {
-    CVGS_LAUNCH(uint8_t, float);
-  } else if (out_u8) {
-    CVGS_LAUNCH(float, uint8_t);
-  } else {
-    CVGS_LAUNCH(float, float);
+                     n_planes, dst_w, dst_h, mode, out, out_ch, clamp_store, sn, sc, sy, sx, s)
+#define CVGS_OUT(SrcT)                              \
+  switch (out_type) {                               \
+    case PW_U8: CVGS_LAUNCH(SrcT, uint8_t); break;  \
+    case PW_I8: CVGS_LAUNCH(SrcT, int8_t); break;   \
+    case PW_U16: CVGS_LAUNCH(SrcT, uint16_t); break; \
+    case PW_I16: CVGS_LAUNCH(SrcT, int16_t); break; \
+    default: CVGS_LAUNCH(SrcT, float); break;       \
   }
+  if (src_u8) {
+    CVGS_OUT(uint8_t)
+  } else {
+    CVGS_OUT(float)
+  }
+#undef CVGS_OUT
 #undef CVGS_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -127,6 +127,38 @@ __device__ __forceinline__ uint16_t to_out<uint16_t>(float v) {
 template <>
 __device__ __forceinline__ int16_t to_out<int16_t>(float v) { return (int16_t)__float2int_rz(v); }
 
+// The element types of an output buffer (and of the pointwise kernel's
+// sources); keep in step with exec/cuda_batch_resize.py::TYPE_CODES
+enum : int { PW_U8 = 0, PW_I8 = 1, PW_U16 = 2, PW_I16 = 3, PW_F32 = 4 };
+
+template <typename OutT>
+struct Range;
+template <>
+struct Range<uint8_t> { static constexpr float lo = 0.f, hi = 255.f; };
+template <>
+struct Range<int8_t> { static constexpr float lo = -128.f, hi = 127.f; };
+template <>
+struct Range<uint16_t> { static constexpr float lo = 0.f, hi = 65535.f; };
+template <>
+struct Range<int16_t> { static constexpr float lo = -32768.f, hi = 32767.f; };
+template <>
+struct Range<float> { static constexpr float lo = 0.f, hi = 0.f; };
+
+// A float32 chain stored into an integer buffer (clamp_store, a ring slot
+// of another dtype): each value clamped to the buffer's range here, then
+// truncated by to_out, as utils/dtypes.py::astype casts. A float32 buffer
+// is left as it is.
+template <typename OutT, int P, int L>
+__device__ __forceinline__ void clamp_to_range(float (&v)[P][L]) {
+  if constexpr (sizeof(OutT) < 4) {
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+#pragma unroll
+      for (int c = 0; c < L; ++c) v[q][c] = fminf(fmaxf(v[q][c], Range<OutT>::lo), Range<OutT>::hi);
+    }
+  }
+}
+
 // ops/cast.py::Cast of a float32 register to an integer type: truncate, keep
 // the low bits (OP_CAST_U8's rule for every width)
 __device__ __forceinline__ float cast_u8(float v) { return (float)(__float2int_rz(v) & 255); }

@@ -6,14 +6,17 @@
 // launchDivergentBatchTransformDPP_Kernel). Plane z runs the sequence of
 // group table[z]; each group is one of six kinds, each reading with the
 // device code of the kernel it shares a rule with:
-//   image        plane z of an (N, H, W, C) stack
+//   image        plane z of an (N, H, W, C) stack, or a plane's own image
 //   circ         plane floor_mod(first +- z, N) of a ring, `first` at runtime
 //   crop_resize  a crop of one frame, resized by K1's rules (batch_resize.cuh)
 //   resize       a whole plane of a stack, by K1's rules on (0, 0, w, h)
 //   nv12         an NV12/NV21 buffer per plane, K2's tap tables and YUV->RGB
 //                (frame_resize.cuh)
 //   warp         a source per plane, 9 coefficients per plane (warp.cuh)
-// then the group's chain (chain.cuh) and one strided store.
+// then the group's chain (chain.cuh) and one strided store. A ragged
+// BatchRead group (image, nv12 or warp, `used_planes` at runtime) holds its
+// default on its planes from used_planes on, as ops/memory.py::BatchRead
+// does; the TPU kernel refuses such a group (pallas_divergent.py:166).
 //
 // What bounds it: bytes in a large batch, the launch itself in a small one.
 // A (16, 128, 256, 3) u8 ring read into f32 moves 7.9 MB; a batch of eight
@@ -57,7 +60,8 @@
 //   [0, N)           the plane -> group table
 //   ptr_off          N source addresses (8-byte words), one per plane
 //   per group        first, used_planes, rects, background, warp
-//                    coefficients and borders, chain scalars
+//                    coefficients and borders, a ragged group's default,
+//                    chain scalars
 //   desc_off         one descriptor (struct Desc, 16 words) per group, at a
 //                    multiple of 4 words
 // The consts (the plan's): every group's op rows, then each NV12 group's
@@ -80,11 +84,13 @@ enum : int { K_IMAGE = 0, K_CIRC = 1, K_CROP = 2, K_STACK = 3, K_NV12 = 4, K_WAR
 struct Desc {
   int kind, src_h, src_w, nch;
   int src_u8;
-  int n_src;   // planes of the ring or stack
-  int first;   // circ: block offset of `first`
+  int n_src;   // planes of the ring or stack; 1 for an image group of one image per plane
+  int first;   // circ: block offset of `first`; a ragged image, nv12 or warp group: of the
+               // default (kMaxCh floats)
   int asc;     // circ: ascending
   int mode;    // crop, stack: aspect-ratio mode
-  int used;    // crop, stack: block offset of used_planes
+  int used;    // crop, stack: block offset of used_planes; a ragged image, nv12 or warp
+               // group: of its used_planes, else -1
   int op_off;  // first op row in the consts
   int n_ops;
   int fp_off;  // block offset of the chain scalars
@@ -146,11 +152,22 @@ __global__ void __launch_bounds__(256) divergent_kernel(
 #pragma unroll
     for (int c = 0; c < kMaxCh; ++c) v[q][c] = 0.f;
   }
-  int ch = nch;
-  switch (d.kind) {
+  int ch = d.kind == K_NV12 ? ((d.flags >> 3) & 1 ? 4 : 3) : nch;
+  // a ragged BatchRead group (images, NV12 reads or warps): its planes from
+  // used_planes on hold its default, which then runs through the chain
+  const bool held =
+      d.kind != K_CROP && d.kind != K_STACK && d.used >= 0 && z >= __ldg(blk + d.used);
+  if (held) {
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+#pragma unroll
+      for (int c = 0; c < kMaxCh; ++c) v[q][c] = c < ch ? __ldg(fblk + d.first + c) : 0.f;
+    }
+  }
+  switch (held ? -1 : d.kind) {
     case K_IMAGE:
     case K_CIRC: {
-      int pz = z;
+      int pz = d.n_src == 1 ? 0 : z;  // a stack's plane z, or the plane's own image
       if (d.kind == K_CIRC) {
         const int first = __ldg(blk + d.first);
         const int t = d.asc ? first + z : first - z;
@@ -204,7 +221,6 @@ __global__ void __launch_bounds__(256) divergent_kernel(
       nv12_pixels<P>(nv12_rows(static_cast<const uint8_t*>(base), src_h, src_w, taps, wts, dst_w,
                                dst_h, y),
                      (d.flags >> 1) & 1, taps, wts, dst_w, dst_h, x, n, (d.flags & 1) != 0, conv, v);
-      ch = conv.alpha ? 4 : 3;
       break;
     }
     case K_WARP: {

@@ -65,7 +65,7 @@ __global__ void __launch_bounds__(256) frame_resize_kernel(
     const SrcT* __restrict__ src, int src_h, int src_w, int nch, int nv21,
     const int* __restrict__ taps, const float* __restrict__ wts, int keep_edge, Conv conv,
     const float* __restrict__ fp, const int* __restrict__ ops, int n_ops, int dst_w, int dst_h,
-    OutT* __restrict__ out, int out_ch, long long sc, long long sy, long long sx) {
+    OutT* __restrict__ out, int out_ch, int clamp_store, long long sc, long long sy, long long sx) {
   const int x = (blockIdx.x * blockDim.x + threadIdx.x) * P;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= dst_w || y >= dst_h) return;
@@ -89,6 +89,7 @@ __global__ void __launch_bounds__(256) frame_resize_kernel(
   }
 
   run_chain(v, ch, ops, n_ops, fp);
+  if (clamp_store) clamp_to_range<OutT>(v);
 
   store_any(out + (long long)y * sy + (long long)x * sx, v, n, out_ch, sc, sx);
 }
@@ -96,8 +97,8 @@ __global__ void __launch_bounds__(256) frame_resize_kernel(
 template <typename SrcT, typename OutT, bool kYuv>
 void launch(const void* src, int src_h, int src_w, int nch, int nv21, const int* taps,
             const float* wts, int keep_edge, const Conv& conv, const float* fp, const int* ops,
-            int n_ops, int dst_w, int dst_h, void* out, int out_ch, long long sc, long long sy,
-            long long sx, cudaStream_t stream) {
+            int n_ops, int dst_w, int dst_h, void* out, int out_ch, int clamp_store, long long sc,
+            long long sy, long long sx, cudaStream_t stream) {
   const int pix = pixels_per_thread((long long)dst_w * dst_h, kYuv);
   const dim3 block = group_block(dst_w, pix);
   const int tile_w = block.x * pix;
@@ -105,7 +106,7 @@ void launch(const void* src, int src_h, int src_w, int nch, int nv21, const int*
 #define CVGS_KERNEL(P)                                                                          \
   frame_resize_kernel<SrcT, OutT, kYuv, P><<<grid, block, 0, stream>>>(                         \
       static_cast<const SrcT*>(src), src_h, src_w, nch, nv21, taps, wts, keep_edge, conv, fp,   \
-      ops, n_ops, dst_w, dst_h, static_cast<OutT*>(out), out_ch, sc, sy, sx)
+      ops, n_ops, dst_w, dst_h, static_cast<OutT*>(out), out_ch, clamp_store, sc, sy, sx)
   if (pix == 4) {
     CVGS_KERNEL(4);
   } else {
@@ -119,34 +120,43 @@ void launch(const void* src, int src_h, int src_w, int nch, int nv21, const int*
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
 // `src` is an (src_h, src_w * nch) image, uint8 (src_u8 = 1) or float32, or
 // with yuv = 1 an NV12 (nv21 = 0) or NV21 uint8 buffer of (src_h * 3/2,
-// src_w). `out` is uint8 (out_u8 = 1) or float32 with out_ch channels,
-// element strides (sc, sy, sx) per (channel, row, col).
+// src_w). `out` holds elements of type `out_type` (PW_U8 .. PW_F32) with
+// out_ch channels, element strides (sc, sy, sx) per (channel, row, col).
+// With clamp_store, a float32 chain's values are clamped to an integer
+// buffer's range, then truncated.
 extern "C" int cvgs_frame_resize(const void* src, int src_u8, int src_h, int src_w, int nch,
                                  int yuv, int nv21, const int* taps, const float* wts,
                                  int keep_edge, int limited, int alpha, float ys, float cs,
                                  float rv, float gu, float gv, float bu, const float* fparams,
                                  const int* ops, int n_ops, int dst_w, int dst_h, void* out,
-                                 int out_u8, int out_ch, long long sc, long long sy,
-                                 long long sx, void* stream) {
+                                 int out_type, int out_ch, int clamp_store, long long sc,
+                                 long long sy, long long sx, void* stream) {
   if (nch < 1 || nch > kMaxCh || out_ch < 1 || out_ch > kMaxCh || dst_w < 1 || dst_h < 1 ||
-      src_h < 1 || src_w < 1 || n_ops < 0 || (yuv && (!src_u8 || nch != 1))) {
+      src_h < 1 || src_w < 1 || n_ops < 0 || (yuv && (!src_u8 || nch != 1)) ||
+      out_type < PW_U8 || out_type > PW_F32) {
     return (int)cudaErrorInvalidValue;
   }
   const Conv conv{limited, alpha, ys, cs, rv, gu, gv, bu};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CVGS_LAUNCH(SrcT, OutT, YUV)                                                        \
   launch<SrcT, OutT, YUV>(src, src_h, src_w, nch, nv21, taps, wts, keep_edge, conv, fparams, \
-                          ops, n_ops, dst_w, dst_h, out, out_ch, sc, sy, sx, s)
-  if (yuv) {
-    if (out_u8) CVGS_LAUNCH(uint8_t, uint8_t, true);
-    else CVGS_LAUNCH(uint8_t, float, true);
-  } else if (src_u8) {
-    if (out_u8) CVGS_LAUNCH(uint8_t, uint8_t, false);
-    else CVGS_LAUNCH(uint8_t, float, false);
-  } else {
-    if (out_u8) CVGS_LAUNCH(float, uint8_t, false);
-    else CVGS_LAUNCH(float, float, false);
+                          ops, n_ops, dst_w, dst_h, out, out_ch, clamp_store, sc, sy, sx, s)
+#define CVGS_OUT(SrcT, YUV)                              \
+  switch (out_type) {                                    \
+    case PW_U8: CVGS_LAUNCH(SrcT, uint8_t, YUV); break;  \
+    case PW_I8: CVGS_LAUNCH(SrcT, int8_t, YUV); break;   \
+    case PW_U16: CVGS_LAUNCH(SrcT, uint16_t, YUV); break; \
+    case PW_I16: CVGS_LAUNCH(SrcT, int16_t, YUV); break; \
+    default: CVGS_LAUNCH(SrcT, float, YUV); break;       \
   }
+  if (yuv) {
+    CVGS_OUT(uint8_t, true)
+  } else if (src_u8) {
+    CVGS_OUT(uint8_t, false)
+  } else {
+    CVGS_OUT(float, false)
+  }
+#undef CVGS_OUT
 #undef CVGS_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -60,19 +60,6 @@ inline int pixels_per_thread(long long outputs, int width, int stages) {
   return 3 * outputs >= 4 * resident_threads() ? 4 : 1;
 }
 
-template <typename OutT>
-struct Range;
-template <>
-struct Range<uint8_t> { static constexpr float lo = 0.f, hi = 255.f; };
-template <>
-struct Range<int8_t> { static constexpr float lo = -128.f, hi = 127.f; };
-template <>
-struct Range<uint16_t> { static constexpr float lo = 0.f, hi = 65535.f; };
-template <>
-struct Range<int16_t> { static constexpr float lo = -32768.f, hi = 32767.f; };
-template <>
-struct Range<float> { static constexpr float lo = 0.f, hi = 0.f; };
-
 // The values of the thread's n <= P pixels x .. x + n - 1 of row y, plane
 // z, before the chain, every lane written (0 where nothing is read): a
 // one-channel base with no stage above it as a run (whole words where it
@@ -158,17 +145,7 @@ __global__ void __launch_bounds__(256) pointwise_kernel(
 
   // a float32 value stored into an integer buffer of another dtype (a ring
   // slot): clamp to its range, then truncate, as utils/dtypes.py::astype
-  if constexpr (sizeof(OutT) < 4) {
-    if (clamp_store) {
-#pragma unroll
-      for (int q = 0; q < P; ++q) {
-#pragma unroll
-        for (int c = 0; c < L; ++c) {
-          v[q][c] = fminf(fmaxf(v[q][c], Range<OutT>::lo), Range<OutT>::hi);
-        }
-      }
-    }
-  }
+  if (clamp_store) clamp_to_range<OutT>(v);
 
   OutT* o = out + (long long)z * sn + (long long)y * sy + (long long)x * sx;
   if constexpr (L == 1) {

@@ -37,7 +37,6 @@ namespace {
 enum : int { PW_IMAGE = 0, PW_CIRC = 1, PW_YUV = 2 };                         // bases
 enum : int { PW_CROP = 0, PW_BORDER = 1 };                                    // stages
 enum : int { PW_CONSTANT = 0, PW_REPLICATE = 1, PW_REFLECT = 2, PW_REFLECT_101 = 3, PW_WRAP = 4 };
-enum : int { PW_U8 = 0, PW_I8 = 1, PW_U16 = 2, PW_I16 = 3, PW_F32 = 4 };      // element types
 
 constexpr int kMaxStages = 4;
 

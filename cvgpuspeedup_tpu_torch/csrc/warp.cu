@@ -169,7 +169,7 @@ __global__ void __launch_bounds__(kThreads) warp_kernel(
     const float* __restrict__ coeffs, const float* __restrict__ border,
     const float* __restrict__ dflt, const int* __restrict__ used, const float* __restrict__ fp,
     const int* __restrict__ ops, int n_ops, int dst_w, int dst_h, OutT* __restrict__ out,
-    int out_ch, long long sn, long long sc, long long sy, long long sx) {
+    int out_ch, int clamp_store, long long sn, long long sc, long long sy, long long sx) {
   constexpr int kGroups = kTileW / P;
   const int x = blockIdx.x * kTileW + (threadIdx.x % kGroups) * P;
   const int y = blockIdx.y * (kThreads / kGroups) + threadIdx.x / kGroups;
@@ -230,6 +230,7 @@ __global__ void __launch_bounds__(kThreads) warp_kernel(
   }
 
   run_chain(v, nch, ops, n_ops, fp);
+  if (clamp_store) clamp_to_range<OutT>(v);
 
   store_pixels(out + (long long)z * sn + (long long)y * sy + (long long)x * sx, v, n, out_ch, sc,
                sx);
@@ -239,7 +240,7 @@ template <typename SrcT, typename OutT, bool kPersp>
 void launch(const unsigned long long* srcs, int src_h, int src_w, int nch, const float* coeffs,
             const float* border, const float* dflt, const int* used, const float* fp,
             const int* ops, int n_ops, int n_planes, int dst_w, int dst_h, void* out,
-            int out_ch, long long sn, long long sc, long long sy, long long sx,
+            int out_ch, int clamp_store, long long sn, long long sc, long long sy, long long sx,
             cudaStream_t stream) {
   const int pix = pixels_per_thread((long long)n_planes * dst_w * dst_h);
   const int tile_h = kThreads * pix / kTileW;
@@ -247,7 +248,7 @@ void launch(const unsigned long long* srcs, int src_h, int src_w, int nch, const
 #define CVGS_KERNEL(P)                                                                       \
   warp_kernel<SrcT, OutT, kPersp, P><<<grid, kThreads, 0, stream>>>(                         \
       srcs, src_h, src_w, nch, coeffs, border, dflt, used, fp, ops, n_ops, dst_w, dst_h,     \
-      static_cast<OutT*>(out), out_ch, sn, sc, sy, sx)
+      static_cast<OutT*>(out), out_ch, clamp_store, sn, sc, sy, sx)
   if (pix == 4) {
     CVGS_KERNEL(4);
   } else {
@@ -262,40 +263,47 @@ void launch(const unsigned long long* srcs, int src_h, int src_w, int nch, const
 // `srcs` holds n_planes device addresses of (src_h, src_w * nch) images,
 // uint8 (src_u8 = 1) or float32; `coeffs` 9 floats per plane (the inverse
 // map, row-major; an affine map uses the first 6), `border` 4 per plane,
-// `dflt` 4 (planes from *used on hold it), `used` one int. `out` is uint8
-// (out_u8 = 1) or float32 with out_ch channels, element strides
-// (sn, sc, sy, sx) per (plane, channel, row, col).
+// `dflt` 4 (planes from *used on hold it), `used` one int. `out` holds
+// elements of type `out_type` (PW_U8 .. PW_F32) with out_ch channels,
+// element strides (sn, sc, sy, sx) per (plane, channel, row, col). With
+// clamp_store, a float32 chain's values are clamped to an integer buffer's
+// range, then truncated.
 extern "C" int cvgs_warp(const unsigned long long* srcs, int src_u8, int src_h, int src_w,
                          int nch, int perspective, const float* coeffs, const float* border,
                          const float* dflt, const int* used, const float* fparams,
                          const int* ops, int n_ops, int n_planes, int dst_w, int dst_h,
-                         void* out, int out_u8, int out_ch, long long sn, long long sc,
-                         long long sy, long long sx, void* stream) {
+                         void* out, int out_type, int out_ch, int clamp_store, long long sn,
+                         long long sc, long long sy, long long sx, void* stream) {
   if (nch < 1 || nch > kMaxCh || out_ch < 1 || out_ch > kMaxCh || n_planes < 1 ||
       n_planes > 65535 || dst_w < 1 || dst_h < 1 || src_h < 1 || src_w < 1 ||
       src_h >= (1 << 24) || src_w >= (1 << 24) || n_ops < 0 ||
-      dst_h > 65535) {
+      dst_h > 65535 || out_type < PW_U8 || out_type > PW_F32) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CVGS_LAUNCH(SrcT, OutT, P)                                                             \
   launch<SrcT, OutT, P>(srcs, src_h, src_w, nch, coeffs, border, dflt, used, fparams, ops,     \
-                        n_ops, n_planes, dst_w, dst_h, out, out_ch, sn, sc, sy, sx, s)
+                        n_ops, n_planes, dst_w, dst_h, out, out_ch, clamp_store, sn, sc, sy, sx, s)
 #define CVGS_LAUNCH_P(SrcT, OutT)     \
   if (perspective) {                  \
     CVGS_LAUNCH(SrcT, OutT, true);    \
   } else {                            \
     CVGS_LAUNCH(SrcT, OutT, false);   \
   }
-  if (src_u8 && out_u8) {
-    CVGS_LAUNCH_P(uint8_t, uint8_t)
-  } else if (src_u8) {
-    CVGS_LAUNCH_P(uint8_t, float)
-  } else if (out_u8) {
-    CVGS_LAUNCH_P(float, uint8_t)
-  } else {
-    CVGS_LAUNCH_P(float, float)
+#define CVGS_OUT(SrcT)                                \
+  switch (out_type) {                                 \
+    case PW_U8: CVGS_LAUNCH_P(SrcT, uint8_t) break;   \
+    case PW_I8: CVGS_LAUNCH_P(SrcT, int8_t) break;    \
+    case PW_U16: CVGS_LAUNCH_P(SrcT, uint16_t) break; \
+    case PW_I16: CVGS_LAUNCH_P(SrcT, int16_t) break;  \
+    default: CVGS_LAUNCH_P(SrcT, float) break;        \
   }
+  if (src_u8) {
+    CVGS_OUT(uint8_t)
+  } else {
+    CVGS_OUT(float)
+  }
+#undef CVGS_OUT
 #undef CVGS_LAUNCH_P
 #undef CVGS_LAUNCH
   return (int)cudaGetLastError();

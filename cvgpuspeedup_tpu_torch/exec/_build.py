@@ -145,7 +145,8 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
                 p, i, ll, i, i, i,         # src, src_u8, plane_stride, src_h, src_w, nch
                 p, p, p, p, i,             # rects, used, fparams, ops, n_ops
                 i, i, i, i,                # n_planes, dst_w, dst_h, mode
-                p, i, i, ll, ll, ll, ll,   # out, out_u8, out_ch, sn, sc, sy, sx
+                p, i, i, i,                # out, out_type, out_ch, clamp_store
+                ll, ll, ll, ll,            # sn, sc, sy, sx
                 p,                         # stream
             ]
             lib.cvgs_batch_resize.restype = ctypes.c_int
@@ -154,7 +155,7 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
                 i, i, p, p, i,             # yuv, nv21, taps, weights, keep_edge
                 i, i, f, f, f, f, f, f,    # limited, alpha, ys, cs, rv, gu, gv, bu
                 p, p, i,                   # fparams, ops, n_ops
-                i, i, p, i, i,             # dst_w, dst_h, out, out_u8, out_ch
+                i, i, p, i, i, i,          # dst_w, dst_h, out, out_type, out_ch, clamp_store
                 ll, ll, ll,                # sc, sy, sx
                 p,                         # stream
             ]
@@ -163,7 +164,8 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
                 p, i, i, i, i, i,          # srcs, src_u8, src_h, src_w, nch, perspective
                 p, p, p, p, p, p, i,       # coeffs, border, default, used, fparams, ops, n_ops
                 i, i, i,                   # n_planes, dst_w, dst_h
-                p, i, i, ll, ll, ll, ll,   # out, out_u8, out_ch, sn, sc, sy, sx
+                p, i, i, i,                # out, out_type, out_ch, clamp_store
+                ll, ll, ll, ll,            # sn, sc, sy, sx
                 p,                         # stream
             ]
             lib.cvgs_warp.restype = ctypes.c_int

@@ -42,6 +42,7 @@ from ..ops.memory import (SplitWrite, TensorSplit, TensorSplitPacked, TensorTSpl
 from ..ops.resize import BatchResizeRead, sample_batch
 from ..types import AspectRatio, InterpolationType, Size
 from ..utils import dtypes as dt
+from ..utils import bounds
 from ..utils.dtypes import as_device_tensor
 from . import _build
 
@@ -80,6 +81,8 @@ _MAX_CHANNELS = 4
 _MAX_PLANES = 65535  # grid.z
 #: the source dtypes the kernels read
 SRC_DTYPES = {"uint8": torch.uint8, "float32": torch.float32}
+#: the element types of an output buffer; keep in step with csrc/chain.cuh
+TYPE_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3, torch.float32: 4}
 
 
 class Unsupported(ValueError):
@@ -315,9 +318,10 @@ def store_cast(plan_dtype: torch.dtype, out_dtype: torch.dtype) -> Optional[int]
     """How a kernel whose chain ends in ``plan_dtype`` stores into a buffer
     of ``out_dtype`` as ``utils.dtypes.astype`` casts it: 0 as it is (the
     same dtype, or an integer into float32, which is exact), 1 clamped to
-    the buffer's range and then truncated (float32 into an integer; the
-    pointwise kernel alone does it), None where no store does it (an integer
-    into another integer wraps)."""
+    the buffer's range and then truncated (float32 into an integer: the
+    ``clamp_store`` of every kernel but the divergent one, which has its
+    own), None where no store does it (an integer into another integer
+    wraps)."""
     if plan_dtype == out_dtype or out_dtype == torch.float32:
         return 0
     if plan_dtype == torch.float32 and not out_dtype.is_floating_point:
@@ -326,10 +330,10 @@ def store_cast(plan_dtype: torch.dtype, out_dtype: torch.dtype) -> Optional[int]
 
 
 def can_store(plan, dtype: torch.dtype) -> bool:
-    """Whether ``out=`` of this kernel's wrapper may hold ``dtype``: uint8
-    or float32, reached without a cast of the value."""
-    return (plan.layout != "split_write" and dtype in SRC_DTYPES.values()
-            and store_cast(plan.out_dtype, dtype) == 0)
+    """Whether ``out=`` of this kernel's wrapper may hold ``dtype``: one of
+    ``TYPE_CODES`` that the store reaches (:func:`store_cast` is not None)."""
+    return (plan.layout != "split_write" and dtype in TYPE_CODES
+            and store_cast(plan.out_dtype, dtype) is not None)
 
 
 class OutShapeError(ValueError):
@@ -434,7 +438,8 @@ def batch_resize(a: Launch, out: Optional[torch.Tensor] = None):
     """The kernel wrapper: launches on a CUDA tensor, runs the plain version
     on a CPU tensor, raises on anything else. It never falls back. With
     ``out`` (a view of the write's shape, any strides, the plan's dtype or
-    float32) the result is stored there and ``out`` is returned."""
+    float32, or an integer dtype for a float32 chain, clamped then
+    truncated) the result is stored there and ``out`` is returned."""
     global LAUNCHES
     dev = a.src.device
     if dev.type == "cpu":
@@ -457,8 +462,8 @@ def batch_resize(a: Launch, out: Optional[torch.Tensor] = None):
             src_h, src_w, plan.nch,
             a.rects.data_ptr(), a.used.data_ptr(), a.fparams.data_ptr(), a.ops.data_ptr(),
             plan.ops.shape[0], plan.n_planes, w, h, _MODES[plan.aspect_ratio],
-            buf.data_ptr(), int(buf.dtype == torch.uint8), plan.out_ch, sn, sc, sy, sx,
-            stream,
+            buf.data_ptr(), TYPE_CODES[buf.dtype], plan.out_ch,
+            store_cast(plan.out_dtype, buf.dtype), sn, sc, sy, sx, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -471,3 +476,16 @@ def batch_resize(a: Launch, out: Optional[torch.Tensor] = None):
 def run(pipeline, plan: KernelPlan, device: torch.device, out=None):
     """One call of the kernel path: gather the arguments, launch."""
     return batch_resize(prepare(pipeline, plan, device), out)
+
+
+#: the wrapper, under the name every kernel module gives it
+launch = batch_resize
+
+
+def work(a: Launch) -> Tuple[int, int, int]:
+    """``(output bytes, source bytes touched, float32 operations)`` of one
+    launch (``utils.bounds``): 12 operations per value for the three lerps,
+    one per chain row."""
+    out_bytes, values = bounds.output(a.plan)
+    return (out_bytes, bounds.crop_touched_bytes(a.pipeline.read),
+            values * (12 + a.plan.ops.shape[0]))

@@ -8,7 +8,8 @@ a group, in order of first appearance; each group is one of six kinds:
   ===========  ==========================================  =====================
   kind         read                                        coordinates from
   ===========  ==========================================  =====================
-  image        batched ``ImageRead`` (N, H, W, C)          plane z
+  image        batched ``ImageRead`` (N, H, W, C), or a       plane z, or its own
+               ``BatchRead`` of N images                   image
   circ         ``CircularBatchRead``, or a rank's view of   runtime ``first``, modulo
                one (``parallel/mesh.py``)                  the ring's planes
   crop_resize  ``BatchResizeRead`` of one frame            K1's rules, runtime rects
@@ -19,7 +20,10 @@ a group, in order of first appearance; each group is one of six kinds:
   ===========  ==========================================  =====================
 
 each with its own flat chain (``cuda_batch_resize.encode_chain``), and the
-merged batch goes out in the first sequence's write layout.
+merged batch goes out in the first sequence's write layout. A ragged
+``BatchRead`` group (``used_planes``: images, NV12 reads or warps) holds its
+``default``, cast to the read's dtype, on its planes from ``used_planes``
+on, and runs it through its chain, as ``ops/memory.py::BatchRead`` does.
 :func:`build_plan` classifies the groups once per structure and plane ids
 and keeps the static tables on the plan: the op rows of every chain and each
 NV12 group's tap and weight tables and conversion coefficients. Nothing of a
@@ -42,8 +46,9 @@ a float32 group of a uint8 batch stores through the merge's own cast
 (clamp, then truncate; ``CLAMP_STORE`` in the group's flags).
 
 Refused (:class:`Unsupported`, before anything launches): a group of no
-kind above, groups that differ in output (H, W, C), a ragged
-``BatchRead`` group, more than 4 channels. None of the TPU kernel's schedule
+kind above, groups that differ in output (H, W, C), more than 4 channels.
+The reference's TPU kernel refuses a ragged ``BatchRead`` group
+(``pallas_divergent.py:166``); this kernel takes it. None of the TPU kernel's schedule
 comes over (scalar-prefetch ring, 2-slot DMA, interleaved lane coefficients,
 baked one-hot NV12 and warp matrices, VMEM and lane gates).
 """
@@ -63,6 +68,7 @@ from ..ops.resize import BatchResizeRead, ResizeRead, axis_taps, half_taps, keep
 from ..ops.warp import WarpRead
 from ..types import ColorRange, InterpolationType, PixelFormat, Size, WarpType
 from ..utils import dtypes as dt
+from ..utils import bounds
 from ..utils.dtypes import as_device_tensor
 from . import _build
 from . import cuda_batch_resize as kbr
@@ -101,6 +107,7 @@ class Group:
     op_off: int            # first op row in the plan's consts
     n_ops: int
     tab_off: int           # nv12: taps, then weights, then 6 conversion floats, in the consts
+    held: Optional[torch.dtype] = None  # a ragged BatchRead group: the dtype of its default
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +160,17 @@ def _stack_geometry(data, packed: int) -> Tuple[int, int, int, int]:
     if not packed and len(shape) in (3, 4):
         return shape[0], shape[1], shape[2], (shape[3] if len(shape) == 4 else 1)
     raise Unsupported(f"plane stack of shape {shape}")
+
+
+def _image_geometry(read: ImageRead) -> Tuple[int, int, int]:
+    """``(h, w, c)`` of an unbatched image read: (H, W, C), (H, W) or
+    packed (H, W*C)."""
+    shape = tuple(read.data.shape)
+    if read.packed_channels and len(shape) == 2:
+        return shape[0], shape[1] // read.packed_channels, read.packed_channels
+    if not read.packed_channels and len(shape) in (2, 3):
+        return shape[0], shape[1], (shape[2] if len(shape) == 3 else 1)
+    raise Unsupported(f"image of shape {shape}")
 
 
 def _nv12_parts(op):
@@ -209,10 +227,19 @@ def _classify(seq, n: int):
         return ("resize" if stack else "crop_resize"), geo, c, torch.float32, (dst_h, dst_w), {}
     if not isinstance(read, BatchRead):
         raise Unsupported(f"read {type(read).__name__}")
-    if read.used_planes is not None:
-        raise Unsupported("a ragged BatchRead group")
     if len(read.ops) != n:
         raise Unsupported(f"a BatchRead of {len(read.ops)} reads for {n} planes")
+    if read.used_planes is not None and (_size(read.used_planes) != 1
+                                         or not 1 <= _size(read.default) <= _MAX_CHANNELS):
+        raise Unsupported("used_planes must be one value and the default a scalar or per channel")
+    if all(isinstance(o, ImageRead) and not o.is_batch for o in read.ops):
+        geos = {(_image_geometry(o), kbr._leaf_dtype_name(o.data)) for o in read.ops}
+        if len(geos) != 1:
+            raise Unsupported("images differ in shape or dtype")
+        h, w, c = _image_geometry(read.ops[0])
+        dtype = _dtype_of(read.ops[0].data)
+        geo = dict(src_h=h, src_w=w, nch=c, src_dtype=dtype, n_src=1, ascendent=True)
+        return "image", geo, c, dtype, (h, w), {}
     if all(isinstance(o, WarpRead) for o in read.ops):
         w0 = read.ops[0]
         h, w, c, _ = kw._geometry(w0.source)
@@ -293,6 +320,8 @@ def build_plan(seqs, plane_ids) -> DivergentPlan:
         # the merge casts a group into the batch's dtype (utils.dtypes.astype):
         # float32 into uint8 clamps, then truncates; uint8 into float32 is exact
         clamp = CLAMP_STORE if (odt, out_dtype) == (torch.float32, torch.uint8) else 0
+        ragged = isinstance(seq.read, BatchRead) and seq.read.used_planes is not None
+        held = start if ragged else None
         tab_off = -1
         if "tables" in extra:
             tab_off = extra_off
@@ -302,7 +331,8 @@ def build_plan(seqs, plane_ids) -> DivergentPlan:
             sid=sid, kind=kind, planes=tuple(planes), src_h=geo["src_h"], src_w=geo["src_w"],
             nch=geo["nch"], src_dtype=geo["src_dtype"], n_src=geo.get("n_src", 1),
             ascendent=geo.get("ascendent", True), mode=geo.get("mode", 0),
-            flags=geo.get("flags", 0) | clamp, op_off=n_rows, n_ops=ops.shape[0], tab_off=tab_off))
+            flags=geo.get("flags", 0) | clamp, op_off=n_rows, n_ops=ops.shape[0], tab_off=tab_off,
+            held=held))
         rows.append(ops)
         n_rows += ops.shape[0]
     # the NV12 tables follow the op rows: their offsets move past them
@@ -381,6 +411,8 @@ def _group_sources(seq, group: Group) -> Dict[int, object]:
     """Plane -> the source array it reads."""
     read = seq.read
     if group.kind in ("image", "circ"):
+        if isinstance(read, BatchRead):
+            return {z: read.ops[z].data for z in group.planes}
         return {z: read.data for z in group.planes}
     if group.kind in ("crop_resize", "resize"):
         src = read.frame if group.kind == "crop_resize" else read.stack
@@ -436,6 +468,10 @@ def prepare(seqs, plan: DivergentPlan, device: torch.device) -> Launch:
         elif group.kind == "nv12":
             d[13] = group.tab_off
             d[15] = group.tab_off + 4 * (plan.dsize.width + plan.dsize.height)
+        if group.held is not None:  # a ragged BatchRead group
+            d[9] = blk.put(read.used_planes, np.int32, width=1)
+            d[6] = blk.put(_held_default(read.default, group.held), np.float32,
+                           width=_MAX_CHANNELS)
         d[12] = blk.size
         for v in flatten(tuple(seq.compute))[1]:
             blk.put(v, np.float32)
@@ -443,6 +479,15 @@ def prepare(seqs, plan: DivergentPlan, device: torch.device) -> Launch:
     desc_off = blk.put(desc, np.int32)
     return Launch(plan=plan, seqs=tuple(seqs), srcs=tuple(srcs), block=blk.to(device),
                   ptr_off=ptr_off, desc_off=desc_off, consts=plan.device_tables(device))
+
+
+def _held_default(default, dtype: torch.dtype):
+    """A ragged ``BatchRead``'s default as its planes hold it: cast to the
+    read's ``dtype`` (``BatchRead._mask``), as float32 values for every
+    channel (a scalar broadcast), on the default's own device."""
+    if isinstance(default, torch.Tensor):
+        return kw._padded_tensor(default.to(dtype), _MAX_CHANNELS, default.device)
+    return kw._padded(torch.as_tensor(np.asarray(default), dtype=dtype).numpy(), _MAX_CHANNELS)
 
 
 def merge(seqs, plane_ids):
@@ -521,3 +566,45 @@ def divergent(a: Launch):
 def run(seqs, plan: DivergentPlan, device: torch.device):
     """One call of the kernel path: gather the arguments, launch."""
     return divergent(prepare(seqs, plan, device))
+
+
+#: the wrapper, under the name every kernel module gives it (no ``out``)
+launch = divergent
+
+
+def _touched_bytes(a: Launch) -> int:
+    """Source bytes the batch touches: each sequence's read on its own
+    planes, by the rule of the kernel it shares a sampler with."""
+    from .. import build_pipeline, write
+    from . import cuda_frame_resize as kfr
+
+    ids, total = a.plan.plane_ids, 0
+    for sid, seq in enumerate(a.seqs, 1):
+        planes = [z for z, i in enumerate(ids) if i == sid]
+        read = seq.read
+        if isinstance(read, (ImageRead, CircularBatchRead)):  # a plane is read whole
+            total += len(planes) * read.data[0].numel() * read.data.element_size()
+        elif isinstance(read, BatchResizeRead):
+            total += bounds.crop_touched_bytes(read, planes)
+        else:  # a BatchRead of images, warps or NV12 resizes, one source per plane
+            used = len(ids) if read.used_planes is None else int(torch.as_tensor(read.used_planes))
+            for z in planes:
+                if z >= used:  # a ragged group's plane holds its default: nothing is read
+                    continue
+                op = read.ops[z]
+                one = build_pipeline(op, write())
+                if isinstance(op, ImageRead):
+                    total += op.data.numel() * op.data.element_size()
+                elif isinstance(op, WarpRead):
+                    total += bounds.warp_touched_bytes(
+                        kw.prepare(one, kw.build_plan(one), a.block.device))
+                else:
+                    total += bounds.touched_bytes(kfr.build_plan(one))
+    return total
+
+
+def work(a: Launch) -> Tuple[int, int, int]:
+    """``(output bytes, source bytes touched, float32 operations)`` of one
+    launch (``utils.bounds``): 14 operations per value."""
+    out_bytes, values = bounds.output(a.plan)
+    return out_bytes, _touched_bytes(a), values * 14

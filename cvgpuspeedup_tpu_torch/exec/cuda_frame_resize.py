@@ -36,10 +36,12 @@ from ..ops.nv12 import LIMITED_C, LIMITED_Y, conversion_coefficients
 from ..ops.resize import ResizeRead, axis_taps, half_taps, keeps_edge_weight
 from ..types import ColorRange, InterpolationType, PixelFormat, Size
 from ..utils.dtypes import as_device_tensor
+from ..utils import bounds
 from . import _build
 from .cuda_batch_resize import can_store  # noqa: F401  (the executor asks each kernel module)
-from .cuda_batch_resize import (_MAX_CHANNELS, SRC_DTYPES, Unsupported, _leaf_dtype_name,
-                                check_out, check_out_dtype, encode_chain, reference_into)
+from .cuda_batch_resize import (_MAX_CHANNELS, SRC_DTYPES, TYPE_CODES, Unsupported,
+                                _leaf_dtype_name, check_out, check_out_dtype, encode_chain,
+                                reference_into, store_cast)
 
 #: launches of the CUDA kernel in this process
 LAUNCHES = 0
@@ -254,7 +256,8 @@ def frame_resize(a: Launch, out: Optional[torch.Tensor] = None):
     """The kernel wrapper: launches on a CUDA tensor, runs the plain version
     on a CPU tensor, raises on anything else. It never falls back. With
     ``out`` (a view of the write's shape, any strides, the plan's dtype or
-    float32; a ring slot) the result is stored there and ``out`` is
+    float32, or an integer dtype for a float32 chain, clamped then
+    truncated; a ring slot) the result is stored there and ``out`` is
     returned."""
     global LAUNCHES
     dev = a.src.device
@@ -276,8 +279,8 @@ def frame_resize(a: Launch, out: Optional[torch.Tensor] = None):
             plan.nch, int(plan.yuv), int(plan.nv21), a.taps.data_ptr(), a.weights.data_ptr(),
             int(plan.keep_edge), *plan.conv,
             a.fparams.data_ptr(), a.ops.data_ptr(), plan.ops.shape[0], w, h,
-            buf.data_ptr(), int(buf.dtype == torch.uint8), plan.out_ch, sc, sy, sx,
-            stream,
+            buf.data_ptr(), TYPE_CODES[buf.dtype], plan.out_ch,
+            store_cast(plan.out_dtype, buf.dtype), sc, sy, sx, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -290,3 +293,17 @@ def frame_resize(a: Launch, out: Optional[torch.Tensor] = None):
 def run(pipeline, plan: FramePlan, device: torch.device, out=None):
     """One call of the kernel path: gather the arguments, launch."""
     return frame_resize(prepare(pipeline, plan, device), out)
+
+
+#: the wrapper, under the name every kernel module gives it
+launch = frame_resize
+
+
+def work(a: Launch) -> Tuple[int, int, int]:
+    """``(output bytes, source bytes touched, float32 operations)`` of one
+    launch (``utils.bounds``): 12 operations per value for the lerps, 3 more
+    for a YUV conversion, one per chain row."""
+    plan = a.plan
+    out_bytes, values = bounds.output(plan)
+    return (out_bytes, bounds.touched_bytes(plan),
+            values * (12 + (3 if plan.yuv else 0) + plan.ops.shape[0]))

@@ -64,12 +64,13 @@ from ..ops.memory import CircularBatchRead, ImageRead, SplitWrite, TensorSplit, 
 from ..ops.nv12 import LIMITED_C, LIMITED_Y, ConvertYUVToRGB, ReadYUV, conversion_coefficients
 from ..types import BorderMode, ColorRange, PixelFormat, Size
 from ..utils.dtypes import as_device_tensor
+from ..utils import bounds
 from . import _build
 from . import cuda_batch_resize as kbr
 from . import cuda_frame_resize as kfr
 from .cuda_batch_resize import (_MAX_CHANNELS, _MAX_PLANES, OP_ALPHA, OP_GRAY_F32, OP_GRAY_U8,
-                                OP_REORDER, WIDE_INTS, Unsupported, _leaf_dtype_name,
-                                encode_chain, store_cast)
+                                OP_REORDER, TYPE_CODES, WIDE_INTS, Unsupported,
+                                _leaf_dtype_name, encode_chain, store_cast)
 from .cuda_divergent import _Block, _stack_geometry
 from .cuda_warp import _size
 
@@ -84,7 +85,6 @@ BASES = ("image", "circ", "yuv")
 STAGE_CROP, STAGE_BORDER = 0, 1
 BORDER_MODES = {BorderMode.CONSTANT: 0, BorderMode.REPLICATE: 1, BorderMode.REFLECT: 2,
                 BorderMode.REFLECT_101: 3, BorderMode.WRAP: 4}
-TYPE_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3, torch.float32: 4}
 MAX_STAGES = 4
 #: the head's words: 12, the stages', then the chain's width
 HEAD_INTS = 12 + 8 * MAX_STAGES + 1
@@ -357,10 +357,7 @@ def pointwise_reference(a: Launch):
     return p.lower()
 
 
-def can_store(plan: PointwisePlan, dtype: torch.dtype) -> bool:
-    """Whether ``out=`` may hold ``dtype``."""
-    return (plan.layout != "split_write" and dtype in TYPE_CODES
-            and store_cast(plan.out_dtype, dtype) is not None)
+can_store = kbr.can_store
 
 
 def _alloc_out(plan: PointwisePlan, device, out=None):
@@ -428,3 +425,21 @@ def pointwise(a: Launch, out: Optional[torch.Tensor] = None):
 def run(pipeline, plan: PointwisePlan, device: torch.device, out=None):
     """One call of the kernel path: gather the arguments, launch."""
     return pointwise(prepare(pipeline, plan, device), out)
+
+
+#: the wrapper, under the name every kernel module gives it
+launch = pointwise
+
+
+def work(a: Launch) -> Tuple[int, int, int]:
+    """``(output bytes, source bytes touched, float32 operations)`` of one
+    launch (``utils.bounds``): the whole base read once, or under a crop the
+    crop's pixels (the output's, at the source's channels and element size);
+    one operation per value and chain row, an NV12 conversion 7 more."""
+    plan = a.plan
+    out_bytes, values = bounds.output(plan)
+    src = a.src.numel() * a.src.element_size()
+    if any(isinstance(st, CropRead) for st in _stages(_unwrap(a.pipeline)[0])[0]):
+        w, h = plan.dsize
+        src = min(src, plan.n_planes * h * w * plan.head[3] * a.src.element_size())
+    return out_bytes, src, values * (plan.ops.shape[0] + (7 if plan.base == "yuv" else 0))

@@ -42,6 +42,7 @@ from ..ops.memory import BatchRead, ImageRead, SplitWrite, TensorSplit, Write2D
 from ..ops.warp import WarpRead
 from ..types import Size, WarpType
 from ..utils.dtypes import as_device_tensor
+from ..utils import bounds
 from . import _build
 from . import cuda_batch_resize as kbr
 from . import cuda_frame_resize as kfr
@@ -328,7 +329,8 @@ def warp(a: Launch, out: Optional[torch.Tensor] = None):
     """The kernel wrapper: launches on a CUDA tensor, runs the plain version
     on a CPU tensor, raises on anything else. It never falls back. With
     ``out`` (a view of the write's shape, any strides, the plan's dtype or
-    float32) the result is stored there and ``out`` is returned."""
+    float32, or an integer dtype for a float32 chain, clamped then
+    truncated) the result is stored there and ``out`` is returned."""
     global LAUNCHES
     dev = a.srcs[0].device
     if dev.type == "cpu":
@@ -349,8 +351,8 @@ def warp(a: Launch, out: Optional[torch.Tensor] = None):
             plan.nch, int(plan.perspective), a.coeffs.data_ptr(), a.border.data_ptr(),
             a.default.data_ptr(), a.used.data_ptr(), a.fparams.data_ptr(), a.ops.data_ptr(),
             plan.ops.shape[0], plan.n_planes, w, h,
-            buf.data_ptr(), int(buf.dtype == torch.uint8), plan.out_ch, sn, sc, sy, sx,
-            stream,
+            buf.data_ptr(), kbr.TYPE_CODES[buf.dtype], plan.out_ch,
+            kbr.store_cast(plan.out_dtype, buf.dtype), sn, sc, sy, sx, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -363,3 +365,15 @@ def warp(a: Launch, out: Optional[torch.Tensor] = None):
 def run(pipeline, plan: WarpPlan, device: torch.device, out=None):
     """One call of the kernel path: gather the arguments, launch."""
     return warp(prepare(pipeline, plan, device), out)
+
+
+#: the wrapper, under the name every kernel module gives it
+launch = warp
+
+
+def work(a: Launch) -> Tuple[int, int, int]:
+    """``(output bytes, source bytes touched, float32 operations)`` of one
+    launch (``utils.bounds``): 14 operations per value for the two
+    coordinates and the lerps, one per chain row."""
+    out_bytes, values = bounds.output(a.plan)
+    return out_bytes, bounds.warp_touched_bytes(a), values * (14 + a.plan.ops.shape[0])

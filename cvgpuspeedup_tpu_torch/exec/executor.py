@@ -225,6 +225,13 @@ def last_backend() -> Optional[str]:
     return _LAST_BACKEND
 
 
+def launch_counts() -> Dict[str, int]:
+    """Each kernel's launches in this process so far (its ``LAUNCHES``), by
+    the backend name :func:`last_backend` reports for it."""
+    return {name: module.LAUNCHES for name, module in
+            _KERNELS + (("cuda:divergent", cuda_divergent),)}
+
+
 def execute_operations(*iops: IOp, input=None, backend: ParBackend = ParBackend.AUTO,
                        device=None):
     """Run the op chain. Returns the output tensor (or a tuple of tensors for

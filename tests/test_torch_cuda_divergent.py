@@ -265,16 +265,34 @@ def test_main_path_launches_the_kernel_once_per_call(cuda):
 
 
 def test_explicit_cuda_raises_on_a_refused_batch(cuda):
-    """A ragged ``BatchRead`` group is refused, as the reference's kernel
-    refuses it: AUTO merges it eagerly, an explicit CUDA raises."""
+    """A ragged ``BatchRead`` group (which the reference's TPU kernel
+    refuses) runs in one launch of the kernel under AUTO and an explicit
+    CUDA, equal to the plain version; a batch whose groups differ in plane
+    shape is refused: an explicit CUDA raises."""
     imgs = [_u8(np.random.default_rng(17), (12, 16, 1)) for _ in range(2)]
     ragged = _seq(T.warp_batch(imgs, [rotation((8, 6), 5.0, 1.0)] * 2, T.Size(4, 4),
-                               used_planes=1))
+                               used_planes=1, default=9.5), T.multiply(2.0))
     f32 = _seq(T.image(np.zeros((2, 4, 4, 1), np.float32)))
-    out = T.launch_divergent_batch([1, 2], ragged, f32, device=cuda)
-    assert T.last_backend() == "torch:divergent" and out.dtype == torch.float32
+    for backend in (T.ParBackend.AUTO, T.ParBackend.CUDA):
+        launches = kd.LAUNCHES
+        out = T.launch_divergent_batch([1, 2], ragged, f32, backend=backend, device=cuda)
+        assert T.last_backend() == "cuda:divergent" and out.dtype == torch.float32
+        assert kd.LAUNCHES == launches + 1
+    plain = T.launch_divergent_batch([1, 2], ragged, f32, backend=T.ParBackend.TORCH, device=cuda)
+    assert torch.equal(out, plain) and bool((out[1] == 0).all())
+    for used, want in ((0, 19.0), (2, None)):  # used_planes at runtime: no new plan
+        builds = executor.PLAN_BUILDS
+        r = _seq(T.warp_batch(imgs, [rotation((8, 6), 5.0, 1.0)] * 2, T.Size(4, 4),
+                              used_planes=used, default=9.5), T.multiply(2.0))
+        got = T.launch_divergent_batch([1, 2], r, f32, device=cuda)
+        assert executor.PLAN_BUILDS == builds
+        assert torch.equal(got, T.launch_divergent_batch([1, 2], r, f32,
+                                                         backend=T.ParBackend.TORCH))
+        if want is not None:
+            assert bool((got[0] == want).all())
+    narrow = _seq(T.image(np.zeros((2, 4, 5, 1), np.float32)))
     with pytest.raises(ValueError, match="cannot run"):
-        T.launch_divergent_batch([1, 2], ragged, f32, backend=T.ParBackend.CUDA, device=cuda)
+        T.launch_divergent_batch([1, 2], ragged, narrow, backend=T.ParBackend.CUDA, device=cuda)
 
 
 def test_groups_of_different_output_dtypes_take_the_kernel(cuda):

@@ -351,6 +351,75 @@ def test_out_views_of_any_strides(kernel, cuda):
         call(a, out=torch.empty(want.shape, dtype=torch.int32, device=cuda))
 
 
+@pytest.mark.parametrize("ring_dtype", [torch.uint8, torch.int8, torch.uint16, torch.int16])
+@pytest.mark.parametrize("head", ["resize", "warp"])
+def test_float_chain_into_an_integer_ring_is_one_launch(head, ring_dtype, cuda):
+    """A resize or warp head whose float32 chain goes into an integer ring:
+    one launch of its kernel, the cast (clamp, then truncate) in the store,
+    no temporary of the plane's size, every slot equal to the eager value
+    cast by ``utils.dtypes.astype``."""
+    module = kfr if head == "resize" else kw
+    ring = T.CircularTensor(64, 48, 3, 4, dtype=ring_dtype, device=cuda)
+
+    frames = [_source(cuda, (96, 128, 3), seed=60 + k) for k in range(4)]
+
+    def ops(k):
+        frame = frames[k]
+        read = (T.resize(T.image(frame), T.Size(64, 48)) if head == "resize" else
+                T.warp(T.image(frame), np.array([[0.5, 0.1, 3.0 + k], [-0.1, 0.5, 2.0]]),
+                       T.Size(64, 48)))
+        return read, T.multiply(600.0), T.subtract(70000.25)
+
+    ring.update(*ops(0))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats(cuda)["allocated_bytes.all.allocated"]
+    launches = module.LAUNCHES
+    for k in range(1, 4):
+        ring.update(*ops(k))
+        assert T.last_backend() == f"cuda:{head if head == 'warp' else 'frame_resize'}"
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_stats(cuda)["allocated_bytes.all.allocated"] - before
+    assert module.LAUNCHES == launches + 3
+    assert grown < 64 * 48 * 3, grown
+    for k in range(4):
+        eager = T.execute_operations(*ops(k), T.split_tensor(), backend=T.ParBackend.TORCH)
+        assert torch.equal(ring._ring[k], T._dt.astype(eager, ring_dtype)), k
+
+
+@pytest.mark.parametrize("kernel", ["batch_resize", "frame_resize", "warp"])
+def test_clamp_store_into_every_integer_dtype(kernel, cuda):
+    """K1, K2 and the warp kernel store a float32 chain into uint8, int8,
+    uint16 and int16 views: clamped, then truncated, equal to the plain
+    version cast by ``astype``; a uint8 chain into int16 is refused."""
+    img = _source(cuda, (96, 128, 3), seed=70)
+    rects = np.array([[i, i, 30, 40] for i in range(4)], np.int32)
+    chain = (T.multiply(600.0), T.subtract(70000.25))
+    module, call, read = {
+        "batch_resize": (kbr, kbr.batch_resize, T.resize_batch(img, rects=rects,
+                                                               dsize=T.Size(16, 24))),
+        "frame_resize": (kfr, kfr.frame_resize, T.resize(T.image(img), T.Size(32, 24))),
+        "warp": (kw, kw.warp, T.warp(T.image(img), np.array([[0.5, 0.0, 3.0], [0.0, 0.5, 2.0]]),
+                                     T.Size(32, 24))),
+    }[kernel]
+    pipeline = T.build_pipeline(read, *chain, T.split_tensor())
+    a = module.prepare(pipeline, module.build_plan(pipeline), cuda)
+    want = call(a)
+    for dtype in (torch.uint8, torch.int8, torch.uint16, torch.int16):
+        host = torch.full((2,) + tuple(want.shape[:-1]) + (want.shape[-1] + 3,), 77, dtype=dtype,
+                          device=cuda)
+        view = host[1, ..., 1:-2]
+        launches = module.LAUNCHES
+        assert call(a, out=view) is view and module.LAUNCHES == launches + 1
+        torch.cuda.synchronize()
+        assert torch.equal(view, T._dt.astype(want, dtype)), dtype
+        host[1, ..., 1:-2] = 77
+        assert bool((host == 77).all())
+    u8 = T.build_pipeline(read, T.convert_to(np.uint8), T.split_tensor())
+    a8 = module.prepare(u8, module.build_plan(u8), cuda)
+    with pytest.raises(TypeError):
+        call(a8, out=torch.empty(want.shape, dtype=torch.int16, device=cuda))
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     a = _check(*_cases(cuda)["gray_2d_image"], cuda=cuda)
     with pytest.raises(TypeError):

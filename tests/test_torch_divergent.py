@@ -526,15 +526,77 @@ def test_routing_decision_before_any_launch():
         "cuda:divergent"
     assert executor._select_divergent(seqs, ids, T.ParBackend.TORCH, cuda).backend == \
         "torch:divergent"
-    ragged = T.build_operation_sequence(
-        T.batch_read([T.image(np.zeros((8, 16, 3), np.uint8))] * 6, used_planes=3, default=0.0))
-    mixed = [seqs[0], ragged]
-    assert executor._select_divergent(mixed, [1, 2, 1, 2, 1, 2], T.ParBackend.AUTO,
-                                      cuda).backend == "torch:divergent"
-    with pytest.raises(ValueError, match="ragged"):
-        executor._select_divergent(mixed, [1, 2, 1, 2, 1, 2], T.ParBackend.CUDA, cuda)
+    # a ragged BatchRead group takes the kernel (the reference's TPU kernel
+    # refuses it, pallas_divergent.py:166, and its AUTO runs one XLA
+    # program): both port versions equal the reference's merge op by op
+    imgs = [_rng(30 + k).integers(0, 256, (8, 16, 3)).astype(np.uint8) for k in range(6)]
+    jragged = J.build_operation_sequence(
+        J.batch_read([J.image(im) for im in imgs], used_planes=3, default=7.6),
+        J.convert_to(np.float32, alpha=0.5))
+    jflat = J.build_operation_sequence(J.image(np.stack(imgs).astype(np.float32)))
+    mixed = [from_jax(jflat), from_jax(jragged)]
+    for backend in (T.ParBackend.AUTO, T.ParBackend.CUDA):
+        assert executor._select_divergent(mixed, [1, 2, 1, 2, 1, 2], backend,
+                                          cuda).backend == "cuda:divergent"
+    eager, plan = check_divergent([1, 2, 1, 2, 1, 2], jflat, jragged, kinds=["image", "image"])
+    assert plan.groups[1].held == torch.uint8 and plan.groups[0].held is None
+    np.testing.assert_array_equal(eager.numpy()[5], np.full((8, 16, 3), 3.5, np.float32))
+    # a batch the kernel refuses still raises under an explicit CUDA
+    narrow = T.build_operation_sequence(T.image(np.zeros((6, 8, 15, 3), np.float32)))
+    with pytest.raises(ValueError, match="cannot run"):
+        executor._select_divergent([mixed[0], narrow], [1, 2, 1, 2, 1, 2], T.ParBackend.CUDA,
+                                   cuda)
     with pytest.raises(ValueError, match="CUDA tensors"):
         T.launch_divergent_batch(ids, *seqs, backend=T.ParBackend.CUDA, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["image", "nv12", "warp"])
+@pytest.mark.parametrize("used", [0, 2, 4])
+def test_ragged_batch_read_groups_run_in_the_kernel(kind, used):
+    """A ragged ``BatchRead`` group of images, NV12 reads or warps: its
+    planes from ``used_planes`` on hold the default, cast to the read's
+    dtype, through the group's chain, as the reference's merge gives them;
+    the descriptor points at ``used_planes`` (word 9) and the default (word
+    6) in the parameter block."""
+    rng = _rng(40)
+    n, h, w = 4, 8, 16
+    if kind == "image":
+        reads = [J.image(rng.integers(0, 256, (h, w, 3)).astype(np.uint8)) for _ in range(n)]
+        default, held = (200.7, 2.2, 9.9), np.uint8
+    elif kind == "nv12":
+        reads = [J.resize(J.fuse(J.read_yuv(rng.integers(0, 256, (24, 32)).astype(np.uint8)),
+                                 J.convert_yuv_to_rgb(out_dtype=np.float32)), J.Size(w, h))
+                 for _ in range(n)]
+        default, held = 7.25, np.float32
+    else:
+        srcs = [rng.integers(0, 256, (12, 20, 3)).astype(np.uint8) for _ in range(n)]
+        reads = [J.warp(J.image(s), rotation((10, 6), 5.0 * k, 1.0), J.Size(w, h))
+                 for k, s in enumerate(srcs)]
+        default, held = (1.5, -2.0, 250.0), np.float32
+    jragged = J.build_operation_sequence(J.batch_read(reads, used_planes=used, default=default),
+                                         J.convert_to(np.float32, alpha=0.5), J.add(1.0))
+    jflat = J.build_operation_sequence(
+        J.image(rng.integers(0, 200, (n, h, w, 3)).astype(np.float32)), J.multiply(2.0))
+    ids = [2, 1, 2, 2]
+    eager, plan = check_divergent(ids, jflat, jragged, kinds=[kind, "image"])
+    ragged = [g for g in plan.groups if g.held is not None]
+    assert len(ragged) == 1 and ragged[0].planes == (0, 2, 3)
+    # the planes past used_planes: the default as the read's dtype, then the chain
+    want = np.broadcast_to(np.asarray(default, np.float64).astype(held).astype(np.float32),
+                           (3,)) * np.float32(0.5) + np.float32(1.0)
+    for z in (0, 2, 3):
+        if z >= used:
+            np.testing.assert_array_equal(eager.numpy()[z], np.broadcast_to(want, (h, w, 3)))
+    tseqs = tuple(from_jax(s) for s in (jflat, jragged))
+    a = kd.prepare(tseqs, plan, CPU)
+    words = a.block.numpy()
+    d = words[a.desc_off + kd.DESC_INTS * plan.groups.index(ragged[0]):][:kd.DESC_INTS]
+    assert words[d[9]] == used
+    np.testing.assert_array_equal(words[d[6]:d[6] + 3].view(np.float32),
+                                  np.broadcast_to(np.asarray(default, np.float64).astype(held)
+                                                  .astype(np.float32), (3,)))
+    assert all(words[a.desc_off + kd.DESC_INTS * k + 9] == -1
+               for k, g in enumerate(plan.groups) if g.held is None and g.kind == "image")
 
 
 def test_selector_errors():

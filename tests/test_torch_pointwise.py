@@ -373,4 +373,11 @@ def test_out_views_on_the_cpu(kernel):
     with pytest.raises(ValueError, match="out holds"):
         module.run(pipeline, plan, CPU, out=torch.empty(want.shape[1:]))
     assert module.can_store(plan, torch.float32) and not module.can_store(plan, torch.int32)
-    assert module.can_store(plan, torch.uint8) == (kernel == "pointwise")
+    # a float32 chain into an integer buffer is one store in every kernel:
+    # clamped, then truncated; a uint8 chain into another integer wraps, which
+    # no store does
+    ints = (torch.uint8, torch.int8, torch.uint16, torch.int16)
+    assert all(module.can_store(plan, dtype) for dtype in ints)
+    u8_plan = module.build_plan(T.build_pipeline(*ops, T.convert_to(np.uint8), T.split_tensor()))
+    assert u8_plan.out_dtype == torch.uint8
+    assert [module.can_store(u8_plan, dtype) for dtype in ints] == [True, False, False, False]

@@ -26,7 +26,14 @@ def test_import_leaves_jax_out():
         "cvgpuspeedup_tpu_torch.ops.border, cvgpuspeedup_tpu_torch.data.circular_tensor, "
         "cvgpuspeedup_tpu_torch.exec.cuda_pointwise, cvgpuspeedup_tpu_torch.pipelines.presets, "
         "cvgpuspeedup_tpu_torch.interop.cv2_compat, cvgpuspeedup_tpu_torch.utils.frameloader, "
-        "cvgpuspeedup_tpu_torch.parallel.mesh; "
+        "cvgpuspeedup_tpu_torch.parallel.mesh, cvgpuspeedup_tpu_torch.utils.bounds, "
+        "cvgpuspeedup_tpu_torch.benchmarks.vertical_fusion, "
+        "cvgpuspeedup_tpu_torch.benchmarks.aux_pipelines, "
+        "cvgpuspeedup_tpu_torch.benchmarks.host_overhead, "
+        "cvgpuspeedup_tpu_torch.benchmarks.scaling, "
+        "cvgpuspeedup_tpu_torch.examples.detection_preprocessing, "
+        "cvgpuspeedup_tpu_torch.examples.nv12_camera_stream, "
+        "cvgpuspeedup_tpu_torch.examples.temporal_window_slam; "
         "print(sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'cvgpuspeedup_tpu')))"
     )
@@ -40,6 +47,9 @@ _FORBIDDEN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|cv2|cvgpuspeedu
 
 def test_port_sources_import_neither_jax_nor_cv2():
     paths = [ROOT / "chip_smoke.py", *(ROOT / "cvgpuspeedup_tpu_torch").rglob("*.py")]
+    for sub in ("benchmarks", "examples", "utils/bounds.py"):  # the subpackages' own files too
+        assert any(str(p.relative_to(ROOT)).startswith(f"cvgpuspeedup_tpu_torch/{sub}")
+                   for p in paths), sub
     for path in paths:
         assert not _FORBIDDEN_IMPORT.search(path.read_text()), path
 

@@ -815,6 +815,45 @@ def test_stores_of_every_layout_fill_the_buffer_and_nothing_else(dtype, layout, 
         assert stats["scalar"] == 0 and stats["vector"] == n * h * w * ch // 4
 
 
+@pytest.mark.parametrize("dtype", [np.uint8, np.int8, np.uint16, np.int16],
+                         ids=["u8", "i8", "u16", "i16"])
+@pytest.mark.parametrize("kernel", ["batch_resize", "frame_resize", "warp"])
+def test_clamp_store_of_the_resampling_kernels(kernel, dtype):
+    """K1, K2 and the warp kernel store a float32 chain into an integer
+    buffer (``clamp_store``): each value clamped to the buffer's range, then
+    truncated by the store (``chain.cuh::clamp_to_range``, ``to_out``), as
+    ``utils.dtypes.astype`` casts; the wrappers' ``out=`` on the CPU equals
+    it, and the plan passes clamp_store 1 and the buffer's type code."""
+    img = torch.from_numpy(_src(70, 24, 32, 3))
+    rects = np.array([[i, i, 10, 12] for i in range(2)], np.int32)
+    module, read = {
+        "batch_resize": (kbr, T.resize_batch(img, rects=rects, dsize=T.Size(8, 6))),
+        "frame_resize": (kfr, T.resize(T.image(img), T.Size(8, 6))),
+        "warp": (kw, T.warp(T.image(img), np.array([[0.5, 0, 1.0], [0, 0.5, 2.0]]), T.Size(8, 6))),
+    }[kernel]
+    pipeline = T.build_pipeline(read, T.multiply(600.0), T.subtract(70000.25), T.split_tensor())
+    plan = module.build_plan(pipeline)
+    td = T._dt.to_torch_dtype(dtype)
+    assert plan.out_dtype == torch.float32 and module.can_store(plan, td)
+    assert kbr.store_cast(plan.out_dtype, td) == 1 and kbr.TYPE_CODES[td] == _NP_TYPES.index(dtype)
+    vals = module.run(pipeline, plan, CPU)
+    values = (vals if vals.ndim == 4 else vals[None]).permute(0, 2, 3, 1).numpy()
+    info = np.iinfo(dtype)
+    assert values.min() < info.min or values.max() > info.max  # the clamp has work to do
+    n, h, w, ch = values.shape
+    strides = (ch * h * w, h * w, w, 1)
+    item = np.dtype(dtype).itemsize
+    for pix in (1, 4):
+        mem, _ = emulate_store_pixels(np.clip(values, info.min, info.max), strides, dtype, pix,
+                                      64)
+        got = mem[64:64 + values.size * item].view(dtype).reshape(n, ch, h, w)
+        want = T._dt.astype(vals, td)
+        assert np.array_equal(got, (want if want.ndim == 4 else want[None]).numpy())
+    view = torch.zeros(tuple(vals.shape), dtype=td)
+    assert module.run(pipeline, plan, CPU, out=view) is view
+    assert torch.equal(view, T._dt.astype(vals, td))
+
+
 # ---------------------------------------------------------------------------
 # the pointwise kernel: heads, the op table with the wide dtypes, the store
 # ---------------------------------------------------------------------------
@@ -825,7 +864,7 @@ _SAT_RANGE = {kbr.OP_SAT_U8: (0, 255), kbr.OP_SAT_I8: (-128, 127), kbr.OP_SAT_U1
               kbr.OP_SAT_I16: (-32768, 32767)}
 _CAST_TYPE = {kbr.OP_CAST_U8: np.uint8, kbr.OP_CAST_I8: np.int8, kbr.OP_CAST_U16: np.uint16,
               kbr.OP_CAST_I16: np.int16}
-_NP_TYPES = (np.uint8, np.int8, np.uint16, np.int16, np.float32)  # csrc/pointwise.cuh PW_U8..
+_NP_TYPES = (np.uint8, np.int8, np.uint16, np.int16, np.float32)  # csrc/chain.cuh PW_U8..
 
 
 def crop_start(start, length, size):

@@ -9,7 +9,9 @@ every file that holds ``old``, ``[file, old, new]`` in that file alone; an
 empty list is the tree as it stands. A string instead of a list names
 another directory of sources, relative to the repo's root (an older commit's
 ``csrc`` unpacked with ``git archive``), whose C interface must equal the
-present one. For example::
+present one (``_build.load`` declares the present signatures): since K1,
+K2 and the warp kernel took ``out_type`` and ``clamp_store`` in place of
+``out_u8``, a tree from before that is refused. For example::
 
     {"base": [],
      "parent": "build/parent/cvgpuspeedup_tpu_torch/csrc",
@@ -174,6 +176,12 @@ def main() -> int:
             from_dir = csrc
             if isinstance(subs, str):
                 from_dir, subs = ROOT / subs, []
+                old_abi = [f for f in ("batch_resize.cu", "frame_resize.cu", "warp.cu")
+                           if "int out_type" not in (from_dir / f).read_text()]
+                if old_abi:
+                    print(f"{vname}: {', '.join(old_abi)} take out_u8, not out_type and "
+                          "clamp_store: another C interface than the present one", file=sys.stderr)
+                    return 1
             subs = [sub if len(sub) == 3 else [None, *sub] for sub in subs]
             unused = {old for _, old, _ in subs}
             for f in sorted(from_dir.iterdir()):
