@@ -60,8 +60,16 @@ code and no result line:
    chains on four lanes and one, chains whose width changes, one-channel
    groups of 16 with a row's tail, NV12 into RGB and a crop of NV12 off the
    group of 4) and P5 goes into out= views on and off 16-byte alignment.
+   Every dtype of a chain (``dtype_cases``, ``dtype_store_cases``): K1, K2,
+   the warp kernel and the pointwise kernel on int8, uint16, int16 and
+   float16 sources at their main paths' shapes, chains through each of
+   those dtypes back to float32 and stored in it (float16 planes among
+   them) in all five kernels, a uint16 group stored into a uint8 batch and
+   float16 crops with uint8 images in one batch, and a chain of one dtype
+   into an ``out=`` view of another in each kernel that takes one (uint16
+   into uint8, uint8 into int16, float16 into uint8).
    uint8 must match bit for bit, float32 within 1e-6, warp float32 bit for
-   bit too;
+   bit too, every other dtype bit for bit;
 4. the main paths: ``execute_operations`` twice each (new rects, new frame
    contents, new warp matrices and ``used_planes``) and
    ``launch_divergent_batch`` twice each for D1, D3, D4 (a new ``first``,
@@ -80,6 +88,12 @@ code and no result line:
    flagship call through ``cv2_compat``; D14 twice; ring updates in every
    layout and order, a float32 chain behind a resize head into uint8 and
    int16 rings and behind a warp head into a uint8 ring in one launch each;
+   every dtype on the main paths, twice each with new values, one launch
+   and no plan on the second, equal to the eager version bit for bit: the
+   flagship on a 12-bit uint16 frame into float16 planes, frame (a) into
+   float16, W6 into float16, D1 into an int16 batch, and 40 updates of a
+   uint16 ``CircularTensor`` with uint8 frames, one launch each and no
+   temporary;
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain, and the
    kernel's duration in a ``torch.profiler`` trace of 20 launches (events
@@ -102,7 +116,8 @@ code and no result line:
    ``copy_``, as updates ran until the wrappers took ``out=``) and after;
    the pointwise kernel in P1-P5 (P1's bound is its operations at the
    unfused rate, half the published one: the build forbids FMAs); one eager
-   int32 pipeline, which no kernel takes;
+   int32 pipeline, which no kernel takes; the five dtype paths of phase 4,
+   each beside its bound and floor;
 6. sharding: (a) every rank of meshes of 2 and 5 (the flagship, 50 crops
    ragged at ``used_planes`` = 37) and of 2, 4 and 8 (W6; P2's ring from
    ``first`` = 3 and -5; D1 and D3) run on this card through the rank-local
@@ -465,6 +480,136 @@ def pointwise_rows(cvgs, mad_src, ring, first, hd, origin, nv12_hd, scale=0.3) -
     }
 
 
+# the dtypes a chain may hold beside uint8 and float32, and a scale that
+# brings a source of each to a few hundred
+NEW_DTYPES = {"i8": np.int8, "u16": np.uint16, "i16": np.int16, "f16": np.float16}
+DTYPE_ALPHA = {"u8": 0.5, "i8": 1.5, "u16": 1 / 128.0, "i16": 1 / 96.0, "f16": 0.25, "f32": 0.5}
+
+
+def as_dtype(torch, u8, name):
+    """A uint8 tensor's values spread over the range of another dtype, on
+    its device: int8 -128..127, uint16 0..65535, int16 -32768..32512,
+    float16 -250..387.5 (exact)."""
+    v = u8.to(torch.int32)
+    if name == "i8":
+        return (v - 128).to(torch.int8)
+    if name == "u16":
+        return (v * 257).to(torch.uint16)
+    if name == "i16":
+        return ((v - 128) * 256).to(torch.int16)
+    return ((v.to(torch.float32) - 100) * 2.5).to(torch.float16)
+
+
+def dtype_chain(cvgs, src, dst, to_f32=False):
+    """``convert_to`` the dtype ``dst``, a multiply, a subtract and a divide
+    in it (an integer saturates after each op, float16 rounds), and with
+    ``to_f32`` a cast back to float32."""
+    dtype = np.float32 if dst == "f32" else (np.uint8 if dst == "u8" else NEW_DTYPES[dst])
+    ops = (cvgs.convert_to(dtype, alpha=DTYPE_ALPHA[src]), cvgs.multiply(0.3),
+           cvgs.subtract(0.51), cvgs.divide(0.23))
+    return ops + ((cvgs.convert_to(np.float32),) if to_f32 else ())
+
+
+def dtype_cases(cvgs, torch, frame, rects, hd, ring) -> list:
+    """Phase 3's cases of every dtype: ``(name, kernel, ops)``. Each kernel
+    at its main path's shapes reads every source dtype it takes (K1, K2 and
+    the warp kernel int8, uint16, int16 and float16 beside uint8 and float32;
+    the pointwise kernel those too; the divergent kernel uint8 and float32),
+    runs chains through int8, uint16, int16 and float16 back to float32, and
+    stores into each of them, float16 planes among them."""
+    dsize = cvgs.Size(64, 128)
+    cases = []
+    mid = (WARP_DST[0] / 2, WARP_DST[1] / 2)
+    seq = cvgs.build_operation_sequence
+    for s in NEW_DTYPES:
+        fs, hs = as_dtype(torch, frame, s), as_dtype(torch, hd, s)
+        cases += [
+            (f"dt_src_{s}_flagship", "batch_resize",
+             (cvgs.resize_batch(fs, rects=rects, dsize=dsize),
+              cvgs.convert_to(np.float32, alpha=DTYPE_ALPHA[s]), cvgs.subtract(SUB),
+              cvgs.divide(DIV), cvgs.split_tensor())),
+            (f"dt_src_{s}_frame_a", "frame_resize",
+             (cvgs.resize(cvgs.image(hs), cvgs.Size(*FRAME_DST)),
+              cvgs.convert_to(np.float32, alpha=DTYPE_ALPHA[s] / 255.0), cvgs.subtract(MEAN),
+              cvgs.divide(STD), cvgs.split_tensor())),
+            (f"dt_src_{s}_w2_rotation", "warp",
+             (cvgs.warp(cvgs.image(hs), rotation((960, 540), 10.0, 1 / 3.0, to=mid),
+                        cvgs.Size(*WARP_DST), default=(1.0, 2.0, 3.0)),
+              cvgs.convert_to(np.float32, alpha=DTYPE_ALPHA[s]), cvgs.split_tensor())),
+            (f"dt_src_{s}_p3_border_constant", "pointwise",
+             (cvgs.make_border(cvgs.image(hs), BORDER, BORDER, BORDER, BORDER,
+                               cvgs.BorderMode.CONSTANT, value=(10.0, 20.0, 30.0)),
+              cvgs.convert_to(np.float32, alpha=DTYPE_ALPHA[s]), cvgs.split_tensor())),
+        ]
+        for to_f32 in (True, False):  # a chain through the dtype, or one stored in it
+            tag = f"dt_chain_{s}" + ("_to_f32" if to_f32 else "_stored")
+            chain = dtype_chain(cvgs, "u8", s, to_f32)
+            cases += [
+                (f"{tag}_flagship", "batch_resize",
+                 (cvgs.resize_batch(frame, rects=rects, dsize=dsize), *chain, cvgs.split_tensor())),
+                (f"{tag}_frame_a", "frame_resize",
+                 (cvgs.resize(cvgs.image(hd), cvgs.Size(*FRAME_DST)), *chain,
+                  cvgs.split_tensor())),
+                (f"{tag}_w6", "warp", warp_batch_ops(cvgs, cvgs.image(hd), -10.0, 7)[:1]
+                 + (*chain, cvgs.split_tensor())),
+                (f"{tag}_p2_ring", "pointwise",
+                 (cvgs.circular_batch_read(ring, first=3), *chain, cvgs.split_tensor())),
+                (f"{tag}_d1", "divergent", ([1, 2] * 8, (
+                    seq(cvgs.circular_batch_read(ring, first=3), *chain, cvgs.write_tensor()),
+                    seq(cvgs.circular_batch_read(ring, first=-5),
+                        cvgs.convert_to(np.float32, alpha=0.5), cvgs.write_tensor())))),
+            ]
+    cases += [
+        ("dt_src_i8_w5_perspective", "warp",
+         (cvgs.warp(cvgs.image(as_dtype(torch, hd, "i8")), PERSPECTIVE_W5, cvgs.Size(640, 384),
+                    warp_type=cvgs.WarpType.PERSPECTIVE), cvgs.convert_to(np.float32),
+          cvgs.split_tensor())),
+        ("dt_src_u16_w6_batch_to_f16", "warp",
+         warp_batch_ops(cvgs, cvgs.image(as_dtype(torch, hd, "u16")), -10.0, 7)[:1]
+         + (cvgs.convert_to(np.float32, alpha=1 / 257.0), cvgs.convert_to(np.float16),
+            cvgs.split_tensor())),
+        ("dt_src_f16_p1_image_gray", "pointwise",
+         (cvgs.image(as_dtype(torch, hd, "f16")),
+          cvgs.cvt_color(cvgs.ColorConversionCode.COLOR_RGB2GRAY), cvgs.multiply(0.5),
+          cvgs.write())),
+        # a uint16 chain into a uint8 batch (it wraps), a float16 crop group
+        # and a uint8 image group into a float16 batch
+        ("dt_d1_u16_group_into_u8_batch", "divergent", ([1, 2] * 8, (
+            seq(cvgs.circular_batch_read(ring, first=1), cvgs.convert_to(np.uint8, alpha=0.5),
+                cvgs.write_tensor()),
+            seq(cvgs.image(ring), cvgs.convert_to(np.uint16, alpha=300.0),
+                cvgs.write_tensor())))),
+        ("dt_d3_f16_crops_u8_images", "divergent", ([1, 1, 2, 1, 2, 1, 1, 2], (
+            seq(cvgs.resize_batch(frame, rects=rects[:8], dsize=dsize),
+                cvgs.convert_to(np.float16, alpha=0.25), cvgs.subtract(0.51), cvgs.write_tensor()),
+            seq(cvgs.image(ring[:8, :128, :64].contiguous()), cvgs.convert_to(np.uint8),
+                cvgs.write_tensor())))),
+    ]
+    return cases
+
+
+def dtype_store_cases(cvgs, frame, rects, hd) -> list:
+    """Phase 3's stores of one chain dtype into an ``out=`` view of another:
+    ``(name, kernel, ops, view dtype)`` for a uint16 chain into uint8 (a
+    narrowing wrap), a uint8 chain into int16 (widening) and a float16
+    chain into uint8 (clamped, then truncated), in each kernel with
+    ``out=``."""
+    reads = {
+        "batch_resize": lambda: cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(64, 128)),
+        "frame_resize": lambda: cvgs.resize(cvgs.image(hd), cvgs.Size(*FRAME_DST)),
+        "warp": lambda: cvgs.warp(cvgs.image(hd), rotation((960, 540), 10.0, 1 / 3.0,
+                                                           to=(WARP_DST[0] / 2, WARP_DST[1] / 2)),
+                                  cvgs.Size(*WARP_DST)),
+        "pointwise": lambda: cvgs.crop(cvgs.image(hd), cvgs.Rect(-300, -200, 256, 256)),
+    }
+    chains = {"u16_into_u8": (np.uint16, 300.0, np.uint8), "u8_into_i16": (np.uint8, 1.7, np.int16),
+              "f16_into_u8": (np.float16, 1.7, np.uint8)}
+    return [(f"dt_out_{name}_{kernel}", kernel,
+             (read(), cvgs.convert_to(dtype, alpha=alpha), cvgs.subtract(70.25), cvgs.split_tensor()),
+             view)
+            for kernel, read in reads.items() for name, (dtype, alpha, view) in chains.items()]
+
+
 def phase7(mesh, modules: dict) -> dict:
     """The system's own benchmarks and examples on the card: the four
     benchmark scripts at their full shapes with ``--quick`` (fewer
@@ -591,6 +736,8 @@ def main() -> int:
             if g.shape != w.shape or g.dtype != w.dtype:
                 raise AssertionError(f"{name}: kernel {g.shape} {g.dtype}, plain {w.shape} {w.dtype}")
             if not g.dtype.is_floating_point:
+                if g.dtype == torch.uint16:  # its bits: CUDA compares no uint16
+                    g, w = g.view(torch.int16), w.view(torch.int16)
                 if not torch.equal(g, w):
                     bad = int((g.to(torch.int32) != w.to(torch.int32)).sum())
                     raise AssertionError(f"{name}: {bad} {g.dtype} values differ")
@@ -969,6 +1116,29 @@ def main() -> int:
         compare(f"out_into_a_strided_slot_{kernel}", kernel, view, module.run(pipeline, a.plan, dev),
                 0.0)
         assert bool((slots[:, [0, 1, 3]] == -1.0).all()), "the store left its slot"
+
+    # every dtype a TPU kernel takes: each kernel against its plain version
+    # at its main path's shapes for every source dtype it reads, chains
+    # through int8, uint16, int16 and float16 and stores into each (bit for
+    # bit, float32 within 1e-6); then a chain of one dtype stored into an
+    # out= view of another, one store each: a narrowing wrap, a widening, a
+    # float16 chain clamped into uint8
+    for name, kernel, ops in dtype_cases(cvgs, torch, frame, rects_a, hd, ring):
+        if kernel == "divergent":
+            ids, seqs = ops
+            a = kd.prepare(seqs, kd.build_plan(seqs, ids), dev)
+            compare(name, kernel, kd.divergent(a), kd.divergent_reference(a))
+        else:
+            check(name, *ops, kernel=kernel)
+    for name, kernel, ops, view_dtype in dtype_store_cases(cvgs, frame, rects_a, hd):
+        module, launch, plain = kernels[kernel]
+        pipeline = cvgs.build_pipeline(*ops)
+        a = module.prepare(pipeline, module.build_plan(pipeline), dev)
+        want = dt.astype(plain(a), dt.to_torch_dtype(view_dtype))
+        host = torch.zeros(tuple(want.shape[:-1]) + (want.shape[-1] + 2,), dtype=want.dtype,
+                           device=dev)
+        view = host[..., 1:-1]  # rows off the contiguous pitch
+        compare(name, kernel, launch(a, out=view), want, 0.0)
 
     # ---- phase 4: the main path through the public entry points
     path_calls = {name: 0 for name in kernels}
@@ -1462,6 +1632,108 @@ def main() -> int:
         f"updated on the CPU; device bytes allocated by 5 updates at most {ring_alloc} (one "
         f"128x64x3 uint8 plane is {64 * 128 * 3})")
 
+    # every dtype on the main paths, through the public entry points twice
+    # each with new values: the flagship on a 12-bit uint16 frame into
+    # float16 planes, frame (a) into float16, W6 into float16, D1 into an
+    # int16 batch; each call one launch of its kernel, no plan on the
+    # second, equal to the eager version bit for bit
+    frames_12bit = [(frame.to(torch.int32) * 4095 // 255).to(torch.uint16),
+                    (torch.roll(frame, 5, dims=1).to(torch.int32) * 4095 // 255).to(torch.uint16)]
+
+    def dtype_path_ops(k):
+        """The dtype paths' ops with the values of call ``k`` (0 or 1)."""
+        f16, seq = np.float16, cvgs.build_operation_sequence
+        d1_read = cvgs.circular_batch_read(ring, first=(3, -5)[k])
+        return {
+            "flagship_u16_12bit_to_f16": ("batch_resize", (
+                cvgs.resize_batch(frames_12bit[k], rects=(rects_a, shifted)[k], dsize=dsize),
+                cvgs.convert_to(f16, alpha=1 / 4095.0), cvgs.subtract(MEAN), cvgs.divide(STD),
+                cvgs.split_tensor())),
+            "frame_a_to_f16": ("frame_resize", (
+                cvgs.resize(cvgs.image((hd, hd2)[k]), cvgs.Size(*FRAME_DST)),
+                cvgs.convert_to(f16, alpha=1 / 255.0), cvgs.subtract(MEAN), cvgs.divide(STD),
+                cvgs.split_tensor())),
+            "w6_to_f16": ("warp", warp_batch_ops(cvgs, shared, (-10.0, -7.0)[k], (7, 6)[k])[:1]
+                          + (cvgs.convert_to(f16, alpha=1 / 255.0), cvgs.split_tensor())),
+            "d1_into_int16": ("divergent", ([1, 2] * 8, (
+                seq(d1_read, cvgs.convert_to(np.int16, alpha=(100.0, 90.0)[k]),
+                    cvgs.subtract(12000.5), cvgs.write_tensor()),
+                seq(d1_read, cvgs.convert_to(np.float32, alpha=-50.0), cvgs.write_tensor())))),
+        }
+
+    dtype_launches = {}
+    for name, (kernel, _) in dtype_path_ops(0).items():
+        module = kernels[kernel][0]
+        module.LAUNCHES = 0
+        builds0 = executor.PLAN_BUILDS
+        outs, seen = [], []
+        for k in (0, 1):
+            ops = dtype_path_ops(k)[name][1]
+            if kernel == "divergent":
+                outs.append(drive(kernel, lambda: cvgs.launch_divergent_batch(ops[0], *ops[1])))
+            else:
+                outs.append(drive(kernel, lambda: cvgs.execute_operations(*ops)))
+            seen.append((cvgs.last_backend(), module.LAUNCHES, executor.PLAN_BUILDS))
+        torch.cuda.synchronize()
+        if kernel == "divergent":
+            eager = cvgs.launch_divergent_batch(ops[0], *ops[1], backend=cvgs.ParBackend.TORCH)
+        else:
+            eager = cvgs.execute_operations(*ops, backend=cvgs.ParBackend.TORCH)
+        bits = torch.int16 if eager.element_size() == 2 else torch.uint8
+        same = outs[1].dtype == eager.dtype and torch.equal(outs[1].view(bits), eager.view(bits))
+        finite = not eager.dtype.is_floating_point or bool(torch.isfinite(outs[1]).all())
+        dtype_launches[name] = module.LAUNCHES
+        log(f"phase4 dtype path ({name}): backends {[b for b, _, _ in seen]}; launches "
+            f"{[n for _, n, _ in seen]}; plan builds {builds0} -> {seen[0][2]} -> {seen[1][2]}; "
+            f"{tuple(outs[1].shape)} {outs[1].dtype}, finite {finite}; equal to eager torch {same}")
+        assert same and finite, name
+        assert [b for b, _, _ in seen] == [f"cuda:{kernel}"] * 2, seen
+        assert [n for _, n, _ in seen] == [1, 2], seen
+        assert seen[0][2] <= builds0 + 1 and seen[1][2] == seen[0][2], (builds0, seen)
+        assert not torch.equal(outs[0].view(torch.uint8), outs[1].view(torch.uint8)), name
+    main_launches += dtype_launches["flagship_u16_12bit_to_f16"]
+    frame_launches += dtype_launches["frame_a_to_f16"]
+    warp_launches += dtype_launches["w6_to_f16"]
+    divergent_launches += dtype_launches["d1_into_int16"]
+
+    # a CircularTensor of uint8 frames into a uint16 ring: 40 updates, each
+    # one launch of the frame kernel storing into its slot (a widening
+    # store), no plan after the first, no temporary
+    ct16 = cvgs.CircularTensor(64, 128, 3, 32, dtype=np.uint16, device=dev)
+    eager16 = torch.zeros(ct16.shape, dtype=torch.int32, device=dev)
+
+    def ct16_ops(k):
+        return (cvgs.resize(cvgs.image(torch.roll(hd, 7 * k, dims=1)), cvgs.Size(64, 128)),
+                cvgs.convert_to(np.uint8, alpha=0.9, beta=3.0))
+
+    kfr.LAUNCHES = 0
+    ct16_new_plans, ct16_grown = 0, 0
+    for k in range(40):
+        ops = ct16_ops(k)  # the frame moved by 7k columns: made before the update is watched
+        b0 = executor.PLAN_BUILDS
+        torch.cuda.synchronize()
+        allocated0 = torch.cuda.memory_stats(dev)["allocated_bytes.all.allocated"]
+        drive("frame_resize", lambda: ct16.update(*ops))
+        torch.cuda.synchronize()
+        if k:
+            ct16_new_plans += executor.PLAN_BUILDS - b0
+            ct16_grown = max(ct16_grown, torch.cuda.memory_stats(dev)[
+                "allocated_bytes.all.allocated"] - allocated0)
+        assert cvgs.last_backend() == "cuda:frame_resize", cvgs.last_backend()
+        x = cvgs.execute_operations(*ct16_ops(k), backend=cvgs.ParBackend.TORCH)
+        eager16[k % 32].copy_(x.permute(2, 0, 1).to(torch.int32))
+    ct16_launches = kfr.LAUNCHES
+    frame_launches += ct16_launches
+    perm = torch.tensor([(39 - z) % 32 for z in range(32)], device=dev)
+    ct16_equal = torch.equal(ct16.tensor.to(torch.int32), eager16.index_select(0, perm))
+    log(f"phase4 CircularTensor {ct16.shape} uint16 of uint8 frames: frame_resize launches "
+        f"{ct16_launches} in 40 updates; plans built after the first update {ct16_new_plans}; "
+        f"device bytes allocated by one update at most {ct16_grown} (one 128x64x3 uint16 plane "
+        f"is {128 * 64 * 3 * 2}); every logical plane equal to the eager ring {ct16_equal}")
+    assert ct16_launches == 40 and ct16_new_plans == 0 and ct16_equal, (
+        ct16_launches, ct16_new_plans, ct16_equal)
+    assert ct16_grown < 128 * 64 * 3, ct16_grown
+
     # ---- phase 5: times at the flagship shape
     def profiler_ms(fn, calls=20, what="a kernel"):
         """``utils.profiling.profiler_ms``, its empty traces logged here."""
@@ -1767,6 +2039,40 @@ def main() -> int:
         f"us for the same chain on a uint8 frame through cuda:pointwise (host-bound: events around "
         f"whole execute_operations calls); card {card}")
 
+    # the dtype paths of phase 4: each kernel by events and by profiler beside
+    # its plain version, its bound and floor (its bytes at the dtypes it
+    # reads and writes); the uint16 ring's update as its kernel's store into
+    # the slot
+    dtype_times = {}
+    for name, (kernel, ops) in dtype_path_ops(0).items():
+        module, launch, plain = kernels[kernel]
+        if kernel == "divergent":
+            ids, seqs = ops
+            seqs = map_leaves(seqs, lambda v: as_device_tensor(v, dev))
+            targs = kd.prepare(seqs, kd.build_plan(seqs, ids), dev)
+        else:
+            pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: as_device_tensor(v, dev))
+            targs = module.prepare(pipe, module.build_plan(pipe), dev)
+        t = measure(lambda: launch(targs), lambda: plain(targs), 50, plain_iters=10)
+        t.update(bounds.bound(*module.work(targs), bandwidth))
+        t["library_ms"] = t["library_profiler_ms"] = None
+        dtype_times[name] = t
+        log(f"phase5 dtype path {name} ({kernel}): {describe(t)}")
+    pipe16 = map_leaves(cvgs.build_pipeline(*ct16_ops(40), cvgs.split_tensor()),
+                        lambda v: as_device_tensor(v, dev))
+    args16 = kfr.prepare(pipe16, kfr.build_plan(pipe16), dev)
+    slot16 = torch.empty((2, 3, 128, 64), dtype=torch.uint16, device=dev)[1]
+    t = measure(lambda: kfr.frame_resize(args16, out=slot16),
+                lambda: kbr.reference_into(kfr.frame_resize_reference(args16), slot16, dev), 50,
+                plain_iters=10)
+    out_bytes, src_bytes, flops = kfr.work(args16)
+    # the slot holds uint16: twice the bytes of the plan's uint8 values
+    t.update(bounds.bound(2 * out_bytes, src_bytes, flops, bandwidth))
+    t["library_ms"] = t["library_profiler_ms"] = None
+    dtype_times["circular_tensor_u8_into_u16_ring"] = t
+    log(f"phase5 dtype path circular_tensor_u8_into_u16_ring (frame_resize, out= the slot): "
+        f"{describe(t)}")
+
     # ---- phase 6: the batch axis sharded over a device mesh (parallel/mesh.py)
     # (a) every rank of meshes of 2 to 8 on this card, through the rank-local
     # function both sharded entry points run: one launch of the path's kernel
@@ -1991,12 +2297,15 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("batch_resize", "batch_resize.cu", "cvgpuspeedup_tpu/exec/pallas_backend.py:500",
               main_launches, k1, cases={"flagship": k1},
+              dtype_path=dtype_times["flagship_u16_12bit_to_f16"],
               sharded_launches=sharded_launches["batch_resize"], sharding=shard_times),
         # path (a); both paths below
         entry("frame_resize", "frame_resize.cu", "cvgpuspeedup_tpu/exec/pallas_frame.py:663",
               frame_launches, frame_times["a"],
               paths={"a_1080p_rgb_to_640x360": frame_times["a"],
-                     "b_nv12_6k_to_1080p": frame_times["b"]}),
+                     "b_nv12_6k_to_1080p": frame_times["b"]},
+              dtype_paths={k: dtype_times[k] for k in ("frame_a_to_f16",
+                                                       "circular_tensor_u8_into_u16_ring")}),
         # W6, the batch of the main path (the batched TPU kernel); the
         # single-image classes and the timed cases below
         entry("warp", "warp.cu", "cvgpuspeedup_tpu/exec/pallas_warp_universal.py:741",
@@ -2004,11 +2313,12 @@ def main() -> int:
               also_replaces=["cvgpuspeedup_tpu/exec/pallas_warp.py:202",
                              "cvgpuspeedup_tpu/exec/pallas_warp_general.py:272",
                              "cvgpuspeedup_tpu/exec/pallas_warp_universal.py:359"],
-              cases=warp_times, sharded_launches=sharded_launches["warp"]),
+              cases=warp_times, sharded_launches=sharded_launches["warp"],
+              dtype_path=dtype_times["w6_to_f16"]),
         # D4, the reference's warp | crop | pass row; D1-D4 below
         entry("divergent", "divergent.cu", "cvgpuspeedup_tpu/exec/pallas_divergent.py:686",
               divergent_launches, d4t, cases=div_times,
-              circular_tensor_update_ms=ct_update_ms,
+              circular_tensor_update_ms=ct_update_ms, dtype_path=dtype_times["d1_into_int16"],
               sharded_launches=sharded_launches["divergent"]),
         # P1, the MAD stress (bound by its unfused operations); P1-P5 below. No
         # Pallas counterpart: it replaces the reference's jitted XLA program

@@ -96,8 +96,8 @@ __device__ __forceinline__ bool sample_crop(const SrcT* __restrict__ plane, int 
 #pragma unroll
   for (int c = 0; c < kMaxCh; ++c) {
     if (c < nch) {
-      const float h0 = lerp_rn((float)__ldg(r0 + c0 + c), (float)__ldg(r0 + c1 + c), wx);
-      const float h1 = lerp_rn((float)__ldg(r1 + c0 + c), (float)__ldg(r1 + c1 + c), wx);
+      const float h0 = lerp_rn(ldf(r0 + c0 + c), ldf(r0 + c1 + c), wx);
+      const float h1 = lerp_rn(ldf(r1 + c0 + c), ldf(r1 + c1 + c), wx);
       v[c] = lerp_rn(h0, h1, wy);
     }
   }

@@ -4,8 +4,12 @@
 // once per pipeline structure by exec/cuda_batch_resize.py::encode_chain,
 // over a float32 parameter block. Values live in float32 registers, up to
 // kMaxCh channels; the encoder tracks the running dtype and channel count
-// statically, so a uint8 value is saturated after each op and a colour
-// conversion may change the channel count.
+// statically, so an integer value is saturated after each op, a float16
+// value rounded, and a colour conversion may change the channel count.
+// Every dtype a chain may hold (uint8, int8, uint16, int16, float16,
+// float32) is exact in a float32 register, and one float32 +, -, * or / of
+// two float16 values rounded to float16 is the float16 operation (24 >=
+// 2 * 11 + 2 bits), so every kernel runs every chain in float32.
 //
 // A kernel holds one pixel per thread (float v[1][kMaxCh]) or P adjacent
 // ones (v[P][kMaxCh], P of 1 or 4); run_chain and store_pixels take either.
@@ -19,8 +23,11 @@
 
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -38,20 +45,41 @@ enum : int {
   OP_ALPHA = 8,      // append a channel holding aux (1 for float, 255 for uint8)
   OP_GRAY_U8 = 9,    // OpenCV's 15-bit fixed point; r, g, b at aux bits 0, 4, 8
   OP_GRAY_F32 = 10,  // r*0.299 + g*0.587 + b*0.114 in float32
-  // the wide table, run only by the pointwise kernel (pointwise_chain.cuh):
-  // int8, uint16 and int16 are exact in a float32 register, as uint8 is
   OP_SAT_I8 = 11,    // round half to even, clamp to [-128, 127]
   OP_SAT_U16 = 12,   // ... to [0, 65535]
   OP_SAT_I16 = 13,   // ... to [-32768, 32767]
   OP_CAST_I8 = 14,   // truncate, keep the low 8 bits, sign-extended
   OP_CAST_U16 = 15,  // truncate, keep the low 16 bits
   OP_CAST_I16 = 16,  // truncate, keep the low 16 bits, sign-extended
+  OP_CAST_F16 = 17,  // round to the nearest float16, ties to even, overflow to +-inf
+  OP_GRAY_F16 = 18,  // OP_GRAY_F32 in float16: constants, products and sums rounded
+  // an op on a float16 value: its scalar rounded to float16 first, as
+  // ops/arithmetic.py casts it to the value's dtype; an OP_CAST_F16 row
+  // follows and rounds the result
+  OP_MUL_F16 = 19,
+  OP_ADD_F16 = 20,
+  OP_SUB_F16 = 21,
+  OP_DIV_F16 = 22,
 };
 
 // float32(0.299), float32(0.587), float32(0.114), as ops/color.py rounds them
 constexpr float kGrayR = 0x1.322d0ep-2f;
 constexpr float kGrayG = 0x1.2c8b44p-1f;
 constexpr float kGrayB = 0x1.d2f1aap-4f;
+// float16(0.299), float16(0.587), float16(0.114)
+constexpr float kGrayR16 = 0x1.324p-2f;
+constexpr float kGrayG16 = 0x1.2c8p-1f;
+constexpr float kGrayB16 = 0x1.d3p-4f;
+
+// v rounded to the nearest float16 (ties to even, overflow to +-inf), as a
+// float32: Tensor.to(float16)
+__device__ __forceinline__ float round_f16(float v) { return __half2float(__float2half_rn(v)); }
+
+// A float16 element: its bits. Loads and stores convert through the
+// cuda_fp16 intrinsics, so no kernel relies on __half's own conversions.
+struct f16 {
+  unsigned short bits;
+};
 
 __device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
   const int q = a / b;
@@ -100,62 +128,99 @@ __device__ __forceinline__ float byte_of(unsigned w, int i) {
   return (float)((w >> (8 * i)) & 0xffu);
 }
 
+// Byte i of w as an element of the 1-byte type SrcT: zero- or sign-extended.
+template <typename SrcT>
+__device__ __forceinline__ float byte_as(unsigned w, int i) {
+  if constexpr (std::is_same_v<SrcT, int8_t>) {
+    return (float)(int)(signed char)(w >> (8 * i));
+  } else {
+    return byte_of(w, i);
+  }
+}
+
+// An element's value as a float32 (exact for every element type), and one
+// element at p loaded through the read-only cache and converted.
+template <typename T>
+__device__ __forceinline__ float to_f32(T e) {
+  return (float)e;
+}
+__device__ __forceinline__ float to_f32(f16 e) { return __half2float(__ushort_as_half(e.bits)); }
+template <typename T>
+__device__ __forceinline__ T ld_elem(const T* __restrict__ p) {
+  return __ldg(p);
+}
+__device__ __forceinline__ f16 ld_elem(const f16* __restrict__ p) {
+  return f16{__ldg(reinterpret_cast<const unsigned short*>(p))};
+}
+template <typename T>
+__device__ __forceinline__ float ldf(const T* __restrict__ p) {
+  return to_f32(ld_elem(p));
+}
+
 // One pixel's nch values at p, element by element.
 template <typename SrcT>
 __device__ __forceinline__ void load_pixel(const SrcT* __restrict__ p, int nch,
                                            float (&v)[kMaxCh]) {
 #pragma unroll
   for (int c = 0; c < kMaxCh; ++c) {
-    if (c < nch) v[c] = (float)__ldg(p + c);
+    if (c < nch) v[c] = ldf(p + c);
   }
 }
 
+// The element types of a source or an output buffer; keep in step with
+// exec/cuda_batch_resize.py::TYPE_CODES
+enum : int { PW_U8 = 0, PW_I8 = 1, PW_U16 = 2, PW_I16 = 3, PW_F32 = 4, PW_F16 = 5 };
+
+// A kernel stores through one of four element types: uint8_t for a uint8
+// or an int8 buffer, uint16_t for a uint16 or an int16 one, f16, float. An
+// integer store truncates the value and keeps its low bits, which is the
+// integer itself for a value in the buffer's range and wraps one outside it,
+// as Tensor.to wraps an integer into a narrower one (store mode 2 of
+// exec/cuda_batch_resize.py::store_cast); a float16 store rounds to
+// nearest even.
 template <typename OutT>
 __device__ __forceinline__ OutT to_out(float v);
 template <>
 __device__ __forceinline__ float to_out<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ uint8_t to_out<uint8_t>(float v) {
-  return (uint8_t)__float2int_rz(v);  // the chain left an exact value in [0, 255]
-}
-template <>
-__device__ __forceinline__ int8_t to_out<int8_t>(float v) { return (int8_t)__float2int_rz(v); }
+__device__ __forceinline__ uint8_t to_out<uint8_t>(float v) { return (uint8_t)__float2int_rz(v); }
 template <>
 __device__ __forceinline__ uint16_t to_out<uint16_t>(float v) {
   return (uint16_t)__float2int_rz(v);
 }
 template <>
-__device__ __forceinline__ int16_t to_out<int16_t>(float v) { return (int16_t)__float2int_rz(v); }
+__device__ __forceinline__ f16 to_out<f16>(float v) {
+  return f16{__half_as_ushort(__float2half_rn(v))};
+}
 
-// The element types of an output buffer (and of the pointwise kernel's
-// sources); keep in step with exec/cuda_batch_resize.py::TYPE_CODES
-enum : int { PW_U8 = 0, PW_I8 = 1, PW_U16 = 2, PW_I16 = 3, PW_F32 = 4 };
+// The bits of a 2-byte output element.
+__device__ __forceinline__ unsigned short bits16(uint16_t e) { return e; }
+__device__ __forceinline__ unsigned short bits16(f16 e) { return e.bits; }
 
-template <typename OutT>
-struct Range;
-template <>
-struct Range<uint8_t> { static constexpr float lo = 0.f, hi = 255.f; };
-template <>
-struct Range<int8_t> { static constexpr float lo = -128.f, hi = 127.f; };
-template <>
-struct Range<uint16_t> { static constexpr float lo = 0.f, hi = 65535.f; };
-template <>
-struct Range<int16_t> { static constexpr float lo = -32768.f, hi = 32767.f; };
-template <>
-struct Range<float> { static constexpr float lo = 0.f, hi = 0.f; };
+// The range a float value is clamped to before an integer store of type
+// out_type (clamp_store): lo < hi for the four integer types, lo == hi
+// (nothing clamped) for a float buffer. Host code: the kernels take the two
+// bounds as arguments.
+inline void store_range(int out_type, float& lo, float& hi) {
+  lo = hi = 0.f;
+  switch (out_type) {
+    case PW_U8: hi = 255.f; break;
+    case PW_I8: lo = -128.f, hi = 127.f; break;
+    case PW_U16: hi = 65535.f; break;
+    case PW_I16: lo = -32768.f, hi = 32767.f; break;
+    default: break;
+  }
+}
 
-// A float32 chain stored into an integer buffer (clamp_store, a ring slot
-// of another dtype): each value clamped to the buffer's range here, then
-// truncated by to_out, as utils/dtypes.py::astype casts. A float32 buffer
-// is left as it is.
-template <typename OutT, int P, int L>
-__device__ __forceinline__ void clamp_to_range(float (&v)[P][L]) {
-  if constexpr (sizeof(OutT) < 4) {
+// A float chain stored into an integer buffer (clamp_store, a ring slot of
+// another dtype): each value clamped to [lo, hi] here, then truncated by
+// to_out, as utils/dtypes.py::astype casts.
+template <int P, int L>
+__device__ __forceinline__ void clamp_to_range(float (&v)[P][L], float lo, float hi) {
 #pragma unroll
-    for (int q = 0; q < P; ++q) {
+  for (int q = 0; q < P; ++q) {
 #pragma unroll
-      for (int c = 0; c < L; ++c) v[q][c] = fminf(fmaxf(v[q][c], Range<OutT>::lo), Range<OutT>::hi);
-    }
+    for (int c = 0; c < L; ++c) v[q][c] = fminf(fmaxf(v[q][c], lo), hi);
   }
 }
 
@@ -166,17 +231,82 @@ __device__ __forceinline__ float cast_i8(float v) { return (float)(int8_t)__floa
 __device__ __forceinline__ float cast_u16(float v) { return (float)(__float2int_rz(v) & 65535); }
 __device__ __forceinline__ float cast_i16(float v) { return (float)(int16_t)__float2int_rz(v); }
 
-// ops/cast.py::SaturateCast: round half to even, clamp to [lo, hi]
+// ops/cast.py::SaturateCast: round half to even, clamp to [lo, hi]; the
+// sum with +0 turns rintf's -0 (of a value in (-0.5, 0]) into the integer 0,
+// which a later store into a float buffer or a division would tell apart
 __device__ __forceinline__ float saturate(float v, float lo, float hi) {
   const float r = rintf(v);
-  return r < lo ? lo : (r > hi ? hi : r);
+  return __fadd_rn(r < lo ? lo : (r > hi ? hi : r), 0.f);
+}
+
+// A saturate or a truncate row of int8, uint16 or int16 (or uint8) on every
+// lane: the saturates as one loop over the range of the row's type, the
+// truncates as one loop that keeps the type's low bits (shift left, then
+// right: an arithmetic shift sign-extends the signed types), so a one-lane
+// instance of 16 pixels unrolls two loops, not eight. A lane at or above the
+// value's channel count holds a value no store reads.
+template <int P, int L>
+__device__ __forceinline__ void run_integer_row(int code, float (&v)[P][L]) {
+  float lo = 0.f, hi = 255.f;
+  int shift = 24;
+  bool sat = true, sign = false;
+  switch (code) {
+    case OP_SAT_I8: lo = -128.f, hi = 127.f; break;
+    case OP_SAT_U16: hi = 65535.f; break;
+    case OP_SAT_I16: lo = -32768.f, hi = 32767.f; break;
+    case OP_CAST_U8: sat = false; break;
+    case OP_CAST_I8: sat = false, sign = true; break;
+    case OP_CAST_U16: sat = false, shift = 16; break;
+    case OP_CAST_I16: sat = false, sign = true, shift = 16; break;
+    default: break;  // OP_SAT_U8
+  }
+  if (sat) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int c = 0; c < L; ++c) v[p][c] = saturate(v[p][c], lo, hi);
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int c = 0; c < L; ++c) {
+        const unsigned t = (unsigned)__float2int_rz(v[p][c]) << shift;
+        v[p][c] = sign ? (float)((int)t >> shift) : (float)(t >> shift);
+      }
+    }
+  }
+}
+
+// OP_GRAY_F32 (float32 constants, no rounding between ops) or OP_GRAY_F16
+// (float16 constants, each product and sum rounded to float16) of the
+// channels at aux bits 0, 4, 8, into v[0].
+template <bool kHalf>
+__device__ __forceinline__ void gray_float(float (&v)[kMaxCh], int aux) {
+  const float r = pick(v, aux & 15), g = pick(v, (aux >> 4) & 15), b = pick(v, (aux >> 8) & 15);
+  if constexpr (kHalf) {
+    const float s = round_f16(__fadd_rn(round_f16(__fmul_rn(r, kGrayR16)),
+                                        round_f16(__fmul_rn(g, kGrayG16))));
+    v[0] = round_f16(__fadd_rn(s, round_f16(__fmul_rn(b, kGrayB16))));
+  } else {
+    v[0] = __fadd_rn(__fadd_rn(__fmul_rn(r, kGrayR), __fmul_rn(g, kGrayG)), __fmul_rn(b, kGrayB));
+  }
+}
+
+// OP_CAST_F16 on every lane.
+template <int P, int L>
+__device__ __forceinline__ void round_row(float (&v)[P][L]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+#pragma unroll
+    for (int c = 0; c < L; ++c) v[p][c] = round_f16(v[p][c]);
+  }
 }
 
 // Runs the chain on the P pixels of v, each holding ch channels; returns the
 // channel count after the chain. An op row is decoded once for all P pixels
 // and a per-channel scalar is loaded once per channel, so a kernel that
-// gives a thread several pixels pays the table once. The wide table
-// (OP_SAT_I8 and up) is the pointwise kernel's alone (pointwise_chain.cuh).
+// gives a thread several pixels pays the table once.
 template <int P>
 __device__ __forceinline__ int run_chain(float (&v)[P][kMaxCh], int ch,
                                          const int* __restrict__ ops, int n_ops,
@@ -220,13 +350,12 @@ __device__ __forceinline__ int run_chain(float (&v)[P][kMaxCh], int ch,
         break;
       case OP_GRAY_F32:
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-          const float r = pick(v[p], aux & 15);
-          const float g = pick(v[p], (aux >> 4) & 15);
-          const float b = pick(v[p], (aux >> 8) & 15);
-          v[p][0] = __fadd_rn(__fadd_rn(__fmul_rn(r, kGrayR), __fmul_rn(g, kGrayG)),
-                              __fmul_rn(b, kGrayB));
-        }
+        for (int p = 0; p < P; ++p) gray_float<false>(v[p], aux);
+        ch = 1;
+        break;
+      case OP_GRAY_F16:
+#pragma unroll
+        for (int p = 0; p < P; ++p) gray_float<true>(v[p], aux);
         ch = 1;
         break;
 #define CVGS_ARITH(FN)                                   \
@@ -241,14 +370,24 @@ __device__ __forceinline__ int run_chain(float (&v)[P][kMaxCh], int ch,
       case OP_SUB: CVGS_ARITH(__fsub_rn)
       case OP_DIV: CVGS_ARITH(__fdiv_rn)
 #undef CVGS_ARITH
+#define CVGS_ARITH_F16(FN)                                                 \
+  _Pragma("unroll") for (int c = 0; c < kMaxCh; ++c) {                     \
+    if (c >= ch) continue;                                                 \
+    const float q = round_f16(__ldg(fp + off + c * stride));               \
+    _Pragma("unroll") for (int p = 0; p < P; ++p) v[p][c] = FN(v[p][c], q); \
+  }                                                                        \
+  break;
+      case OP_MUL_F16: CVGS_ARITH_F16(__fmul_rn)
+      case OP_ADD_F16: CVGS_ARITH_F16(__fadd_rn)
+      case OP_SUB_F16: CVGS_ARITH_F16(__fsub_rn)
+      case OP_DIV_F16: CVGS_ARITH_F16(__fdiv_rn)
+#undef CVGS_ARITH_F16
       case OP_SAT_U8:
 #pragma unroll
         for (int p = 0; p < P; ++p) {
 #pragma unroll
           for (int c = 0; c < kMaxCh; ++c) {
-            if (c >= ch) continue;
-            const float r = rintf(v[p][c]);
-            v[p][c] = r < 0.f ? 0.f : (r > 255.f ? 255.f : r);
+            if (c < ch) v[p][c] = saturate(v[p][c], 0.f, 255.f);
           }
         }
         break;
@@ -260,6 +399,17 @@ __device__ __forceinline__ int run_chain(float (&v)[P][kMaxCh], int ch,
             if (c < ch) v[p][c] = cast_u8(v[p][c]);
           }
         }
+        break;
+      case OP_SAT_I8:
+      case OP_SAT_U16:
+      case OP_SAT_I16:
+      case OP_CAST_I8:
+      case OP_CAST_U16:
+      case OP_CAST_I16:
+        run_integer_row(code, v);
+        break;
+      case OP_CAST_F16:
+        round_row(v);
         break;
       default:
         break;
@@ -277,8 +427,8 @@ __device__ __forceinline__ void store_vec4(OutT* __restrict__ p, float a, float 
     *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
   } else if constexpr (sizeof(OutT) == 2) {
     *reinterpret_cast<ushort4*>(p) =
-        make_ushort4((unsigned short)to_out<OutT>(a), (unsigned short)to_out<OutT>(b),
-                     (unsigned short)to_out<OutT>(c), (unsigned short)to_out<OutT>(d));
+        make_ushort4(bits16(to_out<OutT>(a)), bits16(to_out<OutT>(b)), bits16(to_out<OutT>(c)),
+                     bits16(to_out<OutT>(d)));
   } else {
     *reinterpret_cast<uchar4*>(p) =
         make_uchar4((unsigned char)to_out<OutT>(a), (unsigned char)to_out<OutT>(b),

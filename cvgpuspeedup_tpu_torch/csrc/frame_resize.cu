@@ -46,85 +46,17 @@
 // csrc/frame_resize.cuh, shared with the divergent kernel). Every float op
 // is an _rn intrinsic and the library is built with -fmad=false.
 
-#include "frame_resize.cuh"
-
-namespace {
-
-// The adjacent output pixels a thread takes, from the launch's output
-// count: 4 where a thread per 4 pixels still fills 7/16 of the card's
-// resident threads (an NV12 source: half of them), else 1. A small launch
-// is bound by the latency of one thread's dependent chain, which more
-// pixels per thread only lengthen.
-inline int pixels_per_thread(long long outputs, bool yuv) {
-  return 4 * outputs >= (yuv ? 8 : 7) * resident_threads() ? 4 : 1;
-}
-
-// The tap tables and weights are laid out as csrc/frame_resize.cuh says.
-template <typename SrcT, typename OutT, bool kYuv, int P>
-__global__ void __launch_bounds__(256) frame_resize_kernel(
-    const SrcT* __restrict__ src, int src_h, int src_w, int nch, int nv21,
-    const int* __restrict__ taps, const float* __restrict__ wts, int keep_edge, Conv conv,
-    const float* __restrict__ fp, const int* __restrict__ ops, int n_ops, int dst_w, int dst_h,
-    OutT* __restrict__ out, int out_ch, int clamp_store, long long sc, long long sy, long long sx) {
-  const int x = (blockIdx.x * blockDim.x + threadIdx.x) * P;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= dst_w || y >= dst_h) return;
-  const int n = min(P, dst_w - x);
-  const bool keep = keep_edge != 0;
-  float v[P][kMaxCh];
-#pragma unroll
-  for (int q = 0; q < P; ++q) {
-#pragma unroll
-    for (int c = 0; c < kMaxCh; ++c) v[q][c] = 0.f;
-  }
-  int ch;
-  if constexpr (!kYuv) {
-    image_pixels<SrcT, P>(image_rows(src, src_w, nch, taps, wts, dst_w, dst_h, y), nch, taps,
-                          wts, dst_w, x, n, keep, v);
-    ch = nch;
-  } else {
-    nv12_pixels<P>(nv12_rows(src, src_h, src_w, taps, wts, dst_w, dst_h, y), nv21, taps, wts,
-                   dst_w, dst_h, x, n, keep, conv, v);
-    ch = conv.alpha ? 4 : 3;
-  }
-
-  run_chain(v, ch, ops, n_ops, fp);
-  if (clamp_store) clamp_to_range<OutT>(v);
-
-  store_any(out + (long long)y * sy + (long long)x * sx, v, n, out_ch, sc, sx);
-}
-
-template <typename SrcT, typename OutT, bool kYuv>
-void launch(const void* src, int src_h, int src_w, int nch, int nv21, const int* taps,
-            const float* wts, int keep_edge, const Conv& conv, const float* fp, const int* ops,
-            int n_ops, int dst_w, int dst_h, void* out, int out_ch, int clamp_store, long long sc,
-            long long sy, long long sx, cudaStream_t stream) {
-  const int pix = pixels_per_thread((long long)dst_w * dst_h, kYuv);
-  const dim3 block = group_block(dst_w, pix);
-  const int tile_w = block.x * pix;
-  const dim3 grid((dst_w + tile_w - 1) / tile_w, (dst_h + block.y - 1) / block.y);
-#define CVGS_KERNEL(P)                                                                          \
-  frame_resize_kernel<SrcT, OutT, kYuv, P><<<grid, block, 0, stream>>>(                         \
-      static_cast<const SrcT*>(src), src_h, src_w, nch, nv21, taps, wts, keep_edge, conv, fp,   \
-      ops, n_ops, dst_w, dst_h, static_cast<OutT*>(out), out_ch, clamp_store, sc, sy, sx)
-  if (pix == 4) {
-    CVGS_KERNEL(4);
-  } else {
-    CVGS_KERNEL(1);
-  }
-#undef CVGS_KERNEL
-}
-
-}  // namespace
+#include "sources.cuh"
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
-// `src` is an (src_h, src_w * nch) image, uint8 (src_u8 = 1) or float32, or
-// with yuv = 1 an NV12 (nv21 = 0) or NV21 uint8 buffer of (src_h * 3/2,
-// src_w). `out` holds elements of type `out_type` (PW_U8 .. PW_F32) with
-// out_ch channels, element strides (sc, sy, sx) per (channel, row, col).
-// With clamp_store, a float32 chain's values are clamped to an integer
-// buffer's range, then truncated.
-extern "C" int cvgs_frame_resize(const void* src, int src_u8, int src_h, int src_w, int nch,
+// `src` is an (src_h, src_w * nch) image of elements of type `src_type`
+// (PW_U8 .. PW_F16), or with yuv = 1 an NV12 (nv21 = 0) or NV21 uint8 buffer
+// of (src_h * 3/2, src_w). `out` holds elements of type `out_type` (PW_U8 ..
+// PW_F16) with out_ch channels, element strides (sc, sy, sx) per (channel,
+// row, col). With clamp_store (1), a float chain's values are clamped to an
+// integer buffer's range, then truncated; any other mode stores the chain's
+// values as they are.
+extern "C" int cvgs_frame_resize(const void* src, int src_type, int src_h, int src_w, int nch,
                                  int yuv, int nv21, const int* taps, const float* wts,
                                  int keep_edge, int limited, int alpha, float ys, float cs,
                                  float rv, float gu, float gv, float bu, const float* fparams,
@@ -132,31 +64,26 @@ extern "C" int cvgs_frame_resize(const void* src, int src_u8, int src_h, int src
                                  int out_type, int out_ch, int clamp_store, long long sc,
                                  long long sy, long long sx, void* stream) {
   if (nch < 1 || nch > kMaxCh || out_ch < 1 || out_ch > kMaxCh || dst_w < 1 || dst_h < 1 ||
-      src_h < 1 || src_w < 1 || n_ops < 0 || (yuv && (!src_u8 || nch != 1)) ||
-      out_type < PW_U8 || out_type > PW_F32) {
+      src_h < 1 || src_w < 1 || n_ops < 0 || src_type < PW_U8 || src_type > PW_F16 ||
+      (yuv && (src_type != PW_U8 || nch != 1)) || out_type < PW_U8 || out_type > PW_F16) {
     return (int)cudaErrorInvalidValue;
   }
-  const Conv conv{limited, alpha, ys, cs, rv, gu, gv, bu};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CVGS_LAUNCH(SrcT, OutT, YUV)                                                        \
-  launch<SrcT, OutT, YUV>(src, src_h, src_w, nch, nv21, taps, wts, keep_edge, conv, fparams, \
-                          ops, n_ops, dst_w, dst_h, out, out_ch, clamp_store, sc, sy, sx, s)
-#define CVGS_OUT(SrcT, YUV)                              \
-  switch (out_type) {                                    \
-    case PW_U8: CVGS_LAUNCH(SrcT, uint8_t, YUV); break;  \
-    case PW_I8: CVGS_LAUNCH(SrcT, int8_t, YUV); break;   \
-    case PW_U16: CVGS_LAUNCH(SrcT, uint16_t, YUV); break; \
-    case PW_I16: CVGS_LAUNCH(SrcT, int16_t, YUV); break; \
-    default: CVGS_LAUNCH(SrcT, float, YUV); break;       \
-  }
+  cvgs::FrameResizeArgs a{src, src_h, src_w, nch, nv21, taps, wts, keep_edge,
+                          Conv{limited, alpha, ys, cs, rv, gu, gv, bu},
+                          fparams, ops, n_ops, dst_w, dst_h, out, out_type, out_ch, 0.f, 0.f,
+                          sc, sy, sx, static_cast<cudaStream_t>(stream)};
+  if (clamp_store == 1) store_range(out_type, a.clamp_lo, a.clamp_hi);
   if (yuv) {
-    CVGS_OUT(uint8_t, true)
-  } else if (src_u8) {
-    CVGS_OUT(uint8_t, false)
-  } else {
-    CVGS_OUT(float, false)
+    k2::launch_source<uint8_t, true>(a);
+    return (int)cudaGetLastError();
   }
-#undef CVGS_OUT
-#undef CVGS_LAUNCH
+  switch (src_type) {
+    case PW_U8: k2::launch_source<uint8_t>(a); break;
+    case PW_F32: k2::launch_source<float>(a); break;
+    case PW_I8: cvgs::frame_resize_i8(a); break;
+    case PW_U16: cvgs::frame_resize_u16(a); break;
+    case PW_I16: cvgs::frame_resize_i16(a); break;
+    case PW_F16: cvgs::frame_resize_f16(a); break;
+  }
   return (int)cudaGetLastError();
 }

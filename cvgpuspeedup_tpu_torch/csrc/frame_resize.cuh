@@ -26,7 +26,19 @@
 
 #include "chain.cuh"
 
+// The YUV -> RGB conversion's range, alpha and coefficients (ops/nv12.py);
+// outside the anonymous namespace, since a launch's arguments hold it
+// across translation units (frame_resize_kernel.cuh).
+namespace cvgs {
+struct Conv {
+  int limited, alpha;
+  float ys, cs, rv, gu, gv, bu;
+};
+}  // namespace cvgs
+
 namespace {
+
+using cvgs::Conv;
 
 // The bilinear sample of a, b (the two taps of the upper row) and d, e (of
 // the lower one).
@@ -44,20 +56,15 @@ __device__ __forceinline__ float bilerp_values(float a, float b, float d, float 
 template <typename SrcT>
 __device__ __forceinline__ float bilerp(const SrcT* __restrict__ r0, const SrcT* __restrict__ r1,
                                         int c0, int c1, float wx, float wy, bool keep_edge) {
-  const float a = (float)__ldg(r0 + c0);
-  const float d = (float)__ldg(r1 + c0);
+  const float a = ldf(r0 + c0);
+  const float d = ldf(r1 + c0);
   float h0 = a, h1 = d;
   if (!(keep_edge && wx == 0.f)) {  // else the second taps are not read
-    h0 = lerp_rn(a, (float)__ldg(r0 + c1), wx);
-    h1 = lerp_rn(d, (float)__ldg(r1 + c1), wx);
+    h0 = lerp_rn(a, ldf(r0 + c1), wx);
+    h1 = lerp_rn(d, ldf(r1 + c1), wx);
   }
   return (keep_edge && wy == 0.f) ? h0 : lerp_rn(h0, h1, wy);
 }
-
-struct Conv {
-  int limited, alpha;
-  float ys, cs, rv, gu, gv, bu;
-};
 
 // The two source rows of output row y of an (src_h, src_w * nch) image and
 // its vertical weight.

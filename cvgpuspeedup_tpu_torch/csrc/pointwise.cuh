@@ -95,13 +95,14 @@ __device__ __forceinline__ int fold_index(int i, int n, int mode) {
 }
 
 // A float32 value cast to an element type and back, as Tensor.to does for a
-// value in range (truncate).
+// value in range (truncate; float16: round to nearest even).
 __device__ __forceinline__ float cast_to_type(float v, int type) {
   switch (type) {
     case PW_U8: return cast_u8(v);
     case PW_I8: return cast_i8(v);
     case PW_U16: return cast_u16(v);
     case PW_I16: return cast_i16(v);
+    case PW_F16: return round_f16(v);
     default: return v;
   }
 }
@@ -134,13 +135,13 @@ __device__ __forceinline__ void load_run(const SrcT* __restrict__ p, int n, floa
         } u;
         u.w = __ldg(reinterpret_cast<const W*>(p) + i);
 #pragma unroll
-        for (int j = 0; j < kPer; ++j) v[i * kPer + j][0] = (float)u.e[j];
+        for (int j = 0; j < kPer; ++j) v[i * kPer + j][0] = to_f32(u.e[j]);
       }
       return;
     }
   }
 #pragma unroll
-  for (int q = 0; q < P; ++q) v[q][0] = q < n ? (float)__ldg(p + q) : 0.f;
+  for (int q = 0; q < P; ++q) v[q][0] = q < n ? ldf(p + q) : 0.f;
 }
 
 // load_run of a source of a runtime type at element offset off.
@@ -152,6 +153,7 @@ __device__ __forceinline__ void load_run_typed(const void* __restrict__ base, in
     case PW_I8: load_run(static_cast<const int8_t*>(base) + off, n, v); break;
     case PW_U16: load_run(static_cast<const uint16_t*>(base) + off, n, v); break;
     case PW_I16: load_run(static_cast<const int16_t*>(base) + off, n, v); break;
+    case PW_F16: load_run(static_cast<const f16*>(base) + off, n, v); break;
     default: load_run(static_cast<const float*>(base) + off, n, v); break;
   }
 }
@@ -214,7 +216,7 @@ __device__ __forceinline__ bool load_pixels4(const SrcT* __restrict__ p,
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
 #pragma unroll
-    for (int c = 0; c < kMaxCh; ++c) v[q][c] = c < kCh ? (float)u.e[q * kCh + c] : 0.f;
+    for (int c = 0; c < kMaxCh; ++c) v[q][c] = c < kCh ? to_f32(u.e[q * kCh + c]) : 0.f;
   }
   return true;
 }
@@ -240,13 +242,13 @@ __device__ __forceinline__ void gather_row(const SrcT* __restrict__ row, int nch
   for (int q = 0; q < P; ++q) {
 #pragma unroll
     for (int c = 0; c < L; ++c) {
-      if ((mask >> q & 1) && c < nch) raw[q][c] = __ldg(row + xs[q] * nch + c);
+      if ((mask >> q & 1) && c < nch) raw[q][c] = ld_elem(row + xs[q] * nch + c);
     }
   }
 #pragma unroll
   for (int q = 0; q < P; ++q) {
 #pragma unroll
-    for (int c = 0; c < L; ++c) v[q][c] = (mask >> q & 1) && c < nch ? (float)raw[q][c] : 0.f;
+    for (int c = 0; c < L; ++c) v[q][c] = (mask >> q & 1) && c < nch ? to_f32(raw[q][c]) : 0.f;
   }
 }
 
@@ -286,6 +288,7 @@ __device__ __forceinline__ void read_base_row(const PwHead& h, const void* __res
     case PW_I8: gather_row(static_cast<const int8_t*>(src) + row, h.nch, xs, mask, v); break;
     case PW_U16: gather_row(static_cast<const uint16_t*>(src) + row, h.nch, xs, mask, v); break;
     case PW_I16: gather_row(static_cast<const int16_t*>(src) + row, h.nch, xs, mask, v); break;
+    case PW_F16: gather_row(static_cast<const f16*>(src) + row, h.nch, xs, mask, v); break;
     default: gather_row(static_cast<const float*>(src) + row, h.nch, xs, mask, v); break;
   }
 }

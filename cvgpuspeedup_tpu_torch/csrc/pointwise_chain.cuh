@@ -55,56 +55,24 @@ __device__ __forceinline__ void stage_rows(PwRow* rows, const int* __restrict__ 
   const int* __restrict__ chs = ops + 4 * n_ops + 1;
   for (int k = tid; k < m; k += threads) {
     const int r = k0 + k;
-    const int code = __ldg(ops + 4 * r);
+    int code = __ldg(ops + 4 * r);
     const int off = __ldg(ops + 4 * r + 1);
     const int stride = __ldg(ops + 4 * r + 2);
     const int ch = __ldg(chs + r);
     float q[kMaxCh] = {0.f, 0.f, 0.f, 0.f};
-    if (code >= OP_MUL && code <= OP_DIV) {
+    if (code >= OP_MUL_F16) {  // an op on a float16 value: its scalars rounded here
+#pragma unroll
+      for (int c = 0; c < kMaxCh; ++c) {
+        if (c < ch) q[c] = round_f16(__ldg(fp + off + c * stride));
+      }
+      code -= OP_MUL_F16 - OP_MUL;
+    } else if (code >= OP_MUL && code <= OP_DIV) {
 #pragma unroll
       for (int c = 0; c < kMaxCh; ++c) {
         if (c < ch) q[c] = __ldg(fp + off + c * stride);
       }
     }
     rows[k] = PwRow{code, q[0], __ldg(ops + 4 * r + 3), ch, q[1], q[2], q[3], 0};
-  }
-}
-
-// A saturate or a truncate row (uint8 or the wide table) on every lane:
-// the saturates as one loop over the range of the row's type, the truncates
-// as one loop that keeps the type's low bits (shift left, then right: an
-// arithmetic shift sign-extends the signed types), so a one-lane instance
-// of 16 pixels unrolls two loops, not eight.
-template <int P, int L>
-__device__ __forceinline__ void run_integer_row(int code, float (&v)[P][L]) {
-  float lo = 0.f, hi = 255.f;
-  int shift = 24;
-  bool sat = true, sign = false;
-  switch (code) {
-    case OP_SAT_I8: lo = -128.f, hi = 127.f; break;
-    case OP_SAT_U16: hi = 65535.f; break;
-    case OP_SAT_I16: lo = -32768.f, hi = 32767.f; break;
-    case OP_CAST_U8: sat = false; break;
-    case OP_CAST_I8: sat = false, sign = true; break;
-    case OP_CAST_U16: sat = false, shift = 16; break;
-    case OP_CAST_I16: sat = false, sign = true, shift = 16; break;
-    default: break;  // OP_SAT_U8
-  }
-  if (sat) {
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-#pragma unroll
-      for (int c = 0; c < L; ++c) v[p][c] = saturate(v[p][c], lo, hi);
-    }
-  } else {
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-#pragma unroll
-      for (int c = 0; c < L; ++c) {
-        const unsigned t = (unsigned)__float2int_rz(v[p][c]) << shift;
-        v[p][c] = sign ? (float)((int)t >> shift) : (float)(t >> shift);
-      }
-    }
   }
 }
 
@@ -176,14 +144,15 @@ __device__ __forceinline__ void run_rows(float (&v)[P][L], const PwRow* rows, in
     } else if (code == OP_GRAY_F32) {
       if constexpr (L == kMaxCh) {
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-          const float r = pick(v[p], aux & 15);
-          const float g = pick(v[p], (aux >> 4) & 15);
-          const float b = pick(v[p], (aux >> 8) & 15);
-          v[p][0] = __fadd_rn(__fadd_rn(__fmul_rn(r, kGrayR), __fmul_rn(g, kGrayG)),
-                              __fmul_rn(b, kGrayB));
-        }
+        for (int p = 0; p < P; ++p) gray_float<false>(v[p], aux);
       }
+    } else if (code == OP_GRAY_F16) {
+      if constexpr (L == kMaxCh) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) gray_float<true>(v[p], aux);
+      }
+    } else if (code == OP_CAST_F16) {
+      round_row(v);
     } else {
       run_integer_row(code, v);
     }

@@ -46,10 +46,10 @@ __device__ __forceinline__ void sample_point(const SrcT* __restrict__ src, int s
 #pragma unroll
   for (int ch = 0; ch < kMaxCh; ++ch) {
     if (ch < nch) {
-      const float v00 = (vy0 && vx0) ? (float)__ldg(r0 + ix0 + ch) : b[ch];
-      const float v01 = (vy0 && vx1) ? (float)__ldg(r0 + ix1 + ch) : b[ch];
-      const float v10 = (vy1 && vx0) ? (float)__ldg(r1 + ix0 + ch) : b[ch];
-      const float v11 = (vy1 && vx1) ? (float)__ldg(r1 + ix1 + ch) : b[ch];
+      const float v00 = (vy0 && vx0) ? ldf(r0 + ix0 + ch) : b[ch];
+      const float v01 = (vy0 && vx1) ? ldf(r0 + ix1 + ch) : b[ch];
+      const float v10 = (vy1 && vx0) ? ldf(r1 + ix0 + ch) : b[ch];
+      const float v11 = (vy1 && vx1) ? ldf(r1 + ix1 + ch) : b[ch];
       v[ch] = lerp_rn(lerp_rn(v00, v01, wx), lerp_rn(v10, v11, wx), wy);
     }
   }

@@ -91,7 +91,7 @@ class CircularTensor:
         """The window in logical order, gathered into a new buffer (valid
         across later updates)."""
         perm = torch.from_numpy(self._slot_perm(self._count)).to(self._ring.device)
-        return self._ring.index_select(self._plane_axis(), perm)
+        return dt.gather(self._ring, lambda r: r.index_select(self._plane_axis(), perm))
 
     def snapshot(self) -> torch.Tensor:
         """A copy of the window in logical order (the same as ``.tensor``)."""

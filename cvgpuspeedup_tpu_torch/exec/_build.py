@@ -142,7 +142,7 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
             lib = ctypes.CDLL(str(build(csrc_dir, build_dir)))
             p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
             lib.cvgs_batch_resize.argtypes = [
-                p, i, ll, i, i, i,         # src, src_u8, plane_stride, src_h, src_w, nch
+                p, i, ll, i, i, i,         # src, src_type, plane_stride, src_h, src_w, nch
                 p, p, p, p, i,             # rects, used, fparams, ops, n_ops
                 i, i, i, i,                # n_planes, dst_w, dst_h, mode
                 p, i, i, i,                # out, out_type, out_ch, clamp_store
@@ -151,7 +151,7 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
             ]
             lib.cvgs_batch_resize.restype = ctypes.c_int
             lib.cvgs_frame_resize.argtypes = [
-                p, i, i, i, i,             # src, src_u8, src_h, src_w, nch
+                p, i, i, i, i,             # src, src_type, src_h, src_w, nch
                 i, i, p, p, i,             # yuv, nv21, taps, weights, keep_edge
                 i, i, f, f, f, f, f, f,    # limited, alpha, ys, cs, rv, gu, gv, bu
                 p, p, i,                   # fparams, ops, n_ops
@@ -161,7 +161,7 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
             ]
             lib.cvgs_frame_resize.restype = ctypes.c_int
             lib.cvgs_warp.argtypes = [
-                p, i, i, i, i, i,          # srcs, src_u8, src_h, src_w, nch, perspective
+                p, i, i, i, i, i,          # srcs, src_type, src_h, src_w, nch, perspective
                 p, p, p, p, p, p, i,       # coeffs, border, default, used, fparams, ops, n_ops
                 i, i, i,                   # n_planes, dst_w, dst_h
                 p, i, i, i,                # out, out_type, out_ch, clamp_store
@@ -172,7 +172,7 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
             lib.cvgs_divergent.argtypes = [
                 p, p, i, i, i,             # blk, consts, ptr_off, desc_off, n_groups
                 i, i, i,                   # n_planes, dst_w, dst_h
-                p, i, i, ll, ll, ll, ll,   # out, out_u8, out_ch, sn, sc, sy, sx
+                p, i, i, ll, ll, ll, ll,   # out, out_type, out_ch, sn, sc, sy, sx
                 p,                         # stream
             ]
             lib.cvgs_divergent.restype = ctypes.c_int

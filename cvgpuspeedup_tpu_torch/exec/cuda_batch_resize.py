@@ -18,11 +18,14 @@ own ``apply`` and the write op, and reads neither the op table nor the
 parameter block, so holding the kernel against it also checks the encoder.
 
 The chain's running dtype and channel count are tracked statically: values
-stay in f32 registers, every op on a uint8 value is followed by a
-saturation back to uint8, as ``ops/arithmetic.py`` does, and a colour
-conversion may change the channel count. :func:`encode_chain` is shared
-with the full-frame kernel (``cuda_frame_resize``); both kernels interpret
-the table with ``csrc/chain.cuh``.
+stay in f32 registers, every op on an integer value is followed by a
+saturation back to its dtype and every op on a float16 value (its scalar
+rounded first) by a rounding to float16, as ``ops/arithmetic.py`` computes
+them, and a colour conversion
+may change the channel count. :func:`encode_chain` is shared by every
+kernel of the port, which all interpret the table with ``csrc/chain.cuh``.
+The kernels read every source dtype of ``SRC_DTYPES`` and store into every
+dtype of ``TYPE_CODES``.
 """
 
 from __future__ import annotations
@@ -52,17 +55,26 @@ LAUNCHES = 0
 # op codes; keep in step with csrc/chain.cuh
 (OP_MUL, OP_ADD, OP_SUB, OP_DIV, OP_SAT_U8, OP_CAST_U8, OP_REORDER, OP_ALPHA, OP_GRAY_U8,
  OP_GRAY_F32, OP_SAT_I8, OP_SAT_U16, OP_SAT_I16, OP_CAST_I8, OP_CAST_U16,
- OP_CAST_I16) = range(1, 17)
+ OP_CAST_I16, OP_CAST_F16, OP_GRAY_F16, OP_MUL_F16, OP_ADD_F16, OP_SUB_F16,
+ OP_DIV_F16) = range(1, 23)
 _ARITH = {Mul: OP_MUL, Add: OP_ADD, Sub: OP_SUB, Div: OP_DIV}
-# the saturate and the truncate row of each integer dtype a chain may hold
+# an op on a float16 value: the kernel rounds its scalar to float16 first, as
+# the op's ``apply`` casts it to the value's dtype
+_ARITH_F16 = {Mul: OP_MUL_F16, Add: OP_ADD_F16, Sub: OP_SUB_F16, Div: OP_DIV_F16}
+# the row that brings a value back into each dtype a chain may hold but
+# float32 after an op (an integer's saturate, float16's rounding), and the row
+# of a cast into it (an integer's truncate, float16's rounding)
 _SAT = {torch.uint8: OP_SAT_U8, torch.int8: OP_SAT_I8, torch.uint16: OP_SAT_U16,
-        torch.int16: OP_SAT_I16}
+        torch.int16: OP_SAT_I16, torch.float16: OP_CAST_F16}
 _CAST = {torch.uint8: OP_CAST_U8, torch.int8: OP_CAST_I8, torch.uint16: OP_CAST_U16,
-         torch.int16: OP_CAST_I16}
-#: the integer dtypes of the resampling kernels' chains, and of the pointwise
-#: kernel's (the wide table of ``csrc/chain.cuh``): all exact in an f32 register
-NARROW_INTS = (torch.uint8,)
-WIDE_INTS = tuple(_SAT)
+         torch.int16: OP_CAST_I16, torch.float16: OP_CAST_F16}
+#: the dtypes a chain may hold, as a source, a cast target and an output: each
+#: exact in an f32 register, and one f32 op of two float16 values rounded to
+#: float16 is the float16 op. int32, int64 and float64 are not among them.
+CHAIN_DTYPES = (torch.uint8, torch.int8, torch.uint16, torch.int16, torch.float16,
+                torch.float32)
+#: the dtypes of a chain's scalars, both exact in the f32 parameter block
+_SCALAR_DTYPES = ("float32", "float16")
 _MODES = {
     AspectRatio.IGNORE_AR: 0,
     AspectRatio.PRESERVE_AR: 1,
@@ -79,10 +91,14 @@ _LAYOUTS = {
 }
 _MAX_CHANNELS = 4
 _MAX_PLANES = 65535  # grid.z
-#: the source dtypes the kernels read
-SRC_DTYPES = {"uint8": torch.uint8, "float32": torch.float32}
-#: the element types of an output buffer; keep in step with csrc/chain.cuh
-TYPE_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3, torch.float32: 4}
+#: the element types of a source or an output buffer; keep in step with
+#: csrc/chain.cuh (PW_U8 .. PW_F16)
+TYPE_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3, torch.float32: 4,
+              torch.float16: 5}
+#: the source dtypes K1, K2 and the warp kernel read, by name
+SRC_DTYPES = {str(t).removeprefix("torch."): t for t in CHAIN_DTYPES}
+#: store modes of :func:`store_cast`
+STORE_AS_IS, STORE_CLAMP, STORE_WRAP = 0, 1, 2
 
 
 class Unsupported(ValueError):
@@ -135,13 +151,12 @@ def _reorder_row(indices) -> List[int]:
     return [OP_REORDER, 0, 0, packed | (len(indices) << 16)]
 
 
-def encode_chain(chain, nch: int, first_param: int = 0, dtype: torch.dtype = torch.float32,
-                 int_dtypes=NARROW_INTS):
+def encode_chain(chain, nch: int, first_param: int = 0, dtype: torch.dtype = torch.float32):
     """``(ops, out_dtype, out_ch, n_params)`` for a chain applied to values
-    of ``dtype`` (float32, or an integer dtype of ``int_dtypes`` read from
-    such a source) with ``nch`` channels; the kernel holds them in f32
-    registers either way. A cast to an integer dtype outside ``int_dtypes``
-    is refused. Parameter offsets count from ``first_param`` in the order
+    of ``dtype`` (one of ``CHAIN_DTYPES``) with ``nch`` channels; the kernel
+    holds them in f32 registers whatever the dtype. A cast to a dtype outside
+    ``CHAIN_DTYPES`` and a scalar that is neither float32 nor float16 are
+    refused. Parameter offsets count from ``first_param`` in the order
     :func:`~..graph.flatten` visits the leaves; ``n_params`` is the offset
     past the last one."""
     rows: List[List[int]] = []
@@ -162,21 +177,21 @@ def encode_chain(chain, nch: int, first_param: int = 0, dtype: torch.dtype = tor
             size = int(np.prod(shape)) if shape else 1
             if len(shape) > 1 or size not in (1, ch):
                 raise Unsupported(f"{type(o).__name__} scalar of shape {shape} on {ch} channels")
-            if _leaf_dtype_name(v) != "float32":
-                raise Unsupported(f"{type(o).__name__} scalar is {_leaf_dtype_name(v)}, not float32")
-            rows.append([_ARITH[type(o)], pos, 0 if size == 1 else 1, 0])
+            if _leaf_dtype_name(v) not in _SCALAR_DTYPES:
+                raise Unsupported(f"{type(o).__name__} scalar is {_leaf_dtype_name(v)}, not "
+                                  "float32 or float16")
+            table = _ARITH_F16 if dtype == torch.float16 else _ARITH
+            rows.append([table[type(o)], pos, 0 if size == 1 else 1, 0])
             if dtype != torch.float32:
                 rows.append([_SAT[dtype], 0, 0, 0])
             return dtype, ch, pos + size
         if isinstance(o, (SaturateCast, Cast)):
-            if o.dst == torch.float32:
-                return torch.float32, ch, pos
-            if o.dst in int_dtypes:
-                if dtype != o.dst:
-                    table = _SAT if isinstance(o, SaturateCast) else _CAST
-                    rows.append([table[o.dst], 0, 0, 0])
-                return o.dst, ch, pos
-            raise Unsupported(f"cast to {o.dst}")
+            if o.dst not in CHAIN_DTYPES:
+                raise Unsupported(f"cast to {o.dst}")
+            if o.dst != dtype and o.dst != torch.float32:
+                table = _SAT if isinstance(o, SaturateCast) else _CAST
+                rows.append([table[o.dst], 0, 0, 0])
+            return o.dst, ch, pos
         if isinstance(o, VectorReorder):
             idx = tuple(o.indices)
             if len(idx) != ch or any(not 0 <= i < ch for i in idx):
@@ -189,7 +204,8 @@ def encode_chain(chain, nch: int, first_param: int = 0, dtype: torch.dtype = tor
                 raise Unsupported(f"{o.code.name} on {ch} channels")
             if info[2] == "gray":
                 r, g, b = info[3]
-                code = OP_GRAY_F32 if dtype == torch.float32 else OP_GRAY_U8
+                code = {torch.float32: OP_GRAY_F32, torch.float16: OP_GRAY_F16}.get(dtype,
+                                                                                  OP_GRAY_U8)
                 rows.append([code, 0, 0, r | (g << 4) | (b << 8)])
                 return dtype, 1, pos
             rows.append(_reorder_row(info[2]))
@@ -314,26 +330,34 @@ def prepare(pipeline, plan: KernelPlan, device: torch.device) -> Launch:
                   fparams=fparams, ops=ops)
 
 
-def store_cast(plan_dtype: torch.dtype, out_dtype: torch.dtype) -> Optional[int]:
+def store_cast(plan_dtype: torch.dtype, out_dtype: torch.dtype) -> int:
     """How a kernel whose chain ends in ``plan_dtype`` stores into a buffer
-    of ``out_dtype`` as ``utils.dtypes.astype`` casts it: 0 as it is (the
-    same dtype, or an integer into float32, which is exact), 1 clamped to
-    the buffer's range and then truncated (float32 into an integer: the
-    ``clamp_store`` of every kernel but the divergent one, which has its
-    own), None where no store does it (an integer into another integer
-    wraps)."""
-    if plan_dtype == out_dtype or out_dtype == torch.float32:
-        return 0
-    if plan_dtype == torch.float32 and not out_dtype.is_floating_point:
-        return 1
-    return None
+    of ``out_dtype`` (both of ``TYPE_CODES``) as ``utils.dtypes.astype``
+    casts it:
+
+    - ``STORE_AS_IS`` (0): the same dtype; anything into float32, which is
+      exact; anything into float16, rounded to nearest even by the store;
+      an integer into a wider integer that holds every value of it;
+    - ``STORE_CLAMP`` (1): a float into an integer, clamped to the buffer's
+      range, then truncated (``clamp_store``);
+    - ``STORE_WRAP`` (2): an integer into an integer that does not hold all
+      of its values: the store keeps the low bits, as ``Tensor.to`` wraps.
+
+    The kernels store modes 0 and 2 alike: an integer store truncates and
+    keeps the low bits, which leaves a value in the buffer's range as it
+    is."""
+    if plan_dtype == out_dtype or out_dtype.is_floating_point:
+        return STORE_AS_IS
+    if plan_dtype.is_floating_point:
+        return STORE_CLAMP
+    src, dst = torch.iinfo(plan_dtype), torch.iinfo(out_dtype)
+    return STORE_AS_IS if dst.min <= src.min and src.max <= dst.max else STORE_WRAP
 
 
 def can_store(plan, dtype: torch.dtype) -> bool:
     """Whether ``out=`` of this kernel's wrapper may hold ``dtype``: one of
-    ``TYPE_CODES`` that the store reaches (:func:`store_cast` is not None)."""
-    return (plan.layout != "split_write" and dtype in TYPE_CODES
-            and store_cast(plan.out_dtype, dtype) is not None)
+    ``TYPE_CODES``, in any layout but ``SplitWrite``'s tuple."""
+    return plan.layout != "split_write" and dtype in TYPE_CODES
 
 
 class OutShapeError(ValueError):
@@ -437,9 +461,9 @@ def check_out_dtype(name: str, plan, out) -> None:
 def batch_resize(a: Launch, out: Optional[torch.Tensor] = None):
     """The kernel wrapper: launches on a CUDA tensor, runs the plain version
     on a CPU tensor, raises on anything else. It never falls back. With
-    ``out`` (a view of the write's shape, any strides, the plan's dtype or
-    float32, or an integer dtype for a float32 chain, clamped then
-    truncated) the result is stored there and ``out`` is returned."""
+    ``out`` (a view of the write's shape, any strides, any dtype of
+    ``TYPE_CODES``, cast as :func:`store_cast` says) the result is stored
+    there and ``out`` is returned."""
     global LAUNCHES
     dev = a.src.device
     if dev.type == "cpu":
@@ -458,7 +482,7 @@ def batch_resize(a: Launch, out: Optional[torch.Tensor] = None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cvgs_batch_resize(
-            a.src.data_ptr(), int(plan.src_dtype == torch.uint8), plane_stride,
+            a.src.data_ptr(), TYPE_CODES[plan.src_dtype], plane_stride,
             src_h, src_w, plan.nch,
             a.rects.data_ptr(), a.used.data_ptr(), a.fparams.data_ptr(), a.ops.data_ptr(),
             plan.ops.shape[0], plan.n_planes, w, h, _MODES[plan.aspect_ratio],

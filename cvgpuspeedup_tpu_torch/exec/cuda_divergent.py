@@ -41,9 +41,13 @@ then the first sequence's write. :func:`divergent_reference`, the plain
 PyTorch version, runs it on the launch's device; it reads neither the block
 nor the tables, so holding the kernel against it checks them.
 
-Groups may differ in output dtype: the batch takes plane 0's group's, and
-a float32 group of a uint8 batch stores through the merge's own cast
-(clamp, then truncate; ``CLAMP_STORE`` in the group's flags).
+A group reads a uint8 or float32 source (``SRC_DTYPES``, what the
+reference's TPU kernel reads), and its chain may hold and end in any dtype
+of ``cuda_batch_resize.CHAIN_DTYPES``. Groups may differ in output dtype:
+the batch takes plane 0's group's, and each group's store casts as the
+merge does (``cuda_batch_resize.store_cast``): a float group of an integer
+batch is clamped, then truncated (``CLAMP_STORE`` in the group's flags), an
+integer group of another integer batch wraps, a float16 batch rounds.
 
 Refused (:class:`Unsupported`, before anything launches): a group of no
 kind above, groups that differ in output (H, W, C), more than 4 channels.
@@ -73,7 +77,7 @@ from ..utils.dtypes import as_device_tensor
 from . import _build
 from . import cuda_batch_resize as kbr
 from . import cuda_warp as kw
-from .cuda_batch_resize import _MAX_CHANNELS, _MAX_PLANES, SRC_DTYPES, Unsupported
+from .cuda_batch_resize import _MAX_CHANNELS, _MAX_PLANES, STORE_CLAMP, TYPE_CODES, Unsupported
 from .cuda_warp import _MAX_SIDE, _N_COEFFS, _size
 
 __all__ = ["Unsupported", "build_plan", "prepare", "merge", "divergent_reference", "divergent",
@@ -85,7 +89,9 @@ LAUNCHES = 0
 # group kinds; keep in step with csrc/divergent.cu
 KINDS = ("image", "circ", "crop_resize", "resize", "nv12", "warp")
 DESC_INTS = 16      # ints per group descriptor; csrc/divergent.cu reads the same fields
-CLAMP_STORE = 1 << 8  # in a group's flags: float32 values stored into a uint8 batch
+CLAMP_STORE = 1 << 8  # in a group's flags: float values stored into an integer batch
+#: the source dtypes the kernel reads
+SRC_DTYPES = {"uint8": torch.uint8, "float32": torch.float32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,8 +324,8 @@ def build_plan(seqs, plane_ids) -> DivergentPlan:
         elif (h_out, w_out, och) != shape:
             raise Unsupported(f"group {g} gives ({h_out}, {w_out}, {och}), group 0 {shape}")
         # the merge casts a group into the batch's dtype (utils.dtypes.astype):
-        # float32 into uint8 clamps, then truncates; uint8 into float32 is exact
-        clamp = CLAMP_STORE if (odt, out_dtype) == (torch.float32, torch.uint8) else 0
+        # a float into an integer clamps, then truncates; the store does the rest
+        clamp = CLAMP_STORE if kbr.store_cast(odt, out_dtype) == STORE_CLAMP else 0
         ragged = isinstance(seq.read, BatchRead) and seq.read.used_planes is not None
         held = start if ragged else None
         tab_off = -1
@@ -507,7 +513,11 @@ def merge(seqs, plane_ids):
         elif tuple(x.shape[1:]) != tuple(merged.shape[1:]):
             raise ValueError(f"sequence {sid} gives planes of {tuple(x.shape[1:])}, "
                              f"plane 0's sequence {tuple(merged.shape[1:])}")
-        merged[torch.as_tensor(planes, device=x.device)] = dt.astype(x, merged.dtype)
+        val, idx = dt.astype(x, merged.dtype), torch.as_tensor(planes, device=x.device)
+        if merged.dtype == torch.uint16:  # no index_put of uint16: its bits as int16
+            merged.view(torch.int16)[idx] = val.view(torch.int16)
+        else:
+            merged[idx] = val
     return seqs[0].write.write(merged)
 
 
@@ -552,7 +562,7 @@ def divergent(a: Launch):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cvgs_divergent(
             a.block.data_ptr(), a.consts.data_ptr(), a.ptr_off, a.desc_off, len(plan.groups),
-            plan.n_planes, w, h, buf.data_ptr(), int(plan.out_dtype == torch.uint8), plan.out_ch,
+            plan.n_planes, w, h, buf.data_ptr(), TYPE_CODES[plan.out_dtype], plan.out_ch,
             sn, sc, sy, sx, stream,
         )
     if err != 0:

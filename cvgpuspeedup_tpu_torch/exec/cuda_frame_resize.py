@@ -19,7 +19,9 @@ each chain op's own ``apply`` and the write op.
 None of the TPU kernel's gates come over (source rows a multiple of 8,
 lanes a multiple of 128, integer outputs only in an exact regime, a minimum
 frame size): they exist for Mosaic's tiling and matmul association. Any
-frame size the eager path takes, the kernel takes.
+frame size the eager path takes, the kernel takes, and an image of any
+dtype of ``SRC_DTYPES`` (an NV12 buffer is uint8), read into float32 as the
+eager resize reads it.
 """
 
 from __future__ import annotations
@@ -255,10 +257,9 @@ def _check(a: Launch) -> None:
 def frame_resize(a: Launch, out: Optional[torch.Tensor] = None):
     """The kernel wrapper: launches on a CUDA tensor, runs the plain version
     on a CPU tensor, raises on anything else. It never falls back. With
-    ``out`` (a view of the write's shape, any strides, the plan's dtype or
-    float32, or an integer dtype for a float32 chain, clamped then
-    truncated; a ring slot) the result is stored there and ``out`` is
-    returned."""
+    ``out`` (a view of the write's shape, any strides, any dtype of
+    ``TYPE_CODES``, cast as ``cuda_batch_resize.store_cast`` says; a ring
+    slot) the result is stored there and ``out`` is returned."""
     global LAUNCHES
     dev = a.src.device
     if dev.type == "cpu":
@@ -275,7 +276,7 @@ def frame_resize(a: Launch, out: Optional[torch.Tensor] = None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cvgs_frame_resize(
-            a.src.data_ptr(), int(plan.src_dtype == torch.uint8), plan.src_h, plan.src_w,
+            a.src.data_ptr(), TYPE_CODES[plan.src_dtype], plan.src_h, plan.src_w,
             plan.nch, int(plan.yuv), int(plan.nv21), a.taps.data_ptr(), a.weights.data_ptr(),
             int(plan.keep_edge), *plan.conv,
             a.fparams.data_ptr(), a.ops.data_ptr(), plan.ops.shape[0], w, h,

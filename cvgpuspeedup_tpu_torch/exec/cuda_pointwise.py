@@ -21,9 +21,9 @@ whose head reads one source pixel per output pixel: a *base*
 under up to ``MAX_STAGES`` re-indexing *stages*, ``CropRead`` (runtime
 origin) and ``BorderRead`` (the five modes), nested in any order. A
 ``ConvertYUVToRGB`` at the head of the chain runs with the full-frame
-kernel's device code; the rest of the chain is ``encode_chain``'s table with
-the wide integer dtypes (uint8, int8, uint16, int16 and float32 as source,
-cast target and output; all exact in the chain's f32 registers). A
+kernel's device code; the rest of the chain is ``encode_chain``'s table
+(uint8, int8, uint16, int16, float16 and float32 as source, cast target and
+output; all exact in the chain's f32 registers). A
 ``FusedRead`` at the top of the read is taken as its read and the head of
 the chain, which is what it lowers to; below a stage it is refused.
 
@@ -36,9 +36,10 @@ channel wide runs in the kernel's one-lane instances. Both ride after the
 words the kernel read before them (the op table's rows and sentinel, the
 head's 44 words), so an older library reads the same table. New frames,
 ``first`` s, origins, border values and scalars build nothing. Refused
-(:class:`Unsupported`): int32, int64, float16 and float64 sources or casts
-and chain scalars that are not float32 (an f32 register cannot hold them),
-more than 4 channels, more than ``MAX_STAGES`` stages, any resampling read.
+(:class:`Unsupported`): int32, int64 and float64 sources or casts and chain
+scalars that are neither float32 nor float16 (an f32 register cannot hold
+them), more than 4 channels, more than ``MAX_STAGES`` stages, any resampling
+read.
 
 :func:`pointwise` is the wrapper: on a CUDA tensor it launches the kernel,
 on a CPU tensor it runs :func:`pointwise_reference`, the plain PyTorch
@@ -68,9 +69,9 @@ from ..utils import bounds
 from . import _build
 from . import cuda_batch_resize as kbr
 from . import cuda_frame_resize as kfr
-from .cuda_batch_resize import (_MAX_CHANNELS, _MAX_PLANES, OP_ALPHA, OP_GRAY_F32, OP_GRAY_U8,
-                                OP_REORDER, TYPE_CODES, WIDE_INTS, Unsupported,
-                                _leaf_dtype_name, encode_chain, store_cast)
+from .cuda_batch_resize import (_MAX_CHANNELS, _MAX_PLANES, CHAIN_DTYPES, OP_ALPHA, OP_GRAY_F16,
+                                OP_GRAY_F32, OP_GRAY_U8, OP_REORDER, SRC_DTYPES, TYPE_CODES,
+                                Unsupported, _leaf_dtype_name, encode_chain, store_cast)
 from .cuda_divergent import _Block, _stack_geometry
 from .cuda_warp import _size
 
@@ -88,8 +89,6 @@ BORDER_MODES = {BorderMode.CONSTANT: 0, BorderMode.REPLICATE: 1, BorderMode.REFL
 MAX_STAGES = 4
 #: the head's words: 12, the stages', then the chain's width
 HEAD_INTS = 12 + 8 * MAX_STAGES + 1
-#: the source dtypes the kernel reads
-SRC_DTYPES = {str(t).removeprefix("torch."): t for t in TYPE_CODES}
 _SINGLE_LAYOUTS = {Write2D: "packed", TensorSplit: "split", SplitWrite: "split_write"}
 
 
@@ -169,7 +168,7 @@ def row_channels(ops: np.ndarray, ch: int) -> Tuple[np.ndarray, int]:
             ch = aux >> 16
         elif code == OP_ALPHA:
             ch += 1
-        elif code in (OP_GRAY_U8, OP_GRAY_F32):
+        elif code in (OP_GRAY_U8, OP_GRAY_F32, OP_GRAY_F16):
             ch = 1
         width = max(width, ch)
     return np.asarray(row_ch, np.int32), width
@@ -261,7 +260,7 @@ def build_plan(pipeline) -> PointwisePlan:
         cv = chain[0]
         if ch != 3:
             raise Unsupported(f"YUV -> RGB on {ch} channels")
-        if cv.out_dtype != torch.float32 and cv.out_dtype not in WIDE_INTS:
+        if cv.out_dtype not in CHAIN_DTYPES:
             raise Unsupported(f"YUV -> RGB to {cv.out_dtype}")
         conv_first, limited = 1, int(cv.color_range == ColorRange.LIMITED)
         conv = (LIMITED_Y, LIMITED_C, *conversion_coefficients(cv.standard))
@@ -273,7 +272,7 @@ def build_plan(pipeline) -> PointwisePlan:
         rows0 = np.asarray(head_rows, np.int32).reshape(-1, 4)
         dtype, ch, chain = cv.out_dtype, 4 if cv.alpha else 3, chain[1:]
     fp_off = pos  # the rows' offsets count from here: the kernel adds it
-    ops, out_dtype, out_ch, n_fparams = encode_chain(chain, ch, dtype=dtype, int_dtypes=WIDE_INTS)
+    ops, out_dtype, out_ch, n_fparams = encode_chain(chain, ch, dtype=dtype)
     ops = np.concatenate([rows0, ops]).astype(np.int32)
     row_ch, width = row_channels(ops, c)
 

@@ -24,7 +24,8 @@ checks the recomputation and the packing.
 The TPU kernels' gates (separable or consumer-unique maps, derivative
 buckets, ``src_h % 8``, lanes a multiple of 128, uint8 sources, a positive
 perspective denominator) exist because Mosaic has no dynamic gather; none
-comes over. The kernel refuses a warp of anything but one image, a batch
+comes over: a source of any dtype of ``SRC_DTYPES`` is read into float32, as
+the eager warp reads it. The kernel refuses a warp of anything but one image, a batch
 whose planes differ in warp type, size, source geometry or dtype, and
 more than 4 channels.
 """
@@ -328,9 +329,9 @@ def _check(a: Launch) -> None:
 def warp(a: Launch, out: Optional[torch.Tensor] = None):
     """The kernel wrapper: launches on a CUDA tensor, runs the plain version
     on a CPU tensor, raises on anything else. It never falls back. With
-    ``out`` (a view of the write's shape, any strides, the plan's dtype or
-    float32, or an integer dtype for a float32 chain, clamped then
-    truncated) the result is stored there and ``out`` is returned."""
+    ``out`` (a view of the write's shape, any strides, any dtype of
+    ``TYPE_CODES``, cast as ``cuda_batch_resize.store_cast`` says; a ring
+    slot) the result is stored there and ``out`` is returned."""
     global LAUNCHES
     dev = a.srcs[0].device
     if dev.type == "cpu":
@@ -347,7 +348,7 @@ def warp(a: Launch, out: Optional[torch.Tensor] = None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cvgs_warp(
-            a.ptrs.data_ptr(), int(plan.src_dtype == torch.uint8), plan.src_h, plan.src_w,
+            a.ptrs.data_ptr(), kbr.TYPE_CODES[plan.src_dtype], plan.src_h, plan.src_w,
             plan.nch, int(plan.perspective), a.coeffs.data_ptr(), a.border.data_ptr(),
             a.default.data_ptr(), a.used.data_ptr(), a.fparams.data_ptr(), a.ops.data_ptr(),
             plan.ops.shape[0], plan.n_planes, w, h,

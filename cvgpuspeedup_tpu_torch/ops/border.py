@@ -29,6 +29,7 @@ import torch
 
 from ..graph import ReadOp, op, static_field
 from ..types import BorderMode
+from ..utils import dtypes as dt
 
 __all__ = ["BorderMode", "BorderRead", "border_index"]
 
@@ -72,8 +73,8 @@ class BorderRead(ReadOp):
         h, w = int(x.shape[-3]), int(x.shape[-2])
         rows = border_index(h, self.top, self.bottom, self.mode)
         cols = border_index(w, self.left, self.right, self.mode)
-        out = (x.index_select(x.ndim - 3, torch.from_numpy(rows).to(dev))
-               .index_select(x.ndim - 2, torch.from_numpy(cols).to(dev)))
+        out = dt.gather(x, lambda s: s.index_select(s.ndim - 3, torch.from_numpy(rows).to(dev))
+                        .index_select(s.ndim - 2, torch.from_numpy(cols).to(dev)))
         if self.mode != BorderMode.CONSTANT:
             return out
         val = torch.as_tensor(self.value, device=dev).to(x.dtype).reshape(-1)

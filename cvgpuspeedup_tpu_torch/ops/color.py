@@ -77,11 +77,11 @@ class ColorConversion(ComputeOp):
                 gray = r * c[0] + g * c[1] + b * c[2]
             return gray[..., None]
         swz = info[2]
-        y = x[..., list(swz)]
+        y = dt.gather(x, lambda s: s[..., list(swz)])
         if out_c == 4 and len(swz) == 3:
             alpha = torch.full(y.shape[:-1] + (1,), alpha_fill(x.dtype), dtype=x.dtype,
                                device=x.device)
-            y = torch.cat([y, alpha], dim=-1)
+            y = dt.gather(y, lambda s: torch.cat([s, alpha.view(s.dtype)], dim=-1))
         return y
 
 
@@ -94,4 +94,4 @@ class VectorReorder(ComputeOp):
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         if len(self.indices) != x.shape[-1]:
             raise ValueError(f"VectorReorder{self.indices} on {x.shape[-1]}-channel image")
-        return x[..., list(self.indices)]
+        return dt.gather(x, lambda s: s[..., list(self.indices)])

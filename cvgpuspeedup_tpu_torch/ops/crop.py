@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..graph import ReadOp, op, static_field
+from ..utils import dtypes as dt
 
 
 def crop_start(start, length: int, size: int, device) -> torch.Tensor:
@@ -53,4 +54,5 @@ class CropRead(ReadOp):
         h, w = int(src.shape[-3]), int(src.shape[-2])
         rows = crop_start(self.y, h, self.height, dev) + torch.arange(self.height, device=dev)
         cols = crop_start(self.x, w, self.width, dev) + torch.arange(self.width, device=dev)
-        return src.index_select(src.ndim - 3, rows).index_select(src.ndim - 2, cols)
+        return dt.gather(src, lambda s: s.index_select(s.ndim - 3, rows)
+                         .index_select(s.ndim - 2, cols))

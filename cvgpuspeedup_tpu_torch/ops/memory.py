@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..graph import ReadOp, WriteOp, op, static_field
+from ..utils import dtypes as dt
 
 
 @op
@@ -122,7 +123,7 @@ class CircularBatchRead(ReadOp):
         x = self.data
         first = torch.as_tensor(self.first, device=x.device).to(torch.int64).reshape(())
         src = torch.remainder(first + z if self.ascendent else first - z, x.shape[0])
-        x = x.index_select(0, src)
+        x = dt.gather(x, lambda s: s.index_select(0, src))
         if self.packed_channels:
             c = self.packed_channels
             x = x.reshape(x.shape[:-1] + (x.shape[-1] // c, c))

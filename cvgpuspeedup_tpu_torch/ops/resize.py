@@ -165,8 +165,8 @@ def sample_frame(src, taps_x, taps_y, keep_edge: bool) -> torch.Tensor:
     with ``keep_edge`` a weight of 0 takes the first tap's value itself."""
     x0, x1, wx = taps_x
     y0, y1, wy = taps_y
-    rows0 = src.index_select(0, y0)
-    rows1 = src.index_select(0, y1)
+    rows0 = dt.gather(src, lambda s: s.index_select(0, y0))
+    rows1 = dt.gather(src, lambda s: s.index_select(0, y1))
     wx = wx[None, :, None]
     wy = wy[:, None, None]
 
@@ -175,8 +175,11 @@ def sample_frame(src, taps_x, taps_y, keep_edge: bool) -> torch.Tensor:
         v = a * (1.0 - w) + b.to(torch.float32) * w
         return torch.where(w == 0.0, a, v) if keep_edge else v
 
-    h0 = lerp(rows0.index_select(1, x0), rows0.index_select(1, x1), wx)
-    h1 = lerp(rows1.index_select(1, x0), rows1.index_select(1, x1), wx)
+    def cols(rows, x):
+        return dt.gather(rows, lambda s: s.index_select(1, x))
+
+    h0 = lerp(cols(rows0, x0), cols(rows0, x1), wx)
+    h1 = lerp(cols(rows1, x0), cols(rows1, x1), wx)
     return lerp(h0, h1, wy)
 
 
@@ -283,11 +286,11 @@ def sample_batch(src, rects, dsize: Size, mode: AspectRatio, background,
         z = torch.arange(n, device=dev)[:, None, None]
 
         def gather(r, c):
-            return src[z, r, c].to(torch.float32)
+            return dt.gather(src, lambda s: s[z, r, c]).to(torch.float32)
     else:
 
         def gather(r, c):
-            return src[r, c].to(torch.float32)
+            return dt.gather(src, lambda s: s[r, c]).to(torch.float32)
 
     val = bilinear_sample(
         gather(ry0, cx0), gather(ry0, cx1), gather(ry1, cx0), gather(ry1, cx1),

@@ -73,6 +73,13 @@ def max_value(dtype: DTypeLike):
     return float(torch.finfo(d).max)
 
 
+def _exact_bounds(x: torch.Tensor) -> torch.Tensor:
+    """A float16 tensor as float32 (exact), whose integer bounds are exact
+    where float16's are not (32767 rounds to 32768, 65535 to inf), so a
+    clamp to them keeps the value in range; any other tensor as it is."""
+    return x.to(torch.float32) if x.dtype == torch.float16 else x
+
+
 def saturate_cast(x: torch.Tensor, dtype: DTypeLike) -> torch.Tensor:
     """OpenCV ``saturate_cast`` semantics, elementwise.
 
@@ -86,7 +93,7 @@ def saturate_cast(x: torch.Tensor, dtype: DTypeLike) -> torch.Tensor:
         return x
     if is_integer(dtype):
         if x.dtype.is_floating_point:
-            x = torch.round(x)
+            x = torch.round(_exact_bounds(x))
         else:
             x = x.to(torch.int64)
         info = torch.iinfo(dtype)
@@ -109,8 +116,17 @@ def astype(x: torch.Tensor, dtype: DTypeLike) -> torch.Tensor:
         return x
     if is_integer(dtype) and x.dtype.is_floating_point:
         info = torch.iinfo(dtype)
-        x = torch.clamp(x, info.min, info.max)
+        x = torch.clamp(_exact_bounds(x), info.min, info.max)
     return x.to(dtype)
+
+
+def gather(x: torch.Tensor, fn):
+    """``fn(x)``, an index, gather or concatenation that moves ``x``'s
+    elements and computes none. A uint16 tensor is moved as its int16 bits:
+    CUDA has no index, gather or concatenation kernel of uint16."""
+    if x.dtype == torch.uint16:
+        return fn(x.view(torch.int16)).view(torch.uint16)
+    return fn(x)
 
 
 ScalarLike = Union[int, float, Sequence[float], np.ndarray, torch.Tensor]

@@ -507,7 +507,8 @@ def _frame(rng, dtype, ch):
 @pytest.mark.parametrize("ch", [1, 2, 3, 4])
 def test_type_sweep_eager_and_kernel_plan(rng, dtype, ch):
     """Every supported depth and channel count through the eager path against
-    cv2; the batched kernel takes uint8 and float32 sources, and its plain
+    cv2; the batched kernel takes every source an f32 register holds (uint8,
+    uint16, int16, float32 here; not int32 or float64), and its plain
     version equals the eager path bit for bit."""
     frame = _frame(rng, dtype, ch)
     rects = np.array([[i, 2 * i, 40, 56] for i in range(4)], np.int32)
@@ -521,7 +522,7 @@ def test_type_sweep_eager_and_kernel_plan(rng, dtype, ch):
         ref = cv2.resize(crop, UP, interpolation=cv2.INTER_LINEAR).reshape(UP[1], UP[0], ch)
         check_float(x[z], (ref * np.float32(0.5)).transpose(2, 0, 1), msg=f"{dtype} c{ch} z={z}")
     pipeline = T.build_pipeline(*ops)
-    assert kbr.supports(pipeline) == (dtype in (np.uint8, np.float32))
+    assert kbr.supports(pipeline) == (dtype in (np.uint8, np.uint16, np.int16, np.float32))
     if kbr.supports(pipeline):
         check_float(kbr.run(pipeline, kbr.build_plan(pipeline), CPU).numpy(), x, tol=0)
 

@@ -390,7 +390,8 @@ def test_float_chain_into_an_integer_ring_is_one_launch(head, ring_dtype, cuda):
 def test_clamp_store_into_every_integer_dtype(kernel, cuda):
     """K1, K2 and the warp kernel store a float32 chain into uint8, int8,
     uint16 and int16 views: clamped, then truncated, equal to the plain
-    version cast by ``astype``; a uint8 chain into int16 is refused."""
+    version cast by ``astype``; a uint8 chain into int16 is one launch too,
+    each value stored as it is."""
     img = _source(cuda, (96, 128, 3), seed=70)
     rects = np.array([[i, i, 30, 40] for i in range(4)], np.int32)
     chain = (T.multiply(600.0), T.subtract(70000.25))
@@ -416,8 +417,11 @@ def test_clamp_store_into_every_integer_dtype(kernel, cuda):
         assert bool((host == 77).all())
     u8 = T.build_pipeline(read, T.convert_to(np.uint8), T.split_tensor())
     a8 = module.prepare(u8, module.build_plan(u8), cuda)
-    with pytest.raises(TypeError):
-        call(a8, out=torch.empty(want.shape, dtype=torch.int16, device=cuda))
+    view = torch.empty(want.shape, dtype=torch.int16, device=cuda)
+    launches = module.LAUNCHES
+    assert call(a8, out=view) is view and module.LAUNCHES == launches + 1
+    torch.cuda.synchronize()
+    assert torch.equal(view, call(a8).to(torch.int16))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

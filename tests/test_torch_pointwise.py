@@ -302,12 +302,16 @@ def test_bare_nv12_and_what_stays_eager_on_the_meta_path():
     buf = torch.empty((12, 10), dtype=torch.uint8, device="meta")
     nv12 = T.build_pipeline(T.read_yuv(buf), T.convert_yuv_to_rgb())
     assert executor._select(nv12, T.ParBackend.AUTO, CUDA).backend == "cuda:pointwise"
-    for dtype in (torch.int32, torch.int64, torch.float16, torch.float64):
+    for dtype in (torch.int32, torch.int64, torch.float64):
         p = T.build_pipeline(T.image(torch.empty((4, 4, 3), dtype=dtype, device="meta")),
                              T.multiply(2.0))
         assert executor._select(p, T.ParBackend.AUTO, CUDA).backend == "torch"
         with pytest.raises(ValueError, match="cuda:pointwise: source dtype"):
             executor._select(p, T.ParBackend.CUDA, CUDA)
+    # float16 is exact in the chain's float32 registers: one launch
+    half = T.build_pipeline(T.image(torch.empty((4, 4, 3), dtype=torch.float16, device="meta")),
+                            T.multiply(2.0))
+    assert executor._select(half, T.ParBackend.AUTO, CUDA).backend == "cuda:pointwise"
 
 
 def test_new_values_build_no_plan_and_prepare_packs_them_in_order():
@@ -374,10 +378,17 @@ def test_out_views_on_the_cpu(kernel):
         module.run(pipeline, plan, CPU, out=torch.empty(want.shape[1:]))
     assert module.can_store(plan, torch.float32) and not module.can_store(plan, torch.int32)
     # a float32 chain into an integer buffer is one store in every kernel:
-    # clamped, then truncated; a uint8 chain into another integer wraps, which
-    # no store does
+    # clamped, then truncated; a uint8 chain into another integer widens or
+    # wraps, which the store does too (it keeps the low bits)
     ints = (torch.uint8, torch.int8, torch.uint16, torch.int16)
     assert all(module.can_store(plan, dtype) for dtype in ints)
-    u8_plan = module.build_plan(T.build_pipeline(*ops, T.convert_to(np.uint8), T.split_tensor()))
+    u8_ops = (*ops, T.convert_to(np.uint8), T.split_tensor())
+    u8_plan = module.build_plan(T.build_pipeline(*u8_ops))
     assert u8_plan.out_dtype == torch.uint8
-    assert [module.can_store(u8_plan, dtype) for dtype in ints] == [True, False, False, False]
+    assert [module.can_store(u8_plan, dtype) for dtype in ints] == [True] * 4
+    assert [kbr.store_cast(torch.uint8, dtype) for dtype in ints] == [
+        kbr.STORE_AS_IS, kbr.STORE_WRAP, kbr.STORE_AS_IS, kbr.STORE_AS_IS]
+    u8 = module.run(T.build_pipeline(*u8_ops), u8_plan, CPU)
+    view = torch.zeros(tuple(u8.shape), dtype=torch.int8)
+    assert torch.equal(module.run(T.build_pipeline(*u8_ops), u8_plan, CPU, out=view),
+                       u8.to(torch.int8))

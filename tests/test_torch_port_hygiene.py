@@ -77,6 +77,18 @@ def test_nvcc_command_targets_hopper_without_fast_math():
     assert "-shared" in link and "a.o" in link and "b.o" in link
 
 
+def _included(text):
+    """The headers a source includes, directly or through another header."""
+    found, todo = [], [text]
+    while todo:
+        t = todo.pop()
+        for h in _build.HEADERS:
+            if f'#include "{h.name}"' in t and h not in found:
+                found.append(h)
+                todo.append(h.read_text())
+    return found
+
+
 @pytest.mark.parametrize("name,replaces", [
     ("batch_resize.cu", "pallas_backend.py::_emit_batch_resize"),
     ("frame_resize.cu", "pallas_frame.py::_emit_frame_resize"),
@@ -93,7 +105,7 @@ def test_cuda_source_exists_and_ships_as_package_data(name, replaces):
     text = src.read_text()
     assert replaces in text
     # the source with the headers it includes: the samplers live in headers
-    included = [h for h in _build.HEADERS if f'#include "{h.name}"' in text]
+    included = _included(text)
     assert any(h.name == "chain.cuh" or '#include "chain.cuh"' in h.read_text() for h in included)
     code = text + "".join(h.read_text() for h in included)
     assert "__fmul_rn" in code or "lerp_rn" in code
@@ -120,9 +132,9 @@ def test_library_is_keyed_on_the_sources(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("header,users", [
-    ("batch_resize.cuh", ("batch_resize.cu", "divergent.cu")),
-    ("frame_resize.cuh", ("frame_resize.cu", "divergent.cu")),
-    ("warp.cuh", ("warp.cu", "divergent.cu")),
+    ("batch_resize.cuh", ("batch_resize_kernel.cuh", "divergent.cu")),
+    ("frame_resize.cuh", ("frame_resize_kernel.cuh", "divergent.cu")),
+    ("warp.cuh", ("warp_kernel.cuh", "divergent.cu")),
     ("pointwise.cuh", ("pointwise.cu",)),
     ("pointwise_chain.cuh", ("pointwise.cuh",)),
 ])
@@ -140,14 +152,16 @@ def test_shared_samplers_live_in_headers(header, users):
 def test_the_pointwise_heads_share_the_frame_kernels_conversion():
     """One YUV -> RGB for the frame and pointwise kernels; the pointwise
     kernel stages its chain through its own interpreter, the other four
-    share chain.cuh's run_chain, which no longer holds the wide table."""
+    share chain.cuh's run_chain (K1, K2 and the warp kernel in the kernel
+    headers their sources instantiate)."""
     csrc = ROOT / "cvgpuspeedup_tpu_torch" / "csrc"
     assert '#include "frame_resize.cuh"' in (csrc / "pointwise.cuh").read_text()
     pointwise = (csrc / "pointwise.cu").read_text()
     assert "yuv_to_rgb(" in pointwise
     assert "stage_rows(" in pointwise and "run_rows(" in pointwise and "run_chain" not in pointwise
     assert "kWide" not in (csrc / "chain.cuh").read_text()
-    for other in ("batch_resize.cu", "frame_resize.cu", "warp.cu", "divergent.cu"):
+    for other in ("batch_resize_kernel.cuh", "frame_resize_kernel.cuh", "warp_kernel.cuh",
+                  "divergent.cu"):
         text = (csrc / other).read_text()
         assert "run_chain(" in text and "run_rows(" not in text
 
@@ -160,3 +174,20 @@ def test_the_native_loader_builds_beside_the_kernels():
     cmd = frameloader.compile_command("c++", Path("out.so"))
     assert "-shared" in cmd and "-fPIC" in cmd and str(frameloader.SOURCE) in cmd
     assert "libframeloader.so" not in " ".join(cmd)
+
+
+@pytest.mark.parametrize("name,elem,short", [("int8", "int8_t", "i8"), ("uint16", "uint16_t", "u16"),
+                                             ("int16", "int16_t", "i16"), ("float16", "f16", "f16")])
+def test_each_source_type_has_a_translation_unit_of_its_own(name, elem, short):
+    """K1, K2 and the warp kernel instantiate uint8 and float32 sources
+    beside their C entry and every other source type in a file of its own,
+    which the build compiles in a process of its own; each C entry sends
+    that type's code to it."""
+    csrc = ROOT / "cvgpuspeedup_tpu_torch" / "csrc"
+    src = csrc / f"source_{name}.cu"
+    assert src in _build.SOURCES
+    assert f"CVGS_SOURCE({elem}, {short})" in src.read_text()
+    code = {"int8": "PW_I8", "uint16": "PW_U16", "int16": "PW_I16", "float16": "PW_F16"}[name]
+    for kernel in ("batch_resize", "frame_resize", "warp"):
+        entry = (csrc / f"{kernel}.cu").read_text()
+        assert f"case {code}: cvgs::{kernel}_{short}(a);" in entry

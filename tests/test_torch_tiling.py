@@ -169,7 +169,12 @@ def _check_k1(a, offset=0):
 
 def _src(seed, h, w, c, dtype=np.uint8):
     v = np.random.default_rng(seed).integers(0, 256, (h, w, c))
-    return v.astype(dtype) if dtype == np.uint8 else (v / F32(3)).astype(F32)
+    if dtype == np.uint8:
+        return v.astype(dtype)
+    if dtype in (np.int8, np.uint16, np.int16):  # over the type's range, both signs
+        info = np.iinfo(dtype)
+        return (info.min + v * ((int(info.max) - int(info.min)) // 255)).astype(dtype)
+    return (v / F32(3)).astype(dtype)
 
 
 INSIDE = np.array([[3 + 5 * i, 2 + 3 * i, 30, 44] for i in range(4)], np.int32)
@@ -326,7 +331,8 @@ def emulate_warp(a: kw.Launch, offset: int = 0):
                             stats["packed"] += 1
                             l0, t0 = load_run(mem, lo + e0, nch)
                             l1, t1 = load_run(mem, lo + e1, nch)
-                            byte = lambda w, i: F32((w >> (8 * i)) & 0xFF)  # noqa: E731
+                            sign = 0x80 if src.dtype == np.int8 else 0  # chain.cuh::byte_as
+                            byte = lambda w, i: F32((((w >> (8 * i)) & 0xFF) ^ sign) - sign)  # noqa: E731
                             taps = [[byte(w, i) for i in range(nch)] for w in (l0, t0, l1, t1)]
                             v00, v01, v10, v11 = (np.array(t, F32) for t in taps)
                         else:
@@ -745,6 +751,16 @@ def test_nv12_edge_rules_limited_range_and_alpha(dsize, keep):
     _check_frame(a, 4)
 
 
+def to_out(vals, dtype):
+    """``csrc/chain.cuh::to_out``: float32 values as elements of ``dtype``.
+    An integer store truncates and keeps the low bits (a value outside the
+    type's range wraps), a float16 store rounds to nearest even."""
+    vals = np.asarray(vals, F32)
+    if np.dtype(dtype).kind in "iu":
+        return np.trunc(vals).astype(np.int64).astype(dtype)
+    return vals.astype(dtype)
+
+
 def emulate_store_pixels(values, strides, dtype, pix, base):
     """``csrc/chain.cuh::store_pixels`` for every thread of an (N, H, W, C)
     batch of float32 ``values`` written as ``dtype`` at byte address ``base``
@@ -762,7 +778,7 @@ def emulate_store_pixels(values, strides, dtype, pix, base):
         assert base <= addr and addr + len(vals) * item <= base + elems * item
         if len(vals) == 4:
             assert addr % vec == 0
-        mem[addr:addr + len(vals) * item] = np.asarray(vals, F32).astype(dtype).view(np.uint8)
+        mem[addr:addr + len(vals) * item] = to_out(vals, dtype).view(np.uint8)
         stats["vector" if len(vals) == 4 else "scalar"] += 1
 
     for z in range(n_planes):
@@ -864,7 +880,8 @@ _SAT_RANGE = {kbr.OP_SAT_U8: (0, 255), kbr.OP_SAT_I8: (-128, 127), kbr.OP_SAT_U1
               kbr.OP_SAT_I16: (-32768, 32767)}
 _CAST_TYPE = {kbr.OP_CAST_U8: np.uint8, kbr.OP_CAST_I8: np.int8, kbr.OP_CAST_U16: np.uint16,
               kbr.OP_CAST_I16: np.int16}
-_NP_TYPES = (np.uint8, np.int8, np.uint16, np.int16, np.float32)  # csrc/chain.cuh PW_U8..
+_NP_TYPES = (np.uint8, np.int8, np.uint16, np.int16, np.float32,
+             np.float16)  # csrc/chain.cuh PW_U8 .. PW_F16
 
 
 def crop_start(start, length, size):
@@ -895,6 +912,7 @@ def fold_index(i, n, mode):
 STAGE_ROWS, WIDE_P, RESIDENT = 256, 16, 132 * 2048
 ARITH = {kbr.OP_MUL: np.multiply, kbr.OP_ADD: np.add, kbr.OP_SUB: np.subtract,
          kbr.OP_DIV: np.divide}
+ARITH_F16 = (kbr.OP_MUL_F16, kbr.OP_ADD_F16, kbr.OP_SUB_F16, kbr.OP_DIV_F16)
 
 
 def pixels_per_thread(outputs, width, stages=0, resident=RESIDENT):
@@ -918,9 +936,12 @@ def stage_rows(words, n_ops, fp):
         for (code, off, stride, aux), ch in zip(rows[k0:k0 + STAGE_ROWS].tolist(),
                                                 chs[k0:k0 + STAGE_ROWS].tolist()):
             q = np.zeros(4, F32)
-            if code in ARITH:
+            if code in ARITH or code in ARITH_F16:
                 for c in range(ch):
                     q[c] = fp[off + c * stride]
+                if code in ARITH_F16:  # an op on a float16 value: its scalars rounded
+                    q = q.astype(np.float16).astype(F32)
+                    code -= kbr.OP_MUL_F16 - kbr.OP_MUL
             chunk.append((code, aux, ch, q))
         chunks.append(chunk)
     return chunks
@@ -940,10 +961,12 @@ def emulate_rows(v, chunk):
     for code, aux, ch, q in chunk:
         if code in ARITH:
             v[...] = ARITH[code](v, q[:lanes], dtype=F32)
-        elif code in _SAT_RANGE:
-            v[...] = np.clip(np.rint(v), *_SAT_RANGE[code])
+        elif code in _SAT_RANGE:  # + 0: the integer 0, never -0
+            v[...] = np.clip(np.rint(v), *_SAT_RANGE[code]) + F32(0)
         elif code in _CAST_TYPE:
             v[...] = truncate_to(v, _CAST_TYPE[code])
+        elif code == kbr.OP_CAST_F16:
+            v[...] = v.astype(np.float16).astype(F32)
         elif code == kbr.OP_REORDER:
             if lanes == 1:
                 assert aux == 1 << 16, "a one-lane chain holds no reorder but the identity"
@@ -954,11 +977,16 @@ def emulate_rows(v, chunk):
         elif code == kbr.OP_ALPHA:
             assert lanes == 4 and ch < 4
             v[..., ch] = aux
-        elif code in (kbr.OP_GRAY_U8, kbr.OP_GRAY_F32):
+        elif code in (kbr.OP_GRAY_U8, kbr.OP_GRAY_F32, kbr.OP_GRAY_F16):
             assert lanes == 4 and all(((aux >> s) & 15) < ch for s in (0, 4, 8))
             if code == kbr.OP_GRAY_U8:
                 r, g, b = (v[..., (aux >> s) & 15].astype(np.int64) for s in (0, 4, 8))
                 v[..., 0] = (r * 9798 + g * 19235 + b * 3735 + (1 << 14)) >> 15
+            elif code == kbr.OP_GRAY_F16:
+                h16 = np.float16
+                r, g, b = (v[..., (aux >> s) & 15].astype(h16) for s in (0, 4, 8))
+                k = [h16(0.299), h16(0.587), h16(0.114)]
+                v[..., 0] = ((r * k[0] + g * k[1]) + b * k[2]).astype(F32)
             else:
                 r, g, b = (v[..., (aux >> s) & 15] for s in (0, 4, 8))
                 k = [F32(0.299), F32(0.587), F32(0.114)]
@@ -1025,7 +1053,9 @@ def emulate_pointwise(a: kp.Launch, pix=None, out=None):
                 vals[z, ..., c] = src[off + c]
         for c in range(nch if not live.all() else 0):
             border = fblk[np.maximum(fill, 0) + c]
-            if src_type != 4:
+            if src_type == 5:  # pointwise.cuh::cast_to_type
+                border = border.astype(np.float16).astype(F32)
+            elif src_type != 4:
                 border = truncate_to(border, _NP_TYPES[src_type])
             vals[z, ..., c] = np.where(live, vals[z, ..., c], border)
     if conv_first:
@@ -1047,16 +1077,15 @@ def emulate_pointwise(a: kp.Launch, pix=None, out=None):
     buf, (sn, sc, sy, sx), result = kp._alloc_out(plan, CPU, out)
     np_out = _NP_TYPES[kp.TYPE_CODES[buf.dtype]]
     item = buf.element_size()
-    if kbr.store_cast(plan.out_dtype, buf.dtype):
+    if kbr.store_cast(plan.out_dtype, buf.dtype) == kbr.STORE_CLAMP:
         info = np.iinfo(np_out)
         vals = np.clip(vals, info.min, info.max)
     flat = torch.as_strided(buf, (buf.untyped_storage().nbytes() // buf.element_size(),),
                             (1,), 0).numpy()
     zi, yi, xi, ci = np.meshgrid(np.arange(plan.n_planes), np.arange(dst_h), np.arange(dst_w),
                                  np.arange(ch), indexing="ij")
-    flat[buf.storage_offset() + zi * sn + ci * sc + yi * sy + xi * sx] = (
-        np.trunc(vals[..., :ch]).astype(np.int64).astype(np_out) if np_out != F32
-        else vals[..., :ch])
+    flat[buf.storage_offset() + zi * sn + ci * sc + yi * sy + xi * sx] = to_out(vals[..., :ch],
+                                                                               np_out)
     # the thread groups: x0 of each, how many of its pixels are present, and
     # which whole-word paths its read and its store take
     x0 = np.arange(0, dst_w, pix)
@@ -1268,7 +1297,8 @@ def test_pointwise_mad_chain_unrolls_into_one_table():
 def test_pointwise_stores_into_a_strided_slot(layout, ring_dtype):
     """``out=`` a ring slot of any strides: an integer chain into a float32
     ring is exact, a float32 chain into an integer ring clamps, then
-    truncates (``utils.dtypes.astype``)."""
+    truncates, a uint8 chain into another integer ring widens or wraps
+    (``utils.dtypes.astype``): every pair is one store."""
     img = _pw_source(84, (5, 6, 3), np.uint8)
     td = T._dt.to_torch_dtype(ring_dtype)
     ring = torch.zeros({"packed": (4, 5, 6, 3), "standard": (4, 3, 5, 6),
@@ -1279,9 +1309,7 @@ def test_pointwise_stores_into_a_strided_slot(layout, ring_dtype):
         p = T.build_pipeline(T.image(img), *chain, write)
         plan = kp.build_plan(p)
         a = kp.prepare(p, plan, CPU)
-        if not kp.can_store(plan, td):
-            assert plan.out_dtype == torch.uint8 and td not in (torch.uint8, torch.float32)
-            continue
+        assert kp.can_store(plan, td)
         want = T._dt.astype(kp.pointwise_reference(a), td)
         got, _ = emulate_pointwise(a, 4, out=view)
         assert got is view and torch.equal(view, want)
@@ -1433,3 +1461,235 @@ def test_pointwise_whole_pixel_groups_read_as_words(nch, dtype):
     border = T.make_border(T.image(img), 1, 1, 4, 4, T.BorderMode.REFLECT)
     _, stats = _check_pointwise(border, T.convert_to(np.float32), T.split_tensor(), pix=4)
     assert stats["pixel_words"] <= 5 * 6
+
+
+# ---------------------------------------------------------------------------
+# every dtype of a chain: int8, uint16, int16 and float16 sources of the
+# resampling kernels (the packed signed bytes, the 2-byte element path), the
+# table's float16 rows and the wide integer rows in run_chain, the stores
+# of every element type, the wrap of an integer into a narrower one
+# ---------------------------------------------------------------------------
+
+NEW_DTYPES = [np.int8, np.uint16, np.int16, np.float16]
+NEW_IDS = ["i8", "u16", "i16", "f16"]
+
+
+def emulate_table(values, ops, fp):
+    """``csrc/chain.cuh::run_chain``: the plan's op table on float32 values
+    of shape (..., ch) with the scalars ``fp``, through the pointwise
+    kernel's staged form (the rows, a sentinel, each row's channel count:
+    ``stage_rows``), on four lanes; returns the lanes."""
+    ch = values.shape[-1]
+    row_ch, _ = kp.row_channels(ops, ch)
+    words = np.concatenate([ops.reshape(-1), [0], row_ch]).astype(np.int32)
+    lanes = np.zeros(values.shape[:-1] + (4,), F32)
+    lanes[..., :ch] = values
+    with np.errstate(all="ignore"):
+        for chunk in stage_rows(words, ops.shape[0], fp):
+            emulate_rows(lanes, chunk)
+    return lanes
+
+
+def _store(a, lanes, plan):
+    """The kernel's store of the lanes into the plan's dtype: a float chain
+    into an integer clamps (``store_cast``), then ``to_out``."""
+    out = _NP_TYPES[kbr.TYPE_CODES[plan.out_dtype]]
+    return to_out(lanes[..., :plan.out_ch], out)
+
+
+def _bits_equal(got, want):
+    want = want.numpy() if isinstance(want, torch.Tensor) else want
+    assert got.dtype == want.dtype and got.shape == want.shape, (got.dtype, want.dtype)
+    assert np.array_equal(got.view(np.uint8), want.view(np.uint8)), \
+        f"{int((got != want).sum())} of {got.size} values differ"
+
+
+def _to_dtype_chain(dtype):
+    """A chain through ``dtype`` and back to float32 after a rounding of
+    float16 or a saturate of the integer: its rows, then a gray row."""
+    return (T.convert_to(dtype, alpha=0.9), T.multiply(0.3), T.subtract(0.51), T.divide(0.23))
+
+
+@pytest.mark.parametrize("chain", NEW_DTYPES + [np.uint8], ids=NEW_IDS + ["u8"])
+@pytest.mark.parametrize("dtype", NEW_DTYPES, ids=NEW_IDS)
+def test_k1_reads_and_chains_every_dtype(dtype, chain):
+    """K1 on an int8, uint16, int16 or float16 frame, element by element,
+    then a chain through each dtype: the emulator with the op table and the
+    store equals the plain version bit for bit."""
+    src = _src(71, 40, 52, 3, dtype)
+    rects = np.array([[2, 3, 30, 24], [-4, 5, 17, 31], [30, 10, 22, 29]], np.int32)
+    read = T.resize_batch(torch.from_numpy(src), rects=rects, dsize=T.Size(14, 11))
+    pipeline = T.build_pipeline(read, *_to_dtype_chain(chain), T.write_tensor())
+    a = kbr.prepare(pipeline, kbr.build_plan(pipeline), CPU)
+    assert a.plan.src_dtype == T._dt.to_torch_dtype(dtype)
+    values, _ = emulate_batch_resize(a, offset=1)
+    lanes = emulate_table(values, a.plan.ops, a.fparams.numpy())
+    _bits_equal(_store(a, lanes, a.plan), kbr.batch_resize_reference(a))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype", NEW_DTYPES, ids=NEW_IDS)
+def test_warp_reads_every_dtype(dtype, offset):
+    """An int8 source fetches its taps as packed words and sign-extends each
+    byte (``chain.cuh::byte_as``); a 2-byte source reads its taps element by
+    element; both against the plain version, with a float16 chain after."""
+    img = torch.from_numpy(_src(72, 24, 37, 3, dtype))
+    m = rotation((18, 12), 9.0, 1.1, to=(24, 16))
+    pipeline = T.build_pipeline(T.warp(T.image(img), m, T.Size(48, 32), default=(1.0, -2.5, 3.0)),
+                                *_to_dtype_chain(np.float16), T.write())
+    a = kw.prepare(pipeline, kw.build_plan(pipeline), CPU)
+    values, stats = emulate_warp(a, offset)
+    if dtype == np.int8:
+        assert stats["packed"] > 0 and stats["plain"] == 0
+    else:
+        assert stats["packed"] == 0 and stats["plain"] > 0
+    lanes = emulate_table(values, a.plan.ops, a.fparams.numpy())
+    _bits_equal(_store(a, lanes, a.plan)[0], kw.warp_reference(a))
+
+
+@pytest.mark.parametrize("pix", [1, 4])
+@pytest.mark.parametrize("dtype", NEW_DTYPES, ids=NEW_IDS)
+def test_frame_reads_every_dtype(dtype, pix):
+    """K2's pixel groups over a 2-byte or signed source, element by element,
+    every address inside the buffer; then an int16 chain with a gray row."""
+    img = torch.from_numpy(_src(73, 24, 36, 3, dtype))
+    pipeline = T.build_pipeline(T.resize(T.image(img), T.Size(13, 8)),
+                                *_to_dtype_chain(np.int16),
+                                T.cvt_color(T.ColorConversionCode.COLOR_RGB2GRAY), T.write())
+    a = kfr.prepare(pipeline, kfr.build_plan(pipeline), CPU)
+    values, stats = emulate_frame_resize(a, pix, offset=1)
+    assert stats["threads"] == 8 * -(-13 // pix)
+    lanes = emulate_table(values, a.plan.ops, a.fparams.numpy())
+    _bits_equal(_store(a, lanes, a.plan), kfr.frame_resize_reference(a))
+
+
+@pytest.mark.parametrize("chain", ["f16", "u16", "i8"])
+def test_pointwise_float16_source_and_chains_of_every_dtype(chain):
+    """The pointwise kernel's image of a float16 source with a CONSTANT border
+    (its value rounded to float16), a chain of float16 or integer rows with a
+    gray row and an alpha, through the whole pointwise emulator."""
+    dtype = {"f16": np.float16, "u16": np.uint16, "i8": np.int8}[chain]
+    src = torch.from_numpy(_src(74, 9, 11, 3, np.float16))
+    C = T.ColorConversionCode
+    ops = (T.make_border(T.image(src), 2, 1, 3, 2, T.BorderMode.CONSTANT,
+                         value=(7.1, 300.3, -9.05)),
+           T.convert_to(dtype, alpha=0.7), T.cvt_color(C.COLOR_RGB2RGBA), T.multiply(1.3),
+           T.cvt_color(C.COLOR_RGBA2RGB), T.cvt_color(C.COLOR_RGB2GRAY), T.write())
+    plan, _ = _check_pointwise(*ops)
+    assert plan.src_dtype == torch.float16
+    codes = set(plan.ops[:, 0].tolist())
+    if chain == "f16":
+        assert {kbr.OP_GRAY_F16, kbr.OP_MUL_F16} <= codes
+        assert kbr.OP_MUL not in codes
+
+
+@pytest.mark.parametrize("pix", [1, 4])
+@pytest.mark.parametrize("dtype", NEW_DTYPES, ids=NEW_IDS)
+def test_stores_of_every_dtype_fill_the_buffer_and_nothing_else(dtype, pix):
+    """int8, uint16, int16 and float16 outputs, planar and packed, at an
+    address off the vector: 4- and 8-byte vector stores where aligned, the
+    layout's tensor in memory and the poison around it."""
+    n, h, w, ch = 2, 3, 8, 3
+    values = np.random.default_rng(75).integers(-100, 120, (n, h, w, ch)).astype(F32) / F32(4)
+    if np.dtype(dtype).kind in "iu":
+        values = np.trunc(values)
+        values = np.abs(values) if np.dtype(dtype).kind == "u" else values
+    item = np.dtype(dtype).itemsize
+    for strides, want in (((ch * h * w, h * w, w, 1), values.transpose(0, 3, 1, 2)),
+                          ((h * w * ch, 1, w * ch, ch), values)):
+        for offset in (0, 1):
+            base = 64 + offset * item
+            mem, stats = emulate_store_pixels(values, strides, dtype, pix, base)
+            size = want.size * item
+            assert np.array_equal(mem[base:base + size].view(dtype), want.reshape(-1).astype(dtype))
+            assert (mem[:base] == POISON).all() and (mem[base + size:] == POISON).all()
+            if pix == 4 and offset == 0:
+                assert stats["scalar"] == 0
+
+
+@pytest.mark.parametrize("out", [np.uint8, np.int8, np.uint16, np.int16],
+                         ids=["u8", "i8", "u16", "i16"])
+@pytest.mark.parametrize("chain", [np.uint8, np.int8, np.uint16, np.int16],
+                         ids=["u8", "i8", "u16", "i16"])
+def test_an_integer_chain_stores_into_another_integer_as_astype(chain, out):
+    """An integer chain's exact values into an integer buffer (store modes 0
+    and 2 of ``store_cast``): the store truncates and keeps the low bits,
+    which widens or wraps as ``utils.dtypes.astype`` (``Tensor.to``) does;
+    the pointwise kernel's ``out=`` on the CPU does the same."""
+    info = np.iinfo(chain)
+    vals = np.random.default_rng(76).integers(info.min, int(info.max) + 1, (2, 3, 8, 3))
+    tchain, tout = T._dt.to_torch_dtype(chain), T._dt.to_torch_dtype(out)
+    assert kbr.store_cast(tchain, tout) in (kbr.STORE_AS_IS, kbr.STORE_WRAP)
+    mem, _ = emulate_store_pixels(vals.astype(F32), (72, 1, 24, 3), out, 4, 64)
+    got = mem[64:64 + vals.size * np.dtype(out).itemsize].view(out).reshape(vals.shape)
+    want = T._dt.astype(torch.from_numpy(vals.astype(chain)), tout).numpy()
+    assert np.array_equal(got, want)
+    img = torch.from_numpy(vals[0].astype(chain))
+    p = T.build_pipeline(T.image(img), T.write())
+    a = kp.prepare(p, kp.build_plan(p), CPU)
+    view = torch.zeros((3, 8, 3), dtype=tout)
+    got, _ = emulate_pointwise(a, 4, out=view)
+    assert got is view and np.array_equal(view.numpy(), want[0])
+
+
+@pytest.mark.parametrize("batch", ["u8", "i16", "f16"])
+def test_divergent_groups_chain_and_store_into_the_batch_dtype(batch):
+    """K6 image and circ groups read with the copy emulator, each group's
+    rows from the plan's consts and the block's scalars, each group stored
+    into the batch's dtype by its flags: a float group into an integer batch
+    clamps, an integer group wraps or widens, a float16 batch rounds."""
+    dtype = {"u8": np.uint8, "i16": np.int16, "f16": np.float16}[batch]
+    src_a = _stack(77, 6, 5, 7, 3, np.uint8)
+    src_b = _stack(78, 6, 5, 7, 3, np.float32)
+    seqs = (T.build_operation_sequence(T.image(torch.from_numpy(src_a)),
+                                       T.convert_to(dtype, alpha=90.5), T.multiply(1.5),
+                                       T.write_tensor()),
+            T.build_operation_sequence(
+                T.circular_batch_read(torch.from_numpy(src_b), first=-2),
+                T.convert_to(np.float32, alpha=300.0), T.add(-20000.25), T.write_tensor()),
+            T.build_operation_sequence(T.image(torch.from_numpy(src_a)),
+                                       T.convert_to(np.uint16, alpha=300.0), T.write_tensor()))
+    ids = [1, 2, 3, 2, 1, 3]
+    a = kd.prepare(seqs, kd.build_plan(seqs, ids), CPU)
+    plan = a.plan
+    assert plan.out_dtype == T._dt.to_torch_dtype(dtype)
+    values, _ = emulate_divergent_copy(a, 4)
+    blk, consts = a.block.numpy(), plan.consts
+    out = np.empty(values.shape, dtype)
+    for z in range(plan.n_planes):
+        g = int(blk[z])
+        d = blk[a.desc_off + kd.DESC_INTS * g:][:kd.DESC_INTS]
+        op_off, n_ops, fp_off, flags = int(d[10]), int(d[11]), int(d[12]), int(d[14])
+        group = plan.groups[g]
+        ops = consts[4 * op_off:4 * (op_off + n_ops)].reshape(-1, 4)
+        assert ops.shape[0] == group.n_ops
+        lanes = emulate_table(values[z], ops, blk.view(F32)[fp_off:])[..., :plan.out_ch]
+        if flags & kd.CLAMP_STORE:
+            info = np.iinfo(dtype)
+            lanes = np.clip(lanes, info.min, info.max)
+        out[z] = to_out(lanes, dtype)
+    modes = [kbr.store_cast(gr_dtype, plan.out_dtype) for gr_dtype in
+             (T._dt.to_torch_dtype(dtype), torch.float32, torch.uint16)]
+    assert [bool(gr.flags & kd.CLAMP_STORE) for gr in plan.groups] == [
+        m == kbr.STORE_CLAMP for m in modes]
+    _bits_equal(out, kd.divergent_reference(a))
+
+
+@pytest.mark.parametrize("out", [np.float16, np.float32], ids=["f16", "f32"])
+@pytest.mark.parametrize("chain", [np.uint8, np.int8, np.int16], ids=["u8", "i8", "i16"])
+def test_a_saturated_zero_stores_as_zero_into_a_float_buffer(chain, out):
+    """An integer chain's saturate of a value in (-0.5, 0] gives the integer
+    0, whose float is +0 (``chain.cuh::saturate`` adds +0 to rintf's -0):
+    the chain stored into a float buffer equals the plain version bit for
+    bit, sign of zero included."""
+    vals = np.array([[[-0.3, -0.0, 0.2], [-0.5, 0.4, -0.49]]], np.float32).repeat(3, 0)
+    _check_pointwise(T.image(torch.from_numpy(vals)), T.convert_to(chain),
+                     T.convert_to(out), T.write())
+    img = torch.from_numpy(vals)
+    p = T.build_pipeline(T.image(img), T.convert_to(chain), T.write())
+    a = kp.prepare(p, kp.build_plan(p), CPU)
+    view = torch.zeros((3, 2, 3), dtype=T._dt.to_torch_dtype(out))
+    got, _ = emulate_pointwise(a, 4, out=view)
+    want = T._dt.astype(kp.pointwise_reference(a), view.dtype)
+    _bits_equal(got.numpy(), want)
+    assert not np.signbit(got.numpy()).any()

@@ -518,8 +518,10 @@ def test_kernel_refusals():
         "float64_source": (T.warp(img.astype(np.float64), rot, size),),
         "batch_of_images": (T.batch_read([T.image(img), T.image(img)]),),
         "single_tensor_write": (T.warp(img, rot, size), T.write_tensor()),
-        "int16_out": (T.warp(img, rot, size), T.convert_to(np.int16)),
+        "int32_out": (T.warp(img, rot, size), T.convert_to(np.int32)),
     }
+    assert kw.supports(T.build_pipeline(T.warp(img.astype(np.uint16), rot, size),
+                                        T.convert_to(np.int16)))
     for name, ops in refused.items():
         pipe = T.build_pipeline(*ops)
         assert not kw.supports(pipe), name

@@ -11,7 +11,12 @@ another directory of sources, relative to the repo's root (an older commit's
 ``csrc`` unpacked with ``git archive``), whose C interface must equal the
 present one (``_build.load`` declares the present signatures): since K1,
 K2 and the warp kernel took ``out_type`` and ``clamp_store`` in place of
-``out_u8``, a tree from before that is refused. For example::
+``out_u8``, a tree from before that is refused. A tree whose K1, K2 and warp
+kernel take ``src_u8`` and whose divergent kernel takes ``out_u8`` (before
+they took a source and an output type code) is called through
+:class:`SourceFlagAbi`, which turns the type codes of a uint8 or float32
+source and output back into those flags; it runs the uint8 and float32
+cases of this tool, which are all of them. For example::
 
     {"base": [],
      "parent": "build/parent/cvgpuspeedup_tpu_torch/csrc",
@@ -65,6 +70,47 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+class SourceFlagAbi:
+    """A library of the older C interface, called with the present one's
+    arguments: K1's, K2's and the warp kernel's source type code (argument 2)
+    becomes ``src_u8``, the divergent kernel's output type code (argument 10)
+    ``out_u8``, and a store mode other than 1 (clamp) becomes 0. Only uint8
+    and float32 sources and outputs have such a flag."""
+
+    U8, F32 = 0, 4  # cuda_batch_resize.TYPE_CODES
+    CLAMP = {"cvgs_batch_resize": 18, "cvgs_frame_resize": 26, "cvgs_warp": 19}
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def _flag(self, code):
+        if code not in (self.U8, self.F32):
+            raise ValueError(f"type code {code}: the older interface takes uint8 or float32")
+        return int(code == self.U8)
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name in self.CLAMP:
+            def call(*args):
+                args = list(args)
+                args[1] = self._flag(args[1])
+                args[self.CLAMP[name]] = int(args[self.CLAMP[name]] == 1)
+                return fn(*args)
+            return call
+        if name == "cvgs_divergent":
+            def call(*args):
+                args = list(args)
+                args[9] = self._flag(args[9])
+                return fn(*args)
+            return call
+        return fn
+
+
+def uses_source_flags(csrc: Path) -> bool:
+    """Whether the sources in ``csrc`` take ``src_u8`` (the older interface)."""
+    return "int src_u8" in (csrc / "batch_resize.cu").read_text()
 
 
 def main() -> int:
@@ -166,6 +212,13 @@ def main() -> int:
                 return float(np.median(us))
         return float("nan")
 
+    def use(d):
+        """Build (once) and load the sources in ``d``, the library every
+        wrapper launches from from now on."""
+        lib = _build.load(d, d / "out")
+        if uses_source_flags(d):
+            _build._LIB = SourceFlagAbi(lib)
+
     csrc = ROOT / "cvgpuspeedup_tpu_torch" / "csrc"
     with tempfile.TemporaryDirectory(prefix="kernel_variants_") as tmp:
         dirs = {}
@@ -195,7 +248,7 @@ def main() -> int:
                 print(f"{vname}: no source holds {sorted(unused)}", file=sys.stderr)
                 return 1
             dirs[vname] = d
-            _build.load(d, d / "out")
+            use(d)
             entry = ""
             regs = {}
             for line in _build.BUILD_LOG.splitlines():
@@ -214,7 +267,7 @@ def main() -> int:
         # a variant may change the speed of a kernel, never a bit of its output
         outputs: dict = {}
         for vname, d in dirs.items():
-            _build.load(d, d / "out")
+            use(d)
             for cname, fn in launches.items():
                 if not runs(cname):
                     continue
@@ -231,7 +284,7 @@ def main() -> int:
         results: dict = {}
         for _ in range(rounds):
             for vname, d in dirs.items():
-                _build.load(d, d / "out")  # built above: this makes it the library in use
+                use(d)  # built above: this makes it the library in use
                 for cname, fn in launches.items():
                     if not runs(cname):
                         continue
