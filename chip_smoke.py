@@ -68,6 +68,15 @@ code and no result line:
    float16 crops with uint8 images in one batch, and a chain of one dtype
    into an ``out=`` view of another in each kernel that takes one (uint16
    into uint8, uint8 into int16, float16 into uint8).
+   int32 (``int32_cases``, ``int32_store_cases``), max |diff| 0: int32
+   sources of K1, K2 and the warp kernel (read into float32) and of the
+   pointwise kernel (copies, rings, crops and borders of its bits), values
+   past 2^24 and within 64 of int32's bounds (``as_int32``); chains through
+   int32 in all five kernels (an op on it, its wraps, saturates, gray and
+   alpha); int32 chains into uint8 and float32 views and float chains into
+   int32 views; and a float32 source of values past every integer range,
+   the infinities and NaN (``EDGES``) cast into uint8, int16 and int32 in
+   every kernel.
    uint8 must match bit for bit, float32 within 1e-6, warp float32 bit for
    bit too, every other dtype bit for bit;
 4. the main paths: ``execute_operations`` twice each (new rects, new frame
@@ -93,7 +102,11 @@ code and no result line:
    flagship on a 12-bit uint16 frame into float16 planes, frame (a) into
    float16, W6 into float16, D1 into an int16 batch, and 40 updates of a
    uint16 ``CircularTensor`` with uint8 frames, one launch each and no
-   temporary;
+   temporary; int32 at full width the same way: the flagship on a 4K int32
+   frame (a 32-bit label or depth map) into float32 planes, frame (a) on a
+   1080p int32 image, W6 into int32 planes, D1 into an int32 batch, a 1080p
+   int32 image through a crop and a border (the crop unchanged, bit for
+   bit), and 40 updates of an int32 ``CircularTensor`` of int32 frames;
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain, and the
    kernel's duration in a ``torch.profiler`` trace of 20 launches (events
@@ -116,8 +129,8 @@ code and no result line:
    ``copy_``, as updates ran until the wrappers took ``out=``) and after;
    the pointwise kernel in P1-P5 (P1's bound is its operations at the
    unfused rate, half the published one: the build forbids FMAs); one eager
-   int32 pipeline, which no kernel takes; the five dtype paths of phase 4,
-   each beside its bound and floor;
+   int64 pipeline, which no kernel takes; the dtype and int32 paths of
+   phase 4, each beside its bound and floor;
 6. sharding: (a) every rank of meshes of 2 and 5 (the flagship, 50 crops
    ragged at ``used_planes`` = 37) and of 2, 4 and 8 (W6; P2's ring from
    ``first`` = 3 and -5; D1 and D3) run on this card through the rank-local
@@ -610,6 +623,149 @@ def dtype_store_cases(cvgs, frame, rects, hd) -> list:
             for kernel, read in reads.items() for name, (dtype, alpha, view) in chains.items()]
 
 
+def as_int32(torch, u8):
+    """A uint8 tensor's values spread over int32 on its device, so that a
+    rounding through float32 and a saturation both show: 0..63 within 64 of
+    int32's minimum, 192..255 within 64 of its maximum, the rest
+    (v - 128) * 2^24 + 3v, past 2^24 (float32 does not hold them)."""
+    v = u8.to(torch.int64)
+    return torch.where(v < 64, -2 ** 31 + v, torch.where(
+        v >= 192, 2 ** 31 - 1 - (255 - v), (v - 128) * 2 ** 24 + 3 * v)).to(torch.int32)
+
+
+#: float values past every integer range, the infinities and NaN
+EDGES = (float("inf"), float("-inf"), float("nan"), 3e9, -3e9, 2.0 ** 31, -2.0 ** 31, 70000.5,
+         -0.5, 254.5, 300.0, -9.0, 65535.5, -32768.5, 1e38, -1e38)
+
+
+def as_edges(torch, u8):
+    """A uint8 tensor as float32 values on its device, a sixteenth each of
+    ``EDGES``."""
+    table = torch.tensor(EDGES, dtype=torch.float32, device=u8.device)
+    return table[(u8.to(torch.int64) % len(EDGES))]
+
+
+def int32_cases(cvgs, torch, frame, rects, hd, ring) -> list:
+    """Phase 3's int32 cases: ``(name, kernel, ops)``. An int32 source in K1,
+    K2, the warp kernel (read into float32) and the pointwise kernel (as its
+    bits: copies exact at every value); chains through int32 (an op on it is
+    a float32 op saturated back) in all five kernels, its wraps, saturates,
+    gray and alpha; a float32 source of ``EDGES`` cast into uint8, int16 and
+    int32 in every kernel (truncated or rounded, saturated, NaN to 0)."""
+    dsize, seq = cvgs.Size(64, 128), cvgs.build_operation_sequence
+    mid = (WARP_DST[0] / 2, WARP_DST[1] / 2)
+    fi, hi, ri = as_int32(torch, frame), as_int32(torch, hd), as_int32(torch, ring)
+    to_f32 = (cvgs.convert_to(np.float32, alpha=2.0 ** -24), cvgs.subtract(SUB), cvgs.divide(DIV))
+    w2 = rotation((960, 540), 10.0, 1 / 3.0, to=mid)
+    cases = [
+        ("i32_src_flagship", "batch_resize",
+         (cvgs.resize_batch(fi, rects=rects, dsize=dsize), *to_f32, cvgs.split_tensor())),
+        ("i32_src_frame_a", "frame_resize",
+         (cvgs.resize(cvgs.image(hi), cvgs.Size(*FRAME_DST)), *to_f32, cvgs.split_tensor())),
+        ("i32_src_w2_rotation", "warp",
+         (cvgs.warp(cvgs.image(hi), w2, cvgs.Size(*WARP_DST), default=(1.0, 2.0, 3.0)),
+          *to_f32, cvgs.split_tensor())),
+        ("i32_src_w6_into_i32", "warp", warp_batch_ops(cvgs, cvgs.image(hi), -10.0, 7)[:1]
+         + (cvgs.convert_to(np.int32), cvgs.split_tensor())),
+        ("i32_p2_ring_unchanged", "pointwise",
+         (cvgs.circular_batch_read(ri, first=3), cvgs.split_tensor())),
+        ("i32_p3_border_constant_unchanged", "pointwise",
+         (cvgs.make_border(cvgs.image(hi), BORDER, BORDER, BORDER, BORDER,
+                           cvgs.BorderMode.CONSTANT, value=(3e9, -9.0, float("nan"))),
+          cvgs.write())),
+        ("i32_p4_crop_unchanged", "pointwise",
+         (cvgs.crop(cvgs.image(hi), cvgs.Rect(-300, -200, 640, 360)), cvgs.split_tensor())),
+        ("i32_gray", "pointwise",
+         (cvgs.image(hi), cvgs.cvt_color(cvgs.ColorConversionCode.COLOR_RGB2GRAY), cvgs.write())),
+        ("i32_bgra", "pointwise",
+         (cvgs.image(hi), cvgs.cvt_color(cvgs.ColorConversionCode.COLOR_BGR2BGRA),
+          cvgs.split_tensor())),
+        ("i32_wrap_u8", "pointwise", (cvgs.image(hi), cvgs.Cast(dst=torch.uint8), cvgs.write())),
+        ("i32_saturate_i16", "pointwise", (cvgs.image(hi), cvgs.convert_to(np.int16),
+                                           cvgs.write())),
+        ("i32_to_f16", "pointwise", (cvgs.image(hi), cvgs.convert_to(np.float16), cvgs.write())),
+        ("i32_ops_mul_add", "pointwise", (cvgs.image(hi), cvgs.multiply(3.0), cvgs.add(-7.0),
+                                          cvgs.split_tensor())),
+    ]
+    for to_float in (False, True):  # a uint8 head's chain through int32, stored or back to f32
+        chain = (cvgs.convert_to(np.int32, alpha=1e7), cvgs.multiply(3.0), cvgs.add(-2e9))
+        chain += (cvgs.convert_to(np.float32),) if to_float else ()
+        tag = "i32_chain" + ("_to_f32" if to_float else "_stored")
+        cases += [
+            (f"{tag}_flagship", "batch_resize",
+             (cvgs.resize_batch(frame, rects=rects, dsize=dsize), *chain, cvgs.split_tensor())),
+            (f"{tag}_frame_a", "frame_resize",
+             (cvgs.resize(cvgs.image(hd), cvgs.Size(*FRAME_DST)), *chain, cvgs.split_tensor())),
+            (f"{tag}_w6", "warp", warp_batch_ops(cvgs, cvgs.image(hd), -10.0, 7)[:1]
+             + (*chain, cvgs.split_tensor())),
+            (f"{tag}_p2_ring", "pointwise",
+             (cvgs.circular_batch_read(ring, first=3), *chain, cvgs.split_tensor())),
+            (f"{tag}_d1", "divergent", ([1, 2] * 8, (
+                seq(cvgs.circular_batch_read(ring, first=3), *chain, cvgs.write_tensor()),
+                seq(cvgs.circular_batch_read(ring, first=-5),
+                    cvgs.convert_to(np.float32, alpha=3e7), cvgs.write_tensor())))),
+        ]
+    cases += [
+        ("i32_gray_flagship", "batch_resize",
+         (cvgs.resize_batch(frame, rects=rects, dsize=dsize),
+          cvgs.convert_to(np.int32, alpha=1e7),
+          cvgs.cvt_color(cvgs.ColorConversionCode.COLOR_RGB2GRAY), cvgs.split_tensor())),
+        # crops into an int32 batch beside a uint8 image group (stored exact)
+        ("i32_d3_crops_u8_images", "divergent", ([1, 1, 2, 1, 2, 1, 1, 2], (
+            seq(cvgs.resize_batch(frame, rects=rects[:8], dsize=dsize),
+                cvgs.convert_to(np.int32, alpha=1e7), cvgs.add(-1e9), cvgs.write_tensor()),
+            seq(cvgs.image(ring[:8, :128, :64].contiguous()), cvgs.convert_to(np.uint8),
+                cvgs.write_tensor())))),
+    ]
+    # out-of-range values and NaN cast into uint8, int16 and int32
+    fe, he, re = as_edges(torch, frame), as_edges(torch, hd), as_edges(torch, ring)
+    heads = {
+        "batch_resize": lambda: cvgs.resize_batch(fe, rects=rects, dsize=dsize),
+        "frame_resize": lambda: cvgs.resize(cvgs.image(he), cvgs.Size(*FRAME_DST)),
+        "warp": lambda: cvgs.warp(cvgs.image(he), w2, cvgs.Size(*WARP_DST)),
+        "pointwise": lambda: cvgs.image(he),
+    }
+    casts = {"cast_u8": cvgs.Cast(dst=torch.uint8), "cast_i16": cvgs.Cast(dst=torch.int16),
+             "cast_i32": cvgs.Cast(dst=torch.int32),
+             "saturate_i32": cvgs.SaturateCast(dst=torch.int32)}
+    for kernel, head in heads.items():
+        for name, cast in casts.items():
+            cases.append((f"edges_{name}_{kernel}", kernel,
+                          (head(), cvgs.multiply(1.5), cast, cvgs.split_tensor())))
+    for name, cast in casts.items():
+        cases.append((f"edges_{name}_divergent", "divergent", ([1, 2] * 8, (
+            seq(cvgs.circular_batch_read(re, first=3), cvgs.multiply(1.5), cast,
+                cvgs.write_tensor()),
+            seq(cvgs.circular_batch_read(re, first=-5), cast, cvgs.write_tensor())))))
+    return cases
+
+
+def int32_store_cases(cvgs, torch, frame, rects, hd) -> list:
+    """Phase 3's int32 stores into an ``out=`` view of another dtype:
+    ``(name, kernel, ops, view dtype)`` for an int32 chain into uint8 (its
+    low bits) and float32 (converted), and a float32 chain of ``EDGES`` into
+    int32 (truncated, saturated, NaN to 0), in each kernel with ``out=``."""
+    fe, he = as_edges(torch, frame), as_edges(torch, hd)
+    w2 = rotation((960, 540), 10.0, 1 / 3.0, to=(WARP_DST[0] / 2, WARP_DST[1] / 2))
+    reads = {
+        "batch_resize": lambda f: cvgs.resize_batch(f, rects=rects, dsize=cvgs.Size(64, 128)),
+        "frame_resize": lambda f: cvgs.resize(cvgs.image(f), cvgs.Size(*FRAME_DST)),
+        "warp": lambda f: cvgs.warp(cvgs.image(f), w2, cvgs.Size(*WARP_DST)),
+        "pointwise": lambda f: cvgs.crop(cvgs.image(f), cvgs.Rect(-300, -200, 256, 256)),
+    }
+    cases = []
+    for kernel, read in reads.items():
+        src = frame if kernel == "batch_resize" else hd
+        for view in (np.uint8, np.float32):
+            cases.append((f"i32_out_into_{np.dtype(view).name}_{kernel}", kernel,
+                          (read(src), cvgs.convert_to(np.int32, alpha=1e7), cvgs.add(-1e9),
+                           cvgs.split_tensor()), view))
+        cases.append((f"edges_out_into_int32_{kernel}", kernel,
+                      (read(fe if kernel == "batch_resize" else he), cvgs.multiply(1.5),
+                       cvgs.split_tensor()), np.int32))
+    return cases
+
+
 def phase7(mesh, modules: dict) -> dict:
     """The system's own benchmarks and examples on the card: the four
     benchmark scripts at their full shapes with ``--quick`` (fewer
@@ -740,6 +896,14 @@ def main() -> int:
                     g, w = g.view(torch.int16), w.view(torch.int16)
                 if not torch.equal(g, w):
                     bad = int((g.to(torch.int32) != w.to(torch.int32)).sum())
+                    raise AssertionError(f"{name}: {bad} {g.dtype} values differ")
+                d = 0.0
+            elif tol == 0.0 and not bool(torch.isfinite(w).all()):
+                # an infinity the plain version gives too (int32 past float16's
+                # range): every bit must agree
+                bits = torch.int16 if g.element_size() == 2 else torch.int32
+                if not torch.equal(g.view(bits), w.view(bits)):
+                    bad = int((g.view(bits) != w.view(bits)).sum())
                     raise AssertionError(f"{name}: {bad} {g.dtype} values differ")
                 d = 0.0
             else:
@@ -1130,7 +1294,17 @@ def main() -> int:
             compare(name, kernel, kd.divergent(a), kd.divergent_reference(a))
         else:
             check(name, *ops, kernel=kernel)
-    for name, kernel, ops, view_dtype in dtype_store_cases(cvgs, frame, rects_a, hd):
+    # int32 in every kernel, max |diff| 0: sources, chains, stores, and
+    # float values past every integer range and NaN cast as the reference
+    for name, kernel, ops in int32_cases(cvgs, torch, frame, rects_a, hd, ring):
+        if kernel == "divergent":
+            ids, seqs = ops
+            a = kd.prepare(seqs, kd.build_plan(seqs, ids), dev)
+            compare(name, kernel, kd.divergent(a), kd.divergent_reference(a), 0.0)
+        else:
+            check(name, *ops, kernel=kernel, tol=0.0)
+    for name, kernel, ops, view_dtype in (dtype_store_cases(cvgs, frame, rects_a, hd)
+                                          + int32_store_cases(cvgs, torch, frame, rects_a, hd)):
         module, launch, plain = kernels[kernel]
         pipeline = cvgs.build_pipeline(*ops)
         a = module.prepare(pipeline, module.build_plan(pipeline), dev)
@@ -1447,13 +1621,13 @@ def main() -> int:
     log(f"phase4 pointwise path (p1): max relative |diff| vs float64 {mad_err!r}")
     assert mad_err <= ORACLE_TOL, mad_err
 
-    # what an f32 register cannot hold stays eager, one launch per op
-    for what, ops in (("int32 source", (cvgs.image(hd.to(torch.int32)), cvgs.multiply(2.0))),
+    # what a 32-bit register cannot hold stays eager, one launch per op
+    for what, ops in (("int64 source", (cvgs.image(hd.to(torch.int64)), cvgs.multiply(2.0))),
                       ("float64 source", (cvgs.image(hd.double()), cvgs.multiply(2.0))),
-                      ("int32 cast", (cvgs.image(hd), cvgs.convert_to(np.int32, alpha=1000.0)))):
+                      ("int64 cast", (cvgs.image(hd), cvgs.convert_to(np.int64, alpha=1000.0)))):
         cvgs.execute_operations(*ops)
         assert cvgs.last_backend() == "torch", (what, cvgs.last_backend())
-    log("phase4 int32 and float64 sources and an int32 cast run on the eager path (torch)")
+    log("phase4 int64 and float64 sources and an int64 cast run on the eager path (torch)")
 
     # the presets at full width, each call one launch
     def preset_calls(label, kernel, module, backend, calls):
@@ -1639,6 +1813,13 @@ def main() -> int:
     # second, equal to the eager version bit for bit
     frames_12bit = [(frame.to(torch.int32) * 4095 // 255).to(torch.uint16),
                     (torch.roll(frame, 5, dims=1).to(torch.int32) * 4095 // 255).to(torch.uint16)]
+    # int32 at full width: a 32-bit label or depth map of the flagship's 4K
+    # frame into float32 planes, frame (a) on a 1080p int32 image, W6 into
+    # int32 planes, D1 into an int32 batch, a 1080p int32 image through a
+    # crop and a border, unchanged (values past 2^24 and near int32's bounds)
+    frames_i32 = [as_int32(torch, frame), as_int32(torch, torch.roll(frame, 5, dims=1))]
+    hds_i32 = [as_int32(torch, hd), as_int32(torch, hd2)]
+    crop_i32 = cvgs.Rect(-1600, 100, 1600, 900)
 
     def dtype_path_ops(k):
         """The dtype paths' ops with the values of call ``k`` (0 or 1)."""
@@ -1659,6 +1840,25 @@ def main() -> int:
                 seq(d1_read, cvgs.convert_to(np.int16, alpha=(100.0, 90.0)[k]),
                     cvgs.subtract(12000.5), cvgs.write_tensor()),
                 seq(d1_read, cvgs.convert_to(np.float32, alpha=-50.0), cvgs.write_tensor())))),
+            "flagship_i32_to_f32": ("batch_resize", (
+                cvgs.resize_batch(frames_i32[k], rects=(rects_a, shifted)[k], dsize=dsize),
+                cvgs.convert_to(np.float32, alpha=2.0 ** -31), cvgs.subtract(MEAN),
+                cvgs.divide(STD), cvgs.split_tensor())),
+            "frame_a_i32_to_f32": ("frame_resize", (
+                cvgs.resize(cvgs.image(hds_i32[k]), cvgs.Size(*FRAME_DST)),
+                cvgs.convert_to(np.float32, alpha=2.0 ** -31), cvgs.subtract(MEAN),
+                cvgs.divide(STD), cvgs.split_tensor())),
+            "w6_into_i32": ("warp", warp_batch_ops(cvgs, shared, (-10.0, -7.0)[k], (7, 6)[k])[:1]
+                            + (cvgs.convert_to(np.int32, alpha=1e7), cvgs.add(-1e9),
+                               cvgs.split_tensor())),
+            "d1_into_i32": ("divergent", ([1, 2] * 8, (
+                seq(d1_read, cvgs.convert_to(np.int32, alpha=(1e7, 9e6)[k]), cvgs.add(-1e9),
+                    cvgs.write_tensor()),
+                seq(d1_read, cvgs.convert_to(np.float32, alpha=-3e7), cvgs.write_tensor())))),
+            "crop_border_i32_unchanged": ("pointwise", (
+                cvgs.make_border(cvgs.crop(cvgs.image(hds_i32[k]), crop_i32), BORDER, BORDER,
+                                 BORDER, BORDER, cvgs.BorderMode.CONSTANT, value=(3e9, -9.0, 0.5)),
+                cvgs.write())),
         }
 
     dtype_launches = {}
@@ -1691,10 +1891,20 @@ def main() -> int:
         assert [n for _, n, _ in seen] == [1, 2], seen
         assert seen[0][2] <= builds0 + 1 and seen[1][2] == seen[0][2], (builds0, seen)
         assert not torch.equal(outs[0].view(torch.uint8), outs[1].view(torch.uint8)), name
-    main_launches += dtype_launches["flagship_u16_12bit_to_f16"]
-    frame_launches += dtype_launches["frame_a_to_f16"]
-    warp_launches += dtype_launches["w6_to_f16"]
-    divergent_launches += dtype_launches["d1_into_int16"]
+        if name == "crop_border_i32_unchanged":  # the source's bits, past 2^24 too
+            inner = outs[1][BORDER:-BORDER, BORDER:-BORDER]
+            src = hds_i32[1][100:1000, 320:1920]
+            edge = outs[1][0, 0]
+            assert torch.equal(inner, src) and int(src.abs().max()) > 2 ** 24, name
+            assert edge.tolist() == [2 ** 31 - 1, -9, 0], edge.tolist()
+            log(f"phase4 dtype path ({name}): the crop inside the border equals the int32 source "
+                f"bit for bit; the border holds {edge.tolist()} (3e9, -9.0, 0.5 cast to int32)")
+    main_launches += (dtype_launches["flagship_u16_12bit_to_f16"]
+                      + dtype_launches["flagship_i32_to_f32"])
+    frame_launches += dtype_launches["frame_a_to_f16"] + dtype_launches["frame_a_i32_to_f32"]
+    warp_launches += dtype_launches["w6_to_f16"] + dtype_launches["w6_into_i32"]
+    divergent_launches += dtype_launches["d1_into_int16"] + dtype_launches["d1_into_i32"]
+    pointwise_launches += dtype_launches["crop_border_i32_unchanged"]
 
     # a CircularTensor of uint8 frames into a uint16 ring: 40 updates, each
     # one launch of the frame kernel storing into its slot (a widening
@@ -1733,6 +1943,43 @@ def main() -> int:
     assert ct16_launches == 40 and ct16_new_plans == 0 and ct16_equal, (
         ct16_launches, ct16_new_plans, ct16_equal)
     assert ct16_grown < 128 * 64 * 3, ct16_grown
+
+    # an int32 CircularTensor of int32 1080p frames: 40 updates, each one
+    # launch of the frame kernel storing its int32 chain into the slot, no
+    # plan after the first, no temporary, equal to an eager ring bit for bit
+    ct32 = cvgs.CircularTensor(64, 128, 3, 32, dtype=np.int32, device=dev)
+    eager32 = torch.zeros(ct32.shape, dtype=torch.int32, device=dev)
+
+    def ct32_ops(k):
+        return (cvgs.resize(cvgs.image(torch.roll(hds_i32[0], 7 * k, dims=1)), cvgs.Size(64, 128)),
+                cvgs.convert_to(np.int32), cvgs.add(-5.0))
+
+    kfr.LAUNCHES = 0
+    ct32_new_plans, ct32_grown = 0, 0
+    for k in range(40):
+        ops = ct32_ops(k)
+        b0 = executor.PLAN_BUILDS
+        torch.cuda.synchronize()
+        allocated0 = torch.cuda.memory_stats(dev)["allocated_bytes.all.allocated"]
+        drive("frame_resize", lambda: ct32.update(*ops))
+        torch.cuda.synchronize()
+        if k:
+            ct32_new_plans += executor.PLAN_BUILDS - b0
+            ct32_grown = max(ct32_grown, torch.cuda.memory_stats(dev)[
+                "allocated_bytes.all.allocated"] - allocated0)
+        assert cvgs.last_backend() == "cuda:frame_resize", cvgs.last_backend()
+        x = cvgs.execute_operations(*ct32_ops(k), backend=cvgs.ParBackend.TORCH)
+        eager32[k % 32].copy_(x.permute(2, 0, 1))
+    ct32_launches = kfr.LAUNCHES
+    frame_launches += ct32_launches
+    ct32_equal = torch.equal(ct32.tensor, eager32.index_select(0, perm))
+    log(f"phase4 CircularTensor {ct32.shape} int32 of int32 frames: frame_resize launches "
+        f"{ct32_launches} in 40 updates; plans built after the first update {ct32_new_plans}; "
+        f"device bytes allocated by one update at most {ct32_grown} (one 128x64x3 int32 plane "
+        f"is {128 * 64 * 3 * 4}); every logical plane equal to the eager ring {ct32_equal}")
+    assert ct32_launches == 40 and ct32_new_plans == 0 and ct32_equal, (
+        ct32_launches, ct32_new_plans, ct32_equal)
+    assert ct32_grown < 128 * 64 * 3, ct32_grown
 
     # ---- phase 5: times at the flagship shape
     def profiler_ms(fn, calls=20, what="a kernel"):
@@ -2024,17 +2271,17 @@ def main() -> int:
         log(f"phase5 pointwise {name}: {describe(t)}; execute_operations host-inclusive "
             f"{t['call_ms'] * 1e3:.2f} us/call (median of 50)")
 
-    # what no kernel takes: an int32 frame through a 3-op chain, one launch
+    # what no kernel takes: an int64 frame through a 3-op chain, one launch
     # per op on the eager path
-    hd_i32 = hd.to(torch.int32)
-    eager_ops = (cvgs.image(hd_i32), cvgs.convert_to(np.float32, alpha=1 / 255.0),
+    hd_i64 = hd.to(torch.int64)
+    eager_ops = (cvgs.image(hd_i64), cvgs.convert_to(np.float32, alpha=1 / 255.0),
                  cvgs.subtract(MEAN), cvgs.divide(STD), cvgs.split_tensor())
     eager_ms = float(np.median(time_cuda(lambda: cvgs.execute_operations(*eager_ops), iters=20)))
     assert cvgs.last_backend() == "torch"
     same_u8 = (cvgs.image(hd), *eager_ops[1:])
     kernel_ms_u8 = float(np.median(time_cuda(lambda: cvgs.execute_operations(*same_u8), iters=20)))
     assert cvgs.last_backend() == "cuda:pointwise"
-    log(f"phase5 eager int32 pipeline (1080p int32 -> x1/255, normalize, planar f32): "
+    log(f"phase5 eager int64 pipeline (1080p int64 -> x1/255, normalize, planar f32): "
         f"{eager_ms * 1e3:.2f} us by events on the eager path (torch), against {kernel_ms_u8 * 1e3:.2f} "
         f"us for the same chain on a uint8 frame through cuda:pointwise (host-bound: events around "
         f"whole execute_operations calls); card {card}")
@@ -2072,6 +2319,17 @@ def main() -> int:
     dtype_times["circular_tensor_u8_into_u16_ring"] = t
     log(f"phase5 dtype path circular_tensor_u8_into_u16_ring (frame_resize, out= the slot): "
         f"{describe(t)}")
+    pipe32 = map_leaves(cvgs.build_pipeline(*ct32_ops(40), cvgs.split_tensor()),
+                        lambda v: as_device_tensor(v, dev))
+    args32 = kfr.prepare(pipe32, kfr.build_plan(pipe32), dev)
+    slot32 = torch.empty((2, 3, 128, 64), dtype=torch.int32, device=dev)[1]
+    t = measure(lambda: kfr.frame_resize(args32, out=slot32),
+                lambda: kbr.reference_into(kfr.frame_resize_reference(args32), slot32, dev), 50,
+                plain_iters=10)
+    t.update(bounds.bound(*kfr.work(args32), bandwidth))
+    t["library_ms"] = t["library_profiler_ms"] = None
+    dtype_times["circular_tensor_i32_ring"] = t
+    log(f"phase5 dtype path circular_tensor_i32_ring (frame_resize, out= the slot): {describe(t)}")
 
     # ---- phase 6: the batch axis sharded over a device mesh (parallel/mesh.py)
     # (a) every rank of meshes of 2 to 8 on this card, through the rank-local
@@ -2298,6 +2556,7 @@ def main() -> int:
         entry("batch_resize", "batch_resize.cu", "cvgpuspeedup_tpu/exec/pallas_backend.py:500",
               main_launches, k1, cases={"flagship": k1},
               dtype_path=dtype_times["flagship_u16_12bit_to_f16"],
+              int32_path=dtype_times["flagship_i32_to_f32"],
               sharded_launches=sharded_launches["batch_resize"], sharding=shard_times),
         # path (a); both paths below
         entry("frame_resize", "frame_resize.cu", "cvgpuspeedup_tpu/exec/pallas_frame.py:663",
@@ -2305,7 +2564,9 @@ def main() -> int:
               paths={"a_1080p_rgb_to_640x360": frame_times["a"],
                      "b_nv12_6k_to_1080p": frame_times["b"]},
               dtype_paths={k: dtype_times[k] for k in ("frame_a_to_f16",
-                                                       "circular_tensor_u8_into_u16_ring")}),
+                                                       "circular_tensor_u8_into_u16_ring")},
+              int32_paths={k: dtype_times[k] for k in ("frame_a_i32_to_f32",
+                                                       "circular_tensor_i32_ring")}),
         # W6, the batch of the main path (the batched TPU kernel); the
         # single-image classes and the timed cases below
         entry("warp", "warp.cu", "cvgpuspeedup_tpu/exec/pallas_warp_universal.py:741",
@@ -2314,17 +2575,19 @@ def main() -> int:
                              "cvgpuspeedup_tpu/exec/pallas_warp_general.py:272",
                              "cvgpuspeedup_tpu/exec/pallas_warp_universal.py:359"],
               cases=warp_times, sharded_launches=sharded_launches["warp"],
-              dtype_path=dtype_times["w6_to_f16"]),
+              dtype_path=dtype_times["w6_to_f16"], int32_path=dtype_times["w6_into_i32"]),
         # D4, the reference's warp | crop | pass row; D1-D4 below
         entry("divergent", "divergent.cu", "cvgpuspeedup_tpu/exec/pallas_divergent.py:686",
               divergent_launches, d4t, cases=div_times,
               circular_tensor_update_ms=ct_update_ms, dtype_path=dtype_times["d1_into_int16"],
+              int32_path=dtype_times["d1_into_i32"],
               sharded_launches=sharded_launches["divergent"]),
         # P1, the MAD stress (bound by its unfused operations); P1-P5 below. No
         # Pallas counterpart: it replaces the reference's jitted XLA program
         entry("pointwise", "pointwise.cu", "cvgpuspeedup_tpu/exec/executor.py:243",
               pointwise_launches, pw_times["p1_mad_200_ops_2048x2048"], cases=pw_times,
-              circular_tensor_update=ring_update, eager_int32_pipeline_ms=eager_ms,
+              circular_tensor_update=ring_update, eager_int64_pipeline_ms=eager_ms,
+              int32_path=dtype_times["crop_border_i32_unchanged"],
               sharded_launches=sharded_launches["pointwise"]),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -61,29 +61,27 @@
 #include "sources.cuh"
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
-// `src` holds elements of type `src_type` (PW_U8 .. PW_F16); `out` holds
-// elements of type `out_type` (PW_U8 .. PW_F16) with out_ch channels,
-// element strides (sn, sc, sy, sx) per (plane, channel, row, col). With
-// clamp_store (1), a float chain's values are clamped to an integer
-// buffer's range, then truncated; any other mode stores the chain's values
-// as they are (an integer into a narrower one wraps).
+// `src` holds elements of type `src_type` (PW_U8 .. PW_I32); `out` holds
+// elements of type `out_type` (PW_U8 .. PW_I32) with out_ch channels,
+// element strides (sn, sc, sy, sx) per (plane, channel, row, col). A
+// store_op other than 0 is the row that converts the chain's values for the
+// buffer's dtype (exec/cuda_batch_resize.py::store_cast).
 extern "C" int cvgs_batch_resize(const void* src, int src_type, long long plane_stride,
                                  int src_h, int src_w, int nch, const int* rects,
                                  const int* used, const float* fparams, const int* ops,
                                  int n_ops, int n_planes, int dst_w, int dst_h, int mode,
-                                 void* out, int out_type, int out_ch, int clamp_store,
+                                 void* out, int out_type, int out_ch, int store_op,
                                  long long sn, long long sc, long long sy, long long sx,
                                  void* stream) {
   if (nch < 1 || nch > kMaxCh || out_ch < 1 || out_ch > kMaxCh || n_planes < 1 ||
       n_planes > 65535 || dst_w < 1 || dst_h < 1 || dst_h > 65535 || src_h < 1 || src_w < 1 ||
       src_h >= (1 << 24) || src_w >= (1 << 24) || n_ops < 0 || out_type < PW_U8 ||
-      out_type > PW_F16 || src_type < PW_U8 || src_type > PW_F16) {
+      out_type > PW_I32 || src_type < PW_U8 || src_type > PW_I32) {
     return (int)cudaErrorInvalidValue;
   }
   cvgs::BatchResizeArgs a{src, plane_stride, src_h, src_w, nch, rects, used, fparams,
                           ops, n_ops, n_planes, dst_w, dst_h, mode, out, out_type,
-                          out_ch, 0.f, 0.f, sn, sc, sy, sx, static_cast<cudaStream_t>(stream)};
-  if (clamp_store == 1) store_range(out_type, a.clamp_lo, a.clamp_hi);
+                          out_ch, store_op, sn, sc, sy, sx, static_cast<cudaStream_t>(stream)};
   switch (src_type) {
     case PW_U8: k1::launch_source<uint8_t>(a); break;
     case PW_F32: k1::launch_source<float>(a); break;
@@ -91,6 +89,7 @@ extern "C" int cvgs_batch_resize(const void* src, int src_type, long long plane_
     case PW_U16: cvgs::batch_resize_u16(a); break;
     case PW_I16: cvgs::batch_resize_i16(a); break;
     case PW_F16: cvgs::batch_resize_f16(a); break;
+    case PW_I32: cvgs::batch_resize_i32(a); break;
   }
   return (int)cudaGetLastError();
 }

@@ -11,8 +11,9 @@
 
 #include "batch_resize.cuh"
 
-// One launch's arguments, as the C entry takes them; clamp_lo < clamp_hi
-// clamps a float chain before an integer store (chain.cuh::store_range).
+// One launch's arguments, as the C entry takes them; store_op, where not 0,
+// is the row that converts the chain's values for the buffer's dtype before
+// the store (chain.cuh::run_integer_row).
 namespace cvgs {
 struct BatchResizeArgs {
   const void* src;
@@ -25,7 +26,7 @@ struct BatchResizeArgs {
   int n_ops, n_planes, dst_w, dst_h, mode;
   void* out;
   int out_type, out_ch;
-  float clamp_lo, clamp_hi;
+  int store_op;
   long long sn, sc, sy, sx;
   cudaStream_t stream;
 };
@@ -105,7 +106,7 @@ __global__ void __launch_bounds__(kThreads) batch_resize_kernel(
     const SrcT* __restrict__ src, long long plane_stride, int src_h, int src_w, int nch,
     const int* __restrict__ rects, const int* __restrict__ used, const float* __restrict__ fp,
     const int* __restrict__ ops, int n_ops, int dst_w, int dst_h, int mode, int tile_w,
-    int tile_h, OutT* __restrict__ out, int out_ch, float clamp_lo, float clamp_hi, long long sn,
+    int tile_h, OutT* __restrict__ out, int out_ch, int store_op, long long sn,
     long long sc, long long sy, long long sx) {
   __shared__ Taps t;
 
@@ -172,7 +173,7 @@ __global__ void __launch_bounds__(kThreads) batch_resize_kernel(
   }
 
   run_chain(v, nch, ops, n_ops, fp);
-  if (clamp_lo < clamp_hi) clamp_to_range(v, clamp_lo, clamp_hi);
+  if (store_op) run_integer_row(store_op, v);
 
   store_pixels(out + (long long)z * sn + (long long)y * sy + (long long)x * sx, v, n, out_ch, sc,
                sx);
@@ -188,7 +189,7 @@ void launch(const BatchResizeArgs& a) {
   batch_resize_kernel<SrcT, OutT><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const SrcT*>(a.src), a.plane_stride, a.src_h, a.src_w, a.nch, a.rects, a.used,
       a.fp, a.ops, a.n_ops, a.dst_w, a.dst_h, a.mode, tile_w, tile_h, static_cast<OutT*>(a.out),
-      a.out_ch, a.clamp_lo, a.clamp_hi, a.sn, a.sc, a.sy, a.sx);
+      a.out_ch, a.store_op, a.sn, a.sc, a.sy, a.sx);
 }
 
 // The launch for a source of element type SrcT, by the output's element type.

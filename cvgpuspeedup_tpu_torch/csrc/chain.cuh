@@ -2,14 +2,23 @@
 //
 // A chain is a table of rows [code, param offset, param stride, aux] built
 // once per pipeline structure by exec/cuda_batch_resize.py::encode_chain,
-// over a float32 parameter block. Values live in float32 registers, up to
-// kMaxCh channels; the encoder tracks the running dtype and channel count
+// over a float32 parameter block. Values live in 32-bit float registers, up
+// to kMaxCh channels; the encoder tracks the running dtype and channel count
 // statically, so an integer value is saturated after each op, a float16
 // value rounded, and a colour conversion may change the channel count.
-// Every dtype a chain may hold (uint8, int8, uint16, int16, float16,
-// float32) is exact in a float32 register, and one float32 +, -, * or / of
-// two float16 values rounded to float16 is the float16 operation (24 >=
-// 2 * 11 + 2 bits), so every kernel runs every chain in float32.
+// uint8, int8, uint16, int16, float16 and float32 values are exact in a
+// float32 register, and one float32 +, -, * or / of two float16 values
+// rounded to float16 is the float16 operation (24 >= 2 * 11 + 2 bits), so
+// every kernel runs those chains in float32. An int32 value, which float32
+// does not hold past 2^24, lives in the register as its 32 bits
+// (__int_as_float): reorders and stores move the bits, and an op on it is
+// three rows, as ops/arithmetic.py computes it: OP_I32_F32, the float32 op,
+// OP_SAT_I32.
+//
+// Float -> integer rows convert as XLA does, whatever the value: NaN to 0,
+// then saturated to the destination's range (cvt.rni / cvt.rzi saturate to
+// int32 and map NaN to 0; a narrower range is an integer clamp after them).
+// Integer -> integer Casts keep the low bits.
 //
 // A kernel holds one pixel per thread (float v[1][kMaxCh]) or P adjacent
 // ones (v[P][kMaxCh], P of 1 or 4); run_chain and store_pixels take either.
@@ -60,6 +69,21 @@ enum : int {
   OP_ADD_F16 = 20,
   OP_SUB_F16 = 21,
   OP_DIV_F16 = 22,
+  // a Cast of a float value: truncate, saturate to the range, NaN to 0
+  OP_TRUNC_U8 = 23,
+  OP_TRUNC_I8 = 24,
+  OP_TRUNC_U16 = 25,
+  OP_TRUNC_I16 = 26,
+  OP_TRUNC_I32 = 27,  // ... into int32's bits; exact for a value of a narrower integer
+  OP_SAT_I32 = 28,    // round half to even, saturate, NaN to 0, into int32's bits
+  OP_I32_F32 = 29,    // int32's bits to the nearest float32
+  // a Cast of int32's bits into a narrower integer: keep the low bits
+  OP_WRAP_U8 = 30,
+  OP_WRAP_I8 = 31,
+  OP_WRAP_U16 = 32,
+  OP_WRAP_I16 = 33,
+  OP_GRAY_I32 = 34,   // OP_GRAY_U8 on int32's bits: products and sums wrap in int32
+  OP_ALPHA_I32 = 35,  // append a channel holding aux's bits (int32's maximum)
 };
 
 // float32(0.299), float32(0.587), float32(0.114), as ops/color.py rounds them
@@ -169,15 +193,17 @@ __device__ __forceinline__ void load_pixel(const SrcT* __restrict__ p, int nch,
 
 // The element types of a source or an output buffer; keep in step with
 // exec/cuda_batch_resize.py::TYPE_CODES
-enum : int { PW_U8 = 0, PW_I8 = 1, PW_U16 = 2, PW_I16 = 3, PW_F32 = 4, PW_F16 = 5 };
+enum : int { PW_U8 = 0, PW_I8 = 1, PW_U16 = 2, PW_I16 = 3, PW_F32 = 4, PW_F16 = 5, PW_I32 = 6 };
 
 // A kernel stores through one of four element types: uint8_t for a uint8
-// or an int8 buffer, uint16_t for a uint16 or an int16 one, f16, float. An
-// integer store truncates the value and keeps its low bits, which is the
-// integer itself for a value in the buffer's range and wraps one outside it,
-// as Tensor.to wraps an integer into a narrower one (store mode 2 of
-// exec/cuda_batch_resize.py::store_cast); a float16 store rounds to
-// nearest even.
+// or an int8 buffer, uint16_t for a uint16 or an int16 one, f16, and float
+// for a float32 or an int32 one (the register's 32 bits, which an int32
+// chain holds as its bits). An integer store truncates the value and keeps
+// its low bits, which is the integer itself for a value in the buffer's range
+// and wraps one outside it, as an integer converts into a narrower one; a
+// float16 store rounds to nearest even. What a buffer of another dtype needs
+// first is one row after the chain (the store row,
+// exec/cuda_batch_resize.py::store_cast).
 template <typename OutT>
 __device__ __forceinline__ OutT to_out(float v);
 template <>
@@ -197,84 +223,105 @@ __device__ __forceinline__ f16 to_out<f16>(float v) {
 __device__ __forceinline__ unsigned short bits16(uint16_t e) { return e; }
 __device__ __forceinline__ unsigned short bits16(f16 e) { return e.bits; }
 
-// The range a float value is clamped to before an integer store of type
-// out_type (clamp_store): lo < hi for the four integer types, lo == hi
-// (nothing clamped) for a float buffer. Host code: the kernels take the two
-// bounds as arguments.
-inline void store_range(int out_type, float& lo, float& hi) {
-  lo = hi = 0.f;
-  switch (out_type) {
-    case PW_U8: hi = 255.f; break;
-    case PW_I8: lo = -128.f, hi = 127.f; break;
-    case PW_U16: hi = 65535.f; break;
-    case PW_I16: lo = -32768.f, hi = 32767.f; break;
-    default: break;
-  }
-}
-
-// A float chain stored into an integer buffer (clamp_store, a ring slot of
-// another dtype): each value clamped to [lo, hi] here, then truncated by
-// to_out, as utils/dtypes.py::astype casts.
-template <int P, int L>
-__device__ __forceinline__ void clamp_to_range(float (&v)[P][L], float lo, float hi) {
-#pragma unroll
-  for (int q = 0; q < P; ++q) {
-#pragma unroll
-    for (int c = 0; c < L; ++c) v[q][c] = fminf(fmaxf(v[q][c], lo), hi);
-  }
-}
-
-// ops/cast.py::Cast of a float32 register to an integer type: truncate, keep
-// the low bits (OP_CAST_U8's rule for every width)
+// ops/cast.py::Cast of an integer value held as a float32 into uint8:
+// truncate (exact), keep the low 8 bits (OP_CAST_U8)
 __device__ __forceinline__ float cast_u8(float v) { return (float)(__float2int_rz(v) & 255); }
-__device__ __forceinline__ float cast_i8(float v) { return (float)(int8_t)__float2int_rz(v); }
-__device__ __forceinline__ float cast_u16(float v) { return (float)(__float2int_rz(v) & 65535); }
-__device__ __forceinline__ float cast_i16(float v) { return (float)(int16_t)__float2int_rz(v); }
 
-// ops/cast.py::SaturateCast: round half to even, clamp to [lo, hi]; the
-// sum with +0 turns rintf's -0 (of a value in (-0.5, 0]) into the integer 0,
-// which a later store into a float buffer or a division would tell apart
-__device__ __forceinline__ float saturate(float v, float lo, float hi) {
-  const float r = rintf(v);
-  return __fadd_rn(r < lo ? lo : (r > hi ? hi : r), 0.f);
+// ops/cast.py::SaturateCast: round half to even, saturate to [lo, hi], NaN
+// to 0 (cvt.rni saturates to int32 and maps NaN to 0); the integer's float
+// is never -0
+__device__ __forceinline__ float saturate(float v, int lo, int hi) {
+  return (float)clampi(__float2int_rn(v), lo, hi);
 }
 
-// A saturate or a truncate row of int8, uint16 or int16 (or uint8) on every
-// lane: the saturates as one loop over the range of the row's type, the
-// truncates as one loop that keeps the type's low bits (shift left, then
-// right: an arithmetic shift sign-extends the signed types), so a one-lane
-// instance of 16 pixels unrolls two loops, not eight. A lane at or above the
-// value's channel count holds a value no store reads.
+// A row that converts each lane on its own (every saturate, truncate, wrap
+// and int32 row; run_chain runs OP_SAT_U8 and OP_CAST_U8 inline), also the
+// store row a kernel runs before a store of another dtype, on every lane:
+// one loop per kind of row, the row's range, width and sign as operands, so
+// a one-lane instance of 16 pixels unrolls five loops, not fifteen. The wrapping loops keep a type's low bits by a shift left, then
+// right (an arithmetic shift sign-extends the signed types). A lane at or
+// above the value's channel count holds a value no store reads.
 template <int P, int L>
 __device__ __forceinline__ void run_integer_row(int code, float (&v)[P][L]) {
-  float lo = 0.f, hi = 255.f;
-  int shift = 24;
-  bool sat = true, sign = false;
+  enum { kSat, kTrunc, kWrap, kToBits, kFromBits };
+  int kind = kSat, lo = 0, hi = 255, shift = 24;
+  bool sign = false, bits = false, rn = false;
   switch (code) {
-    case OP_SAT_I8: lo = -128.f, hi = 127.f; break;
-    case OP_SAT_U16: hi = 65535.f; break;
-    case OP_SAT_I16: lo = -32768.f, hi = 32767.f; break;
-    case OP_CAST_U8: sat = false; break;
-    case OP_CAST_I8: sat = false, sign = true; break;
-    case OP_CAST_U16: sat = false, shift = 16; break;
-    case OP_CAST_I16: sat = false, sign = true, shift = 16; break;
-    default: break;  // OP_SAT_U8
+    case OP_SAT_U8: break;
+    case OP_SAT_I8: lo = -128, hi = 127; break;
+    case OP_SAT_U16: hi = 65535; break;
+    case OP_SAT_I16: lo = -32768, hi = 32767; break;
+    case OP_TRUNC_U8: kind = kTrunc; break;
+    case OP_TRUNC_I8: kind = kTrunc, lo = -128, hi = 127; break;
+    case OP_TRUNC_U16: kind = kTrunc, hi = 65535; break;
+    case OP_TRUNC_I16: kind = kTrunc, lo = -32768, hi = 32767; break;
+    case OP_CAST_U8: kind = kWrap; break;
+    case OP_CAST_I8: kind = kWrap, sign = true; break;
+    case OP_CAST_U16: kind = kWrap, shift = 16; break;
+    case OP_CAST_I16: kind = kWrap, sign = true, shift = 16; break;
+    case OP_WRAP_U8: kind = kWrap, bits = true; break;
+    case OP_WRAP_I8: kind = kWrap, bits = true, sign = true; break;
+    case OP_WRAP_U16: kind = kWrap, bits = true, shift = 16; break;
+    case OP_WRAP_I16: kind = kWrap, bits = true, sign = true, shift = 16; break;
+    case OP_TRUNC_I32: kind = kToBits; break;
+    case OP_SAT_I32: kind = kToBits, rn = true; break;
+    case OP_I32_F32: kind = kFromBits; break;
+    default: return;  // not a row of this kind: the callers name each code
   }
-  if (sat) {
+  if (kind == kSat) {
 #pragma unroll
     for (int p = 0; p < P; ++p) {
 #pragma unroll
       for (int c = 0; c < L; ++c) v[p][c] = saturate(v[p][c], lo, hi);
     }
-  } else {
+  } else if (kind == kTrunc) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int c = 0; c < L; ++c) v[p][c] = (float)clampi(__float2int_rz(v[p][c]), lo, hi);
+    }
+  } else if (kind == kWrap) {
 #pragma unroll
     for (int p = 0; p < P; ++p) {
 #pragma unroll
       for (int c = 0; c < L; ++c) {
-        const unsigned t = (unsigned)__float2int_rz(v[p][c]) << shift;
+        const int i = bits ? __float_as_int(v[p][c]) : __float2int_rz(v[p][c]);
+        const unsigned t = (unsigned)i << shift;
         v[p][c] = sign ? (float)((int)t >> shift) : (float)(t >> shift);
       }
     }
+  } else if (kind == kToBits) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int c = 0; c < L; ++c) {
+        v[p][c] = __int_as_float(rn ? __float2int_rn(v[p][c]) : __float2int_rz(v[p][c]));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int c = 0; c < L; ++c) v[p][c] = __int2float_rn(__float_as_int(v[p][c]));
+    }
+  }
+}
+
+// OP_GRAY_U8 (kBits false: channels held as float32 values) or OP_GRAY_I32
+// (kBits: int32's bits) of the channels at aux bits 0, 4, 8, into v[0]:
+// OpenCV's 15-bit fixed point in int32, whose products and sums wrap, as
+// ops/color.py computes them, and an arithmetic shift.
+template <bool kBits>
+__device__ __forceinline__ void gray_int(float (&v)[kMaxCh], int aux) {
+  const float r = pick(v, aux & 15), g = pick(v, (aux >> 4) & 15), b = pick(v, (aux >> 8) & 15);
+  if constexpr (kBits) {
+    const unsigned acc = (unsigned)__float_as_int(r) * 9798u +
+                         (unsigned)__float_as_int(g) * 19235u +
+                         (unsigned)__float_as_int(b) * 3735u + (1u << 14);
+    v[0] = __int_as_float((int)acc >> 15);
+  } else {
+    const int acc = (int)r * 9798 + (int)g * 19235 + (int)b * 3735 + (1 << 14);
+    v[0] = (float)(acc >> 15);
   }
 }
 
@@ -329,23 +376,26 @@ __device__ __forceinline__ int run_chain(float (&v)[P][kMaxCh], int ch,
         ch = aux >> 16;
         break;
       case OP_ALPHA:
+      case OP_ALPHA_I32: {
+        const float a = code == OP_ALPHA ? (float)aux : __int_as_float(aux);
 #pragma unroll
         for (int p = 0; p < P; ++p) {
 #pragma unroll
           for (int c = 0; c < kMaxCh; ++c) {
-            if (c == ch) v[p][c] = (float)aux;
+            if (c == ch) v[p][c] = a;
           }
         }
         ++ch;
         break;
+      }
       case OP_GRAY_U8:
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-          const int acc = (int)pick(v[p], aux & 15) * 9798 +
-                          (int)pick(v[p], (aux >> 4) & 15) * 19235 +
-                          (int)pick(v[p], (aux >> 8) & 15) * 3735 + (1 << 14);
-          v[p][0] = (float)(acc >> 15);
-        }
+        for (int p = 0; p < P; ++p) gray_int<false>(v[p], aux);
+        ch = 1;
+        break;
+      case OP_GRAY_I32:
+#pragma unroll
+        for (int p = 0; p < P; ++p) gray_int<true>(v[p], aux);
         ch = 1;
         break;
       case OP_GRAY_F32:
@@ -387,7 +437,7 @@ __device__ __forceinline__ int run_chain(float (&v)[P][kMaxCh], int ch,
         for (int p = 0; p < P; ++p) {
 #pragma unroll
           for (int c = 0; c < kMaxCh; ++c) {
-            if (c < ch) v[p][c] = saturate(v[p][c], 0.f, 255.f);
+            if (c < ch) v[p][c] = saturate(v[p][c], 0, 255);
           }
         }
         break;
@@ -406,12 +456,23 @@ __device__ __forceinline__ int run_chain(float (&v)[P][kMaxCh], int ch,
       case OP_CAST_I8:
       case OP_CAST_U16:
       case OP_CAST_I16:
+      case OP_TRUNC_U8:
+      case OP_TRUNC_I8:
+      case OP_TRUNC_U16:
+      case OP_TRUNC_I16:
+      case OP_TRUNC_I32:
+      case OP_SAT_I32:
+      case OP_I32_F32:
+      case OP_WRAP_U8:
+      case OP_WRAP_I8:
+      case OP_WRAP_U16:
+      case OP_WRAP_I16:
         run_integer_row(code, v);
         break;
       case OP_CAST_F16:
         round_row(v);
         break;
-      default:
+      default:  // every code of exec/cuda_batch_resize.py is named above
         break;
     }
   }

@@ -95,18 +95,10 @@ struct Desc {
   int n_ops;
   int fp_off;  // block offset of the chain scalars
   int data;    // crop, stack: rects; warp: coefficients (block); nv12: taps (consts)
-  int flags;   // nv12: keep_edge | nv21 << 1 | limited << 2 | alpha << 3; warp: perspective;
-               // every kind: kClampStore
+  int flags;   // nv12: keep_edge | nv21 << 1 | limited << 2 | alpha << 3; warp: perspective
   int aux;     // crop, stack: background; warp: borders (block); nv12: weights (consts)
 };
 static_assert(sizeof(Desc) == 64, "four 16-byte words");
-
-// The group's float values go into an integer batch (plane 0's group gave
-// the batch its dtype): clamp to the batch's range, then truncate, as the
-// eager merge's astype does, not the chain's round-half-even saturate. A
-// group of another integer dtype is stored as it is (the store keeps the
-// low bits: astype wraps), a float16 batch rounds.
-constexpr int kClampStore = 1 << 8;
 
 __device__ __forceinline__ Desc load_desc(const int* __restrict__ p) {
   const int4* q = reinterpret_cast<const int4*>(p);
@@ -129,8 +121,8 @@ inline int pixels_per_thread(long long outputs) {
 template <typename OutT, int P>
 __global__ void __launch_bounds__(256) divergent_kernel(
     const int* __restrict__ blk, const int* __restrict__ consts, int ptr_off, int desc_off,
-    int dst_w, int dst_h, OutT* __restrict__ out, int out_ch, float clamp_lo, float clamp_hi,
-    long long sn, long long sc, long long sy, long long sx) {
+    int dst_w, int dst_h, OutT* __restrict__ out, int out_ch, long long sn, long long sc,
+    long long sy, long long sx) {
   const int x = (blockIdx.x * blockDim.x + threadIdx.x) * P;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int z = blockIdx.z;
@@ -254,9 +246,10 @@ __global__ void __launch_bounds__(256) divergent_kernel(
       break;
   }
 
+  // a group's table ends in the row that casts its values into the batch's
+  // dtype (plane 0's group gave the batch its dtype), as the eager merge's
+  // astype does, where that takes one (exec/cuda_batch_resize.py::store_cast)
   run_chain(v, ch, consts + 4 * d.op_off, d.n_ops, fblk + d.fp_off);
-
-  if (d.flags & kClampStore) clamp_to_range(v, clamp_lo, clamp_hi);
 
   store_any(out + (long long)z * sn + (long long)y * sy + (long long)x * sx, v, n, out_ch, sc, sx);
 }
@@ -265,7 +258,7 @@ __global__ void __launch_bounds__(256) divergent_kernel(
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
 // `blk` is the parameter block and `consts` the plan's tables, laid out as
-// above; `out` holds elements of type `out_type` (PW_U8 .. PW_F16) with
+// above; `out` holds elements of type `out_type` (PW_U8 .. PW_I32) with
 // out_ch channels, element strides (sn, sc, sy, sx) per (plane, channel, row,
 // col). `blk` lies at a multiple of 16 bytes and `desc_off` is a multiple of
 // 4.
@@ -276,11 +269,9 @@ extern "C" int cvgs_divergent(const int* blk, const int* consts, int ptr_off, in
   if (out_ch < 1 || out_ch > kMaxCh || n_planes < 1 || n_planes > 65535 || n_groups < 1 ||
       dst_w < 1 || dst_h < 1 || ptr_off < n_planes || (ptr_off & 1) || desc_off <= ptr_off ||
       (desc_off & 3) || (reinterpret_cast<unsigned long long>(blk) & 15ull) ||
-      out_type < PW_U8 || out_type > PW_F16) {
+      out_type < PW_U8 || out_type > PW_I32) {
     return (int)cudaErrorInvalidValue;
   }
-  float lo, hi;
-  store_range(out_type, lo, hi);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int pix = pixels_per_thread((long long)n_planes * dst_w * dst_h);
   const dim3 block = group_block(dst_w, pix);
@@ -290,11 +281,11 @@ extern "C" int cvgs_divergent(const int* blk, const int* consts, int ptr_off, in
   if (pix == 4) {                                                                          \
     divergent_kernel<OutT, 4><<<grid, block, 0, s>>>(blk, consts, ptr_off, desc_off, dst_w, \
                                                      dst_h, static_cast<OutT*>(out), out_ch, \
-                                                     lo, hi, sn, sc, sy, sx);              \
+                                                     sn, sc, sy, sx);                      \
   } else {                                                                                 \
     divergent_kernel<OutT, 1><<<grid, block, 0, s>>>(blk, consts, ptr_off, desc_off, dst_w, \
                                                      dst_h, static_cast<OutT*>(out), out_ch, \
-                                                     lo, hi, sn, sc, sy, sx);              \
+                                                     sn, sc, sy, sx);                      \
   }                                                                                        \
   break;
   switch (out_type) {

@@ -50,29 +50,27 @@
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
 // `src` is an (src_h, src_w * nch) image of elements of type `src_type`
-// (PW_U8 .. PW_F16), or with yuv = 1 an NV12 (nv21 = 0) or NV21 uint8 buffer
+// (PW_U8 .. PW_I32), or with yuv = 1 an NV12 (nv21 = 0) or NV21 uint8 buffer
 // of (src_h * 3/2, src_w). `out` holds elements of type `out_type` (PW_U8 ..
-// PW_F16) with out_ch channels, element strides (sc, sy, sx) per (channel,
-// row, col). With clamp_store (1), a float chain's values are clamped to an
-// integer buffer's range, then truncated; any other mode stores the chain's
-// values as they are.
+// PW_I32) with out_ch channels, element strides (sc, sy, sx) per (channel,
+// row, col). A store_op other than 0 is the row that converts the chain's
+// values for the buffer's dtype (exec/cuda_batch_resize.py::store_cast).
 extern "C" int cvgs_frame_resize(const void* src, int src_type, int src_h, int src_w, int nch,
                                  int yuv, int nv21, const int* taps, const float* wts,
                                  int keep_edge, int limited, int alpha, float ys, float cs,
                                  float rv, float gu, float gv, float bu, const float* fparams,
                                  const int* ops, int n_ops, int dst_w, int dst_h, void* out,
-                                 int out_type, int out_ch, int clamp_store, long long sc,
+                                 int out_type, int out_ch, int store_op, long long sc,
                                  long long sy, long long sx, void* stream) {
   if (nch < 1 || nch > kMaxCh || out_ch < 1 || out_ch > kMaxCh || dst_w < 1 || dst_h < 1 ||
-      src_h < 1 || src_w < 1 || n_ops < 0 || src_type < PW_U8 || src_type > PW_F16 ||
-      (yuv && (src_type != PW_U8 || nch != 1)) || out_type < PW_U8 || out_type > PW_F16) {
+      src_h < 1 || src_w < 1 || n_ops < 0 || src_type < PW_U8 || src_type > PW_I32 ||
+      (yuv && (src_type != PW_U8 || nch != 1)) || out_type < PW_U8 || out_type > PW_I32) {
     return (int)cudaErrorInvalidValue;
   }
   cvgs::FrameResizeArgs a{src, src_h, src_w, nch, nv21, taps, wts, keep_edge,
                           Conv{limited, alpha, ys, cs, rv, gu, gv, bu},
-                          fparams, ops, n_ops, dst_w, dst_h, out, out_type, out_ch, 0.f, 0.f,
+                          fparams, ops, n_ops, dst_w, dst_h, out, out_type, out_ch, store_op,
                           sc, sy, sx, static_cast<cudaStream_t>(stream)};
-  if (clamp_store == 1) store_range(out_type, a.clamp_lo, a.clamp_hi);
   if (yuv) {
     k2::launch_source<uint8_t, true>(a);
     return (int)cudaGetLastError();
@@ -84,6 +82,7 @@ extern "C" int cvgs_frame_resize(const void* src, int src_type, int src_h, int s
     case PW_U16: cvgs::frame_resize_u16(a); break;
     case PW_I16: cvgs::frame_resize_i16(a); break;
     case PW_F16: cvgs::frame_resize_f16(a); break;
+    case PW_I32: cvgs::frame_resize_i32(a); break;
   }
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,9 @@
 
 #include "frame_resize.cuh"
 
-// One launch's arguments, as the C entry takes them; clamp_lo < clamp_hi
-// clamps a float chain before an integer store (chain.cuh::store_range).
+// One launch's arguments, as the C entry takes them; store_op, where not 0,
+// is the row that converts the chain's values for the buffer's dtype before
+// the store (chain.cuh::run_integer_row).
 namespace cvgs {
 struct FrameResizeArgs {
   const void* src;
@@ -22,7 +23,7 @@ struct FrameResizeArgs {
   int n_ops, dst_w, dst_h;
   void* out;
   int out_type, out_ch;
-  float clamp_lo, clamp_hi;
+  int store_op;
   long long sc, sy, sx;
   cudaStream_t stream;
 };
@@ -48,7 +49,7 @@ __global__ void __launch_bounds__(256) frame_resize_kernel(
     const SrcT* __restrict__ src, int src_h, int src_w, int nch, int nv21,
     const int* __restrict__ taps, const float* __restrict__ wts, int keep_edge, Conv conv,
     const float* __restrict__ fp, const int* __restrict__ ops, int n_ops, int dst_w, int dst_h,
-    OutT* __restrict__ out, int out_ch, float clamp_lo, float clamp_hi, long long sc, long long sy,
+    OutT* __restrict__ out, int out_ch, int store_op, long long sc, long long sy,
     long long sx) {
   const int x = (blockIdx.x * blockDim.x + threadIdx.x) * P;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -73,7 +74,7 @@ __global__ void __launch_bounds__(256) frame_resize_kernel(
   }
 
   run_chain(v, ch, ops, n_ops, fp);
-  if (clamp_lo < clamp_hi) clamp_to_range(v, clamp_lo, clamp_hi);
+  if (store_op) run_integer_row(store_op, v);
 
   store_any(out + (long long)y * sy + (long long)x * sx, v, n, out_ch, sc, sx);
 }
@@ -89,7 +90,7 @@ void launch(const FrameResizeArgs& a) {
   frame_resize_kernel<SrcT, OutT, kYuv, P><<<grid, block, 0, a.stream>>>(                         \
       static_cast<const SrcT*>(a.src), a.src_h, a.src_w, a.nch, a.nv21, a.taps, a.wts,            \
       a.keep_edge, a.conv, a.fp, a.ops, a.n_ops, a.dst_w, a.dst_h, static_cast<OutT*>(a.out),     \
-      a.out_ch, a.clamp_lo, a.clamp_hi, a.sc, a.sy, a.sx)
+      a.out_ch, a.store_op, a.sc, a.sy, a.sx)
   if (pix == 4) {
     CVGS_KERNEL(4);
   } else {

@@ -35,8 +35,10 @@
 // store per RGBA uint8 group measured 1.6 % on P5 and 4.8 % slower on P3:
 // removed). The source's element type is a runtime switch every thread takes
 // alike; the output's element type (uint8_t for uint8 and int8, uint16_t for
-// uint16 and int16, f16, float: chain.cuh::to_out), the lanes and P are
-// template parameters.
+// uint16 and int16, f16, float for float32 and int32: chain.cuh::to_out),
+// the lanes and P are template parameters. An int32 source is read as
+// float32's 4-byte words: the chain holds int32 as its bits, so a copy, a
+// crop, a border or a ring of int32 is exact at every value.
 //
 // Numerics: bit for bit the plain version (each op's own apply): every float
 // op is an _rn intrinsic (__fmul_rn, __fadd_rn, __fsub_rn and __fdiv_rn in
@@ -120,8 +122,8 @@ template <typename OutT, int L, int P>
 __global__ void __launch_bounds__(256) pointwise_kernel(
     const void* __restrict__ src, PwHead h, Conv conv, const int* __restrict__ blk,
     const int* __restrict__ ops, int n_ops, int fp_off, int dst_w, int dst_h,
-    OutT* __restrict__ out, int out_ch, float clamp_lo, float clamp_hi, long long sn, long long sc,
-    long long sy, long long sx) {
+    OutT* __restrict__ out, int out_ch, int store_op, long long sn, long long sc, long long sy,
+    long long sx) {
   __shared__ PwRow rows[kStageRows];
   const int x = (blockIdx.x * blockDim.x + threadIdx.x) * P;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -145,9 +147,9 @@ __global__ void __launch_bounds__(256) pointwise_kernel(
   }
   if (!live) return;
 
-  // a float value stored into an integer buffer (a ring slot): clamp to its
-  // range, then truncate, as utils/dtypes.py::astype
-  if (clamp_lo < clamp_hi) clamp_to_range(v, clamp_lo, clamp_hi);
+  // a value stored into a buffer of another dtype (a ring slot): the row
+  // that casts it as utils/dtypes.py::astype does, where that takes one
+  if (store_op) run_integer_row(store_op, v);
 
   OutT* o = out + (long long)z * sn + (long long)y * sy + (long long)x * sx;
   if constexpr (L == 1) {
@@ -164,14 +166,14 @@ __global__ void __launch_bounds__(256) pointwise_kernel(
 // last; `ops` holds the n_ops rows, a sentinel, then each row's channel
 // count; `blk` is the device block of runtime values, the chain scalars at
 // word `fp_off`;
-// `out` holds elements of type `out_type` (PW_U8 .. PW_F16) with out_ch
+// `out` holds elements of type `out_type` (PW_U8 .. PW_I32) with out_ch
 // channels and element strides (sn, sc, sy, sx) per (plane, channel, row,
-// col). With clamp_store (1), a float chain's values are clamped to an
-// integer buffer's range, then truncated.
+// col). A store_op other than 0 is the row that converts the chain's values
+// for the buffer's dtype (exec/cuda_batch_resize.py::store_cast).
 extern "C" int cvgs_pointwise(const void* src, const int* head, float ys, float cs, float rv,
                               float gu, float gv, float bu, const int* blk, const int* ops,
                               int n_ops, int fp_off, int n_planes, int dst_w, int dst_h,
-                              void* out, int out_type, int out_ch, int clamp_store, long long sn,
+                              void* out, int out_type, int out_ch, int store_op, long long sn,
                               long long sc, long long sy, long long sx, void* stream) {
   PwHead h;
   const int* w = head;
@@ -186,14 +188,12 @@ extern "C" int cvgs_pointwise(const void* src, const int* head, float ys, float 
   if (out_ch < 1 || out_ch > h.width || h.nch < 1 || h.nch > h.width || h.width > kMaxCh ||
       n_planes < 1 || n_planes > 65535 || dst_w < 1 || dst_h < 1 || h.src_h < 1 || h.src_w < 1 ||
       n_ops < 0 || h.n_stages < 0 || h.n_stages > kMaxStages || h.base < PW_IMAGE ||
-      h.base > PW_YUV || h.src_type < PW_U8 || h.src_type > PW_F16 || out_type < PW_U8 ||
-      out_type > PW_F16 ||
+      h.base > PW_YUV || h.src_type < PW_U8 || h.src_type > PW_I32 || out_type < PW_U8 ||
+      out_type > PW_I32 ||
       (h.base == PW_YUV && (h.src_type != PW_U8 || h.nch != 3)) || (h.conv_first && h.nch != 3)) {
     return (int)cudaErrorInvalidValue;
   }
   const Conv conv{h.limited, 0, ys, cs, rv, gu, gv, bu};
-  float lo = 0.f, hi = 0.f;
-  if (clamp_store == 1) store_range(out_type, lo, hi);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int pix = pixels_per_thread((long long)n_planes * dst_w * dst_h, h.width, h.n_stages);
   const dim3 block = group_block(dst_w, pix);
@@ -202,7 +202,7 @@ extern "C" int cvgs_pointwise(const void* src, const int* head, float ys, float 
 #define CVGS_KERNEL(OutT, L, P)                                                              \
   pointwise_kernel<OutT, L, P><<<grid, block, 0, s>>>(src, h, conv, blk, ops, n_ops, fp_off, \
                                                       dst_w, dst_h, static_cast<OutT*>(out), \
-                                                      out_ch, lo, hi, sn, sc, sy, sx)
+                                                      out_ch, store_op, sn, sc, sy, sx)
   // four instances per output type: one lane x kWideP or 4 pixels, four
   // lanes x 4 or 1
 #define CVGS_TYPE(OutT)                   \

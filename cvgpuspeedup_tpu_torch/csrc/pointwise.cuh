@@ -10,7 +10,7 @@
 //   border.py              numpy.pad's index maps (edge, symmetric, reflect,
 //                          wrap), periodic for a border wider than the
 //                          source; CONSTANT holds `value` cast to the
-//                          source's dtype;
+//                          source's dtype (utils/dtypes.py::cast);
 //   memory.py              ring plane floor_mod(first +- z, N), as Python's %;
 //   nv12.py::ReadYUV       Y at (y, x), the chroma pair at (y / 2, x / 2).
 //
@@ -94,14 +94,16 @@ __device__ __forceinline__ int fold_index(int i, int n, int mode) {
   }
 }
 
-// A float32 value cast to an element type and back, as Tensor.to does for a
-// value in range (truncate; float16: round to nearest even).
+// A CONSTANT border's float32 value cast to the source's element type as
+// it is held in a register, as utils/dtypes.py::cast casts it: truncate,
+// saturate, NaN to 0 (int32 as its bits); float16 rounds to nearest even.
 __device__ __forceinline__ float cast_to_type(float v, int type) {
   switch (type) {
-    case PW_U8: return cast_u8(v);
-    case PW_I8: return cast_i8(v);
-    case PW_U16: return cast_u16(v);
-    case PW_I16: return cast_i16(v);
+    case PW_U8: return (float)clampi(__float2int_rz(v), 0, 255);
+    case PW_I8: return (float)clampi(__float2int_rz(v), -128, 127);
+    case PW_U16: return (float)clampi(__float2int_rz(v), 0, 65535);
+    case PW_I16: return (float)clampi(__float2int_rz(v), -32768, 32767);
+    case PW_I32: return __int_as_float(__float2int_rz(v));
     case PW_F16: return round_f16(v);
     default: return v;
   }
@@ -144,7 +146,8 @@ __device__ __forceinline__ void load_run(const SrcT* __restrict__ p, int n, floa
   for (int q = 0; q < P; ++q) v[q][0] = q < n ? ldf(p + q) : 0.f;
 }
 
-// load_run of a source of a runtime type at element offset off.
+// load_run of a source of a runtime type at element offset off (int32 as
+// float32's words: its bits).
 template <int P>
 __device__ __forceinline__ void load_run_typed(const void* __restrict__ base, int type,
                                                long long off, int n, float (&v)[P][1]) {
@@ -254,7 +257,7 @@ __device__ __forceinline__ void gather_row(const SrcT* __restrict__ row, int nch
 
 // The base's pixels xs[q] of row y of plane pz, for each q of mask: an
 // NV12/NV21 buffer's luma and chroma pair, or nch elements of the source's
-// runtime type.
+// runtime type (int32 as float32's words: its bits).
 template <int L, int P>
 __device__ __forceinline__ void read_base_row(const PwHead& h, const void* __restrict__ src,
                                               int pz, int y, const int (&xs)[P], unsigned mask,

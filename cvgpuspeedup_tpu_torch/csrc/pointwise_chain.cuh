@@ -60,7 +60,7 @@ __device__ __forceinline__ void stage_rows(PwRow* rows, const int* __restrict__ 
     const int stride = __ldg(ops + 4 * r + 2);
     const int ch = __ldg(chs + r);
     float q[kMaxCh] = {0.f, 0.f, 0.f, 0.f};
-    if (code >= OP_MUL_F16) {  // an op on a float16 value: its scalars rounded here
+    if (code >= OP_MUL_F16 && code <= OP_DIV_F16) {  // on a float16 value: its scalars rounded
 #pragma unroll
       for (int c = 0; c < kMaxCh; ++c) {
         if (c < ch) q[c] = round_f16(__ldg(fp + off + c * stride));
@@ -121,25 +121,26 @@ __device__ __forceinline__ void run_rows(float (&v)[P][L], const PwRow* rows, in
           for (int c = 0; c < kMaxCh; ++c) v[p][c] = pick(t, (aux >> (4 * c)) & 15);
         }
       }
-    } else if (code == OP_ALPHA) {
+    } else if (code == OP_ALPHA || code == OP_ALPHA_I32) {
       if constexpr (L == kMaxCh) {
+        const float a = code == OP_ALPHA ? (float)aux : __int_as_float(aux);
 #pragma unroll
         for (int p = 0; p < P; ++p) {
 #pragma unroll
           for (int c = 0; c < kMaxCh; ++c) {
-            if (c == ch) v[p][c] = (float)aux;
+            if (c == ch) v[p][c] = a;
           }
         }
       }
     } else if (code == OP_GRAY_U8) {
       if constexpr (L == kMaxCh) {
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-          const int acc = (int)pick(v[p], aux & 15) * 9798 +
-                          (int)pick(v[p], (aux >> 4) & 15) * 19235 +
-                          (int)pick(v[p], (aux >> 8) & 15) * 3735 + (1 << 14);
-          v[p][0] = (float)(acc >> 15);
-        }
+        for (int p = 0; p < P; ++p) gray_int<false>(v[p], aux);
+      }
+    } else if (code == OP_GRAY_I32) {
+      if constexpr (L == kMaxCh) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) gray_int<true>(v[p], aux);
       }
     } else if (code == OP_GRAY_F32) {
       if constexpr (L == kMaxCh) {
@@ -154,6 +155,9 @@ __device__ __forceinline__ void run_rows(float (&v)[P][L], const PwRow* rows, in
     } else if (code == OP_CAST_F16) {
       round_row(v);
     } else {
+      // OP_SAT_U8 .. OP_SAT_I16, OP_CAST_U8 .. OP_CAST_I16, OP_TRUNC_U8 ..
+      // OP_TRUNC_I32, OP_SAT_I32, OP_I32_F32, OP_WRAP_U8 .. OP_WRAP_I16: each
+      // named in run_integer_row's switch, which leaves any other code alone
       run_integer_row(code, v);
     }
   }

@@ -68,30 +68,28 @@
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
 // `srcs` holds n_planes device addresses of (src_h, src_w * nch) images of
-// elements of type `src_type` (PW_U8 .. PW_F16); `coeffs` 9 floats per
+// elements of type `src_type` (PW_U8 .. PW_I32); `coeffs` 9 floats per
 // plane (the inverse map, row-major; an affine map uses the first 6),
 // `border` 4 per plane, `dflt` 4 (planes from *used on hold it), `used` one
-// int. `out` holds elements of type `out_type` (PW_U8 .. PW_F16) with out_ch
+// int. `out` holds elements of type `out_type` (PW_U8 .. PW_I32) with out_ch
 // channels, element strides (sn, sc, sy, sx) per (plane, channel, row, col).
-// With clamp_store (1), a float chain's values are clamped to an integer
-// buffer's range, then truncated; any other mode stores the chain's values
-// as they are.
+// A store_op other than 0 is the row that converts the chain's values for
+// the buffer's dtype (exec/cuda_batch_resize.py::store_cast).
 extern "C" int cvgs_warp(const unsigned long long* srcs, int src_type, int src_h, int src_w,
                          int nch, int perspective, const float* coeffs, const float* border,
                          const float* dflt, const int* used, const float* fparams,
                          const int* ops, int n_ops, int n_planes, int dst_w, int dst_h,
-                         void* out, int out_type, int out_ch, int clamp_store, long long sn,
+                         void* out, int out_type, int out_ch, int store_op, long long sn,
                          long long sc, long long sy, long long sx, void* stream) {
   if (nch < 1 || nch > kMaxCh || out_ch < 1 || out_ch > kMaxCh || n_planes < 1 ||
       n_planes > 65535 || dst_w < 1 || dst_h < 1 || src_h < 1 || src_w < 1 ||
       src_h >= (1 << 24) || src_w >= (1 << 24) || n_ops < 0 || dst_h > 65535 ||
-      src_type < PW_U8 || src_type > PW_F16 || out_type < PW_U8 || out_type > PW_F16) {
+      src_type < PW_U8 || src_type > PW_I32 || out_type < PW_U8 || out_type > PW_I32) {
     return (int)cudaErrorInvalidValue;
   }
   cvgs::WarpArgs a{srcs, src_h, src_w, nch, perspective, coeffs, border, dflt, used, fparams,
-                   ops, n_ops, n_planes, dst_w, dst_h, out, out_type, out_ch, 0.f, 0.f,
+                   ops, n_ops, n_planes, dst_w, dst_h, out, out_type, out_ch, store_op,
                    sn, sc, sy, sx, static_cast<cudaStream_t>(stream)};
-  if (clamp_store == 1) store_range(out_type, a.clamp_lo, a.clamp_hi);
   switch (src_type) {
     case PW_U8: kw::launch_source<uint8_t>(a); break;
     case PW_F32: kw::launch_source<float>(a); break;
@@ -99,6 +97,7 @@ extern "C" int cvgs_warp(const unsigned long long* srcs, int src_type, int src_h
     case PW_U16: cvgs::warp_u16(a); break;
     case PW_I16: cvgs::warp_i16(a); break;
     case PW_F16: cvgs::warp_f16(a); break;
+    case PW_I32: cvgs::warp_i32(a); break;
   }
   return (int)cudaGetLastError();
 }

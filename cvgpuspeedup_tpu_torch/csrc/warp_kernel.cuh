@@ -7,8 +7,9 @@
 
 #include "warp.cuh"
 
-// One launch's arguments, as the C entry takes them; clamp_lo < clamp_hi
-// clamps a float chain before an integer store (chain.cuh::store_range).
+// One launch's arguments, as the C entry takes them; store_op, where not 0,
+// is the row that converts the chain's values for the buffer's dtype before
+// the store (chain.cuh::run_integer_row).
 namespace cvgs {
 struct WarpArgs {
   const unsigned long long* srcs;
@@ -22,7 +23,7 @@ struct WarpArgs {
   int n_ops, n_planes, dst_w, dst_h;
   void* out;
   int out_type, out_ch;
-  float clamp_lo, clamp_hi;
+  int store_op;
   long long sn, sc, sy, sx;
   cudaStream_t stream;
 };
@@ -134,7 +135,7 @@ __global__ void __launch_bounds__(kThreads) warp_kernel(
     const float* __restrict__ coeffs, const float* __restrict__ border,
     const float* __restrict__ dflt, const int* __restrict__ used, const float* __restrict__ fp,
     const int* __restrict__ ops, int n_ops, int dst_w, int dst_h, OutT* __restrict__ out,
-    int out_ch, float clamp_lo, float clamp_hi, long long sn, long long sc, long long sy,
+    int out_ch, int store_op, long long sn, long long sc, long long sy,
     long long sx) {
   constexpr int kGroups = kTileW / P;
   const int x = blockIdx.x * kTileW + (threadIdx.x % kGroups) * P;
@@ -196,7 +197,7 @@ __global__ void __launch_bounds__(kThreads) warp_kernel(
   }
 
   run_chain(v, nch, ops, n_ops, fp);
-  if (clamp_lo < clamp_hi) clamp_to_range(v, clamp_lo, clamp_hi);
+  if (store_op) run_integer_row(store_op, v);
 
   store_pixels(out + (long long)z * sn + (long long)y * sy + (long long)x * sx, v, n, out_ch, sc,
                sx);
@@ -211,7 +212,7 @@ void launch(const WarpArgs& a) {
 #define CVGS_KERNEL(P)                                                                         \
   warp_kernel<SrcT, OutT, kPersp, P><<<grid, kThreads, 0, a.stream>>>(                         \
       a.srcs, a.src_h, a.src_w, a.nch, a.coeffs, a.border, a.dflt, a.used, a.fp, a.ops, a.n_ops, \
-      a.dst_w, a.dst_h, static_cast<OutT*>(a.out), a.out_ch, a.clamp_lo, a.clamp_hi, a.sn, a.sc, \
+      a.dst_w, a.dst_h, static_cast<OutT*>(a.out), a.out_ch, a.store_op, a.sn, a.sc, \
       a.sy, a.sx)
   if (pix == 4) {
     CVGS_KERNEL(4);

@@ -10,11 +10,12 @@ plane ``z`` holds frame ``k - z`` and OLDEST_FIRST plane ``z`` holds frame
 ``update`` runs the new frame's pipeline with the slot's view of the ring as
 its output (``exec.executor.run_pipeline(out=)``): on the card one launch
 stores the frame into its slot, in the ring's layout and with the
-reference's ``astype`` to the ring's dtype (float -> integer clamps, then
-truncates), with no temporary of the frame: the full-frame kernel for a resize head,
-the pointwise kernel for a plain or cropped frame. Only where a kernel's
-store cannot reach the ring's dtype (a float32 resize into an integer ring,
-an integer chain into a ring of another integer dtype) does it go through a
+reference's ``astype`` to the ring's dtype (``utils.dtypes.astype``: a float
+truncates, then saturates; an integer into a narrower one wraps), with no
+temporary of the frame: the full-frame kernel for a resize head, the
+pointwise kernel for a plain or cropped frame, into a ring of any dtype of
+``exec.cuda_batch_resize.TYPE_CODES`` (uint8, int8, uint16, int16, int32,
+float16, float32). A ring of another dtype (int64, float64) takes a
 temporary and a ``copy_``, as every update on the CPU does. ``read_batch``
 returns a :class:`~..ops.memory.CircularBatchRead` over the raw ring whose
 runtime ``first`` applies the logical order, and ``.tensor`` gathers the

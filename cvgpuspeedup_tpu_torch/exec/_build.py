@@ -36,6 +36,8 @@ _LIB: Optional[ctypes.CDLL] = None
 
 #: the last build's compiler output (register and spill counts from ptxas)
 BUILD_LOG = ""
+#: set by ``executor.debug_mode``: each wrapper then waits for its launch
+DEBUG = False
 
 
 def find_nvcc() -> str:
@@ -145,7 +147,7 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
                 p, i, ll, i, i, i,         # src, src_type, plane_stride, src_h, src_w, nch
                 p, p, p, p, i,             # rects, used, fparams, ops, n_ops
                 i, i, i, i,                # n_planes, dst_w, dst_h, mode
-                p, i, i, i,                # out, out_type, out_ch, clamp_store
+                p, i, i, i,                # out, out_type, out_ch, store_op
                 ll, ll, ll, ll,            # sn, sc, sy, sx
                 p,                         # stream
             ]
@@ -155,7 +157,7 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
                 i, i, p, p, i,             # yuv, nv21, taps, weights, keep_edge
                 i, i, f, f, f, f, f, f,    # limited, alpha, ys, cs, rv, gu, gv, bu
                 p, p, i,                   # fparams, ops, n_ops
-                i, i, p, i, i, i,          # dst_w, dst_h, out, out_type, out_ch, clamp_store
+                i, i, p, i, i, i,          # dst_w, dst_h, out, out_type, out_ch, store_op
                 ll, ll, ll,                # sc, sy, sx
                 p,                         # stream
             ]
@@ -164,7 +166,7 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
                 p, i, i, i, i, i,          # srcs, src_type, src_h, src_w, nch, perspective
                 p, p, p, p, p, p, i,       # coeffs, border, default, used, fparams, ops, n_ops
                 i, i, i,                   # n_planes, dst_w, dst_h
-                p, i, i, i,                # out, out_type, out_ch, clamp_store
+                p, i, i, i,                # out, out_type, out_ch, store_op
                 ll, ll, ll, ll,            # sn, sc, sy, sx
                 p,                         # stream
             ]
@@ -182,7 +184,7 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
                     p, p, f, f, f, f, f, f,    # src, head (host words), ys, cs, rv, gu, gv, bu
                     p, p, i, i,                # blk, ops, n_ops, fp_off
                     i, i, i,                   # n_planes, dst_w, dst_h
-                    p, i, i, i,                # out, out_type, out_ch, clamp_store
+                    p, i, i, i,                # out, out_type, out_ch, store_op
                     ll, ll, ll, ll,            # sn, sc, sy, sx
                     p,                         # stream
                 ]
@@ -191,3 +193,17 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
             lib.cvgs_error_string.restype = ctypes.c_char_p
             _LIB = lib
         return _LIB
+
+
+def after_launch(kernel: str, device) -> None:
+    """Called by each wrapper after it queued its kernel on ``device``. In
+    ``executor.debug_mode`` it waits for the device and raises, naming
+    ``kernel``, on a CUDA error the launch hit; else it does nothing."""
+    if not DEBUG:
+        return
+    import torch
+
+    try:
+        torch.cuda.synchronize(device)
+    except RuntimeError as e:
+        raise RuntimeError(f"{kernel}: CUDA error after its launch: {e}") from e

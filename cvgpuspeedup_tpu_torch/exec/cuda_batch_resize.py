@@ -56,22 +56,33 @@ LAUNCHES = 0
 (OP_MUL, OP_ADD, OP_SUB, OP_DIV, OP_SAT_U8, OP_CAST_U8, OP_REORDER, OP_ALPHA, OP_GRAY_U8,
  OP_GRAY_F32, OP_SAT_I8, OP_SAT_U16, OP_SAT_I16, OP_CAST_I8, OP_CAST_U16,
  OP_CAST_I16, OP_CAST_F16, OP_GRAY_F16, OP_MUL_F16, OP_ADD_F16, OP_SUB_F16,
- OP_DIV_F16) = range(1, 23)
+ OP_DIV_F16, OP_TRUNC_U8, OP_TRUNC_I8, OP_TRUNC_U16, OP_TRUNC_I16, OP_TRUNC_I32, OP_SAT_I32,
+ OP_I32_F32, OP_WRAP_U8, OP_WRAP_I8, OP_WRAP_U16, OP_WRAP_I16, OP_GRAY_I32,
+ OP_ALPHA_I32) = OP_CODES = tuple(range(1, 36))
 _ARITH = {Mul: OP_MUL, Add: OP_ADD, Sub: OP_SUB, Div: OP_DIV}
 # an op on a float16 value: the kernel rounds its scalar to float16 first, as
 # the op's ``apply`` casts it to the value's dtype
 _ARITH_F16 = {Mul: OP_MUL_F16, Add: OP_ADD_F16, Sub: OP_SUB_F16, Div: OP_DIV_F16}
-# the row that brings a value back into each dtype a chain may hold but
-# float32 after an op (an integer's saturate, float16's rounding), and the row
-# of a cast into it (an integer's truncate, float16's rounding)
+# per dtype a chain may hold but float32, the row that brings a float32 value
+# into it after an op or a SaturateCast (round half to even, saturate;
+# float16's rounding), and the row of a Cast of a float32 or float16 value
+# into it (truncate, saturate; float16's rounding). int32 is held as its
+# bits, the others as their values.
 _SAT = {torch.uint8: OP_SAT_U8, torch.int8: OP_SAT_I8, torch.uint16: OP_SAT_U16,
-        torch.int16: OP_SAT_I16, torch.float16: OP_CAST_F16}
+        torch.int16: OP_SAT_I16, torch.int32: OP_SAT_I32, torch.float16: OP_CAST_F16}
+_TRUNC = {torch.uint8: OP_TRUNC_U8, torch.int8: OP_TRUNC_I8, torch.uint16: OP_TRUNC_U16,
+          torch.int16: OP_TRUNC_I16, torch.int32: OP_TRUNC_I32, torch.float16: OP_CAST_F16}
+# a Cast of an integer value into a narrower integer keeps the low bits: of a
+# value held as a float32, and of int32's bits
 _CAST = {torch.uint8: OP_CAST_U8, torch.int8: OP_CAST_I8, torch.uint16: OP_CAST_U16,
-         torch.int16: OP_CAST_I16, torch.float16: OP_CAST_F16}
-#: the dtypes a chain may hold, as a source, a cast target and an output: each
-#: exact in an f32 register, and one f32 op of two float16 values rounded to
-#: float16 is the float16 op. int32, int64 and float64 are not among them.
-CHAIN_DTYPES = (torch.uint8, torch.int8, torch.uint16, torch.int16, torch.float16,
+         torch.int16: OP_CAST_I16}
+_WRAP = {torch.uint8: OP_WRAP_U8, torch.int8: OP_WRAP_I8, torch.uint16: OP_WRAP_U16,
+         torch.int16: OP_WRAP_I16}
+#: the dtypes a chain may hold, as a source, a cast target and an output:
+#: each exact in a 32-bit register, int32 as its bits and the others as
+#: float32 values, and one f32 op of two float16 values rounded to float16 is
+#: the float16 op. int64 and float64 are not among them.
+CHAIN_DTYPES = (torch.uint8, torch.int8, torch.uint16, torch.int16, torch.int32, torch.float16,
                 torch.float32)
 #: the dtypes of a chain's scalars, both exact in the f32 parameter block
 _SCALAR_DTYPES = ("float32", "float16")
@@ -92,13 +103,12 @@ _LAYOUTS = {
 _MAX_CHANNELS = 4
 _MAX_PLANES = 65535  # grid.z
 #: the element types of a source or an output buffer; keep in step with
-#: csrc/chain.cuh (PW_U8 .. PW_F16)
+#: csrc/chain.cuh (PW_U8 .. PW_I32)
 TYPE_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3, torch.float32: 4,
-              torch.float16: 5}
-#: the source dtypes K1, K2 and the warp kernel read, by name
+              torch.float16: 5, torch.int32: 6}
+#: the source dtypes K1, K2, the warp kernel and the pointwise kernel read, by
+#: name
 SRC_DTYPES = {str(t).removeprefix("torch."): t for t in CHAIN_DTYPES}
-#: store modes of :func:`store_cast`
-STORE_AS_IS, STORE_CLAMP, STORE_WRAP = 0, 1, 2
 
 
 class Unsupported(ValueError):
@@ -151,14 +161,40 @@ def _reorder_row(indices) -> List[int]:
     return [OP_REORDER, 0, 0, packed | (len(indices) << 16)]
 
 
+def cast_rows(src: torch.dtype, dst: torch.dtype, saturate: bool) -> List[List[int]]:
+    """The rows of a ``SaturateCast`` (``saturate``) or a ``Cast`` of a value
+    of ``src`` into ``dst``, both of ``CHAIN_DTYPES``, as
+    ``utils.dtypes.saturate_cast`` and ``cast`` compute it: a float rounds
+    half to even or truncates, then saturates; an integer saturates or keeps
+    its low bits; into a float is exact through float32, then float16's
+    rounding."""
+    if src == dst:
+        return []
+    rows: List[int] = []
+    if src == torch.int32:
+        if dst.is_floating_point or saturate:
+            # every int32 past 2^24 lies outside the narrower ranges either way
+            rows = [OP_I32_F32]
+            if dst != torch.float32:
+                rows.append(_SAT[dst])
+        else:
+            rows = [_WRAP[dst]]
+    elif dst != torch.float32:
+        if saturate or dst in (torch.float16, torch.int32):
+            rows = [(_SAT if saturate else _TRUNC)[dst]]
+        else:
+            rows = [(_TRUNC if src.is_floating_point else _CAST)[dst]]
+    return [[code, 0, 0, 0] for code in rows]
+
+
 def encode_chain(chain, nch: int, first_param: int = 0, dtype: torch.dtype = torch.float32):
     """``(ops, out_dtype, out_ch, n_params)`` for a chain applied to values
     of ``dtype`` (one of ``CHAIN_DTYPES``) with ``nch`` channels; the kernel
-    holds them in f32 registers whatever the dtype. A cast to a dtype outside
-    ``CHAIN_DTYPES`` and a scalar that is neither float32 nor float16 are
-    refused. Parameter offsets count from ``first_param`` in the order
-    :func:`~..graph.flatten` visits the leaves; ``n_params`` is the offset
-    past the last one."""
+    holds them in 32-bit registers whatever the dtype (int32 as its bits).
+    A cast to a dtype outside ``CHAIN_DTYPES`` and a scalar that is neither
+    float32 nor float16 are refused. Parameter offsets count from
+    ``first_param`` in the order :func:`~..graph.flatten` visits the leaves;
+    ``n_params`` is the offset past the last one."""
     rows: List[List[int]] = []
 
     def enc(o, dtype, ch, pos):
@@ -180,6 +216,9 @@ def encode_chain(chain, nch: int, first_param: int = 0, dtype: torch.dtype = tor
             if _leaf_dtype_name(v) not in _SCALAR_DTYPES:
                 raise Unsupported(f"{type(o).__name__} scalar is {_leaf_dtype_name(v)}, not "
                                   "float32 or float16")
+            # an int32 value: to float32, the op, then its saturate back
+            if dtype == torch.int32:
+                rows.append([OP_I32_F32, 0, 0, 0])
             table = _ARITH_F16 if dtype == torch.float16 else _ARITH
             rows.append([table[type(o)], pos, 0 if size == 1 else 1, 0])
             if dtype != torch.float32:
@@ -188,9 +227,7 @@ def encode_chain(chain, nch: int, first_param: int = 0, dtype: torch.dtype = tor
         if isinstance(o, (SaturateCast, Cast)):
             if o.dst not in CHAIN_DTYPES:
                 raise Unsupported(f"cast to {o.dst}")
-            if o.dst != dtype and o.dst != torch.float32:
-                table = _SAT if isinstance(o, SaturateCast) else _CAST
-                rows.append([table[o.dst], 0, 0, 0])
+            rows.extend(cast_rows(dtype, o.dst, isinstance(o, SaturateCast)))
             return o.dst, ch, pos
         if isinstance(o, VectorReorder):
             idx = tuple(o.indices)
@@ -204,13 +241,14 @@ def encode_chain(chain, nch: int, first_param: int = 0, dtype: torch.dtype = tor
                 raise Unsupported(f"{o.code.name} on {ch} channels")
             if info[2] == "gray":
                 r, g, b = info[3]
-                code = {torch.float32: OP_GRAY_F32, torch.float16: OP_GRAY_F16}.get(dtype,
-                                                                                  OP_GRAY_U8)
+                code = {torch.float32: OP_GRAY_F32, torch.float16: OP_GRAY_F16,
+                        torch.int32: OP_GRAY_I32}.get(dtype, OP_GRAY_U8)
                 rows.append([code, 0, 0, r | (g << 4) | (b << 8)])
                 return dtype, 1, pos
             rows.append(_reorder_row(info[2]))
             if info[1] > len(info[2]):
-                rows.append([OP_ALPHA, 0, 0, int(alpha_fill(dtype))])
+                rows.append([OP_ALPHA_I32 if dtype == torch.int32 else OP_ALPHA, 0, 0,
+                             int(alpha_fill(dtype))])
             return dtype, info[1], pos
         raise Unsupported(f"{type(o).__name__} has no op code")
 
@@ -331,27 +369,29 @@ def prepare(pipeline, plan: KernelPlan, device: torch.device) -> Launch:
 
 
 def store_cast(plan_dtype: torch.dtype, out_dtype: torch.dtype) -> int:
-    """How a kernel whose chain ends in ``plan_dtype`` stores into a buffer
-    of ``out_dtype`` (both of ``TYPE_CODES``) as ``utils.dtypes.astype``
-    casts it:
+    """The row a kernel whose chain ends in ``plan_dtype`` runs after its
+    chain to store into a buffer of ``out_dtype`` (both of ``TYPE_CODES``)
+    as ``utils.dtypes.astype`` casts, or 0 for none. The store itself then
+    moves the register: all 32 bits into a float32 or an int32 buffer (an
+    int32 buffer shares float32's 4-byte store), a float16 rounded to nearest
+    even, an integer truncated to its low bits.
 
-    - ``STORE_AS_IS`` (0): the same dtype; anything into float32, which is
-      exact; anything into float16, rounded to nearest even by the store;
-      an integer into a wider integer that holds every value of it;
-    - ``STORE_CLAMP`` (1): a float into an integer, clamped to the buffer's
-      range, then truncated (``clamp_store``);
-    - ``STORE_WRAP`` (2): an integer into an integer that does not hold all
-      of its values: the store keeps the low bits, as ``Tensor.to`` wraps.
-
-    The kernels store modes 0 and 2 alike: an integer store truncates and
-    keeps the low bits, which leaves a value in the buffer's range as it
-    is."""
-    if plan_dtype == out_dtype or out_dtype.is_floating_point:
-        return STORE_AS_IS
-    if plan_dtype.is_floating_point:
-        return STORE_CLAMP
-    src, dst = torch.iinfo(plan_dtype), torch.iinfo(out_dtype)
-    return STORE_AS_IS if dst.min <= src.min and src.max <= dst.max else STORE_WRAP
+    - 0: the same dtype; a float16 or a narrower integer into float32 (exact)
+      or float16 (the store rounds); an integer into a narrower or a wider
+      one of 8 or 16 bits (the store keeps the low bits: a wrap, or the value
+      itself);
+    - ``OP_TRUNC_*``: a float into an integer: truncate, then saturate, NaN
+      to 0; also a narrower integer into int32 (exact);
+    - ``OP_I32_F32``: int32 into a float buffer;
+    - ``OP_WRAP_*``: int32 into a narrower integer: its low bits."""
+    if plan_dtype == out_dtype:
+        return 0
+    if plan_dtype == torch.int32:
+        return OP_I32_F32 if out_dtype.is_floating_point else _WRAP[out_dtype]
+    if out_dtype == torch.int32 or (plan_dtype.is_floating_point and
+                                    not out_dtype.is_floating_point):
+        return _TRUNC[out_dtype]
+    return 0
 
 
 def can_store(plan, dtype: torch.dtype) -> bool:
@@ -494,6 +534,7 @@ def batch_resize(a: Launch, out: Optional[torch.Tensor] = None):
             f"batch_resize launch failed: CUDA error {err} ({lib.cvgs_error_string(err).decode()})"
         )
     LAUNCHES += 1
+    _build.after_launch("batch_resize", dev)
     return result
 
 

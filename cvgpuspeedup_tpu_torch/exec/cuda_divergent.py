@@ -36,7 +36,7 @@ scalars, then one descriptor per group that points at them.
 
 :func:`merge` is the eager version: each group lowers only its own planes
 (``lower_planes``), runs its chain, and is scattered into one batch of the
-dtype of plane 0's group (``utils.dtypes.astype``: clamp, then truncate),
+dtype of plane 0's group (``utils.dtypes.astype``),
 then the first sequence's write. :func:`divergent_reference`, the plain
 PyTorch version, runs it on the launch's device; it reads neither the block
 nor the tables, so holding the kernel against it checks them.
@@ -45,9 +45,11 @@ A group reads a uint8 or float32 source (``SRC_DTYPES``, what the
 reference's TPU kernel reads), and its chain may hold and end in any dtype
 of ``cuda_batch_resize.CHAIN_DTYPES``. Groups may differ in output dtype:
 the batch takes plane 0's group's, and each group's store casts as the
-merge does (``cuda_batch_resize.store_cast``): a float group of an integer
-batch is clamped, then truncated (``CLAMP_STORE`` in the group's flags), an
-integer group of another integer batch wraps, a float16 batch rounds.
+merge does: the row ``cuda_batch_resize.store_cast`` gives ends the group's
+table (a float group of an integer batch truncates and saturates, an int32
+group of a float batch converts, of a narrower integer batch wraps), then
+the store moves the value (an integer group of another 8- or 16-bit batch
+wraps, a float16 batch rounds).
 
 Refused (:class:`Unsupported`, before anything launches): a group of no
 kind above, groups that differ in output (H, W, C), more than 4 channels.
@@ -77,7 +79,7 @@ from ..utils.dtypes import as_device_tensor
 from . import _build
 from . import cuda_batch_resize as kbr
 from . import cuda_warp as kw
-from .cuda_batch_resize import _MAX_CHANNELS, _MAX_PLANES, STORE_CLAMP, TYPE_CODES, Unsupported
+from .cuda_batch_resize import _MAX_CHANNELS, _MAX_PLANES, TYPE_CODES, Unsupported
 from .cuda_warp import _MAX_SIDE, _N_COEFFS, _size
 
 __all__ = ["Unsupported", "build_plan", "prepare", "merge", "divergent_reference", "divergent",
@@ -89,7 +91,6 @@ LAUNCHES = 0
 # group kinds; keep in step with csrc/divergent.cu
 KINDS = ("image", "circ", "crop_resize", "resize", "nv12", "warp")
 DESC_INTS = 16      # ints per group descriptor; csrc/divergent.cu reads the same fields
-CLAMP_STORE = 1 << 8  # in a group's flags: float values stored into an integer batch
 #: the source dtypes the kernel reads
 SRC_DTYPES = {"uint8": torch.uint8, "float32": torch.float32}
 
@@ -108,8 +109,7 @@ class Group:
     n_src: int             # planes of an image, ring or stack source
     ascendent: bool        # circ
     mode: int              # crop_resize, resize: the aspect-ratio code
-    flags: int             # nv12: keep_edge | nv21 << 1 | limited << 2 | alpha << 3; warp: perspective;
-                           # any kind: CLAMP_STORE
+    flags: int             # nv12: keep_edge | nv21 << 1 | limited << 2 | alpha << 3; warp: perspective
     op_off: int            # first op row in the plan's consts
     n_ops: int
     tab_off: int           # nv12: taps, then weights, then 6 conversion floats, in the consts
@@ -324,8 +324,10 @@ def build_plan(seqs, plane_ids) -> DivergentPlan:
         elif (h_out, w_out, och) != shape:
             raise Unsupported(f"group {g} gives ({h_out}, {w_out}, {och}), group 0 {shape}")
         # the merge casts a group into the batch's dtype (utils.dtypes.astype):
-        # a float into an integer clamps, then truncates; the store does the rest
-        clamp = CLAMP_STORE if kbr.store_cast(odt, out_dtype) == STORE_CLAMP else 0
+        # the store's row ends the group's table
+        store = kbr.store_cast(odt, out_dtype)
+        if store:
+            ops = np.concatenate([ops, np.asarray([[store, 0, 0, 0]], np.int32)])
         ragged = isinstance(seq.read, BatchRead) and seq.read.used_planes is not None
         held = start if ragged else None
         tab_off = -1
@@ -337,7 +339,7 @@ def build_plan(seqs, plane_ids) -> DivergentPlan:
             sid=sid, kind=kind, planes=tuple(planes), src_h=geo["src_h"], src_w=geo["src_w"],
             nch=geo["nch"], src_dtype=geo["src_dtype"], n_src=geo.get("n_src", 1),
             ascendent=geo.get("ascendent", True), mode=geo.get("mode", 0),
-            flags=geo.get("flags", 0) | clamp, op_off=n_rows, n_ops=ops.shape[0], tab_off=tab_off,
+            flags=geo.get("flags", 0), op_off=n_rows, n_ops=ops.shape[0], tab_off=tab_off,
             held=held))
         rows.append(ops)
         n_rows += ops.shape[0]
@@ -492,8 +494,8 @@ def _held_default(default, dtype: torch.dtype):
     read's ``dtype`` (``BatchRead._mask``), as float32 values for every
     channel (a scalar broadcast), on the default's own device."""
     if isinstance(default, torch.Tensor):
-        return kw._padded_tensor(default.to(dtype), _MAX_CHANNELS, default.device)
-    return kw._padded(torch.as_tensor(np.asarray(default), dtype=dtype).numpy(), _MAX_CHANNELS)
+        return kw._padded_tensor(dt.cast(default, dtype), _MAX_CHANNELS, default.device)
+    return kw._padded(dt.cast(torch.as_tensor(np.asarray(default)), dtype).numpy(), _MAX_CHANNELS)
 
 
 def merge(seqs, plane_ids):
@@ -570,6 +572,7 @@ def divergent(a: Launch):
             f"divergent launch failed: CUDA error {err} ({lib.cvgs_error_string(err).decode()})"
         )
     LAUNCHES += 1
+    _build.after_launch("divergent", dev)
     return result
 
 

@@ -288,6 +288,7 @@ def frame_resize(a: Launch, out: Optional[torch.Tensor] = None):
             f"frame_resize launch failed: CUDA error {err} ({lib.cvgs_error_string(err).decode()})"
         )
     LAUNCHES += 1
+    _build.after_launch("frame_resize", dev)
     return result
 
 

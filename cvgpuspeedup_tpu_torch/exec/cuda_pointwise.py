@@ -22,8 +22,12 @@ under up to ``MAX_STAGES`` re-indexing *stages*, ``CropRead`` (runtime
 origin) and ``BorderRead`` (the five modes), nested in any order. A
 ``ConvertYUVToRGB`` at the head of the chain runs with the full-frame
 kernel's device code; the rest of the chain is ``encode_chain``'s table
-(uint8, int8, uint16, int16, float16 and float32 as source, cast target and
-output; all exact in the chain's f32 registers). A
+(uint8, int8, uint16, int16, int32, float16 and float32 as source, cast
+target and output; int32 held as its bits, the others as float32 values).
+An int32 source is read as float32's 4-byte words, so a copy, crop, border
+or ring of int32 is exact at every value; a CONSTANT border's value is
+staged as float32 and cast to the source's dtype by the kernel as
+``utils.dtypes.cast`` casts it. A
 ``FusedRead`` at the top of the read is taken as its read and the head of
 the chain, which is what it lowers to; below a stage it is refused.
 
@@ -36,8 +40,8 @@ channel wide runs in the kernel's one-lane instances. Both ride after the
 words the kernel read before them (the op table's rows and sentinel, the
 head's 44 words), so an older library reads the same table. New frames,
 ``first`` s, origins, border values and scalars build nothing. Refused
-(:class:`Unsupported`): int32, int64 and float64 sources or casts and chain
-scalars that are neither float32 nor float16 (an f32 register cannot hold
+(:class:`Unsupported`): int64 and float64 sources or casts and chain
+scalars that are neither float32 nor float16 (a 32-bit register cannot hold
 them), more than 4 channels, more than ``MAX_STAGES`` stages, any resampling
 read.
 
@@ -69,9 +73,10 @@ from ..utils import bounds
 from . import _build
 from . import cuda_batch_resize as kbr
 from . import cuda_frame_resize as kfr
-from .cuda_batch_resize import (_MAX_CHANNELS, _MAX_PLANES, CHAIN_DTYPES, OP_ALPHA, OP_GRAY_F16,
-                                OP_GRAY_F32, OP_GRAY_U8, OP_REORDER, SRC_DTYPES, TYPE_CODES,
-                                Unsupported, _leaf_dtype_name, encode_chain, store_cast)
+from .cuda_batch_resize import (_MAX_CHANNELS, _MAX_PLANES, CHAIN_DTYPES, OP_ALPHA,
+                                OP_ALPHA_I32, OP_GRAY_F16, OP_GRAY_F32, OP_GRAY_I32, OP_GRAY_U8,
+                                OP_REORDER, SRC_DTYPES, TYPE_CODES, Unsupported,
+                                _leaf_dtype_name, encode_chain, store_cast)
 from .cuda_divergent import _Block, _stack_geometry
 from .cuda_warp import _size
 
@@ -166,9 +171,9 @@ def row_channels(ops: np.ndarray, ch: int) -> Tuple[np.ndarray, int]:
         row_ch.append(ch)
         if code == OP_REORDER:
             ch = aux >> 16
-        elif code == OP_ALPHA:
+        elif code in (OP_ALPHA, OP_ALPHA_I32):
             ch += 1
-        elif code in (OP_GRAY_U8, OP_GRAY_F32, OP_GRAY_F16):
+        elif code in (OP_GRAY_U8, OP_GRAY_F32, OP_GRAY_F16, OP_GRAY_I32):
             ch = 1
         width = max(width, ch)
     return np.asarray(row_ch, np.int32), width
@@ -268,7 +273,8 @@ def build_plan(pipeline) -> PointwisePlan:
         if cv.out_dtype != torch.float32:
             head_rows.append([kbr._SAT[cv.out_dtype], 0, 0, 0])
         if cv.alpha:
-            head_rows.append([OP_ALPHA, 0, 0, int(alpha_fill(cv.out_dtype))])
+            head_rows.append([OP_ALPHA_I32 if cv.out_dtype == torch.int32 else OP_ALPHA, 0, 0,
+                              int(alpha_fill(cv.out_dtype))])
         rows0 = np.asarray(head_rows, np.int32).reshape(-1, 4)
         dtype, ch, chain = cv.out_dtype, 4 if cv.alpha else 3, chain[1:]
     fp_off = pos  # the rows' offsets count from here: the kernel adds it
@@ -418,6 +424,7 @@ def pointwise(a: Launch, out: Optional[torch.Tensor] = None):
             f"pointwise launch failed: CUDA error {err} ({lib.cvgs_error_string(err).decode()})"
         )
     LAUNCHES += 1
+    _build.after_launch("pointwise", dev)
     return result
 
 

@@ -360,6 +360,7 @@ def warp(a: Launch, out: Optional[torch.Tensor] = None):
             f"warp launch failed: CUDA error {err} ({lib.cvgs_error_string(err).decode()})"
         )
     LAUNCHES += 1
+    _build.after_launch("warp", dev)
     return result
 
 

@@ -18,10 +18,12 @@ full-frame resize kernel (``cuda:frame_resize``), the warp kernel
 (``cuda:warp``, single and batched warps), then the pointwise kernel
 (``cuda:pointwise``: every head that reads one source pixel per output
 pixel), so that a pipeline is one launch; it takes the eager PyTorch version
-(one launch per op) only for what an f32 register cannot hold: int32, int64,
-float16 and float64 values and chain scalars that are not float32. An
-explicit ``ParBackend.CUDA`` raises where no kernel can run. Nothing falls
-back from a failed build or launch.
+(one launch per op) only for what a 32-bit register cannot hold: int64 and
+float64 values and chain scalars that are neither float32 nor float16. An
+explicit ``ParBackend.CUDA`` raises where no kernel can run, naming each
+kernel's refusal. Nothing falls back from a failed build or launch. In
+:func:`debug_mode` every wrapper waits for its launch and raises on a CUDA
+error, naming its kernel.
 
 The divergent launcher (``build_operation_sequence``,
 ``launch_divergent_batch``, ``executor.py:282-396`` of the reference) runs
@@ -33,6 +35,7 @@ structure, the plane ids, the device type and the backend request.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
@@ -43,7 +46,7 @@ from ..graph import (ComputeOp, FusedCompute, FusedRead, IOp, PendingReadOp, Rea
 from ..ops.memory import ImageRead, Write2D
 from ..types import ParBackend
 from ..utils.dtypes import as_device_tensor
-from . import (cuda_batch_resize, cuda_divergent, cuda_frame_resize, cuda_pointwise,
+from . import (_build, cuda_batch_resize, cuda_divergent, cuda_frame_resize, cuda_pointwise,
                cuda_warp)
 
 __all__ = [
@@ -57,6 +60,7 @@ __all__ = [
     "last_backend",
     "run_pipeline",
     "meta_lower",
+    "debug_mode",
 ]
 
 
@@ -217,6 +221,21 @@ def describe_backend(*iops: IOp, input=None, backend: ParBackend = ParBackend.AU
     pipeline = build_pipeline(*iops, input=input)
     _, leaves = flatten(pipeline)
     return _select(pipeline, backend, _resolve_device(leaves, device)).backend
+
+
+@contextlib.contextmanager
+def debug_mode():
+    """A scope in which each kernel wrapper waits for its launch to finish
+    and raises ``RuntimeError``, naming the kernel, on a CUDA error, so that
+    a fault shows at the call that caused it: the counterpart of the
+    reference's interpret mode. The numerics stay the same and the kernels
+    still run: nothing swaps in a plain version."""
+    prev = _build.DEBUG
+    _build.DEBUG = True
+    try:
+        yield
+    finally:
+        _build.DEBUG = prev
 
 
 def last_backend() -> Optional[str]:

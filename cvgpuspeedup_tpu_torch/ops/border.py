@@ -77,7 +77,7 @@ class BorderRead(ReadOp):
                         .index_select(s.ndim - 2, torch.from_numpy(cols).to(dev)))
         if self.mode != BorderMode.CONSTANT:
             return out
-        val = torch.as_tensor(self.value, device=dev).to(x.dtype).reshape(-1)
+        val = dt.cast(torch.as_tensor(self.value, device=dev), x.dtype).reshape(-1)
         r = torch.arange(out.shape[-3], device=dev)
         c = torch.arange(out.shape[-2], device=dev)
         inside = (((r >= self.top) & (r < self.top + h))[:, None, None]

@@ -10,8 +10,8 @@ from ..utils import dtypes as dt
 
 @op
 class SaturateCast(ComputeOp):
-    """OpenCV ``saturate_cast``: round half-to-even, then clamp, for integer
-    destinations; plain convert for float destinations."""
+    """OpenCV ``saturate_cast``: round half-to-even, then clamp (NaN to 0),
+    for integer destinations; plain convert for float destinations."""
 
     dst: torch.dtype = static_field()
 
@@ -21,7 +21,8 @@ class SaturateCast(ComputeOp):
 
 @op
 class Cast(ComputeOp):
-    """Plain C-style conversion (truncating for float -> int)."""
+    """The reference's ``astype``: a float truncates, then saturates (NaN to
+    0); an integer keeps its low bits (``utils.dtypes.cast``)."""
 
     dst: torch.dtype = static_field()
 

@@ -84,7 +84,7 @@ class BatchRead(ReadOp):
             return x
         z = planes.reshape((-1,) + (1,) * (x.ndim - 1))
         used = torch.as_tensor(self.used_planes, device=x.device)
-        default = torch.as_tensor(self.default, dtype=x.dtype, device=x.device)
+        default = dt.cast(torch.as_tensor(self.default, device=x.device), x.dtype)
         return torch.where(z < used, x, default)
 
     def lower(self) -> torch.Tensor:

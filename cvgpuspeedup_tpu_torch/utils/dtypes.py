@@ -1,6 +1,6 @@
 """Dtype helpers and OpenCV-semantics saturating casts on torch tensors.
 
-Counterpart of ``cvgpuspeedup_tpu/utils/dtypes.py:70-137``. Images are
+Counterpart of ``cvgpuspeedup_tpu/utils/dtypes.py``. Images are
 channel-last ``(..., C)`` tensors. Static dtype fields of ops hold a
 ``torch.dtype``; factories also accept numpy dtypes and convert them with
 :func:`to_torch_dtype`.
@@ -65,6 +65,21 @@ def is_integer(dtype: DTypeLike) -> bool:
     return not d.is_floating_point and not d.is_complex and d != torch.bool
 
 
+#: Depths supported by the reference wrapper (CV_8U..CV_64F).
+SUPPORTED_DEPTHS = (torch.uint8, torch.int8, torch.uint16, torch.int16, torch.int32,
+                    torch.float32, torch.float64)
+#: Channel counts supported (C1..C4).
+SUPPORTED_CHANNELS = (1, 2, 3, 4)
+
+
+def min_value(dtype: DTypeLike):
+    """``fk::minValue<T>``: the smallest value of an integer or float dtype."""
+    d = to_torch_dtype(dtype)
+    if is_integer(d):
+        return torch.iinfo(d).min
+    return float(torch.finfo(d).min)
+
+
 def max_value(dtype: DTypeLike):
     """``fk::maxValue<T>``: the largest value of an integer or float dtype."""
     d = to_torch_dtype(dtype)
@@ -73,51 +88,66 @@ def max_value(dtype: DTypeLike):
     return float(torch.finfo(d).max)
 
 
-def _exact_bounds(x: torch.Tensor) -> torch.Tensor:
-    """A float16 tensor as float32 (exact), whose integer bounds are exact
-    where float16's are not (32767 rounds to 32768, 65535 to inf), so a
-    clamp to them keeps the value in range; any other tensor as it is."""
-    return x.to(torch.float32) if x.dtype == torch.float16 else x
+def channels(x) -> int:
+    """Channel count of a channel-last image tensor (``fk::cn<T>``)."""
+    if x.ndim == 0:
+        return 1
+    return int(x.shape[-1])
+
+
+def float_to_integer(x: torch.Tensor, dtype: torch.dtype, round_first: bool) -> torch.Tensor:
+    """A float tensor converted to the integer ``dtype`` as XLA converts it,
+    whatever the platform does with a value out of range: NaN becomes 0,
+    the value is rounded half to even (``round_first``) or truncated, then
+    clamped to the destination's range. The clamp is exact: it runs in
+    float64 for a destination wider than 16 bits (2^31 - 1 is not a
+    float32), and a value at or past 2^63 gives int64's maximum."""
+    info = torch.iinfo(dtype)
+    x = x.to(torch.float64 if info.bits > 16 else torch.float32)
+    x = torch.nan_to_num(torch.round(x) if round_first else torch.trunc(x), nan=0.0)
+    y = torch.clamp(x, info.min, info.max).to(dtype)
+    if info.bits == 64:
+        y = torch.where(x >= 2.0 ** 63, info.max, y)
+    return y
 
 
 def saturate_cast(x: torch.Tensor, dtype: DTypeLike) -> torch.Tensor:
     """OpenCV ``saturate_cast`` semantics, elementwise.
 
     float -> integer: round half-to-even (``torch.round``, like ``cvRound``),
-    then clamp to the destination range. integer -> integer: widen first,
-    because the destination bounds may not fit the source type (int8 ->
-    uint8), then clamp. anything -> float: plain convert.
+    then clamp to the destination range, NaN to 0 (:func:`float_to_integer`).
+    integer -> integer: widen first, because the destination bounds may not
+    fit the source type (int8 -> uint8), then clamp. anything -> float:
+    plain convert.
     """
     dtype = to_torch_dtype(dtype)
     if x.dtype == dtype:
         return x
     if is_integer(dtype):
         if x.dtype.is_floating_point:
-            x = torch.round(_exact_bounds(x))
-        else:
-            x = x.to(torch.int64)
+            return float_to_integer(x, dtype, round_first=True)
         info = torch.iinfo(dtype)
-        return torch.clamp(x, info.min, info.max).to(dtype)
+        return torch.clamp(x.to(torch.int64), info.min, info.max).to(dtype)
     return x.to(dtype)
 
 
 def cast(x: torch.Tensor, dtype: DTypeLike) -> torch.Tensor:
-    """``fk::Cast``: plain C-style convert (truncation for float -> int)."""
-    return x.to(to_torch_dtype(dtype))
-
-
-def astype(x: torch.Tensor, dtype: DTypeLike) -> torch.Tensor:
-    """The reference's ``astype`` of a value stored into a buffer of another
-    dtype (the divergent merge, a ring slot): float -> integer clamps to the
-    destination range, then truncates (3.7 -> 3, 297.5 -> 255, -0.5 -> 0);
-    this is not ``saturate_cast``, which rounds half to even."""
+    """``fk::Cast``, as the reference's ``astype`` converts: float ->
+    integer truncates, then saturates, NaN to 0 (:func:`float_to_integer`:
+    3.7 -> 3, 297.5 -> 255 for uint8, -0.5 -> 0); integer -> integer keeps
+    the low bits (int32 16777217 -> uint8 1); anything -> float is a plain
+    convert."""
     dtype = to_torch_dtype(dtype)
     if x.dtype == dtype:
         return x
     if is_integer(dtype) and x.dtype.is_floating_point:
-        info = torch.iinfo(dtype)
-        x = torch.clamp(_exact_bounds(x), info.min, info.max)
+        return float_to_integer(x, dtype, round_first=False)
     return x.to(dtype)
+
+
+#: a value stored into a buffer of another dtype (the divergent merge, a
+#: ring slot, ``out=``) converts as :func:`cast` does
+astype = cast
 
 
 def gather(x: torch.Tensor, fn):

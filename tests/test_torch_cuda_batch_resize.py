@@ -214,7 +214,7 @@ def test_main_path_launches_the_kernel_once_per_call(frame):
 
 
 def test_explicit_cuda_on_unsupported_pipeline_raises(frame):
-    wide = frame.to(torch.int32)  # an f32 register cannot hold int32: no kernel takes it
+    wide = frame.to(torch.int64)  # a 32-bit register cannot hold int64: no kernel takes it
     with pytest.raises(ValueError, match="cannot run"):
         T.execute_operations(T.image(wide), T.multiply(2.0), backend=T.ParBackend.CUDA)
     out = T.execute_operations(T.image(wide), T.multiply(2.0))

@@ -89,11 +89,11 @@ HEADS = {
     "pointwise_image": (kp, lambda a: T.image(a((29, 43, 3)))),
     "pointwise_ring": (kp, lambda a: T.circular_batch_read(a((4, 16, 24, 3)), first=-3)),
     "pointwise_crop": (kp, lambda a: T.crop(T.image(a((32, 47, 3))), T.Rect(-4, 3, 29, 17))),
-    # a border value every source dtype holds: a float outside an integer
-    # type's range has no defined conversion, and the card's eager cast of
-    # one to uint16 saturates where the CPU's and the kernel's wrap
+    # border values past the integer types' ranges: cast to the source's
+    # dtype as utils.dtypes.cast casts (truncate, saturate)
     "pointwise_border": (kp, lambda a: T.make_border(
-        T.image(a((18, 21, 3))), 2, 1, 3, 2, T.BorderMode.CONSTANT, value=(7.0, 100.5, 9.0))),
+        T.image(a((18, 21, 3))), 2, 1, 3, 2, T.BorderMode.CONSTANT,
+        value=(7.0, 300.5, -40000.0))),
 }
 
 
@@ -180,6 +180,31 @@ def test_out_of_every_dtype_is_one_store(kernel, chain, cuda):
         _same(view, T._dt.astype(want, dtype))
         host[1, ..., 1:-2] = 77
         assert bool((host.to(torch.float32) == 77).all())
+
+
+@pytest.mark.parametrize("kernel", list(STORE_KERNELS))
+def test_float_values_past_every_range_and_nan_cast_as_the_reference(kernel, cuda):
+    """A float32 chain whose values pass int32's range, reach the infinities
+    and NaN, cast by ``Cast`` and ``SaturateCast`` into every integer dtype
+    in the chain and stored by ``out=`` into every integer dtype: truncated
+    or rounded, saturated, NaN to 0, bit for bit the plain version."""
+    module, read = STORE_KERNELS[kernel]
+    rng = np.random.default_rng(71)
+    edges = np.array([np.inf, -np.inf, np.nan, 3e9, -3e9, 2.0 ** 31, 70000.5, -0.5, 254.5],
+                     np.float32)
+    img = rng.choice(edges, (96, 128, 3)).astype(np.float32)
+    img = torch.from_numpy(np.where(rng.random(img.shape) < 0.5, img,
+                                    rng.normal(0, 1e9, img.shape)).astype(np.float32)).to(cuda)
+    for dst in (torch.uint8, torch.int8, torch.uint16, torch.int16, torch.int32):
+        for cast in (T.Cast(dst=dst), T.SaturateCast(dst=dst)):
+            pipeline = T.build_pipeline(read(img), T.multiply(1.5), cast, T.split_tensor())
+            a = module.prepare(pipeline, module.build_plan(pipeline), cuda)
+            _same(module.launch(a), _plain(module, a))
+        pipeline = T.build_pipeline(read(img), T.multiply(1.5), T.split_tensor())
+        a = module.prepare(pipeline, module.build_plan(pipeline), cuda)
+        want = _plain(module, a)
+        view = torch.zeros(tuple(want.shape), dtype=dst, device=cuda)
+        _same(module.launch(a, out=view), T._dt.astype(want, dst))
 
 
 @pytest.mark.parametrize("ring", ["u16", "i16", "u8", "i8", "f16"])

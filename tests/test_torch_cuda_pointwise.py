@@ -241,13 +241,13 @@ def test_crop_origins_on_the_device_build_no_plan(origin, cuda):
     _same(got, T.execute_operations(*ops(*origin), backend=T.ParBackend.TORCH))
 
 
-@pytest.mark.parametrize("what", ["int32", "float64", "int32_cast", "float64_scalar"])
+@pytest.mark.parametrize("what", ["int64", "float64", "int64_cast", "float64_scalar"])
 def test_what_an_f32_register_cannot_hold_runs_eagerly(what, cuda):
     img = _source(cuda, (20, 30, 3), seed=21)
     ops = {
-        "int32": (T.image(img.to(torch.int32)), T.multiply(2.0), T.write()),
+        "int64": (T.image(img.to(torch.int64)), T.multiply(2.0), T.write()),
         "float64": (T.image(img.to(torch.float64)), T.multiply(2.0), T.write()),
-        "int32_cast": (T.image(img), T.convert_to(np.int32, alpha=1000.0), T.write()),
+        "int64_cast": (T.image(img), T.convert_to(np.int64, alpha=1000.0), T.write()),
         "float64_scalar": (T.image(img.float()), T.Mul(value=np.float64(1.1)), T.write()),
     }[what]
     assert T.describe_backend(*ops) == "torch"
@@ -348,7 +348,7 @@ def test_out_views_of_any_strides(kernel, cuda):
     with pytest.raises(ValueError, match="out holds"):
         call(a, out=torch.empty(want.shape[1:], dtype=torch.uint8, device=cuda))
     with pytest.raises(TypeError):
-        call(a, out=torch.empty(want.shape, dtype=torch.int32, device=cuda))
+        call(a, out=torch.empty(want.shape, dtype=torch.int64, device=cuda))
 
 
 @pytest.mark.parametrize("ring_dtype", [torch.uint8, torch.int8, torch.uint16, torch.int16])

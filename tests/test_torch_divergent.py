@@ -35,6 +35,7 @@ import cvgpuspeedup_tpu as J
 import cvgpuspeedup_tpu_torch as T
 from conftest import assert_backend
 from cvgpuspeedup_tpu.exec import pallas_divergent as pd
+from cvgpuspeedup_tpu_torch.exec import cuda_batch_resize as kbr
 from cvgpuspeedup_tpu_torch.exec import cuda_divergent as kd
 from cvgpuspeedup_tpu_torch.exec import executor
 from cvgpuspeedup_tpu_torch.graph import flatten
@@ -43,6 +44,14 @@ from cvgpuspeedup_tpu_torch.ops.resize import axis_taps
 
 F32_TOL = 1e-4
 CPU = torch.device("cpu")
+
+
+def _last_rows(plan):
+    """The code of each group's last op row in the plan's consts (0 for a
+    group with none): a store row where the group's values need one to go
+    into the batch's dtype (``cuda_batch_resize.store_cast``)."""
+    return [int(plan.consts[4 * (g.op_off + g.n_ops - 1)]) if g.n_ops else 0
+            for g in plan.groups]
 
 
 def _rng(seed):
@@ -322,7 +331,7 @@ def test_same_matrices_new_source_size_and_dsize():
 
 def test_merge_casts_other_groups_to_plane_zeros_dtype():
     """The merged batch takes the dtype of plane 0's group; another group's
-    float values are clamped, then truncated (3.7 -> 3, 297.5 -> 255,
+    float values are truncated, then saturated (3.7 -> 3, 297.5 -> 255,
     -0.5 -> 0), not rounded as saturate_cast would."""
     u8 = np.full((2, 2, 4, 1), 7, np.uint8)
     f = np.zeros((2, 2, 4, 1), np.float32)
@@ -340,7 +349,7 @@ def test_merge_casts_other_groups_to_plane_zeros_dtype():
     # the kernel takes such a batch: the float group stores through the same cast
     plan = kd.build_plan(tseqs, [1, 2])
     assert plan.out_dtype == torch.uint8
-    assert [g.flags & kd.CLAMP_STORE for g in plan.groups] == [0, kd.CLAMP_STORE]
+    assert _last_rows(plan) == [0, kbr.OP_TRUNC_U8]
     _assert_equal(kd.run(tseqs, plan, CPU), out, "kernel plain version vs eager")
 
 
@@ -348,8 +357,9 @@ def test_merge_casts_other_groups_to_plane_zeros_dtype():
 def test_groups_of_different_output_dtypes_run_as_one_batch(first_group):
     """A uint8 crop-resize chain, a float32 ring read and a float32 warp in
     one batch: the batch takes plane 0's group's dtype, the kernel's plan
-    takes it (AUTO no longer runs it group by group) and marks exactly the
-    float32 groups of a uint8 batch for the clamp-then-truncate store."""
+    takes it (AUTO no longer runs it group by group) and ends exactly the
+    float32 groups' tables of a uint8 batch in the truncate-and-saturate
+    store row."""
     rng = _rng(21)
     n = 6
     frame = rng.integers(0, 256, (40, 56, 3)).astype(np.uint8)
@@ -366,13 +376,13 @@ def test_groups_of_different_output_dtypes_run_as_one_batch(first_group):
                                           J.add(-3.25), J.write_tensor())
     if first_group == "uint8":
         ids, seqs = [1, 2, 3, 1, 2, 3], (seq_u8, seq_ring, seq_warp)
-        marked = [0, kd.CLAMP_STORE, kd.CLAMP_STORE]
+        marked = [False, True, True]
     else:
         ids, seqs = [1, 2, 3, 3, 2, 1], (seq_ring, seq_u8, seq_warp)
-        marked = [0, 0, 0]
+        marked = [False, False, False]
     out, plan = check_divergent(ids, *seqs)
     assert str(out.dtype) == f"torch.{first_group}" and plan.out_dtype == out.dtype
-    assert [g.flags & kd.CLAMP_STORE for g in plan.groups] == marked
+    assert [row == kbr.OP_TRUNC_U8 for row in _last_rows(plan)] == marked
 
 
 @pytest.mark.parametrize("ascendent", [True, False])

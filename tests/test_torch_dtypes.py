@@ -23,6 +23,7 @@ Inputs are made from a seed with numpy, at small sizes.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -42,6 +43,7 @@ CPU = torch.device("cpu")
 CUDA = torch.device("cuda")  # only named: the routing is decided on shapes and dtypes
 D = {"u8": np.uint8, "i8": np.int8, "u16": np.uint16, "i16": np.int16, "f16": np.float16,
      "f32": np.float32}
+D32 = {**D, "i32": np.int32}  # int32 has its own file of cases (test_torch_int32.py)
 NEW = ("i8", "u16", "i16", "f16")  # the source dtypes this port's resampling kernels added
 # a scale that brings each source dtype's values to a few hundred
 ALPHA = {"u8": 0.5, "i8": 1.5, "u16": 1 / 128.0, "i16": 1 / 96.0, "f16": 0.25, "f32": 0.5}
@@ -51,7 +53,7 @@ def _src(shape, name, seed=0):
     """Values over the whole range of an integer dtype; float values of a
     few hundred, both signs, exact in float16."""
     rng = np.random.default_rng(seed)
-    dtype = D[name]
+    dtype = D32[name]
     if name in ("f16", "f32"):
         return (rng.integers(-400, 2400, shape) / 8.0).astype(dtype)
     info = np.iinfo(dtype)
@@ -118,6 +120,36 @@ def _probe_rows():
         M.convert_to(np.float32, alpha=0.5), M.split_tensor()))
     rows["image_to_f16"] = ("cuda:pointwise", lambda M: (
         M.image(frame("u8")), M.convert_to(np.float16, alpha=0.5), M.write()))
+    # int32: a source, a chain and an output, each in one kernel
+    rows["resize_batch_i32"] = ("cuda:batch_resize", lambda M: (
+        M.resize_batch(frame("i32"), rects=RECTS, dsize=M.Size(64, 128)),
+        M.convert_to(np.float32, alpha=0.5), M.split_tensor()))
+    rows["u8_resize_batch_to_i32_mul"] = ("cuda:batch_resize", lambda M: (
+        M.resize_batch(frame("u8"), rects=RECTS, dsize=M.Size(64, 128)), M.convert_to(np.int32),
+        M.multiply(3.0), M.split_tensor()))
+    rows["resize_i32_split"] = ("cuda:frame_resize", lambda M: (
+        M.resize(M.image(frame("i32")), M.Size(128, 72)), M.convert_to(np.float32, alpha=0.5),
+        M.split()))
+    rows["warp_separable_i32"] = ("cuda:warp", lambda M: (
+        M.warp(M.image(frame("i32")), SEPARABLE, M.Size(128, 72)),
+        M.convert_to(np.float32, alpha=0.5), M.split_tensor()))
+    rows["u8_warp_separable_to_i32"] = ("cuda:warp", lambda M: (
+        M.warp(M.image(frame("u8")), SEPARABLE, M.Size(128, 72)), M.convert_to(np.int32),
+        M.split_tensor()))
+    rows["warp_general_i32"] = ("cuda:warp", lambda M: (
+        M.warp(M.image(frame("i32")), GENERAL, M.Size(128, 72)), M.convert_to(np.float32),
+        M.split_tensor()))
+    rows["warp_perspective_i32"] = ("cuda:warp", lambda M: (
+        M.warp(M.image(frame("i32")), PERSPECTIVE, M.Size(128, 72),
+               warp_type=M.WarpType.PERSPECTIVE), M.convert_to(np.int32), M.split_tensor()))
+    rows["warp_batch_i32"] = ("cuda:warp", lambda M: (
+        M.warp_batch([frame("i32")] * 2, [SEPARABLE, GENERAL], M.Size(128, 72)),
+        M.convert_to(np.float32), M.split_tensor()))
+    rows["image_i32"] = ("cuda:pointwise", lambda M: (
+        M.image(frame("i32")), M.multiply(2.0), M.write()))
+    rows["image_u8_to_i32_gray"] = ("cuda:pointwise", lambda M: (
+        M.image(frame("u8")), M.convert_to(np.int32, alpha=1e6),
+        M.cvt_color(M.ColorConversionCode.COLOR_RGB2GRAY), M.write()))
     return rows
 
 
@@ -154,12 +186,18 @@ def test_the_probe_tables_pallas_rows():
     for s in ("i16", "u16", "f16"):
         assert names[f"u8_resize_batch_{s}_chain_to_f32"] == "pallas:batch_resize"
     assert names["warp_general_i8"] == names["warp_perspective_i8"] == "pallas:warp_universal"
+    # int32: the reference's Pallas kernels take it as a source and a chain
+    assert names["resize_batch_i32"] == names["u8_resize_batch_to_i32_mul"] == \
+        "pallas:batch_resize"
+    assert names["resize_i32_split"] == "pallas:frame"
+    assert names["warp_separable_i32"] == names["u8_warp_separable_to_i32"] == "pallas:warp"
 
 
-@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float64])
 def test_what_an_f32_register_cannot_hold_stays_eager(dtype):
-    """int32, int64 and float64 sources and casts: no kernel takes them, and
-    ``ParBackend.CUDA`` says why, naming each kernel."""
+    """int64 and float64 sources and casts (a 32-bit register holds neither):
+    no kernel takes them, and ``ParBackend.CUDA`` says why, naming each
+    kernel. int32 is held as its bits (the probe table's ``*_i32`` rows)."""
     frame = torch.zeros((32, 48, 3), dtype=dtype)
     for ops in ((T.resize_batch(frame, rects=RECTS[:, :], dsize=T.Size(16, 16)),
                  T.split_tensor()),
@@ -228,9 +266,12 @@ HEADS = {
     "pointwise_image": (kp, lambda M, a: (M.image(a((9, 14, 3))),)),
     "pointwise_ring": (kp, lambda M, a: (M.circular_batch_read(a((4, 6, 8, 3)), first=-3),)),
     "pointwise_crop": (kp, lambda M, a: (M.crop(M.image(a((12, 17, 3))), M.Rect(-4, 3, 9, 7)),)),
+    # the value a device array: the reference then casts it to the source's
+    # dtype by XLA's convert (saturating) also op by op, as its jitted path
+    # does; a numpy value would be cast on the host by numpy, which wraps
     "pointwise_border": (kp, lambda M, a: (
         M.make_border(M.image(a((8, 11, 3))), 2, 1, 3, 2, M.BorderMode.CONSTANT,
-                      value=(7.0, 300.5, -9.0)),)),
+                      value=jnp.asarray((7.0, 300.5, -9.0), jnp.float32)),)),
 }
 
 
@@ -322,39 +363,51 @@ def test_float16_rows():
     ops, dtype, _, _ = kbr.encode_chain(
         (T.cvt_color(T.ColorConversionCode.COLOR_RGB2GRAY),), 3, dtype=torch.float16)
     assert dtype == torch.float16 and ops[0, 0] == kbr.OP_GRAY_F16
-    with pytest.raises(kbr.Unsupported, match="cast to torch.int32"):
-        kbr.encode_chain((T.convert_to(np.int32),), 3)
+    with pytest.raises(kbr.Unsupported, match="cast to torch.int64"):
+        kbr.encode_chain((T.convert_to(np.int64),), 3)
 
 
-@pytest.mark.parametrize("out", list(D))
-@pytest.mark.parametrize("chain", list(D))
+#: float values past every integer range, the halves, the infinities and NaN
+EDGES = (float("inf"), float("-inf"), float("nan"), 3e9, -3e9, 2.0 ** 31, -2.0 ** 31, 70000.5,
+         -0.5, 254.5, 300.0, -9.0, 65535.5, -32768.5)
+
+
+@pytest.mark.parametrize("out", list(D32))
+@pytest.mark.parametrize("chain", list(D32))
 def test_store_modes_cast_as_astype(chain, out):
-    """``store_cast`` of every pair of ``TYPE_CODES``: a float into an
-    integer clamps, an integer into an integer that holds all its values is
-    stored as it is, into one that does not wraps; the store of each mode
-    (clamp, then truncate and keep the low bits; float16 rounds) equals
-    ``utils.dtypes.astype``."""
-    src, dst = T._dt.to_torch_dtype(D[chain]), T._dt.to_torch_dtype(D[out])
-    mode = kbr.store_cast(src, dst)
+    """``store_cast`` of every pair of ``TYPE_CODES``: the row a kernel runs
+    after its chain (none; a float's truncate and saturate into an integer;
+    int32's conversion into a float, or its low bits into a narrower
+    integer), then its store (the register's 32 bits into a float32 or an
+    int32 buffer, the low bits into an 8- or 16-bit one, float16 rounded),
+    equals ``utils.dtypes.astype``: on values over the chain dtype's whole
+    range and, for a float chain, past every integer range, the infinities
+    and NaN."""
+    from test_torch_tiling import emulate_rows, to_out
+
+    src, dst = T._dt.to_torch_dtype(D32[chain]), T._dt.to_torch_dtype(D32[out])
+    row = kbr.store_cast(src, dst)
     x = torch.from_numpy(_src((257,), chain, 9))
-    v = x.to(torch.float32)
-    if mode == kbr.STORE_CLAMP:
-        assert src.is_floating_point and not dst.is_floating_point
-        info = torch.iinfo(dst)
-        v = v.clamp(info.min, info.max)
-    elif not dst.is_floating_point:
-        assert not src.is_floating_point or src == dst
-        widening = (torch.iinfo(dst).min <= torch.iinfo(src).min
-                    and torch.iinfo(src).max <= torch.iinfo(dst).max)
-        assert mode == (kbr.STORE_AS_IS if widening else kbr.STORE_WRAP)
+    if src.is_floating_point:
+        x = torch.cat([x, torch.tensor(EDGES, dtype=torch.float32).to(src)])
+    if src == dst:
+        assert row == 0
+    elif src == torch.int32:
+        assert row == (kbr.OP_I32_F32 if dst.is_floating_point else kbr._WRAP[dst])
+    elif dst == torch.int32 or (src.is_floating_point and not dst.is_floating_point):
+        assert row == kbr._TRUNC[dst]
     else:
-        assert mode == kbr.STORE_AS_IS
-    # chain.cuh::to_out: truncate and keep the low bits, or round to float16
-    if dst.is_floating_point:
-        stored = v.to(dst)
-    else:
-        stored = torch.from_numpy(np.trunc(v.numpy()).astype(np.int64).astype(D[out]))
-    assert torch.equal(stored, T._dt.astype(x, dst))
+        assert row == 0
+    # the registers: int32 as its bits, every other dtype as float32 values
+    regs = (x.view(torch.float32) if src == torch.int32 else x.to(torch.float32)).numpy()
+    regs = regs.reshape(-1, 1).copy()
+    if row:
+        with np.errstate(all="ignore"):
+            emulate_rows(regs, [(row, 0, 1, np.zeros(4, np.float32))])
+    with np.errstate(all="ignore"):
+        stored = to_out(regs[:, 0], D32[out])
+    want = T._dt.astype(x, dst).numpy()
+    assert np.array_equal(stored.view(np.uint8), want.view(np.uint8)), (stored, want)
 
 
 def test_every_kernel_stores_every_dtype_in_one_launch_on_the_meta_path():
@@ -369,4 +422,4 @@ def test_every_kernel_stores_every_dtype_in_one_launch_on_the_meta_path():
             (kp, (T.image(img), T.convert_to(np.int8)))):
         plan = module.build_plan(T.build_pipeline(*ops, T.split_tensor()))
         assert all(module.can_store(plan, dtype) for dtype in kbr.TYPE_CODES)
-        assert not module.can_store(plan, torch.int32)
+        assert module.can_store(plan, torch.int32) and not module.can_store(plan, torch.int64)

@@ -164,7 +164,10 @@ def test_supports_refuses_what_the_kernel_cannot_encode(frame, rects):
     assert kbr.supports(to_int16)  # exact in the chain's f32 registers
     to_int32 = T.build_pipeline(
         T.resize_batch(frame, rects=rects, dsize=T.Size(*UP)), T.convert_to(np.int32))
-    assert not kbr.supports(to_int32)
+    assert kbr.supports(to_int32)  # held as its bits in the chain's registers
+    to_int64 = T.build_pipeline(
+        T.resize_batch(frame, rects=rects, dsize=T.Size(*UP)), T.convert_to(np.int64))
+    assert not kbr.supports(to_int64)
     five_ch = np.zeros((20, 30, 5), np.uint8)
     assert not kbr.supports(T.build_pipeline(
         T.resize_batch(five_ch, rects=rects, dsize=T.Size(*UP))))

@@ -236,17 +236,19 @@ def test_kernel_supports_and_refusals():
         "batched": T.build_pipeline(T.resize(T.image(np.stack([img, img])), T.Size(128, 32))),
         "tensor_write": T.build_pipeline(T.resize(T.image(img), T.Size(128, 32)), T.write_tensor()),
         "five_channels": T.build_pipeline(T.resize(T.image(_img(11, c=5)), T.Size(128, 32))),
-        "int32_out": T.build_pipeline(T.resize(T.image(img), T.Size(128, 32)),
-                                      T.convert_to(np.int32)),
+        "int64_out": T.build_pipeline(T.resize(T.image(img), T.Size(128, 32)),
+                                      T.convert_to(np.int64)),
         "no_resize": T.build_pipeline(T.image(img), T.multiply(2.0)),
         "float64_source": T.build_pipeline(T.resize(T.image(img.astype(np.float64)),
                                                     T.Size(128, 32))),
     }
     for name, pipe in refused.items():
         assert not kfr.supports(pipe), name
-    # every dtype an f32 register holds is a source, a chain and an output
+    # every dtype a 32-bit register holds is a source, a chain and an output
     assert kfr.supports(T.build_pipeline(T.resize(T.image(img.astype(np.int16)), T.Size(128, 32)),
                                          T.convert_to(np.float16)))
+    assert kfr.supports(T.build_pipeline(T.resize(T.image(img.astype(np.int32)), T.Size(128, 32)),
+                                         T.convert_to(np.int32)))
 
 
 def test_backend_choice_on_the_cpu():

@@ -241,8 +241,8 @@ def test_a_fused_read_at_the_top_is_its_read_and_the_head_of_the_chain():
 
 
 @pytest.mark.parametrize("case,reason", [
-    ("int32_source", "source dtype int32"), ("float64_source", "source dtype float64"),
-    ("int32_cast", "cast to torch.int32"), ("float64_scalar", "scalar is float64"),
+    ("int64_source", "source dtype int64"), ("float64_source", "source dtype float64"),
+    ("int64_cast", "cast to torch.int64"), ("float64_scalar", "scalar is float64"),
     ("resize", "more than one source pixel"), ("five_channels", "5 channels"),
     ("fused_read_under_a_crop", "FusedRead"), ("five_stages", "nests 4"),
     ("tensor_write_of_one_frame", "write TensorWrite"), ("yuv_mid_chain", "no op code"),
@@ -253,9 +253,9 @@ def test_build_plan_refuses_with_a_reason(case, reason):
     for _ in range(5):
         nested = T.make_border(nested, 1, 1, 1, 1)
     ops = {
-        "int32_source": (T.image(img.astype(np.int32)), T.multiply(2.0)),
+        "int64_source": (T.image(img.astype(np.int64)), T.multiply(2.0)),
         "float64_source": (T.image(img.astype(np.float64)), T.multiply(2.0)),
-        "int32_cast": (T.image(img), T.convert_to(np.int32)),
+        "int64_cast": (T.image(img), T.convert_to(np.int64)),
         "float64_scalar": (T.image(img), T.Mul(value=np.float64(2.0))),
         "resize": (T.resize(T.image(img), T.Size(4, 4)),),
         "five_channels": (T.image(_src((4, 4, 5), np.uint8)),),
@@ -302,16 +302,18 @@ def test_bare_nv12_and_what_stays_eager_on_the_meta_path():
     buf = torch.empty((12, 10), dtype=torch.uint8, device="meta")
     nv12 = T.build_pipeline(T.read_yuv(buf), T.convert_yuv_to_rgb())
     assert executor._select(nv12, T.ParBackend.AUTO, CUDA).backend == "cuda:pointwise"
-    for dtype in (torch.int32, torch.int64, torch.float64):
+    for dtype in (torch.int64, torch.float64):
         p = T.build_pipeline(T.image(torch.empty((4, 4, 3), dtype=dtype, device="meta")),
                              T.multiply(2.0))
         assert executor._select(p, T.ParBackend.AUTO, CUDA).backend == "torch"
         with pytest.raises(ValueError, match="cuda:pointwise: source dtype"):
             executor._select(p, T.ParBackend.CUDA, CUDA)
-    # float16 is exact in the chain's float32 registers: one launch
-    half = T.build_pipeline(T.image(torch.empty((4, 4, 3), dtype=torch.float16, device="meta")),
-                            T.multiply(2.0))
-    assert executor._select(half, T.ParBackend.AUTO, CUDA).backend == "cuda:pointwise"
+    # float16 is exact in the chain's float32 registers, int32 is held as its
+    # bits: one launch each
+    for dtype in (torch.float16, torch.int32):
+        p = T.build_pipeline(T.image(torch.empty((4, 4, 3), dtype=dtype, device="meta")),
+                             T.multiply(2.0))
+        assert executor._select(p, T.ParBackend.AUTO, CUDA).backend == "cuda:pointwise"
 
 
 def test_new_values_build_no_plan_and_prepare_packs_them_in_order():
@@ -376,18 +378,19 @@ def test_out_views_on_the_cpu(kernel):
         assert bool((host[..., 0] == 77).all()) and bool((host[..., -2:] == 77).all())
     with pytest.raises(ValueError, match="out holds"):
         module.run(pipeline, plan, CPU, out=torch.empty(want.shape[1:]))
-    assert module.can_store(plan, torch.float32) and not module.can_store(plan, torch.int32)
+    assert module.can_store(plan, torch.float32) and not module.can_store(plan, torch.int64)
     # a float32 chain into an integer buffer is one store in every kernel:
-    # clamped, then truncated; a uint8 chain into another integer widens or
-    # wraps, which the store does too (it keeps the low bits)
-    ints = (torch.uint8, torch.int8, torch.uint16, torch.int16)
+    # truncated, then saturated by the store row; a uint8 chain into another
+    # 8- or 16-bit integer widens or wraps, which the store does itself (it
+    # keeps the low bits), into int32 it is exact
+    ints = (torch.uint8, torch.int8, torch.uint16, torch.int16, torch.int32)
     assert all(module.can_store(plan, dtype) for dtype in ints)
     u8_ops = (*ops, T.convert_to(np.uint8), T.split_tensor())
     u8_plan = module.build_plan(T.build_pipeline(*u8_ops))
     assert u8_plan.out_dtype == torch.uint8
-    assert [module.can_store(u8_plan, dtype) for dtype in ints] == [True] * 4
-    assert [kbr.store_cast(torch.uint8, dtype) for dtype in ints] == [
-        kbr.STORE_AS_IS, kbr.STORE_WRAP, kbr.STORE_AS_IS, kbr.STORE_AS_IS]
+    assert [module.can_store(u8_plan, dtype) for dtype in ints] == [True] * 5
+    assert [kbr.store_cast(torch.uint8, dtype) for dtype in ints] == [0, 0, 0, 0,
+                                                                       kbr.OP_TRUNC_I32]
     u8 = module.run(T.build_pipeline(*u8_ops), u8_plan, CPU)
     view = torch.zeros(tuple(u8.shape), dtype=torch.int8)
     assert torch.equal(module.run(T.build_pipeline(*u8_ops), u8_plan, CPU, out=view),

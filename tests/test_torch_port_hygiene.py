@@ -177,7 +177,8 @@ def test_the_native_loader_builds_beside_the_kernels():
 
 
 @pytest.mark.parametrize("name,elem,short", [("int8", "int8_t", "i8"), ("uint16", "uint16_t", "u16"),
-                                             ("int16", "int16_t", "i16"), ("float16", "f16", "f16")])
+                                             ("int16", "int16_t", "i16"), ("float16", "f16", "f16"),
+                                             ("int32", "int32_t", "i32")])
 def test_each_source_type_has_a_translation_unit_of_its_own(name, elem, short):
     """K1, K2 and the warp kernel instantiate uint8 and float32 sources
     beside their C entry and every other source type in a file of its own,
@@ -187,7 +188,68 @@ def test_each_source_type_has_a_translation_unit_of_its_own(name, elem, short):
     src = csrc / f"source_{name}.cu"
     assert src in _build.SOURCES
     assert f"CVGS_SOURCE({elem}, {short})" in src.read_text()
-    code = {"int8": "PW_I8", "uint16": "PW_U16", "int16": "PW_I16", "float16": "PW_F16"}[name]
+    code = {"int8": "PW_I8", "uint16": "PW_U16", "int16": "PW_I16", "float16": "PW_F16",
+            "int32": "PW_I32"}[name]
     for kernel in ("batch_resize", "frame_resize", "warp"):
         entry = (csrc / f"{kernel}.cu").read_text()
         assert f"case {code}: cvgs::{kernel}_{short}(a);" in entry
+
+
+#: the reference's modules whose public names the port carries, by the
+#: port's module of the same path
+PUBLIC_MODULES = ("", ".exec.executor", ".utils.dtypes", ".utils.profiling", ".utils.frameloader",
+                  ".ops.arithmetic", ".ops.border", ".ops.cast", ".ops.color", ".ops.crop",
+                  ".ops.memory", ".ops.nv12", ".ops.resize", ".ops.warp",
+                  ".data.circular_tensor", ".interop.cv2_compat", ".parallel.mesh",
+                  ".pipelines", ".pipelines.presets", ".graph", ".types")
+#: the reference's public names the port replaces on purpose, and by what
+REPLACED = {
+    ".utils.profiling": {"transfer_sync", "differential_device_time",  # CUDA events, the profiler
+                         "V5E_BF16_MACS", "V5E_HBM_BPS"},  # the H100's rates: utils/bounds.py
+    ".ops.resize": {"axis_lerp_np"},  # axis_taps, the numpy form of axis_lerp
+}
+
+
+def _public_names(module):
+    """A module's ``__all__``, else its names that do not start with ``_``
+    and are no module."""
+    import types
+
+    names = getattr(module, "__all__", None)
+    if names is not None:
+        return set(names)
+    return {n for n, v in vars(module).items()
+            if not n.startswith("_") and not isinstance(v, types.ModuleType)
+            and getattr(v, "__module__", module.__name__).split(".")[0] != "__future__"}
+
+
+@pytest.mark.parametrize("path", PUBLIC_MODULES, ids=lambda p: p or "root")
+def test_every_public_name_of_the_reference_has_a_counterpart(path):
+    """Each public name of a module of the JAX package (its ``__all__``, or
+    what it defines and imports under a public name) is a name of the
+    port's module of the same path, but the deliberate replacements
+    (``REPLACED``) and the Pallas emitters (``exec/pallas_*``, whose
+    counterparts are the CUDA kernels)."""
+    import importlib
+
+    pytest.importorskip("jax")
+    ref = importlib.import_module("cvgpuspeedup_tpu" + path)
+    port = importlib.import_module("cvgpuspeedup_tpu_torch" + path)
+    ref_names = {n for n in _public_names(ref)
+                 if not getattr(getattr(ref, n), "__module__", "").startswith(
+                     ("jax", "numpy", "enum", "typing", "dataclasses", "functools"))}
+    missing = sorted(n for n in ref_names - REPLACED.get(path, set()) if not hasattr(port, n))
+    assert not missing, f"cvgpuspeedup_tpu_torch{path} lacks {missing}"
+    assert not {n for n in REPLACED.get(path, set()) if hasattr(port, n)}, "a replaced name is back"
+
+
+def test_the_pallas_emitters_are_the_cuda_kernels():
+    """The reference's ``exec/pallas_*`` modules have no module of the same
+    name in the port: each has a kernel module (``exec/cuda_*``)."""
+    ref = sorted(p.stem for p in (ROOT / "cvgpuspeedup_tpu" / "exec").glob("pallas_*.py"))
+    port = {p.stem for p in (ROOT / "cvgpuspeedup_tpu_torch" / "exec").glob("*.py")}
+    assert ref == ["pallas_backend", "pallas_divergent", "pallas_frame", "pallas_warp",
+                   "pallas_warp_general", "pallas_warp_universal"]
+    assert not port & set(ref)
+    assert {"cuda_batch_resize", "cuda_divergent", "cuda_frame_resize", "cuda_warp",
+            "cuda_pointwise"} <= port

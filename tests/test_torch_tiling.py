@@ -752,10 +752,14 @@ def test_nv12_edge_rules_limited_range_and_alpha(dsize, keep):
 
 
 def to_out(vals, dtype):
-    """``csrc/chain.cuh::to_out``: float32 values as elements of ``dtype``.
-    An integer store truncates and keeps the low bits (a value outside the
-    type's range wraps), a float16 store rounds to nearest even."""
+    """``csrc/chain.cuh::to_out``: float32 registers as elements of
+    ``dtype``. An int32 store moves the register's bits (float32's store),
+    an 8- or 16-bit integer store truncates and keeps the low bits (a value
+    outside the type's range wraps), a float16 store rounds to nearest
+    even."""
     vals = np.asarray(vals, F32)
+    if np.dtype(dtype) == np.int32:
+        return np.ascontiguousarray(vals).view(np.int32)
     if np.dtype(dtype).kind in "iu":
         return np.trunc(vals).astype(np.int64).astype(dtype)
     return vals.astype(dtype)
@@ -831,15 +835,16 @@ def test_stores_of_every_layout_fill_the_buffer_and_nothing_else(dtype, layout, 
         assert stats["scalar"] == 0 and stats["vector"] == n * h * w * ch // 4
 
 
-@pytest.mark.parametrize("dtype", [np.uint8, np.int8, np.uint16, np.int16],
-                         ids=["u8", "i8", "u16", "i16"])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int8, np.uint16, np.int16, np.int32],
+                         ids=["u8", "i8", "u16", "i16", "i32"])
 @pytest.mark.parametrize("kernel", ["batch_resize", "frame_resize", "warp"])
 def test_clamp_store_of_the_resampling_kernels(kernel, dtype):
     """K1, K2 and the warp kernel store a float32 chain into an integer
-    buffer (``clamp_store``): each value clamped to the buffer's range, then
-    truncated by the store (``chain.cuh::clamp_to_range``, ``to_out``), as
-    ``utils.dtypes.astype`` casts; the wrappers' ``out=`` on the CPU equals
-    it, and the plan passes clamp_store 1 and the buffer's type code."""
+    buffer: the store row (``store_cast``: ``OP_TRUNC_*``) truncates each
+    value and saturates it to the buffer's range, then the store moves it
+    (``to_out``), as ``utils.dtypes.astype`` casts; the wrappers' ``out=``
+    on the CPU equals it, and the plan passes the row and the buffer's type
+    code."""
     img = torch.from_numpy(_src(70, 24, 32, 3))
     rects = np.array([[i, i, 10, 12] for i in range(2)], np.int32)
     module, read = {
@@ -847,21 +852,24 @@ def test_clamp_store_of_the_resampling_kernels(kernel, dtype):
         "frame_resize": (kfr, T.resize(T.image(img), T.Size(8, 6))),
         "warp": (kw, T.warp(T.image(img), np.array([[0.5, 0, 1.0], [0, 0.5, 2.0]]), T.Size(8, 6))),
     }[kernel]
-    pipeline = T.build_pipeline(read, T.multiply(600.0), T.subtract(70000.25), T.split_tensor())
+    scale = 6e7 if dtype == np.int32 else 600.0  # past the buffer's range
+    pipeline = T.build_pipeline(read, T.multiply(scale), T.subtract(70000.25), T.split_tensor())
     plan = module.build_plan(pipeline)
     td = T._dt.to_torch_dtype(dtype)
     assert plan.out_dtype == torch.float32 and module.can_store(plan, td)
-    assert kbr.store_cast(plan.out_dtype, td) == 1 and kbr.TYPE_CODES[td] == _NP_TYPES.index(dtype)
+    row = kbr.store_cast(plan.out_dtype, td)
+    assert row == kbr._TRUNC[td] and kbr.TYPE_CODES[td] == _NP_TYPES.index(dtype)
     vals = module.run(pipeline, plan, CPU)
     values = (vals if vals.ndim == 4 else vals[None]).permute(0, 2, 3, 1).numpy()
     info = np.iinfo(dtype)
-    assert values.min() < info.min or values.max() > info.max  # the clamp has work to do
+    assert values.min() < info.min or values.max() > info.max  # the saturate has work to do
     n, h, w, ch = values.shape
     strides = (ch * h * w, h * w, w, 1)
     item = np.dtype(dtype).itemsize
+    stored = values.copy()
+    emulate_rows(stored, [(row, 0, 4, np.zeros(4, F32))])
     for pix in (1, 4):
-        mem, _ = emulate_store_pixels(np.clip(values, info.min, info.max), strides, dtype, pix,
-                                      64)
+        mem, _ = emulate_store_pixels(stored, strides, dtype, pix, 64)
         got = mem[64:64 + values.size * item].view(dtype).reshape(n, ch, h, w)
         want = T._dt.astype(vals, td)
         assert np.array_equal(got, (want if want.ndim == 4 else want[None]).numpy())
@@ -881,7 +889,11 @@ _SAT_RANGE = {kbr.OP_SAT_U8: (0, 255), kbr.OP_SAT_I8: (-128, 127), kbr.OP_SAT_U1
 _CAST_TYPE = {kbr.OP_CAST_U8: np.uint8, kbr.OP_CAST_I8: np.int8, kbr.OP_CAST_U16: np.uint16,
               kbr.OP_CAST_I16: np.int16}
 _NP_TYPES = (np.uint8, np.int8, np.uint16, np.int16, np.float32,
-             np.float16)  # csrc/chain.cuh PW_U8 .. PW_F16
+             np.float16, np.int32)  # csrc/chain.cuh PW_U8 .. PW_I32
+_TRUNC_TYPE = {kbr.OP_TRUNC_U8: np.uint8, kbr.OP_TRUNC_I8: np.int8, kbr.OP_TRUNC_U16: np.uint16,
+               kbr.OP_TRUNC_I16: np.int16}
+_WRAP_TYPE = {kbr.OP_WRAP_U8: np.uint8, kbr.OP_WRAP_I8: np.int8, kbr.OP_WRAP_U16: np.uint16,
+              kbr.OP_WRAP_I16: np.int16}
 
 
 def crop_start(start, length, size):
@@ -948,8 +960,24 @@ def stage_rows(words, n_ops, fp):
 
 
 def truncate_to(v, np_type):
-    """``cast_u8`` .. ``cast_i16``: truncate, keep the low bits."""
+    """``OP_CAST_U8`` .. ``OP_CAST_I16``: truncate, keep the low bits."""
     return np.trunc(v).astype(np.int64).astype(np_type).astype(F32)
+
+
+def bits(v):
+    """float32 registers as the int32 they hold."""
+    return np.ascontiguousarray(v, F32).view(np.int32)
+
+
+def to_int(v, lo, hi, rn):
+    """``cvt.rni`` / ``cvt.rzi`` of float32 values, saturated to int32 (NaN
+    to 0), then clamped to ``[lo, hi]``: int64."""
+    v = np.asarray(v, np.float64)
+    v = np.nan_to_num(np.rint(v) if rn else np.trunc(v), nan=0.0)
+    return np.clip(v, lo, hi).astype(np.int64)
+
+
+I32 = (-2 ** 31, 2 ** 31 - 1)
 
 
 def emulate_rows(v, chunk):
@@ -961,10 +989,19 @@ def emulate_rows(v, chunk):
     for code, aux, ch, q in chunk:
         if code in ARITH:
             v[...] = ARITH[code](v, q[:lanes], dtype=F32)
-        elif code in _SAT_RANGE:  # + 0: the integer 0, never -0
-            v[...] = np.clip(np.rint(v), *_SAT_RANGE[code]) + F32(0)
+        elif code in _SAT_RANGE:  # an integer's float: never -0
+            v[...] = to_int(v, *_SAT_RANGE[code], rn=True).astype(F32)
+        elif code in _TRUNC_TYPE:
+            info = np.iinfo(_TRUNC_TYPE[code])
+            v[...] = to_int(v, info.min, info.max, rn=False).astype(F32)
         elif code in _CAST_TYPE:
             v[...] = truncate_to(v, _CAST_TYPE[code])
+        elif code in _WRAP_TYPE:
+            v[...] = bits(v).astype(_WRAP_TYPE[code]).astype(F32)
+        elif code in (kbr.OP_TRUNC_I32, kbr.OP_SAT_I32):
+            v[...] = to_int(v, *I32, rn=code == kbr.OP_SAT_I32).astype(np.int32).view(F32)
+        elif code == kbr.OP_I32_F32:
+            v[...] = bits(v).astype(F32)
         elif code == kbr.OP_CAST_F16:
             v[...] = v.astype(np.float16).astype(F32)
         elif code == kbr.OP_REORDER:
@@ -974,14 +1011,18 @@ def emulate_rows(v, chunk):
             idx = [(aux >> (4 * c)) & 15 for c in range(4)]
             assert all(i < ch for i in idx[:aux >> 16]), "a reorder reads live lanes only"
             v[...] = v[..., [i if i <= 3 else 0 for i in idx]]  # chain.cuh::pick
-        elif code == kbr.OP_ALPHA:
+        elif code in (kbr.OP_ALPHA, kbr.OP_ALPHA_I32):
             assert lanes == 4 and ch < 4
-            v[..., ch] = aux
-        elif code in (kbr.OP_GRAY_U8, kbr.OP_GRAY_F32, kbr.OP_GRAY_F16):
+            v[..., ch] = aux if code == kbr.OP_ALPHA else np.int32(aux).view(F32)
+        elif code in (kbr.OP_GRAY_U8, kbr.OP_GRAY_F32, kbr.OP_GRAY_F16, kbr.OP_GRAY_I32):
             assert lanes == 4 and all(((aux >> s) & 15) < ch for s in (0, 4, 8))
             if code == kbr.OP_GRAY_U8:
                 r, g, b = (v[..., (aux >> s) & 15].astype(np.int64) for s in (0, 4, 8))
                 v[..., 0] = (r * 9798 + g * 19235 + b * 3735 + (1 << 14)) >> 15
+            elif code == kbr.OP_GRAY_I32:  # int32 products and sums wrap
+                r, g, b = (bits(v[..., (aux >> s) & 15]).astype(np.int64) for s in (0, 4, 8))
+                acc = (r * 9798 + g * 19235 + b * 3735 + (1 << 14)) & 0xFFFFFFFF
+                v[..., 0] = (acc.astype(np.uint32).view(np.int32) >> 15).view(F32)
             elif code == kbr.OP_GRAY_F16:
                 h16 = np.float16
                 r, g, b = (v[..., (aux >> s) & 15].astype(h16) for s in (0, 4, 8))
@@ -1049,14 +1090,17 @@ def emulate_pointwise(a: kp.Launch, pix=None, out=None):
             vals[z, ..., 2] = src[uv + (0 if nv21 else 1)]
         else:
             off = ((pz * src_h + y) * src_w + x) * nch
-            for c in range(nch):
-                vals[z, ..., c] = src[off + c]
+            for c in range(nch):  # int32 as float32's words: its bits
+                vals[z, ..., c] = src[off + c].view(F32) if src_type == 6 else src[off + c]
         for c in range(nch if not live.all() else 0):
             border = fblk[np.maximum(fill, 0) + c]
             if src_type == 5:  # pointwise.cuh::cast_to_type
                 border = border.astype(np.float16).astype(F32)
+            elif src_type == 6:
+                border = to_int(border, *I32, rn=False).astype(np.int32).view(F32)
             elif src_type != 4:
-                border = truncate_to(border, _NP_TYPES[src_type])
+                info = np.iinfo(_NP_TYPES[src_type])
+                border = to_int(border, info.min, info.max, rn=False).astype(F32)
             vals[z, ..., c] = np.where(live, vals[z, ..., c], border)
     if conv_first:
         assert lanes == 4
@@ -1077,9 +1121,10 @@ def emulate_pointwise(a: kp.Launch, pix=None, out=None):
     buf, (sn, sc, sy, sx), result = kp._alloc_out(plan, CPU, out)
     np_out = _NP_TYPES[kp.TYPE_CODES[buf.dtype]]
     item = buf.element_size()
-    if kbr.store_cast(plan.out_dtype, buf.dtype) == kbr.STORE_CLAMP:
-        info = np.iinfo(np_out)
-        vals = np.clip(vals, info.min, info.max)
+    row = kbr.store_cast(plan.out_dtype, buf.dtype)
+    if row:
+        with np.errstate(all="ignore"):
+            emulate_rows(vals, [(row, 0, lanes, np.zeros(4, F32))])
     flat = torch.as_strided(buf, (buf.untyped_storage().nbytes() // buf.element_size(),),
                             (1,), 0).numpy()
     zi, yi, xi, ci = np.meshgrid(np.arange(plan.n_planes), np.arange(dst_h), np.arange(dst_w),
@@ -1612,14 +1657,14 @@ def test_stores_of_every_dtype_fill_the_buffer_and_nothing_else(dtype, pix):
 @pytest.mark.parametrize("chain", [np.uint8, np.int8, np.uint16, np.int16],
                          ids=["u8", "i8", "u16", "i16"])
 def test_an_integer_chain_stores_into_another_integer_as_astype(chain, out):
-    """An integer chain's exact values into an integer buffer (store modes 0
-    and 2 of ``store_cast``): the store truncates and keeps the low bits,
-    which widens or wraps as ``utils.dtypes.astype`` (``Tensor.to``) does;
-    the pointwise kernel's ``out=`` on the CPU does the same."""
+    """An integer chain's exact values into an integer buffer (no store row
+    from ``store_cast``): the store truncates and keeps the low bits, which
+    widens or wraps as ``utils.dtypes.astype`` does; the pointwise kernel's
+    ``out=`` on the CPU does the same."""
     info = np.iinfo(chain)
     vals = np.random.default_rng(76).integers(info.min, int(info.max) + 1, (2, 3, 8, 3))
     tchain, tout = T._dt.to_torch_dtype(chain), T._dt.to_torch_dtype(out)
-    assert kbr.store_cast(tchain, tout) in (kbr.STORE_AS_IS, kbr.STORE_WRAP)
+    assert kbr.store_cast(tchain, tout) == 0
     mem, _ = emulate_store_pixels(vals.astype(F32), (72, 1, 24, 3), out, 4, 64)
     got = mem[64:64 + vals.size * np.dtype(out).itemsize].view(out).reshape(vals.shape)
     want = T._dt.astype(torch.from_numpy(vals.astype(chain)), tout).numpy()
@@ -1635,9 +1680,10 @@ def test_an_integer_chain_stores_into_another_integer_as_astype(chain, out):
 @pytest.mark.parametrize("batch", ["u8", "i16", "f16"])
 def test_divergent_groups_chain_and_store_into_the_batch_dtype(batch):
     """K6 image and circ groups read with the copy emulator, each group's
-    rows from the plan's consts and the block's scalars, each group stored
-    into the batch's dtype by its flags: a float group into an integer batch
-    clamps, an integer group wraps or widens, a float16 batch rounds."""
+    rows from the plan's consts and the block's scalars, the last of them the
+    store row into the batch's dtype (``store_cast``): a float group into an
+    integer batch truncates and saturates, an integer group wraps or widens
+    in the store, a float16 batch rounds."""
     dtype = {"u8": np.uint8, "i16": np.int16, "f16": np.float16}[batch]
     src_a = _stack(77, 6, 5, 7, 3, np.uint8)
     src_b = _stack(78, 6, 5, 7, 3, np.float32)
@@ -1659,19 +1705,18 @@ def test_divergent_groups_chain_and_store_into_the_batch_dtype(batch):
     for z in range(plan.n_planes):
         g = int(blk[z])
         d = blk[a.desc_off + kd.DESC_INTS * g:][:kd.DESC_INTS]
-        op_off, n_ops, fp_off, flags = int(d[10]), int(d[11]), int(d[12]), int(d[14])
+        op_off, n_ops, fp_off = int(d[10]), int(d[11]), int(d[12])
         group = plan.groups[g]
         ops = consts[4 * op_off:4 * (op_off + n_ops)].reshape(-1, 4)
         assert ops.shape[0] == group.n_ops
         lanes = emulate_table(values[z], ops, blk.view(F32)[fp_off:])[..., :plan.out_ch]
-        if flags & kd.CLAMP_STORE:
-            info = np.iinfo(dtype)
-            lanes = np.clip(lanes, info.min, info.max)
         out[z] = to_out(lanes, dtype)
-    modes = [kbr.store_cast(gr_dtype, plan.out_dtype) for gr_dtype in
-             (T._dt.to_torch_dtype(dtype), torch.float32, torch.uint16)]
-    assert [bool(gr.flags & kd.CLAMP_STORE) for gr in plan.groups] == [
-        m == kbr.STORE_CLAMP for m in modes]
+    rows = [kbr.store_cast(gr_dtype, plan.out_dtype) for gr_dtype in
+            (T._dt.to_torch_dtype(dtype), torch.float32, torch.uint16)]
+    assert rows[0] == 0 and rows[1] == (0 if batch == "f16" else kbr._TRUNC[plan.out_dtype])
+    for gr, row in zip(plan.groups, rows):
+        last = int(consts[4 * (gr.op_off + gr.n_ops - 1)])
+        assert (last == row) if row else (last != kbr.OP_TRUNC_U8 or gr.n_ops == 0)
     _bits_equal(out, kd.divergent_reference(a))
 
 
@@ -1679,9 +1724,9 @@ def test_divergent_groups_chain_and_store_into_the_batch_dtype(batch):
 @pytest.mark.parametrize("chain", [np.uint8, np.int8, np.int16], ids=["u8", "i8", "i16"])
 def test_a_saturated_zero_stores_as_zero_into_a_float_buffer(chain, out):
     """An integer chain's saturate of a value in (-0.5, 0] gives the integer
-    0, whose float is +0 (``chain.cuh::saturate`` adds +0 to rintf's -0):
-    the chain stored into a float buffer equals the plain version bit for
-    bit, sign of zero included."""
+    0, whose float is +0 (``chain.cuh::saturate`` converts through an
+    integer): the chain stored into a float buffer equals the plain version
+    bit for bit, sign of zero included."""
     vals = np.array([[[-0.3, -0.0, 0.2], [-0.5, 0.4, -0.49]]], np.float32).repeat(3, 0)
     _check_pointwise(T.image(torch.from_numpy(vals)), T.convert_to(chain),
                      T.convert_to(out), T.write())

@@ -518,10 +518,12 @@ def test_kernel_refusals():
         "float64_source": (T.warp(img.astype(np.float64), rot, size),),
         "batch_of_images": (T.batch_read([T.image(img), T.image(img)]),),
         "single_tensor_write": (T.warp(img, rot, size), T.write_tensor()),
-        "int32_out": (T.warp(img, rot, size), T.convert_to(np.int32)),
+        "int64_out": (T.warp(img, rot, size), T.convert_to(np.int64)),
     }
     assert kw.supports(T.build_pipeline(T.warp(img.astype(np.uint16), rot, size),
                                         T.convert_to(np.int16)))
+    assert kw.supports(T.build_pipeline(T.warp(img.astype(np.int32), rot, size),
+                                        T.convert_to(np.int32)))
     for name, ops in refused.items():
         pipe = T.build_pipeline(*ops)
         assert not kw.supports(pipe), name

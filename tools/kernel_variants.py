@@ -11,7 +11,10 @@ another directory of sources, relative to the repo's root (an older commit's
 ``csrc`` unpacked with ``git archive``), whose C interface must equal the
 present one (``_build.load`` declares the present signatures): since K1,
 K2 and the warp kernel took ``out_type`` and ``clamp_store`` in place of
-``out_u8``, a tree from before that is refused. A tree whose K1, K2 and warp
+``out_u8``, a tree from before that is refused. ``store_op`` (the row a
+kernel runs before its store, 0 for none) has since taken the place of
+``clamp_store`` (1: clamp) at the same position; the cases of this tool
+pass 0, which both read alike. A tree whose K1, K2 and warp
 kernel take ``src_u8`` and whose divergent kernel takes ``out_u8`` (before
 they took a source and an output type code) is called through
 :class:`SourceFlagAbi`, which turns the type codes of a uint8 or float32
@@ -76,10 +79,12 @@ class SourceFlagAbi:
     """A library of the older C interface, called with the present one's
     arguments: K1's, K2's and the warp kernel's source type code (argument 2)
     becomes ``src_u8``, the divergent kernel's output type code (argument 10)
-    ``out_u8``, and a store mode other than 1 (clamp) becomes 0. Only uint8
-    and float32 sources and outputs have such a flag."""
+    ``out_u8``, and the store row becomes ``clamp_store``: 1 for a float's
+    truncate into uint8 (the clamp store), else 0. Only uint8 and float32
+    sources and outputs have such a flag."""
 
     U8, F32 = 0, 4  # cuda_batch_resize.TYPE_CODES
+    TRUNC_U8 = 23  # cuda_batch_resize.OP_TRUNC_U8
     CLAMP = {"cvgs_batch_resize": 18, "cvgs_frame_resize": 26, "cvgs_warp": 19}
 
     def __init__(self, lib):
@@ -96,7 +101,7 @@ class SourceFlagAbi:
             def call(*args):
                 args = list(args)
                 args[1] = self._flag(args[1])
-                args[self.CLAMP[name]] = int(args[self.CLAMP[name]] == 1)
+                args[self.CLAMP[name]] = int(args[self.CLAMP[name]] == self.TRUNC_U8)
                 return fn(*args)
             return call
         if name == "cvgs_divergent":
