@@ -77,6 +77,12 @@ code and no result line:
    int32 views; and a float32 source of values past every integer range,
    the infinities and NaN (``EDGES``) cast into uint8, int16 and int32 in
    every kernel.
+   64-bit sources (``x64_cases``), max |diff| 0: int64 and float64 tensors on
+   the card, read at load as int32 (the low 32 bits) and float32 (rounded),
+   in K1, K2 and the warp kernel (W2, W6), in the pointwise kernel (a ring, a
+   crop, a CONSTANT border, a one-channel image, an op; float64 values past
+   float32's range and below its normals copied) and float64 groups of K6
+   (D1, D4, a stack resize).
    uint8 must match bit for bit, float32 within 1e-6, warp float32 bit for
    bit too, every other dtype bit for bit;
 4. the main paths: ``execute_operations`` twice each (new rects, new frame
@@ -107,6 +113,13 @@ code and no result line:
    1080p int32 image, W6 into int32 planes, D1 into an int32 batch, a 1080p
    int32 image through a crop and a border (the crop unchanged, bit for
    bit), and 40 updates of an int32 ``CircularTensor`` of int32 frames;
+   64-bit values the same way: the flagship on a 4K float64 frame, frame (a)
+   on a 1080p int64 image, W6 on a float64 frame, D1 on a float64 ring, a
+   float64 1080p image through a crop and a border (the source rounded to
+   float32, bit for bit), each a tensor on the card read at load; and an
+   int64 and a float64 1080p frame on the card and a float64 host frame, one
+   launch of the pointwise kernel each, equal to its plain version bit for
+   bit, while ``convert_to(np.int64)`` raises as the reference's call does;
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain, and the
    kernel's duration in a ``torch.profiler`` trace of 20 launches (events
@@ -128,9 +141,10 @@ code and no result line:
    one ``CircularTensor.update``, before (a temporary, a cast and a
    ``copy_``, as updates ran until the wrappers took ``out=``) and after;
    the pointwise kernel in P1-P5 (P1's bound is its operations at the
-   unfused rate, half the published one: the build forbids FMAs); one eager
-   int64 pipeline, which no kernel takes; the dtype and int32 paths of
-   phase 4, each beside its bound and floor;
+   unfused rate, half the published one: the build forbids FMAs); the call of
+   an int64 frame through the pointwise kernel beside the uint8 frame's; the
+   dtype, int32 and 64-bit paths of phase 4, each beside its bound and floor
+   (a 64-bit source's bytes at 8 an element);
 6. sharding: (a) every rank of meshes of 2 and 5 (the flagship, 50 crops
    ragged at ``used_planes`` = 37) and of 2, 4 and 8 (W6; P2's ring from
    ``first`` = 3 and -5; D1 and D3) run on this card through the rank-local
@@ -766,6 +780,100 @@ def int32_store_cases(cvgs, torch, frame, rects, hd) -> list:
     return cases
 
 
+def as_int64(torch, u8):
+    """A uint8 tensor's values as int64 on its device: ``as_int32``'s values
+    in the low 32 bits, and high bits that vary with the value, which the
+    reference's conversion to int32 drops."""
+    return as_int32(torch, u8).to(torch.int64) + (u8.to(torch.int64) % 7 - 3) * 2 ** 32
+
+
+#: float64 values float32 holds only as an infinity, a subnormal or 0
+EDGES64 = (1e39, -1e39, 1e-40, -1e-42, 1e-46, 3.4028235677973366e38)
+
+
+def as_float64(torch, u8, edges=False):
+    """A uint8 tensor's values as float64 on its device, -250..388 with parts
+    that float32 rounds; with ``edges`` a sixteenth each of ``EDGES64``."""
+    v = u8.to(torch.float64)
+    x = (v - 100.0) * 2.5 + v / 3.0e4 + 1.0 / 3.0
+    if edges:
+        k = u8.to(torch.int64) % 16
+        table = torch.tensor(EDGES64, dtype=torch.float64, device=u8.device)
+        x = torch.where(k < len(EDGES64), table[k.clamp(max=len(EDGES64) - 1)], x)
+    return x
+
+
+def x64_cases(cvgs, torch, frame, rects, hd, ring) -> list:
+    """Phase 3's 64-bit sources: ``(name, kernel, ops)``, max |diff| 0. An
+    int64 and a float64 tensor on the card in K1, K2 and the warp kernel
+    (read at load into float32: int64 by its low 32 bits, float64 rounded),
+    in the pointwise kernel (copies of a ring, a crop, a CONSTANT border and
+    a one-channel image, an op; int64 as its low 32 bits in int32's
+    register), float64 values past float32's range and below its normals
+    copied, and float64 groups of K6."""
+    dsize, seq = cvgs.Size(64, 128), cvgs.build_operation_sequence
+    w2 = rotation((960, 540), 10.0, 1 / 3.0, to=(WARP_DST[0] / 2, WARP_DST[1] / 2))
+    f64, h64, r64 = (as_float64(torch, t) for t in (frame, hd, ring))
+    cases = []
+    for tag, f, h, r, chain in (
+            ("i64", as_int64(torch, frame), as_int64(torch, hd), as_int64(torch, ring),
+             (cvgs.convert_to(np.float32, alpha=2.0 ** -24), cvgs.subtract(SUB),
+              cvgs.divide(DIV))),
+            ("f64", f64, h64, r64,
+             (cvgs.multiply(1 / 255.0), cvgs.subtract(MEAN), cvgs.divide(STD)))):
+        cases += [
+            (f"x64_src_{tag}_flagship", "batch_resize",
+             (cvgs.resize_batch(f, rects=rects, dsize=dsize), *chain, cvgs.split_tensor())),
+            (f"x64_src_{tag}_frame_a", "frame_resize",
+             (cvgs.resize(cvgs.image(h), cvgs.Size(*FRAME_DST)), *chain, cvgs.split_tensor())),
+            (f"x64_src_{tag}_w2_rotation", "warp",
+             (cvgs.warp(cvgs.image(h), w2, cvgs.Size(*WARP_DST), default=(1.0, 2.0, 3.0)),
+              *chain, cvgs.split_tensor())),
+            (f"x64_src_{tag}_w6", "warp", warp_batch_ops(cvgs, cvgs.image(h), -10.0, 7)[:1]
+             + (*chain, cvgs.split_tensor())),
+            (f"x64_{tag}_p2_ring_unchanged", "pointwise",
+             (cvgs.circular_batch_read(r, first=3), cvgs.split_tensor())),
+            (f"x64_{tag}_p3_border_constant_unchanged", "pointwise",
+             (cvgs.make_border(cvgs.image(h), BORDER, BORDER, BORDER, BORDER,
+                               cvgs.BorderMode.CONSTANT, value=(3e9, -9.0, 0.5)), cvgs.write())),
+            (f"x64_{tag}_p4_crop_unchanged", "pointwise",
+             (cvgs.crop(cvgs.image(h), cvgs.Rect(-300, -200, 640, 360)), cvgs.split_tensor())),
+            # one channel of 1080p: the one-lane instance, 16 pixels a thread
+            (f"x64_{tag}_one_channel_mad", "pointwise",
+             (cvgs.image(h[..., 1:2].contiguous()), cvgs.multiply(1.0009), cvgs.add(0.0001),
+              cvgs.write())),
+            (f"x64_{tag}_ops_mul_add", "pointwise",
+             (cvgs.image(h), cvgs.multiply(3.0), cvgs.add(-7.0), cvgs.split_tensor())),
+        ]
+    he, re = as_float64(torch, hd, edges=True), as_float64(torch, ring, edges=True)
+    flat = as_float64(torch, ring[:8, :128, :64])
+    mats = [rotation((960, 540), 4.0 * z - 14.0, 1 / 3.0, to=(32, 64)) for z in range(8)]
+    cases += [
+        ("x64_f64_edges_p4_crop_unchanged", "pointwise",
+         (cvgs.crop(cvgs.image(he), cvgs.Rect(7, 9, 640, 360)), cvgs.split_tensor())),
+        ("x64_f64_edges_p2_ring_unchanged", "pointwise",
+         (cvgs.circular_batch_read(re, first=-5), cvgs.write_tensor())),
+        ("x64_f64_edges_one_channel_unchanged", "pointwise",
+         (cvgs.image(he[..., :1].contiguous()), cvgs.write())),
+        ("x64_f64_d1", "divergent", ([1, 2] * 8, (
+            seq(cvgs.circular_batch_read(r64, first=3), cvgs.multiply(1 / 255.0),
+                cvgs.subtract(MEAN), cvgs.write_tensor()),
+            seq(cvgs.circular_batch_read(r64, first=-5), cvgs.convert_to(np.uint8),
+                cvgs.convert_to(np.float32, alpha=0.5), cvgs.write_tensor())))),
+        ("x64_f64_d4_warp_crop_pass", "divergent", ([1, 2, 3, 1, 2, 3, 1, 2], (
+            seq(cvgs.warp_batch([cvgs.image(h64)] * 8, mats, dsize), cvgs.multiply(0.5),
+                cvgs.write_tensor()),
+            seq(cvgs.resize_batch(f64, rects=rects[:8], dsize=dsize), cvgs.subtract(0.51),
+                cvgs.write_tensor()),
+            seq(cvgs.image(flat), cvgs.multiply(2.0), cvgs.write_tensor())))),
+        ("x64_f64_d5_stack_resize", "divergent", ([1, 2] * 4, (
+            seq(cvgs.resize_batch([flat[z] for z in range(8)], dsize=dsize, used_planes=7,
+                                  background=5.0), cvgs.write_tensor()),
+            seq(cvgs.image(flat), cvgs.write_tensor())))),
+    ]
+    return cases
+
+
 def phase7(mesh, modules: dict) -> dict:
     """The system's own benchmarks and examples on the card: the four
     benchmark scripts at their full shapes with ``--quick`` (fewer
@@ -1303,6 +1411,18 @@ def main() -> int:
             compare(name, kernel, kd.divergent(a), kd.divergent_reference(a), 0.0)
         else:
             check(name, *ops, kernel=kernel, tol=0.0)
+    # 64-bit sources, read at load as int32 and float32, max |diff| 0: the
+    # kernel on the tensor equals its plain version (which converts first)
+    for name, kernel, ops in x64_cases(cvgs, torch, frame, rects_a, hd, ring):
+        if kernel == "divergent":
+            ids, seqs = ops
+            plan = kd.build_plan(seqs, ids)
+            assert torch.float64 in {g.src_dtype for g in plan.groups}, name
+            a = kd.prepare(seqs, plan, dev)
+            compare(name, kernel, kd.divergent(a), kd.divergent_reference(a), 0.0)
+        else:
+            plan = check(name, *ops, kernel=kernel, tol=0.0)
+            assert plan.src_dtype in (torch.int64, torch.float64), name
     for name, kernel, ops, view_dtype in (dtype_store_cases(cvgs, frame, rects_a, hd)
                                           + int32_store_cases(cvgs, torch, frame, rects_a, hd)):
         module, launch, plain = kernels[kernel]
@@ -1621,13 +1741,38 @@ def main() -> int:
     log(f"phase4 pointwise path (p1): max relative |diff| vs float64 {mad_err!r}")
     assert mad_err <= ORACLE_TOL, mad_err
 
-    # what a 32-bit register cannot hold stays eager, one launch per op
-    for what, ops in (("int64 source", (cvgs.image(hd.to(torch.int64)), cvgs.multiply(2.0))),
-                      ("float64 source", (cvgs.image(hd.double()), cvgs.multiply(2.0))),
-                      ("int64 cast", (cvgs.image(hd), cvgs.convert_to(np.int64, alpha=1000.0)))):
-        cvgs.execute_operations(*ops)
-        assert cvgs.last_backend() == "torch", (what, cvgs.last_backend())
-    log("phase4 int64 and float64 sources and an int64 cast run on the eager path (torch)")
+    # 64-bit values are int32 and float32 where they enter, as in the
+    # reference (64-bit values off): an int64 or a float64 frame on the card
+    # is one launch of the pointwise kernel, which reads it at load; a float64
+    # host frame is converted before its copy; each equals the plain version
+    # bit for bit. A saturating cast to int64 raises, as the reference's call.
+    for what, src in (("int64 source", as_int64(torch, hd)),
+                      ("float64 source", as_float64(torch, hd)),
+                      ("float64 host frame", as_float64(torch, hd).cpu().numpy())):
+        ops = (cvgs.image(src), cvgs.multiply(2.0), cvgs.write())
+        cvgs.execute_operations(*ops)  # its plan
+        kp.LAUNCHES, builds0 = 0, executor.PLAN_BUILDS
+        got = drive("pointwise", lambda: cvgs.execute_operations(*ops))
+        backend, launched = cvgs.last_backend(), kp.LAUNCHES
+        pointwise_launches += launched
+        pipe = cvgs.build_pipeline(*ops)
+        a = kp.prepare(pipe, kp.build_plan(pipe), dev)
+        want = kp.pointwise_reference(a)
+        torch.cuda.synchronize()
+        same = got.dtype == want.dtype and torch.equal(got.view(torch.int32),
+                                                        want.view(torch.int32))
+        log(f"phase4 64-bit path ({what}): backend {backend}, launches {launched}, plan builds "
+            f"{executor.PLAN_BUILDS - builds0}, source read as {a.plan.src_dtype}, "
+            f"{tuple(got.shape)} {got.dtype}; equal to the plain version bit for bit {same}")
+        assert backend == "cuda:pointwise" and launched == 1, (what, backend, launched)
+        assert executor.PLAN_BUILDS == builds0 and same, what
+        assert got.dtype == (torch.int32 if what.startswith("int64") else torch.float32), what
+    try:
+        cvgs.convert_to(np.int64, alpha=1000.0)
+    except OverflowError as e:
+        log(f"phase4 convert_to(np.int64) raises OverflowError, as the reference's call: {e}")
+    else:
+        raise AssertionError("convert_to(np.int64) did not raise")
 
     # the presets at full width, each call one launch
     def preset_calls(label, kernel, module, backend, calls):
@@ -1820,6 +1965,14 @@ def main() -> int:
     frames_i32 = [as_int32(torch, frame), as_int32(torch, torch.roll(frame, 5, dims=1))]
     hds_i32 = [as_int32(torch, hd), as_int32(torch, hd2)]
     crop_i32 = cvgs.Rect(-1600, 100, 1600, 900)
+    # 64-bit tensors on the card, read at load: the flagship on a 4K float64
+    # frame, frame (a) on a 1080p int64 image, W6 on a float64 frame, D1 on a
+    # float64 ring, a float64 1080p image through a crop and a border
+    frames_f64 = [as_float64(torch, frame), as_float64(torch, torch.roll(frame, 5, dims=1))]
+    hds_i64 = [as_int64(torch, hd), as_int64(torch, hd2)]
+    hds_f64 = [as_float64(torch, hd), as_float64(torch, hd2)]
+    shared_f64 = cvgs.image(hds_f64[0])
+    rings_f64 = [as_float64(torch, ring), as_float64(torch, torch.roll(ring, 1, dims=2))]
 
     def dtype_path_ops(k):
         """The dtype paths' ops with the values of call ``k`` (0 or 1)."""
@@ -1857,6 +2010,26 @@ def main() -> int:
                 seq(d1_read, cvgs.convert_to(np.float32, alpha=-3e7), cvgs.write_tensor())))),
             "crop_border_i32_unchanged": ("pointwise", (
                 cvgs.make_border(cvgs.crop(cvgs.image(hds_i32[k]), crop_i32), BORDER, BORDER,
+                                 BORDER, BORDER, cvgs.BorderMode.CONSTANT, value=(3e9, -9.0, 0.5)),
+                cvgs.write())),
+            "flagship_f64_to_f32": ("batch_resize", (
+                cvgs.resize_batch(frames_f64[k], rects=(rects_a, shifted)[k], dsize=dsize),
+                cvgs.multiply(1 / 255.0), cvgs.subtract(MEAN), cvgs.divide(STD),
+                cvgs.split_tensor())),
+            "frame_a_i64_to_f32": ("frame_resize", (
+                cvgs.resize(cvgs.image(hds_i64[k]), cvgs.Size(*FRAME_DST)),
+                cvgs.convert_to(np.float32, alpha=2.0 ** -31), cvgs.subtract(MEAN),
+                cvgs.divide(STD), cvgs.split_tensor())),
+            "w6_f64_to_f32": ("warp", warp_batch_ops(cvgs, shared_f64, (-10.0, -7.0)[k],
+                                                     (7, 6)[k])[:1]
+                              + (cvgs.multiply(1 / 255.0), cvgs.split_tensor())),
+            "d1_f64_ring": ("divergent", ([1, 2] * 8, (
+                seq(cvgs.circular_batch_read(rings_f64[k], first=(3, -5)[k]),
+                    cvgs.multiply(1 / 255.0), cvgs.subtract(MEAN), cvgs.write_tensor()),
+                seq(cvgs.circular_batch_read(rings_f64[k], first=(3, -5)[k]),
+                    cvgs.multiply(0.5), cvgs.write_tensor())))),
+            "crop_border_f64": ("pointwise", (
+                cvgs.make_border(cvgs.crop(cvgs.image(hds_f64[k]), crop_i32), BORDER, BORDER,
                                  BORDER, BORDER, cvgs.BorderMode.CONSTANT, value=(3e9, -9.0, 0.5)),
                 cvgs.write())),
         }
@@ -1899,12 +2072,28 @@ def main() -> int:
             assert edge.tolist() == [2 ** 31 - 1, -9, 0], edge.tolist()
             log(f"phase4 dtype path ({name}): the crop inside the border equals the int32 source "
                 f"bit for bit; the border holds {edge.tolist()} (3e9, -9.0, 0.5 cast to int32)")
+        if name == "crop_border_f64":  # the source rounded to float32, nothing else
+            inner = outs[1][BORDER:-BORDER, BORDER:-BORDER]
+            src = hds_f64[1][100:1000, 320:1920].float()
+            edge = outs[1][0, 0]
+            assert torch.equal(inner.view(torch.int32), src.view(torch.int32)), name
+            assert edge.tolist() == [3e9, -9.0, 0.5], edge.tolist()
+            log(f"phase4 dtype path ({name}): the crop inside the border equals the float64 "
+                f"source rounded to float32 bit for bit; the border holds {edge.tolist()}")
+        if name in ("flagship_f64_to_f32", "frame_a_i64_to_f32", "w6_f64_to_f32", "d1_f64_ring",
+                    "crop_border_f64"):
+            assert outs[1].dtype == torch.float32, (name, outs[1].dtype)
     main_launches += (dtype_launches["flagship_u16_12bit_to_f16"]
-                      + dtype_launches["flagship_i32_to_f32"])
-    frame_launches += dtype_launches["frame_a_to_f16"] + dtype_launches["frame_a_i32_to_f32"]
-    warp_launches += dtype_launches["w6_to_f16"] + dtype_launches["w6_into_i32"]
-    divergent_launches += dtype_launches["d1_into_int16"] + dtype_launches["d1_into_i32"]
-    pointwise_launches += dtype_launches["crop_border_i32_unchanged"]
+                      + dtype_launches["flagship_i32_to_f32"]
+                      + dtype_launches["flagship_f64_to_f32"])
+    frame_launches += (dtype_launches["frame_a_to_f16"] + dtype_launches["frame_a_i32_to_f32"]
+                       + dtype_launches["frame_a_i64_to_f32"])
+    warp_launches += (dtype_launches["w6_to_f16"] + dtype_launches["w6_into_i32"]
+                      + dtype_launches["w6_f64_to_f32"])
+    divergent_launches += (dtype_launches["d1_into_int16"] + dtype_launches["d1_into_i32"]
+                           + dtype_launches["d1_f64_ring"])
+    pointwise_launches += (dtype_launches["crop_border_i32_unchanged"]
+                           + dtype_launches["crop_border_f64"])
 
     # a CircularTensor of uint8 frames into a uint16 ring: 40 updates, each
     # one launch of the frame kernel storing into its slot (a widening
@@ -2271,34 +2460,38 @@ def main() -> int:
         log(f"phase5 pointwise {name}: {describe(t)}; execute_operations host-inclusive "
             f"{t['call_ms'] * 1e3:.2f} us/call (median of 50)")
 
-    # what no kernel takes: an int64 frame through a 3-op chain, one launch
-    # per op on the eager path
-    hd_i64 = hd.to(torch.int64)
-    eager_ops = (cvgs.image(hd_i64), cvgs.convert_to(np.float32, alpha=1 / 255.0),
-                 cvgs.subtract(MEAN), cvgs.divide(STD), cvgs.split_tensor())
-    eager_ms = float(np.median(time_cuda(lambda: cvgs.execute_operations(*eager_ops), iters=20)))
-    assert cvgs.last_backend() == "torch"
-    same_u8 = (cvgs.image(hd), *eager_ops[1:])
+    # an int64 frame through a 3-op chain, which ran eagerly (one launch per
+    # op) until int64 became int32 where it enters: one launch of the
+    # pointwise kernel, which reads it at load, beside the same chain on the
+    # uint8 frame (events around whole execute_operations calls: host-bound)
+    i64_ops = (cvgs.image(hd.to(torch.int64)), cvgs.convert_to(np.float32, alpha=1 / 255.0),
+               cvgs.subtract(MEAN), cvgs.divide(STD), cvgs.split_tensor())
+    int64_call_ms = float(np.median(time_cuda(lambda: cvgs.execute_operations(*i64_ops),
+                                              iters=20)))
+    assert cvgs.last_backend() == "cuda:pointwise"
+    same_u8 = (cvgs.image(hd), *i64_ops[1:])
     kernel_ms_u8 = float(np.median(time_cuda(lambda: cvgs.execute_operations(*same_u8), iters=20)))
     assert cvgs.last_backend() == "cuda:pointwise"
-    log(f"phase5 eager int64 pipeline (1080p int64 -> x1/255, normalize, planar f32): "
-        f"{eager_ms * 1e3:.2f} us by events on the eager path (torch), against {kernel_ms_u8 * 1e3:.2f} "
-        f"us for the same chain on a uint8 frame through cuda:pointwise (host-bound: events around "
-        f"whole execute_operations calls); card {card}")
+    log(f"phase5 int64 frame call (1080p int64 -> x1/255, normalize, planar f32): "
+        f"{int64_call_ms * 1e3:.2f} us by events through cuda:pointwise, against "
+        f"{kernel_ms_u8 * 1e3:.2f} us for the same chain on the uint8 frame (host-bound: events "
+        f"around whole execute_operations calls); card {card}")
 
     # the dtype paths of phase 4: each kernel by events and by profiler beside
     # its plain version, its bound and floor (its bytes at the dtypes it
-    # reads and writes); the uint16 ring's update as its kernel's store into
-    # the slot
+    # reads and writes: a 64-bit source's 8 bytes an element); the uint16
+    # ring's update as its kernel's store into the slot
     dtype_times = {}
     for name, (kernel, ops) in dtype_path_ops(0).items():
         module, launch, plain = kernels[kernel]
+        # host leaves onto the card once; a tensor, 64-bit ones among them,
+        # stays as it is
         if kernel == "divergent":
             ids, seqs = ops
-            seqs = map_leaves(seqs, lambda v: as_device_tensor(v, dev))
+            seqs = map_leaves(seqs, lambda v: dt.kernel_source(v, dev))
             targs = kd.prepare(seqs, kd.build_plan(seqs, ids), dev)
         else:
-            pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: as_device_tensor(v, dev))
+            pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: dt.kernel_source(v, dev))
             targs = module.prepare(pipe, module.build_plan(pipe), dev)
         t = measure(lambda: launch(targs), lambda: plain(targs), 50, plain_iters=10)
         t.update(bounds.bound(*module.work(targs), bandwidth))
@@ -2557,6 +2750,7 @@ def main() -> int:
               main_launches, k1, cases={"flagship": k1},
               dtype_path=dtype_times["flagship_u16_12bit_to_f16"],
               int32_path=dtype_times["flagship_i32_to_f32"],
+              x64_path=dtype_times["flagship_f64_to_f32"],
               sharded_launches=sharded_launches["batch_resize"], sharding=shard_times),
         # path (a); both paths below
         entry("frame_resize", "frame_resize.cu", "cvgpuspeedup_tpu/exec/pallas_frame.py:663",
@@ -2566,7 +2760,8 @@ def main() -> int:
               dtype_paths={k: dtype_times[k] for k in ("frame_a_to_f16",
                                                        "circular_tensor_u8_into_u16_ring")},
               int32_paths={k: dtype_times[k] for k in ("frame_a_i32_to_f32",
-                                                       "circular_tensor_i32_ring")}),
+                                                       "circular_tensor_i32_ring")},
+              x64_path=dtype_times["frame_a_i64_to_f32"]),
         # W6, the batch of the main path (the batched TPU kernel); the
         # single-image classes and the timed cases below
         entry("warp", "warp.cu", "cvgpuspeedup_tpu/exec/pallas_warp_universal.py:741",
@@ -2575,19 +2770,21 @@ def main() -> int:
                              "cvgpuspeedup_tpu/exec/pallas_warp_general.py:272",
                              "cvgpuspeedup_tpu/exec/pallas_warp_universal.py:359"],
               cases=warp_times, sharded_launches=sharded_launches["warp"],
-              dtype_path=dtype_times["w6_to_f16"], int32_path=dtype_times["w6_into_i32"]),
+              dtype_path=dtype_times["w6_to_f16"], int32_path=dtype_times["w6_into_i32"],
+              x64_path=dtype_times["w6_f64_to_f32"]),
         # D4, the reference's warp | crop | pass row; D1-D4 below
         entry("divergent", "divergent.cu", "cvgpuspeedup_tpu/exec/pallas_divergent.py:686",
               divergent_launches, d4t, cases=div_times,
               circular_tensor_update_ms=ct_update_ms, dtype_path=dtype_times["d1_into_int16"],
-              int32_path=dtype_times["d1_into_i32"],
+              int32_path=dtype_times["d1_into_i32"], x64_path=dtype_times["d1_f64_ring"],
               sharded_launches=sharded_launches["divergent"]),
         # P1, the MAD stress (bound by its unfused operations); P1-P5 below. No
         # Pallas counterpart: it replaces the reference's jitted XLA program
         entry("pointwise", "pointwise.cu", "cvgpuspeedup_tpu/exec/executor.py:243",
               pointwise_launches, pw_times["p1_mad_200_ops_2048x2048"], cases=pw_times,
-              circular_tensor_update=ring_update, eager_int64_pipeline_ms=eager_ms,
+              circular_tensor_update=ring_update, int64_frame_call_ms=int64_call_ms,
               int32_path=dtype_times["crop_border_i32_unchanged"],
+              x64_path=dtype_times["crop_border_f64"],
               sharded_launches=sharded_launches["pointwise"]),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -64,7 +64,7 @@ from .exec.executor import (Pipeline, build_operation_sequence, build_pipeline, 
 from .graph import ComputeOp, FusedCompute, IOp, PendingReadOp, ReadOp, WriteOp, fuse
 from .ops.arithmetic import Add, Div, Mul, StaticLoop, Sub
 from .ops.border import BorderRead
-from .ops.cast import Cast, SaturateCast
+from .ops.cast import Cast, SaturateCast, saturate_target
 from .ops.color import ColorConversion, VectorReorder
 from .ops.crop import CropRead
 from .ops.memory import (BatchRead, CircularBatchRead, ImageRead, SplitWrite, TensorSplit,
@@ -87,7 +87,7 @@ def _np_or_tensor(value, dtype):
     """Factory constants stay numpy (packed into one host-to-device copy per
     call); tensors pass through on their own device."""
     if isinstance(value, torch.Tensor):
-        return value
+        return _dt.canonicalize(value)
     return np.asarray(value, _dt.to_numpy_dtype(dtype))
 
 
@@ -103,8 +103,10 @@ def _host_or_tensor(x):
 def convert_to(dst_dtype, alpha: Optional[float] = None, beta: Optional[float] = None) -> ComputeOp:
     """``cvGS::convertTo<I, O>([alpha[, beta]])``: OpenCV ``convertTo``
     semantics, ``saturate_cast<O>(src * alpha + beta)``, with the multiply
-    and add computed in float when the output is integral."""
-    dst = _dt.to_torch_dtype(dst_dtype)
+    and add computed in float when the output is integral. ``np.float64`` is
+    float32's; ``np.int64`` raises ``OverflowError``, as the reference's call
+    does (``ops.cast.saturate_target``)."""
+    dst = saturate_target(dst_dtype)
     if alpha is None and beta is None:
         return SaturateCast(dst=dst)
     if alpha is None:
@@ -322,7 +324,7 @@ def set_to(value, shape, dtype=np.float32, device=None) -> torch.Tensor:
     """``fk::setTo(value, ptr)``: a filled tensor (returned, not written
     into a buffer). ``device`` defaults as in :func:`execute_operations`:
     the current CUDA device, and the CPU only when asked for."""
-    return torch.full(tuple(shape), value, dtype=_dt.to_torch_dtype(dtype),
+    return torch.full(tuple(shape), value, dtype=_dt.canonical_dtype(_dt.to_torch_dtype(dtype)),
                       device=default_device(device))
 
 

@@ -61,7 +61,7 @@
 #include "sources.cuh"
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
-// `src` holds elements of type `src_type` (PW_U8 .. PW_I32); `out` holds
+// `src` holds elements of type `src_type` (PW_U8 .. PW_F64); `out` holds
 // elements of type `out_type` (PW_U8 .. PW_I32) with out_ch channels,
 // element strides (sn, sc, sy, sx) per (plane, channel, row, col). A
 // store_op other than 0 is the row that converts the chain's values for the
@@ -76,7 +76,7 @@ extern "C" int cvgs_batch_resize(const void* src, int src_type, long long plane_
   if (nch < 1 || nch > kMaxCh || out_ch < 1 || out_ch > kMaxCh || n_planes < 1 ||
       n_planes > 65535 || dst_w < 1 || dst_h < 1 || dst_h > 65535 || src_h < 1 || src_w < 1 ||
       src_h >= (1 << 24) || src_w >= (1 << 24) || n_ops < 0 || out_type < PW_U8 ||
-      out_type > PW_I32 || src_type < PW_U8 || src_type > PW_I32) {
+      out_type > PW_I32 || src_type < PW_U8 || src_type > PW_F64) {
     return (int)cudaErrorInvalidValue;
   }
   cvgs::BatchResizeArgs a{src, plane_stride, src_h, src_w, nch, rects, used, fparams,
@@ -90,6 +90,8 @@ extern "C" int cvgs_batch_resize(const void* src, int src_type, long long plane_
     case PW_I16: cvgs::batch_resize_i16(a); break;
     case PW_F16: cvgs::batch_resize_f16(a); break;
     case PW_I32: cvgs::batch_resize_i32(a); break;
+    case PW_I64: cvgs::batch_resize_i64(a); break;
+    case PW_F64: cvgs::batch_resize_f64(a); break;
   }
   return (int)cudaGetLastError();
 }

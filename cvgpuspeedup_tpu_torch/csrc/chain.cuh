@@ -162,19 +162,35 @@ __device__ __forceinline__ float byte_as(unsigned w, int i) {
   }
 }
 
-// An element's value as a float32 (exact for every element type), and one
-// element at p loaded through the read-only cache and converted.
+// An int64 element as the pointwise kernel reads it: its low 32 bits as
+// int32's bits, the register an int32 chain holds, so a copy keeps them.
+struct i64_bits {
+  long long v;
+};
+
+// An element's value as a float32 (exact for every element type of 32 bits
+// or fewer), and one element at p loaded through the read-only cache and
+// converted. A 64-bit source is read as its canonical 32-bit type (the
+// reference runs with 64-bit values off, utils/dtypes.py::canonical_dtype):
+// an int64 value keeps its low 32 bits, read as an int32 source is
+// (cvt.rn.f32.s32), and a float64 value rounds to nearest (cvt.rn.f32.f64).
 template <typename T>
 __device__ __forceinline__ float to_f32(T e) {
   return (float)e;
 }
 __device__ __forceinline__ float to_f32(f16 e) { return __half2float(__ushort_as_half(e.bits)); }
+__device__ __forceinline__ float to_f32(long long e) { return __int2float_rn((int)e); }
+__device__ __forceinline__ float to_f32(double e) { return __double2float_rn(e); }
+__device__ __forceinline__ float to_f32(i64_bits e) { return __int_as_float((int)e.v); }
 template <typename T>
 __device__ __forceinline__ T ld_elem(const T* __restrict__ p) {
   return __ldg(p);
 }
 __device__ __forceinline__ f16 ld_elem(const f16* __restrict__ p) {
   return f16{__ldg(reinterpret_cast<const unsigned short*>(p))};
+}
+__device__ __forceinline__ i64_bits ld_elem(const i64_bits* __restrict__ p) {
+  return i64_bits{__ldg(reinterpret_cast<const long long*>(p))};
 }
 template <typename T>
 __device__ __forceinline__ float ldf(const T* __restrict__ p) {
@@ -192,8 +208,19 @@ __device__ __forceinline__ void load_pixel(const SrcT* __restrict__ p, int nch,
 }
 
 // The element types of a source or an output buffer; keep in step with
-// exec/cuda_batch_resize.py::TYPE_CODES
-enum : int { PW_U8 = 0, PW_I8 = 1, PW_U16 = 2, PW_I16 = 3, PW_F32 = 4, PW_F16 = 5, PW_I32 = 6 };
+// exec/cuda_batch_resize.py::TYPE_CODES and SRC_CODES. PW_I64 and PW_F64
+// are sources only: no kernel stores 64 bits.
+enum : int {
+  PW_U8 = 0,
+  PW_I8 = 1,
+  PW_U16 = 2,
+  PW_I16 = 3,
+  PW_F32 = 4,
+  PW_F16 = 5,
+  PW_I32 = 6,
+  PW_I64 = 7,
+  PW_F64 = 8
+};
 
 // A kernel stores through one of four element types: uint8_t for a uint8
 // or an int8 buffer, uint16_t for a uint16 or an int16 one, f16, and float

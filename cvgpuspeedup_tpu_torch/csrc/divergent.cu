@@ -17,6 +17,8 @@
 // BatchRead group (image, nv12 or warp, `used_planes` at runtime) holds its
 // default on its planes from used_planes on, as ops/memory.py::BatchRead
 // does; the TPU kernel refuses such a group (pallas_divergent.py:166).
+// A group's source is uint8 or float32, what the TPU kernel reads, or
+// float64, read at load as float32, its canonical type.
 //
 // What bounds it: bytes in a large batch, the launch itself in a small one.
 // A (16, 128, 256, 3) u8 ring read into f32 moves 7.9 MB; a batch of eight
@@ -78,12 +80,16 @@ namespace {
 
 // group kinds; keep in step with exec/cuda_divergent.py::KINDS
 enum : int { K_IMAGE = 0, K_CIRC = 1, K_CROP = 2, K_STACK = 3, K_NV12 = 4, K_WARP = 5 };
+// a group's source type (Desc::src); keep in step with
+// exec/cuda_divergent.py::_SRC_WORDS. A float64 source is read at load as
+// float32, its canonical type (chain.cuh::to_f32).
+enum : int { S_F32 = 0, S_U8 = 1, S_F64 = 2 };
 
 // A group's descriptor, 16 int32 words in this order; keep in step with
 // exec/cuda_divergent.py::prepare
 struct Desc {
   int kind, src_h, src_w, nch;
-  int src_u8;
+  int src;     // S_F32, S_U8 or S_F64
   int n_src;   // planes of the ring or stack; 1 for an image group of one image per plane
   int first;   // circ: block offset of `first`; a ragged image, nv12 or warp group: of the
                // default (kMaxCh floats)
@@ -137,7 +143,6 @@ __global__ void __launch_bounds__(256) divergent_kernel(
   const void* base = reinterpret_cast<const void*>(
       __ldg(reinterpret_cast<const unsigned long long*>(blk + ptr_off) + z));
   const Desc d = load_desc(blk + desc_off + (int)(sizeof(Desc) / 4) * group);
-  const bool u8 = d.src_u8 != 0;
   const int src_h = d.src_h, src_w = d.src_w, nch = d.nch;
 
   float v[P][kMaxCh];
@@ -171,8 +176,10 @@ __global__ void __launch_bounds__(256) divergent_kernel(
 #pragma unroll
       for (int q = 0; q < P; ++q) {
         if (q >= n) continue;
-        if (u8) {
+        if (d.src == S_U8) {
           load_pixel(static_cast<const uint8_t*>(base) + off + q * nch, nch, v[q]);
+        } else if (d.src == S_F64) {
+          load_pixel(static_cast<const double*>(base) + off + q * nch, nch, v[q]);
         } else {
           load_pixel(static_cast<const float*>(base) + off + q * nch, nch, v[q]);
         }
@@ -191,8 +198,11 @@ __global__ void __launch_bounds__(256) divergent_kernel(
         if (q >= n) continue;
         bool sampled = false;
         if (used) {
-          if (u8) {
+          if (d.src == S_U8) {
             sampled = sample_crop(static_cast<const uint8_t*>(base) + plane, src_h, src_w, nch,
+                                  rx, ry, rw, rh, dst_w, dst_h, d.mode, x + q, y, v[q]);
+          } else if (d.src == S_F64) {
+            sampled = sample_crop(static_cast<const double*>(base) + plane, src_h, src_w, nch,
                                   rx, ry, rw, rh, dst_w, dst_h, d.mode, x + q, y, v[q]);
           } else {
             sampled = sample_crop(static_cast<const float*>(base) + plane, src_h, src_w, nch, rx,
@@ -224,12 +234,19 @@ __global__ void __launch_bounds__(256) divergent_kernel(
 #pragma unroll
       for (int q = 0; q < P; ++q) {
         if (q >= n) continue;
-        if (u8) {
+        if (d.src == S_U8) {
           const uint8_t* src = static_cast<const uint8_t*>(base);
           if (persp) {
             sample_warp<uint8_t, true>(src, src_h, src_w, nch, c, b, x + q, y, v[q]);
           } else {
             sample_warp<uint8_t, false>(src, src_h, src_w, nch, c, b, x + q, y, v[q]);
+          }
+        } else if (d.src == S_F64) {
+          const double* src = static_cast<const double*>(base);
+          if (persp) {
+            sample_warp<double, true>(src, src_h, src_w, nch, c, b, x + q, y, v[q]);
+          } else {
+            sample_warp<double, false>(src, src_h, src_w, nch, c, b, x + q, y, v[q]);
           }
         } else {
           const float* src = static_cast<const float*>(base);

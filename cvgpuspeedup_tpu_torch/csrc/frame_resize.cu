@@ -50,7 +50,7 @@
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
 // `src` is an (src_h, src_w * nch) image of elements of type `src_type`
-// (PW_U8 .. PW_I32), or with yuv = 1 an NV12 (nv21 = 0) or NV21 uint8 buffer
+// (PW_U8 .. PW_F64), or with yuv = 1 an NV12 (nv21 = 0) or NV21 uint8 buffer
 // of (src_h * 3/2, src_w). `out` holds elements of type `out_type` (PW_U8 ..
 // PW_I32) with out_ch channels, element strides (sc, sy, sx) per (channel,
 // row, col). A store_op other than 0 is the row that converts the chain's
@@ -63,7 +63,7 @@ extern "C" int cvgs_frame_resize(const void* src, int src_type, int src_h, int s
                                  int out_type, int out_ch, int store_op, long long sc,
                                  long long sy, long long sx, void* stream) {
   if (nch < 1 || nch > kMaxCh || out_ch < 1 || out_ch > kMaxCh || dst_w < 1 || dst_h < 1 ||
-      src_h < 1 || src_w < 1 || n_ops < 0 || src_type < PW_U8 || src_type > PW_I32 ||
+      src_h < 1 || src_w < 1 || n_ops < 0 || src_type < PW_U8 || src_type > PW_F64 ||
       (yuv && (src_type != PW_U8 || nch != 1)) || out_type < PW_U8 || out_type > PW_I32) {
     return (int)cudaErrorInvalidValue;
   }
@@ -83,6 +83,8 @@ extern "C" int cvgs_frame_resize(const void* src, int src_type, int src_h, int s
     case PW_I16: cvgs::frame_resize_i16(a); break;
     case PW_F16: cvgs::frame_resize_f16(a); break;
     case PW_I32: cvgs::frame_resize_i32(a); break;
+    case PW_I64: cvgs::frame_resize_i64(a); break;
+    case PW_F64: cvgs::frame_resize_f64(a); break;
   }
   return (int)cudaGetLastError();
 }

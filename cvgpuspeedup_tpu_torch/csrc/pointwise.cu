@@ -38,7 +38,13 @@
 // uint16 and int16, f16, float for float32 and int32: chain.cuh::to_out),
 // the lanes and P are template parameters. An int32 source is read as
 // float32's 4-byte words: the chain holds int32 as its bits, so a copy, a
-// crop, a border or a ring of int32 is exact at every value.
+// crop, a border or a ring of int32 is exact at every value. An int64
+// source is read as its low 32 bits into the same register (chain.cuh's
+// i64_bits), so a copy, crop, border or ring of it keeps them, as the
+// reference's int32 conversion does; a float64 source rounds to the nearest
+// float32 at load. The four-lane 4-pixel instance has a wide twin (kWide)
+// that reads them, so that its own code holds no 8-byte gather: they slowed
+// its 32-bit reads (read_base_row).
 //
 // Numerics: bit for bit the plain version (each op's own apply): every float
 // op is an _rn intrinsic (__fmul_rn, __fadd_rn, __fsub_rn and __fdiv_rn in
@@ -70,7 +76,7 @@ inline int pixels_per_thread(long long outputs, int width, int stages) {
 // can), a whole NV12 group as two words; else the stages' walk, the base's
 // pixels in one run of loads (read_base_row) and the CONSTANT borders'
 // values; then a leading YUV -> RGB.
-template <int L, int P>
+template <int L, int P, bool kWide>
 __device__ __forceinline__ void read_group(const PwHead& h, const void* __restrict__ src,
                                            const int* __restrict__ blk, const Conv& conv, int z,
                                            int x, int y, int n, float (&v)[P][L]) {
@@ -98,7 +104,7 @@ __device__ __forceinline__ void read_group(const PwHead& h, const void* __restri
   unsigned mask = 0;
 #pragma unroll
   for (int q = 0; q < P; ++q) mask |= (unsigned)(q < n && fill[q] < 0) << q;
-  read_base_row(h, src, pz, y, xs, mask, v);
+  read_base_row<L, P, kWide>(h, src, pz, y, xs, mask, v);
   const float* fblk = reinterpret_cast<const float*>(blk);
 #pragma unroll
   for (int q = 0; q < P; ++q) {
@@ -118,7 +124,7 @@ __device__ __forceinline__ void read_group(const PwHead& h, const void* __restri
   }
 }
 
-template <typename OutT, int L, int P>
+template <typename OutT, int L, int P, bool kWide>
 __global__ void __launch_bounds__(256) pointwise_kernel(
     const void* __restrict__ src, PwHead h, Conv conv, const int* __restrict__ blk,
     const int* __restrict__ ops, int n_ops, int fp_off, int dst_w, int dst_h,
@@ -134,7 +140,7 @@ __global__ void __launch_bounds__(256) pointwise_kernel(
   const int n = live ? min(P, dst_w - x) : 0;
 
   float v[P][L];
-  if (live) read_group(h, src, blk, conv, z, x, y, n, v);
+  if (live) read_group<L, P, kWide>(h, src, blk, conv, z, x, y, n, v);
 
   const float* fp = reinterpret_cast<const float*>(blk) + fp_off;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;  // blocks are 256 threads
@@ -188,33 +194,36 @@ extern "C" int cvgs_pointwise(const void* src, const int* head, float ys, float 
   if (out_ch < 1 || out_ch > h.width || h.nch < 1 || h.nch > h.width || h.width > kMaxCh ||
       n_planes < 1 || n_planes > 65535 || dst_w < 1 || dst_h < 1 || h.src_h < 1 || h.src_w < 1 ||
       n_ops < 0 || h.n_stages < 0 || h.n_stages > kMaxStages || h.base < PW_IMAGE ||
-      h.base > PW_YUV || h.src_type < PW_U8 || h.src_type > PW_I32 || out_type < PW_U8 ||
+      h.base > PW_YUV || h.src_type < PW_U8 || h.src_type > PW_F64 || out_type < PW_U8 ||
       out_type > PW_I32 ||
       (h.base == PW_YUV && (h.src_type != PW_U8 || h.nch != 3)) || (h.conv_first && h.nch != 3)) {
     return (int)cudaErrorInvalidValue;
   }
   const Conv conv{h.limited, 0, ys, cs, rv, gu, gv, bu};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = h.src_type == PW_I64 || h.src_type == PW_F64;  // a kWide instance's
   const int pix = pixels_per_thread((long long)n_planes * dst_w * dst_h, h.width, h.n_stages);
   const dim3 block = group_block(dst_w, pix);
   const int tile_w = block.x * pix;
   const dim3 grid((dst_w + tile_w - 1) / tile_w, (dst_h + block.y - 1) / block.y, n_planes);
-#define CVGS_KERNEL(OutT, L, P)                                                              \
-  pointwise_kernel<OutT, L, P><<<grid, block, 0, s>>>(src, h, conv, blk, ops, n_ops, fp_off, \
-                                                      dst_w, dst_h, static_cast<OutT*>(out), \
-                                                      out_ch, store_op, sn, sc, sy, sx)
-  // four instances per output type: one lane x kWideP or 4 pixels, four
-  // lanes x 4 or 1
-#define CVGS_TYPE(OutT)                   \
-  if (pix == kWideP) {                    \
-    CVGS_KERNEL(OutT, 1, kWideP);         \
-  } else if (pix == 4 && h.width == 1) {  \
-    CVGS_KERNEL(OutT, 1, 4);              \
-  } else if (pix == 4) {                  \
-    CVGS_KERNEL(OutT, kMaxCh, 4);         \
-  } else {                                \
-    CVGS_KERNEL(OutT, kMaxCh, 1);         \
-  }                                       \
+#define CVGS_KERNEL(OutT, L, P, W)                                                              \
+  pointwise_kernel<OutT, L, P, W><<<grid, block, 0, s>>>(src, h, conv, blk, ops, n_ops, fp_off, \
+                                                         dst_w, dst_h, static_cast<OutT*>(out), \
+                                                         out_ch, store_op, sn, sc, sy, sx)
+  // five instances per output type: one lane x kWideP or 4 pixels, four
+  // lanes x 4 (and its wide twin for a 64-bit source) or 1
+#define CVGS_TYPE(OutT)                          \
+  if (pix == kWideP) {                           \
+    CVGS_KERNEL(OutT, 1, kWideP, false);         \
+  } else if (pix == 4 && h.width == 1) {         \
+    CVGS_KERNEL(OutT, 1, 4, false);              \
+  } else if (pix == 4 && wide) {                 \
+    CVGS_KERNEL(OutT, kMaxCh, 4, true);          \
+  } else if (pix == 4) {                         \
+    CVGS_KERNEL(OutT, kMaxCh, 4, false);         \
+  } else {                                       \
+    CVGS_KERNEL(OutT, kMaxCh, 1, false);         \
+  }                                              \
   break;
   switch (out_type) {
     case PW_U8:

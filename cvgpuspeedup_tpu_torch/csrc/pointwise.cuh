@@ -97,14 +97,19 @@ __device__ __forceinline__ int fold_index(int i, int n, int mode) {
 // A CONSTANT border's float32 value cast to the source's element type as
 // it is held in a register, as utils/dtypes.py::cast casts it: truncate,
 // saturate, NaN to 0 (int32 as its bits); float16 rounds to nearest even.
+// An int64 or float64 source is held as int32 or float32, its canonical
+// type, so the value is cast to that.
 __device__ __forceinline__ float cast_to_type(float v, int type) {
   switch (type) {
     case PW_U8: return (float)clampi(__float2int_rz(v), 0, 255);
     case PW_I8: return (float)clampi(__float2int_rz(v), -128, 127);
     case PW_U16: return (float)clampi(__float2int_rz(v), 0, 65535);
     case PW_I16: return (float)clampi(__float2int_rz(v), -32768, 32767);
-    case PW_I32: return __int_as_float(__float2int_rz(v));
+    case PW_I32:
+    case PW_I64: return __int_as_float(__float2int_rz(v));
     case PW_F16: return round_f16(v);
+    case PW_F32:
+    case PW_F64:
     default: return v;
   }
 }
@@ -147,7 +152,9 @@ __device__ __forceinline__ void load_run(const SrcT* __restrict__ p, int n, floa
 }
 
 // load_run of a source of a runtime type at element offset off (int32 as
-// float32's words: its bits).
+// float32's words: its bits; int64 as its low 32 bits). Every source type is
+// a case by name: the host's range check refuses any other code, and a code
+// without a case here would read nothing.
 template <int P>
 __device__ __forceinline__ void load_run_typed(const void* __restrict__ base, int type,
                                                long long off, int n, float (&v)[P][1]) {
@@ -157,7 +164,10 @@ __device__ __forceinline__ void load_run_typed(const void* __restrict__ base, in
     case PW_U16: load_run(static_cast<const uint16_t*>(base) + off, n, v); break;
     case PW_I16: load_run(static_cast<const int16_t*>(base) + off, n, v); break;
     case PW_F16: load_run(static_cast<const f16*>(base) + off, n, v); break;
-    default: load_run(static_cast<const float*>(base) + off, n, v); break;
+    case PW_F32:
+    case PW_I32: load_run(static_cast<const float*>(base) + off, n, v); break;
+    case PW_I64: load_run(static_cast<const i64_bits*>(base) + off, n, v); break;
+    case PW_F64: load_run(static_cast<const double*>(base) + off, n, v); break;
   }
 }
 
@@ -257,8 +267,14 @@ __device__ __forceinline__ void gather_row(const SrcT* __restrict__ row, int nch
 
 // The base's pixels xs[q] of row y of plane pz, for each q of mask: an
 // NV12/NV21 buffer's luma and chroma pair, or nch elements of the source's
-// runtime type (int32 as float32's words: its bits).
-template <int L, int P>
+// runtime type (int32 as float32's words: its bits; int64 as its low 32
+// bits). Every source type is a case by name. The four-lane 4-pixel
+// instances, which the large launches of 3- and 4-channel chains take, leave
+// the 64-bit types to a wide twin (kWide) that reads only them: their
+// gathers in its code slowed P2's ring read by 5 % and P3's border by 3 to
+// 8 % on an H100 (tools/kernel_variants_x64.json, pw_x64_in_every_instance);
+// in the other instances they cost nothing measured.
+template <int L, int P, bool kWide>
 __device__ __forceinline__ void read_base_row(const PwHead& h, const void* __restrict__ src,
                                               int pz, int y, const int (&xs)[P], unsigned mask,
                                               float (&v)[P][L]) {
@@ -286,13 +302,27 @@ __device__ __forceinline__ void read_base_row(const PwHead& h, const void* __res
     }
   }
   const long long row = ((long long)pz * h.src_h + y) * h.src_w * h.nch;
+  constexpr bool kReads64 = kWide || !(L == kMaxCh && P == 4);
+  if constexpr (kReads64) {
+    switch (h.src_type) {
+      case PW_I64:
+        gather_row(static_cast<const i64_bits*>(src) + row, h.nch, xs, mask, v);
+        return;
+      case PW_F64:
+        gather_row(static_cast<const double*>(src) + row, h.nch, xs, mask, v);
+        return;
+      default: break;
+    }
+  }
+  if constexpr (kWide) return;
   switch (h.src_type) {
     case PW_U8: gather_row(static_cast<const uint8_t*>(src) + row, h.nch, xs, mask, v); break;
     case PW_I8: gather_row(static_cast<const int8_t*>(src) + row, h.nch, xs, mask, v); break;
     case PW_U16: gather_row(static_cast<const uint16_t*>(src) + row, h.nch, xs, mask, v); break;
     case PW_I16: gather_row(static_cast<const int16_t*>(src) + row, h.nch, xs, mask, v); break;
     case PW_F16: gather_row(static_cast<const f16*>(src) + row, h.nch, xs, mask, v); break;
-    default: gather_row(static_cast<const float*>(src) + row, h.nch, xs, mask, v); break;
+    case PW_F32:
+    case PW_I32: gather_row(static_cast<const float*>(src) + row, h.nch, xs, mask, v); break;
   }
 }
 

@@ -2,10 +2,13 @@
 // (batch_resize.cu), K2 (frame_resize.cu) and the warp kernel (warp.cu)
 // instantiate their templates for uint8 and float32 sources in their own
 // translation unit, beside their C entry; each other element type of a
-// source (int8, uint16, int16, float16, int32) has a translation unit of
-// its own, source_<type>.cu, that instantiates all three for it with
-// CVGS_SOURCE. An int32 source is read into float32 at load
-// (cvt.rn.f32.s32), as the reference's astype(float32) before the lerps.
+// source (int8, uint16, int16, float16, int32, int64, float64) has a
+// translation unit of its own, source_<type>.cu, that instantiates all three
+// for it with CVGS_SOURCE. An int32 source is read into float32 at load
+// (cvt.rn.f32.s32), as the reference's astype(float32) before the lerps; an
+// int64 source keeps its low 32 bits first and a float64 source rounds to
+// nearest (chain.cuh::to_f32), as the reference's jnp.asarray makes them
+// int32 and float32 before anything else.
 // exec/_build.py compiles every .cu file in a process of its own, so the
 // instances compile in parallel and no one file holds them all.
 
@@ -25,6 +28,8 @@ CVGS_DECLARE(u16)
 CVGS_DECLARE(i16)
 CVGS_DECLARE(f16)
 CVGS_DECLARE(i32)
+CVGS_DECLARE(i64)
+CVGS_DECLARE(f64)
 #undef CVGS_DECLARE
 }  // namespace cvgs
 

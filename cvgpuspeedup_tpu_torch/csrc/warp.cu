@@ -68,7 +68,7 @@
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
 // `srcs` holds n_planes device addresses of (src_h, src_w * nch) images of
-// elements of type `src_type` (PW_U8 .. PW_I32); `coeffs` 9 floats per
+// elements of type `src_type` (PW_U8 .. PW_F64); `coeffs` 9 floats per
 // plane (the inverse map, row-major; an affine map uses the first 6),
 // `border` 4 per plane, `dflt` 4 (planes from *used on hold it), `used` one
 // int. `out` holds elements of type `out_type` (PW_U8 .. PW_I32) with out_ch
@@ -84,7 +84,7 @@ extern "C" int cvgs_warp(const unsigned long long* srcs, int src_type, int src_h
   if (nch < 1 || nch > kMaxCh || out_ch < 1 || out_ch > kMaxCh || n_planes < 1 ||
       n_planes > 65535 || dst_w < 1 || dst_h < 1 || src_h < 1 || src_w < 1 ||
       src_h >= (1 << 24) || src_w >= (1 << 24) || n_ops < 0 || dst_h > 65535 ||
-      src_type < PW_U8 || src_type > PW_I32 || out_type < PW_U8 || out_type > PW_I32) {
+      src_type < PW_U8 || src_type > PW_F64 || out_type < PW_U8 || out_type > PW_I32) {
     return (int)cudaErrorInvalidValue;
   }
   cvgs::WarpArgs a{srcs, src_h, src_w, nch, perspective, coeffs, border, dflt, used, fparams,
@@ -98,6 +98,8 @@ extern "C" int cvgs_warp(const unsigned long long* srcs, int src_type, int src_h
     case PW_I16: cvgs::warp_i16(a); break;
     case PW_F16: cvgs::warp_f16(a); break;
     case PW_I32: cvgs::warp_i32(a); break;
+    case PW_I64: cvgs::warp_i64(a); break;
+    case PW_F64: cvgs::warp_f64(a); break;
   }
   return (int)cudaGetLastError();
 }

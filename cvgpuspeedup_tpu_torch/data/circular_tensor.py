@@ -15,8 +15,10 @@ truncates, then saturates; an integer into a narrower one wraps), with no
 temporary of the frame: the full-frame kernel for a resize head, the
 pointwise kernel for a plain or cropped frame, into a ring of any dtype of
 ``exec.cuda_batch_resize.TYPE_CODES`` (uint8, int8, uint16, int16, int32,
-float16, float32). A ring of another dtype (int64, float64) takes a
-temporary and a ``copy_``, as every update on the CPU does. ``read_batch``
+float16, float32). A ring's dtype is its canonical one, as the
+reference's ``jnp.zeros`` gives it: ``np.float64`` makes a float32 ring,
+``np.int64`` an int32 one (``utils.dtypes.canonical_dtype``). On the CPU an
+update takes a temporary and a ``copy_``. ``read_batch``
 returns a :class:`~..ops.memory.CircularBatchRead` over the raw ring whose
 runtime ``first`` applies the logical order, and ``.tensor`` gathers the
 ordered window into a new buffer.
@@ -67,7 +69,7 @@ class CircularTensor:
         self.batch = batch
         self.order = order
         self.planes = planes
-        self.dtype = dt.to_torch_dtype(dtype)
+        self.dtype = dt.canonical_dtype(dt.to_torch_dtype(dtype))
         if planes == ColorPlanes.STANDARD:
             shape = (batch, channels, height, width)
         elif planes == ColorPlanes.TRANSPOSED:

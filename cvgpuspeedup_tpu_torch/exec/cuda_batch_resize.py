@@ -46,7 +46,7 @@ from ..ops.resize import BatchResizeRead, sample_batch
 from ..types import AspectRatio, InterpolationType, Size
 from ..utils import dtypes as dt
 from ..utils import bounds
-from ..utils.dtypes import as_device_tensor
+from ..utils.dtypes import as_device_tensor, kernel_source
 from . import _build
 
 #: launches of the CUDA kernel in this process
@@ -81,7 +81,9 @@ _WRAP = {torch.uint8: OP_WRAP_U8, torch.int8: OP_WRAP_I8, torch.uint16: OP_WRAP_
 #: the dtypes a chain may hold, as a source, a cast target and an output:
 #: each exact in a 32-bit register, int32 as its bits and the others as
 #: float32 values, and one f32 op of two float16 values rounded to float16 is
-#: the float16 op. int64 and float64 are not among them.
+#: the float16 op. int64 and float64 are not among them: the reference holds
+#: them as int32 and float32 (``utils.dtypes.canonical_dtype``), and so does
+#: the port from where they enter.
 CHAIN_DTYPES = (torch.uint8, torch.int8, torch.uint16, torch.int16, torch.int32, torch.float16,
                 torch.float32)
 #: the dtypes of a chain's scalars, both exact in the f32 parameter block
@@ -106,9 +108,13 @@ _MAX_PLANES = 65535  # grid.z
 #: csrc/chain.cuh (PW_U8 .. PW_I32)
 TYPE_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3, torch.float32: 4,
               torch.float16: 5, torch.int32: 6}
+#: the element types of a source: those, and int64 and float64 (PW_I64,
+#: PW_F64), which a kernel reads at load as int32 (the low 32 bits) and
+#: float32 (rounded to nearest), their canonical dtypes, and never stores
+SRC_CODES = {**TYPE_CODES, torch.int64: 7, torch.float64: 8}
 #: the source dtypes K1, K2, the warp kernel and the pointwise kernel read, by
 #: name
-SRC_DTYPES = {str(t).removeprefix("torch."): t for t in CHAIN_DTYPES}
+SRC_DTYPES = {str(t).removeprefix("torch."): t for t in SRC_CODES}
 
 
 class Unsupported(ValueError):
@@ -145,9 +151,11 @@ class KernelPlan:
 
 
 def _leaf_dtype_name(leaf) -> str:
+    """A tensor leaf's dtype, a host leaf's canonical one (it is converted on
+    its way to the device: ``utils.dtypes.as_device_tensor``)."""
     if isinstance(leaf, torch.Tensor):
         return str(leaf.dtype).removeprefix("torch.")
-    return np.asarray(leaf).dtype.name
+    return dt.canonical_dtype(np.asarray(leaf).dtype).name
 
 
 def _n_leaves(o) -> int:
@@ -320,7 +328,7 @@ def prepare(pipeline, plan: KernelPlan, device: torch.device) -> Launch:
     one int32 buffer and copied in one non-blocking transfer; device leaves
     stay where they are. Nothing here waits for the device."""
     read = pipeline.read
-    src = as_device_tensor(read.source(), device).contiguous()
+    src = kernel_source(read.source(), device).contiguous()
     ops, default_used = plan.consts(device)
     host: List[np.ndarray] = []
     slots: Dict[str, Tuple[int, int]] = {}
@@ -449,12 +457,12 @@ def _alloc_out(plan, device, out=None):
 
 
 def batch_resize_reference(a: Launch):
-    """The plain PyTorch version of the kernel on the same source, rects and
-    ``used_planes``: the eager resize, each chain op's own ``apply`` and the
-    write op."""
+    """The plain PyTorch version of the kernel on the same source (in its
+    canonical dtype), rects and ``used_planes``: the eager resize, each chain
+    op's own ``apply`` and the write op."""
     plan, p = a.plan, a.pipeline
-    val = sample_batch(a.src, a.rects, plan.dsize, plan.aspect_ratio, p.read.background, a.used,
-                       stack_mode=plan.stack_mode)
+    val = sample_batch(dt.canonicalize(a.src), a.rects, plan.dsize, plan.aspect_ratio,
+                       p.read.background, a.used, stack_mode=plan.stack_mode)
     for o in p.compute:
         val = o.apply(val)
     return p.write.write(val)
@@ -522,7 +530,7 @@ def batch_resize(a: Launch, out: Optional[torch.Tensor] = None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cvgs_batch_resize(
-            a.src.data_ptr(), TYPE_CODES[plan.src_dtype], plane_stride,
+            a.src.data_ptr(), SRC_CODES[plan.src_dtype], plane_stride,
             src_h, src_w, plan.nch,
             a.rects.data_ptr(), a.used.data_ptr(), a.fparams.data_ptr(), a.ops.data_ptr(),
             plan.ops.shape[0], plan.n_planes, w, h, _MODES[plan.aspect_ratio],

@@ -42,7 +42,9 @@ PyTorch version, runs it on the launch's device; it reads neither the block
 nor the tables, so holding the kernel against it checks them.
 
 A group reads a uint8 or float32 source (``SRC_DTYPES``, what the
-reference's TPU kernel reads), and its chain may hold and end in any dtype
+reference's TPU kernel reads), or a float64 tensor, which the kernel reads
+at load as float32, its canonical dtype (an int64 source is int32's, and
+an int32 group runs in the eager merge), and its chain may hold and end in any dtype
 of ``cuda_batch_resize.CHAIN_DTYPES``. Groups may differ in output dtype:
 the batch takes plane 0's group's, and each group's store casts as the
 merge does: the row ``cuda_batch_resize.store_cast`` gives ends the group's
@@ -75,7 +77,7 @@ from ..ops.warp import WarpRead
 from ..types import ColorRange, InterpolationType, PixelFormat, Size, WarpType
 from ..utils import dtypes as dt
 from ..utils import bounds
-from ..utils.dtypes import as_device_tensor
+from ..utils.dtypes import as_device_tensor, kernel_source
 from . import _build
 from . import cuda_batch_resize as kbr
 from . import cuda_warp as kw
@@ -91,8 +93,11 @@ LAUNCHES = 0
 # group kinds; keep in step with csrc/divergent.cu
 KINDS = ("image", "circ", "crop_resize", "resize", "nv12", "warp")
 DESC_INTS = 16      # ints per group descriptor; csrc/divergent.cu reads the same fields
-#: the source dtypes the kernel reads
-SRC_DTYPES = {"uint8": torch.uint8, "float32": torch.float32}
+#: the source dtypes the kernel reads, by name, and the word of a group's
+#: descriptor that names each (csrc/divergent.cu: S_F32, S_U8, S_F64); a
+#: float64 tensor is read at load as float32, its canonical dtype
+SRC_DTYPES = {"uint8": torch.uint8, "float32": torch.float32, "float64": torch.float64}
+_SRC_WORDS = {torch.float32: 0, torch.uint8: 1, torch.float64: 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,7 +217,7 @@ def _classify(seq, n: int):
         dtype = _dtype_of(read.data)
         geo = dict(src_h=h, src_w=w, nch=c, src_dtype=dtype, n_src=n_src,
                    ascendent=kind == "image" or read.ascendent)
-        return kind, geo, c, dtype, (h, w), {}
+        return kind, geo, c, dt.canonical_dtype(dtype), (h, w), {}
     if isinstance(read, BatchResizeRead):
         if read.interp != InterpolationType.INTER_LINEAR:
             raise Unsupported(f"interpolation {read.interp}")
@@ -245,7 +250,7 @@ def _classify(seq, n: int):
         h, w, c = _image_geometry(read.ops[0])
         dtype = _dtype_of(read.ops[0].data)
         geo = dict(src_h=h, src_w=w, nch=c, src_dtype=dtype, n_src=1, ascendent=True)
-        return "image", geo, c, dtype, (h, w), {}
+        return "image", geo, c, dt.canonical_dtype(dtype), (h, w), {}
     if all(isinstance(o, WarpRead) for o in read.ops):
         w0 = read.ops[0]
         h, w, c, _ = kw._geometry(w0.source)
@@ -443,7 +448,7 @@ def prepare(seqs, plan: DivergentPlan, device: torch.device) -> Launch:
             k = index.get(id(data))
             if k is None:
                 k = index[id(data)] = len(srcs)
-                srcs.append(as_device_tensor(data, device).contiguous())
+                srcs.append(kernel_source(data, device).contiguous())
             plane_src[z] = k
     blk = _Block()
     blk.put(plan.table, np.int32, width=n + (n & 1))  # even: the addresses are 8-byte words
@@ -454,7 +459,7 @@ def prepare(seqs, plan: DivergentPlan, device: torch.device) -> Launch:
         read = seq.read
         d = desc[g]
         d[:12] = (KINDS.index(group.kind), group.src_h, group.src_w, group.nch,
-                  int(group.src_dtype == torch.uint8), group.n_src, -1, int(group.ascendent),
+                  _SRC_WORDS[group.src_dtype], group.n_src, -1, int(group.ascendent),
                   group.mode, -1, group.op_off, group.n_ops)
         d[14] = group.flags
         if group.kind == "circ":

@@ -37,11 +37,12 @@ from ..ops.memory import ImageRead, SplitWrite, TensorSplit, Write2D
 from ..ops.nv12 import LIMITED_C, LIMITED_Y, conversion_coefficients
 from ..ops.resize import ResizeRead, axis_taps, half_taps, keeps_edge_weight
 from ..types import ColorRange, InterpolationType, PixelFormat, Size
-from ..utils.dtypes import as_device_tensor
+from ..utils import dtypes as dt
+from ..utils.dtypes import as_device_tensor, kernel_source
 from ..utils import bounds
 from . import _build
 from .cuda_batch_resize import can_store  # noqa: F401  (the executor asks each kernel module)
-from .cuda_batch_resize import (_MAX_CHANNELS, SRC_DTYPES, TYPE_CODES, Unsupported,
+from .cuda_batch_resize import (_MAX_CHANNELS, SRC_CODES, SRC_DTYPES, TYPE_CODES, Unsupported,
                                 _leaf_dtype_name, check_out, check_out_dtype, encode_chain,
                                 reference_into, store_cast)
 
@@ -186,7 +187,7 @@ def prepare(pipeline, plan: FramePlan, device: torch.device) -> Launch:
     packed into one buffer and copied in one non-blocking transfer; device
     leaves stay where they are. Nothing here waits for the device."""
     data, _, _ = _source(pipeline.read)
-    src = as_device_tensor(data, device).contiguous()
+    src = kernel_source(data, device).contiguous()
     ops, taps, weights = plan.consts(device)
     _, leaves = flatten(tuple(pipeline.compute))
     if not leaves:
@@ -205,10 +206,12 @@ def prepare(pipeline, plan: FramePlan, device: torch.device) -> Launch:
 
 
 def frame_resize_reference(a: Launch):
-    """The plain PyTorch version of the kernel on the same source: the eager
-    ``ResizeRead.lower``, each chain op's own ``apply`` and the write op."""
+    """The plain PyTorch version of the kernel on the same source (in its
+    canonical dtype): the eager ``ResizeRead.lower``, each chain op's own
+    ``apply`` and the write op."""
     p = a.pipeline
-    read = map_leaves(p.read, lambda _: a.src)  # the source is the read's one leaf
+    src = dt.canonicalize(a.src)
+    read = map_leaves(p.read, lambda _: src)  # the source is the read's one leaf
     val = read.lower()
     for o in p.compute:
         val = o.apply(val)
@@ -276,7 +279,7 @@ def frame_resize(a: Launch, out: Optional[torch.Tensor] = None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cvgs_frame_resize(
-            a.src.data_ptr(), TYPE_CODES[plan.src_dtype], plan.src_h, plan.src_w,
+            a.src.data_ptr(), SRC_CODES[plan.src_dtype], plan.src_h, plan.src_w,
             plan.nch, int(plan.yuv), int(plan.nv21), a.taps.data_ptr(), a.weights.data_ptr(),
             int(plan.keep_edge), *plan.conv,
             a.fparams.data_ptr(), a.ops.data_ptr(), plan.ops.shape[0], w, h,

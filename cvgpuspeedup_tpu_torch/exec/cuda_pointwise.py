@@ -25,7 +25,10 @@ kernel's device code; the rest of the chain is ``encode_chain``'s table
 (uint8, int8, uint16, int16, int32, float16 and float32 as source, cast
 target and output; int32 held as its bits, the others as float32 values).
 An int32 source is read as float32's 4-byte words, so a copy, crop, border
-or ring of int32 is exact at every value; a CONSTANT border's value is
+or ring of int32 is exact at every value; an int64 tensor source is read as
+its low 32 bits into the same register and a float64 one rounded to
+float32, their canonical dtypes, so the chain starts from those; a CONSTANT
+border's value is
 staged as float32 and cast to the source's dtype by the kernel as
 ``utils.dtypes.cast`` casts it. A
 ``FusedRead`` at the top of the read is taken as its read and the head of
@@ -40,9 +43,9 @@ channel wide runs in the kernel's one-lane instances. Both ride after the
 words the kernel read before them (the op table's rows and sentinel, the
 head's 44 words), so an older library reads the same table. New frames,
 ``first`` s, origins, border values and scalars build nothing. Refused
-(:class:`Unsupported`): int64 and float64 sources or casts and chain
-scalars that are neither float32 nor float16 (a 32-bit register cannot hold
-them), more than 4 channels, more than ``MAX_STAGES`` stages, any resampling
+(:class:`Unsupported`): a source of no dtype of ``SRC_DTYPES`` (uint32,
+bool), chain scalars that are neither float32 nor float16, more than 4
+channels, more than ``MAX_STAGES`` stages, any resampling
 read.
 
 :func:`pointwise` is the wrapper: on a CUDA tensor it launches the kernel,
@@ -68,14 +71,15 @@ from ..ops.crop import CropRead
 from ..ops.memory import CircularBatchRead, ImageRead, SplitWrite, TensorSplit, Write2D
 from ..ops.nv12 import LIMITED_C, LIMITED_Y, ConvertYUVToRGB, ReadYUV, conversion_coefficients
 from ..types import BorderMode, ColorRange, PixelFormat, Size
-from ..utils.dtypes import as_device_tensor
+from ..utils import dtypes as dt
+from ..utils.dtypes import as_device_tensor, kernel_source
 from ..utils import bounds
 from . import _build
 from . import cuda_batch_resize as kbr
 from . import cuda_frame_resize as kfr
 from .cuda_batch_resize import (_MAX_CHANNELS, _MAX_PLANES, CHAIN_DTYPES, OP_ALPHA,
                                 OP_ALPHA_I32, OP_GRAY_F16, OP_GRAY_F32, OP_GRAY_I32, OP_GRAY_U8,
-                                OP_REORDER, SRC_DTYPES, TYPE_CODES, Unsupported,
+                                OP_REORDER, SRC_CODES, SRC_DTYPES, TYPE_CODES, Unsupported,
                                 _leaf_dtype_name, encode_chain, store_cast)
 from .cuda_divergent import _Block, _stack_geometry
 from .cuda_warp import _size
@@ -260,7 +264,7 @@ def build_plan(pipeline) -> PointwisePlan:
     conv = (0.0,) * 6
     conv_first = limited = 0
     rows0 = np.zeros((0, 4), np.int32)
-    dtype, ch = src_dtype, c
+    dtype, ch = dt.canonical_dtype(src_dtype), c
     if chain and isinstance(chain[0], ConvertYUVToRGB):
         cv = chain[0]
         if ch != 3:
@@ -287,7 +291,7 @@ def build_plan(pipeline) -> PointwisePlan:
     if layout is None:
         raise Unsupported(f"write {type(pipeline.write).__name__} of a "
                           f"{'batched' if batch else 'single'} value")
-    head = (BASES.index(kind), h, w, c, TYPE_CODES[src_dtype], n_src, first_off, int(ascendent),
+    head = (BASES.index(kind), h, w, c, SRC_CODES[src_dtype], n_src, first_off, int(ascendent),
             int(nv21), len(stages), conv_first, limited, *words, width)
     return PointwisePlan(
         base=kind, batch=batch, n_planes=n_out if batch else 1, src_dtype=src_dtype,
@@ -329,7 +333,7 @@ def prepare(pipeline, plan: PointwisePlan, device: torch.device) -> Launch:
     device."""
     read, chain = _unwrap(pipeline)
     stages, base = _stages(read)
-    src = as_device_tensor(_base_leaf(pipeline), device).contiguous()
+    src = kernel_source(_base_leaf(pipeline), device).contiguous()
     nch = plan.head[3]
     blk = _Block()
     if plan.base == "circ":
@@ -354,11 +358,12 @@ def prepare(pipeline, plan: PointwisePlan, device: torch.device) -> Launch:
 
 
 def pointwise_reference(a: Launch):
-    """The plain PyTorch version of the kernel on the launch's source: the
-    eager read, each chain op's own ``apply`` and the write op."""
+    """The plain PyTorch version of the kernel on the launch's source (in its
+    canonical dtype): the eager read, each chain op's own ``apply`` and the
+    write op."""
     dev = a.src.device
-    data = _base_leaf(a.pipeline)
-    p = map_leaves(a.pipeline, lambda v: a.src if v is data else as_device_tensor(v, dev))
+    data, src = _base_leaf(a.pipeline), dt.canonicalize(a.src)
+    p = map_leaves(a.pipeline, lambda v: src if v is data else as_device_tensor(v, dev))
     return p.lower()
 
 

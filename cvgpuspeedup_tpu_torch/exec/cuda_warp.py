@@ -42,7 +42,7 @@ from ..graph import flatten, map_leaves
 from ..ops.memory import BatchRead, ImageRead, SplitWrite, TensorSplit, Write2D
 from ..ops.warp import WarpRead
 from ..types import Size, WarpType
-from ..utils.dtypes import as_device_tensor
+from ..utils.dtypes import as_device_tensor, kernel_source
 from ..utils import bounds
 from . import _build
 from . import cuda_batch_resize as kbr
@@ -219,7 +219,7 @@ def prepare(pipeline, plan: WarpPlan, device: torch.device) -> Launch:
         k = index.get(id(data))
         if k is None:
             k = index[id(data)] = len(srcs)
-            srcs.append(as_device_tensor(data, device).contiguous())
+            srcs.append(kernel_source(data, device).contiguous())
         plane_src.append(k)
     ptrs = np.asarray([srcs[k].data_ptr() for k in plane_src], np.uint64)
 
@@ -348,7 +348,7 @@ def warp(a: Launch, out: Optional[torch.Tensor] = None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cvgs_warp(
-            a.ptrs.data_ptr(), kbr.TYPE_CODES[plan.src_dtype], plan.src_h, plan.src_w,
+            a.ptrs.data_ptr(), kbr.SRC_CODES[plan.src_dtype], plan.src_h, plan.src_w,
             plan.nch, int(plan.perspective), a.coeffs.data_ptr(), a.border.data_ptr(),
             a.default.data_ptr(), a.used.data_ptr(), a.fparams.data_ptr(), a.ops.data_ptr(),
             plan.ops.shape[0], plan.n_planes, w, h,

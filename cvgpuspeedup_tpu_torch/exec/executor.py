@@ -17,9 +17,13 @@ pipeline, the batched crop-resize kernel (``cuda:batch_resize``), the
 full-frame resize kernel (``cuda:frame_resize``), the warp kernel
 (``cuda:warp``, single and batched warps), then the pointwise kernel
 (``cuda:pointwise``: every head that reads one source pixel per output
-pixel), so that a pipeline is one launch; it takes the eager PyTorch version
-(one launch per op) only for what a 32-bit register cannot hold: int64 and
-float64 values and chain scalars that are neither float32 nor float16. An
+pixel), so that a pipeline is one launch. int64 and float64 values are
+int32 and float32 from where they enter, as in the reference, which runs
+with 64-bit values off (``utils.dtypes.canonical_dtype``): host values are
+converted before their copy, and the kernels read a 64-bit tensor source at
+load. It takes the eager PyTorch version (one launch per op) only for what
+no kernel reads: uint32 and bool sources, and chain scalars that are neither
+float32 nor float16 (an integer tensor). An
 explicit ``ParBackend.CUDA`` raises where no kernel can run, naming each
 kernel's refusal. Nothing falls back from a failed build or launch. In
 :func:`debug_mode` every wrapper waits for its launch and raises on a CUDA

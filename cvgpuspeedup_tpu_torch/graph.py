@@ -23,6 +23,8 @@ from typing import Any, Callable, List, Tuple
 import numpy as np
 import torch
 
+from .utils.dtypes import canonical_dtype
+
 __all__ = [
     "IOp",
     "PendingReadOp",
@@ -56,10 +58,13 @@ def _is_leaf(x) -> bool:
 
 
 def _leaf_signature(x) -> Tuple:
+    """A leaf's shape and dtype: a tensor's own, a host value's canonical one
+    (``utils.dtypes.canonical_dtype``), which it takes on its way to the
+    device."""
     if isinstance(x, torch.Tensor):
         return ("leaf", tuple(x.shape), str(x.dtype).removeprefix("torch."))
     arr = np.asarray(x)
-    return ("leaf", arr.shape, arr.dtype.name)
+    return ("leaf", arr.shape, canonical_dtype(arr.dtype).name)
 
 
 def _walk(x, leaves: List) -> Any:

@@ -76,6 +76,8 @@ def _dtype_of(cv_type):
 
 
 def convertTo(cv_type, alpha=None, beta=None):
+    """``cvGS::convertTo``; a CV_64F depth converts to float32, as the
+    reference's does (``convert_to``)."""
     return _convert_to(_dtype_of(cv_type), alpha=alpha, beta=beta)
 
 

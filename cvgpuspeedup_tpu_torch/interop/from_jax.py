@@ -3,9 +3,11 @@
 The system has no learned weights: its state is the op graph and the arrays
 at its leaves. :func:`from_jax` rebuilds a ``cvgpuspeedup_tpu`` op (or
 ``Pipeline``) as the port's op of the same class name, field by field. Leaves
-become numpy arrays (``np.asarray``), static fields keep their values, with
-enums (``BorderMode`` among them), sizes and dtypes mapped to the port's
-types. It never imports jax: it
+become numpy arrays in their canonical dtype (``utils.dtypes.canonicalize``:
+an int64 numpy leaf, which the reference converts at dispatch, is int32),
+static fields keep their values, with enums (``BorderMode`` among them),
+sizes and dtypes mapped to the port's types (the ops bring a 64-bit
+dtype to its canonical one, ``ops/cast.py``). It never imports jax: it
 reads the reference ops through ``dataclasses.fields`` only.
 :func:`ring_from_jax` carries a reference ``CircularTensor``'s window across
 through its ``state_dict``, so both rings hold the same frames.
@@ -32,7 +34,7 @@ from ..ops.memory import (BatchRead, CircularBatchRead, ImageRead, SplitWrite, T
 from ..ops.nv12 import ConvertYUVToRGB, ReadYUV
 from ..ops.resize import BatchResizeRead, ResizeRead
 from ..ops.warp import WarpRead
-from ..utils.dtypes import to_torch_dtype
+from ..utils.dtypes import canonicalize, to_torch_dtype
 
 _CLASSES = {
     c.__name__: c
@@ -67,7 +69,7 @@ def from_jax(obj):
     if isinstance(obj, (tuple, list)):
         return type(obj)(from_jax(v) for v in obj)
     if not (dataclasses.is_dataclass(obj) and not isinstance(obj, type)):
-        return np.asarray(obj)
+        return np.asarray(canonicalize(obj))
     name = type(obj).__name__
     cls = _CLASSES.get(name)
     if cls is None:

@@ -27,6 +27,7 @@ import torch
 from ..graph import ComputeOp, ReadOp, op, static_field
 from ..types import ColorRange, ColorStandard, PixelFormat
 from ..utils import dtypes as dt
+from .cast import saturate_target
 from .color import alpha_fill
 
 _KR_KB = {
@@ -90,6 +91,9 @@ class ConvertYUVToRGB(ComputeOp):
     standard: ColorStandard = static_field(default=ColorStandard.BT601)
     alpha: bool = static_field(default=False)
     out_dtype: torch.dtype = static_field(default=torch.uint8)
+
+    def __post_init__(self):  # a saturating conversion: ops.cast.saturate_target
+        object.__setattr__(self, "out_dtype", saturate_target(self.out_dtype))
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         rv, gu, gv, bu = conversion_coefficients(self.standard)

@@ -185,8 +185,8 @@ def sample_frame(src, taps_x, taps_y, keep_edge: bool) -> torch.Tensor:
 
 def _device_taps(taps, device):
     i0, i1, w = taps
-    return (as_device_tensor(i0, device), as_device_tensor(i1, device),
-            as_device_tensor(w, device))
+    return (as_device_tensor(i0, device, canonical=False),
+            as_device_tensor(i1, device, canonical=False), as_device_tensor(w, device))
 
 
 @op

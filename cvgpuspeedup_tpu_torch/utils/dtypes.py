@@ -3,7 +3,9 @@
 Counterpart of ``cvgpuspeedup_tpu/utils/dtypes.py``. Images are
 channel-last ``(..., C)`` tensors. Static dtype fields of ops hold a
 ``torch.dtype``; factories also accept numpy dtypes and convert them with
-:func:`to_torch_dtype`.
+:func:`to_torch_dtype`. A value or dtype of 64 bits takes its canonical
+32-bit dtype where it enters (:func:`canonical_dtype`), as in the reference,
+which runs with jax's 64-bit values off.
 """
 
 from __future__ import annotations
@@ -16,12 +18,15 @@ import torch
 DTypeLike = Any
 
 _NP_TO_TORCH = {
+    np.dtype(np.bool_): torch.bool,
     np.dtype(np.uint8): torch.uint8,
     np.dtype(np.int8): torch.int8,
     np.dtype(np.uint16): torch.uint16,
     np.dtype(np.int16): torch.int16,
     np.dtype(np.int32): torch.int32,
+    np.dtype(np.uint32): torch.uint32,
     np.dtype(np.int64): torch.int64,
+    np.dtype(np.uint64): torch.uint64,
     np.dtype(np.float16): torch.float16,
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
@@ -43,17 +48,67 @@ def to_numpy_dtype(dtype: DTypeLike) -> np.dtype:
     return np.dtype(dtype)
 
 
-def as_device_tensor(x, device: torch.device) -> torch.Tensor:
-    """``x`` as a tensor on ``device``. A tensor is returned as it is. Host
-    values bound for a CUDA device go through pinned memory and a
-    non-blocking copy, so the host never waits for the device's stream."""
+#: the reference's rule with 64-bit values off (jax's default, which the JAX
+#: package keeps): what each 64-bit dtype becomes where a value enters
+_CANONICAL = {np.dtype(np.int64): np.dtype(np.int32), np.dtype(np.uint64): np.dtype(np.uint32),
+              np.dtype(np.float64): np.dtype(np.float32)}
+_CANONICAL_TORCH = {torch.int64: torch.int32, torch.uint64: torch.uint32,
+                    torch.float64: torch.float32}
+_INT32 = np.iinfo(np.int32)
+
+
+def canonical_dtype(dtype: DTypeLike):
+    """The dtype a value of ``dtype`` takes in the reference, which runs with
+    64-bit values off: int64 becomes int32, uint64 uint32 and float64
+    float32; every other dtype stays. A torch dtype gives a torch dtype, any
+    other a numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return _CANONICAL_TORCH.get(dtype, dtype)
+    d = np.dtype(dtype)
+    return _CANONICAL.get(d, d)
+
+
+def canonicalize(x):
+    """``x`` in its :func:`canonical_dtype`, as ``jnp.asarray`` converts it:
+    an integer keeps its low 32 bits, a float64 rounds to nearest (past
+    float32's range to an infinity; subnormals are kept). A tensor is
+    converted with ``.to()`` on its device, anything else with numpy. A
+    Python int outside int32's range raises ``OverflowError``, as the
+    reference's dispatch does."""
     if isinstance(x, torch.Tensor):
-        return x
+        return x.to(_CANONICAL_TORCH.get(x.dtype, x.dtype))
+    if isinstance(x, int) and not isinstance(x, bool) and not _INT32.min <= x <= _INT32.max:
+        raise OverflowError(f"Python int {x} too large to convert to int32")
     a = np.asarray(x)
+    d = _CANONICAL.get(a.dtype)
+    if d is None:
+        return a
+    with np.errstate(over="ignore"):  # a float64 past float32's range is an infinity
+        return a.astype(d)
+
+
+def as_device_tensor(x, device: torch.device, canonical: bool = True) -> torch.Tensor:
+    """``x`` as a tensor on ``device``. Host values bound for a CUDA device
+    go through pinned memory and a non-blocking copy, so the host never
+    waits for the device's stream. A user value is brought to its
+    :func:`canonical_dtype` first (host values with numpy, before the copy,
+    which then moves half the bytes; a tensor with ``.to()``); the port's
+    own index tables pass ``canonical=False`` and keep int64."""
+    if isinstance(x, torch.Tensor):
+        return canonicalize(x) if canonical else x
+    a = canonicalize(x) if canonical else np.asarray(x)
     t = torch.from_numpy(a if a.flags.c_contiguous else np.ascontiguousarray(a))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def kernel_source(x, device: torch.device) -> torch.Tensor:
+    """A kernel's source on ``device``: host values as :func:`as_device_tensor`
+    gives them, a tensor as it is. The kernels read an int64 or float64
+    tensor at load as its canonical dtype, with no conversion launched
+    before them; their plain versions :func:`canonicalize` it."""
+    return x if isinstance(x, torch.Tensor) else as_device_tensor(x, device)
 
 
 def is_float(dtype: DTypeLike) -> bool:

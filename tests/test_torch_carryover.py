@@ -506,8 +506,8 @@ def _frame(rng, dtype, ch):
 @pytest.mark.parametrize("ch", [1, 2, 3, 4])
 def test_type_sweep_eager_and_kernel_plan(rng, dtype, ch):
     """Every supported depth and channel count through the eager path against
-    cv2; the batched kernel takes every source a 32-bit register holds
-    (uint8, uint16, int16, int32, float32 here; not float64), and its plain
+    cv2; the batched kernel takes every one (a float64 frame as float32, the
+    dtype it takes where it enters, as in the reference), and its plain
     version equals the eager path bit for bit."""
     frame = _frame(rng, dtype, ch)
     rects = np.array([[i, 2 * i, 40, 56] for i in range(4)], np.int32)
@@ -521,10 +521,8 @@ def test_type_sweep_eager_and_kernel_plan(rng, dtype, ch):
         ref = cv2.resize(crop, UP, interpolation=cv2.INTER_LINEAR).reshape(UP[1], UP[0], ch)
         check_float(x[z], (ref * np.float32(0.5)).transpose(2, 0, 1), msg=f"{dtype} c{ch} z={z}")
     pipeline = T.build_pipeline(*ops)
-    assert kbr.supports(pipeline) == (dtype in (np.uint8, np.uint16, np.int16, np.int32,
-                                                np.float32))
-    if kbr.supports(pipeline):
-        check_float(kbr.run(pipeline, kbr.build_plan(pipeline), CPU).numpy(), x, tol=0)
+    assert x.dtype == np.float32 and kbr.supports(pipeline)
+    check_float(kbr.run(pipeline, kbr.build_plan(pipeline), CPU).numpy(), x, tol=0)
 
 
 def test_batch_300_stress(rng):
@@ -609,11 +607,16 @@ def test_last_backend_records_torch_on_cpu(rng):
 
 def test_explicit_cuda_names_every_kernels_refusal(rng):
     """``ParBackend.CUDA`` raises with each kernel's reason, the pointwise
-    kernel's last."""
+    kernel's last, for a source no kernel reads (uint32). An int64 image is
+    int32's where it enters, as in the reference: one launch of the
+    pointwise kernel."""
     img = rng.integers(0, 256, (16, 16, 3)).astype(np.int64)
+    assert _backend_on(CUDA, T.image(img), T.multiply(2.0),
+                       backend=T.ParBackend.CUDA) == "cuda:pointwise"
     with pytest.raises(ValueError) as e:
-        _backend_on(CUDA, T.image(img), T.multiply(2.0), backend=T.ParBackend.CUDA)
+        _backend_on(CUDA, T.image(img.astype(np.uint32)), T.multiply(2.0),
+                    backend=T.ParBackend.CUDA)
     msg = str(e.value)
     order = [msg.index(k) for k in ("cuda:batch_resize:", "cuda:frame_resize:", "cuda:warp:",
                                     "cuda:pointwise:")]
-    assert order == sorted(order) and "source dtype int64" in msg
+    assert order == sorted(order) and "source dtype uint32" in msg

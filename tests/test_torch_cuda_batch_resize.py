@@ -214,11 +214,14 @@ def test_main_path_launches_the_kernel_once_per_call(frame):
 
 
 def test_explicit_cuda_on_unsupported_pipeline_raises(frame):
-    wide = frame.to(torch.int64)  # a 32-bit register cannot hold int64: no kernel takes it
+    mask = frame > 127  # no kernel reads bool
     with pytest.raises(ValueError, match="cannot run"):
-        T.execute_operations(T.image(wide), T.multiply(2.0), backend=T.ParBackend.CUDA)
-    out = T.execute_operations(T.image(wide), T.multiply(2.0))
+        T.execute_operations(T.image(mask), T.multiply(2.0), backend=T.ParBackend.CUDA)
+    out = T.execute_operations(T.image(mask), T.multiply(2.0))
     assert T.last_backend() == "torch" and out.device == frame.device
+    # int64 is int32 where it enters, as in the reference: a kernel reads it
+    out = T.execute_operations(T.image(frame.to(torch.int64)), T.multiply(2.0))
+    assert T.last_backend() == "cuda:pointwise" and out.dtype == torch.int32
     out = T.execute_operations(T.image(frame), T.multiply(2.0))
     assert T.last_backend() == "cuda:pointwise" and out.device == frame.device
 

@@ -243,18 +243,30 @@ def test_crop_origins_on_the_device_build_no_plan(origin, cuda):
 
 @pytest.mark.parametrize("what", ["int64", "float64", "int64_cast", "float64_scalar"])
 def test_what_an_f32_register_cannot_hold_runs_eagerly(what, cuda):
+    """int64 and float64 are int32 and float32 where they enter, as in the
+    reference, which runs with 64-bit values off: none of these runs eagerly.
+    Each is one launch of the pointwise kernel (a 64-bit source read at
+    load), of the canonical dtype, equal to the eager version bit for bit; a
+    saturating cast to int64 raises, as the reference's call does."""
     img = _source(cuda, (20, 30, 3), seed=21)
-    ops = {
-        "int64": (T.image(img.to(torch.int64)), T.multiply(2.0), T.write()),
-        "float64": (T.image(img.to(torch.float64)), T.multiply(2.0), T.write()),
-        "int64_cast": (T.image(img), T.convert_to(np.int64, alpha=1000.0), T.write()),
-        "float64_scalar": (T.image(img.float()), T.Mul(value=np.float64(1.1)), T.write()),
+    if what == "int64_cast":
+        with pytest.raises(OverflowError):
+            T.convert_to(np.int64, alpha=1000.0)
+    ops, dtype = {
+        "int64": ((T.image(img.to(torch.int64)), T.multiply(2.0), T.write()), torch.int32),
+        "float64": ((T.image(img.to(torch.float64)), T.multiply(2.0), T.write()),
+                    torch.float32),
+        "int64_cast": ((T.image(img), T.convert_to(np.float32, alpha=1e8),
+                        T.Cast(dst=torch.int64), T.write()), torch.int32),
+        "float64_scalar": ((T.image(img.float()), T.Mul(value=np.float64(1.1)), T.write()),
+                           torch.float32),
     }[what]
-    assert T.describe_backend(*ops) == "torch"
-    T.execute_operations(*ops)
-    assert T.last_backend() == "torch"
-    with pytest.raises(ValueError, match="cuda:pointwise: "):
-        T.execute_operations(*ops, backend=T.ParBackend.CUDA)
+    assert T.describe_backend(*ops) == "cuda:pointwise"
+    launches = kp.LAUNCHES
+    got = T.execute_operations(*ops)
+    assert T.last_backend() == "cuda:pointwise" and kp.LAUNCHES == launches + 1
+    assert got.dtype == dtype
+    _same(got, T.execute_operations(*ops, backend=T.ParBackend.TORCH))
 
 
 ORDERS = list(T.CircularTensorOrder)

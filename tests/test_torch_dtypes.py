@@ -44,6 +44,8 @@ CUDA = torch.device("cuda")  # only named: the routing is decided on shapes and 
 D = {"u8": np.uint8, "i8": np.int8, "u16": np.uint16, "i16": np.int16, "f16": np.float16,
      "f32": np.float32}
 D32 = {**D, "i32": np.int32}  # int32 has its own file of cases (test_torch_int32.py)
+# int64 and float64 have theirs too (test_torch_x64.py); the probe table's rows
+D64 = {**D32, "i64": np.int64, "f64": np.float64}
 NEW = ("i8", "u16", "i16", "f16")  # the source dtypes this port's resampling kernels added
 # a scale that brings each source dtype's values to a few hundred
 ALPHA = {"u8": 0.5, "i8": 1.5, "u16": 1 / 128.0, "i16": 1 / 96.0, "f16": 0.25, "f32": 0.5}
@@ -53,8 +55,8 @@ def _src(shape, name, seed=0):
     """Values over the whole range of an integer dtype; float values of a
     few hundred, both signs, exact in float16."""
     rng = np.random.default_rng(seed)
-    dtype = D32[name]
-    if name in ("f16", "f32"):
+    dtype = D64[name]
+    if name in ("f16", "f32", "f64"):
         return (rng.integers(-400, 2400, shape) / 8.0).astype(dtype)
     info = np.iinfo(dtype)
     return rng.integers(info.min, int(info.max) + 1, shape).astype(dtype)
@@ -150,6 +152,37 @@ def _probe_rows():
     rows["image_u8_to_i32_gray"] = ("cuda:pointwise", lambda M: (
         M.image(frame("u8")), M.convert_to(np.int32, alpha=1e6),
         M.cvt_color(M.ColorConversionCode.COLOR_RGB2GRAY), M.write()))
+    # int64 and float64: int32 and float32 where they enter, as in the
+    # reference; every head runs its kernel
+    for s in ("i64", "f64"):
+        rows[f"resize_batch_{s}"] = ("cuda:batch_resize", lambda M, s=s: (
+            M.resize_batch(frame(s), rects=RECTS, dsize=M.Size(64, 128)),
+            M.convert_to(np.float32, alpha=0.5), M.split_tensor()))
+        rows[f"resize_{s}_split"] = ("cuda:frame_resize", lambda M, s=s: (
+            M.resize(M.image(frame(s)), M.Size(128, 72)), M.convert_to(np.float32, alpha=0.5),
+            M.split()))
+        rows[f"warp_separable_{s}"] = ("cuda:warp", lambda M, s=s: (
+            M.warp(M.image(frame(s)), SEPARABLE, M.Size(128, 72)),
+            M.convert_to(np.float32, alpha=0.5), M.split_tensor()))
+        rows[f"warp_general_{s}"] = ("cuda:warp", lambda M, s=s: (
+            M.warp(M.image(frame(s)), GENERAL, M.Size(128, 72)), M.convert_to(np.float32),
+            M.split_tensor()))
+        rows[f"warp_batch_{s}"] = ("cuda:warp", lambda M, s=s: (
+            M.warp_batch([frame(s)] * 2, [SEPARABLE, GENERAL], M.Size(128, 72)),
+            M.convert_to(np.float32), M.split_tensor()))
+        rows[f"image_{s}"] = ("cuda:pointwise", lambda M, s=s: (
+            M.image(frame(s)), M.multiply(2.0), M.write()))
+        rows[f"crop_border_{s}"] = ("cuda:pointwise", lambda M, s=s: (
+            M.make_border(M.crop(M.image(frame(s)), M.Rect(-200, 10, 160, 90)), 4, 4, 4, 4,
+                          M.BorderMode.CONSTANT, value=(3e9, -9.0, 0.5)), M.write()))
+    rows["u8_resize_batch_to_f64"] = ("cuda:batch_resize", lambda M: (
+        M.resize_batch(frame("u8"), rects=RECTS, dsize=M.Size(64, 128)),
+        M.convert_to(np.float64, alpha=0.5), M.split_tensor()))
+    rows["u8_resize_to_f64_split"] = ("cuda:frame_resize", lambda M: (
+        M.resize(M.image(frame("u8")), M.Size(128, 72)), M.convert_to(np.float64, alpha=0.5),
+        M.split()))
+    rows["image_u8_to_f64"] = ("cuda:pointwise", lambda M: (
+        M.image(frame("u8")), M.convert_to(np.float64, alpha=0.5), M.write()))
     return rows
 
 
@@ -191,22 +224,46 @@ def test_the_probe_tables_pallas_rows():
         "pallas:batch_resize"
     assert names["resize_i32_split"] == "pallas:frame"
     assert names["warp_separable_i32"] == names["u8_warp_separable_to_i32"] == "pallas:warp"
+    # int64 and float64: the reference's kernels take them as int32 and
+    # float32, the dtypes its dispatch makes of them (64-bit values off)
+    for s in ("i64", "f64"):
+        assert names[f"resize_batch_{s}"] == "pallas:batch_resize"
+        assert names[f"resize_{s}_split"] == "pallas:frame"
+        assert names[f"warp_separable_{s}"] == "pallas:warp"
+    assert names["u8_resize_batch_to_f64"] == "pallas:batch_resize"
+    assert names["u8_resize_to_f64_split"] == "pallas:frame"
 
 
 @pytest.mark.parametrize("dtype", [torch.int64, torch.float64])
 def test_what_an_f32_register_cannot_hold_stays_eager(dtype):
-    """int64 and float64 sources and casts (a 32-bit register holds neither):
-    no kernel takes them, and ``ParBackend.CUDA`` says why, naming each
-    kernel. int32 is held as its bits (the probe table's ``*_i32`` rows)."""
+    """int64 and float64, which a 32-bit register cannot hold, never reach
+    one: the reference runs with 64-bit values off, so they are int32 and
+    float32 where they enter, and nothing of them stays eager. A 64-bit
+    tensor is a source the kernels read at load, a host frame is its
+    canonical dtype's, a cast to either is a cast to int32 or float32 (a
+    saturating one to int64 raises, as the reference's call does). What no
+    kernel reads (a uint32 source) stays eager, and ``ParBackend.CUDA`` says
+    why, naming each kernel."""
     frame = torch.zeros((32, 48, 3), dtype=dtype)
-    for ops in ((T.resize_batch(frame, rects=RECTS[:, :], dsize=T.Size(16, 16)),
-                 T.split_tensor()),
-                (T.image(torch.zeros((32, 48, 3), dtype=torch.uint8)), T.convert_to(dtype),
-                 T.write())):
-        pipeline = T.build_pipeline(*ops)
-        assert executor._select(pipeline, T.ParBackend.AUTO, CUDA).backend == "torch"
-        with pytest.raises(ValueError, match="cuda:batch_resize: .*cuda:pointwise: "):
-            executor._select(pipeline, T.ParBackend.CUDA, CUDA)
+    canonical = {torch.int64: torch.int32, torch.float64: torch.float32}[dtype]
+    for src, plan_dtype in ((frame, dtype), (frame.numpy(), canonical)):
+        pipeline = T.build_pipeline(T.resize_batch(src, rects=RECTS, dsize=T.Size(16, 16)),
+                                    T.split_tensor())
+        plan = executor._select(pipeline, T.ParBackend.CUDA, CUDA)
+        assert plan.backend == "cuda:batch_resize" and plan.kernel.src_dtype == plan_dtype
+    cast = T.Cast(dst=dtype) if dtype == torch.int64 else T.convert_to(np.float64)
+    pipeline = T.build_pipeline(T.image(torch.zeros((32, 48, 3), dtype=torch.uint8)), cast,
+                                T.write())
+    plan = executor._select(pipeline, T.ParBackend.AUTO, CUDA)
+    assert plan.backend == "cuda:pointwise" and plan.kernel.out_dtype == canonical
+    if dtype == torch.int64:
+        with pytest.raises(OverflowError):
+            T.convert_to(np.int64)
+    pipeline = T.build_pipeline(T.resize_batch(frame.to(torch.uint32), rects=RECTS,
+                                               dsize=T.Size(16, 16)), T.split_tensor())
+    assert executor._select(pipeline, T.ParBackend.AUTO, CUDA).backend == "torch"
+    with pytest.raises(ValueError, match="cuda:batch_resize: .*cuda:pointwise: "):
+        executor._select(pipeline, T.ParBackend.CUDA, CUDA)
 
 
 # ---------------------------------------------------------------------------
@@ -363,8 +420,13 @@ def test_float16_rows():
     ops, dtype, _, _ = kbr.encode_chain(
         (T.cvt_color(T.ColorConversionCode.COLOR_RGB2GRAY),), 3, dtype=torch.float16)
     assert dtype == torch.float16 and ops[0, 0] == kbr.OP_GRAY_F16
-    with pytest.raises(kbr.Unsupported, match="cast to torch.int64"):
-        kbr.encode_chain((T.convert_to(np.int64),), 3)
+    # a cast to int64 is one to int32, its canonical dtype; a saturating one
+    # raises, as the reference's call does; uint32 is no chain dtype
+    assert kbr.encode_chain((T.Cast(dst=torch.int64),), 3)[1] == torch.int32
+    with pytest.raises(OverflowError, match="int64"):
+        T.convert_to(np.int64)
+    with pytest.raises(kbr.Unsupported, match="cast to torch.uint32"):
+        kbr.encode_chain((T.Cast(dst=torch.uint32),), 3)
 
 
 #: float values past every integer range, the halves, the infinities and NaN

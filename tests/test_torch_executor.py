@@ -165,9 +165,16 @@ def test_supports_refuses_what_the_kernel_cannot_encode(frame, rects):
     to_int32 = T.build_pipeline(
         T.resize_batch(frame, rects=rects, dsize=T.Size(*UP)), T.convert_to(np.int32))
     assert kbr.supports(to_int32)  # held as its bits in the chain's registers
+    # a cast to int64 is int32's, as in the reference (whose saturating one
+    # raises, as the port's factory does); a cast to uint32 no chain holds
     to_int64 = T.build_pipeline(
-        T.resize_batch(frame, rects=rects, dsize=T.Size(*UP)), T.convert_to(np.int64))
-    assert not kbr.supports(to_int64)
+        T.resize_batch(frame, rects=rects, dsize=T.Size(*UP)), T.Cast(dst=torch.int64))
+    assert kbr.supports(to_int64) and kbr.build_plan(to_int64).out_dtype == torch.int32
+    with pytest.raises(OverflowError):
+        T.convert_to(np.int64)
+    to_uint32 = T.build_pipeline(
+        T.resize_batch(frame, rects=rects, dsize=T.Size(*UP)), T.Cast(dst=torch.uint32))
+    assert not kbr.supports(to_uint32)
     five_ch = np.zeros((20, 30, 5), np.uint8)
     assert not kbr.supports(T.build_pipeline(
         T.resize_batch(five_ch, rects=rects, dsize=T.Size(*UP))))

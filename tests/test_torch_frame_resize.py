@@ -30,6 +30,7 @@ from cvgpuspeedup_tpu.ops import resize as jresize
 from cvgpuspeedup_tpu_torch.exec import cuda_frame_resize as kfr
 from cvgpuspeedup_tpu_torch.interop.from_jax import from_jax
 from cvgpuspeedup_tpu_torch.ops import resize as tresize
+from cvgpuspeedup_tpu_torch.utils import dtypes as dt
 
 F32_TOL = 1e-5
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
@@ -236,11 +237,11 @@ def test_kernel_supports_and_refusals():
         "batched": T.build_pipeline(T.resize(T.image(np.stack([img, img])), T.Size(128, 32))),
         "tensor_write": T.build_pipeline(T.resize(T.image(img), T.Size(128, 32)), T.write_tensor()),
         "five_channels": T.build_pipeline(T.resize(T.image(_img(11, c=5)), T.Size(128, 32))),
-        "int64_out": T.build_pipeline(T.resize(T.image(img), T.Size(128, 32)),
-                                      T.convert_to(np.int64)),
+        "uint32_out": T.build_pipeline(T.resize(T.image(img), T.Size(128, 32)),
+                                       T.Cast(dst=torch.uint32)),
         "no_resize": T.build_pipeline(T.image(img), T.multiply(2.0)),
-        "float64_source": T.build_pipeline(T.resize(T.image(img.astype(np.float64)),
-                                                    T.Size(128, 32))),
+        "uint32_source": T.build_pipeline(T.resize(T.image(img.astype(np.uint32)),
+                                                   T.Size(128, 32))),
     }
     for name, pipe in refused.items():
         assert not kfr.supports(pipe), name
@@ -249,6 +250,13 @@ def test_kernel_supports_and_refusals():
                                          T.convert_to(np.float16)))
     assert kfr.supports(T.build_pipeline(T.resize(T.image(img.astype(np.int32)), T.Size(128, 32)),
                                          T.convert_to(np.int32)))
+    # int64 and float64 are int32 and float32 where they enter (a tensor of
+    # either is read at load), as in the reference
+    for dtype in (torch.int64, torch.float64):
+        src = torch.from_numpy(img).to(dtype)
+        plan = kfr.build_plan(T.build_pipeline(T.resize(T.image(src), T.Size(128, 32)),
+                                               T.Cast(dst=dtype)))
+        assert plan.src_dtype == dtype and plan.out_dtype == dt.canonical_dtype(dtype)
 
 
 def test_backend_choice_on_the_cpu():

@@ -241,8 +241,8 @@ def test_a_fused_read_at_the_top_is_its_read_and_the_head_of_the_chain():
 
 
 @pytest.mark.parametrize("case,reason", [
-    ("int64_source", "source dtype int64"), ("float64_source", "source dtype float64"),
-    ("int64_cast", "cast to torch.int64"), ("float64_scalar", "scalar is float64"),
+    ("uint32_source", "source dtype uint32"), ("bool_source", "source dtype bool"),
+    ("uint64_source", "source dtype uint32"), ("int32_scalar", "scalar is int32"),
     ("resize", "more than one source pixel"), ("five_channels", "5 channels"),
     ("fused_read_under_a_crop", "FusedRead"), ("five_stages", "nests 4"),
     ("tensor_write_of_one_frame", "write TensorWrite"), ("yuv_mid_chain", "no op code"),
@@ -253,10 +253,11 @@ def test_build_plan_refuses_with_a_reason(case, reason):
     for _ in range(5):
         nested = T.make_border(nested, 1, 1, 1, 1)
     ops = {
-        "int64_source": (T.image(img.astype(np.int64)), T.multiply(2.0)),
-        "float64_source": (T.image(img.astype(np.float64)), T.multiply(2.0)),
-        "int64_cast": (T.image(img), T.convert_to(np.int64)),
-        "float64_scalar": (T.image(img), T.Mul(value=np.float64(2.0))),
+        "uint32_source": (T.image(img.astype(np.uint32)), T.multiply(2.0)),
+        "bool_source": (T.image(img > 9),),
+        # a uint64 host frame is uint32's where it enters, as in the reference
+        "uint64_source": (T.image(img.astype(np.uint64)),),
+        "int32_scalar": (T.image(img), T.Mul(value=np.int32(2))),
         "resize": (T.resize(T.image(img), T.Size(4, 4)),),
         "five_channels": (T.image(_src((4, 4, 5), np.uint8)),),
         "fused_read_under_a_crop": (T.crop(T.fuse(T.image(img), T.multiply(2.0)),
@@ -302,15 +303,17 @@ def test_bare_nv12_and_what_stays_eager_on_the_meta_path():
     buf = torch.empty((12, 10), dtype=torch.uint8, device="meta")
     nv12 = T.build_pipeline(T.read_yuv(buf), T.convert_yuv_to_rgb())
     assert executor._select(nv12, T.ParBackend.AUTO, CUDA).backend == "cuda:pointwise"
-    for dtype in (torch.int64, torch.float64):
+    # no kernel reads uint32 or bool: those stay eager
+    for dtype in (torch.uint32, torch.bool):
         p = T.build_pipeline(T.image(torch.empty((4, 4, 3), dtype=dtype, device="meta")),
                              T.multiply(2.0))
         assert executor._select(p, T.ParBackend.AUTO, CUDA).backend == "torch"
         with pytest.raises(ValueError, match="cuda:pointwise: source dtype"):
             executor._select(p, T.ParBackend.CUDA, CUDA)
     # float16 is exact in the chain's float32 registers, int32 is held as its
-    # bits: one launch each
-    for dtype in (torch.float16, torch.int32):
+    # bits, int64 and float64 tensors are read at load as int32 and float32:
+    # one launch each
+    for dtype in (torch.float16, torch.int32, torch.int64, torch.float64):
         p = T.build_pipeline(T.image(torch.empty((4, 4, 3), dtype=dtype, device="meta")),
                              T.multiply(2.0))
         assert executor._select(p, T.ParBackend.AUTO, CUDA).backend == "cuda:pointwise"

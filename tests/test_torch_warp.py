@@ -515,11 +515,19 @@ def test_kernel_refusals():
         "mixed_geometry": (T.warp_batch([img, img[:20]], [rot, rot], size),),
         "mixed_dtypes": (T.warp_batch([img, img.astype(np.float32)], [rot, rot], size),),
         "five_channels": (T.warp(_img(170, h=40, w=64, c=5), rot, size),),
-        "float64_source": (T.warp(img.astype(np.float64), rot, size),),
+        "uint32_source": (T.warp(img.astype(np.uint32), rot, size),),
         "batch_of_images": (T.batch_read([T.image(img), T.image(img)]),),
         "single_tensor_write": (T.warp(img, rot, size), T.write_tensor()),
-        "int64_out": (T.warp(img, rot, size), T.convert_to(np.int64)),
+        "uint32_out": (T.warp(img, rot, size), T.Cast(dst=torch.uint32)),
     }
+    # int64 and float64 are int32 and float32 where they enter, as in the
+    # reference: a host frame of either, a tensor of either (read at load)
+    # and a cast to either run in the kernel
+    for src in (img.astype(np.float64), img.astype(np.int64),
+                torch.from_numpy(img.astype(np.int64))):
+        assert kw.supports(T.build_pipeline(T.warp(src, rot, size), T.convert_to(np.float64)))
+    assert kw.build_plan(T.build_pipeline(T.warp(img, rot, size),
+                                          T.Cast(dst=torch.int64))).out_dtype == torch.int32
     assert kw.supports(T.build_pipeline(T.warp(img.astype(np.uint16), rot, size),
                                         T.convert_to(np.int16)))
     assert kw.supports(T.build_pipeline(T.warp(img.astype(np.int32), rot, size),

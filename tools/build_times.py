@@ -1,0 +1,52 @@
+#!/usr/bin/env python3
+"""Time the compile of each CUDA source of the port alone, then the build
+of all of them in parallel, as ``exec/_build.py`` runs it.
+
+    python3 tools/build_times.py [csrc_dir ...]
+
+For each directory of sources (the package's ``csrc`` unless given; another
+tree's, such as the parent commit's unpacked with ``git archive``, to
+compare), prints each source's ``nvcc`` time in seconds when it compiles
+alone, their sum, and the wall time of the parallel build into a temporary
+directory (``_build.build``, each source in a process of its own, then the
+link). Needs ``nvcc``; no card.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT))
+    from cvgpuspeedup_tpu_torch.exec import _build
+
+    dirs = [Path(d) for d in sys.argv[1:]] or [ROOT / "cvgpuspeedup_tpu_torch" / "csrc"]
+    nvcc = _build.find_nvcc()
+    for csrc in dirs:
+        sources, _ = _build._inputs(csrc)
+        with tempfile.TemporaryDirectory(prefix="build_times_") as tmp:
+            alone = {}
+            for s in sources:
+                t0 = time.perf_counter()
+                subprocess.run(_build.compile_command(nvcc, s, Path(tmp) / f"{s.stem}.o"),
+                               check=True, capture_output=True)
+                alone[s.name] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _build.build(csrc, Path(tmp) / "lib")
+            parallel = time.perf_counter() - t0
+        print(f"{csrc}: " + ", ".join(f"{n} {t:.1f}" for n, t in
+                                      sorted(alone.items(), key=lambda kv: -kv[1])))
+        print(f"{csrc}: {len(sources)} sources, {sum(alone.values()):.1f} s one by one, "
+              f"{parallel:.1f} s in parallel (link included)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

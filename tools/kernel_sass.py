@@ -5,8 +5,9 @@
 
 Builds ``cvgpuspeedup_tpu_torch/csrc`` (``exec/_build.py``: nothing is built
 twice), dumps with ``cuobjdump -sass`` every kernel whose mangled name holds
-``pattern`` (``pointwise_kernelIfLi4ELi4E``, the float32 instance with 4
-lanes and 4 pixels per thread, unless given) and prints for each: its instruction count, its
+``pattern`` (``pointwise_kernelIfLi4ELi4ELb0E``, the float32 instance with
+4 lanes and 4 pixels per thread for 32-bit sources, unless given) and
+prints for each: its instruction count, its
 local-memory loads and stores (``LDL``, ``STL``: spills), every loop (a
 backward branch) with its length in instructions, and the opcodes of the
 longest loop, most frequent first. With ``out.txt`` the SASS itself is
@@ -52,7 +53,7 @@ def kernel_stats(sass: str) -> dict:
 
 
 def main() -> int:
-    pattern = sys.argv[1] if len(sys.argv) > 1 else "pointwise_kernelIfLi4ELi4E"
+    pattern = sys.argv[1] if len(sys.argv) > 1 else "pointwise_kernelIfLi4ELi4ELb0E"
     sys.path.insert(0, str(ROOT))
     from cvgpuspeedup_tpu_torch.exec import _build
 

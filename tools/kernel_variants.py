@@ -48,7 +48,13 @@ kernel duration of 20 launches), in microseconds:
   border, the crop, NV12 -> RGBA) and P1's chain on 768x768, 1024x1024 and
   1448x1448 (``p1_768``, ``p1_1024``, ``p1_1448``: output counts around the
   one-lane instances' thresholds), left out for a variant whose sources have
-  no pointwise kernel (an older tree's).
+  no pointwise kernel (an older tree's);
+- the flagship, W6 and D1 on their frame or ring in other source dtypes,
+  the same values (``k1_f32``, ``k1_i32``, ``k1_i64``, ``k1_f64``, ``w6_*``
+  and ``d1_f64`` alike), and P1-P4 on int64 and float64 twins of their
+  sources (``p1_i64`` .. ``p4_f64``): what each source type's read costs.
+  The int64 and float64 ones are left out for a variant whose sources do
+  not read them (no ``source_int64.cu``).
 
 ``cases``, a comma-separated list, times only those. The cases are
 ``chip_smoke.py``'s own functions, so the two cannot drift. Each line gives
@@ -137,7 +143,7 @@ def main() -> int:
     from cvgpuspeedup_tpu_torch.exec import cuda_pointwise as kp
     from cvgpuspeedup_tpu_torch.exec import cuda_warp as kw
     from cvgpuspeedup_tpu_torch.graph import map_leaves
-    from cvgpuspeedup_tpu_torch.utils.dtypes import as_device_tensor
+    from cvgpuspeedup_tpu_torch.utils.dtypes import kernel_source
     from cvgpuspeedup_tpu_torch.utils.profiling import time_cuda
 
     variants = json.loads(Path(sys.argv[1]).read_text())
@@ -183,13 +189,28 @@ def main() -> int:
         cases[f"p1_{side}"] = (kp, kp.pointwise, (cvgs.image(mad_src[:side, :side].contiguous()),
                                                    cs.mad_chain(cvgs), cvgs.write()))
     pointwise_cases = {name for name in cases if name.startswith("p")}
+    twins = {"f32": torch.float32, "i32": torch.int32, "i64": torch.int64,
+             "f64": torch.float64}
+    for tag, dtype in twins.items():
+        cases[f"k1_{tag}"] = (kbr, kbr.batch_resize, cs.flagship_ops(cvgs, frame.to(dtype), rects))
+        cases[f"w6_{tag}"] = (kw, kw.warp, cs.warp_batch_ops(cvgs, cvgs.image(hd.to(dtype)),
+                                                             -10.0, 7))
+    batches["d1_f64"] = rows.d1(3, rows.ring.double())
+    for tag, dtype in (("i64", torch.int64), ("f64", torch.float64)):
+        wide = cs.pointwise_rows(cvgs, mad_src.to(dtype), rows.ring.to(dtype), 3, hd.to(dtype),
+                                 (-300, -200), nv12_hd)
+        for k, ops in enumerate(list(wide.values())[:4], 1):
+            cases[f"p{k}_{tag}"] = (kp, kp.pointwise, ops)
+            pointwise_cases.add(f"p{k}_{tag}")
+    x64_cases = {name for name in (*cases, *batches) if name.endswith(("_i64", "_f64"))}
     launches = {}
+    # host leaves onto the card once; a tensor, 64-bit ones among them, stays
     for name, (module, wrapper, ops) in cases.items():
-        pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: as_device_tensor(v, dev))
+        pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: kernel_source(v, dev))
         args = module.prepare(pipe, module.build_plan(pipe), dev)
         launches[name] = (lambda wrapper=wrapper, args=args: wrapper(args))
     for name, (ids, seqs) in batches.items():
-        seqs = map_leaves(seqs, lambda v: as_device_tensor(v, dev))
+        seqs = map_leaves(seqs, lambda v: kernel_source(v, dev))
         args = kd.prepare(seqs, kd.build_plan(seqs, ids), dev)
         launches[name] = (lambda args=args: kd.divergent(args))
     if only is not None:
@@ -198,8 +219,11 @@ def main() -> int:
             return 1
         launches = {name: fn for name, fn in launches.items() if name in only}
 
-    def runs(cname) -> bool:
-        """Whether the library in use has the case's kernel."""
+    def runs(cname, d) -> bool:
+        """Whether the library in use, built from ``d``, has the case's
+        kernel and reads its source."""
+        if cname in x64_cases and not (d / "source_int64.cu").exists():
+            return False
         return cname not in pointwise_cases or hasattr(_build.load(), "cvgs_pointwise")
 
     def profiler_us(fn, calls=20):
@@ -274,7 +298,7 @@ def main() -> int:
         for vname, d in dirs.items():
             use(d)
             for cname, fn in launches.items():
-                if not runs(cname):
+                if not runs(cname, d):
                     continue
                 got = fn()
                 got = got if isinstance(got, tuple) else (got,)
@@ -291,7 +315,7 @@ def main() -> int:
             for vname, d in dirs.items():
                 use(d)  # built above: this makes it the library in use
                 for cname, fn in launches.items():
-                    if not runs(cname):
+                    if not runs(cname, d):
                         continue
                     events = float(np.median(time_cuda(fn, iters=50))) * 1e3
                     results.setdefault((cname, vname), []).append((events, profiler_us(fn)))
