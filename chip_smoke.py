@@ -26,7 +26,12 @@ In phases; any failure ends the run with a non-zero exit
 code and no result line:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
-2. build: compile every kernel source, in parallel, into one library (timed);
+2. build: compile every kernel source, in parallel, into one library (timed),
+   then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
+   -sass``): in every instance of the five kernels no float32 add, multiply,
+   compare or min/max without ``.FTZ`` (``-ftz=true``: the reference's
+   float32 rule, ``utils/dtypes.py::flush_subnormal``), and the float64
+   load's ``F2F.F32.F64`` without it;
 3. each kernel against its plain PyTorch version on the card. batch_resize at
    the flagship shapes (3840x2160 u8 frame, 50 crops -> 64x128): every
    aspect-ratio mode, ragged ``used_planes``, stack mode, a uint8 chain,
@@ -83,6 +88,13 @@ code and no result line:
    crop, a CONSTANT border, a one-channel image, an op; float64 values past
    float32's range and below its normals copied) and float64 groups of K6
    (D1, D4, a stack resize).
+   Subnormal float32 values (``subnormal_cases``): sources with a sixteenth
+   of their values from ``EDGES32`` (subnormals, and values whose products
+   underflow) through K1's flagship, K2's frame (a), W6, D1, P1 at 512x512
+   and P3, chains with a subnormal scalar and a divide that flushes more
+   than half the results; each kernel one launch, equal to its plain version as
+   int32 bits (-0 and +0 differ), more than 0 outputs flushed to 0 and none
+   subnormal; and a float64 crop of ``EDGES64`` that keeps 1e-40 and -1e-42.
    uint8 must match bit for bit, float32 within 1e-6, warp float32 bit for
    bit too, every other dtype bit for bit;
 4. the main paths: ``execute_operations`` twice each (new rects, new frame
@@ -874,6 +886,50 @@ def x64_cases(cvgs, torch, frame, rects, hd, ring) -> list:
     return cases
 
 
+#: float32 subnormals, and values whose products with a chain's scalars
+#: underflow
+EDGES32 = (1e-40, -2e-39, -5e-40, 1e-38, 2.0 ** -149, -1e-38, 1e-30, -3e-31)
+
+
+def as_edges32(torch, u8):
+    """A uint8 tensor as float32 values on its device: a sixteenth from
+    ``EDGES32``, the others (v - 127.5) / 64, normal and never 0."""
+    k = u8.to(torch.int64)
+    table = torch.tensor(EDGES32, dtype=torch.float32, device=u8.device)
+    return torch.where(k % 16 == 0, table[(k // 16) % len(EDGES32)], (k.float() - 127.5) / 64.0)
+
+
+def subnormal_cases(cvgs, torch, frame, rects, hd, ring) -> list:
+    """The subnormal phase: ``(name, kernel, ops)``, each kernel's output
+    equal to its plain version as int32 bits. Float32 sources of
+    ``as_edges32`` through K1's flagship, K2's frame (a), W6, D1, P1 at
+    512x512 and P3, each chain ending with a subnormal scalar (which reads
+    as 0) and a divide by 1e38, which flushes every result below 1.17 in
+    magnitude, more than half of them."""
+    dsize, seq = cvgs.Size(64, 128), cvgs.build_operation_sequence
+    fe, he, re = as_edges32(torch, frame), as_edges32(torch, hd), as_edges32(torch, ring)
+    chain = (cvgs.multiply(1.0), cvgs.subtract((1e-40, 0.0, -2e-39)), cvgs.divide(1e38))
+    return [
+        ("sub_k1_flagship", "batch_resize",
+         (cvgs.resize_batch(fe, rects=rects, dsize=dsize), *chain, cvgs.split_tensor())),
+        ("sub_k2_frame_a", "frame_resize",
+         (cvgs.resize(cvgs.image(he), cvgs.Size(*FRAME_DST)), *chain, cvgs.split_tensor())),
+        ("sub_w6", "warp", warp_batch_ops(cvgs, cvgs.image(he), -10.0, 7)[:1]
+         + (*chain, cvgs.split_tensor())),
+        ("sub_d1", "divergent", ([1, 2] * 8, (
+            seq(cvgs.circular_batch_read(re, first=3), cvgs.convert_to(np.float32, alpha=1.0),
+                *chain[1:], cvgs.write_tensor()),
+            seq(cvgs.circular_batch_read(re, first=-5), cvgs.convert_to(np.float32, alpha=0.5),
+                cvgs.multiply((2.0, 1.0, 1e-40)), cvgs.divide(1e38), cvgs.write_tensor())))),
+        ("sub_p1_mad_512x512", "pointwise",
+         (cvgs.image(he[:512, :512, :1].contiguous()), mad_chain(cvgs), cvgs.subtract(1e-40),
+          cvgs.divide(1e38), cvgs.write())),
+        ("sub_p3_border8_replicate_1080p", "pointwise",
+         (cvgs.make_border(cvgs.image(he), BORDER, BORDER, BORDER, BORDER,
+                           cvgs.BorderMode.REPLICATE), *chain, cvgs.split_tensor())),
+    ]
+
+
 def phase7(mesh, modules: dict) -> dict:
     """The system's own benchmarks and examples on the card: the four
     benchmark scripts at their full shapes with ``--quick`` (fewer
@@ -972,6 +1028,20 @@ def main() -> int:
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"phase2 ptxas: {line.strip()}")
+    # the float32 rule in the SASS: every float32 add, multiply, compare and
+    # min/max flushes subnormals (.FTZ), and the float64 load converts
+    # without .FTZ, so that a copy keeps a float32 subnormal
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import kernel_sass
+
+    t0 = time.perf_counter()
+    for kernel, c in kernel_sass.ftz_census(_build.library_path()).items():
+        log(f"phase2 sass {kernel}: {c['instances']} instances, {c['f32_ops']} float32 "
+            f"FADD/FMUL/FSETP/FMNMX, {c['f32_no_ftz']} without .FTZ; {c['f2f_f64']} F2F.F32.F64, "
+            f"{c['f2f_f64_ftz']} with .FTZ")
+        if not c["instances"] or c["f32_no_ftz"] or not c["f2f_f64"] or c["f2f_f64_ftz"]:
+            raise AssertionError(f"{kernel}: the float32 rule does not hold in its SASS: {c}")
+    log(f"phase2 sass census in {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 3: kernel vs plain version on the card
     rng = np.random.default_rng(42)
@@ -1423,6 +1493,48 @@ def main() -> int:
         else:
             plan = check(name, *ops, kernel=kernel, tol=0.0)
             assert plan.src_dtype in (torch.int64, torch.float64), name
+    # subnormal float32 values, flushed as operands and results of every op
+    # and kept by copies: each kernel equal to its plain version as int32
+    # bits (-0 and +0 differ), one launch, zeros and no subnormal left
+    for name, kernel, ops in subnormal_cases(cvgs, torch, frame, rects_a, hd, ring):
+        module, launch, plain = kernels[kernel]
+        if kernel == "divergent":
+            ids, seqs = ops
+            a = kd.prepare(seqs, kd.build_plan(seqs, ids), dev)
+        else:
+            pipeline = cvgs.build_pipeline(*ops)
+            a = module.prepare(pipeline, module.build_plan(pipeline), dev)
+        before = module.LAUNCHES
+        got = launch(a)
+        want = plain(a)
+        torch.cuda.synchronize()
+        got, want = (t if isinstance(t, tuple) else (t,) for t in (got, want))
+        if module.LAUNCHES != before + 1:
+            raise AssertionError(f"{name}: {module.LAUNCHES - before} launches")
+        bad = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                  for g, w in zip(got, want, strict=True))
+        flat = torch.cat([g.reshape(-1) for g in got])
+        zeros = int((flat == 0).sum())
+        sub = int(((flat != 0) & (flat.abs() < 2.0 ** -126)).sum())
+        log(f"phase3 {kernel} {name}: {flat.numel()} float32 outputs, {bad} differ from the "
+            f"plain version as int32 bits, {zeros} flushed to 0, {sub} subnormal")
+        if bad or sub or not zeros:
+            raise AssertionError(f"{name}: {bad} bits differ, {zeros} zeros, {sub} subnormals")
+    # a float64 source copied: float32's subnormals kept (cvt.rn.f32.f64)
+    he64 = as_float64(torch, hd, edges=True)
+    pipeline = cvgs.build_pipeline(cvgs.crop(cvgs.image(he64), cvgs.Rect(7, 9, 640, 360)),
+                                   cvgs.write())
+    got = kp.pointwise(kp.prepare(pipeline, kp.build_plan(pipeline), dev))
+    want = he64[9:369, 7:647].float()
+    torch.cuda.synchronize()
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    sub = int(((got != 0) & (got.abs() < 2.0 ** -126)).sum())
+    kept = [float(v) for v in (1e-40, -1e-42) if bool((got == torch.tensor(
+        v, dtype=torch.float64).float()).any())]
+    log(f"phase3 pointwise sub_f64_edges_copy: {bad} differ from float64 .float() as int32 bits, "
+        f"{sub} subnormal kept, among them {kept}")
+    if bad or len(kept) != 2:
+        raise AssertionError(f"sub_f64_edges_copy: {bad} bits differ, kept {kept}")
     for name, kernel, ops, view_dtype in (dtype_store_cases(cvgs, frame, rects_a, hd)
                                           + int32_store_cases(cvgs, torch, frame, rects_a, hd)):
         module, launch, plain = kernels[kernel]

@@ -173,14 +173,21 @@ struct i64_bits {
 // converted. A 64-bit source is read as its canonical 32-bit type (the
 // reference runs with 64-bit values off, utils/dtypes.py::canonical_dtype):
 // an int64 value keeps its low 32 bits, read as an int32 source is
-// (cvt.rn.f32.s32), and a float64 value rounds to nearest (cvt.rn.f32.f64).
+// (cvt.rn.f32.s32), and a float64 value rounds to nearest (cvt.rn.f32.f64),
+// keeping a float32 subnormal, as jnp.asarray does. That conversion is
+// written in PTX: under -ftz=true the compiler would emit its .ftz form,
+// which flushes the subnormal a copy must keep.
 template <typename T>
 __device__ __forceinline__ float to_f32(T e) {
   return (float)e;
 }
 __device__ __forceinline__ float to_f32(f16 e) { return __half2float(__ushort_as_half(e.bits)); }
 __device__ __forceinline__ float to_f32(long long e) { return __int2float_rn((int)e); }
-__device__ __forceinline__ float to_f32(double e) { return __double2float_rn(e); }
+__device__ __forceinline__ float to_f32(double e) {
+  float f;
+  asm("cvt.rn.f32.f64 %0, %1;" : "=f"(f) : "d"(e));
+  return f;
+}
 __device__ __forceinline__ float to_f32(i64_bits e) { return __int_as_float((int)e.v); }
 template <typename T>
 __device__ __forceinline__ T ld_elem(const T* __restrict__ p) {

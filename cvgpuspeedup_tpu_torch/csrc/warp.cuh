@@ -26,6 +26,18 @@ __device__ __forceinline__ float affine_term(const float* __restrict__ c, float 
   return __fadd_rn(__fmul_rn(__ldg(c), x), __fadd_rn(__fmul_rn(__ldg(c + 1), y), __ldg(c + 2)));
 }
 
+// The tap at p where ok, else the border value b. A float64 element is
+// loaded under the predicate and converted whatever it holds, so that the
+// conversion (PTX, chain.cuh::to_f32) needs no branch of its own.
+template <typename SrcT>
+__device__ __forceinline__ float tap(bool ok, const SrcT* __restrict__ p, float b) {
+  return ok ? ldf(p) : b;
+}
+__device__ __forceinline__ float tap(bool ok, const double* __restrict__ p, float b) {
+  const float f = to_f32(ok ? __ldg(p) : 0.0);
+  return ok ? f : b;
+}
+
 // The sample of `src`, an (src_h, src_w * nch) image (sides below 2^24), at
 // the float coordinates (px, py) with the border values b, into v[0..nch):
 // four taps, each outside the source replaced by the border, the lerps
@@ -46,10 +58,10 @@ __device__ __forceinline__ void sample_point(const SrcT* __restrict__ src, int s
 #pragma unroll
   for (int ch = 0; ch < kMaxCh; ++ch) {
     if (ch < nch) {
-      const float v00 = (vy0 && vx0) ? ldf(r0 + ix0 + ch) : b[ch];
-      const float v01 = (vy0 && vx1) ? ldf(r0 + ix1 + ch) : b[ch];
-      const float v10 = (vy1 && vx0) ? ldf(r1 + ix0 + ch) : b[ch];
-      const float v11 = (vy1 && vx1) ? ldf(r1 + ix1 + ch) : b[ch];
+      const float v00 = tap(vy0 && vx0, r0 + ix0 + ch, b[ch]);
+      const float v01 = tap(vy0 && vx1, r0 + ix1 + ch, b[ch]);
+      const float v10 = tap(vy1 && vx0, r1 + ix0 + ch, b[ch]);
+      const float v11 = tap(vy1 && vx1, r1 + ix1 + ch, b[ch]);
       v[ch] = lerp_rn(lerp_rn(v00, v01, wx), lerp_rn(v10, v11, wx), wy);
     }
   }

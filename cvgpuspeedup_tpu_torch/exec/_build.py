@@ -59,14 +59,17 @@ def find_nvcc() -> str:
 
 
 def compile_command(nvcc: str, source: Path, output: Path) -> List[str]:
-    """One source to one object: Hopper target, no FMA contraction, no fast
-    math, position-independent for the shared library."""
+    """One source to one object: Hopper target, no FMA contraction, float32
+    subnormal operands and results flushed to a zero of their sign
+    (``-ftz=true``, the reference's rule: ``utils/dtypes.py::flush_subnormal``),
+    no fast math, position-independent for the shared library."""
     return [
         nvcc,
         "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17",
         "-O3",
         "-fmad=false",
+        "-ftz=true",
         "-Xptxas", "-v",
         "-Xcompiler", "-fPIC",
         "-c", str(source),

@@ -1,7 +1,9 @@
 """Pointwise arithmetic ops and the unrolled loop.
 
 Counterpart of ``cvgpuspeedup_tpu/ops/arithmetic.py``. Float tensors use
-plain IEEE arithmetic. Integer tensors compute in float32 and saturate back
+IEEE arithmetic, float32 with its subnormal operands and results flushed to
+zero as the reference's XLA program computes (``utils.dtypes.fmul`` and its
+kin). Integer tensors compute in float32 and saturate back
 to their own dtype (OpenCV's ``add/subtract/multiply/divide`` round half to
 even and clamp rather than wrap). The scalar operand broadcasts over the
 channels, or applies per channel when it has C entries.
@@ -41,7 +43,7 @@ class Mul(_BinaryWithScalar):
     value: torch.Tensor
 
     def _combine(self, x, v):
-        return x * v
+        return dt.fmul(x, v)
 
 
 @op
@@ -49,7 +51,7 @@ class Add(_BinaryWithScalar):
     value: torch.Tensor
 
     def _combine(self, x, v):
-        return x + v
+        return dt.fadd(x, v)
 
 
 @op
@@ -57,7 +59,7 @@ class Sub(_BinaryWithScalar):
     value: torch.Tensor
 
     def _combine(self, x, v):
-        return x - v
+        return dt.fsub(x, v)
 
 
 @op
@@ -65,7 +67,7 @@ class Div(_BinaryWithScalar):
     value: torch.Tensor
 
     def _combine(self, x, v):
-        return x / v
+        return dt.fdiv(x, v)
 
 
 @op

@@ -7,8 +7,9 @@ RGB/BGR/RGBA/BGRA permutations and the 4 reductions to gray.
 Gray matches OpenCV bit for bit: integer images use OpenCV's 15-bit fixed
 point, ``(R*9798 + G*19235 + B*3735 + 2^14) >> 15``; float images use
 ``R*0.299 + G*0.587 + B*0.114`` in their own dtype, each product and sum
-rounded once. An appended alpha channel holds 1.0 for floats and the
-dtype's maximum for integers, as ``cv::cvtColor`` fills it.
+rounded once (float32 with subnormals flushed, ``utils.dtypes.fmul``). An
+appended alpha channel holds 1.0 for floats and the dtype's maximum for
+integers, as ``cv::cvtColor`` fills it.
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ class ColorConversion(ComputeOp):
                 gray = acc.to(x.dtype)
             else:
                 c = [torch.tensor(v, dtype=x.dtype, device=x.device) for v in GRAY_F32]
-                gray = r * c[0] + g * c[1] + b * c[2]
+                gray = dt.fadd(dt.fadd(dt.fmul(r, c[0]), dt.fmul(g, c[1])), dt.fmul(b, c[2]))
             return gray[..., None]
         swz = info[2]
         y = dt.gather(x, lambda s: s[..., list(swz)])

@@ -15,9 +15,9 @@ Conversion (``ConvertYUVToRGB``), in float32, with Kg = 1 - Kr - Kb::
 
 bt601 Kr=0.299 Kb=0.114; bt709 Kr=0.2126 Kb=0.0722. The coefficients are
 computed in double and rounded to float32 once; every float32 operation is
-rounded on its own, in the reference's order. Integer outputs are
-saturate-cast; ``alpha=True`` appends an alpha channel (the dtype's max, or
-1.0 for floats).
+rounded on its own, in the reference's order, subnormals flushed
+(``utils.dtypes.fmul``). Integer outputs are saturate-cast; ``alpha=True``
+appends an alpha channel (the dtype's max, or 1.0 for floats).
 """
 
 from __future__ import annotations
@@ -98,15 +98,15 @@ class ConvertYUVToRGB(ComputeOp):
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         rv, gu, gv, bu = conversion_coefficients(self.standard)
         y = x[..., 0].to(torch.float32)
-        u = x[..., 1].to(torch.float32) - 128.0
-        v = x[..., 2].to(torch.float32) - 128.0
+        u = dt.fsub(x[..., 1].to(torch.float32), 128.0)
+        v = dt.fsub(x[..., 2].to(torch.float32), 128.0)
         if self.color_range == ColorRange.LIMITED:
-            y = (y - 16.0) * LIMITED_Y
-            u = u * LIMITED_C
-            v = v * LIMITED_C
-        r = y + rv * v
-        g = y - gu * u - gv * v
-        b = y + bu * u
+            y = dt.fmul(dt.fsub(y, 16.0), LIMITED_Y)
+            u = dt.fmul(u, LIMITED_C)
+            v = dt.fmul(v, LIMITED_C)
+        r = dt.fadd(y, dt.fmul(rv, v))
+        g = dt.fsub(dt.fsub(y, dt.fmul(gu, u)), dt.fmul(gv, v))
+        b = dt.fadd(y, dt.fmul(bu, u))
         rgb = dt.saturate_cast(torch.stack([r, g, b], dim=-1), self.out_dtype)
         if self.alpha:
             a = torch.full(rgb.shape[:-1] + (1,), alpha_fill(self.out_dtype),

@@ -12,7 +12,8 @@ arithmetic per pixel, operation for operation:
 - the f32 division and truncating int conversion of the letterbox fit
   (:func:`letterbox_geometry`);
 - the lerp association of :func:`bilinear_sample`: horizontal first, then
-  vertical, each as ``a*(1-w) + b*w``, nothing contracted into an FMA.
+  vertical, each as ``a*(1-w) + b*w``, nothing contracted into an FMA, and
+  float32 subnormals flushed at every op (``utils.dtypes.flush_subnormal``).
 """
 
 from __future__ import annotations
@@ -97,11 +98,11 @@ def letterbox_geometry(crop_w, crop_h, dsize: Size, mode: AspectRatio):
 
 def bilinear_sample(v00, v01, v10, v11, wx, wy):
     """Bilinear lerp of four f32 corner values: horizontal first, then
-    vertical, each as ``a*(1-w) + b*w``. The association is fixed so that the
-    eager version and the CUDA kernel agree bit for bit."""
-    h0 = v00 * (1.0 - wx) + v01 * wx
-    h1 = v10 * (1.0 - wx) + v11 * wx
-    return h0 * (1.0 - wy) + h1 * wy
+    vertical, each as ``a*(1-w) + b*w`` (``utils.dtypes.lerp``: every
+    product and sum one float32 op with subnormals flushed). The association
+    is fixed so that the eager version and the CUDA kernel agree bit for
+    bit."""
+    return dt.lerp(dt.lerp(v00, v01, wx), dt.lerp(v10, v11, wx), wy)
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +163,8 @@ def sample_frame(src, taps_x, taps_y, keep_edge: bool) -> torch.Tensor:
     """One channel-last (H, W, C) source resized to (len(taps_y),
     len(taps_x), C) float32. ``taps_x``/``taps_y`` are ``(i0, i1, w)``
     tensors on the source's device. Horizontal lerp first, then vertical;
-    with ``keep_edge`` a weight of 0 takes the first tap's value itself."""
+    with ``keep_edge`` a weight of 0 takes the first tap's value itself, a
+    select that keeps a subnormal, as the reference's strided slice does."""
     x0, x1, wx = taps_x
     y0, y1, wy = taps_y
     rows0 = dt.gather(src, lambda s: s.index_select(0, y0))
@@ -172,7 +174,7 @@ def sample_frame(src, taps_x, taps_y, keep_edge: bool) -> torch.Tensor:
 
     def lerp(a, b, w):
         a = a.to(torch.float32)
-        v = a * (1.0 - w) + b.to(torch.float32) * w
+        v = dt.lerp(a, b.to(torch.float32), w)
         return torch.where(w == 0.0, a, v) if keep_edge else v
 
     def cols(rows, x):

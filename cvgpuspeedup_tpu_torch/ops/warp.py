@@ -22,6 +22,7 @@ import torch
 
 from ..graph import ReadOp, op, static_field
 from ..types import Size, WarpType
+from ..utils import dtypes as dt
 
 
 def invert_affine(m) -> np.ndarray:
@@ -54,16 +55,18 @@ def sample_constant_border(src: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor
     (sx, sy) of shape (h, w); a tap outside the source reads ``border`` (C,).
 
     The reference's op order: floor, the fractions, four taps with the
-    out-of-source ones replaced, the horizontal lerps, then the vertical.
+    out-of-source ones replaced (a select, which keeps a subnormal), the
+    horizontal lerps, then the vertical, each float32 op with subnormals
+    flushed (``utils.dtypes.flush_subnormal``).
     Validity is decided on the floored coordinate in float, before any
     integer conversion, so a coordinate far outside int32 reads the border
     like any other outside tap (the reference's int32 taps, saturated or
     wrapped, are out of range there too)."""
     h, w = src.shape[0], src.shape[1]
-    x0f = torch.floor(sx)
-    y0f = torch.floor(sy)
-    wx = (sx - x0f)[..., None]
-    wy = (sy - y0f)[..., None]
+    x0f = dt.ffloor(sx)
+    y0f = dt.ffloor(sy)
+    wx = dt.fsub(sx, x0f)[..., None]
+    wy = dt.fsub(sy, y0f)[..., None]
 
     xs, ys = tap_axis(x0f, w), tap_axis(y0f, h)
 
@@ -75,9 +78,7 @@ def sample_constant_border(src: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor
     v01 = tap(xs[1], ys[0])
     v10 = tap(xs[0], ys[1])
     v11 = tap(xs[1], ys[1])
-    h0 = v00 * (1.0 - wx) + v01 * wx
-    h1 = v10 * (1.0 - wx) + v11 * wx
-    return h0 * (1.0 - wy) + h1 * wy
+    return dt.lerp(dt.lerp(v00, v01, wx), dt.lerp(v10, v11, wx), wy)
 
 
 def decompose_inverse_map(inv, dsize: Size):
@@ -129,13 +130,13 @@ class WarpRead(ReadOp):
         def term(v):
             return torch.as_tensor(v, dtype=torch.float32, device=device)
 
-        sx = term(self.col_x)[None, :] + term(self.row_x)[:, None]
-        sy = term(self.col_y)[None, :] + term(self.row_y)[:, None]
+        sx = dt.fadd(term(self.col_x)[None, :], term(self.row_x)[:, None])
+        sy = dt.fadd(term(self.col_y)[None, :], term(self.row_y)[:, None])
         if self.warp_type == WarpType.PERSPECTIVE:
-            den = term(self.col_w)[None, :] + term(self.row_w)[:, None]
+            den = dt.fadd(term(self.col_w)[None, :], term(self.row_w)[:, None])
             den = torch.where(den == 0.0, 1.0, den)
-            sx = sx / den
-            sy = sy / den
+            sx = dt.fdiv(sx, den)
+            sy = dt.fdiv(sy, den)
         return sx, sy
 
     def lower(self) -> torch.Tensor:

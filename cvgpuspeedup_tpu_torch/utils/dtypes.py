@@ -10,6 +10,8 @@ which runs with jax's 64-bit values off.
 
 from __future__ import annotations
 
+import math
+import operator
 from typing import Any, Sequence, Union
 
 import numpy as np
@@ -164,6 +166,85 @@ def float_to_integer(x: torch.Tensor, dtype: torch.dtype, round_first: bool) -> 
     if info.bits == 64:
         y = torch.where(x >= 2.0 ** 63, info.max, y)
     return y
+
+
+#: float32's smallest normal magnitude, 2^-126, and its largest subnormal
+F32_MIN_NORMAL = 1.1754943508222875e-38
+F32_MAX_SUBNORMAL = 1.1754942106924411e-38
+
+
+def flush_subnormal(x):
+    """``x`` with each float32 subnormal replaced by a zero of its sign.
+
+    The reference computes float32 as its XLA program on the CPU does, with
+    x86 FTZ and DAZ set: a float32 operand of an arithmetic op, a
+    comparison, ``floor``, ``max`` or ``min`` that is subnormal (below
+    2^-126 in magnitude) reads as a zero of its sign, and a subnormal
+    result is written as one. The port applies that rule in its eager ops
+    (:func:`fmul`, :func:`fadd`, :func:`fsub`, :func:`fdiv`, :func:`ffloor`
+    flush each operand and each result of one elementary op) and its kernels
+    are compiled with ``-ftz=true``, whose float32 instructions do the same.
+    What moves values and computes none keeps subnormals, in both packages:
+    reads, gathers, crops, border fills, selects, layout writes, negation
+    and ``abs``, and a float64 value rounded to float32 where it enters.
+    float16 is not flushed: the reference computes its ops in float32, where
+    its values are normal. Any other tensor, and a Python number that is
+    not a float32 subnormal, is returned as it is."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.float32:
+            return x
+        # two passes: every magnitude up to the largest subnormal to +0, then
+        # the sign back (NaN and the infinities pass through both)
+        return torch.nn.functional.hardshrink(x, F32_MAX_SUBNORMAL).copysign_(x)
+    if isinstance(x, (float, np.floating)) and 0.0 < abs(x) < F32_MIN_NORMAL:
+        return math.copysign(0.0, x)
+    return x
+
+
+def _flushed(fn, a, b):
+    return flush_subnormal(fn(flush_subnormal(a), flush_subnormal(b)))
+
+
+def _result(fn, a, b):
+    """``fn(a, b)`` with its result flushed, for operands already flushed."""
+    return flush_subnormal(fn(a, b))
+
+
+def fmul(a, b):
+    """``a * b`` as one float32 multiply of the reference (``__fmul_rn``
+    under ``-ftz=true``): operands and result flushed
+    (:func:`flush_subnormal`)."""
+    return _flushed(operator.mul, a, b)
+
+
+def fadd(a, b):
+    """``a + b``, operands and result flushed (``__fadd_rn``)."""
+    return _flushed(operator.add, a, b)
+
+
+def fsub(a, b):
+    """``a - b``, operands and result flushed (``__fsub_rn``)."""
+    return _flushed(operator.sub, a, b)
+
+
+def fdiv(a, b):
+    """``a / b``, operands and result flushed (``__fdiv_rn``)."""
+    return _flushed(operator.truediv, a, b)
+
+
+def ffloor(x: torch.Tensor) -> torch.Tensor:
+    """``floor(x)`` with a subnormal operand read as a zero of its sign:
+    ``floor(-1e-40)`` is ``-0``, not ``-1``."""
+    return torch.floor(flush_subnormal(x))
+
+
+def lerp(a, b, w):
+    """``a*(1-w) + b*w``, each product and the sum one flushed float32 op
+    (``chain.cuh::lerp_rn``). Each operand is flushed once; the products
+    are results of flushed ops already."""
+    a, b, w = flush_subnormal(a), flush_subnormal(b), flush_subnormal(w)
+    return _result(operator.add, _result(operator.mul, a, _result(operator.sub, 1.0, w)),
+                   _result(operator.mul, b, w))
 
 
 def saturate_cast(x: torch.Tensor, dtype: DTypeLike) -> torch.Tensor:

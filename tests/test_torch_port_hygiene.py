@@ -71,6 +71,7 @@ def test_nvcc_command_targets_hopper_without_fast_math():
         joined = " ".join(cmd)
         assert "arch=compute_90a,code=sm_90a" in joined
         assert "-fmad=false" in cmd
+        assert "-ftz=true" in cmd  # float32 subnormals flushed, as the reference computes
         assert "--use_fast_math" not in joined and "-use_fast_math" not in joined
         assert "-c" in cmd and str(src) in cmd
     link = _build.link_command("nvcc", [Path("a.o"), Path("b.o")], Path("out.so"))

@@ -2,11 +2,12 @@
 """Time the compile of each CUDA source of the port alone, then the build
 of all of them in parallel, as ``exec/_build.py`` runs it.
 
-    python3 tools/build_times.py [csrc_dir ...]
+    python3 tools/build_times.py [csrc_dir[:flag,...] ...]
 
 For each directory of sources (the package's ``csrc`` unless given; another
 tree's, such as the parent commit's unpacked with ``git archive``, to
-compare), prints each source's ``nvcc`` time in seconds when it compiles
+compare; after a colon, flags of ``exec/_build.py``'s command left out for
+that directory, such as ``-ftz=true``), prints each source's ``nvcc`` time in seconds when it compiles
 alone, their sum, and the wall time of the parallel build into a temporary
 directory (``_build.build``, each source in a process of its own, then the
 link). Needs ``nvcc``; no card.
@@ -27,9 +28,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from cvgpuspeedup_tpu_torch.exec import _build
 
-    dirs = [Path(d) for d in sys.argv[1:]] or [ROOT / "cvgpuspeedup_tpu_torch" / "csrc"]
+    args = sys.argv[1:] or [str(ROOT / "cvgpuspeedup_tpu_torch" / "csrc")]
     nvcc = _build.find_nvcc()
-    for csrc in dirs:
+    command = _build.compile_command
+    for arg in args:
+        path, _, drop = arg.partition(":")
+        csrc, dropped = Path(path), set(filter(None, drop.split(",")))
+        _build.compile_command = lambda *a: [f for f in command(*a) if f not in dropped]
         sources, _ = _build._inputs(csrc)
         with tempfile.TemporaryDirectory(prefix="build_times_") as tmp:
             alone = {}
@@ -44,7 +49,8 @@ def main() -> int:
         print(f"{csrc}: " + ", ".join(f"{n} {t:.1f}" for n, t in
                                       sorted(alone.items(), key=lambda kv: -kv[1])))
         print(f"{csrc}: {len(sources)} sources, {sum(alone.values()):.1f} s one by one, "
-              f"{parallel:.1f} s in parallel (link included)")
+              f"{parallel:.1f} s in parallel (link included)"
+              + (f", without {' '.join(sorted(dropped))}" if dropped else ""))
     return 0
 
 

@@ -2,6 +2,7 @@
 """Count what a kernel of the port's library is made of, from its SASS.
 
     python3 tools/kernel_sass.py [pattern [out.txt]]
+    python3 tools/kernel_sass.py --ftz
 
 Builds ``cvgpuspeedup_tpu_torch/csrc`` (``exec/_build.py``: nothing is built
 twice), dumps with ``cuobjdump -sass`` every kernel whose mangled name holds
@@ -11,7 +12,11 @@ prints for each: its instruction count, its
 local-memory loads and stores (``LDL``, ``STL``: spills), every loop (a
 backward branch) with its length in instructions, and the opcodes of the
 longest loop, most frequent first. With ``out.txt`` the SASS itself is
-written there. Needs ``nvcc``'s toolkit (``cuobjdump`` beside it); no card.
+written there. With ``--ftz`` it prints for each of the five kernels, over
+all its instances, the float32 add, multiply, compare and min/max
+instructions without ``.FTZ`` and the float64 to float32 conversions with
+and without it (:func:`ftz_census`). Needs ``nvcc``'s toolkit
+(``cuobjdump`` beside it); no card.
 """
 
 from __future__ import annotations
@@ -25,6 +30,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 _INSTRUCTION = re.compile(r"\s+/\*([0-9a-f]{4,6})\*/\s+(.*?);")
+_FUNCTION = re.compile(r"^\s*Function : (\S+)", re.M)
+#: float32 arithmetic, compare and min/max opcodes that take ``.FTZ``
+FTZ_OPCODES = ("FADD", "FADD32I", "FMUL", "FMUL32I", "FSETP", "FMNMX")
+#: the kernels of the library, by the name each instance's symbol holds
+KERNELS = ("batch_resize_kernel", "frame_resize_kernel", "warp_kernel", "divergent_kernel",
+           "pointwise_kernel")
 
 
 def kernel_stats(sass: str) -> dict:
@@ -52,7 +63,64 @@ def kernel_stats(sass: str) -> dict:
     return stats
 
 
+def ftz_stats(sass: str) -> dict:
+    """The float32 rule in one kernel's SASS (``utils/dtypes.py::flush_subnormal``):
+    ``f32_ops`` and ``f32_no_ftz``, the instructions of ``FTZ_OPCODES`` and
+    those of them without ``.FTZ``; ``f2f_f64`` and ``f2f_f64_ftz``, the
+    float64 to float32 conversions (``F2F.F32.F64``) and those with ``.FTZ``,
+    which a copy of a float64 source must not have; ``no_ftz_opcodes``, the
+    opcodes without ``.FTZ`` by count."""
+    out = {"f32_ops": 0, "f32_no_ftz": 0, "f2f_f64": 0, "f2f_f64_ftz": 0,
+           "no_ftz_opcodes": collections.Counter()}
+    for m in map(_INSTRUCTION.match, sass.splitlines()):
+        if not m:
+            continue
+        words = m.group(2).split()
+        opcode = words[1] if words[0].startswith("@") else words[0]
+        parts = opcode.split(".")
+        if parts[0] in FTZ_OPCODES:
+            out["f32_ops"] += 1
+            if "FTZ" not in parts:
+                out["f32_no_ftz"] += 1
+                out["no_ftz_opcodes"][opcode] += 1
+        elif parts[0] == "F2F" and "F32" in parts and "F64" in parts:
+            out["f2f_f64"] += 1
+            out["f2f_f64_ftz"] += "FTZ" in parts
+    return out
+
+
+def ftz_census(lib: Path) -> dict:
+    """:func:`ftz_stats` summed over every instance of each of ``KERNELS``
+    in the library ``lib`` (one ``cuobjdump -sass`` of the whole library),
+    with ``instances``, the count of instances."""
+    from cvgpuspeedup_tpu_torch.exec import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    census = {k: {"instances": 0, "f32_ops": 0, "f32_no_ftz": 0, "f2f_f64": 0, "f2f_f64_ftz": 0,
+                  "no_ftz_opcodes": collections.Counter()} for k in KERNELS}
+    heads = list(_FUNCTION.finditer(sass))
+    for i, h in enumerate(heads):
+        kernel = next((k for k in KERNELS if k in h.group(1)), None)
+        if kernel is None:
+            continue
+        body = sass[h.end():heads[i + 1].start() if i + 1 < len(heads) else len(sass)]
+        census[kernel]["instances"] += 1
+        for key, n in ftz_stats(body).items():
+            census[kernel][key] += n
+    return census
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--ftz"]:
+        sys.path.insert(0, str(ROOT))
+        from cvgpuspeedup_tpu_torch.exec import _build
+
+        for kernel, c in ftz_census(_build.build()).items():
+            c["no_ftz_opcodes"] = dict(c["no_ftz_opcodes"].most_common(6))
+            print(kernel, c)
+        return 0
     pattern = sys.argv[1] if len(sys.argv) > 1 else "pointwise_kernelIfLi4ELi4ELb0E"
     sys.path.insert(0, str(ROOT))
     from cvgpuspeedup_tpu_torch.exec import _build

@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Time variants of the port's CUDA kernels against each other on one card.
 
-    python3 tools/kernel_variants.py variants.json [rounds [cases]]
+    python3 tools/kernel_variants.py variants.json [rounds [cases]] [--sass]
 
 ``variants.json`` maps a variant's name to a list of text substitutions
 applied to the files of ``cvgpuspeedup_tpu_torch/csrc``: ``[old, new]`` in
 every file that holds ``old``, ``[file, old, new]`` in that file alone; an
-empty list is the tree as it stands. A string instead of a list names
+empty list is the tree as it stands. An object ``{"csrc": ..., "subs":
+[...], "drop_flags": [...]}`` gives a directory, substitutions and compile
+flags left out of ``exec/_build.py``'s command for that variant alone (for
+example ``["-ftz=true"]``, the build before float32 subnormals were
+flushed). With ``--sass`` each variant's float32 rule is read from its
+SASS (``tools/kernel_sass.py::ftz_census``). A string instead of a list names
 another directory of sources, relative to the repo's root (an older commit's
 ``csrc`` unpacked with ``git archive``), whose C interface must equal the
 present one (``_build.load`` declares the present signatures): since K1,
@@ -52,7 +57,9 @@ kernel duration of 20 launches), in microseconds:
 - the flagship, W6 and D1 on their frame or ring in other source dtypes,
   the same values (``k1_f32``, ``k1_i32``, ``k1_i64``, ``k1_f64``, ``w6_*``
   and ``d1_f64`` alike), and P1-P4 on int64 and float64 twins of their
-  sources (``p1_i64`` .. ``p4_f64``): what each source type's read costs.
+  sources (``p1_i64`` .. ``p4_f64``): what each source type's read costs;
+  ``p4_edges_f64``, P4's crop of a float64 frame of ``chip_smoke.py``'s
+  ``EDGES64`` (a copy that keeps float32's subnormals).
   The int64 and float64 ones are left out for a variant whose sources do
   not read them (no ``source_int64.cu``).
 
@@ -127,6 +134,9 @@ def uses_source_flags(csrc: Path) -> bool:
 def main() -> int:
     import torch
 
+    sass = "--sass" in sys.argv
+    if sass:
+        sys.argv.remove("--sass")
     if len(sys.argv) not in (2, 3, 4):
         print(__doc__, file=sys.stderr)
         return 2
@@ -145,6 +155,9 @@ def main() -> int:
     from cvgpuspeedup_tpu_torch.graph import map_leaves
     from cvgpuspeedup_tpu_torch.utils.dtypes import kernel_source
     from cvgpuspeedup_tpu_torch.utils.profiling import time_cuda
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import kernel_sass
 
     variants = json.loads(Path(sys.argv[1]).read_text())
     rounds = int(sys.argv[2]) if len(sys.argv) >= 3 else 6
@@ -202,6 +215,12 @@ def main() -> int:
         for k, ops in enumerate(list(wide.values())[:4], 1):
             cases[f"p{k}_{tag}"] = (kp, kp.pointwise, ops)
             pointwise_cases.add(f"p{k}_{tag}")
+    # P4's crop of a float64 frame a sixteenth each of chip_smoke's EDGES64:
+    # a copy, which keeps float32's subnormals (1e-40, -1e-42)
+    cases["p4_edges_f64"] = (kp, kp.pointwise, (
+        cvgs.crop(cvgs.image(cs.as_float64(torch, hd, edges=True)), cvgs.Rect(-300, -200, 256, 256)),
+        cvgs.write()))
+    pointwise_cases.add("p4_edges_f64")
     x64_cases = {name for name in (*cases, *batches) if name.endswith(("_i64", "_f64"))}
     launches = {}
     # host leaves onto the card once; a tensor, 64-bit ones among them, stays
@@ -241,9 +260,21 @@ def main() -> int:
                 return float(np.median(us))
         return float("nan")
 
+    compile_command = _build.compile_command
+    dropped: dict = {}
+    current: dict = {}
+
+    def variant_command(nvcc, source, output):
+        """The build's command without the flags the variant in use drops."""
+        return [f for f in compile_command(nvcc, source, output)
+                if f not in dropped.get(current.get("d"), ())]
+
+    _build.compile_command = variant_command  # the library's name hashes it too
+
     def use(d):
         """Build (once) and load the sources in ``d``, the library every
         wrapper launches from from now on."""
+        current["d"] = d
         lib = _build.load(d, d / "out")
         if uses_source_flags(d):
             _build._LIB = SourceFlagAbi(lib)
@@ -257,7 +288,12 @@ def main() -> int:
             d.mkdir()
             from_dir = csrc
             if isinstance(subs, str):
-                from_dir, subs = ROOT / subs, []
+                subs = {"csrc": subs}
+            if isinstance(subs, dict):
+                dropped[d] = tuple(subs.get("drop_flags", ()))
+                from_dir = ROOT / subs["csrc"] if "csrc" in subs else csrc
+                subs = subs.get("subs", [])
+            if from_dir != csrc:
                 old_abi = [f for f in ("batch_resize.cu", "frame_resize.cu", "warp.cu")
                            if "int out_type" not in (from_dir / f).read_text()]
                 if old_abi:
@@ -292,6 +328,12 @@ def main() -> int:
             changed = {k: v for k, v in regs.items() if first_regs.get(k) != v}
             print(f"{vname}: registers " + (", ".join(f"{k} {v}" for k, v in (
                 regs if regs is first_regs else changed).items()) or "as the first variant's"))
+            if dropped.get(d):
+                print(f"{vname}: built without {' '.join(dropped[d])}")
+            if sass:
+                for kernel, c in kernel_sass.ftz_census(_build.library_path(d, d / "out")).items():
+                    c["no_ftz_opcodes"] = dict(c["no_ftz_opcodes"].most_common(4))
+                    print(f"{vname}: sass {kernel} {c}")
 
         # a variant may change the speed of a kernel, never a bit of its output
         outputs: dict = {}
@@ -305,8 +347,9 @@ def main() -> int:
                 torch.cuda.synchronize()
                 want = outputs.setdefault(cname, got)
                 if not all(torch.equal(g, w) for g, w in zip(got, want, strict=True)):
-                    print(f"{vname}: {cname} differs from {next(iter(dirs))}'s output",
-                          file=sys.stderr)
+                    bad = sum(int((g != w).sum()) for g, w in zip(got, want, strict=True))
+                    print(f"{vname}: {cname} differs from {next(iter(dirs))}'s output in {bad} "
+                          "values", file=sys.stderr)
                     return 1
         del outputs
 
