@@ -20,15 +20,19 @@ ring read from ``first`` = 3, P3 a 1080p frame with an 8-pixel border in each
 mode, P4 crops at a negative and an overhanging origin, P5 a bare 1080p
 NV12/NV21 -> RGBA conversion, P6 int16 and uint16 chains; the four
 presets, the cv2-typed shim and the frame loader through their public calls;
-and the batch axis of the flagship, W6, P2, D1 and D3 sharded over a device
-mesh (``parallel/mesh.py``).
+the composed path (kernel ``composed``): C1-C8 (``composed_cases``), a
+region of interest of the 4K frame resized, ComputeWhatYouSee, a 640x640
+letterbox, a warp of a crop, a border then a resize, ``crop_batch``, a crop
+of a fused gray conversion and a 6K NV12 buffer converted into uint8 per tap
+and resized; and the batch axis of the flagship, W6, P2, D1 and D3 sharded
+over a device mesh (``parallel/mesh.py``).
 In phases; any failure ends the run with a non-zero exit
 code and no result line:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
 2. build: compile every kernel source, in parallel, into one library (timed),
    then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
-   -sass``): in every instance of the five kernels no float32 add, multiply,
+   -sass``): in every instance of the six kernels no float32 add, multiply,
    compare or min/max without ``.FTZ`` (``-ftz=true``: the reference's
    float32 rule, ``utils/dtypes.py::flush_subnormal``), and the float64
    load's ``F2F.F32.F64`` without it;
@@ -95,6 +99,9 @@ code and no result line:
    than half the results; each kernel one launch, equal to its plain version as
    int32 bits (-0 and +0 differ), more than 0 outputs flushed to 0 and none
    subnormal; and a float64 crop of ``EDGES64`` that keeps 1e-40 and -1e-42.
+   composed in C1-C8 at full width, max |diff| 0, and C1 on uint16, float16
+   and float64 sources and on a float32 frame of ``EDGES32`` with a chain
+   that flushes, as int32 bits, one launch each.
    uint8 must match bit for bit, float32 within 1e-6, warp float32 bit for
    bit too, every other dtype bit for bit;
 4. the main paths: ``execute_operations`` twice each (new rects, new frame
@@ -132,6 +139,9 @@ code and no result line:
    int64 and a float64 1080p frame on the card and a float64 host frame, one
    launch of the pointwise kernel each, equal to its plain version bit for
    bit, while ``convert_to(np.int64)`` raises as the reference's call does;
+   C1-C8 twice each (new crop origins, a new matrix, a new border value),
+   ``cuda:composed`` in one launch per call and no plan on the second, bit
+   for bit the eager version on the card;
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain, and the
    kernel's duration in a ``torch.profiler`` trace of 20 launches (events
@@ -156,7 +166,9 @@ code and no result line:
    unfused rate, half the published one: the build forbids FMAs); the call of
    an int64 frame through the pointwise kernel beside the uint8 frame's; the
    dtype, int32 and 64-bit paths of phase 4, each beside its bound and floor
-   (a 64-bit source's bytes at 8 an element);
+   (a 64-bit source's bytes at 8 an element); the composed kernel in C1-C8
+   beside the eager path it replaces (``ParBackend.TORCH``: its device time
+   by events and by ``torch.profiler``, its kernels and copies per call);
 6. sharding: (a) every rank of meshes of 2 and 5 (the flagship, 50 crops
    ragged at ``used_planes`` = 37) and of 2, 4 and 8 (W6; P2's ring from
    ``first`` = 3 and -5; D1 and D3) run on this card through the rank-local
@@ -516,6 +528,67 @@ def pointwise_rows(cvgs, mad_src, ring, first, hd, origin, nv12_hd, scale=0.3) -
         "p4_crop_256x256": (cvgs.crop(cvgs.image(hd), cvgs.Rect(*origin, 256, 256)), to_unit,
                             cvgs.write()),
         "p5_nv12_1080p_rgba": (cvgs.read_yuv(nv12_hd), cvgs.convert_yuv_to_rgb(alpha=True)),
+    }
+
+
+#: C1's and C4's region of the 4K frame, and C6's crops of 1080p (one off the
+#: frame's right edge, one left of it: dynamic_slice clamps both)
+ROI = (960, 540, 1920, 1080)
+C6_SIDE = 224
+C6_ORIGINS = [(k * (FRAME_W - C6_SIDE) // 15, (k * 53) % (FRAME_H - C6_SIDE)) for k in range(16)]
+C6_ORIGINS[3], C6_ORIGINS[9] = (FRAME_W - 100, 40), (-30, 500)
+
+
+def composed_cases(cvgs, frame, hd, nv12, values=0) -> dict:
+    """The composed-read kernel's cases C1-C8 at full width, which phases 3
+    to 5 drive; ``values`` 1 moves every runtime value (crop origins, the
+    warp's angle, the letterbox's border value) and keeps the structure.
+    C1 a 1920x1080 region of interest of the 4K frame resized to 640x360
+    and normalized; C2 "ComputeWhatYouSee", a fused BGR -> RGB and x1/255
+    under the resize of 1080p; C3 a 640x640 letterbox of 1080p (resize, then
+    a CONSTANT border of 114); C4 C1's region rotated 10 degrees about its
+    centre into 1920x1080; C5 an 8-pixel REFLECT_101 border of 1080p
+    resized; C6 16 crops of 224x224 of 1080p; C7 a 1280x720 crop of 1080p
+    fused with RGB -> gray; C8 the 6K NV12 buffer converted into uint8 RGB
+    per tap and resized to 1080p."""
+    normalize = (cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract(MEAN),
+                 cvgs.divide(STD))
+    x, y, w, h = ROI
+    roi = cvgs.Rect(x + 4 * values, y - 4 * values, w, h)
+    dst = cvgs.Size(*FRAME_DST)
+    origins = [(ox + values, oy) for ox, oy in C6_ORIGINS]
+    return {
+        "c1_roi_crop_resize": (cvgs.resize(cvgs.crop(cvgs.image(frame), roi), dst), *normalize,
+                               cvgs.split_tensor()),
+        "c2_compute_what_you_see": (
+            cvgs.resize(cvgs.fuse(cvgs.image(hd), cvgs.vector_reorder(2, 1, 0),
+                                  cvgs.convert_to(np.float32, alpha=1 / 255.0)), dst),
+            cvgs.split_tensor()),
+        "c3_letterbox_640x640": (
+            cvgs.make_border(cvgs.resize(cvgs.image(hd), dst), 140, 140, 0, 0,
+                             cvgs.BorderMode.CONSTANT, 114 - 14 * values),
+            cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.split_tensor()),
+        "c4_warp_of_a_crop": (
+            cvgs.warp(cvgs.crop(cvgs.image(frame), roi), rotation((w / 2, h / 2), 10.0 + 5 * values,
+                                                                  1.0), cvgs.Size(w, h)),
+            *normalize, cvgs.split_tensor()),
+        "c5_border_then_resize": (
+            cvgs.resize(cvgs.make_border(cvgs.image(hd), BORDER, BORDER, BORDER, BORDER,
+                                         cvgs.BorderMode.REFLECT_101), dst),
+            *normalize, cvgs.split_tensor()),
+        "c6_crop_batch_16x224": (
+            cvgs.crop_batch(hd, [cvgs.Rect(ox, oy, C6_SIDE, C6_SIDE) for ox, oy in origins]),
+            *normalize, cvgs.split_tensor()),
+        "c7_crop_of_fused_gray": (
+            cvgs.crop(cvgs.fuse(cvgs.image(hd),
+                                cvgs.cvt_color(cvgs.ColorConversionCode.COLOR_RGB2GRAY)),
+                      cvgs.Rect(320 + values, 180, 1280, 720)),
+            cvgs.convert_to(np.float32), cvgs.write()),
+        "c8_nv12_6k_to_u8_resize": (
+            cvgs.resize(cvgs.fuse(cvgs.read_yuv(nv12),
+                                  cvgs.convert_yuv_to_rgb(out_dtype=np.uint8)),
+                        cvgs.Size(FRAME_W, FRAME_H)),
+            cvgs.split_tensor()),
     }
 
 
@@ -992,6 +1065,7 @@ def main() -> int:
     import cvgpuspeedup_tpu_torch as cvgs
     from cvgpuspeedup_tpu_torch.exec import _build, executor
     from cvgpuspeedup_tpu_torch.exec import cuda_batch_resize as kbr
+    from cvgpuspeedup_tpu_torch.exec import cuda_composed as kc
     from cvgpuspeedup_tpu_torch.exec import cuda_divergent as kd
     from cvgpuspeedup_tpu_torch.exec import cuda_frame_resize as kfr
     from cvgpuspeedup_tpu_torch.exec import cuda_pointwise as kp
@@ -1057,6 +1131,7 @@ def main() -> int:
         "warp": (kw, kw.warp, kw.warp_reference),
         "divergent": (kd, kd.divergent, kd.divergent_reference),
         "pointwise": (kp, kp.pointwise, kp.pointwise_reference),
+        "composed": (kc, kc.composed, kc.composed_reference),
     }
     max_err = {name: 0.0 for name in kernels}
     case_err = {}
@@ -1546,6 +1621,43 @@ def main() -> int:
         view = host[..., 1:-1]  # rows off the contiguous pitch
         compare(name, kernel, launch(a, out=view), want, 0.0)
 
+    # the composed-read kernel: C1-C8 at full width, each equal to its plain
+    # version (max |diff| 0); C1 on uint16, float16 and float64 sources and on
+    # a float32 frame of EDGES32 with a chain that flushes, as int32 bits, in
+    # one launch each, the subnormal one with outputs flushed to 0 and none
+    # left subnormal; each also equal, as int32 bits, to the eager path on
+    # the card (ParBackend.TORCH), which shares no plan with the kernel
+    for name, ops in composed_cases(cvgs, frame, hd, nv12).items():
+        plan = check(name, *ops, kernel="composed", tol=0.0)
+        log(f"phase3 composed {name}: core {plan.core}, {plan.n_planes} plane(s), source "
+            f"{plan.src_dtype}, taps {plan.tap_dtype} of {plan.word('tap_ch')} channel(s), "
+            f"{plan.word('in_n_ops')} + {plan.word('out_n_ops')} rows")
+    flush = (cvgs.multiply(1.0), cvgs.subtract((1e-40, 0.0, -2e-39)), cvgs.divide(1e38))
+    for tag, src in (("u16", as_dtype(torch, frame, "u16")), ("f16", as_dtype(torch, frame, "f16")),
+                     ("f64", as_float64(torch, frame)), ("sub_f32", as_edges32(torch, frame))):
+        ops = composed_cases(cvgs, src, hd, nv12)["c1_roi_crop_resize"]
+        if tag == "sub_f32":
+            ops = (ops[0], *flush, ops[-1])
+        pipeline = cvgs.build_pipeline(*ops)
+        a = kc.prepare(pipeline, kc.build_plan(pipeline), dev)
+        before = kc.LAUNCHES
+        got, want = kc.composed(a), kc.composed_reference(a)
+        launched = kc.LAUNCHES - before
+        eager = cvgs.execute_operations(*ops, backend=cvgs.ParBackend.TORCH)
+        torch.cuda.synchronize()
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        bad_eager = int((got.view(torch.int32) != eager.view(torch.int32)).sum())
+        zeros = int((got == 0).sum())
+        sub = int(((got != 0) & (got.abs() < 2.0 ** -126)).sum())
+        log(f"phase3 composed c1_src_{tag}: {a.srcs[0].dtype} source, {got.numel()} float32 "
+            f"outputs, {bad} differ from the plain version and {bad_eager} from the eager path "
+            f"as int32 bits, {zeros} are 0, {sub} subnormal; launches {launched}")
+        if bad or bad_eager or sub or launched != 1 or (tag == "sub_f32" and not zeros):
+            raise AssertionError(f"c1_src_{tag}: {bad} bits differ from the plain version, "
+                                 f"{bad_eager} from the eager path, {zeros} zeros, {sub} "
+                                 "subnormals")
+        case_err[f"c1_src_{tag}"] = 0.0
+
     # ---- phase 4: the main path through the public entry points
     path_calls = {name: 0 for name in kernels}
 
@@ -1852,6 +1964,38 @@ def main() -> int:
     mad_err = float(((mad_out.double() - mad64).abs() / mad64.abs().clamp(min=1.0)).max())
     log(f"phase4 pointwise path (p1): max relative |diff| vs float64 {mad_err!r}")
     assert mad_err <= ORACLE_TOL, mad_err
+
+    # the composed path: C1-C8 twice each through execute_operations, the
+    # second call with new crop origins, a new matrix and a new border value;
+    # one launch of cuda:composed per call (the count set to 0 just before),
+    # no plan on the second, equal to the eager version on the card bit for
+    # bit, finite
+    composed_launches = 0
+    for name in composed_cases(cvgs, frame, hd, nv12):
+        kc.LAUNCHES = 0
+        builds0 = executor.PLAN_BUILDS
+        outs, backends, seen = [], [], []
+        for values in (0, 1):
+            ops = composed_cases(cvgs, frame, hd, nv12, values)[name]
+            outs.append(drive("composed", lambda: cvgs.execute_operations(*ops)))
+            backends.append(cvgs.last_backend())
+            seen.append((kc.LAUNCHES, executor.PLAN_BUILDS))
+        torch.cuda.synchronize()
+        composed_launches += kc.LAUNCHES
+        ops1 = composed_cases(cvgs, frame, hd, nv12, 1)[name]
+        forced = cvgs.describe_backend(*ops1, backend=cvgs.ParBackend.CUDA)
+        eager = cvgs.execute_operations(*ops1, backend=cvgs.ParBackend.TORCH)
+        same = torch.equal(outs[1].view(torch.int32), eager.view(torch.int32))
+        moved = not torch.equal(outs[0], outs[1])
+        log(f"phase4 composed path ({name}): backends {backends}, under ParBackend.CUDA {forced}; "
+            f"launches {seen[0][0]} {seen[1][0]}; plan builds {builds0} -> {seen[0][1]} -> "
+            f"{seen[1][1]}; {tuple(outs[1].shape)} {outs[1].dtype}; equal to eager torch {same}; "
+            f"new values moved the output {moved}")
+        assert backends == ["cuda:composed"] * 2 and forced == "cuda:composed", (backends, forced)
+        assert (seen[0][0], seen[1][0]) == (1, 2), seen
+        assert seen[0][1] <= builds0 + 1 and seen[1][1] == seen[0][1], (builds0, seen)
+        assert same and bool(torch.isfinite(outs[1]).all())
+        assert moved == (name[:2] in ("c1", "c3", "c4", "c6", "c7")), (name, moved)
 
     # 64-bit values are int32 and float32 where they enter, as in the
     # reference (64-bit values off): an int64 or a float64 frame on the card
@@ -2572,6 +2716,50 @@ def main() -> int:
         log(f"phase5 pointwise {name}: {describe(t)}; execute_operations host-inclusive "
             f"{t['call_ms'] * 1e3:.2f} us/call (median of 50)")
 
+    # the composed-read kernel in C1-C8: kernel vs plain version, bound,
+    # floor; beside it the eager path it replaces (ParBackend.TORCH on the
+    # same device leaves): its device time by events and by torch.profiler,
+    # and the kernels and copies one eager call launches, from the trace
+    def eager_launches(fn, calls=5):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        copies = sum(n.startswith(("Memcpy", "Memset")) for n in names)
+        return (len(names) - copies) / calls, copies / calls
+
+    c_times = {}
+    for name, ops in composed_cases(cvgs, frame, hd, nv12).items():
+        pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: as_device_tensor(v, dev))
+        cargs = kc.prepare(pipe, kc.build_plan(pipe), dev)
+        t = measure(lambda: kc.composed(cargs), lambda: kc.composed_reference(cargs), 50,
+                    what=name, plain_iters=5)
+        t.update(bounds.bound(*kc.work(cargs), bandwidth))
+        t["max_abs_err"] = case_err[name]
+        # no single PyTorch call reads a composed tree and runs a chain
+        t["library_ms"] = t["library_profiler_ms"] = None
+        eager = lambda: executor.run_pipeline(pipe, cvgs.ParBackend.TORCH)  # noqa: E731
+        t["eager_ms"] = float(np.median(time_cuda(eager, iters=10)))
+        t["eager_profiler_ms"] = profiler_ms(eager, calls=5, what=f"{name} eager")
+        t["eager_launches"], t["eager_copies"] = eager_launches(eager)
+        whole = []
+        for _ in range(40):
+            t0 = time.perf_counter()
+            cvgs.execute_operations(*ops)
+            torch.cuda.synchronize()
+            whole.append(time.perf_counter() - t0)
+        t["call_ms"] = float(np.median(whole[10:])) * 1e3
+        assert cvgs.last_backend() == "cuda:composed"
+        c_times[name] = t
+        log(f"phase5 composed {name}: {describe(t)}; the eager path (ParBackend.TORCH) "
+            f"{t['eager_ms'] * 1e3:.2f} us by events, {t['eager_profiler_ms'] * 1e3:.2f} us by "
+            f"torch.profiler, {t['eager_launches']:.0f} kernels and {t['eager_copies']:.0f} "
+            f"copies a call; execute_operations host-inclusive {t['call_ms'] * 1e3:.2f} us/call "
+            f"(median of 30)")
+
     # an int64 frame through a 3-op chain, which ran eagerly (one launch per
     # op) until int64 became int32 where it enters: one launch of the
     # pointwise kernel, which reads it at load, beside the same chain on the
@@ -2853,7 +3041,8 @@ def main() -> int:
                 "source": f"cvgpuspeedup_tpu_torch/csrc/{source}", "replaces": replaces,
                 "launches": launches, "launches_per_call": launches / path_calls[name],
                 "max_abs_err": max_err[name], **{k: times[k] for k in keys},
-                "phase7_launches": bench["launches"][name], "phase7_rows": bench["rows"][name],
+                "phase7_launches": bench["launches"].get(name, 0),
+                "phase7_rows": bench["rows"].get(name, []),
                 **more}
 
     print(card)
@@ -2898,6 +3087,11 @@ def main() -> int:
               int32_path=dtype_times["crop_border_i32_unchanged"],
               x64_path=dtype_times["crop_border_f64"],
               sharded_launches=sharded_launches["pointwise"]),
+        # C1, the region of interest; C1-C8 below, each beside the eager path
+        # it replaces. No Pallas counterpart: it replaces the reference's
+        # jitted XLA program for composed reads
+        entry("composed", "composed.cu", "cvgpuspeedup_tpu/exec/executor.py:243",
+              composed_launches, c_times["c1_roi_crop_resize"], cases=c_times),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

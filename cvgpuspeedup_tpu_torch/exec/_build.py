@@ -192,6 +192,16 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
                     p,                         # stream
                 ]
                 lib.cvgs_pointwise.restype = ctypes.c_int
+            if csrc_dir is None or hasattr(lib, "cvgs_composed"):
+                lib.cvgs_composed.argtypes = [
+                    p, p, f, f, f, f, f, f,    # src, head (host words), ys, cs, rv, gu, gv, bu
+                    p, p,                      # blk, consts
+                    i, i, i,                   # n_planes, dst_w, dst_h
+                    p, i, i, i,                # out, out_type, out_ch, store_op
+                    ll, ll, ll, ll,            # sn, sc, sy, sx
+                    p,                         # stream
+                ]
+                lib.cvgs_composed.restype = ctypes.c_int
             lib.cvgs_error_string.argtypes = [ctypes.c_int]
             lib.cvgs_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -1,0 +1,782 @@
+"""The composed-read kernel: plan, plain version, wrapper.
+
+Counterpart of the one jitted XLA program that
+``cvgpuspeedup_tpu/exec/executor.py::_compiled`` builds for a read tree no
+Pallas kernel takes (``pallas_frame.py::_source_array``,
+``pallas_backend.py::supports`` and ``pallas_warp_universal.py`` refuse
+composed reads, so XLA fuses them). One launch of ``csrc/composed.cu``
+computes a pipeline whose read is, from the output inwards,
+
+    read   := outer* core
+    outer  := CropRead | BorderRead                  (<= MAX_STAGES)
+    core   := ResizeRead(inner) | WarpRead(inner) | inner
+    inner  := upper* [FusedRead] lower* base         (<= MAX_STAGES crops
+              and borders in all)
+    base   := ImageRead of one frame | ReadYUV
+
+or a ``BatchRead`` of equal-size ``CropRead`` s of bare bases (``crop_batch``),
+then the pointwise chain and any write. A core with no resampling node reads
+one pixel: the kernel takes it only with a ``FusedRead`` below a stage or
+under a ``BatchRead`` of crops; every other such tree is the pointwise
+kernel's. What stays eager: a second resampling node, a batched image under
+a resample, a ``FusedRead`` above the core, a ``BatchRead`` of anything but
+crops of bare bases or with ``used_planes``, and the float ``FusedRead`` of
+NV12 that the full-frame kernel resizes commuted.
+
+Semantics, each as the eager lowering computes it:
+
+- the resample reads the *inner virtual image*: a resize's taps
+  (``ops/resize.py::axis_taps``, host tables) over its size, with the edge
+  rule ``keeps_edge_weight`` picks for that size; a warp's coordinates
+  recomputed from the block's float32 coefficients (``csrc/warp.cuh``), a
+  tap outside that image reads the border value;
+- each tap's position walks the stages between the core and the
+  ``FusedRead`` (*upper*), then those below it (*lower*), as
+  ``csrc/pointwise.cuh::walk_stages`` walks them; the base's value (or a lower
+  CONSTANT border's value cast to the source's dtype) goes through the
+  ``FusedRead`` 's chain per tap; an upper CONSTANT border gives its value
+  cast to the chain's dtype without the chain; a resample then reads the
+  value as float32;
+- the outer stages walk each output pixel's position into the core's output;
+  an outer CONSTANT border's value is cast to the core's dtype.
+
+:func:`build_plan` turns the structure into a :class:`ComposedPlan` once:
+the head's words (three ``PwHead`` stage lists and the core's fields), the
+two op tables and a resize's tap tables, and the block's layout. Runtime
+values (crop origins, border values, warp coefficients and border, chain
+scalars, a batch's source addresses) ride one int32 block per call and key
+no plan.
+
+:func:`composed` is the wrapper: on a CUDA tensor it launches the kernel,
+on a CPU tensor it runs :func:`composed_reference`, the plain PyTorch
+version. That one computes the same function from the plan's words and the
+block: the stage walks, the tap tables, the coordinates from the
+coefficients, each chain op's own ``apply`` and the write, with the
+``utils.dtypes`` flush ops; so holding it against the eager lowering checks
+the plan, and holding the kernel against it checks the CUDA code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..graph import FusedRead, flatten, map_leaves
+from ..ops.crop import CropRead
+from ..ops.memory import BatchRead, ImageRead
+from ..ops.nv12 import ReadYUV
+from ..ops.resize import ResizeRead, axis_taps, keeps_edge_weight
+from ..ops.warp import WarpRead
+from ..types import BorderMode, InterpolationType, PixelFormat, Size, WarpType
+from ..utils import bounds
+from ..utils import dtypes as dt
+from ..utils.dtypes import as_device_tensor, kernel_source
+from . import _build
+from . import cuda_batch_resize as kbr
+from . import cuda_pointwise as kp
+from .cuda_batch_resize import (_MAX_CHANNELS, _MAX_PLANES, SRC_CODES, SRC_DTYPES, TYPE_CODES,
+                                Unsupported, _leaf_dtype_name, encode_chain, store_cast)
+from .cuda_divergent import _Block, _image_geometry
+from .cuda_pointwise import BORDER_MODES, MAX_STAGES, STAGE_BORDER, STAGE_CROP, _stages, _unwrap
+from .cuda_warp import _MAX_SIDE, _SINGLE_LAYOUTS, _size
+
+__all__ = ["Unsupported", "build_plan", "supports", "prepare", "composed_reference", "composed",
+           "run", "work", "LAUNCHES"]
+
+#: launches of the CUDA kernel in this process
+LAUNCHES = 0
+
+# keep every code in step with csrc/composed.cuh
+CORES = ("none", "resize", "warp")
+#: the head's words: three PwHead stage lists (csrc/pointwise.cuh), then the core's
+HEAD_INTS = 3 * kp.HEAD_INTS + 20
+_CORE_WORDS = ("core", "core_h", "core_w", "in_h", "in_w", "keep_edge", "persp", "coef_off",
+               "border_off", "taps_off", "tap_type", "core_type", "tap_ch", "batch", "in_n_ops",
+               "in_ops_off", "in_fp_off", "out_n_ops", "out_ops_off", "out_fp_off")
+assert len(_CORE_WORDS) == HEAD_INTS - 3 * kp.HEAD_INTS
+_N_COEFFS = 9  # block words of a warp's coefficients; an affine map uses 6
+_CONSTANT, _REFLECT, _REFLECT_101, _WRAP = (BORDER_MODES[m] for m in (
+    BorderMode.CONSTANT, BorderMode.REFLECT, BorderMode.REFLECT_101, BorderMode.WRAP))
+
+
+@dataclasses.dataclass
+class _Tree:
+    """A read tree taken apart: the stages outermost first in each list."""
+
+    chain: Tuple             # the pipeline's chain, FusedReads at the top included
+    crops: Tuple             # a BatchRead's CropReads; () for one frame
+    outer: List              # stages above the core
+    core: object             # the ResizeRead or WarpRead; None for one pixel
+    upper: List              # stages between the core and the FusedRead
+    fused: object            # the FusedRead, or None
+    lower: List              # stages between the FusedRead (else the core) and the base
+    base: object             # the ImageRead or ReadYUV
+
+
+def _tree(pipeline) -> _Tree:
+    """The pipeline's read taken apart; raises :class:`Unsupported`."""
+    read, chain = _unwrap(pipeline)
+    if isinstance(read, BatchRead):
+        if read.used_planes is not None:
+            raise Unsupported("a BatchRead with used_planes")
+        if not read.ops or not all(isinstance(o, CropRead) for o in read.ops):
+            raise Unsupported("a BatchRead of anything but CropReads")
+        base = read.ops[0].source
+        for o in read.ops:
+            if not isinstance(o.source, (ImageRead, ReadYUV)):
+                raise Unsupported(f"a BatchRead of crops of a {type(o.source).__name__}")
+            if flatten(o.source)[0] != flatten(base)[0]:
+                raise Unsupported("a BatchRead of crops of sources of different shapes")
+            if (o.width, o.height) != (read.ops[0].width, read.ops[0].height):
+                raise Unsupported("a BatchRead of crops of different sizes")
+        return _Tree(chain, tuple(read.ops), [], None, [], None, [], base)
+    outer, node = _stages(read)
+    core = node if isinstance(node, (ResizeRead, WarpRead)) else None
+    upper, node = _stages(node.source) if core is not None else ([], node)
+    fused = node if isinstance(node, FusedRead) else None
+    lower, base = _stages(fused.read) if fused is not None else (upper, node)
+    if fused is None:
+        upper = []
+    if isinstance(base, FusedRead):
+        raise Unsupported("more than one FusedRead under the core")
+    if isinstance(base, (ResizeRead, WarpRead)):
+        raise Unsupported(f"a {type(base).__name__} under the core or under a FusedRead")
+    if not isinstance(base, (ImageRead, ReadYUV)):
+        raise Unsupported(f"read {type(base).__name__} under the core")
+    if core is None and fused is None:
+        raise Unsupported("no resampling node, no FusedRead under a stage and no BatchRead: "
+                          "the pointwise kernel's")
+    if isinstance(base, ImageRead) and base.is_batch:
+        raise Unsupported("a batched ImageRead is not one frame")
+    return _Tree(chain, (), outer, core, upper, fused, lower, base)
+
+
+def _base_geometry(base) -> Tuple[int, int, int, object]:
+    """``(h, w, c, data)`` of a base."""
+    if isinstance(base, ImageRead):
+        h, w, c = _image_geometry(base)
+        return h, w, c, base.data
+    shape = tuple(base.buffer.shape)
+    if len(shape) == 3 and shape[2] == 1:
+        shape = shape[:2]
+    if len(shape) != 2 or _leaf_dtype_name(base.buffer) != "uint8":
+        raise Unsupported(f"NV12 buffer of shape {tuple(base.buffer.shape)} and dtype "
+                          f"{_leaf_dtype_name(base.buffer)}")
+    rows, w = shape
+    h = rows * 2 // 3
+    if h < 2 or h % 2 or w % 2 or h * 3 != rows * 2:
+        raise Unsupported(f"NV12 buffer of shape {shape}")
+    return h, w, 3, base.buffer
+
+
+def _sizes(stages, h: int, w: int) -> List[Tuple[int, int]]:
+    """Each stage's source size, outermost first, and the size above them
+    all last; from the size (h, w) under them."""
+    sizes = [(h, w)]
+    for st in reversed(stages):
+        sh, sw = sizes[-1]
+        if isinstance(st, CropRead):
+            if not (1 <= st.height <= sh and 1 <= st.width <= sw):
+                raise Unsupported(f"crop of {st.width}x{st.height} from {sw}x{sh}")
+            sizes.append((st.height, st.width))
+        else:
+            if min(st.top, st.bottom, st.left, st.right) < 0:
+                raise Unsupported("a negative border")
+            sizes.append((sh + st.top + st.bottom, sw + st.left + st.right))
+    return sizes[-2::-1] + [sizes[-1]]
+
+
+def _stage_words(stages, sizes, pos: int, ch: int) -> Tuple[List[int], int]:
+    """The 8 words of each stage (``csrc/pointwise.cuh::PwStage``) with its
+    block values from word ``pos`` on, zero-padded to ``MAX_STAGES``; and the
+    position past them. A border value takes ``ch`` words."""
+    words: List[int] = []
+    for st, (sh, sw) in zip(stages, sizes):
+        if isinstance(st, CropRead):
+            if _size(st.x) != 1 or _size(st.y) != 1:
+                raise Unsupported("a crop origin of more than one value")
+            words += [STAGE_CROP, sh, sw, 0, pos, pos + 1, st.width, st.height]
+            pos += 2
+        else:
+            if _size(st.value) not in (1, ch):
+                raise Unsupported(f"border value of {_size(st.value)} entries on {ch} channels")
+            words += [STAGE_BORDER, sh, sw, BORDER_MODES[st.mode], st.top, st.left, pos, 0]
+            pos += ch
+    return words + [0] * (8 * (MAX_STAGES - len(stages))), pos
+
+
+def _stage_list(n_stages: int, words, base=0, h=0, w=0, c=0, src=0, nv21=0, conv=0, limited=0,
+                width=0) -> Tuple[int, ...]:
+    """One ``PwHead`` of words: a stage list, and for the lower list the base."""
+    return (base, h, w, c, src, 1, -1, 0, nv21, n_stages, conv, limited, *words, width)
+
+
+@dataclasses.dataclass(frozen=True)
+class ComposedPlan:
+    """Everything about one pipeline structure that the kernel needs;
+    ``n_planes``, ``out_ch``, ``dsize``, ``out_dtype`` and ``layout`` size
+    the output as the other kernels' ``_alloc_out`` do."""
+
+    core: str
+    batch: bool
+    n_planes: int
+    base: str                # "image" or "yuv"
+    src_dtype: torch.dtype
+    src_numel: int           # elements of the base's array
+    dsize: Size              # the output planes' (W, H)
+    out_ch: int
+    out_dtype: torch.dtype
+    tap_dtype: torch.dtype   # a tap's dtype after the FusedRead's chain
+    layout: str
+    head: Tuple[int, ...]    # HEAD_INTS words, csrc/composed.cuh::CmHead
+    conv: Tuple[float, ...]  # (ys, cs, rv, gu, gv, bu) of the FusedRead's leading YUV -> RGB
+    tables: np.ndarray       # int32: the FusedRead's op table, the pipeline's, the tap tables
+    n_block: int             # words of the block
+    #: per-device copies of the tables; the head as a ctypes array
+    device_consts: Dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def word(self, name: str) -> int:
+        """A core word of the head by its name in ``_CORE_WORDS``."""
+        return self.head[3 * kp.HEAD_INTS + _CORE_WORDS.index(name)]
+
+    def stage_list(self, k: int):
+        """The stages of list ``k`` (0 lower, 1 upper, 2 outer) as 8-tuples."""
+        w = self.head[k * kp.HEAD_INTS:(k + 1) * kp.HEAD_INTS]
+        return [tuple(w[12 + 8 * s:20 + 8 * s]) for s in range(w[9])]
+
+    def consts(self, device: torch.device) -> torch.Tensor:
+        c = self.device_consts.get(device)
+        if c is None:
+            c = self.device_consts[device] = torch.from_numpy(self.tables).to(device)
+        return c
+
+    def head_words(self):
+        c = self.device_consts.get("head")
+        if c is None:
+            c = self.device_consts["head"] = (ctypes.c_int * HEAD_INTS)(*self.head)
+        return c
+
+
+def _table(ops: np.ndarray, ch: int) -> np.ndarray:
+    """An op table as the kernel stages it: the rows, a sentinel, each
+    row's channel count (``cuda_pointwise.PointwisePlan.consts``)."""
+    row_ch, _ = kp.row_channels(ops, ch)
+    return np.concatenate([ops.reshape(-1), np.zeros(1, np.int32), row_ch]).astype(np.int32)
+
+
+def build_plan(pipeline) -> ComposedPlan:
+    """The kernel plan of a pipeline; raises :class:`Unsupported`."""
+    t = _tree(pipeline)
+    h, w, c, data = _base_geometry(t.base)
+    src_dtype = SRC_DTYPES.get(_leaf_dtype_name(data))
+    if src_dtype is None:
+        raise Unsupported(f"source dtype {_leaf_dtype_name(data)}")
+    if not 1 <= c <= _MAX_CHANNELS:
+        raise Unsupported(f"{c} channels")
+    if max(h, w) >= _MAX_SIDE:
+        raise Unsupported(f"a source of {w}x{h}")
+    if len(t.outer) > MAX_STAGES or len(t.upper) + len(t.lower) > MAX_STAGES:
+        raise Unsupported(f"{len(t.outer)} outer and {len(t.upper) + len(t.lower)} inner crops "
+                          f"and borders, the kernel nests {MAX_STAGES} of each")
+    batch = bool(t.crops)
+    n_planes = len(t.crops) if batch else 1
+    if not 1 <= n_planes <= _MAX_PLANES:
+        raise Unsupported(f"{n_planes} planes")
+
+    # the inner value: the base, the lower stages, the FusedRead's chain
+    lower_sizes = _sizes(t.lower, h, w)
+    fused_chain = tuple(t.fused.chain) if t.fused is not None else ()
+    conv, conv_first, limited, rows0, tap_dtype, tap_ch, fused_chain = kp.head_conversion(
+        fused_chain, dt.canonical_dtype(src_dtype), c)
+    in_ops, tap_dtype, tap_ch, n_in = encode_chain(fused_chain, tap_ch, dtype=tap_dtype)
+    in_ops = np.concatenate([rows0, in_ops]).astype(np.int32)
+    upper_sizes = _sizes(t.upper, *lower_sizes[-1])
+    in_h, in_w = upper_sizes[-1]
+    if max(in_h, in_w) >= _MAX_SIDE:
+        raise Unsupported(f"an inner image of {in_w}x{in_h}")
+
+    # the core
+    keep = persp = 0
+    taps = np.zeros(0, np.int32)
+    if isinstance(t.core, ResizeRead):
+        core = "resize"
+        if t.core.interp != InterpolationType.INTER_LINEAR:
+            raise Unsupported(f"interpolation {t.core.interp}")
+        if t.core._commuted_source() is not None:
+            raise Unsupported("the float FusedRead of NV12 is resized commuted: the full-frame "
+                              "kernel's")
+        core_w, core_h = t.core.dsize
+        keep = int(keeps_edge_weight(in_h, in_w, t.core.dsize))
+        tx, ty = axis_taps(in_w, core_w, bool(keep)), axis_taps(in_h, core_h, bool(keep))
+        taps = np.concatenate([tx[0], tx[1], ty[0], ty[1]]).astype(np.int32)
+        taps = np.concatenate([taps, np.concatenate([tx[2], ty[2]]).astype(np.float32)
+                               .view(np.int32)])
+    elif isinstance(t.core, WarpRead):
+        core = "warp"
+        core_w, core_h = t.core.dsize
+        persp = int(t.core.warp_type == WarpType.PERSPECTIVE)
+        if _size(t.core.coeffs) != (9 if persp else 6):
+            raise Unsupported(f"a warp of {_size(t.core.coeffs)} coefficients")
+        if _size(t.core.default) not in (1, tap_ch):
+            raise Unsupported(f"warp border of {_size(t.core.default)} entries on {tap_ch} "
+                              "channels")
+    else:
+        core = "none"
+        core_h, core_w = in_h, in_w
+    if min(core_h, core_w) < 1:
+        raise Unsupported(f"an output of {core_w}x{core_h}")
+    core_dtype = tap_dtype if core == "none" else torch.float32
+    outer_sizes = _sizes(t.outer, core_h, core_w)
+    out_h, out_w = outer_sizes[-1]
+    if batch:
+        out_h, out_w = t.crops[0].height, t.crops[0].width
+        outer_sizes = [(h, w), (out_h, out_w)]
+        if not (1 <= out_h <= h and 1 <= out_w <= w):
+            raise Unsupported(f"crops of {out_w}x{out_h} from {w}x{h}")
+
+    # the block: a batch's addresses and origins, the outer stages' values,
+    # the warp's coefficients and border, the upper and the lower stages',
+    # the two chains' scalars, then 4 zero words
+    pos = 4 * n_planes if batch else 0
+    if batch:
+        outer_words = [STAGE_CROP, h, w, 0, 2 * n_planes, 2 * n_planes + 1, out_w, out_h]
+        outer_words += [0] * (8 * (MAX_STAGES - 1))
+        n_outer = 1
+    else:
+        outer_words, pos = _stage_words(t.outer, outer_sizes, pos, tap_ch)
+        n_outer = len(t.outer)
+    coef_off = border_off = 0
+    if core == "warp":
+        coef_off, border_off = pos, pos + _N_COEFFS
+        pos = border_off + tap_ch
+    upper_words, pos = _stage_words(t.upper, upper_sizes, pos, tap_ch)
+    lower_words, pos = _stage_words(t.lower, lower_sizes, pos, c)
+    in_fp_off, pos = pos, pos + n_in
+    out_ops, out_dtype, out_ch, n_out = encode_chain(t.chain, tap_ch, dtype=core_dtype)
+    out_fp_off, pos = pos, pos + n_out
+
+    layouts = kbr._LAYOUTS if batch else _SINGLE_LAYOUTS
+    layout = layouts.get(type(pipeline.write))
+    if layout is None:
+        raise Unsupported(f"write {type(pipeline.write).__name__} of a "
+                          f"{'batched' if batch else 'single'} value")
+    in_table, out_table = _table(in_ops, c), _table(out_ops, tap_ch)
+    tables = np.concatenate([in_table, out_table, taps]).astype(np.int32)
+    kind = "yuv" if isinstance(t.base, ReadYUV) else "image"
+    nv21 = int(kind == "yuv" and t.base.pixel_format == PixelFormat.NV21)
+    core_words = dict(
+        core=CORES.index(core), core_h=core_h, core_w=core_w, in_h=in_h, in_w=in_w,
+        keep_edge=keep, persp=persp, coef_off=coef_off, border_off=border_off,
+        taps_off=in_table.size + out_table.size, tap_type=TYPE_CODES[tap_dtype],
+        core_type=TYPE_CODES[core_dtype], tap_ch=tap_ch, batch=int(batch),
+        in_n_ops=in_ops.shape[0], in_ops_off=0, in_fp_off=in_fp_off, out_n_ops=out_ops.shape[0],
+        out_ops_off=in_table.size, out_fp_off=out_fp_off)
+    head = (_stage_list(len(t.lower), lower_words, kp.BASES.index(kind), h, w, c,
+                        SRC_CODES[src_dtype], nv21, conv_first, limited, tap_ch)
+            + _stage_list(len(t.upper), upper_words) + _stage_list(n_outer, outer_words)
+            + tuple(core_words[k] for k in _CORE_WORDS))
+    return ComposedPlan(
+        core=core, batch=batch, n_planes=n_planes, base=kind, src_dtype=src_dtype,
+        src_numel=int(np.prod(tuple(data.shape))), dsize=Size(out_w, out_h), out_ch=out_ch,
+        out_dtype=out_dtype, tap_dtype=tap_dtype, layout=layout,
+        head=tuple(int(v) for v in head), conv=conv, tables=tables, n_block=pos + 4)
+
+
+def supports(pipeline) -> bool:
+    """Whether the kernel runs this pipeline (decided before any launch)."""
+    try:
+        build_plan(pipeline)
+    except Unsupported:
+        return False
+    return True
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One call's arguments, every tensor on one device."""
+
+    plan: ComposedPlan
+    pipeline: object             # the executor's Pipeline the arguments come from
+    srcs: Tuple[torch.Tensor, ...]  # the distinct base arrays, contiguous
+    plane_src: Tuple[int, ...]   # per output plane, its array in srcs
+    block: torch.Tensor          # int32: addresses, stage values, warp, chain scalars
+    consts: torch.Tensor         # int32: the op tables and the tap tables
+
+
+def _base_leaf(base):
+    return base.buffer if isinstance(base, ReadYUV) else base.data
+
+
+def _put_vector(blk: _Block, v, n: int) -> None:
+    """``v`` (one value or ``n``) as ``n`` float32 words."""
+    if isinstance(v, torch.Tensor):
+        blk.put(v.reshape(-1).to(torch.float32).expand(n), np.float32)
+    else:
+        blk.put(np.broadcast_to(np.asarray(v, np.float32).reshape(-1), (n,)), np.float32)
+
+
+def _put_stages(blk: _Block, stages, ch: int) -> None:
+    """Each stage's values, in ``_stage_words``' order: a crop's origin, a
+    border's value on ``ch`` channels."""
+    for st in stages:
+        if isinstance(st, CropRead):
+            blk.put(st.x, np.int32, width=1)
+            blk.put(st.y, np.int32, width=1)
+        else:
+            _put_vector(blk, st.value, ch)
+
+
+def prepare(pipeline, plan: ComposedPlan, device: torch.device) -> Launch:
+    """Gather one call's arguments on ``device``: the base arrays, and the
+    block of runtime values in one pinned non-blocking copy of its host
+    part (device leaves stay where they are). Nothing here waits for the
+    device."""
+    t = _tree(pipeline)
+    bases = [o.source for o in t.crops] if plan.batch else [t.base]
+    srcs: List[torch.Tensor] = []
+    index: Dict[int, int] = {}
+    plane_src = []
+    for b in bases:
+        leaf = _base_leaf(b)
+        k = index.get(id(leaf))
+        if k is None:
+            k = index[id(leaf)] = len(srcs)
+            srcs.append(kernel_source(leaf, device).contiguous())
+        plane_src.append(k)
+    tap_ch = plan.word("tap_ch")
+    blk = _Block()
+    if plan.batch:
+        blk.put(np.asarray([srcs[k].data_ptr() for k in plane_src], np.uint64).view(np.int32),
+                np.int32)
+        for o in t.crops:
+            blk.put(o.x, np.int32, width=1)
+            blk.put(o.y, np.int32, width=1)
+    _put_stages(blk, t.outer, tap_ch)
+    if plan.core == "warp":
+        blk.put(t.core.coeffs, np.float32, width=_N_COEFFS)
+        _put_vector(blk, t.core.default, tap_ch)
+    _put_stages(blk, t.upper, tap_ch)
+    _put_stages(blk, t.lower, plan.head[3])
+    for chain in (tuple(t.fused.chain) if t.fused is not None else (), t.chain):
+        for v in flatten(tuple(chain))[1]:
+            blk.put(v, np.float32)
+    blk.put(np.zeros(4, np.int32), np.int32)
+    if blk.size != plan.n_block:
+        raise ValueError(f"the block holds {blk.size} words, the plan {plan.n_block}")
+    return Launch(plan=plan, pipeline=pipeline, srcs=tuple(srcs), plane_src=tuple(plane_src),
+                  block=blk.to(device), consts=plan.consts(device))
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
+
+
+def _where(mask, a, b):
+    """``torch.where`` of any dtype (CUDA has none of uint16: its int16 bits)."""
+    if a.dtype == torch.uint16:
+        return torch.where(mask, a.view(torch.int16), b.view(torch.int16)).view(torch.uint16)
+    return torch.where(mask, a, b)
+
+
+def _fold(i, n: int, mode: int):
+    """``csrc/pointwise.cuh::fold_index`` on a tensor of positions."""
+    if mode == _WRAP:
+        return torch.remainder(i, n)
+    if mode == _REFLECT:  # dcba | abcd | dcba
+        t = torch.remainder(i, 2 * n)
+        return torch.where(t < n, t, 2 * n - 1 - t)
+    if mode == _REFLECT_101:  # dcb | abcd | cba
+        if n == 1:
+            return torch.zeros_like(i)
+        t = torch.remainder(i, 2 * n - 2)
+        return torch.where(t < n, t, 2 * n - 2 - t)
+    return i.clamp(0, n - 1)  # REPLICATE; CONSTANT inside its source
+
+
+def _walk(stages, blk, y, x, fill, shift=0):
+    """``csrc/pointwise.cuh::walk_stages`` on tensors of positions: each
+    stage maps (y, x) inwards; ``fill`` takes the block offset of the
+    value of the first CONSTANT border a position lies outside of. A crop's
+    origin is read at its offset plus ``shift`` (a batch's plane)."""
+    for kind, sh, sw, mode, a, b, c, d in stages:
+        if kind == STAGE_CROP:
+            starts = []
+            for off, length, size in ((a, sw, c), (b, sh, d)):
+                s = blk[off + shift]
+                starts.append(torch.where(s < 0, s + length, s).clamp(0, length - size))
+            x, y = x + starts[0], y + starts[1]
+        else:
+            j, i = y - a, x - b
+            if mode == _CONSTANT:
+                out = (j < 0) | (j >= sh) | (i < 0) | (i >= sw)
+                fill = torch.where((fill < 0) & out, c, fill)
+            x, y = _fold(i, sw, mode), _fold(j, sh, mode)
+    return y, x, fill
+
+
+def _filled(v, fill, fblk, dtype):
+    """``v`` with each position whose ``fill`` is set holding the block's
+    value there, cast to ``dtype`` (``utils.dtypes.cast``)."""
+    ch = torch.arange(v.shape[-1], device=v.device)
+    vals = dt.cast(fblk[fill.clamp(min=0)[..., None] + ch], dtype)
+    return _where((fill >= 0)[..., None], vals, v)
+
+
+class _Reader:
+    """The plain version's reads of one launch: a tap's value at positions
+    of the core's source, through the upper stages, the lower ones, the base
+    and the FusedRead's chain. ``touched``, where given, collects each
+    read's base positions that a result needs (for :func:`work`)."""
+
+    def __init__(self, a: Launch, touched=None):
+        plan = a.plan
+        self.plan, self.touched = plan, touched
+        dev = a.srcs[0].device
+        self.blk = a.block.long()
+        self.fblk = a.block.view(torch.float32)
+        self.src_dtype = dt.canonical_dtype(plan.src_dtype)
+        h, w, c = plan.head[1:4]
+        rows = h if plan.base == "image" else h * 3 // 2
+        canon = [dt.canonicalize(s) for s in a.srcs]
+        self.stack = torch.stack([s.reshape(rows, w, -1) for s in canon])
+        self.pidx = torch.as_tensor(a.plane_src, device=dev)
+        t = _tree(a.pipeline)
+
+        def on_device(ops):
+            return map_leaves(tuple(ops), lambda v: as_device_tensor(v, dev))
+
+        self.fused_chain = on_device(t.fused.chain) if t.fused is not None else ()
+        self.chain, self.write = on_device(t.chain), a.pipeline.write
+
+    def base(self, p, y, x):
+        """The base's values (..., C) at positions (y, x) of array p."""
+        if self.plan.base == "image":
+            return dt.gather(self.stack, lambda s: s[p, y, x])
+        h, iu = self.plan.head[1], self.plan.head[8]
+        row = h + torch.div(y, 2, rounding_mode="floor")
+        col = 2 * torch.div(x, 2, rounding_mode="floor")
+        buf = self.stack[..., 0]
+        return torch.stack([buf[p, y, x], buf[p, row, col + iu], buf[p, row, col + 1 - iu]], -1)
+
+    def tap(self, z, y, x, need=None):
+        """The inner value at positions (y, x) of the core's source of plane
+        z, after the FusedRead's chain, in its dtype; ``need`` masks the
+        positions whose value a result takes."""
+        plan = self.plan
+        fill_up = torch.full_like(y, -1)
+        y, x, fill_up = _walk(plan.stage_list(1), self.blk, y, x, fill_up)
+        fill_lo = torch.full_like(y, -1)
+        y, x, fill_lo = _walk(plan.stage_list(0), self.blk, y, x, fill_lo)
+        p = self.pidx[z]
+        if self.touched is not None:
+            read = (fill_lo < 0) & (fill_up < 0)
+            if need is not None:
+                read = read & need
+            p_, y_, x_, read = torch.broadcast_tensors(p, y, x, read)
+            self.touched.append((p_[read], y_[read], x_[read]))
+        v = _filled(self.base(p, y, x), fill_lo, self.fblk, self.src_dtype)
+        for o in self.fused_chain:
+            v = o.apply(v)
+        return _filled(v, fill_up, self.fblk, plan.tap_dtype)
+
+
+def _lerp(a, b, w, keep: bool):
+    """``ops/resize.py::sample_frame``'s lerp: with ``keep`` a weight of 0
+    takes ``a`` itself."""
+    v = dt.lerp(a, b, w)
+    return torch.where(w == 0.0, a, v) if keep else v
+
+
+def _sample(r: _Reader, yc, xc, need):
+    """The core's value at its output positions (yc, xc); ``need`` masks the
+    positions whose value the output takes."""
+    plan = r.plan
+    if plan.core == "none":
+        return r.tap(0, yc, xc, need)
+    if plan.core == "resize":
+        cw, ch = plan.word("core_w"), plan.word("core_h")
+        t = torch.from_numpy(plan.tables[plan.word("taps_off"):]).to(yc.device)
+        x0, x1 = t[:cw].long(), t[cw:2 * cw].long()
+        y0, y1 = t[2 * cw:2 * cw + ch].long(), t[2 * cw + ch:2 * cw + 2 * ch].long()
+        wts = t[2 * (cw + ch):].view(torch.float32)
+        wx, wy = wts[:cw][xc][..., None], wts[cw:][yc][..., None]
+        keep = bool(plan.word("keep_edge"))
+        # with keep a weight of 0 takes the first tap alone: the second is
+        # not needed (the others' lerp reads it whatever its weight)
+        nx = need & ~(keep & (wx[..., 0] == 0.0))
+        ny = need & ~(keep & (wy[..., 0] == 0.0))
+        # v00, v01, v10, v11: the upper row's taps, then the lower row's
+        v = r.tap(0, torch.stack([y0[yc], y0[yc], y1[yc], y1[yc]]),
+                  torch.stack([x0[xc], x1[xc], x0[xc], x1[xc]]),
+                  torch.stack([need, nx, ny, nx & ny])).to(torch.float32)
+        return _lerp(_lerp(v[0], v[1], wx, keep), _lerp(v[2], v[3], wx, keep), wy, keep)
+    # the warp: the coordinates from the block's coefficients, as
+    # csrc/warp.cuh::sample_warp recomputes them
+    cf = r.fblk[plan.word("coef_off"):plan.word("coef_off") + _N_COEFFS]
+    fx, fy = xc.to(torch.float32), yc.to(torch.float32)
+
+    def term(k):
+        return dt.fadd(dt.fmul(cf[k], fx), dt.fadd(dt.fmul(cf[k + 1], fy), cf[k + 2]))
+
+    sx, sy = term(0), term(3)
+    if plan.word("persp"):
+        den = term(6)
+        den = torch.where(den == 0.0, 1.0, den)
+        sx, sy = dt.fdiv(sx, den), dt.fdiv(sy, den)
+    x0f, y0f = dt.ffloor(sx), dt.ffloor(sy)
+    wx, wy = dt.fsub(sx, x0f)[..., None], dt.fsub(sy, y0f)[..., None]
+    ih, iw = plan.word("in_h"), plan.word("in_w")
+    vx = ((x0f >= 0) & (x0f < iw), (x0f >= -1) & (x0f < iw - 1))
+    vy = ((y0f >= 0) & (y0f < ih), (y0f >= -1) & (y0f < ih - 1))
+    ix = (torch.where(vx[0], x0f, 0.0).long(), torch.where(vx[1], x0f + 1, 0.0).long())
+    iy = (torch.where(vy[0], y0f, 0.0).long(), torch.where(vy[1], y0f + 1, 0.0).long())
+    order = ((0, 0), (0, 1), (1, 0), (1, 1))  # (y tap, x tap) of v00, v01, v10, v11
+    valid = torch.stack([vy[j] & vx[i] for j, i in order])
+    v = r.tap(0, torch.stack([iy[j] for j, _ in order]), torch.stack([ix[i] for _, i in order]),
+              valid & need).to(torch.float32)
+    off = plan.word("border_off")
+    border = r.fblk[off:off + plan.word("tap_ch")]
+    v = torch.where(valid[..., None], v, border)
+    return dt.lerp(dt.lerp(v[0], v[1], wx), dt.lerp(v[2], v[3], wx), wy)
+
+
+def _reference(a: Launch, touched=None):
+    """The plain version; with ``touched`` only the read, whose base
+    positions it collects."""
+    plan = a.plan
+    r = _Reader(a, touched)
+    dev = a.srcs[0].device
+    w, h = plan.dsize
+    y = torch.arange(h, device=dev)[:, None].expand(h, w)
+    x = torch.arange(w, device=dev)[None, :].expand(h, w)
+    if plan.batch:
+        n = plan.n_planes
+        z = torch.arange(n, device=dev)[:, None, None]
+        y, x = y.expand(n, h, w), x.expand(n, h, w)
+        y, x, _ = _walk(plan.stage_list(2), r.blk, y, x, torch.full_like(y, -1), shift=2 * z)
+        v = r.tap(z, y, x)
+    else:
+        fill = torch.full_like(y, -1)
+        yc, xc, fill = _walk(plan.stage_list(2), r.blk, y, x, fill)
+        core_dtype = plan.tap_dtype if plan.core == "none" else torch.float32
+        v = _filled(_sample(r, yc, xc, fill < 0), fill, r.fblk, core_dtype)
+    if touched is not None:
+        return v
+    for o in r.chain:
+        v = o.apply(v)
+    return r.write.write(v)
+
+
+def composed_reference(a: Launch):
+    """The plain PyTorch version of the kernel on the launch's sources (in
+    their canonical dtype), from the plan's words and the block: the stage
+    walks, the tap tables or the recomputed warp coordinates, the lerps with
+    ``utils.dtypes``' flush ops, each chain op's own ``apply`` and the
+    write op."""
+    return _reference(a)
+
+
+can_store = kbr.can_store
+
+
+def _alloc_out(plan: ComposedPlan, device, out=None):
+    return kp._alloc_out(plan, device, out)
+
+
+def _check(a: Launch) -> None:
+    plan = a.plan
+    dev = a.srcs[0].device
+    for name, t, dtype in (("block", a.block, torch.int32), ("consts", a.consts, torch.int32),
+                           *(("src", s, plan.src_dtype) for s in a.srcs)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, the source on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if a.block.numel() != plan.n_block or a.consts.numel() != plan.tables.size:
+        raise ValueError("parameter block or tables do not match the plan")
+    if any(s.numel() != plan.src_numel for s in a.srcs):
+        raise ValueError("a source does not match the plan")
+    if plan.batch and a.block.data_ptr() % 8:
+        raise ValueError("the block's source addresses are not 8-byte aligned")
+
+
+def composed(a: Launch, out: Optional[torch.Tensor] = None):
+    """The kernel wrapper: launches on a CUDA tensor, runs the plain version
+    on a CPU tensor, raises on anything else. It never falls back. With
+    ``out`` (a view of the write's shape, any strides) the result is stored
+    there, cast as ``utils.dtypes.astype`` casts, and ``out`` is returned."""
+    global LAUNCHES
+    dev = a.srcs[0].device
+    if dev.type == "cpu":
+        result = composed_reference(a)
+        return result if out is None else kbr.reference_into(result, out, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"composed runs on CUDA or CPU tensors, not {dev}")
+    _check(a)
+    lib = _build.load()
+    plan = a.plan
+    kbr.check_out_dtype("composed", plan, out)
+    buf, (sn, sc, sy, sx), result = _alloc_out(plan, dev, out)
+    w, h = plan.dsize
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cvgs_composed(
+            a.srcs[0].data_ptr(), plan.head_words(), *plan.conv, a.block.data_ptr(),
+            a.consts.data_ptr(), plan.n_planes, w, h, buf.data_ptr(), TYPE_CODES[buf.dtype],
+            plan.out_ch, store_cast(plan.out_dtype, buf.dtype), sn, sc, sy, sx, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"composed launch failed: CUDA error {err} ({lib.cvgs_error_string(err).decode()})"
+        )
+    LAUNCHES += 1
+    _build.after_launch("composed", dev)
+    return result
+
+
+def run(pipeline, plan: ComposedPlan, device: torch.device, out=None):
+    """One call of the kernel path: gather the arguments, launch."""
+    return composed(prepare(pipeline, plan, device), out)
+
+
+#: the wrapper, under the name every kernel module gives it
+launch = composed
+
+
+def work(a: Launch) -> Tuple[int, int, int]:
+    """``(output bytes, source bytes touched, float32 operations)`` of one
+    launch (``utils.bounds``): the output; the 32-byte sectors of the base
+    arrays that the taps read, from the plain version's own positions (a
+    tap of a CONSTANT border, outside a warp's source or under an outer
+    border's fill reads none, nor a resize's second tap of weight 0 under
+    the edge rule that keeps the first tap alone; an NV12 tap reads a luma
+    byte and a chroma pair); per output value the resample's lerps (12; a warp 8 more for its
+    coordinates), the FusedRead's rows once per tap (an NV12 conversion 7
+    more) and the pipeline's rows."""
+    plan = a.plan
+    out_bytes, values = bounds.output(plan)
+    touched: list = []
+    _reference(a, touched)
+    h, w, c = plan.head[1:4]
+    elem = c * a.srcs[0].element_size() if plan.base == "image" else 1
+    found = []
+    for p, y, x in touched:
+        array = p.cpu() * 2**45  # each base array's bytes apart from the others'
+        y, x = y.cpu(), x.cpu()
+        found.append(bounds.sectors(array + (y * w + x) * elem, elem))
+        if plan.base == "yuv":
+            chroma = (h + torch.div(y, 2, rounding_mode="floor")) * w + 2 * torch.div(
+                x, 2, rounding_mode="floor")
+            found.append(bounds.sectors(array + chroma, 2))
+    src = int(torch.unique(torch.cat(found)).numel()) * 32 if found else 0
+    taps = 1 if plan.core == "none" else 4
+    per_value = ({"none": 0, "resize": 12, "warp": 20}[plan.core]
+                 + taps * (plan.word("in_n_ops") + 7 * plan.head[10]) + plan.word("out_n_ops"))
+    return out_bytes, src, values * max(per_value, 1)

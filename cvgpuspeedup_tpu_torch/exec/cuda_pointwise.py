@@ -32,7 +32,8 @@ border's value is
 staged as float32 and cast to the source's dtype by the kernel as
 ``utils.dtypes.cast`` casts it. A
 ``FusedRead`` at the top of the read is taken as its read and the head of
-the chain, which is what it lowers to; below a stage it is refused.
+the chain, which is what it lowers to; below a stage it is refused, and the
+composed-read kernel (``cuda_composed``) takes it.
 
 :func:`build_plan` turns the structure into a :class:`PointwisePlan` once:
 the head's words, the op table and the layout of the block of runtime values
@@ -183,6 +184,31 @@ def row_channels(ops: np.ndarray, ch: int) -> Tuple[np.ndarray, int]:
     return np.asarray(row_ch, np.int32), width
 
 
+def head_conversion(chain, dtype: torch.dtype, ch: int):
+    """``(conv, conv_first, limited, rows, dtype, ch, rest)`` of a chain on
+    values of ``dtype`` with ``ch`` channels: a YUV -> RGB at its head runs in
+    the kernel's head (``conv``: ``(ys, cs, rv, gu, gv, bu)``), its saturate
+    and its alpha are the table's first ``rows``; ``dtype`` and ``ch`` are
+    what the rest of the chain takes."""
+    if not (chain and isinstance(chain[0], ConvertYUVToRGB)):
+        return (0.0,) * 6, 0, 0, np.zeros((0, 4), np.int32), dtype, ch, chain
+    cv = chain[0]
+    if ch != 3:
+        raise Unsupported(f"YUV -> RGB on {ch} channels")
+    if cv.out_dtype not in CHAIN_DTYPES:
+        raise Unsupported(f"YUV -> RGB to {cv.out_dtype}")
+    conv = (LIMITED_Y, LIMITED_C, *conversion_coefficients(cv.standard))
+    head_rows = []
+    if cv.out_dtype != torch.float32:
+        head_rows.append([kbr._SAT[cv.out_dtype], 0, 0, 0])
+    if cv.alpha:
+        head_rows.append([OP_ALPHA_I32 if cv.out_dtype == torch.int32 else OP_ALPHA, 0, 0,
+                          int(alpha_fill(cv.out_dtype))])
+    return (conv, 1, int(cv.color_range == ColorRange.LIMITED),
+            np.asarray(head_rows, np.int32).reshape(-1, 4), cv.out_dtype, 4 if cv.alpha else 3,
+            chain[1:])
+
+
 def build_plan(pipeline) -> PointwisePlan:
     """The kernel plan of a pipeline; raises :class:`Unsupported`."""
     read, chain = _unwrap(pipeline)
@@ -259,28 +285,8 @@ def build_plan(pipeline) -> PointwisePlan:
     words += [0] * (8 * (MAX_STAGES - len(stages)))
     out_h, out_w = sizes[-1]
 
-    # a YUV -> RGB at the head of the chain runs in the head; its saturate and
-    # its alpha are rows of the table
-    conv = (0.0,) * 6
-    conv_first = limited = 0
-    rows0 = np.zeros((0, 4), np.int32)
-    dtype, ch = dt.canonical_dtype(src_dtype), c
-    if chain and isinstance(chain[0], ConvertYUVToRGB):
-        cv = chain[0]
-        if ch != 3:
-            raise Unsupported(f"YUV -> RGB on {ch} channels")
-        if cv.out_dtype not in CHAIN_DTYPES:
-            raise Unsupported(f"YUV -> RGB to {cv.out_dtype}")
-        conv_first, limited = 1, int(cv.color_range == ColorRange.LIMITED)
-        conv = (LIMITED_Y, LIMITED_C, *conversion_coefficients(cv.standard))
-        head_rows = []
-        if cv.out_dtype != torch.float32:
-            head_rows.append([kbr._SAT[cv.out_dtype], 0, 0, 0])
-        if cv.alpha:
-            head_rows.append([OP_ALPHA_I32 if cv.out_dtype == torch.int32 else OP_ALPHA, 0, 0,
-                              int(alpha_fill(cv.out_dtype))])
-        rows0 = np.asarray(head_rows, np.int32).reshape(-1, 4)
-        dtype, ch, chain = cv.out_dtype, 4 if cv.alpha else 3, chain[1:]
+    conv, conv_first, limited, rows0, dtype, ch, chain = head_conversion(
+        chain, dt.canonical_dtype(src_dtype), c)
     fp_off = pos  # the rows' offsets count from here: the kernel adds it
     ops, out_dtype, out_ch, n_fparams = encode_chain(chain, ch, dtype=dtype)
     ops = np.concatenate([rows0, ops]).astype(np.int32)

@@ -15,15 +15,19 @@ pipeline of host arrays runs on the card, raises where there is no card, and
 runs on the CPU only with ``device="cpu"``. Backends: ``AUTO`` tries, for a CUDA
 pipeline, the batched crop-resize kernel (``cuda:batch_resize``), the
 full-frame resize kernel (``cuda:frame_resize``), the warp kernel
-(``cuda:warp``, single and batched warps), then the pointwise kernel
+(``cuda:warp``, single and batched warps), the pointwise kernel
 (``cuda:pointwise``: every head that reads one source pixel per output
-pixel), so that a pipeline is one launch. int64 and float64 values are
+pixel), then the composed-read kernel (``cuda:composed``: a resize, a warp
+or a one-pixel read over crops, borders and a fused read, under crops and
+borders, and ``crop_batch``), so that a pipeline is one launch. int64 and float64 values are
 int32 and float32 from where they enter, as in the reference, which runs
 with 64-bit values off (``utils.dtypes.canonical_dtype``): host values are
 converted before their copy, and the kernels read a 64-bit tensor source at
 load. It takes the eager PyTorch version (one launch per op) only for what
-no kernel reads: uint32 and bool sources, and chain scalars that are neither
-float32 nor float16 (an integer tensor). An
+no kernel reads: uint32 and bool sources, chain scalars that are neither
+float32 nor float16 (an integer tensor), and read trees no kernel takes (a
+second resampling node, a batched image under a resample, a fused read above
+a resample, a ``BatchRead`` of anything but crops of bare images). An
 explicit ``ParBackend.CUDA`` raises where no kernel can run, naming each
 kernel's refusal. Nothing falls back from a failed build or launch. In
 :func:`debug_mode` every wrapper waits for its launch and raises on a CUDA
@@ -50,8 +54,8 @@ from ..graph import (ComputeOp, FusedCompute, FusedRead, IOp, PendingReadOp, Rea
 from ..ops.memory import ImageRead, Write2D
 from ..types import ParBackend
 from ..utils.dtypes import as_device_tensor
-from . import (_build, cuda_batch_resize, cuda_divergent, cuda_frame_resize, cuda_pointwise,
-               cuda_warp)
+from . import (_build, cuda_batch_resize, cuda_composed, cuda_divergent, cuda_frame_resize,
+               cuda_pointwise, cuda_warp)
 
 __all__ = [
     "Pipeline",
@@ -132,7 +136,8 @@ class _Plan:
 
 #: the kernels, in the order the executor tries them
 _KERNELS = (("cuda:batch_resize", cuda_batch_resize), ("cuda:frame_resize", cuda_frame_resize),
-            ("cuda:warp", cuda_warp), ("cuda:pointwise", cuda_pointwise))
+            ("cuda:warp", cuda_warp), ("cuda:pointwise", cuda_pointwise),
+            ("cuda:composed", cuda_composed))
 _TORCH = _Plan("torch", None, None)
 
 
@@ -221,7 +226,7 @@ def describe_backend(*iops: IOp, input=None, backend: ParBackend = ParBackend.AU
                      device=None) -> str:
     """Which backend :func:`execute_operations` would run for this op list:
     ``"cuda:batch_resize"``, ``"cuda:frame_resize"``, ``"cuda:warp"``,
-    ``"cuda:pointwise"`` or ``"torch"``."""
+    ``"cuda:pointwise"``, ``"cuda:composed"`` or ``"torch"``."""
     pipeline = build_pipeline(*iops, input=input)
     _, leaves = flatten(pipeline)
     return _select(pipeline, backend, _resolve_device(leaves, device)).backend
@@ -244,7 +249,9 @@ def debug_mode():
 
 def last_backend() -> Optional[str]:
     """The backend of the most recent :func:`execute_operations` call in this
-    process (None before any)."""
+    process (None before any): a name :func:`describe_backend` gives, or
+    ``"cuda:divergent"`` / ``"torch:divergent"`` after
+    :func:`launch_divergent_batch`."""
     return _LAST_BACKEND
 
 

@@ -21,6 +21,9 @@ import torch
 import cvgpuspeedup_tpu as J
 import cvgpuspeedup_tpu_torch as T
 from cvgpuspeedup_tpu_torch.exec import cuda_batch_resize as kbr
+from cvgpuspeedup_tpu_torch.exec import cuda_frame_resize as kfr
+from cvgpuspeedup_tpu_torch.exec import cuda_pointwise as kp
+from cvgpuspeedup_tpu_torch.exec import cuda_warp as kw
 from cvgpuspeedup_tpu_torch.exec import executor
 from cvgpuspeedup_tpu_torch.interop.from_jax import from_jax
 from cvgpuspeedup_tpu_torch.ops.border import BorderRead, border_index
@@ -248,16 +251,20 @@ def test_from_jax_carries_a_border_across():
 
 
 def test_no_kernel_takes_a_border_or_a_crop_source():
-    """Border and crop reads have no kernel: on a CUDA device a resize or a
-    warp of one runs the eager version (the decision is made on shapes)."""
+    """No resampling kernel of the TPU reads a border or a crop source: on
+    a CUDA device a resize or a warp of one is none of theirs and runs in the
+    composed-read kernel, which walks the stage per tap (the decision is
+    made on shapes)."""
     img = _img((20, 24, 3), 15)
     m = np.array([[0.9, 0.1, 1.0], [-0.1, 0.9, 2.0]])
     for read in (T.make_border(img, 2, 2, 2, 2), T.crop(img, T.Rect(1, 1, 16, 12))):
         for head in (T.resize(read, T.Size(8, 6)), T.warp(read, m, T.Size(8, 6))):
             pipe = T.build_pipeline(head, T.split_tensor())
-            assert executor._select(pipe, T.ParBackend.AUTO, CUDA).backend == "torch"
-            with pytest.raises(ValueError, match="cannot run"):
-                executor._select(pipe, T.ParBackend.CUDA, CUDA)
+            for module in (kbr, kfr, kw, kp):
+                with pytest.raises(module.Unsupported):
+                    module.build_plan(pipe)
+            assert executor._select(pipe, T.ParBackend.AUTO, CUDA).backend == "cuda:composed"
+            assert executor._select(pipe, T.ParBackend.CUDA, CUDA).backend == "cuda:composed"
     assert isinstance(T.crop(img, T.Rect(0, 0, 4, 4)), CropRead)
     with pytest.raises(kbr.Unsupported):
         kbr.build_plan(T.build_pipeline(T.crop(img, T.Rect(0, 0, 4, 4))))

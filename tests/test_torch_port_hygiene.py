@@ -25,6 +25,7 @@ def test_import_leaves_jax_out():
         "cvgpuspeedup_tpu_torch.exec.cuda_divergent, cvgpuspeedup_tpu_torch.ops.crop, "
         "cvgpuspeedup_tpu_torch.ops.border, cvgpuspeedup_tpu_torch.data.circular_tensor, "
         "cvgpuspeedup_tpu_torch.exec.cuda_pointwise, cvgpuspeedup_tpu_torch.pipelines.presets, "
+        "cvgpuspeedup_tpu_torch.exec.cuda_composed, "
         "cvgpuspeedup_tpu_torch.interop.cv2_compat, cvgpuspeedup_tpu_torch.utils.frameloader, "
         "cvgpuspeedup_tpu_torch.parallel.mesh, cvgpuspeedup_tpu_torch.utils.bounds, "
         "cvgpuspeedup_tpu_torch.benchmarks.vertical_fusion, "
@@ -99,6 +100,7 @@ def _included(text):
     ("warp.cu", "pallas_warp_universal.py::_emit_batch"),
     ("divergent.cu", "pallas_divergent.py::_emit"),
     ("pointwise.cu", "cvgpuspeedup_tpu/exec/executor.py"),  # the jitted XLA program: no Pallas kernel
+    ("composed.cu", "cvgpuspeedup_tpu/exec/executor.py"),   # the same, for composed reads
 ])
 def test_cuda_source_exists_and_ships_as_package_data(name, replaces):
     src = ROOT / "cvgpuspeedup_tpu_torch" / "csrc" / name

@@ -1,0 +1,142 @@
+"""The composed-read kernel's cases C1-C8 at a reduced size, built with the
+factories of either package (``M`` is ``cvgpuspeedup_tpu`` or
+``cvgpuspeedup_tpu_torch``: the same names), from numpy seeds.
+``chip_smoke.py`` runs the same compositions at full width (a 1080p frame,
+a 4K one for C1 and C4, a 6K NV12 buffer for C8).
+
+``frames(h, w)`` makes the inputs for an ``h`` x ``w`` frame (a multiple of
+6 on both sides); ``cases(M, f, values)`` the op lists, where ``values`` 1
+moves every runtime value (crop origins, the warp's angle, the border
+value) and keeps the structure, so it builds no plan.
+"""
+
+import numpy as np
+
+MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+NAMES = ("c1_roi_crop_resize", "c2_compute_what_you_see", "c3_letterbox", "c4_warp_of_a_crop",
+         "c5_border_then_resize", "c6_crop_batch", "c7_crop_of_fused_gray",
+         "c8_nv12_to_u8_resize")
+
+
+def rotation(center, angle: float, scale: float = 1.0) -> np.ndarray:
+    """``cv2.getRotationMatrix2D``."""
+    a = np.deg2rad(angle)
+    al, be = scale * np.cos(a), scale * np.sin(a)
+    cx, cy = center
+    return np.array([[al, be, (1 - al) * cx - be * cy], [-be, al, be * cx + (1 - al) * cy]])
+
+
+def frames(h: int, w: int, seed: int = 0) -> dict:
+    """A frame (h, w, 3), one of twice its sides (C1, C4) and an NV12 buffer
+    of three times its sides (C8), uint8."""
+    rng = np.random.default_rng(seed)
+    return {"hd": rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+            "big": rng.integers(0, 256, (2 * h, 2 * w, 3), dtype=np.uint8),
+            "nv12": rng.integers(0, 256, (3 * h * 3 // 2, 3 * w), dtype=np.uint8)}
+
+
+def normalize(M):
+    return (M.convert_to(np.float32, alpha=1 / 255.0), M.subtract(MEAN), M.divide(STD))
+
+
+def cases(M, f: dict, values: int = 0) -> dict:
+    """``name -> op list`` of C1-C8; C1-C7 read ``f["hd"]`` and ``f["big"]``
+    whatever their dtype."""
+    hd, big, nv12 = f["hd"], f["big"], f["nv12"]
+    h, w = hd.shape[:2]
+    dst = M.Size(w // 3, h // 3)
+    roi = M.Rect(w // 2 + 3 * values, h // 2 - 2 * values, w, h)
+    pad = (w // 3 - h // 3) // 2
+    side = h // 5
+    origins = [(k * (w - side) // 15, (k * 7) % (h - side)) for k in range(16)]
+    origins[3] = (w - side // 2, 5 + values)  # off the frame's right edge: clamped
+    origins[9] = (-3 - values, 7)             # left of it: from the far edge, then clamped
+    if values:
+        origins = [(x + 1, y) for x, y in origins]
+    return {
+        "c1_roi_crop_resize": (M.resize(M.crop(M.image(big), roi), dst), *normalize(M),
+                               M.split_tensor()),
+        "c2_compute_what_you_see": (
+            M.resize(M.fuse(M.image(hd), M.vector_reorder(2, 1, 0),
+                            M.convert_to(np.float32, alpha=1 / 255.0)), dst),
+            M.split_tensor()),
+        "c3_letterbox": (
+            M.make_border(M.resize(M.image(hd), dst), pad, pad, 0, 0, M.BorderMode.CONSTANT,
+                          114 - 14 * values),
+            M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()),
+        "c4_warp_of_a_crop": (
+            M.warp(M.crop(M.image(big), roi), rotation((w / 2, h / 2), 10.0 + 5 * values),
+                   M.Size(w, h)),
+            *normalize(M), M.split_tensor()),
+        "c5_border_then_resize": (
+            M.resize(M.make_border(M.image(hd), 8, 8, 8, 8, M.BorderMode.REFLECT_101), dst),
+            *normalize(M), M.split_tensor()),
+        "c6_crop_batch": (M.crop_batch(hd, [M.Rect(x, y, side, side) for x, y in origins]),
+                          *normalize(M), M.split_tensor()),
+        "c7_crop_of_fused_gray": (
+            M.crop(M.fuse(M.image(hd), M.cvt_color(M.ColorConversionCode.COLOR_RGB2GRAY)),
+                   M.Rect(w // 6 + values, h // 6, 2 * w // 3, 2 * h // 3)),
+            M.convert_to(np.float32), M.write()),
+        "c8_nv12_to_u8_resize": (
+            M.resize(M.fuse(M.read_yuv(nv12), M.convert_yuv_to_rgb(out_dtype=np.uint8)),
+                     M.Size(w, h)),
+            M.split_tensor()),
+    }
+
+
+def _img(shape, seed, dtype=np.uint8):
+    return np.random.default_rng(seed).integers(0, 256, shape).astype(dtype)
+
+
+def more_cases(M) -> dict:
+    """The other compositions the reference fuses, at a small size: every
+    border mode somewhere, a perspective warp, NV21 in limited range, an
+    int16 and an int32 fused chain, stages on both sides of a fused read."""
+    img, big = _img((36, 48, 3), 1), _img((72, 96, 3), 2)
+    nv12 = _img((36 * 3 // 2, 48), 3)
+    m = rotation((24, 18), 15.0)
+    persp = np.array([[0.9, 0.05, 2.0], [-0.04, 1.1, 1.0], [0.001, -0.0005, 1.0]])
+    gray = M.ColorConversionCode.COLOR_RGB2GRAY
+    return {
+        "resize_of_a_border": (M.resize(M.make_border(M.image(img), 3, 5, 2, 4,
+                                                      M.BorderMode.CONSTANT, 9), M.Size(20, 16)),
+                               M.split_tensor()),
+        "crop_of_a_resize": (M.crop(M.resize(M.image(big), M.Size(64, 48)),
+                                    M.Rect(5, 7, 32, 24)), M.write()),
+        "warp_of_a_border": (M.warp(M.make_border(M.image(img), 4, 4, 4, 4, M.BorderMode.WRAP), m,
+                                    M.Size(40, 30)), M.split_tensor()),
+        "warp_of_a_fused_read": (M.warp(M.fuse(M.image(img), M.convert_to(np.float32, alpha=0.5)),
+                                        m, M.Size(40, 30), default=(1.0, 2.0, 3.0)),
+                                 M.split_tensor()),
+        "perspective_warp_of_a_crop": (
+            M.warp(M.crop(M.image(big), M.Rect(-7, 3, 60, 40)), persp, M.Size(50, 36),
+                   warp_type=M.WarpType.PERSPECTIVE, default=7.0),
+            M.convert_to(np.uint8), M.split_tensor()),
+        "crop_of_fused_gray": (M.crop(M.fuse(M.image(img), M.cvt_color(gray)),
+                                      M.Rect(4, 2, 30, 20)), M.write()),
+        "resize_of_nv12_to_u8": (M.resize(M.fuse(M.read_yuv(nv12), M.convert_yuv_to_rgb(
+            out_dtype=np.uint8)), M.Size(20, 14)), M.split_tensor()),
+        "resize_of_a_crop_of_nv21_limited": (
+            M.resize(M.crop(M.fuse(M.read_yuv(nv12, M.PixelFormat.NV21),
+                                   M.convert_yuv_to_rgb(M.ColorRange.LIMITED,
+                                                        M.ColorStandard.BT709, alpha=True)),
+                            M.Rect(6, 4, 30, 24)), M.Size(20, 14)),
+            M.split_tensor()),
+        "border_of_a_crop_of_a_resize": (
+            M.make_border(M.crop(M.resize(M.image(big), M.Size(64, 48)), M.Rect(1, 2, 40, 30)),
+                          2, 2, 3, 3, M.BorderMode.REFLECT, 0),
+            M.multiply(2.0), M.write()),
+        "resize_of_a_border_over_a_fused_int16_read": (
+            M.resize(M.make_border(M.fuse(M.image(img), M.convert_to(np.int16, alpha=-3.0)),
+                                   2, 2, 2, 2, M.BorderMode.CONSTANT, -7), M.Size(30, 25)),
+            M.split_tensor()),
+        "resize_of_a_fused_int32_read_over_a_border": (
+            M.resize(M.fuse(M.make_border(M.image(img), 3, 1, 2, 2, M.BorderMode.REPLICATE),
+                            M.convert_to(np.int32, alpha=70000.0)), M.Size(22, 17)),
+            M.convert_to(np.float32, alpha=1e-4), M.split_tensor()),
+        "fused_gray_under_a_border_of_a_crop": (
+            M.make_border(M.crop(M.fuse(M.crop(M.image(big), M.Rect(10, 5, 50, 40)),
+                                        M.cvt_color(gray)), M.Rect(3, 4, 30, 20)),
+                          1, 2, 3, 4, M.BorderMode.CONSTANT, 200),
+            M.write()),
+    }

@@ -35,7 +35,7 @@ _FUNCTION = re.compile(r"^\s*Function : (\S+)", re.M)
 FTZ_OPCODES = ("FADD", "FADD32I", "FMUL", "FMUL32I", "FSETP", "FMNMX")
 #: the kernels of the library, by the name each instance's symbol holds
 KERNELS = ("batch_resize_kernel", "frame_resize_kernel", "warp_kernel", "divergent_kernel",
-           "pointwise_kernel")
+           "pointwise_kernel", "composed_kernel")
 
 
 def kernel_stats(sass: str) -> dict:
