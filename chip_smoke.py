@@ -34,8 +34,10 @@ code and no result line:
    then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
    -sass``): in every instance of the six kernels no float32 add, multiply,
    compare or min/max without ``.FTZ`` (``-ftz=true``: the reference's
-   float32 rule, ``utils/dtypes.py::flush_subnormal``), and the float64
-   load's ``F2F.F32.F64`` without it;
+   float32 rule, ``utils/dtypes.py::flush_subnormal``) but for a warp map's
+   terms, an ``FMUL`` or ``FADD`` in the warp, divergent and composed
+   kernels (``tools/kernel_sass.py::KEEP_TERMS``), and the float64 load's
+   ``F2F.F32.F64`` without it;
 3. each kernel against its plain PyTorch version on the card. batch_resize at
    the flagship shapes (3840x2160 u8 frame, 50 crops -> 64x128): every
    aspect-ratio mode, ragged ``used_planes``, stack mode, a uint8 chain,
@@ -101,7 +103,10 @@ code and no result line:
    subnormal; and a float64 crop of ``EDGES64`` that keeps 1e-40 and -1e-42.
    composed in C1-C8 at full width, max |diff| 0, and C1 on uint16, float16
    and float64 sources and on a float32 frame of ``EDGES32`` with a chain
-   that flushes, as int32 bits, one launch each.
+   that flushes, as int32 bits, one launch each. Warp maps whose inverse
+   holds -1e-39 at c01 or c10, with an infinite border channel, through
+   the warp kernel and the composed kernel's warp core: each equal to its
+   plain version as int32 bits (the host's terms keep the subnormal).
    uint8 must match bit for bit, float32 within 1e-6, warp float32 bit for
    bit too, every other dtype bit for bit;
 4. the main paths: ``execute_operations`` twice each (new rects, new frame
@@ -168,7 +173,10 @@ code and no result line:
    dtype, int32 and 64-bit paths of phase 4, each beside its bound and floor
    (a 64-bit source's bytes at 8 an element); the composed kernel in C1-C8
    beside the eager path it replaces (``ParBackend.TORCH``: its device time
-   by events and by ``torch.profiler``, its kernels and copies per call);
+   by events and by ``torch.profiler``, its kernels and copies per call)
+   and, for C1, C2 and C4, one library call of the resample alone on a
+   float32 NCHW copy of what the core reads (``F.interpolate``;
+   ``F.affine_grid`` + ``F.grid_sample``);
 6. sharding: (a) every rank of meshes of 2 and 5 (the flagship, 50 crops
    ragged at ``used_planes`` = 37) and of 2, 4 and 8 (W6; P2's ring from
    ``first`` = 3 and -5; D1 and D3) run on this card through the rank-local
@@ -1104,16 +1112,20 @@ def main() -> int:
             log(f"phase2 ptxas: {line.strip()}")
     # the float32 rule in the SASS: every float32 add, multiply, compare and
     # min/max flushes subnormals (.FTZ), and the float64 load converts
-    # without .FTZ, so that a copy keeps a float32 subnormal
+    # without .FTZ, so that a copy keeps a float32 subnormal. The one
+    # exception, by name: a warp map's terms (warp.cuh's fmul_keep and
+    # fadd_keep, PTX mul.rn.f32 and add.rn.f32), an FMUL or FADD without
+    # .FTZ in the warp, divergent and composed kernels alone
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
     import kernel_sass
 
     t0 = time.perf_counter()
     for kernel, c in kernel_sass.ftz_census(_build.library_path()).items():
         log(f"phase2 sass {kernel}: {c['instances']} instances, {c['f32_ops']} float32 "
-            f"FADD/FMUL/FSETP/FMNMX, {c['f32_no_ftz']} without .FTZ; {c['f2f_f64']} F2F.F32.F64, "
-            f"{c['f2f_f64_ftz']} with .FTZ")
-        if not c["instances"] or c["f32_no_ftz"] or not c["f2f_f64"] or c["f2f_f64_ftz"]:
+            f"FADD/FMUL/FSETP/FMNMX, {c['f32_no_ftz']} without .FTZ, of them {c['keep_terms']} "
+            f"FMUL/FADD of a warp map's terms ({dict(c['no_ftz_opcodes'])}); {c['f2f_f64']} "
+            f"F2F.F32.F64, {c['f2f_f64_ftz']} with .FTZ")
+        if not c["rule_holds"]:
             raise AssertionError(f"{kernel}: the float32 rule does not hold in its SASS: {c}")
     log(f"phase2 sass census in {time.perf_counter() - t0:.1f} s")
 
@@ -1610,6 +1622,30 @@ def main() -> int:
         f"{sub} subnormal kept, among them {kept}")
     if bad or len(kept) != 2:
         raise AssertionError(f"sub_f64_edges_copy: {bad} bits differ, kept {kept}")
+    # warp maps whose inverse has a subnormal coefficient (-1e-39 at c01,
+    # then at c10): the host's numpy term -1e-39 * Y is a normal float from
+    # Y = 12 on, where a flushed product is 0, so the first column (row)
+    # floors to -1 and reads the border with weight 0; an infinite border
+    # channel makes that 0 * inf a NaN. The warp kernel and the composed
+    # kernel's warp core, each bit for bit its plain version as int32
+    sub_src = torch.from_numpy(np.random.default_rng(3).uniform(
+        -3, 3, (1080, 64, 3)).astype(np.float32)).to(dev)
+    for tag, m in (("c01", ((1, 1e-39, 0), (0, 1, 0))), ("c10", ((1, 0, 0), (1e-39, 1, 0)))):
+        for kernel, read in (("warp", cvgs.image(sub_src)),
+                             ("composed", cvgs.crop(cvgs.image(sub_src), cvgs.Rect(0, 0, 64, 1080)))):
+            module, launch, plain = kernels[kernel]
+            pipeline = cvgs.build_pipeline(cvgs.warp(read, np.array(m), cvgs.Size(64, 1080),
+                                                     default=(np.inf, -2.0, 5.0)), cvgs.write())
+            a = module.prepare(pipeline, module.build_plan(pipeline), dev)
+            got, want = launch(a), plain(a)
+            torch.cuda.synchronize()
+            bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            nan = int(torch.isnan(want).sum())
+            log(f"phase3 {kernel} sub_coefficient_{tag}: {got.numel()} float32 outputs, {bad} "
+                f"differ from the plain version as int32 bits, {nan} NaN in both")
+            if bad or not nan:
+                raise AssertionError(f"{kernel} sub_coefficient_{tag}: {bad} bits differ, {nan} NaN")
+            case_err[f"sub_coefficient_{tag}_{kernel}"] = 0.0
     for name, kernel, ops, view_dtype in (dtype_store_cases(cvgs, frame, rects_a, hd)
                                           + int32_store_cases(cvgs, torch, frame, rects_a, hd)):
         module, launch, plain = kernels[kernel]
@@ -2739,8 +2775,30 @@ def main() -> int:
                     what=name, plain_iters=5)
         t.update(bounds.bound(*kc.work(cargs), bandwidth))
         t["max_abs_err"] = case_err[name]
-        # no single PyTorch call reads a composed tree and runs a chain
+        # one library call for the resample alone, on a float32 NCHW copy of
+        # what the core reads, where one PyTorch call computes it: C1's
+        # region and C2's frame through F.interpolate, as frame (a)'s; C4's
+        # crop through F.affine_grid + F.grid_sample, as the warps'. No
+        # single call reads the other trees: a border around or inside a
+        # resize (C3, C5), a batch of crops (C6), a fused gray (C7), NV12
+        # converted per tap (C8)
         t["library_ms"] = t["library_profiler_ms"] = None
+        if name in ("c1_roi_crop_resize", "c2_compute_what_you_see"):
+            rx, ry, rw, rh = ROI
+            region = frame[ry:ry + rh, rx:rx + rw] if name.startswith("c1") else hd
+            nchw = region.permute(2, 0, 1)[None].float().contiguous()
+            library(t, lambda: F.interpolate(nchw, size=(FRAME_DST[1], FRAME_DST[0]),
+                                             mode="bilinear", align_corners=False), 50,
+                    "F.interpolate")
+        elif name == "c4_warp_of_a_crop":
+            rx, ry, rw, rh = ROI
+            nchw = frame[ry:ry + rh, rx:rx + rw].permute(2, 0, 1)[None].float().contiguous()
+            theta = torch.from_numpy(grid_sample_theta(pipe.read, rw, rh)[None]).float().to(dev)
+            grid_size = (1, 3, rh, rw)
+            library(t, lambda: F.grid_sample(nchw, F.affine_grid(theta, grid_size,
+                                                                 align_corners=False),
+                                             mode="bilinear", padding_mode="zeros",
+                                             align_corners=False), 25, "F.grid_sample")
         eager = lambda: executor.run_pipeline(pipe, cvgs.ParBackend.TORCH)  # noqa: E731
         t["eager_ms"] = float(np.median(time_cuda(eager, iters=10)))
         t["eager_profiler_ms"] = profiler_ms(eager, calls=5, what=f"{name} eager")

@@ -1,14 +1,18 @@
-// The composed-read kernel's head and its tap reader.
+// The composed-read kernel (composed.cu): its head, the kernel template and
+// its launch for one kind of source. composed.cu instantiates it for uint8
+// images and holds the C entry; composed_f32.cu for float32 and int32
+// images, composed_nv12.cu for NV12/NV21 buffers and composed_any.cu for
+// the other source types, which share their instances (exec/_build.py
+// compiles every .cu file in a process of its own).
 //
 // A launch reads, from the output inwards: the outer stages (crops and
 // borders above the core), the core (a resize over host tap tables, a warp
 // whose coordinates are recomputed from the block's coefficients, or one
 // pixel), the upper stages (between the core and a fused read), the lower
 // stages (between the fused read and the base) and the base (one frame or
-// an NV12/NV21 buffer). Each stage list rides a PwHead, so pointwise.cuh's
-// walk_stages walks it as the pointwise kernel walks its own; the lower
-// list's PwHead also describes the base, so read_base_row reads it, and
-// carries the fused read's leading YUV -> RGB (conv_first, limited).
+// an NV12/NV21 buffer). Each stage list rides a PwHead; the lower list's
+// PwHead also describes the base and carries the fused read's leading
+// YUV -> RGB (conv_first, limited).
 //
 // Every rule matches exec/cuda_composed.py::composed_reference and the
 // eager lowering bit for bit:
@@ -18,14 +22,24 @@
 //   to the chain's type (tap_type), without the chain;
 //   an outer CONSTANT border gives its value cast to the core's type
 //   (core_type: float32 after a resample, else tap_type).
+//
+// A crop adds an origin on each axis and a border folds each axis on its
+// own, so a tap's walk is two walks, one per axis (walk_axis): a thread
+// walks its pixels' x taps and its row's y taps once each, not every tap
+// in 2-D. What pointwise.cuh::walk_stages calls a tap's fill (the first
+// CONSTANT border it lies outside of) is the outermost of the first such
+// stage of its column and of its row.
 
 #pragma once
+
+#include <cstring>
 
 #include "chain.cuh"
 #include "frame_resize.cuh"
 #include "pointwise.cuh"
 #include "pointwise_chain.cuh"
 #include "warp.cuh"
+#include "warp_kernel.cuh"
 
 namespace {
 
@@ -56,39 +70,612 @@ struct CmHead {
 constexpr int kCmWords = 3 * kHeadWords + 20;
 static_assert(sizeof(CmHead) == kCmWords * 4, "all int32 words");
 
-// The T taps at positions (ys[k], xs[k]) of the core's source into t, before
-// the fused read's chain (every lane written, 0 where nothing is read): the
-// upper walk, the lower walk, the base's pixel (or a lower CONSTANT border's
-// value cast to the source's type), a leading YUV -> RGB. fill_up[k] is the
-// block offset of the upper CONSTANT border tap k lies outside of, else -1.
-// A tap whose bit in `need` is clear, or that an upper border fills, reads
-// nothing.
-template <int T>
-__device__ __forceinline__ void read_taps(const CmHead& h, const void* __restrict__ src,
-                                          const int* __restrict__ blk, const Conv& conv,
-                                          const int (&ys)[T], const int (&xs)[T], unsigned need,
-                                          float (&t)[T][kMaxCh], int (&fill_up)[T]) {
-  const float* fblk = reinterpret_cast<const float*>(blk);
+}  // namespace
+
+// One launch's arguments, as the C entry takes them; `head` points at the
+// kCmWords host words of a CmHead, `pix` is the adjacent output pixels a
+// thread takes (pixels_per_thread).
+namespace cvgs {
+struct ComposedArgs {
+  const void* src;
+  const int* head;
+  Conv conv;
+  const int* blk;
+  const int* consts;
+  int n_planes, dst_w, dst_h;
+  void* out;
+  int out_type, out_ch, store_op;
+  long long sn, sc, sy, sx;
+  int pix;
+  cudaStream_t stream;
+};
+void composed_f32(const ComposedArgs& a);
+void composed_nv12(const ComposedArgs& a);
+void composed_any(const ComposedArgs& a);
+}  // namespace cvgs
+
+namespace {
+namespace kc {
+
+using cvgs::ComposedArgs;
+
+// The sources beside an element type: an NV12/NV21 buffer (a tap reads its
+// luma byte and its chroma pair) and the types that share one instance
+// (int8, uint16, int16, float16, int64, float64), loaded by the head's
+// src_type through one switch around all of a thread's loads.
+struct Nv12 {};
+struct AnyType {};
+
+// A thread's N taps as loaded, until each pixel converts its own: the
+// elements of an element type; a uint8 image's or an NV12 buffer's bytes
+// packed four lanes to a 32-bit word (an NV12 tap's luma, U and V), one
+// register a tap, not four; AnyType's values float32 already (each case
+// converts where it loads). lane(i, c) is lane c of tap i as float32.
+template <typename Src, int N>
+struct TapRegs {
+  Src e[N][kMaxCh];
+  __device__ __forceinline__ float lane(int i, int c) const { return to_f32(e[i][c]); }
+};
+template <int N>
+struct PackedTaps {
+  unsigned w[N];
+  __device__ __forceinline__ float lane(int i, int c) const { return byte_of(w[i], c); }
+};
+template <int N>
+struct TapRegs<uint8_t, N> : PackedTaps<N> {};
+template <int N>
+struct TapRegs<Nv12, N> : PackedTaps<N> {};
+template <int N>
+struct TapRegs<AnyType, N> {
+  float e[N][kMaxCh];
+  __device__ __forceinline__ float lane(int i, int c) const { return e[i][c]; }
+};
+
+constexpr int kThreads = 256;          // threads per block
+constexpr int kNone = 2 * kMaxStages;  // no CONSTANT border: the tap reads the base
+
+// The adjacent output pixels a thread of a 1-tap read takes, from the
+// launch's output count: 4 where a thread per 4 pixels still fills half of
+// the card's resident threads, else 1, as the warp kernel chooses them
+// (warp_kernel.cuh::pixels_per_thread). A resample (4 taps) takes 1 at
+// every size: on an H100 its 4-pixel instance measured 1.6 to 1.9 times the
+// 1-pixel one's time at 0.2 to 0.4 million outputs, C4 (2 million) at 134
+// against 80 us with a thread's pixels adjacent and at 78 against 80 with
+// them a warp width apart, whose 80 registers left fewer threads resident.
+// The host's mirror is exec/cuda_composed.py::pixels_per_thread.
+inline int pixels_per_thread(long long outputs, int taps) {
+  return taps == 1 && outputs >= 2 * resident_threads() ? 4 : 1;
+}
+
+// The N positions of one axis (x where kX, else y) walked through the
+// stages of h, outermost first: a crop adds its origin on this axis, a
+// border folds it. first[i] takes base + s for the first CONSTANT stage s
+// that position i lies outside of on this axis, where it has none yet
+// (kNone).
+template <bool kX, int N>
+__device__ __forceinline__ void walk_axis(const PwHead& h, const int* __restrict__ blk, int base,
+                                          int (&pos)[N], int (&first)[N]) {
 #pragma unroll
-  for (int k = 0; k < T; ++k) {
-    int x[1] = {xs[k]}, fu[1] = {-1}, fl[1] = {-1};
-    int y = ys[k];
-    walk_stages(h.upper, blk, x, fu, y);
-    walk_stages(h.lower, blk, x, fl, y);
-    const unsigned read = (need >> k & 1u) && fl[0] < 0 && fu[0] < 0;
-    float v[1][kMaxCh];
-    read_base_row<kMaxCh, 1, false>(h.lower, src, 0, y, x, read, v);
-    if (fl[0] >= 0) {
+  for (int s = 0; s < kMaxStages; ++s) {
+    if (s >= h.n_stages) break;
+    const PwStage& st = h.st[s];
+    if (st.kind == PW_CROP) {
+      const int o = kX ? crop_start(__ldg(blk + st.a), st.src_w, st.c)
+                       : crop_start(__ldg(blk + st.b), st.src_h, st.d);
 #pragma unroll
-      for (int c = 0; c < kMaxCh; ++c) {
-        if (c < h.lower.nch) v[0][c] = cast_to_type(__ldg(fblk + fl[0] + c), h.lower.src_type);
+      for (int i = 0; i < N; ++i) pos[i] += o;
+    } else {
+      const int n = kX ? st.src_w : st.src_h;
+      const int lead = kX ? st.b : st.a;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int j = pos[i] - lead;
+        if (st.mode == PW_CONSTANT && first[i] == kNone && (j < 0 || j >= n)) first[i] = base + s;
+        pos[i] = fold_index(j, n, st.mode);
       }
     }
-    if (h.lower.conv_first) yuv_to_rgb(v[0][0], v[0][1], v[0][2], conv, v[0]);
-#pragma unroll
-    for (int c = 0; c < kMaxCh; ++c) t[k][c] = v[0][c];
-    fill_up[k] = fu[0];
   }
 }
 
+// Both axes' walks of a thread: through the upper stages (fills 0 ..
+// kMaxStages - 1), then the lower ones (kMaxStages ..).
+template <int NX, int NY>
+__device__ __forceinline__ void walk_taps(const CmHead& h, const int* __restrict__ blk,
+                                          int (&xs)[NX], int (&fx)[NX], int (&ys)[NY],
+                                          int (&fy)[NY]) {
+#pragma unroll
+  for (int i = 0; i < NX; ++i) fx[i] = kNone;
+#pragma unroll
+  for (int i = 0; i < NY; ++i) fy[i] = kNone;
+  walk_axis<true>(h.upper, blk, 0, xs, fx);
+  walk_axis<false>(h.upper, blk, 0, ys, fy);
+  walk_axis<true>(h.lower, blk, kMaxStages, xs, fx);
+  walk_axis<false>(h.lower, blk, kMaxStages, ys, fy);
+}
+
+// The block offset of the value of fill stage s: an upper border's for s
+// below kMaxStages, else a lower one's (s < kNone).
+__device__ __forceinline__ int fill_offset(const CmHead& h, int s) {
+  int off = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxStages; ++k) {
+    if (s == k) off = h.upper.st[k].c;
+    if (s == kMaxStages + k) off = h.lower.st[k].c;
+  }
+  return off;
+}
+
+// The N taps at base positions (ty[i], tx[i]) of an image of element type
+// SrcT with nch channels, for each i whose bit of rd is set: every load of
+// the thread in one straight run, nothing converted. A tap not read holds
+// 0 in every lane.
+template <typename SrcT, int N>
+__device__ __forceinline__ void load_image(const SrcT* __restrict__ src, int src_w, int nch,
+                                           const int (&ty)[N], const int (&tx)[N], unsigned rd,
+                                           SrcT (&raw)[N][kMaxCh]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const SrcT* p = src + ((long long)ty[i] * src_w + tx[i]) * nch;
+#pragma unroll
+    for (int c = 0; c < kMaxCh; ++c) {
+      raw[i][c] = SrcT{};
+      if ((rd >> i & 1u) && c < nch) raw[i][c] = ld_elem(p + c);
+    }
+  }
+}
+
+// The thread's loads for its kind of source, into regs (TapRegs): an
+// element type's elements; a uint8 image's bytes or an NV12/NV21 buffer's
+// luma byte and chroma pair (U, V), packed; for AnyType, one case per
+// source type, each loading all taps, then converting them. A tap whose
+// bit of rd is clear reads nothing and holds 0 in every lane.
+template <bool kPairs, typename Src, int N>
+__device__ __forceinline__ void load_taps(const CmHead& h, const void* __restrict__ src,
+                                          const int (&ty)[N], const int (&tx)[N], unsigned rd,
+                                          TapRegs<Src, N>& regs) {
+  const PwHead& b = h.lower;
+  if constexpr (std::is_same_v<Src, Nv12>) {
+    const uint8_t* buf = static_cast<const uint8_t*>(src);
+    const int iu = b.nv21 ? 1 : 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const uint8_t* lum = buf + (long long)ty[i] * b.src_w + tx[i];
+      const uint8_t* uv = buf + ((long long)b.src_h + ty[i] / 2) * b.src_w + 2 * (tx[i] / 2);
+      unsigned l = 0u, u = 0u, v = 0u;
+      if (rd >> i & 1u) l = __ldg(lum), u = __ldg(uv + iu), v = __ldg(uv + 1 - iu);
+      regs.w[i] = l | u << 8 | v << 16;
+    }
+  } else if constexpr (std::is_same_v<Src, uint8_t>) {
+    const uint8_t* img = static_cast<const uint8_t*>(src);
+    const int nch = b.nch;
+    // a resample's two taps of one row (k = 0, 1 and 2, 3) whose columns lie
+    // side by side in the base read their 2 * nch bytes as the warp kernel's
+    // packed run (warp_kernel.cuh::load_run): three aligned words, half the
+    // loads of byte by byte. A thread takes that path where each pair it
+    // reads is such a run inside the buffer (a warp's interior); any other
+    // reads byte by byte.
+    bool runs = kPairs;
+    if constexpr (kPairs) {
+      const unsigned long long lo = reinterpret_cast<unsigned long long>(img);
+      const unsigned long long hi = lo + (unsigned long long)b.src_h * b.src_w * nch;
+#pragma unroll
+      for (int i = 0; i < N; i += 2) {
+        const unsigned both = rd >> i & 3u;
+        const unsigned long long a =
+            (lo + ((unsigned long long)ty[i] * b.src_w + tx[i]) * nch) & ~3ull;
+        const bool run = both == 3u && ty[i + 1] == ty[i] && tx[i + 1] == tx[i] + 1 && a >= lo &&
+                         a + 12ull <= hi;
+        runs = runs && (both == 0u || run);
+      }
+    }
+    if (runs) {
+      const unsigned mask = nch >= 4 ? 0xffffffffu : (1u << (8 * nch)) - 1u;
+#pragma unroll
+      for (int i = 0; i < N; i += 2) {
+        unsigned left = 0u, right = 0u;
+        if (rd >> i & 3u) {
+          kw::load_run(img + ((long long)ty[i] * b.src_w + tx[i]) * nch, nch, left, right);
+        }
+        regs.w[i] = left & mask;
+        regs.w[i + 1] = right & mask;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const uint8_t* p = img + ((long long)ty[i] * b.src_w + tx[i]) * nch;
+        unsigned w = 0u;
+#pragma unroll
+        for (int c = 0; c < kMaxCh; ++c) {
+          if ((rd >> i & 1u) && c < nch) w |= (unsigned)__ldg(p + c) << (8 * c);
+        }
+        regs.w[i] = w;
+      }
+    }
+  } else if constexpr (std::is_same_v<Src, AnyType>) {
+#define CVGS_LOAD(SrcT)                                                                    \
+  {                                                                                        \
+    SrcT r[N][kMaxCh];                                                                     \
+    load_image(static_cast<const SrcT*>(src), b.src_w, b.nch, ty, tx, rd, r);              \
+    _Pragma("unroll") for (int i = 0; i < N; ++i) {                                        \
+      _Pragma("unroll") for (int c = 0; c < kMaxCh; ++c) regs.e[i][c] = to_f32(r[i][c]);  \
+    }                                                                                      \
+  }                                                                                        \
+  break;
+    // every type this instance takes is a case by name; the C entry sends
+    // uint8, float32 and int32 sources and NV12 buffers to their own
+    switch (b.src_type) {
+      case PW_I8: CVGS_LOAD(int8_t)
+      case PW_U16: CVGS_LOAD(uint16_t)
+      case PW_I16: CVGS_LOAD(int16_t)
+      case PW_F16: CVGS_LOAD(f16)
+      case PW_I64: CVGS_LOAD(i64_bits)
+      case PW_F64: CVGS_LOAD(double)
+      default:
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+          for (int c = 0; c < kMaxCh; ++c) regs.e[i][c] = 0.f;
+        }
+        break;
+    }
+#undef CVGS_LOAD
+  } else {
+    load_image(static_cast<const Src*>(src), b.src_w, b.nch, ty, tx, rd, regs.e);
+  }
+}
+
+// A value stored into a buffer of element type out_type (PW_U8 .. PW_I32)
+// at element offset off: chain.cuh::store_any for that type.
+template <int P>
+__device__ __forceinline__ void store_typed(void* __restrict__ out, int out_type, long long off,
+                                            const float (&v)[P][kMaxCh], int n, int out_ch,
+                                            long long sc, long long sx) {
+  switch (out_type) {
+    case PW_U8:
+    case PW_I8: store_any(static_cast<uint8_t*>(out) + off, v, n, out_ch, sc, sx); break;
+    case PW_U16:
+    case PW_I16: store_any(static_cast<uint16_t*>(out) + off, v, n, out_ch, sc, sx); break;
+    case PW_F16: store_any(static_cast<f16*>(out) + off, v, n, out_ch, sc, sx); break;
+    default: store_any(static_cast<float*>(out) + off, v, n, out_ch, sc, sx); break;
+  }
+}
+
+// The chain of `n_ops` rows whose table is at `ops` and scalars at `fp` on
+// v where `on`: from `rows` where the whole table was staged there at the
+// kernel's start (once), else staged chunk by chunk here by the block
+// (every thread reaches this call, so the barriers hold).
+template <int P>
+__device__ __forceinline__ void run_table(float (&v)[P][kMaxCh], PwRow* rows, bool once,
+                                          const int* __restrict__ ops, int n_ops,
+                                          const float* __restrict__ fp, int tid, bool on) {
+  for (int k0 = 0; k0 < n_ops; k0 += kStageRows) {  // once: one pass over the staged rows
+    const int m = min(kStageRows, n_ops - k0);
+    if (!once) {
+      __syncthreads();  // every thread is done with the last chunk
+      stage_rows(rows, ops, n_ops, k0, m, fp, tid, kThreads);
+      __syncthreads();
+    }
+    if (on) run_rows(v, rows, m);
+  }
+}
+
+// The kernel for a source of kind Src, T taps a pixel (1: no resample; 4:
+// a resize or a warp) and P adjacent output pixels a thread (1 or 4).
+// Four blocks of 256 threads resident per SM (__launch_bounds__), which
+// bounds a thread at 64 registers: the kernel gains from resident threads
+// (at 66 registers a 4-tap thread kept 3 blocks resident and C1 took 12.19
+// against 9.76 us on an H100); the shared instance's 4-tap thread, whose
+// taps are float32 from the load, 3.
+template <typename Src, int T>
+constexpr int kBlocks = T == 4 && std::is_same_v<Src, AnyType> ? 3 : 4;
+
+template <typename Src, int T, int P>
+__global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
+    const void* __restrict__ src, CmHead h, Conv conv, const int* __restrict__ blk,
+    const int* __restrict__ consts, int dst_w, int dst_h, void* __restrict__ out, int out_type,
+    int out_ch, int store_op, long long sn, long long sc, long long sy, long long sx) {
+  // a thread's N taps over NX x positions and NY y positions: a
+  // resample's 2 columns and 2 rows, P pixels' columns and their row
+  static_assert(T == 1 || P == 1, "a resample takes 1 pixel a thread (pixels_per_thread)");
+  constexpr int N = P * T;
+  constexpr int NX = T == 1 ? P : 2;
+  constexpr int NY = T == 1 ? 1 : 2;
+  __shared__ PwRow in_rows[kStageRows];
+  __shared__ PwRow out_rows[kStageRows];
+  const int x = (blockIdx.x * blockDim.x + threadIdx.x) * P;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int z = blockIdx.z;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  // every thread stages; one outside the output skips its reads, chains
+  // and store
+  const bool live = x < dst_w && y < dst_h;
+  const int n = live ? min(P, dst_w - x) : 0;  // pixels inside
+  const float* fblk = reinterpret_cast<const float*>(blk);
+  // a batch's plane: its source address, its crop origin two words apart
+  const void* s = src;
+  if (h.batch) {
+    s = reinterpret_cast<const void*>(__ldg(reinterpret_cast<const unsigned long long*>(blk) + z));
+  }
+
+  // the op tables staged first (a table of at most kStageRows rows, all of
+  // them at once), so their loads overlap the walks and the taps' loads
+  const bool in_once = h.in_n_ops <= kStageRows, out_once = h.out_n_ops <= kStageRows;
+  if (in_once) {
+    stage_rows(in_rows, consts + h.in_ops_off, h.in_n_ops, 0, h.in_n_ops, fblk + h.in_fp_off,
+               tid, kThreads);
+  }
+  if (out_once) {
+    stage_rows(out_rows, consts + h.out_ops_off, h.out_n_ops, 0, h.out_n_ops,
+               fblk + h.out_fp_off, tid, kThreads);
+  }
+
+  // the outer walk: the thread's pixels into the core's output
+  int xc[P], fo[P];
+  int yc = y;
+#pragma unroll
+  for (int q = 0; q < P; ++q) xc[q] = x + q, fo[q] = -1;
+  if (live) walk_stages(h.outer, h.batch ? blk + 2 * z : blk, xc, fo, yc);
+  bool sample[P];
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    sample[q] = q < n && fo[q] < 0;
+    any = any || sample[q];
+  }
+
+  // the taps' positions on each axis and the taps each pixel's result uses
+  // (need: bit k for tap k, v00, v01, v10, v11)
+  int xs[NX], ys[NY];
+  unsigned need[P];
+  float wx[P], wy[P];
+  const bool warp = T == 4 && h.core == CM_WARP;
+#pragma unroll
+  for (int q = 0; q < P; ++q) need[q] = 0u, wx[q] = wy[q] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NX; ++i) xs[i] = 0;
+#pragma unroll
+  for (int i = 0; i < NY; ++i) ys[i] = 0;
+  // tap i's fill, 4 bits at bit 4i (kNone: none), a thread's taps in one
+  // register
+  static_assert(N <= 8, "4 bits a tap");
+  unsigned none = 0u;
+#pragma unroll
+  for (int i = 0; i < N; ++i) none |= (unsigned)kNone << (4 * i);
+  unsigned fills = none;
+  TapRegs<Src, N> regs;
+  // a thread none of whose pixels samples the core (all under an outer
+  // CONSTANT border's fill) reads no tap
+  if (any) {
+    if constexpr (T == 1) {
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        xs[q] = xc[q];
+        need[q] = sample[q] ? 1u : 0u;
+      }
+      ys[0] = yc;
+    } else if (!warp) {
+      // the resize: host tables; under the edge rule a weight of 0 keeps the
+      // first tap alone, so the second is not read (frame_resize.cuh's
+      // bilerp skips it too)
+      const int* tp = consts + h.taps_off;
+      const float* tw = reinterpret_cast<const float*>(tp + 2 * (h.core_w + h.core_h));
+      const bool keep = h.keep_edge != 0;
+      ys[0] = __ldg(tp + 2 * h.core_w + yc);
+      ys[1] = __ldg(tp + 2 * h.core_w + h.core_h + yc);
+      const float row_w = __ldg(tw + h.core_w + yc);
+      const bool uy = !(keep && row_w == 0.f);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        if (!sample[q]) continue;
+        xs[2 * q] = __ldg(tp + xc[q]);
+        xs[2 * q + 1] = __ldg(tp + h.core_w + xc[q]);
+        wx[q] = __ldg(tw + xc[q]);
+        wy[q] = row_w;
+        const bool ux = !(keep && wx[q] == 0.f);
+        need[q] = 1u | (ux ? 2u : 0u) | (uy ? 4u : 0u) | (ux && uy ? 8u : 0u);
+      }
+    } else {
+      // the warp: warp.cuh's coordinates and taps over the inner image, the
+      // row's terms once for the thread
+      float sx[P], sy[P];
+      map_coords(fblk + h.coef_off, h.persp != 0, xc, yc, sx, sy);
+      const float fw = (float)h.in_w, fh = (float)h.in_h;  // exact: sides < 2^24
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const float sxq = sx[q], syq = sy[q];
+        const float x0f = floorf(sxq), y0f = floorf(syq);
+        wx[q] = __fsub_rn(sxq, x0f);
+        wy[q] = __fsub_rn(syq, y0f);
+        const bool vx0 = x0f >= 0.f && x0f < fw, vx1 = x0f >= -1.f && x0f < fw - 1.f;
+        const bool vy0 = y0f >= 0.f && y0f < fh, vy1 = y0f >= -1.f && y0f < fh - 1.f;
+        xs[2 * q] = vx0 ? (int)x0f : 0;
+        xs[2 * q + 1] = vx1 ? (int)x0f + 1 : 0;
+        ys[2 * q] = vy0 ? (int)y0f : 0;
+        ys[2 * q + 1] = vy1 ? (int)y0f + 1 : 0;
+        need[q] = sample[q] ? ((unsigned)(vy0 && vx0) | (unsigned)(vy0 && vx1) << 1 |
+                               (unsigned)(vy1 && vx0) << 2 | (unsigned)(vy1 && vx1) << 3)
+                            : 0u;
+      }
+    }
+
+    // both axes through the upper and the lower stages, once each
+    int fx[NX], fy[NY];
+    walk_taps(h, blk, xs, fx, ys, fy);
+
+    // tap k of pixel q: its base position, its fill (the outer of its
+    // column's and its row's) and whether it is read
+    int ty[N], tx[N];
+    unsigned rd = 0u;
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+#pragma unroll
+      for (int k = 0; k < T; ++k) {
+        const int i = q * T + k;
+        // a resample's v00, v01, v10, v11: column k & 1, row k >> 1
+        const int ix = T == 1 ? q : (k & 1), iy = T == 1 ? 0 : (k >> 1);
+        const int f = min(fx[ix], fy[iy]);
+        tx[i] = xs[ix];
+        ty[i] = ys[iy];
+        fills ^= (unsigned)(f ^ kNone) << (4 * i);
+        if ((need[q] >> k & 1u) && f == kNone) rd |= 1u << i;
+      }
+    }
+
+    // every load of the thread in one run; the barrier then also finds the
+    // tables staged at the start
+    load_taps<T == 4>(h, s, ty, tx, rd, regs);
+  }
+  __syncthreads();
+
+  // each pixel's taps: their values, the fused read's chain, the sample;
+  // the fills' tests only where a tap of the thread has one
+  const bool filled = fills != none;
+  float border[kMaxCh];
+#pragma unroll
+  for (int c = 0; c < kMaxCh; ++c) {
+    border[c] = warp && c < h.tap_ch ? __ldg(fblk + h.border_off + c) : 0.f;
+  }
+  float v[P][kMaxCh];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    // each tap the result takes: its lanes, a lower border's value cast to
+    // the source's type, a leading YUV -> RGB, the fused read's chain, an
+    // upper border's value cast to the chain's type after it; a tap it
+    // drops (a resize's of weight 0, a warp's outside its source) costs no
+    // work and holds 0 (the warp's border below)
+    float t[T][1][kMaxCh];
+#pragma unroll
+    for (int k = 0; k < T; ++k) {
+#pragma unroll
+      for (int c = 0; c < kMaxCh; ++c) t[k][0][c] = 0.f;
+    }
+    if (sample[q]) {
+#pragma unroll
+      for (int k = 0; k < T; ++k) {
+        const int i = q * T + k;
+        const int f = (int)(fills >> (4 * i)) & 15;
+        if (!(need[q] >> k & 1u)) continue;
+#pragma unroll
+        for (int c = 0; c < kMaxCh; ++c) t[k][0][c] = regs.lane(i, c);
+        if (filled && f >= kMaxStages && f < kNone) {
+          const int off = fill_offset(h, f);
+#pragma unroll
+          for (int c = 0; c < kMaxCh; ++c) {
+            if (c < h.lower.nch) {
+              t[k][0][c] = cast_to_type(__ldg(fblk + off + c), h.lower.src_type);
+            }
+          }
+        }
+        if (h.lower.conv_first) yuv_to_rgb(t[k][0][0], t[k][0][1], t[k][0][2], conv, t[k][0]);
+      }
+    }
+    if (sample[q] || !in_once) {  // a table staged in chunks: every thread at its barriers
+#pragma unroll
+      for (int k = 0; k < T; ++k) {
+        run_table(t[k], in_rows, in_once, consts + h.in_ops_off, h.in_n_ops,
+                  fblk + h.in_fp_off, tid, need[q] >> k & 1u);
+      }
+    }
+    if (sample[q] && filled) {
+#pragma unroll
+      for (int k = 0; k < T; ++k) {
+        const int i = q * T + k;
+        const int f = (int)(fills >> (4 * i)) & 15;
+        if (!(need[q] >> k & 1u) || f >= kMaxStages) continue;
+        const int off = fill_offset(h, f);
+#pragma unroll
+        for (int c = 0; c < kMaxCh; ++c) {
+          if (c < h.tap_ch) t[k][0][c] = cast_to_type(__ldg(fblk + off + c), h.tap_type);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kMaxCh; ++c) v[q][c] = 0.f;
+    if (sample[q]) {
+      if constexpr (T == 1) {
+#pragma unroll
+        for (int c = 0; c < kMaxCh; ++c) v[q][c] = t[0][0][c];
+      } else {
+        // a resample reads float32 values: int32's bits converted
+        if (h.tap_type == PW_I32) {
+#pragma unroll
+          for (int k = 0; k < T; ++k) {
+#pragma unroll
+            for (int c = 0; c < kMaxCh; ++c) {
+              t[k][0][c] = __int2float_rn(__float_as_int(t[k][0][c]));
+            }
+          }
+        }
+        if (!warp) {
+          const bool keep = h.keep_edge != 0;
+#pragma unroll
+          for (int c = 0; c < kMaxCh; ++c) {
+            v[q][c] = bilerp_values(t[0][0][c], t[1][0][c], t[2][0][c], t[3][0][c], wx[q], wy[q],
+                                     keep);
+          }
+        } else {
+          // a tap outside the warp's source reads its border
+#pragma unroll
+          for (int k = 0; k < T; ++k) {
+            if (need[q] >> k & 1u) continue;
+#pragma unroll
+            for (int c = 0; c < kMaxCh; ++c) {
+              if (c < h.tap_ch) t[k][0][c] = border[c];
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < kMaxCh; ++c) {
+            v[q][c] = lerp_rn(lerp_rn(t[0][0][c], t[1][0][c], wx[q]),
+                              lerp_rn(t[2][0][c], t[3][0][c], wx[q]), wy[q]);
+          }
+        }
+      }
+    } else if (q < n) {  // an outer CONSTANT border's value, cast to the core's type
+#pragma unroll
+      for (int c = 0; c < kMaxCh; ++c) {
+        if (c < h.tap_ch) v[q][c] = cast_to_type(__ldg(fblk + fo[q] + c), h.core_type);
+      }
+    }
+  }
+
+  // the pipeline's chain
+  run_table(v, out_rows, out_once, consts + h.out_ops_off, h.out_n_ops, fblk + h.out_fp_off, tid,
+            live);
+  if (!live) return;
+
+  // a value stored into a buffer of another dtype: the row that casts it as
+  // utils/dtypes.py::astype does, where that takes one
+  if (store_op) run_integer_row(store_op, v);
+  store_typed(out, out_type, (long long)z * sn + (long long)y * sy + (long long)x * sx, v, n,
+              out_ch, sc, sx);
+}
+
+// The launch for a source of kind Src: 1 or 4 taps from the core, P from
+// a.pix. A block is 256 threads: 64 x 4, narrowed while half as many
+// threads across still cover a row.
+template <typename Src>
+void launch_source(const ComposedArgs& a) {
+  CmHead h;
+  std::memcpy(&h, a.head, sizeof(CmHead));
+  const dim3 block = group_block(a.dst_w, a.pix);
+  const int tile_w = block.x * a.pix;
+  const dim3 grid((a.dst_w + tile_w - 1) / tile_w, (a.dst_h + block.y - 1) / block.y, a.n_planes);
+#define CVGS_KERNEL(T, P)                                                                    \
+  composed_kernel<Src, T, P><<<grid, block, 0, a.stream>>>(a.src, h, a.conv, a.blk, a.consts, \
+                                                           a.dst_w, a.dst_h, a.out, a.out_type, \
+                                                           a.out_ch, a.store_op, a.sn, a.sc,   \
+                                                           a.sy, a.sx)
+  if (h.core == CM_NONE) {
+    if (a.pix == 4) {
+      CVGS_KERNEL(1, 4);
+    } else {
+      CVGS_KERNEL(1, 1);
+    }
+  } else {
+    CVGS_KERNEL(4, 1);
+  }
+#undef CVGS_KERNEL
+}
+
+}  // namespace kc
 }  // namespace

@@ -37,9 +37,9 @@
 //  - `used`, the plane's source address, its 6 or 9 coefficients and its
 //    border are read once per thread, not once per pixel, and the
 //    row-constant sums c01*Y + c02, c11*Y + c12 (and c21*Y + c22) are
-//    hoisted out of the pixel loop. affine_term computes them as their own
-//    rounded step, so this is bit-safe; c00*X and the outer sum stay per
-//    pixel (incremental coordinates would round differently).
+//    hoisted out of the pixel loop. warp.cuh::map_coords computes them as
+//    their own rounded step, so this is bit-safe; c00*X and the outer sum
+//    stay per pixel (incremental coordinates would round differently).
 //  - A thread whose 4 pixels have all four taps inside the source (decided
 //    in float, like every validity test) skips the border selects and, on a
 //    uint8 source, fetches each row's two taps, 2 * nch contiguous bytes,

@@ -7,11 +7,15 @@
 // order of ops/warp.py::decompose_inverse_map,
 //   sx = c00*X + (c01*Y + c02),  sy = c10*X + (c11*Y + c12),
 // each product and sum rounded once; a perspective map divides both by
-// den = c20*X + (c21*Y + c22), with den == 0 taken as 1. A tap is valid
-// when it lies inside the source, decided on the floored coordinate in
-// float before any integer conversion, so a coordinate far outside int32
-// reads the border and nothing overflows; an invalid tap reads the plane's
-// per-channel border value. The lerps go horizontal, then vertical.
+// den = c20*X + (c21*Y + c22), with den == 0 taken as 1. The host computes
+// the terms c00*X and c01*Y + c02 in numpy, which keeps a subnormal operand
+// or result, and only their sum is a flushed float32 op: map_coords computes
+// the terms so for every map (fmul_keep, fadd_keep) and flushes the sum. A
+// tap is valid when it lies inside the source, decided on the floored
+// coordinate in float before any integer conversion, so a coordinate far
+// outside int32 reads the border and nothing overflows; an invalid tap
+// reads the plane's per-channel border value. The lerps go horizontal,
+// then vertical.
 
 #pragma once
 
@@ -21,9 +25,56 @@ namespace {
 
 constexpr int kCoeffs = 9;  // per plane in a parameter block
 
-// a*X + (b*Y + c), each op rounded once
-__device__ __forceinline__ float affine_term(const float* __restrict__ c, float x, float y) {
-  return __fadd_rn(__fmul_rn(__ldg(c), x), __fadd_rn(__fmul_rn(__ldg(c + 1), y), __ldg(c + 2)));
+// a * b and a + b rounded once to float32 as numpy rounds them, a subnormal
+// operand or result kept: PTX mul.rn.f32 and add.rn.f32 without .ftz, so
+// -ftz=true flushes neither. They are the SASS census's one exception, an
+// FMUL or FADD without .FTZ (tools/kernel_sass.py::KEEP_TERMS).
+__device__ __forceinline__ float fmul_keep(float a, float b) {
+  float d;
+  asm("mul.rn.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float fadd_keep(float a, float b) {
+  float d;
+  asm("add.rn.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// The source coordinates (sx[p], sy[p]) of the P pixels at columns xs[p] of
+// row y under the map c (6 coefficients; 9 where persp), each coefficient
+// loaded once: the row's terms b*Y + c once, the column's a*X per pixel, as
+// the host computes them (fmul_keep, fadd_keep); then the flushed sums and
+// a perspective map's division.
+template <int P>
+__device__ __forceinline__ void map_coords(const float* __restrict__ c, bool persp,
+                                           const int (&xs)[P], int y, float (&sx)[P],
+                                           float (&sy)[P]) {
+  float k[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) k[i] = i < 6 || persp ? __ldg(c + i) : 0.f;
+  const float fy = (float)y;
+  float cx[P], cy[P], cw[P];
+  const float rx = fadd_keep(fmul_keep(k[1], fy), k[2]);
+  const float ry = fadd_keep(fmul_keep(k[4], fy), k[5]);
+  const float rw = persp ? fadd_keep(fmul_keep(k[7], fy), k[8]) : 0.f;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const float fx = (float)xs[p];
+    cx[p] = fmul_keep(k[0], fx);
+    cy[p] = fmul_keep(k[3], fx);
+    cw[p] = persp ? fmul_keep(k[6], fx) : 0.f;
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    sx[p] = __fadd_rn(cx[p], rx);
+    sy[p] = __fadd_rn(cy[p], ry);
+    if (persp) {
+      float den = __fadd_rn(cw[p], rw);
+      if (den == 0.f) den = 1.f;
+      sx[p] = __fdiv_rn(sx[p], den);
+      sy[p] = __fdiv_rn(sy[p], den);
+    }
+  }
 }
 
 // The tap at p where ok, else the border value b. A float64 element is
@@ -74,19 +125,13 @@ __device__ __forceinline__ void sample_warp(const SrcT* __restrict__ src, int sr
                                             int nch, const float* __restrict__ c,
                                             const float* __restrict__ b, int x, int y,
                                             float (&v)[kMaxCh]) {
-  const float fx = (float)x, fy = (float)y;
-  float px = affine_term(c, fx, fy);
-  float py = affine_term(c + 3, fx, fy);
-  if (kPersp) {
-    float den = affine_term(c + 6, fx, fy);
-    if (den == 0.f) den = 1.f;
-    px = __fdiv_rn(px, den);
-    py = __fdiv_rn(py, den);
-  }
+  const int xs[1] = {x};
+  float px[1], py[1];
+  map_coords(c, kPersp, xs, y, px, py);
   float border[kMaxCh];
 #pragma unroll
   for (int ch = 0; ch < kMaxCh; ++ch) border[ch] = ch < nch ? __ldg(b + ch) : 0.f;
-  sample_point(src, src_h, src_w, nch, border, px, py, v);
+  sample_point(src, src_h, src_w, nch, border, px[0], py[0], v);
 }
 
 }  // namespace

@@ -144,39 +144,27 @@ __global__ void __launch_bounds__(kThreads) warp_kernel(
   if (x >= dst_w || y >= dst_h) return;
   const int n = min(P, dst_w - x);
 
-  // The plane's parameters are read before `used` is known (every plane has
-  // them), so all of the thread's uniform loads are in flight together.
+  // The plane's source and border are read before `used` is known (every
+  // plane has them), so the thread's uniform loads are in flight together.
   const SrcT* src = reinterpret_cast<const SrcT*>(__ldg(srcs + z));
   const float* c = coeffs + kCoeffs * z;
   float b[kMaxCh];
 #pragma unroll
   for (int ch = 0; ch < kMaxCh; ++ch) b[ch] = ch < nch ? __ldg(border + kMaxCh * z + ch) : 0.f;
-  // a*X + (b*Y + c) per coordinate, as affine_term: the inner sum is the
-  // row's, each op rounded once
-  const float fy = (float)y;
-  const float c00 = __ldg(c), c10 = __ldg(c + 3);
-  const float row_x = __fadd_rn(__fmul_rn(__ldg(c + 1), fy), __ldg(c + 2));
-  const float row_y = __fadd_rn(__fmul_rn(__ldg(c + 4), fy), __ldg(c + 5));
-  const float c20 = kPersp ? __ldg(c + 6) : 0.f;
-  const float row_w = kPersp ? __fadd_rn(__fmul_rn(__ldg(c + 7), fy), __ldg(c + 8)) : 0.f;
-
   float v[P][kMaxCh];
   if (z < __ldg(used)) {
+    // the coordinates as warp.cuh::map_coords computes them: the row's terms
+    // once for the thread's pixels
+    int xs[P];
     float px[P], py[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) xs[p] = x + p;
+    map_coords(c, kPersp, xs, y, px, py);
     bool interior = n == P;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
 #pragma unroll
       for (int ch = 0; ch < kMaxCh; ++ch) v[p][ch] = 0.f;
-      const float fx = (float)(x + p);
-      px[p] = __fadd_rn(__fmul_rn(c00, fx), row_x);
-      py[p] = __fadd_rn(__fmul_rn(c10, fx), row_y);
-      if (kPersp) {
-        float den = __fadd_rn(__fmul_rn(c20, fx), row_w);
-        if (den == 0.f) den = 1.f;
-        px[p] = __fdiv_rn(px[p], den);
-        py[p] = __fdiv_rn(py[p], den);
-      }
       interior = interior && is_interior(src, src_h, src_w, nch, px[p], py[p]);
     }
     // One branch per thread: its pixels run as one straight line either way.

@@ -85,7 +85,7 @@ from .cuda_pointwise import BORDER_MODES, MAX_STAGES, STAGE_BORDER, STAGE_CROP, 
 from .cuda_warp import _MAX_SIDE, _SINGLE_LAYOUTS, _size
 
 __all__ = ["Unsupported", "build_plan", "supports", "prepare", "composed_reference", "composed",
-           "run", "work", "LAUNCHES"]
+           "run", "work", "tap_need", "LAUNCHES"]
 
 #: launches of the CUDA kernel in this process
 LAUNCHES = 0
@@ -386,6 +386,18 @@ def build_plan(pipeline) -> ComposedPlan:
         head=tuple(int(v) for v in head), conv=conv, tables=tables, n_block=pos + 4)
 
 
+def tap_need(wx, wy, keep: bool):
+    """The taps v00, v01, v10, v11 of a resize that a result takes, as bits
+    0-3, from its weights (tensors): the first always; under the edge rule
+    (``keep``) a weight of 0 takes the first tap alone, so the second
+    column's taps drop where ``wx`` is 0 and the second row's where ``wy``
+    is (``csrc/frame_resize.cuh::bilerp_values``); the kernel loads no
+    other."""
+    ux = ~(keep & (wx == 0.0))
+    uy = ~(keep & (wy == 0.0))
+    return 1 | ux.int() * 2 | uy.int() * 4 | (ux & uy).int() * 8
+
+
 def supports(pipeline) -> bool:
     """Whether the kernel runs this pipeline (decided before any launch)."""
     try:
@@ -608,20 +620,22 @@ def _sample(r: _Reader, yc, xc, need):
         keep = bool(plan.word("keep_edge"))
         # with keep a weight of 0 takes the first tap alone: the second is
         # not needed (the others' lerp reads it whatever its weight)
-        nx = need & ~(keep & (wx[..., 0] == 0.0))
-        ny = need & ~(keep & (wy[..., 0] == 0.0))
+        bits = tap_need(wx[..., 0], wy[..., 0], keep)
         # v00, v01, v10, v11: the upper row's taps, then the lower row's
         v = r.tap(0, torch.stack([y0[yc], y0[yc], y1[yc], y1[yc]]),
                   torch.stack([x0[xc], x1[xc], x0[xc], x1[xc]]),
-                  torch.stack([need, nx, ny, nx & ny])).to(torch.float32)
+                  torch.stack([need & (bits >> k & 1).bool() for k in range(4)])
+                  ).to(torch.float32)
         return _lerp(_lerp(v[0], v[1], wx, keep), _lerp(v[2], v[3], wx, keep), wy, keep)
     # the warp: the coordinates from the block's coefficients, as
-    # csrc/warp.cuh::sample_warp recomputes them
+    # csrc/warp.cuh::sample_warp recomputes them: the column's and the row's
+    # terms as ops/warp.py::decompose_inverse_map computes them on the host
+    # (float32 ops that keep a subnormal), their sum a flushed op
     cf = r.fblk[plan.word("coef_off"):plan.word("coef_off") + _N_COEFFS]
     fx, fy = xc.to(torch.float32), yc.to(torch.float32)
 
     def term(k):
-        return dt.fadd(dt.fmul(cf[k], fx), dt.fadd(dt.fmul(cf[k + 1], fy), cf[k + 2]))
+        return dt.fadd(cf[k] * fx, cf[k + 1] * fy + cf[k + 2])
 
     sx, sy = term(0), term(3)
     if plan.word("persp"):
@@ -750,18 +764,105 @@ def run(pipeline, plan: ComposedPlan, device: torch.device, out=None):
 launch = composed
 
 
+def _walk_axis(stages, blk, pos, axis: int, shift: int = 0):
+    """``csrc/composed.cuh::walk_axis`` on a tensor of positions of one axis
+    (0: y, 1: x): the positions inwards, and whether each lies outside a
+    CONSTANT border on this axis (a tap there reads nothing)."""
+    out = torch.zeros(pos.shape, dtype=torch.bool)
+    for kind, sh, sw, mode, a, b, c, d in stages:
+        if kind == STAGE_CROP:
+            off, length, size = (b, sh, d) if axis == 0 else (a, sw, c)
+            s = int(blk[off + shift])
+            pos = pos + min(max(s + length if s < 0 else s, 0), length - size)
+        else:
+            n, lead = (sh, a) if axis == 0 else (sw, b)
+            j = pos - lead
+            if mode == _CONSTANT:
+                out |= (j < 0) | (j >= n)
+            pos = _fold(j, n, mode)
+    return pos, out
+
+
+def _axis_reads(a: Launch, z: int, axis: int) -> np.ndarray:
+    """The base positions one axis of a resize or one-pixel core reads for
+    plane ``z``: the output positions through the outer stages, less those
+    an outer CONSTANT border fills; a resize's taps at them
+    (``bounds.axis_reads``); then through the upper and the lower stages,
+    less those a CONSTANT border there fills. A tap is read where both its
+    row and its column are, so the two axes' positions pair up."""
+    plan = a.plan
+    blk = a.block.long().cpu()
+    pos, out = _walk_axis(plan.stage_list(2), blk, torch.arange(plan.dsize[1 - axis]), axis,
+                          shift=2 * z if plan.batch else 0)
+    pos = np.unique(pos[~out].numpy())
+    if plan.core == "resize":
+        cw, ch = plan.word("core_w"), plan.word("core_h")
+        t = plan.tables[plan.word("taps_off"):]
+        i0, i1 = ((t[:cw], t[cw:2 * cw]) if axis
+                  else (t[2 * cw:2 * cw + ch], t[2 * cw + ch:2 * (cw + ch)]))
+        wts = t[2 * (cw + ch):].view(np.float32)
+        w = wts[:cw] if axis else wts[cw:]
+        pos = bounds.axis_reads(i0[pos], i1[pos], w[pos], bool(plan.word("keep_edge")))
+    pos = torch.from_numpy(pos)
+    out = torch.zeros(pos.shape, dtype=torch.bool)
+    for k in (1, 0):  # the upper stages, then the lower ones
+        pos, o = _walk_axis(plan.stage_list(k), blk, pos, axis)
+        out |= o
+    return np.unique(pos[~out].numpy())
+
+
+def _read_sectors(a: Launch) -> int:
+    """The 32-byte sectors of the base arrays that a resize or one-pixel
+    core's taps read, from the plan's tables and the block: each plane's
+    rows and columns (:func:`_axis_reads`) in every pairing; an NV12 tap
+    reads a luma byte and a chroma pair."""
+    plan = a.plan
+    h, w, c = plan.head[1:4]
+    elem = c * a.srcs[0].element_size() if plan.base == "image" else 1
+    found = []
+    planes = {}  # each base array's rows and columns over its planes
+    for z in range(plan.n_planes):
+        rows, cols = planes.setdefault(a.plane_src[z], ([], []))
+        rows.append(_axis_reads(a, z, 0))
+        cols.append(_axis_reads(a, z, 1))
+    for k, (rows, cols) in planes.items():
+        array = k * 2**45  # each base array's bytes apart from the others'
+        for r, col in zip(rows, cols):
+            found.append(bounds.grid_sectors(array + r * w * elem, col * elem, elem))
+            if plan.base == "yuv":
+                found.append(bounds.grid_sectors(array + (h + np.unique(r // 2)) * w,
+                                                 np.unique(col // 2) * 2, 2))
+    return int(np.unique(np.concatenate(found)).size) * 32 if found else 0
+
+
 def work(a: Launch) -> Tuple[int, int, int]:
     """``(output bytes, source bytes touched, float32 operations)`` of one
     launch (``utils.bounds``): the output; the 32-byte sectors of the base
-    arrays that the taps read, from the plain version's own positions (a
-    tap of a CONSTANT border, outside a warp's source or under an outer
-    border's fill reads none, nor a resize's second tap of weight 0 under
-    the edge rule that keeps the first tap alone; an NV12 tap reads a luma
-    byte and a chroma pair); per output value the resample's lerps (12; a warp 8 more for its
-    coordinates), the FusedRead's rows once per tap (an NV12 conversion 7
-    more) and the pipeline's rows."""
+    arrays that the taps read: for a resize or one-pixel core from the
+    plan's tap tables, weights and stages (:func:`_read_sectors`), for a
+    warp from the plain version's own positions (a tap of a CONSTANT
+    border, outside a warp's source or under an outer border's fill reads
+    none, nor a resize's second tap of weight 0 under the edge rule that
+    keeps the first tap alone; an NV12 tap reads a luma byte and a chroma
+    pair); per output value the resample's lerps (12; a warp 8 more for
+    its coordinates), the FusedRead's rows once per tap (an NV12
+    conversion 7 more) and the pipeline's rows."""
     plan = a.plan
     out_bytes, values = bounds.output(plan)
+    if plan.core == "warp":
+        src = _walked_sectors(a)
+    else:
+        src = _read_sectors(a)
+    taps = 1 if plan.core == "none" else 4
+    per_value = ({"none": 0, "resize": 12, "warp": 20}[plan.core]
+                 + taps * (plan.word("in_n_ops") + 7 * plan.head[10]) + plan.word("out_n_ops"))
+    return out_bytes, src, values * max(per_value, 1)
+
+
+def _walked_sectors(a: Launch) -> int:
+    """The sectors the taps of a launch read, from the plain version's own
+    positions (``_reference`` collecting them): a warp core's count."""
+    plan = a.plan
     touched: list = []
     _reference(a, touched)
     h, w, c = plan.head[1:4]
@@ -775,8 +876,4 @@ def work(a: Launch) -> Tuple[int, int, int]:
             chroma = (h + torch.div(y, 2, rounding_mode="floor")) * w + 2 * torch.div(
                 x, 2, rounding_mode="floor")
             found.append(bounds.sectors(array + chroma, 2))
-    src = int(torch.unique(torch.cat(found)).numel()) * 32 if found else 0
-    taps = 1 if plan.core == "none" else 4
-    per_value = ({"none": 0, "resize": 12, "warp": 20}[plan.core]
-                 + taps * (plan.word("in_n_ops") + 7 * plan.head[10]) + plan.word("out_n_ops"))
-    return out_bytes, src, values * max(per_value, 1)
+    return int(torch.unique(torch.cat(found)).numel()) * 32 if found else 0

@@ -75,27 +75,50 @@ def crop_touched_bytes(read, planes=None) -> int:
     return int(torch.unique(torch.cat(found)).numel()) * 32 if found else 0
 
 
+def axis_reads(i0, i1, w, keep: bool) -> np.ndarray:
+    """The distinct source positions one axis of a bilinear resize reads,
+    from its tap tables (``ops/resize.py::axis_taps``) at the outputs they
+    are given for: every output's first tap, and its second where the lerp
+    takes it. Under the edge rule (``keep``) a weight of 0 takes the first
+    tap alone (``ops/resize.py::sample_frame``), so that second tap is
+    left out: at an exact 3:1 every output's."""
+    i0, i1, w = np.asarray(i0), np.asarray(i1), np.asarray(w)
+    second = i1[w != 0] if keep else i1
+    return np.unique(np.concatenate([i0, second]).astype(np.int64))
+
+
+def grid_sectors(row_at, col_at, elem_bytes: int) -> np.ndarray:
+    """The distinct 32-byte sectors under every element whose first byte
+    is ``row_at[r] + col_at[c]``, for every row start ``row_at[r]`` and
+    column offset ``col_at[c]`` (bytes), each ``elem_bytes`` long: the
+    taps of a resample whose rows and columns are read in every pairing."""
+    first = (np.asarray(row_at, np.int64)[:, None] + np.asarray(col_at, np.int64)[None, :])
+    first = first.reshape(-1)
+    return np.unique(np.concatenate([first // 32, (first + elem_bytes - 1) // 32]))
+
+
 def touched_bytes(plan) -> int:
     """Bytes of the frame kernel's source that its taps touch, in the 32-byte
-    sectors device memory delivers."""
-
-    def part(x_taps, y_taps, row_bytes, elem_bytes):
-        rows = np.unique(np.concatenate(y_taps))
-        first = np.unique(np.concatenate(x_taps)) * elem_bytes
-        sec = np.unique(np.concatenate([first // 32, (first + elem_bytes - 1) // 32]))
-        if row_bytes % 32:  # rows then start off the sector grid: count them whole
-            return len(rows) * row_bytes
-        return len(rows) * len(sec) * 32
-
+    sectors device memory delivers: the rows and columns of
+    :func:`axis_reads` (a second tap of weight 0 under the edge rule left
+    out), each row read at each column; an NV12 buffer's chroma pairs at
+    the chroma tables' rows and columns under the luma's weights."""
     w, h = plan.dsize
     t = plan.taps
-    x, y = (t[:w], t[w:2 * w]), (t[2 * w:2 * w + h], t[2 * w + h:2 * w + 2 * h])
-    item = plan.src_dtype.itemsize
-    total = part(x, y, plan.src_w * plan.nch * item, plan.nch * item)
-    if plan.yuv:
-        c = t[2 * (w + h):]
-        total += part((c[:w], c[w:2 * w]), (c[2 * w:2 * w + h], c[2 * w + h:]), plan.src_w, 2)
-    return total
+    keep = bool(plan.keep_edge)
+    wx, wy = plan.weights[:w], plan.weights[w:]
+
+    def reads(tab):
+        return (axis_reads(tab[:w], tab[w:2 * w], wx, keep),
+                axis_reads(tab[2 * w:2 * w + h], tab[2 * w + h:2 * w + 2 * h], wy, keep))
+
+    elem = plan.nch * plan.src_dtype.itemsize
+    cols, rows = reads(t)
+    found = [grid_sectors(rows * plan.src_w * elem, cols * elem, elem)]
+    if plan.yuv:  # chroma pairs: cx pairs of 2 bytes in rows of src_w bytes after the luma
+        ccols, crows = reads(t[2 * (w + h):])
+        found.append(grid_sectors((plan.src_h + crows) * plan.src_w, ccols * 2, 2))
+    return int(np.unique(np.concatenate(found)).size) * 32
 
 
 def warp_touched_bytes(args) -> int:

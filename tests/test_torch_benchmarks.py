@@ -240,10 +240,14 @@ def test_benchmarks_need_a_card(monkeypatch):
 # --- utils/bounds.py: the byte counts chip_smoke.py computed before they moved ---
 
 #: source bytes touched, as chip_smoke.py computed them for its phase-5
-#: plans on the CPU (output bytes and operations follow from the shapes)
+#: plans on the CPU (output bytes and operations follow from the shapes);
+#: the frame kernel's leave out a second tap of weight 0 under the edge
+#: rule (``bounds.axis_reads``): frames (a) and (b), exact 3:1 resizes, read
+#: every output's first tap alone, half the rows and columns a tap table
+#: names (4,147,200 and 21,772,800 bytes before)
 MOVED_SOURCE_BYTES = {
-    "crop_flagship": 52384, "crop_flagship_used37": 41984, "frame_a": 4147200,
-    "frame_b": 21772800, "w1_k3_separable": 1909696, "w2_k4_rotation": 5680320,
+    "crop_flagship": 52384, "crop_flagship_used37": 41984, "frame_a": 2073600,
+    "frame_b": 12441600, "w1_k3_separable": 1909696, "w2_k4_rotation": 5680320,
     "w5_k5a_perspective_640x384": 4499328, "w6_k5b_batch8_ragged7": 926816,
     "d1_circular_first3": 1572864, "d2_nv12_bt709": 1179648, "d3_crop_resize": 356736,
     "d4_warp_crop_pass": 309280,

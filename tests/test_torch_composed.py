@@ -350,3 +350,117 @@ def test_work_counts_the_sectors_of_the_taps_the_result_uses(dsize):
     assert src_bytes == want
     if dsize == (64, 36):
         assert rows.size == H // 3 and cols.size == W // 3
+
+
+# --- the kernel's host logic: per-axis walks, instances, pixels, taps read ----
+
+
+def _all_cases():
+    """C1-C8 at two sizes and two sets of values, and the other compositions."""
+    out = {}
+    for size in ((90, 160), (108, 192)):
+        f = cc.frames(*size, 7)
+        for values in (0, 1):
+            for name, ops in cc.cases(T, f, values).items():
+                out[f"{name}_{size[0]}_{values}"] = ops
+    out.update(cc.more_cases(T))
+    return out
+
+
+@pytest.mark.parametrize("name", list(_all_cases()))
+def test_each_axis_walked_alone_reads_the_sectors_the_taps_read(name):
+    """``csrc/composed.cuh`` walks a tap's column and its row through the
+    stages on their own (``walk_axis``) and takes as its fill the outer of
+    the two axes' first CONSTANT borders; ``work()`` counts a resize's or a
+    one-pixel read's sectors the same way, from the tap tables, the weights
+    and the block (``_read_sectors``). Both read exactly the base positions
+    the plain version's 2-D walk of every tap reads (``_walked_sectors``):
+    the same 32-byte sectors."""
+    p = T.build_pipeline(*_all_cases()[name])
+    a = kc.prepare(p, kc.build_plan(p), CPU)
+    if a.plan.core == "warp":  # counted from the plain version's walk itself
+        assert kc.work(a)[1] == kc._walked_sectors(a) > 0
+        return
+    assert kc._read_sectors(a) == kc._walked_sectors(a) > 0
+    assert kc.work(a)[1] == kc._read_sectors(a)
+
+
+def test_each_source_dtype_has_its_instance():
+    """uint8 images, float32 and int32 images (int32 read as float32's
+    words) and NV12 buffers have instances of their own, the six other
+    dtypes share one (``cc.INSTANCES``); each instance's file is compiled
+    into the library, and every source dtype's plan carries the type code
+    from which the C entry chooses the instance, in the lower stage list's
+    ``PwHead::src_type`` word. A resample takes 4 taps a pixel, a one-pixel
+    read 1."""
+    from cvgpuspeedup_tpu_torch.exec import _build
+    from cvgpuspeedup_tpu_torch.exec.cuda_batch_resize import SRC_CODES, SRC_DTYPES
+
+    csrc = _build.PACKAGE_DIR / "csrc"
+    assert set(cc.INSTANCES) == {str(d)[6:] for d in SRC_DTYPES.values()}
+    for src in {*cc.INSTANCES.values(), "composed_nv12.cu"}:
+        assert csrc / src in _build.SOURCES, src
+    f = cc.frames(H, W, 8)
+    for name, want in (("c1_roi_crop_resize", ("composed.cu", 4)),
+                       ("c6_crop_batch", ("composed.cu", 1)),
+                       ("c8_nv12_to_u8_resize", ("composed_nv12.cu", 4))):
+        assert cc.instance(kc.build_plan(T.build_pipeline(*cc.cases(T, f)[name]))) == want
+    for dtype in SRC_DTYPES.values():
+        g = {**f, "big": torch.from_numpy(f["big"]).to(dtype)}
+        plan = kc.build_plan(T.build_pipeline(*cc.cases(T, g)["c4_warp_of_a_crop"]))
+        assert plan.src_dtype == dtype
+        assert plan.head[4] == SRC_CODES[dtype]
+        assert cc.instance(plan) == (cc.INSTANCES[str(dtype)[6:]], 4)
+
+
+def test_pixels_per_thread_follows_the_warp_kernel_s_rule():
+    """A one-pixel read takes 4 adjacent pixels a thread where a thread per
+    4 pixels still fills half of the card's resident threads (an H100: 132
+    SMs x 2048), else 1; a resample (4 taps) takes 1 at every size: of
+    chip_smoke's C1-C8, C6's 16 crops and C7's gray crop take 4, the
+    resizes and the warp 1. The card's tests launch at sizes on both sides
+    of the rule (``test_torch_cuda_composed.py::LARGE``)."""
+    import sys
+
+    from cvgpuspeedup_tpu_torch.exec import _build
+
+    h100 = 132 * 2048
+    assert cc.pixels_per_thread(2 * h100, h100) == 4
+    assert cc.pixels_per_thread(2 * h100 - 1, h100) == 1
+    assert cc.pixels_per_thread(20 * h100, h100, taps=4) == 1
+    sys.path.insert(0, str(_build.PACKAGE_DIR.parent))
+    import chip_smoke as cs
+
+    frame = np.zeros((cs.SRC_H, cs.SRC_W, 3), np.uint8)
+    hd = np.zeros((cs.FRAME_H, cs.FRAME_W, 3), np.uint8)
+    nv12 = np.zeros((cs.NV12_H * 3 // 2, cs.NV12_W), np.uint8)
+    got = {}
+    for name, ops in cs.composed_cases(T, frame, hd, nv12).items():
+        plan = kc.build_plan(T.build_pipeline(*ops))
+        got[name[:2]] = cc.pixels_per_thread(plan.n_planes * plan.dsize[0] * plan.dsize[1], h100,
+                                             cc.instance(plan)[1])
+    assert got == {"c1": 1, "c2": 1, "c3": 1, "c4": 1, "c5": 1, "c6": 4, "c7": 4, "c8": 1}
+
+
+@pytest.mark.parametrize("dsize", [(64, 36), (80, 45), (67, 31)])
+def test_the_taps_a_resize_loads_follow_its_weights(dsize):
+    """``tap_need``: a resize loads its first tap always; under the edge
+    rule a weight of 0 takes the first tap alone, so the second column's
+    taps (bits 1, 3) drop where the column's weight is 0 and the second
+    row's (bits 2, 3) where the row's is; without the rule it loads all
+    four. At 3:1 every output loads one tap, at 67 x 31 all four."""
+    from cvgpuspeedup_tpu_torch.ops.resize import axis_taps, keeps_edge_weight
+
+    keep = keeps_edge_weight(H, W, T.Size(*dsize))
+    wx = torch.from_numpy(axis_taps(W, dsize[0], keep)[2].astype(np.float32))[None, :]
+    wy = torch.from_numpy(axis_taps(H, dsize[1], keep)[2].astype(np.float32))[:, None]
+    need = kc.tap_need(wx, wy, keep)
+    ux, uy = ~(keep & (wx == 0)), ~(keep & (wy == 0))
+    assert torch.equal(need & 1, torch.ones_like(need))
+    assert torch.equal((need >> 1 & 1).bool(), ux.expand_as(need))
+    assert torch.equal((need >> 2 & 1).bool(), uy.expand_as(need))
+    assert torch.equal((need >> 3 & 1).bool(), (ux & uy).expand_as(need))
+    if dsize == (64, 36):
+        assert bool((need == 1).all())
+    if dsize == (67, 31):
+        assert not keep and bool((need == 15).all())

@@ -88,14 +88,14 @@ def test_a_batch_of_crops_of_two_frames(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.uint16, torch.int16, torch.float16, torch.int32,
-                                   torch.float64, torch.int64])
+                                   torch.float64, torch.int64, torch.int8, torch.float32])
 @pytest.mark.parametrize("name", ["c1_roi_crop_resize", "c4_warp_of_a_crop", "c6_crop_batch",
                                   "c7_crop_of_fused_gray", "c3_letterbox"])
 def test_source_dtypes(cuda, name, dtype):
     f = _on(cuda, cc.frames(H, W, 2))
     for k in ("hd", "big"):
-        f[k] = ((f[k].int() * 3 + 100).to(dtype) if dtype != torch.float16
-                else (f[k].float() / 7).half())
+        f[k] = ((f[k].int() * 3 + 100).to(dtype) if dtype not in (torch.float16, torch.int8)
+                else (f[k].float() / 7).half() if dtype == torch.float16 else (f[k].int() - 128).to(dtype))
     ops = cc.cases(T, f)[name]
     a, got = _launch(cuda, ops)
     assert a.srcs[0].dtype == dtype
@@ -163,3 +163,133 @@ def test_out_into_a_strided_slot_of_another_dtype(cuda):
     assert kc.composed(a, out=view) is view
     _same(view, want.to(torch.int16))
     assert bool((slots[:, [0, 2]] == -1).all())
+
+
+# --- the large launches: 4 pixels a thread for a one-pixel read ---------------
+
+C = T.ColorConversionCode
+
+
+def _resident(cuda):
+    props = torch.cuda.get_device_properties(cuda)
+    return props.multi_processor_count * props.max_threads_per_multi_processor
+
+
+def _large(f, width, height, dx=0, angle=10.0):
+    """Compositions of width x height outputs, each read tree of C1-C8, at
+    least twice the card's resident threads: a one-pixel read takes 4
+    pixels a thread there, a resample 1. ``dx`` and ``angle`` move runtime
+    values (a crop origin, the warp's angle)."""
+    hd, big, nv12 = f["hd"], f["big"], f["nv12"]
+    h, w = hd.shape[:2]
+    size = T.Size(width, height)
+    roi = T.Rect(w // 2 + dx, h // 2, w, h)
+    norm = cc.normalize(T)
+    cases = {
+        "resize_of_a_crop": (T.resize(T.crop(T.image(big), roi), size), *norm, T.split_tensor()),
+        "resize_of_a_fused_read": (
+            T.resize(T.fuse(T.image(hd), T.vector_reorder(2, 1, 0),
+                            T.convert_to(np.float32, alpha=1 / 255.0)), size), T.split_tensor()),
+        "warp_of_a_crop": (T.warp(T.crop(T.image(big), roi), cc.rotation((w / 2, h / 2), angle),
+                                  size), *norm, T.split_tensor()),
+        "resize_of_a_border": (
+            T.resize(T.make_border(T.image(hd), 8, 8, 8, 8, T.BorderMode.REFLECT_101), size),
+            *norm, T.split_tensor()),
+        "nv12_to_u8_resize": (
+            T.resize(T.fuse(T.read_yuv(nv12), T.convert_yuv_to_rgb(out_dtype=np.uint8)), size),
+            T.split_tensor()),
+    }
+    if height + 40 <= 2 * h and width <= 2 * w:  # trees whose output lies inside a frame
+        cases["letterbox"] = (
+            T.make_border(T.resize(T.image(hd), T.Size(width, height - 40)), 20, 20, 0, 0,
+                          T.BorderMode.CONSTANT, 114), T.convert_to(np.float32, alpha=1 / 255.0),
+            T.split_tensor())
+        cases["crop_of_fused_gray"] = (
+            T.crop(T.fuse(T.image(big), T.cvt_color(C.COLOR_RGB2GRAY)),
+                   T.Rect(3 + dx, 5, width, height)), T.convert_to(np.float32), T.write())
+    return cases
+
+
+#: (name, width) of the large launches: a width that is a multiple of 4, a
+#: ragged one (every row of a 4-pixel read ends in a partial group) and,
+#: for the trees whose output may be any size, one narrower than a group
+LARGE = [(name, width) for width in (1024, 1021) for name in (
+    "resize_of_a_crop", "resize_of_a_fused_read", "warp_of_a_crop", "resize_of_a_border",
+    "nv12_to_u8_resize", "letterbox", "crop_of_fused_gray")] + [
+    (name, 3) for name in ("resize_of_a_crop", "warp_of_a_crop", "nv12_to_u8_resize")]
+
+
+def _large_launch(cuda, name, width, **moved):
+    resident = _resident(cuda)
+    height = -(-2 * resident // width)  # outputs >= 2 x resident
+    f = _on(cuda, cc.frames(540, 960, 11))
+    ops = _large(f, width, height, **moved)[name]
+    a, got = _launch(cuda, ops)
+    w, h = a.plan.dsize
+    taps = cc.instance(a.plan)[1]
+    assert cc.pixels_per_thread(a.plan.n_planes * w * h, resident, taps) == (4 if taps == 1 else 1)
+    return ops, a, got
+
+
+@pytest.mark.parametrize("name,width", LARGE)
+def test_large_launches(cuda, name, width):
+    _, a, got = _large_launch(cuda, name, width)
+    _same(got, kc.composed_reference(a))
+
+
+@pytest.mark.parametrize("side", [190, 189])
+def test_a_large_crop_batch(cuda, side):
+    """16 crops of side x side: 577,600 (571,536) outputs, 4 pixels a thread
+    on an H100; 189 leaves every row a partial group."""
+    f = _on(cuda, cc.frames(540, 960, 12))
+    rects = [T.Rect(k * 47 - 20, (k * 31) % 400, side, side) for k in range(16)]
+    ops = (T.crop_batch(f["hd"], rects), *cc.normalize(T), T.split_tensor())
+    a, got = _launch(cuda, ops)
+    _same(got, kc.composed_reference(a))
+    _same(got, T.execute_operations(*ops, backend=T.ParBackend.TORCH))
+
+
+def test_a_crop_batch_narrower_than_a_group(cuda):
+    """Crops 3 pixels wide, enough of them for 4 pixels a thread: each
+    thread's group holds 3 pixels of a row."""
+    f = _on(cuda, cc.frames(540, 960, 14))
+    rows = 1000
+    n = -(-2 * _resident(cuda) // (3 * rows))
+    rects = [T.Rect((k * 37) % 1900, k % 70, 3, rows) for k in range(n)]
+    ops = (T.crop_batch(f["big"], rects), T.convert_to(np.float32, alpha=0.5), T.split_tensor())
+    a, got = _launch(cuda, ops)
+    assert cc.pixels_per_thread(n * 3 * rows, _resident(cuda)) == 4
+    _same(got, kc.composed_reference(a))
+
+
+@pytest.mark.parametrize("name", ["resize_of_a_crop", "warp_of_a_crop", "crop_of_fused_gray"])
+def test_large_launches_new_values_build_no_plan(cuda, name):
+    """Moved runtime values (a crop origin, the warp's angle) in a large
+    launch: no plan, one launch, the eager path's values bit for bit."""
+    resident = _resident(cuda)
+    height = -(-2 * resident // 1021)
+    f = _on(cuda, cc.frames(540, 960, 13))
+    outs = []
+    for moved in ({}, {"dx": -7, "angle": 14.0}):
+        ops = _large(f, 1021, height, **moved)[name]
+        builds, launches = executor.PLAN_BUILDS, kc.LAUNCHES
+        outs.append(T.execute_operations(*ops))
+        assert T.last_backend() == "cuda:composed" and kc.LAUNCHES == launches + 1
+        if moved:
+            assert executor.PLAN_BUILDS == builds
+        _same(outs[-1], T.execute_operations(*ops, backend=T.ParBackend.TORCH))
+    assert not torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("name", ["resize_of_a_crop", "warp_of_a_crop", "crop_of_fused_gray"])
+def test_large_launches_into_a_strided_unaligned_view(cuda, name):
+    """An output whose rows lie 5 elements apart past the row and whose
+    first element lies 4 bytes off 16: the scalar stores of store_any, and
+    nothing written outside the view."""
+    _, a, want = _large_launch(cuda, name, 1021)
+    storage = torch.full((*want.shape[:-1], want.shape[-1] + 5), 7.0, device=cuda)
+    view = storage[..., 1:1 + want.shape[-1]]
+    assert view.data_ptr() % 16 == 4
+    assert kc.composed(a, out=view) is view
+    _same(view, want)
+    assert bool((storage[..., :1] == 7).all() and (storage[..., 1 + want.shape[-1]:] == 7).all())

@@ -200,3 +200,39 @@ def test_divergent_batch_of_d1s_kinds_flushes_as_its_plain_version(cuda):
         _bits_same(got, kd.divergent_reference(a))
         zeros, subnormal = _flushed(got)
         assert zeros > 0 and subnormal == 0
+
+
+#: forward maps whose inverse holds -1e-39 at c01, then at c10 (the
+#: factories invert on the host)
+SUBNORMAL_MAPS = {"c01": ((1, 1e-39, 0), (0, 1, 0)), "c10": ((1, 0, 0), (1e-39, 1, 0))}
+
+
+@pytest.mark.parametrize("name", list(SUBNORMAL_MAPS))
+def test_a_warp_map_with_a_subnormal_coefficient(name, cuda):
+    """The warp kernel, the composed kernel's warp core and the divergent
+    kernel's warp groups on a map whose inverse holds a subnormal
+    coefficient, with an infinite border channel: one launch each, bit for
+    bit its plain version, which takes the host's terms (-1e-39 * Y kept:
+    column or row 0 reads the border with weight 0, NaN in that channel)."""
+    from cvgpuspeedup_tpu_torch.exec import cuda_composed as kc
+
+    src = torch.from_numpy(np.random.default_rng(9).uniform(
+        -3, 3, (1024, 40, 3)).astype(np.float32)).to(cuda)
+    m, border, size = np.array(SUBNORMAL_MAPS[name]), (np.inf, -2.0, 5.0), T.Size(40, 1024)
+    p = T.build_pipeline(T.warp(T.image(src), m, size, default=border), T.write())
+    a = kw.prepare(p, kw.build_plan(p), cuda)
+    want = kw.warp_reference(a)
+    _bits_same(_launch_once(kw, a), want)
+    assert bool(torch.isnan(want).any())
+    p = T.build_pipeline(T.warp(T.crop(T.image(src), T.Rect(0, 0, 40, 1024)), m, size,
+                                default=border), T.write())
+    a = kc.prepare(p, kc.build_plan(p), cuda)
+    _bits_same(_launch_once(kc, a), kc.composed_reference(a))
+    seq = T.build_operation_sequence
+    other = np.array(SUBNORMAL_MAPS["c10" if name == "c01" else "c01"])
+    seqs = (seq(T.warp_batch([src] * 4, [m] * 4, size, border_value=border), T.write_tensor()),
+            seq(T.warp_batch([src] * 4, [other] * 4, size, border_value=border),
+                T.write_tensor()))
+    ids = [1, 2, 1, 2]
+    a = kd.prepare(seqs, kd.build_plan(seqs, ids), cuda)
+    _bits_same(_launch_once(kd, a), kd.divergent_reference(a))

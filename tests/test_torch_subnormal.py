@@ -366,3 +366,88 @@ def test_no_port_source_flushes_the_process():
     assert paths
     for path in paths:
         assert not re.search(r"set_flush_denormal", path.read_text()), path
+
+
+#: forward warp matrices whose inverse has a subnormal coefficient: the
+#: factories invert on the host, so the first gives c01 = +1e-39, the second
+#: c01 = -1e-39 and the third c10 = -1e-39
+SUBNORMAL_MAPS = {"c01_pos": ((1, -1e-39, 0), (0, 1, 0)), "c01_neg": ((1, 1e-39, 0), (0, 1, 0)),
+                  "c10_neg": ((1, 0, 0), (1e-39, 1, 0))}
+
+
+@pytest.mark.parametrize("border", [(7.0, -2.0, 5.0), (np.inf, -2.0, 5.0)], ids=["finite", "inf"])
+@pytest.mark.parametrize("name", list(SUBNORMAL_MAPS))
+def test_a_warp_map_with_a_subnormal_coefficient(name, border):
+    """The host's numpy terms keep the subnormal coefficient: -1e-39 * Y is
+    a normal float from Y = 12 on, where a flushed product is 0, so column
+    0 (row 0) floors to -1 and reads the border with weight 0 (an infinite
+    border gives NaN there). The warp kernel's and the composed kernel's
+    plain versions (the eager lowering, and the composed one recomputing
+    the terms from the block) equal the reference's ``ParBackend.XLA`` path
+    as int32 bits, at a height of 1024; the composed one did not where the
+    border held an infinity until it computed the terms as the host does."""
+    from cvgpuspeedup_tpu_torch.exec import cuda_composed as kc
+    from cvgpuspeedup_tpu_torch.exec import cuda_warp as kw
+
+    src = np.random.default_rng(50).uniform(-3, 3, (1024, 40, 3)).astype(np.float32)
+    m = np.array(SUBNORMAL_MAPS[name], np.float64)
+
+    def ops(M, a, crop=False):
+        read = M.crop(M.image(a), M.Rect(0, 0, 40, 1024)) if crop else M.image(a)
+        return (M.warp(read, m, M.Size(40, 1024), default=border), M.write())
+
+    want = np.asarray(J.execute_operations(*ops(J, jnp.asarray(src)), backend=J.ParBackend.XLA))
+    cpu = torch.device("cpu")
+    p = T.build_pipeline(*ops(T, torch.from_numpy(src)))
+    got = kw.warp_reference(kw.prepare(p, kw.build_plan(p), cpu)).numpy()
+    _bits_equal(got, want)
+    _bits_equal(T.execute_operations(*ops(T, src), device="cpu").numpy(), want)
+    p = T.build_pipeline(*ops(T, torch.from_numpy(src), crop=True))
+    got = kc.composed_reference(kc.prepare(p, kc.build_plan(p), cpu)).numpy()
+    _bits_equal(got, np.asarray(J.execute_operations(*ops(J, jnp.asarray(src), crop=True),
+                                                     backend=J.ParBackend.XLA)))
+    if border[0] == np.inf and name != "c01_pos":
+        assert np.isnan(want).any()  # the border's weight-0 tap: the case bites
+
+
+def _kernel_sass():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("kernel_sass", PORT.parent / "tools" /
+                                                  "kernel_sass.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: SASS lines of a kernel: an FMUL and an FADD without .FTZ (a warp map's
+#: terms), flushed ops, and a float64 load's conversion without .FTZ
+_TERMS_SASS = """
+        /*0070*/                   FMUL R2, R2, R3 ;
+        /*0080*/                   FADD R4, R2, R5 ;
+        /*0090*/                   FADD.FTZ R6, R4, R7 ;
+        /*00a0*/               @P0 FSETP.GT.FTZ.AND P1, PT, R6, RZ, PT ;
+        /*00b0*/                   F2F.F32.F64 R8, R10 ;
+"""
+
+
+@pytest.mark.parametrize("kernel,extra,holds", [
+    ("warp_kernel", "", True), ("divergent_kernel", "", True), ("composed_kernel", "", True),
+    ("pointwise_kernel", "", False), ("frame_resize_kernel", "", False),
+    ("warp_kernel", "        /*00c0*/                   FSETP.GT.AND P1, PT, R6, RZ, PT ;\n", False),
+    ("warp_kernel", "        /*00c0*/                   FMNMX R6, R6, RZ, !PT ;\n", False),
+    ("warp_kernel", "        /*00c0*/                   FMUL32I R6, R6, 0.5 ;\n", False),
+    ("warp_kernel", "        /*00c0*/                   F2F.FTZ.F32.F64 R8, R10 ;\n", False)],
+    ids=["warp", "divergent", "composed", "pointwise", "frame_resize", "fsetp", "fmnmx",
+         "fmul32i", "f2f_ftz"])
+def test_the_sass_census_excepts_a_warp_map_s_terms_alone(kernel, extra, holds):
+    """Phase 2's census of ``chip_smoke.py`` lets a warp map's terms, an
+    ``FMUL`` or ``FADD`` without ``.FTZ`` (``csrc/warp.cuh``'s PTX
+    ``mul.rn.f32`` and ``add.rn.f32``), through in the three kernels that
+    compute warp coordinates, and nowhere else; every other float32 op
+    without ``.FTZ``, and a float64 conversion with it, breaks the rule."""
+    ks = _kernel_sass()
+    c = {"instances": 1, **ks.ftz_stats(_TERMS_SASS + extra)}
+    assert c["keep_terms"] == 2
+    assert ks.rule_holds(kernel, c) is holds
+    assert not ks.rule_holds(kernel, {**c, "instances": 0})

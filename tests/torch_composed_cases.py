@@ -13,6 +13,13 @@ value) and keeps the structure, so it builds no plan.
 import numpy as np
 
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+#: the composed kernel's instance per source dtype, as the C entry of
+#: ``csrc/composed.cu`` sends each type code: uint8, float32 (and int32,
+#: read as float32's words) have their own, the six other dtypes share one;
+#: an NV12 buffer has its own too (``instance``)
+INSTANCES = {"uint8": "composed.cu", "float32": "composed_f32.cu", "int32": "composed_f32.cu",
+             **dict.fromkeys(("int8", "uint16", "int16", "float16", "int64", "float64"),
+                             "composed_any.cu")}
 NAMES = ("c1_roi_crop_resize", "c2_compute_what_you_see", "c3_letterbox", "c4_warp_of_a_crop",
          "c5_border_then_resize", "c6_crop_batch", "c7_crop_of_fused_gray",
          "c8_nv12_to_u8_resize")
@@ -140,3 +147,20 @@ def more_cases(M) -> dict:
                           1, 2, 3, 4, M.BorderMode.CONSTANT, 200),
             M.write()),
     }
+
+
+def instance(plan) -> tuple:
+    """The source file of the kernel instance a ``ComposedPlan`` launches
+    and its taps per output pixel (1 without a resample, else 4)."""
+    src = "composed_nv12.cu" if plan.base == "yuv" else INSTANCES[str(plan.src_dtype)[6:]]
+    return src, 1 if plan.core == "none" else 4
+
+
+def pixels_per_thread(outputs: int, resident: int, taps: int = 1) -> int:
+    """The adjacent output pixels a thread of the composed kernel takes, as
+    ``csrc/composed.cuh::kc::pixels_per_thread`` chooses them from a
+    launch's output pixels (planes x rows x columns), the card's resident
+    threads (SMs x threads per SM: 270,336 on an H100) and the taps per
+    pixel (``instance``): a one-pixel read 4 where a thread per 4 pixels
+    still fills half of the resident threads, else 1; a resample 1."""
+    return 4 if taps == 1 and outputs >= 2 * resident else 1

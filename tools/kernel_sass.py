@@ -12,10 +12,11 @@ prints for each: its instruction count, its
 local-memory loads and stores (``LDL``, ``STL``: spills), every loop (a
 backward branch) with its length in instructions, and the opcodes of the
 longest loop, most frequent first. With ``out.txt`` the SASS itself is
-written there. With ``--ftz`` it prints for each of the five kernels, over
+written there. With ``--ftz`` it prints for each of the six kernels, over
 all its instances, the float32 add, multiply, compare and min/max
-instructions without ``.FTZ`` and the float64 to float32 conversions with
-and without it (:func:`ftz_census`). Needs ``nvcc``'s toolkit
+instructions without ``.FTZ`` (among them ``KEEP_TERMS``, a warp map's
+terms) and the float64 to float32 conversions with and without it
+(:func:`ftz_census`). Needs ``nvcc``'s toolkit
 (``cuobjdump`` beside it); no card.
 """
 
@@ -36,6 +37,13 @@ FTZ_OPCODES = ("FADD", "FADD32I", "FMUL", "FMUL32I", "FSETP", "FMNMX")
 #: the kernels of the library, by the name each instance's symbol holds
 KERNELS = ("batch_resize_kernel", "frame_resize_kernel", "warp_kernel", "divergent_kernel",
            "pointwise_kernel", "composed_kernel")
+#: the census's one exception: a warp map's terms c*X and b*Y + c, computed
+#: as the host computes them with a subnormal kept (``csrc/warp.cuh``'s
+#: ``fmul_keep`` and ``fadd_keep``, PTX ``mul.rn.f32`` and ``add.rn.f32``
+#: without ``.ftz``), are an FMUL or FADD without ``.FTZ`` in the kernels
+#: that compute warp coordinates, and only there
+KEEP_TERMS = {"opcodes": ("FMUL", "FADD"),
+              "kernels": ("warp_kernel", "divergent_kernel", "composed_kernel")}
 
 
 def kernel_stats(sass: str) -> dict:
@@ -69,8 +77,9 @@ def ftz_stats(sass: str) -> dict:
     those of them without ``.FTZ``; ``f2f_f64`` and ``f2f_f64_ftz``, the
     float64 to float32 conversions (``F2F.F32.F64``) and those with ``.FTZ``,
     which a copy of a float64 source must not have; ``no_ftz_opcodes``, the
-    opcodes without ``.FTZ`` by count."""
-    out = {"f32_ops": 0, "f32_no_ftz": 0, "f2f_f64": 0, "f2f_f64_ftz": 0,
+    opcodes without ``.FTZ`` by count; ``keep_terms``, those of them that
+    are ``KEEP_TERMS``' opcodes (a plain ``FMUL`` or ``FADD``)."""
+    out = {"f32_ops": 0, "f32_no_ftz": 0, "keep_terms": 0, "f2f_f64": 0, "f2f_f64_ftz": 0,
            "no_ftz_opcodes": collections.Counter()}
     for m in map(_INSTRUCTION.match, sass.splitlines()):
         if not m:
@@ -83,6 +92,7 @@ def ftz_stats(sass: str) -> dict:
             if "FTZ" not in parts:
                 out["f32_no_ftz"] += 1
                 out["no_ftz_opcodes"][opcode] += 1
+                out["keep_terms"] += parts[0] in KEEP_TERMS["opcodes"]
         elif parts[0] == "F2F" and "F32" in parts and "F64" in parts:
             out["f2f_f64"] += 1
             out["f2f_f64_ftz"] += "FTZ" in parts
@@ -92,14 +102,14 @@ def ftz_stats(sass: str) -> dict:
 def ftz_census(lib: Path) -> dict:
     """:func:`ftz_stats` summed over every instance of each of ``KERNELS``
     in the library ``lib`` (one ``cuobjdump -sass`` of the whole library),
-    with ``instances``, the count of instances."""
+    with ``instances``, the count of instances, and :func:`rule_holds`."""
     from cvgpuspeedup_tpu_torch.exec import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    census = {k: {"instances": 0, "f32_ops": 0, "f32_no_ftz": 0, "f2f_f64": 0, "f2f_f64_ftz": 0,
-                  "no_ftz_opcodes": collections.Counter()} for k in KERNELS}
+    census = {k: {"instances": 0, "f32_ops": 0, "f32_no_ftz": 0, "keep_terms": 0, "f2f_f64": 0,
+                  "f2f_f64_ftz": 0, "no_ftz_opcodes": collections.Counter()} for k in KERNELS}
     heads = list(_FUNCTION.finditer(sass))
     for i, h in enumerate(heads):
         kernel = next((k for k in KERNELS if k in h.group(1)), None)
@@ -109,7 +119,19 @@ def ftz_census(lib: Path) -> dict:
         census[kernel]["instances"] += 1
         for key, n in ftz_stats(body).items():
             census[kernel][key] += n
+    for kernel, c in census.items():
+        c["rule_holds"] = rule_holds(kernel, c)
     return census
+
+
+def rule_holds(kernel: str, c: dict) -> bool:
+    """Whether the counts ``c`` of ``kernel`` (:func:`ftz_stats` with
+    ``instances``) keep the float32 rule: no op of :data:`FTZ_OPCODES`
+    without ``.FTZ`` but ``KEEP_TERMS``' in its kernels, and the float64
+    conversions present and without ``.FTZ``."""
+    allowed = c["keep_terms"] if kernel in KEEP_TERMS["kernels"] else 0
+    return bool(c["instances"] and c["f32_no_ftz"] == allowed and c["f2f_f64"]
+                and not c["f2f_f64_ftz"])
 
 
 def main() -> int:

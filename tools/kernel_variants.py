@@ -10,8 +10,11 @@ empty list is the tree as it stands. An object ``{"csrc": ..., "subs":
 [...], "drop_flags": [...]}`` gives a directory, substitutions and compile
 flags left out of ``exec/_build.py``'s command for that variant alone (for
 example ``["-ftz=true"]``, the build before float32 subnormals were
-flushed). With ``--sass`` each variant's float32 rule is read from its
-SASS (``tools/kernel_sass.py::ftz_census``). A string instead of a list names
+flushed). ``"probe": true`` in such an object marks a variant that
+changes outputs on purpose (a part of a kernel switched off at run time, to
+see what that part costs): it is timed, its outputs are not compared, and
+it is never a candidate to keep. With ``--sass`` each variant's float32
+rule is read from its SASS (``tools/kernel_sass.py::ftz_census``). A string instead of a list names
 another directory of sources, relative to the repo's root (an older commit's
 ``csrc`` unpacked with ``git archive``), whose C interface must equal the
 present one (``_build.load`` declares the present signatures): since K1,
@@ -61,7 +64,11 @@ kernel duration of 20 launches), in microseconds:
   ``p4_edges_f64``, P4's crop of a float64 frame of ``chip_smoke.py``'s
   ``EDGES64`` (a copy that keeps float32's subnormals).
   The int64 and float64 ones are left out for a variant whose sources do
-  not read them (no ``source_int64.cu``).
+  not read them (no ``source_int64.cu``);
+- its composed-read cases C1-C8 (``c1`` .. ``c8``), C1 on float32 and
+  float64 twins of its 4K frame (``c1_f32``, ``c1_f64``) and C4 into a
+  width of 1917, no multiple of 4 (``c4_ragged``), left out for a variant
+  whose sources have no composed kernel.
 
 ``cases``, a comma-separated list, times only those. The cases are
 ``chip_smoke.py``'s own functions, so the two cannot drift. Each line gives
@@ -221,6 +228,24 @@ def main() -> int:
         cvgs.crop(cvgs.image(cs.as_float64(torch, hd, edges=True)), cvgs.Rect(-300, -200, 256, 256)),
         cvgs.write()))
     pointwise_cases.add("p4_edges_f64")
+    # the composed-read kernel's cases C1-C8 (c1 .. c8), C1 on float32 and
+    # float64 twins of its 4K frame (c1_f32, c1_f64) and C4 into a width
+    # that is no multiple of 4 (c4_ragged: every thread row ends in a
+    # partial group)
+    from cvgpuspeedup_tpu_torch.exec import cuda_composed as kc
+
+    composed = cs.composed_cases(cvgs, frame, hd, nv12)
+    for k, ops in enumerate(composed.values(), 1):
+        cases[f"c{k}"] = (kc, kc.composed, ops)
+    for tag, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        cases[f"c1_{tag}"] = (kc, kc.composed, cs.composed_cases(
+            cvgs, frame.to(dtype), hd, nv12)["c1_roi_crop_resize"])
+    x, y, w, h = cs.ROI
+    c4 = composed["c4_warp_of_a_crop"]
+    cases["c4_ragged"] = (kc, kc.composed, (
+        cvgs.warp(cvgs.crop(cvgs.image(frame), cvgs.Rect(x, y, w, h)),
+                  cs.rotation((w / 2, h / 2), 10.0, 1.0), cvgs.Size(w - 3, h)), *c4[1:]))
+    composed_names = {name for name in cases if name.startswith("c")}
     x64_cases = {name for name in (*cases, *batches) if name.endswith(("_i64", "_f64"))}
     launches = {}
     # host leaves onto the card once; a tensor, 64-bit ones among them, stays
@@ -243,6 +268,8 @@ def main() -> int:
         kernel and reads its source."""
         if cname in x64_cases and not (d / "source_int64.cu").exists():
             return False
+        if cname in composed_names and not hasattr(_build.load(), "cvgs_composed"):
+            return False
         return cname not in pointwise_cases or hasattr(_build.load(), "cvgs_pointwise")
 
     def profiler_us(fn, calls=20):
@@ -262,6 +289,7 @@ def main() -> int:
 
     compile_command = _build.compile_command
     dropped: dict = {}
+    probes: set = set()
     current: dict = {}
 
     def variant_command(nvcc, source, output):
@@ -291,6 +319,8 @@ def main() -> int:
                 subs = {"csrc": subs}
             if isinstance(subs, dict):
                 dropped[d] = tuple(subs.get("drop_flags", ()))
+                if subs.get("probe"):
+                    probes.add(vname)
                 from_dir = ROOT / subs["csrc"] if "csrc" in subs else csrc
                 subs = subs.get("subs", [])
             if from_dir != csrc:
@@ -338,6 +368,8 @@ def main() -> int:
         # a variant may change the speed of a kernel, never a bit of its output
         outputs: dict = {}
         for vname, d in dirs.items():
+            if vname in probes:
+                continue
             use(d)
             for cname, fn in launches.items():
                 if not runs(cname, d):
