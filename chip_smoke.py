@@ -24,7 +24,12 @@ the composed path (kernel ``composed``): C1-C8 (``composed_cases``), a
 region of interest of the 4K frame resized, ComputeWhatYouSee, a 640x640
 letterbox, a warp of a crop, a border then a resize, ``crop_batch``, a crop
 of a fused gray conversion and a 6K NV12 buffer converted into uint8 per tap
-and resized; and the batch axis of the flagship, W6, P2, D1 and D3 sharded
+and resized, and B1-B7 (``batch_cases``), ``batch_read`` of per-plane read
+trees: eight 1080p cameras each resized to 640x360 (B1; B2 ragged at 5),
+an 800x600 region of interest of each resized to 224x224, eight 640x640
+letterboxes, warps of 960x540 crops, 50 crops of 224x224 of the 4K frame
+ragged at 37, the bare cameras; and the batch axis of the flagship, W6, P2,
+D1 and D3 sharded
 over a device mesh (``parallel/mesh.py``).
 In phases; any failure ends the run with a non-zero exit
 code and no result line:
@@ -101,7 +106,7 @@ code and no result line:
    than half the results; each kernel one launch, equal to its plain version as
    int32 bits (-0 and +0 differ), more than 0 outputs flushed to 0 and none
    subnormal; and a float64 crop of ``EDGES64`` that keeps 1e-40 and -1e-42.
-   composed in C1-C8 at full width, max |diff| 0, and C1 on uint16, float16
+   composed in C1-C8 and B1-B7 at full width, max |diff| 0, and C1 on uint16, float16
    and float64 sources and on a float32 frame of ``EDGES32`` with a chain
    that flushes, as int32 bits, one launch each. Warp maps whose inverse
    holds -1e-39 at c01 or c10, with an infinite border channel, through
@@ -146,7 +151,10 @@ code and no result line:
    bit, while ``convert_to(np.int64)`` raises as the reference's call does;
    C1-C8 twice each (new crop origins, a new matrix, a new border value),
    ``cuda:composed`` in one launch per call and no plan on the second, bit
-   for bit the eager version on the card;
+   for bit the eager version on the card; B1-B7 the same way, the second
+   call with new camera frames, origins, angles, border value and
+   ``used_planes``, and B1 against an independent float64 resize of each
+   camera (``oracle_frame``);
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain, and the
    kernel's duration in a ``torch.profiler`` trace of 20 launches (events
@@ -172,11 +180,13 @@ code and no result line:
    an int64 frame through the pointwise kernel beside the uint8 frame's; the
    dtype, int32 and 64-bit paths of phase 4, each beside its bound and floor
    (a 64-bit source's bytes at 8 an element); the composed kernel in C1-C8
-   beside the eager path it replaces (``ParBackend.TORCH``: its device time
+   and B1-B7 beside the eager path it replaces (``ParBackend.TORCH``: its device time
    by events and by ``torch.profiler``, its kernels and copies per call)
-   and, for C1, C2 and C4, one library call of the resample alone on a
+   and, for C1, C2, C4 and B1, one library call of the resample alone on a
    float32 NCHW copy of what the core reads (``F.interpolate``;
-   ``F.affine_grid`` + ``F.grid_sample``);
+   ``F.affine_grid`` + ``F.grid_sample``), and for B1 K1 on the same
+   cameras (``resize_batch``'s padded stack: the kernel alone, and the
+   call with the stack's copies);
 6. sharding: (a) every rank of meshes of 2 and 5 (the flagship, 50 crops
    ragged at ``used_planes`` = 37) and of 2, 4 and 8 (W6; P2's ring from
    ``first`` = 3 and -5; D1 and D3) run on this card through the rank-local
@@ -597,6 +607,71 @@ def composed_cases(cvgs, frame, hd, nv12, values=0) -> dict:
                                   cvgs.convert_yuv_to_rgb(out_dtype=np.uint8)),
                         cvgs.Size(FRAME_W, FRAME_H)),
             cvgs.split_tensor()),
+    }
+
+
+#: B1-B7's cameras (1080p), B3's regions of interest and B5's crops of them,
+#: B6's crops of the 4K frame
+CAMERAS = 8
+B3_ROI, B3_DST = (800, 600), 224
+B5_CROP = (960, 540)
+B6_PLANES, B6_USED, B6_SIDE = 50, 37, 224
+
+
+def batch_cases(cvgs, cams, frame, values=0) -> dict:
+    """The composed kernel's batches B1-B7 at full width (``batch_read`` of
+    per-plane read trees of one structure), which phases 3 to 5 drive;
+    ``values`` 1 moves every runtime value (origins, angles, the border
+    value, ``used_planes``) and keeps the structure. B1 the eight 1080p
+    cameras each resized to 640x360 and normalized, planar; B2 B1 with
+    ``used_planes`` 5 (6), default 0; B3 an 800x600 region of interest of
+    each camera at its own origin resized to 224x224 and normalized; B4 eight
+    640x640 letterboxes (640x360 inside a CONSTANT border of 114); B5 a
+    960x540 crop of each camera rotated by 5-40 degrees about its centre
+    into 640x360 (scale 2/3); B6 50 crops of 224x224 of the 4K frame, 37
+    (40) used, default 0; B7 the bare cameras stacked as float32."""
+    normalize = (cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract(MEAN),
+                 cvgs.divide(STD))
+    dst = cvgs.Size(*FRAME_DST)
+    n = len(cams)
+    rw, rh = B3_ROI
+    rois = [((k * 157 + 13 * values) % (FRAME_W - rw), (k * 61 + 7 * values) % (FRAME_H - rh))
+            for k in range(n)]
+    cw, ch = B5_CROP
+    crops = [((k * 113 + 5 * values) % (FRAME_W - cw), (k * 67) % (FRAME_H - ch)) for k in range(n)]
+    angles = [5.0 + 35.0 * k / (n - 1) + 2.0 * values for k in range(n)]
+    tiles = [((k * 397 + values) % (SRC_W - B6_SIDE), (k * 211) % (SRC_H - B6_SIDE))
+             for k in range(B6_PLANES)]
+    tiles[3], tiles[9] = (SRC_W - 100, 40), (-30, 500)  # clamped, as dynamic_slice does
+    resized = [cvgs.resize(cvgs.image(c), dst) for c in cams]
+    return {
+        "b1_cameras_resized": (cvgs.batch_read(resized), *normalize, cvgs.split_tensor()),
+        "b2_cameras_resized_ragged": (
+            cvgs.batch_read(resized, used_planes=5 + values, default=0.0), *normalize,
+            cvgs.split_tensor()),
+        "b3_rois_resized": (
+            cvgs.batch_read([cvgs.resize(cvgs.crop(cvgs.image(c), cvgs.Rect(x, y, rw, rh)),
+                                         cvgs.Size(B3_DST, B3_DST))
+                             for c, (x, y) in zip(cams, rois)]),
+            *normalize, cvgs.split_tensor()),
+        "b4_letterboxes_640x640": (
+            cvgs.batch_read([cvgs.make_border(cvgs.resize(cvgs.image(c), dst), 140, 140, 0, 0,
+                                              cvgs.BorderMode.CONSTANT, 114 - 14 * values)
+                             for c in cams]),
+            cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.split_tensor()),
+        "b5_warps_of_crops": (
+            cvgs.batch_read([cvgs.warp(cvgs.crop(cvgs.image(c), cvgs.Rect(x, y, cw, ch)),
+                                       rotation((cw / 2, ch / 2), a, 2 / 3, to=(dst.width / 2,
+                                                                                dst.height / 2)),
+                                       dst)
+                             for c, (x, y), a in zip(cams, crops, angles)]),
+            *normalize, cvgs.split_tensor()),
+        "b6_crops_of_4k_ragged": (
+            cvgs.batch_read([cvgs.crop(cvgs.image(frame), cvgs.Rect(x, y, B6_SIDE, B6_SIDE))
+                             for x, y in tiles], used_planes=B6_USED + 3 * values, default=0.0),
+            *normalize, cvgs.split_tensor()),
+        "b7_bare_cameras": (cvgs.batch_read([cvgs.image(c) for c in cams]),
+                            cvgs.convert_to(np.float32), cvgs.write_tensor()),
     }
 
 
@@ -1668,6 +1743,17 @@ def main() -> int:
         log(f"phase3 composed {name}: core {plan.core}, {plan.n_planes} plane(s), source "
             f"{plan.src_dtype}, taps {plan.tap_dtype} of {plan.word('tap_ch')} channel(s), "
             f"{plan.word('in_n_ops')} + {plan.word('out_n_ops')} rows")
+    # the batches B1-B7 at full width: one launch each, every plane from its
+    # own address (the cameras read in place), equal to the plain version
+    cams_np = [rng.integers(0, 256, (FRAME_H, FRAME_W, 3), dtype=np.uint8)
+               for _ in range(CAMERAS)]
+    cams = [torch.from_numpy(c).to(dev) for c in cams_np]
+    for name, ops in batch_cases(cvgs, cams, frame).items():
+        plan = check(name, *ops, kernel="composed", tol=0.0)
+        log(f"phase3 composed {name}: core {plan.core}, {plan.n_planes} planes of "
+            f"{plan.dsize[0]}x{plan.dsize[1]}, source {plan.src_dtype}, "
+            f"{plan.word('plane_stride')} block words a plane, used_planes "
+            f"{'yes' if plan.word('used_off') >= 0 else 'no'}")
     flush = (cvgs.multiply(1.0), cvgs.subtract((1e-40, 0.0, -2e-39)), cvgs.divide(1e38))
     for tag, src in (("u16", as_dtype(torch, frame, "u16")), ("f16", as_dtype(torch, frame, "f16")),
                      ("f64", as_float64(torch, frame)), ("sub_f32", as_edges32(torch, frame))):
@@ -2032,6 +2118,44 @@ def main() -> int:
         assert seen[0][1] <= builds0 + 1 and seen[1][1] == seen[0][1], (builds0, seen)
         assert same and bool(torch.isfinite(outs[1]).all())
         assert moved == (name[:2] in ("c1", "c3", "c4", "c6", "c7")), (name, moved)
+
+    # the batches B1-B7 twice each through execute_operations, the second
+    # call with new camera frames and new origins, angles, border value and
+    # used_planes: one launch of cuda:composed per call (the count set to 0
+    # just before), no plan on the second, bit for bit the eager version on
+    # the card, finite; B1 against an independent float64 resize of each
+    # camera, as the flagship is held
+    cams_next = [torch.from_numpy(rng.integers(0, 256, (FRAME_H, FRAME_W, 3), dtype=np.uint8))
+                 .to(dev) for _ in range(CAMERAS)]
+    for name in batch_cases(cvgs, cams, frame):
+        kc.LAUNCHES = 0
+        builds0 = executor.PLAN_BUILDS
+        outs, backends, seen = [], [], []
+        for values, frames in ((0, cams), (1, cams_next)):
+            ops = batch_cases(cvgs, frames, frame, values)[name]
+            outs.append(drive("composed", lambda: cvgs.execute_operations(*ops)))
+            backends.append(cvgs.last_backend())
+            seen.append((kc.LAUNCHES, executor.PLAN_BUILDS))
+        torch.cuda.synchronize()
+        composed_launches += kc.LAUNCHES
+        ops1 = batch_cases(cvgs, cams_next, frame, 1)[name]
+        forced = cvgs.describe_backend(*ops1, backend=cvgs.ParBackend.CUDA)
+        eager = cvgs.execute_operations(*ops1, backend=cvgs.ParBackend.TORCH)
+        same = torch.equal(outs[1].view(torch.int32), eager.view(torch.int32))
+        log(f"phase4 composed path ({name}): backends {backends}, under ParBackend.CUDA {forced}; "
+            f"launches {seen[0][0]} {seen[1][0]}; plan builds {builds0} -> {seen[0][1]} -> "
+            f"{seen[1][1]}; {tuple(outs[1].shape)} {outs[1].dtype}; equal to eager torch {same}")
+        assert backends == ["cuda:composed"] * 2 and forced == "cuda:composed", (backends, forced)
+        assert (seen[0][0], seen[1][0]) == (1, 2), seen
+        assert seen[0][1] <= builds0 + 1 and seen[1][1] == seen[0][1], (builds0, seen)
+        assert same and bool(torch.isfinite(outs[1]).all()) and not torch.equal(outs[0], outs[1])
+        if name == "b1_cameras_resized":
+            got = outs[0].double().cpu().numpy()
+            b1_err = max(float(np.abs(got[k] - oracle_frame(cams_np[k], *FRAME_DST)).max())
+                         for k in range(CAMERAS))
+            log(f"phase4 composed path ({name}): max|diff| vs a float64 resize of each camera "
+                f"{b1_err!r}")
+            assert b1_err <= ORACLE_TOL, b1_err
 
     # 64-bit values are int32 and float32 where they enter, as in the
     # reference (64-bit values off): an int64 or a float64 frame on the card
@@ -2818,6 +2942,58 @@ def main() -> int:
             f"copies a call; execute_operations host-inclusive {t['call_ms'] * 1e3:.2f} us/call "
             f"(median of 30)")
 
+    # the batches B1-B7 the same way: kernel vs plain version, bound, floor,
+    # the eager path it replaces; for B1 one library call of the resize
+    # alone (F.interpolate on a float32 NCHW stack of the cameras, made
+    # before timing) and K1 on the same cameras as resize_batch's padded
+    # stack: the kernel alone and the whole call with the stack's copies
+    b_times = {}
+    for name, ops in batch_cases(cvgs, cams, frame).items():
+        pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: as_device_tensor(v, dev))
+        bargs = kc.prepare(pipe, kc.build_plan(pipe), dev)
+        t = measure(lambda: kc.composed(bargs), lambda: kc.composed_reference(bargs), 50,
+                    what=name, plain_iters=5)
+        t.update(bounds.bound(*kc.work(bargs), bandwidth))
+        t["max_abs_err"] = case_err[name]
+        t["library_ms"] = t["library_profiler_ms"] = None
+        if name == "b1_cameras_resized":
+            nchw = torch.stack(cams).permute(0, 3, 1, 2).float().contiguous()
+            library(t, lambda: F.interpolate(nchw, size=(FRAME_DST[1], FRAME_DST[0]),
+                                             mode="bilinear", align_corners=False), 50,
+                    "F.interpolate")
+            del nchw
+            k1_ops = (cvgs.resize_batch(cams, dsize=cvgs.Size(*FRAME_DST)), *ops[1:])
+            k1_pipe = cvgs.build_pipeline(*k1_ops)
+            k1_args = kbr.prepare(k1_pipe, kbr.build_plan(k1_pipe), dev)
+            t["k1_ms"] = float(np.median(time_cuda(lambda: kbr.batch_resize(k1_args), iters=50)))
+            t["k1_profiler_ms"] = profiler_ms(lambda: kbr.batch_resize(k1_args), what="b1 K1")
+            t["k1_with_stack_ms"] = float(np.median(time_cuda(lambda: cvgs.execute_operations(
+                cvgs.resize_batch(cams, dsize=cvgs.Size(*FRAME_DST)), *ops[1:]), iters=20)))
+            assert cvgs.last_backend() == "cuda:batch_resize"
+        eager = lambda: executor.run_pipeline(pipe, cvgs.ParBackend.TORCH)  # noqa: E731
+        t["eager_ms"] = float(np.median(time_cuda(eager, iters=10)))
+        t["eager_profiler_ms"] = profiler_ms(eager, calls=5, what=f"{name} eager")
+        t["eager_launches"], t["eager_copies"] = eager_launches(eager)
+        whole = []
+        for _ in range(40):
+            t0 = time.perf_counter()
+            cvgs.execute_operations(*ops)
+            torch.cuda.synchronize()
+            whole.append(time.perf_counter() - t0)
+        t["call_ms"] = float(np.median(whole[10:])) * 1e3
+        assert cvgs.last_backend() == "cuda:composed"
+        b_times[name] = t
+        k1_text = ""
+        if "k1_ms" in t:
+            k1_text = (f"; K1 on the cameras' padded stack {t['k1_ms'] * 1e3:.2f} us by events, "
+                  f"{t['k1_profiler_ms'] * 1e3:.2f} us by torch.profiler, the call with its "
+                  f"stack {t['k1_with_stack_ms'] * 1e3:.2f} us by events")
+        log(f"phase5 composed {name}: {describe(t)}; the eager path (ParBackend.TORCH) "
+            f"{t['eager_ms'] * 1e3:.2f} us by events, {t['eager_profiler_ms'] * 1e3:.2f} us by "
+            f"torch.profiler, {t['eager_launches']:.0f} kernels and {t['eager_copies']:.0f} "
+            f"copies a call; execute_operations host-inclusive {t['call_ms'] * 1e3:.2f} us/call "
+            f"(median of 30){k1_text}")
+
     # an int64 frame through a 3-op chain, which ran eagerly (one launch per
     # op) until int64 became int32 where it enters: one launch of the
     # pointwise kernel, which reads it at load, beside the same chain on the
@@ -3149,7 +3325,8 @@ def main() -> int:
         # it replaces. No Pallas counterpart: it replaces the reference's
         # jitted XLA program for composed reads
         entry("composed", "composed.cu", "cvgpuspeedup_tpu/exec/executor.py:243",
-              composed_launches, c_times["c1_roi_crop_resize"], cases=c_times),
+              composed_launches, c_times["c1_roi_crop_resize"], cases=c_times,
+              batch_cases=b_times),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

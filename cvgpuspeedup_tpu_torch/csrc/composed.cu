@@ -8,8 +8,10 @@
 // pallas_warp_universal.py), so resize(crop(4K)), resize(fuse(image,
 // reorder, convert)), make_border(resize(..)) (a letterbox), warp(crop(..)),
 // resize(make_border(..)), crop(fuse(image, gray)), resize(fuse(NV12,
-// YUV -> RGB into uint8)) and crop_batch run there as XLA fuses them. Here
-// one kernel interprets the read (composed.cuh) and both chains
+// YUV -> RGB into uint8)), crop_batch and batch_read of such trees (N
+// cameras resized, regions of interest, letterboxes, warps of crops, ragged
+// with used_planes and a default) run there as XLA fuses them. Here one
+// kernel interprets the read (composed.cuh) and both chains
 // (pointwise_chain.cuh).
 //
 // What bounds it: bytes for most trees (a 1920 x 1080 crop of a 4K frame
@@ -44,9 +46,13 @@
 //    read's chain and sampled, and the pixels run the pipeline's chain and
 //    store through store_any (16-byte stores of a planar float32 group of
 //    4, packed groups, scalar stores at a ragged edge or an unaligned view).
+//  - A batch is grid.z = plane over one plane's head: each plane's values
+//    lie plane_stride block words apart, its source address in the block,
+//    so N cameras are read in place with no staging copy; a plane past
+//    used_planes reads nothing and stores the default through the chain.
 // Runtime values (crop origins, border values, warp coefficients and
-// border, chain scalars, a batch's source addresses) come from one int32
-// block, so nothing of them keys a plan.
+// border, chain scalars, a batch's source addresses, used_planes and the
+// default) come from one int32 block, so nothing of them keys a plan.
 //
 // Numerics: bit for bit the plain version: every float op is an _rn
 // intrinsic, built with -fmad=false and -ftz=true, never fast math; a
@@ -76,11 +82,12 @@ extern "C" int cvgs_composed(const void* src, const int* head, float ys, float c
   const bool stages_ok = b.n_stages >= 0 && b.n_stages <= kMaxStages && h.upper.n_stages >= 0 &&
                          h.upper.n_stages <= kMaxStages && h.outer.n_stages >= 0 &&
                          h.outer.n_stages <= kMaxStages;
-  if (!stages_ok || h.core < CM_NONE || h.core > CM_WARP || (h.batch && h.core != CM_NONE) ||
-      n_planes < 1 || n_planes > 65535 || dst_w < 1 || dst_h < 1 || out_ch < 1 ||
-      out_ch > kMaxCh || out_type < PW_U8 || out_type > PW_I32 || b.base < PW_IMAGE ||
-      b.base > PW_YUV || b.base == PW_CIRC || b.src_type < PW_U8 || b.src_type > PW_F64 ||
-      b.nch < 1 || b.nch > kMaxCh || b.src_h < 1 || b.src_w < 1 ||
+  if (!stages_ok || h.core < CM_NONE || h.core > CM_WARP || h.plane_stride < 0 ||
+      h.used_off < -1 || (h.used_off >= 0) != (h.default_off >= 0) ||
+      (!h.batch && n_planes != 1) || n_planes < 1 || n_planes > 65535 || dst_w < 1 ||
+      dst_h < 1 || out_ch < 1 || out_ch > kMaxCh || out_type < PW_U8 || out_type > PW_I32 ||
+      b.base < PW_IMAGE || b.base > PW_YUV || b.base == PW_CIRC || b.src_type < PW_U8 ||
+      b.src_type > PW_F64 || b.nch < 1 || b.nch > kMaxCh || b.src_h < 1 || b.src_w < 1 ||
       (b.base == PW_YUV && (b.src_type != PW_U8 || b.nch != 3)) || (b.conv_first && b.nch != 3) ||
       h.tap_ch < 1 || h.tap_ch > kMaxCh || h.tap_type < PW_U8 || h.tap_type > PW_I32 ||
       h.core_type < PW_U8 || h.core_type > PW_I32 || h.in_n_ops < 0 || h.out_n_ops < 0 ||

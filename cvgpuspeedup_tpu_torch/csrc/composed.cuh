@@ -14,6 +14,15 @@
 // PwHead also describes the base and carries the fused read's leading
 // YUV -> RGB (conv_first, limited).
 //
+// A batch (a BatchRead of N planes of one read-tree structure) is one
+// launch, grid.z = plane: the head holds plane 0's words, and plane z's
+// runtime values (crop origins, border values, warp coefficients and
+// border, the fused chain's scalars) lie z * plane_stride block words past
+// plane 0's, where the head's offsets point; its base's address is 8-byte
+// block word z (batch). A plane at or past the block's used_planes
+// (used_off) reads nothing and holds the default (default_off) cast to the
+// core's type, then runs the pipeline's chain.
+//
 // Every rule matches exec/cuda_composed.py::composed_reference and the
 // eager lowering bit for bit:
 //   a tap's position walks the upper stages, then the lower ones; a lower
@@ -63,11 +72,13 @@ struct CmHead {
   int tap_type;        // a tap's type after the fused read's chain (PW_U8 .. PW_I32)
   int core_type;       // the core's output type
   int tap_ch;          // a tap's channels after the fused read's chain
-  int batch;           // crop_batch: per-plane addresses at word 0, origins 2 words per plane
+  int batch;           // a BatchRead: plane z's source address at 8-byte block word z
   int in_n_ops, in_ops_off, in_fp_off;    // the fused read's chain: rows, table, scalars
   int out_n_ops, out_ops_off, out_fp_off;  // the pipeline's chain
+  int plane_stride;             // plane z's values z * plane_stride words past plane 0's
+  int used_off, default_off;    // used_planes (int) and the default (tap_ch floats); -1: none
 };
-constexpr int kCmWords = 3 * kHeadWords + 20;
+constexpr int kCmWords = 3 * kHeadWords + 23;
 static_assert(sizeof(CmHead) == kCmWords * 4, "all int32 words");
 
 }  // namespace
@@ -391,7 +402,18 @@ __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
   const bool live = x < dst_w && y < dst_h;
   const int n = live ? min(P, dst_w - x) : 0;  // pixels inside
   const float* fblk = reinterpret_cast<const float*>(blk);
-  // a batch's plane: its source address, its crop origin two words apart
+  // the plane's values (the head's offsets of plane 0's stage values, warp
+  // coefficients and border and fused chain scalars, read zoff words on:
+  // an offset, not a second pointer, keeps the 4-tap shared instance at 63
+  // registers, not 66) and its source address
+  const int zoff = z * h.plane_stride;
+  // a plane past used_planes (the whole block's) reads nothing: each pixel
+  // starts with the default's offset as its fill, as an outer CONSTANT
+  // border's value (the walk keeps a fill once set), so that the read
+  // holds no test of it (on an H100 such a test cost a crop batch's
+  // 4-pixel instance 10 %)
+  const int held_fill =
+      h.used_off >= 0 && z >= __ldg(blk + h.used_off) ? h.default_off - zoff : -1;
   const void* s = src;
   if (h.batch) {
     s = reinterpret_cast<const void*>(__ldg(reinterpret_cast<const unsigned long long*>(blk) + z));
@@ -401,8 +423,8 @@ __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
   // them at once), so their loads overlap the walks and the taps' loads
   const bool in_once = h.in_n_ops <= kStageRows, out_once = h.out_n_ops <= kStageRows;
   if (in_once) {
-    stage_rows(in_rows, consts + h.in_ops_off, h.in_n_ops, 0, h.in_n_ops, fblk + h.in_fp_off,
-               tid, kThreads);
+    stage_rows(in_rows, consts + h.in_ops_off, h.in_n_ops, 0, h.in_n_ops,
+               fblk + zoff + h.in_fp_off, tid, kThreads);
   }
   if (out_once) {
     stage_rows(out_rows, consts + h.out_ops_off, h.out_n_ops, 0, h.out_n_ops,
@@ -413,8 +435,8 @@ __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
   int xc[P], fo[P];
   int yc = y;
 #pragma unroll
-  for (int q = 0; q < P; ++q) xc[q] = x + q, fo[q] = -1;
-  if (live) walk_stages(h.outer, h.batch ? blk + 2 * z : blk, xc, fo, yc);
+  for (int q = 0; q < P; ++q) xc[q] = x + q, fo[q] = held_fill;
+  if (live) walk_stages(h.outer, blk + zoff, xc, fo, yc);
   bool sample[P];
   bool any = false;
 #pragma unroll
@@ -478,7 +500,7 @@ __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
       // the warp: warp.cuh's coordinates and taps over the inner image, the
       // row's terms once for the thread
       float sx[P], sy[P];
-      map_coords(fblk + h.coef_off, h.persp != 0, xc, yc, sx, sy);
+      map_coords(fblk + zoff + h.coef_off, h.persp != 0, xc, yc, sx, sy);
       const float fw = (float)h.in_w, fh = (float)h.in_h;  // exact: sides < 2^24
 #pragma unroll
       for (int q = 0; q < P; ++q) {
@@ -500,7 +522,7 @@ __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
 
     // both axes through the upper and the lower stages, once each
     int fx[NX], fy[NY];
-    walk_taps(h, blk, xs, fx, ys, fy);
+    walk_taps(h, blk + zoff, xs, fx, ys, fy);
 
     // tap k of pixel q: its base position, its fill (the outer of its
     // column's and its row's) and whether it is read
@@ -533,7 +555,7 @@ __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
   float border[kMaxCh];
 #pragma unroll
   for (int c = 0; c < kMaxCh; ++c) {
-    border[c] = warp && c < h.tap_ch ? __ldg(fblk + h.border_off + c) : 0.f;
+    border[c] = warp && c < h.tap_ch ? __ldg(fblk + zoff + h.border_off + c) : 0.f;
   }
   float v[P][kMaxCh];
 #pragma unroll
@@ -562,7 +584,7 @@ __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
 #pragma unroll
           for (int c = 0; c < kMaxCh; ++c) {
             if (c < h.lower.nch) {
-              t[k][0][c] = cast_to_type(__ldg(fblk + off + c), h.lower.src_type);
+              t[k][0][c] = cast_to_type(__ldg(fblk + zoff + off + c), h.lower.src_type);
             }
           }
         }
@@ -573,7 +595,7 @@ __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
 #pragma unroll
       for (int k = 0; k < T; ++k) {
         run_table(t[k], in_rows, in_once, consts + h.in_ops_off, h.in_n_ops,
-                  fblk + h.in_fp_off, tid, need[q] >> k & 1u);
+                  fblk + zoff + h.in_fp_off, tid, need[q] >> k & 1u);
       }
     }
     if (sample[q] && filled) {
@@ -585,7 +607,7 @@ __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
         const int off = fill_offset(h, f);
 #pragma unroll
         for (int c = 0; c < kMaxCh; ++c) {
-          if (c < h.tap_ch) t[k][0][c] = cast_to_type(__ldg(fblk + off + c), h.tap_type);
+          if (c < h.tap_ch) t[k][0][c] = cast_to_type(__ldg(fblk + zoff + off + c), h.tap_type);
         }
       }
     }
@@ -630,10 +652,12 @@ __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
           }
         }
       }
-    } else if (q < n) {  // an outer CONSTANT border's value, cast to the core's type
+    } else if (q < n) {
+      // an outer CONSTANT border's value, or a held plane's default, cast to
+      // the core's type
 #pragma unroll
       for (int c = 0; c < kMaxCh; ++c) {
-        if (c < h.tap_ch) v[q][c] = cast_to_type(__ldg(fblk + fo[q] + c), h.core_type);
+        if (c < h.tap_ch) v[q][c] = cast_to_type(__ldg(fblk + zoff + fo[q] + c), h.core_type);
       }
     }
   }

@@ -7,21 +7,37 @@ Pallas kernel takes (``pallas_frame.py::_source_array``,
 composed reads, so XLA fuses them). One launch of ``csrc/composed.cu``
 computes a pipeline whose read is, from the output inwards,
 
-    read   := outer* core
+    read   := plane | BatchRead(plane, ..., [used_planes, default])
+    plane  := outer* core
     outer  := CropRead | BorderRead                  (<= MAX_STAGES)
     core   := ResizeRead(inner) | WarpRead(inner) | inner
     inner  := upper* [FusedRead] lower* base         (<= MAX_STAGES crops
               and borders in all)
     base   := ImageRead of one frame | ReadYUV
 
-or a ``BatchRead`` of equal-size ``CropRead`` s of bare bases (``crop_batch``),
-then the pointwise chain and any write. A core with no resampling node reads
-one pixel: the kernel takes it only with a ``FusedRead`` below a stage or
-under a ``BatchRead`` of crops; every other such tree is the pointwise
-kernel's. What stays eager: a second resampling node, a batched image under
-a resample, a ``FusedRead`` above the core, a ``BatchRead`` of anything but
-crops of bare bases or with ``used_planes``, and the float ``FusedRead`` of
-NV12 that the full-frame kernel resizes commuted.
+then the pointwise chain and any write. A ``BatchRead`` (the reference's
+``batch_read``, ``crop_batch``, ``warp_batch`` of crops) takes N planes
+whose trees have one structure (equal ``graph.flatten`` keys: sizes, border
+modes, warp type, chain structure, the base's shape and dtype); they differ
+only in their leaves (the source array, crop origins, border values, warp
+coefficients, chain scalars). Its planes ``z >= used_planes`` hold
+``default`` cast to the read value's dtype. A one-frame read with no
+resampling node is the kernel's only with a ``FusedRead`` below a stage;
+every other such tree is the pointwise kernel's (a ``BatchRead``'s planes
+may be bare bases). What stays eager, and why (``_tree`` names each):
+
+- a second resampling node (``resize(warp)``, ``warp(resize)``,
+  ``resize(resize)``, a resample of a crop of a resample): the kernel has
+  one core;
+- a ``FusedRead`` above the core (``crop(fuse(resize(..), op))``), or a
+  second one under it: one fused chain runs per tap, below the core;
+- a batched image under a resample or in a ``BatchRead`` plane: a plane
+  reads one frame;
+- a ``BatchRead`` whose planes differ in structure, or of a
+  ``BatchRead``, a ring or another read: a plane's words are shared;
+- more than ``MAX_STAGES`` crops and borders above, or below, the core;
+- the float ``FusedRead`` of NV12 that the full-frame kernel resizes
+  commuted; uint32 and bool sources.
 
 Semantics, each as the eager lowering computes it:
 
@@ -38,14 +54,19 @@ Semantics, each as the eager lowering computes it:
   cast to the chain's dtype without the chain; a resample then reads the
   value as float32;
 - the outer stages walk each output pixel's position into the core's output;
-  an outer CONSTANT border's value is cast to the core's dtype.
+  an outer CONSTANT border's value is cast to the core's dtype;
+- a ``BatchRead`` stacks its planes; a plane past ``used_planes`` reads
+  nothing and holds the default; the pipeline's chain then runs on every
+  plane.
 
 :func:`build_plan` turns the structure into a :class:`ComposedPlan` once:
-the head's words (three ``PwHead`` stage lists and the core's fields), the
-two op tables and a resize's tap tables, and the block's layout. Runtime
-values (crop origins, border values, warp coefficients and border, chain
-scalars, a batch's source addresses) ride one int32 block per call and key
-no plan.
+the head's words (three ``PwHead`` stage lists and the core's fields, all
+of one plane), the two op tables and a resize's tap tables, and the block's
+layout. Runtime values ride one int32 block per call and key no plan: a
+batch's source addresses, then each plane's values (crop origins, border
+values, warp coefficients and border, the fused chain's scalars) at a
+stride of ``plane_stride`` words (the head holds plane 0's offsets), then
+the pipeline chain's scalars, ``used_planes`` and the default.
 
 :func:`composed` is the wrapper: on a CUDA tensor it launches the kernel,
 on a CPU tensor it runs :func:`composed_reference`, the plain PyTorch
@@ -65,7 +86,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..graph import FusedRead, flatten, map_leaves
+from ..graph import FusedRead, ReadOp, flatten, map_leaves
 from ..ops.crop import CropRead
 from ..ops.memory import BatchRead, ImageRead
 from ..ops.nv12 import ReadYUV
@@ -93,10 +114,11 @@ LAUNCHES = 0
 # keep every code in step with csrc/composed.cuh
 CORES = ("none", "resize", "warp")
 #: the head's words: three PwHead stage lists (csrc/pointwise.cuh), then the core's
-HEAD_INTS = 3 * kp.HEAD_INTS + 20
+HEAD_INTS = 3 * kp.HEAD_INTS + 23
 _CORE_WORDS = ("core", "core_h", "core_w", "in_h", "in_w", "keep_edge", "persp", "coef_off",
                "border_off", "taps_off", "tap_type", "core_type", "tap_ch", "batch", "in_n_ops",
-               "in_ops_off", "in_fp_off", "out_n_ops", "out_ops_off", "out_fp_off")
+               "in_ops_off", "in_fp_off", "out_n_ops", "out_ops_off", "out_fp_off", "plane_stride",
+               "used_off", "default_off")
 assert len(_CORE_WORDS) == HEAD_INTS - 3 * kp.HEAD_INTS
 _N_COEFFS = 9  # block words of a warp's coefficients; an affine map uses 6
 _CONSTANT, _REFLECT, _REFLECT_101, _WRAP = (BORDER_MODES[m] for m in (
@@ -104,11 +126,9 @@ _CONSTANT, _REFLECT, _REFLECT_101, _WRAP = (BORDER_MODES[m] for m in (
 
 
 @dataclasses.dataclass
-class _Tree:
-    """A read tree taken apart: the stages outermost first in each list."""
+class _Plane:
+    """One plane's read taken apart: the stages outermost first in each list."""
 
-    chain: Tuple             # the pipeline's chain, FusedReads at the top included
-    crops: Tuple             # a BatchRead's CropReads; () for one frame
     outer: List              # stages above the core
     core: object             # the ResizeRead or WarpRead; None for one pixel
     upper: List              # stages between the core and the FusedRead
@@ -117,23 +137,26 @@ class _Tree:
     base: object             # the ImageRead or ReadYUV
 
 
-def _tree(pipeline) -> _Tree:
-    """The pipeline's read taken apart; raises :class:`Unsupported`."""
-    read, chain = _unwrap(pipeline)
-    if isinstance(read, BatchRead):
-        if read.used_planes is not None:
-            raise Unsupported("a BatchRead with used_planes")
-        if not read.ops or not all(isinstance(o, CropRead) for o in read.ops):
-            raise Unsupported("a BatchRead of anything but CropReads")
-        base = read.ops[0].source
-        for o in read.ops:
-            if not isinstance(o.source, (ImageRead, ReadYUV)):
-                raise Unsupported(f"a BatchRead of crops of a {type(o.source).__name__}")
-            if flatten(o.source)[0] != flatten(base)[0]:
-                raise Unsupported("a BatchRead of crops of sources of different shapes")
-            if (o.width, o.height) != (read.ops[0].width, read.ops[0].height):
-                raise Unsupported("a BatchRead of crops of different sizes")
-        return _Tree(chain, tuple(read.ops), [], None, [], None, [], base)
+@dataclasses.dataclass
+class _Tree:
+    """A pipeline's read taken apart."""
+
+    chain: Tuple             # the pipeline's chain, FusedReads at the top included
+    planes: Tuple            # one _Plane of a frame, or a BatchRead's N of one structure
+    batch: bool              # a BatchRead
+    used: object             # its used_planes, or None
+    default: object          # its default, or None
+
+
+def _names(read) -> str:
+    """A read tree's op classes, outermost first: ``ResizeRead(CropRead(ImageRead))``."""
+    inner = getattr(read, "source", None) or getattr(read, "read", None)
+    return type(read).__name__ + (f"({_names(inner)})" if isinstance(inner, ReadOp) else "")
+
+
+def _plane(read, batch: bool) -> _Plane:
+    """One plane's read taken apart; raises :class:`Unsupported` saying why
+    the kernel cannot read it."""
     outer, node = _stages(read)
     core = node if isinstance(node, (ResizeRead, WarpRead)) else None
     upper, node = _stages(node.source) if core is not None else ([], node)
@@ -142,17 +165,47 @@ def _tree(pipeline) -> _Tree:
     if fused is None:
         upper = []
     if isinstance(base, FusedRead):
-        raise Unsupported("more than one FusedRead under the core")
+        raise Unsupported("more than one FusedRead under the core: one fused chain runs per tap")
     if isinstance(base, (ResizeRead, WarpRead)):
-        raise Unsupported(f"a {type(base).__name__} under the core or under a FusedRead")
+        if core is None:
+            raise Unsupported(f"a FusedRead above a {type(base).__name__}: the fused chain runs "
+                              "per tap, below the resample")
+        raise Unsupported(f"a second resampling node, a {type(base).__name__} under the "
+                          f"{type(core).__name__}: the kernel has one core")
+    if isinstance(base, BatchRead):
+        raise Unsupported("a BatchRead inside a read: a plane reads one frame")
     if not isinstance(base, (ImageRead, ReadYUV)):
         raise Unsupported(f"read {type(base).__name__} under the core")
-    if core is None and fused is None:
+    if not batch and core is None and fused is None:
         raise Unsupported("no resampling node, no FusedRead under a stage and no BatchRead: "
                           "the pointwise kernel's")
     if isinstance(base, ImageRead) and base.is_batch:
         raise Unsupported("a batched ImageRead is not one frame")
-    return _Tree(chain, (), outer, core, upper, fused, lower, base)
+    return _Plane(outer, core, upper, fused, lower, base)
+
+
+def _one_structure(read: BatchRead) -> None:
+    """Raises :class:`Unsupported` unless the planes of ``read`` share one
+    structure (equal ``graph.flatten`` keys). The plan cache keys on the
+    whole read, so a pipeline whose plan exists has passed this test."""
+    if not read.ops:
+        raise Unsupported("a BatchRead of no planes")
+    key = flatten(read.ops[0])[0]
+    for z, o in enumerate(read.ops[1:], 1):
+        if flatten(o)[0] != key:
+            raise Unsupported(
+                f"planes 0 and {z} of a BatchRead differ in structure ({_names(read.ops[0])} "
+                f"and {_names(o)}, or their sizes, modes, chains or sources' shapes and "
+                "dtypes): the kernel runs one plane's words on every plane")
+
+
+def _tree(pipeline) -> _Tree:
+    """The pipeline's read taken apart; raises :class:`Unsupported`."""
+    read, chain = _unwrap(pipeline)
+    if not isinstance(read, BatchRead):
+        return _Tree(chain, (_plane(read, False),), False, None, None)
+    planes = tuple(_plane(o, True) for o in read.ops)
+    return _Tree(chain, planes, True, read.used_planes, read.default)
 
 
 def _base_geometry(base) -> Tuple[int, int, int, object]:
@@ -270,8 +323,12 @@ def _table(ops: np.ndarray, ch: int) -> np.ndarray:
 
 def build_plan(pipeline) -> ComposedPlan:
     """The kernel plan of a pipeline; raises :class:`Unsupported`."""
+    read, _ = _unwrap(pipeline)
+    if isinstance(read, BatchRead):
+        _one_structure(read)
     t = _tree(pipeline)
-    h, w, c, data = _base_geometry(t.base)
+    p = t.planes[0]
+    h, w, c, data = _base_geometry(p.base)
     src_dtype = SRC_DTYPES.get(_leaf_dtype_name(data))
     if src_dtype is None:
         raise Unsupported(f"source dtype {_leaf_dtype_name(data)}")
@@ -279,22 +336,21 @@ def build_plan(pipeline) -> ComposedPlan:
         raise Unsupported(f"{c} channels")
     if max(h, w) >= _MAX_SIDE:
         raise Unsupported(f"a source of {w}x{h}")
-    if len(t.outer) > MAX_STAGES or len(t.upper) + len(t.lower) > MAX_STAGES:
-        raise Unsupported(f"{len(t.outer)} outer and {len(t.upper) + len(t.lower)} inner crops "
+    if len(p.outer) > MAX_STAGES or len(p.upper) + len(p.lower) > MAX_STAGES:
+        raise Unsupported(f"{len(p.outer)} outer and {len(p.upper) + len(p.lower)} inner crops "
                           f"and borders, the kernel nests {MAX_STAGES} of each")
-    batch = bool(t.crops)
-    n_planes = len(t.crops) if batch else 1
+    n_planes = len(t.planes)
     if not 1 <= n_planes <= _MAX_PLANES:
         raise Unsupported(f"{n_planes} planes")
 
     # the inner value: the base, the lower stages, the FusedRead's chain
-    lower_sizes = _sizes(t.lower, h, w)
-    fused_chain = tuple(t.fused.chain) if t.fused is not None else ()
+    lower_sizes = _sizes(p.lower, h, w)
+    fused_chain = tuple(p.fused.chain) if p.fused is not None else ()
     conv, conv_first, limited, rows0, tap_dtype, tap_ch, fused_chain = kp.head_conversion(
         fused_chain, dt.canonical_dtype(src_dtype), c)
     in_ops, tap_dtype, tap_ch, n_in = encode_chain(fused_chain, tap_ch, dtype=tap_dtype)
     in_ops = np.concatenate([rows0, in_ops]).astype(np.int32)
-    upper_sizes = _sizes(t.upper, *lower_sizes[-1])
+    upper_sizes = _sizes(p.upper, *lower_sizes[-1])
     in_h, in_w = upper_sizes[-1]
     if max(in_h, in_w) >= _MAX_SIDE:
         raise Unsupported(f"an inner image of {in_w}x{in_h}")
@@ -302,27 +358,27 @@ def build_plan(pipeline) -> ComposedPlan:
     # the core
     keep = persp = 0
     taps = np.zeros(0, np.int32)
-    if isinstance(t.core, ResizeRead):
+    if isinstance(p.core, ResizeRead):
         core = "resize"
-        if t.core.interp != InterpolationType.INTER_LINEAR:
-            raise Unsupported(f"interpolation {t.core.interp}")
-        if t.core._commuted_source() is not None:
+        if p.core.interp != InterpolationType.INTER_LINEAR:
+            raise Unsupported(f"interpolation {p.core.interp}")
+        if p.core._commuted_source() is not None:
             raise Unsupported("the float FusedRead of NV12 is resized commuted: the full-frame "
                               "kernel's")
-        core_w, core_h = t.core.dsize
-        keep = int(keeps_edge_weight(in_h, in_w, t.core.dsize))
+        core_w, core_h = p.core.dsize
+        keep = int(keeps_edge_weight(in_h, in_w, p.core.dsize))
         tx, ty = axis_taps(in_w, core_w, bool(keep)), axis_taps(in_h, core_h, bool(keep))
         taps = np.concatenate([tx[0], tx[1], ty[0], ty[1]]).astype(np.int32)
         taps = np.concatenate([taps, np.concatenate([tx[2], ty[2]]).astype(np.float32)
                                .view(np.int32)])
-    elif isinstance(t.core, WarpRead):
+    elif isinstance(p.core, WarpRead):
         core = "warp"
-        core_w, core_h = t.core.dsize
-        persp = int(t.core.warp_type == WarpType.PERSPECTIVE)
-        if _size(t.core.coeffs) != (9 if persp else 6):
-            raise Unsupported(f"a warp of {_size(t.core.coeffs)} coefficients")
-        if _size(t.core.default) not in (1, tap_ch):
-            raise Unsupported(f"warp border of {_size(t.core.default)} entries on {tap_ch} "
+        core_w, core_h = p.core.dsize
+        persp = int(p.core.warp_type == WarpType.PERSPECTIVE)
+        if _size(p.core.coeffs) != (9 if persp else 6):
+            raise Unsupported(f"a warp of {_size(p.core.coeffs)} coefficients")
+        if _size(p.core.default) not in (1, tap_ch):
+            raise Unsupported(f"warp border of {_size(p.core.default)} entries on {tap_ch} "
                               "channels")
     else:
         core = "none"
@@ -330,57 +386,59 @@ def build_plan(pipeline) -> ComposedPlan:
     if min(core_h, core_w) < 1:
         raise Unsupported(f"an output of {core_w}x{core_h}")
     core_dtype = tap_dtype if core == "none" else torch.float32
-    outer_sizes = _sizes(t.outer, core_h, core_w)
+    outer_sizes = _sizes(p.outer, core_h, core_w)
     out_h, out_w = outer_sizes[-1]
-    if batch:
-        out_h, out_w = t.crops[0].height, t.crops[0].width
-        outer_sizes = [(h, w), (out_h, out_w)]
-        if not (1 <= out_h <= h and 1 <= out_w <= w):
-            raise Unsupported(f"crops of {out_w}x{out_h} from {w}x{h}")
 
-    # the block: a batch's addresses and origins, the outer stages' values,
-    # the warp's coefficients and border, the upper and the lower stages',
-    # the two chains' scalars, then 4 zero words
-    pos = 4 * n_planes if batch else 0
-    if batch:
-        outer_words = [STAGE_CROP, h, w, 0, 2 * n_planes, 2 * n_planes + 1, out_w, out_h]
-        outer_words += [0] * (8 * (MAX_STAGES - 1))
-        n_outer = 1
-    else:
-        outer_words, pos = _stage_words(t.outer, outer_sizes, pos, tap_ch)
-        n_outer = len(t.outer)
+    # the block: a batch's source addresses (8-byte words, so first), then
+    # each plane's values, plane_stride words apart: the outer stages', the
+    # warp's coefficients and border, the upper and the lower stages', the
+    # FusedRead's chain scalars (the head holds plane 0's offsets); then the
+    # pipeline chain's scalars, used_planes and the default, and 4 zero words
+    plane_off = 2 * n_planes if t.batch else 0
+    outer_words, pos = _stage_words(p.outer, outer_sizes, plane_off, tap_ch)
     coef_off = border_off = 0
     if core == "warp":
         coef_off, border_off = pos, pos + _N_COEFFS
         pos = border_off + tap_ch
-    upper_words, pos = _stage_words(t.upper, upper_sizes, pos, tap_ch)
-    lower_words, pos = _stage_words(t.lower, lower_sizes, pos, c)
+    upper_words, pos = _stage_words(p.upper, upper_sizes, pos, tap_ch)
+    lower_words, pos = _stage_words(p.lower, lower_sizes, pos, c)
     in_fp_off, pos = pos, pos + n_in
+    plane_stride = pos - plane_off
+    pos = plane_off + n_planes * plane_stride
     out_ops, out_dtype, out_ch, n_out = encode_chain(t.chain, tap_ch, dtype=core_dtype)
     out_fp_off, pos = pos, pos + n_out
+    used_off = default_off = -1
+    if t.used is not None:
+        if _size(t.used) != 1:
+            raise Unsupported(f"used_planes of {_size(t.used)} values")
+        if _size(t.default) not in (1, tap_ch):
+            raise Unsupported(f"a default of {_size(t.default)} entries on {tap_ch} channels")
+        used_off, default_off = pos, pos + 1
+        pos = default_off + tap_ch
 
-    layouts = kbr._LAYOUTS if batch else _SINGLE_LAYOUTS
+    layouts = kbr._LAYOUTS if t.batch else _SINGLE_LAYOUTS
     layout = layouts.get(type(pipeline.write))
     if layout is None:
         raise Unsupported(f"write {type(pipeline.write).__name__} of a "
-                          f"{'batched' if batch else 'single'} value")
+                          f"{'batched' if t.batch else 'single'} value")
     in_table, out_table = _table(in_ops, c), _table(out_ops, tap_ch)
     tables = np.concatenate([in_table, out_table, taps]).astype(np.int32)
-    kind = "yuv" if isinstance(t.base, ReadYUV) else "image"
-    nv21 = int(kind == "yuv" and t.base.pixel_format == PixelFormat.NV21)
+    kind = "yuv" if isinstance(p.base, ReadYUV) else "image"
+    nv21 = int(kind == "yuv" and p.base.pixel_format == PixelFormat.NV21)
     core_words = dict(
         core=CORES.index(core), core_h=core_h, core_w=core_w, in_h=in_h, in_w=in_w,
         keep_edge=keep, persp=persp, coef_off=coef_off, border_off=border_off,
         taps_off=in_table.size + out_table.size, tap_type=TYPE_CODES[tap_dtype],
-        core_type=TYPE_CODES[core_dtype], tap_ch=tap_ch, batch=int(batch),
+        core_type=TYPE_CODES[core_dtype], tap_ch=tap_ch, batch=int(t.batch),
         in_n_ops=in_ops.shape[0], in_ops_off=0, in_fp_off=in_fp_off, out_n_ops=out_ops.shape[0],
-        out_ops_off=in_table.size, out_fp_off=out_fp_off)
-    head = (_stage_list(len(t.lower), lower_words, kp.BASES.index(kind), h, w, c,
+        out_ops_off=in_table.size, out_fp_off=out_fp_off, plane_stride=plane_stride,
+        used_off=used_off, default_off=default_off)
+    head = (_stage_list(len(p.lower), lower_words, kp.BASES.index(kind), h, w, c,
                         SRC_CODES[src_dtype], nv21, conv_first, limited, tap_ch)
-            + _stage_list(len(t.upper), upper_words) + _stage_list(n_outer, outer_words)
+            + _stage_list(len(p.upper), upper_words) + _stage_list(len(p.outer), outer_words)
             + tuple(core_words[k] for k in _CORE_WORDS))
     return ComposedPlan(
-        core=core, batch=batch, n_planes=n_planes, base=kind, src_dtype=src_dtype,
+        core=core, batch=t.batch, n_planes=n_planes, base=kind, src_dtype=src_dtype,
         src_numel=int(np.prod(tuple(data.shape))), dsize=Size(out_w, out_h), out_ch=out_ch,
         out_dtype=out_dtype, tap_dtype=tap_dtype, layout=layout,
         head=tuple(int(v) for v in head), conv=conv, tables=tables, n_block=pos + 4)
@@ -443,17 +501,17 @@ def _put_stages(blk: _Block, stages, ch: int) -> None:
 
 
 def prepare(pipeline, plan: ComposedPlan, device: torch.device) -> Launch:
-    """Gather one call's arguments on ``device``: the base arrays, and the
-    block of runtime values in one pinned non-blocking copy of its host
-    part (device leaves stay where they are). Nothing here waits for the
-    device."""
+    """Gather one call's arguments on ``device``: the base arrays (each read
+    in place, one entry however many planes read it), and the block of
+    runtime values in ``build_plan``'s layout, in one pinned non-blocking
+    copy of its host part (device leaves stay where they are). Nothing here
+    waits for the device."""
     t = _tree(pipeline)
-    bases = [o.source for o in t.crops] if plan.batch else [t.base]
     srcs: List[torch.Tensor] = []
     index: Dict[int, int] = {}
     plane_src = []
-    for b in bases:
-        leaf = _base_leaf(b)
+    for p in t.planes:
+        leaf = _base_leaf(p.base)
         k = index.get(id(leaf))
         if k is None:
             k = index[id(leaf)] = len(srcs)
@@ -464,18 +522,20 @@ def prepare(pipeline, plan: ComposedPlan, device: torch.device) -> Launch:
     if plan.batch:
         blk.put(np.asarray([srcs[k].data_ptr() for k in plane_src], np.uint64).view(np.int32),
                 np.int32)
-        for o in t.crops:
-            blk.put(o.x, np.int32, width=1)
-            blk.put(o.y, np.int32, width=1)
-    _put_stages(blk, t.outer, tap_ch)
-    if plan.core == "warp":
-        blk.put(t.core.coeffs, np.float32, width=_N_COEFFS)
-        _put_vector(blk, t.core.default, tap_ch)
-    _put_stages(blk, t.upper, tap_ch)
-    _put_stages(blk, t.lower, plan.head[3])
-    for chain in (tuple(t.fused.chain) if t.fused is not None else (), t.chain):
-        for v in flatten(tuple(chain))[1]:
+    for p in t.planes:
+        _put_stages(blk, p.outer, tap_ch)
+        if plan.core == "warp":
+            blk.put(p.core.coeffs, np.float32, width=_N_COEFFS)
+            _put_vector(blk, p.core.default, tap_ch)
+        _put_stages(blk, p.upper, tap_ch)
+        _put_stages(blk, p.lower, plan.head[3])
+        for v in flatten(tuple(p.fused.chain) if p.fused is not None else ())[1]:
             blk.put(v, np.float32)
+    for v in flatten(tuple(t.chain))[1]:
+        blk.put(v, np.float32)
+    if t.used is not None:
+        blk.put(t.used, np.int32, width=1)
+        _put_vector(blk, t.default, tap_ch)
     blk.put(np.zeros(4, np.int32), np.int32)
     if blk.size != plan.n_block:
         raise ValueError(f"the block holds {blk.size} words, the plan {plan.n_block}")
@@ -510,16 +570,15 @@ def _fold(i, n: int, mode: int):
     return i.clamp(0, n - 1)  # REPLICATE; CONSTANT inside its source
 
 
-def _walk(stages, blk, y, x, fill, shift=0):
+def _walk(stages, blk, y, x, fill):
     """``csrc/pointwise.cuh::walk_stages`` on tensors of positions: each
     stage maps (y, x) inwards; ``fill`` takes the block offset of the
-    value of the first CONSTANT border a position lies outside of. A crop's
-    origin is read at its offset plus ``shift`` (a batch's plane)."""
+    value of the first CONSTANT border a position lies outside of."""
     for kind, sh, sw, mode, a, b, c, d in stages:
         if kind == STAGE_CROP:
             starts = []
             for off, length, size in ((a, sw, c), (b, sh, d)):
-                s = blk[off + shift]
+                s = blk[off]
                 starts.append(torch.where(s < 0, s + length, s).clamp(0, length - size))
             x, y = x + starts[0], y + starts[1]
         else:
@@ -540,58 +599,52 @@ def _filled(v, fill, fblk, dtype):
 
 
 class _Reader:
-    """The plain version's reads of one launch: a tap's value at positions
-    of the core's source, through the upper stages, the lower ones, the base
-    and the FusedRead's chain. ``touched``, where given, collects each
+    """The plain version's reads of one plane of a launch: a tap's value at
+    positions of the core's source, through the upper stages, the lower
+    ones, the base and the FusedRead's chain. ``blk`` and ``fblk`` are the
+    block shifted by the plane's stride, so the head's offsets of plane 0's
+    values read the plane's own. ``touched``, where given, collects each
     read's base positions that a result needs (for :func:`work`)."""
 
-    def __init__(self, a: Launch, touched=None):
+    def __init__(self, a: Launch, srcs, z: int, plane: _Plane, touched=None):
         plan = a.plan
         self.plan, self.touched = plan, touched
-        dev = a.srcs[0].device
-        self.blk = a.block.long()
-        self.fblk = a.block.view(torch.float32)
+        shift = z * plan.word("plane_stride")
+        self.blk = a.block.long()[shift:]
+        self.fblk = a.block.view(torch.float32)[shift:]
         self.src_dtype = dt.canonical_dtype(plan.src_dtype)
-        h, w, c = plan.head[1:4]
-        rows = h if plan.base == "image" else h * 3 // 2
-        canon = [dt.canonicalize(s) for s in a.srcs]
-        self.stack = torch.stack([s.reshape(rows, w, -1) for s in canon])
-        self.pidx = torch.as_tensor(a.plane_src, device=dev)
-        t = _tree(a.pipeline)
+        self.p = a.plane_src[z]
+        self.src = srcs[self.p]
+        dev = self.src.device
+        self.fused_chain = () if plane.fused is None else map_leaves(
+            tuple(plane.fused.chain), lambda v: as_device_tensor(v, dev))
 
-        def on_device(ops):
-            return map_leaves(tuple(ops), lambda v: as_device_tensor(v, dev))
-
-        self.fused_chain = on_device(t.fused.chain) if t.fused is not None else ()
-        self.chain, self.write = on_device(t.chain), a.pipeline.write
-
-    def base(self, p, y, x):
-        """The base's values (..., C) at positions (y, x) of array p."""
+    def base(self, y, x):
+        """The base's values (..., C) at positions (y, x)."""
         if self.plan.base == "image":
-            return dt.gather(self.stack, lambda s: s[p, y, x])
+            return dt.gather(self.src, lambda s: s[y, x])
         h, iu = self.plan.head[1], self.plan.head[8]
         row = h + torch.div(y, 2, rounding_mode="floor")
         col = 2 * torch.div(x, 2, rounding_mode="floor")
-        buf = self.stack[..., 0]
-        return torch.stack([buf[p, y, x], buf[p, row, col + iu], buf[p, row, col + 1 - iu]], -1)
+        buf = self.src[..., 0]
+        return torch.stack([buf[y, x], buf[row, col + iu], buf[row, col + 1 - iu]], -1)
 
-    def tap(self, z, y, x, need=None):
-        """The inner value at positions (y, x) of the core's source of plane
-        z, after the FusedRead's chain, in its dtype; ``need`` masks the
-        positions whose value a result takes."""
+    def tap(self, y, x, need=None):
+        """The inner value at positions (y, x) of the core's source, after
+        the FusedRead's chain, in its dtype; ``need`` masks the positions
+        whose value a result takes."""
         plan = self.plan
         fill_up = torch.full_like(y, -1)
         y, x, fill_up = _walk(plan.stage_list(1), self.blk, y, x, fill_up)
         fill_lo = torch.full_like(y, -1)
         y, x, fill_lo = _walk(plan.stage_list(0), self.blk, y, x, fill_lo)
-        p = self.pidx[z]
         if self.touched is not None:
             read = (fill_lo < 0) & (fill_up < 0)
             if need is not None:
                 read = read & need
-            p_, y_, x_, read = torch.broadcast_tensors(p, y, x, read)
-            self.touched.append((p_[read], y_[read], x_[read]))
-        v = _filled(self.base(p, y, x), fill_lo, self.fblk, self.src_dtype)
+            y_, x_, read = torch.broadcast_tensors(y, x, read)
+            self.touched.append((self.p, y_[read], x_[read]))
+        v = _filled(self.base(y, x), fill_lo, self.fblk, self.src_dtype)
         for o in self.fused_chain:
             v = o.apply(v)
         return _filled(v, fill_up, self.fblk, plan.tap_dtype)
@@ -609,7 +662,7 @@ def _sample(r: _Reader, yc, xc, need):
     positions whose value the output takes."""
     plan = r.plan
     if plan.core == "none":
-        return r.tap(0, yc, xc, need)
+        return r.tap(yc, xc, need)
     if plan.core == "resize":
         cw, ch = plan.word("core_w"), plan.word("core_h")
         t = torch.from_numpy(plan.tables[plan.word("taps_off"):]).to(yc.device)
@@ -622,7 +675,7 @@ def _sample(r: _Reader, yc, xc, need):
         # not needed (the others' lerp reads it whatever its weight)
         bits = tap_need(wx[..., 0], wy[..., 0], keep)
         # v00, v01, v10, v11: the upper row's taps, then the lower row's
-        v = r.tap(0, torch.stack([y0[yc], y0[yc], y1[yc], y1[yc]]),
+        v = r.tap(torch.stack([y0[yc], y0[yc], y1[yc], y1[yc]]),
                   torch.stack([x0[xc], x1[xc], x0[xc], x1[xc]]),
                   torch.stack([need & (bits >> k & 1).bool() for k in range(4)])
                   ).to(torch.float32)
@@ -651,7 +704,7 @@ def _sample(r: _Reader, yc, xc, need):
     iy = (torch.where(vy[0], y0f, 0.0).long(), torch.where(vy[1], y0f + 1, 0.0).long())
     order = ((0, 0), (0, 1), (1, 0), (1, 1))  # (y tap, x tap) of v00, v01, v10, v11
     valid = torch.stack([vy[j] & vx[i] for j, i in order])
-    v = r.tap(0, torch.stack([iy[j] for j, _ in order]), torch.stack([ix[i] for _, i in order]),
+    v = r.tap(torch.stack([iy[j] for j, _ in order]), torch.stack([ix[i] for _, i in order]),
               valid & need).to(torch.float32)
     off = plan.word("border_off")
     border = r.fblk[off:off + plan.word("tap_ch")]
@@ -659,31 +712,48 @@ def _sample(r: _Reader, yc, xc, need):
     return dt.lerp(dt.lerp(v[0], v[1], wx), dt.lerp(v[2], v[3], wx), wy)
 
 
-def _reference(a: Launch, touched=None):
-    """The plain version; with ``touched`` only the read, whose base
-    positions it collects."""
+def _used(a: Launch) -> int:
+    """The planes a launch reads: ``used_planes`` clamped to [0, N] (read
+    back from the block), else N."""
     plan = a.plan
-    r = _Reader(a, touched)
+    off = plan.word("used_off")
+    if off < 0:
+        return plan.n_planes
+    return min(max(int(a.block[off]), 0), plan.n_planes)
+
+
+def _reference(a: Launch, touched=None):
+    """The plain version; with ``touched`` only the read of the planes
+    below ``used_planes``, whose base positions it collects."""
+    plan = a.plan
+    t = _tree(a.pipeline)
     dev = a.srcs[0].device
+    h, w = plan.head[1:3]
+    rows = h if plan.base == "image" else h * 3 // 2
+    srcs = [dt.canonicalize(s).reshape(rows, w, -1) for s in a.srcs]
     w, h = plan.dsize
     y = torch.arange(h, device=dev)[:, None].expand(h, w)
     x = torch.arange(w, device=dev)[None, :].expand(h, w)
-    if plan.batch:
-        n = plan.n_planes
-        z = torch.arange(n, device=dev)[:, None, None]
-        y, x = y.expand(n, h, w), x.expand(n, h, w)
-        y, x, _ = _walk(plan.stage_list(2), r.blk, y, x, torch.full_like(y, -1), shift=2 * z)
-        v = r.tap(z, y, x)
-    else:
-        fill = torch.full_like(y, -1)
-        yc, xc, fill = _walk(plan.stage_list(2), r.blk, y, x, fill)
-        core_dtype = plan.tap_dtype if plan.core == "none" else torch.float32
-        v = _filled(_sample(r, yc, xc, fill < 0), fill, r.fblk, core_dtype)
+    core_dtype = plan.tap_dtype if plan.core == "none" else torch.float32
+    planes = []
+    for z, p in enumerate(t.planes[:_used(a)] if touched is not None else t.planes):
+        r = _Reader(a, srcs, z, p, touched)
+        yc, xc, fill = _walk(plan.stage_list(2), r.blk, y, x, torch.full_like(y, -1))
+        planes.append(_filled(_sample(r, yc, xc, fill < 0), fill, r.fblk, core_dtype))
     if touched is not None:
-        return v
-    for o in r.chain:
+        return None
+    v = torch.stack(planes) if plan.batch else planes[0]
+    if plan.word("used_off") >= 0:
+        # the planes from used_planes on hold the default, cast to the read
+        # value's dtype (ops/memory.py::BatchRead)
+        blk, fblk = a.block.long(), a.block.view(torch.float32)
+        off = plan.word("default_off")
+        default = dt.cast(fblk[off:off + plan.word("tap_ch")], core_dtype)
+        z = torch.arange(plan.n_planes, device=dev).reshape(-1, 1, 1, 1)
+        v = _where(z < blk[plan.word("used_off")], v, default)
+    for o in map_leaves(tuple(t.chain), lambda v: as_device_tensor(v, dev)):
         v = o.apply(v)
-    return r.write.write(v)
+    return a.pipeline.write.write(v)
 
 
 def composed_reference(a: Launch):
@@ -764,7 +834,7 @@ def run(pipeline, plan: ComposedPlan, device: torch.device, out=None):
 launch = composed
 
 
-def _walk_axis(stages, blk, pos, axis: int, shift: int = 0):
+def _walk_axis(stages, blk, pos, axis: int):
     """``csrc/composed.cuh::walk_axis`` on a tensor of positions of one axis
     (0: y, 1: x): the positions inwards, and whether each lies outside a
     CONSTANT border on this axis (a tap there reads nothing)."""
@@ -772,7 +842,7 @@ def _walk_axis(stages, blk, pos, axis: int, shift: int = 0):
     for kind, sh, sw, mode, a, b, c, d in stages:
         if kind == STAGE_CROP:
             off, length, size = (b, sh, d) if axis == 0 else (a, sw, c)
-            s = int(blk[off + shift])
+            s = int(blk[off])
             pos = pos + min(max(s + length if s < 0 else s, 0), length - size)
         else:
             n, lead = (sh, a) if axis == 0 else (sw, b)
@@ -791,9 +861,8 @@ def _axis_reads(a: Launch, z: int, axis: int) -> np.ndarray:
     less those a CONSTANT border there fills. A tap is read where both its
     row and its column are, so the two axes' positions pair up."""
     plan = a.plan
-    blk = a.block.long().cpu()
-    pos, out = _walk_axis(plan.stage_list(2), blk, torch.arange(plan.dsize[1 - axis]), axis,
-                          shift=2 * z if plan.batch else 0)
+    blk = a.block.long().cpu()[z * plan.word("plane_stride"):]
+    pos, out = _walk_axis(plan.stage_list(2), blk, torch.arange(plan.dsize[1 - axis]), axis)
     pos = np.unique(pos[~out].numpy())
     if plan.core == "resize":
         cw, ch = plan.word("core_w"), plan.word("core_h")
@@ -814,24 +883,21 @@ def _axis_reads(a: Launch, z: int, axis: int) -> np.ndarray:
 def _read_sectors(a: Launch) -> int:
     """The 32-byte sectors of the base arrays that a resize or one-pixel
     core's taps read, from the plan's tables and the block: each plane's
-    rows and columns (:func:`_axis_reads`) in every pairing; an NV12 tap
-    reads a luma byte and a chroma pair."""
+    rows and columns (:func:`_axis_reads`) in every pairing, for the planes
+    below ``used_planes`` (the others read nothing); a sector of an array
+    that several planes read counts once; an NV12 tap reads a luma byte and
+    a chroma pair."""
     plan = a.plan
     h, w, c = plan.head[1:4]
     elem = c * a.srcs[0].element_size() if plan.base == "image" else 1
     found = []
-    planes = {}  # each base array's rows and columns over its planes
-    for z in range(plan.n_planes):
-        rows, cols = planes.setdefault(a.plane_src[z], ([], []))
-        rows.append(_axis_reads(a, z, 0))
-        cols.append(_axis_reads(a, z, 1))
-    for k, (rows, cols) in planes.items():
-        array = k * 2**45  # each base array's bytes apart from the others'
-        for r, col in zip(rows, cols):
-            found.append(bounds.grid_sectors(array + r * w * elem, col * elem, elem))
-            if plan.base == "yuv":
-                found.append(bounds.grid_sectors(array + (h + np.unique(r // 2)) * w,
-                                                 np.unique(col // 2) * 2, 2))
+    for z in range(_used(a)):
+        rows, cols = _axis_reads(a, z, 0), _axis_reads(a, z, 1)
+        array = a.plane_src[z] * 2**45  # each base array's bytes apart from the others'
+        found.append(bounds.grid_sectors(array + rows * w * elem, cols * elem, elem))
+        if plan.base == "yuv":
+            found.append(bounds.grid_sectors(array + (h + np.unique(rows // 2)) * w,
+                                             np.unique(cols // 2) * 2, 2))
     return int(np.unique(np.concatenate(found)).size) * 32 if found else 0
 
 
@@ -844,9 +910,11 @@ def work(a: Launch) -> Tuple[int, int, int]:
     border, outside a warp's source or under an outer border's fill reads
     none, nor a resize's second tap of weight 0 under the edge rule that
     keeps the first tap alone; an NV12 tap reads a luma byte and a chroma
-    pair); per output value the resample's lerps (12; a warp 8 more for
-    its coordinates), the FusedRead's rows once per tap (an NV12
-    conversion 7 more) and the pipeline's rows."""
+    pair; a plane past ``used_planes`` none); per output value of a plane
+    read the resample's lerps (12; a warp 8 more for its coordinates), the
+    FusedRead's rows once per tap (an NV12 conversion 7 more) and the
+    pipeline's rows; per value of a plane past ``used_planes`` the
+    pipeline's rows."""
     plan = a.plan
     out_bytes, values = bounds.output(plan)
     if plan.core == "warp":
@@ -856,7 +924,8 @@ def work(a: Launch) -> Tuple[int, int, int]:
     taps = 1 if plan.core == "none" else 4
     per_value = ({"none": 0, "resize": 12, "warp": 20}[plan.core]
                  + taps * (plan.word("in_n_ops") + 7 * plan.head[10]) + plan.word("out_n_ops"))
-    return out_bytes, src, values * max(per_value, 1)
+    read = values // plan.n_planes * _used(a)
+    return out_bytes, src, read * max(per_value, 1) + (values - read) * plan.word("out_n_ops")
 
 
 def _walked_sectors(a: Launch) -> int:
@@ -869,7 +938,7 @@ def _walked_sectors(a: Launch) -> int:
     elem = c * a.srcs[0].element_size() if plan.base == "image" else 1
     found = []
     for p, y, x in touched:
-        array = p.cpu() * 2**45  # each base array's bytes apart from the others'
+        array = p * 2**45  # each base array's bytes apart from the others'
         y, x = y.cpu(), x.cpu()
         found.append(bounds.sectors(array + (y * w + x) * elem, elem))
         if plan.base == "yuv":

@@ -6,7 +6,9 @@ and its plain version against the JAX package and the port's eager lowering.
   fused reads, under crops and borders, ``crop_batch``) is taken by
   ``cuda_composed.build_plan`` and ``executor._select(..., CUDA)`` names
   ``cuda:composed``; a second resampling node, a batched image under a
-  resample and a ``BatchRead`` of anything but crops stay ``"torch"``; every
+  resample and a ``BatchRead`` whose planes differ in structure, of a second
+  resampling node or of batched images stay ``"torch"``
+  (``test_torch_composed_batch.py`` holds the batches it takes); every
   pipeline one of the five other kernels takes keeps its kernel.
 - Parity: C1-C8 (``torch_composed_cases``) built with the JAX factories and
   carried across with ``from_jax``: ``composed_reference`` within 1e-4 of the
@@ -78,14 +80,14 @@ def _refused():
         "resize_of_a_batched_image": (T.resize(T.image(stack), T.Size(15, 10)),),
         "resize_of_a_crop_of_a_batched_image": (
             T.resize(T.crop(T.image(stack), T.Rect(1, 1, 20, 10)), T.Size(15, 10)),),
-        "a_batch_of_resizes": (T.batch_read([T.resize(T.image(img), T.Size(8, 8))] * 2),
-                               T.split_tensor()),
-        "a_batch_of_crops_with_used_planes": (
-            T.batch_read([T.crop(T.image(img), T.Rect(0, 0, 8, 8))] * 3, used_planes=2,
-                         default=0.0), T.split_tensor()),
-        "a_batch_of_crops_of_fused_reads": (
-            T.batch_read([T.crop(T.fuse(T.image(img), T.multiply(2.0)), T.Rect(0, 0, 8, 8))] * 2),
+        "a_batch_of_planes_of_two_structures": (
+            T.batch_read([T.resize(T.image(img), T.Size(8, 8)),
+                          T.resize(T.crop(T.image(img), T.Rect(1, 1, 20, 10)), T.Size(8, 8))]),
             T.split_tensor()),
+        "a_batch_of_resizes_of_resizes": (
+            T.batch_read([T.resize(T.resize(T.image(img), T.Size(30, 20)), T.Size(8, 8))] * 2),
+            T.split_tensor()),
+        "a_batch_of_batched_images": (T.batch_read([T.image(stack)] * 2), T.split_tensor()),
         "a_crop_of_a_fused_read_of_a_resize": (
             T.crop(T.fuse(T.resize(T.image(img), T.Size(30, 20)), T.multiply(2.0)),
                    T.Rect(1, 1, 20, 10)),),

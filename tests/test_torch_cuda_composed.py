@@ -293,3 +293,87 @@ def test_large_launches_into_a_strided_unaligned_view(cuda, name):
     assert kc.composed(a, out=view) is view
     _same(view, want)
     assert bool((storage[..., :1] == 7).all() and (storage[..., 1 + want.shape[-1]:] == 7).all())
+
+
+# --- a BatchRead of per-plane read trees: B1-B7 --------------------------------
+
+
+def _cameras(cuda, seed, h, w):
+    f = cc.cameras(seed, h, w)
+    return {"cams": [torch.from_numpy(c).to(cuda) for c in f["cams"]],
+            "big": torch.from_numpy(f["big"]).to(cuda)}
+
+
+@pytest.mark.parametrize("size", [(36, 48), (270, 480)])
+@pytest.mark.parametrize("name", cc.BATCH_NAMES)
+def test_a_batch_equals_its_plain_version(cuda, name, size):
+    """B1-B7 in one launch, each plane from its own address (the two
+    cameras read in place), bit for bit the plain version and the eager
+    path on the card."""
+    f = _cameras(cuda, 21, *size)
+    ops = cc.batch_cases(T, f)[name]
+    a, got = _launch(cuda, ops)
+    assert [s.data_ptr() for s in a.srcs] == [c.data_ptr() for c in f["cams"]] or name[:2] == "b6"
+    _same(got, kc.composed_reference(a))
+    _same(got, T.execute_operations(*ops, backend=T.ParBackend.TORCH))
+
+
+@pytest.mark.parametrize("default", [-1.5, 300.7, float("nan"), (7.0, 260.0, -3.0)])
+@pytest.mark.parametrize("used", [0, 2, 5, 8, -1])
+def test_a_ragged_batch_holds_the_default(cuda, used, default):
+    """B6's crops stored as read (uint8) and B2's resizes through the chain
+    (float32): planes from used_planes on hold the default, cast to the read
+    value's dtype, bit for bit the plain version and the eager path."""
+    f = _cameras(cuda, 22, 36, 48)
+    cases = cc.batch_cases(T, f, used=used, default=default)
+    for ops in ((cases["b6_crops_of_a_frame_ragged"][0], T.write_tensor()),
+                cases["b2_cameras_resized_ragged"]):
+        a, got = _launch(cuda, ops)
+        _same(got, kc.composed_reference(a))
+        _same(got, T.execute_operations(*ops, backend=T.ParBackend.TORCH))
+
+
+def test_a_batch_is_one_launch_and_new_values_build_no_plan(cuda):
+    """Each of B1-B7 twice through execute_operations, the second call with
+    new frames, origins, angles, border value and used_planes: one launch
+    each, no plan on the second, the eager path's values bit for bit."""
+    for name in cc.BATCH_NAMES:
+        for values in (0, 1):
+            f = _cameras(cuda, 23 + values, 270, 480)
+            ops = cc.batch_cases(T, f, values)[name]
+            builds, launches = executor.PLAN_BUILDS, kc.LAUNCHES
+            got = T.execute_operations(*ops)
+            assert T.last_backend() == "cuda:composed", name
+            assert kc.LAUNCHES == launches + 1
+            if values:
+                assert executor.PLAN_BUILDS == builds, name
+            _same(got, T.execute_operations(*ops, backend=T.ParBackend.TORCH))
+
+
+@pytest.mark.parametrize("name", ["b2_cameras_resized_ragged", "b5_warps_of_crops",
+                                  "b6_crops_of_a_frame_ragged"])
+def test_a_batch_into_a_strided_unaligned_view(cuda, name):
+    f = _cameras(cuda, 25, 270, 480)
+    p = T.build_pipeline(*cc.batch_cases(T, f)[name])
+    a = kc.prepare(p, kc.build_plan(p), cuda)
+    want = kc.composed_reference(a)
+    storage = torch.full((*want.shape[:-1], want.shape[-1] + 5), 7.0, device=cuda)
+    view = storage[..., 1:1 + want.shape[-1]]
+    assert kc.composed(a, out=view) is view
+    _same(view, want)
+    assert bool((storage[..., :1] == 7).all() and (storage[..., 1 + want.shape[-1]:] == 7).all())
+
+
+def test_a_large_ragged_batch_of_crops(cuda):
+    """50 crops of 224x224 of a 4K frame, 37 used: 4 pixels a thread, the
+    held planes' groups storing the default through the chain."""
+    frame = torch.from_numpy(cc.frames(1080, 1920, 26)["big"]).to(cuda)
+    rects = [(k * 71 - 40, (k * 43) % 2000) for k in range(50)]
+    ops = (T.batch_read([T.crop(T.image(frame), T.Rect(x, y, 224, 224)) for x, y in rects],
+                        used_planes=37, default=(0.0, 255.0, 128.0)),
+           *cc.normalize(T), T.split_tensor())
+    a, got = _launch(cuda, ops)
+    assert len(a.srcs) == 1
+    assert cc.pixels_per_thread(50 * 224 * 224, _resident(cuda)) == 4
+    _same(got, kc.composed_reference(a))
+    _same(got, T.execute_operations(*ops, backend=T.ParBackend.TORCH))

@@ -1,13 +1,16 @@
-"""The composed-read kernel's cases C1-C8 at a reduced size, built with the
-factories of either package (``M`` is ``cvgpuspeedup_tpu`` or
-``cvgpuspeedup_tpu_torch``: the same names), from numpy seeds.
-``chip_smoke.py`` runs the same compositions at full width (a 1080p frame,
-a 4K one for C1 and C4, a 6K NV12 buffer for C8).
+"""The composed-read kernel's cases C1-C8 and its batches B1-B7 at a reduced
+size, built with the factories of either package (``M`` is
+``cvgpuspeedup_tpu`` or ``cvgpuspeedup_tpu_torch``: the same names), from
+numpy seeds. ``chip_smoke.py`` runs the same compositions at full width (a
+1080p frame, a 4K one for C1 and C4, a 6K NV12 buffer for C8; eight 1080p
+cameras and the 4K frame for B1-B7).
 
 ``frames(h, w)`` makes the inputs for an ``h`` x ``w`` frame (a multiple of
 6 on both sides); ``cases(M, f, values)`` the op lists, where ``values`` 1
 moves every runtime value (crop origins, the warp's angle, the border
-value) and keeps the structure, so it builds no plan.
+value) and keeps the structure, so it builds no plan. ``cameras(seed)``
+and ``batch_cases(M, f, values)`` do the same for B1-B7: five planes of
+36x48 cameras from two source arrays, plane 4 a repeat of plane 0.
 """
 
 import numpy as np
@@ -88,6 +91,66 @@ def cases(M, f: dict, values: int = 0) -> dict:
             M.resize(M.fuse(M.read_yuv(nv12), M.convert_yuv_to_rgb(out_dtype=np.uint8)),
                      M.Size(w, h)),
             M.split_tensor()),
+    }
+
+
+BATCH_NAMES = ("b1_cameras_resized", "b2_cameras_resized_ragged", "b3_rois_resized",
+               "b4_letterboxes", "b5_warps_of_crops", "b6_crops_of_a_frame_ragged",
+               "b7_bare_cameras")
+#: the source array of each of the five planes (plane 4 repeats plane 0)
+PLANE_SRC = (0, 1, 0, 1, 0)
+
+
+def cameras(seed: int = 0, h: int = 36, w: int = 48) -> dict:
+    """Two uint8 cameras (h, w, 3) and a frame of twice their sides."""
+    rng = np.random.default_rng(seed)
+    return {"cams": [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(2)],
+            "big": rng.integers(0, 256, (2 * h, 2 * w, 3), dtype=np.uint8)}
+
+
+def batch_cases(M, f: dict, values: int = 0, used=None, default=0.0) -> dict:
+    """``name -> op list`` of B1-B7 over ``f["cams"]`` (plane z reads
+    ``cams[PLANE_SRC[z]]``) and ``f["big"]``; ``values`` 1 moves every
+    runtime value (origins, angles, the border value, ``used_planes``).
+    ``used`` and ``default`` replace B2's and B6's ``used_planes`` and
+    default."""
+    cams, big = f["cams"], f["big"]
+    h, w = cams[0].shape[:2]
+    srcs = [cams[k] for k in PLANE_SRC]
+    n = len(srcs)
+    ragged = dict(used_planes=(3 - values) if used is None else used, default=default)
+    roi = [((7 * z + 3 * values) % (w - 20), (5 * z + values) % (h - 15)) for z in range(n)]
+    roi[3] = (-4 - values, 30)   # from the far edge, then clamped (dynamic_slice)
+    roi[4] = roi[0]
+    crops = [((11 * z + values) % (2 * w - 12), (13 * z) % (2 * h - 12)) for z in range(n)]
+    crops[2] = (2 * w - 5, 3 + values)  # off the frame's right edge: clamped
+    angles = [5.0 + 35.0 * z / (n - 1) + 3 * values for z in range(n)]
+    angles[4] = angles[0]
+    return {
+        "b1_cameras_resized": (M.batch_read([M.resize(M.image(s), M.Size(24, 16)) for s in srcs]),
+                               *normalize(M), M.split_tensor()),
+        "b2_cameras_resized_ragged": (
+            M.batch_read([M.resize(M.image(s), M.Size(24, 16)) for s in srcs], **ragged),
+            *normalize(M), M.split_tensor()),
+        "b3_rois_resized": (
+            M.batch_read([M.resize(M.crop(M.image(s), M.Rect(x, y, 20, 15)), M.Size(12, 12))
+                          for s, (x, y) in zip(srcs, roi)]),
+            *normalize(M), M.split_tensor()),
+        "b4_letterboxes": (
+            M.batch_read([M.make_border(M.resize(M.image(s), M.Size(24, 14)), 5, 5, 0, 0,
+                                        M.BorderMode.CONSTANT, 114 - 14 * values) for s in srcs]),
+            M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()),
+        "b5_warps_of_crops": (
+            M.batch_read([M.warp(M.crop(M.image(s), M.Rect(2 * z + values, z, 24, 18)),
+                                 rotation((12, 9), a), M.Size(24, 16))
+                          for z, (s, a) in enumerate(zip(srcs, angles))]),
+            *normalize(M), M.split_tensor()),
+        "b6_crops_of_a_frame_ragged": (
+            M.batch_read([M.crop(M.image(big), M.Rect(x, y, 12, 12)) for x, y in crops],
+                         **ragged),
+            *normalize(M), M.split_tensor()),
+        "b7_bare_cameras": (M.batch_read([M.image(s) for s in srcs]), M.convert_to(np.float32),
+                            M.write_tensor()),
     }
 
 

@@ -68,9 +68,14 @@ kernel duration of 20 launches), in microseconds:
 - its composed-read cases C1-C8 (``c1`` .. ``c8``), C1 on float32 and
   float64 twins of its 4K frame (``c1_f32``, ``c1_f64``) and C4 into a
   width of 1917, no multiple of 4 (``c4_ragged``), left out for a variant
-  whose sources have no composed kernel.
+  whose sources have no composed kernel;
+- its composed kernel's batches B1-B7 (``b1`` .. ``b7``: ``batch_read`` of
+  eight 1080p cameras' read trees, and of 50 crops of the 4K frame), left
+  out for a variant whose composed kernel takes no batch of resamples (no
+  ``plane_stride`` in its ``composed.cuh``).
 
-``cases``, a comma-separated list, times only those. The cases are
+``cases``, a comma-separated list, times only those; where it is not given,
+a file's ``"cases"`` entry (a string, not a variant) names them. The cases are
 ``chip_smoke.py``'s own functions, so the two cannot drift. Each line gives
 every round's pair, then the median and the spread (min .. max) of the
 profiler's readings (a trace that came back empty three times reads nan and
@@ -167,8 +172,10 @@ def main() -> int:
     import kernel_sass
 
     variants = json.loads(Path(sys.argv[1]).read_text())
+    listed = variants.pop("cases", None)
     rounds = int(sys.argv[2]) if len(sys.argv) >= 3 else 6
-    only = set(sys.argv[3].split(",")) if len(sys.argv) == 4 else None
+    listed = sys.argv[3] if len(sys.argv) == 4 else listed
+    only = set(listed.split(",")) if listed else None
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(42)
     frame = torch.from_numpy(rng.integers(0, 256, (cs.SRC_H, cs.SRC_W, 3), dtype=np.uint8)).to(dev)
@@ -245,7 +252,12 @@ def main() -> int:
     cases["c4_ragged"] = (kc, kc.composed, (
         cvgs.warp(cvgs.crop(cvgs.image(frame), cvgs.Rect(x, y, w, h)),
                   cs.rotation((w / 2, h / 2), 10.0, 1.0), cvgs.Size(w - 3, h)), *c4[1:]))
-    composed_names = {name for name in cases if name.startswith("c")}
+    cams = [torch.from_numpy(rng.integers(0, 256, (cs.FRAME_H, cs.FRAME_W, 3), dtype=np.uint8))
+            .to(dev) for _ in range(cs.CAMERAS)]
+    for k, ops in enumerate(cs.batch_cases(cvgs, cams, frame).values(), 1):
+        cases[f"b{k}"] = (kc, kc.composed, ops)
+    batch_names = {name for name in cases if name.startswith("b")}
+    composed_names = {name for name in cases if name.startswith(("c", "b"))}
     x64_cases = {name for name in (*cases, *batches) if name.endswith(("_i64", "_f64"))}
     launches = {}
     # host leaves onto the card once; a tensor, 64-bit ones among them, stays
@@ -269,6 +281,8 @@ def main() -> int:
         if cname in x64_cases and not (d / "source_int64.cu").exists():
             return False
         if cname in composed_names and not hasattr(_build.load(), "cvgs_composed"):
+            return False
+        if cname in batch_names and "plane_stride" not in (d / "composed.cuh").read_text():
             return False
         return cname not in pointwise_cases or hasattr(_build.load(), "cvgs_pointwise")
 
