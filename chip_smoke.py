@@ -28,7 +28,11 @@ and resized, and B1-B7 (``batch_cases``), ``batch_read`` of per-plane read
 trees: eight 1080p cameras each resized to 640x360 (B1; B2 ragged at 5),
 an 800x600 region of interest of each resized to 224x224, eight 640x640
 letterboxes, warps of 960x540 crops, 50 crops of 224x224 of the 4K frame
-ragged at 37, the bare cameras; and the batch axis of the flagship, W6, P2,
+ragged at 37, the bare cameras, and N1-N6 (``nested_cases``), two levels of
+resampling or a fused read above the core: a 1080p top view resized, the
+4K frame resized and rotated, a two-level downscale, a crop of a downscale
+resized, a letterbox of a normalized resize, eight cameras' top views
+ragged at 6; and the batch axis of the flagship, W6, P2,
 D1 and D3 sharded
 over a device mesh (``parallel/mesh.py``).
 In phases; any failure ends the run with a non-zero exit
@@ -106,7 +110,7 @@ code and no result line:
    than half the results; each kernel one launch, equal to its plain version as
    int32 bits (-0 and +0 differ), more than 0 outputs flushed to 0 and none
    subnormal; and a float64 crop of ``EDGES64`` that keeps 1e-40 and -1e-42.
-   composed in C1-C8 and B1-B7 at full width, max |diff| 0, and C1 on uint16, float16
+   composed in C1-C8, B1-B7 and N1-N6 at full width, max |diff| 0, and C1 on uint16, float16
    and float64 sources and on a float32 frame of ``EDGES32`` with a chain
    that flushes, as int32 bits, one launch each. Warp maps whose inverse
    holds -1e-39 at c01 or c10, with an infinite border channel, through
@@ -154,7 +158,8 @@ code and no result line:
    for bit the eager version on the card; B1-B7 the same way, the second
    call with new camera frames, origins, angles, border value and
    ``used_planes``, and B1 against an independent float64 resize of each
-   camera (``oracle_frame``);
+   camera (``oracle_frame``); N1-N6 the same way (new maps, crop origin,
+   border value, ``used_planes`` and N6's camera frames);
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain, and the
    kernel's duration in a ``torch.profiler`` trace of 20 launches (events
@@ -186,7 +191,8 @@ code and no result line:
    float32 NCHW copy of what the core reads (``F.interpolate``;
    ``F.affine_grid`` + ``F.grid_sample``), and for B1 K1 on the same
    cameras (``resize_batch``'s padded stack: the kernel alone, and the
-   call with the stack's copies);
+   call with the stack's copies); N1-N6 the same way, and for N3 two
+   chained ``F.interpolate`` calls on the float32 4K frame as a reference;
 6. sharding: (a) every rank of meshes of 2 and 5 (the flagship, 50 crops
    ragged at ``used_planes`` = 37) and of 2, 4 and 8 (W6; P2's ring from
    ``first`` = 3 and -5; D1 and D3) run on this card through the rank-local
@@ -672,6 +678,73 @@ def batch_cases(cvgs, cams, frame, values=0) -> dict:
             *normalize, cvgs.split_tensor()),
         "b7_bare_cameras": (cvgs.batch_read([cvgs.image(c) for c in cams]),
                             cvgs.convert_to(np.float32), cvgs.write_tensor()),
+    }
+
+
+#: N6's planes (the B-cases' cameras) and the planes it uses
+N6_PLANES, N6_USED = 8, 6
+N4_CROP, N4_DST = (480, 270, 960, 540), 224
+
+
+def top_view(w: int, h: int, k: int = 0) -> np.ndarray:
+    """A homography of a road camera's ``w`` x ``h`` frame to a top view of
+    the same size: the trapezoid the road fills widened into a rectangle;
+    ``k`` tilts it a little (a camera of its own)."""
+    unit = np.array([[1.0, -0.25 - 0.02 * k, 0.125 + 0.01 * k], [0.0, 0.7, 0.1 + 0.005 * k],
+                     [0.0, -0.4 + 0.01 * k, 1.0]])
+    return np.diag([w, h, 1.0]) @ unit @ np.diag([1.0 / w, 1.0 / h, 1.0])
+
+
+def nested_cases(cvgs, frame, hd, cams, values=0) -> dict:
+    """The composed kernel's nested cases N1-N6 at full width (a second
+    resampling node, or a fused read above the core), which phases 3 to 5
+    drive; ``values`` 1 moves every runtime value (the maps, the crop's
+    origin, the border value, ``used_planes``) and keeps the structure. N1
+    the 1080p frame to a top view (a perspective warp into 1920x1080,
+    CONSTANT 0) resized to 640x360 and normalized; N2 the 4K frame resized
+    to 1280x720 and rotated 10 degrees about its centre; N3 the 4K frame
+    resized to 1920x1080, then to 640x360 (a two-level downscale); N4 a
+    960x540 crop at (480, 270) of that 1920x1080 resized to 224x224; N5 a
+    640x640 letterbox of the 1080p frame resized to 640x360 and fused with
+    x1/255, its CONSTANT border 0.447 already normalized, no chain; N6 N1
+    of each of the eight cameras (its own homography), ``used_planes`` 6
+    (5), default 0. All planar float32."""
+    normalize = (cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract(MEAN),
+                 cvgs.divide(STD))
+    full, dst = cvgs.Size(FRAME_W, FRAME_H), cvgs.Size(*FRAME_DST)
+    persp = dict(warp_type=cvgs.WarpType.PERSPECTIVE, default=0.0)
+    mid = cvgs.Size(1280, 720)
+    x, y, w, h = N4_CROP
+    pad = (FRAME_DST[0] - FRAME_DST[1]) // 2
+    return {
+        "n1_top_view_resized": (
+            cvgs.resize(cvgs.warp(cvgs.image(hd), top_view(FRAME_W, FRAME_H, values), full,
+                                  **persp), dst),
+            *normalize, cvgs.split_tensor()),
+        "n2_resize_then_rotate": (
+            cvgs.warp(cvgs.resize(cvgs.image(frame), mid),
+                      rotation((mid.width / 2, mid.height / 2), 10.0 + 5 * values, 1.0), mid),
+            *normalize, cvgs.split_tensor()),
+        "n3_two_level_downscale": (
+            cvgs.resize(cvgs.resize(cvgs.image(frame), full), dst), *normalize,
+            cvgs.split_tensor()),
+        "n4_crop_of_a_downscale_resized": (
+            cvgs.resize(cvgs.crop(cvgs.resize(cvgs.image(frame), full),
+                                  cvgs.Rect(x + 4 * values, y - 4 * values, w, h)),
+                        cvgs.Size(N4_DST, N4_DST)),
+            *normalize, cvgs.split_tensor()),
+        "n5_letterbox_of_a_normalized_resize": (
+            cvgs.make_border(cvgs.fuse(cvgs.resize(cvgs.image(hd), dst),
+                                       cvgs.convert_to(np.float32, alpha=1 / 255.0)),
+                             pad, pad, 0, 0, cvgs.BorderMode.CONSTANT, 0.447 - 0.1 * values),
+            cvgs.split_tensor()),
+        "n6_top_views_of_8_cameras_ragged": (
+            cvgs.batch_read([cvgs.resize(cvgs.warp(cvgs.image(c), top_view(FRAME_W, FRAME_H,
+                                                                          k + values),
+                                                   full, **persp), dst)
+                             for k, c in enumerate(cams[:N6_PLANES])],
+                            used_planes=N6_USED - values, default=0.0),
+            *normalize, cvgs.split_tensor()),
     }
 
 
@@ -1754,6 +1827,14 @@ def main() -> int:
             f"{plan.dsize[0]}x{plan.dsize[1]}, source {plan.src_dtype}, "
             f"{plan.word('plane_stride')} block words a plane, used_planes "
             f"{'yes' if plan.word('used_off') >= 0 else 'no'}")
+    # the nested cases N1-N6 at full width: a second resampling node, or a
+    # fused read above the core, in one launch, equal to the plain version
+    for name, ops in nested_cases(cvgs, frame, hd, cams).items():
+        plan = check(name, *ops, kernel="composed", tol=0.0)
+        log(f"phase3 composed {name}: core {plan.core} under core2 {plan.core2}, "
+            f"{plan.n_planes} plane(s) of {plan.dsize[0]}x{plan.dsize[1]}, middle image "
+            f"{plan.word('mid_w')}x{plan.word('mid_h')}, source {plan.src_dtype}, "
+            f"{plan.word('in_n_ops')} + {plan.word('mid_n_ops')} + {plan.word('out_n_ops')} rows")
     flush = (cvgs.multiply(1.0), cvgs.subtract((1e-40, 0.0, -2e-39)), cvgs.divide(1e38))
     for tag, src in (("u16", as_dtype(torch, frame, "u16")), ("f16", as_dtype(torch, frame, "f16")),
                      ("f64", as_float64(torch, frame)), ("sub_f32", as_edges32(torch, frame))):
@@ -2156,6 +2237,37 @@ def main() -> int:
             log(f"phase4 composed path ({name}): max|diff| vs a float64 resize of each camera "
                 f"{b1_err!r}")
             assert b1_err <= ORACLE_TOL, b1_err
+
+    # the nested cases N1-N6 twice each through execute_operations, the
+    # second call with new maps, a new crop origin, border value and
+    # used_planes (N6 also new camera frames): one launch of cuda:composed
+    # per call (the count set to 0 just before), no plan on the second, bit
+    # for bit the eager version on the card, finite
+    for name in nested_cases(cvgs, frame, hd, cams):
+        kc.LAUNCHES = 0
+        builds0 = executor.PLAN_BUILDS
+        outs, backends, seen = [], [], []
+        for values, frames in ((0, cams), (1, cams_next)):
+            ops = nested_cases(cvgs, frame, hd, frames, values)[name]
+            outs.append(drive("composed", lambda: cvgs.execute_operations(*ops)))
+            backends.append(cvgs.last_backend())
+            seen.append((kc.LAUNCHES, executor.PLAN_BUILDS))
+        torch.cuda.synchronize()
+        composed_launches += kc.LAUNCHES
+        ops1 = nested_cases(cvgs, frame, hd, cams_next, 1)[name]
+        forced = cvgs.describe_backend(*ops1, backend=cvgs.ParBackend.CUDA)
+        eager = cvgs.execute_operations(*ops1, backend=cvgs.ParBackend.TORCH)
+        same = torch.equal(outs[1].view(torch.int32), eager.view(torch.int32))
+        moved = not torch.equal(outs[0], outs[1])
+        log(f"phase4 composed path ({name}): backends {backends}, under ParBackend.CUDA {forced}; "
+            f"launches {seen[0][0]} {seen[1][0]}; plan builds {builds0} -> {seen[0][1]} -> "
+            f"{seen[1][1]}; {tuple(outs[1].shape)} {outs[1].dtype}; equal to eager torch {same}; "
+            f"new values moved the output {moved}")
+        assert backends == ["cuda:composed"] * 2 and forced == "cuda:composed", (backends, forced)
+        assert (seen[0][0], seen[1][0]) == (1, 2), seen
+        assert seen[0][1] <= builds0 + 1 and seen[1][1] == seen[0][1], (builds0, seen)
+        assert same and bool(torch.isfinite(outs[1]).all())
+        assert moved == (name[:2] != "n3"), (name, moved)
 
     # 64-bit values are int32 and float32 where they enter, as in the
     # reference (64-bit values off): an int64 or a float64 frame on the card
@@ -2994,6 +3106,57 @@ def main() -> int:
             f"copies a call; execute_operations host-inclusive {t['call_ms'] * 1e3:.2f} us/call "
             f"(median of 30){k1_text}")
 
+    # the nested cases N1-N6 the same way: kernel vs plain version, bound,
+    # floor, the eager path it replaces (one launch per op); no one library
+    # call reads two levels, so library_ms is null; for N3 alone, as a
+    # reference, two chained F.interpolate calls on a float32 NCHW copy of
+    # the 4K frame (made before timing)
+    n_times = {}
+    for name, ops in nested_cases(cvgs, frame, hd, cams).items():
+        pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: as_device_tensor(v, dev))
+        nargs = kc.prepare(pipe, kc.build_plan(pipe), dev)
+        t = measure(lambda: kc.composed(nargs), lambda: kc.composed_reference(nargs), 50,
+                    what=name, plain_iters=5)
+        t.update(bounds.bound(*kc.work(nargs), bandwidth))
+        t["max_abs_err"] = case_err[name]
+        t["library_ms"] = t["library_profiler_ms"] = None
+        if name == "n3_two_level_downscale":
+            nchw = frame.permute(2, 0, 1)[None].float().contiguous()
+
+            def two_interpolates():
+                half = F.interpolate(nchw, size=(FRAME_H, FRAME_W), mode="bilinear",
+                                     align_corners=False)
+                return F.interpolate(half, size=(FRAME_DST[1], FRAME_DST[0]), mode="bilinear",
+                                     align_corners=False)
+
+            t["two_interpolates_ms"] = float(np.median(time_cuda(two_interpolates, iters=50)))
+            t["two_interpolates_profiler_ms"] = profiler_ms(two_interpolates,
+                                                            what="two F.interpolate")
+            del nchw
+        eager = lambda: executor.run_pipeline(pipe, cvgs.ParBackend.TORCH)  # noqa: E731
+        t["eager_ms"] = float(np.median(time_cuda(eager, iters=10)))
+        t["eager_profiler_ms"] = profiler_ms(eager, calls=5, what=f"{name} eager")
+        t["eager_launches"], t["eager_copies"] = eager_launches(eager)
+        whole = []
+        for _ in range(40):
+            t0 = time.perf_counter()
+            cvgs.execute_operations(*ops)
+            torch.cuda.synchronize()
+            whole.append(time.perf_counter() - t0)
+        t["call_ms"] = float(np.median(whole[10:])) * 1e3
+        assert cvgs.last_backend() == "cuda:composed"
+        n_times[name] = t
+        ref_text = ""
+        if "two_interpolates_ms" in t:
+            ref_text = (f"; two chained F.interpolate on the float32 frame (a reference, not "
+                        f"one library call) {t['two_interpolates_ms'] * 1e3:.2f} us by events, "
+                        f"{t['two_interpolates_profiler_ms'] * 1e3:.2f} us by torch.profiler")
+        log(f"phase5 composed {name}: {describe(t)}; the eager path (ParBackend.TORCH) "
+            f"{t['eager_ms'] * 1e3:.2f} us by events, {t['eager_profiler_ms'] * 1e3:.2f} us by "
+            f"torch.profiler, {t['eager_launches']:.0f} kernels and {t['eager_copies']:.0f} "
+            f"copies a call; execute_operations host-inclusive {t['call_ms'] * 1e3:.2f} us/call "
+            f"(median of 30){ref_text}")
+
     # an int64 frame through a 3-op chain, which ran eagerly (one launch per
     # op) until int64 became int32 where it enters: one launch of the
     # pointwise kernel, which reads it at load, beside the same chain on the
@@ -3326,7 +3489,7 @@ def main() -> int:
         # jitted XLA program for composed reads
         entry("composed", "composed.cu", "cvgpuspeedup_tpu/exec/executor.py:243",
               composed_launches, c_times["c1_roi_crop_resize"], cases=c_times,
-              batch_cases=b_times),
+              batch_cases=b_times, nested_cases=n_times),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

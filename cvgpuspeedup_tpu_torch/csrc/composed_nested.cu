@@ -1,0 +1,82 @@
+// A second resampling node, or a fused read above the core, in one launch:
+// the composed-read kernel's nested instances (composed_nested.cuh), here
+// those of uint8 images and the C entry.
+//
+// Replaces, as composed.cu does, the one jitted XLA program that
+// cvgpuspeedup_tpu/exec/executor.py (_compiled) builds for a read tree no
+// Pallas kernel takes: ResizeRead.lower (ops/resize.py) and WarpRead.lower
+// (ops/warp.py) lower any read-op source, so a top view resized to a
+// detector's input (resize(warp)), a working frame rotated (warp(resize)),
+// a two-level downscale (resize(resize)), a region of interest of a
+// downscaled frame (resize(crop(resize))) and a letterbox whose pad value is
+// already normalized (make_border(fuse(resize, convert_to))) run there as
+// one fused program; batch_read of such planes (surround-view top views,
+// ragged) too.
+//
+// What bounds it: the second level's taps each evaluate the core (1 to 4
+// core values a pixel, each 1 to 4 base taps), so the float32 operations
+// and the taps' loads per pixel, until a block stages its footprint of the
+// core's output in shared memory (ROADMAP §2).
+//
+// Instances: {uint8 here, float32/int32 (composed_nested_f32.cu), NV12/NV21
+// (composed_nested_nv12.cu), the six other source types
+// (composed_nested_any.cu)} x {a second resampling node, a FusedRead2
+// alone}: 8, in four files built in parallel.
+
+#include "composed_nested.cuh"
+
+// Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
+// The arguments are cvgs_composed's (composed.cu), but `head` points at the
+// kNestedWords host words of a CmNested.
+extern "C" int cvgs_composed_nested(const void* src, const int* head, float ys, float cs,
+                                    float rv, float gu, float gv, float bu, const int* blk,
+                                    const int* consts, int n_planes, int dst_w, int dst_h,
+                                    void* out, int out_type, int out_ch, int store_op,
+                                    long long sn, long long sc, long long sy, long long sx,
+                                    void* stream) {
+  kc::CmNested n;
+  std::memcpy(&n, head, sizeof(kc::CmNested));
+  const CmHead& h = n.h;
+  const PwHead& b = h.lower;
+  const PwHead* lists[] = {&h.lower, &h.upper, &h.outer, &n.above, &n.below};
+  bool stages_ok = true;
+  for (const PwHead* l : lists) {
+    stages_ok = stages_ok && l->n_stages >= 0 && l->n_stages <= kMaxStages;
+  }
+  if (!stages_ok || (h.core != CM_RESIZE && h.core != CM_WARP) || n.core2 < CM_NONE ||
+      n.core2 > CM_WARP || h.plane_stride < 0 || h.used_off < -1 ||
+      (h.used_off >= 0) != (h.default_off >= 0) || (!h.batch && n_planes != 1) || n_planes < 1 ||
+      n_planes > 65535 || dst_w < 1 || dst_h < 1 || out_ch < 1 || out_ch > kMaxCh ||
+      out_type < PW_U8 || out_type > PW_I32 || b.base < PW_IMAGE || b.base > PW_YUV ||
+      b.base == PW_CIRC || b.src_type < PW_U8 || b.src_type > PW_F64 || b.nch < 1 ||
+      b.nch > kMaxCh || b.src_h < 1 || b.src_w < 1 ||
+      (b.base == PW_YUV && (b.src_type != PW_U8 || b.nch != 3)) || (b.conv_first && b.nch != 3) ||
+      h.tap_ch < 1 || h.tap_ch > kMaxCh || h.tap_type < PW_U8 || h.tap_type > PW_I32 ||
+      h.core_type < PW_U8 || h.core_type > PW_I32 || h.in_n_ops < 0 || h.out_n_ops < 0 ||
+      h.core_h < 1 || h.core_w < 1 || h.in_h < 1 || h.in_w < 1 || n.mid_ch < 1 ||
+      n.mid_ch > kMaxCh || n.mid_type < PW_U8 || n.mid_type > PW_I32 || n.mid_n_ops < 0 ||
+      n.core2_h < 1 || n.core2_w < 1 || n.mid_h < 1 || n.mid_w < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Conv conv{b.limited, 0, ys, cs, rv, gu, gv, bu};
+  const cvgs::ComposedArgs a{src, head, conv, blk, consts, n_planes, dst_w, dst_h, out, out_type,
+                             out_ch, store_op, sn, sc, sy, sx, 1,
+                             static_cast<cudaStream_t>(stream)};
+  // one instance per kind of source: every source type is a case by name
+  if (b.base == PW_YUV) {
+    cvgs::composed_nested_nv12(a);
+  } else {
+    switch (b.src_type) {
+      case PW_U8: kc::launch_nested<uint8_t>(a); break;
+      case PW_F32:
+      case PW_I32: cvgs::composed_nested_f32(a); break;
+      case PW_I8:
+      case PW_U16:
+      case PW_I16:
+      case PW_F16:
+      case PW_I64:
+      case PW_F64: cvgs::composed_nested_any(a); break;
+    }
+  }
+  return (int)cudaGetLastError();
+}

@@ -202,6 +202,10 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
                     p,                         # stream
                 ]
                 lib.cvgs_composed.restype = ctypes.c_int
+            if csrc_dir is None or hasattr(lib, "cvgs_composed_nested"):
+                # a nested plan's head: its CmNested words; the rest as above
+                lib.cvgs_composed_nested.argtypes = lib.cvgs_composed.argtypes
+                lib.cvgs_composed_nested.restype = ctypes.c_int
             lib.cvgs_error_string.argtypes = [ctypes.c_int]
             lib.cvgs_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -9,10 +9,13 @@ computes a pipeline whose read is, from the output inwards,
 
     read   := plane | BatchRead(plane, ..., [used_planes, default])
     plane  := outer* core
+            | outer* [Resample2] above* [FusedRead2] below* Resample(inner)
+                                                     (Resample2 or FusedRead2)
     outer  := CropRead | BorderRead                  (<= MAX_STAGES)
-    core   := ResizeRead(inner) | WarpRead(inner) | inner
+    core   := Resample(inner) | inner
     inner  := upper* [FusedRead] lower* base         (<= MAX_STAGES crops
-              and borders in all)
+              and borders in all; so above* and below*)
+    Resample, Resample2 := ResizeRead | WarpRead
     base   := ImageRead of one frame | ReadYUV
 
 then the pointwise chain and any write. A ``BatchRead`` (the reference's
@@ -24,20 +27,27 @@ coefficients, chain scalars). Its planes ``z >= used_planes`` hold
 ``default`` cast to the read value's dtype. A one-frame read with no
 resampling node is the kernel's only with a ``FusedRead`` below a stage;
 every other such tree is the pointwise kernel's (a ``BatchRead``'s planes
-may be bare bases). What stays eager, and why (``_tree`` names each):
+may be bare bases). A plane with a second level above the core (a second
+resampling node, ``resize(warp)``, ``warp(resize)``, ``resize(resize)``,
+``resize(crop(resize))``, or a fused read above the core,
+``make_border(fuse(resize(..), op))``) is a *nested* plan (``core2``): its
+own kernel instances (``csrc/composed_nested.cuh``) evaluate the inner
+core at each tap of the second level. What stays eager, and why (``_plane``
+names each):
 
-- a second resampling node (``resize(warp)``, ``warp(resize)``,
-  ``resize(resize)``, a resample of a crop of a resample): the kernel has
-  one core;
-- a ``FusedRead`` above the core (``crop(fuse(resize(..), op))``), or a
-  second one under it: one fused chain runs per tap, below the core;
+- a third resampling node (``resize(warp(resize))``): the kernel nests two;
+- a second ``FusedRead`` in one section (between two resampling nodes,
+  under the core, or above a core with no resampling node): one fused chain
+  runs per tap of each level;
 - a batched image under a resample or in a ``BatchRead`` plane: a plane
   reads one frame;
 - a ``BatchRead`` whose planes differ in structure, or of a
   ``BatchRead``, a ring or another read: a plane's words are shared;
-- more than ``MAX_STAGES`` crops and borders above, or below, the core;
+- more than ``MAX_STAGES`` crops and borders above the core, between two
+  resampling nodes, or below the core;
 - the float ``FusedRead`` of NV12 that the full-frame kernel resizes
-  commuted; uint32 and bool sources.
+  commuted (also as the inner core of a nested tree); uint32 and bool
+  sources.
 
 Semantics, each as the eager lowering computes it:
 
@@ -53,16 +63,25 @@ Semantics, each as the eager lowering computes it:
   ``FusedRead`` 's chain per tap; an upper CONSTANT border gives its value
   cast to the chain's dtype without the chain; a resample then reads the
   value as float32;
-- the outer stages walk each output pixel's position into the core's output;
-  an outer CONSTANT border's value is cast to the core's dtype;
+- a nested plane's second level reads the inner core's float32 output as a
+  tap reads the base: each tap of ``Resample2`` (its tap tables and edge
+  rule from its own source's size) walks the *above* stages, then the
+  *below* ones; the core's value there (or a below CONSTANT border's value
+  cast to float32) goes through ``FusedRead2``'s chain; an above CONSTANT
+  border gives its value cast to that chain's dtype without the chain; a
+  warp's tap outside its source reads the warp's border value;
+- the outer stages walk each output pixel's position into the core's output
+  (a nested plane's: the second level's); an outer CONSTANT border's value
+  is cast to the read value's dtype;
 - a ``BatchRead`` stacks its planes; a plane past ``used_planes`` reads
   nothing and holds the default; the pipeline's chain then runs on every
   plane.
 
 :func:`build_plan` turns the structure into a :class:`ComposedPlan` once:
 the head's words (three ``PwHead`` stage lists and the core's fields, all
-of one plane), the two op tables and a resize's tap tables, and the block's
-layout. Runtime values ride one int32 block per call and key no plan: a
+of one plane; a nested plan's two more stage lists and the second level's
+fields after them), the op tables and the resizes' tap tables, and the
+block's layout. Runtime values ride one int32 block per call and key no plan: a
 batch's source addresses, then each plane's values (crop origins, border
 values, warp coefficients and border, the fused chain's scalars) at a
 stride of ``plane_stride`` words (the head holds plane 0's offsets), then
@@ -120,6 +139,12 @@ _CORE_WORDS = ("core", "core_h", "core_w", "in_h", "in_w", "keep_edge", "persp",
                "in_ops_off", "in_fp_off", "out_n_ops", "out_ops_off", "out_fp_off", "plane_stride",
                "used_off", "default_off")
 assert len(_CORE_WORDS) == HEAD_INTS - 3 * kp.HEAD_INTS
+#: a nested plan's second level, after its head's two more stage lists
+#: (above, below): csrc/composed_nested.cuh::CmNested
+_MID_WORDS = ("core2", "core2_h", "core2_w", "mid_h", "mid_w", "keep_edge2", "persp2",
+              "coef2_off", "border2_off", "taps2_off", "mid_type", "mid_ch", "mid_n_ops",
+              "mid_ops_off", "mid_fp_off")
+NESTED_INTS = HEAD_INTS + 2 * kp.HEAD_INTS + len(_MID_WORDS)
 _N_COEFFS = 9  # block words of a warp's coefficients; an affine map uses 6
 _CONSTANT, _REFLECT, _REFLECT_101, _WRAP = (BORDER_MODES[m] for m in (
     BorderMode.CONSTANT, BorderMode.REFLECT, BorderMode.REFLECT_101, BorderMode.WRAP))
@@ -129,12 +154,21 @@ _CONSTANT, _REFLECT, _REFLECT_101, _WRAP = (BORDER_MODES[m] for m in (
 class _Plane:
     """One plane's read taken apart: the stages outermost first in each list."""
 
-    outer: List              # stages above the core
+    outer: List              # stages above the core (a nested plane's: above core2)
     core: object             # the ResizeRead or WarpRead; None for one pixel
     upper: List              # stages between the core and the FusedRead
     fused: object            # the FusedRead, or None
     lower: List              # stages between the FusedRead (else the core) and the base
     base: object             # the ImageRead or ReadYUV
+    core2: object = None     # a nested plane's Resample2, or None
+    above: List = dataclasses.field(default_factory=list)  # between core2 and fused2
+    fused2: object = None    # a nested plane's FusedRead2, or None
+    below: List = dataclasses.field(default_factory=list)  # between fused2 (else core2), core
+
+    @property
+    def nested(self) -> bool:
+        """A second level above the core: a Resample2 or a FusedRead2."""
+        return self.core2 is not None or self.fused2 is not None
 
 
 @dataclasses.dataclass
@@ -154,24 +188,46 @@ def _names(read) -> str:
     return type(read).__name__ + (f"({_names(inner)})" if isinstance(inner, ReadOp) else "")
 
 
+def _section(read):
+    """``(upper, fused, lower, node)``: the crops and borders of a read, the
+    ``FusedRead`` under them (or None) and those under it, and the read
+    under them all; with no ``FusedRead`` every stage is ``lower``."""
+    upper, node = _stages(read)
+    if not isinstance(node, FusedRead):
+        return [], None, upper, node
+    lower, base = _stages(node.read)
+    return upper, node, lower, base
+
+
 def _plane(read, batch: bool) -> _Plane:
     """One plane's read taken apart; raises :class:`Unsupported` saying why
     the kernel cannot read it."""
+    resample = (ResizeRead, WarpRead)
     outer, node = _stages(read)
-    core = node if isinstance(node, (ResizeRead, WarpRead)) else None
-    upper, node = _stages(node.source) if core is not None else ([], node)
-    fused = node if isinstance(node, FusedRead) else None
-    lower, base = _stages(fused.read) if fused is not None else (upper, node)
-    if fused is None:
-        upper = []
+    core2 = fused2 = None
+    above: List = []
+    below: List = []
+    if isinstance(node, resample):
+        core = node
+        upper, fused, lower, base = _section(node.source)
+        if isinstance(base, resample):  # a second resampling node
+            core2, above, fused2, below, core = core, upper, fused, lower, base
+            upper, fused, lower, base = _section(core.source)
+    elif isinstance(node, FusedRead) and isinstance(_stages(node.read)[1], resample):
+        # a FusedRead above the core
+        fused2 = node
+        below, core = _stages(node.read)
+        upper, fused, lower, base = _section(core.source)
+    else:
+        core = None
+        upper, fused, lower, base = _section(node)
     if isinstance(base, FusedRead):
-        raise Unsupported("more than one FusedRead under the core: one fused chain runs per tap")
-    if isinstance(base, (ResizeRead, WarpRead)):
-        if core is None:
-            raise Unsupported(f"a FusedRead above a {type(base).__name__}: the fused chain runs "
-                              "per tap, below the resample")
-        raise Unsupported(f"a second resampling node, a {type(base).__name__} under the "
-                          f"{type(core).__name__}: the kernel has one core")
+        raise Unsupported("a second FusedRead in one section: one fused chain runs per tap of "
+                          "each level")
+    if isinstance(base, resample):
+        raise Unsupported(f"a third resampling node, a {type(base).__name__} under the "
+                          f"{type(core).__name__} under the {type(core2).__name__}: the kernel "
+                          "nests two")
     if isinstance(base, BatchRead):
         raise Unsupported("a BatchRead inside a read: a plane reads one frame")
     if not isinstance(base, (ImageRead, ReadYUV)):
@@ -181,7 +237,7 @@ def _plane(read, batch: bool) -> _Plane:
                           "the pointwise kernel's")
     if isinstance(base, ImageRead) and base.is_batch:
         raise Unsupported("a batched ImageRead is not one frame")
-    return _Plane(outer, core, upper, fused, lower, base)
+    return _Plane(outer, core, upper, fused, lower, base, core2, above, fused2, below)
 
 
 def _one_structure(read: BatchRead) -> None:
@@ -289,17 +345,44 @@ class ComposedPlan:
     conv: Tuple[float, ...]  # (ys, cs, rv, gu, gv, bu) of the FusedRead's leading YUV -> RGB
     tables: np.ndarray       # int32: the FusedRead's op table, the pipeline's, the tap tables
     n_block: int             # words of the block
+    #: a nested plan's second level: "resize", "warp" or "none" (a FusedRead2
+    #: alone); "" for a plan of one level
+    core2: str = ""
+    mid_dtype: torch.dtype = torch.float32  # a second-level tap's dtype after FusedRead2's chain
     #: per-device copies of the tables; the head as a ctypes array
     device_consts: Dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def word(self, name: str) -> int:
-        """A core word of the head by its name in ``_CORE_WORDS``."""
-        return self.head[3 * kp.HEAD_INTS + _CORE_WORDS.index(name)]
+        """A word of the head by its name in ``_CORE_WORDS`` or, for a
+        nested plan, ``_MID_WORDS``."""
+        if name in _CORE_WORDS:
+            return self.head[3 * kp.HEAD_INTS + _CORE_WORDS.index(name)]
+        return self.head[HEAD_INTS + 2 * kp.HEAD_INTS + _MID_WORDS.index(name)]
 
     def stage_list(self, k: int):
-        """The stages of list ``k`` (0 lower, 1 upper, 2 outer) as 8-tuples."""
-        w = self.head[k * kp.HEAD_INTS:(k + 1) * kp.HEAD_INTS]
+        """The stages of list ``k`` (0 lower, 1 upper, 2 outer; a nested
+        plan's 3 above and 4 below) as 8-tuples."""
+        at = k * kp.HEAD_INTS if k < 3 else HEAD_INTS + (k - 3) * kp.HEAD_INTS
+        w = self.head[at:at + kp.HEAD_INTS]
         return [tuple(w[12 + 8 * s:20 + 8 * s]) for s in range(w[9])]
+
+    def level(self, k: int) -> "_Level":
+        """The resampling node of level ``k``: 0 the core, 1 a nested plan's
+        second level."""
+        names = (("core_h", "core_w", "in_h", "in_w", "keep_edge", "persp", "coef_off",
+                  "border_off", "taps_off", "tap_ch") if k == 0 else
+                 ("core2_h", "core2_w", "mid_h", "mid_w", "keep_edge2", "persp2", "coef2_off",
+                  "border2_off", "taps2_off", "mid_ch"))
+        return _Level(self.core if k == 0 else self.core2, *(self.word(n) for n in names))
+
+    @property
+    def value_dtype(self) -> torch.dtype:
+        """The read value's dtype, to which an outer CONSTANT border's value
+        and a held plane's default are cast: a resample's float32, else the
+        dtype of the fused chain under the outer stages."""
+        if (self.core2 or self.core) != "none":
+            return torch.float32
+        return self.mid_dtype if self.core2 else self.tap_dtype
 
     def consts(self, device: torch.device) -> torch.Tensor:
         c = self.device_consts.get(device)
@@ -310,8 +393,28 @@ class ComposedPlan:
     def head_words(self):
         c = self.device_consts.get("head")
         if c is None:
-            c = self.device_consts["head"] = (ctypes.c_int * HEAD_INTS)(*self.head)
+            c = self.device_consts["head"] = (ctypes.c_int * len(self.head))(*self.head)
         return c
+
+
+@dataclasses.dataclass(frozen=True)
+class _Level:
+    """One resampling node's words: its kind ("resize", "warp", "none"),
+    output and source sizes, edge rule, map kind, block offsets of a warp's
+    coefficients and border, consts offset of a resize's tap tables, and the
+    channels of its taps."""
+
+    core: str
+    core_h: int
+    core_w: int
+    in_h: int
+    in_w: int
+    keep: int
+    persp: int
+    coef_off: int
+    border_off: int
+    taps_off: int
+    ch: int
 
 
 def _table(ops: np.ndarray, ch: int) -> np.ndarray:
@@ -319,6 +422,36 @@ def _table(ops: np.ndarray, ch: int) -> np.ndarray:
     row's channel count (``cuda_pointwise.PointwisePlan.consts``)."""
     row_ch, _ = kp.row_channels(ops, ch)
     return np.concatenate([ops.reshape(-1), np.zeros(1, np.int32), row_ch]).astype(np.int32)
+
+
+def _resample(node, src_h: int, src_w: int, ch: int):
+    """``(kind, out_h, out_w, keep_edge, persp, taps)`` of a resampling node
+    over a source of ``src_h`` x ``src_w`` whose taps hold ``ch`` channels
+    (a resize's edge rule and tap tables from that size); ``node`` None is
+    one pixel of the source."""
+    taps = np.zeros(0, np.int32)
+    if isinstance(node, ResizeRead):
+        if node.interp != InterpolationType.INTER_LINEAR:
+            raise Unsupported(f"interpolation {node.interp}")
+        if node._commuted_source() is not None:
+            raise Unsupported("the float FusedRead of NV12 is resized commuted: the full-frame "
+                              "kernel's")
+        out_w, out_h = node.dsize
+        keep = int(keeps_edge_weight(src_h, src_w, node.dsize))
+        tx, ty = axis_taps(src_w, out_w, bool(keep)), axis_taps(src_h, out_h, bool(keep))
+        taps = np.concatenate([tx[0], tx[1], ty[0], ty[1]]).astype(np.int32)
+        taps = np.concatenate([taps, np.concatenate([tx[2], ty[2]]).astype(np.float32)
+                               .view(np.int32)])
+        return "resize", out_h, out_w, keep, 0, taps
+    if isinstance(node, WarpRead):
+        out_w, out_h = node.dsize
+        persp = int(node.warp_type == WarpType.PERSPECTIVE)
+        if _size(node.coeffs) != (9 if persp else 6):
+            raise Unsupported(f"a warp of {_size(node.coeffs)} coefficients")
+        if _size(node.default) not in (1, ch):
+            raise Unsupported(f"warp border of {_size(node.default)} entries on {ch} channels")
+        return "warp", out_h, out_w, 0, persp, taps
+    return "none", src_h, src_w, 0, 0, taps
 
 
 def build_plan(pipeline) -> ComposedPlan:
@@ -336,9 +469,11 @@ def build_plan(pipeline) -> ComposedPlan:
         raise Unsupported(f"{c} channels")
     if max(h, w) >= _MAX_SIDE:
         raise Unsupported(f"a source of {w}x{h}")
-    if len(p.outer) > MAX_STAGES or len(p.upper) + len(p.lower) > MAX_STAGES:
-        raise Unsupported(f"{len(p.outer)} outer and {len(p.upper) + len(p.lower)} inner crops "
-                          f"and borders, the kernel nests {MAX_STAGES} of each")
+    if (len(p.outer) > MAX_STAGES or len(p.upper) + len(p.lower) > MAX_STAGES
+            or len(p.above) + len(p.below) > MAX_STAGES):
+        raise Unsupported(f"{len(p.outer)} outer, {len(p.above) + len(p.below)} middle and "
+                          f"{len(p.upper) + len(p.lower)} inner crops and borders, the kernel "
+                          f"nests {MAX_STAGES} of each")
     n_planes = len(t.planes)
     if not 1 <= n_planes <= _MAX_PLANES:
         raise Unsupported(f"{n_planes} planes")
@@ -356,46 +491,49 @@ def build_plan(pipeline) -> ComposedPlan:
         raise Unsupported(f"an inner image of {in_w}x{in_h}")
 
     # the core
-    keep = persp = 0
-    taps = np.zeros(0, np.int32)
-    if isinstance(p.core, ResizeRead):
-        core = "resize"
-        if p.core.interp != InterpolationType.INTER_LINEAR:
-            raise Unsupported(f"interpolation {p.core.interp}")
-        if p.core._commuted_source() is not None:
-            raise Unsupported("the float FusedRead of NV12 is resized commuted: the full-frame "
-                              "kernel's")
-        core_w, core_h = p.core.dsize
-        keep = int(keeps_edge_weight(in_h, in_w, p.core.dsize))
-        tx, ty = axis_taps(in_w, core_w, bool(keep)), axis_taps(in_h, core_h, bool(keep))
-        taps = np.concatenate([tx[0], tx[1], ty[0], ty[1]]).astype(np.int32)
-        taps = np.concatenate([taps, np.concatenate([tx[2], ty[2]]).astype(np.float32)
-                               .view(np.int32)])
-    elif isinstance(p.core, WarpRead):
-        core = "warp"
-        core_w, core_h = p.core.dsize
-        persp = int(p.core.warp_type == WarpType.PERSPECTIVE)
-        if _size(p.core.coeffs) != (9 if persp else 6):
-            raise Unsupported(f"a warp of {_size(p.core.coeffs)} coefficients")
-        if _size(p.core.default) not in (1, tap_ch):
-            raise Unsupported(f"warp border of {_size(p.core.default)} entries on {tap_ch} "
-                              "channels")
-    else:
-        core = "none"
-        core_h, core_w = in_h, in_w
+    core, core_h, core_w, keep, persp, taps = _resample(p.core, in_h, in_w, tap_ch)
     if min(core_h, core_w) < 1:
         raise Unsupported(f"an output of {core_w}x{core_h}")
     core_dtype = tap_dtype if core == "none" else torch.float32
-    outer_sizes = _sizes(p.outer, core_h, core_w)
+
+    # a nested plane's second level over the core's float32 output: the
+    # below stages, FusedRead2's chain, the above stages, Resample2
+    core2, mid_dtype, mid_ch, n_mid = "", torch.float32, tap_ch, 0
+    mid_ops, taps2 = np.zeros((0, 4), np.int32), np.zeros(0, np.int32)
+    top_h, top_w, top_dtype = core_h, core_w, core_dtype
+    if p.nested:
+        below_sizes = _sizes(p.below, core_h, core_w)
+        mid_ops, mid_dtype, mid_ch, n_mid = encode_chain(
+            tuple(p.fused2.chain) if p.fused2 is not None else (), tap_ch, dtype=torch.float32)
+        above_sizes = _sizes(p.above, *below_sizes[-1])
+        mid_h, mid_w = above_sizes[-1]
+        if max(mid_h, mid_w) >= _MAX_SIDE:
+            raise Unsupported(f"a middle image of {mid_w}x{mid_h}")
+        core2, top_h, top_w, keep2, persp2, taps2 = _resample(p.core2, mid_h, mid_w, mid_ch)
+        if min(top_h, top_w) < 1:
+            raise Unsupported(f"an output of {top_w}x{top_h}")
+        top_dtype = mid_dtype if core2 == "none" else torch.float32
+    top_ch = mid_ch
+    outer_sizes = _sizes(p.outer, top_h, top_w)
     out_h, out_w = outer_sizes[-1]
 
     # the block: a batch's source addresses (8-byte words, so first), then
-    # each plane's values, plane_stride words apart: the outer stages', the
-    # warp's coefficients and border, the upper and the lower stages', the
-    # FusedRead's chain scalars (the head holds plane 0's offsets); then the
-    # pipeline chain's scalars, used_planes and the default, and 4 zero words
+    # each plane's values, plane_stride words apart: the outer stages', a
+    # nested plane's Resample2 coefficients and border, above and below
+    # stages' and FusedRead2's chain scalars, the warp's coefficients and
+    # border, the upper and the lower stages', the FusedRead's chain scalars
+    # (the head holds plane 0's offsets); then the pipeline chain's scalars,
+    # used_planes and the default, and 4 zero words
     plane_off = 2 * n_planes if t.batch else 0
-    outer_words, pos = _stage_words(p.outer, outer_sizes, plane_off, tap_ch)
+    outer_words, pos = _stage_words(p.outer, outer_sizes, plane_off, top_ch)
+    if p.nested:
+        coef2_off = border2_off = 0
+        if core2 == "warp":
+            coef2_off, border2_off = pos, pos + _N_COEFFS
+            pos = border2_off + mid_ch
+        above_words, pos = _stage_words(p.above, above_sizes, pos, mid_ch)
+        below_words, pos = _stage_words(p.below, below_sizes, pos, tap_ch)
+        mid_fp_off, pos = pos, pos + n_mid
     coef_off = border_off = 0
     if core == "warp":
         coef_off, border_off = pos, pos + _N_COEFFS
@@ -405,31 +543,32 @@ def build_plan(pipeline) -> ComposedPlan:
     in_fp_off, pos = pos, pos + n_in
     plane_stride = pos - plane_off
     pos = plane_off + n_planes * plane_stride
-    out_ops, out_dtype, out_ch, n_out = encode_chain(t.chain, tap_ch, dtype=core_dtype)
+    out_ops, out_dtype, out_ch, n_out = encode_chain(t.chain, top_ch, dtype=top_dtype)
     out_fp_off, pos = pos, pos + n_out
     used_off = default_off = -1
     if t.used is not None:
         if _size(t.used) != 1:
             raise Unsupported(f"used_planes of {_size(t.used)} values")
-        if _size(t.default) not in (1, tap_ch):
-            raise Unsupported(f"a default of {_size(t.default)} entries on {tap_ch} channels")
+        if _size(t.default) not in (1, top_ch):
+            raise Unsupported(f"a default of {_size(t.default)} entries on {top_ch} channels")
         used_off, default_off = pos, pos + 1
-        pos = default_off + tap_ch
+        pos = default_off + top_ch
 
     layouts = kbr._LAYOUTS if t.batch else _SINGLE_LAYOUTS
     layout = layouts.get(type(pipeline.write))
     if layout is None:
         raise Unsupported(f"write {type(pipeline.write).__name__} of a "
                           f"{'batched' if t.batch else 'single'} value")
-    in_table, out_table = _table(in_ops, c), _table(out_ops, tap_ch)
-    tables = np.concatenate([in_table, out_table, taps]).astype(np.int32)
+    in_table, out_table = _table(in_ops, c), _table(out_ops, top_ch)
+    mid_table = _table(mid_ops, tap_ch) if p.nested else np.zeros(0, np.int32)
+    tables = np.concatenate([in_table, out_table, taps, mid_table, taps2]).astype(np.int32)
     kind = "yuv" if isinstance(p.base, ReadYUV) else "image"
     nv21 = int(kind == "yuv" and p.base.pixel_format == PixelFormat.NV21)
     core_words = dict(
         core=CORES.index(core), core_h=core_h, core_w=core_w, in_h=in_h, in_w=in_w,
         keep_edge=keep, persp=persp, coef_off=coef_off, border_off=border_off,
         taps_off=in_table.size + out_table.size, tap_type=TYPE_CODES[tap_dtype],
-        core_type=TYPE_CODES[core_dtype], tap_ch=tap_ch, batch=int(t.batch),
+        core_type=TYPE_CODES[top_dtype], tap_ch=tap_ch, batch=int(t.batch),
         in_n_ops=in_ops.shape[0], in_ops_off=0, in_fp_off=in_fp_off, out_n_ops=out_ops.shape[0],
         out_ops_off=in_table.size, out_fp_off=out_fp_off, plane_stride=plane_stride,
         used_off=used_off, default_off=default_off)
@@ -437,11 +576,22 @@ def build_plan(pipeline) -> ComposedPlan:
                         SRC_CODES[src_dtype], nv21, conv_first, limited, tap_ch)
             + _stage_list(len(p.upper), upper_words) + _stage_list(len(p.outer), outer_words)
             + tuple(core_words[k] for k in _CORE_WORDS))
+    if p.nested:
+        mid_ops_off = in_table.size + out_table.size + taps.size
+        mid_words = dict(
+            core2=CORES.index(core2), core2_h=top_h, core2_w=top_w, mid_h=mid_h, mid_w=mid_w,
+            keep_edge2=keep2, persp2=persp2, coef2_off=coef2_off, border2_off=border2_off,
+            taps2_off=mid_ops_off + mid_table.size, mid_type=TYPE_CODES[mid_dtype],
+            mid_ch=mid_ch, mid_n_ops=mid_ops.shape[0], mid_ops_off=mid_ops_off,
+            mid_fp_off=mid_fp_off)
+        head += (_stage_list(len(p.above), above_words) + _stage_list(len(p.below), below_words)
+                 + tuple(mid_words[k] for k in _MID_WORDS))
     return ComposedPlan(
         core=core, batch=t.batch, n_planes=n_planes, base=kind, src_dtype=src_dtype,
         src_numel=int(np.prod(tuple(data.shape))), dsize=Size(out_w, out_h), out_ch=out_ch,
         out_dtype=out_dtype, tap_dtype=tap_dtype, layout=layout,
-        head=tuple(int(v) for v in head), conv=conv, tables=tables, n_block=pos + 4)
+        head=tuple(int(v) for v in head), conv=conv, tables=tables, n_block=pos + 4,
+        core2=core2, mid_dtype=mid_dtype)
 
 
 def tap_need(wx, wy, keep: bool):
@@ -522,8 +672,17 @@ def prepare(pipeline, plan: ComposedPlan, device: torch.device) -> Launch:
     if plan.batch:
         blk.put(np.asarray([srcs[k].data_ptr() for k in plane_src], np.uint64).view(np.int32),
                 np.int32)
+    top_ch = plan.word("mid_ch") if plan.core2 else tap_ch
     for p in t.planes:
-        _put_stages(blk, p.outer, tap_ch)
+        _put_stages(blk, p.outer, top_ch)
+        if plan.core2:
+            if plan.core2 == "warp":
+                blk.put(p.core2.coeffs, np.float32, width=_N_COEFFS)
+                _put_vector(blk, p.core2.default, top_ch)
+            _put_stages(blk, p.above, top_ch)
+            _put_stages(blk, p.below, tap_ch)
+            for v in flatten(tuple(p.fused2.chain) if p.fused2 is not None else ())[1]:
+                blk.put(v, np.float32)
         if plan.core == "warp":
             blk.put(p.core.coeffs, np.float32, width=_N_COEFFS)
             _put_vector(blk, p.core.default, tap_ch)
@@ -535,7 +694,7 @@ def prepare(pipeline, plan: ComposedPlan, device: torch.device) -> Launch:
         blk.put(v, np.float32)
     if t.used is not None:
         blk.put(t.used, np.int32, width=1)
-        _put_vector(blk, t.default, tap_ch)
+        _put_vector(blk, t.default, top_ch)
     blk.put(np.zeros(4, np.int32), np.int32)
     if blk.size != plan.n_block:
         raise ValueError(f"the block holds {blk.size} words, the plan {plan.n_block}")
@@ -657,20 +816,55 @@ def _lerp(a, b, w, keep: bool):
     return torch.where(w == 0.0, a, v) if keep else v
 
 
-def _sample(r: _Reader, yc, xc, need):
-    """The core's value at its output positions (yc, xc); ``need`` masks the
-    positions whose value the output takes."""
+class _MidReader:
+    """The plain version's reads of a nested plane's second level: a tap's
+    value at positions of ``Resample2``'s source, through the above stages,
+    the below ones, the inner core's float32 output ``values`` (``(core_h,
+    core_w, tap_ch)``) and ``FusedRead2``'s chain. ``touched``, where given,
+    collects the core's positions that a result needs."""
+
+    def __init__(self, r: _Reader, values, plane: _Plane, touched=None):
+        self.plan, self.blk, self.fblk = r.plan, r.blk, r.fblk
+        self.values, self.touched = values, touched
+        dev = values.device
+        self.chain = () if plane.fused2 is None else map_leaves(
+            tuple(plane.fused2.chain), lambda v: as_device_tensor(v, dev))
+
+    def tap(self, y, x, need=None):
+        """The second level's value at positions (y, x) of Resample2's
+        source, after FusedRead2's chain, in its dtype."""
+        plan = self.plan
+        fill_up = torch.full_like(y, -1)
+        y, x, fill_up = _walk(plan.stage_list(3), self.blk, y, x, fill_up)
+        fill_lo = torch.full_like(y, -1)
+        y, x, fill_lo = _walk(plan.stage_list(4), self.blk, y, x, fill_lo)
+        if self.touched is not None:
+            read = (fill_lo < 0) & (fill_up < 0)
+            if need is not None:
+                read = read & need
+            y_, x_, read = torch.broadcast_tensors(y, x, read)
+            self.touched.append((y_[read], x_[read]))
+        v = _filled(self.values[y, x], fill_lo, self.fblk, torch.float32)
+        for o in self.chain:
+            v = o.apply(v)
+        return _filled(v, fill_up, self.fblk, plan.mid_dtype)
+
+
+def _sample(r, lv: _Level, yc, xc, need):
+    """The value of the resampling node ``lv`` at its output positions (yc,
+    xc), its taps read through ``r``; ``need`` masks the positions whose
+    value the output takes."""
     plan = r.plan
-    if plan.core == "none":
+    if lv.core == "none":
         return r.tap(yc, xc, need)
-    if plan.core == "resize":
-        cw, ch = plan.word("core_w"), plan.word("core_h")
-        t = torch.from_numpy(plan.tables[plan.word("taps_off"):]).to(yc.device)
+    if lv.core == "resize":
+        cw, ch = lv.core_w, lv.core_h
+        t = torch.from_numpy(plan.tables[lv.taps_off:]).to(yc.device)
         x0, x1 = t[:cw].long(), t[cw:2 * cw].long()
         y0, y1 = t[2 * cw:2 * cw + ch].long(), t[2 * cw + ch:2 * cw + 2 * ch].long()
-        wts = t[2 * (cw + ch):].view(torch.float32)
+        wts = t[2 * (cw + ch):2 * (cw + ch) + cw + ch].view(torch.float32)
         wx, wy = wts[:cw][xc][..., None], wts[cw:][yc][..., None]
-        keep = bool(plan.word("keep_edge"))
+        keep = bool(lv.keep)
         # with keep a weight of 0 takes the first tap alone: the second is
         # not needed (the others' lerp reads it whatever its weight)
         bits = tap_need(wx[..., 0], wy[..., 0], keep)
@@ -684,20 +878,20 @@ def _sample(r: _Reader, yc, xc, need):
     # csrc/warp.cuh::sample_warp recomputes them: the column's and the row's
     # terms as ops/warp.py::decompose_inverse_map computes them on the host
     # (float32 ops that keep a subnormal), their sum a flushed op
-    cf = r.fblk[plan.word("coef_off"):plan.word("coef_off") + _N_COEFFS]
+    cf = r.fblk[lv.coef_off:lv.coef_off + _N_COEFFS]
     fx, fy = xc.to(torch.float32), yc.to(torch.float32)
 
     def term(k):
         return dt.fadd(cf[k] * fx, cf[k + 1] * fy + cf[k + 2])
 
     sx, sy = term(0), term(3)
-    if plan.word("persp"):
+    if lv.persp:
         den = term(6)
         den = torch.where(den == 0.0, 1.0, den)
         sx, sy = dt.fdiv(sx, den), dt.fdiv(sy, den)
     x0f, y0f = dt.ffloor(sx), dt.ffloor(sy)
     wx, wy = dt.fsub(sx, x0f)[..., None], dt.fsub(sy, y0f)[..., None]
-    ih, iw = plan.word("in_h"), plan.word("in_w")
+    ih, iw = lv.in_h, lv.in_w
     vx = ((x0f >= 0) & (x0f < iw), (x0f >= -1) & (x0f < iw - 1))
     vy = ((y0f >= 0) & (y0f < ih), (y0f >= -1) & (y0f < ih - 1))
     ix = (torch.where(vx[0], x0f, 0.0).long(), torch.where(vx[1], x0f + 1, 0.0).long())
@@ -706,10 +900,40 @@ def _sample(r: _Reader, yc, xc, need):
     valid = torch.stack([vy[j] & vx[i] for j, i in order])
     v = r.tap(torch.stack([iy[j] for j, _ in order]), torch.stack([ix[i] for _, i in order]),
               valid & need).to(torch.float32)
-    off = plan.word("border_off")
-    border = r.fblk[off:off + plan.word("tap_ch")]
+    border = r.fblk[lv.border_off:lv.border_off + lv.ch]
     v = torch.where(valid[..., None], v, border)
     return dt.lerp(dt.lerp(v[0], v[1], wx), dt.lerp(v[2], v[3], wx), wy)
+
+
+def _plane_value(a: Launch, srcs, z: int, p: _Plane, yc, xc, need, touched=None, counts=None):
+    """Plane ``z``'s read value at positions (yc, xc) under the outer
+    stages: the core's, or for a nested plan the second level's over the
+    inner core's output, materialized at the core's size (the same float32
+    values the kernel computes at each tap). With ``touched`` it collects
+    the base positions the taps a result needs read, and a nested plan's
+    count of the core's positions they need into ``counts``."""
+    plan = a.plan
+    if not plan.core2:
+        return _sample(_Reader(a, srcs, z, p, touched), plan.level(0), yc, xc, need)
+    r = _Reader(a, srcs, z, p)
+    lv = plan.level(0)
+    dev = yc.device
+    yi = torch.arange(lv.core_h, device=dev)[:, None].expand(lv.core_h, lv.core_w)
+    xi = torch.arange(lv.core_w, device=dev)[None, :].expand(lv.core_h, lv.core_w)
+    every = torch.ones_like(yi, dtype=torch.bool)
+    values = _sample(r, lv, yi, xi, every)
+    used = None if touched is None else []
+    v = _sample(_MidReader(r, values, p, used), plan.level(1), yc, xc, need)
+    if touched is not None:
+        # the core's positions the second level's taps need, then the base
+        # positions their own taps read
+        mask = torch.zeros_like(every)
+        for y, x in used:
+            mask[y, x] = True
+        if counts is not None:
+            counts.append(int(mask.sum()))
+        _sample(_Reader(a, srcs, z, p, touched), lv, yi, xi, mask)
+    return v
 
 
 def _used(a: Launch) -> int:
@@ -722,9 +946,10 @@ def _used(a: Launch) -> int:
     return min(max(int(a.block[off]), 0), plan.n_planes)
 
 
-def _reference(a: Launch, touched=None):
+def _reference(a: Launch, touched=None, counts=None):
     """The plain version; with ``touched`` only the read of the planes
-    below ``used_planes``, whose base positions it collects."""
+    below ``used_planes``, whose base positions it collects (and a nested
+    plan's core positions needed per plane into ``counts``)."""
     plan = a.plan
     t = _tree(a.pipeline)
     dev = a.srcs[0].device
@@ -734,12 +959,14 @@ def _reference(a: Launch, touched=None):
     w, h = plan.dsize
     y = torch.arange(h, device=dev)[:, None].expand(h, w)
     x = torch.arange(w, device=dev)[None, :].expand(h, w)
-    core_dtype = plan.tap_dtype if plan.core == "none" else torch.float32
+    core_dtype = plan.value_dtype
     planes = []
     for z, p in enumerate(t.planes[:_used(a)] if touched is not None else t.planes):
-        r = _Reader(a, srcs, z, p, touched)
-        yc, xc, fill = _walk(plan.stage_list(2), r.blk, y, x, torch.full_like(y, -1))
-        planes.append(_filled(_sample(r, yc, xc, fill < 0), fill, r.fblk, core_dtype))
+        shift = z * plan.word("plane_stride")
+        blk, fblk = a.block.long()[shift:], a.block.view(torch.float32)[shift:]
+        yc, xc, fill = _walk(plan.stage_list(2), blk, y, x, torch.full_like(y, -1))
+        v = _plane_value(a, srcs, z, p, yc, xc, fill < 0, touched, counts)
+        planes.append(_filled(v, fill, fblk, core_dtype))
     if touched is not None:
         return None
     v = torch.stack(planes) if plan.batch else planes[0]
@@ -748,7 +975,7 @@ def _reference(a: Launch, touched=None):
         # value's dtype (ops/memory.py::BatchRead)
         blk, fblk = a.block.long(), a.block.view(torch.float32)
         off = plan.word("default_off")
-        default = dt.cast(fblk[off:off + plan.word("tap_ch")], core_dtype)
+        default = dt.cast(fblk[off:off + plan.level(1 if plan.core2 else 0).ch], core_dtype)
         z = torch.arange(plan.n_planes, device=dev).reshape(-1, 1, 1, 1)
         v = _where(z < blk[plan.word("used_off")], v, default)
     for o in map_leaves(tuple(t.chain), lambda v: as_device_tensor(v, dev)):
@@ -783,6 +1010,8 @@ def _check(a: Launch) -> None:
             raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+    if len(plan.head) != (NESTED_INTS if plan.core2 else HEAD_INTS):
+        raise ValueError("the plan's head does not match its kind")
     if a.block.numel() != plan.n_block or a.consts.numel() != plan.tables.size:
         raise ValueError("parameter block or tables do not match the plan")
     if any(s.numel() != plan.src_numel for s in a.srcs):
@@ -811,7 +1040,8 @@ def composed(a: Launch, out: Optional[torch.Tensor] = None):
     w, h = plan.dsize
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cvgs_composed(
+        entry = lib.cvgs_composed_nested if plan.core2 else lib.cvgs_composed
+        err = entry(
             a.srcs[0].data_ptr(), plan.head_words(), *plan.conv, a.block.data_ptr(),
             a.consts.data_ptr(), plan.n_planes, w, h, buf.data_ptr(), TYPE_CODES[buf.dtype],
             plan.out_ch, store_cast(plan.out_dtype, buf.dtype), sn, sc, sy, sx, stream,
@@ -856,33 +1086,39 @@ def _walk_axis(stages, blk, pos, axis: int):
 def _axis_reads(a: Launch, z: int, axis: int) -> np.ndarray:
     """The base positions one axis of a resize or one-pixel core reads for
     plane ``z``: the output positions through the outer stages, less those
-    an outer CONSTANT border fills; a resize's taps at them
-    (``bounds.axis_reads``); then through the upper and the lower stages,
-    less those a CONSTANT border there fills. A tap is read where both its
-    row and its column are, so the two axes' positions pair up."""
+    an outer CONSTANT border fills; for a nested plan, the second level's
+    resize taps at them (``bounds.axis_reads``), through the above and the
+    below stages, less those a CONSTANT border there fills; the core's
+    resize taps at them; then through the upper and the lower stages, less
+    those a CONSTANT border there fills. A tap is read where both its row
+    and its column are, so the two axes' positions pair up."""
     plan = a.plan
     blk = a.block.long().cpu()[z * plan.word("plane_stride"):]
     pos, out = _walk_axis(plan.stage_list(2), blk, torch.arange(plan.dsize[1 - axis]), axis)
     pos = np.unique(pos[~out].numpy())
-    if plan.core == "resize":
-        cw, ch = plan.word("core_w"), plan.word("core_h")
-        t = plan.tables[plan.word("taps_off"):]
-        i0, i1 = ((t[:cw], t[cw:2 * cw]) if axis
-                  else (t[2 * cw:2 * cw + ch], t[2 * cw + ch:2 * (cw + ch)]))
-        wts = t[2 * (cw + ch):].view(np.float32)
-        w = wts[:cw] if axis else wts[cw:]
-        pos = bounds.axis_reads(i0[pos], i1[pos], w[pos], bool(plan.word("keep_edge")))
-    pos = torch.from_numpy(pos)
-    out = torch.zeros(pos.shape, dtype=torch.bool)
-    for k in (1, 0):  # the upper stages, then the lower ones
-        pos, o = _walk_axis(plan.stage_list(k), blk, pos, axis)
-        out |= o
-    return np.unique(pos[~out].numpy())
+    levels = ((plan.level(1), (3, 4)),) if plan.core2 else ()
+    for lv, lists in levels + ((plan.level(0), (1, 0)),):
+        if lv.core == "resize":
+            t = plan.tables[lv.taps_off:]
+            cw, ch = lv.core_w, lv.core_h
+            i0, i1 = ((t[:cw], t[cw:2 * cw]) if axis
+                      else (t[2 * cw:2 * cw + ch], t[2 * cw + ch:2 * (cw + ch)]))
+            wts = t[2 * (cw + ch):].view(np.float32)
+            w = wts[:cw] if axis else wts[cw:cw + ch]
+            pos = bounds.axis_reads(i0[pos], i1[pos], w[pos], bool(lv.keep))
+        pos = torch.from_numpy(pos)
+        out = torch.zeros(pos.shape, dtype=torch.bool)
+        for k in lists:  # the stages above a fused read, then those below it
+            pos, o = _walk_axis(plan.stage_list(k), blk, pos, axis)
+            out |= o
+        pos = np.unique(pos[~out].numpy())
+    return pos
 
 
 def _read_sectors(a: Launch) -> int:
     """The 32-byte sectors of the base arrays that a resize or one-pixel
-    core's taps read, from the plan's tables and the block: each plane's
+    core's taps read (a nested plan's: under a resize or one-pixel second
+    level), from the plan's tables and the block: each plane's
     rows and columns (:func:`_axis_reads`) in every pairing, for the planes
     below ``used_planes`` (the others read nothing); a sector of an array
     that several planes read counts once; an NV12 tap reads a luma byte and
@@ -904,28 +1140,46 @@ def _read_sectors(a: Launch) -> int:
 def work(a: Launch) -> Tuple[int, int, int]:
     """``(output bytes, source bytes touched, float32 operations)`` of one
     launch (``utils.bounds``): the output; the 32-byte sectors of the base
-    arrays that the taps read: for a resize or one-pixel core from the
-    plan's tap tables, weights and stages (:func:`_read_sectors`), for a
-    warp from the plain version's own positions (a tap of a CONSTANT
-    border, outside a warp's source or under an outer border's fill reads
-    none, nor a resize's second tap of weight 0 under the edge rule that
-    keeps the first tap alone; an NV12 tap reads a luma byte and a chroma
+    arrays that the taps read: for resize and one-pixel levels from the
+    plan's tap tables, weights and stages (:func:`_read_sectors`), where a
+    level is a warp from the plain version's own positions (a tap of a
+    CONSTANT border, outside a warp's source or under an outer border's
+    fill reads none, nor a resize's second tap of weight 0 under the edge
+    rule that keeps the first tap alone, nor an inner tap under a second
+    level's tap that reads none; an NV12 tap reads a luma byte and a chroma
     pair; a plane past ``used_planes`` none); per output value of a plane
-    read the resample's lerps (12; a warp 8 more for its coordinates), the
-    FusedRead's rows once per tap (an NV12 conversion 7 more) and the
-    pipeline's rows; per value of a plane past ``used_planes`` the
-    pipeline's rows."""
+    read the resample's lerps (12; a warp 8 more for its coordinates) and
+    the FusedRead's rows once per tap (an NV12 conversion 7 more); for a
+    nested plan those once per value of the core that the second level's
+    taps need (:func:`_core_evals`: the least work computes each once) with
+    FusedRead2's rows, and the second level's lerps per output value read;
+    per output value the pipeline's rows."""
     plan = a.plan
     out_bytes, values = bounds.output(plan)
-    if plan.core == "warp":
+    if "warp" in (plan.core, plan.core2):
         src = _walked_sectors(a)
     else:
         src = _read_sectors(a)
-    taps = 1 if plan.core == "none" else 4
-    per_value = ({"none": 0, "resize": 12, "warp": 20}[plan.core]
-                 + taps * (plan.word("in_n_ops") + 7 * plan.head[10]) + plan.word("out_n_ops"))
+    lerps = {"none": 0, "resize": 12, "warp": 20}
+    core = lerps[plan.core] + (1 if plan.core == "none" else 4) * (
+        plan.word("in_n_ops") + 7 * plan.head[10])
     read = values // plan.n_planes * _used(a)
-    return out_bytes, src, read * max(per_value, 1) + (values - read) * plan.word("out_n_ops")
+    out_n = plan.word("out_n_ops")
+    if plan.core2:
+        per_core = plan.word("tap_ch") * (core + plan.word("mid_n_ops"))
+        return (out_bytes, src,
+                _core_evals(a) * per_core + read * lerps[plan.core2] + values * out_n)
+    return out_bytes, src, read * max(core + out_n, 1) + (values - read) * out_n
+
+
+def _core_evals(a: Launch) -> int:
+    """The positions of a nested launch's core output that the second
+    level's taps of its results need, summed over the planes read (from
+    the plain version's own walk: a tap under a CONSTANT border or outside
+    a warp's source needs none)."""
+    counts: list = []
+    _reference(a, [], counts)
+    return sum(counts)
 
 
 def _walked_sectors(a: Launch) -> int:

@@ -19,16 +19,19 @@ full-frame resize kernel (``cuda:frame_resize``), the warp kernel
 (``cuda:pointwise``: every head that reads one source pixel per output
 pixel), then the composed-read kernel (``cuda:composed``: a resize, a warp
 or a one-pixel read over crops, borders and a fused read, under crops and
-borders, and a ``BatchRead`` of such trees or of bare images whose planes
-share one structure, ragged or not), so that a pipeline is one launch. int64 and float64 values are
+borders; a second resize or warp over such a resample, or a fused read
+above it, with crops and borders between the two levels; and a
+``BatchRead`` of such trees or of bare images whose planes share one
+structure, ragged or not), so that a pipeline is one launch. int64 and float64 values are
 int32 and float32 from where they enter, as in the reference, which runs
 with 64-bit values off (``utils.dtypes.canonical_dtype``): host values are
 converted before their copy, and the kernels read a 64-bit tensor source at
 load. It takes the eager PyTorch version (one launch per op) only for what
 no kernel reads: uint32 and bool sources, chain scalars that are neither
 float32 nor float16 (an integer tensor), and read trees no kernel takes (a
-second resampling node, a batched image under a resample, a fused read above
-a resample, a ``BatchRead`` whose planes differ in structure). An
+third resampling node, a second fused read in one section, more than four
+crops and borders in one, a batched image under a resample, a
+``BatchRead`` whose planes differ in structure). An
 explicit ``ParBackend.CUDA`` raises where no kernel can run, naming each
 kernel's refusal. Nothing falls back from a failed build or launch. In
 :func:`debug_mode` every wrapper waits for its launch and raises on a CUDA

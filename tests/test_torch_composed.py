@@ -5,11 +5,15 @@ and its plain version against the JAX package and the port's eager lowering.
   card before (a resize, a warp or a one-pixel read over crops, borders and
   fused reads, under crops and borders, ``crop_batch``) is taken by
   ``cuda_composed.build_plan`` and ``executor._select(..., CUDA)`` names
-  ``cuda:composed``; a second resampling node, a batched image under a
-  resample and a ``BatchRead`` whose planes differ in structure, of a second
-  resampling node or of batched images stay ``"torch"``
-  (``test_torch_composed_batch.py`` holds the batches it takes); every
-  pipeline one of the five other kernels takes keeps its kernel.
+  ``cuda:composed``, and so is each tree with a second resampling node or a
+  fused read above the core that stayed eager before
+  (``test_torch_composed_nested.py`` holds them); a third resampling node,
+  a second fused read in one section, five stages in one, a nested resize
+  over the commuted float NV12 read, a batched image under a resample and
+  a ``BatchRead`` whose planes differ in structure or of batched images
+  stay ``"torch"`` (``test_torch_composed_batch.py`` holds the batches it
+  takes); every pipeline one of the five other kernels takes keeps its
+  kernel.
 - Parity: C1-C8 (``torch_composed_cases``) built with the JAX factories and
   carried across with ``from_jax``: ``composed_reference`` within 1e-4 of the
   reference's jitted XLA path (on the 0..255 scale), and bit for bit (as
@@ -66,9 +70,10 @@ def test_each_other_composition_takes_the_kernel(name):
     assert _backend(ops) == "cuda:composed"
 
 
-def _refused():
+def _nested_moved():
+    """The trees a second resampling node or a fused read above the core
+    kept eager until the kernel took two levels (``_plane``'s ``core2``)."""
     img = _img((36, 48, 3), 4)
-    stack = _img((2, 36, 48, 3), 5)
     m = cc.rotation((24, 18), 10.0)
     return {
         "resize_of_a_resize": (T.resize(T.resize(T.image(img), T.Size(30, 20)), T.Size(15, 10)),),
@@ -77,6 +82,39 @@ def _refused():
         "resize_of_a_crop_of_a_resize": (
             T.resize(T.crop(T.resize(T.image(img), T.Size(30, 20)), T.Rect(1, 1, 20, 10)),
                      T.Size(15, 10)),),
+        "a_batch_of_resizes_of_resizes": (
+            T.batch_read([T.resize(T.resize(T.image(img), T.Size(30, 20)), T.Size(8, 8))] * 2),
+            T.split_tensor()),
+        "a_crop_of_a_fused_read_of_a_resize": (
+            T.crop(T.fuse(T.resize(T.image(img), T.Size(30, 20)), T.multiply(2.0)),
+                   T.Rect(1, 1, 20, 10)),),
+    }
+
+
+@pytest.mark.parametrize("name", list(_nested_moved()))
+def test_the_nested_trees_that_stayed_eager_take_the_kernel(name):
+    ops = _nested_moved()[name]
+    p = T.build_pipeline(*ops)
+    plan = kc.build_plan(p)
+    assert plan.core2 == ("none" if name.startswith("a_crop") else
+                          "warp" if name.startswith("warp") else "resize")
+    assert _backend(ops) == "cuda:composed"
+    assert _backend(ops, T.ParBackend.CUDA) == "cuda:composed"
+    got = kc.run(p, plan, CPU)
+    np.testing.assert_array_equal(_arrays(got)[0],
+                                  _arrays(T.execute_operations(*ops, device="cpu"))[0])
+
+
+def _refused():
+    img = _img((36, 48, 3), 4)
+    stack = _img((2, 36, 48, 3), 5)
+    nv12 = _img((36 * 3 // 2, 48), 6)
+    m = cc.rotation((24, 18), 10.0)
+    small = T.resize(T.image(img), T.Size(30, 20))
+    crops = small
+    for k in range(5):
+        crops = T.crop(crops, T.Rect(0, 0, 29 - k, 19 - k))
+    return {
         "resize_of_a_batched_image": (T.resize(T.image(stack), T.Size(15, 10)),),
         "resize_of_a_crop_of_a_batched_image": (
             T.resize(T.crop(T.image(stack), T.Rect(1, 1, 20, 10)), T.Size(15, 10)),),
@@ -84,15 +122,24 @@ def _refused():
             T.batch_read([T.resize(T.image(img), T.Size(8, 8)),
                           T.resize(T.crop(T.image(img), T.Rect(1, 1, 20, 10)), T.Size(8, 8))]),
             T.split_tensor()),
-        "a_batch_of_resizes_of_resizes": (
-            T.batch_read([T.resize(T.resize(T.image(img), T.Size(30, 20)), T.Size(8, 8))] * 2),
-            T.split_tensor()),
         "a_batch_of_batched_images": (T.batch_read([T.image(stack)] * 2), T.split_tensor()),
-        "a_crop_of_a_fused_read_of_a_resize": (
-            T.crop(T.fuse(T.resize(T.image(img), T.Size(30, 20)), T.multiply(2.0)),
-                   T.Rect(1, 1, 20, 10)),),
         "a_uint32_source": (T.resize(T.crop(T.image(img.astype(np.uint32)), T.Rect(0, 0, 20, 10)),
                                      T.Size(15, 10)),),
+        "a_resize_of_a_warp_of_a_resize": (
+            T.resize(T.warp(small, m, T.Size(30, 20)), T.Size(15, 10)),),
+        "a_second_fused_read_between_two_resizes": (
+            T.resize(T.fuse(T.crop(T.fuse(small, T.multiply(2.0)), T.Rect(1, 1, 20, 10)),
+                            T.multiply(0.5)), T.Size(15, 10)),),
+        "five_stages_between_two_resizes": (T.resize(crops, T.Size(12, 8)),),
+        "a_nested_resize_over_the_commuted_float_nv12_read": (
+            T.resize(T.resize(T.fuse(T.read_yuv(nv12), T.convert_yuv_to_rgb(
+                out_dtype=np.float32)), T.Size(30, 20)), T.Size(15, 10)),),
+        "two_resizes_of_a_batched_image": (
+            T.resize(T.resize(T.image(stack), T.Size(30, 20)), T.Size(15, 10)),),
+        "a_batch_of_nested_planes_of_two_structures": (
+            T.batch_read([T.resize(small, T.Size(8, 8)),
+                          T.resize(T.warp(T.image(img), m, T.Size(30, 20)), T.Size(8, 8))]),
+            T.split_tensor()),
     }
 
 

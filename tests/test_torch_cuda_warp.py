@@ -215,7 +215,10 @@ def test_explicit_cuda_raises_on_a_refused_warp(cuda):
     img = _image(cuda, 96, 384)
     ok = (T.warp(img, rotation((192, 48), 10.0, 0.5), T.Size(64, 32)), T.split_tensor())
     assert T.describe_backend(*ok, backend=T.ParBackend.CUDA) == "cuda:warp"
-    refused = (T.warp(T.resize(T.image(img), T.Size(192, 48)), rotation((96, 24), 10.0, 0.5),
+    # a third resampling node: no kernel takes it (a warp of a resize is the
+    # composed kernel's)
+    inner = T.warp(T.image(img), rotation((192, 48), 5.0, 1.0), T.Size(384, 96))
+    refused = (T.warp(T.resize(inner, T.Size(192, 48)), rotation((96, 24), 10.0, 0.5),
                       T.Size(64, 32)), T.split_tensor())
     assert T.describe_backend(*refused) == "torch"
     with pytest.raises(ValueError, match="cannot run"):

@@ -154,6 +154,165 @@ def batch_cases(M, f: dict, values: int = 0, used=None, default=0.0) -> dict:
     }
 
 
+NESTED_NAMES = ("n1_top_view_resized", "n2_resize_then_rotate", "n3_two_level_downscale",
+                "n4_crop_of_a_downscale_resized", "n5_letterbox_of_a_normalized_resize",
+                "n6_top_views_of_8_cameras_ragged")
+#: the planes of N6, and the planes it uses
+N6_PLANES, N6_USED = 8, 6
+
+
+def top_view(w: int, h: int, k: int = 0) -> np.ndarray:
+    """A homography of a road camera's frame to a top view, of a ``w`` x
+    ``h`` frame into the same size: the trapezoid the road fills widened
+    into a rectangle; ``k`` tilts it a little (a camera of its own)."""
+    unit = np.array([[1.0, -0.25 - 0.02 * k, 0.125 + 0.01 * k], [0.0, 0.7, 0.1 + 0.005 * k],
+                     [0.0, -0.4 + 0.01 * k, 1.0]])
+    return np.diag([w, h, 1.0]) @ unit @ np.diag([1.0 / w, 1.0 / h, 1.0])
+
+
+def nested_frames(h: int, w: int, seed: int = 0) -> dict:
+    """A frame (h, w, 3), one of twice its sides, and N6's cameras of h x w,
+    uint8."""
+    rng = np.random.default_rng(seed)
+    return {"hd": rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+            "big": rng.integers(0, 256, (2 * h, 2 * w, 3), dtype=np.uint8),
+            "cams": [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(N6_PLANES)]}
+
+
+def nested_cases(M, f: dict, values: int = 0) -> dict:
+    """``name -> op list`` of N1-N6, two levels of resampling or a fused
+    read above the core: N1 a top view (a perspective warp, CONSTANT 0) of
+    ``f["hd"]`` resized to a third; N2 ``f["big"]`` resized to a third and
+    rotated 10 degrees about its centre; N3 ``f["big"]`` resized to half,
+    then to a sixth; N4 a crop of half of that half resized to a square;
+    N5 a letterbox of a resize of ``f["hd"]`` fused with x1/255, its border
+    value already normalized, no chain; N6 N1 of each of ``f["cams"]``, its
+    own homography, ``used_planes`` 6, default 0. ``values`` 1 moves every
+    runtime value (the maps, the crop's origin, the border value,
+    ``used_planes``) and keeps the structure."""
+    hd, big, cams = f["hd"], f["big"], f["cams"]
+    h, w = hd.shape[:2]
+    third = M.Size(w // 3, h // 3)
+    persp = dict(warp_type=M.WarpType.PERSPECTIVE, default=0.0)
+    mid = M.Size(2 * w // 3, 2 * h // 3)
+    side = h // 4
+    pad = (w // 3 - h // 3) // 2
+    return {
+        "n1_top_view_resized": (
+            M.resize(M.warp(M.image(hd), top_view(w, h, values), M.Size(w, h), **persp), third),
+            *normalize(M), M.split_tensor()),
+        "n2_resize_then_rotate": (
+            M.warp(M.resize(M.image(big), mid),
+                   rotation((mid.width / 2, mid.height / 2), 10.0 + 5 * values), mid),
+            *normalize(M), M.split_tensor()),
+        "n3_two_level_downscale": (
+            M.resize(M.resize(M.image(big), M.Size(w, h)), third), *normalize(M),
+            M.split_tensor()),
+        "n4_crop_of_a_downscale_resized": (
+            M.resize(M.crop(M.resize(M.image(big), M.Size(w, h)),
+                            M.Rect(w // 4 + values, h // 4 - values, w // 2, h // 2)),
+                     M.Size(side, side)),
+            *normalize(M), M.split_tensor()),
+        "n5_letterbox_of_a_normalized_resize": (
+            M.make_border(M.fuse(M.resize(M.image(hd), third),
+                                 M.convert_to(np.float32, alpha=1 / 255.0)),
+                          pad, pad, 0, 0, M.BorderMode.CONSTANT, 0.447 - 0.1 * values),
+            M.split_tensor()),
+        "n6_top_views_of_8_cameras_ragged": (
+            M.batch_read([M.resize(M.warp(M.image(c), top_view(w, h, k + values), M.Size(w, h),
+                                          **persp), third) for k, c in enumerate(cams)],
+                         used_planes=N6_USED - values, default=0.0),
+            *normalize(M), M.split_tensor()),
+    }
+
+
+def more_nested_cases(M, u8_border=300.0) -> dict:
+    """Other two-level trees at a small size: a warp of a warp, NV12 into
+    uint8 under a warp under a resize, CONSTANT borders above and below an
+    int32 FusedRead2, a fused gray above the core, an int16 fused read under
+    a crop under a resize under a warp, a REFLECT border between two
+    resizes, a uint8 FusedRead2 under a saturating CONSTANT border, and
+    FusedRead chains of 300 rows at either level (their tables staged in
+    chunks). ``u8_border`` is the saturating border's value: the
+    reference's lowering casts a numpy value with numpy (it wraps), a
+    device value with XLA's convert (it saturates, as the port does), so
+    the reference is given a ``jnp`` value."""
+    img, big = _img((36, 48, 3), 21), _img((72, 96, 3), 22)
+    nv12 = _img((36 * 3 // 2, 48), 23)
+    m1, m2 = rotation((24, 18), 12.0), rotation((20, 15), -8.0)
+    persp = np.array([[0.9, 0.05, 2.0], [-0.04, 1.1, 1.0], [0.001, -0.0005, 1.0]])
+    gray = M.ColorConversionCode.COLOR_RGB2GRAY
+    loop = M.static_loop(M.multiply(1.001), 300)
+    return {
+        "warp_of_a_warp": (
+            M.warp(M.warp(M.image(img), m1, M.Size(40, 30), default=(5.0, 6.0, 7.0)), m2,
+                   M.Size(32, 24), default=-3.0),
+            M.split_tensor()),
+        "resize_of_a_warp_of_nv12_to_u8": (
+            M.resize(M.warp(M.fuse(M.read_yuv(nv12), M.convert_yuv_to_rgb(out_dtype=np.uint8)),
+                            m1, M.Size(40, 30)), M.Size(20, 14)),
+            M.split_tensor()),
+        "resize_of_borders_around_a_fused_int32_resize": (
+            M.resize(M.make_border(M.fuse(M.make_border(M.resize(M.image(img), M.Size(30, 20)),
+                                                        2, 1, 3, 2, M.BorderMode.CONSTANT, -7),
+                                          M.convert_to(np.int32, alpha=70000.0)),
+                                   1, 3, 2, 1, M.BorderMode.CONSTANT, 9), M.Size(22, 17)),
+            M.convert_to(np.float32, alpha=1e-4), M.split_tensor()),
+        "crop_of_fused_gray_of_a_resize": (
+            M.crop(M.fuse(M.resize(M.image(big), M.Size(40, 30)), M.cvt_color(gray)),
+                   M.Rect(3, 4, 30, 20)),
+            M.write()),
+        "warp_of_a_resize_of_a_crop_of_a_fused_int16_read": (
+            M.warp(M.resize(M.crop(M.fuse(M.image(img), M.convert_to(np.int16, alpha=-3.0)),
+                                   M.Rect(-5, 2, 40, 30)), M.Size(33, 25)),
+                   persp, M.Size(30, 22), warp_type=M.WarpType.PERSPECTIVE, default=7.0),
+            M.split_tensor()),
+        "resize_of_a_reflect_border_of_a_resize": (
+            M.resize(M.make_border(M.resize(M.image(big), M.Size(40, 30)), 3, 3, 4, 4,
+                                   M.BorderMode.REFLECT), M.Size(21, 16)),
+            *normalize(M), M.split_tensor()),
+        "border_of_a_fused_u8_resize": (
+            M.make_border(M.fuse(M.resize(M.image(img), M.Size(20, 14)),
+                                 M.convert_to(np.uint8, alpha=1.3)),
+                          2, 2, 1, 1, M.BorderMode.CONSTANT, u8_border),
+            M.write()),
+        "resize_of_a_long_fused_chain_of_a_resize": (
+            M.resize(M.fuse(M.resize(M.image(img), M.Size(30, 20)), loop), M.Size(17, 13)),
+            M.split_tensor()),
+        "resize_of_a_resize_of_a_long_fused_chain": (
+            M.resize(M.resize(M.fuse(M.image(img), M.convert_to(np.float32), loop),
+                              M.Size(30, 20)), M.Size(17, 13)),
+            M.split_tensor()),
+    }
+
+
+#: forward maps whose inverse holds -1e-39 at c01, then at c10 (the
+#: factories invert on the host)
+SUBNORMAL_MAPS = {"c01": ((1, 1e-39, 0), (0, 1, 0)), "c10": ((1, 0, 0), (1e-39, 1, 0))}
+
+
+def subnormal_source(seed: int = 9):
+    """A float32 (1024, 40, 3) source of -3..3: -1e-39 * Y is a normal
+    float from Y = 12 on, where a flushed product is 0."""
+    return np.random.default_rng(seed).uniform(-3, 3, (1024, 40, 3)).astype(np.float32)
+
+
+def subnormal_map_cases(M, src) -> dict:
+    """A warp map with a subnormal coefficient at either level of a nested
+    read, an infinite border channel: the outer level's warp of a resize
+    (c01, then c10), and a resize of the inner level's warp."""
+    m = {k: np.array(v) for k, v in SUBNORMAL_MAPS.items()}
+    size, border = M.Size(40, 1024), (np.inf, -2.0, 5.0)
+    return {
+        **{f"warp_{k}_of_a_resize": (
+            M.warp(M.resize(M.image(src), M.Size(40, 1024)), m[k], size, default=border),
+            M.write()) for k in m},
+        **{f"resize_of_a_warp_{k}": (
+            M.resize(M.warp(M.image(src), m[k], size, default=border), M.Size(20, 512)),
+            M.write()) for k in m},
+    }
+
+
 def _img(shape, seed, dtype=np.uint8):
     return np.random.default_rng(seed).integers(0, 256, shape).astype(dtype)
 

@@ -34,7 +34,9 @@ _INSTRUCTION = re.compile(r"\s+/\*([0-9a-f]{4,6})\*/\s+(.*?);")
 _FUNCTION = re.compile(r"^\s*Function : (\S+)", re.M)
 #: float32 arithmetic, compare and min/max opcodes that take ``.FTZ``
 FTZ_OPCODES = ("FADD", "FADD32I", "FMUL", "FMUL32I", "FSETP", "FMNMX")
-#: the kernels of the library, by the name each instance's symbol holds
+#: the kernels of the library, by the name each instance's symbol holds (the
+#: composed kernel's nested instances, ``composed_kernel_nested``, count as
+#: its own)
 KERNELS = ("batch_resize_kernel", "frame_resize_kernel", "warp_kernel", "divergent_kernel",
            "pointwise_kernel", "composed_kernel")
 #: the census's one exception: a warp map's terms c*X and b*Y + c, computed

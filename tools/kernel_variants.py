@@ -72,7 +72,10 @@ kernel duration of 20 launches), in microseconds:
 - its composed kernel's batches B1-B7 (``b1`` .. ``b7``: ``batch_read`` of
   eight 1080p cameras' read trees, and of 50 crops of the 4K frame), left
   out for a variant whose composed kernel takes no batch of resamples (no
-  ``plane_stride`` in its ``composed.cuh``).
+  ``plane_stride`` in its ``composed.cuh``);
+- its composed kernel's nested cases N1-N6 (``n1`` .. ``n6``: a second
+  resampling node, or a fused read above the core), left out for a variant
+  without the nested instances (no ``cvgs_composed_nested``).
 
 ``cases``, a comma-separated list, times only those; where it is not given,
 a file's ``"cases"`` entry (a string, not a variant) names them. The cases are
@@ -257,6 +260,11 @@ def main() -> int:
     for k, ops in enumerate(cs.batch_cases(cvgs, cams, frame).values(), 1):
         cases[f"b{k}"] = (kc, kc.composed, ops)
     batch_names = {name for name in cases if name.startswith("b")}
+    # the nested cases N1-N6 (n1 .. n6): two levels of resampling, or a
+    # fused read above the core
+    for k, ops in enumerate(cs.nested_cases(cvgs, frame, hd, cams).values(), 1):
+        cases[f"n{k}"] = (kc, kc.composed, ops)
+    nested_names = {f"n{k}" for k in range(1, 7)}
     composed_names = {name for name in cases if name.startswith(("c", "b"))}
     x64_cases = {name for name in (*cases, *batches) if name.endswith(("_i64", "_f64"))}
     launches = {}
@@ -283,6 +291,8 @@ def main() -> int:
         if cname in composed_names and not hasattr(_build.load(), "cvgs_composed"):
             return False
         if cname in batch_names and "plane_stride" not in (d / "composed.cuh").read_text():
+            return False
+        if cname in nested_names and not hasattr(_build.load(), "cvgs_composed_nested"):
             return False
         return cname not in pointwise_cases or hasattr(_build.load(), "cvgs_pointwise")
 
@@ -362,7 +372,8 @@ def main() -> int:
             regs = {}
             for line in _build.BUILD_LOG.splitlines():
                 if "Compiling entry" in line:
-                    found = re.search(r"\d\d([a-z_]+_kernel)I(\w+?)EEv", line.split("'")[1])
+                    found = re.search(r"\d\d([a-z_]+_kernel(?:_nested)?)I(\w+?)EEv",
+                                      line.split("'")[1])
                     entry = f"{found.group(1)}<{found.group(2)}>" if found else line.split("'")[1]
                 if "spill" in line and "0 bytes spill stores" not in line:
                     print(f"{vname}: {entry}: {line.strip()}")
