@@ -32,15 +32,19 @@ ragged at 37, the bare cameras, and N1-N6 (``nested_cases``), two levels of
 resampling or a fused read above the core: a 1080p top view resized, the
 4K frame resized and rotated, a two-level downscale, a crop of a downscale
 resized, a letterbox of a normalized resize, eight cameras' top views
-ragged at 6; and the batch axis of the flagship, W6, P2,
+ragged at 6, and two more in phase 3 alone (``budget_nested_cases``): a
+warp at a quarter of the scale of a 1080p resize, whose blocks' footprints
+pass the staging budget (they evaluate per tap), and a 640x360 downscale
+resized back up to 1080p (a block's taps shared); and the batch axis of the flagship, W6, P2,
 D1 and D3 sharded
 over a device mesh (``parallel/mesh.py``).
 In phases; any failure ends the run with a non-zero exit
 code and no result line:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
-2. build: compile every kernel source, in parallel, into one library (timed),
-   then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
+2. build: compile every kernel source, in parallel, into one library (timed;
+   the composed kernel's nested instances' registers and spills logged on
+   their own), then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
    -sass``): in every instance of the six kernels no float32 add, multiply,
    compare or min/max without ``.FTZ`` (``-ftz=true``: the reference's
    float32 rule, ``utils/dtypes.py::flush_subnormal``) but for a warp map's
@@ -110,7 +114,10 @@ code and no result line:
    than half the results; each kernel one launch, equal to its plain version as
    int32 bits (-0 and +0 differ), more than 0 outputs flushed to 0 and none
    subnormal; and a float64 crop of ``EDGES64`` that keeps 1e-40 and -1e-42.
-   composed in C1-C8, B1-B7 and N1-N6 at full width, max |diff| 0, and C1 on uint16, float16
+   composed in C1-C8, B1-B7, N1-N6 and N7-N8 (``budget_nested_cases``, the
+   per-tap form past the staging budget and an upscale's shared taps; each
+   nested case's blocks' forms logged from ``nested_tiles``) at full width,
+   max |diff| 0, and C1 on uint16, float16
    and float64 sources and on a float32 frame of ``EDGES32`` with a chain
    that flushes, as int32 bits, one launch each. Warp maps whose inverse
    holds -1e-39 at c01 or c10, with an infinite border channel, through
@@ -748,6 +755,28 @@ def nested_cases(cvgs, frame, hd, cams, values=0) -> dict:
     }
 
 
+def budget_nested_cases(cvgs, frame) -> dict:
+    """Two nested cases at full width beside N1-N6, one for each end of the
+    nested instances' staging (``csrc/composed_nested.cuh``): the 4K frame
+    resized to 1920x1080 and warped at a quarter of its scale, rotated 10
+    degrees into 480x270 (a 16x16 block's taps span about 74 columns and
+    rows of the middle image, past the budget: its blocks evaluate the core
+    per tap), and the 4K frame resized to 640x360, then up to 1920x1080 (a
+    block's 16x16 outputs share 8 or 9 columns and rows). Planar float32."""
+    normalize = (cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract(MEAN),
+                 cvgs.divide(STD))
+    full = cvgs.Size(FRAME_W, FRAME_H)
+    m = rotation((FRAME_W / 2, FRAME_H / 2), 10.0, 0.25, to=(240, 135))
+    return {
+        "n7_quarter_scale_warp_of_a_resize": (
+            cvgs.warp(cvgs.resize(cvgs.image(frame), full), m, cvgs.Size(480, 270)),
+            *normalize, cvgs.split_tensor()),
+        "n8_upscale_of_a_downscale": (
+            cvgs.resize(cvgs.resize(cvgs.image(frame), cvgs.Size(*FRAME_DST)), full),
+            *normalize, cvgs.split_tensor()),
+    }
+
+
 # the dtypes a chain may hold beside uint8 and float32, and a scale that
 # brings a source of each to a few hundred
 NEW_DTYPES = {"i8": np.int8, "u16": np.uint16, "i16": np.int16, "f16": np.float16}
@@ -1255,9 +1284,17 @@ def main() -> int:
         log("phase2 the library was built before this run: no compiler output")
     log(f"phase2 built {_build.library_path().name} from "
         f"{', '.join(src.name for src in _build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
+    entry, nested = "", {}
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"phase2 ptxas: {line.strip()}")
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        if "composed_kernel_nested" in entry and ("registers" in line or "spill" in line):
+            nested.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+    # the composed kernel's nested instances alone: registers and spills
+    for k, (entry, lines) in enumerate(sorted(nested.items())):
+        log(f"phase2 nested instance {k} ({entry}): {'; '.join(lines)}")
     # the float32 rule in the SASS: every float32 add, multiply, compare and
     # min/max flushes subnormals (.FTZ), and the float64 load converts
     # without .FTZ, so that a copy keeps a float32 subnormal. The one
@@ -1829,12 +1866,45 @@ def main() -> int:
             f"{'yes' if plan.word('used_off') >= 0 else 'no'}")
     # the nested cases N1-N6 at full width: a second resampling node, or a
     # fused read above the core, in one launch, equal to the plain version
-    for name, ops in nested_cases(cvgs, frame, hd, cams).items():
-        plan = check(name, *ops, kernel="composed", tol=0.0)
+    # and the two at the ends of its staging; with a second resample, the
+    # form each block takes (the host's mirror of the kernel's rule,
+    # kc.nested_tiles): staged (its footprint's values evaluated once) or
+    # per tap (past the budget), or held (a plane past used_planes)
+    per_tap_blocks = {}
+    for name, ops in {**nested_cases(cvgs, frame, hd, cams),
+                      **budget_nested_cases(cvgs, frame)}.items():
+        pipeline = cvgs.build_pipeline(*ops)
+        na = kc.prepare(pipeline, kc.build_plan(pipeline), dev)
+        compare(name, "composed", kc.composed(na), kc.composed_reference(na), 0.0)
+        plan = na.plan
+        forms = ""
+        if plan.core2 != "none":
+            tiles = kc.nested_tiles(na)
+            count = {f: int((tiles[..., 0] == k).sum()) for k, f in enumerate(kc.TILE_FORMS)}
+            staged = tiles[..., 0] == kc.TILE_FORMS.index("staged")
+            pixels = staged.sum() * kc.TILE2[0] * kc.TILE2[1]
+            per_pixel = float((tiles[..., 1] * tiles[..., 2])[staged].sum() / max(pixels, 1))
+            if plan.word("stage2"):
+                per_tap_blocks[name] = count["per_tap"]
+                forms = (f"; the staging instance, blocks of {kc.TILE2[0]}x{kc.TILE2[1]}: "
+                         f"{count['staged']} staged ({per_pixel:.3f} core values a pixel of "
+                         f"theirs), {count['per_tap']} per tap past the budget, "
+                         f"{count['held']} held")
+            else:
+                forms = (f"; the per-tap instance (stage2 0: its tiles share no taps), "
+                         f"{count['per_tap']} blocks, {count['held']} held")
         log(f"phase3 composed {name}: core {plan.core} under core2 {plan.core2}, "
             f"{plan.n_planes} plane(s) of {plan.dsize[0]}x{plan.dsize[1]}, middle image "
             f"{plan.word('mid_w')}x{plan.word('mid_h')}, source {plan.src_dtype}, "
-            f"{plan.word('in_n_ops')} + {plan.word('mid_n_ops')} + {plan.word('out_n_ops')} rows")
+            f"{plan.word('in_n_ops')} + {plan.word('mid_n_ops')} + {plan.word('out_n_ops')} "
+            f"rows{forms}")
+    if not per_tap_blocks["n7_quarter_scale_warp_of_a_resize"] or \
+            per_tap_blocks["n8_upscale_of_a_downscale"]:
+        raise AssertionError(f"per-tap blocks {per_tap_blocks}: the quarter-scale warp must take "
+                             "the per-tap form, the upscale none")
+    log(f"phase3 composed: the per-tap form beyond the staging budget in "
+        f"{per_tap_blocks['n7_quarter_scale_warp_of_a_resize']} blocks of "
+        f"n7_quarter_scale_warp_of_a_resize, checked above at max|diff| 0")
     flush = (cvgs.multiply(1.0), cvgs.subtract((1e-40, 0.0, -2e-39)), cvgs.divide(1e38))
     for tag, src in (("u16", as_dtype(torch, frame, "u16")), ("f16", as_dtype(torch, frame, "f16")),
                      ("f64", as_float64(torch, frame)), ("sub_f32", as_edges32(torch, frame))):

@@ -13,15 +13,24 @@
 // one fused program; batch_read of such planes (surround-view top views,
 // ragged) too.
 //
-// What bounds it: the second level's taps each evaluate the core (1 to 4
-// core values a pixel, each 1 to 4 base taps), so the float32 operations
-// and the taps' loads per pixel, until a block stages its footprint of the
-// core's output in shared memory (ROADMAP §2).
+// What bounds it: the latency of a block's dependent steps (the tables,
+// the base taps' loads, the barriers), with 4 blocks an SM resident. With
+// a second resample that shares taps among a tile's pixels (a warp; an
+// upscale), a block of 16 x 16 outputs stages its footprint of the middle
+// image in shared memory, each value of the core there evaluated once
+// (composed_nested.cuh: 1.34 a pixel under a warp at scale 1, a sixth
+// under a 2.5x upscale); a block whose footprint passes the budget (a
+// warp's strong downscale, a fold that spreads the tile) evaluates the
+// core at each tap its pixels take, as the per-tap instance does for a
+// resize whose taps no two pixels share (1 to 4 core values a pixel).
 //
 // Instances: {uint8 here, float32/int32 (composed_nested_f32.cu), NV12/NV21
 // (composed_nested_nv12.cu), the six other source types
-// (composed_nested_any.cu)} x {a second resampling node, a FusedRead2
-// alone}: 8, in four files built in parallel.
+// (composed_nested_any.cu)} x {a second resampling node staged, the same
+// per tap, a FusedRead2 alone}: 12, in four files built in parallel. The
+// plan's stage2 word picks the staged or the per-tap instance from the
+// structure (exec/cuda_composed.py::build_plan): the per-tap one alone
+// keeps the registers that hold 4 blocks an SM resident without spills.
 
 #include "composed_nested.cuh"
 
@@ -55,7 +64,8 @@ extern "C" int cvgs_composed_nested(const void* src, const int* head, float ys, 
       h.core_type < PW_U8 || h.core_type > PW_I32 || h.in_n_ops < 0 || h.out_n_ops < 0 ||
       h.core_h < 1 || h.core_w < 1 || h.in_h < 1 || h.in_w < 1 || n.mid_ch < 1 ||
       n.mid_ch > kMaxCh || n.mid_type < PW_U8 || n.mid_type > PW_I32 || n.mid_n_ops < 0 ||
-      n.core2_h < 1 || n.core2_w < 1 || n.mid_h < 1 || n.mid_w < 1) {
+      n.core2_h < 1 || n.core2_w < 1 || n.mid_h < 1 || n.mid_w < 1 || n.stage2 < 0 ||
+      n.stage2 > 1) {
     return (int)cudaErrorInvalidValue;
   }
   const Conv conv{b.limited, 0, ys, cs, rv, gu, gv, bu};

@@ -18,17 +18,43 @@
 // the above and below stage lists and the second level's words. The 12
 // one-level instances of composed.cuh and their CmHead are untouched.
 //
-// The design is the simple one: a thread takes one output pixel, walks it
-// through the outer stages, computes Resample2's taps (host tables, or the
-// warp's coordinates recomputed from the block's coefficients over the
-// middle image) and, for each tap its result takes (one to four, in turn),
-// walks the above and then the below stages to a position of the core's
-// output and evaluates the core there with the one-level kernel's steps
-// (walk_taps, load_taps, the fused read's chain, the bilerp or the warp's
-// lerps): 1 to 16 base taps a pixel. Then FusedRead2's chain per tap, the
-// second level's lerps, the pipeline's chain and the store. Staging a
-// block's footprint of the core's output in shared memory is the later,
-// fast design (ROADMAP §2).
+// With a second resample whose taps a tile's pixels share (the plan's
+// stage2 word, from the structure: a warp; a resize upscale), the staging
+// instance (composed_kernel_nested_staged) gives a block kTile2W x kTile2H
+// outputs (one a thread) and stages its footprint of the middle image.
+// Beside the op tables'
+// staging, a resize's footprint is built per axis by one warp each (warp
+// 0 the tile's columns, warp 1 its rows): each column walked through the
+// outer stages, its taps from the Resample2 tables, their span, flags and
+// a ballot scan into a list of distinct positions and a map from a
+// position to its index (resize_axis); a warp's is the box of the taps
+// its pixels take (each thread's coordinates recomputed from the block's
+// coefficients; every warp's extremes, then the box, box_axis). Each
+// listed column and row is walked once through the above and the below
+// stages, and for a resize core its own taps from the tables through the
+// upper and the lower stages (walk_list). The block's threads evaluate
+// every grid entry, listed row x listed column, once: the core's value
+// (its base taps loaded, the fused read's chain, the bilerp or the warp's
+// lerps), FusedRead2's chain, into shared memory as float32 lanes. After a
+// barrier each thread takes its up to 4 taps from the grid through the
+// maps, then the second level's lerps, the pipeline's chain and the
+// store. Two to four barriers a block; each value of the core evaluated
+// once a block: under a 3:1 resize one a pixel, a warp at scale 1 about
+// 1.34, an upscale's taps shared (2.5x: a sixth), where each tap
+// evaluated it anew (up to 4).
+//
+// What bounds the staging: a span of a resize's taps wider than kSpan2,
+// more than kList2 positions on an axis or a grid of more than kGrid2
+// floats (a warp's strong downscale, an outer fold that spreads the tile,
+// a fold between the levels). Such a block evaluates the core at each of
+// its pixels' taps in turn (the per-tap form) on the same loop, a
+// block-uniform branch, each tap's value into the thread's slot of the
+// grid; so does every block of the per-tap instance
+// (composed_kernel_nested), which a plan whose stage2 word is 0 launches
+// (a resize whose taps no two pixels share: staged, a 3:1 downscale took
+// 1.5x as long on an H100). A held plane of a batch (z >= used_planes)
+// skips both and stores the default. The host mirrors the rule
+// (exec/cuda_composed.py::nested_tiles).
 //
 // Every rule matches exec/cuda_composed.py::composed_reference and the
 // eager lowering bit for bit: the core's value is float32 (int32 bits
@@ -37,11 +63,14 @@
 // an above one its value cast to that chain's type without the chain; a
 // warp's tap outside its source reads the warp's border value; an outer
 // CONSTANT border's value (and a held plane's default) is cast to the read
-// value's type (core_type). Numerics as composed.cu: _rn intrinsics,
-// -fmad=false, -ftz=true, a warp map's terms kept (warp.cuh::fmul_keep,
-// fadd_keep).
+// value's type (core_type). A staged value is the function of its position
+// that the per-tap form computes there. Numerics as composed.cu: _rn
+// intrinsics, -fmad=false, -ftz=true, a warp map's terms kept
+// (warp.cuh::fmul_keep, fadd_keep).
 
 #pragma once
+
+#include <climits>
 
 #include "composed.cuh"
 
@@ -70,9 +99,42 @@ struct CmNested {
   int taps2_off;         // resize: consts offset of x0 | x1 | y0 | y1 | wx | wy
   int mid_type, mid_ch;  // a second-level tap's type and channels after FusedRead2's chain
   int mid_n_ops, mid_ops_off, mid_fp_off;  // FusedRead2's chain: rows, table, scalars
+  int stage2;            // 1: a block stages its footprint where it fits; 0: per tap
 };
-constexpr int kNestedWords = kCmWords + 2 * kHeadWords + 15;
+constexpr int kNestedWords = kCmWords + 2 * kHeadWords + 16;
 static_assert(sizeof(CmNested) == kNestedWords * 4, "all int32 words");
+
+// The staging of a second resample; keep in step with
+// exec/cuda_composed.py (TILE2, SPAN2, LIST2, GRID2) and
+// tests/test_torch_composed_nested_tiling.py.
+constexpr int kTile2W = 16, kTile2H = 16;  // a block's outputs, one a thread
+static_assert(kTile2W * kTile2H == kThreads, "one output pixel a thread");
+constexpr int kSpan2 = 256;  // the widest span of one axis's taps a block flags
+constexpr int kList2 = 64;   // the most positions it lists on one axis
+constexpr int kGrid2 = 4096;  // floats of its grid: listed rows x listed columns x mid_ch
+
+// A block's footprint of the middle image and its values, in shared
+// memory; axis 0 is x, 1 is y. 21.5 KB beside the three op tables' 24.
+// In the per-tap form the grid holds each thread's four taps' values
+// instead (slot).
+struct Stage2 {
+  int n[2];               // the positions listed (-1: past the budget)
+  int lo[2];              // the first position of the span the map covers
+  int part[kThreads / 32][4];  // a warp Resample2: each warp's least and most x, then y
+  int map[2][kSpan2];     // position lo + i: its flag, then its index in the list (-1: none)
+  int pos[2][kList2];     // listed position j: in the middle image, then in the core's output
+  int fill[2][kList2];    // its first CONSTANT stage between the levels (kNone: none)
+  int tap[2][kList2][2];  // a resize core's two taps there, walked to the base
+  int tfill[2][kList2][2];  // their first CONSTANT stage under the core
+  float w[2][kList2];     // the core's weight there
+  float grid[kGrid2];     // the values, channel-planar: c * entries + row * n[0] + column
+};
+static_assert(kGrid2 >= 4 * kMaxCh * kThreads, "a slot for each thread's four taps");
+
+// Where the per-tap form keeps channel c of tap k of thread tid.
+__device__ __forceinline__ int slot(int k, int c, int tid) {
+  return (k * kMaxCh + c) * kThreads + tid;
+}
 
 // A resample's taps at its output position (yc, xc): the columns xs and the
 // rows ys of v00, v01, v10, v11 (column k & 1, row k >> 1), the weights,
@@ -86,6 +148,21 @@ struct Taps {
   float wx, wy;
   unsigned need;
 };
+
+// Whether a weight is 0 as a flushed compare finds it (-ftz=true: a
+// subnormal is 0; NaN is not), from its exponent's bits: compiled in the
+// staging instances, `w == 0.f` here came out as 8 FSETP.NEU.OR without
+// .FTZ, which chip_smoke.py's SASS census refuses.
+__device__ __forceinline__ bool zero_weight(float w) {
+  return (__float_as_uint(w) & 0x7f800000u) == 0u;
+}
+
+// The taps a resize takes from its weights: the first always; under the
+// edge rule a weight of 0 drops the second column's or row's.
+__device__ __forceinline__ unsigned resize_need(float wx, float wy, bool keep) {
+  const bool ux = !(keep && zero_weight(wx)), uy = !(keep && zero_weight(wy));
+  return 1u | (ux ? 2u : 0u) | (uy ? 4u : 0u) | (ux && uy ? 8u : 0u);
+}
 
 __device__ __forceinline__ void resample_taps(int core, const int* __restrict__ tp, int core_w,
                                               int core_h, bool keep,
@@ -104,8 +181,7 @@ __device__ __forceinline__ void resample_taps(int core, const int* __restrict__ 
     t.ys[1] = __ldg(tp + 2 * core_w + core_h + yc);
     t.wx = __ldg(tw + xc);
     t.wy = __ldg(tw + core_w + yc);
-    const bool ux = !(keep && t.wx == 0.f), uy = !(keep && t.wy == 0.f);
-    t.need = 1u | (ux ? 2u : 0u) | (uy ? 4u : 0u) | (ux && uy ? 8u : 0u);
+    t.need = resize_need(t.wx, t.wy, keep);
   } else {
     const int xa[1] = {xc};
     float sx[1], sy[1];
@@ -161,27 +237,23 @@ __device__ __forceinline__ void sample_taps(int core, bool keep, int tap_type, c
   }
 }
 
-// The inner core's float32 value at its output position (yc, xc), into v,
-// where `on`: the one-level kernel's steps for one pixel of a resample
-// (composed.cuh::composed_kernel<Src, 4, 1>): the taps, both axes through
-// the upper and the lower stages (walk_taps), every load in one run
-// (load_taps), a lower border's value cast to the source's type, the
-// leading YUV -> RGB, the fused read's chain, an upper border's value cast
-// to the chain's type, the sample. Every thread calls it (the chain's
-// table may be staged in chunks, at barriers).
+// The inner core's float32 value from its taps `tp`, whose positions are
+// walked to the base already, and their fills (the first CONSTANT stage
+// of each column, fx, and row, fy), into v: the one-level kernel's steps
+// for one pixel of a resample (composed.cuh::composed_kernel<Src, 4, 1>):
+// every load in one run (load_taps), a lower border's value cast to the
+// source's type, the leading YUV -> RGB, the fused read's chain, an upper
+// border's value cast to the chain's type, the sample. Every thread calls
+// it (the chain's table may be staged in chunks, at barriers).
 template <typename Src>
-__device__ __forceinline__ void core_value(const CmHead& h, const Conv& conv,
-                                           const void* __restrict__ s,
-                                           const int* __restrict__ zblk,
-                                           const int* __restrict__ consts, PwRow* in_rows,
-                                           bool in_once, int tid, int yc, int xc, bool on,
-                                           float (&v)[kMaxCh]) {
+__device__ __forceinline__ void core_sample(const CmHead& h, const Conv& conv,
+                                            const void* __restrict__ s,
+                                            const int* __restrict__ zblk,
+                                            const int* __restrict__ consts, PwRow* in_rows,
+                                            bool in_once, int tid, const Taps& tp,
+                                            const int (&fx)[2], const int (&fy)[2],
+                                            float (&v)[kMaxCh]) {
   const float* zfblk = reinterpret_cast<const float*>(zblk);
-  Taps tp;
-  resample_taps(h.core, consts + h.taps_off, h.core_w, h.core_h, h.keep_edge != 0,
-                zfblk + h.coef_off, h.persp != 0, h.in_w, h.in_h, yc, xc, on, tp);
-  int fx[2], fy[2];
-  walk_taps(h, zblk, tp.xs, fx, tp.ys, fy);
   int ty[4], tx[4], fl[4];
   unsigned rd = 0u;
 #pragma unroll
@@ -228,6 +300,25 @@ __device__ __forceinline__ void core_value(const CmHead& h, const Conv& conv,
   sample_taps(h.core, h.keep_edge != 0, h.tap_type, tp, t, zfblk + h.border_off, h.tap_ch, v);
 }
 
+// The inner core's float32 value at its output position (yc, xc), into v,
+// where `on`: its taps, both axes walked through the upper and the lower
+// stages (walk_taps), then core_sample. Every thread calls it.
+template <typename Src>
+__device__ __forceinline__ void core_value(const CmHead& h, const Conv& conv,
+                                           const void* __restrict__ s,
+                                           const int* __restrict__ zblk,
+                                           const int* __restrict__ consts, PwRow* in_rows,
+                                           bool in_once, int tid, int yc, int xc, bool on,
+                                           float (&v)[kMaxCh]) {
+  const float* zfblk = reinterpret_cast<const float*>(zblk);
+  Taps tp;
+  resample_taps(h.core, consts + h.taps_off, h.core_w, h.core_h, h.keep_edge != 0,
+                zfblk + h.coef_off, h.persp != 0, h.in_w, h.in_h, yc, xc, on, tp);
+  int fx[2], fy[2];
+  walk_taps(h, zblk, tp.xs, fx, tp.ys, fy);
+  core_sample<Src>(h, conv, s, zblk, consts, in_rows, in_once, tid, tp, fx, fy, v);
+}
+
 // The block offset of the value of fill stage f of the second level: an
 // above border's for f below kMaxStages, else a below one's (f < kNone).
 __device__ __forceinline__ int mid_fill_offset(const CmNested& n, int f) {
@@ -240,27 +331,16 @@ __device__ __forceinline__ int mid_fill_offset(const CmNested& n, int f) {
   return off;
 }
 
-// The second level's tap at position (y, x) of Resample2's source (or, with
-// no Resample2, at the pixel under the outer stages), into t where `on`:
-// walked through the above and then the below stages; the core's value
-// there, or a below CONSTANT border's value cast to float32; FusedRead2's
-// chain; or an above CONSTANT border's value cast to that chain's type.
-template <typename Src>
-__device__ __forceinline__ void mid_value(const CmNested& n, const Conv& conv,
-                                          const void* __restrict__ s,
-                                          const int* __restrict__ zblk,
-                                          const int* __restrict__ consts, PwRow* in_rows,
-                                          PwRow* mid_rows, bool in_once, bool mid_once, int tid,
-                                          int y, int x, bool on, float (&t)[1][kMaxCh]) {
+// A second-level tap's value after the core's (in t where its fill f is
+// kNone): a below CONSTANT border's value cast to float32, FusedRead2's
+// chain, or an above CONSTANT border's value cast to that chain's type,
+// where `on`. Every thread calls it (the chain's table may be staged in
+// chunks).
+__device__ __forceinline__ void mid_finish(const CmNested& n, const int* __restrict__ zblk,
+                                           const int* __restrict__ consts, PwRow* mid_rows,
+                                           bool mid_once, int tid, int f, bool on,
+                                           float (&t)[1][kMaxCh]) {
   const float* zfblk = reinterpret_cast<const float*>(zblk);
-  int xs[1] = {x}, ys[1] = {y}, fx[1] = {kNone}, fy[1] = {kNone};
-  walk_axis<true>(n.above, zblk, 0, xs, fx);
-  walk_axis<false>(n.above, zblk, 0, ys, fy);
-  walk_axis<true>(n.below, zblk, kMaxStages, xs, fx);
-  walk_axis<false>(n.below, zblk, kMaxStages, ys, fy);
-  const int f = min(fx[0], fy[0]);
-  core_value<Src>(n.h, conv, s, zblk, consts, in_rows, in_once, tid, ys[0], xs[0],
-                  on && f == kNone, t[0]);
   if (on && f >= kMaxStages && f < kNone) {
     const int off = mid_fill_offset(n, f);
 #pragma unroll
@@ -279,12 +359,165 @@ __device__ __forceinline__ void mid_value(const CmNested& n, const Conv& conv,
   }
 }
 
-// The nested kernel for a source of kind Src, with a second resampling
-// node (kR2) or a FusedRead2 alone above the core; one output pixel a
+// The second level's tap at position (y, x) of its source (with no
+// Resample2, the pixel under the outer stages), into t where `on`: walked
+// through the above and then the below stages; the core's value there,
+// then mid_finish.
+template <typename Src>
+__device__ __forceinline__ void mid_value(const CmNested& n, const Conv& conv,
+                                          const void* __restrict__ s,
+                                          const int* __restrict__ zblk,
+                                          const int* __restrict__ consts, PwRow* in_rows,
+                                          PwRow* mid_rows, bool in_once, bool mid_once, int tid,
+                                          int y, int x, bool on, float (&t)[1][kMaxCh]) {
+  int xs[1] = {x}, ys[1] = {y}, fx[1] = {kNone}, fy[1] = {kNone};
+  walk_axis<true>(n.above, zblk, 0, xs, fx);
+  walk_axis<false>(n.above, zblk, 0, ys, fy);
+  walk_axis<true>(n.below, zblk, kMaxStages, xs, fx);
+  walk_axis<false>(n.below, zblk, kMaxStages, ys, fy);
+  const int f = min(fx[0], fy[0]);
+  core_value<Src>(n.h, conv, s, zblk, consts, in_rows, in_once, tid, ys[0], xs[0],
+                  on && f == kNone, t[0]);
+  mid_finish(n, zblk, consts, mid_rows, mid_once, tid, f, on, t);
+}
+
+// The listed positions n[a] of axis a (x where kX) walked by one warp,
+// lane l taking entries l, l + 32, ..: through the above and then the
+// below stages to the core's output, or its first CONSTANT stage there;
+// for a resize core also its two taps from the host tables and the
+// weight, the taps walked through the upper and the lower stages to the
+// base (composed.cuh::walk_axis, as walk_taps walks them).
+template <bool kX>
+__device__ __forceinline__ void walk_list(Stage2& sg, const CmNested& n,
+                                          const int* __restrict__ zblk,
+                                          const int* __restrict__ consts, int lane, int count) {
+  constexpr int a = kX ? 0 : 1;
+  const CmHead& h = n.h;
+  const int* tp = consts + h.taps_off;
+  const float* tw = reinterpret_cast<const float*>(tp + 2 * (h.core_w + h.core_h));
+  // a position's taps in the tables: x0 | x1 | y0 | y1, weights wx | wy
+  const int t0 = kX ? 0 : 2 * h.core_w, t1 = kX ? h.core_w : 2 * h.core_w + h.core_h;
+  const int tw0 = kX ? 0 : h.core_w;
+  for (int j = lane; j < count; j += 32) {
+    int p[1] = {sg.pos[a][j]}, f[1] = {kNone};
+    int q[2] = {0, 0}, g[2] = {kNone, kNone};
+    float w = 0.f;
+    walk_axis<kX>(n.above, zblk, 0, p, f);
+    walk_axis<kX>(n.below, zblk, kMaxStages, p, f);
+    if (h.core == CM_RESIZE && f[0] == kNone) {
+      q[0] = __ldg(tp + t0 + p[0]);
+      q[1] = __ldg(tp + t1 + p[0]);
+      w = __ldg(tw + tw0 + p[0]);
+      walk_axis<kX>(h.upper, zblk, 0, q, g);
+      walk_axis<kX>(h.lower, zblk, kMaxStages, q, g);
+    }
+    sg.pos[a][j] = p[0];
+    sg.fill[a][j] = f[0];
+    sg.tap[a][j][0] = q[0];
+    sg.tap[a][j][1] = q[1];
+    sg.tfill[a][j][0] = g[0];
+    sg.tfill[a][j][1] = g[1];
+    sg.w[a][j] = w;
+  }
+}
+
+// Axis a (x where kX) of a resize Resample2's footprint, by one warp with
+// no block barrier: lane l takes the tile's column (row) l inside the
+// output, walks it through the outer stages (its position alone: where an
+// outer CONSTANT border fills a pixel its taps are listed all the same, a
+// superset) and takes its first tap and, where the edge rule keeps the
+// weight, its second (the Resample2 tables); their span (a warp
+// reduction), flags over it and a ballot scan list them in order and map
+// each to its index; walk_list walks the list. sg.n[a] is the count, or -1
+// past the budget (kSpan2, kList2).
+template <bool kX>
+__device__ __forceinline__ void resize_axis(Stage2& sg, const CmNested& n,
+                                            const int* __restrict__ zblk,
+                                            const int* __restrict__ consts, int lane, int start,
+                                            int dim, int extent) {
+  constexpr int a = kX ? 0 : 1;
+  const int* tp = consts + n.taps2_off;
+  const float* tw = reinterpret_cast<const float*>(tp + 2 * (n.core2_w + n.core2_h));
+  const bool in = lane < dim && start + lane < extent;  // lane 0 always
+  int q[1] = {start + lane}, f[1] = {kNone};
+  walk_axis<kX>(n.h.outer, zblk, 0, q, f);
+  int t0 = 0, t1 = 0;
+  bool second = false;
+  if (in) {
+    t0 = __ldg(tp + (kX ? 0 : 2 * n.core2_w) + q[0]);
+    t1 = __ldg(tp + (kX ? n.core2_w : 2 * n.core2_w + n.core2_h) + q[0]);
+    second = !(n.keep_edge2 != 0 && zero_weight(__ldg(tw + (kX ? 0 : n.core2_w) + q[0])));
+  }
+  const int lo = __reduce_min_sync(0xffffffffu, in ? t0 : INT_MAX);
+  const int span = __reduce_max_sync(0xffffffffu, in ? (second ? t1 : t0) : INT_MIN) - lo + 1;
+  if (span > kSpan2) {  // positions < 2^24: no overflow
+    if (lane == 0) sg.n[a] = -1;
+    return;
+  }
+  for (int i = lane; i < span; i += 32) sg.map[a][i] = 0;
+  __syncwarp();
+  if (in) {
+    sg.map[a][t0 - lo] = 1;
+    if (second) sg.map[a][t1 - lo] = 1;
+  }
+  __syncwarp();
+  int run = 0;
+  for (int i0 = 0; i0 < span; i0 += 32) {
+    const int i = i0 + lane;
+    const bool flag = i < span && sg.map[a][i] != 0;
+    const unsigned b = __ballot_sync(0xffffffffu, flag);
+    const int j = run + __popc(b & ((1u << lane) - 1u));
+    if (i < span) sg.map[a][i] = flag ? j : -1;
+    if (flag && j < kList2) sg.pos[a][j] = lo + i;
+    run += __popc(b);
+  }
+  __syncwarp();
+  if (run <= kList2) walk_list<kX>(sg, n, zblk, consts, lane, run);
+  if (lane == 0) {
+    sg.n[a] = run <= kList2 ? run : -1;
+    sg.lo[a] = lo;
+  }
+}
+
+// Axis a (x where kX) of a warp Resample2's footprint, by one warp after
+// the block's barrier: the box of the taps its results take, from each
+// warp's minimum and maximum (sg.part), listed whole (its map the
+// identity) and walked (walk_list). sg.n[a] is its side, 0 where no result
+// takes a tap, -1 past kList2.
+template <bool kX>
+__device__ __forceinline__ void box_axis(Stage2& sg, const CmNested& n,
+                                         const int* __restrict__ zblk,
+                                         const int* __restrict__ consts, int lane) {
+  constexpr int a = kX ? 0 : 1;
+  int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    lo = min(lo, sg.part[w][2 * a]);
+    hi = max(hi, sg.part[w][2 * a + 1]);
+  }
+  const int side = hi < lo ? 0 : hi - lo + 1;
+  if (side > kList2) {
+    if (lane == 0) sg.n[a] = -1;
+    return;
+  }
+  for (int j = lane; j < side; j += 32) {
+    sg.map[a][j] = j;
+    sg.pos[a][j] = lo + j;
+  }
+  walk_list<kX>(sg, n, zblk, consts, lane, side);  // entry j: the lane that wrote it
+  if (lane == 0) {
+    sg.n[a] = side;
+    sg.lo[a] = lo;
+  }
+}
+
+// The nested kernels' body for a source of kind Src, with a second
+// resampling node (kR2: staged where kStage and the footprint fits, else
+// per tap) or a FusedRead2 alone above the core; one output pixel a
 // thread.
-template <typename Src, bool kR2>
-__global__ void __launch_bounds__(kThreads) composed_kernel_nested(
-    const void* __restrict__ src, CmNested n, Conv conv, const int* __restrict__ blk,
+template <typename Src, bool kR2, bool kStage>
+__device__ __forceinline__ void nested_body(
+    const void* __restrict__ src, const CmNested& n, const Conv& conv, const int* __restrict__ blk,
     const int* __restrict__ consts, int dst_w, int dst_h, void* __restrict__ out, int out_type,
     int out_ch, int store_op, long long sn, long long sc, long long sy, long long sx) {
   __shared__ PwRow in_rows[kStageRows];
@@ -323,7 +556,6 @@ __global__ void __launch_bounds__(kThreads) composed_kernel_nested(
     stage_rows(out_rows, consts + h.out_ops_off, h.out_n_ops, 0, h.out_n_ops,
                fblk + h.out_fp_off, tid, kThreads);
   }
-  __syncthreads();
 
   // the outer walk: the pixel into the second level's output
   int xc[1] = {x}, fo[1] = {held_fill};
@@ -335,41 +567,146 @@ __global__ void __launch_bounds__(kThreads) composed_kernel_nested(
 #pragma unroll
   for (int c = 0; c < kMaxCh; ++c) v[0][c] = 0.f;
   if constexpr (kR2) {
+    __shared__ Stage2 sg;
+    const float* zfblk = fblk + zoff;
     Taps tp;
     resample_taps(n.core2, consts + n.taps2_off, n.core2_w, n.core2_h, n.keep_edge2 != 0,
-                  fblk + zoff + n.coef2_off, n.persp2 != 0, n.mid_w, n.mid_h, yc, xc[0], sample,
-                  tp);
-    // each tap the result takes, in turn (one tap's core evaluation live
-    // at a time, the loop not unrolled); a tap it does not take costs
-    // nothing, unless a chain's table is staged in chunks, whose barriers
-    // every thread reaches (block-uniform)
+                  zfblk + n.coef2_off, n.persp2 != 0, n.mid_w, n.mid_h, yc, xc[0], sample, tp);
+    // a chain's table staged in chunks holds barriers that every thread
+    // reaches, so then every thread runs every round (block-uniform)
     const bool every_tap = !(in_once && mid_once);
+    // the staged form in the staging instance where the footprint fits; a
+    // held plane's block (block-uniform) takes neither form. The footprint
+    // is built beside the tables' staging: a resize's lists by warps 0 (x)
+    // and 1 (y) before the first barrier; a warp's box from each warp's
+    // extremes, listed after it
+    const bool stage = kStage && held_fill < 0;
+    const int warp = tid >> 5, lane = tid & 31;
+    if (stage) {
+      if (n.core2 == CM_RESIZE) {
+        if (warp == 0) {
+          resize_axis<true>(sg, n, zblk, consts, lane, blockIdx.x * blockDim.x, blockDim.x, dst_w);
+        } else if (warp == 1) {
+          resize_axis<false>(sg, n, zblk, consts, lane, blockIdx.y * blockDim.y, blockDim.y,
+                             dst_h);
+        }
+      } else {
+        int ext[4] = {INT_MAX, INT_MIN, INT_MAX, INT_MIN};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (!(tp.need >> k & 1u)) continue;
+          ext[0] = min(ext[0], tp.xs[k & 1]);
+          ext[1] = max(ext[1], tp.xs[k & 1]);
+          ext[2] = min(ext[2], tp.ys[k >> 1]);
+          ext[3] = max(ext[3], tp.ys[k >> 1]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ext[e] = e & 1 ? __reduce_max_sync(0xffffffffu, ext[e])
+                         : __reduce_min_sync(0xffffffffu, ext[e]);
+          if (lane == 0) sg.part[warp][e] = ext[e];
+        }
+      }
+    }
+    __syncthreads();  // the op tables, and the lists or each warp's extremes
+    if (stage && n.core2 != CM_RESIZE) {
+      if (warp == 0) {
+        box_axis<true>(sg, n, zblk, consts, lane);
+      } else if (warp == 1) {
+        box_axis<false>(sg, n, zblk, consts, lane);
+      }
+      __syncthreads();
+    }
+    const int nx = stage ? sg.n[0] : -1, ny = stage ? sg.n[1] : -1;
+    const bool staged = nx >= 0 && ny >= 0 && nx * ny * n.mid_ch <= kGrid2;
+    const int entries = staged ? nx * ny : 0;
+    const int rounds = staged ? (entries + kThreads - 1) / kThreads : held_fill < 0 ? 4 : 0;
+    // one value of the middle image a round (one value's evaluation live
+    // at a time, the loop not unrolled), into the grid: staged, entry r *
+    // kThreads + tid at the block's walked lists; per tap, this thread's
+    // tap r, walked here, into the thread's own slot (a tap its result
+    // does not take costs nothing), so that no tap's value is held in
+    // registers across the loop
+#pragma unroll 1
+    for (int r = 0; r < rounds; ++r) {
+      int e = 0, xm[1], ym[1], fxm[1] = {kNone}, fym[1] = {kNone}, i = 0, j = 0;
+      bool on;
+      if (staged) {
+        e = r * kThreads + tid;
+        on = e < entries;
+        i = on ? e / nx : 0;
+        j = on ? e - i * nx : 0;
+        xm[0] = sg.pos[0][j];
+        ym[0] = sg.pos[1][i];
+        fxm[0] = sg.fill[0][j];
+        fym[0] = sg.fill[1][i];
+      } else {
+        on = tp.need >> r & 1u;
+        xm[0] = tp.xs[r & 1];
+        ym[0] = tp.ys[r >> 1];
+        walk_axis<true>(n.above, zblk, 0, xm, fxm);
+        walk_axis<false>(n.above, zblk, 0, ym, fym);
+        walk_axis<true>(n.below, zblk, kMaxStages, xm, fxm);
+        walk_axis<false>(n.below, zblk, kMaxStages, ym, fym);
+      }
+      if (!on && !every_tap) continue;
+      const int f = min(fxm[0], fym[0]);
+      const bool core_on = on && f == kNone;
+      // the core's taps: a resize's from the block's lists where staged,
+      // else from the position (walk_taps)
+      Taps ct;
+      int cfx[2], cfy[2];
+      if (staged && h.core == CM_RESIZE) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          ct.xs[k] = sg.tap[0][j][k];
+          ct.ys[k] = sg.tap[1][i][k];
+          cfx[k] = sg.tfill[0][j][k];
+          cfy[k] = sg.tfill[1][i][k];
+        }
+        ct.wx = sg.w[0][j];
+        ct.wy = sg.w[1][i];
+        ct.need = core_on ? resize_need(ct.wx, ct.wy, h.keep_edge != 0) : 0u;
+      } else {
+        resample_taps(h.core, consts + h.taps_off, h.core_w, h.core_h, h.keep_edge != 0,
+                      zfblk + h.coef_off, h.persp != 0, h.in_w, h.in_h, ym[0], xm[0], core_on,
+                      ct);
+        walk_taps(h, zblk, ct.xs, cfx, ct.ys, cfy);
+      }
+      float u[1][kMaxCh];
+      core_sample<Src>(h, conv, s, zblk, consts, in_rows, in_once, tid, ct, cfx, cfy, u[0]);
+      mid_finish(n, zblk, consts, mid_rows, mid_once, tid, f, on, u);
+      if (on) {
+#pragma unroll
+        for (int c = 0; c < kMaxCh; ++c) {
+          if (c < n.mid_ch) sg.grid[staged ? c * entries + e : slot(r, c, tid)] = u[0][c];
+        }
+      }
+    }
+    if (staged) __syncthreads();
+    // each tap the result takes: staged, from the grid through the axes'
+    // maps; per tap, from the thread's slot; a tap it does not take holds 0
     float t[4][1][kMaxCh];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
+      const int e = staged && sample && (tp.need >> k & 1u)
+                        ? sg.map[1][tp.ys[k >> 1] - sg.lo[1]] * nx +
+                              sg.map[0][tp.xs[k & 1] - sg.lo[0]]
+                        : 0;
 #pragma unroll
-      for (int c = 0; c < kMaxCh; ++c) t[k][0][c] = 0.f;
-    }
-#pragma unroll 1
-    for (int k = 0; k < 4; ++k) {
-      const bool take = tp.need >> k & 1u;
-      if (!take && !every_tap) continue;
-      float u[1][kMaxCh];
-      mid_value<Src>(n, conv, s, zblk, consts, in_rows, mid_rows, in_once, mid_once, tid,
-                     tp.ys[k >> 1], tp.xs[k & 1], take, u);
-      // into tap k's registers: each select on a constant index, so that
-      // t is not indexed at run time (local memory)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int c = 0; c < kMaxCh; ++c) t[j][0][c] = j == k ? u[0][c] : t[j][0][c];
+      for (int c = 0; c < kMaxCh; ++c) {
+        t[k][0][c] = 0.f;
+        if (sample && (tp.need >> k & 1u) && c < n.mid_ch) {
+          t[k][0][c] = sg.grid[staged ? c * entries + e : slot(k, c, tid)];
+        }
       }
     }
     if (sample) {
-      sample_taps(n.core2, n.keep_edge2 != 0, n.mid_type, tp, t, fblk + zoff + n.border2_off,
-                  n.mid_ch, v[0]);
+      sample_taps(n.core2, n.keep_edge2 != 0, n.mid_type, tp, t, zfblk + n.border2_off, n.mid_ch,
+                  v[0]);
     }
   } else {
+    __syncthreads();  // the op tables
     float u[1][kMaxCh];
     mid_value<Src>(n, conv, s, zblk, consts, in_rows, mid_rows, in_once, mid_once, tid, yc, xc[0],
                    sample, u);
@@ -396,26 +733,47 @@ __global__ void __launch_bounds__(kThreads) composed_kernel_nested(
               out_ch, sc, sx);
 }
 
+// The nested kernels: a FusedRead2 alone (kR2 false) and a second resample
+// per tap, at the registers ptxas picks (the per-tap form 63 on an H100,
+// 4 blocks an SM); a second resample staged (composed_kernel_nested_staged)
+// bounded to 4 blocks an SM, 64 registers: left to itself ptxas gave the
+// staging code 128 (2 blocks an SM), 30-55 % slower on N1-N3, N6 and N8
+// (PERF.md, PR 19). Two instances with a second resample, so that the
+// per-tap form pays nothing for the staging's registers.
+#define CVGS_NESTED_PARAMS                                                                     \
+  const void* __restrict__ src, CmNested n, Conv conv, const int* __restrict__ blk,            \
+      const int* __restrict__ consts, int dst_w, int dst_h, void* __restrict__ out, int out_type, \
+      int out_ch, int store_op, long long sn, long long sc, long long sy, long long sx
+#define CVGS_NESTED_ARGS \
+  src, n, conv, blk, consts, dst_w, dst_h, out, out_type, out_ch, store_op, sn, sc, sy, sx
+template <typename Src, bool kR2>
+__global__ void __launch_bounds__(kThreads) composed_kernel_nested(CVGS_NESTED_PARAMS) {
+  nested_body<Src, kR2, false>(CVGS_NESTED_ARGS);
+}
+template <typename Src>
+__global__ void __launch_bounds__(kThreads, 4) composed_kernel_nested_staged(CVGS_NESTED_PARAMS) {
+  nested_body<Src, true, true>(CVGS_NESTED_ARGS);
+}
+#undef CVGS_NESTED_PARAMS
+#undef CVGS_NESTED_ARGS
+
 // The nested launch for a source of kind Src: one pixel a thread, a block
-// of 256 threads (group_block's shape for one pixel a thread).
+// of 256 threads: a kTile2W x kTile2H tile with a second resample (its
+// footprint's shape near scale 1 is square), staged where the plan's
+// stage2 word asks for it, else group_block's shape for one pixel a
+// thread.
 template <typename Src>
 void launch_nested(const ComposedArgs& a) {
   CmNested n;
   std::memcpy(&n, a.head, sizeof(CmNested));
-  const dim3 block = group_block(a.dst_w, 1);
+  const dim3 block = n.core2 == CM_NONE ? group_block(a.dst_w, 1) : dim3(kTile2W, kTile2H);
   const dim3 grid((a.dst_w + block.x - 1) / block.x, (a.dst_h + block.y - 1) / block.y,
                   a.n_planes);
-#define CVGS_NESTED(R2)                                                                   \
-  composed_kernel_nested<Src, R2><<<grid, block, 0, a.stream>>>(a.src, n, a.conv, a.blk, a.consts, \
-                                                       a.dst_w, a.dst_h, a.out, a.out_type, \
-                                                       a.out_ch, a.store_op, a.sn, a.sc, a.sy, \
-                                                       a.sx)
-  if (n.core2 == CM_NONE) {
-    CVGS_NESTED(false);
-  } else {
-    CVGS_NESTED(true);
-  }
-#undef CVGS_NESTED
+  auto* kernel = n.core2 == CM_NONE ? composed_kernel_nested<Src, false>
+                 : n.stage2 != 0    ? composed_kernel_nested_staged<Src>
+                                    : composed_kernel_nested<Src, true>;
+  kernel<<<grid, block, 0, a.stream>>>(a.src, n, a.conv, a.blk, a.consts, a.dst_w, a.dst_h, a.out,
+                                       a.out_type, a.out_ch, a.store_op, a.sn, a.sc, a.sy, a.sx);
 }
 
 }  // namespace kc

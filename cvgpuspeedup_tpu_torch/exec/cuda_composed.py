@@ -31,8 +31,14 @@ may be bare bases). A plane with a second level above the core (a second
 resampling node, ``resize(warp)``, ``warp(resize)``, ``resize(resize)``,
 ``resize(crop(resize))``, or a fused read above the core,
 ``make_border(fuse(resize(..), op))``) is a *nested* plan (``core2``): its
-own kernel instances (``csrc/composed_nested.cuh``) evaluate the inner
-core at each tap of the second level. What stays eager, and why (``_plane``
+own kernel instances (``csrc/composed_nested.cuh``): where a tile's
+pixels share the second level's taps (the ``stage2`` word, from the
+structure: a warp, or a resize whose :func:`tap_share` is at most
+``STAGE_SHARE``) a block stages its footprint of them, each value of the
+inner core there evaluated once; else, and in a block whose footprint
+passes the budget, the core is evaluated at each tap
+(:func:`nested_tiles` mirrors which blocks stage). What stays eager, and
+why (``_plane``
 names each):
 
 - a third resampling node (``resize(warp(resize))``): the kernel nests two;
@@ -143,8 +149,21 @@ assert len(_CORE_WORDS) == HEAD_INTS - 3 * kp.HEAD_INTS
 #: (above, below): csrc/composed_nested.cuh::CmNested
 _MID_WORDS = ("core2", "core2_h", "core2_w", "mid_h", "mid_w", "keep_edge2", "persp2",
               "coef2_off", "border2_off", "taps2_off", "mid_type", "mid_ch", "mid_n_ops",
-              "mid_ops_off", "mid_fp_off")
+              "mid_ops_off", "mid_fp_off", "stage2")
 NESTED_INTS = HEAD_INTS + 2 * kp.HEAD_INTS + len(_MID_WORDS)
+#: csrc/composed_nested.cuh's staging of a second resample: a block's tile
+#: of outputs (x, y), the widest span of one axis's taps it flags, the most
+#: positions it lists on an axis, the floats of its grid (kTile2W,
+#: kTile2H, kSpan2, kList2, kGrid2)
+TILE2, SPAN2, LIST2, GRID2 = (16, 16), 256, 64, 4096
+#: a block's form (:func:`nested_tiles`)
+TILE_FORMS = ("staged", "per_tap", "held")
+#: a resize second level stages (``stage2``) where its tiles' distinct taps
+#: are at most this share of the taps their pixels take one by one
+#: (:func:`tap_share`): an upscale (2.5x: 0.05); a 3:1 downscale (1.0) and
+#: a 2.4:1 one (N4, 1.0) share none and took 1.3-1.5x longer staged than
+#: per tap on an H100 (PERF.md, PR 19)
+STAGE_SHARE = 0.25
 _N_COEFFS = 9  # block words of a warp's coefficients; an affine map uses 6
 _CONSTANT, _REFLECT, _REFLECT_101, _WRAP = (BORDER_MODES[m] for m in (
     BorderMode.CONSTANT, BorderMode.REFLECT, BorderMode.REFLECT_101, BorderMode.WRAP))
@@ -510,6 +529,10 @@ def build_plan(pipeline) -> ComposedPlan:
         if max(mid_h, mid_w) >= _MAX_SIDE:
             raise Unsupported(f"a middle image of {mid_w}x{mid_h}")
         core2, top_h, top_w, keep2, persp2, taps2 = _resample(p.core2, mid_h, mid_w, mid_ch)
+        # a warp's blocks stage their footprint (where it fits), a resize's
+        # where its tiles share taps
+        stage2 = int(core2 == "warp" or core2 == "resize" and tap_share(
+            taps2, top_h, top_w, bool(keep2)) <= STAGE_SHARE)
         if min(top_h, top_w) < 1:
             raise Unsupported(f"an output of {top_w}x{top_h}")
         top_dtype = mid_dtype if core2 == "none" else torch.float32
@@ -583,7 +606,7 @@ def build_plan(pipeline) -> ComposedPlan:
             keep_edge2=keep2, persp2=persp2, coef2_off=coef2_off, border2_off=border2_off,
             taps2_off=mid_ops_off + mid_table.size, mid_type=TYPE_CODES[mid_dtype],
             mid_ch=mid_ch, mid_n_ops=mid_ops.shape[0], mid_ops_off=mid_ops_off,
-            mid_fp_off=mid_fp_off)
+            mid_fp_off=mid_fp_off, stage2=stage2)
         head += (_stage_list(len(p.above), above_words) + _stage_list(len(p.below), below_words)
                  + tuple(mid_words[k] for k in _MID_WORDS))
     return ComposedPlan(
@@ -592,6 +615,25 @@ def build_plan(pipeline) -> ComposedPlan:
         out_dtype=out_dtype, tap_dtype=tap_dtype, layout=layout,
         head=tuple(int(v) for v in head), conv=conv, tables=tables, n_block=pos + 4,
         core2=core2, mid_dtype=mid_dtype)
+
+
+def tap_share(taps: np.ndarray, out_h: int, out_w: int, keep: bool) -> float:
+    """A resize's distinct taps of each TILE2 tile of its output, summed,
+    over the taps its pixels take one by one (a second tap of weight 0
+    untaken under the edge rule ``keep``), the product of the two axes':
+    the core values a staged block evaluates over those the per-tap form
+    evaluates, where nothing above the resize moves its columns. ``taps``
+    is ``_resample``'s table: x0 | x1 | y0 | y1 | wx | wy."""
+    wts = taps[2 * (out_w + out_h):].view(np.float32)
+    share = 1.0
+    for n, tile, at, w in ((out_w, TILE2[0], 0, wts[:out_w]),
+                           (out_h, TILE2[1], 2 * out_w, wts[out_w:])):
+        first, second = taps[at:at + n], taps[at + n:at + 2 * n]
+        takes = ~(keep & (w == 0.0))
+        distinct = sum(np.unique(np.concatenate([first[i:i + tile], second[i:i + tile][
+            takes[i:i + tile]]])).size for i in range(0, n, tile))
+        share *= distinct / (n + int(takes.sum()))
+    return share
 
 
 def tap_need(wx, wy, keep: bool):
@@ -850,13 +892,13 @@ class _MidReader:
         return _filled(v, fill_up, self.fblk, plan.mid_dtype)
 
 
-def _sample(r, lv: _Level, yc, xc, need):
-    """The value of the resampling node ``lv`` at its output positions (yc,
-    xc), its taps read through ``r``; ``need`` masks the positions whose
-    value the output takes."""
-    plan = r.plan
-    if lv.core == "none":
-        return r.tap(yc, xc, need)
+def _level_taps(plan: ComposedPlan, fblk, lv: _Level, yc, xc):
+    """``(ys, xs, take, wx, wy)``: the taps v00, v01, v10, v11 (stacked
+    first) of the resampling node ``lv`` at its output positions (yc, xc),
+    which of them a result takes, and the weights (``[..., None]``): a
+    resize's from its tap tables, a second tap of weight 0 untaken under
+    the edge rule; a warp's from the block's coefficients, a tap outside
+    its source untaken (it reads the border)."""
     if lv.core == "resize":
         cw, ch = lv.core_w, lv.core_h
         t = torch.from_numpy(plan.tables[lv.taps_off:]).to(yc.device)
@@ -864,21 +906,18 @@ def _sample(r, lv: _Level, yc, xc, need):
         y0, y1 = t[2 * cw:2 * cw + ch].long(), t[2 * cw + ch:2 * cw + 2 * ch].long()
         wts = t[2 * (cw + ch):2 * (cw + ch) + cw + ch].view(torch.float32)
         wx, wy = wts[:cw][xc][..., None], wts[cw:][yc][..., None]
-        keep = bool(lv.keep)
         # with keep a weight of 0 takes the first tap alone: the second is
         # not needed (the others' lerp reads it whatever its weight)
-        bits = tap_need(wx[..., 0], wy[..., 0], keep)
+        bits = tap_need(wx[..., 0], wy[..., 0], bool(lv.keep))
         # v00, v01, v10, v11: the upper row's taps, then the lower row's
-        v = r.tap(torch.stack([y0[yc], y0[yc], y1[yc], y1[yc]]),
-                  torch.stack([x0[xc], x1[xc], x0[xc], x1[xc]]),
-                  torch.stack([need & (bits >> k & 1).bool() for k in range(4)])
-                  ).to(torch.float32)
-        return _lerp(_lerp(v[0], v[1], wx, keep), _lerp(v[2], v[3], wx, keep), wy, keep)
+        return (torch.stack([y0[yc], y0[yc], y1[yc], y1[yc]]),
+                torch.stack([x0[xc], x1[xc], x0[xc], x1[xc]]),
+                torch.stack([(bits >> k & 1).bool() for k in range(4)]), wx, wy)
     # the warp: the coordinates from the block's coefficients, as
     # csrc/warp.cuh::sample_warp recomputes them: the column's and the row's
     # terms as ops/warp.py::decompose_inverse_map computes them on the host
     # (float32 ops that keep a subnormal), their sum a flushed op
-    cf = r.fblk[lv.coef_off:lv.coef_off + _N_COEFFS]
+    cf = fblk[lv.coef_off:lv.coef_off + _N_COEFFS]
     fx, fy = xc.to(torch.float32), yc.to(torch.float32)
 
     def term(k):
@@ -897,11 +936,23 @@ def _sample(r, lv: _Level, yc, xc, need):
     ix = (torch.where(vx[0], x0f, 0.0).long(), torch.where(vx[1], x0f + 1, 0.0).long())
     iy = (torch.where(vy[0], y0f, 0.0).long(), torch.where(vy[1], y0f + 1, 0.0).long())
     order = ((0, 0), (0, 1), (1, 0), (1, 1))  # (y tap, x tap) of v00, v01, v10, v11
-    valid = torch.stack([vy[j] & vx[i] for j, i in order])
-    v = r.tap(torch.stack([iy[j] for j, _ in order]), torch.stack([ix[i] for _, i in order]),
-              valid & need).to(torch.float32)
+    return (torch.stack([iy[j] for j, _ in order]), torch.stack([ix[i] for _, i in order]),
+            torch.stack([vy[j] & vx[i] for j, i in order]), wx, wy)
+
+
+def _sample(r, lv: _Level, yc, xc, need):
+    """The value of the resampling node ``lv`` at its output positions (yc,
+    xc), its taps read through ``r``; ``need`` masks the positions whose
+    value the output takes."""
+    if lv.core == "none":
+        return r.tap(yc, xc, need)
+    ys, xs, take, wx, wy = _level_taps(r.plan, r.fblk, lv, yc, xc)
+    v = r.tap(ys, xs, take & need).to(torch.float32)
+    if lv.core == "resize":
+        keep = bool(lv.keep)
+        return _lerp(_lerp(v[0], v[1], wx, keep), _lerp(v[2], v[3], wx, keep), wy, keep)
     border = r.fblk[lv.border_off:lv.border_off + lv.ch]
-    v = torch.where(valid[..., None], v, border)
+    v = torch.where(take[..., None], v, border)
     return dt.lerp(dt.lerp(v[0], v[1], wx), dt.lerp(v[2], v[3], wx), wy)
 
 
@@ -946,10 +997,12 @@ def _used(a: Launch) -> int:
     return min(max(int(a.block[off]), 0), plan.n_planes)
 
 
-def _reference(a: Launch, touched=None, counts=None):
+def _reference(a: Launch, touched=None, counts=None, plane_value=None):
     """The plain version; with ``touched`` only the read of the planes
     below ``used_planes``, whose base positions it collects (and a nested
-    plan's core positions needed per plane into ``counts``)."""
+    plan's core positions needed per plane into ``counts``). ``plane_value``
+    (``_plane_value``'s arguments but the last two) computes each plane's
+    read value in place of ``_plane_value``."""
     plan = a.plan
     t = _tree(a.pipeline)
     dev = a.srcs[0].device
@@ -965,7 +1018,10 @@ def _reference(a: Launch, touched=None, counts=None):
         shift = z * plan.word("plane_stride")
         blk, fblk = a.block.long()[shift:], a.block.view(torch.float32)[shift:]
         yc, xc, fill = _walk(plan.stage_list(2), blk, y, x, torch.full_like(y, -1))
-        v = _plane_value(a, srcs, z, p, yc, xc, fill < 0, touched, counts)
+        if plane_value is None:
+            v = _plane_value(a, srcs, z, p, yc, xc, fill < 0, touched, counts)
+        else:
+            v = plane_value(a, srcs, z, p, yc, xc, fill < 0)
         planes.append(_filled(v, fill, fblk, core_dtype))
     if touched is not None:
         return None
@@ -1200,3 +1256,123 @@ def _walked_sectors(a: Launch) -> int:
                 x, 2, rounding_mode="floor")
             found.append(bounds.sectors(array + chroma, 2))
     return int(torch.unique(torch.cat(found)).numel()) * 32 if found else 0
+
+
+# ---------------------------------------------------------------------------
+# the nested instances' blocks, as csrc/composed_nested.cuh chooses their form
+# ---------------------------------------------------------------------------
+
+
+def second_taps(a: Launch, z: int):
+    """``(ys, xs, take)``, each ``(4, H, W)``: the taps v00, v01, v10, v11
+    of a nested launch's second resample at each output pixel of plane
+    ``z`` (positions in the middle image) and those its result takes, none
+    where an outer CONSTANT border fills the pixel: what a thread of the
+    kernel takes from its block's grid."""
+    plan = a.plan
+    shift = z * plan.word("plane_stride")
+    blk, fblk = a.block.long()[shift:], a.block.view(torch.float32)[shift:]
+    w, h = plan.dsize
+    dev = a.block.device
+    y = torch.arange(h, device=dev)[:, None].expand(h, w)
+    x = torch.arange(w, device=dev)[None, :].expand(h, w)
+    yc, xc, fill = _walk(plan.stage_list(2), blk, y, x, torch.full_like(y, -1))
+    ys, xs, take, _, _ = _level_taps(plan, fblk, plan.level(1), yc, xc)
+    return ys, xs, take & (fill < 0)
+
+
+def resize_axis_taps(a: Launch, z: int, axis: int):
+    """``(first, second, keep)``, each ``(n,)``: for each output column
+    (``axis`` 1) or row (0) of plane ``z`` of a nested launch whose second
+    level is a resize, its first and second tap in the middle image and
+    whether the edge rule keeps the second (a weight of 0 drops it): the
+    column walked through the outer stages alone, whether or not an outer
+    CONSTANT border fills its pixels, as a warp of the kernel lists a
+    tile's taps (``csrc/composed_nested.cuh::resize_axis``)."""
+    plan = a.plan
+    lv = plan.level(1)
+    blk = a.block.long().cpu()[z * plan.word("plane_stride"):]
+    pos, _ = _walk_axis(plan.stage_list(2), blk, torch.arange(plan.dsize[1 - axis]), axis)
+    t = plan.tables[lv.taps_off:]
+    cw, ch = lv.core_w, lv.core_h
+    first, second = (t[:cw], t[cw:2 * cw]) if axis else (t[2 * cw:2 * cw + ch],
+                                                          t[2 * cw + ch:2 * (cw + ch)])
+    wts = t[2 * (cw + ch):].view(np.float32)
+    weight = (wts[:cw] if axis else wts[cw:cw + ch])[pos.numpy()]
+    pos = pos.numpy()
+    return first[pos], second[pos], ~(bool(lv.keep) & (weight == 0.0))
+
+
+def _tiles(t, fill, tile=TILE2):
+    """``(k, H, W)`` -> ``(BH, BW, k * th * tw)``: each block's values of
+    its ``tile`` (tw, th) of outputs, ``fill`` past the output's edge."""
+    tw, th = tile
+    k, h, w = t.shape
+    bh, bw = -(-h // th), -(-w // tw)
+    padded = torch.full((k, bh * th, bw * tw), fill, dtype=t.dtype, device=t.device)
+    padded[:, :h, :w] = t
+    return padded.reshape(k, bh, th, bw, tw).permute(1, 3, 0, 2, 4).reshape(bh, bw, -1)
+
+
+def _distinct(v, take):
+    """Per block (the last axis): the positions ``v`` it takes, their
+    count of distinct values and their span (0 for none)."""
+    big = torch.iinfo(torch.int64).max
+    s = torch.where(take, v, big).sort(-1).values
+    n = (s[..., :1] != big).sum(-1) + ((s[..., 1:] != s[..., :-1]) & (s[..., 1:] != big)).sum(-1)
+    lo = s[..., 0]
+    hi = torch.where(take, v, -1).amax(-1)
+    return n, torch.where(n > 0, hi - lo + 1, 0)
+
+
+def nested_tiles(a: Launch) -> np.ndarray:
+    """The form each block of a nested launch with a second resample takes,
+    as ``csrc/composed_nested.cuh`` chooses it (its host mirror):
+    ``(planes, BH, BW, 3)`` int64 of the form's index in ``TILE_FORMS``,
+    the rows and the columns listed. A block of TILE2 outputs stages its
+    footprint ("staged") where the plan's ``stage2`` word is 1 (a warp; a
+    resize whose tiles share taps, :func:`tap_share`), each axis's
+    list holds at most LIST2 positions and their grid at most GRID2 floats
+    of ``mid_ch`` lanes: under a resize the distinct taps of the tile's
+    columns (rows) inside the output (:func:`resize_axis_taps`), spanning
+    at most SPAN2; under a warp the box of the taps its pixels take
+    (:func:`second_taps`); else it evaluates the core at each tap
+    ("per_tap", its lists 0); a plane past ``used_planes`` is "held"."""
+    plan = a.plan
+    if plan.core2 not in ("resize", "warp"):
+        raise ValueError("no second resample: the kernel's blocks take one form")
+    w, h = plan.dsize
+    tw, th = TILE2
+    shape = (-(-h // th), -(-w // tw))
+    used, stage, ch = _used(a), plan.word("stage2"), plan.word("mid_ch")
+    planes = []
+    for z in range(plan.n_planes):
+        out = torch.zeros((*shape, 3), dtype=torch.int64)
+        if z >= used:
+            out[..., 0] = TILE_FORMS.index("held")
+            planes.append(out)
+            continue
+        if plan.core2 == "resize":
+            lists = []
+            for axis, tile in ((0, (1, th)), (1, (tw, 1))):
+                first, second, keep = (torch.from_numpy(np.asarray(v)).reshape(
+                    (-1, 1) if axis == 0 else (1, -1)) for v in resize_axis_taps(a, z, axis))
+                both = torch.stack([first, second]).long()
+                taken = torch.stack([torch.ones_like(keep), keep])
+                n, span = _distinct(_tiles(both, 0, tile), _tiles(taken, False, tile))
+                lists.append((n, span))
+            (ny, span_y), (nx, span_x) = lists
+            fits = (span_y <= SPAN2) & (ny <= LIST2) & (span_x <= SPAN2) & (nx <= LIST2)
+        else:
+            ys, xs, take = (t.cpu() for t in second_taps(a, z))
+            take = _tiles(take, False)
+            _, ny = _distinct(_tiles(ys, 0), take)
+            _, nx = _distinct(_tiles(xs, 0), take)
+            fits = (ny <= LIST2) & (nx <= LIST2)
+        ny, nx = torch.broadcast_tensors(ny, nx)
+        fits = fits & (nx * ny * ch <= GRID2) & bool(stage)
+        out[..., 0] = torch.where(fits, TILE_FORMS.index("staged"), TILE_FORMS.index("per_tap"))
+        out[..., 1] = torch.where(fits, ny, 0)
+        out[..., 2] = torch.where(fits, nx, 0)
+        planes.append(out)
+    return torch.stack(planes).numpy()

@@ -1,6 +1,9 @@
 """The composed kernel's nested instances on the card (a second resampling
 node, or a fused read above the core): N1-N6 at 36x48 and at a quarter of
-the full width, what ``chip_smoke.py`` phases 3 and 4 check at full width.
+the full width, what ``chip_smoke.py`` phases 3 and 4 check at full width,
+and the other nested trees (``more_nested_cases``), among them a warp at
+a quarter scale whose blocks pass the staging budget and evaluate the
+core per tap, and an upscale whose blocks share their taps.
 Needs a CUDA device and skips without one. On a machine with a card and
 without jax, run it alone:
 
@@ -184,3 +187,19 @@ def test_a_ragged_batch_holds_the_default(cuda, used):
     a, got = _launch(cuda, ops)
     _same(got, kc.composed_reference(a))
     _same(got, T.execute_operations(*ops, backend=T.ParBackend.TORCH))
+
+
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("name", ["n1_top_view_resized", "n2_resize_then_rotate",
+                                  "n3_two_level_downscale", "n6_top_views_of_8_cameras_ragged"])
+def test_either_form_on_every_block(cuda, name, stage):
+    """A plan's stage2 word set to 0 (every block evaluates the core at
+    each tap) or 1 (every block whose footprint fits stages it): each
+    equals the plain version bit for bit."""
+    p = T.build_pipeline(*cc.nested_cases(T, _frames(cuda, H, W, 9))[name])
+    plan = kc.build_plan(p)
+    at = kc.HEAD_INTS + 2 * kc.kp.HEAD_INTS + kc._MID_WORDS.index("stage2")
+    plan = kc.dataclasses.replace(plan, head=plan.head[:at] + (stage,) + plan.head[at + 1:],
+                                  device_consts={})
+    a = kc.prepare(p, plan, cuda)
+    _same(kc.composed(a), kc.composed_reference(a))

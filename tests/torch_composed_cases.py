@@ -226,14 +226,24 @@ def nested_cases(M, f: dict, values: int = 0) -> dict:
     }
 
 
+def centred(m: np.ndarray, center, to) -> np.ndarray:
+    """A forward map ``m`` (2x3) moved so that ``center`` lands on ``to``."""
+    m = np.array(m, np.float64)
+    m[:, 2] += np.asarray(to, np.float64) - m[:, :2] @ np.asarray(center) - m[:, 2]
+    return m
+
+
 def more_nested_cases(M, u8_border=300.0) -> dict:
     """Other two-level trees at a small size: a warp of a warp, NV12 into
     uint8 under a warp under a resize, CONSTANT borders above and below an
     int32 FusedRead2, a fused gray above the core, an int16 fused read under
     a crop under a resize under a warp, a REFLECT border between two
-    resizes, a uint8 FusedRead2 under a saturating CONSTANT border, and
+    resizes, a uint8 FusedRead2 under a saturating CONSTANT border,
     FusedRead chains of 300 rows at either level (their tables staged in
-    chunks). ``u8_border`` is the saturating border's value: the
+    chunks), a warp at a quarter of the scale of a 200x150 resize (a
+    16x16 block's footprint past the staging budget: it evaluates per tap)
+    and a 2.5x upscale of a downscale (a block's taps shared, under one
+    core value a pixel). ``u8_border`` is the saturating border's value: the
     reference's lowering casts a numpy value with numpy (it wraps), a
     device value with XLA's convert (it saturates, as the port does), so
     the reference is given a ``jnp`` value."""
@@ -282,6 +292,14 @@ def more_nested_cases(M, u8_border=300.0) -> dict:
         "resize_of_a_resize_of_a_long_fused_chain": (
             M.resize(M.resize(M.fuse(M.image(img), M.convert_to(np.float32), loop),
                               M.Size(30, 20)), M.Size(17, 13)),
+            M.split_tensor()),
+        "quarter_scale_warp_of_a_resize": (
+            M.warp(M.resize(M.image(big), M.Size(200, 150)),
+                   centred(rotation((100, 75), 10.0, 0.25), (100, 75), (25, 19)), M.Size(50, 38),
+                   default=(1.0, 2.0, 3.0)),
+            *normalize(M), M.split_tensor()),
+        "upscale_of_a_downscale": (
+            M.resize(M.resize(M.image(big), M.Size(40, 30)), M.Size(100, 75)), *normalize(M),
             M.split_tensor()),
     }
 

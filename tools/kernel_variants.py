@@ -74,8 +74,11 @@ kernel duration of 20 launches), in microseconds:
   out for a variant whose composed kernel takes no batch of resamples (no
   ``plane_stride`` in its ``composed.cuh``);
 - its composed kernel's nested cases N1-N6 (``n1`` .. ``n6``: a second
-  resampling node, or a fused read above the core), left out for a variant
-  without the nested instances (no ``cvgs_composed_nested``).
+  resampling node, or a fused read above the core) and the two at the ends
+  of their staging (``n7``, a warp at a quarter scale whose blocks
+  evaluate per tap, and ``n8``, an upscale whose blocks share their taps:
+  ``budget_nested_cases``), left out for a variant without the nested
+  instances (no ``cvgs_composed_nested``).
 
 ``cases``, a comma-separated list, times only those; where it is not given,
 a file's ``"cases"`` entry (a string, not a variant) names them. The cases are
@@ -262,9 +265,10 @@ def main() -> int:
     batch_names = {name for name in cases if name.startswith("b")}
     # the nested cases N1-N6 (n1 .. n6): two levels of resampling, or a
     # fused read above the core
-    for k, ops in enumerate(cs.nested_cases(cvgs, frame, hd, cams).values(), 1):
+    for k, ops in enumerate((*cs.nested_cases(cvgs, frame, hd, cams).values(),
+                             *cs.budget_nested_cases(cvgs, frame).values()), 1):
         cases[f"n{k}"] = (kc, kc.composed, ops)
-    nested_names = {f"n{k}" for k in range(1, 7)}
+    nested_names = {f"n{k}" for k in range(1, 9)}
     composed_names = {name for name in cases if name.startswith(("c", "b"))}
     x64_cases = {name for name in (*cases, *batches) if name.endswith(("_i64", "_f64"))}
     launches = {}
@@ -372,7 +376,7 @@ def main() -> int:
             regs = {}
             for line in _build.BUILD_LOG.splitlines():
                 if "Compiling entry" in line:
-                    found = re.search(r"\d\d([a-z_]+_kernel(?:_nested)?)I(\w+?)EEv",
+                    found = re.search(r"\d\d([a-z_]+_kernel(?:_nested(?:_staged)?)?)I(\w+?)EEv",
                                       line.split("'")[1])
                     entry = f"{found.group(1)}<{found.group(2)}>" if found else line.split("'")[1]
                 if "spill" in line and "0 bytes spill stores" not in line:
