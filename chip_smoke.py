@@ -28,7 +28,13 @@ and resized, and B1-B7 (``batch_cases``), ``batch_read`` of per-plane read
 trees: eight 1080p cameras each resized to 640x360 (B1; B2 ragged at 5),
 an 800x600 region of interest of each resized to 224x224, eight 640x640
 letterboxes, warps of 960x540 crops, 50 crops of 224x224 of the 4K frame
-ragged at 37, the bare cameras, and N1-N6 (``nested_cases``), two levels of
+ragged at 37, the bare cameras, M1-M5 (``mixed_cases``), ``batch_read`` of
+planes of one shape and each its own geometry: eight cameras of three
+resolutions (two 4K, three 1080p, three 720p) each resized to 640x360 (M1;
+M2 ragged at 6), eight regions of interest of the 4K frame of eight sizes
+each letterboxed into 640x640, crops of 640x480 to 1280x960 of the cameras
+rotated into 640x360, NV12 buffers of 1080p and 720p converted into uint8
+per tap and resized, and N1-N6 (``nested_cases``), two levels of
 resampling or a fused read above the core: a 1080p top view resized, the
 4K frame resized and rotated, a two-level downscale, a crop of a downscale
 resized, a letterbox of a normalized resize, eight cameras' top views
@@ -114,7 +120,8 @@ code and no result line:
    than half the results; each kernel one launch, equal to its plain version as
    int32 bits (-0 and +0 differ), more than 0 outputs flushed to 0 and none
    subnormal; and a float64 crop of ``EDGES64`` that keeps 1e-40 and -1e-42.
-   composed in C1-C8, B1-B7, N1-N6 and N7-N8 (``budget_nested_cases``, the
+   composed in C1-C8, B1-B7, M1-M5 (each plane's head in the consts, the
+   mixed-geometry instances), N1-N6 and N7-N8 (``budget_nested_cases``, the
    per-tap form past the staging budget and an upscale's shared taps; each
    nested case's blocks' forms logged from ``nested_tiles``) at full width,
    max |diff| 0, and C1 on uint16, float16
@@ -165,7 +172,9 @@ code and no result line:
    for bit the eager version on the card; B1-B7 the same way, the second
    call with new camera frames, origins, angles, border value and
    ``used_planes``, and B1 against an independent float64 resize of each
-   camera (``oracle_frame``); N1-N6 the same way (new maps, crop origin,
+   camera (``oracle_frame``); M1-M5 the same way (new frames of the same
+   sizes, origins, angles, border value and ``used_planes``: no plan), M1
+   against a float64 resize of each camera; N1-N6 the same way (new maps, crop origin,
    border value, ``used_planes`` and N6's camera frames);
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain, and the
@@ -198,7 +207,8 @@ code and no result line:
    float32 NCHW copy of what the core reads (``F.interpolate``;
    ``F.affine_grid`` + ``F.grid_sample``), and for B1 K1 on the same
    cameras (``resize_batch``'s padded stack: the kernel alone, and the
-   call with the stack's copies); N1-N6 the same way, and for N3 two
+   call with the stack's copies); M1-M5 the same way, and for M1 eight
+   ``F.interpolate`` calls, one a camera, as a reference; N1-N6 the same way, and for N3 two
    chained ``F.interpolate`` calls on the float32 4K frame as a reference;
 6. sharding: (a) every rank of meshes of 2 and 5 (the flagship, 50 crops
    ragged at ``used_planes`` = 37) and of 2, 4 and 8 (W6; P2's ring from
@@ -685,6 +695,81 @@ def batch_cases(cvgs, cams, frame, values=0) -> dict:
             *normalize, cvgs.split_tensor()),
         "b7_bare_cameras": (cvgs.batch_read([cvgs.image(c) for c in cams]),
                             cvgs.convert_to(np.float32), cvgs.write_tensor()),
+    }
+
+
+#: M1-M5's cameras (h, w), uint8 RGB: two 4K, three 1080p, three 720p
+M_CAMERAS = ((2160, 3840),) * 2 + ((1080, 1920),) * 3 + ((720, 1280),) * 3
+M2_USED = 6
+#: M3's regions of interest of the 4K frame (w, h), each letterboxed into a
+#: square of M3_SIDE
+M3_ROIS = ((1200, 800), (800, 1200), (640, 480), (1920, 1080), (500, 500), (300, 900),
+           (1600, 600), (960, 960))
+M3_SIDE = 640
+#: M4's crop (w, h) of each of M_CAMERAS, 640x480 to 1280x960
+M4_CROPS = ((1280, 960), (1024, 768), (1280, 960), (1120, 840), (880, 660), (960, 720),
+            (800, 600), (640, 480))
+#: M5's NV12 buffers' images (h, w)
+M5_NV12 = ((1080, 1920),) * 2 + ((720, 1280),) * 2
+
+
+def letterbox(w: int, h: int, side: int):
+    """``(inner (w, h), (top, bottom, left, right))`` of a ``w`` x ``h``
+    region resized into a ``side`` x ``side`` square, aspect kept, centred."""
+    scale = side / max(w, h)
+    iw, ih = max(1, round(w * scale)), max(1, round(h * scale))
+    top, left = (side - ih) // 2, (side - iw) // 2
+    return (iw, ih), (top, side - ih - top, left, side - iw - left)
+
+
+def mixed_cases(cvgs, cams, frame, nv12s, values=0) -> dict:
+    """The composed kernel's batches whose planes share one shape but not
+    one geometry, M1-M5, at full width, which phases 3 to 5 drive; ``cams``
+    are the cameras of ``M_CAMERAS``, ``nv12s`` the buffers of ``M5_NV12``;
+    ``values`` 1 moves every runtime value (``used_planes``, origins,
+    angles, the border value) and keeps every size. M1 the eight cameras
+    each resized to 640x360 and normalized, planar; M2 M1 with
+    ``used_planes`` 6 (5), default 0; M3 eight regions of interest of the 4K
+    frame of eight sizes and aspects (``M3_ROIS``), each letterboxed into
+    640x640 (aspect kept, CONSTANT 114), x1/255, planar; M4 a crop of
+    640x480 to 1280x960 of each camera (``M4_CROPS``) rotated by 5-40
+    degrees about its centre into 640x360, normalized, planar; M5 the NV12
+    buffers converted into uint8 RGB per tap (C8's tree) and resized to
+    640x360."""
+    normalize = (cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract(MEAN),
+                 cvgs.divide(STD))
+    dst = cvgs.Size(*FRAME_DST)
+    resized = [cvgs.resize(cvgs.image(c), dst) for c in cams]
+    boxes = []
+    for k, (rw, rh) in enumerate(M3_ROIS):
+        (iw, ih), (t, b, l, r) = letterbox(rw, rh, M3_SIDE)
+        x, y = (k * 331 + 9 * values) % (SRC_W - rw), (k * 173 + 5 * values) % (SRC_H - rh)
+        boxes.append(cvgs.make_border(
+            cvgs.resize(cvgs.crop(cvgs.image(frame), cvgs.Rect(x, y, rw, rh)), cvgs.Size(iw, ih)),
+            t, b, l, r, cvgs.BorderMode.CONSTANT, 114 - 14 * values))
+    warps = []
+    for k, (c, (cw, ch)) in enumerate(zip(cams, M4_CROPS)):
+        h, w = c.shape[:2]
+        x, y = (k * 97 + 5 * values) % (w - cw + 1), (k * 41) % (h - ch + 1)
+        angle = 5.0 + 35.0 * k / (len(cams) - 1) + 2.0 * values
+        scale = min(dst.width / cw, dst.height / ch)
+        warps.append(cvgs.warp(cvgs.crop(cvgs.image(c), cvgs.Rect(x, y, cw, ch)),
+                               rotation((cw / 2, ch / 2), angle, scale,
+                                        to=(dst.width / 2, dst.height / 2)), dst))
+    return {
+        "m1_cameras_of_3_sizes_resized": (cvgs.batch_read(resized), *normalize,
+                                          cvgs.split_tensor()),
+        "m2_cameras_of_3_sizes_ragged": (
+            cvgs.batch_read(resized, used_planes=M2_USED - values, default=0.0), *normalize,
+            cvgs.split_tensor()),
+        "m3_rois_letterboxed_640x640": (
+            cvgs.batch_read(boxes), cvgs.convert_to(np.float32, alpha=1 / 255.0),
+            cvgs.split_tensor()),
+        "m4_rotated_crops_of_8_sizes": (cvgs.batch_read(warps), *normalize, cvgs.split_tensor()),
+        "m5_nv12_cameras_of_2_sizes": (
+            cvgs.batch_read([cvgs.resize(cvgs.fuse(cvgs.read_yuv(b), cvgs.convert_yuv_to_rgb(
+                out_dtype=np.uint8)), dst) for b in nv12s]),
+            cvgs.split_tensor()),
     }
 
 
@@ -1864,6 +1949,24 @@ def main() -> int:
             f"{plan.dsize[0]}x{plan.dsize[1]}, source {plan.src_dtype}, "
             f"{plan.word('plane_stride')} block words a plane, used_planes "
             f"{'yes' if plan.word('used_off') >= 0 else 'no'}")
+    # the mixed-geometry batches M1-M5 at full width: cameras of three
+    # resolutions, regions of eight sizes letterboxed, crops of eight sizes
+    # rotated, NV12 buffers of two sizes; one launch each of the instances
+    # whose block reads its plane's head, equal to the plain version
+    m_cams_np = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in M_CAMERAS]
+    m_cams = [torch.from_numpy(c).to(dev) for c in m_cams_np]
+    m_nv12 = [torch.from_numpy(rng.integers(0, 256, (h * 3 // 2, w), dtype=np.uint8)).to(dev)
+              for h, w in M5_NV12]
+    for name, ops in mixed_cases(cvgs, m_cams, frame, m_nv12).items():
+        plan = check(name, *ops, kernel="composed", tol=0.0)
+        sizes = sorted({q.head[1:3] for q in plan.planes})
+        log(f"phase3 composed {name}: core {plan.core}, {plan.n_planes} planes of "
+            f"{plan.dsize[0]}x{plan.dsize[1]}, batch word {plan.word('batch')}, bases (h, w) "
+            f"{sizes}, cores' sources (h, w) "
+            f"{[(q.word('in_h'), q.word('in_w')) for q in plan.planes]}, "
+            f"{plan.tables.size} consts words")
+        assert plan.word("batch") == kc.MIXED and len(plan.planes) == plan.n_planes, name
+
     # the nested cases N1-N6 at full width: a second resampling node, or a
     # fused read above the core, in one launch, equal to the plain version
     # and the two at the ends of its staging; with a second resample, the
@@ -2307,6 +2410,48 @@ def main() -> int:
             log(f"phase4 composed path ({name}): max|diff| vs a float64 resize of each camera "
                 f"{b1_err!r}")
             assert b1_err <= ORACLE_TOL, b1_err
+
+    # the mixed-geometry batches M1-M5 twice each through
+    # execute_operations, the second call with new frames of the same sizes
+    # and new used_planes, origins, angles and border value: one launch of
+    # cuda:composed per call (the count set to 0 just before), no plan on
+    # the second, bit for bit the eager version on the card, finite; M1
+    # against an independent float64 resize of each camera
+    m_cams_next = [torch.from_numpy(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).to(dev)
+                   for h, w in M_CAMERAS]
+    m_nv12_next = [torch.from_numpy(rng.integers(0, 256, (h * 3 // 2, w), dtype=np.uint8))
+                   .to(dev) for h, w in M5_NV12]
+    for name in mixed_cases(cvgs, m_cams, frame, m_nv12):
+        kc.LAUNCHES = 0
+        builds0 = executor.PLAN_BUILDS
+        outs, backends, seen = [], [], []
+        for values, frames, bufs in ((0, m_cams, m_nv12), (1, m_cams_next, m_nv12_next)):
+            ops = mixed_cases(cvgs, frames, frame, bufs, values)[name]
+            outs.append(drive("composed", lambda: cvgs.execute_operations(*ops)))
+            backends.append(cvgs.last_backend())
+            seen.append((kc.LAUNCHES, executor.PLAN_BUILDS))
+        torch.cuda.synchronize()
+        composed_launches += kc.LAUNCHES
+        ops1 = mixed_cases(cvgs, m_cams_next, frame, m_nv12_next, 1)[name]
+        forced = cvgs.describe_backend(*ops1, backend=cvgs.ParBackend.CUDA)
+        eager = cvgs.execute_operations(*ops1, backend=cvgs.ParBackend.TORCH)
+        same = torch.equal(outs[1].view(torch.int32), eager.view(torch.int32)) \
+            if outs[1].dtype == torch.float32 else torch.equal(outs[1], eager)
+        log(f"phase4 composed path ({name}): backends {backends}, under ParBackend.CUDA {forced}; "
+            f"launches {seen[0][0]} {seen[1][0]}; plan builds {builds0} -> {seen[0][1]} -> "
+            f"{seen[1][1]}; {tuple(outs[1].shape)} {outs[1].dtype}; equal to eager torch {same}")
+        assert backends == ["cuda:composed"] * 2 and forced == "cuda:composed", (backends, forced)
+        assert (seen[0][0], seen[1][0]) == (1, 2), seen
+        assert seen[0][1] <= builds0 + 1 and seen[1][1] == seen[0][1], (builds0, seen)
+        assert same and not torch.equal(outs[0], outs[1])
+        assert outs[1].dtype != torch.float32 or bool(torch.isfinite(outs[1]).all())
+        if name == "m1_cameras_of_3_sizes_resized":
+            got = outs[0].double().cpu().numpy()
+            m1_err = max(float(np.abs(got[k] - oracle_frame(m_cams_np[k], *FRAME_DST)).max())
+                         for k in range(len(M_CAMERAS)))
+            log(f"phase4 composed path ({name}): max|diff| vs a float64 resize of each camera "
+                f"{m1_err!r}")
+            assert m1_err <= ORACLE_TOL, m1_err
 
     # the nested cases N1-N6 twice each through execute_operations, the
     # second call with new maps, a new crop origin, border value and
@@ -3176,6 +3321,81 @@ def main() -> int:
             f"copies a call; execute_operations host-inclusive {t['call_ms'] * 1e3:.2f} us/call "
             f"(median of 30){k1_text}")
 
+    # the mixed-geometry batches M1-M5 the same way: kernel vs plain
+    # version, bound (each plane's own sectors and operations, summed),
+    # floor, the eager path it replaces; no one library call reads planes of
+    # several sizes, so library_ms is null; for M1 alone, as a reference,
+    # eight F.interpolate calls, one a camera, on float32 NCHW copies of the
+    # cameras (made before timing)
+    m_times = {}
+    for name, ops in mixed_cases(cvgs, m_cams, frame, m_nv12).items():
+        pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: as_device_tensor(v, dev))
+        margs = kc.prepare(pipe, kc.build_plan(pipe), dev)
+        t = measure(lambda: kc.composed(margs), lambda: kc.composed_reference(margs), 50,
+                    what=name, plain_iters=5)
+        t.update(bounds.bound(*kc.work(margs), bandwidth))
+        t["max_abs_err"] = case_err[name]
+        t["library_ms"] = t["library_profiler_ms"] = None
+        if name == "m1_cameras_of_3_sizes_resized":
+            nchws = [c.permute(2, 0, 1)[None].float().contiguous() for c in m_cams]
+
+            def per_plane_interpolates():
+                return [F.interpolate(x, size=(FRAME_DST[1], FRAME_DST[0]), mode="bilinear",
+                                      align_corners=False) for x in nchws]
+
+            t["per_plane_interpolate_ms"] = float(np.median(time_cuda(per_plane_interpolates,
+                                                                      iters=50)))
+            t["per_plane_interpolate_profiler_ms"] = profiler_ms(
+                per_plane_interpolates, what="eight F.interpolate")
+            del nchws
+            # what a plane's head in shared memory costs: B1 (one geometry)
+            # launched as it is and through the mixed-geometry instances,
+            # each plane given B1's own head, bit-equal
+            b1 = map_leaves(cvgs.build_pipeline(*batch_cases(cvgs, cams, frame)[
+                "b1_cameras_resized"]), lambda v: as_device_tensor(v, dev))
+            b1_plan = kc.build_plan(b1)
+            by_value = kc.prepare(b1, b1_plan, dev)
+            through_mixed = kc.prepare(b1, kc._mixed([b1_plan] * b1_plan.n_planes), dev)
+            b1_same = torch.equal(kc.composed(by_value), kc.composed(through_mixed))
+            assert b1_same, "B1 through the mixed-geometry instances differs"
+            for tag, b1_args in (("by_value", by_value), ("mixed", through_mixed),
+                                 ("mixed", through_mixed), ("by_value", by_value)):
+                t.setdefault(f"b1_{tag}_ms_runs", []).extend(
+                    time_cuda(lambda: kc.composed(b1_args), iters=50))
+            for tag, b1_args in (("by_value", by_value), ("mixed", through_mixed)):
+                t[f"b1_{tag}_ms"] = float(np.median(t.pop(f"b1_{tag}_ms_runs")))
+                t[f"b1_{tag}_profiler_ms"] = profiler_ms(lambda: kc.composed(b1_args),
+                                                         what=f"b1 {tag}")
+        eager = lambda: executor.run_pipeline(pipe, cvgs.ParBackend.TORCH)  # noqa: E731
+        t["eager_ms"] = float(np.median(time_cuda(eager, iters=10)))
+        t["eager_profiler_ms"] = profiler_ms(eager, calls=5, what=f"{name} eager")
+        t["eager_launches"], t["eager_copies"] = eager_launches(eager)
+        whole = []
+        for _ in range(40):
+            t0 = time.perf_counter()
+            cvgs.execute_operations(*ops)
+            torch.cuda.synchronize()
+            whole.append(time.perf_counter() - t0)
+        t["call_ms"] = float(np.median(whole[10:])) * 1e3
+        assert cvgs.last_backend() == "cuda:composed"
+        m_times[name] = t
+        ref_text = ""
+        if "per_plane_interpolate_ms" in t:
+            ref_text = (f"; eight F.interpolate calls, one a camera (a reference, not one library "
+                        f"call) {t['per_plane_interpolate_ms'] * 1e3:.2f} us by events, "
+                        f"{t['per_plane_interpolate_profiler_ms'] * 1e3:.2f} us by torch.profiler "
+                        "(the eight kernels' sum); B1's batch by value "
+                        f"{t['b1_by_value_ms'] * 1e3:.2f} / "
+                        f"{t['b1_by_value_profiler_ms'] * 1e3:.2f} "
+                        f"us and through the mixed-geometry instances "
+                        f"{t['b1_mixed_ms'] * 1e3:.2f} / {t['b1_mixed_profiler_ms'] * 1e3:.2f} us "
+                        "(events / profiler), bit-equal")
+        log(f"phase5 composed {name}: {describe(t)}; the eager path (ParBackend.TORCH) "
+            f"{t['eager_ms'] * 1e3:.2f} us by events, {t['eager_profiler_ms'] * 1e3:.2f} us by "
+            f"torch.profiler, {t['eager_launches']:.0f} kernels and {t['eager_copies']:.0f} "
+            f"copies a call; execute_operations host-inclusive {t['call_ms'] * 1e3:.2f} us/call "
+            f"(median of 30){ref_text}")
+
     # the nested cases N1-N6 the same way: kernel vs plain version, bound,
     # floor, the eager path it replaces (one launch per op); no one library
     # call reads two levels, so library_ms is null; for N3 alone, as a
@@ -3559,7 +3779,7 @@ def main() -> int:
         # jitted XLA program for composed reads
         entry("composed", "composed.cu", "cvgpuspeedup_tpu/exec/executor.py:243",
               composed_launches, c_times["c1_roi_crop_resize"], cases=c_times,
-              batch_cases=b_times, nested_cases=n_times),
+              batch_cases=b_times, nested_cases=n_times, mixed_cases=m_times),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,8 +29,9 @@
 //    thread's loads, not inside each tap's. Each kind has a resample's
 //    instance (4 taps a pixel, 1 pixel a thread) and a one-pixel read's of
 //    1 or 4 adjacent pixels a thread (pixels_per_thread, the warp kernel's
-//    rule): 12 instances in four files, built in parallel. The output's
-//    element type is a switch at the store.
+//    rule): 12 instances in four files, built in parallel, and 8 more for
+//    a batch whose planes differ in geometry (below). The output's element
+//    type is a switch at the store.
 //  - A thread walks its pixels through the outer stages once for its row,
 //    then its taps' columns and rows through the stages below the core one
 //    axis at a time (walk_axis): a resize's 2 columns and 2 rows, not its 4
@@ -50,6 +51,12 @@
 //    lie plane_stride block words apart, its source address in the block,
 //    so N cameras are read in place with no staging copy; a plane past
 //    used_planes reads nothing and stores the default through the chain.
+//  - A batch whose planes share one shape but not one geometry (cameras of
+//    mixed resolution, ROIs and letterboxes of their own sizes) has each
+//    plane's head in the consts: its instances (a resample's and a
+//    one-pixel read's, one pixel a thread) copy the block's plane head into
+//    shared memory and run the same body over it; a batch of one geometry
+//    keeps its head by value and its instances.
 // Runtime values (crop origins, border values, warp coefficients and
 // border, chain scalars, a batch's source addresses, used_planes and the
 // default) come from one int32 block, so nothing of them keys a plan.
@@ -62,8 +69,63 @@
 
 #include "composed.cuh"
 
+namespace {
+
+// The checks of one plane's head that the launch does not set.
+bool head_ok(const CmHead& h) {
+  const PwHead& b = h.lower;
+  const bool stages_ok = b.n_stages >= 0 && b.n_stages <= kMaxStages && h.upper.n_stages >= 0 &&
+                         h.upper.n_stages <= kMaxStages && h.outer.n_stages >= 0 &&
+                         h.outer.n_stages <= kMaxStages;
+  return stages_ok && h.core >= CM_NONE && h.core <= CM_WARP && h.plane_stride >= 0 &&
+         h.used_off >= -1 && (h.used_off >= 0) == (h.default_off >= 0) && b.base >= PW_IMAGE &&
+         b.base <= PW_YUV && b.base != PW_CIRC && b.src_type >= PW_U8 && b.src_type <= PW_F64 &&
+         b.nch >= 1 && b.nch <= kMaxCh && b.src_h >= 1 && b.src_w >= 1 &&
+         !(b.base == PW_YUV && (b.src_type != PW_U8 || b.nch != 3)) &&
+         !(b.conv_first && b.nch != 3) && h.tap_ch >= 1 && h.tap_ch <= kMaxCh &&
+         h.tap_type >= PW_U8 && h.tap_type <= PW_I32 && h.core_type >= PW_U8 &&
+         h.core_type <= PW_I32 && h.in_n_ops >= 0 && h.out_n_ops >= 0 && h.core_h >= 1 &&
+         h.core_w >= 1 && h.in_h >= 1 && h.in_w >= 1;
+}
+
+// Whether two stage lists share their structure: counts, kinds, modes and
+// block offsets (their sizes may differ).
+bool same_stages(const PwHead& a, const PwHead& b) {
+  if (a.n_stages != b.n_stages) return false;
+  for (int s = 0; s < a.n_stages; ++s) {
+    const PwStage &x = a.st[s], &y = b.st[s];
+    const bool crop = x.kind == PW_CROP;
+    if (x.kind != y.kind || x.mode != y.mode || (crop ? x.a != y.a || x.b != y.b : x.c != y.c)) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// Whether plane heads a and b of a mixed-geometry batch differ in geometry
+// alone: the base's and stages' sizes, the core's sizes, its edge rule and
+// its tap tables.
+bool same_structure(const CmHead& a, const CmHead& b) {
+  const PwHead &p = a.lower, &q = b.lower;
+  return same_stages(p, q) && same_stages(a.upper, b.upper) && same_stages(a.outer, b.outer) &&
+         p.base == q.base && p.src_type == q.src_type && p.nch == q.nch && p.nv21 == q.nv21 &&
+         p.conv_first == q.conv_first && p.limited == q.limited && p.width == q.width &&
+         a.core == b.core && a.persp == b.persp && a.coef_off == b.coef_off &&
+         a.border_off == b.border_off && a.tap_type == b.tap_type &&
+         a.core_type == b.core_type && a.tap_ch == b.tap_ch && a.batch == b.batch &&
+         a.in_n_ops == b.in_n_ops && a.in_ops_off == b.in_ops_off &&
+         a.in_fp_off == b.in_fp_off && a.out_n_ops == b.out_n_ops &&
+         a.out_ops_off == b.out_ops_off && a.out_fp_off == b.out_fp_off &&
+         a.plane_stride == b.plane_stride && a.used_off == b.used_off &&
+         a.default_off == b.default_off;
+}
+
+}  // namespace
+
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
-// `head` points at the kCmWords host words of a CmHead; `blk` is the device
+// `head` points at the kCmWords host words of a CmHead (a mixed-geometry
+// batch's, batch == CM_MIXED: at n_planes such heads, plane 0's first,
+// which the consts also hold from word 0 on); `blk` is the device
 // block of runtime values; `consts` holds the fused read's op table at
 // in_ops_off and the pipeline's at out_ops_off (each: the rows, a sentinel,
 // each row's channel count) and a resize's tap tables at taps_off; `out`
@@ -79,26 +141,23 @@ extern "C" int cvgs_composed(const void* src, const int* head, float ys, float c
   CmHead h;
   std::memcpy(&h, head, sizeof(CmHead));
   const PwHead& b = h.lower;
-  const bool stages_ok = b.n_stages >= 0 && b.n_stages <= kMaxStages && h.upper.n_stages >= 0 &&
-                         h.upper.n_stages <= kMaxStages && h.outer.n_stages >= 0 &&
-                         h.outer.n_stages <= kMaxStages;
-  if (!stages_ok || h.core < CM_NONE || h.core > CM_WARP || h.plane_stride < 0 ||
-      h.used_off < -1 || (h.used_off >= 0) != (h.default_off >= 0) ||
-      (!h.batch && n_planes != 1) || n_planes < 1 || n_planes > 65535 || dst_w < 1 ||
-      dst_h < 1 || out_ch < 1 || out_ch > kMaxCh || out_type < PW_U8 || out_type > PW_I32 ||
-      b.base < PW_IMAGE || b.base > PW_YUV || b.base == PW_CIRC || b.src_type < PW_U8 ||
-      b.src_type > PW_F64 || b.nch < 1 || b.nch > kMaxCh || b.src_h < 1 || b.src_w < 1 ||
-      (b.base == PW_YUV && (b.src_type != PW_U8 || b.nch != 3)) || (b.conv_first && b.nch != 3) ||
-      h.tap_ch < 1 || h.tap_ch > kMaxCh || h.tap_type < PW_U8 || h.tap_type > PW_I32 ||
-      h.core_type < PW_U8 || h.core_type > PW_I32 || h.in_n_ops < 0 || h.out_n_ops < 0 ||
-      h.core_h < 1 || h.core_w < 1 || h.in_h < 1 || h.in_w < 1) {
+  if (!head_ok(h) || h.batch < CM_ONE || h.batch > CM_MIXED || (!h.batch && n_planes != 1) ||
+      n_planes < 1 || n_planes > 65535 || dst_w < 1 || dst_h < 1 || out_ch < 1 ||
+      out_ch > kMaxCh || out_type < PW_U8 || out_type > PW_I32) {
     return (int)cudaErrorInvalidValue;
+  }
+  for (int z = 1; h.batch == CM_MIXED && z < n_planes; ++z) {
+    CmHead p;
+    std::memcpy(&p, head + (long long)z * kCmWords, sizeof(CmHead));
+    if (!head_ok(p) || !same_structure(h, p)) return (int)cudaErrorInvalidValue;
   }
   const Conv conv{b.limited, 0, ys, cs, rv, gu, gv, bu};
   const cvgs::ComposedArgs a{src, head, conv, blk, consts, n_planes, dst_w, dst_h, out, out_type,
                              out_ch, store_op, sn, sc, sy, sx,
-                             kc::pixels_per_thread((long long)n_planes * dst_w * dst_h,
-                                                   h.core == CM_NONE ? 1 : 4),
+                             h.batch == CM_MIXED
+                                 ? 1
+                                 : kc::pixels_per_thread((long long)n_planes * dst_w * dst_h,
+                                                         h.core == CM_NONE ? 1 : 4),
                              static_cast<cudaStream_t>(stream)};
   // one instance per kind of source: every source type is a case by name
   if (b.base == PW_YUV) {

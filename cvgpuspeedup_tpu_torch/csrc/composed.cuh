@@ -23,6 +23,16 @@
 // (used_off) reads nothing and holds the default (default_off) cast to the
 // core's type, then runs the pipeline's chain.
 //
+// Planes of one shape may differ in geometry: the base's size, the crops'
+// and borders' sizes, a resample's output size and so its source's (cameras
+// of mixed resolution, ROIs of their own sizes, letterboxes of their own
+// aspect). Such a batch (batch == CM_MIXED) launches instances of its own
+// (composed_kernel_mixed): each plane's whole head lies in the consts,
+// kCmWords words a plane from word 0, with its own tap tables; a block
+// copies its plane's head into shared memory once and runs the same body
+// over it. A batch of one geometry keeps its head by value, so it pays
+// nothing for this.
+//
 // Every rule matches exec/cuda_composed.py::composed_reference and the
 // eager lowering bit for bit:
 //   a tap's position walks the upper stages, then the lower ones; a lower
@@ -54,6 +64,7 @@ namespace {
 
 // keep every code in step with exec/cuda_composed.py
 enum : int { CM_NONE = 0, CM_RESIZE = 1, CM_WARP = 2 };  // cores
+enum : int { CM_ONE = 0, CM_BATCH = 1, CM_MIXED = 2 };    // the batch word
 
 // The head of one launch; the host fills it from the plan
 // (exec/cuda_composed.py::ComposedPlan.head).
@@ -72,7 +83,9 @@ struct CmHead {
   int tap_type;        // a tap's type after the fused read's chain (PW_U8 .. PW_I32)
   int core_type;       // the core's output type
   int tap_ch;          // a tap's channels after the fused read's chain
-  int batch;           // a BatchRead: plane z's source address at 8-byte block word z
+  int batch;           // a BatchRead (CM_BATCH, CM_MIXED): plane z's source address at
+                       // 8-byte block word z; CM_MIXED: plane z's head at consts word
+                       // z * kCmWords
   int in_n_ops, in_ops_off, in_fp_off;    // the fused read's chain: rows, table, scalars
   int out_n_ops, out_ops_off, out_fp_off;  // the pipeline's chain
   int plane_stride;             // plane z's values z * plane_stride words past plane 0's
@@ -380,9 +393,11 @@ __device__ __forceinline__ void run_table(float (&v)[P][kMaxCh], PwRow* rows, bo
 template <typename Src, int T>
 constexpr int kBlocks = T == 4 && std::is_same_v<Src, AnyType> ? 3 : 4;
 
+// The kernel's body over the plane's head h: the kernel's parameter, or a
+// mixed-geometry batch's plane head in shared memory.
 template <typename Src, int T, int P>
-__global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
-    const void* __restrict__ src, CmHead h, Conv conv, const int* __restrict__ blk,
+__device__ __forceinline__ void composed_body(
+    const void* __restrict__ src, const CmHead& h, const Conv& conv, const int* __restrict__ blk,
     const int* __restrict__ consts, int dst_w, int dst_h, void* __restrict__ out, int out_type,
     int out_ch, int store_op, long long sn, long long sc, long long sy, long long sx) {
   // a thread's N taps over NX x positions and NY y positions: a
@@ -674,8 +689,38 @@ __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
               out_ch, sc, sx);
 }
 
+template <typename Src, int T, int P>
+__global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
+    const void* __restrict__ src, CmHead h, Conv conv, const int* __restrict__ blk,
+    const int* __restrict__ consts, int dst_w, int dst_h, void* __restrict__ out, int out_type,
+    int out_ch, int store_op, long long sn, long long sc, long long sy, long long sx) {
+  composed_body<Src, T, P>(src, h, conv, blk, consts, dst_w, dst_h, out, out_type, out_ch,
+                           store_op, sn, sc, sy, sx);
+}
+
+// A mixed-geometry batch's instance: the block's plane head (kCmWords
+// consts words at blockIdx.z * kCmWords) copied into shared memory, then
+// the body over it.
+template <typename Src, int T, int P>
+__global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel_mixed(
+    const void* __restrict__ src, Conv conv, const int* __restrict__ blk,
+    const int* __restrict__ consts, int dst_w, int dst_h, void* __restrict__ out, int out_type,
+    int out_ch, int store_op, long long sn, long long sc, long long sy, long long sx) {
+  __shared__ CmHead h;
+  const int* rec = consts + (long long)blockIdx.z * kCmWords;
+  int* words = reinterpret_cast<int*>(&h);
+  const int threads = blockDim.x * blockDim.y;
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < kCmWords; i += threads) {
+    words[i] = __ldg(rec + i);
+  }
+  __syncthreads();
+  composed_body<Src, T, P>(src, h, conv, blk, consts, dst_w, dst_h, out, out_type, out_ch,
+                           store_op, sn, sc, sy, sx);
+}
+
 // The launch for a source of kind Src: 1 or 4 taps from the core, P from
-// a.pix. A block is 256 threads: 64 x 4, narrowed while half as many
+// a.pix (1 for a mixed-geometry batch, whose instances take one pixel a
+// thread). A block is 256 threads: 64 x 4, narrowed while half as many
 // threads across still cover a row.
 template <typename Src>
 void launch_source(const ComposedArgs& a) {
@@ -684,6 +729,19 @@ void launch_source(const ComposedArgs& a) {
   const dim3 block = group_block(a.dst_w, a.pix);
   const int tile_w = block.x * a.pix;
   const dim3 grid((a.dst_w + tile_w - 1) / tile_w, (a.dst_h + block.y - 1) / block.y, a.n_planes);
+  if (h.batch == CM_MIXED) {
+#define CVGS_MIXED(T)                                                                    \
+  composed_kernel_mixed<Src, T, 1><<<grid, block, 0, a.stream>>>(                        \
+      a.src, a.conv, a.blk, a.consts, a.dst_w, a.dst_h, a.out, a.out_type, a.out_ch,     \
+      a.store_op, a.sn, a.sc, a.sy, a.sx)
+    if (h.core == CM_NONE) {
+      CVGS_MIXED(1);
+    } else {
+      CVGS_MIXED(4);
+    }
+#undef CVGS_MIXED
+    return;
+  }
 #define CVGS_KERNEL(T, P)                                                                    \
   composed_kernel<Src, T, P><<<grid, block, 0, a.stream>>>(a.src, h, a.conv, a.blk, a.consts, \
                                                            a.dst_w, a.dst_h, a.out, a.out_type, \

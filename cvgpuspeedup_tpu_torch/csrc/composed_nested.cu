@@ -64,6 +64,7 @@ extern "C" int cvgs_composed_nested(const void* src, const int* head, float ys, 
       h.core_type < PW_U8 || h.core_type > PW_I32 || h.in_n_ops < 0 || h.out_n_ops < 0 ||
       h.core_h < 1 || h.core_w < 1 || h.in_h < 1 || h.in_w < 1 || n.mid_ch < 1 ||
       n.mid_ch > kMaxCh || n.mid_type < PW_U8 || n.mid_type > PW_I32 || n.mid_n_ops < 0 ||
+      h.batch < CM_ONE || h.batch > CM_BATCH ||
       n.core2_h < 1 || n.core2_w < 1 || n.mid_h < 1 || n.mid_w < 1 || n.stage2 < 0 ||
       n.stage2 > 1) {
     return (int)cudaErrorInvalidValue;

@@ -20,10 +20,16 @@ computes a pipeline whose read is, from the output inwards,
 
 then the pointwise chain and any write. A ``BatchRead`` (the reference's
 ``batch_read``, ``crop_batch``, ``warp_batch`` of crops) takes N planes
-whose trees have one structure (equal ``graph.flatten`` keys: sizes, border
-modes, warp type, chain structure, the base's shape and dtype); they differ
-only in their leaves (the source array, crop origins, border values, warp
-coefficients, chain scalars). Its planes ``z >= used_planes`` hold
+whose trees have one shape (``_one_shape``: equal op types, border modes,
+interpolation, warp type, chain structure, the base's kind, dtype and
+channels, and one output size); they differ in their leaves (the source
+array, crop origins, border values, warp coefficients, chain scalars) and
+may differ in their geometry: the base's height and width, each crop's and
+border's sizes, a resample's ``dsize`` (cameras of mixed resolution, ROIs of
+their own sizes, letterboxes of their own aspect). A batch of one geometry
+runs one head on every plane; a mixed one (``MIXED``) has each plane's head
+and tap tables in the consts (``_mixed``), which its own kernel instances
+read per block. Its planes ``z >= used_planes`` hold
 ``default`` cast to the read value's dtype. A one-frame read with no
 resampling node is the kernel's only with a ``FusedRead`` below a stage;
 every other such tree is the pointwise kernel's (a ``BatchRead``'s planes
@@ -47,8 +53,12 @@ names each):
   runs per tap of each level;
 - a batched image under a resample or in a ``BatchRead`` plane: a plane
   reads one frame;
-- a ``BatchRead`` whose planes differ in structure, or of a
-  ``BatchRead``, a ring or another read: a plane's words are shared;
+- a ``BatchRead`` whose planes differ in more than geometry (op types,
+  modes, chains, the base's dtype, kind or channels, the output size: the
+  divergent kernel's ground), or of a ``BatchRead``, a ring or another
+  read: a plane's structure is shared;
+- a ``BatchRead`` of nested planes whose geometry differs: the nested
+  instances' staging choice and footprint budget are per structure;
 - more than ``MAX_STAGES`` crops and borders above the core, between two
   resampling nodes, or below the core;
 - the float ``FusedRead`` of NV12 that the full-frame kernel resizes
@@ -83,11 +93,13 @@ Semantics, each as the eager lowering computes it:
   nothing and holds the default; the pipeline's chain then runs on every
   plane.
 
-:func:`build_plan` turns the structure into a :class:`ComposedPlan` once:
-the head's words (three ``PwHead`` stage lists and the core's fields, all
-of one plane; a nested plan's two more stage lists and the second level's
-fields after them), the op tables and the resizes' tap tables, and the
-block's layout. Runtime values ride one int32 block per call and key no plan: a
+:func:`build_plan` turns the structure into a :class:`ComposedPlan` once
+(per mix of sizes, as the reference compiles one program per static
+shapes): the head's words (three ``PwHead`` stage lists and the core's
+fields, all of one plane; a nested plan's two more stage lists and the
+second level's fields after them; a mixed batch's every plane's head,
+:meth:`ComposedPlan.for_plane`), the op tables and the resizes' tap
+tables, and the block's layout. Runtime values ride one int32 block per call and key no plan: a
 batch's source addresses, then each plane's values (crop origins, border
 values, warp coefficients and border, the fused chain's scalars) at a
 stride of ``plane_stride`` words (the head holds plane 0's offsets), then
@@ -111,7 +123,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..graph import FusedRead, ReadOp, flatten, map_leaves
+from ..graph import ComputeOp, FusedRead, ReadOp, _leaf_signature, flatten, map_leaves
+from ..ops.border import BorderRead
 from ..ops.crop import CropRead
 from ..ops.memory import BatchRead, ImageRead
 from ..ops.nv12 import ReadYUV
@@ -140,6 +153,10 @@ LAUNCHES = 0
 CORES = ("none", "resize", "warp")
 #: the head's words: three PwHead stage lists (csrc/pointwise.cuh), then the core's
 HEAD_INTS = 3 * kp.HEAD_INTS + 23
+#: the ``batch`` word of a BatchRead whose planes differ in geometry: each
+#: plane's head lies in the consts, HEAD_INTS words a plane from 0 (1: a
+#: BatchRead of one geometry, 0: one frame)
+MIXED = 2
 _CORE_WORDS = ("core", "core_h", "core_w", "in_h", "in_w", "keep_edge", "persp", "coef_off",
                "border_off", "taps_off", "tap_type", "core_type", "tap_ch", "batch", "in_n_ops",
                "in_ops_off", "in_fp_off", "out_n_ops", "out_ops_off", "out_fp_off", "plane_stride",
@@ -259,19 +276,79 @@ def _plane(read, batch: bool) -> _Plane:
     return _Plane(outer, core, upper, fused, lower, base, core2, above, fused2, below)
 
 
-def _one_structure(read: BatchRead) -> None:
+#: the static sizes each plane of a ``BatchRead`` may hold as its own (its
+#: geometry); a base's height and width are the others
+_GEOMETRY = {CropRead: ("width", "height"), BorderRead: ("top", "bottom", "left", "right"),
+             ResizeRead: ("dsize",), WarpRead: ("dsize",)}
+#: the field of each base whose leaf is the frame
+_FRAMES = {ImageRead: "data", ReadYUV: "buffer"}
+#: what a static field that differs between planes is called
+_FIELD_NAMES = {"mode": "border mode", "interp": "interpolation", "warp_type": "warp type",
+                "pixel_format": "NV12 format"}
+
+
+def _difference(a, b) -> Optional[str]:
+    """What differs between two planes' read trees beyond their geometry
+    (``_GEOMETRY`` and the frames' heights and widths), or None: op types,
+    modes, the fused chains' structure, the frames' dtype and channels, a
+    runtime value's shape or dtype."""
+    if type(a) is not type(b):
+        what = "chain structure" if isinstance(a, ComputeOp) else "op types"
+        return f"{what} ({type(a).__name__} and {type(b).__name__})"
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        fields = dataclasses.fields(a)
+        for f in fields:  # an op's own static fields first, then its children
+            va, vb = getattr(a, f.name), getattr(b, f.name)
+            if (f.metadata.get("static") and f.name not in _GEOMETRY.get(type(a), ())
+                    and va != vb):
+                what = ("chain structure" if isinstance(a, ComputeOp)
+                        else _FIELD_NAMES.get(f.name, f"{type(a).__name__}.{f.name}"))
+                return f"{what} ({va} and {vb})"
+        for f in fields:
+            va, vb = getattr(a, f.name), getattr(b, f.name)
+            if f.metadata.get("static"):
+                continue
+            if _FRAMES.get(type(a)) == f.name:
+                (_, sa, da), (_, sb, db) = _leaf_signature(va), _leaf_signature(vb)
+                if da != db:
+                    return f"source dtype ({da} and {db})"
+                if len(sa) != len(sb) or sa[2:] != sb[2:]:
+                    return f"channels (frames of shape {sa} and {sb})"
+            else:
+                d = _difference(va, vb)
+                if d is not None:
+                    return d
+        return None
+    if isinstance(a, (tuple, list)):
+        if len(a) != len(b):
+            return f"chain structure ({len(a)} and {len(b)} ops)"
+        return next((d for d in map(_difference, a, b) if d is not None), None)
+    if a is None or b is None:
+        return None if a is b else "op types (an op and none)"
+    sa, sb = _leaf_signature(a), _leaf_signature(b)
+    return None if sa == sb else f"a runtime value's shape or dtype ({sa[1:]} and {sb[1:]})"
+
+
+def _one_shape(read: BatchRead) -> bool:
     """Raises :class:`Unsupported` unless the planes of ``read`` share one
-    structure (equal ``graph.flatten`` keys). The plan cache keys on the
-    whole read, so a pipeline whose plan exists has passed this test."""
+    shape: their ``graph.flatten`` keys equal but for each plane's geometry
+    (``_difference``); whether they share their geometry too (equal keys).
+    The plan cache keys on the whole read, so a pipeline whose plan exists
+    has passed this test."""
     if not read.ops:
         raise Unsupported("a BatchRead of no planes")
     key = flatten(read.ops[0])[0]
+    one_geometry = True
     for z, o in enumerate(read.ops[1:], 1):
-        if flatten(o)[0] != key:
+        if flatten(o)[0] == key:
+            continue
+        one_geometry = False
+        what = _difference(read.ops[0], o)
+        if what is not None:
             raise Unsupported(
-                f"planes 0 and {z} of a BatchRead differ in structure ({_names(read.ops[0])} "
-                f"and {_names(o)}, or their sizes, modes, chains or sources' shapes and "
-                "dtypes): the kernel runs one plane's words on every plane")
+                f"planes 0 and {z} of a BatchRead differ in {what} ({_names(read.ops[0])} and "
+                f"{_names(o)}): the kernel runs one structure on every plane")
+    return one_geometry
 
 
 def _tree(pipeline) -> _Tree:
@@ -368,8 +445,16 @@ class ComposedPlan:
     #: alone); "" for a plan of one level
     core2: str = ""
     mid_dtype: torch.dtype = torch.float32  # a second-level tap's dtype after FusedRead2's chain
+    #: a mixed-geometry batch's plan of each plane (its head, the shared
+    #: tables); () where the planes share one geometry
+    planes: Tuple["ComposedPlan", ...] = dataclasses.field(default=(), compare=False, repr=False)
     #: per-device copies of the tables; the head as a ctypes array
     device_consts: Dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def for_plane(self, z: int) -> "ComposedPlan":
+        """Plane ``z``'s plan: its own head (base, stage, core and tap table
+        words) where the planes differ in geometry, else the plan itself."""
+        return self.planes[z] if self.planes else self
 
     def word(self, name: str) -> int:
         """A word of the head by its name in ``_CORE_WORDS`` or, for a
@@ -410,9 +495,12 @@ class ComposedPlan:
         return c
 
     def head_words(self):
+        """The head as the C entry takes it: a mixed-geometry batch's heads
+        of all planes, plane 0's first."""
         c = self.device_consts.get("head")
         if c is None:
-            c = self.device_consts["head"] = (ctypes.c_int * len(self.head))(*self.head)
+            words = [w for q in self.planes for w in q.head] if self.planes else self.head
+            c = self.device_consts["head"] = (ctypes.c_int * len(words))(*words)
         return c
 
 
@@ -474,12 +562,27 @@ def _resample(node, src_h: int, src_w: int, ch: int):
 
 
 def build_plan(pipeline) -> ComposedPlan:
-    """The kernel plan of a pipeline; raises :class:`Unsupported`."""
+    """The kernel plan of a pipeline; raises :class:`Unsupported`. The
+    planes of a ``BatchRead`` share one shape (``_one_shape``); where they
+    differ in geometry, each plane's own plan (``_plane_plan``) gives its
+    head, and the plan holds them all (``_mixed``)."""
     read, _ = _unwrap(pipeline)
-    if isinstance(read, BatchRead):
-        _one_structure(read)
+    one_geometry = _one_shape(read) if isinstance(read, BatchRead) else True
     t = _tree(pipeline)
-    p = t.planes[0]
+    plan = _plane_plan(t, t.planes[0], pipeline)
+    if one_geometry:
+        return plan
+    if plan.core2:
+        raise Unsupported("a nested plane (a second resampling node or a fused read above the "
+                          "core) whose geometry differs across the planes of a BatchRead: the "
+                          "nested instances' staging (stage2) and footprint budget are per "
+                          "structure, and they take one geometry")
+    return _mixed([plan, *(_plane_plan(t, p, pipeline) for p in t.planes[1:])])
+
+
+def _plane_plan(t: _Tree, p: _Plane, pipeline) -> ComposedPlan:
+    """The plan of the pipeline of tree ``t`` with every plane of plane
+    ``p``'s geometry (its base's, stages' and resamples' sizes)."""
     h, w, c, data = _base_geometry(p.base)
     src_dtype = SRC_DTYPES.get(_leaf_dtype_name(data))
     if src_dtype is None:
@@ -615,6 +718,47 @@ def build_plan(pipeline) -> ComposedPlan:
         out_dtype=out_dtype, tap_dtype=tap_dtype, layout=layout,
         head=tuple(int(v) for v in head), conv=conv, tables=tables, n_block=pos + 4,
         core2=core2, mid_dtype=mid_dtype)
+
+
+def _with_words(head: Tuple[int, ...], **words) -> Tuple[int, ...]:
+    """``head`` with the ``_CORE_WORDS`` named replaced."""
+    out = list(head)
+    for name, v in words.items():
+        out[3 * kp.HEAD_INTS + _CORE_WORDS.index(name)] = int(v)
+    return tuple(out)
+
+
+def _mixed(plans: List[ComposedPlan]) -> ComposedPlan:
+    """The plan of a ``BatchRead`` whose planes differ in geometry, from
+    each plane's own plan: the tables hold every plane's head first
+    (``HEAD_INTS`` words a plane, the kernel's block reads its plane's),
+    then the op tables, then each plane's tap tables; each head points at
+    its own taps, and its ``batch`` word is ``MIXED``. The plan is plane
+    0's, its planes' in :meth:`ComposedPlan.for_plane`; the shape test
+    (``_one_shape``) leaves them one structure, which the C entry checks
+    again plane by plane."""
+    first = plans[0]
+    for z, q in enumerate(plans[1:], 1):
+        if q.dsize != first.dsize:
+            raise Unsupported(
+                f"planes 0 and {z} of a BatchRead differ in output size ({first.dsize.width}x"
+                f"{first.dsize.height} and {q.dsize.width}x{q.dsize.height}): the planes must "
+                "stack")
+    heads_size = len(plans) * HEAD_INTS
+    ops_size = first.word("taps_off")  # the two op tables, alike on every plane
+    at = heads_size + ops_size
+    heads, taps = [], []
+    for q in plans:
+        tap = q.tables[q.word("taps_off"):]
+        heads.append(_with_words(q.head, batch=MIXED, in_ops_off=heads_size,
+                                 out_ops_off=heads_size + q.word("out_ops_off"), taps_off=at))
+        taps.append(tap)
+        at += tap.size
+    tables = np.concatenate([np.asarray(heads, np.int32).reshape(-1), first.tables[:ops_size],
+                             *taps]).astype(np.int32)
+    planes = tuple(dataclasses.replace(q, head=hd, tables=tables, device_consts={})
+                   for q, hd in zip(plans, heads))
+    return dataclasses.replace(planes[0], planes=planes, device_consts={})
 
 
 def tap_share(taps: np.ndarray, out_h: int, out_w: int, keep: bool) -> float:
@@ -808,7 +952,7 @@ class _Reader:
     read's base positions that a result needs (for :func:`work`)."""
 
     def __init__(self, a: Launch, srcs, z: int, plane: _Plane, touched=None):
-        plan = a.plan
+        plan = a.plan.for_plane(z)
         self.plan, self.touched = plan, touched
         shift = z * plan.word("plane_stride")
         self.blk = a.block.long()[shift:]
@@ -963,7 +1107,7 @@ def _plane_value(a: Launch, srcs, z: int, p: _Plane, yc, xc, need, touched=None,
     values the kernel computes at each tap). With ``touched`` it collects
     the base positions the taps a result needs read, and a nested plan's
     count of the core's positions they need into ``counts``."""
-    plan = a.plan
+    plan = a.plan.for_plane(z)
     if not plan.core2:
         return _sample(_Reader(a, srcs, z, p, touched), plan.level(0), yc, xc, need)
     r = _Reader(a, srcs, z, p)
@@ -987,6 +1131,14 @@ def _plane_value(a: Launch, srcs, z: int, p: _Plane, yc, xc, need, touched=None,
     return v
 
 
+def _frame_shape(a: Launch, k: int) -> Tuple[int, int]:
+    """``(rows, width)`` of the launch's base array ``k``, from the head of
+    the first plane that reads it (an NV12 buffer's rows: 3/2 of its
+    image's height)."""
+    h, w = a.plan.for_plane(a.plane_src.index(k)).head[1:3]
+    return (h if a.plan.base == "image" else h * 3 // 2), w
+
+
 def _used(a: Launch) -> int:
     """The planes a launch reads: ``used_planes`` clamped to [0, N] (read
     back from the block), else N."""
@@ -1006,9 +1158,7 @@ def _reference(a: Launch, touched=None, counts=None, plane_value=None):
     plan = a.plan
     t = _tree(a.pipeline)
     dev = a.srcs[0].device
-    h, w = plan.head[1:3]
-    rows = h if plan.base == "image" else h * 3 // 2
-    srcs = [dt.canonicalize(s).reshape(rows, w, -1) for s in a.srcs]
+    srcs = [dt.canonicalize(s).reshape(*_frame_shape(a, k), -1) for k, s in enumerate(a.srcs)]
     w, h = plan.dsize
     y = torch.arange(h, device=dev)[:, None].expand(h, w)
     x = torch.arange(w, device=dev)[None, :].expand(h, w)
@@ -1017,7 +1167,7 @@ def _reference(a: Launch, touched=None, counts=None, plane_value=None):
     for z, p in enumerate(t.planes[:_used(a)] if touched is not None else t.planes):
         shift = z * plan.word("plane_stride")
         blk, fblk = a.block.long()[shift:], a.block.view(torch.float32)[shift:]
-        yc, xc, fill = _walk(plan.stage_list(2), blk, y, x, torch.full_like(y, -1))
+        yc, xc, fill = _walk(plan.for_plane(z).stage_list(2), blk, y, x, torch.full_like(y, -1))
         if plane_value is None:
             v = _plane_value(a, srcs, z, p, yc, xc, fill < 0, touched, counts)
         else:
@@ -1070,7 +1220,11 @@ def _check(a: Launch) -> None:
         raise ValueError("the plan's head does not match its kind")
     if a.block.numel() != plan.n_block or a.consts.numel() != plan.tables.size:
         raise ValueError("parameter block or tables do not match the plan")
-    if any(s.numel() != plan.src_numel for s in a.srcs):
+    if plan.planes:
+        if any(a.srcs[k].numel() != plan.for_plane(z).src_numel
+               for z, k in enumerate(a.plane_src)):
+            raise ValueError("a source does not match its plane's plan")
+    elif any(s.numel() != plan.src_numel for s in a.srcs):
         raise ValueError("a source does not match the plan")
     if plan.batch and a.block.data_ptr() % 8:
         raise ValueError("the block's source addresses are not 8-byte aligned")
@@ -1148,7 +1302,7 @@ def _axis_reads(a: Launch, z: int, axis: int) -> np.ndarray:
     resize taps at them; then through the upper and the lower stages, less
     those a CONSTANT border there fills. A tap is read where both its row
     and its column are, so the two axes' positions pair up."""
-    plan = a.plan
+    plan = a.plan.for_plane(z)
     blk = a.block.long().cpu()[z * plan.word("plane_stride"):]
     pos, out = _walk_axis(plan.stage_list(2), blk, torch.arange(plan.dsize[1 - axis]), axis)
     pos = np.unique(pos[~out].numpy())
@@ -1180,10 +1334,10 @@ def _read_sectors(a: Launch) -> int:
     that several planes read counts once; an NV12 tap reads a luma byte and
     a chroma pair."""
     plan = a.plan
-    h, w, c = plan.head[1:4]
-    elem = c * a.srcs[0].element_size() if plan.base == "image" else 1
+    elem = plan.head[3] * a.srcs[0].element_size() if plan.base == "image" else 1
     found = []
     for z in range(_used(a)):
+        h, w = plan.for_plane(z).head[1:3]
         rows, cols = _axis_reads(a, z, 0), _axis_reads(a, z, 1)
         array = a.plane_src[z] * 2**45  # each base array's bytes apart from the others'
         found.append(bounds.grid_sectors(array + rows * w * elem, cols * elem, elem))
@@ -1244,11 +1398,11 @@ def _walked_sectors(a: Launch) -> int:
     plan = a.plan
     touched: list = []
     _reference(a, touched)
-    h, w, c = plan.head[1:4]
-    elem = c * a.srcs[0].element_size() if plan.base == "image" else 1
+    elem = plan.head[3] * a.srcs[0].element_size() if plan.base == "image" else 1
     found = []
     for p, y, x in touched:
         array = p * 2**45  # each base array's bytes apart from the others'
+        h, w = plan.for_plane(a.plane_src.index(p)).head[1:3]
         y, x = y.cpu(), x.cpu()
         found.append(bounds.sectors(array + (y * w + x) * elem, elem))
         if plan.base == "yuv":

@@ -100,12 +100,15 @@ def test_the_batches_that_stayed_eager_take_the_kernel(name):
 def test_a_refused_batch_names_its_reason():
     """``ParBackend.CUDA`` raises with each kernel's refusal (what
     ``describe_backend`` reports); the composed kernel's says which planes
-    differ and why."""
+    differ and in what (planes that differ in geometry alone it takes:
+    ``test_torch_composed_mixed.py``)."""
     img = _img((36, 48, 3), 5)
     ops = (T.batch_read([T.resize(T.image(img), T.Size(8, 8)),
-                         T.resize(T.image(img[:30]), T.Size(8, 8))]), T.split_tensor())
+                         T.resize(T.crop(T.image(img), T.Rect(0, 0, 30, 30)), T.Size(8, 8))]),
+           T.split_tensor())
     with pytest.raises(ValueError, match=r"cuda:composed: planes 0 and 1 of a BatchRead differ "
-                                         r"in structure \(ResizeRead\(ImageRead\)"):
+                                         r"in op types \(ImageRead and CropRead\) "
+                                         r"\(ResizeRead\(ImageRead\)"):
         _backend(ops, T.ParBackend.CUDA)
 
 

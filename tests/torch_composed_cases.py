@@ -5,6 +5,10 @@ numpy seeds. ``chip_smoke.py`` runs the same compositions at full width (a
 1080p frame, a 4K one for C1 and C4, a 6K NV12 buffer for C8; eight 1080p
 cameras and the 4K frame for B1-B7).
 
+``mixed_frames`` and ``mixed_cases`` make M1-M6, batches whose planes
+differ in geometry (cameras of three resolutions, regions of their own
+sizes, letterboxes of their own widths), over each source family.
+
 ``frames(h, w)`` makes the inputs for an ``h`` x ``w`` frame (a multiple of
 6 on both sides); ``cases(M, f, values)`` the op lists, where ``values`` 1
 moves every runtime value (crop origins, the warp's angle, the border
@@ -151,6 +155,128 @@ def batch_cases(M, f: dict, values: int = 0, used=None, default=0.0) -> dict:
             *normalize(M), M.split_tensor()),
         "b7_bare_cameras": (M.batch_read([M.image(s) for s in srcs]), M.convert_to(np.float32),
                             M.write_tensor()),
+    }
+
+
+MIXED_NAMES = ("m1_cameras_resized", "m2_cameras_resized_ragged", "m3_rois_resized",
+               "m4_letterboxes", "m5_warps_of_crops", "m6_crops_of_cameras")
+#: the source families of the composed kernel's instances: uint8, float32,
+#: the shared "any" instance (int16) and NV12 buffers
+FAMILIES = ("uint8", "float32", "int16", "nv12")
+#: the mixed batches' cameras (h, w): three resolutions; an NV12 buffer's
+#: image even on both sides
+MIXED_SIZES = ((29, 37), (48, 64), (41, 23))
+MIXED_NV12_SIZES = ((28, 36), (48, 64), (40, 22))
+MIXED_BIG = (60, 80)
+MIXED_DST = (16, 12)
+
+
+def _family_frame(rng, family: str, h: int, w: int) -> np.ndarray:
+    if family == "nv12":
+        return rng.integers(0, 256, (h * 3 // 2, w), dtype=np.uint8)
+    if family == "float32":
+        return (rng.random((h, w, 3)) * 255).astype(np.float32)
+    if family == "int16":
+        return rng.integers(-2000, 2000, (h, w, 3)).astype(np.int16)
+    return rng.integers(0, 256, (h, w, 3), dtype=np.uint8).astype(family)
+
+
+def mixed_frames(family: str = "uint8", seed: int = 0, sizes=None) -> dict:
+    """Three cameras of three resolutions (``MIXED_SIZES``, or
+    ``MIXED_NV12_SIZES`` for NV12 buffers, unless ``sizes``) and a frame of
+    ``MIXED_BIG``, of one source family (``FAMILIES``, or any numpy dtype's
+    name), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    sizes = sizes or (MIXED_NV12_SIZES if family == "nv12" else MIXED_SIZES)
+    return {"family": family, "cams": [_family_frame(rng, family, h, w) for h, w in sizes],
+            "big": _family_frame(rng, family, *MIXED_BIG)}
+
+
+def letterbox(w: int, h: int, side: int):
+    """``(inner (w, h), (top, bottom, left, right))`` of a ``w`` x ``h``
+    region resized into a ``side`` x ``side`` square, aspect kept, centred."""
+    scale = side / max(w, h)
+    iw, ih = max(1, round(w * scale)), max(1, round(h * scale))
+    top, left = (side - ih) // 2, (side - iw) // 2
+    return (iw, ih), (top, side - ih - top, left, side - iw - left)
+
+
+def rotation_to(center, angle: float, scale: float, to) -> np.ndarray:
+    """:func:`rotation` about ``center`` whose centre lands on ``to``."""
+    m = rotation(center, angle, scale)
+    m[:, 2] += np.asarray(to, np.float64) - np.asarray(center, np.float64)
+    return m
+
+
+def mixed_cases(M, f: dict, values: int = 0, used=None, default=0.0) -> dict:
+    """``name -> op list`` of the batches whose planes share one shape but
+    not one geometry, over ``f`` (:func:`mixed_frames`): M1 the three
+    cameras each resized to ``MIXED_DST`` and normalized; M2 M1 with
+    ``used_planes`` 2 (1 with ``values``), default 0, unless ``used`` and
+    ``default``; M3 regions of interest of three sizes and aspects of
+    ``f["big"]`` resized; M4 such regions letterboxed into a 16x16 square
+    (each its own inner size and border widths, CONSTANT 114); M5 crops of
+    three sizes of the cameras, each rotated about its centre into
+    ``MIXED_DST``; M6 crops of one size from the three cameras (the
+    one-pixel core). An NV12 family reads each frame as C8 does, converted
+    into uint8 RGB per tap (``fuse(read_yuv, convert_yuv_to_rgb)``).
+    ``values`` 1 moves every runtime value (origins, angles, the border
+    value, ``used_planes``) and keeps every size."""
+    cams, big = f["cams"], f["big"]
+    nv12 = f.get("family") == "nv12"
+
+    def base(src):
+        if nv12:
+            return M.fuse(M.read_yuv(src), M.convert_yuv_to_rgb(out_dtype=np.uint8))
+        return M.image(src)
+
+    def side(src):  # (h, w) of a frame's image
+        return (src.shape[0] * 2 // 3, src.shape[1]) if nv12 else src.shape[:2]
+
+    dst = M.Size(*MIXED_DST)
+    bh, bw = side(big)
+    rois = [(20, 15), (12, 30), (33, 9)]
+    roi_at = [((7 * z + 3 * values) % (bw - rw), (5 * z + 2 * values) % (bh - rh))
+              for z, (rw, rh) in enumerate(rois)]
+    roi_at[2] = (bw - 33 - values, 4)  # at the frame's right edge
+    boxes = [(22, 16), (12, 20), (18, 18)]
+    crops = [(20, 15), (24, 18), (14, 22)]
+    angles = [5.0 + 17.5 * z + 3 * values for z in range(3)]
+    ragged = dict(used_planes=(2 - values) if used is None else used, default=default)
+    letterboxed = []
+    for z, (rw, rh) in enumerate(boxes):
+        (iw, ih), (t, b, l, r) = letterbox(rw, rh, 16)
+        x, y = (3 * z + values) % (bw - rw), (2 * z + 1) % (bh - rh)
+        letterboxed.append(M.make_border(M.resize(M.crop(base(big), M.Rect(x, y, rw, rh)),
+                                                  M.Size(iw, ih)),
+                                         t, b, l, r, M.BorderMode.CONSTANT, 114 - 14 * values))
+    warped = []
+    for z, (src, (cw, ch), a) in enumerate(zip(cams, crops, angles)):
+        h, w = side(src)
+        x, y = (z + values) % (w - cw + 1), (2 * z) % (h - ch + 1)
+        warped.append(M.warp(M.crop(base(src), M.Rect(x, y, cw, ch)),
+                             rotation_to((cw / 2, ch / 2), a, 0.8, (dst.width / 2,
+                                                                    dst.height / 2)), dst))
+    cropped = []
+    for z, src in enumerate(cams):
+        h, w = side(src)
+        x, y = (5 * z + values) % (w - 10), (3 * z) % (h - 8)
+        if z == 1:
+            x = -4 - values  # from the far edge, then clamped (dynamic_slice)
+        cropped.append(M.crop(base(src), M.Rect(x, y, 10, 8)))
+    resized = [M.resize(base(c), dst) for c in cams]
+    return {
+        "m1_cameras_resized": (M.batch_read(resized), *normalize(M), M.split_tensor()),
+        "m2_cameras_resized_ragged": (M.batch_read(resized, **ragged), *normalize(M),
+                                      M.split_tensor()),
+        "m3_rois_resized": (
+            M.batch_read([M.resize(M.crop(base(big), M.Rect(x, y, rw, rh)), dst)
+                          for (rw, rh), (x, y) in zip(rois, roi_at)]),
+            *normalize(M), M.split_tensor()),
+        "m4_letterboxes": (M.batch_read(letterboxed), M.convert_to(np.float32, alpha=1 / 255.0),
+                           M.split_tensor()),
+        "m5_warps_of_crops": (M.batch_read(warped), *normalize(M), M.split_tensor()),
+        "m6_crops_of_cameras": (M.batch_read(cropped), *normalize(M), M.split_tensor()),
     }
 
 
@@ -391,7 +517,9 @@ def more_cases(M) -> dict:
 
 def instance(plan) -> tuple:
     """The source file of the kernel instance a ``ComposedPlan`` launches
-    and its taps per output pixel (1 without a resample, else 4)."""
+    and its taps per output pixel (1 without a resample, else 4); a batch
+    whose planes differ in geometry launches its kind's mixed-geometry
+    instance from the same file."""
     src = "composed_nv12.cu" if plan.base == "yuv" else INSTANCES[str(plan.src_dtype)[6:]]
     return src, 1 if plan.core == "none" else 4
 

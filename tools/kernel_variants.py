@@ -78,7 +78,11 @@ kernel duration of 20 launches), in microseconds:
   of their staging (``n7``, a warp at a quarter scale whose blocks
   evaluate per tap, and ``n8``, an upscale whose blocks share their taps:
   ``budget_nested_cases``), left out for a variant without the nested
-  instances (no ``cvgs_composed_nested``).
+  instances (no ``cvgs_composed_nested``);
+- its composed kernel's mixed-geometry batches M1-M5 (``m1`` .. ``m5``:
+  ``chip_smoke.py``'s ``mixed_cases``, planes of one shape and each its
+  own sizes), left out for a variant without the mixed-geometry instances
+  (no ``composed_kernel_mixed`` in its ``composed.cuh``).
 
 ``cases``, a comma-separated list, times only those; where it is not given,
 a file's ``"cases"`` entry (a string, not a variant) names them. The cases are
@@ -269,6 +273,15 @@ def main() -> int:
                              *cs.budget_nested_cases(cvgs, frame).values()), 1):
         cases[f"n{k}"] = (kc, kc.composed, ops)
     nested_names = {f"n{k}" for k in range(1, 9)}
+    # the mixed-geometry batches M1-M5 (m1 .. m5): planes of one shape, each
+    # its own geometry
+    m_cams = [torch.from_numpy(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).to(dev)
+              for h, w in cs.M_CAMERAS]
+    m_nv12 = [torch.from_numpy(rng.integers(0, 256, (h * 3 // 2, w), dtype=np.uint8)).to(dev)
+              for h, w in cs.M5_NV12]
+    for k, ops in enumerate(cs.mixed_cases(cvgs, m_cams, frame, m_nv12).values(), 1):
+        cases[f"m{k}"] = (kc, kc.composed, ops)
+    mixed_names = {f"m{k}" for k in range(1, 6)}
     composed_names = {name for name in cases if name.startswith(("c", "b"))}
     x64_cases = {name for name in (*cases, *batches) if name.endswith(("_i64", "_f64"))}
     launches = {}
@@ -297,6 +310,8 @@ def main() -> int:
         if cname in batch_names and "plane_stride" not in (d / "composed.cuh").read_text():
             return False
         if cname in nested_names and not hasattr(_build.load(), "cvgs_composed_nested"):
+            return False
+        if cname in mixed_names and "composed_kernel_mixed" not in (d / "composed.cuh").read_text():
             return False
         return cname not in pointwise_cases or hasattr(_build.load(), "cvgs_pointwise")
 
