@@ -41,7 +41,13 @@ resized, a letterbox of a normalized resize, eight cameras' top views
 ragged at 6, and two more in phase 3 alone (``budget_nested_cases``): a
 warp at a quarter of the scale of a 1080p resize, whose blocks' footprints
 pass the staging budget (they evaluate per tap), and a 640x360 downscale
-resized back up to 1080p (a block's taps shared); and the batch axis of the flagship, W6, P2,
+resized back up to 1080p (a block's taps shared), and NM1-NM4
+(``nested_mixed_cases``), ``batch_read`` of nested planes each of its own
+geometry: N6's top views over the eight cameras of three resolutions, ragged
+at 6, N5's normalized letterbox over eight ROIs of the 4K frame of eight
+sizes, the cameras resized to half their size and rotated into 640x360, and
+crops of eight sizes of each camera resized to 960x540, resized to 224x224
+(its planes disagree on staging); and the batch axis of the flagship, W6, P2,
 D1 and D3 sharded
 over a device mesh (``parallel/mesh.py``).
 In phases; any failure ends the run with a non-zero exit
@@ -50,7 +56,8 @@ code and no result line:
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
 2. build: compile every kernel source, in parallel, into one library (timed;
    the composed kernel's nested instances' registers and spills logged on
-   their own), then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
+   their own, the staged mixed nested instance held at 64 registers, 4
+   blocks an SM), then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
    -sass``): in every instance of the six kernels no float32 add, multiply,
    compare or min/max without ``.FTZ`` (``-ftz=true``: the reference's
    float32 rule, ``utils/dtypes.py::flush_subnormal``) but for a warp map's
@@ -123,7 +130,12 @@ code and no result line:
    composed in C1-C8, B1-B7, M1-M5 (each plane's head in the consts, the
    mixed-geometry instances), N1-N6 and N7-N8 (``budget_nested_cases``, the
    per-tap form past the staging budget and an upscale's shared taps; each
-   nested case's blocks' forms logged from ``nested_tiles``) at full width,
+   nested case's blocks' forms logged from ``nested_tiles``), NM1-NM4 (each
+   plane's head and ``stage2`` in the consts, the mixed nested instances;
+   each plane's blocks' forms logged) and a resize of a crop that overhangs
+   its frame (``overhang_cases``: past the right and the bottom edge and
+   from a negative origin, one level, nested, a plane of a mixed batch, and
+   K1's rects past the edges) at full width,
    max |diff| 0, and C1 on uint16, float16
    and float64 sources and on a float32 frame of ``EDGES32`` with a chain
    that flushes, as int32 bits, one launch each. Warp maps whose inverse
@@ -175,7 +187,9 @@ code and no result line:
    camera (``oracle_frame``); M1-M5 the same way (new frames of the same
    sizes, origins, angles, border value and ``used_planes``: no plan), M1
    against a float64 resize of each camera; N1-N6 the same way (new maps, crop origin,
-   border value, ``used_planes`` and N6's camera frames);
+   border value, ``used_planes`` and N6's camera frames); NM1-NM4 the same
+   way (new frames of the same sizes, maps, origins, angles, border value
+   and ``used_planes``: no plan);
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain, and the
    kernel's duration in a ``torch.profiler`` trace of 20 launches (events
@@ -210,6 +224,9 @@ code and no result line:
    call with the stack's copies); M1-M5 the same way, and for M1 eight
    ``F.interpolate`` calls, one a camera, as a reference; N1-N6 the same way, and for N3 two
    chained ``F.interpolate`` calls on the float32 4K frame as a reference;
+   NM1-NM4 the same way, and what a plane's head in shared memory costs
+   the nested instances: N2, N3 (a one-plane batch) and N6 by value and
+   through the mixed nested instances, each plane given its head, bit-equal;
 6. sharding: (a) every rank of meshes of 2 and 5 (the flagship, 50 crops
    ragged at ``used_planes`` = 37) and of 2, 4 and 8 (W6; P2's ring from
    ``first`` = 3 and -5; D1 and D3) run on this card through the rank-local
@@ -245,6 +262,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -840,6 +858,99 @@ def nested_cases(cvgs, frame, hd, cams, values=0) -> dict:
     }
 
 
+#: NM4's middle image and its crops (w, h) of each camera, 120x90 to 640x480
+NM4_MID, NM4_DST = (960, 540), 224
+NM4_CROPS = ((120, 90), (160, 120), (224, 168), (320, 240), (400, 300), (480, 360), (560, 420),
+             (640, 480))
+
+
+def nested_mixed_cases(cvgs, cams, frame, values=0) -> dict:
+    """The composed kernel's batches of nested planes that share one shape
+    but not one geometry, NM1-NM4, at full width, which phases 3 to 5
+    drive; ``cams`` are the cameras of ``M_CAMERAS``; ``values`` 1 moves
+    every runtime value (the maps, origins, angles, the border value,
+    ``used_planes``) and keeps every size. NM1 N6's tree over the cameras:
+    each warped to its own top view at its own size (perspective, CONSTANT
+    0), then resized to 640x360, ``used_planes`` 6 (5), default 0; NM2 N5's
+    tree at M3's geometry: each of ``M3_ROIS`` of the 4K frame resized into
+    its letterbox's inner size, fused with x1/255 and bordered (CONSTANT
+    0.447) into 640x640, no chain; NM3 each camera resized to half its size,
+    then rotated by 5-40 degrees about its centre into 640x360 at the scale
+    that fits; NM4 each camera resized to 960x540, then a crop of one of
+    ``NM4_CROPS`` resized to 224x224 (the crops under 224 upscaled: their
+    tiles share taps). Planar float32, normalized but NM2; every region
+    inside its frame."""
+    normalize = (cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract(MEAN),
+                 cvgs.divide(STD))
+    dst = cvgs.Size(*FRAME_DST)
+    persp = dict(warp_type=cvgs.WarpType.PERSPECTIVE, default=0.0)
+    top_views, rotated, rois, boxes = [], [], [], []
+    for k, c in enumerate(cams):
+        h, w = c.shape[:2]
+        top_views.append(cvgs.resize(cvgs.warp(cvgs.image(c), top_view(w, h, k + values),
+                                               cvgs.Size(w, h), **persp), dst))
+        half = cvgs.Size(w // 2, h // 2)
+        scale = min(dst.width / half.width, dst.height / half.height)
+        angle = 5.0 + 35.0 * k / (len(cams) - 1) + 2.0 * values
+        rotated.append(cvgs.warp(cvgs.resize(cvgs.image(c), half),
+                                 rotation((half.width / 2, half.height / 2), angle, scale,
+                                          to=(dst.width / 2, dst.height / 2)), dst))
+        (mw, mh), (cw, ch) = NM4_MID, NM4_CROPS[k]
+        x, y = (k * 53 + 7 * values) % (mw - cw), (k * 29 + 3 * values) % (mh - ch)
+        rois.append(cvgs.resize(cvgs.crop(cvgs.resize(cvgs.image(c), cvgs.Size(mw, mh)),
+                                          cvgs.Rect(x, y, cw, ch)),
+                                cvgs.Size(NM4_DST, NM4_DST)))
+    for k, (rw, rh) in enumerate(M3_ROIS):
+        (iw, ih), (t, b, l, r) = letterbox(rw, rh, M3_SIDE)
+        x, y = (k * 331 + 9 * values) % (SRC_W - rw), (k * 173 + 5 * values) % (SRC_H - rh)
+        boxes.append(cvgs.make_border(
+            cvgs.fuse(cvgs.resize(cvgs.crop(cvgs.image(frame), cvgs.Rect(x, y, rw, rh)),
+                                  cvgs.Size(iw, ih)),
+                      cvgs.convert_to(np.float32, alpha=1 / 255.0)),
+            t, b, l, r, cvgs.BorderMode.CONSTANT, 0.447 - 0.1 * values))
+    return {
+        "nm1_top_views_of_cameras_of_3_sizes_ragged": (
+            cvgs.batch_read(top_views, used_planes=N6_USED - values, default=0.0), *normalize,
+            cvgs.split_tensor()),
+        "nm2_normalized_letterboxes_of_8_rois": (cvgs.batch_read(boxes), cvgs.split_tensor()),
+        "nm3_half_size_resize_then_rotate": (cvgs.batch_read(rotated), *normalize,
+                                             cvgs.split_tensor()),
+        "nm4_roi_crops_of_a_downscale_to_224": (cvgs.batch_read(rois), *normalize,
+                                                cvgs.split_tensor()),
+    }
+
+
+def overhang_cases(cvgs, frame, hd, other) -> dict:
+    """A resize of a crop that overhangs its frame at full width: a 1280x720
+    crop of the 4K frame past its right edge, past its bottom edge and from
+    x = -200 (from the far edge, then clamped, as ``dynamic_slice``),
+    resized to 640x360, one level; the same crops of the 1080p frame
+    resized to the 4K frame's size first (nested); the right edge's as a
+    plane of a ``batch_read`` beside a crop of another size; and K1's rects
+    past the 4K frame's edges (``resize_batch``). Planar float32."""
+    dst = cvgs.Size(*FRAME_DST)
+    rects = {"right": (3000, 100, 1280, 720), "bottom": (500, 1900, 1280, 720),
+             "negative": (-200, 300, 1280, 720)}
+    cases = {}
+    for edge, r in rects.items():
+        rect = cvgs.Rect(*r)
+        cases[f"overhang_{edge}_one_level"] = (cvgs.resize(cvgs.crop(cvgs.image(frame), rect),
+                                                           dst), cvgs.split_tensor())
+        cases[f"overhang_{edge}_nested"] = (
+            cvgs.resize(cvgs.crop(cvgs.resize(cvgs.image(hd), cvgs.Size(SRC_W, SRC_H)), rect),
+                        dst), cvgs.split_tensor())
+    cases["overhang_right_mixed_plane"] = (
+        cvgs.batch_read([cvgs.resize(cvgs.crop(cvgs.image(frame), cvgs.Rect(*rects["right"])),
+                                     dst),
+                         cvgs.resize(cvgs.crop(cvgs.image(other), cvgs.Rect(10, 20, 900, 500)),
+                                     dst)]),
+        cvgs.split_tensor())
+    cases["overhang_k1_rects"] = (
+        cvgs.resize_batch(frame, rects=np.array(list(rects.values()), np.int32), dsize=dst),
+        cvgs.split_tensor())
+    return cases
+
+
 def budget_nested_cases(cvgs, frame) -> dict:
     """Two nested cases at full width beside N1-N6, one for each end of the
     nested instances' staging (``csrc/composed_nested.cuh``): the 4K frame
@@ -1377,9 +1488,14 @@ def main() -> int:
             entry = line.split("'")[1] if "'" in line else line
         if "composed_kernel_nested" in entry and ("registers" in line or "spill" in line):
             nested.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
-    # the composed kernel's nested instances alone: registers and spills
+    # the composed kernel's nested instances alone: registers and spills;
+    # the staged ones (by value and mixed, whose block also holds its plane
+    # head in shared memory) bounded to 64 registers, 4 blocks an SM
     for k, (entry, lines) in enumerate(sorted(nested.items())):
         log(f"phase2 nested instance {k} ({entry}): {'; '.join(lines)}")
+        if "_staged" in entry:
+            used = [int(w) for line in lines for w in re.findall(r"Used (\d+) registers", line)]
+            assert used and max(used) <= 64, (entry, lines)
     # the float32 rule in the SASS: every float32 add, multiply, compare and
     # min/max flushes subnormals (.FTZ), and the float64 load converts
     # without .FTZ, so that a copy keeps a float32 subnormal. The one
@@ -2008,6 +2124,37 @@ def main() -> int:
     log(f"phase3 composed: the per-tap form beyond the staging budget in "
         f"{per_tap_blocks['n7_quarter_scale_warp_of_a_resize']} blocks of "
         f"n7_quarter_scale_warp_of_a_resize, checked above at max|diff| 0")
+    # the batches of nested planes of their own geometry NM1-NM4 at full
+    # width: one launch each of the mixed nested instances (each plane's
+    # head, tap tables and stage2 its own), equal to the plain version; each
+    # plane's blocks' forms from the host's mirror of the kernel's rule
+    for name, ops in nested_mixed_cases(cvgs, m_cams, frame).items():
+        pipeline = cvgs.build_pipeline(*ops)
+        nma = kc.prepare(pipeline, kc.build_plan(pipeline), dev)
+        before = kc.LAUNCHES
+        got = kc.composed(nma)
+        launched = kc.LAUNCHES - before
+        compare(name, "composed", got, kc.composed_reference(nma), 0.0)
+        plan = nma.plan
+        assert plan.core2 and plan.word("batch") == kc.MIXED and launched == 1, (name, launched)
+        forms = ""
+        if plan.core2 != "none":
+            tiles = kc.nested_tiles(nma)[..., 0]
+            forms = "; each plane's blocks " + str([
+                {f: int((tiles[z] == k).sum()) for k, f in enumerate(kc.TILE_FORMS)
+                 if (tiles[z] == k).any()} for z in range(plan.n_planes)])
+        log(f"phase3 composed {name}: core {plan.core} under core2 {plan.core2}, "
+            f"{plan.n_planes} planes of {plan.dsize[0]}x{plan.dsize[1]}, batch word "
+            f"{plan.word('batch')}, bases (h, w) {[q.head[1:3] for q in plan.planes]}, middle "
+            f"images (h, w) {[(q.word('mid_h'), q.word('mid_w')) for q in plan.planes]}, stage2 "
+            f"{[q.word('stage2') for q in plan.planes]}, {plan.tables.size} consts words{forms}")
+    # a resize of a crop that overhangs its frame, as the reference's
+    # op-by-op lowering reads it (tests/test_torch_overhanging_crops.py):
+    # each kernel against its plain version at full width
+    for name, ops in overhang_cases(cvgs, frame, hd, cams[0]).items():
+        plan = check(name, *ops, kernel="batch_resize" if "k1" in name else "composed", tol=0.0)
+        if "mixed" in name:
+            assert plan.word("batch") == kc.MIXED, name
     flush = (cvgs.multiply(1.0), cvgs.subtract((1e-40, 0.0, -2e-39)), cvgs.divide(1e38))
     for tag, src in (("u16", as_dtype(torch, frame, "u16")), ("f16", as_dtype(torch, frame, "f16")),
                      ("f64", as_float64(torch, frame)), ("sub_f32", as_edges32(torch, frame))):
@@ -2483,6 +2630,35 @@ def main() -> int:
         assert seen[0][1] <= builds0 + 1 and seen[1][1] == seen[0][1], (builds0, seen)
         assert same and bool(torch.isfinite(outs[1]).all())
         assert moved == (name[:2] != "n3"), (name, moved)
+
+    # the batches of nested planes of their own geometry NM1-NM4 twice each
+    # through execute_operations, the second call with new frames of the
+    # same sizes and new maps, origins, angles, border value and
+    # used_planes: one launch of cuda:composed per call (the count set to 0
+    # just before), no plan on the second, bit for bit the eager version on
+    # the card, finite
+    for name in nested_mixed_cases(cvgs, m_cams, frame):
+        kc.LAUNCHES = 0
+        builds0 = executor.PLAN_BUILDS
+        outs, backends, seen = [], [], []
+        for values, frames in ((0, m_cams), (1, m_cams_next)):
+            ops = nested_mixed_cases(cvgs, frames, frame, values)[name]
+            outs.append(drive("composed", lambda: cvgs.execute_operations(*ops)))
+            backends.append(cvgs.last_backend())
+            seen.append((kc.LAUNCHES, executor.PLAN_BUILDS))
+        torch.cuda.synchronize()
+        composed_launches += kc.LAUNCHES
+        ops1 = nested_mixed_cases(cvgs, m_cams_next, frame, 1)[name]
+        forced = cvgs.describe_backend(*ops1, backend=cvgs.ParBackend.CUDA)
+        eager = cvgs.execute_operations(*ops1, backend=cvgs.ParBackend.TORCH)
+        same = torch.equal(outs[1].view(torch.int32), eager.view(torch.int32))
+        log(f"phase4 composed path ({name}): backends {backends}, under ParBackend.CUDA {forced}; "
+            f"launches {seen[0][0]} {seen[1][0]}; plan builds {builds0} -> {seen[0][1]} -> "
+            f"{seen[1][1]}; {tuple(outs[1].shape)} {outs[1].dtype}; equal to eager torch {same}")
+        assert backends == ["cuda:composed"] * 2 and forced == "cuda:composed", (backends, forced)
+        assert (seen[0][0], seen[1][0]) == (1, 2), seen
+        assert seen[0][1] <= builds0 + 1 and seen[1][1] == seen[0][1], (builds0, seen)
+        assert same and bool(torch.isfinite(outs[1]).all()) and not torch.equal(outs[0], outs[1])
 
     # 64-bit values are int32 and float32 where they enter, as in the
     # reference (64-bit values off): an int64 or a float64 frame on the card
@@ -3447,6 +3623,66 @@ def main() -> int:
             f"copies a call; execute_operations host-inclusive {t['call_ms'] * 1e3:.2f} us/call "
             f"(median of 30){ref_text}")
 
+    # the batches of nested planes of their own geometry NM1-NM4 the same
+    # way: kernel vs plain version, bound (each plane's own sectors and
+    # operations, summed), floor, the eager path it replaces; no one library
+    # call reads two levels, so library_ms is null
+    nm_times = {}
+    for name, ops in nested_mixed_cases(cvgs, m_cams, frame).items():
+        pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: as_device_tensor(v, dev))
+        nmargs = kc.prepare(pipe, kc.build_plan(pipe), dev)
+        t = measure(lambda: kc.composed(nmargs), lambda: kc.composed_reference(nmargs), 50,
+                    what=name, plain_iters=5)
+        t.update(bounds.bound(*kc.work(nmargs), bandwidth))
+        t["max_abs_err"] = case_err[name]
+        t["library_ms"] = t["library_profiler_ms"] = None
+        eager = lambda: executor.run_pipeline(pipe, cvgs.ParBackend.TORCH)  # noqa: E731
+        t["eager_ms"] = float(np.median(time_cuda(eager, iters=10)))
+        t["eager_profiler_ms"] = profiler_ms(eager, calls=5, what=f"{name} eager")
+        t["eager_launches"], t["eager_copies"] = eager_launches(eager)
+        whole = []
+        for _ in range(40):
+            t0 = time.perf_counter()
+            cvgs.execute_operations(*ops)
+            torch.cuda.synchronize()
+            whole.append(time.perf_counter() - t0)
+        t["call_ms"] = float(np.median(whole[10:])) * 1e3
+        assert cvgs.last_backend() == "cuda:composed"
+        nm_times[name] = t
+        log(f"phase5 composed {name}: {describe(t)}; the eager path (ParBackend.TORCH) "
+            f"{t['eager_ms'] * 1e3:.2f} us by events, {t['eager_profiler_ms'] * 1e3:.2f} us by "
+            f"torch.profiler, {t['eager_launches']:.0f} kernels and {t['eager_copies']:.0f} "
+            f"copies a call; execute_operations host-inclusive {t['call_ms'] * 1e3:.2f} us/call "
+            f"(median of 30)")
+
+    # what a plane's head in shared memory costs the nested instances: N2
+    # (staged), N3 (per tap, as a one-plane batch) and N6 (per tap, 8 planes)
+    # launched by value and through the mixed nested instances, each plane
+    # given the batch's own head, bit-equal; by value, mixed, mixed, by value
+    head_cost = {}
+    for name in ("n2_resize_then_rotate", "n3_two_level_downscale",
+                 "n6_top_views_of_8_cameras_ragged"):
+        ops = nested_cases(cvgs, frame, hd, cams)[name]
+        if not name.startswith("n6"):
+            ops = (cvgs.batch_read([ops[0]]), *ops[1:])
+        pipe = map_leaves(cvgs.build_pipeline(*ops), lambda v: as_device_tensor(v, dev))
+        plan = kc.build_plan(pipe)
+        by_value = kc.prepare(pipe, plan, dev)
+        through_mixed = kc.prepare(pipe, kc._mixed([plan] * plan.n_planes), dev)
+        assert torch.equal(kc.composed(by_value), kc.composed(through_mixed)), name
+        t, runs = {}, {}
+        for tag, args in (("by_value", by_value), ("mixed", through_mixed),
+                          ("mixed", through_mixed), ("by_value", by_value)):
+            runs.setdefault(tag, []).extend(time_cuda(lambda: kc.composed(args), iters=50))
+        for tag, args in (("by_value", by_value), ("mixed", through_mixed)):
+            t[f"{tag}_ms"] = float(np.median(runs[tag]))
+            t[f"{tag}_profiler_ms"] = profiler_ms(lambda: kc.composed(args), what=f"{name} {tag}")
+        head_cost[name] = t
+        log(f"phase5 composed {name} as a batch by value {t['by_value_ms'] * 1e3:.2f} / "
+            f"{t['by_value_profiler_ms'] * 1e3:.2f} us and through the mixed nested instances "
+            f"{t['mixed_ms'] * 1e3:.2f} / {t['mixed_profiler_ms'] * 1e3:.2f} us (events / "
+            f"profiler), bit-equal; stage2 {plan.word('stage2')}")
+
     # an int64 frame through a 3-op chain, which ran eagerly (one launch per
     # op) until int64 became int32 where it enters: one launch of the
     # pointwise kernel, which reads it at load, beside the same chain on the
@@ -3779,7 +4015,8 @@ def main() -> int:
         # jitted XLA program for composed reads
         entry("composed", "composed.cu", "cvgpuspeedup_tpu/exec/executor.py:243",
               composed_launches, c_times["c1_roi_crop_resize"], cases=c_times,
-              batch_cases=b_times, nested_cases=n_times, mixed_cases=m_times),
+              batch_cases=b_times, nested_cases=n_times, mixed_cases=m_times,
+              nested_mixed_cases=nm_times, nested_head_cost=head_cost),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

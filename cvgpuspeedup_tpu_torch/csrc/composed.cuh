@@ -761,3 +761,57 @@ void launch_source(const ComposedArgs& a) {
 
 }  // namespace kc
 }  // namespace
+
+namespace {
+
+// The C entries' checks of a head (composed.cu, composed_nested.cu): one
+// plane's head, the words the launch does not set.
+inline bool head_ok(const CmHead& h) {
+  const PwHead& b = h.lower;
+  const bool stages_ok = b.n_stages >= 0 && b.n_stages <= kMaxStages && h.upper.n_stages >= 0 &&
+                         h.upper.n_stages <= kMaxStages && h.outer.n_stages >= 0 &&
+                         h.outer.n_stages <= kMaxStages;
+  return stages_ok && h.core >= CM_NONE && h.core <= CM_WARP && h.plane_stride >= 0 &&
+         h.used_off >= -1 && (h.used_off >= 0) == (h.default_off >= 0) && b.base >= PW_IMAGE &&
+         b.base <= PW_YUV && b.base != PW_CIRC && b.src_type >= PW_U8 && b.src_type <= PW_F64 &&
+         b.nch >= 1 && b.nch <= kMaxCh && b.src_h >= 1 && b.src_w >= 1 &&
+         !(b.base == PW_YUV && (b.src_type != PW_U8 || b.nch != 3)) &&
+         !(b.conv_first && b.nch != 3) && h.tap_ch >= 1 && h.tap_ch <= kMaxCh &&
+         h.tap_type >= PW_U8 && h.tap_type <= PW_I32 && h.core_type >= PW_U8 &&
+         h.core_type <= PW_I32 && h.in_n_ops >= 0 && h.out_n_ops >= 0 && h.core_h >= 1 &&
+         h.core_w >= 1 && h.in_h >= 1 && h.in_w >= 1;
+}
+
+// Whether two stage lists share their structure: counts, kinds, modes and
+// block offsets (their sizes may differ).
+inline bool same_stages(const PwHead& a, const PwHead& b) {
+  if (a.n_stages != b.n_stages) return false;
+  for (int s = 0; s < a.n_stages; ++s) {
+    const PwStage &x = a.st[s], &y = b.st[s];
+    const bool crop = x.kind == PW_CROP;
+    if (x.kind != y.kind || x.mode != y.mode || (crop ? x.a != y.a || x.b != y.b : x.c != y.c)) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// Whether plane heads a and b of a mixed-geometry batch differ in geometry
+// alone: the base's and stages' sizes, the core's sizes, its edge rule and
+// its tap tables.
+inline bool same_structure(const CmHead& a, const CmHead& b) {
+  const PwHead &p = a.lower, &q = b.lower;
+  return same_stages(p, q) && same_stages(a.upper, b.upper) && same_stages(a.outer, b.outer) &&
+         p.base == q.base && p.src_type == q.src_type && p.nch == q.nch && p.nv21 == q.nv21 &&
+         p.conv_first == q.conv_first && p.limited == q.limited && p.width == q.width &&
+         a.core == b.core && a.persp == b.persp && a.coef_off == b.coef_off &&
+         a.border_off == b.border_off && a.tap_type == b.tap_type &&
+         a.core_type == b.core_type && a.tap_ch == b.tap_ch && a.batch == b.batch &&
+         a.in_n_ops == b.in_n_ops && a.in_ops_off == b.in_ops_off &&
+         a.in_fp_off == b.in_fp_off && a.out_n_ops == b.out_n_ops &&
+         a.out_ops_off == b.out_ops_off && a.out_fp_off == b.out_fp_off &&
+         a.plane_stride == b.plane_stride && a.used_off == b.used_off &&
+         a.default_off == b.default_off;
+}
+
+}  // namespace

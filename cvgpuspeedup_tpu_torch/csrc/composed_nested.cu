@@ -27,16 +27,52 @@
 // Instances: {uint8 here, float32/int32 (composed_nested_f32.cu), NV12/NV21
 // (composed_nested_nv12.cu), the six other source types
 // (composed_nested_any.cu)} x {a second resampling node staged, the same
-// per tap, a FusedRead2 alone}: 12, in four files built in parallel. The
-// plan's stage2 word picks the staged or the per-tap instance from the
-// structure (exec/cuda_composed.py::build_plan): the per-tap one alone
-// keeps the registers that hold 4 blocks an SM resident without spills.
+// per tap, a FusedRead2 alone} x {one geometry, the head by value; planes
+// of their own geometry, each block's plane head copied from the consts
+// into shared memory}: 24, in four files built in parallel. The plan's
+// stage2 word picks the staged or the per-tap instance from the structure
+// (exec/cuda_composed.py::build_plan): the per-tap one alone keeps the
+// registers that hold 4 blocks an SM resident without spills. A batch of
+// nested planes of their own geometry (cameras of mixed resolution warped
+// to their top views, ROIs of their own sizes of a downscale) carries each
+// plane's stage2: the staged mixed instance where any plane stages, its
+// blocks of a plane whose stage2 is 0 per tap.
 
 #include "composed_nested.cuh"
 
+namespace {
+
+// The checks of one plane's nested head that the launch does not set: the
+// inner level's (head_ok), a resampling core, and the second level's words.
+bool nested_ok(const kc::CmNested& n) {
+  const CmHead& h = n.h;
+  return head_ok(h) && (h.core == CM_RESIZE || h.core == CM_WARP) && n.above.n_stages >= 0 &&
+         n.above.n_stages <= kMaxStages && n.below.n_stages >= 0 &&
+         n.below.n_stages <= kMaxStages && n.core2 >= CM_NONE && n.core2 <= CM_WARP &&
+         n.mid_ch >= 1 && n.mid_ch <= kMaxCh && n.mid_type >= PW_U8 && n.mid_type <= PW_I32 &&
+         n.mid_n_ops >= 0 && n.core2_h >= 1 && n.core2_w >= 1 && n.mid_h >= 1 && n.mid_w >= 1 &&
+         n.stage2 >= 0 && n.stage2 <= 1;
+}
+
+// Whether nested plane heads a and b of a mixed-geometry batch differ in
+// geometry alone: same_structure's, the middle image's and the second
+// level's output sizes, the second resample's edge rule and tap tables,
+// and its staging (stage2: a block takes the form its plane's asks for).
+bool same_nested(const kc::CmNested& a, const kc::CmNested& b) {
+  return same_structure(a.h, b.h) && same_stages(a.above, b.above) &&
+         same_stages(a.below, b.below) && a.core2 == b.core2 && a.persp2 == b.persp2 &&
+         a.coef2_off == b.coef2_off && a.border2_off == b.border2_off &&
+         a.mid_type == b.mid_type && a.mid_ch == b.mid_ch && a.mid_n_ops == b.mid_n_ops &&
+         a.mid_ops_off == b.mid_ops_off && a.mid_fp_off == b.mid_fp_off;
+}
+
+}  // namespace
+
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
 // The arguments are cvgs_composed's (composed.cu), but `head` points at the
-// kNestedWords host words of a CmNested.
+// kNestedWords host words of a CmNested (a mixed-geometry batch's, batch
+// == CM_MIXED: at n_planes of them, plane 0's first, which the consts also
+// hold from word 0 on).
 extern "C" int cvgs_composed_nested(const void* src, const int* head, float ys, float cs,
                                     float rv, float gu, float gv, float bu, const int* blk,
                                     const int* consts, int n_planes, int dst_w, int dst_h,
@@ -47,27 +83,15 @@ extern "C" int cvgs_composed_nested(const void* src, const int* head, float ys, 
   std::memcpy(&n, head, sizeof(kc::CmNested));
   const CmHead& h = n.h;
   const PwHead& b = h.lower;
-  const PwHead* lists[] = {&h.lower, &h.upper, &h.outer, &n.above, &n.below};
-  bool stages_ok = true;
-  for (const PwHead* l : lists) {
-    stages_ok = stages_ok && l->n_stages >= 0 && l->n_stages <= kMaxStages;
-  }
-  if (!stages_ok || (h.core != CM_RESIZE && h.core != CM_WARP) || n.core2 < CM_NONE ||
-      n.core2 > CM_WARP || h.plane_stride < 0 || h.used_off < -1 ||
-      (h.used_off >= 0) != (h.default_off >= 0) || (!h.batch && n_planes != 1) || n_planes < 1 ||
-      n_planes > 65535 || dst_w < 1 || dst_h < 1 || out_ch < 1 || out_ch > kMaxCh ||
-      out_type < PW_U8 || out_type > PW_I32 || b.base < PW_IMAGE || b.base > PW_YUV ||
-      b.base == PW_CIRC || b.src_type < PW_U8 || b.src_type > PW_F64 || b.nch < 1 ||
-      b.nch > kMaxCh || b.src_h < 1 || b.src_w < 1 ||
-      (b.base == PW_YUV && (b.src_type != PW_U8 || b.nch != 3)) || (b.conv_first && b.nch != 3) ||
-      h.tap_ch < 1 || h.tap_ch > kMaxCh || h.tap_type < PW_U8 || h.tap_type > PW_I32 ||
-      h.core_type < PW_U8 || h.core_type > PW_I32 || h.in_n_ops < 0 || h.out_n_ops < 0 ||
-      h.core_h < 1 || h.core_w < 1 || h.in_h < 1 || h.in_w < 1 || n.mid_ch < 1 ||
-      n.mid_ch > kMaxCh || n.mid_type < PW_U8 || n.mid_type > PW_I32 || n.mid_n_ops < 0 ||
-      h.batch < CM_ONE || h.batch > CM_BATCH ||
-      n.core2_h < 1 || n.core2_w < 1 || n.mid_h < 1 || n.mid_w < 1 || n.stage2 < 0 ||
-      n.stage2 > 1) {
+  if (!nested_ok(n) || h.batch < CM_ONE || h.batch > CM_MIXED || (!h.batch && n_planes != 1) ||
+      n_planes < 1 || n_planes > 65535 || dst_w < 1 || dst_h < 1 || out_ch < 1 ||
+      out_ch > kMaxCh || out_type < PW_U8 || out_type > PW_I32) {
     return (int)cudaErrorInvalidValue;
+  }
+  for (int z = 1; h.batch == CM_MIXED && z < n_planes; ++z) {
+    kc::CmNested p;
+    std::memcpy(&p, head + (long long)z * kc::kNestedWords, sizeof(kc::CmNested));
+    if (!nested_ok(p) || !same_nested(n, p)) return (int)cudaErrorInvalidValue;
   }
   const Conv conv{b.limited, 0, ys, cs, rv, gu, gv, bu};
   const cvgs::ComposedArgs a{src, head, conv, blk, consts, n_planes, dst_w, dst_h, out, out_type,

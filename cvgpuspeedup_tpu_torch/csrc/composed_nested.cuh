@@ -56,6 +56,13 @@
 // skips both and stores the default. The host mirrors the rule
 // (exec/cuda_composed.py::nested_tiles).
 //
+// A batch whose nested planes differ in geometry (the plan's batch word
+// CM_MIXED) has each plane's CmNested in the consts, kNestedWords a plane
+// from word 0; its instances (composed_kernel_nested_mixed*) copy the
+// block's plane head into shared memory and run the same body over it,
+// each plane with its own middle image, tap tables and stage2 (a plane
+// whose stage2 is 0 takes the per-tap form in the staged instance).
+//
 // Every rule matches exec/cuda_composed.py::composed_reference and the
 // eager lowering bit for bit: the core's value is float32 (int32 bits
 // converted); a tap of the second level that lies outside a below CONSTANT
@@ -71,6 +78,7 @@
 #pragma once
 
 #include <climits>
+#include <cstddef>
 
 #include "composed.cuh"
 
@@ -514,8 +522,9 @@ __device__ __forceinline__ void box_axis(Stage2& sg, const CmNested& n,
 // The nested kernels' body for a source of kind Src, with a second
 // resampling node (kR2: staged where kStage and the footprint fits, else
 // per tap) or a FusedRead2 alone above the core; one output pixel a
-// thread.
-template <typename Src, bool kR2, bool kStage>
+// thread. kMixed: `n` is the block's plane head of a mixed-geometry batch
+// (in shared memory), whose stage2 word also picks the form.
+template <typename Src, bool kR2, bool kStage, bool kMixed = false>
 __device__ __forceinline__ void nested_body(
     const void* __restrict__ src, const CmNested& n, const Conv& conv, const int* __restrict__ blk,
     const int* __restrict__ consts, int dst_w, int dst_h, void* __restrict__ out, int out_type,
@@ -579,8 +588,10 @@ __device__ __forceinline__ void nested_body(
     // held plane's block (block-uniform) takes neither form. The footprint
     // is built beside the tables' staging: a resize's lists by warps 0 (x)
     // and 1 (y) before the first barrier; a warp's box from each warp's
-    // extremes, listed after it
-    const bool stage = kStage && held_fill < 0;
+    // extremes, listed after it. A mixed batch's plane whose stage2 is 0
+    // (a resize whose taps no two pixels share) goes per tap, as a block
+    // past the budget does
+    const bool stage = kStage && held_fill < 0 && (!kMixed || n.stage2 != 0);
     const int warp = tid >> 5, lane = tid & 31;
     if (stage) {
       if (n.core2 == CM_RESIZE) {
@@ -757,11 +768,50 @@ __global__ void __launch_bounds__(kThreads, 4) composed_kernel_nested_staged(CVG
 #undef CVGS_NESTED_PARAMS
 #undef CVGS_NESTED_ARGS
 
+// A mixed-geometry batch's nested instances, the same three: the block's
+// plane head (kNestedWords consts words at blockIdx.z * kNestedWords,
+// 1056 bytes) copied into shared memory, then the body over it; the staged
+// one (launched where any plane's stage2 is 1) takes the per-tap form on a
+// plane whose stage2 is 0. Static shared memory of the staged one: the
+// head, Stage2 and the three op tables, 47,792 bytes, under the 48 KB of a
+// static allocation, 4 blocks an SM.
+#define CVGS_NESTED_MIXED_PARAMS                                                              \
+  const void* __restrict__ src, Conv conv, const int* __restrict__ blk,                        \
+      const int* __restrict__ consts, int dst_w, int dst_h, void* __restrict__ out, int out_type, \
+      int out_ch, int store_op, long long sn, long long sc, long long sy, long long sx
+template <typename Src, bool kR2, bool kStage>
+__device__ __forceinline__ void nested_mixed_body(CVGS_NESTED_MIXED_PARAMS) {
+  __shared__ CmNested n;
+  const int* rec = consts + (long long)blockIdx.z * kNestedWords;
+  int* words = reinterpret_cast<int*>(&n);
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < kNestedWords;
+       i += blockDim.x * blockDim.y) {
+    words[i] = __ldg(rec + i);
+  }
+  __syncthreads();
+  nested_body<Src, kR2, kStage, true>(src, n, conv, blk, consts, dst_w, dst_h, out, out_type,
+                                      out_ch, store_op, sn, sc, sy, sx);
+}
+#define CVGS_NESTED_MIXED_ARGS \
+  src, conv, blk, consts, dst_w, dst_h, out, out_type, out_ch, store_op, sn, sc, sy, sx
+template <typename Src, bool kR2>
+__global__ void __launch_bounds__(kThreads) composed_kernel_nested_mixed(
+    CVGS_NESTED_MIXED_PARAMS) {
+  nested_mixed_body<Src, kR2, false>(CVGS_NESTED_MIXED_ARGS);
+}
+template <typename Src>
+__global__ void __launch_bounds__(kThreads, 4) composed_kernel_nested_mixed_staged(
+    CVGS_NESTED_MIXED_PARAMS) {
+  nested_mixed_body<Src, true, true>(CVGS_NESTED_MIXED_ARGS);
+}
+#undef CVGS_NESTED_MIXED_PARAMS
+#undef CVGS_NESTED_MIXED_ARGS
+
 // The nested launch for a source of kind Src: one pixel a thread, a block
 // of 256 threads: a kTile2W x kTile2H tile with a second resample (its
 // footprint's shape near scale 1 is square), staged where the plan's
-// stage2 word asks for it, else group_block's shape for one pixel a
-// thread.
+// stage2 word asks for it (a mixed-geometry batch: any plane's), else
+// group_block's shape for one pixel a thread.
 template <typename Src>
 void launch_nested(const ComposedArgs& a) {
   CmNested n;
@@ -769,6 +819,18 @@ void launch_nested(const ComposedArgs& a) {
   const dim3 block = n.core2 == CM_NONE ? group_block(a.dst_w, 1) : dim3(kTile2W, kTile2H);
   const dim3 grid((a.dst_w + block.x - 1) / block.x, (a.dst_h + block.y - 1) / block.y,
                   a.n_planes);
+  if (n.h.batch == CM_MIXED) {
+    bool stage = false;
+    for (int z = 0; z < a.n_planes; ++z) {
+      stage = stage || a.head[(long long)z * kNestedWords + offsetof(CmNested, stage2) / 4] != 0;
+    }
+    auto* mixed = n.core2 == CM_NONE ? composed_kernel_nested_mixed<Src, false>
+                  : stage            ? composed_kernel_nested_mixed_staged<Src>
+                                     : composed_kernel_nested_mixed<Src, true>;
+    mixed<<<grid, block, 0, a.stream>>>(a.src, a.conv, a.blk, a.consts, a.dst_w, a.dst_h, a.out,
+                                        a.out_type, a.out_ch, a.store_op, a.sn, a.sc, a.sy, a.sx);
+    return;
+  }
   auto* kernel = n.core2 == CM_NONE ? composed_kernel_nested<Src, false>
                  : n.stage2 != 0    ? composed_kernel_nested_staged<Src>
                                     : composed_kernel_nested<Src, true>;

@@ -26,10 +26,12 @@ channels, and one output size); they differ in their leaves (the source
 array, crop origins, border values, warp coefficients, chain scalars) and
 may differ in their geometry: the base's height and width, each crop's and
 border's sizes, a resample's ``dsize`` (cameras of mixed resolution, ROIs of
-their own sizes, letterboxes of their own aspect). A batch of one geometry
+their own sizes, letterboxes of their own aspect; for nested planes also the
+middle image's size and the second resample's taps). A batch of one geometry
 runs one head on every plane; a mixed one (``MIXED``) has each plane's head
 and tap tables in the consts (``_mixed``), which its own kernel instances
-read per block. Its planes ``z >= used_planes`` hold
+read per block (a nested plane's with its own ``stage2``: staged and per-tap
+planes in one launch). Its planes ``z >= used_planes`` hold
 ``default`` cast to the read value's dtype. A one-frame read with no
 resampling node is the kernel's only with a ``FusedRead`` below a stage;
 every other such tree is the pointwise kernel's (a ``BatchRead``'s planes
@@ -57,8 +59,6 @@ names each):
   modes, chains, the base's dtype, kind or channels, the output size: the
   divergent kernel's ground), or of a ``BatchRead``, a ring or another
   read: a plane's structure is shared;
-- a ``BatchRead`` of nested planes whose geometry differs: the nested
-  instances' staging choice and footprint budget are per structure;
 - more than ``MAX_STAGES`` crops and borders above the core, between two
   resampling nodes, or below the core;
 - the float ``FusedRead`` of NV12 that the full-frame kernel resizes
@@ -282,6 +282,10 @@ _GEOMETRY = {CropRead: ("width", "height"), BorderRead: ("top", "bottom", "left"
              ResizeRead: ("dsize",), WarpRead: ("dsize",)}
 #: the field of each base whose leaf is the frame
 _FRAMES = {ImageRead: "data", ReadYUV: "buffer"}
+#: the runtime values that follow from an op's geometry and others of its
+#: values, compared through those: a warp's terms of each column and row of
+#: its ``dsize``, from its coefficients (which the kernel reads)
+_SIZED = {WarpRead: ("col_x", "row_x", "col_y", "row_y", "col_w", "row_w")}
 #: what a static field that differs between planes is called
 _FIELD_NAMES = {"mode": "border mode", "interp": "interpolation", "warp_type": "warp type",
                 "pixel_format": "NV12 format"}
@@ -291,7 +295,7 @@ def _difference(a, b) -> Optional[str]:
     """What differs between two planes' read trees beyond their geometry
     (``_GEOMETRY`` and the frames' heights and widths), or None: op types,
     modes, the fused chains' structure, the frames' dtype and channels, a
-    runtime value's shape or dtype."""
+    runtime value's shape or dtype (``_SIZED``'s follow from the others)."""
     if type(a) is not type(b):
         what = "chain structure" if isinstance(a, ComputeOp) else "op types"
         return f"{what} ({type(a).__name__} and {type(b).__name__})"
@@ -306,7 +310,7 @@ def _difference(a, b) -> Optional[str]:
                 return f"{what} ({va} and {vb})"
         for f in fields:
             va, vb = getattr(a, f.name), getattr(b, f.name)
-            if f.metadata.get("static"):
+            if f.metadata.get("static") or f.name in _SIZED.get(type(a), ()):
                 continue
             if _FRAMES.get(type(a)) == f.name:
                 (_, sa, da), (_, sb, db) = _leaf_signature(va), _leaf_signature(vb)
@@ -459,9 +463,7 @@ class ComposedPlan:
     def word(self, name: str) -> int:
         """A word of the head by its name in ``_CORE_WORDS`` or, for a
         nested plan, ``_MID_WORDS``."""
-        if name in _CORE_WORDS:
-            return self.head[3 * kp.HEAD_INTS + _CORE_WORDS.index(name)]
-        return self.head[HEAD_INTS + 2 * kp.HEAD_INTS + _MID_WORDS.index(name)]
+        return self.head[_word_index(name)]
 
     def stage_list(self, k: int):
         """The stages of list ``k`` (0 lower, 1 upper, 2 outer; a nested
@@ -572,11 +574,6 @@ def build_plan(pipeline) -> ComposedPlan:
     plan = _plane_plan(t, t.planes[0], pipeline)
     if one_geometry:
         return plan
-    if plan.core2:
-        raise Unsupported("a nested plane (a second resampling node or a fused read above the "
-                          "core) whose geometry differs across the planes of a BatchRead: the "
-                          "nested instances' staging (stage2) and footprint budget are per "
-                          "structure, and they take one geometry")
     return _mixed([plan, *(_plane_plan(t, p, pipeline) for p in t.planes[1:])])
 
 
@@ -720,23 +717,33 @@ def _plane_plan(t: _Tree, p: _Plane, pipeline) -> ComposedPlan:
         core2=core2, mid_dtype=mid_dtype)
 
 
+def _word_index(name: str) -> int:
+    """The index in a head of a word of ``_CORE_WORDS`` or ``_MID_WORDS``."""
+    if name in _CORE_WORDS:
+        return 3 * kp.HEAD_INTS + _CORE_WORDS.index(name)
+    return HEAD_INTS + 2 * kp.HEAD_INTS + _MID_WORDS.index(name)
+
+
 def _with_words(head: Tuple[int, ...], **words) -> Tuple[int, ...]:
-    """``head`` with the ``_CORE_WORDS`` named replaced."""
+    """``head`` with the ``_CORE_WORDS`` (and a nested head's
+    ``_MID_WORDS``) named replaced."""
     out = list(head)
     for name, v in words.items():
-        out[3 * kp.HEAD_INTS + _CORE_WORDS.index(name)] = int(v)
+        out[_word_index(name)] = int(v)
     return tuple(out)
 
 
 def _mixed(plans: List[ComposedPlan]) -> ComposedPlan:
     """The plan of a ``BatchRead`` whose planes differ in geometry, from
     each plane's own plan: the tables hold every plane's head first
-    (``HEAD_INTS`` words a plane, the kernel's block reads its plane's),
-    then the op tables, then each plane's tap tables; each head points at
-    its own taps, and its ``batch`` word is ``MIXED``. The plan is plane
-    0's, its planes' in :meth:`ComposedPlan.for_plane`; the shape test
-    (``_one_shape``) leaves them one structure, which the C entry checks
-    again plane by plane."""
+    (``HEAD_INTS`` words a plane, a nested plan's ``NESTED_INTS``; the
+    kernel's block reads its plane's), then the op tables (a nested plan's
+    FusedRead2 table last), alike on every plane, then each plane's tap
+    tables (a nested plan's core's, then its second resample's); each head
+    points at its own taps, and its ``batch`` word is ``MIXED``. A nested
+    plane keeps its own ``stage2``. The plan is plane 0's, its planes' in
+    :meth:`ComposedPlan.for_plane`; the shape test (``_one_shape``) leaves
+    them one structure, which the C entry checks again plane by plane."""
     first = plans[0]
     for z, q in enumerate(plans[1:], 1):
         if q.dsize != first.dsize:
@@ -744,17 +751,28 @@ def _mixed(plans: List[ComposedPlan]) -> ComposedPlan:
                 f"planes 0 and {z} of a BatchRead differ in output size ({first.dsize.width}x"
                 f"{first.dsize.height} and {q.dsize.width}x{q.dsize.height}): the planes must "
                 "stack")
-    heads_size = len(plans) * HEAD_INTS
-    ops_size = first.word("taps_off")  # the two op tables, alike on every plane
-    at = heads_size + ops_size
+    nested = bool(first.core2)
+    heads_size = len(plans) * (NESTED_INTS if nested else HEAD_INTS)
+    ops_size = first.word("taps_off")  # the two op tables
+    ops = [first.tables[:ops_size]]
+    if nested:  # FusedRead2's table after them
+        ops.append(first.tables[first.word("mid_ops_off"):first.word("taps2_off")])
+    at = heads_size + sum(t.size for t in ops)
     heads, taps = [], []
     for q in plans:
-        tap = q.tables[q.word("taps_off"):]
-        heads.append(_with_words(q.head, batch=MIXED, in_ops_off=heads_size,
-                                 out_ops_off=heads_size + q.word("out_ops_off"), taps_off=at))
+        words = dict(batch=MIXED, in_ops_off=heads_size,
+                     out_ops_off=heads_size + q.word("out_ops_off"), taps_off=at)
+        if nested:
+            tap = q.tables[q.word("taps_off"):q.word("mid_ops_off")]
+            tap2 = q.tables[q.word("taps2_off"):]
+            words.update(mid_ops_off=heads_size + ops_size, taps2_off=at + tap.size)
+            tap = np.concatenate([tap, tap2])
+        else:
+            tap = q.tables[q.word("taps_off"):]
+        heads.append(_with_words(q.head, **words))
         taps.append(tap)
         at += tap.size
-    tables = np.concatenate([np.asarray(heads, np.int32).reshape(-1), first.tables[:ops_size],
+    tables = np.concatenate([np.asarray(heads, np.int32).reshape(-1), *ops,
                              *taps]).astype(np.int32)
     planes = tuple(dataclasses.replace(q, head=hd, tables=tables, device_consts={})
                    for q, hd in zip(plans, heads))
@@ -1423,7 +1441,7 @@ def second_taps(a: Launch, z: int):
     ``z`` (positions in the middle image) and those its result takes, none
     where an outer CONSTANT border fills the pixel: what a thread of the
     kernel takes from its block's grid."""
-    plan = a.plan
+    plan = a.plan.for_plane(z)
     shift = z * plan.word("plane_stride")
     blk, fblk = a.block.long()[shift:], a.block.view(torch.float32)[shift:]
     w, h = plan.dsize
@@ -1443,7 +1461,7 @@ def resize_axis_taps(a: Launch, z: int, axis: int):
     column walked through the outer stages alone, whether or not an outer
     CONSTANT border fills its pixels, as a warp of the kernel lists a
     tile's taps (``csrc/composed_nested.cuh::resize_axis``)."""
-    plan = a.plan
+    plan = a.plan.for_plane(z)
     lv = plan.level(1)
     blk = a.block.long().cpu()[z * plan.word("plane_stride"):]
     pos, _ = _walk_axis(plan.stage_list(2), blk, torch.arange(plan.dsize[1 - axis]), axis)
@@ -1484,23 +1502,25 @@ def nested_tiles(a: Launch) -> np.ndarray:
     as ``csrc/composed_nested.cuh`` chooses it (its host mirror):
     ``(planes, BH, BW, 3)`` int64 of the form's index in ``TILE_FORMS``,
     the rows and the columns listed. A block of TILE2 outputs stages its
-    footprint ("staged") where the plan's ``stage2`` word is 1 (a warp; a
-    resize whose tiles share taps, :func:`tap_share`), each axis's
-    list holds at most LIST2 positions and their grid at most GRID2 floats
-    of ``mid_ch`` lanes: under a resize the distinct taps of the tile's
-    columns (rows) inside the output (:func:`resize_axis_taps`), spanning
-    at most SPAN2; under a warp the box of the taps its pixels take
-    (:func:`second_taps`); else it evaluates the core at each tap
-    ("per_tap", its lists 0); a plane past ``used_planes`` is "held"."""
+    footprint ("staged") where its plane's ``stage2`` word is 1 (a warp; a
+    resize whose tiles share taps, :func:`tap_share`; a mixed-geometry
+    batch's planes each choose their own), each axis's list holds at most
+    LIST2 positions and their grid at most GRID2 floats of ``mid_ch``
+    lanes: under a resize the distinct taps of the tile's columns (rows)
+    inside the output (:func:`resize_axis_taps`), spanning at most SPAN2;
+    under a warp the box of the taps its pixels take (:func:`second_taps`);
+    else it evaluates the core at each tap ("per_tap", its lists 0); a
+    plane past ``used_planes`` is "held"."""
     plan = a.plan
     if plan.core2 not in ("resize", "warp"):
         raise ValueError("no second resample: the kernel's blocks take one form")
     w, h = plan.dsize
     tw, th = TILE2
     shape = (-(-h // th), -(-w // tw))
-    used, stage, ch = _used(a), plan.word("stage2"), plan.word("mid_ch")
+    used, ch = _used(a), plan.word("mid_ch")
     planes = []
     for z in range(plan.n_planes):
+        stage = plan.for_plane(z).word("stage2")
         out = torch.zeros((*shape, 3), dtype=torch.int64)
         if z >= used:
             out[..., 0] = TILE_FORMS.index("held")

@@ -23,7 +23,8 @@ borders; a second resize or warp over such a resample, or a fused read
 above it, with crops and borders between the two levels; and a
 ``BatchRead`` of such trees or of bare images whose planes share one
 shape, ragged or not, each plane of its own geometry: cameras of mixed
-resolution, ROIs of their own sizes, letterboxes of their own aspect), so
+resolution, ROIs of their own sizes, letterboxes of their own aspect, also
+of nested planes, each with its own middle image), so
 that a pipeline is one launch. int64 and float64 values are
 int32 and float32 from where they enter, as in the reference, which runs
 with 64-bit values off (``utils.dtypes.canonical_dtype``): host values are
@@ -33,8 +34,7 @@ no kernel reads: uint32 and bool sources, chain scalars that are neither
 float32 nor float16 (an integer tensor), and read trees no kernel takes (a
 third resampling node, a second fused read in one section, more than four
 crops and borders in one, a batched image under a resample, a
-``BatchRead`` whose planes differ in more than geometry, one of nested
-planes whose geometry differs). An
+``BatchRead`` whose planes differ in more than geometry). An
 explicit ``ParBackend.CUDA`` raises where no kernel can run, naming each
 kernel's refusal. Nothing falls back from a failed build or launch. In
 :func:`debug_mode` every wrapper waits for its launch and raises on a CUDA

@@ -23,9 +23,10 @@ plan's per-plane heads, and what it refuses.
   origins and coefficients build no plan, one changed size one; ``work``
   sums each plane's own sectors and operations.
 - Refusals: planes that differ in op type, border mode, warp type, chain
-  structure, source dtype, channels or output size, and a nested plane of
-  mixed geometry, raise ``Unsupported`` naming what differs, which
-  ``ParBackend.CUDA`` repeats.
+  structure, source dtype, channels or output size, and nested planes whose
+  second levels differ, raise ``Unsupported`` naming what differs, which
+  ``ParBackend.CUDA`` repeats (nested planes that differ in geometry alone
+  are ``tests/test_torch_composed_nested_mixed.py``'s).
 """
 
 import numpy as np
@@ -294,7 +295,9 @@ def _refused():
         return T.make_border(T.resize(T.image(img), T.Size(16, 10 - 2 * t)), 3 + t, 3 + t, 0, 0,
                              mode, 114)
 
-    nested = [T.resize(T.resize(T.image(img), T.Size(30, 20)), dst) for img in (a, b)]
+    # nested planes whose second levels differ: a resize beside a warp
+    nested = [T.resize(T.resize(T.image(a), T.Size(30, 20)), dst),
+              T.warp(T.resize(T.image(b), T.Size(30, 20)), m, dst)]
     return {
         "op types": [T.resize(T.image(a), dst), T.resize(T.crop(T.image(b), T.Rect(1, 1, 30, 20)),
                                                          dst)],
@@ -312,14 +315,15 @@ def _refused():
 
 @pytest.mark.parametrize("what", list(_refused()))
 def test_what_differs_is_named(what):
-    """Planes that differ in more than geometry, and a nested plane of
-    mixed geometry, raise ``Unsupported`` naming it; ``ParBackend.CUDA``
-    repeats the composed kernel's reason; the batch stays eager."""
+    """Planes that differ in more than geometry (nested planes whose
+    second levels differ among them) raise ``Unsupported`` naming it;
+    ``ParBackend.CUDA`` repeats the composed kernel's reason; the batch
+    stays eager."""
     planes = _refused()[what]
     ops = (T.batch_read(planes), T.split_tensor())
     p = T.build_pipeline(*ops)
-    match = ("a nested plane" if what == "nested"
-             else f"planes 0 and 1 of a BatchRead differ in {what}")
+    match = ("planes 0 and 1 of a BatchRead differ in op types \\(ResizeRead and WarpRead\\)"
+             if what == "nested" else f"planes 0 and 1 of a BatchRead differ in {what}")
     with pytest.raises(kc.Unsupported, match=match):
         kc.build_plan(p)
     with pytest.raises(ValueError, match=f"cuda:composed: {match}"):

@@ -117,11 +117,13 @@ def emulate_nested(a: kc.Launch, forms: list):
     blocks' ``(form, rows listed, columns listed)`` appended to ``forms``
     (none for a plan without a second resample: one pixel a thread)."""
     plan = a.plan
-    lv0, lv1 = plan.level(0), plan.level(1)
     w, h = plan.dsize
-    used, stage, ch = kc._used(a), plan.word("stage2"), plan.word("mid_ch")
+    used, ch = kc._used(a), plan.word("mid_ch")
 
     def plane_value(a, srcs, z, p, yc, xc, need):
+        # a mixed-geometry batch's plane: its own levels and stage2
+        q = plan.for_plane(z)
+        lv0, lv1, stage = q.level(0), q.level(1), q.word("stage2")
         r = kc._Reader(a, srcs, z, p)
         yi = torch.arange(lv0.core_h)[:, None].expand(lv0.core_h, lv0.core_w)
         xi = torch.arange(lv0.core_w)[None, :].expand(lv0.core_h, lv0.core_w)
@@ -174,9 +176,13 @@ def _check(ops, stage=None):
     p = T.build_pipeline(*ops)
     plan = kc.build_plan(p)
     if stage is not None and plan.core2 in ("resize", "warp"):
-        at = kc.HEAD_INTS + 2 * kc.kp.HEAD_INTS + kc._MID_WORDS.index("stage2")
-        plan = kc.dataclasses.replace(plan, head=plan.head[:at] + (stage,) + plan.head[at + 1:],
-                                      device_consts={})
+        if plan.planes:  # a mixed-geometry batch: every plane's word
+            t = kc._tree(p)
+            plan = kc._mixed([kc.dataclasses.replace(q, head=kc._with_words(q.head, stage2=stage))
+                              for q in (kc._plane_plan(t, pl, p) for pl in t.planes)])
+        else:
+            plan = kc.dataclasses.replace(plan, head=kc._with_words(plan.head, stage2=stage),
+                                          device_consts={})
     a = kc.prepare(p, plan, CPU)
     forms: list = []
     got, want = emulate_nested(a, forms), kc.composed_reference(a)
@@ -213,6 +219,10 @@ def test_the_constants_are_the_kernels():
     # thread's four taps' slots in the grid
     assert 4 * (4 + 8 * 4 + 2 * SPAN + 2 * LIST * 7 + GRID) + 3 * 256 * 32 <= 48 * 1024
     assert GRID >= 4 * 4 * 256
+    # and, in the mixed instances, the block's copy of its plane's head
+    # (kNestedWords int32 words): 47,792 bytes in all
+    staged_mixed = 4 * (4 + 8 * 4 + 2 * SPAN + 2 * LIST * 7 + GRID + kc.NESTED_INTS) + 3 * 256 * 32
+    assert staged_mixed == 47792 <= 48 * 1024
 
 
 @pytest.mark.parametrize("stage", [None, 1])
@@ -338,3 +348,33 @@ def test_held_planes_take_neither_form(used):
     forms = _check(ops, stage=1)
     held = min(max(used, 0), cc.N6_PLANES)
     assert (forms[held:, ..., 0] == HELD).all() and (forms[:held, ..., 0] != HELD).all()
+
+
+@pytest.mark.parametrize("stage", [None, 0, 1])
+@pytest.mark.parametrize("family", ["uint8", "nv12"])
+@pytest.mark.parametrize("name", cc.NESTED_MIXED_NAMES)
+def test_nested_mixed_cases(name, family, stage):
+    """A batch of nested planes of their own geometry, block by block as
+    the mixed nested instances take it: each plane's blocks in the form its
+    own ``stage2`` and footprint give (as ``build_plan`` sets each plane's
+    word, or every plane per tap or staged), equal to the plain version and
+    to ``nested_tiles``."""
+    ops = cc.nested_mixed_cases(T, cc.mixed_frames(family, 16))[name]
+    forms = _check(ops, stage)
+    if name.startswith("nm2"):
+        assert forms is None
+        return
+    if stage == 0:
+        assert set(np.unique(forms[..., 0])) <= {PER_TAP, HELD}
+    if name.startswith("nm1"):
+        assert (forms[2:, ..., 0] == HELD).all() and (forms[:2, ..., 0] != HELD).all()
+
+
+def test_planes_of_one_launch_take_their_own_forms():
+    """NM4 at a larger size: the planes whose crops are upscaled stage every
+    block, the plane whose crop is downscaled (``stage2`` 0) takes the
+    per-tap form in every block, in one launch."""
+    f = cc.mixed_frames("uint8", 17, ((90, 120), (120, 160), (70, 50)))
+    forms = _check(cc.nested_mixed_cases(T, f)["nm4_roi_crops_of_a_downscale"])
+    assert (forms[[0, 2], ..., 0] == STAGED).all()
+    assert (forms[1, ..., 0] == PER_TAP).all()

@@ -352,6 +352,85 @@ def nested_cases(M, f: dict, values: int = 0) -> dict:
     }
 
 
+NESTED_MIXED_NAMES = ("nm1_top_views_of_cameras_of_3_sizes_ragged",
+                      "nm2_normalized_letterboxes_of_rois", "nm3_half_size_resize_then_rotate",
+                      "nm4_roi_crops_of_a_downscale")
+#: NM4's middle image (w, h), the crops of it (w, h) and their output side:
+#: a crop smaller than the output is an upscale, whose tiles share taps
+#: (``stage2`` 1), a larger one a downscale (``stage2`` 0)
+NM4_MID, NM4_CROPS, NM4_SIDE = (40, 30), ((6, 4), (24, 18), (5, 5)), 12
+
+
+def nested_mixed_cases(M, f: dict, values: int = 0, used=None, default=0.0) -> dict:
+    """``name -> op list`` of the batches of nested planes that share one
+    shape but not one geometry, over ``f`` (:func:`mixed_frames`): NM1 N6's
+    tree over the three cameras, each warped to its own top view at its own
+    size (perspective, CONSTANT 0), then resized to ``MIXED_DST``, with
+    ``used_planes`` 2 (1 with ``values``), default 0, unless ``used`` and
+    ``default``; NM2 N5's tree at M4's geometry: regions of three sizes of
+    ``f["big"]`` each resized into its letterbox's inner size, fused with
+    x1/255 and bordered (CONSTANT 0.447) into a 16x16 square, no chain; NM3
+    each camera resized to half its size, then rotated about its centre
+    into ``MIXED_DST`` at the scale that fits; NM4 each camera resized to
+    ``NM4_MID``, then a crop of one of ``NM4_CROPS`` resized to a square of
+    ``NM4_SIDE`` (its planes disagree on ``stage2``). All planar float32,
+    normalized as M1 unless said; every region inside its frame. An NV12
+    family reads each frame as C8 does. ``values`` 1 moves every runtime
+    value (the maps, origins, angles, the border value, ``used_planes``)
+    and keeps every size."""
+    cams, big = f["cams"], f["big"]
+    nv12 = f.get("family") == "nv12"
+
+    def base(src):
+        if nv12:
+            return M.fuse(M.read_yuv(src), M.convert_yuv_to_rgb(out_dtype=np.uint8))
+        return M.image(src)
+
+    def side(src):  # (h, w) of a frame's image
+        return (src.shape[0] * 2 // 3, src.shape[1]) if nv12 else src.shape[:2]
+
+    dst = M.Size(*MIXED_DST)
+    persp = dict(warp_type=M.WarpType.PERSPECTIVE, default=0.0)
+    ragged = dict(used_planes=(2 - values) if used is None else used, default=default)
+    top_views = []
+    for k, src in enumerate(cams):
+        h, w = side(src)
+        top_views.append(M.resize(M.warp(base(src), top_view(w, h, k + values), M.Size(w, h),
+                                         **persp), dst))
+    bh, bw = side(big)
+    boxes = []
+    for z, (rw, rh) in enumerate(((22, 16), (12, 20), (18, 18))):
+        (iw, ih), (t, b, l, r) = letterbox(rw, rh, 16)
+        x, y = (3 * z + values) % (bw - rw), (2 * z + 1) % (bh - rh)
+        boxes.append(M.make_border(
+            M.fuse(M.resize(M.crop(base(big), M.Rect(x, y, rw, rh)), M.Size(iw, ih)),
+                   M.convert_to(np.float32, alpha=1 / 255.0)),
+            t, b, l, r, M.BorderMode.CONSTANT, 0.447 - 0.1 * values))
+    rotated = []
+    for z, src in enumerate(cams):
+        h, w = side(src)
+        half = M.Size(w // 2, h // 2)
+        scale = min(dst.width / half.width, dst.height / half.height)
+        rotated.append(M.warp(M.resize(base(src), half),
+                              rotation_to((half.width / 2, half.height / 2),
+                                          5.0 + 17.5 * z + 3 * values, scale,
+                                          (dst.width / 2, dst.height / 2)), dst))
+    mw, mh = NM4_MID
+    rois = []
+    for z, (src, (cw, ch)) in enumerate(zip(cams, NM4_CROPS)):
+        x, y = (7 * z + 2 * values) % (mw - cw), (5 * z + values) % (mh - ch)
+        rois.append(M.resize(M.crop(M.resize(base(src), M.Size(mw, mh)), M.Rect(x, y, cw, ch)),
+                             M.Size(NM4_SIDE, NM4_SIDE)))
+    return {
+        "nm1_top_views_of_cameras_of_3_sizes_ragged": (
+            M.batch_read(top_views, **ragged), *normalize(M), M.split_tensor()),
+        "nm2_normalized_letterboxes_of_rois": (M.batch_read(boxes), M.split_tensor()),
+        "nm3_half_size_resize_then_rotate": (M.batch_read(rotated), *normalize(M),
+                                             M.split_tensor()),
+        "nm4_roi_crops_of_a_downscale": (M.batch_read(rois), *normalize(M), M.split_tensor()),
+    }
+
+
 def centred(m: np.ndarray, center, to) -> np.ndarray:
     """A forward map ``m`` (2x3) moved so that ``center`` lands on ``to``."""
     m = np.array(m, np.float64)

@@ -82,7 +82,11 @@ kernel duration of 20 launches), in microseconds:
 - its composed kernel's mixed-geometry batches M1-M5 (``m1`` .. ``m5``:
   ``chip_smoke.py``'s ``mixed_cases``, planes of one shape and each its
   own sizes), left out for a variant without the mixed-geometry instances
-  (no ``composed_kernel_mixed`` in its ``composed.cuh``).
+  (no ``composed_kernel_mixed`` in its ``composed.cuh``);
+- its composed kernel's batches of nested planes of their own geometry
+  NM1-NM4 (``nm1`` .. ``nm4``: ``chip_smoke.py``'s ``nested_mixed_cases``),
+  left out for a variant without the mixed nested instances (no
+  ``composed_kernel_nested_mixed`` in its ``composed_nested.cuh``).
 
 ``cases``, a comma-separated list, times only those; where it is not given,
 a file's ``"cases"`` entry (a string, not a variant) names them. The cases are
@@ -282,6 +286,10 @@ def main() -> int:
     for k, ops in enumerate(cs.mixed_cases(cvgs, m_cams, frame, m_nv12).values(), 1):
         cases[f"m{k}"] = (kc, kc.composed, ops)
     mixed_names = {f"m{k}" for k in range(1, 6)}
+    # the batches of nested planes of their own geometry NM1-NM4 (nm1 .. nm4)
+    for k, ops in enumerate(cs.nested_mixed_cases(cvgs, m_cams, frame).values(), 1):
+        cases[f"nm{k}"] = (kc, kc.composed, ops)
+    nested_mixed_names = {f"nm{k}" for k in range(1, 5)}
     composed_names = {name for name in cases if name.startswith(("c", "b"))}
     x64_cases = {name for name in (*cases, *batches) if name.endswith(("_i64", "_f64"))}
     launches = {}
@@ -312,6 +320,9 @@ def main() -> int:
         if cname in nested_names and not hasattr(_build.load(), "cvgs_composed_nested"):
             return False
         if cname in mixed_names and "composed_kernel_mixed" not in (d / "composed.cuh").read_text():
+            return False
+        if cname in nested_mixed_names and "composed_kernel_nested_mixed" not in (
+                d / "composed_nested.cuh").read_text():
             return False
         return cname not in pointwise_cases or hasattr(_build.load(), "cvgs_pointwise")
 
