@@ -47,9 +47,16 @@ geometry: N6's top views over the eight cameras of three resolutions, ragged
 at 6, N5's normalized letterbox over eight ROIs of the 4K frame of eight
 sizes, the cameras resized to half their size and rotated into 640x360, and
 crops of eight sizes of each camera resized to 960x540, resized to 224x224
-(its planes disagree on staging); and the batch axis of the flagship, W6, P2,
-D1 and D3 sharded
-over a device mesh (``parallel/mesh.py``).
+(its planes disagree on staging); DV1-DV4 (``divergent_composed_cases``),
+divergent batches of composed read trees, which the divergent kernel
+refuses, through ``launch_divergent_batch`` in one launch of the composed
+kernel (``cuda:composed:divergent``): letterboxes of the 1080p cameras
+beside warps of 1280x960 cameras into 640x640, regions of interest of 200 to
+900 pixels of the 4K frame beside those of a 12-bit uint16 sensor frame into
+224x224, a uint8 chain beside a ragged float32 group stored into a uint8
+batch, ``crop_batch`` beside bordered crops; and the batch axis of the
+flagship, W6, P2, D1 and D3 sharded over a device mesh
+(``parallel/mesh.py``).
 In phases; any failure ends the run with a non-zero exit
 code and no result line:
 
@@ -132,7 +139,8 @@ code and no result line:
    per-tap form past the staging budget and an upscale's shared taps; each
    nested case's blocks' forms logged from ``nested_tiles``), NM1-NM4 (each
    plane's head and ``stage2`` in the consts, the mixed nested instances;
-   each plane's blocks' forms logged) and a resize of a crop that overhangs
+   each plane's blocks' forms logged), DV1-DV4 (each plane's head its
+   group's, the divergent kernel's refusal logged) and a resize of a crop that overhangs
    its frame (``overhang_cases``: past the right and the bottom edge and
    from a negative origin, one level, nested, a plane of a mixed batch, and
    K1's rects past the edges) at full width,
@@ -189,7 +197,12 @@ code and no result line:
    against a float64 resize of each camera; N1-N6 the same way (new maps, crop origin,
    border value, ``used_planes`` and N6's camera frames); NM1-NM4 the same
    way (new frames of the same sizes, maps, origins, angles, border value
-   and ``used_planes``: no plan);
+   and ``used_planes``: no plan); DV1-DV4 twice each through
+   ``launch_divergent_batch`` (new camera and sensor frames of the same
+   sizes, origins, angles, border value and ``used_planes``),
+   ``cuda:composed:divergent`` also under ``ParBackend.CUDA``, one launch
+   of the composed kernel per call and none of the divergent kernel, no plan
+   on the second, bit for bit the eager merge on the card;
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain, and the
    kernel's duration in a ``torch.profiler`` trace of 20 launches (events
@@ -227,6 +240,9 @@ code and no result line:
    NM1-NM4 the same way, and what a plane's head in shared memory costs
    the nested instances: N2, N3 (a one-plane batch) and N6 by value and
    through the mixed nested instances, each plane given its head, bit-equal;
+   DV1-DV4 the same way beside the eager merge (``ParBackend.TORCH``) and,
+   as a reference, each group's own composed launch over its planes,
+   summed, with the instance each launch ran as the profiler names it;
 6. sharding: (a) every rank of meshes of 2 and 5 (the flagship, 50 crops
    ragged at ``used_planes`` = 37) and of 2, 4 and 8 (W6; P2's ring from
    ``first`` = 3 and -5; D1 and D3) run on this card through the rank-local
@@ -970,6 +986,105 @@ def budget_nested_cases(cvgs, frame) -> dict:
         "n8_upscale_of_a_downscale": (
             cvgs.resize(cvgs.resize(cvgs.image(frame), cvgs.Size(*FRAME_DST)), full),
             *normalize, cvgs.split_tensor()),
+    }
+
+
+#: DV's 4:3 cameras (h, w), the 12-bit sensor frame (h, w) and the sides of
+#: DV1-DV4's output planes
+DV_CAMERA, DV_SENSOR = (960, 1280), (2048, 2448)
+DV_SIDES = {"dv1": 640, "dv2": 224, "dv3": 320, "dv4": 256}
+
+
+def dv_rois(h: int, w: int, values: int):
+    """Sixteen regions ``(x, y, w, h)`` of an ``h`` x ``w`` frame, sides of
+    200 to 900 pixels (scaled to the frame's height against 2160), each its
+    own size and aspect (3:4 and 4:3 in turn); ``values`` 1 moves their
+    origins."""
+    out = []
+    for k in range(16):
+        s = round((200 + 700 * k / 15) * h / 2160)
+        rw, rh = (s, s * 3 // 4) if k % 2 else (s * 3 // 4, s)
+        out.append(((k * 331 + 9 * values) % (w - rw + 1), (k * 173 + 5 * values) % (h - rh + 1),
+                    rw, rh))
+    return out
+
+
+def divergent_composed_cases(cvgs, cams, cams43, frame, sensor, values=0) -> dict:
+    """The divergent batches that the composed kernel takes in one launch,
+    DV1-DV4, at full width: ``name -> (plane ids, (op list of each
+    sequence))``; ``cams`` the eight 1080p cameras, ``cams43`` eight 4:3
+    cameras of ``DV_CAMERA``, ``frame`` the 4K frame, ``sensor`` a 3-channel
+    12-bit uint16 frame of ``DV_SENSOR``. ``values`` 1 moves every runtime
+    value (origins, angles, the border value, ``used_planes``) and keeps
+    every size. DV1 a surround-view detector input: letterboxes of the 1080p
+    cameras (resized to 640x360, CONSTANT 114 140 rows above and below)
+    beside affine warps of the 4:3 cameras to 640x640 (rotations of 5-15
+    degrees at a scale of 0.6, the camera's centre on the output's), ids
+    [1, 1, 2, 2] * 2, normalized, planar; DV2 classifier crops from two
+    sensors: regions of interest of 200-900 pixels of the 4K frame resized
+    to 224x224, x1/255, beside regions of the sensor frame, x1/4095, ids
+    [1, 2] * 8, planar; DV3 per-group store casts and a ragged group: the
+    letterboxes into 320x320 under convert_to(uint8, 0.5, 3.0) beside warps
+    of 960x720 crops of the 4:3 cameras to 320x320, x0.9, +3.25 in float32,
+    ragged at used_planes 3 with a default of 300.7, into a packed uint8
+    batch, ids [1, 2] * 4; DV4 one-pixel groups: crop_batch of 256x256
+    regions of the 4K frame beside make_border(crop) of 224x224 regions, 16
+    pixels each way in REFLECT_101, x1/255, planar, ids [1, 2] * 4."""
+    normalize = (cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract(MEAN),
+                 cvgs.divide(STD))
+
+    def boxes(side):
+        (iw, ih), (t, b, l, r) = letterbox(FRAME_W, FRAME_H, side)
+        return cvgs.batch_read([cvgs.make_border(
+            cvgs.resize(cvgs.image(c), cvgs.Size(iw, ih)), t, b, l, r,
+            cvgs.BorderMode.CONSTANT, 114 - 14 * values) for c in cams])
+
+    def warps(side, crop=None):
+        h, w = DV_CAMERA
+        out = []
+        for k, c in enumerate(cams43):
+            src, cw, ch = cvgs.image(c), w, h
+            if crop:
+                cw, ch = crop
+                src = cvgs.crop(src, cvgs.Rect((37 * k + 5 * values) % (w - cw + 1),
+                                               (23 * k) % (h - ch + 1), cw, ch))
+            angle = 5.0 + 10.0 * k / 7 + 2.0 * values
+            out.append(cvgs.warp(src, rotation((cw / 2, ch / 2), angle, 0.6 * side / cw * 2,
+                                               to=(side / 2, side / 2)), cvgs.Size(side, side)))
+        return out
+
+    def rois(src, side):
+        h, w = src.shape[:2]
+        return cvgs.batch_read([cvgs.resize(cvgs.crop(cvgs.image(src), cvgs.Rect(x, y, rw, rh)),
+                                            cvgs.Size(side, side))
+                                for x, y, rw, rh in dv_rois(h, w, values)])
+
+    s1, s2, s3, s4 = (DV_SIDES[k] for k in ("dv1", "dv2", "dv3", "dv4"))
+    inner = s4 - 32
+    tiles = [((k * 461 + 7 * values) % (SRC_W - s4), (k * 263 + 3 * values) % (SRC_H - s4))
+             for k in range(8)]
+    bordered = [((k * 379 + 5 * values) % (SRC_W - inner), (k * 211 + values) % (SRC_H - inner))
+                for k in range(8)]
+    return {
+        "dv1_surround_view_letterboxes_and_warps": ([1, 1, 2, 2] * 2, (
+            (boxes(s1), *normalize, cvgs.split_tensor()),
+            (cvgs.batch_read(warps(s1)), *normalize, cvgs.split_tensor()))),
+        "dv2_classifier_crops_from_two_sensors": ([1, 2] * 8, (
+            (rois(frame, s2), cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.split_tensor()),
+            (rois(sensor, s2), cvgs.convert_to(np.float32, alpha=1 / 4095.0),
+             cvgs.split_tensor()))),
+        "dv3_store_casts_and_a_ragged_group": ([1, 2] * 4, (
+            (boxes(s3), cvgs.convert_to(np.uint8, alpha=0.5, beta=3.0), cvgs.write_tensor()),
+            (cvgs.batch_read(warps(s3, (960, 720)), used_planes=3 - values, default=300.7),
+             cvgs.multiply(0.9), cvgs.add(3.25), cvgs.write_tensor()))),
+        "dv4_one_pixel_groups": ([1, 2] * 4, (
+            (cvgs.crop_batch(cvgs.image(frame), [cvgs.Rect(x, y, s4, s4) for x, y in tiles]),
+             cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.split_tensor()),
+            (cvgs.batch_read([cvgs.make_border(cvgs.crop(cvgs.image(frame),
+                                                         cvgs.Rect(x, y, inner, inner)),
+                                               16, 16, 16, 16, cvgs.BorderMode.REFLECT_101)
+                              for x, y in bordered]),
+             cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.split_tensor()))),
     }
 
 
@@ -2148,6 +2263,33 @@ def main() -> int:
             f"{plan.word('batch')}, bases (h, w) {[q.head[1:3] for q in plan.planes]}, middle "
             f"images (h, w) {[(q.word('mid_h'), q.word('mid_w')) for q in plan.planes]}, stage2 "
             f"{[q.word('stage2') for q in plan.planes]}, {plan.tables.size} consts words{forms}")
+    # the divergent batches DV1-DV4 at full width, which the divergent kernel
+    # refuses: one launch each of the composed kernel, each plane from its
+    # group's head, equal to the plain version (max |diff| 0)
+    cams43_np = [rng.integers(0, 256, (*DV_CAMERA, 3), dtype=np.uint8) for _ in range(CAMERAS)]
+    cams43 = [torch.from_numpy(c).to(dev) for c in cams43_np]
+    sensor = torch.from_numpy(rng.integers(0, 4096, (*DV_SENSOR, 3)).astype(np.uint16)).to(dev)
+    for name, (ids, ops) in divergent_composed_cases(cvgs, cams, cams43, frame, sensor).items():
+        seqs = tuple(cvgs.build_operation_sequence(*o) for o in ops)
+        try:
+            kd.build_plan(seqs, ids)
+        except kd.Unsupported as e:
+            refused = str(e)
+        else:
+            raise AssertionError(f"{name}: the divergent kernel takes it")
+        dva = kc.prepare(seqs, kc.build_divergent_plan(seqs, ids), dev)
+        before = kc.LAUNCHES
+        got = kc.composed(dva)
+        launched = kc.LAUNCHES - before
+        compare(name, "composed", got, kc.composed_reference(dva), 0.0)
+        plan = dva.plan
+        assert launched == 1 and plan.word("batch") == kc.DIVERGENT, (name, launched)
+        groups = [(g.sid, g.plan.core, str(g.plan.src_dtype)[6:]) for g in plan.groups]
+        log(f"phase3 composed {name}: {plan.n_planes} planes of {plan.dsize[0]}x{plan.dsize[1]} "
+            f"{plan.out_dtype}, ids {ids}, groups {groups}, store rows "
+            f"{sorted(set(plan.stores))}, "
+            f"{plan.tables.size} consts words, {plan.n_block} block words; the divergent kernel "
+            f"refuses it: {refused}")
     # a resize of a crop that overhangs its frame, as the reference's
     # op-by-op lowering reads it (tests/test_torch_overhanging_crops.py):
     # each kernel against its plain version at full width
@@ -2660,6 +2802,50 @@ def main() -> int:
         assert seen[0][1] <= builds0 + 1 and seen[1][1] == seen[0][1], (builds0, seen)
         assert same and bool(torch.isfinite(outs[1]).all()) and not torch.equal(outs[0], outs[1])
 
+    # the divergent batches DV1-DV4 twice each through launch_divergent_batch,
+    # the second call with new camera frames and a new sensor frame of the
+    # same sizes, new origins, angles, border value and used_planes: one
+    # launch of the composed kernel per call (the counts set to 0 just
+    # before), none of the divergent kernel, cuda:composed:divergent, no
+    # plan on the second, bit for bit the eager merge on the card, finite
+    cams43_next = [torch.from_numpy(rng.integers(0, 256, (*DV_CAMERA, 3), dtype=np.uint8))
+                   .to(dev) for _ in range(CAMERAS)]
+    sensor_next = torch.from_numpy(rng.integers(0, 4096, (*DV_SENSOR, 3)).astype(np.uint16)
+                                   ).to(dev)
+    for name in divergent_composed_cases(cvgs, cams, cams43, frame, sensor):
+        kc.LAUNCHES, kd.LAUNCHES = 0, 0
+        builds0 = executor.PLAN_BUILDS
+        outs, backends, seen = [], [], []
+        for values, frames, frames43, sens in ((0, cams, cams43, sensor),
+                                               (1, cams_next, cams43_next, sensor_next)):
+            ids, ops = divergent_composed_cases(cvgs, frames, frames43, frame, sens, values)[name]
+            seqs = tuple(cvgs.build_operation_sequence(*o) for o in ops)
+            outs.append(drive("composed", lambda: cvgs.launch_divergent_batch(ids, *seqs)))
+            backends.append(cvgs.last_backend())
+            seen.append((kc.LAUNCHES, executor.PLAN_BUILDS))
+        torch.cuda.synchronize()
+        composed_launches += kc.LAUNCHES
+        forced = cvgs.launch_divergent_batch(ids, *seqs, backend=cvgs.ParBackend.CUDA)
+        forced_backend = cvgs.last_backend()
+        eager = cvgs.launch_divergent_batch(ids, *seqs, backend=cvgs.ParBackend.TORCH)
+        got = outs[1] if isinstance(outs[1], tuple) else (outs[1],)
+        want = eager if isinstance(eager, tuple) else (eager,)
+        same = all(g.dtype == w.dtype and torch.equal(
+            g.view(torch.int32) if g.dtype == torch.float32 else g,
+            w.view(torch.int32) if w.dtype == torch.float32 else w) for g, w in zip(got, want))
+        log(f"phase4 composed divergent path ({name}): backends {backends}, under "
+            f"ParBackend.CUDA {forced_backend}; composed launches {seen[0][0]} {seen[1][0]}, "
+            f"divergent kernel launches {kd.LAUNCHES}; plan builds {builds0} -> {seen[0][1]} -> "
+            f"{seen[1][1]}; {tuple(got[0].shape)} {got[0].dtype}; equal to the eager merge {same}")
+        assert backends == ["cuda:composed:divergent"] * 2, backends
+        assert forced_backend == "cuda:composed:divergent" and torch.equal(
+            forced if not isinstance(forced, tuple) else forced[0], got[0])
+        assert (seen[0][0], seen[1][0]) == (1, 2) and kd.LAUNCHES == 0, (seen, kd.LAUNCHES)
+        assert seen[0][1] <= builds0 + 1 and seen[1][1] == seen[0][1], (builds0, seen)
+        assert same and not torch.equal(got[0], outs[0] if not isinstance(outs[0], tuple)
+                                        else outs[0][0])
+        assert got[0].dtype != torch.float32 or all(bool(torch.isfinite(g).all()) for g in got)
+
     # 64-bit values are int32 and float32 where they enter, as in the
     # reference (64-bit values off): an int64 or a float64 frame on the card
     # is one launch of the pointwise kernel, which reads it at load; a float64
@@ -3090,19 +3276,31 @@ def main() -> int:
     assert ct32_grown < 128 * 64 * 3, ct32_grown
 
     # ---- phase 5: times at the flagship shape
-    def profiler_ms(fn, calls=20, what="a kernel"):
+    def profiler_ms(fn, calls=20, what="a kernel", names=None):
         """``utils.profiling.profiler_ms``, its empty traces logged here."""
-        return profiling.profiler_ms(fn, calls, what, log=lambda msg: log(f"phase5 {msg}"))
+        return profiling.profiler_ms(fn, calls, what, log=lambda msg: log(f"phase5 {msg}"),
+                                     names=names)
 
-    def measure(kernel_fn, plain_fn, iters, what="a kernel", plain_iters=None):
+    def kernel_names(names):
+        """Device kernels' names as ``torch.profiler`` records them, each
+        its name and template arguments without namespaces."""
+        short = set()
+        for name in names:
+            name = re.sub(r"\(anonymous namespace\)::|kc::", "", name)
+            found = re.search(r"\w+<[^>]*>", name)
+            short.add(found.group(0) if found else name)
+        return ", ".join(sorted(short))
+
+    def measure(kernel_fn, plain_fn, iters, what="a kernel", plain_iters=None, names=None):
         """Event medians of the kernel and its plain version, alternating
-        plain, kernel, kernel, plain, and the kernel's profiler duration."""
+        plain, kernel, kernel, plain, and the kernel's profiler duration
+        (the kernels it recorded collected into ``names``, where given)."""
         runs = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
             runs[which] += time_cuda(kernel_fn if which == "kernel" else plain_fn,
                                      iters=iters if which == "kernel" else (plain_iters or iters))
         return {"ms": float(np.median(runs["kernel"])), "plain_ms": float(np.median(runs["plain"])),
-                "profiler_ms": profiler_ms(kernel_fn, what=what)}
+                "profiler_ms": profiler_ms(kernel_fn, what=what, names=names)}
 
     def library(t, fn, iters, what):
         """One library call's time by events (``library_ms``, as the kernel's
@@ -3683,6 +3881,54 @@ def main() -> int:
             f"{t['mixed_ms'] * 1e3:.2f} / {t['mixed_profiler_ms'] * 1e3:.2f} us (events / "
             f"profiler), bit-equal; stage2 {plan.word('stage2')}")
 
+    # the divergent batches DV1-DV4 the same way: kernel vs plain version,
+    # bound (each plane's own sectors and operations, summed), floor, the
+    # eager merge it replaces; no one library call runs different sequences
+    # on the planes of a batch, so library_ms is null; beside it, as a
+    # reference (not one call), the sum of each group's own composed launch
+    # over its planes alone
+    dv_times = {}
+    for name, (ids, ops) in divergent_composed_cases(cvgs, cams, cams43, frame, sensor).items():
+        seqs = map_leaves(tuple(cvgs.build_operation_sequence(*o) for o in ops),
+                          lambda v: as_device_tensor(v, dev))
+        dvargs = kc.prepare(seqs, kc.build_divergent_plan(seqs, ids), dev)
+        launched = set()
+        t = measure(lambda: kc.composed(dvargs), lambda: kc.composed_reference(dvargs), 50,
+                    what=name, plain_iters=5, names=launched)
+        t.update(bounds.bound(*kc.work(dvargs), bandwidth))
+        t["max_abs_err"] = case_err[name]
+        t["library_ms"] = t["library_profiler_ms"] = None
+        t["instances"] = kernel_names(launched)
+        t["groups_ms"] = t["groups_profiler_ms"] = 0.0
+        for g in dvargs.plan.groups:
+            gpipe = kc._group_pipeline(seqs[g.sid - 1], g.planes)
+            gargs = kc.prepare(gpipe, kc.build_plan(gpipe), dev)
+            t["groups_ms"] += float(np.median(time_cuda(lambda: kc.composed(gargs), iters=50)))
+            t["groups_profiler_ms"] += profiler_ms(lambda: kc.composed(gargs),
+                                                   what=f"{name} group {g.sid}")
+        eager = lambda: cvgs.launch_divergent_batch(ids, *seqs,  # noqa: E731
+                                                    backend=cvgs.ParBackend.TORCH)
+        t["eager_ms"] = float(np.median(time_cuda(eager, iters=10)))
+        t["eager_profiler_ms"] = profiler_ms(eager, calls=5, what=f"{name} eager")
+        t["eager_launches"], t["eager_copies"] = eager_launches(eager)
+        whole = []
+        for _ in range(40):
+            t0 = time.perf_counter()
+            cvgs.launch_divergent_batch(ids, *seqs)
+            torch.cuda.synchronize()
+            whole.append(time.perf_counter() - t0)
+        t["call_ms"] = float(np.median(whole[10:])) * 1e3
+        assert cvgs.last_backend() == "cuda:composed:divergent"
+        dv_times[name] = t
+        log(f"phase5 composed {name} ({t['instances']}): {describe(t)}; each group's own launch "
+            f"on its planes, summed (a reference, not one call), {t['groups_ms'] * 1e3:.2f} us by "
+            f"events, {t['groups_profiler_ms'] * 1e3:.2f} us by torch.profiler; the eager merge "
+            f"(ParBackend.TORCH) {t['eager_ms'] * 1e3:.2f} us by events, "
+            f"{t['eager_profiler_ms'] * 1e3:.2f} us by torch.profiler, "
+            f"{t['eager_launches']:.0f} kernels and {t['eager_copies']:.0f} copies a call; "
+            f"launch_divergent_batch host-inclusive {t['call_ms'] * 1e3:.2f} us/call (median of "
+            f"30)")
+
     # an int64 frame through a 3-op chain, which ran eagerly (one launch per
     # op) until int64 became int32 where it enters: one launch of the
     # pointwise kernel, which reads it at load, beside the same chain on the
@@ -4016,7 +4262,8 @@ def main() -> int:
         entry("composed", "composed.cu", "cvgpuspeedup_tpu/exec/executor.py:243",
               composed_launches, c_times["c1_roi_crop_resize"], cases=c_times,
               batch_cases=b_times, nested_cases=n_times, mixed_cases=m_times,
-              nested_mixed_cases=nm_times, nested_head_cost=head_cost),
+              nested_mixed_cases=nm_times, nested_head_cost=head_cost,
+              divergent_cases=dv_times),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,6 +57,12 @@
 //    one-pixel read's, one pixel a thread) copy the block's plane head into
 //    shared memory and run the same body over it; a batch of one geometry
 //    keeps its head by value and its instances.
+//  - A divergent batch (launch_divergent_batch: each sequence on its own
+//    planes, groups of different structure) lays its planes out as a mixed
+//    batch does, each head its group's, with each plane's store row after
+//    the heads: groups of one kind of source and one store row run that
+//    kind's mixed instances, any other batch of images the general
+//    instances (composed_divergent.cu), 2 more.
 // Runtime values (crop origins, border values, warp coefficients and
 // border, chain scalars, a batch's source addresses, used_planes and the
 // default) come from one int32 block, so nothing of them keys a plan.
@@ -72,7 +78,9 @@
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
 // `head` points at the kCmWords host words of a CmHead (a mixed-geometry
 // batch's, batch == CM_MIXED: at n_planes such heads, plane 0's first,
-// which the consts also hold from word 0 on); `blk` is the device
+// which the consts also hold from word 0 on; a divergent batch's, batch ==
+// CM_DIVERGENT: those heads, then each plane's store row, also in the
+// consts, and store_op 0); `blk` is the device
 // block of runtime values; `consts` holds the fused read's op table at
 // in_ops_off and the pipeline's at out_ops_off (each: the rows, a sentinel,
 // each row's channel count) and a resize's tap tables at taps_off; `out`
@@ -88,9 +96,10 @@ extern "C" int cvgs_composed(const void* src, const int* head, float ys, float c
   CmHead h;
   std::memcpy(&h, head, sizeof(CmHead));
   const PwHead& b = h.lower;
-  if (!head_ok(h) || h.batch < CM_ONE || h.batch > CM_MIXED || (!h.batch && n_planes != 1) ||
+  if (!head_ok(h) || h.batch < CM_ONE || h.batch > CM_DIVERGENT || (!h.batch && n_planes != 1) ||
       n_planes < 1 || n_planes > 65535 || dst_w < 1 || dst_h < 1 || out_ch < 1 ||
-      out_ch > kMaxCh || out_type < PW_U8 || out_type > PW_I32) {
+      out_ch > kMaxCh || out_type < PW_U8 || out_type > PW_I32 ||
+      (h.batch == CM_DIVERGENT && store_op != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   for (int z = 1; h.batch == CM_MIXED && z < n_planes; ++z) {
@@ -98,14 +107,40 @@ extern "C" int cvgs_composed(const void* src, const int* head, float ys, float c
     std::memcpy(&p, head + (long long)z * kCmWords, sizeof(CmHead));
     if (!head_ok(p) || !same_structure(h, p)) return (int)cudaErrorInvalidValue;
   }
-  const Conv conv{b.limited, 0, ys, cs, rv, gu, gv, bu};
-  const cvgs::ComposedArgs a{src, head, conv, blk, consts, n_planes, dst_w, dst_h, out, out_type,
-                             out_ch, store_op, sn, sc, sy, sx,
-                             h.batch == CM_MIXED
+  // a divergent batch: every plane's head in the launch's instances, its
+  // store row after the heads; one kind of source and one store row keep
+  // that kind's mixed instances, with the row as the launch's, any other
+  // batch (of images alone) the general ones; a YUV -> RGB, of one range
+  int limited = b.limited, kind = source_kind(b), store = store_op;
+  bool one_kind = true, converts = false, yuv = false;
+  for (int z = 0; h.batch == CM_DIVERGENT && z < n_planes; ++z) {
+    CmHead p;
+    std::memcpy(&p, head + (long long)z * kCmWords, sizeof(CmHead));
+    const int row = head[(long long)n_planes * kCmWords + z];
+    if (!head_ok(p) || !same_instance(h, p) || row < 0) return (int)cudaErrorInvalidValue;
+    if (z == 0) store = row;
+    one_kind = one_kind && source_kind(p.lower) == kind && row == store;
+    yuv = yuv || p.lower.base == PW_YUV;
+    if (p.lower.base == PW_YUV || p.lower.conv_first) {
+      if (converts && p.lower.limited != limited) return (int)cudaErrorInvalidValue;
+      limited = p.lower.limited, converts = true;
+    }
+  }
+  const Conv conv{limited, 0, ys, cs, rv, gu, gv, bu};
+  CmHead launch_head = h;  // launch_source chooses the mixed instances by this word
+  if (h.batch == CM_DIVERGENT) launch_head.batch = CM_MIXED;
+  const cvgs::ComposedArgs a{src, reinterpret_cast<const int*>(&launch_head), conv, blk, consts,
+                             n_planes, dst_w, dst_h, out, out_type, out_ch, store, sn, sc, sy, sx,
+                             h.batch >= CM_MIXED
                                  ? 1
                                  : kc::pixels_per_thread((long long)n_planes * dst_w * dst_h,
                                                          h.core == CM_NONE ? 1 : 4),
                              static_cast<cudaStream_t>(stream)};
+  if (!one_kind) {
+    if (yuv) return (int)cudaErrorInvalidValue;
+    cvgs::composed_divergent(a);
+    return (int)cudaGetLastError();
+  }
   // one instance per kind of source: every source type is a case by name
   if (b.base == PW_YUV) {
     cvgs::composed_nv12(a);

@@ -33,6 +33,18 @@
 // over it. A batch of one geometry keeps its head by value, so it pays
 // nothing for this.
 //
+// A divergent batch (batch == CM_DIVERGENT, exec/cuda_composed.py::
+// build_divergent_plan) runs a group of planes per sequence: each plane's
+// head is its group's for that plane, in the consts as a mixed batch's,
+// with absolute block offsets (plane_stride 0) and its group's op and tap
+// tables; each plane's store row (the cast of its group's values into the
+// batch's dtype) follows the heads. Groups of one kind of source and one
+// store row launch that kind's mixed instances with the row as the launch's
+// (the C entry checks); any other batch of images launches the general
+// instances (composed_divergent.cu): AnyImage's switch on the plane's source
+// type lies around all of a thread's loads, uniform over a block, and the
+// block reads its plane's store row.
+//
 // Every rule matches exec/cuda_composed.py::composed_reference and the
 // eager lowering bit for bit:
 //   a tap's position walks the upper stages, then the lower ones; a lower
@@ -64,7 +76,7 @@ namespace {
 
 // keep every code in step with exec/cuda_composed.py
 enum : int { CM_NONE = 0, CM_RESIZE = 1, CM_WARP = 2 };  // cores
-enum : int { CM_ONE = 0, CM_BATCH = 1, CM_MIXED = 2 };    // the batch word
+enum : int { CM_ONE = 0, CM_BATCH = 1, CM_MIXED = 2, CM_DIVERGENT = 3 };  // the batch word
 
 // The head of one launch; the host fills it from the plan
 // (exec/cuda_composed.py::ComposedPlan.head).
@@ -83,9 +95,9 @@ struct CmHead {
   int tap_type;        // a tap's type after the fused read's chain (PW_U8 .. PW_I32)
   int core_type;       // the core's output type
   int tap_ch;          // a tap's channels after the fused read's chain
-  int batch;           // a BatchRead (CM_BATCH, CM_MIXED): plane z's source address at
-                       // 8-byte block word z; CM_MIXED: plane z's head at consts word
-                       // z * kCmWords
+  int batch;           // a BatchRead (CM_BATCH, CM_MIXED, CM_DIVERGENT): plane z's source
+                       // address at 8-byte block word z; CM_MIXED, CM_DIVERGENT: plane
+                       // z's head at consts word z * kCmWords
   int in_n_ops, in_ops_off, in_fp_off;    // the fused read's chain: rows, table, scalars
   int out_n_ops, out_ops_off, out_fp_off;  // the pipeline's chain
   int plane_stride;             // plane z's values z * plane_stride words past plane 0's
@@ -116,6 +128,7 @@ struct ComposedArgs {
 void composed_f32(const ComposedArgs& a);
 void composed_nv12(const ComposedArgs& a);
 void composed_any(const ComposedArgs& a);
+void composed_divergent(const ComposedArgs& a);
 }  // namespace cvgs
 
 namespace {
@@ -129,6 +142,9 @@ using cvgs::ComposedArgs;
 // src_type through one switch around all of a thread's loads.
 struct Nv12 {};
 struct AnyType {};
+// Every image source type (AnyType's and uint8, float32, int32): a divergent
+// batch's general instances, whose groups read different types.
+struct AnyImage {};
 
 // A thread's N taps as loaded, until each pixel converts its own: the
 // elements of an element type; a uint8 image's or an NV12 buffer's bytes
@@ -154,6 +170,8 @@ struct TapRegs<AnyType, N> {
   float e[N][kMaxCh];
   __device__ __forceinline__ float lane(int i, int c) const { return e[i][c]; }
 };
+template <int N>
+struct TapRegs<AnyImage, N> : TapRegs<AnyType, N> {};
 
 constexpr int kThreads = 256;          // threads per block
 constexpr int kNone = 2 * kMaxStages;  // no CONSTANT border: the tap reads the base
@@ -315,7 +333,7 @@ __device__ __forceinline__ void load_taps(const CmHead& h, const void* __restric
         regs.w[i] = w;
       }
     }
-  } else if constexpr (std::is_same_v<Src, AnyType>) {
+  } else if constexpr (std::is_same_v<Src, AnyType> || std::is_same_v<Src, AnyImage>) {
 #define CVGS_LOAD(SrcT)                                                                    \
   {                                                                                        \
     SrcT r[N][kMaxCh];                                                                     \
@@ -325,24 +343,42 @@ __device__ __forceinline__ void load_taps(const CmHead& h, const void* __restric
     }                                                                                      \
   }                                                                                        \
   break;
-    // every type this instance takes is a case by name; the C entry sends
-    // uint8, float32 and int32 sources and NV12 buffers to their own
-    switch (b.src_type) {
-      case PW_I8: CVGS_LOAD(int8_t)
-      case PW_U16: CVGS_LOAD(uint16_t)
-      case PW_I16: CVGS_LOAD(int16_t)
-      case PW_F16: CVGS_LOAD(f16)
-      case PW_I64: CVGS_LOAD(i64_bits)
-      case PW_F64: CVGS_LOAD(double)
-      default:
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-#pragma unroll
-          for (int c = 0; c < kMaxCh; ++c) regs.e[i][c] = 0.f;
-        }
-        break;
+#define CVGS_NONE                                    \
+  _Pragma("unroll") for (int i = 0; i < N; ++i) {    \
+    _Pragma("unroll") for (int c = 0; c < kMaxCh; ++c) regs.e[i][c] = 0.f; \
+  }                                                  \
+  break;
+    if constexpr (std::is_same_v<Src, AnyType>) {
+      // every type this instance takes is a case by name; the C entry sends
+      // uint8, float32 and int32 sources and NV12 buffers to their own
+      switch (b.src_type) {
+        case PW_I8: CVGS_LOAD(int8_t)
+        case PW_U16: CVGS_LOAD(uint16_t)
+        case PW_I16: CVGS_LOAD(int16_t)
+        case PW_F16: CVGS_LOAD(f16)
+        case PW_I64: CVGS_LOAD(i64_bits)
+        case PW_F64: CVGS_LOAD(double)
+        default: CVGS_NONE
+      }
+    } else {
+      // AnyImage: every image type is a case by name, an int32 element read
+      // as float32's words as the float32 instance reads it (the C entry
+      // sends no NV12 buffer here)
+      switch (b.src_type) {
+        case PW_U8: CVGS_LOAD(uint8_t)
+        case PW_I8: CVGS_LOAD(int8_t)
+        case PW_U16: CVGS_LOAD(uint16_t)
+        case PW_I16: CVGS_LOAD(int16_t)
+        case PW_F16: CVGS_LOAD(f16)
+        case PW_F32:
+        case PW_I32: CVGS_LOAD(float)
+        case PW_I64: CVGS_LOAD(i64_bits)
+        case PW_F64: CVGS_LOAD(double)
+        default: CVGS_NONE
+      }
     }
 #undef CVGS_LOAD
+#undef CVGS_NONE
   } else {
     load_image(static_cast<const Src*>(src), b.src_w, b.nch, ty, tx, rd, regs.e);
   }
@@ -388,10 +424,11 @@ __device__ __forceinline__ void run_table(float (&v)[P][kMaxCh], PwRow* rows, bo
 // Four blocks of 256 threads resident per SM (__launch_bounds__), which
 // bounds a thread at 64 registers: the kernel gains from resident threads
 // (at 66 registers a 4-tap thread kept 3 blocks resident and C1 took 12.19
-// against 9.76 us on an H100); the shared instance's 4-tap thread, whose
+// against 9.76 us on an H100); the shared instances' 4-tap thread, whose
 // taps are float32 from the load, 3.
 template <typename Src, int T>
-constexpr int kBlocks = T == 4 && std::is_same_v<Src, AnyType> ? 3 : 4;
+constexpr int kBlocks =
+    T == 4 && (std::is_same_v<Src, AnyType> || std::is_same_v<Src, AnyImage>) ? 3 : 4;
 
 // The kernel's body over the plane's head h: the kernel's parameter, or a
 // mixed-geometry batch's plane head in shared memory.
@@ -700,7 +737,9 @@ __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
 
 // A mixed-geometry batch's instance: the block's plane head (kCmWords
 // consts words at blockIdx.z * kCmWords) copied into shared memory, then
-// the body over it.
+// the body over it. A divergent batch's general instance (Src AnyImage,
+// which runs no other batch) takes its plane's store row, consts word
+// gridDim.z * kCmWords + blockIdx.z, as the launch's store_op.
 template <typename Src, int T, int P>
 __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel_mixed(
     const void* __restrict__ src, Conv conv, const int* __restrict__ blk,
@@ -712,6 +751,9 @@ __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel_m
   const int threads = blockDim.x * blockDim.y;
   for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < kCmWords; i += threads) {
     words[i] = __ldg(rec + i);
+  }
+  if constexpr (std::is_same_v<Src, AnyImage>) {
+    store_op = __ldg(consts + (long long)gridDim.z * kCmWords + blockIdx.z);
   }
   __syncthreads();
   composed_body<Src, T, P>(src, h, conv, blk, consts, dst_w, dst_h, out, out_type, out_ch,
@@ -742,6 +784,8 @@ void launch_source(const ComposedArgs& a) {
 #undef CVGS_MIXED
     return;
   }
+  // a divergent batch's general instances are mixed ones alone
+  if constexpr (!std::is_same_v<Src, AnyImage>) {
 #define CVGS_KERNEL(T, P)                                                                    \
   composed_kernel<Src, T, P><<<grid, block, 0, a.stream>>>(a.src, h, a.conv, a.blk, a.consts, \
                                                            a.dst_w, a.dst_h, a.out, a.out_type, \
@@ -757,6 +801,7 @@ void launch_source(const ComposedArgs& a) {
     CVGS_KERNEL(4, 1);
   }
 #undef CVGS_KERNEL
+  }
 }
 
 }  // namespace kc
@@ -794,6 +839,22 @@ inline bool same_stages(const PwHead& a, const PwHead& b) {
     }
   }
   return true;
+}
+
+// Whether plane head b of a divergent batch runs in the launch of plane
+// head a: its batch word, absolute offsets (plane_stride 0), and a
+// resampling core where a has one (the instances take 4 taps a pixel or 1).
+inline bool same_instance(const CmHead& a, const CmHead& b) {
+  return b.batch == CM_DIVERGENT && b.plane_stride == 0 &&
+         (a.core == CM_NONE) == (b.core == CM_NONE);
+}
+
+// Which instances read a plane head's source: uint8, float32 and int32,
+// NV12, the six others (composed.cu's switch).
+inline int source_kind(const PwHead& b) {
+  if (b.base == PW_YUV) return 2;
+  if (b.src_type == PW_U8) return 0;
+  return b.src_type == PW_F32 || b.src_type == PW_I32 ? 1 : 3;
 }
 
 // Whether plane heads a and b of a mixed-geometry batch differ in geometry

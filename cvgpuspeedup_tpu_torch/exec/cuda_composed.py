@@ -45,8 +45,30 @@ structure: a warp, or a resize whose :func:`tap_share` is at most
 ``STAGE_SHARE``) a block stages its footprint of them, each value of the
 inner core there evaluated once; else, and in a block whose footprint
 passes the budget, the core is evaluated at each tap
-(:func:`nested_tiles` mirrors which blocks stage). What stays eager, and
-why (``_plane``
+(:func:`nested_tiles` mirrors which blocks stage).
+
+A divergent batch (``executor.launch_divergent_batch``: sequence
+``plane_ids[z]`` on plane ``z``) that the divergent kernel
+(``cuda_divergent``) refuses is one launch here where every group, a
+sequence on its planes, is a ``BatchRead`` that :func:`build_plan` takes as
+one level over those planes (letterboxes, ROI resizes, camera resizes,
+warps of crops, ``crop_batch``), of any source dtype: groups may differ in
+everything but the output (C, H, W) (:func:`build_divergent_plan`, the
+``DIVERGENT`` batch word). The executor tries the divergent kernel, then
+this plan (``cuda:composed:divergent``), then the eager merge. Each plane's
+head is its group's for that plane with absolute block offsets; groups of
+one kind of source and one store row run that kind's mixed instances, any
+other batch of images the general ones (``csrc/composed_divergent.cu``).
+It stays eager (:func:`build_divergent_plan` names each): a group with a
+second level; a group of a kind only the divergent kernel reads (a ring, a
+batched image stack, ``resize_batch``) beside a composed group; an NV12
+group beside an image group; NV12 groups whose chains end in different
+dtypes (the NV12 instances store with one row); a resampling group beside a
+one-pixel group;
+groups of different output (C, H, W); groups converting YUV with different
+coefficients.
+
+What stays eager, and why (``_plane``
 names each):
 
 - a third resampling node (``resize(warp(resize))``): the kernel nests two;
@@ -91,7 +113,13 @@ Semantics, each as the eager lowering computes it:
   is cast to the read value's dtype;
 - a ``BatchRead`` stacks its planes; a plane past ``used_planes`` reads
   nothing and holds the default; the pipeline's chain then runs on every
-  plane.
+  plane;
+- a divergent batch's group computes its own planes alone, each as the
+  group's pipeline, and its values are cast into the batch's dtype (plane
+  0's group's) as ``utils.dtypes.astype`` casts, by its store row
+  (``cuda_batch_resize.store_cast``); a ragged group's planes from its
+  ``used_planes`` on (counted over the batch's planes) hold its default;
+  the first sequence's write.
 
 :func:`build_plan` turns the structure into a :class:`ComposedPlan` once
 (per mix of sizes, as the reference compiles one program per static
@@ -139,12 +167,12 @@ from . import cuda_batch_resize as kbr
 from . import cuda_pointwise as kp
 from .cuda_batch_resize import (_MAX_CHANNELS, _MAX_PLANES, SRC_CODES, SRC_DTYPES, TYPE_CODES,
                                 Unsupported, _leaf_dtype_name, encode_chain, store_cast)
-from .cuda_divergent import _Block, _image_geometry
+from .cuda_divergent import _Block, _image_geometry, groups_of
 from .cuda_pointwise import BORDER_MODES, MAX_STAGES, STAGE_BORDER, STAGE_CROP, _stages, _unwrap
 from .cuda_warp import _MAX_SIDE, _SINGLE_LAYOUTS, _size
 
-__all__ = ["Unsupported", "build_plan", "supports", "prepare", "composed_reference", "composed",
-           "run", "work", "tap_need", "LAUNCHES"]
+__all__ = ["Unsupported", "build_plan", "build_divergent_plan", "supports", "prepare",
+           "composed_reference", "composed", "run", "work", "tap_need", "LAUNCHES"]
 
 #: launches of the CUDA kernel in this process
 LAUNCHES = 0
@@ -157,6 +185,11 @@ HEAD_INTS = 3 * kp.HEAD_INTS + 23
 #: plane's head lies in the consts, HEAD_INTS words a plane from 0 (1: a
 #: BatchRead of one geometry, 0: one frame)
 MIXED = 2
+#: the ``batch`` word of a divergent batch's plane heads
+#: (:func:`build_divergent_plan`): each plane's head, its group's for that
+#: plane with absolute block offsets (``plane_stride`` 0), lies in the
+#: consts, HEAD_INTS words a plane from 0, then each plane's store row
+DIVERGENT = 3
 _CORE_WORDS = ("core", "core_h", "core_w", "in_h", "in_w", "keep_edge", "persp", "coef_off",
                "border_off", "taps_off", "tap_type", "core_type", "tap_ch", "batch", "in_n_ops",
                "in_ops_off", "in_fp_off", "out_n_ops", "out_ops_off", "out_fp_off", "plane_stride",
@@ -452,13 +485,27 @@ class ComposedPlan:
     #: a mixed-geometry batch's plan of each plane (its head, the shared
     #: tables); () where the planes share one geometry
     planes: Tuple["ComposedPlan", ...] = dataclasses.field(default=(), compare=False, repr=False)
+    #: a divergent batch's groups, in order of first appearance; () for a
+    #: pipeline
+    groups: Tuple["DivergentGroup", ...] = dataclasses.field(default=(), compare=False,
+                                                             repr=False)
     #: per-device copies of the tables; the head as a ctypes array
     device_consts: Dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def for_plane(self, z: int) -> "ComposedPlan":
         """Plane ``z``'s plan: its own head (base, stage, core and tap table
-        words) where the planes differ in geometry, else the plan itself."""
+        words) where the planes differ in geometry or in structure (a
+        divergent batch), else the plan itself."""
         return self.planes[z] if self.planes else self
+
+    @property
+    def stores(self) -> Tuple[int, ...]:
+        """A divergent batch's store row of each plane: its group's."""
+        rows = [0] * self.n_planes
+        for g in self.groups:
+            for z in g.planes:
+                rows[z] = g.store
+        return tuple(rows)
 
     def word(self, name: str) -> int:
         """A word of the head by its name in ``_CORE_WORDS`` or, for a
@@ -498,10 +545,13 @@ class ComposedPlan:
 
     def head_words(self):
         """The head as the C entry takes it: a mixed-geometry batch's heads
-        of all planes, plane 0's first."""
+        of all planes, plane 0's first (a divergent batch's, then each
+        plane's store row)."""
         c = self.device_consts.get("head")
         if c is None:
-            words = [w for q in self.planes for w in q.head] if self.planes else self.head
+            words = [w for q in self.planes for w in q.head] if self.planes else list(self.head)
+            if self.groups:
+                words += self.stores
             c = self.device_consts["head"] = (ctypes.c_int * len(words))(*words)
         return c
 
@@ -779,6 +829,157 @@ def _mixed(plans: List[ComposedPlan]) -> ComposedPlan:
     return dataclasses.replace(planes[0], planes=planes, device_consts={})
 
 
+@dataclasses.dataclass(frozen=True)
+class DivergentGroup:
+    """One sequence of a divergent batch as the kernel reads it: its planes
+    in order, the plan of its pipeline over those planes alone (its block's
+    values from word ``2 * len(planes)`` on, as :func:`prepare` lays them
+    out) and the row that stores its values into the batch's dtype
+    (``cuda_batch_resize.store_cast``, 0 for none)."""
+
+    sid: int
+    planes: Tuple[int, ...]
+    plan: ComposedPlan
+    store: int
+
+
+def _group_pipeline(seq, planes):
+    """Sequence ``seq`` with its ``BatchRead`` cut to ``planes``, in order:
+    what the merge lowers of it (``ops/memory.py::BatchRead.lower_planes``;
+    ``used_planes`` still counts the batch's planes)."""
+    read = seq.read
+    return dataclasses.replace(seq, read=BatchRead(
+        ops=tuple(read.ops[z] for z in planes), used_planes=read.used_planes,
+        default=read.default))
+
+
+def _rebase(q: ComposedPlan, shift: int, shared: int, **words) -> Tuple[int, ...]:
+    """Plane head ``q.head`` with its block offsets moved: the plane's own
+    values (stage values, a warp's coefficients and border, the fused
+    chain's scalars) by ``shift`` words, the pipeline chain's scalars,
+    ``used_planes`` and the default by ``shared``; then ``words`` set."""
+    head = list(q.head)
+    for k in range(3):  # the lower, upper and outer stage lists
+        at = k * kp.HEAD_INTS
+        for s in range(head[at + 9]):
+            st = at + 12 + 8 * s
+            for i in ((4, 5) if head[st] == STAGE_CROP else (6,)):
+                head[st + i] += shift
+    moved = dict(in_fp_off=q.word("in_fp_off") + shift, out_fp_off=q.word("out_fp_off") + shared)
+    if q.core == "warp":
+        moved.update(coef_off=q.word("coef_off") + shift, border_off=q.word("border_off") + shift)
+    if q.word("used_off") >= 0:
+        moved.update(used_off=q.word("used_off") + shared,
+                     default_off=q.word("default_off") + shared)
+    return _with_words(tuple(head), **moved, **words)
+
+
+def build_divergent_plan(seqs, plane_ids) -> ComposedPlan:
+    """The kernel plan of a divergent batch (``launch_divergent_batch``:
+    plane ``z`` runs sequence ``plane_ids[z]``) whose every group, sequence
+    ``sid`` on its planes, is a ``BatchRead`` that :func:`build_plan` takes
+    as one level over those planes: a batch of one geometry or mixed,
+    ``crop_batch``, warps of crops, letterboxes, ROI resizes. Groups may
+    differ in anything but the output (C, H, W): op types, stage kinds,
+    border modes, warp type, both chains and their dtypes, the base's dtype
+    and channels. Raises :class:`Unsupported`, naming why.
+
+    The consts hold each plane's head (its group's plan for that plane,
+    ``batch`` ``DIVERGENT``, every block offset absolute and
+    ``plane_stride`` 0), then each plane's store row, then each group's two
+    op tables, then each plane's tap tables. The block holds the planes'
+    source addresses, then each group's values in its own plan's layout,
+    group by group. The batch takes plane 0's group's dtype and the first
+    sequence's write layout; a ragged group holds its default past its
+    ``used_planes`` (counted over the batch's planes)."""
+    n = len(plane_ids)
+    if not 1 <= n <= _MAX_PLANES:
+        raise Unsupported(f"{n} planes")
+    layout = kbr._LAYOUTS.get(type(seqs[0].write))
+    if layout is None:
+        raise Unsupported(f"write {type(seqs[0].write).__name__} of a batch")
+    groups = []
+    for sid, planes in groups_of(plane_ids).items():
+        seq = seqs[sid - 1]
+        if not isinstance(seq.read, BatchRead):
+            raise Unsupported(
+                f"sequence {sid} reads a {type(seq.read).__name__}, not a BatchRead of read "
+                "trees: a ring, a batched image stack and resize_batch are the divergent "
+                "kernel's alone")
+        if len(seq.read.ops) != n:
+            raise Unsupported(f"sequence {sid} reads {len(seq.read.ops)} planes for {n}")
+        pipe = _group_pipeline(seq, planes)
+        try:
+            gplan = build_plan(pipe)
+        except Unsupported as e:
+            raise Unsupported(f"sequence {sid}: {e}") from e
+        if gplan.core2:
+            raise Unsupported(f"sequence {sid} has a second level above its core (a nested "
+                              "read tree): a group reads one level")
+        # each plane's own plan, its words from the group's block word
+        # 2 * len(planes) on (a mixed group's plan has its heads in its tables)
+        t = _tree(pipe)
+        own = ([_plane_plan(t, p, pipe) for p in t.planes] if gplan.planes
+               else [gplan] * len(planes))
+        groups.append((sid, tuple(planes), own[0], own))
+    first = groups[0][2]
+    for sid, _, gplan, _ in groups[1:]:
+        if (gplan.dsize, gplan.out_ch) != (first.dsize, first.out_ch):
+            raise Unsupported(
+                f"sequence {sid} gives planes of {gplan.out_ch} channel(s) of {gplan.dsize.width}x"
+                f"{gplan.dsize.height}, sequence {groups[0][0]} of {first.out_ch} of "
+                f"{first.dsize.width}x{first.dsize.height}: the planes must stack")
+        if gplan.base != first.base:
+            raise Unsupported(f"sequences {groups[0][0]} and {sid} read an {first.base} and an "
+                              f"{gplan.base} base: NV12 planes run their own instance")
+        if first.base == "yuv" and store_cast(gplan.out_dtype, first.out_dtype):
+            raise Unsupported(f"sequences {groups[0][0]} and {sid}: NV12 groups whose chains end "
+                              f"in {first.out_dtype} and {gplan.out_dtype} (the NV12 instances "
+                              "store every plane with the launch's one store row)")
+        if (gplan.core == "none") != (first.core == "none"):
+            raise Unsupported(f"sequences {groups[0][0]} and {sid}: a resampling group beside a "
+                              "one-pixel group (the kernel's instances take 4 taps a pixel or 1)")
+    converting = {(q.conv, q.head[11]) for _, _, q, _ in groups if q.base == "yuv" or q.head[10]}
+    if len(converting) > 1:
+        raise Unsupported("groups convert YUV -> RGB with different coefficients or ranges: the "
+                          "launch takes one conversion")
+
+    heads: List = [None] * n
+    plans: List = [None] * n
+    at = n * HEAD_INTS + n  # the heads, then the store rows
+    tables = [np.zeros(at, np.int32)]
+    ops_at = []
+    for _, _, gplan, _ in groups:  # each group's two op tables
+        ops_at.append(at)
+        ops = gplan.tables[:gplan.word("taps_off")]
+        tables.append(ops)
+        at += ops.size
+    pos = 2 * n  # the block: the planes' source addresses, then each group's values
+    out = []
+    for (sid, planes, gplan, own), ops_off in zip(groups, ops_at):
+        out.append(DivergentGroup(sid=sid, planes=planes, plan=gplan,
+                                  store=store_cast(gplan.out_dtype, first.out_dtype)))
+        shared = pos - 2 * len(planes)  # from the group's own block to the batch's
+        for j, (z, q) in enumerate(zip(planes, own)):
+            taps = q.tables[q.word("taps_off"):]
+            heads[z] = _rebase(q, shared + j * q.word("plane_stride"), shared, batch=DIVERGENT,
+                               plane_stride=0, in_ops_off=ops_off,
+                               out_ops_off=ops_off + q.word("out_ops_off"), taps_off=at)
+            plans[z] = q
+            tables.append(taps)
+            at += taps.size
+        pos += gplan.n_block - 4 - 2 * len(planes)
+    consts = np.concatenate(tables).astype(np.int32)
+    planes_ = tuple(dataclasses.replace(q, head=hd, tables=consts, device_consts={})
+                    for q, hd in zip(plans, heads))
+    conv = next(iter(converting))[0] if converting else first.conv
+    plan = dataclasses.replace(planes_[0], n_planes=n, layout=layout, conv=conv, n_block=pos + 4,
+                               planes=planes_, groups=tuple(out), device_consts={})
+    consts[:n * HEAD_INTS + n] = np.concatenate([np.asarray(heads, np.int32).reshape(-1),
+                                                 plan.stores])
+    return plan
+
+
 def tap_share(taps: np.ndarray, out_h: int, out_w: int, keep: bool) -> float:
     """A resize's distinct taps of each TILE2 tile of its output, summed,
     over the taps its pixels take one by one (a second tap of weight 0
@@ -859,23 +1060,42 @@ def prepare(pipeline, plan: ComposedPlan, device: torch.device) -> Launch:
     in place, one entry however many planes read it), and the block of
     runtime values in ``build_plan``'s layout, in one pinned non-blocking
     copy of its host part (device leaves stay where they are). Nothing here
-    waits for the device."""
+    waits for the device. A divergent plan takes the batch's sequences in
+    place of a pipeline (:func:`_prepare_divergent`)."""
+    if plan.groups:
+        return _prepare_divergent(pipeline, plan, device)
     t = _tree(pipeline)
     srcs: List[torch.Tensor] = []
     index: Dict[int, int] = {}
-    plane_src = []
-    for p in t.planes:
-        leaf = _base_leaf(p.base)
-        k = index.get(id(leaf))
-        if k is None:
-            k = index[id(leaf)] = len(srcs)
-            srcs.append(kernel_source(leaf, device).contiguous())
-        plane_src.append(k)
-    tap_ch = plan.word("tap_ch")
+    plane_src = [_source(p, srcs, index, device) for p in t.planes]
     blk = _Block()
     if plan.batch:
         blk.put(np.asarray([srcs[k].data_ptr() for k in plane_src], np.uint64).view(np.int32),
                 np.int32)
+    _put_values(blk, t, plan)
+    blk.put(np.zeros(4, np.int32), np.int32)
+    if blk.size != plan.n_block:
+        raise ValueError(f"the block holds {blk.size} words, the plan {plan.n_block}")
+    return Launch(plan=plan, pipeline=pipeline, srcs=tuple(srcs), plane_src=tuple(plane_src),
+                  block=blk.to(device), consts=plan.consts(device))
+
+
+def _source(p: _Plane, srcs: List, index: Dict, device) -> int:
+    """The index in ``srcs`` of plane ``p``'s base array, appended on
+    ``device`` where it is not there yet (one entry however many planes
+    read it)."""
+    leaf = _base_leaf(p.base)
+    k = index.get(id(leaf))
+    if k is None:
+        k = index[id(leaf)] = len(srcs)
+        srcs.append(kernel_source(leaf, device).contiguous())
+    return k
+
+
+def _put_values(blk: _Block, t: _Tree, plan: ComposedPlan) -> None:
+    """Tree ``t``'s runtime values in ``build_plan``'s layout: each plane's,
+    then the pipeline chain's scalars, ``used_planes`` and the default."""
+    tap_ch = plan.word("tap_ch")
     top_ch = plan.word("mid_ch") if plan.core2 else tap_ch
     for p in t.planes:
         _put_stages(blk, p.outer, top_ch)
@@ -899,11 +1119,34 @@ def prepare(pipeline, plan: ComposedPlan, device: torch.device) -> Launch:
     if t.used is not None:
         blk.put(t.used, np.int32, width=1)
         _put_vector(blk, t.default, top_ch)
+
+
+def _group_trees(seqs, plan: ComposedPlan) -> List[_Tree]:
+    """Each group's tree: its sequence over its planes alone."""
+    return [_tree(_group_pipeline(seqs[g.sid - 1], g.planes)) for g in plan.groups]
+
+
+def _prepare_divergent(seqs, plan: ComposedPlan, device: torch.device) -> Launch:
+    """A divergent batch's arguments (:func:`build_divergent_plan`): each
+    plane's base array and address, then each group's values in its own
+    plan's layout, in one block."""
+    srcs: List[torch.Tensor] = []
+    index: Dict[int, int] = {}
+    plane_src = [0] * plan.n_planes
+    trees = _group_trees(seqs, plan)
+    for g, t in zip(plan.groups, trees):
+        for z, p in zip(g.planes, t.planes):
+            plane_src[z] = _source(p, srcs, index, device)
+    blk = _Block()
+    blk.put(np.asarray([srcs[k].data_ptr() for k in plane_src], np.uint64).view(np.int32),
+            np.int32)
+    for g, t in zip(plan.groups, trees):
+        _put_values(blk, t, g.plan)
     blk.put(np.zeros(4, np.int32), np.int32)
     if blk.size != plan.n_block:
         raise ValueError(f"the block holds {blk.size} words, the plan {plan.n_block}")
-    return Launch(plan=plan, pipeline=pipeline, srcs=tuple(srcs), plane_src=tuple(plane_src),
-                  block=blk.to(device), consts=plan.consts(device))
+    return Launch(plan=plan, pipeline=tuple(seqs), srcs=tuple(srcs),
+                  plane_src=tuple(plane_src), block=blk.to(device), consts=plan.consts(device))
 
 
 # ---------------------------------------------------------------------------
@@ -1153,8 +1396,9 @@ def _frame_shape(a: Launch, k: int) -> Tuple[int, int]:
     """``(rows, width)`` of the launch's base array ``k``, from the head of
     the first plane that reads it (an NV12 buffer's rows: 3/2 of its
     image's height)."""
-    h, w = a.plan.for_plane(a.plane_src.index(k)).head[1:3]
-    return (h if a.plan.base == "image" else h * 3 // 2), w
+    plan = a.plan.for_plane(a.plane_src.index(k))
+    h, w = plan.head[1:3]
+    return (h if plan.base == "image" else h * 3 // 2), w
 
 
 def _used(a: Launch) -> int:
@@ -1176,7 +1420,7 @@ def _reference(a: Launch, touched=None, counts=None, plane_value=None):
     plan = a.plan
     t = _tree(a.pipeline)
     dev = a.srcs[0].device
-    srcs = [dt.canonicalize(s).reshape(*_frame_shape(a, k), -1) for k, s in enumerate(a.srcs)]
+    srcs = _canonical_sources(a)
     w, h = plan.dsize
     y = torch.arange(h, device=dev)[:, None].expand(h, w)
     x = torch.arange(w, device=dev)[None, :].expand(h, w)
@@ -1207,13 +1451,73 @@ def _reference(a: Launch, touched=None, counts=None, plane_value=None):
     return a.pipeline.write.write(v)
 
 
+def _canonical_sources(a: Launch):
+    """The launch's base arrays in their canonical dtype, each (rows, width,
+    channels)."""
+    return [dt.canonicalize(s).reshape(*_frame_shape(a, k), -1) for k, s in enumerate(a.srcs)]
+
+
+def _divergent_reference(a: Launch, touched=None):
+    """The plain version of a divergent batch: each group's planes, each
+    from its own head, as :func:`_reference` computes a plane; a ragged
+    group's planes from its ``used_planes`` on (counted over the batch's
+    planes) hold its default cast to the read value's dtype; the group's
+    chain; its values cast into the batch's dtype (``utils.dtypes.astype``,
+    what its store row computes) and scattered to its planes; the first
+    sequence's write. With ``touched`` (a dict) only the read of the planes
+    below their group's ``used_planes``, each plane's base positions
+    collected under its index."""
+    plan = a.plan
+    dev = a.srcs[0].device
+    srcs = _canonical_sources(a)
+    w, h = plan.dsize
+    y = torch.arange(h, device=dev)[:, None].expand(h, w)
+    x = torch.arange(w, device=dev)[None, :].expand(h, w)
+    blk, fblk = a.block.long(), a.block.view(torch.float32)
+    merged = None
+    for g, t in zip(plan.groups, _group_trees(a.pipeline, plan)):
+        values = []
+        for z, p in zip(g.planes, t.planes):
+            q = plan.for_plane(z)
+            if touched is not None:
+                if q.word("used_off") >= 0 and z >= int(blk[q.word("used_off")]):
+                    continue
+                touched[z] = []
+            yc, xc, fill = _walk(q.stage_list(2), blk, y, x, torch.full_like(y, -1))
+            v = _plane_value(a, srcs, z, p, yc, xc, fill < 0,
+                             None if touched is None else touched[z])
+            values.append(_filled(v, fill, fblk, q.value_dtype))
+        if touched is not None:
+            continue
+        v = torch.stack(values)
+        if q.word("used_off") >= 0:
+            off = q.word("default_off")
+            default = dt.cast(fblk[off:off + q.word("tap_ch")], q.value_dtype)
+            zs = torch.tensor(g.planes, device=dev).reshape(-1, 1, 1, 1)
+            v = _where(zs < blk[q.word("used_off")], v, default)
+        for o in map_leaves(tuple(t.chain), lambda v: as_device_tensor(v, dev)):
+            v = o.apply(v)
+        if merged is None:
+            merged = torch.zeros((plan.n_planes, *v.shape[1:]), dtype=plan.out_dtype, device=dev)
+        idx = torch.tensor(g.planes, device=dev)
+        val = dt.astype(v, merged.dtype)
+        if merged.dtype == torch.uint16:  # no index_put of uint16: its bits as int16
+            merged.view(torch.int16)[idx] = val.view(torch.int16)
+        else:
+            merged[idx] = val
+    if touched is not None:
+        return None
+    return a.pipeline[0].write.write(merged)
+
+
 def composed_reference(a: Launch):
     """The plain PyTorch version of the kernel on the launch's sources (in
     their canonical dtype), from the plan's words and the block: the stage
     walks, the tap tables or the recomputed warp coordinates, the lerps with
     ``utils.dtypes``' flush ops, each chain op's own ``apply`` and the
-    write op."""
-    return _reference(a)
+    write op; a divergent batch's plane by plane, each with its own head
+    (:func:`_divergent_reference`)."""
+    return _divergent_reference(a) if a.plan.groups else _reference(a)
 
 
 can_store = kbr.can_store
@@ -1226,8 +1530,9 @@ def _alloc_out(plan: ComposedPlan, device, out=None):
 def _check(a: Launch) -> None:
     plan = a.plan
     dev = a.srcs[0].device
+    src_dtypes = [plan.for_plane(a.plane_src.index(k)).src_dtype for k in range(len(a.srcs))]
     for name, t, dtype in (("block", a.block, torch.int32), ("consts", a.consts, torch.int32),
-                           *(("src", s, plan.src_dtype) for s in a.srcs)):
+                           *(("src", s, d) for s, d in zip(a.srcs, src_dtypes))):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, the source on {dev}")
         if t.dtype != dtype:
@@ -1255,6 +1560,8 @@ def composed(a: Launch, out: Optional[torch.Tensor] = None):
     there, cast as ``utils.dtypes.astype`` casts, and ``out`` is returned."""
     global LAUNCHES
     dev = a.srcs[0].device
+    if a.plan.groups and out is not None:
+        raise ValueError("a divergent batch's store rows are for its own batch: no out=")
     if dev.type == "cpu":
         result = composed_reference(a)
         return result if out is None else kbr.reference_into(result, out, dev)
@@ -1284,7 +1591,8 @@ def composed(a: Launch, out: Optional[torch.Tensor] = None):
 
 
 def run(pipeline, plan: ComposedPlan, device: torch.device, out=None):
-    """One call of the kernel path: gather the arguments, launch."""
+    """One call of the kernel path: gather the arguments, launch. A
+    divergent plan takes the batch's sequences as ``pipeline``."""
     return composed(prepare(pipeline, plan, device), out)
 
 
@@ -1351,18 +1659,47 @@ def _read_sectors(a: Launch) -> int:
     below ``used_planes`` (the others read nothing); a sector of an array
     that several planes read counts once; an NV12 tap reads a luma byte and
     a chroma pair."""
-    plan = a.plan
-    elem = plan.head[3] * a.srcs[0].element_size() if plan.base == "image" else 1
-    found = []
-    for z in range(_used(a)):
-        h, w = plan.for_plane(z).head[1:3]
-        rows, cols = _axis_reads(a, z, 0), _axis_reads(a, z, 1)
-        array = a.plane_src[z] * 2**45  # each base array's bytes apart from the others'
-        found.append(bounds.grid_sectors(array + rows * w * elem, cols * elem, elem))
-        if plan.base == "yuv":
-            found.append(bounds.grid_sectors(array + (h + np.unique(rows // 2)) * w,
-                                             np.unique(cols // 2) * 2, 2))
+    found = [f for z in range(_used(a)) for f in _grid_sectors(a, z)]
     return int(np.unique(np.concatenate(found)).size) * 32 if found else 0
+
+
+def _elem(a: Launch, k: int) -> Tuple[int, ComposedPlan]:
+    """The bytes of a tap of the launch's base array ``k`` (an NV12 tap's
+    luma byte: 1) and the plan of the first plane that reads it."""
+    plan = a.plan.for_plane(a.plane_src.index(k))
+    return (plan.head[3] * a.srcs[k].element_size() if plan.base == "image" else 1), plan
+
+
+def _grid_sectors(a: Launch, z: int) -> List[np.ndarray]:
+    """The sectors plane ``z``'s resize or one-pixel taps read: its rows and
+    columns (:func:`_axis_reads`) in every pairing, an NV12 tap's chroma
+    pair too; each base array's bytes apart from the others'."""
+    elem, plan = _elem(a, a.plane_src[z])
+    h, w = plan.head[1:3]
+    rows, cols = _axis_reads(a, z, 0), _axis_reads(a, z, 1)
+    array = a.plane_src[z] * 2**45
+    found = [bounds.grid_sectors(array + rows * w * elem, cols * elem, elem)]
+    if plan.base == "yuv":
+        found.append(bounds.grid_sectors(array + (h + np.unique(rows // 2)) * w,
+                                         np.unique(cols // 2) * 2, 2))
+    return found
+
+
+def _touched_sectors(a: Launch, touched) -> List[torch.Tensor]:
+    """The sectors of the base positions ``touched`` (``(array, y, x)``
+    entries the plain version collects), an NV12 tap's chroma pair too."""
+    found = []
+    for k, y, x in touched:
+        elem, plan = _elem(a, k)
+        h, w = plan.head[1:3]
+        array = k * 2**45
+        y, x = y.cpu(), x.cpu()
+        found.append(bounds.sectors(array + (y * w + x) * elem, elem))
+        if plan.base == "yuv":
+            chroma = (h + torch.div(y, 2, rounding_mode="floor")) * w + 2 * torch.div(
+                x, 2, rounding_mode="floor")
+            found.append(bounds.sectors(array + chroma, 2))
+    return found
 
 
 def work(a: Launch) -> Tuple[int, int, int]:
@@ -1381,23 +1718,62 @@ def work(a: Launch) -> Tuple[int, int, int]:
     nested plan those once per value of the core that the second level's
     taps need (:func:`_core_evals`: the least work computes each once) with
     FusedRead2's rows, and the second level's lerps per output value read;
-    per output value the pipeline's rows."""
+    per output value the pipeline's rows. A divergent batch's
+    (:func:`_divergent_work`) sums its planes, each as its group's."""
     plan = a.plan
+    if plan.groups:
+        return _divergent_work(a)
     out_bytes, values = bounds.output(plan)
     if "warp" in (plan.core, plan.core2):
         src = _walked_sectors(a)
     else:
         src = _read_sectors(a)
-    lerps = {"none": 0, "resize": 12, "warp": 20}
-    core = lerps[plan.core] + (1 if plan.core == "none" else 4) * (
-        plan.word("in_n_ops") + 7 * plan.head[10])
+    core = _core_ops(plan)
     read = values // plan.n_planes * _used(a)
     out_n = plan.word("out_n_ops")
     if plan.core2:
         per_core = plan.word("tap_ch") * (core + plan.word("mid_n_ops"))
         return (out_bytes, src,
-                _core_evals(a) * per_core + read * lerps[plan.core2] + values * out_n)
+                _core_evals(a) * per_core + read * _LERPS[plan.core2] + values * out_n)
     return out_bytes, src, read * max(core + out_n, 1) + (values - read) * out_n
+
+
+#: float32 operations of a resampling node per output value: a resize's
+#: three lerps, a warp's and its coordinates
+_LERPS = {"none": 0, "resize": 12, "warp": 20}
+
+
+def _core_ops(plan: ComposedPlan) -> int:
+    """A plane's float32 operations per output value of its core: the
+    resample's lerps and the fused read's rows once per tap (an NV12
+    conversion 7 more)."""
+    return _LERPS[plan.core] + (1 if plan.core == "none" else 4) * (
+        plan.word("in_n_ops") + 7 * plan.head[10])
+
+
+def _divergent_work(a: Launch) -> Tuple[int, int, int]:
+    """:func:`work` of a divergent batch: the output; the sectors the taps
+    of each plane read (a plane past its group's ``used_planes`` none; a
+    resize or one-pixel core's from its tables, :func:`_axis_reads`; a
+    warp's from the plain version's own positions), a sector that several
+    planes read once; each plane's operations as its group's plan counts
+    them."""
+    plan = a.plan
+    out_bytes, values = bounds.output(plan)
+    per_plane = values // plan.n_planes
+    touched: dict = {}
+    _divergent_reference(a, touched)
+    found, ops = [], 0
+    for z in range(plan.n_planes):
+        q = plan.for_plane(z)
+        out_n = q.word("out_n_ops")
+        if z not in touched:  # past its group's used_planes
+            ops += per_plane * out_n
+            continue
+        ops += per_plane * max(_core_ops(q) + out_n, 1)
+        found += _touched_sectors(a, touched[z]) if q.core == "warp" else _grid_sectors(a, z)
+    src = int(np.unique(np.concatenate([np.asarray(f) for f in found])).size) * 32 if found else 0
+    return out_bytes, src, ops
 
 
 def _core_evals(a: Launch) -> int:
@@ -1413,20 +1789,9 @@ def _core_evals(a: Launch) -> int:
 def _walked_sectors(a: Launch) -> int:
     """The sectors the taps of a launch read, from the plain version's own
     positions (``_reference`` collecting them): a warp core's count."""
-    plan = a.plan
     touched: list = []
     _reference(a, touched)
-    elem = plan.head[3] * a.srcs[0].element_size() if plan.base == "image" else 1
-    found = []
-    for p, y, x in touched:
-        array = p * 2**45  # each base array's bytes apart from the others'
-        h, w = plan.for_plane(a.plane_src.index(p)).head[1:3]
-        y, x = y.cpu(), x.cpu()
-        found.append(bounds.sectors(array + (y * w + x) * elem, elem))
-        if plan.base == "yuv":
-            chroma = (h + torch.div(y, 2, rounding_mode="floor")) * w + 2 * torch.div(
-                x, 2, rounding_mode="floor")
-            found.append(bounds.sectors(array + chroma, 2))
+    found = _touched_sectors(a, touched)
     return int(torch.unique(torch.cat(found)).numel()) * 32 if found else 0
 
 

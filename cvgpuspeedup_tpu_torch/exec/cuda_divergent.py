@@ -55,6 +55,12 @@ wraps, a float16 batch rounds).
 
 Refused (:class:`Unsupported`, before anything launches): a group of no
 kind above, groups that differ in output (H, W, C), more than 4 channels.
+The executor (``executor._select_divergent``) tries this kernel first, then
+the composed-read kernel's divergent plan
+(``cuda_composed.build_divergent_plan``: groups that are each a
+``BatchRead`` of one-level composed read trees, such as letterboxes, ROI
+resizes, warps of crops and ``crop_batch``, of any source dtype), then
+:func:`merge`; every batch this kernel takes keeps it.
 The reference's TPU kernel refuses a ragged ``BatchRead`` group
 (``pallas_divergent.py:166``); this kernel takes it. None of the TPU kernel's schedule
 comes over (scalar-prefetch ring, 2-slot DMA, interleaved lane coefficients,

@@ -42,10 +42,18 @@ error, naming its kernel.
 
 The divergent launcher (``build_operation_sequence``,
 ``launch_divergent_batch``, ``executor.py:282-396`` of the reference) runs
-different sequences on different planes of one batch: on CUDA tensors in one
-launch of the divergent kernel (``cuda:divergent``), else through the eager
-merge (``torch:divergent``). Its plans are keyed on the sequences'
-structure, the plane ids, the device type and the backend request.
+different sequences on different planes of one batch. On CUDA tensors it
+tries, in order, the divergent kernel (``cuda:divergent``: rings, image
+stacks, ``resize_batch``, NV12 reads and warps, ``exec/cuda_divergent.py``),
+then the composed-read kernel's divergent plan (``cuda:composed:divergent``,
+counted under ``cuda:composed`` in :func:`launch_counts`: groups that are
+each a ``BatchRead`` of one-level read trees, such as letterboxes, ROI
+resizes, warps of crops and ``crop_batch``, of any source dtype,
+``exec/cuda_composed.py::build_divergent_plan``), then the eager merge
+(``torch:divergent``), which also runs every batch on the CPU. An explicit
+``ParBackend.CUDA`` raises where neither kernel takes the batch, naming
+both refusals. Its plans are keyed on the sequences' structure, the plane
+ids, the device type and the backend request.
 """
 
 from __future__ import annotations
@@ -257,14 +265,15 @@ def debug_mode():
 def last_backend() -> Optional[str]:
     """The backend of the most recent :func:`execute_operations` call in this
     process (None before any): a name :func:`describe_backend` gives, or
-    ``"cuda:divergent"`` / ``"torch:divergent"`` after
-    :func:`launch_divergent_batch`."""
+    ``"cuda:divergent"``, ``"cuda:composed:divergent"`` or
+    ``"torch:divergent"`` after :func:`launch_divergent_batch`."""
     return _LAST_BACKEND
 
 
 def launch_counts() -> Dict[str, int]:
     """Each kernel's launches in this process so far (its ``LAUNCHES``), by
-    the backend name :func:`last_backend` reports for it."""
+    the backend name :func:`last_backend` reports for it; a
+    ``cuda:composed:divergent`` launch counts under ``cuda:composed``."""
     return {name: module.LAUNCHES for name, module in
             _KERNELS + (("cuda:divergent", cuda_divergent),)}
 
@@ -329,11 +338,16 @@ def _select_divergent(seqs, plane_ids, backend: ParBackend, dev: torch.device) -
         raise ValueError(f"ParBackend.CUDA needs CUDA tensors, the batch is on {dev}")
     if dev.type != "cuda":
         return _Plan("torch:divergent", None, None)
-    try:
-        return _Plan("cuda:divergent", cuda_divergent.build_plan(seqs, plane_ids), cuda_divergent)
-    except cuda_divergent.Unsupported as e:
-        if backend == ParBackend.CUDA:
-            raise ValueError(f"ParBackend.CUDA cannot run this divergent batch: {e}") from e
+    refusals = []
+    for name, module, build in (
+            ("cuda:divergent", cuda_divergent, cuda_divergent.build_plan),
+            ("cuda:composed:divergent", cuda_composed, cuda_composed.build_divergent_plan)):
+        try:
+            return _Plan(name, build(seqs, plane_ids), module)
+        except module.Unsupported as e:
+            refusals.append(f"{name}: {e}")
+    if backend == ParBackend.CUDA:
+        raise ValueError(f"ParBackend.CUDA cannot run this divergent batch: {'; '.join(refusals)}")
     return _Plan("torch:divergent", None, None)
 
 
@@ -348,7 +362,8 @@ def launch_divergent_batch(selector: Union[Callable[[int], int], Sequence[int]],
     computes only its own planes; the merged batch takes the dtype of plane
     0's sequence (other values are cast to it by clamping, then
     truncating) and the first sequence's write layout. On CUDA tensors it is
-    one launch of the divergent kernel; returns without waiting for it.
+    one launch of the divergent kernel or of the composed-read kernel
+    (:func:`_select_divergent`); returns without waiting for it.
     ``device`` defaults as in :func:`execute_operations`.
     """
     global PLAN_BUILDS, _LAST_BACKEND

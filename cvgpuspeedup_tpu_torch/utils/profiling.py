@@ -197,14 +197,17 @@ def time_cuda(fn: Callable[[], object], iters: int = 100, warmup: int = 10) -> L
 
 
 def profiler_ms(fn: Callable[[], object], calls: int = 20, what: str = "a kernel",
-                log: Optional[Callable[[str], None]] = None) -> float:
+                log: Optional[Callable[[str], None]] = None,
+                names: Optional[set] = None) -> float:
     """Device time of one ``fn()`` in ms by ``torch.profiler``: the median
     kernel duration where a call is one kernel, else the calls' share of
     all device time in the trace. No event floor is inside. A trace now
     and then comes back without device activity, sometimes several in a
     row: it is taken again after a pause, every other time with host
     activity traced too, and after eight empty ones this raises, naming
-    ``what``. ``log`` (stderr by default) hears how many came back empty."""
+    ``what``. ``log`` (stderr by default) hears how many came back empty;
+    ``names``, where given, collects the names of the device kernels the
+    trace recorded."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     for _ in range(3):
         fn()
@@ -218,9 +221,11 @@ def profiler_ms(fn: Callable[[], object], calls: int = 20, what: str = "a kernel
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = [e.time_range.elapsed_us() for e in device]
         if us:
+            if names is not None:
+                names.update(e.name for e in device)
             if k:
                 log(f"torch.profiler: {k} empty trace(s) of {what} before this one")
             return float(np.median(us) if len(us) == calls else sum(us) / calls) * 1e-3

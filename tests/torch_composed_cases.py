@@ -611,3 +611,125 @@ def pixels_per_thread(outputs: int, resident: int, taps: int = 1) -> int:
     pixel (``instance``): a one-pixel read 4 where a thread per 4 pixels
     still fills half of the resident threads, else 1; a resample 1."""
     return 4 if taps == 1 and outputs >= 2 * resident else 1
+
+
+DIVERGENT_NAMES = ("dv1_letterboxes_and_warps", "dv2_rois_of_two_sensors",
+                   "dv3_store_casts_and_a_ragged_group", "dv4_one_pixel_groups")
+#: each divergent case's output side at the test size (``chip_smoke.py``:
+#: 640, 224, 320 and 256)
+DIVERGENT_SIDES = {"dv1": 16, "dv2": 12, "dv3": 16, "dv4": 16}
+
+
+def divergent_frames(seed: int = 0, scale: int = 1, sensor_dtype: str = "uint16") -> dict:
+    """The divergent cases' inputs, uint8 from a numpy seed: eight 16:9
+    cameras (``wide``, 36x64 times ``scale``), eight 4:3 ones (``four3``,
+    48x64), a frame (``big``, 64x96) and a 3-channel sensor frame
+    (``sensor``, 48x64, 12-bit values, of ``sensor_dtype``)."""
+    rng = np.random.default_rng(seed)
+
+    def img(h, w, n=None):
+        shape = (h * scale, w * scale, 3)
+        if n is None:
+            return rng.integers(0, 256, shape, dtype=np.uint8)
+        return [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(n)]
+
+    sensor = rng.integers(0, 4096, (48 * scale, 64 * scale, 3))
+    if sensor_dtype in ("int8", "uint8"):
+        sensor = sensor >> 5 if sensor_dtype == "int8" else sensor >> 4
+    return {"wide": img(36, 64, 8), "four3": img(48, 64, 8), "big": img(64, 96),
+            "sensor": sensor.astype(sensor_dtype)}
+
+
+def _rois(h: int, w: int, values: int, n: int = 16, lo: float = 0.16, hi: float = 0.65):
+    """``n`` regions ``(x, y, w, h)`` of an ``h`` x ``w`` frame, each of its
+    own size (a side from ``lo`` to ``hi`` of the frame's height) and
+    aspect, ``values`` 1 moving their origins."""
+    out = []
+    for k in range(n):
+        s = max(2, round(h * (lo + (hi - lo) * k / (n - 1))))
+        rw, rh = (s, max(2, round(s * 0.75))) if k % 2 else (max(2, round(s * 0.75)), s)
+        out.append(((k * 331 + 3 * values) % (w - rw + 1), (k * 173 + 2 * values) % (h - rh + 1),
+                    rw, rh))
+    return out
+
+
+def divergent_cases(M, f: dict, values: int = 0) -> dict:
+    """``name -> (plane ids, (op list of each sequence))`` of DV1-DV4 over
+    :func:`divergent_frames`, with ``M``'s factories (either package):
+
+    - DV1 eight planes, ids ``[1, 1, 2, 2] * 2``: letterboxes of the 16:9
+      cameras (a resize to the side's width, CONSTANT 114 above and below)
+      beside affine warps of the 4:3 cameras (rotations of 5-15 degrees at
+      0.6 of the output's side over the camera's width, the camera's centre
+      on the output's), x1/255, -mean, /std, planar;
+    - DV2 sixteen planes, ids ``[1, 2] * 8``: regions of interest of their
+      own sizes of ``big`` (uint8) resized, x1/255, beside regions of the
+      sensor frame, x1/4095, planar;
+    - DV3 eight planes into a uint8 batch, ids ``[1, 2] * 4``: the
+      letterboxes under ``convert_to(uint8, 0.5, 3.0)`` beside warps of
+      crops of the 4:3 cameras under x0.9, +3.25 (float32: truncated and
+      saturated into the batch), ragged at ``used_planes`` 3 with a default
+      of 300.7, packed;
+    - DV4 eight planes, ids ``[1, 2] * 4``: ``crop_batch`` of ``big``
+      beside ``make_border(crop)`` of smaller regions of it (a sixteenth of
+      the side each way, REFLECT_101), x1/255, planar.
+
+    ``values`` 1 moves every runtime value (origins, angles, the border
+    value, ``used_planes``) and keeps every size: no plan."""
+    wide, four3, big, sensor = f["wide"], f["four3"], f["big"], f["sensor"]
+    seq = M.build_operation_sequence
+
+    def boxes(side):
+        h, w = wide[0].shape[:2]
+        (iw, ih), (t, b, l, r) = letterbox(w, h, side)
+        return M.batch_read([M.make_border(M.resize(M.image(c), M.Size(iw, ih)), t, b, l, r,
+                                           M.BorderMode.CONSTANT, 114 - 14 * values)
+                             for c in wide])
+
+    def warps(side, crop=None):
+        h, w = four3[0].shape[:2]
+        out = []
+        for k, c in enumerate(four3):
+            src = M.image(c)
+            cw, ch = w, h
+            if crop:
+                cw, ch = int(w * crop), int(h * crop)
+                src = M.crop(src, M.Rect((3 * k + values) % (w - cw + 1), k % (h - ch + 1),
+                                         cw, ch))
+            angle = 5.0 + 10.0 * k / 7 + 2.0 * values
+            out.append(M.warp(src, rotation_to((cw / 2, ch / 2), angle, 0.6 * side / cw * 2,
+                                               (side / 2, side / 2)), M.Size(side, side)))
+        return out
+
+    def rois(frame, side):
+        h, w = frame.shape[:2]
+        return M.batch_read([M.resize(M.crop(M.image(frame), M.Rect(x, y, rw, rh)),
+                                      M.Size(side, side)) for x, y, rw, rh in _rois(h, w, values)])
+
+    s1, s2, s3, s4 = (DIVERGENT_SIDES[k] for k in ("dv1", "dv2", "dv3", "dv4"))
+    bh, bw = big.shape[:2]
+    b4 = max(1, s4 // 16)
+    tiles = [((k * 37 + 5 * values) % (bw - s4), (k * 11 + 3 * values) % (bh - s4))
+             for k in range(8)]
+    inner = [((k * 29 + 3 * values) % (bw - s4), (k * 7 + values) % (bh - s4)) for k in range(8)]
+    return {
+        "dv1_letterboxes_and_warps": ([1, 1, 2, 2] * 2, (
+            (boxes(s1), *normalize(M), M.split_tensor()),
+            (M.batch_read(warps(s1)), *normalize(M), M.split_tensor()))),
+        "dv2_rois_of_two_sensors": ([1, 2] * 8, (
+            (rois(big, s2), M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()),
+            (rois(sensor, s2), M.convert_to(np.float32, alpha=1 / 4095.0), M.split_tensor()))),
+        "dv3_store_casts_and_a_ragged_group": ([1, 2] * 4, (
+            (boxes(s3), M.convert_to(np.uint8, alpha=0.5, beta=3.0), M.write_tensor()),
+            (M.batch_read(warps(s3, 0.75), used_planes=3 - values, default=300.7),
+             M.multiply(0.9), M.add(3.25), M.write_tensor()))),
+        "dv4_one_pixel_groups": ([1, 2] * 4, (
+            (M.crop_batch(M.image(big), [M.Rect(x, y, s4, s4) for x, y in tiles]),
+             M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()),
+            (M.batch_read([M.make_border(M.crop(M.image(big), M.Rect(x, y, s4 - 2 * b4,
+                                                                      s4 - 2 * b4)),
+                                         b4, b4, b4, b4, M.BorderMode.REFLECT_101)
+                           for x, y in inner]),
+             M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()))),
+    }
+
