@@ -54,9 +54,15 @@ kernel (``cuda:composed:divergent``): letterboxes of the 1080p cameras
 beside warps of 1280x960 cameras into 640x640, regions of interest of 200 to
 900 pixels of the 4K frame beside those of a 12-bit uint16 sensor frame into
 224x224, a uint8 chain beside a ragged float32 group stored into a uint8
-batch, ``crop_batch`` beside bordered crops; and the batch axis of the
-flagship, W6, P2, D1 and D3 sharded over a device mesh
-(``parallel/mesh.py``).
+batch, ``crop_batch`` beside bordered crops; DVN1-DVN4
+(``divergent_nested_cases``), divergent batches with a nested group in one
+launch of the composed kernel's nested instances: letterboxes of the 1080p
+cameras beside top views of the others into 640x640, per-tap top views
+(ragged) beside staged rotated downscales into 640x360, N5's normalized
+letterboxes beside regions of a 12-bit uint16 sensor frame resized twice
+(two sources: the general nested instances), NV12 letterboxes beside NV12
+top views; and the batch axis of the flagship, W6, P2, D1 and D3 sharded
+over a device mesh (``parallel/mesh.py``).
 In phases; any failure ends the run with a non-zero exit
 code and no result line:
 
@@ -64,7 +70,8 @@ code and no result line:
 2. build: compile every kernel source, in parallel, into one library (timed;
    the composed kernel's nested instances' registers and spills logged on
    their own, the staged mixed nested instance held at 64 registers, 4
-   blocks an SM), then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
+   blocks an SM, the three general nested instances of a divergent batch
+   named), then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
    -sass``): in every instance of the six kernels no float32 add, multiply,
    compare or min/max without ``.FTZ`` (``-ftz=true``: the reference's
    float32 rule, ``utils/dtypes.py::flush_subnormal``) but for a warp map's
@@ -140,7 +147,12 @@ code and no result line:
    nested case's blocks' forms logged from ``nested_tiles``), NM1-NM4 (each
    plane's head and ``stage2`` in the consts, the mixed nested instances;
    each plane's blocks' forms logged), DV1-DV4 (each plane's head its
-   group's, the divergent kernel's refusal logged) and a resize of a crop that overhangs
+   group's, the divergent kernel's refusal logged), DVN1-DVN4 (every head a
+   nested one, each plane's second level, stage2 and blocks' forms and the
+   instance logged), DV1 with every plane lifted into the nested instances
+   (an identity resize; an empty FusedRead2: bit-equal to DV1's own launch)
+   and DVN1's trees over float32 cameras of ``EDGES32`` (NaN, infinities,
+   subnormals) as int32 bits, and a resize of a crop that overhangs
    its frame (``overhang_cases``: past the right and the bottom edge and
    from a negative origin, one level, nested, a plane of a mixed batch, and
    K1's rects past the edges) at full width,
@@ -202,7 +214,8 @@ code and no result line:
    sizes, origins, angles, border value and ``used_planes``),
    ``cuda:composed:divergent`` also under ``ParBackend.CUDA``, one launch
    of the composed kernel per call and none of the divergent kernel, no plan
-   on the second, bit for bit the eager merge on the card;
+   on the second, bit for bit the eager merge on the card; DVN1-DVN4 the same
+   way (new camera, NV12 and sensor frames);
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain, and the
    kernel's duration in a ``torch.profiler`` trace of 20 launches (events
@@ -243,6 +256,9 @@ code and no result line:
    DV1-DV4 the same way beside the eager merge (``ParBackend.TORCH``) and,
    as a reference, each group's own composed launch over its planes,
    summed, with the instance each launch ran as the profiler names it;
+   DVN1-DVN4 the same way, the profiler's instance the one
+   ``divergent_instance`` predicts; and DV1 by its one-level launch beside
+   DV1 through the nested instances (each way of the lift), in turns;
 6. sharding: (a) every rank of meshes of 2 and 5 (the flagship, 50 crops
    ragged at ``used_planes`` = 37) and of 2, 4 and 8 (W6; P2's ring from
    ``first`` = 3 and -5; D1 and D3) run on this card through the rank-local
@@ -1088,6 +1104,86 @@ def divergent_composed_cases(cvgs, cams, cams43, frame, sensor, values=0) -> dic
     }
 
 
+#: DVN3's sensor frame resized (w, h) before its regions are cut
+DVN3_SENSOR_HALF = (1224, 1024)
+
+
+def divergent_nested_cases(cvgs, cams, nv12s, sensor, values=0, chain=True) -> dict:
+    """The divergent batches with a nested group that the composed kernel's
+    nested instances take in one launch, DVN1-DVN4, at full width: ``name
+    -> (plane ids, (op list of each sequence))``; ``cams`` the eight 1080p
+    cameras, ``nv12s`` eight 1080p NV12 buffers, ``sensor`` the 3-channel
+    12-bit uint16 frame of ``DV_SENSOR``. ``values`` 1 moves every runtime
+    value (the maps, angles, origins, the border values, ``used_planes``)
+    and keeps every size; ``chain`` False drops the pipeline chains (the
+    values as the reads give them). DVN1 the surround-view detector input:
+    letterboxes of the cameras into 640x640 (DV1's: resized to 640x360,
+    CONSTANT 114 140 rows above and below) beside top views of the others
+    (a perspective warp into 1920x1080, CONSTANT 0, resized to 640x640),
+    ids [1, 1, 2, 2] * 2, normalized, planar; DVN2 N6's top views resized to
+    640x360 (per tap), ``used_planes`` 6 (5), default 0, beside each camera
+    resized to 960x540, then rotated 5-15 degrees about its centre at scale
+    2/3 into 640x360 (staged), ids [1, 2] * 4, normalized, planar; DVN3
+    N5's letterboxes (a resize to 640x360 fused with x1/255, CONSTANT 0.447
+    140 rows above and below, no chain: a FusedRead2 alone) beside eight of
+    ``dv_rois`` (95 to 402 pixels) of the sensor frame resized to
+    ``DVN3_SENSOR_HALF``, each resized to 640x640, x1/4095, ids [1, 2] * 4,
+    planar: two source dtypes, the general nested instances; DVN4 DVN1's
+    trees over the NV12 buffers converted into uint8 RGB per tap, ids
+    [1, 2] * 4, one conversion. Every region inside its frame."""
+    normalize = ((cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract(MEAN),
+                  cvgs.divide(STD)) if chain else ())
+    scale = (cvgs.convert_to(np.float32, alpha=1 / 4095.0),) if chain else ()
+    full, dst = cvgs.Size(FRAME_W, FRAME_H), cvgs.Size(*FRAME_DST)
+    side = DV_SIDES["dv1"]
+    square = cvgs.Size(side, side)
+    persp = dict(warp_type=cvgs.WarpType.PERSPECTIVE, default=0.0)
+    (iw, ih), (t, b, l, r) = letterbox(FRAME_W, FRAME_H, side)
+
+    def rgb(buf):
+        return cvgs.fuse(cvgs.read_yuv(buf), cvgs.convert_yuv_to_rgb(out_dtype=np.uint8))
+
+    def boxes(reads):
+        return cvgs.batch_read([cvgs.make_border(cvgs.resize(src, cvgs.Size(iw, ih)), t, b, l, r,
+                                                 cvgs.BorderMode.CONSTANT, 114 - 14 * values)
+                                for src in reads])
+
+    def top_views(reads, size, **ragged):
+        return cvgs.batch_read([cvgs.resize(cvgs.warp(src, top_view(FRAME_W, FRAME_H, k + values),
+                                                      full, **persp), size)
+                                for k, src in enumerate(reads)], **ragged)
+
+    mid = cvgs.Size(960, 540)
+    rotated = [cvgs.warp(cvgs.resize(cvgs.image(c), mid),
+                         rotation((mid.width / 2, mid.height / 2), 5.0 + 10.0 * k / 7 + 2 * values,
+                                  2 / 3, to=(dst.width / 2, dst.height / 2)), dst)
+               for k, c in enumerate(cams)]
+    fused = [cvgs.make_border(cvgs.fuse(cvgs.resize(cvgs.image(c), cvgs.Size(iw, ih)),
+                                        cvgs.convert_to(np.float32, alpha=1 / 255.0)),
+                              t, b, l, r, cvgs.BorderMode.CONSTANT, 0.447 - 0.1 * values)
+             for c in cams]
+    hw, hh = DVN3_SENSOR_HALF
+    rois = [cvgs.resize(cvgs.crop(cvgs.resize(cvgs.image(sensor), cvgs.Size(hw, hh)),
+                                  cvgs.Rect(x, y, rw, rh)), square)
+            for x, y, rw, rh in dv_rois(hh, hw, values)[::2]]
+    images, buffers = [cvgs.image(c) for c in cams], [rgb(buf) for buf in nv12s]
+    return {
+        "dvn1_top_views_beside_letterboxes": ([1, 1, 2, 2] * 2, (
+            (boxes(images), *normalize, cvgs.split_tensor()),
+            (top_views(images, square), *normalize, cvgs.split_tensor()))),
+        "dvn2_top_views_beside_rotated_downscales": ([1, 2] * 4, (
+            (top_views(images, dst, used_planes=N6_USED - values, default=0.0), *normalize,
+             cvgs.split_tensor()),
+            (cvgs.batch_read(rotated), *normalize, cvgs.split_tensor()))),
+        "dvn3_normalized_letterboxes_beside_a_12bit_sensor": ([1, 2] * 4, (
+            (cvgs.batch_read(fused), cvgs.split_tensor()),
+            (cvgs.batch_read(rois), *scale, cvgs.split_tensor()))),
+        "dvn4_nv12_top_views_beside_nv12_letterboxes": ([1, 2] * 4, (
+            (boxes(buffers), *normalize, cvgs.split_tensor()),
+            (top_views(buffers, square), *normalize, cvgs.split_tensor()))),
+    }
+
+
 # the dtypes a chain may hold beside uint8 and float32, and a scale that
 # brings a source of each to a few hundred
 NEW_DTYPES = {"i8": np.int8, "u16": np.uint16, "i16": np.int16, "f16": np.float16}
@@ -1611,6 +1707,14 @@ def main() -> int:
         if "_staged" in entry:
             used = [int(w) for line in lines for w in re.findall(r"Used (\d+) registers", line)]
             assert used and max(used) <= 64, (entry, lines)
+    # a divergent batch's general nested instances (composed_nested_divergent.cu,
+    # AnyImage): the three of a mixed nested batch, registers and spills
+    general = {e: lines for e, lines in nested.items() if "AnyImage" in e}
+    log(f"phase2 the general nested instances (AnyImage), {len(general)}: "
+        + "; ".join(f"{'staged' if '_staged' in e else 'per tap' if 'Lb1E' in e else 'FusedRead2'}"
+                    f" {' '.join(lines)}" for e, lines in sorted(general.items()))
+        + f"; card {card}")
+    assert len(general) == 3, sorted(general)
     # the float32 rule in the SASS: every float32 add, multiply, compare and
     # min/max flushes subnormals (.FTZ), and the float64 load converts
     # without .FTZ, so that a copy keeps a float32 subnormal. The one
@@ -2290,6 +2394,71 @@ def main() -> int:
             f"{sorted(set(plan.stores))}, "
             f"{plan.tables.size} consts words, {plan.n_block} block words; the divergent kernel "
             f"refuses it: {refused}")
+    # the divergent batches with a nested group DVN1-DVN4 at full width: one
+    # launch each of the nested instances (each plane's head its group's,
+    # nested, or lifted to an identity resize), the instance the routing
+    # predicts, equal to the plain version (max |diff| 0); each plane's
+    # blocks' forms from the host's mirror of the kernel's rule
+    nv12_cams = [torch.from_numpy(rng.integers(0, 256, (FRAME_H * 3 // 2, FRAME_W),
+                                               dtype=np.uint8)).to(dev) for _ in range(CAMERAS)]
+    for name, (ids, ops) in divergent_nested_cases(cvgs, cams, nv12_cams, sensor).items():
+        seqs = tuple(cvgs.build_operation_sequence(*o) for o in ops)
+        try:
+            kd.build_plan(seqs, ids)
+        except kd.Unsupported:
+            pass
+        else:
+            raise AssertionError(f"{name}: the divergent kernel takes it")
+        dvna = kc.prepare(seqs, kc.build_divergent_plan(seqs, ids), dev)
+        before = kc.LAUNCHES
+        got = kc.composed(dvna)
+        launched = kc.LAUNCHES - before
+        compare(name, "composed", got, kc.composed_reference(dvna), 0.0)
+        plan = dvna.plan
+        assert launched == 1 and len(plan.head) == kc.NESTED_INTS, (name, launched)
+        tiles = kc.nested_tiles(dvna)[..., 0]
+        forms = [{f: int((tiles[z] == k).sum()) for k, f in enumerate(kc.TILE_FORMS)
+                  if (tiles[z] == k).any()} for z in range(plan.n_planes)]
+        groups = [(g.sid, g.plan.core, g.plan.core2 or "-", str(g.plan.src_dtype)[6:])
+                  for g in plan.groups]
+        log(f"phase3 composed {name}: {plan.n_planes} planes of {plan.dsize[0]}x{plan.dsize[1]} "
+            f"{plan.out_dtype}, ids {ids}, groups (sid, core, core2, source) {groups}, second "
+            f"levels {[kc.CORES[q.word('core2')] for q in plan.planes]}, stage2 "
+            f"{[q.word('stage2') for q in plan.planes]}, instance {kc.divergent_instance(plan)}, "
+            f"{plan.tables.size} consts words, {plan.n_block} block words; each plane's blocks "
+            f"{forms}")
+    # the lift: DV1 (one level) with every plane carried through the nested
+    # instances (an identity resize; an empty FusedRead2) equal to its plain
+    # version and to DV1's own one-level launch bit for bit; DVN1's trees over
+    # float32 cameras a sixteenth of EDGES32 (subnormals, which the
+    # letterboxes' exact 3:1 resize copies through the identity), no chain,
+    # bit for bit as int32 (NaN and the infinities: the gpu tests)
+    ids, ops = divergent_composed_cases(cvgs, cams, cams43, frame, sensor)[
+        "dv1_surround_view_letterboxes_and_warps"]
+    seqs = tuple(cvgs.build_operation_sequence(*o) for o in ops)
+    one_level = kc.composed(kc.prepare(seqs, kc.build_divergent_plan(seqs, ids), dev))
+    for lift in kc.LIFTS:
+        la = kc.prepare(seqs, kc.build_divergent_plan(seqs, ids, lift), dev)
+        got = kc.composed(la)
+        compare(f"dv1_lifted_{lift}", "composed", got, kc.composed_reference(la), 0.0)
+        same = torch.equal(got.view(torch.int32), one_level.view(torch.int32))
+        log(f"phase3 composed dv1_lifted_{lift}: {kc.divergent_instance(la.plan)}, bit-equal to "
+            f"DV1's one-level launch {same}")
+        assert same, lift
+    edge_cams = [as_edges32(torch, c) for c in cams]
+    ids, ops = divergent_nested_cases(cvgs, edge_cams, nv12_cams, sensor, chain=False)[
+        "dvn1_top_views_beside_letterboxes"]
+    seqs = tuple(cvgs.build_operation_sequence(*o) for o in ops)
+    ea = kc.prepare(seqs, kc.build_divergent_plan(seqs, ids), dev)
+    got, want = kc.composed(ea), kc.composed_reference(ea)
+    torch.cuda.synchronize()
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    sub = int(((got != 0) & (got.abs() < 2.0 ** -126)).sum())
+    log(f"phase3 composed dvn1_edges_f32: {got.numel()} float32 outputs, {sub} subnormal, {bad} "
+        "differ from the plain version as int32 bits")
+    assert bad == 0 and sub > 0, (bad, sub)
+    case_err["dvn1_edges_f32"] = 0.0
+    del edge_cams
     # a resize of a crop that overhangs its frame, as the reference's
     # op-by-op lowering reads it (tests/test_torch_overhanging_crops.py):
     # each kernel against its plain version at full width
@@ -2845,6 +3014,38 @@ def main() -> int:
         assert same and not torch.equal(got[0], outs[0] if not isinstance(outs[0], tuple)
                                         else outs[0][0])
         assert got[0].dtype != torch.float32 or all(bool(torch.isfinite(g).all()) for g in got)
+
+    # the divergent batches with a nested group DVN1-DVN4 the same way: twice
+    # each through launch_divergent_batch, the second call with new camera,
+    # NV12 and sensor frames of the same sizes and new maps, angles, origins,
+    # border values and used_planes: cuda:composed:divergent, one launch of
+    # the composed kernel per call (the counts set to 0 just before), none of
+    # the divergent kernel, no plan on the second, bit for bit the eager merge
+    nv12_next = [torch.from_numpy(rng.integers(0, 256, (FRAME_H * 3 // 2, FRAME_W),
+                                               dtype=np.uint8)).to(dev) for _ in range(CAMERAS)]
+    for name in divergent_nested_cases(cvgs, cams, nv12_cams, sensor):
+        kc.LAUNCHES, kd.LAUNCHES = 0, 0
+        builds0 = executor.PLAN_BUILDS
+        outs, backends, seen = [], [], []
+        for values, frames, bufs, sens in ((0, cams, nv12_cams, sensor),
+                                           (1, cams_next, nv12_next, sensor_next)):
+            ids, ops = divergent_nested_cases(cvgs, frames, bufs, sens, values)[name]
+            seqs = tuple(cvgs.build_operation_sequence(*o) for o in ops)
+            outs.append(drive("composed", lambda: cvgs.launch_divergent_batch(ids, *seqs)))
+            backends.append(cvgs.last_backend())
+            seen.append((kc.LAUNCHES, executor.PLAN_BUILDS))
+        torch.cuda.synchronize()
+        composed_launches += kc.LAUNCHES
+        eager = cvgs.launch_divergent_batch(ids, *seqs, backend=cvgs.ParBackend.TORCH)
+        same = torch.equal(outs[1].view(torch.int32), eager.view(torch.int32))
+        log(f"phase4 composed divergent path ({name}): backends {backends}; composed launches "
+            f"{seen[0][0]} {seen[1][0]}, divergent kernel launches {kd.LAUNCHES}; plan builds "
+            f"{builds0} -> {seen[0][1]} -> {seen[1][1]}; {tuple(outs[1].shape)} {outs[1].dtype}; "
+            f"equal to the eager merge {same}")
+        assert backends == ["cuda:composed:divergent"] * 2, backends
+        assert (seen[0][0], seen[1][0]) == (1, 2) and kd.LAUNCHES == 0, (seen, kd.LAUNCHES)
+        assert seen[0][1] <= builds0 + 1 and seen[1][1] == seen[0][1], (builds0, seen)
+        assert same and not torch.equal(outs[0], outs[1]) and bool(torch.isfinite(outs[1]).all())
 
     # 64-bit values are int32 and float32 where they enter, as in the
     # reference (64-bit values off): an int64 or a float64 frame on the card
@@ -3929,6 +4130,82 @@ def main() -> int:
             f"launch_divergent_batch host-inclusive {t['call_ms'] * 1e3:.2f} us/call (median of "
             f"30)")
 
+    # the divergent batches with a nested group DVN1-DVN4 the same way: kernel
+    # vs plain version, bound (each plane's own sectors and operations, a
+    # nested plane's core once per value its second level needs), floor, the
+    # eager merge it replaces (its kernels a call), each group's own launch
+    # over its planes summed (a reference, not one call), the instance the
+    # profiler names; library_ms null (no one library call runs different
+    # sequences on the planes of a batch)
+    dvn_times = {}
+    for name, (ids, ops) in divergent_nested_cases(cvgs, cams, nv12_cams, sensor).items():
+        seqs = map_leaves(tuple(cvgs.build_operation_sequence(*o) for o in ops),
+                          lambda v: as_device_tensor(v, dev))
+        dvnargs = kc.prepare(seqs, kc.build_divergent_plan(seqs, ids), dev)
+        launched = set()
+        t = measure(lambda: kc.composed(dvnargs), lambda: kc.composed_reference(dvnargs), 50,
+                    what=name, plain_iters=3, names=launched)
+        t.update(bounds.bound(*kc.work(dvnargs), bandwidth))
+        t["max_abs_err"] = case_err[name]
+        t["library_ms"] = t["library_profiler_ms"] = None
+        t["instances"] = kernel_names(launched)
+        t["predicted_instance"] = kc.divergent_instance(dvnargs.plan)
+        assert t["instances"] == t["predicted_instance"], (t["instances"], t["predicted_instance"])
+        t["groups_ms"] = t["groups_profiler_ms"] = 0.0
+        for g in dvnargs.plan.groups:
+            gpipe = kc._group_pipeline(seqs[g.sid - 1], g.planes)
+            gargs = kc.prepare(gpipe, kc.build_plan(gpipe), dev)
+            t["groups_ms"] += float(np.median(time_cuda(lambda: kc.composed(gargs), iters=50)))
+            t["groups_profiler_ms"] += profiler_ms(lambda: kc.composed(gargs),
+                                                   what=f"{name} group {g.sid}")
+        eager = lambda: cvgs.launch_divergent_batch(ids, *seqs,  # noqa: E731
+                                                    backend=cvgs.ParBackend.TORCH)
+        t["eager_ms"] = float(np.median(time_cuda(eager, iters=10)))
+        t["eager_profiler_ms"] = profiler_ms(eager, calls=5, what=f"{name} eager")
+        t["eager_launches"], t["eager_copies"] = eager_launches(eager)
+        whole = []
+        for _ in range(40):
+            t0 = time.perf_counter()
+            cvgs.launch_divergent_batch(ids, *seqs)
+            torch.cuda.synchronize()
+            whole.append(time.perf_counter() - t0)
+        t["call_ms"] = float(np.median(whole[10:])) * 1e3
+        assert cvgs.last_backend() == "cuda:composed:divergent"
+        dvn_times[name] = t
+        log(f"phase5 composed {name} ({t['instances']}): {describe(t)}; each group's own launch "
+            f"on its planes, summed (a reference, not one call), {t['groups_ms'] * 1e3:.2f} us by "
+            f"events, {t['groups_profiler_ms'] * 1e3:.2f} us by torch.profiler; the eager merge "
+            f"(ParBackend.TORCH) {t['eager_ms'] * 1e3:.2f} us by events, "
+            f"{t['eager_profiler_ms'] * 1e3:.2f} us by torch.profiler, "
+            f"{t['eager_launches']:.0f} kernels and {t['eager_copies']:.0f} copies a call; "
+            f"launch_divergent_batch host-inclusive {t['call_ms'] * 1e3:.2f} us/call (median of "
+            f"30)")
+
+    # what the lift costs a one-level plane: DV1 by its one-level launch and
+    # with every plane carried through the nested instances (an identity
+    # resize, DVN1's letterboxes' form; an empty FusedRead2), bit-equal, in
+    # turns one-level, resize, none, none, resize, one-level
+    ids, ops = divergent_composed_cases(cvgs, cams, cams43, frame, sensor)[
+        "dv1_surround_view_letterboxes_and_warps"]
+    seqs = map_leaves(tuple(cvgs.build_operation_sequence(*o) for o in ops),
+                      lambda v: as_device_tensor(v, dev))
+    lift_args = {lift or "one_level": kc.prepare(seqs, kc.build_divergent_plan(seqs, ids, lift),
+                                                 dev) for lift in (None, *kc.LIFTS)}
+    runs, lift_cost = {}, {}
+    for tag in ("one_level", "resize", "none", "none", "resize", "one_level"):
+        runs.setdefault(tag, []).extend(
+            time_cuda(lambda: kc.composed(lift_args[tag]), iters=50))
+    for tag, la in lift_args.items():
+        names = set()
+        lift_cost[tag] = {"ms": float(np.median(runs[tag])),
+                          "profiler_ms": profiler_ms(lambda: kc.composed(la),
+                                                     what=f"dv1 {tag}", names=names),
+                          "instance": kernel_names(names)}
+    log("phase5 composed dv1 through the nested instances (the lift's cost to a one-level "
+        "plane): " + "; ".join(f"{tag} {t['ms'] * 1e3:.2f} / {t['profiler_ms'] * 1e3:.2f} us "
+                               f"(events / profiler, {t['instance']})"
+                               for tag, t in lift_cost.items()) + f"; card {card}")
+
     # an int64 frame through a 3-op chain, which ran eagerly (one launch per
     # op) until int64 became int32 where it enters: one launch of the
     # pointwise kernel, which reads it at load, beside the same chain on the
@@ -4263,7 +4540,10 @@ def main() -> int:
               composed_launches, c_times["c1_roi_crop_resize"], cases=c_times,
               batch_cases=b_times, nested_cases=n_times, mixed_cases=m_times,
               nested_mixed_cases=nm_times, nested_head_cost=head_cost,
-              divergent_cases=dv_times),
+              divergent_cases=dv_times, divergent_nested_cases=dvn_times,
+              lift_cost=lift_cost,
+              also_sources=[f"cvgpuspeedup_tpu_torch/csrc/{src.name}" for src in _build.SOURCES
+                            if src.name.startswith("composed")]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

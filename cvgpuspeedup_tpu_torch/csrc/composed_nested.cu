@@ -36,7 +36,11 @@
 // nested planes of their own geometry (cameras of mixed resolution warped
 // to their top views, ROIs of their own sizes of a downscale) carries each
 // plane's stage2: the staged mixed instance where any plane stages, its
-// blocks of a plane whose stage2 is 0 per tap.
+// blocks of a plane whose stage2 is 0 per tap. A divergent batch with a
+// nested group (surround-view top views beside letterboxes, groups of
+// different sources) runs those mixed instances where its planes read one
+// kind of source with one store row, else three general ones over AnyImage
+// (composed_nested_divergent.cu): 27 in five files.
 
 #include "composed_nested.cuh"
 
@@ -66,13 +70,22 @@ bool same_nested(const kc::CmNested& a, const kc::CmNested& b) {
          a.mid_ops_off == b.mid_ops_off && a.mid_fp_off == b.mid_fp_off;
 }
 
+// Whether nested plane head b of a divergent batch runs in the launch of
+// plane head a: what picks the instance alone (same_instance's words, and
+// a second resample where a has one: the kR2 flag), not same_nested's
+// structure.
+bool same_nested_instance(const kc::CmNested& a, const kc::CmNested& b) {
+  return same_instance(a.h, b.h) && (a.core2 == CM_NONE) == (b.core2 == CM_NONE);
+}
+
 }  // namespace
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
 // The arguments are cvgs_composed's (composed.cu), but `head` points at the
 // kNestedWords host words of a CmNested (a mixed-geometry batch's, batch
 // == CM_MIXED: at n_planes of them, plane 0's first, which the consts also
-// hold from word 0 on).
+// hold from word 0 on; a divergent batch's, batch == CM_DIVERGENT: those
+// heads, then each plane's store row, also in the consts, and store_op 0).
 extern "C" int cvgs_composed_nested(const void* src, const int* head, float ys, float cs,
                                     float rv, float gu, float gv, float bu, const int* blk,
                                     const int* consts, int n_planes, int dst_w, int dst_h,
@@ -83,9 +96,10 @@ extern "C" int cvgs_composed_nested(const void* src, const int* head, float ys, 
   std::memcpy(&n, head, sizeof(kc::CmNested));
   const CmHead& h = n.h;
   const PwHead& b = h.lower;
-  if (!nested_ok(n) || h.batch < CM_ONE || h.batch > CM_MIXED || (!h.batch && n_planes != 1) ||
-      n_planes < 1 || n_planes > 65535 || dst_w < 1 || dst_h < 1 || out_ch < 1 ||
-      out_ch > kMaxCh || out_type < PW_U8 || out_type > PW_I32) {
+  if (!nested_ok(n) || h.batch < CM_ONE || h.batch > CM_DIVERGENT ||
+      (!h.batch && n_planes != 1) || n_planes < 1 || n_planes > 65535 || dst_w < 1 ||
+      dst_h < 1 || out_ch < 1 || out_ch > kMaxCh || out_type < PW_U8 || out_type > PW_I32 ||
+      (h.batch == CM_DIVERGENT && store_op != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   for (int z = 1; h.batch == CM_MIXED && z < n_planes; ++z) {
@@ -93,10 +107,37 @@ extern "C" int cvgs_composed_nested(const void* src, const int* head, float ys, 
     std::memcpy(&p, head + (long long)z * kc::kNestedWords, sizeof(kc::CmNested));
     if (!nested_ok(p) || !same_nested(n, p)) return (int)cudaErrorInvalidValue;
   }
-  const Conv conv{b.limited, 0, ys, cs, rv, gu, gv, bu};
+  // a divergent batch: every plane's head in the launch's instances, its
+  // store row after the heads; one kind of source and one store row keep
+  // that kind's mixed nested instances, with the row as the launch's, any
+  // other batch (of images alone) the general ones; a YUV -> RGB, of one
+  // range
+  int limited = b.limited, kind = source_kind(b), store = store_op;
+  bool one_kind = true, converts = false, yuv = false;
+  for (int z = 0; h.batch == CM_DIVERGENT && z < n_planes; ++z) {
+    kc::CmNested p;
+    std::memcpy(&p, head + (long long)z * kc::kNestedWords, sizeof(kc::CmNested));
+    const int row = head[(long long)n_planes * kc::kNestedWords + z];
+    if (!nested_ok(p) || !same_nested_instance(n, p) || row < 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (z == 0) store = row;
+    one_kind = one_kind && source_kind(p.h.lower) == kind && row == store;
+    yuv = yuv || p.h.lower.base == PW_YUV;
+    if (p.h.lower.base == PW_YUV || p.h.lower.conv_first) {
+      if (converts && p.h.lower.limited != limited) return (int)cudaErrorInvalidValue;
+      limited = p.h.lower.limited, converts = true;
+    }
+  }
+  const Conv conv{limited, 0, ys, cs, rv, gu, gv, bu};
   const cvgs::ComposedArgs a{src, head, conv, blk, consts, n_planes, dst_w, dst_h, out, out_type,
-                             out_ch, store_op, sn, sc, sy, sx, 1,
+                             out_ch, store, sn, sc, sy, sx, 1,
                              static_cast<cudaStream_t>(stream)};
+  if (!one_kind) {
+    if (yuv) return (int)cudaErrorInvalidValue;
+    cvgs::composed_nested_divergent(a);
+    return (int)cudaGetLastError();
+  }
   // one instance per kind of source: every source type is a case by name
   if (b.base == PW_YUV) {
     cvgs::composed_nested_nv12(a);

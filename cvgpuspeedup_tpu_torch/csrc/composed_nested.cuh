@@ -63,6 +63,21 @@
 // each plane with its own middle image, tap tables and stage2 (a plane
 // whose stage2 is 0 takes the per-tap form in the staged instance).
 //
+// A divergent batch with a nested group (CM_DIVERGENT, exec/
+// cuda_composed.py::build_divergent_plan) lays its planes out as such a
+// batch does, each head its group's with absolute block offsets, each
+// plane's store row after the heads: groups of one kind of source and one
+// store row run that kind's mixed nested instances, any other batch of
+// images the general ones (composed_nested_divergent.cu, AnyImage), whose
+// block reads its plane's store row. Every head of one launch has one form
+// (a second resample, or a FusedRead2 alone: the kR2 flag): a plane
+// without a second resample beside one with it (a letterbox beside a top
+// view) comes as an identity resize, weights 0 under the edge rule that
+// keeps the first tap alone, stage2 0, so that its per-tap form evaluates
+// its core once a pixel and the bilerp returns that value unchanged; a
+// one-level plane beside FusedRead2s alone comes with an empty FusedRead2.
+// The bodies are the mixed batch's, unchanged.
+//
 // Every rule matches exec/cuda_composed.py::composed_reference and the
 // eager lowering bit for bit: the core's value is float32 (int32 bits
 // converted); a tap of the second level that lies outside a below CONSTANT
@@ -86,6 +101,7 @@ namespace cvgs {
 void composed_nested_f32(const ComposedArgs& a);
 void composed_nested_nv12(const ComposedArgs& a);
 void composed_nested_any(const ComposedArgs& a);
+void composed_nested_divergent(const ComposedArgs& a);
 }  // namespace cvgs
 
 namespace {
@@ -774,7 +790,10 @@ __global__ void __launch_bounds__(kThreads, 4) composed_kernel_nested_staged(CVG
 // one (launched where any plane's stage2 is 1) takes the per-tap form on a
 // plane whose stage2 is 0. Static shared memory of the staged one: the
 // head, Stage2 and the three op tables, 47,792 bytes, under the 48 KB of a
-// static allocation, 4 blocks an SM.
+// static allocation, 4 blocks an SM. A divergent batch's general instances
+// (Src AnyImage, which runs no other batch) take their plane's store row,
+// consts word gridDim.z * kNestedWords + blockIdx.z, as the launch's
+// store_op, in a register: no shared memory more.
 #define CVGS_NESTED_MIXED_PARAMS                                                              \
   const void* __restrict__ src, Conv conv, const int* __restrict__ blk,                        \
       const int* __restrict__ consts, int dst_w, int dst_h, void* __restrict__ out, int out_type, \
@@ -787,6 +806,9 @@ __device__ __forceinline__ void nested_mixed_body(CVGS_NESTED_MIXED_PARAMS) {
   for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < kNestedWords;
        i += blockDim.x * blockDim.y) {
     words[i] = __ldg(rec + i);
+  }
+  if constexpr (std::is_same_v<Src, AnyImage>) {
+    store_op = __ldg(consts + (long long)gridDim.z * kNestedWords + blockIdx.z);
   }
   __syncthreads();
   nested_body<Src, kR2, kStage, true>(src, n, conv, blk, consts, dst_w, dst_h, out, out_type,
@@ -810,8 +832,8 @@ __global__ void __launch_bounds__(kThreads, 4) composed_kernel_nested_mixed_stag
 // The nested launch for a source of kind Src: one pixel a thread, a block
 // of 256 threads: a kTile2W x kTile2H tile with a second resample (its
 // footprint's shape near scale 1 is square), staged where the plan's
-// stage2 word asks for it (a mixed-geometry batch: any plane's), else
-// group_block's shape for one pixel a thread.
+// stage2 word asks for it (a mixed-geometry or divergent batch: any
+// plane's), else group_block's shape for one pixel a thread.
 template <typename Src>
 void launch_nested(const ComposedArgs& a) {
   CmNested n;
@@ -819,7 +841,7 @@ void launch_nested(const ComposedArgs& a) {
   const dim3 block = n.core2 == CM_NONE ? group_block(a.dst_w, 1) : dim3(kTile2W, kTile2H);
   const dim3 grid((a.dst_w + block.x - 1) / block.x, (a.dst_h + block.y - 1) / block.y,
                   a.n_planes);
-  if (n.h.batch == CM_MIXED) {
+  if (n.h.batch == CM_MIXED || n.h.batch == CM_DIVERGENT) {  // each plane's head in the consts
     bool stage = false;
     for (int z = 0; z < a.n_planes; ++z) {
       stage = stage || a.head[(long long)z * kNestedWords + offsetof(CmNested, stage2) / 4] != 0;
@@ -831,11 +853,15 @@ void launch_nested(const ComposedArgs& a) {
                                         a.out_type, a.out_ch, a.store_op, a.sn, a.sc, a.sy, a.sx);
     return;
   }
-  auto* kernel = n.core2 == CM_NONE ? composed_kernel_nested<Src, false>
-                 : n.stage2 != 0    ? composed_kernel_nested_staged<Src>
-                                    : composed_kernel_nested<Src, true>;
-  kernel<<<grid, block, 0, a.stream>>>(a.src, n, a.conv, a.blk, a.consts, a.dst_w, a.dst_h, a.out,
-                                       a.out_type, a.out_ch, a.store_op, a.sn, a.sc, a.sy, a.sx);
+  // a divergent batch's general instances are mixed ones alone
+  if constexpr (!std::is_same_v<Src, AnyImage>) {
+    auto* kernel = n.core2 == CM_NONE ? composed_kernel_nested<Src, false>
+                   : n.stage2 != 0    ? composed_kernel_nested_staged<Src>
+                                      : composed_kernel_nested<Src, true>;
+    kernel<<<grid, block, 0, a.stream>>>(a.src, n, a.conv, a.blk, a.consts, a.dst_w, a.dst_h,
+                                         a.out, a.out_type, a.out_ch, a.store_op, a.sn, a.sc, a.sy,
+                                         a.sx);
+  }
 }
 
 }  // namespace kc

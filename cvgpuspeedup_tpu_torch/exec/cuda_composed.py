@@ -50,23 +50,30 @@ passes the budget, the core is evaluated at each tap
 A divergent batch (``executor.launch_divergent_batch``: sequence
 ``plane_ids[z]`` on plane ``z``) that the divergent kernel
 (``cuda_divergent``) refuses is one launch here where every group, a
-sequence on its planes, is a ``BatchRead`` that :func:`build_plan` takes as
-one level over those planes (letterboxes, ROI resizes, camera resizes,
-warps of crops, ``crop_batch``), of any source dtype: groups may differ in
-everything but the output (C, H, W) (:func:`build_divergent_plan`, the
-``DIVERGENT`` batch word). The executor tries the divergent kernel, then
-this plan (``cuda:composed:divergent``), then the eager merge. Each plane's
-head is its group's for that plane with absolute block offsets; groups of
-one kind of source and one store row run that kind's mixed instances, any
-other batch of images the general ones (``csrc/composed_divergent.cu``).
-It stays eager (:func:`build_divergent_plan` names each): a group with a
-second level; a group of a kind only the divergent kernel reads (a ring, a
-batched image stack, ``resize_batch``) beside a composed group; an NV12
-group beside an image group; NV12 groups whose chains end in different
-dtypes (the NV12 instances store with one row); a resampling group beside a
-one-pixel group;
-groups of different output (C, H, W); groups converting YUV with different
-coefficients.
+sequence on its planes, is a ``BatchRead`` that :func:`build_plan` takes
+over those planes, one level or nested (letterboxes, ROI resizes, camera
+resizes, warps of crops, ``crop_batch``, top views resized, rotated
+downscales), of any source dtype: groups may differ in everything but the
+output (C, H, W) (:func:`build_divergent_plan`, the ``DIVERGENT`` batch
+word). The executor tries the divergent kernel, then this plan
+(``cuda:composed:divergent``), then the eager merge. Each plane's head is
+its group's for that plane with absolute block offsets; groups of one kind
+of source and one store row run that kind's mixed instances, any other
+batch of images the general ones (``csrc/composed_divergent.cu``, and
+``csrc/composed_nested_divergent.cu`` for nested heads). Where any group is
+nested every head is a nested one, each nested plane with its own
+``stage2``: a plane without a second resample beside one with it (a
+letterbox beside a top view) carries an identity resize as its second
+level, which copies its value (:func:`_lift`); with no second resample in
+the batch a one-level plane carries an empty ``FusedRead2`` instead. It
+stays eager (:func:`build_divergent_plan` names each): a group of a kind
+only the divergent kernel reads (a ring, a batched image stack,
+``resize_batch``) beside a composed group; an NV12 group beside an image
+group; NV12 groups whose chains end in different dtypes (the NV12
+instances store with one row); a resampling group beside a one-pixel
+group; groups of different output (C, H, W); groups converting YUV with
+different coefficients; and a group that :func:`build_plan` refuses (a
+third resampling node).
 
 What stays eager, and why (``_plane``
 names each):
@@ -171,8 +178,8 @@ from .cuda_divergent import _Block, _image_geometry, groups_of
 from .cuda_pointwise import BORDER_MODES, MAX_STAGES, STAGE_BORDER, STAGE_CROP, _stages, _unwrap
 from .cuda_warp import _MAX_SIDE, _SINGLE_LAYOUTS, _size
 
-__all__ = ["Unsupported", "build_plan", "build_divergent_plan", "supports", "prepare",
-           "composed_reference", "composed", "run", "work", "tap_need", "LAUNCHES"]
+__all__ = ["Unsupported", "build_plan", "build_divergent_plan", "divergent_instance", "supports",
+           "prepare", "composed_reference", "composed", "run", "work", "tap_need", "LAUNCHES"]
 
 #: launches of the CUDA kernel in this process
 LAUNCHES = 0
@@ -188,7 +195,8 @@ MIXED = 2
 #: the ``batch`` word of a divergent batch's plane heads
 #: (:func:`build_divergent_plan`): each plane's head, its group's for that
 #: plane with absolute block offsets (``plane_stride`` 0), lies in the
-#: consts, HEAD_INTS words a plane from 0, then each plane's store row
+#: consts, HEAD_INTS words a plane from 0 (NESTED_INTS where any group is
+#: nested), then each plane's store row
 DIVERGENT = 3
 _CORE_WORDS = ("core", "core_h", "core_w", "in_h", "in_w", "keep_edge", "persp", "coef_off",
                "border_off", "taps_off", "tap_type", "core_type", "tap_ch", "batch", "in_n_ops",
@@ -479,7 +487,8 @@ class ComposedPlan:
     tables: np.ndarray       # int32: the FusedRead's op table, the pipeline's, the tap tables
     n_block: int             # words of the block
     #: a nested plan's second level: "resize", "warp" or "none" (a FusedRead2
-    #: alone); "" for a plan of one level
+    #: alone); "" for a plan of one level; a divergent batch's whose heads are
+    #: nested, its first plane's second resample, else its lift's
     core2: str = ""
     mid_dtype: torch.dtype = torch.float32  # a second-level tap's dtype after FusedRead2's chain
     #: a mixed-geometry batch's plan of each plane (its head, the shared
@@ -856,11 +865,13 @@ def _group_pipeline(seq, planes):
 def _rebase(q: ComposedPlan, shift: int, shared: int, **words) -> Tuple[int, ...]:
     """Plane head ``q.head`` with its block offsets moved: the plane's own
     values (stage values, a warp's coefficients and border, the fused
-    chain's scalars) by ``shift`` words, the pipeline chain's scalars,
-    ``used_planes`` and the default by ``shared``; then ``words`` set."""
+    chains' scalars; a nested head's above and below stages, second warp
+    and FusedRead2's scalars too) by ``shift`` words, the pipeline chain's
+    scalars, ``used_planes`` and the default by ``shared``; then ``words``
+    set."""
     head = list(q.head)
-    for k in range(3):  # the lower, upper and outer stage lists
-        at = k * kp.HEAD_INTS
+    for k in range(5 if q.core2 else 3):  # the lower, upper, outer (above, below) lists
+        at = k * kp.HEAD_INTS if k < 3 else HEAD_INTS + (k - 3) * kp.HEAD_INTS
         for s in range(head[at + 9]):
             st = at + 12 + 8 * s
             for i in ((4, 5) if head[st] == STAGE_CROP else (6,)):
@@ -868,30 +879,83 @@ def _rebase(q: ComposedPlan, shift: int, shared: int, **words) -> Tuple[int, ...
     moved = dict(in_fp_off=q.word("in_fp_off") + shift, out_fp_off=q.word("out_fp_off") + shared)
     if q.core == "warp":
         moved.update(coef_off=q.word("coef_off") + shift, border_off=q.word("border_off") + shift)
+    if q.core2:
+        moved.update(mid_fp_off=q.word("mid_fp_off") + shift)
+    if q.core2 == "warp":
+        moved.update(coef2_off=q.word("coef2_off") + shift,
+                     border2_off=q.word("border2_off") + shift)
     if q.word("used_off") >= 0:
         moved.update(used_off=q.word("used_off") + shared,
                      default_off=q.word("default_off") + shared)
     return _with_words(tuple(head), **moved, **words)
 
 
-def build_divergent_plan(seqs, plane_ids) -> ComposedPlan:
+#: a second level that copies its value: a one-level plane's, or one of a
+#: FusedRead2 alone's, beside planes with a second resample (:func:`_lift`)
+LIFTS = ("resize", "none")
+
+
+def _identity_taps(h: int, w: int) -> np.ndarray:
+    """The tap tables (``_resample``'s x0 | x1 | y0 | y1 | wx | wy) of a
+    resize of an ``h`` x ``w`` image to its own size: each position's first
+    tap itself, its second the same, every weight 0, so that under the edge
+    rule that keeps the first tap alone the result is that tap's value,
+    unchanged (NaN and subnormals too) and the second never loaded."""
+    x, y = np.arange(w), np.arange(h)
+    return np.concatenate([x, x, y, y, np.zeros(w + h)]).astype(np.int32)
+
+
+def _lift(q: ComposedPlan, head: Tuple[int, ...], form: str, mid_ops_off: int,
+          taps2_off: int) -> Tuple[int, ...]:
+    """Plane head ``head`` (``q``'s, rebased) as a nested head of the launch
+    ``form`` whose plane has no second resample of its own: with ``form``
+    "resize" (a second resample elsewhere in the batch) an identity resize
+    (tables ``_identity_taps`` at ``taps2_off``, the edge rule kept,
+    ``stage2`` 0: the per-tap form, one core value a pixel) above a
+    one-level plane's core or a FusedRead2 alone; with "none" a one-level
+    plane's core under an empty FusedRead2 (its table at ``mid_ops_off``).
+    The copy reads its value's words as float32 (``mid_type``: an int32
+    chain's bits stay bits). ``q``'s own words, which the plain version
+    reads, are unchanged."""
+    if not q.core2:
+        ch, empty = q.word("tap_ch"), _stage_words([], [], 0, 1)[0]
+        head = head + _stage_list(0, empty) + _stage_list(0, empty) + tuple(dict(
+            core2=CORES.index("none"), core2_h=q.word("core_h"), core2_w=q.word("core_w"),
+            mid_h=q.word("core_h"), mid_w=q.word("core_w"), keep_edge2=0, persp2=0, coef2_off=0,
+            border2_off=0, taps2_off=0, mid_type=TYPE_CODES[torch.float32], mid_ch=ch,
+            mid_n_ops=0, mid_ops_off=mid_ops_off, mid_fp_off=0, stage2=0)[k] for k in _MID_WORDS)
+    if form == "none":
+        return head
+    return _with_words(head, core2=CORES.index("resize"), keep_edge2=1, taps2_off=taps2_off,
+                       mid_type=TYPE_CODES[torch.float32], stage2=0)
+
+
+def build_divergent_plan(seqs, plane_ids, lift: Optional[str] = None) -> ComposedPlan:
     """The kernel plan of a divergent batch (``launch_divergent_batch``:
     plane ``z`` runs sequence ``plane_ids[z]``) whose every group, sequence
     ``sid`` on its planes, is a ``BatchRead`` that :func:`build_plan` takes
-    as one level over those planes: a batch of one geometry or mixed,
-    ``crop_batch``, warps of crops, letterboxes, ROI resizes. Groups may
-    differ in anything but the output (C, H, W): op types, stage kinds,
-    border modes, warp type, both chains and their dtypes, the base's dtype
-    and channels. Raises :class:`Unsupported`, naming why.
+    over those planes, one level or nested: a batch of one geometry or
+    mixed, ``crop_batch``, warps of crops, letterboxes, ROI resizes, top
+    views resized, rotated downscales. Groups may differ in anything but
+    the output (C, H, W): op types, stage kinds, border modes, warp type,
+    the levels, the chains and their dtypes, the base's dtype and channels.
+    Raises :class:`Unsupported`, naming why.
 
     The consts hold each plane's head (its group's plan for that plane,
     ``batch`` ``DIVERGENT``, every block offset absolute and
-    ``plane_stride`` 0), then each plane's store row, then each group's two
-    op tables, then each plane's tap tables. The block holds the planes'
-    source addresses, then each group's values in its own plan's layout,
-    group by group. The batch takes plane 0's group's dtype and the first
-    sequence's write layout; a ragged group holds its default past its
-    ``used_planes`` (counted over the batch's planes)."""
+    ``plane_stride`` 0; ``NESTED_INTS`` words a plane where any group is
+    nested, each nested plane with its own ``stage2``, the others lifted to
+    a second level that copies their value, :func:`_lift`), then each
+    plane's store row, then each group's two op tables (and its FusedRead2
+    table, empty for a one-level group), then each plane's tap tables (its
+    core's, then its second level's). The block holds the planes' source
+    addresses, then each group's values in its own plan's layout, group by
+    group. The batch takes plane 0's group's dtype and the first sequence's
+    write layout; a ragged group holds its default past its
+    ``used_planes`` (counted over the batch's planes). ``lift`` ("resize"
+    or "none", ``LIFTS``) makes every head a nested one with that second
+    level where the batch has no second resample (a one-level batch run
+    through the nested instances, to price what a plane pays there)."""
     n = len(plane_ids)
     if not 1 <= n <= _MAX_PLANES:
         raise Unsupported(f"{n} planes")
@@ -913,9 +977,6 @@ def build_divergent_plan(seqs, plane_ids) -> ComposedPlan:
             gplan = build_plan(pipe)
         except Unsupported as e:
             raise Unsupported(f"sequence {sid}: {e}") from e
-        if gplan.core2:
-            raise Unsupported(f"sequence {sid} has a second level above its core (a nested "
-                              "read tree): a group reads one level")
         # each plane's own plan, its words from the group's block word
         # 2 * len(planes) on (a mixed group's plan has its heads in its tables)
         t = _tree(pipe)
@@ -943,41 +1004,102 @@ def build_divergent_plan(seqs, plane_ids) -> ComposedPlan:
     if len(converting) > 1:
         raise Unsupported("groups convert YUV -> RGB with different coefficients or ranges: the "
                           "launch takes one conversion")
+    if lift is not None and lift not in LIFTS:
+        raise ValueError(f"lift {lift!r}: one of {LIFTS}")
+    # the launch's second level: a second resample where any plane has one
+    # (the others copy their value through an identity resize), else a
+    # FusedRead2 alone; none where no group is nested and nothing is lifted
+    seconds = [q.core2 for _, _, _, own in groups for q in own]
+    if any(c in ("resize", "warp") for c in seconds) or lift == "resize":
+        form = "resize"
+    elif any(seconds) or lift == "none":
+        form = "none"
+    else:
+        form = ""
+    if form and first.core == "none":
+        raise Unsupported("one-pixel groups lifted: the nested instances sample a resampling "
+                          "core")
+    width = NESTED_INTS if form else HEAD_INTS
 
     heads: List = [None] * n
     plans: List = [None] * n
-    at = n * HEAD_INTS + n  # the heads, then the store rows
+    at = n * width + n  # the heads, then the store rows
     tables = [np.zeros(at, np.int32)]
     ops_at = []
-    for _, _, gplan, _ in groups:  # each group's two op tables
+    for _, _, gplan, _ in groups:  # each group's op tables (and FusedRead2's)
         ops_at.append(at)
-        ops = gplan.tables[:gplan.word("taps_off")]
-        tables.append(ops)
-        at += ops.size
+        ops = [gplan.tables[:gplan.word("taps_off")]]
+        if gplan.core2:
+            ops.append(gplan.tables[gplan.word("mid_ops_off"):gplan.word("taps2_off")])
+        elif form:
+            ops.append(_table(np.zeros((0, 4), np.int32), gplan.word("tap_ch")))
+        tables += ops
+        at += sum(o.size for o in ops)
     pos = 2 * n  # the block: the planes' source addresses, then each group's values
     out = []
     for (sid, planes, gplan, own), ops_off in zip(groups, ops_at):
         out.append(DivergentGroup(sid=sid, planes=planes, plan=gplan,
                                   store=store_cast(gplan.out_dtype, first.out_dtype)))
         shared = pos - 2 * len(planes)  # from the group's own block to the batch's
+        mid_ops_off = ops_off + gplan.word("taps_off")
         for j, (z, q) in enumerate(zip(planes, own)):
-            taps = q.tables[q.word("taps_off"):]
-            heads[z] = _rebase(q, shared + j * q.word("plane_stride"), shared, batch=DIVERGENT,
-                               plane_stride=0, in_ops_off=ops_off,
-                               out_ops_off=ops_off + q.word("out_ops_off"), taps_off=at)
+            words = dict(batch=DIVERGENT, plane_stride=0, in_ops_off=ops_off,
+                         out_ops_off=ops_off + q.word("out_ops_off"), taps_off=at)
+            if q.core2:
+                taps = q.tables[q.word("taps_off"):q.word("mid_ops_off")]
+                taps2 = q.tables[q.word("taps2_off"):]
+                words.update(mid_ops_off=mid_ops_off, taps2_off=at + taps.size)
+            else:
+                taps, taps2 = q.tables[q.word("taps_off"):], np.zeros(0, np.int32)
+            head = _rebase(q, shared + j * q.word("plane_stride"), shared, **words)
+            # a plane without the launch's second level carries one that copies
+            if form and not q.core2 or form == "resize" and q.core2 == "none":
+                if form == "resize":  # the identity over the core's output or FusedRead2's
+                    size = (("mid_h", "mid_w") if q.core2 else ("core_h", "core_w"))
+                    taps2 = _identity_taps(*map(q.word, size))
+                head = _lift(q, head, form, mid_ops_off, at + taps.size)
+            heads[z] = head
             plans[z] = q
-            tables.append(taps)
-            at += taps.size
+            tables += [taps, taps2]
+            at += taps.size + taps2.size
         pos += gplan.n_block - 4 - 2 * len(planes)
     consts = np.concatenate(tables).astype(np.int32)
     planes_ = tuple(dataclasses.replace(q, head=hd, tables=consts, device_consts={})
                     for q, hd in zip(plans, heads))
     conv = next(iter(converting))[0] if converting else first.conv
+    core2 = next((c for c in seconds if c in ("resize", "warp")), form)
     plan = dataclasses.replace(planes_[0], n_planes=n, layout=layout, conv=conv, n_block=pos + 4,
-                               planes=planes_, groups=tuple(out), device_consts={})
-    consts[:n * HEAD_INTS + n] = np.concatenate([np.asarray(heads, np.int32).reshape(-1),
-                                                 plan.stores])
+                               core2=core2, planes=planes_, groups=tuple(out), device_consts={})
+    consts[:n * width + n] = np.concatenate([np.asarray(heads, np.int32).reshape(-1),
+                                             plan.stores])
     return plan
+
+
+def divergent_instance(plan: ComposedPlan) -> str:
+    """The kernel instance a divergent plan launches, as the C entries
+    (``csrc/composed.cu``, ``composed_nested.cu``) choose it and as a
+    profiler names it without namespaces: planes of one kind of source
+    (uint8, float32 and int32, NV12, the six others) with one store row run
+    that kind's mixed instances, any other batch the general ones
+    (``AnyImage``); of one level ``composed_kernel_mixed<Src, taps, 1>``;
+    nested ``composed_kernel_nested_mixed<Src, false>`` for a FusedRead2
+    alone, ``composed_kernel_nested_mixed_staged<Src>`` where a plane
+    stages, else ``composed_kernel_nested_mixed<Src, true>``."""
+    def kind(q):
+        if q.base == "yuv":
+            return "Nv12"
+        name = str(q.src_dtype)[6:]
+        return {"uint8": "unsigned char", "float32": "float", "int32": "float"}.get(name, "AnyType")
+
+    kinds = {kind(plan.for_plane(z)) for z in range(plan.n_planes)}
+    src = kinds.pop() if len(kinds) == 1 and len(set(plan.stores)) == 1 else "AnyImage"
+    if not plan.core2:
+        return f"composed_kernel_mixed<{src}, {1 if plan.core == 'none' else 4}, 1>"
+    if plan.core2 == "none":
+        return f"composed_kernel_nested_mixed<{src}, false>"
+    if any(plan.for_plane(z).word("stage2") for z in range(plan.n_planes)):
+        return f"composed_kernel_nested_mixed_staged<{src}>"
+    return f"composed_kernel_nested_mixed<{src}, true>"
 
 
 def tap_share(taps: np.ndarray, out_h: int, out_w: int, keep: bool) -> float:
@@ -1129,7 +1251,9 @@ def _group_trees(seqs, plan: ComposedPlan) -> List[_Tree]:
 def _prepare_divergent(seqs, plan: ComposedPlan, device: torch.device) -> Launch:
     """A divergent batch's arguments (:func:`build_divergent_plan`): each
     plane's base array and address, then each group's values in its own
-    plan's layout, in one block."""
+    plan's layout (a nested group's second level's among them), in one
+    block; a plane carried through an identity resize or an empty
+    FusedRead2 adds none."""
     srcs: List[torch.Tensor] = []
     index: Dict[int, int] = {}
     plane_src = [0] * plan.n_planes
@@ -1401,6 +1525,14 @@ def _frame_shape(a: Launch, k: int) -> Tuple[int, int]:
     return (h if plan.base == "image" else h * 3 // 2), w
 
 
+def _held(a: Launch, z: int) -> bool:
+    """Whether plane ``z`` lies past its ``used_planes`` (a divergent
+    batch's: its group's, counted over the batch's planes) and reads
+    nothing."""
+    off = a.plan.for_plane(z).word("used_off")
+    return off >= 0 and z >= int(a.block[off])
+
+
 def _used(a: Launch) -> int:
     """The planes a launch reads: ``used_planes`` clamped to [0, N] (read
     back from the block), else N."""
@@ -1457,16 +1589,19 @@ def _canonical_sources(a: Launch):
     return [dt.canonicalize(s).reshape(*_frame_shape(a, k), -1) for k, s in enumerate(a.srcs)]
 
 
-def _divergent_reference(a: Launch, touched=None):
+def _divergent_reference(a: Launch, touched=None, counts=None):
     """The plain version of a divergent batch: each group's planes, each
-    from its own head, as :func:`_reference` computes a plane; a ragged
-    group's planes from its ``used_planes`` on (counted over the batch's
-    planes) hold its default cast to the read value's dtype; the group's
-    chain; its values cast into the batch's dtype (``utils.dtypes.astype``,
-    what its store row computes) and scattered to its planes; the first
-    sequence's write. With ``touched`` (a dict) only the read of the planes
-    below their group's ``used_planes``, each plane's base positions
-    collected under its index."""
+    from its own head, as :func:`_reference` computes a plane (a nested
+    plane's second level over its core's output, as its group's own
+    launch); a ragged group's planes from its ``used_planes`` on (counted
+    over the batch's planes) hold its default cast to the read value's
+    dtype; the group's chain; its values cast into the batch's dtype
+    (``utils.dtypes.astype``, what its store row computes) and scattered to
+    its planes; the first sequence's write. With ``touched`` (a dict) only
+    the read of the planes below their group's ``used_planes``, each
+    plane's base positions collected under its index, and a nested plane's
+    count of the core's positions its second level needs under its index
+    in ``counts`` (a dict)."""
     plan = a.plan
     dev = a.srcs[0].device
     srcs = _canonical_sources(a)
@@ -1479,20 +1614,23 @@ def _divergent_reference(a: Launch, touched=None):
         values = []
         for z, p in zip(g.planes, t.planes):
             q = plan.for_plane(z)
+            found = None
             if touched is not None:
-                if q.word("used_off") >= 0 and z >= int(blk[q.word("used_off")]):
+                if _held(a, z):
                     continue
-                touched[z] = []
+                touched[z], found = [], []
             yc, xc, fill = _walk(q.stage_list(2), blk, y, x, torch.full_like(y, -1))
             v = _plane_value(a, srcs, z, p, yc, xc, fill < 0,
-                             None if touched is None else touched[z])
+                             None if touched is None else touched[z], found)
+            if counts is not None:
+                counts[z] = sum(found)
             values.append(_filled(v, fill, fblk, q.value_dtype))
         if touched is not None:
             continue
         v = torch.stack(values)
         if q.word("used_off") >= 0:
             off = q.word("default_off")
-            default = dt.cast(fblk[off:off + q.word("tap_ch")], q.value_dtype)
+            default = dt.cast(fblk[off:off + q.level(1 if q.core2 else 0).ch], q.value_dtype)
             zs = torch.tensor(g.planes, device=dev).reshape(-1, 1, 1, 1)
             v = _where(zs < blk[q.word("used_off")], v, default)
         for o in map_leaves(tuple(t.chain), lambda v: as_device_tensor(v, dev)):
@@ -1757,21 +1895,29 @@ def _divergent_work(a: Launch) -> Tuple[int, int, int]:
     resize or one-pixel core's from its tables, :func:`_axis_reads`; a
     warp's from the plain version's own positions), a sector that several
     planes read once; each plane's operations as its group's plan counts
-    them."""
+    them: a nested plane's core once per value its second level needs
+    (:func:`_core_evals`' count, per plane), whatever second level the
+    launch carries a plane without one through."""
     plan = a.plan
     out_bytes, values = bounds.output(plan)
     per_plane = values // plan.n_planes
     touched: dict = {}
-    _divergent_reference(a, touched)
+    counts: dict = {}
+    _divergent_reference(a, touched, counts)
     found, ops = [], 0
     for z in range(plan.n_planes):
         q = plan.for_plane(z)
         out_n = q.word("out_n_ops")
         if z not in touched:  # past its group's used_planes
             ops += per_plane * out_n
-            continue
-        ops += per_plane * max(_core_ops(q) + out_n, 1)
-        found += _touched_sectors(a, touched[z]) if q.core == "warp" else _grid_sectors(a, z)
+        elif q.core2:
+            ops += (counts[z] * q.word("tap_ch") * (_core_ops(q) + q.word("mid_n_ops"))
+                    + per_plane * (_LERPS[q.core2] + out_n))
+        else:
+            ops += per_plane * max(_core_ops(q) + out_n, 1)
+        if z in touched:
+            found += (_touched_sectors(a, touched[z]) if "warp" in (q.core, q.core2)
+                      else _grid_sectors(a, z))
     src = int(np.unique(np.concatenate([np.asarray(f) for f in found])).size) * 32 if found else 0
     return out_bytes, src, ops
 
@@ -1875,23 +2021,29 @@ def nested_tiles(a: Launch) -> np.ndarray:
     inside the output (:func:`resize_axis_taps`), spanning at most SPAN2;
     under a warp the box of the taps its pixels take (:func:`second_taps`);
     else it evaluates the core at each tap ("per_tap", its lists 0); a
-    plane past ``used_planes`` is "held"."""
+    plane past ``used_planes`` is "held". A divergent batch's planes each
+    as their group's; a plane with no second resample of its own (carried
+    through an identity resize) "per_tap"."""
     plan = a.plan
     if plan.core2 not in ("resize", "warp"):
         raise ValueError("no second resample: the kernel's blocks take one form")
     w, h = plan.dsize
     tw, th = TILE2
     shape = (-(-h // th), -(-w // tw))
-    used, ch = _used(a), plan.word("mid_ch")
     planes = []
     for z in range(plan.n_planes):
-        stage = plan.for_plane(z).word("stage2")
+        q = plan.for_plane(z)
+        stage, ch = q.word("stage2"), q.word("mid_ch")
         out = torch.zeros((*shape, 3), dtype=torch.int64)
-        if z >= used:
+        if _held(a, z):
             out[..., 0] = TILE_FORMS.index("held")
             planes.append(out)
             continue
-        if plan.core2 == "resize":
+        if q.core2 not in ("resize", "warp"):
+            out[..., 0] = TILE_FORMS.index("per_tap")
+            planes.append(out)
+            continue
+        if q.core2 == "resize":
             lists = []
             for axis, tile in ((0, (1, th)), (1, (tw, 1))):
                 first, second, keep = (torch.from_numpy(np.asarray(v)).reshape(

@@ -101,7 +101,8 @@ def test_each_family_has_its_nested_mixed_instances(family):
     nested instances (``composed_kernel_nested_mixed``, the staged one
     where any plane stages), which ``launch_nested`` launches for a
     ``CM_MIXED`` head, from the file of the kind's other nested instances,
-    and the C entry accepts and checks a ``CM_MIXED`` head plane by plane."""
+    and the C entry accepts and checks a ``CM_MIXED`` head plane by plane
+    (and a divergent batch's ``CM_DIVERGENT`` one)."""
     from cvgpuspeedup_tpu_torch.exec import _build
 
     csrc = _build.PACKAGE_DIR / "csrc"
@@ -118,7 +119,7 @@ def test_each_family_has_its_nested_mixed_instances(family):
         assert instance in launch
     assert "n.h.batch == CM_MIXED" in launch
     entry = (csrc / "composed_nested.cu").read_text().split("cvgs_composed_nested(")[1]
-    assert "h.batch > CM_MIXED" in entry and "same_nested(n, p)" in entry
+    assert "h.batch > CM_DIVERGENT" in entry and "same_nested(n, p)" in entry
     for name in cc.NESTED_MIXED_NAMES:
         plan = _plan(name, family, 14)[1]
         assert plan.core2 and plan.base == ("yuv" if family == "nv12" else "image")

@@ -24,13 +24,14 @@ what stays eager and why.
   ``plane_stride`` 0, its block offsets absolute (the block's words there
   are the plane's own values), each plane's store row after the heads;
   new values build no plan; ``work`` sums the groups'.
-- Refusals: a nested group, a group of a kind only the divergent kernel
-  reads, an NV12 group beside an image group, NV12 groups whose chains end
-  in different dtypes, a resampling group beside a
-  one-pixel group, groups of different output, groups converting YUV with
-  different coefficients, a group the composed kernel refuses: each an
-  ``Unsupported`` naming why; they stay eager, and ``ParBackend.CUDA``
-  raises naming both kernels' reasons.
+- Refusals: a group of a kind only the divergent kernel reads (beside a
+  one-level group, and beside a nested one, which
+  ``test_torch_divergent_nested.py`` takes otherwise), an NV12 group
+  beside an image group, NV12 groups whose chains end in different dtypes,
+  a resampling group beside a one-pixel group, groups of different output,
+  groups converting YUV with different coefficients, a group the composed
+  kernel refuses: each an ``Unsupported`` naming why; they stay eager, and
+  ``ParBackend.CUDA`` raises naming both kernels' reasons.
 """
 
 import jax.numpy as jnp
@@ -382,9 +383,11 @@ def _refusals():
         return T.fuse(T.read_yuv(b), conv or T.convert_yuv_to_rgb(out_dtype=np.uint8))
 
     return {
-        "nested_group": ([1, 2, 1, 2], (resized, seq(T.batch_read(
-            [T.resize(T.warp(T.image(c), cc.rotation((12, 10), 5.0), T.Size(20, 16)), dst)
-             for c in cams]), T.split_tensor())), "second level"),
+        "nested_group_beside_a_ring": ([1, 2, 1, 2], (seq(T.batch_read(
+            [T.resize(T.warp(T.image(c), cc.rotation((12, 10), 5.0), T.Size(20, 16)),
+                      T.Size(24, 20)) for c in cams]), T.split_tensor()),
+            seq(T.circular_batch_read(stack.astype(np.float32), first=1), T.split_tensor())),
+            "divergent kernel's alone"),
         "ring_beside_a_composed_group": ([1, 2, 1, 2], (seq(T.batch_read(
             [T.resize(T.image(c), T.Size(24, 20)) for c in cams]), T.split_tensor()),
             seq(T.circular_batch_read(stack.astype(np.float32), first=1), T.split_tensor())),

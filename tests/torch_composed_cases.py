@@ -733,3 +733,103 @@ def divergent_cases(M, f: dict, values: int = 0) -> dict:
              M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()))),
     }
 
+
+
+DIVERGENT_NESTED_NAMES = ("dvn1_top_views_beside_letterboxes",
+                          "dvn2_top_views_beside_rotated_downscales",
+                          "dvn3_normalized_letterboxes_beside_a_12bit_sensor",
+                          "dvn4_nv12_top_views_beside_nv12_letterboxes")
+#: DVN2's top views' ``used_planes`` (one fewer with ``values`` 1), counted
+#: over the batch's eight planes
+DVN2_USED = 6
+
+
+def divergent_nested_frames(seed: int = 0, sensor_dtype: str = "uint16") -> dict:
+    """The nested divergent cases' inputs from a numpy seed: eight 16:9
+    uint8 cameras (``wide``, 36x64), a 3-channel sensor frame (``sensor``,
+    48x64, 12-bit values, of ``sensor_dtype``) and eight NV12 buffers of
+    36x64 images (``nv12``, 54x64)."""
+    rng = np.random.default_rng(seed)
+    wide = [rng.integers(0, 256, (36, 64, 3), dtype=np.uint8) for _ in range(8)]
+    sensor = rng.integers(0, 4096, (48, 64, 3))
+    if sensor_dtype in ("int8", "uint8"):
+        sensor = sensor >> 5 if sensor_dtype == "int8" else sensor >> 4
+    nv12 = [rng.integers(0, 256, (54, 64), dtype=np.uint8) for _ in range(8)]
+    return {"wide": wide, "sensor": sensor.astype(sensor_dtype), "nv12": nv12}
+
+
+def divergent_nested_cases(M, f: dict, values: int = 0) -> dict:
+    """``name -> (plane ids, (op list of each sequence))`` of DVN1-DVN4, the
+    divergent batches with a nested group, over
+    :func:`divergent_nested_frames` with ``M``'s factories (either package);
+    ``side`` is a quarter of a camera's width (16), every plane reads its
+    own camera or buffer, every region lies inside its frame:
+
+    - DVN1 eight planes, ids ``[1, 1, 2, 2] * 2``: letterboxes of the
+      cameras into ``side`` squares (DV1's: a resize to the side's width,
+      CONSTANT 114 above and below) beside top views of the others (a
+      perspective warp into the camera's size, CONSTANT 0, then a resize to
+      the square), normalized, planar: nested beside one-level;
+    - DVN2 eight planes, ids ``[1, 2] * 4``: N6's top views resized to a
+      third of the camera (per tap), ``used_planes`` ``DVN2_USED``, default
+      0, beside each camera resized to half, then rotated 5-15 degrees
+      about its centre at scale 2/3 into that third (staged), normalized,
+      planar;
+    - DVN3 eight planes, ids ``[1, 2] * 4``: N5's letterboxes (a resize
+      fused with x1/255, then CONSTANT 0.447 above and below, no chain: a
+      FusedRead2 alone) beside regions of their own sizes of the sensor
+      frame resized to half, each resized to the square, x1/4095: two
+      source dtypes, the general instances;
+    - DVN4 eight planes, ids ``[1, 2] * 4``: DVN1's trees over the NV12
+      buffers converted into uint8 RGB per tap (``fuse(read_yuv,
+      convert_yuv_to_rgb)``), one conversion.
+
+    ``values`` 1 moves every runtime value (the maps, angles, origins, the
+    border values, ``used_planes``) and keeps every size: no plan."""
+    wide, sensor, nv12 = f["wide"], f["sensor"], f["nv12"]
+    h, w = wide[0].shape[:2]
+    side = w // 4
+    square, third, half = M.Size(side, side), M.Size(w // 3, h // 3), M.Size(w // 2, h // 2)
+    persp = dict(warp_type=M.WarpType.PERSPECTIVE, default=0.0)
+    (iw, ih), (t, b, l, r) = letterbox(w, h, side)
+
+    def rgb(buf):
+        return M.fuse(M.read_yuv(buf), M.convert_yuv_to_rgb(out_dtype=np.uint8))
+
+    def boxes(reads):
+        return M.batch_read([M.make_border(M.resize(src, M.Size(iw, ih)), t, b, l, r,
+                                           M.BorderMode.CONSTANT, 114 - 14 * values)
+                             for src in reads])
+
+    def top_views(reads, dst, **ragged):
+        return M.batch_read([M.resize(M.warp(src, top_view(w, h, k + values), M.Size(w, h),
+                                             **persp), dst) for k, src in enumerate(reads)],
+                            **ragged)
+
+    rotated = [M.warp(M.resize(M.image(c), half),
+                      rotation_to((half.width / 2, half.height / 2), 5.0 + 10.0 * k / 7 + 2 * values,
+                                  2 / 3, (third.width / 2, third.height / 2)), third)
+               for k, c in enumerate(wide)]
+    fused = [M.make_border(M.fuse(M.resize(M.image(c), M.Size(iw, ih)),
+                                  M.convert_to(np.float32, alpha=1 / 255.0)),
+                           t, b, l, r, M.BorderMode.CONSTANT, 0.447 - 0.1 * values) for c in wide]
+    sh, sw = sensor.shape[:2]
+    sensor_half = M.Size(sw // 2, sh // 2)
+    rois = [M.resize(M.crop(M.resize(M.image(sensor), sensor_half), M.Rect(x, y, rw, rh)), square)
+            for x, y, rw, rh in _rois(sh // 2, sw // 2, values, n=8, lo=0.3, hi=0.9)]
+    images, buffers = [M.image(c) for c in wide], [rgb(buf) for buf in nv12]
+    return {
+        "dvn1_top_views_beside_letterboxes": ([1, 1, 2, 2] * 2, (
+            (boxes(images), *normalize(M), M.split_tensor()),
+            (top_views(images, square), *normalize(M), M.split_tensor()))),
+        "dvn2_top_views_beside_rotated_downscales": ([1, 2] * 4, (
+            (top_views(images, third, used_planes=DVN2_USED - values, default=0.0),
+             *normalize(M), M.split_tensor()),
+            (M.batch_read(rotated), *normalize(M), M.split_tensor()))),
+        "dvn3_normalized_letterboxes_beside_a_12bit_sensor": ([1, 2] * 4, (
+            (M.batch_read(fused), M.split_tensor()),
+            (M.batch_read(rois), M.convert_to(np.float32, alpha=1 / 4095.0), M.split_tensor()))),
+        "dvn4_nv12_top_views_beside_nv12_letterboxes": ([1, 2] * 4, (
+            (boxes(buffers), *normalize(M), M.split_tensor()),
+            (top_views(buffers, square), *normalize(M), M.split_tensor()))),
+    }

@@ -3,6 +3,7 @@
 
     python3 tools/kernel_sass.py [pattern [out.txt]]
     python3 tools/kernel_sass.py --ftz
+    python3 tools/kernel_sass.py --compare csrc_dir [csrc_dir]
 
 Builds ``cvgpuspeedup_tpu_torch/csrc`` (``exec/_build.py``: nothing is built
 twice), dumps with ``cuobjdump -sass`` every kernel whose mangled name holds
@@ -16,8 +17,13 @@ written there. With ``--ftz`` it prints for each of the six kernels, over
 all its instances, the float32 add, multiply, compare and min/max
 instructions without ``.FTZ`` (among them ``KEEP_TERMS``, a warp map's
 terms) and the float64 to float32 conversions with and without it
-(:func:`ftz_census`). Needs ``nvcc``'s toolkit
-(``cuobjdump`` beside it); no card.
+(:func:`ftz_census`). With ``--compare`` it builds two trees of sources
+(the second the package's own unless given; the first such as the parent
+commit's unpacked with ``git archive``) and holds every kernel instance the
+two share against each other, instruction by instruction
+(:func:`sass_by_function`): it prints how many are identical, names those
+that differ and those of one tree alone, and exits 1 where any differs.
+Needs ``nvcc``'s toolkit (``cuobjdump`` beside it); no card.
 """
 
 from __future__ import annotations
@@ -126,6 +132,30 @@ def ftz_census(lib: Path) -> dict:
     return census
 
 
+#: the per-file tag of an anonymous namespace in a mangled name (its
+#: hashes differ between two builds of the same file)
+_ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_(\w+?_cu)_[0-9a-f]{8}")
+
+
+def sass_by_function(lib: Path) -> dict:
+    """Each kernel instance of the library ``lib`` (one ``cuobjdump -sass``):
+    its mangled name with the anonymous namespace's tag made the file's name,
+    mapped to its instructions' text, addresses left out."""
+    from cvgpuspeedup_tpu_torch.exec import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    heads = list(_FUNCTION.finditer(sass))
+    out = {}
+    for i, h in enumerate(heads):
+        body = sass[h.end():heads[i + 1].start() if i + 1 < len(heads) else len(sass)]
+        out[_ANON.sub(r"\1", h.group(1))] = tuple(
+            _ANON.sub(r"\1", m.group(2).strip())
+            for m in map(_INSTRUCTION.match, body.splitlines()) if m)
+    return out
+
+
 def rule_holds(kernel: str, c: dict) -> bool:
     """Whether the counts ``c`` of ``kernel`` (:func:`ftz_stats` with
     ``instances``) keep the float32 rule: no op of :data:`FTZ_OPCODES`
@@ -137,6 +167,27 @@ def rule_holds(kernel: str, c: dict) -> bool:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--compare"]:
+        sys.path.insert(0, str(ROOT))
+        import tempfile
+
+        from cvgpuspeedup_tpu_torch.exec import _build
+
+        trees = [Path(d) for d in sys.argv[2:4]]
+        trees += [ROOT / "cvgpuspeedup_tpu_torch" / "csrc"] * (2 - len(trees))
+        with tempfile.TemporaryDirectory(prefix="kernel_sass_") as tmp:
+            a, b = (sass_by_function(_build.build(d, Path(tmp) / str(k)))
+                    for k, d in enumerate(trees))
+        shared = sorted(set(a) & set(b))
+        differ = [n for n in shared if a[n] != b[n]]
+        print(f"{len(shared) - len(differ)} of {len(shared)} shared kernel instances identical "
+              f"in their SASS ({trees[0]} against {trees[1]})")
+        for n in differ:
+            print(f"differs: {n} ({len(a[n])} against {len(b[n])} instructions)")
+        for n in sorted(set(a) ^ set(b)):
+            print(f"only in {trees[0] if n in a else trees[1]}: {n} "
+                  f"({len(a.get(n, b.get(n)))} instructions)")
+        return 1 if differ else 0
     if sys.argv[1:2] == ["--ftz"]:
         sys.path.insert(0, str(ROOT))
         from cvgpuspeedup_tpu_torch.exec import _build

@@ -86,7 +86,14 @@ kernel duration of 20 launches), in microseconds:
 - its composed kernel's batches of nested planes of their own geometry
   NM1-NM4 (``nm1`` .. ``nm4``: ``chip_smoke.py``'s ``nested_mixed_cases``),
   left out for a variant without the mixed nested instances (no
-  ``composed_kernel_nested_mixed`` in its ``composed_nested.cuh``).
+  ``composed_kernel_nested_mixed`` in its ``composed_nested.cuh``);
+- its composed kernel's divergent batches DV1-DV4 (``dv1`` .. ``dv4``:
+  ``divergent_composed_cases``), left out for a variant without them (no
+  ``CM_DIVERGENT`` in its ``composed.cuh``), and those with a nested group
+  DVN1-DVN4 (``dvn1`` .. ``dvn4``: ``divergent_nested_cases``), left out
+  for a variant without the general nested instances (no
+  ``composed_nested_divergent.cu``): each one launch through its divergent
+  plan, which the tree's own host code builds.
 
 ``cases``, a comma-separated list, times only those; where it is not given,
 a file's ``"cases"`` entry (a string, not a variant) names them. The cases are
@@ -290,6 +297,17 @@ def main() -> int:
     for k, ops in enumerate(cs.nested_mixed_cases(cvgs, m_cams, frame).values(), 1):
         cases[f"nm{k}"] = (kc, kc.composed, ops)
     nested_mixed_names = {f"nm{k}" for k in range(1, 5)}
+    # the divergent batches DV1-DV4 (dv1 .. dv4) and those with a nested
+    # group DVN1-DVN4 (dvn1 .. dvn4), through their divergent plans
+    cams43 = [torch.from_numpy(rng.integers(0, 256, (*cs.DV_CAMERA, 3), dtype=np.uint8))
+              .to(dev) for _ in range(cs.CAMERAS)]
+    sensor = torch.from_numpy(rng.integers(0, 4096, (*cs.DV_SENSOR, 3)).astype(np.uint16)).to(dev)
+    nv12_cams = [torch.from_numpy(rng.integers(0, 256, (cs.FRAME_H * 3 // 2, cs.FRAME_W),
+                                               dtype=np.uint8)).to(dev) for _ in range(cs.CAMERAS)]
+    divergent = {f"dv{k}": v for k, v in enumerate(
+        cs.divergent_composed_cases(cvgs, cams, cams43, frame, sensor).values(), 1)}
+    divergent.update({f"dvn{k}": v for k, v in enumerate(
+        cs.divergent_nested_cases(cvgs, cams, nv12_cams, sensor).values(), 1)})
     composed_names = {name for name in cases if name.startswith(("c", "b"))}
     x64_cases = {name for name in (*cases, *batches) if name.endswith(("_i64", "_f64"))}
     launches = {}
@@ -302,6 +320,11 @@ def main() -> int:
         seqs = map_leaves(seqs, lambda v: kernel_source(v, dev))
         args = kd.prepare(seqs, kd.build_plan(seqs, ids), dev)
         launches[name] = (lambda args=args: kd.divergent(args))
+    for name, (ids, ops) in divergent.items():
+        seqs = map_leaves(tuple(cvgs.build_operation_sequence(*o) for o in ops),
+                          lambda v: kernel_source(v, dev))
+        args = kc.prepare(seqs, kc.build_divergent_plan(seqs, ids), dev)
+        launches[name] = (lambda args=args: kc.composed(args))
     if only is not None:
         if only - set(launches):
             print(f"no case named {sorted(only - set(launches))}", file=sys.stderr)
@@ -323,6 +346,10 @@ def main() -> int:
             return False
         if cname in nested_mixed_names and "composed_kernel_nested_mixed" not in (
                 d / "composed_nested.cuh").read_text():
+            return False
+        if cname.startswith("dvn") and not (d / "composed_nested_divergent.cu").exists():
+            return False
+        if cname.startswith("dv") and "CM_DIVERGENT" not in (d / "composed.cuh").read_text():
             return False
         return cname not in pointwise_cases or hasattr(_build.load(), "cvgs_pointwise")
 
