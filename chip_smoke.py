@@ -69,9 +69,9 @@ code and no result line:
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
 2. build: compile every kernel source, in parallel, into one library (timed;
    the composed kernel's nested instances' registers and spills logged on
-   their own, the staged mixed nested instance held at 64 registers, 4
-   blocks an SM, the three general nested instances of a divergent batch
-   named), then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
+   their own, and those of K6's instances and of its general instance, the
+   staged mixed nested instance held at 64 registers, 4 blocks an SM, the
+   three general nested instances of a divergent batch named), then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
    -sass``): in every instance of the six kernels no float32 add, multiply,
    compare or min/max without ``.FTZ`` (``-ftz=true``: the reference's
    float32 rule, ``utils/dtypes.py::flush_subnormal``) but for a warp map's
@@ -134,6 +134,13 @@ code and no result line:
    crop, a CONSTANT border, a one-channel image, an op; float64 values past
    float32's range and below its normals copied) and float64 groups of K6
    (D1, D4, a stack resize).
+   Every source dtype of K6 (``k6_source_cases``, its general instance
+   ``divergent_any.cu``), bit for bit as the outputs' bits: D1, D3 and D4
+   with their ring, frame, images and flat planes in int8, uint16, int16,
+   float16, int32 (values within 64 of its bounds and past 2^24) and int64
+   (tensors read at load), a uint16 ring beside uint8 crops into uint8, a
+   float16 stack beside float32 warps into float16, and groups of five
+   source dtypes in a batch of 16 x 128 x 256 planes (4 pixels a thread).
    Subnormal float32 values (``subnormal_cases``): sources with a sixteenth
    of their values from ``EDGES32`` (subnormals, and values whose products
    underflow) through K1's flagship, K2's frame (a), W6, D1, P1 at 512x512
@@ -182,6 +189,12 @@ code and no result line:
    flagship call through ``cv2_compat``; D14 twice; ring updates in every
    layout and order, a float32 chain behind a resize head into uint8 and
    int16 rings and behind a warp head into a uint8 ring in one launch each;
+   D1S (D1's pair of sequences over a ring of 8 planes of 1920x1080x3
+   uint16, a 16-bit camera's last frames: 99.5 MB read, 199 MB of float32
+   written) twice under AUTO and twice under ``ParBackend.CUDA``, one launch
+   of ``cuda:divergent`` each and no plan for a new ``first``, and D1, D3
+   and D4 of each source dtype of K6's general instance twice each (a new
+   ``first``, shifted rects, new matrices), each the eager merge bit for bit;
    every dtype on the main paths, twice each with new values, one launch
    and no plan on the second, equal to the eager version bit for bit: the
    flagship on a 12-bit uint16 frame into float16 planes, frame (a) into
@@ -233,7 +246,9 @@ code and no result line:
    of a one-element launch, a device copy of the flagship output's bytes, and
    the copy bandwidth of a 256 MiB device copy; warp cases W1, W2, W5 and
    W6 and the host-inclusive call of the warp batch; the divergent kernel
-   in D1-D4, the host-inclusive ``launch_divergent_batch`` call of D4 and
+   in D1-D4, D1S and D1, D3 and D4 on each source dtype of its general
+   instance (the instance named from the profiler's trace) beside the eager
+   merge, the host-inclusive ``launch_divergent_batch`` call of D4 and
    one ``CircularTensor.update``, before (a temporary, a cast and a
    ``copy_``, as updates ran until the wrappers took ``out=``) and after;
    the pointwise kernel in P1-P5 (P1's bound is its operations at the
@@ -292,6 +307,7 @@ imports neither jax nor cv2 and needs one card.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -584,6 +600,18 @@ class DivergentRows:
             seq(cvgs.batch_read([cvgs.image(self.batch_u8[z]) for z in range(8)],
                                 used_planes=used - 2, default=200.0),
                 cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.write_tensor()))
+
+    def cast(self, fn):
+        """These rows with every image source (the ring, the frame, the
+        warped images and the flat planes) mapped through ``fn``, which
+        takes a uint8 tensor; the NV12 cameras stay uint8."""
+        import torch
+
+        other = copy.copy(self)
+        other.ring, other.frame = fn(self.ring), fn(self.frame)
+        other.imgs = [fn(im) for im in self.imgs]
+        other.flat = fn(self.flat.to(torch.uint8))
+        return other
 
     def timed(self) -> dict:
         """The rows that phase 5 times."""
@@ -1218,9 +1246,10 @@ def dtype_cases(cvgs, torch, frame, rects, hd, ring) -> list:
     """Phase 3's cases of every dtype: ``(name, kernel, ops)``. Each kernel
     at its main path's shapes reads every source dtype it takes (K1, K2 and
     the warp kernel int8, uint16, int16 and float16 beside uint8 and float32;
-    the pointwise kernel those too; the divergent kernel uint8 and float32),
-    runs chains through int8, uint16, int16 and float16 back to float32, and
-    stores into each of them, float16 planes among them."""
+    the pointwise kernel those too; the divergent kernel's sources of every
+    dtype are ``k6_source_cases``), runs chains through int8, uint16, int16
+    and float16 back to float32, and stores into each of them, float16
+    planes among them."""
     dsize = cvgs.Size(64, 128)
     cases = []
     mid = (WARP_DST[0] / 2, WARP_DST[1] / 2)
@@ -1595,6 +1624,74 @@ def subnormal_cases(cvgs, torch, frame, rects, hd, ring) -> list:
     ]
 
 
+#: the source dtypes of K6's general instance (csrc/divergent_any.cu), each
+#: made from a uint8 tensor: ``as_dtype``'s four, int32 near its bounds
+#: (``as_int32``) and int64 tensors read at load (``as_int64``)
+K6_DTYPES = ("i8", "u16", "i16", "f16", "i32", "i64")
+#: D1S: D1's pair of sequences over the last 8 frames of a 16-bit RGB
+#: 1080p camera, a ring of 99.5 MB normalized into 199 MB of float32
+D1S_RING = (8, 1080, 1920, 3)
+
+
+def as_k6_source(torch, u8, name):
+    """A uint8 tensor as a source of ``K6_DTYPES``' ``name``, on its device."""
+    if name == "i32":
+        return as_int32(torch, u8)
+    if name == "i64":
+        return as_int64(torch, u8)
+    return as_dtype(torch, u8, name)
+
+
+def d1s_ring(torch, dev, seed=24):
+    """D1S's ring: 16-bit values over the whole range, made from a seed."""
+    return torch.from_numpy(
+        np.random.default_rng(seed).integers(0, 1 << 16, D1S_RING).astype(np.uint16)).to(dev)
+
+
+def k6_source_cases(cvgs, torch, rows) -> dict:
+    """Phase 3's cases of K6's general instance: ``name -> (plane ids,
+    sequences)``. D1, D3 and D4 of ``DivergentRows`` with every source
+    (ring, frame, images, flat planes) in each of ``K6_DTYPES``
+    (``DivergentRows.cast``), and batches of groups of different source
+    dtypes: a uint16 ring into uint8 beside uint8 crops (a uint8 batch), a
+    float16 stack beside warps of float32 images (a float16 batch), and
+    groups of five dtypes in a batch of 16 x 128 x 256 planes, 4 pixels a
+    thread (a uint16 ring, uint8 crops, an int32 ring wrapped into uint16,
+    float16 images and warps of int64 images)."""
+    seq = cvgs.build_operation_sequence
+    cases = {}
+    for s in K6_DTYPES:
+        r = rows.cast(lambda u8, s=s: as_k6_source(torch, u8, s))
+        cases[f"dt_src_{s}_d1"] = r.d1(3)
+        cases[f"dt_src_{s}_d3"] = r.d3(r.d3_rects())
+        cases[f"dt_src_{s}_d4"] = r.d4()
+    ring8 = rows.ring[:8, :, :64].contiguous()
+    cases["dt_mixed_u16_ring_u8_crops_into_u8"] = ([1, 2, 2, 1, 2, 1, 1, 2], (
+        seq(cvgs.circular_batch_read(as_dtype(torch, ring8, "u16"), first=-2),
+            cvgs.convert_to(np.uint8, alpha=1 / 257.0), cvgs.write_tensor()),
+        seq(cvgs.resize_batch(rows.frame, rects=rows.d3_rects(), dsize=rows.dsize),
+            cvgs.convert_to(np.float32, alpha=0.5), cvgs.write_tensor())))
+    cases["dt_mixed_f16_stack_f32_warps_into_f16"] = ([1, 2, 2, 1, 2, 1, 1, 2], (
+        seq(cvgs.image(as_dtype(torch, ring8, "f16")), cvgs.write_tensor()),
+        seq(cvgs.warp_batch([cvgs.image(im.float()) for im in rows.imgs],
+                            rows.d4_mats(-14.0), rows.dsize), cvgs.multiply(0.75),
+            cvgs.write_tensor())))
+    dsize = cvgs.Size(256, 128)
+    to_u16 = cvgs.convert_to(np.uint16, alpha=100.0)
+    cases["dt_mixed_five_sources_16x128x256"] = ([1 + z % 5 for z in range(16)], (
+        seq(cvgs.circular_batch_read(as_dtype(torch, rows.ring, "u16"), first=3),
+            cvgs.write_tensor()),
+        seq(cvgs.resize_batch(rows.frame, rects=DivergentRows.d3_rects(n=16), dsize=dsize),
+            to_u16, cvgs.write_tensor()),
+        seq(cvgs.circular_batch_read(as_int32(torch, rows.ring), first=-3, ascendent=False),
+            cvgs.convert_to(np.uint16), cvgs.write_tensor()),
+        seq(cvgs.image(as_dtype(torch, rows.ring, "f16")), to_u16, cvgs.write_tensor()),
+        seq(cvgs.warp_batch([cvgs.image(as_int64(torch, im)) for im in rows.imgs * 2],
+                            rows.d4_mats(-14.0, 16), dsize),
+            cvgs.convert_to(np.float32, alpha=2.0 ** -20), to_u16, cvgs.write_tensor())))
+    return cases
+
+
 def phase7(mesh, modules: dict) -> dict:
     """The system's own benchmarks and examples on the card: the four
     benchmark scripts at their full shapes with ``--quick`` (fewer
@@ -1691,7 +1788,7 @@ def main() -> int:
         log("phase2 the library was built before this run: no compiler output")
     log(f"phase2 built {_build.library_path().name} from "
         f"{', '.join(src.name for src in _build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
-    entry, nested = "", {}
+    entry, nested, k6 = "", {}, {}
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"phase2 ptxas: {line.strip()}")
@@ -1699,6 +1796,22 @@ def main() -> int:
             entry = line.split("'")[1] if "'" in line else line
         if "composed_kernel_nested" in entry and ("registers" in line or "spill" in line):
             nested.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+        if "divergent_kernel" in entry and ("registers" in line or "spill" in line):
+            k6.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+    # K6's instances, registers and spills: divergent.cu's eight (groups of
+    # uint8, float32 and float64 sources) and the general instance's eight
+    # (divergent_any.cu: a group of any of nine source dtypes), each an
+    # output type x 1 or 4 pixels a thread
+    k6_registers = {}
+    for general in (False, True):
+        mine = {e: lines for e, lines in k6.items() if ("divergent_kernel_any" in e) == general}
+        what = "general instance (divergent_any.cu)" if general else "instances of divergent.cu"
+        k6_registers["general" if general else "first"] = {
+            e: " ".join(lines) for e, lines in sorted(mine.items())}
+        log(f"phase2 K6 {what}, {len(mine)}: "
+            + "; ".join(f"{e}: {' '.join(lines)}" for e, lines in sorted(mine.items()))
+            + f"; card {card}")
+        assert len(mine) == 8, sorted(mine)
     # the composed kernel's nested instances alone: registers and spills;
     # the staged ones (by value and mixed, whose block also holds its plane
     # head in shared memory) bounded to 64 registers, 4 blocks an SM
@@ -2185,6 +2298,22 @@ def main() -> int:
         else:
             plan = check(name, *ops, kernel=kernel, tol=0.0)
             assert plan.src_dtype in (torch.int64, torch.float64), name
+    # every source dtype through K6's general instance (divergent_any.cu),
+    # bit for bit its plain version (float32 as int32 bits): D1, D3 and D4 with
+    # their sources in int8, uint16, int16, float16, int32 (values near its
+    # bounds and past 2^24) and int64 (tensors read at load), and groups of
+    # different source dtypes in one batch
+    k6_cases = k6_source_cases(cvgs, torch, rows)
+    for name, (ids, seqs) in k6_cases.items():
+        plan = kd.build_plan(seqs, ids)
+        assert plan.general, name
+        a = kd.prepare(seqs, plan, dev)
+        got, want = kd.divergent(a), kd.divergent_reference(a)
+        compare(name, "divergent", got, want, 0.0)
+        bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[got.element_size()]
+        assert torch.equal(got.view(bits), want.view(bits)), f"{name}: not bit for bit"
+        log(f"phase3 divergent {name}: sources {[str(g.src_dtype)[6:] for g in plan.groups]}, "
+            f"groups {[g.kind for g in plan.groups]}, the general instance; bit for bit")
     # subnormal float32 values, flushed as operands and results of every op
     # and kept by copies: each kernel equal to its plain version as int32
     # bits (-0 and +0 differ), one launch, zeros and no subnormal left
@@ -2723,6 +2852,70 @@ def main() -> int:
     log(f"phase4 divergent path (ragged BatchRead groups, D14): backend cuda:divergent; launches "
         f"{kd.LAUNCHES} in 2 calls; plans built by each call {new_plans}; equal to the eager merge")
     assert kd.LAUNCHES == 2 and new_plans[0] <= 1 and new_plans[1] == 0, (kd.LAUNCHES, new_plans)
+
+    # D1S: D1's pair of sequences over the last 8 frames of a 16-bit 1080p RGB
+    # camera (99.5 MB read, 199 MB of float32 written) through K6's general
+    # instance: twice under AUTO and twice under ParBackend.CUDA, one launch
+    # of cuda:divergent a call, a new first building no plan, the last call
+    # bit for bit the eager merge
+    ring16 = d1s_ring(torch, dev)
+    kd.LAUNCHES = 0
+    d1s_seen = []
+    for backend, first in ((cvgs.ParBackend.AUTO, 3), (cvgs.ParBackend.AUTO, -5),
+                           (cvgs.ParBackend.CUDA, 1), (cvgs.ParBackend.CUDA, -2)):
+        ids_s, seqs_s = rows.d1(first, ring16)
+        builds0, launches0 = executor.PLAN_BUILDS, kd.LAUNCHES
+        out_s = drive("divergent", lambda: cvgs.launch_divergent_batch(ids_s, *seqs_s,
+                                                                       backend=backend))
+        d1s_seen.append((cvgs.last_backend(), kd.LAUNCHES - launches0,
+                         executor.PLAN_BUILDS - builds0))
+        assert tuple(out_s.shape) == D1S_RING and out_s.dtype == torch.float32, out_s.shape
+    torch.cuda.synchronize()
+    divergent_launches += kd.LAUNCHES
+    eager = cvgs.launch_divergent_batch(ids_s, *seqs_s, backend=cvgs.ParBackend.TORCH)
+    same = torch.equal(out_s.view(torch.int32), eager.view(torch.int32))
+    d1s_err = float((out_s - eager).abs().max())
+    log(f"phase4 divergent path (D1S, a 16-bit ring of {D1S_RING}): (backend, launches, plans "
+        f"built) per call {d1s_seen}; finite {bool(torch.isfinite(out_s).all())}; equal to the "
+        f"eager merge bit for bit {same}")
+    assert [b for b, _, _ in d1s_seen] == ["cuda:divergent"] * 4, d1s_seen
+    assert [n for _, n, _ in d1s_seen] == [1] * 4, d1s_seen
+    assert d1s_seen[1][2] == 0 and d1s_seen[3][2] == 0, d1s_seen
+    assert same and bool(torch.isfinite(out_s).all())
+    del out_s, eager
+
+    # every source dtype of K6's general instance on the main path: D1, D3
+    # and D4 of each twice through launch_divergent_batch (a new first,
+    # shifted rects, new matrices), one launch of cuda:divergent a call, no
+    # plan on the second, equal to the eager merge bit for bit
+    kd.LAUNCHES = 0
+    k6_path = {}
+    for s in K6_DTYPES:
+        r = rows.cast(lambda u8, s=s: as_k6_source(torch, u8, s))
+        makes = {"d1": lambda k, r=r: r.d1((3, -5)[k]),
+                 "d3": lambda k, r=r: r.d3(r.d3_rects((0, 7)[k])),
+                 "d4": lambda k, r=r: r.d4((-14.0, -12.0)[k])}
+        for row, make in makes.items():
+            seen, outs = [], []
+            for k in (0, 1):
+                ids_k, seqs_k = make(k)
+                builds0, launches0 = executor.PLAN_BUILDS, kd.LAUNCHES
+                outs.append(drive("divergent",
+                                  lambda: cvgs.launch_divergent_batch(ids_k, *seqs_k)))
+                seen.append((cvgs.last_backend(), kd.LAUNCHES - launches0,
+                             executor.PLAN_BUILDS - builds0))
+            eager = cvgs.launch_divergent_batch(ids_k, *seqs_k, backend=cvgs.ParBackend.TORCH)
+            torch.cuda.synchronize()
+            bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[eager.element_size()]
+            same = torch.equal(outs[1].view(bits), eager.view(bits))
+            k6_path[f"{s}_{row}"] = seen
+            assert [b for b, _, _ in seen] == ["cuda:divergent"] * 2, (s, row, seen)
+            assert [n for _, n, _ in seen] == [1, 1] and seen[1][2] == 0, (s, row, seen)
+            assert same and not torch.equal(outs[0].view(bits), outs[1].view(bits)), (s, row)
+    divergent_launches += kd.LAUNCHES
+    log(f"phase4 divergent paths of every K6 source dtype ({', '.join(K6_DTYPES)}: D1, D3, D4 "
+        f"twice each): (backend, launches, plans built) per call {k6_path}; each second call "
+        f"equal to the eager merge bit for bit")
 
     # CircularTensor at the reference's row: a 32-deep STANDARD ring of
     # 128x64 planes, 40 updates of a 1080p frame resized and scaled; each
@@ -3705,6 +3898,28 @@ def main() -> int:
         f"card {card}")
 
 
+    # D1S, and D1, D3 and D4 on every source dtype of K6's general instance:
+    # the kernel by events and by profiler (the instance it ran as the
+    # profiler names it) beside the eager merge that ran these batches
+    # before this kernel read their dtypes (ParBackend.TORCH, the plain
+    # version) and the bound
+    k6_times = {}
+    timed_k6 = {"d1s_u16_1080p_ring": rows.d1(3, ring16)}
+    for s in K6_DTYPES:
+        timed_k6.update({f"dt_src_{s}_{row}": k6_cases[f"dt_src_{s}_{row}"]
+                         for row in ("d1", "d3", "d4")})
+    for name, (ids, seqs) in timed_k6.items():
+        kargs = kd.prepare(seqs, kd.build_plan(seqs, ids), dev)
+        names = set()
+        t = measure(lambda: kd.divergent(kargs), lambda: kd.divergent_reference(kargs), 25,
+                    plain_iters=5, names=names)
+        t.update(bounds.bound(*kd.work(kargs), bandwidth))
+        t["max_abs_err"] = d1s_err if name.startswith("d1s") else case_err[name]
+        t["library_ms"] = t["library_profiler_ms"] = None
+        t["instance"] = kernel_names(names)
+        k6_times[name] = t
+        log(f"phase5 divergent {name} ({t['instance']}): {describe(t)}")
+
     # one CircularTensor update, before and after: the three steps that ran
     # until the wrappers took out= (the pipeline into a temporary, the cast,
     # a copy_ of the permuted value into the slot), then update() itself
@@ -4524,6 +4739,8 @@ def main() -> int:
               divergent_launches, d4t, cases=div_times,
               circular_tensor_update_ms=ct_update_ms, dtype_path=dtype_times["d1_into_int16"],
               int32_path=dtype_times["d1_into_i32"], x64_path=dtype_times["d1_f64_ring"],
+              source_dtype_cases=k6_times, registers=k6_registers,
+              also_sources=["cvgpuspeedup_tpu_torch/csrc/divergent_any.cu"],
               sharded_launches=sharded_launches["divergent"]),
         # P1, the MAD stress (bound by its unfused operations); P1-P5 below. No
         # Pallas counterpart: it replaces the reference's jitted XLA program

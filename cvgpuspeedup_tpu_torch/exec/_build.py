@@ -178,7 +178,7 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
                 p, p, i, i, i,             # blk, consts, ptr_off, desc_off, n_groups
                 i, i, i,                   # n_planes, dst_w, dst_h
                 p, i, i, ll, ll, ll, ll,   # out, out_type, out_ch, sn, sc, sy, sx
-                p,                         # stream
+                i, p,                      # any_src, stream
             ]
             lib.cvgs_divergent.restype = ctypes.c_int
             # another directory of sources (an earlier tree's) may lack it

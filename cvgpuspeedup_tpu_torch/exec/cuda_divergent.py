@@ -41,20 +41,28 @@ then the first sequence's write. :func:`divergent_reference`, the plain
 PyTorch version, runs it on the launch's device; it reads neither the block
 nor the tables, so holding the kernel against it checks them.
 
-A group reads a uint8 or float32 source (``SRC_DTYPES``, what the
-reference's TPU kernel reads), or a float64 tensor, which the kernel reads
-at load as float32, its canonical dtype (an int64 source is int32's, and
-an int32 group runs in the eager merge), and its chain may hold and end in any dtype
-of ``cuda_batch_resize.CHAIN_DTYPES``. Groups may differ in output dtype:
-the batch takes plane 0's group's, and each group's store casts as the
-merge does: the row ``cuda_batch_resize.store_cast`` gives ends the group's
-table (a float group of an integer batch truncates and saturates, an int32
-group of a float batch converts, of a narrower integer batch wraps), then
-the store moves the value (an integer group of another 8- or 16-bit batch
-wraps, a float16 batch rounds).
+A group reads any of nine source dtypes (``SRC_DTYPES``): uint8 and
+float32, what the reference's TPU kernel reads, and int8, uint16, int16,
+float16, int32, int64 and float64. A copy group (image, circ) starts its
+chain in the source's dtype, an int32 or int64 one as int32's bits (an int64
+element's low 32 bits, read at load); a resampling group (crop_resize,
+resize, warp) reads its source into float32 at load, as K1 and the warp
+kernel do. A host int64 or float64 array is made int32 or float32 before its
+copy (``utils.dtypes.kernel_source``), a tensor is read as it is. A batch
+whose groups read only uint8, float32 and float64 keeps the instances of
+``divergent.cu``; any other runs the general instance of
+``divergent_any.cu`` (:attr:`DivergentPlan.general`). A group's chain may
+hold and end in any dtype of ``cuda_batch_resize.CHAIN_DTYPES``. Groups may
+differ in output dtype: the batch takes plane 0's group's, and each group's
+store casts as the merge does: the row ``cuda_batch_resize.store_cast``
+gives ends the group's table (a float group of an integer batch truncates
+and saturates, an int32 group of a float batch converts, of a narrower
+integer batch wraps), then the store moves the value (an integer group of
+another 8- or 16-bit batch wraps, a float16 batch rounds).
 
 Refused (:class:`Unsupported`, before anything launches): a group of no
-kind above, groups that differ in output (H, W, C), more than 4 channels.
+kind above, a source of another dtype (uint32, bool), an NV12 buffer not of
+uint8, groups that differ in output (H, W, C), more than 4 channels.
 The executor (``executor._select_divergent``) tries this kernel first, then
 the composed-read kernel's divergent plan
 (``cuda_composed.build_divergent_plan``: groups that are each a
@@ -99,11 +107,15 @@ LAUNCHES = 0
 # group kinds; keep in step with csrc/divergent.cu
 KINDS = ("image", "circ", "crop_resize", "resize", "nv12", "warp")
 DESC_INTS = 16      # ints per group descriptor; csrc/divergent.cu reads the same fields
-#: the source dtypes the kernel reads, by name, and the word of a group's
-#: descriptor that names each (csrc/divergent.cu: S_F32, S_U8, S_F64); a
-#: float64 tensor is read at load as float32, its canonical dtype
-SRC_DTYPES = {"uint8": torch.uint8, "float32": torch.float32, "float64": torch.float64}
-_SRC_WORDS = {torch.float32: 0, torch.uint8: 1, torch.float64: 2}
+#: the source dtypes the kernel reads, by name: those of K1 and the warp
+#: kernel
+SRC_DTYPES = kbr.SRC_DTYPES
+#: the word of a group's descriptor that names its source dtype
+#: (csrc/divergent_kernel.cuh: S_F32 .. S_I64); divergent.cu's instances
+#: read the first three, the general instance all nine
+_SRC_WORDS = {torch.float32: 0, torch.uint8: 1, torch.float64: 2, torch.int8: 3,
+              torch.uint16: 4, torch.int16: 5, torch.float16: 6, torch.int32: 7, torch.int64: 8}
+_FIRST_INSTANCES = (torch.uint8, torch.float32, torch.float64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +156,12 @@ class DivergentPlan:
     consts: np.ndarray     # int32: op rows of every chain, then the NV12 tables
     #: per-device copies of the consts
     device_consts: Dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    @property
+    def general(self) -> bool:
+        """Whether a group reads a dtype other than uint8, float32 and
+        float64: the batch runs the general instance (``divergent_any.cu``)."""
+        return any(g.src_dtype not in _FIRST_INSTANCES for g in self.groups)
 
     def device_tables(self, device: torch.device) -> torch.Tensor:
         c = self.device_consts.get(device)
@@ -489,8 +507,7 @@ def prepare(seqs, plan: DivergentPlan, device: torch.device) -> Launch:
             d[15] = group.tab_off + 4 * (plan.dsize.width + plan.dsize.height)
         if group.held is not None:  # a ragged BatchRead group
             d[9] = blk.put(read.used_planes, np.int32, width=1)
-            d[6] = blk.put(_held_default(read.default, group.held), np.float32,
-                           width=_MAX_CHANNELS)
+            d[6] = blk.put(*_held_default(read.default, group.held), width=_MAX_CHANNELS)
         d[12] = blk.size
         for v in flatten(tuple(seq.compute))[1]:
             blk.put(v, np.float32)
@@ -501,12 +518,17 @@ def prepare(seqs, plan: DivergentPlan, device: torch.device) -> Launch:
 
 
 def _held_default(default, dtype: torch.dtype):
-    """A ragged ``BatchRead``'s default as its planes hold it: cast to the
-    read's ``dtype`` (``BatchRead._mask``), as float32 values for every
-    channel (a scalar broadcast), on the default's own device."""
-    if isinstance(default, torch.Tensor):
-        return kw._padded_tensor(dt.cast(default, dtype), _MAX_CHANNELS, default.device)
-    return kw._padded(dt.cast(torch.as_tensor(np.asarray(default)), dtype).numpy(), _MAX_CHANNELS)
+    """A ragged ``BatchRead``'s default as its planes hold it, and the word
+    type of the block that carries it: cast to the read's ``dtype`` as
+    ``BatchRead._mask`` casts it, for every channel (a scalar broadcast), on
+    the default's own device (a host default as a numpy array); float32
+    values, or int32's bits for an int32 read, which is how the kernel's
+    register holds an int32 chain."""
+    word = torch.int32 if dtype == torch.int32 else torch.float32
+    v = dt.cast(torch.as_tensor(default), dtype).reshape(-1).to(word)
+    if v.numel() == 1:
+        v = v.expand(_MAX_CHANNELS)
+    return (v if isinstance(default, torch.Tensor) else v.numpy()), dt.to_numpy_dtype(word)
 
 
 def merge(seqs, plane_ids):
@@ -576,7 +598,7 @@ def divergent(a: Launch):
         err = lib.cvgs_divergent(
             a.block.data_ptr(), a.consts.data_ptr(), a.ptr_off, a.desc_off, len(plan.groups),
             plan.n_planes, w, h, buf.data_ptr(), TYPE_CODES[plan.out_dtype], plan.out_ch,
-            sn, sc, sy, sx, stream,
+            sn, sc, sy, sx, int(plan.general), stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -603,7 +625,10 @@ def _touched_bytes(a: Launch) -> int:
     from . import cuda_frame_resize as kfr
 
     ids, total = a.plan.plane_ids, 0
-    for sid, seq in enumerate(a.seqs, 1):
+    # every source as the kernel reads it: a host int64 or float64 array as
+    # int32 or float32, a tensor at its own element size
+    seqs = map_leaves(a.seqs, lambda v: kernel_source(v, a.block.device))
+    for sid, seq in enumerate(seqs, 1):
         planes = [z for z, i in enumerate(ids) if i == sid]
         read = seq.read
         if isinstance(read, (ImageRead, CircularBatchRead)):  # a plane is read whole

@@ -60,7 +60,8 @@ class ImageRead(ReadOp):
 
     def lower_planes(self, planes) -> torch.Tensor:
         x = self.lower()
-        return x[torch.as_tensor([int(z) for z in planes], device=x.device)]
+        idx = torch.as_tensor([int(z) for z in planes], device=x.device)
+        return dt.gather(x, lambda s: s[idx])
 
 
 @op
@@ -85,15 +86,26 @@ class BatchRead(ReadOp):
         z = planes.reshape((-1,) + (1,) * (x.ndim - 1))
         used = torch.as_tensor(self.used_planes, device=x.device)
         default = dt.cast(torch.as_tensor(self.default, device=x.device), x.dtype)
+        if x.dtype == torch.uint16:  # a select moves elements: uint16's as int16 bits
+            return torch.where(z < used, x.view(torch.int16),
+                               default.view(torch.int16)).view(torch.uint16)
         return torch.where(z < used, x, default)
 
+    @staticmethod
+    def _stack(xs) -> torch.Tensor:
+        """The planes on a new leading axis; uint16 ones moved as their
+        int16 bits, as ``utils.dtypes.gather`` moves them."""
+        if xs[0].dtype == torch.uint16:
+            return torch.stack([x.view(torch.int16) for x in xs], dim=0).view(torch.uint16)
+        return torch.stack(xs, dim=0)
+
     def lower(self) -> torch.Tensor:
-        x = torch.stack([o.lower() for o in self.ops], dim=0)
+        x = self._stack([o.lower() for o in self.ops])
         return self._mask(x, torch.arange(x.shape[0], device=x.device))
 
     def lower_planes(self, planes) -> torch.Tensor:
         """Only the planes of a static list, in its order."""
-        x = torch.stack([self.ops[int(z)].lower() for z in planes], dim=0)
+        x = self._stack([self.ops[int(z)].lower() for z in planes])
         return self._mask(x, torch.as_tensor([int(z) for z in planes], device=x.device))
 
 

@@ -8,6 +8,11 @@ On a machine with a card and without jax, run it alone:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda_divergent.py
 
 The kernel must equal its plain version bit for bit, uint8 and float32.
+Groups of int8, uint16, int16, float16, int32 and int64 sources (the
+general instance, ``divergent_any.cu``) are compared as their bits, float32
+as int32: copies of int32 values within 200 of its bounds, every kind over
+each dtype, and a batch of groups of five source dtypes large enough for 4
+pixels per thread.
 """
 
 import dataclasses
@@ -170,6 +175,99 @@ def ring_off_the_vector(dtype, nch, write, dev, n=16, h=96, w=253):
         _seq(T.image(ring), to_out, T.add(1.0), write()))
 
 
+#: the source dtypes of the general instance; "int64" is a tensor, read at load
+NEW_DTYPES = ("int8", "uint16", "int16", "float16", "int32", "int64")
+
+
+def _values(dtype, shape, seed):
+    """Values of ``dtype`` over its range: int32 and int64 (whose low 32
+    bits the kernel reads) within 200 of int32's bounds, past 2^24 and
+    small, as a float32 conversion would round them."""
+    rng = np.random.default_rng(seed)
+    if dtype in ("int32", "int64"):
+        i32 = np.iinfo(np.int32)
+        kinds = rng.integers(0, 3, shape)
+        v = np.where(kinds == 0, rng.integers(i32.min, i32.min + 200, shape),
+                     np.where(kinds == 1, rng.integers(i32.max - 200, i32.max, shape),
+                              rng.integers(2 ** 24, 2 ** 30, shape) * rng.choice([-1, 1], shape)))
+        return v + rng.integers(-3, 4, shape) * 2 ** 32 if dtype == "int64" else v.astype(np.int32)
+    if dtype == "float16":
+        return (rng.integers(-2000, 2000, shape) / 4).astype(np.float16)
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max, shape, endpoint=True).astype(dtype)
+
+
+def _src(dtype, shape, seed, dev):
+    return torch.from_numpy(_values(dtype, shape, seed)).to(dev)
+
+
+#: a scale that brings each dtype's values to a few hundred
+ALPHA = {"int8": 1.5, "uint16": 1 / 128.0, "int16": 1 / 96.0, "float16": 0.25, "int32": 2.0 ** -23,
+         "int64": 2.0 ** -23, "uint8": 0.5, "float32": 0.5}
+
+
+def typed_copies(dtype, dev, first=3, n=8, h=24, w=40):
+    """Copy groups of one source dtype into a batch of it: a ring copied
+    (plane 0's group), an image stack through float32 and back, a ragged
+    ``BatchRead`` of images with a default past the dtype's range."""
+    back = np.int32 if dtype == "int64" else np.dtype(dtype)
+    stack = _src(dtype, (n, h, w, 3), 1, dev)
+    imgs = [_src(dtype, (h, w, 3), 10 + z, dev) for z in range(n)]
+    return [1, 2, 3, 1, 3, 2, 1, 3], (
+        _seq(T.circular_batch_read(stack, first=first), T.write_tensor()),
+        _seq(T.image(stack), T.convert_to(np.float32, alpha=ALPHA[dtype]), T.multiply(3.0),
+             T.convert_to(back), T.write_tensor()),
+        _seq(T.batch_read([T.image(im) for im in imgs], used_planes=5, default=3e9),
+             T.write_tensor()))
+
+
+def typed_sampled(dtype, dev, shift=0, angle0=-20.0, n=8, h=24, w=40):
+    """Resampling groups of one source dtype into float32: crops of one
+    frame (plane 0's group), a stack resize, affine and perspective warps
+    (the affine ragged), and a ring copied into float32."""
+    frame = _src(dtype, (90, 120, 3), 2, dev)
+    rects = np.array([[9 * z - 5 + shift, 4 * z + shift, 30, 20] for z in range(n)], np.int32)
+    sizes = [(17, 30), (40, 50), (12, 9), (24, 40), (30, 30), (8, 70), (50, 20), (24, 41)]
+    stack = [_src(dtype, (sh, sw, 3), 20 + z, dev) for z, (sh, sw) in enumerate(sizes[:n])]
+    imgs = [_src(dtype, (40, 48, 3), 30 + z, dev) for z in range(n)]
+    mats = [rotation((24, 20), 9.0 * z + angle0, 0.9) for z in range(n)]
+    persp = np.array([[0.9, 0.05, 1.0 + shift], [0.02, 0.85, 0.5], [1e-2, 2e-2, 1.0]])
+    to_f32 = T.convert_to(np.float32, alpha=ALPHA[dtype])
+    dsize = T.Size(w, h)
+    return [1, 2, 3, 4, 5, 1, 3, 2], (
+        _seq(T.resize_batch(frame, rects=rects, dsize=dsize, used_planes=7, background=1.5,
+                            aspect_ratio=T.AspectRatio.PRESERVE_AR), to_f32, T.write_tensor()),
+        _seq(T.resize_batch(stack, dsize=dsize), to_f32, T.write_tensor()),
+        _seq(T.warp_batch([T.image(im) for im in imgs], mats, dsize, used_planes=6,
+                          default=-7.5, border_value=2.0), to_f32, T.write_tensor()),
+        _seq(T.warp_batch([T.image(im) for im in imgs], [persp] * n, dsize,
+                          warp_type=T.WarpType.PERSPECTIVE), to_f32, T.write_tensor()),
+        _seq(T.circular_batch_read(_src(dtype, (n, h, w, 3), 3, dev), first=-5), to_f32,
+             T.write_tensor()))
+
+
+def mixed_sources(dev, first=5, shift=0, n=16, h=96, w=256):
+    """Groups of five source dtypes in one batch of uint16, large enough
+    for 4 pixels per thread: a uint16 ring (plane 0's group), uint8 crops,
+    an int32 ring copied and wrapped into uint16, float16 images, and
+    warps of int64 tensors."""
+    frame = _src("uint8", (300, 400, 3), 4, dev)
+    rects = np.array([[7 * z + shift, 5 * z + shift, 120, 50] for z in range(n)], np.int32)
+    imgs = [_src("int64", (120, 300, 3), 40 + z, dev) for z in range(n)]
+    to_u16 = T.convert_to(np.uint16, alpha=100.0)
+    return [1 + z % 5 for z in range(n)], (
+        _seq(T.circular_batch_read(_src("uint16", (n, h, w, 3), 5, dev), first=first),
+             T.write_tensor()),
+        _seq(T.resize_batch(frame, rects=rects, dsize=T.Size(w, h)), to_u16, T.write_tensor()),
+        _seq(T.circular_batch_read(_src("int32", (n, h, w, 3), 6, dev), first=-first,
+                                   ascendent=False), T.convert_to(np.uint16), T.write_tensor()),
+        _seq(T.image(_src("float16", (n, h, w, 3), 7, dev)), to_u16, T.write_tensor()),
+        _seq(T.warp_batch([T.image(im) for im in imgs],
+                          [rotation((150, 60), 3.0 * z + shift, 1.0) for z in range(n)],
+                          T.Size(w, h)), T.convert_to(np.float32, alpha=2.0 ** -20), to_u16,
+             T.write_tensor()))
+
+
 CASES = {
     "d1_circular_first3": lambda dev: d1_circular(3),
     "d1_circular_first_minus5": lambda dev: d1_circular(-5),
@@ -199,13 +297,24 @@ CASES = {
     "f32_ring_off_the_vector_to_u8": lambda dev: ring_off_the_vector(np.float32, 3, T.split_tensor, dev),
     "f32_ring_off_the_vector_to_u8_packed": lambda dev: ring_off_the_vector(
         np.float32, 4, T.write_tensor, dev),
+    **{f"{d}_copies": (lambda dev, d=d: typed_copies(d, dev)) for d in NEW_DTYPES},
+    **{f"{d}_sampled": (lambda dev, d=d: typed_sampled(d, dev)) for d in NEW_DTYPES},
+    # 4 pixels per thread: 393,216 outputs
+    "mixed_sources_16x96x256": lambda dev: mixed_sources(dev),
+    "mixed_sources_small": lambda dev: mixed_sources(dev, n=5, h=8, w=12),
 }
+
+
+def _bits(x):
+    return x.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[x.element_size()])
 
 
 def _check(ids, seqs, device):
     plan = kd.build_plan(seqs, ids)
     a = kd.prepare(seqs, plan, device)
+    launches = kd.LAUNCHES
     got = kd.divergent(a)
+    assert kd.LAUNCHES == launches + 1
     want = kd.divergent_reference(a)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -213,7 +322,8 @@ def _check(ids, seqs, device):
     for g, w in zip(got, want, strict=True):
         assert g.shape == w.shape and g.dtype == w.dtype
         assert g.device.type == "cuda"
-        assert torch.equal(g, w), f"max |diff| {float((g.double() - w.double()).abs().max())}"
+        bad = int((_bits(g) != _bits(w)).sum())
+        assert bad == 0, f"{bad} values differ in their bits"
     return plan
 
 
@@ -221,6 +331,47 @@ def _check(ids, seqs, device):
 def test_kernel_matches_plain_version(case, cuda):
     ids, seqs = CASES[case](cuda)
     _check(ids, seqs, cuda)
+
+
+@pytest.mark.parametrize("kind", ["copies", "sampled"])
+@pytest.mark.parametrize("dtype", NEW_DTYPES)
+def test_every_source_dtype_runs_the_general_instance(dtype, kind, cuda):
+    """Each dtype's groups take the general instance; an int32 copy keeps
+    values past 2^24 and within 200 of int32's bounds."""
+    ids, seqs = (typed_copies if kind == "copies" else typed_sampled)(dtype, cuda)
+    plan = _check(ids, seqs, cuda)
+    assert plan.general and {g.src_dtype for g in plan.groups} == {getattr(torch, dtype)}
+    if kind == "copies" and dtype in ("int32", "int64"):
+        out = kd.run(seqs, plan, cuda)
+        ring = seqs[0].read.data.to(torch.int32)
+        want = ring[[(3 + z) % 8 for z in (0, 3, 6)]]
+        assert torch.equal(out[[0, 3, 6]], want) and int(want.abs().max()) > 2 ** 31 - 200
+
+
+@pytest.mark.parametrize("case", ["int16_copies", "float16_sampled", "int64_sampled", "mixed"])
+def test_new_values_build_no_plan_on_every_source_dtype(case, cuda):
+    """Through ``launch_divergent_batch`` under AUTO and CUDA: one launch of
+    the general instance a call, a new ``first``, new rects and new
+    matrices building no plan, equal to the eager merge bit for bit."""
+    dtype = case.split("_")[0]
+    for backend in (T.ParBackend.AUTO, T.ParBackend.CUDA):
+        outs = []
+        for k in range(2):
+            if case == "mixed":
+                ids, seqs = mixed_sources(cuda, first=(5, -3)[k], shift=3 * k, n=5, h=8, w=12)
+            elif case.endswith("copies"):
+                ids, seqs = typed_copies(dtype, cuda, first=(3, -2)[k])
+            else:
+                ids, seqs = typed_sampled(dtype, cuda, shift=2 * k, angle0=(-20.0, 15.0)[k])
+            launches, builds = kd.LAUNCHES, executor.PLAN_BUILDS
+            outs.append(T.launch_divergent_batch(ids, *seqs, backend=backend))
+            assert T.last_backend() == "cuda:divergent" and kd.LAUNCHES == launches + 1
+            if k:
+                assert executor.PLAN_BUILDS == builds
+        eager = T.launch_divergent_batch(ids, *seqs, backend=T.ParBackend.TORCH)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(outs[1]), _bits(eager))
+        assert not torch.equal(_bits(outs[0]), _bits(outs[1]))
 
 
 @pytest.mark.parametrize("ascendent", [True, False])

@@ -135,9 +135,9 @@ def test_library_is_keyed_on_the_sources(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("header,users", [
-    ("batch_resize.cuh", ("batch_resize_kernel.cuh", "divergent.cu")),
-    ("frame_resize.cuh", ("frame_resize_kernel.cuh", "divergent.cu")),
-    ("warp.cuh", ("warp_kernel.cuh", "divergent.cu")),
+    ("batch_resize.cuh", ("batch_resize_kernel.cuh", "divergent_kernel.cuh")),
+    ("frame_resize.cuh", ("frame_resize_kernel.cuh", "divergent_kernel.cuh")),
+    ("warp.cuh", ("warp_kernel.cuh", "divergent_kernel.cuh")),
     ("pointwise.cuh", ("pointwise.cu",)),
     ("pointwise_chain.cuh", ("pointwise.cuh",)),
 ])
@@ -155,8 +155,8 @@ def test_shared_samplers_live_in_headers(header, users):
 def test_the_pointwise_heads_share_the_frame_kernels_conversion():
     """One YUV -> RGB for the frame and pointwise kernels; the pointwise
     kernel stages its chain through its own interpreter, the other four
-    share chain.cuh's run_chain (K1, K2 and the warp kernel in the kernel
-    headers their sources instantiate)."""
+    share chain.cuh's run_chain (K1, K2, the warp kernel and K6 in the
+    kernel headers their sources instantiate)."""
     csrc = ROOT / "cvgpuspeedup_tpu_torch" / "csrc"
     assert '#include "frame_resize.cuh"' in (csrc / "pointwise.cuh").read_text()
     pointwise = (csrc / "pointwise.cu").read_text()
@@ -164,7 +164,7 @@ def test_the_pointwise_heads_share_the_frame_kernels_conversion():
     assert "stage_rows(" in pointwise and "run_rows(" in pointwise and "run_chain" not in pointwise
     assert "kWide" not in (csrc / "chain.cuh").read_text()
     for other in ("batch_resize_kernel.cuh", "frame_resize_kernel.cuh", "warp_kernel.cuh",
-                  "divergent.cu"):
+                  "divergent_kernel.cuh"):
         text = (csrc / other).read_text()
         assert "run_chain(" in text and "run_rows(" not in text
 

@@ -381,9 +381,10 @@ def test_plain_versions_read_a_64bit_source_as_its_canonical_dtype(head, dtype):
 
 
 def test_the_divergent_plain_version_reads_a_float64_source_as_float32():
-    """K6 takes a float64 group (read at load as float32); an int64 group
-    goes where an int32 one goes, to the eager merge. Both equal the float32
-    and int32 twins."""
+    """K6 takes a float64 group (read at load as float32) and an int64 group
+    (its low 32 bits read at load as int32's, in the general instance). Both
+    equal the float32 and int32 twins bit for bit, the int64 one through the
+    plain version and through the eager merge."""
     rng = np.random.default_rng(11)
     ring = torch.from_numpy(_f64(rng, (4, 5, 6, 3)))
     seq = T.build_operation_sequence
@@ -398,9 +399,13 @@ def test_the_divergent_plain_version_reads_a_float64_source_as_float32():
     got = kd.run(seqs(ring), plan, CPU)
     _bits_equal(got.numpy(), kd.run(seqs(ring.float()), kd.build_plan(seqs(ring.float()), ids),
                                     CPU).numpy())
+    assert not plan.general
     wide = torch.from_numpy(_i64(rng, (4, 5, 6, 3)))
-    with pytest.raises(kd.Unsupported, match="source dtype int64"):
-        kd.build_plan(seqs(wide), ids)
+    plan = kd.build_plan(seqs(wide), ids)
+    assert {g.src_dtype for g in plan.groups} == {torch.int64} and plan.general
+    twin = kd.build_plan(seqs(wide.int()), ids)
+    assert [kd._SRC_WORDS[g.src_dtype] for g in (*plan.groups, *twin.groups)] == [8, 8, 7, 7]
+    _bits_equal(kd.run(seqs(wide), plan, CPU).numpy(), kd.run(seqs(wide.int()), twin, CPU).numpy())
     got = T.launch_divergent_batch(ids, *seqs(wide))
     _bits_equal(got.numpy(), T.launch_divergent_batch(ids, *seqs(wide.int())).numpy())
 
@@ -450,6 +455,13 @@ def test_every_source_code_is_a_named_case():
                              ("f64", "double", "source_float64.cu")):
         assert f"CVGS_DECLARE({tag})" in sources
         assert f"CVGS_SOURCE({ctype}, {tag})" in (CSRC / unit).read_text()
-    words = dict(re.findall(r"(S_[A-Z0-9]+) = (\d+)", (CSRC / "divergent.cu").read_text()))
-    assert words == {"S_F32": "0", "S_U8": "1", "S_F64": "2"}
-    assert kd._SRC_WORDS == {torch.float32: 0, torch.uint8: 1, torch.float64: 2}
+    # K6's descriptor words: one per source dtype; the general instance's
+    # reader names each but float32's, which it reads where no case matches
+    kernel = (CSRC / "divergent_kernel.cuh").read_text()
+    words = dict(re.findall(r"(S_[A-Z0-9]+) = (\d+)", kernel))
+    assert words == {"S_F32": "0", "S_U8": "1", "S_F64": "2", "S_I8": "3", "S_U16": "4",
+                     "S_I16": "5", "S_F16": "6", "S_I32": "7", "S_I64": "8"}
+    assert {names[t].replace("PW_", "S_"): str(w) for t, w in kd._SRC_WORDS.items()} == words
+    reader = _body(kernel, "void with_source")
+    for word in words:
+        assert (f"case {word}:" in reader) == (word != "S_F32"), word

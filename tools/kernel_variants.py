@@ -27,7 +27,10 @@ kernel take ``src_u8`` and whose divergent kernel takes ``out_u8`` (before
 they took a source and an output type code) is called through
 :class:`SourceFlagAbi`, which turns the type codes of a uint8 or float32
 source and output back into those flags; it runs the uint8 and float32
-cases of this tool, which are all of them. For example::
+cases of this tool, which are all of them. A tree whose divergent kernel
+takes no ``any_src`` (before its general instance) is called through
+:class:`AnySrcAbi`, which drops it: it runs the divergent cases of uint8,
+float32 and float64 groups, which are all of them. For example::
 
     {"base": [],
      "parent": "build/parent/cvgpuspeedup_tpu_torch/csrc",
@@ -157,6 +160,34 @@ class SourceFlagAbi:
                 return fn(*args)
             return call
         return fn
+
+
+class AnySrcAbi:
+    """A library whose divergent kernel has no general instance and takes
+    no ``any_src`` (the argument before the stream), called with the present
+    arguments: ``any_src`` is dropped, and must be 0 (a batch of uint8,
+    float32 and float64 groups, which all of this tool's older cases are)."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        fn = lib.cvgs_divergent
+        fn.argtypes = fn.argtypes[:-2] + fn.argtypes[-1:]
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name != "cvgs_divergent":
+            return fn
+
+        def call(*args):
+            if args[-2]:
+                raise ValueError("the older interface has no general divergent instance")
+            return fn(*args[:-2], args[-1])
+        return call
+
+
+def takes_any_src(csrc: Path) -> bool:
+    """Whether the divergent kernel in ``csrc`` takes ``any_src``."""
+    return "int any_src" in (csrc / "divergent.cu").read_text()
 
 
 def uses_source_flags(csrc: Path) -> bool:
@@ -385,6 +416,8 @@ def main() -> int:
         wrapper launches from from now on."""
         current["d"] = d
         lib = _build.load(d, d / "out")
+        if not takes_any_src(d):
+            lib = _build._LIB = AnySrcAbi(lib)
         if uses_source_flags(d):
             _build._LIB = SourceFlagAbi(lib)
 
