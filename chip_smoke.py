@@ -61,8 +61,17 @@ cameras beside top views of the others into 640x640, per-tap top views
 (ragged) beside staged rotated downscales into 640x360, N5's normalized
 letterboxes beside regions of a 12-bit uint16 sensor frame resized twice
 (two sources: the general nested instances), NV12 letterboxes beside NV12
-top views; and the batch axis of the flagship, W6, P2, D1 and D3 sharded
-over a device mesh (``parallel/mesh.py``).
+top views; DK1-DK4 (``split_cases``), divergent batches that neither the
+divergent kernel nor the composed kernel's divergent plan takes alone,
+through ``launch_divergent_batch`` in one launch of the split kernel
+(``cuda:divergent:split``: each block runs the divergent kernel's body or
+the composed kernel's, by its plane's part): a tracker's ring of 640x640
+planes beside letterboxes of the 1080p cameras, ``resize_batch`` crops of
+the 4K frame beside similarity warps of crops of it into 112x112, a stack
+of 720p images resized beside a 12-bit sensor's regions of interest into
+640x360, 1080p NV12 cameras converted and resized beside top views of the
+RGB cameras into 640x360; and the batch axis of the flagship, W6, P2, D1
+and D3 sharded over a device mesh (``parallel/mesh.py``).
 In phases; any failure ends the run with a non-zero exit
 code and no result line:
 
@@ -71,11 +80,13 @@ code and no result line:
    the composed kernel's nested instances' registers and spills logged on
    their own, and those of K6's instances and of its general instance, the
    staged mixed nested instance held at 64 registers, 4 blocks an SM, the
-   three general nested instances of a divergent batch named), then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
-   -sass``): in every instance of the six kernels no float32 add, multiply,
+   three general nested instances of a divergent batch named, the split
+   kernel's 20 instances with their shared memory, its staged ones held at
+   64 registers), then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
+   -sass``): in every instance of the six kernels and the split kernel no float32 add, multiply,
    compare or min/max without ``.FTZ`` (``-ftz=true``: the reference's
    float32 rule, ``utils/dtypes.py::flush_subnormal``) but for a warp map's
-   terms, an ``FMUL`` or ``FADD`` in the warp, divergent and composed
+   terms, an ``FMUL`` or ``FADD`` in the warp, divergent, composed and split
    kernels (``tools/kernel_sass.py::KEEP_TERMS``), and the float64 load's
    ``F2F.F32.F64`` without it;
 3. each kernel against its plain PyTorch version on the card. batch_resize at
@@ -159,7 +170,11 @@ code and no result line:
    instance logged), DV1 with every plane lifted into the nested instances
    (an identity resize; an empty FusedRead2: bit-equal to DV1's own launch)
    and DVN1's trees over float32 cameras of ``EDGES32`` (NaN, infinities,
-   subnormals) as int32 bits, and a resize of a crop that overhangs
+   subnormals) as int32 bits, DK1-DK4 and three more split batches
+   (``split_form_cases``: one-pixel reads into a uint8 batch, a staged part
+   into uint16, a FusedRead2 part into float16) through the split kernel
+   (both other routes refusing each; the parts, groups, form and instance
+   logged), and a resize of a crop that overhangs
    its frame (``overhang_cases``: past the right and the bottom edge and
    from a negative origin, one level, nested, a plane of a mixed batch, and
    K1's rects past the edges) at full width,
@@ -228,7 +243,10 @@ code and no result line:
    ``cuda:composed:divergent`` also under ``ParBackend.CUDA``, one launch
    of the composed kernel per call and none of the divergent kernel, no plan
    on the second, bit for bit the eager merge on the card; DVN1-DVN4 the same
-   way (new camera, NV12 and sensor frames);
+   way (new camera, NV12 and sensor frames); DK1-DK4 the same way (new
+   cameras, NV12 and sensor frames, a new ring and stack, new ``first``,
+   rects, matrices, origins and border value), ``cuda:divergent:split``, one
+   launch of the split kernel per call and none of the other two;
 5. times: device time of each kernel and of its plain PyTorch version
    (CUDA events, median), alternating plain, kernel, kernel, plain, and the
    kernel's duration in a ``torch.profiler`` trace of 20 launches (events
@@ -272,8 +290,13 @@ code and no result line:
    as a reference, each group's own composed launch over its planes,
    summed, with the instance each launch ran as the profiler names it;
    DVN1-DVN4 the same way, the profiler's instance the one
-   ``divergent_instance`` predicts; and DV1 by its one-level launch beside
+   ``divergent_instance`` predicts; DV1 by its one-level launch beside
    DV1 through the nested instances (each way of the lift), in turns;
+   DK1-DK4 the same way beside the eager merge and, as a reference, each
+   part's own launches over its groups' planes summed (the divergent
+   kernel over each of its groups cut to its planes, ``own_k6_sequence``;
+   the composed kernel over each of the others), the profiler's instance
+   the one ``cuda_divergent_split.instance`` predicts;
 6. sharding: (a) every rank of meshes of 2 and 5 (the flagship, 50 crops
    ragged at ``used_planes`` = 37) and of 2, 4 and 8 (W6; P2's ring from
    ``first`` = 3 and -5; D1 and D3) run on this card through the rank-local
@@ -308,6 +331,7 @@ imports neither jax nor cv2 and needs one card.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -1212,6 +1236,149 @@ def divergent_nested_cases(cvgs, cams, nv12s, sensor, values=0, chain=True) -> d
     }
 
 
+#: DK1's ring (planes, side) and DK3's stack (images, height, width)
+SPLIT_RING, SPLIT_STACK = (8, 640), (16, 720, 1280)
+
+
+def split_cases(cvgs, cams, ring, frame, stack, sensor, nv12s, values=0) -> dict:
+    """The divergent batches that neither the divergent kernel nor the
+    composed kernel's divergent plan takes alone and the split kernel runs
+    in one launch, DK1-DK4, at full width: ``name -> (plane ids, (op list
+    of each sequence))``; ``cams`` the eight 1080p cameras, ``ring`` a ring
+    of ``SPLIT_RING`` uint8 planes, ``frame`` the 4K frame, ``stack``
+    ``SPLIT_STACK`` uint8 images, ``sensor`` the 12-bit uint16 frame of
+    ``DV_SENSOR``, ``nv12s`` eight 1080p NV12 buffers. ``values`` 1 moves
+    every runtime value (``first``, rects, matrices, origins, the border
+    value) and keeps every size. DK1 a tracker's ring beside fresh
+    letterboxes: the ring read from ``first`` 3 (-5), normalized, beside
+    DV1's letterboxes of the cameras into 640x640, normalized, planar, ids
+    [1, 2] * 4; DK2 plain detector crops beside aligned faces:
+    ``resize_batch`` of 64 rects of 80 to 400 pixels of the 4K frame to
+    112x112 beside similarity warps of crops of the same regions to
+    112x112 (rotations of -15 to 15 degrees), each group reading its 32
+    planes, x1/255, -0.5, /0.5, planar, ids [1, 2] * 32; DK3 an image stack
+    resized beside a 12-bit sensor's ROIs: ``resize_batch`` of the stack's
+    16 720p images to 640x360, x1/255 (the group reading 8), beside DV2's
+    regions of interest of the sensor frame resized to 640x360, x1/4095,
+    planar, ids [1, 2] * 8; DK4 NV12 decoder cameras beside RGB top views:
+    the NV12 buffers converted into float32 RGB and resized to 640x360 (the
+    divergent kernel's NV12 kind), x1/255, -mean, /std, beside DVN1's top
+    views of the cameras (a perspective warp into 1920x1080, CONSTANT 0)
+    resized to 640x360 (a nested group), normalized, planar, ids [1, 2] *
+    4."""
+    normalize = (cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract(MEAN),
+                 cvgs.divide(STD))
+    unit = (cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.subtract(0.5), cvgs.divide(0.5))
+    side = DV_SIDES["dv1"]
+    (iw, ih), (t, b, l, r) = letterbox(FRAME_W, FRAME_H, side)
+    boxes = cvgs.batch_read([cvgs.make_border(
+        cvgs.resize(cvgs.image(c), cvgs.Size(iw, ih)), t, b, l, r, cvgs.BorderMode.CONSTANT,
+        114 - 14 * values) for c in cams])
+    regions = []
+    for k in range(64):
+        s = 80 + (k * 37) % 321
+        regions.append(((k * 523 + 11 * values) % (SRC_W - s), (k * 331 + 7 * values) % (SRC_H - s),
+                        s, s))
+    rects = np.asarray(regions, np.int32)
+    faces = cvgs.batch_read([cvgs.warp(
+        cvgs.crop(cvgs.image(frame), cvgs.Rect(x, y, s, s)),
+        rotation((s / 2, s / 2), -15.0 + 30.0 * k / 63 + 2.0 * values, 112 / s, to=(56, 56)),
+        cvgs.Size(112, 112)) for k, (x, y, s, _) in enumerate(regions)])
+    dst = cvgs.Size(*FRAME_DST)
+    h, w = sensor.shape[:2]
+    rois = cvgs.batch_read([cvgs.resize(cvgs.crop(cvgs.image(sensor), cvgs.Rect(x, y, rw, rh)), dst)
+                            for x, y, rw, rh in dv_rois(h, w, values)])
+    nv12_rgb = cvgs.batch_read([cvgs.resize(cvgs.fuse(cvgs.read_yuv(buf), cvgs.convert_yuv_to_rgb(
+        out_dtype=np.float32)), dst) for buf in nv12s])
+    full = cvgs.Size(FRAME_W, FRAME_H)
+    tops = cvgs.batch_read([cvgs.resize(cvgs.warp(cvgs.image(c), top_view(FRAME_W, FRAME_H,
+                                                                         k + values),
+                                                  full, warp_type=cvgs.WarpType.PERSPECTIVE,
+                                                  default=0.0), dst)
+                            for k, c in enumerate(cams)])
+    return {
+        "dk1_tracker_ring_beside_letterboxes": ([1, 2] * 4, (
+            (cvgs.circular_batch_read(ring, first=3 - 8 * values), *normalize,
+             cvgs.split_tensor()),
+            (boxes, *normalize, cvgs.split_tensor()))),
+        "dk2_detector_crops_beside_aligned_faces": ([1, 2] * 32, (
+            (cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(112, 112)), *unit,
+             cvgs.split_tensor()),
+            (faces, *unit, cvgs.split_tensor()))),
+        "dk3_stack_resized_beside_sensor_rois": ([1, 2] * 8, (
+            (cvgs.resize_batch(list(stack), dsize=dst),
+             cvgs.convert_to(np.float32, alpha=1 / 255.0), cvgs.split_tensor()),
+            (rois, cvgs.convert_to(np.float32, alpha=1 / 4095.0), cvgs.split_tensor()))),
+        "dk4_nv12_cameras_beside_rgb_top_views": ([1, 2] * 4, (
+            (nv12_rgb, cvgs.multiply(1 / 255.0), cvgs.subtract(MEAN), cvgs.divide(STD),
+             cvgs.split_tensor()),
+            (tops, *normalize, cvgs.split_tensor()))),
+    }
+
+
+def split_form_cases(cvgs, torch, cams, ring, frame, values=0) -> dict:
+    """The split kernel's other composed forms and output element types,
+    which phase 3 holds against the plain version: ``ring``'s planes, no
+    chain, beside ``crop_batch`` of 640x640 regions of the 4K frame under
+    convert_to(float32, 0.5, 3.25) (one-pixel reads: a float32 part stored
+    into the uint8 batch, packed); a 12-bit uint16 ring of 640x360 planes
+    beside the cameras resized to 960x540 and rotated into 640x360 (a
+    second resample staged), x16 (stored into the uint16 batch); a float16
+    ring beside N5's letterboxes into 640x640 (a resize fused with x1/255,
+    CONSTANT 0.447 above and below: a FusedRead2 alone; stored into the
+    float16 batch); ids [1, 2] * 4."""
+    side = SPLIT_RING[1]
+    tiles = [cvgs.Rect((k * 461 + 7 * values) % (SRC_W - side), (k * 263 + values) % (SRC_H - side),
+                       side, side) for k in range(8)]
+    mid, dst = cvgs.Size(960, 540), cvgs.Size(*FRAME_DST)
+    rotated = [cvgs.warp(cvgs.resize(cvgs.image(c), mid),
+                         rotation((mid.width / 2, mid.height / 2), 5.0 + 10.0 * k / 7 + 2 * values,
+                                  2 / 3, to=(dst.width / 2, dst.height / 2)), dst)
+               for k, c in enumerate(cams)]
+    (iw, ih), (t, b, l, r) = letterbox(FRAME_W, FRAME_H, side)
+    fused = [cvgs.make_border(cvgs.fuse(cvgs.resize(cvgs.image(c), cvgs.Size(iw, ih)),
+                                        cvgs.convert_to(np.float32, alpha=1 / 255.0)),
+                              t, b, l, r, cvgs.BorderMode.CONSTANT, 0.447 - 0.1 * values)
+             for c in cams]
+    ring16 = (ring[:, :FRAME_DST[1]].to(torch.int32) * 16).to(torch.uint16)
+    ring_f16 = ring.to(torch.float16) / 4
+    return {
+        "dk_one_pixel_into_a_u8_batch": ([1, 2] * 4, (
+            (cvgs.circular_batch_read(ring, first=1 + values), cvgs.write_tensor()),
+            (cvgs.crop_batch(cvgs.image(frame), tiles),
+             cvgs.convert_to(np.float32, alpha=0.5, beta=3.25), cvgs.write_tensor()))),
+        "dk_staged_into_a_u16_batch": ([1, 2] * 4, (
+            (cvgs.circular_batch_read(ring16, first=3 + values), cvgs.split_tensor()),
+            (cvgs.batch_read(rotated), cvgs.multiply(16.0), cvgs.split_tensor()))),
+        "dk_fused2_into_a_f16_batch": ([1, 2] * 4, (
+            (cvgs.circular_batch_read(ring_f16, first=-3 - values), cvgs.split_tensor()),
+            (cvgs.batch_read(fused), cvgs.split_tensor()))),
+    }
+
+
+def own_k6_sequence(cvgs, seq, planes):
+    """A divergent kernel group's sequence cut to its planes, as the
+    divergent kernel's own launch over them reads them: a ring's planes as
+    a ``BatchRead`` of the ring's planes they read, ``resize_batch``'s
+    rects (a stack's images too) of those planes, a ``BatchRead``'s reads
+    of them; with ids ``[1] * len(planes)``: what the split kernel's K6
+    part computes, alone."""
+    from cvgpuspeedup_tpu_torch.ops.memory import CircularBatchRead
+    from cvgpuspeedup_tpu_torch.ops.resize import BatchResizeRead
+
+    read, idx = seq.read, list(planes)
+    if isinstance(read, CircularBatchRead):
+        n, first = read.data.shape[0], int(read.first)
+        read = cvgs.batch_read([cvgs.image(read.data[(first + z if read.ascendent else first - z)
+                                                     % n]) for z in idx])
+    elif isinstance(read, BatchResizeRead):
+        read = dataclasses.replace(read, rects=read.rects[idx],
+                                   stack=None if read.stack is None else read.stack[idx])
+    else:
+        read = dataclasses.replace(read, ops=tuple(read.ops[z] for z in idx))
+    return dataclasses.replace(seq, read=read)
+
+
 # the dtypes a chain may hold beside uint8 and float32, and a scale that
 # brings a source of each to a few hundred
 NEW_DTYPES = {"i8": np.int8, "u16": np.uint16, "i16": np.int16, "f16": np.float16}
@@ -1756,6 +1923,7 @@ def main() -> int:
     from cvgpuspeedup_tpu_torch.exec import cuda_batch_resize as kbr
     from cvgpuspeedup_tpu_torch.exec import cuda_composed as kc
     from cvgpuspeedup_tpu_torch.exec import cuda_divergent as kd
+    from cvgpuspeedup_tpu_torch.exec import cuda_divergent_split as ks
     from cvgpuspeedup_tpu_torch.exec import cuda_frame_resize as kfr
     from cvgpuspeedup_tpu_torch.exec import cuda_pointwise as kp
     from cvgpuspeedup_tpu_torch.exec import cuda_warp as kw
@@ -1788,7 +1956,7 @@ def main() -> int:
         log("phase2 the library was built before this run: no compiler output")
     log(f"phase2 built {_build.library_path().name} from "
         f"{', '.join(src.name for src in _build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
-    entry, nested, k6 = "", {}, {}
+    entry, nested, k6, split = "", {}, {}, {}
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"phase2 ptxas: {line.strip()}")
@@ -1798,6 +1966,8 @@ def main() -> int:
             nested.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
         if "divergent_kernel" in entry and ("registers" in line or "spill" in line):
             k6.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+        if "divergent_split" in entry and ("registers" in line or "spill" in line):
+            split.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     # K6's instances, registers and spills: divergent.cu's eight (groups of
     # uint8, float32 and float64 sources) and the general instance's eight
     # (divergent_any.cu: a group of any of nine source dtypes), each an
@@ -1828,12 +1998,28 @@ def main() -> int:
                     f" {' '.join(lines)}" for e, lines in sorted(general.items()))
         + f"; card {card}")
     assert len(general) == 3, sorted(general)
+    # the split kernel's instances (divergent_split*.cu): K6's body beside the
+    # composed part's body, an output element type x the composed form (one
+    # pixel, a resample, a FusedRead2 alone, per tap, staged); registers,
+    # spills and static shared memory (under the 48 KB of a static
+    # allocation), the staged ones held at 64 registers, 4 blocks an SM
+    split_registers = {e: " ".join(lines) for e, lines in sorted(split.items())}
+    log(f"phase2 split instances, {len(split)}, from "
+        f"{', '.join(src.name for src in _build.SOURCES if 'divergent_split' in src.name)}: "
+        + "; ".join(f"{e}: {v}" for e, v in split_registers.items()) + f"; card {card}")
+    assert len(split) == 20, sorted(split)
+    for e, lines in split.items():
+        smem = [int(w) for line in lines for w in re.findall(r"(\d+) bytes smem", line)]
+        assert smem and max(smem) < 48 * 1024, (e, lines)
+        if "_staged" in e:
+            used = [int(w) for line in lines for w in re.findall(r"Used (\d+) registers", line)]
+            assert used and max(used) <= 64, (e, lines)
     # the float32 rule in the SASS: every float32 add, multiply, compare and
     # min/max flushes subnormals (.FTZ), and the float64 load converts
     # without .FTZ, so that a copy keeps a float32 subnormal. The one
     # exception, by name: a warp map's terms (warp.cuh's fmul_keep and
     # fadd_keep, PTX mul.rn.f32 and add.rn.f32), an FMUL or FADD without
-    # .FTZ in the warp, divergent and composed kernels alone
+    # .FTZ in the warp, divergent, composed and split kernels alone
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
     import kernel_sass
 
@@ -1862,6 +2048,7 @@ def main() -> int:
         "divergent": (kd, kd.divergent, kd.divergent_reference),
         "pointwise": (kp, kp.pointwise, kp.pointwise_reference),
         "composed": (kc, kc.composed, kc.composed_reference),
+        "divergent_split": (ks, ks.divergent_split, ks.split_reference),
     }
     max_err = {name: 0.0 for name in kernels}
     case_err = {}
@@ -2588,6 +2775,42 @@ def main() -> int:
     assert bad == 0 and sub > 0, (bad, sub)
     case_err["dvn1_edges_f32"] = 0.0
     del edge_cams
+    # the split batches DK1-DK4 at full width and the split kernel's other
+    # composed forms and output types: neither the divergent kernel nor the
+    # composed kernel's divergent plan takes one alone; one launch each of
+    # the split kernel, each plane's part from K6's table, equal to the plain
+    # version (the eager merge on the card, max |diff| 0)
+    split_ring = torch.from_numpy(rng.integers(0, 256, (SPLIT_RING[0], SPLIT_RING[1], SPLIT_RING[1],
+                                                        3), dtype=np.uint8)).to(dev)
+    split_stack = torch.from_numpy(rng.integers(0, 256, (*SPLIT_STACK, 3), dtype=np.uint8)).to(dev)
+    for name, (ids, ops) in {
+            **split_cases(cvgs, cams, split_ring, frame, split_stack, sensor, nv12_cams),
+            **split_form_cases(cvgs, torch, cams, split_ring, frame)}.items():
+        seqs = tuple(cvgs.build_operation_sequence(*o) for o in ops)
+        refused = []
+        for module, build in ((kd, kd.build_plan), (kc, kc.build_divergent_plan)):
+            try:
+                build(seqs, ids)
+            except module.Unsupported as e:
+                refused.append(str(e))
+            else:
+                raise AssertionError(f"{name}: {module.__name__} takes it")
+        sa = ks.prepare(seqs, ks.build_split_plan(seqs, ids), dev)
+        before = ks.LAUNCHES
+        got = ks.divergent_split(sa)
+        launched = ks.LAUNCHES - before
+        compare(name, "divergent_split", got, ks.split_reference(sa), 0.0)
+        plan = sa.plan
+        assert launched == 1, (name, launched)
+        k6_groups = [(g.sid, g.kind, str(g.src_dtype)[6:]) for g in plan.k6.groups]
+        cm_groups = [(g.sid, g.plan.core, g.plan.core2 or "-", str(g.plan.src_dtype)[6:])
+                     for g in plan.composed.groups]
+        log(f"phase3 divergent_split {name}: {plan.n_planes} planes of {plan.dsize[0]}x"
+            f"{plan.dsize[1]} {plan.out_dtype}, parts {plan.parts.tolist()}, K6's groups (sid, "
+            f"kind, source) {k6_groups}, the composed part's (sid, core, core2, source) "
+            f"{cm_groups}, form {plan.form}, instance {ks.instance(plan)}, {plan.consts.size} "
+            f"consts words, {sa.block.numel()} block words; refused alone: {refused[0]}; "
+            f"{refused[1]}")
     # a resize of a crop that overhangs its frame, as the reference's
     # op-by-op lowering reads it (tests/test_torch_overhanging_crops.py):
     # each kernel against its plain version at full width
@@ -3239,6 +3462,45 @@ def main() -> int:
         assert (seen[0][0], seen[1][0]) == (1, 2) and kd.LAUNCHES == 0, (seen, kd.LAUNCHES)
         assert seen[0][1] <= builds0 + 1 and seen[1][1] == seen[0][1], (builds0, seen)
         assert same and not torch.equal(outs[0], outs[1]) and bool(torch.isfinite(outs[1]).all())
+
+    # the split batches DK1-DK4 twice each through launch_divergent_batch, the
+    # second call with new camera, NV12 and sensor frames, a new ring and
+    # stack of the same sizes, and a new first, rects, matrices, origins and
+    # border value: cuda:divergent:split, one launch of the split kernel per
+    # call (the counts set to 0 just before), none of the divergent or the
+    # composed kernel, no plan on the second, bit for bit the eager merge on
+    # the card, finite
+    split_launches = 0
+    ring_next = torch.from_numpy(rng.integers(0, 256, tuple(split_ring.shape), dtype=np.uint8)
+                                 ).to(dev)
+    stack_next = torch.from_numpy(rng.integers(0, 256, tuple(split_stack.shape), dtype=np.uint8)
+                                  ).to(dev)
+    for name in split_cases(cvgs, cams, split_ring, frame, split_stack, sensor, nv12_cams):
+        ks.LAUNCHES, kd.LAUNCHES, kc.LAUNCHES = 0, 0, 0
+        builds0 = executor.PLAN_BUILDS
+        outs, backends, seen = [], [], []
+        for values, frames, rg, st, sens, bufs in (
+                (0, cams, split_ring, split_stack, sensor, nv12_cams),
+                (1, cams_next, ring_next, stack_next, sensor_next, nv12_next)):
+            ids, ops = split_cases(cvgs, frames, rg, frame, st, sens, bufs, values)[name]
+            seqs = tuple(cvgs.build_operation_sequence(*o) for o in ops)
+            outs.append(drive("divergent_split", lambda: cvgs.launch_divergent_batch(ids, *seqs)))
+            backends.append(cvgs.last_backend())
+            seen.append((ks.LAUNCHES, executor.PLAN_BUILDS))
+        torch.cuda.synchronize()
+        split_launches += ks.LAUNCHES
+        others = kd.LAUNCHES + kc.LAUNCHES
+        eager = cvgs.launch_divergent_batch(ids, *seqs, backend=cvgs.ParBackend.TORCH)
+        same = torch.equal(outs[1].view(torch.int32), eager.view(torch.int32))
+        log(f"phase4 split divergent path ({name}): backends {backends}; split launches "
+            f"{seen[0][0]} {seen[1][0]}, divergent and composed kernel launches {others}; plan "
+            f"builds {builds0} -> {seen[0][1]} -> {seen[1][1]}; {tuple(outs[1].shape)} "
+            f"{outs[1].dtype}; equal to the eager merge {same}")
+        assert backends == ["cuda:divergent:split"] * 2, backends
+        assert (seen[0][0], seen[1][0]) == (1, 2) and others == 0, (seen, others)
+        assert seen[0][1] <= builds0 + 1 and seen[1][1] == seen[0][1], (builds0, seen)
+        assert same and not torch.equal(outs[0], outs[1]) and bool(torch.isfinite(outs[1]).all())
+    del ring_next, stack_next
 
     # 64-bit values are int32 and float32 where they enter, as in the
     # reference (64-bit values off): an int64 or a float64 frame on the card
@@ -4421,6 +4683,65 @@ def main() -> int:
                                f"(events / profiler, {t['instance']})"
                                for tag, t in lift_cost.items()) + f"; card {card}")
 
+    # the split batches DK1-DK4 the same way: kernel vs plain version, bound
+    # (each part's sectors or bytes and operations over its own planes,
+    # summed), floor, the eager merge it replaces (its kernels a call), and,
+    # as a reference (not one call), each part's own launches over its
+    # groups' planes summed: the divergent kernel over each of its groups
+    # (own_k6_sequence), the composed kernel over each of the others; the
+    # instance the profiler names; library_ms null (no one library call runs
+    # different sequences on the planes of a batch)
+    split_times = {}
+    for name, (ids, ops) in split_cases(cvgs, cams, split_ring, frame, split_stack, sensor,
+                                        nv12_cams).items():
+        seqs = map_leaves(tuple(cvgs.build_operation_sequence(*o) for o in ops),
+                          lambda v: as_device_tensor(v, dev))
+        sargs = ks.prepare(seqs, ks.build_split_plan(seqs, ids), dev)
+        launched = set()
+        t = measure(lambda: ks.divergent_split(sargs), lambda: ks.split_reference(sargs), 50,
+                    what=name, plain_iters=5, names=launched)
+        t.update(bounds.bound(*ks.work(sargs), bandwidth))
+        t["max_abs_err"] = case_err[name]
+        t["library_ms"] = t["library_profiler_ms"] = None
+        t["instances"] = kernel_names(launched)
+        t["predicted_instance"] = ks.instance(sargs.plan)
+        assert t["instances"] == t["predicted_instance"], (t["instances"], t["predicted_instance"])
+        t["parts_ms"] = t["parts_profiler_ms"] = 0.0
+        parts = []
+        for g in sargs.plan.k6.groups:
+            own = (own_k6_sequence(cvgs, seqs[g.sid - 1], g.planes),)
+            gargs = kd.prepare(own, kd.build_plan(own, [1] * len(g.planes)), dev)
+            parts.append((f"{name} K6 group {g.sid}", lambda a=gargs: kd.divergent(a)))
+        for g in sargs.plan.composed.groups:
+            gpipe = kc._group_pipeline(seqs[g.sid - 1], g.planes)
+            cargs = kc.prepare(gpipe, kc.build_plan(gpipe), dev)
+            parts.append((f"{name} composed group {g.sid}", lambda a=cargs: kc.composed(a)))
+        for what, fn in parts:
+            t["parts_ms"] += float(np.median(time_cuda(fn, iters=50)))
+            t["parts_profiler_ms"] += profiler_ms(fn, what=what)
+        eager = lambda: cvgs.launch_divergent_batch(ids, *seqs,  # noqa: E731
+                                                    backend=cvgs.ParBackend.TORCH)
+        t["eager_ms"] = float(np.median(time_cuda(eager, iters=10)))
+        t["eager_profiler_ms"] = profiler_ms(eager, calls=5, what=f"{name} eager")
+        t["eager_launches"], t["eager_copies"] = eager_launches(eager)
+        whole = []
+        for _ in range(40):
+            t0 = time.perf_counter()
+            cvgs.launch_divergent_batch(ids, *seqs)
+            torch.cuda.synchronize()
+            whole.append(time.perf_counter() - t0)
+        t["call_ms"] = float(np.median(whole[10:])) * 1e3
+        assert cvgs.last_backend() == "cuda:divergent:split"
+        split_times[name] = t
+        log(f"phase5 divergent_split {name} ({t['instances']}): {describe(t)}; each part's own "
+            f"launches over its groups' planes, summed (a reference, not one call), "
+            f"{t['parts_ms'] * 1e3:.2f} us by events, {t['parts_profiler_ms'] * 1e3:.2f} us by "
+            f"torch.profiler; the eager merge (ParBackend.TORCH) {t['eager_ms'] * 1e3:.2f} us by "
+            f"events, {t['eager_profiler_ms'] * 1e3:.2f} us by torch.profiler, "
+            f"{t['eager_launches']:.0f} kernels and {t['eager_copies']:.0f} copies a call; "
+            f"launch_divergent_batch host-inclusive {t['call_ms'] * 1e3:.2f} us/call (median of "
+            f"30)")
+
     # an int64 frame through a 3-op chain, which ran eagerly (one launch per
     # op) until int64 became int32 where it enters: one launch of the
     # pointwise kernel, which reads it at load, beside the same chain on the
@@ -4740,8 +5061,15 @@ def main() -> int:
               circular_tensor_update_ms=ct_update_ms, dtype_path=dtype_times["d1_into_int16"],
               int32_path=dtype_times["d1_into_i32"], x64_path=dtype_times["d1_f64_ring"],
               source_dtype_cases=k6_times, registers=k6_registers,
-              also_sources=["cvgpuspeedup_tpu_torch/csrc/divergent_any.cu"],
-              sharded_launches=sharded_launches["divergent"]),
+              also_sources=["cvgpuspeedup_tpu_torch/csrc/divergent_any.cu"]
+              + [f"cvgpuspeedup_tpu_torch/csrc/{src.name}" for src in _build.SOURCES
+                 if src.name.startswith("divergent_split")],
+              sharded_launches=sharded_launches["divergent"],
+              # the split kernel (K6's body beside the composed kernel's, by
+              # plane): DK1-DK4, its launches over phase 4's calls
+              split_cases=split_times, split_launches=split_launches,
+              split_launches_per_call=split_launches / path_calls["divergent_split"],
+              split_max_abs_err=max_err["divergent_split"], split_registers=split_registers),
         # P1, the MAD stress (bound by its unfused operations); P1-P5 below. No
         # Pallas counterpart: it replaces the reference's jitted XLA program
         entry("pointwise", "pointwise.cu", "cvgpuspeedup_tpu/exec/executor.py:243",

@@ -735,27 +735,36 @@ __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel(
                            store_op, sn, sc, sy, sx);
 }
 
-// A mixed-geometry batch's instance: the block's plane head (kCmWords
-// consts words at blockIdx.z * kCmWords) copied into shared memory, then
-// the body over it. A divergent batch's general instance (Src AnyImage,
-// which runs no other batch) takes its plane's store row, consts word
-// gridDim.z * kCmWords + blockIdx.z, as the launch's store_op.
+// The block's plane head of a mixed-geometry or divergent batch: the
+// kWords consts words at blockIdx.z * kWords (a CmHead's, or a nested
+// plan's CmNested: the split kernel's, divergent_split.cuh) copied by the
+// block's threads into `words`, in shared memory, then a barrier. A
+// divergent batch's general instance (Src AnyImage, which runs no other
+// batch) takes its plane's store row, consts word gridDim.z * kWords +
+// blockIdx.z, as the launch's store_op.
+template <typename Src, int kWords>
+__device__ __forceinline__ void copy_plane_head(int* words, const int* __restrict__ consts,
+                                                int& store_op) {
+  const int* rec = consts + (long long)blockIdx.z * kWords;
+  const int threads = blockDim.x * blockDim.y;
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < kWords; i += threads) {
+    words[i] = __ldg(rec + i);
+  }
+  if constexpr (std::is_same_v<Src, AnyImage>) {
+    store_op = __ldg(consts + (long long)gridDim.z * kWords + blockIdx.z);
+  }
+  __syncthreads();
+}
+
+// A mixed-geometry batch's instance: the block's plane head copied into
+// shared memory (copy_plane_head), then the body over it.
 template <typename Src, int T, int P>
 __global__ void __launch_bounds__(kThreads, (kBlocks<Src, T>)) composed_kernel_mixed(
     const void* __restrict__ src, Conv conv, const int* __restrict__ blk,
     const int* __restrict__ consts, int dst_w, int dst_h, void* __restrict__ out, int out_type,
     int out_ch, int store_op, long long sn, long long sc, long long sy, long long sx) {
   __shared__ CmHead h;
-  const int* rec = consts + (long long)blockIdx.z * kCmWords;
-  int* words = reinterpret_cast<int*>(&h);
-  const int threads = blockDim.x * blockDim.y;
-  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < kCmWords; i += threads) {
-    words[i] = __ldg(rec + i);
-  }
-  if constexpr (std::is_same_v<Src, AnyImage>) {
-    store_op = __ldg(consts + (long long)gridDim.z * kCmWords + blockIdx.z);
-  }
-  __syncthreads();
+  copy_plane_head<Src, kCmWords>(reinterpret_cast<int*>(&h), consts, store_op);
   composed_body<Src, T, P>(src, h, conv, blk, consts, dst_w, dst_h, out, out_type, out_ch,
                            store_op, sn, sc, sy, sx);
 }

@@ -46,18 +46,6 @@
 
 namespace {
 
-// The checks of one plane's nested head that the launch does not set: the
-// inner level's (head_ok), a resampling core, and the second level's words.
-bool nested_ok(const kc::CmNested& n) {
-  const CmHead& h = n.h;
-  return head_ok(h) && (h.core == CM_RESIZE || h.core == CM_WARP) && n.above.n_stages >= 0 &&
-         n.above.n_stages <= kMaxStages && n.below.n_stages >= 0 &&
-         n.below.n_stages <= kMaxStages && n.core2 >= CM_NONE && n.core2 <= CM_WARP &&
-         n.mid_ch >= 1 && n.mid_ch <= kMaxCh && n.mid_type >= PW_U8 && n.mid_type <= PW_I32 &&
-         n.mid_n_ops >= 0 && n.core2_h >= 1 && n.core2_w >= 1 && n.mid_h >= 1 && n.mid_w >= 1 &&
-         n.stage2 >= 0 && n.stage2 <= 1;
-}
-
 // Whether nested plane heads a and b of a mixed-geometry batch differ in
 // geometry alone: same_structure's, the middle image's and the second
 // level's output sizes, the second resample's edge rule and tap tables,
@@ -68,14 +56,6 @@ bool same_nested(const kc::CmNested& a, const kc::CmNested& b) {
          a.coef2_off == b.coef2_off && a.border2_off == b.border2_off &&
          a.mid_type == b.mid_type && a.mid_ch == b.mid_ch && a.mid_n_ops == b.mid_n_ops &&
          a.mid_ops_off == b.mid_ops_off && a.mid_fp_off == b.mid_fp_off;
-}
-
-// Whether nested plane head b of a divergent batch runs in the launch of
-// plane head a: what picks the instance alone (same_instance's words, and
-// a second resample where a has one: the kR2 flag), not same_nested's
-// structure.
-bool same_nested_instance(const kc::CmNested& a, const kc::CmNested& b) {
-  return same_instance(a.h, b.h) && (a.core2 == CM_NONE) == (b.core2 == CM_NONE);
 }
 
 }  // namespace

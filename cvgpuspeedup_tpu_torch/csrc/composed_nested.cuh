@@ -801,6 +801,9 @@ __global__ void __launch_bounds__(kThreads, 4) composed_kernel_nested_staged(CVG
 template <typename Src, bool kR2, bool kStage>
 __device__ __forceinline__ void nested_mixed_body(CVGS_NESTED_MIXED_PARAMS) {
   __shared__ CmNested n;
+  // composed.cuh::copy_plane_head's loop, kept here: called through it, these
+  // instances compiled to other SASS (the split kernel's nested instances
+  // call it)
   const int* rec = consts + (long long)blockIdx.z * kNestedWords;
   int* words = reinterpret_cast<int*>(&n);
   for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < kNestedWords;
@@ -865,4 +868,29 @@ void launch_nested(const ComposedArgs& a) {
 }
 
 }  // namespace kc
+}  // namespace
+
+namespace {
+
+// The C entries' checks of one plane's nested head (composed_nested.cu,
+// divergent_split.cu), the words the launch does not set: the inner
+// level's (head_ok), a resampling core, and the second level's words.
+inline bool nested_ok(const kc::CmNested& n) {
+  const CmHead& h = n.h;
+  return head_ok(h) && (h.core == CM_RESIZE || h.core == CM_WARP) && n.above.n_stages >= 0 &&
+         n.above.n_stages <= kMaxStages && n.below.n_stages >= 0 &&
+         n.below.n_stages <= kMaxStages && n.core2 >= CM_NONE && n.core2 <= CM_WARP &&
+         n.mid_ch >= 1 && n.mid_ch <= kMaxCh && n.mid_type >= PW_U8 && n.mid_type <= PW_I32 &&
+         n.mid_n_ops >= 0 && n.core2_h >= 1 && n.core2_w >= 1 && n.mid_h >= 1 && n.mid_w >= 1 &&
+         n.stage2 >= 0 && n.stage2 <= 1;
+}
+
+// Whether nested plane head b of a divergent batch runs in the launch of
+// plane head a: what picks the instance alone (same_instance's words, and
+// a second resample where a has one: the kR2 flag), not same_nested's
+// structure.
+inline bool same_nested_instance(const kc::CmNested& a, const kc::CmNested& b) {
+  return same_instance(a.h, b.h) && (a.core2 == CM_NONE) == (b.core2 == CM_NONE);
+}
+
 }  // namespace

@@ -206,6 +206,17 @@ def load(csrc_dir: Optional[Path] = None, build_dir: Optional[Path] = None) -> c
                 # a nested plan's head: its CmNested words; the rest as above
                 lib.cvgs_composed_nested.argtypes = lib.cvgs_composed.argtypes
                 lib.cvgs_composed_nested.restype = ctypes.c_int
+            if csrc_dir is None or hasattr(lib, "cvgs_divergent_split"):
+                lib.cvgs_divergent_split.argtypes = [
+                    p, p, i, i, i,             # blk, consts, ptr_off, desc_off, n_groups
+                    i, i, p, i,                # cm_blk_off, cm_consts_off, head (host), nested
+                    f, f, f, f, f, f,          # ys, cs, rv, gu, gv, bu
+                    i, i, i,                   # n_planes, dst_w, dst_h
+                    p, i, i,                   # out, out_type, out_ch
+                    ll, ll, ll, ll,            # sn, sc, sy, sx
+                    p,                         # stream
+                ]
+                lib.cvgs_divergent_split.restype = ctypes.c_int
             lib.cvgs_error_string.argtypes = [ctypes.c_int]
             lib.cvgs_error_string.restype = ctypes.c_char_p
             _LIB = lib

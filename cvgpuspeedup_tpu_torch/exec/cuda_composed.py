@@ -65,15 +65,19 @@ nested every head is a nested one, each nested plane with its own
 ``stage2``: a plane without a second resample beside one with it (a
 letterbox beside a top view) carries an identity resize as its second
 level, which copies its value (:func:`_lift`); with no second resample in
-the batch a one-level plane carries an empty ``FusedRead2`` instead. It
-stays eager (:func:`build_divergent_plan` names each): a group of a kind
-only the divergent kernel reads (a ring, a batched image stack,
-``resize_batch``) beside a composed group; an NV12 group beside an image
-group; NV12 groups whose chains end in different dtypes (the NV12
-instances store with one row); a resampling group beside a one-pixel
-group; groups of different output (C, H, W); groups converting YUV with
-different coefficients; and a group that :func:`build_plan` refuses (a
-third resampling node).
+the batch a one-level plane carries an empty ``FusedRead2`` instead. A
+group of a kind only the divergent kernel reads (a ring, a batched image
+stack, ``resize_batch``) beside composed groups, and an NV12 group of the
+divergent kernel's kind beside image groups, run in one launch of the
+split kernel (``cuda_divergent_split``, the third route): the divergent
+kernel's body on that group's planes, this kernel's general bodies on the
+others', whose plan is :func:`build_divergent_plan` of those groups alone
+(``sids``). It stays eager (:func:`build_divergent_plan` names each): an
+NV12 group the divergent kernel refuses beside an image group; NV12
+groups whose chains end in different dtypes (the NV12 instances store with
+one row); a resampling group beside a one-pixel group; groups of different
+output (C, H, W); groups converting YUV with different coefficients; and a
+group that :func:`build_plan` refuses (a third resampling node).
 
 What stays eager, and why (``_plane``
 names each):
@@ -168,13 +172,13 @@ from ..ops.warp import WarpRead
 from ..types import BorderMode, InterpolationType, PixelFormat, Size, WarpType
 from ..utils import bounds
 from ..utils import dtypes as dt
-from ..utils.dtypes import as_device_tensor, kernel_source
+from ..utils.dtypes import as_device_tensor
 from . import _build
 from . import cuda_batch_resize as kbr
 from . import cuda_pointwise as kp
 from .cuda_batch_resize import (_MAX_CHANNELS, _MAX_PLANES, SRC_CODES, SRC_DTYPES, TYPE_CODES,
                                 Unsupported, _leaf_dtype_name, encode_chain, store_cast)
-from .cuda_divergent import _Block, _image_geometry, groups_of
+from .cuda_divergent import _Block, _image_geometry, groups_of, moved_source
 from .cuda_pointwise import BORDER_MODES, MAX_STAGES, STAGE_BORDER, STAGE_CROP, _stages, _unwrap
 from .cuda_warp import _MAX_SIDE, _SINGLE_LAYOUTS, _size
 
@@ -930,7 +934,8 @@ def _lift(q: ComposedPlan, head: Tuple[int, ...], form: str, mid_ops_off: int,
                        mid_type=TYPE_CODES[torch.float32], stage2=0)
 
 
-def build_divergent_plan(seqs, plane_ids, lift: Optional[str] = None) -> ComposedPlan:
+def build_divergent_plan(seqs, plane_ids, lift: Optional[str] = None, sids=None,
+                         out_dtype: Optional[torch.dtype] = None) -> ComposedPlan:
     """The kernel plan of a divergent batch (``launch_divergent_batch``:
     plane ``z`` runs sequence ``plane_ids[z]``) whose every group, sequence
     ``sid`` on its planes, is a ``BatchRead`` that :func:`build_plan` takes
@@ -955,7 +960,13 @@ def build_divergent_plan(seqs, plane_ids, lift: Optional[str] = None) -> Compose
     ``used_planes`` (counted over the batch's planes). ``lift`` ("resize"
     or "none", ``LIFTS``) makes every head a nested one with that second
     level where the batch has no second resample (a one-level batch run
-    through the nested instances, to price what a plane pays there)."""
+    through the nested instances, to price what a plane pays there).
+
+    With ``sids`` (sequence ids) the plan of those groups alone, the
+    composed part of a split batch (``cuda_divergent_split``): every other
+    plane's head and store row are zeros (``for_plane`` gives None there)
+    and its source address 0; ``out_dtype``, where given, is the batch's
+    dtype, into which each group's store row casts."""
     n = len(plane_ids)
     if not 1 <= n <= _MAX_PLANES:
         raise Unsupported(f"{n} planes")
@@ -964,12 +975,14 @@ def build_divergent_plan(seqs, plane_ids, lift: Optional[str] = None) -> Compose
         raise Unsupported(f"write {type(seqs[0].write).__name__} of a batch")
     groups = []
     for sid, planes in groups_of(plane_ids).items():
+        if sids is not None and sid not in sids:
+            continue
         seq = seqs[sid - 1]
         if not isinstance(seq.read, BatchRead):
             raise Unsupported(
                 f"sequence {sid} reads a {type(seq.read).__name__}, not a BatchRead of read "
                 "trees: a ring, a batched image stack and resize_batch are the divergent "
-                "kernel's alone")
+                "kernel's (beside composed groups, the split kernel's)")
         if len(seq.read.ops) != n:
             raise Unsupported(f"sequence {sid} reads {len(seq.read.ops)} planes for {n}")
         pipe = _group_pipeline(seq, planes)
@@ -984,6 +997,7 @@ def build_divergent_plan(seqs, plane_ids, lift: Optional[str] = None) -> Compose
                else [gplan] * len(planes))
         groups.append((sid, tuple(planes), own[0], own))
     first = groups[0][2]
+    batch_dtype = first.out_dtype if out_dtype is None else out_dtype
     for sid, _, gplan, _ in groups[1:]:
         if (gplan.dsize, gplan.out_ch) != (first.dsize, first.out_ch):
             raise Unsupported(
@@ -1039,7 +1053,7 @@ def build_divergent_plan(seqs, plane_ids, lift: Optional[str] = None) -> Compose
     out = []
     for (sid, planes, gplan, own), ops_off in zip(groups, ops_at):
         out.append(DivergentGroup(sid=sid, planes=planes, plan=gplan,
-                                  store=store_cast(gplan.out_dtype, first.out_dtype)))
+                                  store=store_cast(gplan.out_dtype, batch_dtype)))
         shared = pos - 2 * len(planes)  # from the group's own block to the batch's
         mid_ops_off = ops_off + gplan.word("taps_off")
         for j, (z, q) in enumerate(zip(planes, own)):
@@ -1064,14 +1078,18 @@ def build_divergent_plan(seqs, plane_ids, lift: Optional[str] = None) -> Compose
             at += taps.size + taps2.size
         pos += gplan.n_block - 4 - 2 * len(planes)
     consts = np.concatenate(tables).astype(np.int32)
-    planes_ = tuple(dataclasses.replace(q, head=hd, tables=consts, device_consts={})
+    planes_ = tuple(None if q is None else
+                    dataclasses.replace(q, head=hd, tables=consts, device_consts={})
                     for q, hd in zip(plans, heads))
     conv = next(iter(converting))[0] if converting else first.conv
     core2 = next((c for c in seconds if c in ("resize", "warp")), form)
-    plan = dataclasses.replace(planes_[0], n_planes=n, layout=layout, conv=conv, n_block=pos + 4,
-                               core2=core2, planes=planes_, groups=tuple(out), device_consts={})
-    consts[:n * width + n] = np.concatenate([np.asarray(heads, np.int32).reshape(-1),
-                                             plan.stores])
+    plan = dataclasses.replace(planes_[groups[0][1][0]], n_planes=n, layout=layout, conv=conv,
+                               n_block=pos + 4, core2=core2, out_dtype=batch_dtype,
+                               planes=planes_, groups=tuple(out), device_consts={})
+    empty = (0,) * width  # a plane of the split batch's other part
+    consts[:n * width + n] = np.concatenate([
+        np.asarray([empty if hd is None else hd for hd in heads], np.int32).reshape(-1),
+        plan.stores])
     return plan
 
 
@@ -1202,15 +1220,15 @@ def prepare(pipeline, plan: ComposedPlan, device: torch.device) -> Launch:
                   block=blk.to(device), consts=plan.consts(device))
 
 
-def _source(p: _Plane, srcs: List, index: Dict, device) -> int:
+def _source(p: _Plane, srcs: List, index: Dict, device, moved: Optional[Dict] = None) -> int:
     """The index in ``srcs`` of plane ``p``'s base array, appended on
     ``device`` where it is not there yet (one entry however many planes
-    read it)."""
+    read it; ``cuda_divergent.moved_source``)."""
     leaf = _base_leaf(p.base)
     k = index.get(id(leaf))
     if k is None:
         k = index[id(leaf)] = len(srcs)
-        srcs.append(kernel_source(leaf, device).contiguous())
+        srcs.append(moved_source(leaf, device, moved))
     return k
 
 
@@ -1254,23 +1272,32 @@ def _prepare_divergent(seqs, plan: ComposedPlan, device: torch.device) -> Launch
     plan's layout (a nested group's second level's among them), in one
     block; a plane carried through an identity resize or an empty
     FusedRead2 adds none."""
+    srcs, plane_src, blk = divergent_block(seqs, plan, device)
+    return Launch(plan=plan, pipeline=tuple(seqs), srcs=tuple(srcs),
+                  plane_src=tuple(plane_src), block=blk.to(device), consts=plan.consts(device))
+
+
+def divergent_block(seqs, plan: ComposedPlan, device: torch.device, moved: Optional[Dict] = None):
+    """``(sources, each plane's source index, block)`` of
+    :func:`_prepare_divergent`, the block's words still on the host
+    (``cuda_divergent._Block``); a plane of a split batch's other part has
+    source index -1 and address 0."""
     srcs: List[torch.Tensor] = []
     index: Dict[int, int] = {}
-    plane_src = [0] * plan.n_planes
+    plane_src = [-1] * plan.n_planes
     trees = _group_trees(seqs, plan)
     for g, t in zip(plan.groups, trees):
         for z, p in zip(g.planes, t.planes):
-            plane_src[z] = _source(p, srcs, index, device)
+            plane_src[z] = _source(p, srcs, index, device, moved)
     blk = _Block()
-    blk.put(np.asarray([srcs[k].data_ptr() for k in plane_src], np.uint64).view(np.int32),
-            np.int32)
+    blk.put(np.asarray([srcs[k].data_ptr() if k >= 0 else 0 for k in plane_src], np.uint64)
+            .view(np.int32), np.int32)
     for g, t in zip(plan.groups, trees):
         _put_values(blk, t, g.plan)
     blk.put(np.zeros(4, np.int32), np.int32)
     if blk.size != plan.n_block:
         raise ValueError(f"the block holds {blk.size} words, the plan {plan.n_block}")
-    return Launch(plan=plan, pipeline=tuple(seqs), srcs=tuple(srcs),
-                  plane_src=tuple(plane_src), block=blk.to(device), consts=plan.consts(device))
+    return srcs, plane_src, blk
 
 
 # ---------------------------------------------------------------------------
@@ -1683,7 +1710,7 @@ def _check(a: Launch) -> None:
         raise ValueError("parameter block or tables do not match the plan")
     if plan.planes:
         if any(a.srcs[k].numel() != plan.for_plane(z).src_numel
-               for z, k in enumerate(a.plane_src)):
+               for z, k in enumerate(a.plane_src) if k >= 0):
             raise ValueError("a source does not match its plane's plan")
     elif any(s.numel() != plan.src_numel for s in a.srcs):
         raise ValueError("a source does not match the plan")
@@ -1905,7 +1932,8 @@ def _divergent_work(a: Launch) -> Tuple[int, int, int]:
     counts: dict = {}
     _divergent_reference(a, touched, counts)
     found, ops = [], 0
-    for z in range(plan.n_planes):
+    mine = [z for g in plan.groups for z in g.planes]  # a split batch's part: its own planes
+    for z in mine:
         q = plan.for_plane(z)
         out_n = q.word("out_n_ops")
         if z not in touched:  # past its group's used_planes
@@ -1919,7 +1947,7 @@ def _divergent_work(a: Launch) -> Tuple[int, int, int]:
             found += (_touched_sectors(a, touched[z]) if "warp" in (q.core, q.core2)
                       else _grid_sectors(a, z))
     src = int(np.unique(np.concatenate([np.asarray(f) for f in found])).size) * 32 if found else 0
-    return out_bytes, src, ops
+    return out_bytes // plan.n_planes * len(mine), src, ops
 
 
 def _core_evals(a: Launch) -> int:

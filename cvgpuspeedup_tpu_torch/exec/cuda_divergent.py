@@ -66,8 +66,13 @@ uint8, groups that differ in output (H, W, C), more than 4 channels.
 The executor (``executor._select_divergent``) tries this kernel first, then
 the composed-read kernel's divergent plan
 (``cuda_composed.build_divergent_plan``: groups that are each a
-``BatchRead`` of one-level composed read trees, such as letterboxes, ROI
-resizes, warps of crops and ``crop_batch``, of any source dtype), then
+``BatchRead`` of composed read trees, one level or nested, such as
+letterboxes, ROI resizes, warps of crops and ``crop_batch``, of any source
+dtype), then the split kernel (``cuda_divergent_split``: this kernel's
+body on the planes of its groups of a ring, an image stack,
+``resize_batch`` or NV12 reads, the composed kernel's on the others', in
+one launch; this kernel's part is :func:`build_plan` of those groups alone,
+``sids``, its table marking the other planes ``FOREIGN``), then
 :func:`merge`; every batch this kernel takes keeps it.
 The reference's TPU kernel refuses a ragged ``BatchRead`` group
 (``pallas_divergent.py:166``); this kernel takes it. None of the TPU kernel's schedule
@@ -107,6 +112,9 @@ LAUNCHES = 0
 # group kinds; keep in step with csrc/divergent.cu
 KINDS = ("image", "circ", "crop_resize", "resize", "nv12", "warp")
 DESC_INTS = 16      # ints per group descriptor; csrc/divergent.cu reads the same fields
+#: the table entry of a plane that no group of the plan computes (a plane
+#: of the composed part of a split batch, ``cuda_divergent_split``)
+FOREIGN = -1
 #: the source dtypes the kernel reads, by name: those of K1 and the warp
 #: kernel
 SRC_DTYPES = kbr.SRC_DTYPES
@@ -328,8 +336,13 @@ def _classify(seq, n: int):
     return "nv12", geo, 4 if conv0.alpha else 3, torch.float32, (dst_h, dst_w), {"tables": tables}
 
 
-def build_plan(seqs, plane_ids) -> DivergentPlan:
-    """The kernel plan of a divergent batch; raises :class:`Unsupported`."""
+def build_plan(seqs, plane_ids, sids=None, out_dtype: Optional[torch.dtype] = None
+               ) -> DivergentPlan:
+    """The kernel plan of a divergent batch; raises :class:`Unsupported`.
+    With ``sids`` (sequence ids) the plan of those groups alone, K6's part
+    of a split batch (``cuda_divergent_split``): the table marks every
+    other plane ``FOREIGN``, and ``out_dtype``, where given, is the batch's
+    dtype, into which each group's store row casts."""
     n = len(plane_ids)
     if not 1 <= n <= _MAX_PLANES:
         raise Unsupported(f"{n} planes")
@@ -337,10 +350,13 @@ def build_plan(seqs, plane_ids) -> DivergentPlan:
     if layout is None:
         raise Unsupported(f"write {type(seqs[0].write).__name__}")
     groups, rows, tables = [], [], []
-    shape = out_dtype = None
+    shape = None
     n_rows = 0
     extra_off = 0  # words of NV12 tables, placed after every op row
-    for g, (sid, planes) in enumerate(groups_of(plane_ids).items()):
+    for sid, planes in groups_of(plane_ids).items():
+        if sids is not None and sid not in sids:
+            continue
+        g = len(groups)
         seq = seqs[sid - 1]
         kind, geo, chain_in, start, (h_out, w_out), extra = _classify(seq, n)
         if not 1 <= geo["nch"] <= _MAX_CHANNELS:
@@ -349,7 +365,8 @@ def build_plan(seqs, plane_ids) -> DivergentPlan:
         if h_out < 1 or w_out < 1:
             raise Unsupported(f"output planes of {w_out}x{h_out}")
         if shape is None:
-            shape, out_dtype = (h_out, w_out, och), odt
+            shape = (h_out, w_out, och)
+            out_dtype = odt if out_dtype is None else out_dtype
         elif (h_out, w_out, och) != shape:
             raise Unsupported(f"group {g} gives ({h_out}, {w_out}, {och}), group 0 {shape}")
         # the merge casts a group into the batch's dtype (utils.dtypes.astype):
@@ -380,7 +397,7 @@ def build_plan(seqs, plane_ids) -> DivergentPlan:
                              np.zeros(1, np.int32)])  # never empty
     return DivergentPlan(
         plane_ids=tuple(plane_ids), groups=tuple(groups),
-        table=np.asarray([index[sid] for sid in plane_ids], np.int32), n_planes=n,
+        table=np.asarray([index.get(sid, FOREIGN) for sid in plane_ids], np.int32), n_planes=n,
         dsize=Size(shape[1], shape[0]), out_ch=shape[2], out_dtype=out_dtype, layout=layout,
         consts=consts,
     )
@@ -412,6 +429,13 @@ class _Block:
         off = self.size
         self.parts.append(part)
         self.size += n
+        return off
+
+    def extend(self, other: "_Block") -> int:
+        """Append another block's words; returns their word offset."""
+        off = self.size
+        self.parts += other.parts
+        self.size += other.size
         return off
 
     def to(self, device: torch.device) -> torch.Tensor:
@@ -463,6 +487,26 @@ def prepare(seqs, plan: DivergentPlan, device: torch.device) -> Launch:
     """Gather one call's arguments on ``device``: the parameter block, in one
     pinned non-blocking copy of its host part, and the distinct sources,
     each moved once. Nothing here waits for the device."""
+    srcs, blk, ptr_off, desc_off = gather(seqs, plan, device)
+    return Launch(plan=plan, seqs=tuple(seqs), srcs=tuple(srcs), block=blk.to(device),
+                  ptr_off=ptr_off, desc_off=desc_off, consts=plan.device_tables(device))
+
+
+def moved_source(data, device: torch.device, moved: Optional[Dict] = None) -> torch.Tensor:
+    """``data`` as a kernel reads it on ``device`` (``kernel_source``),
+    contiguous; with ``moved`` (a dict shared by the parts of one launch)
+    an array moves once however many parts read it."""
+    if moved is None:
+        return kernel_source(data, device).contiguous()
+    t = moved.get(id(data))
+    if t is None:
+        t = moved[id(data)] = kernel_source(data, device).contiguous()
+    return t
+
+
+def gather(seqs, plan: DivergentPlan, device: torch.device, moved: Optional[Dict] = None):
+    """``(sources, block, ptr_off, desc_off)`` of :func:`prepare`, the
+    block's words still on the host (:class:`_Block`)."""
     n = plan.n_planes
     srcs: List[torch.Tensor] = []
     index: Dict[int, int] = {}
@@ -472,7 +516,7 @@ def prepare(seqs, plan: DivergentPlan, device: torch.device) -> Launch:
             k = index.get(id(data))
             if k is None:
                 k = index[id(data)] = len(srcs)
-                srcs.append(kernel_source(data, device).contiguous())
+                srcs.append(moved_source(data, device, moved))
             plane_src[z] = k
     blk = _Block()
     blk.put(plan.table, np.int32, width=n + (n & 1))  # even: the addresses are 8-byte words
@@ -513,8 +557,7 @@ def prepare(seqs, plan: DivergentPlan, device: torch.device) -> Launch:
             blk.put(v, np.float32)
     blk.put(np.zeros(-blk.size % 4, np.int32), np.int32)  # the kernel reads 16-byte words
     desc_off = blk.put(desc, np.int32)
-    return Launch(plan=plan, seqs=tuple(seqs), srcs=tuple(srcs), block=blk.to(device),
-                  ptr_off=ptr_off, desc_off=desc_off, consts=plan.device_tables(device))
+    return srcs, blk, ptr_off, desc_off
 
 
 def _held_default(default, dtype: torch.dtype):
@@ -625,10 +668,13 @@ def _touched_bytes(a: Launch) -> int:
     from . import cuda_frame_resize as kfr
 
     ids, total = a.plan.plane_ids, 0
+    mine = {g.sid for g in a.plan.groups}
     # every source as the kernel reads it: a host int64 or float64 array as
     # int32 or float32, a tensor at its own element size
     seqs = map_leaves(a.seqs, lambda v: kernel_source(v, a.block.device))
     for sid, seq in enumerate(seqs, 1):
+        if sid not in mine:  # a group of the other part of a split batch
+            continue
         planes = [z for z, i in enumerate(ids) if i == sid]
         read = seq.read
         if isinstance(read, (ImageRead, CircularBatchRead)):  # a plane is read whole
@@ -654,6 +700,8 @@ def _touched_bytes(a: Launch) -> int:
 
 def work(a: Launch) -> Tuple[int, int, int]:
     """``(output bytes, source bytes touched, float32 operations)`` of one
-    launch (``utils.bounds``): 14 operations per value."""
+    launch (``utils.bounds``): 14 operations per value; of a split batch's
+    part (foreign planes), its own planes'."""
     out_bytes, values = bounds.output(a.plan)
-    return out_bytes, _touched_bytes(a), values * 14
+    n, mine = a.plan.n_planes, sum(len(g.planes) for g in a.plan.groups)
+    return out_bytes // n * mine, _touched_bytes(a), values // n * mine * 14

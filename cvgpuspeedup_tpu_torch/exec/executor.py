@@ -49,10 +49,14 @@ then the composed-read kernel's divergent plan (``cuda:composed:divergent``,
 counted under ``cuda:composed`` in :func:`launch_counts`: groups that are
 each a ``BatchRead`` of one-level read trees, such as letterboxes, ROI
 resizes, warps of crops and ``crop_batch``, of any source dtype,
-``exec/cuda_composed.py::build_divergent_plan``), then the eager merge
-(``torch:divergent``), which also runs every batch on the CPU. An explicit
-``ParBackend.CUDA`` raises where neither kernel takes the batch, naming
-both refusals. Its plans are keyed on the sequences' structure, the plane
+``exec/cuda_composed.py::build_divergent_plan``), then the split kernel
+(``cuda:divergent:split``, ``exec/cuda_divergent_split.py``: the divergent
+kernel's body on its groups' planes and the composed kernel's on the
+others', in one launch: a ring, an image stack or ``resize_batch`` beside
+letterboxes, ROI resizes or warps of crops; NV12 reads beside images), then
+the eager merge (``torch:divergent``), which also runs every batch on the
+CPU. An explicit ``ParBackend.CUDA`` raises where no route takes the
+batch, naming the three refusals. Its plans are keyed on the sequences' structure, the plane
 ids, the device type and the backend request.
 """
 
@@ -69,8 +73,8 @@ from ..graph import (ComputeOp, FusedCompute, FusedRead, IOp, PendingReadOp, Rea
 from ..ops.memory import ImageRead, Write2D
 from ..types import ParBackend
 from ..utils.dtypes import as_device_tensor
-from . import (_build, cuda_batch_resize, cuda_composed, cuda_divergent, cuda_frame_resize,
-               cuda_pointwise, cuda_warp)
+from . import (_build, cuda_batch_resize, cuda_composed, cuda_divergent, cuda_divergent_split,
+               cuda_frame_resize, cuda_pointwise, cuda_warp)
 
 __all__ = [
     "Pipeline",
@@ -241,7 +245,10 @@ def describe_backend(*iops: IOp, input=None, backend: ParBackend = ParBackend.AU
                      device=None) -> str:
     """Which backend :func:`execute_operations` would run for this op list:
     ``"cuda:batch_resize"``, ``"cuda:frame_resize"``, ``"cuda:warp"``,
-    ``"cuda:pointwise"``, ``"cuda:composed"`` or ``"torch"``."""
+    ``"cuda:pointwise"``, ``"cuda:composed"`` or ``"torch"``. A divergent
+    batch's route (``cuda:divergent``, ``cuda:composed:divergent``,
+    ``cuda:divergent:split`` or ``torch:divergent``) is what
+    :func:`last_backend` names after :func:`launch_divergent_batch`."""
     pipeline = build_pipeline(*iops, input=input)
     _, leaves = flatten(pipeline)
     return _select(pipeline, backend, _resolve_device(leaves, device)).backend
@@ -265,8 +272,9 @@ def debug_mode():
 def last_backend() -> Optional[str]:
     """The backend of the most recent :func:`execute_operations` call in this
     process (None before any): a name :func:`describe_backend` gives, or
-    ``"cuda:divergent"``, ``"cuda:composed:divergent"`` or
-    ``"torch:divergent"`` after :func:`launch_divergent_batch`."""
+    ``"cuda:divergent"``, ``"cuda:composed:divergent"``,
+    ``"cuda:divergent:split"`` or ``"torch:divergent"`` after
+    :func:`launch_divergent_batch`."""
     return _LAST_BACKEND
 
 
@@ -275,7 +283,8 @@ def launch_counts() -> Dict[str, int]:
     the backend name :func:`last_backend` reports for it; a
     ``cuda:composed:divergent`` launch counts under ``cuda:composed``."""
     return {name: module.LAUNCHES for name, module in
-            _KERNELS + (("cuda:divergent", cuda_divergent),)}
+            _KERNELS + (("cuda:divergent", cuda_divergent),
+                        ("cuda:divergent:split", cuda_divergent_split))}
 
 
 def execute_operations(*iops: IOp, input=None, backend: ParBackend = ParBackend.AUTO,
@@ -341,7 +350,9 @@ def _select_divergent(seqs, plane_ids, backend: ParBackend, dev: torch.device) -
     refusals = []
     for name, module, build in (
             ("cuda:divergent", cuda_divergent, cuda_divergent.build_plan),
-            ("cuda:composed:divergent", cuda_composed, cuda_composed.build_divergent_plan)):
+            ("cuda:composed:divergent", cuda_composed, cuda_composed.build_divergent_plan),
+            ("cuda:divergent:split", cuda_divergent_split,
+             cuda_divergent_split.build_split_plan)):
         try:
             return _Plan(name, build(seqs, plane_ids), module)
         except module.Unsupported as e:
@@ -362,8 +373,9 @@ def launch_divergent_batch(selector: Union[Callable[[int], int], Sequence[int]],
     computes only its own planes; the merged batch takes the dtype of plane
     0's sequence (other values are cast to it by clamping, then
     truncating) and the first sequence's write layout. On CUDA tensors it is
-    one launch of the divergent kernel or of the composed-read kernel
-    (:func:`_select_divergent`); returns without waiting for it.
+    one launch of the divergent kernel, of the composed-read kernel, or of
+    the split kernel that runs both kernels' bodies, each on its own groups'
+    planes (:func:`_select_divergent`); returns without waiting for it.
     ``device`` defaults as in :func:`execute_operations`.
     """
     global PLAN_BUILDS, _LAST_BACKEND

@@ -297,14 +297,16 @@ def test_bounds_equal_what_chip_smoke_computed():
 
 def test_every_kernel_module_prices_and_launches_under_one_name():
     from cvgpuspeedup_tpu_torch.exec import (cuda_batch_resize, cuda_composed, cuda_divergent,
-                                             cuda_frame_resize, cuda_pointwise, cuda_warp)
+                                             cuda_divergent_split, cuda_frame_resize,
+                                             cuda_pointwise, cuda_warp)
 
     modules = {"cuda:batch_resize": cuda_batch_resize, "cuda:frame_resize": cuda_frame_resize,
                "cuda:warp": cuda_warp, "cuda:divergent": cuda_divergent,
-               "cuda:pointwise": cuda_pointwise, "cuda:composed": cuda_composed}
+               "cuda:pointwise": cuda_pointwise, "cuda:composed": cuda_composed,
+               "cuda:divergent:split": cuda_divergent_split}
     for name, module in modules.items():
         assert callable(module.work), name
-        assert module.launch is getattr(module, name.split(":")[1]), name
+        assert module.launch is getattr(module, "_".join(name.split(":")[1:])), name
     counts = executor.launch_counts()
     assert counts == {name: m.LAUNCHES for name, m in modules.items()}
     # a CPU call runs the plain version: no kernel's count moves

@@ -24,14 +24,15 @@ what stays eager and why.
   ``plane_stride`` 0, its block offsets absolute (the block's words there
   are the plane's own values), each plane's store row after the heads;
   new values build no plan; ``work`` sums the groups'.
-- Refusals: a group of a kind only the divergent kernel reads (beside a
-  one-level group, and beside a nested one, which
-  ``test_torch_divergent_nested.py`` takes otherwise), an NV12 group
-  beside an image group, NV12 groups whose chains end in different dtypes,
-  a resampling group beside a one-pixel group, groups of different output,
-  groups converting YUV with different coefficients, a group the composed
-  kernel refuses: each an ``Unsupported`` naming why; they stay eager, and
-  ``ParBackend.CUDA`` raises naming both kernels' reasons.
+- Refusals: an NV12 group beside an image group, NV12 groups whose chains
+  end in different dtypes, a resampling group beside a one-pixel group,
+  groups of different output, groups converting YUV with different
+  coefficients, a group the composed kernel refuses: each an
+  ``Unsupported`` naming why; they stay eager, and ``ParBackend.CUDA``
+  raises naming every route's reasons. A group of a kind only the
+  divergent kernel reads (a ring, an image stack, ``resize_batch``)
+  beside a composed group, one level or nested, is the split kernel's
+  (``test_torch_divergent_split.py``).
 """
 
 import jax.numpy as jnp
@@ -373,7 +374,6 @@ def _refusals():
     rng = np.random.default_rng(61)
     cams = [rng.integers(0, 256, (20, 24, 3), dtype=np.uint8) for _ in range(4)]
     bufs = [rng.integers(0, 256, (30, 24), dtype=np.uint8) for _ in range(4)]
-    stack = np.stack(cams)
     dst = T.Size(8, 6)
     seq = T.build_operation_sequence
     f32 = T.convert_to(np.float32, alpha=1 / 255.0)
@@ -383,18 +383,6 @@ def _refusals():
         return T.fuse(T.read_yuv(b), conv or T.convert_yuv_to_rgb(out_dtype=np.uint8))
 
     return {
-        "nested_group_beside_a_ring": ([1, 2, 1, 2], (seq(T.batch_read(
-            [T.resize(T.warp(T.image(c), cc.rotation((12, 10), 5.0), T.Size(20, 16)),
-                      T.Size(24, 20)) for c in cams]), T.split_tensor()),
-            seq(T.circular_batch_read(stack.astype(np.float32), first=1), T.split_tensor())),
-            "divergent kernel's alone"),
-        "ring_beside_a_composed_group": ([1, 2, 1, 2], (seq(T.batch_read(
-            [T.resize(T.image(c), T.Size(24, 20)) for c in cams]), T.split_tensor()),
-            seq(T.circular_batch_read(stack.astype(np.float32), first=1), T.split_tensor())),
-            "divergent kernel's alone"),
-        "resize_batch_beside_a_composed_group": ([1, 2, 1, 2], (resized, seq(T.resize_batch(
-            cams[0], rects=np.array([[z, z, 10, 8] for z in range(4)], np.int32), dsize=dst),
-            T.split_tensor())), "divergent kernel's alone"),
         "nv12_beside_images": ([1, 2, 1, 2], (resized, seq(T.batch_read(
             [T.resize(rgb(b), dst) for b in bufs]), f32, T.split_tensor())),
             "NV12 planes run their own instance"),
@@ -426,7 +414,7 @@ def _refusals():
 def test_what_stays_eager_and_why(name):
     """Each refusal is an ``Unsupported`` naming why; the batch keeps the
     eager merge under AUTO, which runs it on the CPU, and an explicit CUDA
-    raises naming both kernels' reasons."""
+    raises naming every route's reasons."""
     ids, seqs, why = _refusals()[name]
     with pytest.raises(kc.Unsupported, match=why):
         kc.build_divergent_plan(seqs, ids)

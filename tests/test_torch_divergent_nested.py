@@ -470,8 +470,8 @@ def test_work_sums_the_groups(name):
 
 def _refusals():
     """``name -> (plane ids, sequences, what the refusal names)``: batches
-    with a nested group that stay eager (a nested group beside a ring:
-    ``test_torch_divergent_composed.py``)."""
+    with a nested group that stay eager (a nested group beside a ring is
+    the split kernel's: ``test_torch_divergent_split.py``)."""
     f = cc.divergent_nested_frames(83)
     cases = cc.divergent_nested_cases(T, f)
     tops = cases["dvn1_top_views_beside_letterboxes"][1][1]
@@ -496,7 +496,7 @@ def _refusals():
 @pytest.mark.parametrize("name", sorted(_refusals()))
 def test_what_stays_eager_beside_a_nested_group(name):
     """Each refusal is an ``Unsupported`` naming why; AUTO keeps the eager
-    merge and an explicit CUDA raises naming both kernels' reasons."""
+    merge and an explicit CUDA raises naming every route's reasons."""
     ids, seqs, why = _refusals()[name]
     with pytest.raises(kc.Unsupported, match=why):
         kc.build_divergent_plan(seqs, ids)

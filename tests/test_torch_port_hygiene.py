@@ -101,6 +101,8 @@ def _included(text):
     ("divergent.cu", "pallas_divergent.py::_emit"),
     ("pointwise.cu", "cvgpuspeedup_tpu/exec/executor.py"),  # the jitted XLA program: no Pallas kernel
     ("composed.cu", "cvgpuspeedup_tpu/exec/executor.py"),   # the same, for composed reads
+    # the same program's merge, for a divergent batch split by plane
+    ("divergent_split.cu", "cvgpuspeedup_tpu/exec/executor.py"),
 ])
 def test_cuda_source_exists_and_ships_as_package_data(name, replaces):
     src = ROOT / "cvgpuspeedup_tpu_torch" / "csrc" / name

@@ -433,18 +433,20 @@ _TERMS_SASS = """
 
 @pytest.mark.parametrize("kernel,extra,holds", [
     ("warp_kernel", "", True), ("divergent_kernel", "", True), ("composed_kernel", "", True),
+    ("divergent_split", "", True),
     ("pointwise_kernel", "", False), ("frame_resize_kernel", "", False),
     ("warp_kernel", "        /*00c0*/                   FSETP.GT.AND P1, PT, R6, RZ, PT ;\n", False),
     ("warp_kernel", "        /*00c0*/                   FMNMX R6, R6, RZ, !PT ;\n", False),
     ("warp_kernel", "        /*00c0*/                   FMUL32I R6, R6, 0.5 ;\n", False),
     ("warp_kernel", "        /*00c0*/                   F2F.FTZ.F32.F64 R8, R10 ;\n", False)],
-    ids=["warp", "divergent", "composed", "pointwise", "frame_resize", "fsetp", "fmnmx",
-         "fmul32i", "f2f_ftz"])
+    ids=["warp", "divergent", "composed", "divergent_split", "pointwise", "frame_resize", "fsetp",
+         "fmnmx", "fmul32i", "f2f_ftz"])
 def test_the_sass_census_excepts_a_warp_map_s_terms_alone(kernel, extra, holds):
     """Phase 2's census of ``chip_smoke.py`` lets a warp map's terms, an
     ``FMUL`` or ``FADD`` without ``.FTZ`` (``csrc/warp.cuh``'s PTX
-    ``mul.rn.f32`` and ``add.rn.f32``), through in the three kernels that
-    compute warp coordinates, and nowhere else; every other float32 op
+    ``mul.rn.f32`` and ``add.rn.f32``), through in the kernels that compute
+    warp coordinates (the split kernel holds K6's and the composed
+    kernel's bodies), and nowhere else; every other float32 op
     without ``.FTZ``, and a float64 conversion with it, breaks the rule."""
     ks = _kernel_sass()
     c = {"instances": 1, **ks.ftz_stats(_TERMS_SASS + extra)}

@@ -833,3 +833,212 @@ def divergent_nested_cases(M, f: dict, values: int = 0) -> dict:
             (boxes(buffers), *normalize(M), M.split_tensor()),
             (top_views(buffers, square), *normalize(M), M.split_tensor()))),
     }
+
+
+SPLIT_NAMES = ("dk1_ring_beside_letterboxes", "dk2_crops_beside_aligned_faces",
+               "dk3_stack_resized_beside_sensor_rois", "dk4_nv12_beside_top_views")
+#: the more split batches of ``split_cases``
+SPLIT_MORE = ("dk1_ring_descending", "dk5_ragged_groups", "dk6_float_part_into_a_u8_batch",
+              "dk7_integer_part_into_a_f32_batch", "dk8_staged_warps_into_a_u16_batch",
+              "dk9_fused2_into_a_f16_batch", "ring_beside_a_composed_group",
+              "resize_batch_beside_a_composed_group", "nested_group_beside_a_ring")
+#: the scale that brings a ring of each dtype to a few hundred
+RING_SCALE = {"uint8": 1.0, "int8": 2.0, "uint16": 1 / 16.0, "float16": 1.0}
+
+
+def _cast(a, dtype: str):
+    """``a``, a numpy array or a tensor, as ``dtype`` (a name)."""
+    if isinstance(a, np.ndarray):
+        return a.astype(dtype)
+    import torch
+
+    return a.to(getattr(torch, dtype))
+
+
+def split_frames(seed: int = 0, ring_dtype: str = "uint8") -> dict:
+    """The split batches' inputs from a numpy seed: eight 16:9 uint8
+    cameras (``wide``, 36x64), a ring of eight 16x16 planes (``ring``, of
+    ``ring_dtype``: uint8 values, int8 halved and centred, uint16 12-bit,
+    float16 with a fraction), a frame (``big``, 64x96), a stack of eight
+    24x32 images (``stack``), a 3-channel 12-bit uint16 sensor frame
+    (``sensor``, 48x64) and eight NV12 buffers of 36x64 images (``nv12``,
+    54x64)."""
+    rng = np.random.default_rng(seed)
+    wide = [rng.integers(0, 256, (36, 64, 3), dtype=np.uint8) for _ in range(8)]
+    ring = rng.integers(0, 256, (8, 16, 16, 3))
+    ring = {"uint8": ring.astype(np.uint8), "int8": (ring // 2 - 64).astype(np.int8),
+            "uint16": (ring * 16 + 7).astype(np.uint16),
+            "float16": (ring + 0.25).astype(np.float16)}[ring_dtype]
+    return {"wide": wide, "ring": ring,
+            "big": rng.integers(0, 256, (64, 96, 3), dtype=np.uint8),
+            "stack": rng.integers(0, 256, (8, 24, 32, 3), dtype=np.uint8),
+            "sensor": rng.integers(0, 4096, (48, 64, 3)).astype(np.uint16),
+            "nv12": [rng.integers(0, 256, (54, 64), dtype=np.uint8) for _ in range(8)]}
+
+
+def split_cases(M, f: dict, values: int = 0, names=None) -> dict:
+    """``name -> (plane ids, (op list of each sequence))`` of the divergent
+    batches that neither the divergent kernel nor the composed kernel's
+    divergent plan takes alone, over :func:`split_frames` with ``M``'s
+    factories (either package), each a group of a kind only the divergent
+    kernel reads (a ring, ``resize_batch`` of a frame or of a stack, NV12
+    reads) beside composed read trees, ids ``[1, 2] * 4`` (``chip_smoke.py``
+    runs DK1-DK4 at full width):
+
+    - DK1 a tracker's ring (``first`` 3, -5 with ``values``; the ring's
+      dtype ``f["ring"]``'s, scaled by ``RING_SCALE``) beside letterboxes
+      of the cameras into 16x16, normalized, planar; ``dk1_ring_descending``
+      the ring descending from -2 (-11);
+    - DK2 ``resize_batch`` of eight rects of ``big`` to 12x12 beside
+      similarity warps of crops of it to 12x12, x1/255, -0.5, /0.5, planar;
+    - DK3 ``resize_batch`` of the stack's eight images to 16x12, x1/255,
+      beside regions of the sensor frame resized to 16x12, x1/4095, planar;
+    - DK4 the NV12 buffers converted into float32 RGB and resized to 16x12
+      (the divergent kernel's NV12 kind) beside top views of the cameras
+      resized to 16x12 (nested), normalized, planar;
+    - DK5 DK2's crops ragged at ``used_planes`` 5 (4) with a background per
+      channel beside the letterboxes into 12x12 ragged at 6 (5) with a
+      default of 0.25, x1/255, planar;
+    - DK6 the uint8 ring, no chain, beside ``crop_batch`` of ``big`` under
+      ``convert_to(float32, 0.5, 3.25)``: a float32 part stored into the
+      uint8 batch (exact halves: truncated alike everywhere), packed;
+    - DK7 the letterboxes normalized beside the uint8 ring, no chain: a
+      uint8 part stored into the float32 batch, planar;
+    - DK8 a 12-bit uint16 ring, no chain, beside the cameras resized to half
+      and rotated into 16x12 (a second resample staged), x16: a float32
+      part stored into the uint16 batch;
+    - DK9 a float16 ring, no chain, beside N5's letterboxes (a resize fused
+      with x1/255, CONSTANT 0.447 above and below: a FusedRead2 alone): a
+      float32 part stored into the float16 batch;
+    - the three batches ``test_torch_divergent_composed.py`` kept eager
+      before this route: a ring beside a one-level group (cameras resized to
+      24x20), ``resize_batch`` beside a one-level group, a nested group
+      (top views rotated, resized) beside a ring.
+
+    ``values`` 1 moves every runtime value (``first``, rects, matrices,
+    origins, border values, ``used_planes``) and keeps every size: no
+    plan. ``names``, where given, builds those cases alone."""
+    wide, ring, big, stack, sensor, nv12 = (f[k] for k in ("wide", "ring", "big", "stack",
+                                                           "sensor", "nv12"))
+    h, w = wide[0].shape[:2]
+    ring_dtype = str(ring.dtype).replace("torch.", "")
+    scale = RING_SCALE[ring_dtype]
+    ring_norm = (M.convert_to(np.float32, alpha=scale / 255.0), M.subtract(MEAN), M.divide(STD))
+
+    def boxes(side, **ragged):
+        (iw, ih), (t, b, l, r) = letterbox(w, h, side)
+        return M.batch_read([M.make_border(M.resize(M.image(c), M.Size(iw, ih)), t, b, l, r,
+                                           M.BorderMode.CONSTANT, 114 - 14 * values)
+                             for c in wide], **ragged)
+
+    bh, bw = big.shape[:2]
+    rects = np.array([[(k * 7 + 3 * values) % (bw - 40), (k * 5 + values) % (bh - 36),
+                       20 + 2 * k, 18 + 2 * k] for k in range(8)], np.int32)
+
+    def faces(side):
+        out = []
+        for k, (x, y, rw, rh) in enumerate(rects):
+            m = rotation_to((rw / 2, rh / 2), -12.0 + 3.0 * k + 2.0 * values, side / rw,
+                            (side / 2, side / 2))
+            out.append(M.warp(M.crop(M.image(big), M.Rect(int(x) + 2, int(y) + 1, int(rw),
+                                                           int(rh))), m, M.Size(side, side)))
+        return M.batch_read(out)
+
+    sh, sw = sensor.shape[:2]
+    persp = dict(warp_type=M.WarpType.PERSPECTIVE, default=0.0)
+    unit = (M.convert_to(np.float32, alpha=1 / 255.0), M.subtract(0.5), M.divide(0.5))
+    ring_u8 = ring if ring_dtype == "uint8" else stack[:, :16, :16]
+    half, third = M.Size(w // 2, h // 2), M.Size(16, 12)
+    (iw, ih), (t, b, l, r) = letterbox(w, h, 16)
+
+    def rois():
+        return M.batch_read([M.resize(M.crop(M.image(sensor), M.Rect(x, y, rw, rh)),
+                                      M.Size(16, 12))
+                             for x, y, rw, rh in _rois(sh, sw, values, n=8, lo=0.3, hi=0.9)])
+
+    def top_views():
+        return M.batch_read([M.resize(M.warp(M.image(c), top_view(w, h, k + values),
+                                             M.Size(w, h), **persp), M.Size(16, 12))
+                             for k, c in enumerate(wide)])
+
+    def nv12_rgb():
+        return M.batch_read([M.resize(M.fuse(M.read_yuv(buf), M.convert_yuv_to_rgb(
+            out_dtype=np.float32)), M.Size(16, 12)) for buf in nv12])
+
+    def tiles():
+        return [M.Rect((k * 9 + 2 * values) % (bw - 16), (k * 6 + values) % (bh - 16), 16, 16)
+                for k in range(8)]
+
+    def rotated():
+        return M.batch_read([M.resize(M.warp(M.image(c), rotation((w / 2, h / 2), 5.0 + k + values),
+                                             M.Size(w, h)), M.Size(24, 20))
+                             for k, c in enumerate(wide)])
+
+    def staged():
+        return M.batch_read([M.warp(M.resize(M.image(c), half), rotation_to(
+            (half.width / 2, half.height / 2), 5.0 + 10.0 * k / 7 + 2 * values, 2 / 3,
+            (third.width / 2, third.height / 2)), third) for k, c in enumerate(wide)])
+
+    def fused():
+        return M.batch_read([M.make_border(M.fuse(M.resize(M.image(c), M.Size(iw, ih)),
+                                                  M.convert_to(np.float32, alpha=1 / 255.0)),
+                                           t, b, l, r, M.BorderMode.CONSTANT, 0.447 - 0.1 * values)
+                             for c in wide])
+
+    cases = {
+        "dk1_ring_beside_letterboxes": lambda: ([1, 2] * 4, (
+            (M.circular_batch_read(ring, first=3 - 8 * values), *ring_norm, M.split_tensor()),
+            (boxes(16), *normalize(M), M.split_tensor()))),
+        "dk1_ring_descending": lambda: ([1, 2] * 4, (
+            (M.circular_batch_read(ring, first=-2 - 9 * values, ascendent=False), *ring_norm,
+             M.split_tensor()),
+            (boxes(16), *normalize(M), M.split_tensor()))),
+        "dk2_crops_beside_aligned_faces": lambda: ([1, 2] * 4, (
+            (M.resize_batch(big, rects=rects, dsize=M.Size(12, 12)), *unit, M.split_tensor()),
+            (faces(12), *unit, M.split_tensor()))),
+        "dk3_stack_resized_beside_sensor_rois": lambda: ([1, 2] * 4, (
+            (M.resize_batch(list(stack), dsize=M.Size(16, 12)),
+             M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()),
+            (rois(), M.convert_to(np.float32, alpha=1 / 4095.0), M.split_tensor()))),
+        "dk4_nv12_beside_top_views": lambda: ([1, 2] * 4, (
+            (nv12_rgb(), M.multiply(1 / 255.0), M.subtract(MEAN), M.divide(STD), M.split_tensor()),
+            (top_views(), *normalize(M), M.split_tensor()))),
+        "dk5_ragged_groups": lambda: ([1, 2] * 4, (
+            (M.resize_batch(big, rects=rects, dsize=M.Size(12, 12), used_planes=5 - values,
+                            background=(7.0, 8.0, 9.0)),
+             M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()),
+            (boxes(12, used_planes=6 - values, default=0.25),
+             M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()))),
+        "dk6_float_part_into_a_u8_batch": lambda: ([1, 2] * 4, (
+            (M.circular_batch_read(ring_u8, first=1 + values), M.write_tensor()),
+            (M.crop_batch(M.image(big), tiles()), M.convert_to(np.float32, alpha=0.5, beta=3.25),
+             M.write_tensor()))),
+        "dk7_integer_part_into_a_f32_batch": lambda: ([1, 2] * 4, (
+            (boxes(16), *normalize(M), M.split_tensor()),
+            (M.circular_batch_read(ring_u8, first=2 - 5 * values), M.split_tensor()))),
+        "dk8_staged_warps_into_a_u16_batch": lambda: ([1, 2] * 4, (
+            (M.circular_batch_read(_cast(_cast(stack[:, :12, :16], "int32") * 16, "uint16"),
+                                   first=3 + values),
+             M.split_tensor()),
+            (staged(), M.multiply(16.0), M.split_tensor()))),
+        "dk9_fused2_into_a_f16_batch": lambda: ([1, 2] * 4, (
+            (M.circular_batch_read(_cast(stack[:, :16, :16] / 4.0, "float16"),
+                                   first=-3 - values), M.split_tensor()),
+            (fused(), M.split_tensor()))),
+        "ring_beside_a_composed_group": lambda: ([1, 2] * 4, (
+            (M.batch_read([M.resize(M.image(c), M.Size(24, 20)) for c in wide]),
+             M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()),
+            (M.circular_batch_read(_cast(stack[:, :20, :24], "float32"), first=1 + values),
+             M.multiply(1 / 255.0), M.split_tensor()))),
+        "resize_batch_beside_a_composed_group": lambda: ([1, 2] * 4, (
+            (M.batch_read([M.resize(M.image(c), M.Size(8, 6)) for c in wide]),
+             M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()),
+            (M.resize_batch(wide[values], rects=np.array([[z + values, z, 10, 8] for z in range(8)],
+                                                          np.int32), dsize=M.Size(8, 6)),
+             M.multiply(1 / 255.0), M.split_tensor()))),
+        "nested_group_beside_a_ring": lambda: ([1, 2] * 4, (
+            (rotated(), M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()),
+            (M.circular_batch_read(_cast(stack[:, :20, :24], "float32"), first=-1 - values),
+             M.multiply(1 / 255.0), M.split_tensor()))),
+    }
+    return {k: make() for k, make in cases.items() if names is None or k in names}

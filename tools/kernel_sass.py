@@ -13,7 +13,7 @@ prints for each: its instruction count, its
 local-memory loads and stores (``LDL``, ``STL``: spills), every loop (a
 backward branch) with its length in instructions, and the opcodes of the
 longest loop, most frequent first. With ``out.txt`` the SASS itself is
-written there. With ``--ftz`` it prints for each of the six kernels, over
+written there. With ``--ftz`` it prints for each kernel of ``KERNELS``, over
 all its instances, the float32 add, multiply, compare and min/max
 instructions without ``.FTZ`` (among them ``KEEP_TERMS``, a warp map's
 terms) and the float64 to float32 conversions with and without it
@@ -42,16 +42,18 @@ _FUNCTION = re.compile(r"^\s*Function : (\S+)", re.M)
 FTZ_OPCODES = ("FADD", "FADD32I", "FMUL", "FMUL32I", "FSETP", "FMNMX")
 #: the kernels of the library, by the name each instance's symbol holds (the
 #: composed kernel's nested instances, ``composed_kernel_nested``, count as
-#: its own)
+#: its own; the split kernel's, ``divergent_split_kernel`` and
+#: ``divergent_split_nested``, K6's body beside the composed kernel's, as one)
 KERNELS = ("batch_resize_kernel", "frame_resize_kernel", "warp_kernel", "divergent_kernel",
-           "pointwise_kernel", "composed_kernel")
+           "pointwise_kernel", "composed_kernel", "divergent_split")
 #: the census's one exception: a warp map's terms c*X and b*Y + c, computed
 #: as the host computes them with a subnormal kept (``csrc/warp.cuh``'s
 #: ``fmul_keep`` and ``fadd_keep``, PTX ``mul.rn.f32`` and ``add.rn.f32``
 #: without ``.ftz``), are an FMUL or FADD without ``.FTZ`` in the kernels
 #: that compute warp coordinates, and only there
 KEEP_TERMS = {"opcodes": ("FMUL", "FADD"),
-              "kernels": ("warp_kernel", "divergent_kernel", "composed_kernel")}
+              "kernels": ("warp_kernel", "divergent_kernel", "composed_kernel",
+                          "divergent_split")}
 
 
 def kernel_stats(sass: str) -> dict:

@@ -96,7 +96,10 @@ kernel duration of 20 launches), in microseconds:
   DVN1-DVN4 (``dvn1`` .. ``dvn4``: ``divergent_nested_cases``), left out
   for a variant without the general nested instances (no
   ``composed_nested_divergent.cu``): each one launch through its divergent
-  plan, which the tree's own host code builds.
+  plan, which the tree's own host code builds;
+- the split kernel's batches DK1-DK4 (``dk1`` .. ``dk4``: ``split_cases``),
+  left out for a variant without ``divergent_split.cu``
+  (``tools/kernel_variants_split.json`` times its variants).
 
 ``cases``, a comma-separated list, times only those; where it is not given,
 a file's ``"cases"`` entry (a string, not a variant) names them. The cases are
@@ -213,6 +216,7 @@ def main() -> int:
     from cvgpuspeedup_tpu_torch.exec import _build
     from cvgpuspeedup_tpu_torch.exec import cuda_batch_resize as kbr
     from cvgpuspeedup_tpu_torch.exec import cuda_divergent as kd
+    from cvgpuspeedup_tpu_torch.exec import cuda_divergent_split as ks
     from cvgpuspeedup_tpu_torch.exec import cuda_frame_resize as kfr
     from cvgpuspeedup_tpu_torch.exec import cuda_pointwise as kp
     from cvgpuspeedup_tpu_torch.exec import cuda_warp as kw
@@ -339,6 +343,14 @@ def main() -> int:
         cs.divergent_composed_cases(cvgs, cams, cams43, frame, sensor).values(), 1)}
     divergent.update({f"dvn{k}": v for k, v in enumerate(
         cs.divergent_nested_cases(cvgs, cams, nv12_cams, sensor).values(), 1)})
+    # the split batches DK1-DK4 (dk1 .. dk4), through the split kernel
+    side = cs.SPLIT_RING[1]
+    split_ring = torch.from_numpy(rng.integers(0, 256, (cs.SPLIT_RING[0], side, side, 3),
+                                               dtype=np.uint8)).to(dev)
+    split_stack = torch.from_numpy(rng.integers(0, 256, (*cs.SPLIT_STACK, 3), dtype=np.uint8)
+                                   ).to(dev)
+    split = {f"dk{k}": v for k, v in enumerate(cs.split_cases(
+        cvgs, cams, split_ring, frame, split_stack, sensor, nv12_cams).values(), 1)}
     composed_names = {name for name in cases if name.startswith(("c", "b"))}
     x64_cases = {name for name in (*cases, *batches) if name.endswith(("_i64", "_f64"))}
     launches = {}
@@ -356,6 +368,11 @@ def main() -> int:
                           lambda v: kernel_source(v, dev))
         args = kc.prepare(seqs, kc.build_divergent_plan(seqs, ids), dev)
         launches[name] = (lambda args=args: kc.composed(args))
+    for name, (ids, ops) in split.items():
+        seqs = map_leaves(tuple(cvgs.build_operation_sequence(*o) for o in ops),
+                          lambda v: kernel_source(v, dev))
+        args = ks.prepare(seqs, ks.build_split_plan(seqs, ids), dev)
+        launches[name] = (lambda args=args: ks.divergent_split(args))
     if only is not None:
         if only - set(launches):
             print(f"no case named {sorted(only - set(launches))}", file=sys.stderr)
@@ -377,6 +394,8 @@ def main() -> int:
             return False
         if cname in nested_mixed_names and "composed_kernel_nested_mixed" not in (
                 d / "composed_nested.cuh").read_text():
+            return False
+        if cname.startswith("dk") and not (d / "divergent_split.cu").exists():
             return False
         if cname.startswith("dvn") and not (d / "composed_nested_divergent.cu").exists():
             return False
