@@ -81,8 +81,10 @@ code and no result line:
    their own, and those of K6's instances and of its general instance, the
    staged mixed nested instance held at 64 registers, 4 blocks an SM, the
    three general nested instances of a divergent batch named, the split
-   kernel's 20 instances with their shared memory, its staged ones held at
-   64 registers), then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
+   kernel's 10 instances (the composed part's form x its source kind) with
+   their spill stores and shared memory, its one-level ones spilling
+   nothing and its nested ones no more than ``SPLIT_NESTED_SPILLS``, its
+   staged ones held at 64 registers), then read the library's SASS (``tools/kernel_sass.py``, ``cuobjdump
    -sass``): in every instance of the six kernels and the split kernel no float32 add, multiply,
    compare or min/max without ``.FTZ`` (``-ftz=true``: the reference's
    float32 rule, ``utils/dtypes.py::flush_subnormal``) but for a warp map's
@@ -170,9 +172,11 @@ code and no result line:
    instance logged), DV1 with every plane lifted into the nested instances
    (an identity resize; an empty FusedRead2: bit-equal to DV1's own launch)
    and DVN1's trees over float32 cameras of ``EDGES32`` (NaN, infinities,
-   subnormals) as int32 bits, DK1-DK4 and three more split batches
+   subnormals) as int32 bits, DK1-DK4 and seven more split batches
    (``split_form_cases``: one-pixel reads into a uint8 batch, a staged part
-   into uint16, a FusedRead2 part into float16) through the split kernel
+   into uint16, a FusedRead2 part into float16; then over float32 cameras,
+   each form's general instance into int8, int16 and int32 batches) through
+   the split kernel
    (both other routes refusing each; the parts, groups, form and instance
    logged), and a resize of a crop that overhangs
    its frame (``overhang_cases``: past the right and the bottom edge and
@@ -296,7 +300,9 @@ code and no result line:
    part's own launches over its groups' planes summed (the divergent
    kernel over each of its groups cut to its planes, ``own_k6_sequence``;
    the composed kernel over each of the others), the profiler's instance
-   the one ``cuda_divergent_split.instance`` predicts;
+   the one ``cuda_divergent_split.instance`` predicts, and the ratio of
+   each time to the previous design's (``SPLIT_BEFORE``) and to the parts'
+   own launches summed;
 6. sharding: (a) every rank of meshes of 2 and 5 (the flagship, 50 crops
    ragged at ``used_planes`` = 37) and of 2, 4 and 8 (W6; P2's ring from
    ``first`` = 3 and -5; D1 and D3) run on this card through the rank-local
@@ -1238,6 +1244,18 @@ def divergent_nested_cases(cvgs, cams, nv12s, sensor, values=0, chain=True) -> d
 
 #: DK1's ring (planes, side) and DK3's stack (images, height, width)
 SPLIT_RING, SPLIT_STACK = (8, 640), (16, 720, 1280)
+#: DK1-DK4 under the split kernel's previous design (one grid shape for both
+#: parts, K6's body at one pixel a thread, the composed part's AnyImage
+#: body, 20 instances), us by events / by torch.profiler on an NVIDIA H100
+#: 80GB HBM3 at 700 W: phase 5 reads this run's times against them
+SPLIT_BEFORE = {"dk1_tracker_ring_beside_letterboxes": (100.38, 88.89),
+                "dk2_detector_crops_beside_aligned_faces": (44.22, 36.83),
+                "dk3_stack_resized_beside_sensor_rois": (127.62, 107.11),
+                "dk4_nv12_cameras_beside_rgb_top_views": (104.32, 85.67)}
+#: the split kernel's nested instances' spill stores (bytes) under that
+#: design, the most each form may spill: a FusedRead2 alone, a second
+#: resample per tap, staged
+SPLIT_NESTED_SPILLS = {"fused2": 8, "per_tap": 104, "staged": 64}
 
 
 def split_cases(cvgs, cams, ring, frame, stack, sensor, nv12s, values=0) -> dict:
@@ -1326,7 +1344,13 @@ def split_form_cases(cvgs, torch, cams, ring, frame, values=0) -> dict:
     second resample staged), x16 (stored into the uint16 batch); a float16
     ring beside N5's letterboxes into 640x640 (a resize fused with x1/255,
     CONSTANT 0.447 above and below: a FusedRead2 alone; stored into the
-    float16 batch); ids [1, 2] * 4."""
+    float16 batch); ids [1, 2] * 4. Then each composed form's general
+    instance (AnyImage), its part over the cameras and the frame as
+    float32, beside rings of int8, int16 and int32 stored into a batch of
+    theirs through K6's run-time store: the crops into int8 (one pixel),
+    the rotated cameras into int16 (staged), the fused letterboxes x255
+    into int32 (a FusedRead2 alone) and DK4's top views into int32 (a
+    second resample per tap); DK3 holds the general one-level resample."""
     side = SPLIT_RING[1]
     tiles = [cvgs.Rect((k * 461 + 7 * values) % (SRC_W - side), (k * 263 + values) % (SRC_H - side),
                        side, side) for k in range(8)]
@@ -1342,6 +1366,23 @@ def split_form_cases(cvgs, torch, cams, ring, frame, values=0) -> dict:
              for c in cams]
     ring16 = (ring[:, :FRAME_DST[1]].to(torch.int32) * 16).to(torch.uint16)
     ring_f16 = ring.to(torch.float16) / 4
+    cams32, frame32 = [c.float() for c in cams], frame.float()
+    rotated32 = [cvgs.warp(cvgs.resize(cvgs.image(c), mid),
+                           rotation((mid.width / 2, mid.height / 2), -5.0 - 10.0 * k / 7 - values,
+                                    2 / 3, to=(dst.width / 2, dst.height / 2)), dst)
+                 for k, c in enumerate(cams32)]
+    fused32 = [cvgs.make_border(cvgs.fuse(cvgs.resize(cvgs.image(c), cvgs.Size(iw, ih)),
+                                          cvgs.convert_to(np.float32, alpha=255.0)),
+                                t, b, l, r, cvgs.BorderMode.CONSTANT, 114.0 + 3 * values)
+               for c in cams32]
+    full = cvgs.Size(FRAME_W, FRAME_H)
+    tops32 = [cvgs.resize(cvgs.warp(cvgs.image(c), top_view(FRAME_W, FRAME_H, k + values), full,
+                                    warp_type=cvgs.WarpType.PERSPECTIVE, default=0.0), dst)
+              for k, c in enumerate(cams32)]
+    ring_i8 = as_dtype(torch, ring, "i8")
+    ring_i16 = as_dtype(torch, ring[:, :FRAME_DST[1]], "i16")
+    ring_i32 = (ring.to(torch.int32) - 128) * 65537
+    ring_i32_360 = ring_i32[:, :FRAME_DST[1]].contiguous()
     return {
         "dk_one_pixel_into_a_u8_batch": ([1, 2] * 4, (
             (cvgs.circular_batch_read(ring, first=1 + values), cvgs.write_tensor()),
@@ -1353,6 +1394,19 @@ def split_form_cases(cvgs, torch, cams, ring, frame, values=0) -> dict:
         "dk_fused2_into_a_f16_batch": ([1, 2] * 4, (
             (cvgs.circular_batch_read(ring_f16, first=-3 - values), cvgs.split_tensor()),
             (cvgs.batch_read(fused), cvgs.split_tensor()))),
+        "dk_one_pixel_any_into_an_i8_batch": ([1, 2] * 4, (
+            (cvgs.circular_batch_read(ring_i8, first=2 + values), cvgs.split_tensor()),
+            (cvgs.crop_batch(cvgs.image(frame32), tiles),
+             cvgs.convert_to(np.float32, alpha=0.5, beta=-60.25), cvgs.split_tensor()))),
+        "dk_staged_any_into_an_i16_batch": ([1, 2] * 4, (
+            (cvgs.circular_batch_read(ring_i16, first=-2 - values), cvgs.split_tensor()),
+            (cvgs.batch_read(rotated32), cvgs.multiply(-96.0), cvgs.split_tensor()))),
+        "dk_fused2_any_into_an_i32_batch": ([1, 2] * 4, (
+            (cvgs.circular_batch_read(ring_i32, first=5 + values), cvgs.split_tensor()),
+            (cvgs.batch_read(fused32), cvgs.multiply(1000.5), cvgs.split_tensor()))),
+        "dk_per_tap_any_into_an_i32_batch": ([1, 2] * 4, (
+            (cvgs.circular_batch_read(ring_i32_360, first=1 + values), cvgs.split_tensor()),
+            (cvgs.batch_read(tops32), cvgs.multiply(-4096.25), cvgs.split_tensor()))),
     }
 
 
@@ -1998,22 +2052,29 @@ def main() -> int:
                     f" {' '.join(lines)}" for e, lines in sorted(general.items()))
         + f"; card {card}")
     assert len(general) == 3, sorted(general)
-    # the split kernel's instances (divergent_split*.cu): K6's body beside the
-    # composed part's body, an output element type x the composed form (one
-    # pixel, a resample, a FusedRead2 alone, per tap, staged); registers,
-    # spills and static shared memory (under the 48 KB of a static
-    # allocation), the staged ones held at 64 registers, 4 blocks an SM
+    # the split kernel's instances (divergent_split*.cu): K6's part beside the
+    # composed part's body, the composed form (one pixel, a resample, a
+    # FusedRead2 alone, per tap, staged) x its source kind (uint8, AnyImage);
+    # registers, spill stores and static shared memory (under the 48 KB of a
+    # static allocation), the one-level ones spilling nothing, the nested
+    # ones no more than SPLIT_NESTED_SPILLS, the staged ones held at 64
+    # registers, 4 blocks an SM
     split_registers = {e: " ".join(lines) for e, lines in sorted(split.items())}
     log(f"phase2 split instances, {len(split)}, from "
         f"{', '.join(src.name for src in _build.SOURCES if 'divergent_split' in src.name)}: "
         + "; ".join(f"{e}: {v}" for e, v in split_registers.items()) + f"; card {card}")
-    assert len(split) == 20, sorted(split)
+    assert len(split) == 10, sorted(split)
     for e, lines in split.items():
         smem = [int(w) for line in lines for w in re.findall(r"(\d+) bytes smem", line)]
-        assert smem and max(smem) < 48 * 1024, (e, lines)
-        if "_staged" in e:
-            used = [int(w) for line in lines for w in re.findall(r"Used (\d+) registers", line)]
-            assert used and max(used) <= 64, (e, lines)
+        spills = [int(w) for line in lines for w in re.findall(r"(\d+) bytes spill stores", line)]
+        used = [int(w) for line in lines for w in re.findall(r"Used (\d+) registers", line)]
+        form = ("staged" if "_staged" in e else "fused2" if "nested" in e and "Lb0E" in e
+                else "per_tap" if "nested" in e else "one_level")
+        assert smem and spills and used, (e, lines)
+        log(f"phase2 split instance {e} ({form}): {max(used)} registers, {max(spills)} bytes "
+            f"spill stores, {max(smem)} bytes smem")
+        assert max(smem) < 48 * 1024 and max(spills) <= SPLIT_NESTED_SPILLS.get(form, 0), (e, lines)
+        assert form != "staged" or max(used) <= 64, (e, lines)
     # the float32 rule in the SASS: every float32 add, multiply, compare and
     # min/max flushes subnormals (.FTZ), and the float64 load converts
     # without .FTZ, so that a copy keeps a float32 subnormal. The one
@@ -2783,6 +2844,7 @@ def main() -> int:
     split_ring = torch.from_numpy(rng.integers(0, 256, (SPLIT_RING[0], SPLIT_RING[1], SPLIT_RING[1],
                                                         3), dtype=np.uint8)).to(dev)
     split_stack = torch.from_numpy(rng.integers(0, 256, (*SPLIT_STACK, 3), dtype=np.uint8)).to(dev)
+    split_seen = set()
     for name, (ids, ops) in {
             **split_cases(cvgs, cams, split_ring, frame, split_stack, sensor, nv12_cams),
             **split_form_cases(cvgs, torch, cams, split_ring, frame)}.items():
@@ -2802,6 +2864,7 @@ def main() -> int:
         compare(name, "divergent_split", got, ks.split_reference(sa), 0.0)
         plan = sa.plan
         assert launched == 1, (name, launched)
+        split_seen |= {ks.instance(plan), plan.out_dtype}
         k6_groups = [(g.sid, g.kind, str(g.src_dtype)[6:]) for g in plan.k6.groups]
         cm_groups = [(g.sid, g.plan.core, g.plan.core2 or "-", str(g.plan.src_dtype)[6:])
                      for g in plan.composed.groups]
@@ -2811,6 +2874,17 @@ def main() -> int:
             f"{cm_groups}, form {plan.form}, instance {ks.instance(plan)}, {plan.consts.size} "
             f"consts words, {sa.block.numel()} block words; refused alone: {refused[0]}; "
             f"{refused[1]}")
+    # every instance of the split kernel and every output element type ran
+    everything = {
+        f"{k}<{src}{arg}>" for src in ks.KINDS.values() for k, arg in (
+            ("divergent_split_kernel", ", 1"), ("divergent_split_kernel", ", 4"),
+            ("divergent_split_nested", ", false"), ("divergent_split_nested", ", true"),
+            ("divergent_split_nested_staged", ""))}
+    types = {getattr(torch, t) for t in ("uint8", "int8", "uint16", "int16", "float16", "float32",
+                                         "int32")}
+    log(f"phase3 divergent_split: {len(split_seen & everything)} of {len(everything)} instances, "
+        f"{len(split_seen & types)} of {len(types)} output types")
+    assert split_seen == everything | types, sorted(map(str, split_seen ^ (everything | types)))
     # a resize of a crop that overhangs its frame, as the reference's
     # op-by-op lowering reads it (tests/test_torch_overhanging_crops.py):
     # each kernel against its plain version at full width
@@ -4706,6 +4780,7 @@ def main() -> int:
         t["instances"] = kernel_names(launched)
         t["predicted_instance"] = ks.instance(sargs.plan)
         assert t["instances"] == t["predicted_instance"], (t["instances"], t["predicted_instance"])
+        t["tiles"] = [dataclasses.asdict(p) for p in sargs.plan.tiles()]
         t["parts_ms"] = t["parts_profiler_ms"] = 0.0
         parts = []
         for g in sargs.plan.k6.groups:
@@ -4741,6 +4816,14 @@ def main() -> int:
             f"{t['eager_launches']:.0f} kernels and {t['eager_copies']:.0f} copies a call; "
             f"launch_divergent_batch host-inclusive {t['call_ms'] * 1e3:.2f} us/call (median of "
             f"30)")
+        before_events, before_profiler = SPLIT_BEFORE[name]
+        t["before_us"] = {"events": before_events, "profiler": before_profiler}
+        log(f"phase5 divergent_split {name}: {t['ms'] * 1e3 / before_events:.3f} by events, "
+            f"{t['profiler_ms'] * 1e3 / before_profiler:.3f} by torch.profiler the previous "
+            f"design's {before_events:.2f} / {before_profiler:.2f} us; "
+            f"{t['ms'] / t['parts_ms']:.3f} by events, "
+            f"{t['profiler_ms'] / t['parts_profiler_ms']:.3f} by torch.profiler the parts' own "
+            f"launches summed; tiles (K6's part, the composed part's) {t['tiles']}; card {card}")
 
     # an int64 frame through a 3-op chain, which ran eagerly (one launch per
     # op) until int64 became int32 where it enters: one launch of the
@@ -5061,15 +5144,18 @@ def main() -> int:
               circular_tensor_update_ms=ct_update_ms, dtype_path=dtype_times["d1_into_int16"],
               int32_path=dtype_times["d1_into_i32"], x64_path=dtype_times["d1_f64_ring"],
               source_dtype_cases=k6_times, registers=k6_registers,
-              also_sources=["cvgpuspeedup_tpu_torch/csrc/divergent_any.cu"]
-              + [f"cvgpuspeedup_tpu_torch/csrc/{src.name}" for src in _build.SOURCES
-                 if src.name.startswith("divergent_split")],
-              sharded_launches=sharded_launches["divergent"],
-              # the split kernel (K6's body beside the composed kernel's, by
-              # plane): DK1-DK4, its launches over phase 4's calls
-              split_cases=split_times, split_launches=split_launches,
-              split_launches_per_call=split_launches / path_calls["divergent_split"],
-              split_max_abs_err=max_err["divergent_split"], split_registers=split_registers),
+              also_sources=["cvgpuspeedup_tpu_torch/csrc/divergent_any.cu"],
+              sharded_launches=sharded_launches["divergent"]),
+        # the split kernel (K6's body beside the composed kernel's, each part
+        # at its own tiling): DK1, the tracker's ring beside letterboxes;
+        # DK1-DK4 below, its launches over phase 4's calls. No Pallas
+        # counterpart: it replaces the reference's jitted program of
+        # launch_divergent_batch
+        entry("divergent_split", "divergent_split.cu", "cvgpuspeedup_tpu/exec/executor.py:366",
+              split_launches, split_times["dk1_tracker_ring_beside_letterboxes"],
+              cases=split_times, registers=split_registers,
+              also_sources=[f"cvgpuspeedup_tpu_torch/csrc/{src.name}" for src in _build.SOURCES
+                            if src.name.startswith("divergent_split")]),
         # P1, the MAD stress (bound by its unfused operations); P1-P5 below. No
         # Pallas counterpart: it replaces the reference's jitted XLA program
         entry("pointwise", "pointwise.cu", "cvgpuspeedup_tpu/exec/executor.py:243",

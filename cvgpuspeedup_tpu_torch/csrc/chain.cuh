@@ -148,6 +148,16 @@ inline dim3 group_block(int dst_w, int pix) {
   return dim3(tx, 256 / tx);
 }
 
+// A thread's place in a block of the split kernel (divergent_split.cuh),
+// which takes its plane z and its tile (bx, by) from its index among its
+// part's blocks: the tile of bw x bh threads and the thread (tx, ty) in it,
+// as a kernel of its own launch reads them from blockIdx, blockDim and
+// threadIdx (composed.cuh::composed_body_at, composed_nested.cuh::
+// nested_body_at). Unsigned, as the indices are.
+struct Place {
+  unsigned z, bx, by, bw, bh, tx, ty;
+};
+
 __device__ __forceinline__ float byte_of(unsigned w, int i) {
   return (float)((w >> (8 * i)) & 0xffu);
 }

@@ -1,7 +1,7 @@
-// The split divergent kernel's nested instances of uint8 and int8 outputs
-// (divergent_split.cuh; the C entry in divergent_split.cu): K6's body beside
-// the composed part's nested body with a FusedRead2 alone, a second
-// resample per tap, or staged.
+// The split divergent kernel's nested instances over a composed part of
+// uint8 images with one store row (divergent_split.cuh; the C entry in
+// divergent_split.cu): K6's part beside the composed part's nested body
+// with a FusedRead2 alone, a second resample per tap, or staged.
 
 #include "divergent_split.cuh"
 

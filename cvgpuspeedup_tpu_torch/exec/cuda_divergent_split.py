@@ -10,9 +10,10 @@ beside image groups. The reference runs such a batch as one jitted program
 (``cvgpuspeedup_tpu/exec/executor.py:366-380``); its model, FKL's
 ``launchDivergentBatchTransformDPP_Kernel``, runs separate kernel programs
 per plane group within one launch (``SURVEY.md``, F9). So does this route
-(``cuda:divergent:split``): one launch of ``csrc/divergent_split*.cu``,
-grid.z the batch's planes, whose every block reads its plane's part and
-runs, uniformly per block, K6's body or the composed kernel's.
+(``cuda:divergent:split``): one launch of ``csrc/divergent_split*.cu``, a
+1-D grid of each part's blocks at the part's own tiling
+(:meth:`SplitPlan.tiles`), whose every block runs, uniformly, K6's body on
+a plane of K6's part or the composed kernel's on a plane of the other.
 
 The partition (:func:`partition`, once per structure and plane ids): a
 group goes to *K6's part* where K6 reads it (``cuda_divergent._classify``)
@@ -21,8 +22,10 @@ stack, ``resize_batch`` of a frame or of a stack) or it reads NV12 (the
 general composed instances read no NV12 buffer); every other group goes to
 *the composed part*, whose groups meet ``build_divergent_plan``'s rules
 among themselves (one output (C, H, W), all resampling or all one-pixel,
-one YUV conversion) and always run the general ``AnyImage`` instances, one
-level or nested, which read each plane's store row.
+one YUV conversion) and run, one level or nested, the uint8 body where
+every group of the part reads uint8 images with one store row
+(:attr:`SplitPlan.kind`), else the general ``AnyImage`` body, which reads
+each plane's store row.
 
 Each part keeps its own layout over the batch's planes (:func:`build_split_plan`):
 
@@ -42,7 +45,9 @@ layout. The parameter block is K6's part's block, then the composed part's
 (at ``Launch.cm_off``, a multiple of 16 bytes), gathered on the host and
 moved in one pinned non-blocking copy: new ``first`` s, rects, matrices,
 origins, ``used_planes`` and frames build no plan. The consts are K6's part's,
-then the composed part's (at ``SplitPlan.cm_consts_off``).
+then the plane lists (:attr:`SplitPlan.lists`: K6's planes in order, then
+the composed part's, padded to 16 bytes), then the composed part's (at
+``SplitPlan.cm_consts_off``).
 
 :func:`split_reference`, the plain version, is the eager merge
 (``cuda_divergent.merge``) on the launch's device: it reads neither the
@@ -71,7 +76,7 @@ from .cuda_batch_resize import TYPE_CODES, Unsupported
 from .cuda_divergent import FOREIGN, groups_of
 
 __all__ = ["Unsupported", "partition", "build_split_plan", "prepare", "split_reference",
-           "divergent_split", "run", "work", "instance", "LAUNCHES"]
+           "divergent_split", "run", "work", "instance", "PartTiles", "LAUNCHES"]
 
 #: launches of the CUDA kernel in this process
 LAUNCHES = 0
@@ -80,11 +85,38 @@ LAUNCHES = 0
 #: one-pixel read, a resample, nested with a FusedRead2 alone, a second
 #: resample per tap, staged where any plane's stage2 asks for it
 FORMS = ("one_pixel", "resample", "fused2", "per_tap", "staged")
-#: the output element type of K6's body in an instance, by the batch's dtype
-#: (csrc/chain.cuh::to_out), as a profiler names it
-_OUT_TYPES = {torch.uint8: "unsigned char", torch.int8: "unsigned char",
-              torch.uint16: "unsigned short", torch.int16: "unsigned short",
-              torch.float16: "f16", torch.float32: "float", torch.int32: "float"}
+#: the composed part's source kinds: uint8 images with one store row, any
+#: other (csrc/divergent_split.cuh), and each as a profiler names the
+#: instance's template argument
+KINDS = {"uint8": "unsigned char", "any": "AnyImage"}
+#: a tile of K6's part, and of the composed part but with a second
+#: resample: ``csrc/chain.cuh::group_block``'s 64 x 4 threads at one pixel a
+#: thread
+GROUP = (64, 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class PartTiles:
+    """One part's blocks in the launch (``csrc/divergent_split.cuh::
+    SplitPart``): its planes, whose ids start at word ``list`` of the plane
+    lists, each cut into ``tiles`` tiles, ``tiles_x`` across, of ``bw`` x
+    ``bh`` threads, one pixel a thread."""
+
+    planes: int
+    tiles_x: int
+    tiles: int
+    bw: int
+    bh: int
+    list: int
+
+    @property
+    def blocks(self) -> int:
+        return self.planes * self.tiles
+
+
+def _part_tiles(planes: int, w: int, h: int, block: Tuple[int, int], at: int) -> PartTiles:
+    tiles_x = -(-w // block[0])
+    return PartTiles(planes, tiles_x, tiles_x * -(-h // block[1]), *block, at)
 
 
 def partition(seqs, plane_ids) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
@@ -133,6 +165,13 @@ def _refuse_group(seqs, plane_ids, sid: int) -> None:
                           "instances read no NV12 buffer")
 
 
+def _lists(table: np.ndarray) -> np.ndarray:
+    """K6's planes (its table's entries not ``FOREIGN``) in order, then the
+    composed part's."""
+    return np.concatenate([np.flatnonzero(table != FOREIGN),
+                           np.flatnonzero(table == FOREIGN)]).astype(np.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class SplitPlan:
     """Both parts' plans over the batch's planes and the consts of one
@@ -142,7 +181,8 @@ class SplitPlan:
     plane_ids: Tuple[int, ...]
     k6: kd.DivergentPlan        # K6's part: its table marks the other part's planes FOREIGN
     composed: kc.ComposedPlan   # the composed part: heads and store rows at its planes alone
-    consts: np.ndarray          # int32: K6's consts, zero-padded to 4 words, then the composed
+    consts: np.ndarray          # int32: K6's consts, zero-padded to 4 words, the plane lists
+                                # (lists) zero-padded to 4 words, the composed part's tables
     cm_consts_off: int          # word offset of the composed part's consts
     #: per-device copies of the consts; the head words as a ctypes array
     device_consts: Dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
@@ -171,6 +211,34 @@ class SplitPlan:
     def parts(self) -> np.ndarray:
         """Each plane's part: 0 K6's, 1 the composed part's."""
         return (self.k6.table == FOREIGN).astype(np.int32)
+
+    @property
+    def lists(self) -> np.ndarray:
+        """The plane lists the kernel reads: K6's planes in order, then the
+        composed part's (int32, in the consts before the composed part's)."""
+        return _lists(self.k6.table)
+
+    @property
+    def kind(self) -> str:
+        """The composed part's source kind (``KINDS``), as the C entry picks
+        it: "uint8" where each of its planes reads a uint8 image and all
+        store with one row, else "any"."""
+        c = self.composed
+        mine = np.flatnonzero(self.parts)
+        u8 = all(c.for_plane(int(z)).base != "yuv" and c.for_plane(int(z)).src_dtype == torch.uint8
+                 for z in mine)
+        return "uint8" if u8 and len({c.stores[z] for z in mine}) == 1 else "any"
+
+    def tiles(self) -> Tuple[PartTiles, PartTiles]:
+        """Each part's blocks, K6's then the composed part's, as the C entry
+        chooses them: K6's part ``GROUP``, the composed part its form's tile
+        (``GROUP``, or ``TILE2`` with a second resample). The grid holds
+        K6's blocks, then the composed part's."""
+        w, h = self.dsize
+        n_k6 = int((self.parts == 0).sum())
+        tile = kc.TILE2 if self.form in ("per_tap", "staged") else GROUP
+        return (_part_tiles(n_k6, w, h, GROUP, 0),
+                _part_tiles(self.n_planes - n_k6, w, h, tile, n_k6))
 
     @property
     def nested(self) -> bool:
@@ -249,22 +317,25 @@ def build_split_plan(seqs, plane_ids) -> SplitPlan:
             f"the divergent kernel's part gives planes of {k6.out_ch} channel(s) of "
             f"{k6.dsize.width}x{k6.dsize.height}, the composed part of {cm.out_ch} of "
             f"{cm.dsize.width}x{cm.dsize.height}: the planes must stack")
-    pad = np.zeros(-k6.consts.size % 4, np.int32)  # the composed part's at 16 bytes
-    consts = np.concatenate([k6.consts, pad, cm.tables]).astype(np.int32)
+    # the plane lists at 16 bytes, padded so that they end where the
+    # composed part's consts start
+    pad = np.zeros(-k6.consts.size % 4, np.int32)
+    lists = np.concatenate([_lists(k6.table), np.zeros(-len(plane_ids) % 4, np.int32)])
+    consts = np.concatenate([k6.consts, pad, lists, cm.tables]).astype(np.int32)
     return SplitPlan(plane_ids=plane_ids, k6=k6, composed=cm, consts=consts,
-                     cm_consts_off=k6.consts.size + pad.size)
+                     cm_consts_off=consts.size - cm.tables.size)
 
 
 def instance(plan: SplitPlan) -> str:
     """The kernel instance a plan launches, as a profiler names it without
-    namespaces: K6's body for the batch's output element type beside the
-    composed part's form (csrc/divergent_split.cuh)."""
-    out = _OUT_TYPES[plan.out_dtype]
-    return {"one_pixel": f"divergent_split_kernel<{out}, 1>",
-            "resample": f"divergent_split_kernel<{out}, 4>",
-            "fused2": f"divergent_split_nested<{out}, false>",
-            "per_tap": f"divergent_split_nested<{out}, true>",
-            "staged": f"divergent_split_nested_staged<{out}>"}[plan.form]
+    namespaces: the composed part's form and source kind
+    (csrc/divergent_split.cuh); K6's part stores into any output type."""
+    src = KINDS[plan.kind]
+    return {"one_pixel": f"divergent_split_kernel<{src}, 1>",
+            "resample": f"divergent_split_kernel<{src}, 4>",
+            "fused2": f"divergent_split_nested<{src}, false>",
+            "per_tap": f"divergent_split_nested<{src}, true>",
+            "staged": f"divergent_split_nested_staged<{src}>"}[plan.form]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,7 +9,12 @@ machine with a card and without jax, run it alone:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda_divergent_split.py
 
 Every output must equal the plain version (the eager merge on the card)
-bit for bit (float as its bits), in one launch of the split kernel.
+bit for bit (float as its bits), in one launch of the split kernel: each
+of its 10 instances (the composed part's form x its source kind: the
+uint8 body, and the general one over float32 cameras or two sources), a
+large batch off both parts' tiles, K6's part holding plane 0 with another
+dtype than the composed part's, and every output element type through
+K6's run-time store.
 """
 
 import ctypes
@@ -171,3 +176,59 @@ def test_a_large_batch(cuda):
         seqs = _seqs(ops)
         a = ks.prepare(seqs, ks.build_split_plan(seqs, ids), cuda)
         _same(_one_launch(a), ks.split_reference(a))
+
+
+#: the split batches whose composed part, over float32 cameras and frame,
+#: runs the general body in each form (the uint8 body's are NAMES')
+ANY_FORMS = {"dk1_ring_beside_letterboxes": "resample", "dk6_float_part_into_a_u8_batch":
+             "one_pixel", "dk9_fused2_into_a_f16_batch": "fused2",
+             "dk4_nv12_beside_top_views": "per_tap", "dk8_staged_warps_into_a_u16_batch": "staged"}
+
+
+@pytest.mark.parametrize("name", sorted(ANY_FORMS))
+def test_the_general_instances(cuda, name):
+    """Each form's general instance (AnyImage): the composed part's cameras
+    and frame as float32, bit for bit the plain version."""
+    f = cc.split_frames(76)
+    f["wide"] = [c.astype(np.float32) for c in f["wide"]]
+    f["big"] = f["big"].astype(np.float32)
+    ids, ops = cc.split_cases(T, _on(cuda, f), 0, (name,))[name]
+    seqs = _seqs(ops)
+    plan = ks.build_split_plan(seqs, ids)
+    assert (plan.kind, plan.form) == ("any", ANY_FORMS[name])
+    assert ks.instance(plan).endswith(("<AnyImage, 1>", "<AnyImage, 4>", "<AnyImage, false>",
+                                       "<AnyImage, true>", "<AnyImage>"))
+    a = ks.prepare(seqs, plan, cuda)
+    _same(_one_launch(a), ks.split_reference(a))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_a_batch_off_both_parts_tiles(cuda, dtype):
+    """A ring of 8 planes of 241x403 beside the cameras resized to it: 3,416
+    blocks, a width off both parts' tiles; the composed part's uint8 body,
+    or over float32 cameras the general one."""
+    ids, ops = cc.split_large(T, np.float32)
+    seqs = _seqs(ops)
+    if dtype == np.float32:
+        seqs = (seqs[0], T.build_operation_sequence(
+            T.batch_read([T.resize(T.image(torch.from_numpy(c.astype(np.float32)).to(cuda)),
+                                   T.Size(403, 241)) for c in cc.split_frames(94)["wide"]]),
+            T.convert_to(np.float32, alpha=1 / 255.0), T.split_tensor()))
+    plan = ks.build_split_plan(seqs, ids)
+    assert sum(p.blocks for p in plan.tiles()) == 2 * 4 * 7 * 61
+    assert plan.kind == ("uint8" if dtype == np.uint8 else "any")
+    a = ks.prepare(seqs, plan, cuda)
+    _same(_one_launch(a), ks.split_reference(a))
+
+
+@pytest.mark.parametrize("dtype", cc.SPLIT_OUT_DTYPES)
+def test_every_output_type_through_the_run_time_store(cuda, dtype):
+    """K6's part at plane 0 (a ring of the batch's dtype) stores into each
+    output element type through its run-time store, beside letterboxes
+    converted into it."""
+    ids, ops = cc.split_ring_beside_letterboxes(T, _on(cuda, cc.split_frames(77)), dtype)
+    seqs = _seqs(ops)
+    plan = ks.build_split_plan(seqs, ids)
+    assert plan.out_dtype == getattr(torch, dtype) and plan.parts[0] == 0
+    a = ks.prepare(seqs, plan, cuda)
+    _same(_one_launch(a), ks.split_reference(a))

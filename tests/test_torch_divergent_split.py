@@ -28,6 +28,13 @@ words, and what still stays eager and why.
   planes), K6's descriptors, the composed heads and store rows at its
   planes alone, the consts and the block of both parts; new values build
   no plan; ``work`` sums the parts.
+- The launch's geometry (``csrc/divergent_split.cuh``): each part's plane
+  list in the consts, its tiles (``SplitPlan.tiles``: K6's part at
+  ``group_block``'s 64 x 4, the composed part at its form's tile), the
+  composed part's source kind and the instance it names, and a Python
+  decoder of each block's part, plane and tile, as the kernel decodes
+  them, covering every output pixel exactly once; every output element
+  type through the run-time store.
 - Refusals: a group no part takes, an empty part, an NV12 group that would
   fall to the composed part, a part that breaks its own rules, parts that
   do not stack: each an ``Unsupported`` naming why; ``ParBackend.CUDA``
@@ -44,6 +51,7 @@ import cvgpuspeedup_tpu_torch as T
 from cvgpuspeedup_tpu_torch.exec import cuda_composed as kc
 from cvgpuspeedup_tpu_torch.exec import cuda_divergent as kd
 from cvgpuspeedup_tpu_torch.exec import cuda_divergent_split as ks
+from cvgpuspeedup_tpu_torch.exec import cuda_pointwise as kp
 from cvgpuspeedup_tpu_torch.exec import executor
 from cvgpuspeedup_tpu_torch.graph import flatten
 from cvgpuspeedup_tpu_torch.interop.from_jax import from_jax
@@ -335,3 +343,145 @@ def test_the_other_routes_keep_their_batches():
             "cuda:composed:divergent", name
         with pytest.raises(ks.Unsupported, match="no group of a kind only"):
             ks.build_split_plan(seqs, ids)
+
+
+NAMES = cc.SPLIT_NAMES + cc.SPLIT_MORE
+#: the composed part's source kind of each split batch: uint8 images with
+#: one store row, else any (the general AnyImage body)
+KIND = {**{name: "uint8" for name in NAMES},
+        "dk3_stack_resized_beside_sensor_rois": "any",
+        "dk10_two_sources_in_the_composed_part": "any"}
+
+
+def _plan(name, f=None):
+    ids, ops = cc.split_cases(T, f or cc.split_frames(93), 0, (name,))[name]
+    seqs = _tseqs(ops)
+    return seqs, ids, ks.build_split_plan(seqs, ids)
+
+
+def _large(dtype=np.float32):
+    ids, ops = cc.split_large(T, dtype)
+    seqs = _tseqs(ops)
+    return seqs, ids, ks.build_split_plan(seqs, ids)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_the_plane_lists_and_the_tiles(name):
+    """The plane lists (K6's planes in order, then the composed part's) in
+    the consts, ending where the composed part's consts start, after K6's;
+    each part's tiles as the C entry chooses them on an H100."""
+    _, _, plan = _plan(name)
+    n, parts = plan.n_planes, plan.parts
+    k6, cm = np.flatnonzero(parts == 0).tolist(), np.flatnonzero(parts == 1).tolist()
+    assert plan.lists.tolist() == k6 + cm
+    at = plan.cm_consts_off - -(-n // 4) * 4
+    assert at % 4 == 0 and at >= plan.k6.consts.size
+    assert plan.consts[at:at + n].tolist() == k6 + cm and not plan.consts[at + n:at + -(-n // 4) * 4].any()
+    assert np.array_equal(plan.consts[:plan.k6.consts.size], plan.k6.consts)
+    assert np.array_equal(plan.consts[plan.cm_consts_off:], plan.composed.tables)
+    kt, ct = plan.tiles()
+    w, h = plan.dsize
+    assert (kt.planes, kt.list, ct.planes, ct.list) == (len(k6), 0, len(cm), len(k6))
+    assert (kt.bw, kt.bh) == ks.GROUP == (64, 4)
+    assert (ct.bw, ct.bh) == (kc.TILE2 if plan.form in ("per_tap", "staged") else (64, 4))
+    for p in (kt, ct):
+        assert p.tiles_x == -(-w // p.bw) and p.tiles == p.tiles_x * -(-h // p.bh)
+        assert p.blocks == p.planes * p.tiles
+
+
+def test_a_large_batch_s_tiles():
+    """A ring of 8 planes of 241x403 beside cameras resized to it: each
+    part 4 planes of 7 x 61 tiles of 64 x 4 threads, the last column of
+    tiles 13 pixels wide."""
+    _, _, plan = _large()
+    kt, ct = plan.tiles()
+    assert kt == ks.PartTiles(4, 7, 7 * 61, 64, 4, 0)
+    assert ct == ks.PartTiles(4, 7, 7 * 61, 64, 4, 4) and plan.form == "resample"
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_the_composed_part_s_source_kind_and_instance(name):
+    """The composed part's source kind as the C entry reads it from the
+    heads it takes (each plane of the part an image of uint8, one store
+    row), and the instance ``instance`` names: the form x the kind."""
+    _, _, plan = _plan(name)
+    width = kc.NESTED_INTS if plan.nested else kc.HEAD_INTS
+    words = np.asarray(plan.head_words()[:])
+    n, mine = plan.n_planes, np.flatnonzero(plan.parts)
+    heads = words[:n * width].reshape(n, width)[mine]
+    rows = words[n * width:n * (width + 1)][mine]
+    u8 = ((heads[:, 0] != kp.BASES.index("yuv")) & (heads[:, 4] == kp.SRC_CODES[torch.uint8])
+          ).all() and len(set(rows.tolist())) == 1
+    assert plan.kind == ("uint8" if u8 else "any") == KIND[name]
+    src = {"uint8": "unsigned char", "any": "AnyImage"}[KIND[name]]
+    assert ks.instance(plan) == {
+        "one_pixel": f"divergent_split_kernel<{src}, 1>",
+        "resample": f"divergent_split_kernel<{src}, 4>",
+        "fused2": f"divergent_split_nested<{src}, false>",
+        "per_tap": f"divergent_split_nested<{src}, true>",
+        "staged": f"divergent_split_nested_staged<{src}>"}[plan.form]
+
+
+def test_two_store_rows_take_the_general_body():
+    """DK6 with a second composed group whose uint8 values need no row into
+    the uint8 batch, beside the float32 one's saturating row: two store
+    rows, so the general body, which reads each plane's."""
+    f = cc.split_frames(95)
+    ids, ops = cc.split_cases(T, f, 0, ("dk6_float_part_into_a_u8_batch",))[
+        "dk6_float_part_into_a_u8_batch"]
+    crops = ops[1][0]
+    seqs = _tseqs((*ops, (crops, T.write_tensor())))
+    plan = ks.build_split_plan(seqs, [1, 2, 3] * 2 + [1, 2])
+    assert len({plan.composed.stores[z] for z in np.flatnonzero(plan.parts)}) == 2
+    assert plan.kind == "any" and ks.instance(plan) == "divergent_split_kernel<AnyImage, 1>"
+
+
+def _blocks(plan):
+    """Each output pixel's count of the threads that write it and the part
+    of the blocks that write each plane, as csrc/divergent_split.cuh decodes
+    a block of the 1-D grid (k6_block, part_tile, tile_place, k6_part and
+    the composed bodies' pixel): K6's part's blocks first, then the
+    composed part's; a block's part by its index against K6's part's
+    blocks, its plane from the part's list, its tile, each thread's
+    pixel."""
+    k6, cm = plan.tiles()
+    lists = plan.lists
+    w, h = plan.dsize
+    cover = np.zeros((plan.n_planes, h, w), np.int64)
+    part = np.full(plan.n_planes, -1)
+    for b in range(k6.blocks + cm.blocks):
+        p = k6 if b < k6.blocks else cm
+        local = b if b < k6.blocks else b - k6.blocks
+        plane, t = divmod(local, p.tiles)
+        by, bx = divmod(t, p.tiles_x)
+        z = int(lists[p.list + plane])
+        ty, tx = np.divmod(np.arange(256), p.bw)
+        y, x = by * p.bh + ty, bx * p.bw + tx
+        on = (x < w) & (y < h)
+        np.add.at(cover, (z, y[on], x[on]), 1)
+        assert part[z] in (-1, int(p is cm)), (z, part[z])
+        part[z] = int(p is cm)
+    return cover, part
+
+
+@pytest.mark.parametrize("name", NAMES + ("large",))
+def test_the_blocks_cover_every_pixel_once(name):
+    """Decoded block by block, the launch writes every output pixel of
+    every plane exactly once, each plane by its own part's blocks."""
+    _, _, plan = _large() if name == "large" else _plan(name)
+    cover, part = _blocks(plan)
+    assert (cover == 1).all(), np.argwhere(cover != 1)[:5]
+    assert part.tolist() == plan.parts.tolist()
+
+
+@pytest.mark.parametrize("dtype", cc.SPLIT_OUT_DTYPES)
+def test_every_output_type_takes_the_split_plan(dtype):
+    """A ring of each output element type beside letterboxes converted into
+    it: one split plan (the uint8 body, one store row), a batch of that
+    dtype, the plain version equal to the eager merge."""
+    ids, ops = cc.split_ring_beside_letterboxes(T, cc.split_frames(96), dtype)
+    seqs = _tseqs(ops)
+    plan = ks.build_split_plan(seqs, ids)
+    assert plan.out_dtype == getattr(torch, dtype) and plan.kind == "uint8"
+    eager = T.launch_divergent_batch(ids, *seqs, device="cpu")
+    _assert_equal(ks.divergent_split(ks.prepare(seqs, plan, CPU)), eager, dtype)

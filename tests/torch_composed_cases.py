@@ -841,7 +841,8 @@ SPLIT_NAMES = ("dk1_ring_beside_letterboxes", "dk2_crops_beside_aligned_faces",
 SPLIT_MORE = ("dk1_ring_descending", "dk5_ragged_groups", "dk6_float_part_into_a_u8_batch",
               "dk7_integer_part_into_a_f32_batch", "dk8_staged_warps_into_a_u16_batch",
               "dk9_fused2_into_a_f16_batch", "ring_beside_a_composed_group",
-              "resize_batch_beside_a_composed_group", "nested_group_beside_a_ring")
+              "resize_batch_beside_a_composed_group", "nested_group_beside_a_ring",
+              "dk10_two_sources_in_the_composed_part")
 #: the scale that brings a ring of each dtype to a few hundred
 RING_SCALE = {"uint8": 1.0, "int8": 2.0, "uint16": 1 / 16.0, "float16": 1.0}
 
@@ -913,7 +914,11 @@ def split_cases(M, f: dict, values: int = 0, names=None) -> dict:
     - the three batches ``test_torch_divergent_composed.py`` kept eager
       before this route: a ring beside a one-level group (cameras resized to
       24x20), ``resize_batch`` beside a one-level group, a nested group
-      (top views rotated, resized) beside a ring.
+      (top views rotated, resized) beside a ring;
+    - DK10 DK3's stack resized beside two composed groups of two sources,
+      the sensor's ROIs (uint16) and the cameras resized to 16x12 (uint8):
+      a composed part of any image source (the general body), ids
+      [1, 2, 3] * 2 + [1, 2].
 
     ``values`` 1 moves every runtime value (``first``, rects, matrices,
     origins, border values, ``used_planes``) and keeps every size: no
@@ -1040,5 +1045,41 @@ def split_cases(M, f: dict, values: int = 0, names=None) -> dict:
             (rotated(), M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()),
             (M.circular_batch_read(_cast(stack[:, :20, :24], "float32"), first=-1 - values),
              M.multiply(1 / 255.0), M.split_tensor()))),
+        "dk10_two_sources_in_the_composed_part": lambda: ([1, 2, 3] * 2 + [1, 2], (
+            (M.resize_batch(list(stack), dsize=M.Size(16, 12)),
+             M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()),
+            (rois(), M.convert_to(np.float32, alpha=1 / 4095.0), M.split_tensor()),
+            (M.batch_read([M.resize(M.image(c), M.Size(16, 12)) for c in wide]),
+             M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()))),
     }
     return {k: make() for k, make in cases.items() if names is None or k in names}
+
+
+def split_large(M, dtype=np.float32):
+    """A ring of 8 planes of 241x403 (of ``dtype``) beside eight 36x64 uint8
+    cameras resized to 403x241, ids [1, 2] * 4: each part 4 planes, a
+    width and a height off both parts' tiles."""
+    f = split_frames(94)
+    ring = (np.arange(8 * 241 * 403 * 3) % 251).reshape(8, 241, 403, 3).astype(dtype)
+    return [1, 2] * 4, (
+        (M.circular_batch_read(ring, first=5), M.multiply(1 / 255.0), M.split_tensor()),
+        (M.batch_read([M.resize(M.image(c), M.Size(403, 241)) for c in f["wide"]]),
+         M.convert_to(np.float32, alpha=1 / 255.0), M.split_tensor()))
+
+
+#: the output element types of a split batch
+SPLIT_OUT_DTYPES = ("uint8", "int8", "uint16", "int16", "float16", "float32", "int32")
+
+
+def split_ring_beside_letterboxes(M, f: dict, dtype: str):
+    """``f``'s ring (:func:`split_frames`) as ``dtype``, no chain, at plane 0
+    beside letterboxes of its cameras into 16x16 converted into ``dtype``
+    (x0.5), ids [1, 2] * 4: a batch of ``dtype``, which the split kernel's
+    K6 part stores into through its run-time store."""
+    wide = f["wide"]
+    h, w = wide[0].shape[:2]
+    (iw, ih), (t, b, l, r) = letterbox(w, h, 16)
+    boxes = M.batch_read([M.make_border(M.resize(M.image(c), M.Size(iw, ih)), t, b, l, r,
+                                        M.BorderMode.CONSTANT, 114) for c in wide])
+    return [1, 2] * 4, ((M.circular_batch_read(_cast(f["ring"], dtype), first=3), M.split_tensor()),
+                        (boxes, M.convert_to(getattr(np, dtype), alpha=0.5), M.split_tensor()))

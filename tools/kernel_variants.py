@@ -2,6 +2,7 @@
 """Time variants of the port's CUDA kernels against each other on one card.
 
     python3 tools/kernel_variants.py variants.json [rounds [cases]] [--sass]
+        [--variants=a,b,...]
 
 ``variants.json`` maps a variant's name to a list of text substitutions
 applied to the files of ``cvgpuspeedup_tpu_torch/csrc``: ``[old, new]`` in
@@ -14,7 +15,9 @@ flushed). ``"probe": true`` in such an object marks a variant that
 changes outputs on purpose (a part of a kernel switched off at run time, to
 see what that part costs): it is timed, its outputs are not compared, and
 it is never a candidate to keep. With ``--sass`` each variant's float32
-rule is read from its SASS (``tools/kernel_sass.py::ftz_census``). A string instead of a list names
+rule is read from its SASS (``tools/kernel_sass.py::ftz_census``).
+``--variants=a,b,...`` builds and times those variants of the file alone, in
+the file's order. A string instead of a list names
 another directory of sources, relative to the repo's root (an older commit's
 ``csrc`` unpacked with ``git archive``), whose C interface must equal the
 present one (``_build.load`` declares the present signatures): since K1,
@@ -39,7 +42,10 @@ float32 and float64 groups, which are all of them. For example::
      "warp_per_byte": [["if constexpr (sizeof(SrcT) == 1) {", "if constexpr (false) {"]]}
 
 Each variant's sources are written to a directory of their own and built
-into a library of their own (``_build.load(csrc_dir, build_dir)``). Then, in
+into a library of their own (``build_variant``, which ``_build.load(csrc_dir,
+build_dir)`` then loads: the objects of all variants kept in one directory
+under a hash of each source, its headers and the command, so that a variant
+compiles only the sources it changes). Then, in
 ``rounds`` rounds (6 unless given) over all variants in turn, these launches
 are timed by CUDA events (median of 50) and by ``torch.profiler`` (median
 kernel duration of 20 launches), in microseconds:
@@ -116,8 +122,11 @@ sense within one run.
 
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 import re
+import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -198,12 +207,66 @@ def uses_source_flags(csrc: Path) -> bool:
     return "int src_u8" in (csrc / "batch_resize.cu").read_text()
 
 
+def included(source: Path, seen: list) -> list:
+    """The headers ``source`` includes by name from its own directory, and
+    theirs, in the order first met."""
+    for name in re.findall(r'#include "([^"]+)"', source.read_text()):
+        header = source.parent / name
+        if header.exists() and header not in seen:
+            seen.append(header)
+            included(header, seen)
+    return seen
+
+
+def object_key(source: Path, command) -> str:
+    """A hash of one source's object: the source, the headers it includes
+    and its compile command (``command(nvcc, source, output)``)."""
+    h = hashlib.sha256()
+    for f in [source, *included(source, [])]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(command("nvcc", Path("src.cu"), Path("src.o"))).encode())
+    return h.hexdigest()[:24]
+
+
+def build_variant(build, d: Path, objects: Path) -> str:
+    """Build the sources in ``d`` into the library that ``build.load(d, d /
+    "out")`` loads (``build`` the package's ``exec/_build.py``), compiling
+    only the sources whose object is not in ``objects`` yet, each kept there
+    under its ``object_key`` beside its compiler output. Returns the
+    compiler output of every source (ptxas's registers and spills)."""
+    objects.mkdir(parents=True, exist_ok=True)
+    sources = sorted(d.glob("*.cu"))
+    objs = [objects / f"{s.stem}.{object_key(s, build.compile_command)}.o" for s in sources]
+    path = build.library_path(d, d / "out")
+    if not path.exists():
+        nvcc = build.find_nvcc()
+        todo = [(s, o) for s, o in zip(sources, objs) if not o.exists()]
+        tmp = [o.with_name(f"{o.name}.{os.getpid()}.tmp.o") for _, o in todo]
+        procs = [subprocess.Popen(build.compile_command(nvcc, s, t), stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for (s, _), t in zip(todo, tmp)]
+        for p, t, (_, o) in zip(procs, tmp, todo):
+            o.with_suffix(".log").write_text(build._run([p], "compile"))
+            os.replace(t, o)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        linked = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+        build._run([subprocess.Popen(build.link_command(nvcc, objs, linked),
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)],
+                   "link")
+        os.replace(linked, path)
+    return "".join(o.with_suffix(".log").read_text() for o in objs)
+
+
 def main() -> int:
     import torch
 
     sass = "--sass" in sys.argv
     if sass:
         sys.argv.remove("--sass")
+    picked = [a for a in sys.argv if a.startswith("--variants=")]
+    for a in picked:
+        sys.argv.remove(a)
     if len(sys.argv) not in (2, 3, 4):
         print(__doc__, file=sys.stderr)
         return 2
@@ -229,6 +292,12 @@ def main() -> int:
 
     variants = json.loads(Path(sys.argv[1]).read_text())
     listed = variants.pop("cases", None)
+    if picked:
+        keep = picked[-1].split("=", 1)[1].split(",")
+        if set(keep) - set(variants):
+            print(f"no variant named {sorted(set(keep) - set(variants))}", file=sys.stderr)
+            return 2
+        variants = {k: v for k, v in variants.items() if k in keep}
     rounds = int(sys.argv[2]) if len(sys.argv) >= 3 else 6
     listed = sys.argv[3] if len(sys.argv) == 4 else listed
     only = set(listed.split(",")) if listed else None
@@ -431,8 +500,8 @@ def main() -> int:
     _build.compile_command = variant_command  # the library's name hashes it too
 
     def use(d):
-        """Build (once) and load the sources in ``d``, the library every
-        wrapper launches from from now on."""
+        """Load the sources in ``d``, built by ``build_variant``: the library
+        every wrapper launches from from now on."""
         current["d"] = d
         lib = _build.load(d, d / "out")
         if not takes_any_src(d):
@@ -442,6 +511,7 @@ def main() -> int:
 
     csrc = ROOT / "cvgpuspeedup_tpu_torch" / "csrc"
     with tempfile.TemporaryDirectory(prefix="kernel_variants_") as tmp:
+        objects = Path(tmp) / "objects"
         dirs = {}
         first_regs = None
         for vname, subs in variants.items():
@@ -476,10 +546,12 @@ def main() -> int:
                 print(f"{vname}: no source holds {sorted(unused)}", file=sys.stderr)
                 return 1
             dirs[vname] = d
+            current["d"] = d
+            log = build_variant(_build, d, objects)
             use(d)
             entry = ""
             regs = {}
-            for line in _build.BUILD_LOG.splitlines():
+            for line in log.splitlines():
                 if "Compiling entry" in line:
                     found = re.search(r"\d\d([a-z_]+_kernel(?:_nested(?:_staged)?)?)I(\w+?)EEv",
                                       line.split("'")[1])
